@@ -1,0 +1,114 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes`` — no
+PyTorch headers, so a build takes seconds.  Builds happen at first use
+(never at import: the CPU tests import every module), all sources in
+parallel, into ``_build/`` next to this file (listed in ``.gitignore``).
+A library's file name carries a digest of its source and flags, so an
+edited source rebuilds and an unchanged one is reused.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+from .base import MXNetError
+
+__all__ = ["SOURCES", "build", "lib", "BUILD_LOG"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+SOURCES = ("fused_fwd", "paged_decode")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# name -> loaded ctypes library; name -> nvcc's stderr (ptxas register
+# and shared-memory report) from the build that produced it
+_LIBS = {}
+BUILD_LOG = {}
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise MXNetError("nvcc not found: the CUDA kernels build only on a "
+                         "machine with the CUDA toolkit")
+    return path
+
+
+def _target(name):
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, "lib%s-%s.so"
+                        % (name, digest.hexdigest()[:12]))
+
+
+def _declare(name, cdll):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "fused_fwd":
+        # dtype, x, scale, shift, w, bias, residual, y, ysum, ysumsq,
+        # M, K, N, relu, stream
+        cdll.fused_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p,
+                                   i, i, i, i, p]
+        cdll.fused_fwd.restype = i
+    else:
+        # pool dtype, q, kpool, vpool, kscale, vscale, table, lens,
+        # acc, m, l, B, tq, H, Hkv, Dk, Dv, pt, M, S, TQ, scale, stream
+        cdll.paged_decode.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
+                                      i, i, i, i, i, i, i, i, i, i, f, p]
+        cdll.paged_decode.restype = i
+        cdll.paged_decode_smem_bytes.argtypes = [i, i, i]
+        cdll.paged_decode_smem_bytes.restype = i
+    cdll.mx_error_string.argtypes = [i]
+    cdll.mx_error_string.restype = ctypes.c_char_p
+    return cdll
+
+
+def build(names=SOURCES):
+    """Compile (all at once) and load every named kernel library that is
+    not loaded yet; returns ``{name: ctypes.CDLL}``."""
+    todo = [n for n in names if n not in _LIBS]
+    if todo:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for name in todo:
+            out = _target(name)
+            if os.path.exists(out):
+                continue
+            procs[name] = (out, subprocess.Popen(
+                [_nvcc()] + NVCC_FLAGS
+                + ["-o", out + ".tmp", os.path.join(CSRC, name + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        failed = []
+        for name, (out, proc) in procs.items():
+            stdout, stderr = proc.communicate()
+            BUILD_LOG[name] = (stdout + stderr).decode(errors="replace")
+            if proc.returncode != 0:
+                failed.append("%s:\n%s" % (name, BUILD_LOG[name]))
+            else:
+                os.replace(out + ".tmp", out)
+        if failed:
+            raise MXNetError("nvcc failed for " + "\n".join(failed))
+        for name in todo:
+            _LIBS[name] = _declare(name, ctypes.CDLL(_target(name)))
+    return {n: _LIBS[n] for n in names}
+
+
+def lib(name):
+    """The loaded library of one kernel, built at first use."""
+    got = _LIBS.get(name)
+    return got if got is not None else build((name,))[name]
+
+
+def check(cdll, rc, what):
+    """Raise when a launch returned a CUDA error (``cudaGetLastError``
+    right after the launch: a refused launch never runs, and a later
+    synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError("%s launch failed: CUDA error %d (%s)"
+                           % (what, rc, cdll.mx_error_string(rc).decode()))

@@ -1,0 +1,44 @@
+"""Parameters from the JAX package into the port.
+
+:func:`params_from_jax` takes the JAX package's parameters — numpy
+arrays (or anything ``np.asarray`` reads) keyed by ``arg:``/``aux:``
+names or bare names — and returns the port's ``{name: torch.Tensor}``
+on a chosen device, so both packages compute the same thing from the
+same numbers.  Loading ``.params`` files is not part of this slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .context import resolve_device
+
+__all__ = ["params_from_jax", "to_tensors"]
+
+
+def _strip(name):
+    for prefix in ("arg:", "aux:"):
+        if name.startswith(prefix):
+            return name[len(prefix):]
+    return name
+
+
+def to_tensors(params, device):
+    """``{name: tensor}`` on ``device`` (a ``torch.device``) from a dict of
+    tensors or arrays, ``arg:``/``aux:`` prefixes dropped."""
+    out = {}
+    for key, value in params.items():
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.array(value, copy=True))
+        out[_strip(key)] = value.to(device)
+    return out
+
+
+def params_from_jax(arg_params, aux_params=None, device=None):
+    """The JAX package's ``(arg_params, aux_params)`` as the port's
+    tensors on ``device`` (default: the card; pass ``device="cpu"`` for
+    the host)."""
+    merged = dict(arg_params)
+    for key, value in (aux_params or {}).items():
+        merged["aux:" + _strip(key)] = value
+    return to_tensors(merged, resolve_device(device))

@@ -27,6 +27,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test, excluded from tier-1 "
         "(-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernels); "
+        "skips without one")
 
 
 # Do NOT arm jax's persistent compilation cache here: on this

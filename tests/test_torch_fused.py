@@ -1,0 +1,162 @@
+"""Kernel A of the PyTorch port (mxnet_tpu_torch.ops.fused_kernel) and
+the FusedLNLinear op, held against the JAX package's fused forward.
+
+On the CPU the port's wrapper runs its plain PyTorch version; it is
+compared with ``pallas_fused.fused_scale_relu_matmul(..., interpret=True)``
+(the TPU kernel in Pallas's interpreter) and ``pallas_fused.reference_impl``
+on the same numpy inputs, for every relu/residual/bias combination the LM
+uses.  f32 parity is rtol 1e-5: the same products summed in another
+order.  The CUDA kernel itself is held against the plain version on the
+card by tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mxnet_tpu.ops import pallas_fused as pf
+from mxnet_tpu_torch.ops import fused_kernel as fk
+from mxnet_tpu_torch.ops import fused_lm
+from mxnet_tpu_torch.registry import OpContext, get_op
+
+torch.set_num_threads(1)
+
+# (relu, residual, bias): q/k/v/ffn1 segments, the ffn2 segment, and the
+# remaining combinations of the kernel's options
+COMBOS = [(False, False, True), (True, True, True), (False, True, True),
+          (True, False, True), (False, False, False), (True, True, False)]
+
+
+def _inputs(seed, m, k, n):
+    rng = np.random.RandomState(seed)
+    return dict(x=rng.randn(m, k).astype(np.float32),
+                scale=(1.0 + 0.1 * rng.randn(k)).astype(np.float32),
+                shift=(0.1 * rng.randn(k)).astype(np.float32),
+                w=(rng.randn(n, k) / np.sqrt(k)).astype(np.float32),
+                bias=(0.1 * rng.randn(n)).astype(np.float32),
+                res=rng.randn(m, n).astype(np.float32))
+
+
+@pytest.mark.parametrize("relu,has_res,has_bias", COMBOS)
+def test_wrapper_matches_pallas_interpret_and_reference(relu, has_res,
+                                                        has_bias):
+    d = _inputs(0, 16, 24, 8)
+    res = d["res"] if has_res else None
+    bias = d["bias"] if has_bias else None
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    before = fk.LAUNCHES["fused_fwd"]
+    y, s1, s2 = fk.fused_scale_relu_matmul(
+        t["x"], t["scale"], t["shift"], t["w"],
+        residual=t["res"] if has_res else None, relu=relu,
+        bias=t["bias"] if has_bias else None, wt=True)
+    # a CPU tensor never launches the kernel
+    assert fk.LAUNCHES["fused_fwd"] == before
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    ref_i = pf.fused_scale_relu_matmul(
+        j["x"], j["scale"], j["shift"], j["w"],
+        residual=j["res"] if has_res else None, relu=relu,
+        bias=j["bias"] if has_bias else None, wt=True, interpret=True)
+    ref_r = pf.reference_impl(
+        j["x"], j["scale"], j["shift"], j["w"],
+        residual=None if res is None else j["res"], relu=relu,
+        bias=None if bias is None else j["bias"], wt=True)
+    for ref in (ref_i, ref_r):
+        for got, want in zip((y, s1, s2), ref):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_plain_matches_reference_impl():
+    """bf16 inputs: the activation and y round to bf16 at the same
+    places as reference_impl; one bf16 ulp (2^-8 relative) covers a
+    rounding flip from the f32 sums' order."""
+    d = _inputs(1, 8, 32, 16)
+    xb = torch.from_numpy(d["x"]).to(torch.bfloat16)
+    wb = torch.from_numpy(d["w"]).to(torch.bfloat16)
+    rb = torch.from_numpy(d["res"]).to(torch.bfloat16)
+    y, s1, _ = fk.fused_scale_relu_matmul(
+        xb, torch.from_numpy(d["scale"]), torch.from_numpy(d["shift"]), wb,
+        residual=rb, relu=True, bias=torch.from_numpy(d["bias"]))
+    assert y.dtype == torch.bfloat16
+    ry, rs1, _ = pf.reference_impl(
+        jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(d["scale"]), jnp.asarray(d["shift"]),
+        jnp.asarray(wb.float().numpy()).astype(jnp.bfloat16),
+        residual=jnp.asarray(rb.float().numpy()).astype(jnp.bfloat16),
+        relu=True, bias=jnp.asarray(d["bias"]), wt=True)
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(ry, np.float32),
+                               rtol=2 ** -8, atol=2 ** -8)
+    np.testing.assert_allclose(s1.numpy(), np.asarray(rs1), rtol=1e-2,
+                               atol=1e-1)
+
+
+def _op_inputs(d, relu, has_res):
+    attrs = {"num_hidden": str(d["w"].shape[0])}
+    x3 = torch.from_numpy(d["x"]).reshape(2, -1, d["x"].shape[1])
+    k = d["x"].shape[1]
+    gamma = torch.from_numpy(d["scale"]).reshape(1, 1, k)
+    beta = torch.from_numpy(d["shift"]).reshape(1, 1, k)
+    ins = [x3]
+    if relu:
+        # the LM's ffn2 segment: ReLU prologue, no LN affine, residual
+        attrs.update(relu="True", no_affine="True")
+    else:
+        ins += [gamma, beta]
+    if has_res:
+        attrs["has_residual"] = "True"
+        ins.append(torch.from_numpy(d["res"]).reshape(2, -1,
+                                                      d["res"].shape[1]))
+    ins += [torch.from_numpy(d["w"]), torch.from_numpy(d["bias"])]
+    return attrs, ins
+
+
+@pytest.mark.parametrize("relu,has_res", [(False, False), (True, True)])
+def test_fused_ln_linear_op_matches_jax_op(relu, has_res):
+    """The registered op (the graph node attention_lm emits) equals the
+    JAX package's FusedLNLinear on the same inputs, and records the
+    plain path on the CPU."""
+    from mxnet_tpu.registry import OpContext as JOpContext
+    from mxnet_tpu.registry import get_op as jget_op
+
+    d = _inputs(2, 12, 16, 20)
+    attrs, ins = _op_inputs(d, relu, has_res)
+    op = get_op("FusedLNLinear")
+    (y,), _ = op.fcompute(op.parse_attrs(attrs), ins, [], OpContext())
+    assert fused_lm.FUSED_PATH["last"] == "plain"
+    jop = jget_op("FusedLNLinear")
+    (jy,), _ = jop.fcompute(jop.parse_attrs(attrs),
+                            [jnp.asarray(t.numpy()) for t in ins], [],
+                            JOpContext())
+    assert tuple(y.shape) == tuple(jy.shape) == (2, 6, 20)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_op_gates_dtypes_the_kernel_does_not_take():
+    """The op has two paths, kernel and plain version.  On the CPU any
+    float dtype takes the plain version; off the CPU a dtype the kernel
+    does not take (f16 here, on ``meta`` tensors that stand in for the
+    card's) raises instead of running anything quietly."""
+    d = _inputs(3, 4, 8, 4)
+    attrs, ins = _op_inputs(d, False, False)
+    op = get_op("FusedLNLinear")
+    pattrs = op.parse_attrs(attrs)
+    (y,), _ = op.fcompute(pattrs, [t.double() for t in ins], [], OpContext())
+    assert fused_lm.FUSED_PATH["last"] == "plain"
+    assert y.dtype == torch.float64
+    (y32,), _ = op.fcompute(pattrs, ins, [], OpContext())
+    np.testing.assert_allclose(y.numpy(), y32.numpy(), rtol=1e-6)
+    fused_lm.FUSED_PATH["last"] = None
+    with pytest.raises(ValueError, match="float16"):
+        op.fcompute(pattrs, [t.to("meta", torch.float16) for t in ins], [],
+                    OpContext())
+    assert fused_lm.FUSED_PATH["last"] is None
+
+
+def test_wrapper_rejects_other_devices():
+    x = torch.zeros((2, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fk.fused_scale_relu_matmul(x, x[0], x[0], x)
+
