@@ -83,7 +83,10 @@ fused_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       const int gm = m0 + r, gk = k0 + c;
       float a = 0.f;
       if (gm < M && gk < K) {
-        a = to_f32(x[(size_t)gm * K + gk]) * scale[gk] + shift[gk];
+        // multiply and add each rounded (no FMA), as the plain version's
+        // two torch ops: an FMA flips some bf16 roundings of a
+        a = __fadd_rn(__fmul_rn(to_f32(x[(size_t)gm * K + gk]), scale[gk]),
+                      shift[gk]);
         if (relu) a = fmaxf(a, 0.f);
         // the matmul operand is the activation cast to x's dtype
         a = to_f32(from_f32<T>(a));

@@ -23,7 +23,7 @@ __all__ = ["SOURCES", "build", "lib", "BUILD_LOG"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("fused_fwd", "paged_decode")
+SOURCES = ("fused_fwd", "paged_decode", "flash_attention", "fused_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -56,6 +56,25 @@ def _declare(name, cdll):
         cdll.fused_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p,
                                    i, i, i, i, p]
         cdll.fused_fwd.restype = i
+    elif name == "fused_bwd":
+        # dtype, x, dy, scale, shift, w, dx, dw, dscale, dshift, M, K, N,
+        # relu, stream
+        cdll.fused_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p,
+                                   i, i, i, i, p]
+        cdll.fused_bwd.restype = i
+    elif name == "flash_attention":
+        # dtype, hd, q, k, v, o, lse, BH, T, G, scale, causal, stream
+        cdll.flash_fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, f, i, p]
+        # dtype, hd, q, k, v, dout, lse, delta, dq, BH, T, G, scale,
+        # causal, stream
+        cdll.flash_bwd_dq.argtypes = [i, i, p, p, p, p, p, p, p,
+                                      i, i, i, f, i, p]
+        # dtype, hd, q, k, v, dout, lse, delta, dk, dv, BH_kv, T, G,
+        # scale, causal, stream
+        cdll.flash_bwd_dkv.argtypes = [i, i, p, p, p, p, p, p, p, p,
+                                       i, i, i, f, i, p]
+        for fn in (cdll.flash_fwd, cdll.flash_bwd_dq, cdll.flash_bwd_dkv):
+            fn.restype = i
     else:
         # pool dtype, q, kpool, vpool, kscale, vscale, table, lens,
         # acc, m, l, B, tq, H, Hkv, Dk, Dv, pt, M, S, TQ, scale, stream

@@ -1,6 +1,6 @@
-"""Operator library of the port — registers the serving slice's ops on
-import.  Kernel modules load their CUDA libraries only when a kernel is
-first launched."""
+"""Operator library of the port — registers the ops of the LM's serving
+and training paths on import.  Kernel modules load their CUDA libraries
+only when a kernel is first launched."""
 from . import attention, elemwise, fused_lm, nn, tensor
 
 _registered = False

@@ -1,8 +1,12 @@
 """Attention ops of the serving slice (counterpart of
 ``mxnet_tpu/ops/attention.py``).
 
-* :func:`sdpa` and the ``dot_product_attention`` op: full causal
-  multi-head attention (prefill), grouped-query aware.
+* :func:`sdpa`: full causal multi-head attention (the serving dense
+  prefill and cross-attention), grouped-query aware.
+* The ``dot_product_attention`` op: self-attention through
+  :func:`sdpa_flash` (kernels C, D and E of
+  :mod:`~mxnet_tpu_torch.ops.flash_kernel`, differentiable), other
+  shapes through :func:`sdpa`; :data:`PATH_TAKEN` records which.
 * The KV-cache ops: :class:`QuantKV` with :func:`quantize_kv` /
   :func:`dequantize_kv`, the dense ring (:func:`cache_append`,
   :func:`sdpa_decode`, :func:`sdpa_verify`) and the paged pools
@@ -375,16 +379,56 @@ def _attn_shape(attrs, in_shapes, aux_shapes):
     return [tuple(q), tuple(k), tuple(v)], [out], []
 
 
+# Which path the last dot_product_attention op took: "flash" (kernels C,
+# D and E through FlashAttentionFn), "plain" (FlashAttentionFn on their
+# plain versions: CPU tensors or a plain run) or "einsum" (cross-attention
+# or a value head dim other than the query's: sdpa, which has no kernel
+# in either package)
+PATH_TAKEN = {"last": None}
+
+
+def sdpa_flash(q, k, v, num_heads, causal, scale=None, num_kv_heads=0,
+               plain=False):
+    """Self-attention (B, T, E) -> (B, T, E) through
+    :class:`~mxnet_tpu_torch.ops.flash_kernel.FlashAttentionFn`, heads
+    folded into the batch dim (q at H heads, K/V at H_kv; q-row b reads
+    kv-row b // G) — ``pallas_attention.sdpa_flash``'s contract."""
+    from .flash_kernel import FlashAttentionFn
+
+    b, t, e = q.shape
+    kvh = int(num_kv_heads) or int(num_heads)
+    g = num_heads // kvh
+    hd = e // num_heads
+    scale = float(scale or 1.0 / np.sqrt(hd))
+
+    def fold(x, h):
+        return x.reshape(b, t, h, x.shape[2] // h).transpose(1, 2) \
+            .reshape(b * h, t, x.shape[2] // h)
+
+    out = FlashAttentionFn.apply(fold(q, num_heads), fold(k, kvh),
+                                 fold(v, kvh), scale, bool(causal), g,
+                                 bool(plain))
+    return out.reshape(b, num_heads, t, hd).transpose(1, 2).reshape(b, t, e)
+
+
 def register_all():
     def _compute_full(attrs, inputs, aux, octx):
         q, k, v = inputs
         heads = attrs.get("num_heads", 1)
         kv_heads = attrs.get("num_kv_heads", 0) or heads
+        causal = attrs.get("causal", False)
+        scale = attrs.get("scale", 0.0) or None
         check_head_groups(heads, kv_heads, q.shape[2], v.shape[2],
                           k.shape[2], where="dot_product_attention")
-        return [sdpa(q, k, v, num_heads=heads,
-                     causal=attrs.get("causal", False),
-                     scale=attrs.get("scale", 0.0) or None,
+        if q.shape[1] == k.shape[1] \
+                and v.shape[2] // kv_heads == q.shape[2] // heads:
+            out = sdpa_flash(q, k, v, heads, causal, scale,
+                             num_kv_heads=kv_heads, plain=octx.plain)
+            PATH_TAKEN["last"] = ("plain" if octx.plain
+                                  or q.device.type == "cpu" else "flash")
+            return [out], []
+        PATH_TAKEN["last"] = "einsum"
+        return [sdpa(q, k, v, num_heads=heads, causal=causal, scale=scale,
                      num_kv_heads=kv_heads)], []
 
     register_op(OpDef(
@@ -401,5 +445,5 @@ def register_all():
         num_inputs=3, arguments=["query", "key", "value"],
         infer_shape=_attn_shape,
         doc="Multi-head scaled-dot-product attention over projected "
-            "(B, T, E) inputs."),
+            "(B, T, E) inputs; self-attention runs the flash kernels."),
         aliases=("_contrib_DotProductAttention",))

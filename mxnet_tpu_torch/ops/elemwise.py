@@ -1,5 +1,6 @@
-"""Elementwise ops of the serving slice: ``square``, ``rsqrt``, the
-binary ``_plus`` / ``broadcast_{add,sub,mul}`` and ``_plus_scalar``.
+"""Elementwise ops of the LM: ``square``, ``rsqrt``, the binary
+``_plus`` / ``broadcast_{add,sub,mul}`` and ``_plus_scalar`` — plain
+torch, differentiated by autograd.
 
 Names, hints and aliases follow ``mxnet_tpu/ops/elemwise.py`` so that
 auto-naming — and with it the symbol JSON — matches the JAX package.

@@ -1,13 +1,20 @@
-"""Kernel A: fused scale/shift(+ReLU) -> matmul (+bias) (+residual) with
-per-column statistics — the counterpart of ``mxnet_tpu/ops/pallas_fused.py``
-(forward only).
+"""Kernels A and F: fused scale/shift(+ReLU) -> matmul (+bias) (+residual)
+with per-column statistics, forward and backward — the counterpart of
+``mxnet_tpu/ops/pallas_fused.py``.
 
-:func:`fused_scale_relu_matmul` is the wrapper: on a CUDA tensor it
-launches the hand-written kernel in ``csrc/fused_fwd.cu`` (built at first
-use, see :mod:`~mxnet_tpu_torch.cuda_build`) or raises; on a CPU tensor
-it runs :func:`fused_plain`, the kernel's plain PyTorch version, which
-mirrors ``pallas_fused.reference_impl``.  ``LAUNCHES["fused_fwd"]``
-counts kernel launches.
+* :func:`fused_scale_relu_matmul` (kernel A, ``csrc/fused_fwd.cu``) and
+  its plain version :func:`fused_plain`, which mirrors
+  ``pallas_fused.reference_impl``;
+* :func:`fused_bwd` (kernel F, ``csrc/fused_bwd.cu``): dx, dW, dscale
+  and dshift from x and dy, and its plain version
+  :func:`fused_bwd_plain`;
+* :class:`FusedLNLinearFn`: the autograd Function pairing them, with the
+  statistics outputs' cotangents folded into dy as the TPU path's custom
+  VJP folds them.
+
+Each wrapper launches its kernel on a CUDA tensor (built at first use,
+see :mod:`~mxnet_tpu_torch.cuda_build`) or raises, and runs its plain
+version on a CPU tensor.  ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -15,11 +22,12 @@ import torch
 
 from .. import cuda_build
 
-__all__ = ["fused_scale_relu_matmul", "fused_plain", "LAUNCHES"]
+__all__ = ["fused_scale_relu_matmul", "fused_plain", "fused_bwd",
+           "fused_bwd_plain", "FusedLNLinearFn", "LAUNCHES"]
 
 # kernel launches since the count was last set to 0 (plain-version calls
 # do not count)
-LAUNCHES = {"fused_fwd": 0}
+LAUNCHES = {"fused_fwd": 0, "fused_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,16 +53,16 @@ def fused_plain(x, scale, shift, w, residual=None, relu=True, bias=None,
     return y, y32.sum(0), (y32 * y32).sum(0)
 
 
-def _check(t, name, shape, dtype, device):
+def _check(t, name, shape, dtype, device, where="fused_scale_relu_matmul"):
     if t.device != device:
-        raise ValueError("fused_scale_relu_matmul: %s on %s, x on %s"
-                         % (name, t.device, device))
+        raise ValueError("%s: %s on %s, x on %s"
+                         % (where, name, t.device, device))
     if tuple(t.shape) != tuple(shape):
-        raise ValueError("fused_scale_relu_matmul: %s shape %s != %s"
-                         % (name, tuple(t.shape), tuple(shape)))
+        raise ValueError("%s: %s shape %s != %s"
+                         % (where, name, tuple(t.shape), tuple(shape)))
     if t.dtype != dtype:
-        raise ValueError("fused_scale_relu_matmul: %s dtype %s != %s"
-                         % (name, t.dtype, dtype))
+        raise ValueError("%s: %s dtype %s != %s"
+                         % (where, name, t.dtype, dtype))
     return t.contiguous()
 
 
@@ -109,3 +117,100 @@ def fused_scale_relu_matmul(x, scale, shift, w, residual=None, relu=True,
     cuda_build.check(lib, rc, "fused_fwd")
     LAUNCHES["fused_fwd"] += 1
     return y, s1, s2
+
+
+def fused_bwd_plain(x, dy, scale, shift, w, relu):
+    """Plain PyTorch version of kernel F: ``(dx, dw, dscale, dshift)``
+    with the TPU kernel's numerics — u recomputed from x, the activation
+    cast to dy's dtype for dW, f32 products, the strict ``u > 0`` ReLU
+    mask, dx cast to x's dtype, dW / dscale / dshift in f32."""
+    x32 = x.float()
+    u = x32 * scale + shift
+    a = torch.clamp_min(u, 0.0) if relu else u
+    dyf = dy.float()
+    dw = torch.matmul(dyf.t(), a.to(dy.dtype).float())
+    dz = torch.matmul(dyf, w.float())
+    du = torch.where(u > 0, dz, torch.zeros_like(dz)) if relu else dz
+    dx = (du * scale).to(x.dtype)
+    return dx, dw, (du * x32).sum(0), du.sum(0)
+
+
+def fused_bwd(x, dy, scale, shift, w, relu):
+    """dx (M, K) in x's dtype, dW (N, K) f32, dscale and dshift (K,) f32
+    for y = [relu](x*scale + shift) @ W^T; dy (M, N) in x's dtype, w
+    (N, K).  CPU tensors take :func:`fused_bwd_plain`; CUDA tensors
+    launch kernel F."""
+    if x.device.type == "cpu":
+        return fused_bwd_plain(x, dy, scale, shift, w, relu)
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None or x.dim() != 2:
+        raise ValueError("fused_bwd: x must be a 2-D f32 or bf16 tensor "
+                         "(got %s %s)" % (x.dtype, tuple(x.shape)))
+    if x.device.type != "cuda":
+        raise ValueError("fused_bwd: unsupported device %s" % x.device)
+    m, k = x.shape
+    n = w.shape[0]
+    dev = x.device
+    x = x.contiguous()
+    dy = _check(dy, "dy", (m, n), x.dtype, dev, "fused_bwd")
+    w = _check(w, "w", (n, k), x.dtype, dev, "fused_bwd")
+    scale = _check(scale, "scale", (k,), torch.float32, dev, "fused_bwd")
+    shift = _check(shift, "shift", (k,), torch.float32, dev, "fused_bwd")
+    dx = torch.empty_like(x)
+    dw = torch.empty((n, k), dtype=torch.float32, device=dev)
+    dscale = torch.zeros((k,), dtype=torch.float32, device=dev)
+    dshift = torch.zeros((k,), dtype=torch.float32, device=dev)
+    lib = cuda_build.lib("fused_bwd")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fused_bwd(code, x.data_ptr(), dy.data_ptr(),
+                           scale.data_ptr(), shift.data_ptr(), w.data_ptr(),
+                           dx.data_ptr(), dw.data_ptr(), dscale.data_ptr(),
+                           dshift.data_ptr(), m, k, n, int(bool(relu)),
+                           stream)
+    cuda_build.check(lib, rc, "fused_bwd")
+    LAUNCHES["fused_bwd"] += 1
+    return dx, dw, dscale, dshift
+
+
+class FusedLNLinearFn(torch.autograd.Function):
+    """Differentiable kernel A: ``(y, ysum, ysumsq)`` from (x, scale,
+    shift, w, bias, residual), forward through kernel A and backward
+    through kernel F (their plain versions on CPU tensors and under
+    ``plain``).
+
+    The backward folds the statistics' cotangents into an effective dy,
+    ``dy + dysum + 2 y dysumsq`` in f32 cast to x's dtype
+    (``pallas_fused.py`` custom VJP); dbias is that dy's column sum in
+    f32, dresidual the cast dy itself, and dW is cast to w's dtype.
+    bias and residual may be None."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, w, bias, residual, relu, plain):
+        fwd = fused_plain if plain else fused_scale_relu_matmul
+        y, s1, s2 = fwd(x, scale, shift, w, residual=residual, relu=relu,
+                        bias=bias, wt=True)
+        ctx.save_for_backward(x, scale, shift, w, y)
+        ctx.args = (relu, plain, bias is not None, residual is not None)
+        ctx.set_materialize_grads(False)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, dysum, dysumsq):
+        x, scale, shift, w, y = ctx.saved_tensors
+        relu, plain, has_bias, has_res = ctx.args
+        dy32 = (dy.float() if dy is not None
+                else torch.zeros(y.shape, dtype=torch.float32,
+                                 device=y.device))
+        if dysum is not None:
+            dy32 = dy32 + dysum[None, :]
+        if dysumsq is not None:
+            dy32 = dy32 + 2.0 * y.float() * dysumsq[None, :]
+        dy_eff = dy32.to(x.dtype)
+        bwd = fused_bwd_plain if plain else fused_bwd
+        dx, dw, dscale, dshift = bwd(x, dy_eff, scale, shift, w, relu)
+        need = ctx.needs_input_grad
+        return (dx, dscale if need[1] else None,
+                dshift if need[2] else None, dw.to(w.dtype),
+                dy32.sum(0) if has_bias else None,
+                dy_eff if has_res else None, None, None)

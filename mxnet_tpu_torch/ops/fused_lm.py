@@ -2,12 +2,15 @@
 (+residual) segment as one op (counterpart of
 ``mxnet_tpu/ops/fused_lm.py``).
 
-The op calls kernel A's wrapper
-(:func:`~mxnet_tpu_torch.ops.fused_kernel.fused_scale_relu_matmul`): the
-kernel on a CUDA tensor, its plain version on a CPU tensor, or the plain
-version everywhere under ``OpContext.plain``.  The TPU gate
+The op calls :class:`~mxnet_tpu_torch.ops.fused_kernel.FusedLNLinearFn`:
+kernel A forward and kernel F backward on CUDA tensors, their plain
+versions on CPU tensors, or the plain versions everywhere under
+``OpContext.plain``.  Gradients reach gamma and beta through the
+(1, 1, E) -> (E,) reshape, so the q, k and v segments, which share
+``normed``, gamma and beta, add theirs; ``no_affine`` segments pass
+constant ones and zeros, which take no gradient.  The TPU gate
 ``pallas_fused.supported`` (a VMEM and tile limit) has no counterpart:
-only the dtype is checked, and a CUDA tensor the kernel does not take
+only the dtype is checked, and a CUDA tensor the kernels do not take
 (anything but f32/bf16) raises.  Parameter names and shapes are the JAX
 package's.
 """
@@ -69,7 +72,6 @@ def _flnl(attrs, inputs, aux, octx):
     for s in lead:
         m *= int(s)
 
-    fn = fk.fused_plain if octx.plain else fk.fused_scale_relu_matmul
     dev = data.device
     scale = (gamma.reshape(-1).float() if gamma is not None
              else torch.ones((k,), dtype=torch.float32, device=dev))
@@ -77,9 +79,10 @@ def _flnl(attrs, inputs, aux, octx):
              else torch.zeros((k,), dtype=torch.float32, device=dev))
     res2 = residual.reshape(m, n) if residual is not None else None
     # the (N,) statistics ride the epilogue; this segment does not consume
-    # them
-    y, _s1, _s2 = fn(data.reshape(m, k), scale, shift, weight,
-                     residual=res2, relu=relu, bias=bias, wt=True)
+    # them, so their cotangents are absent from the backward
+    y, _s1, _s2 = fk.FusedLNLinearFn.apply(data.reshape(m, k), scale, shift,
+                                           weight, bias, res2, relu,
+                                           octx.plain)
     FUSED_PATH["last"] = ("plain" if octx.plain or dev.type == "cpu"
                           else "kernel")
     return [y.reshape(lead + (n,))], list(aux)
@@ -96,4 +99,5 @@ def register_all():
         arguments=_arg_names,
         infer_shape=_flnl_shape, hint="fusedlnlinear",
         doc="LayerNorm-affine -> (ReLU) -> linear (+bias) (+residual) as "
-            "one op; kernel A on the card, its plain version on the CPU."))
+            "one op; kernels A (forward) and F (backward) on the card, "
+            "their plain versions on the CPU."))

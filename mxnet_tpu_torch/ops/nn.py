@@ -1,8 +1,11 @@
-"""Layer ops of the serving slice: ``FullyConnected`` and the
-``SoftmaxOutput`` head (forward only — serving never differentiates).
+"""Layer ops: ``FullyConnected`` and the ``SoftmaxOutput`` loss head.
 
-FullyConnected is a plain ``torch.matmul``: the JAX package leaves this
-product to XLA, so it has no hand-written kernel to port.
+FullyConnected is a plain ``torch.matmul``, differentiated by autograd:
+the JAX package leaves this product to XLA, so it has no hand-written
+kernel to port.  SoftmaxOutput's gradient is :class:`SoftmaxOutputFn`,
+the head's custom VJP (``mxnet_tpu/ops/nn.py``): it ignores the upstream
+gradient and returns (softmax - onehot(label)) masked by
+``ignore_label``, normalised and scaled by ``grad_scale``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,71 @@ def _softmax_out_shape(attrs, in_shapes, aux_shapes):
     return [d, lshape], [d], []
 
 
+def _softmax_fwd(attrs, data):
+    # normalize in f32, as the JAX head does
+    d32 = data.float()
+    if attrs.get("multi_output", False):
+        out = torch.softmax(d32, dim=1)
+    elif attrs.get("preserve_shape", False):
+        out = torch.softmax(d32, dim=-1)
+    else:
+        out = torch.softmax(d32.reshape(data.shape[0], -1),
+                            dim=-1).reshape(data.shape)
+    return out.to(data.dtype)
+
+
+def _onehot(ids, classes, dtype, dim):
+    """One-hot along ``dim``; ids outside [0, classes) give all zeros, as
+    ``jax.nn.one_hot`` does."""
+    ar = torch.arange(classes, device=ids.device)
+    shape = [1] * (ids.dim() + 1)
+    shape[dim] = classes
+    return (ids.unsqueeze(dim) == ar.reshape(shape)).to(dtype)
+
+
+class SoftmaxOutputFn(torch.autograd.Function):
+    """SoftmaxOutput's forward (softmax in f32) and its loss gradient
+    (``mxnet_tpu/ops/nn.py`` head_bwd); the label takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        out = _softmax_fwd(attrs, data)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = attrs
+        return out
+
+    @staticmethod
+    def backward(ctx, _upstream):
+        out, label = ctx.saved_tensors
+        attrs = ctx.attrs
+        use_ignore = attrs.get("use_ignore", False)
+        ignore = attrs.get("ignore_label", -1.0)
+        if attrs.get("multi_output", False):
+            # data (N, C, ...); label (N, ...)
+            grad = out - _onehot(label.long(), out.shape[1], out.dtype, 1)
+            mask = label != ignore
+            if use_ignore:
+                grad = grad * mask.unsqueeze(1).to(out.dtype)
+        else:
+            flat = out if attrs.get("preserve_shape", False) \
+                else out.reshape(out.shape[0], -1)
+            lflat = label.reshape(flat.shape[:-1])
+            grad = flat - _onehot(lflat.long(), flat.shape[-1], out.dtype,
+                                  -1)
+            mask = lflat != ignore
+            if use_ignore:
+                grad = grad * mask.unsqueeze(-1).to(out.dtype)
+            grad = grad.reshape(out.shape)
+        norm = attrs.get("normalization", "null")
+        if norm == "batch":
+            grad = grad / out.shape[0]
+        elif norm == "valid":
+            valid = mask.sum().to(out.dtype) if use_ignore \
+                else torch.tensor(float(mask.numel()), dtype=out.dtype)
+            grad = grad / torch.clamp_min(valid, 1.0)
+        return grad * attrs.get("grad_scale", 1.0), None, None
+
+
 def register_all():
     def _fc(attrs, data, weight, *bias):
         x = data.reshape(data.shape[0], -1) if attrs.get("flatten", True) \
@@ -61,16 +129,7 @@ def register_all():
         infer_shape=_fc_shape, hint="fullyconnected"))
 
     def _softmax_output(attrs, data, label):
-        # normalize in f32, as the JAX head does
-        d32 = data.float()
-        if attrs.get("multi_output", False):
-            out = torch.softmax(d32, dim=1)
-        elif attrs.get("preserve_shape", False):
-            out = torch.softmax(d32, dim=-1)
-        else:
-            out = torch.softmax(d32.reshape(data.shape[0], -1),
-                                dim=-1).reshape(data.shape)
-        return out.to(data.dtype)
+        return SoftmaxOutputFn.apply(data, label, attrs)
 
     register_op(OpDef(
         "SoftmaxOutput", simple_compute(_softmax_output),

@@ -1,6 +1,7 @@
-"""Tensor ops of the serving slice: ``mean``, ``Reshape`` and
-``Embedding`` (names, schemas and hints as in
-``mxnet_tpu/ops/tensor.py``)."""
+"""Tensor ops of the LM: ``mean``, ``Reshape`` and ``Embedding`` (names,
+schemas and hints as in ``mxnet_tpu/ops/tensor.py``).  Each is plain
+torch, so autograd differentiates it; Embedding's weight gradient is
+the scatter-add of torch indexing."""
 from __future__ import annotations
 
 from ..attrs import Param, ParamSchema

@@ -1,8 +1,9 @@
 """Symbol — declarative graph composition.
 
 The port's copy of the parts of ``mxnet_tpu/symbol.py`` that serving
-uses: variables, composition with auto-naming and auto-created argument
-variables, ``infer_shape``, graph walks, and ``tojson``/``load_json``.
+and ``Module`` use: variables, composition with auto-naming and
+auto-created argument variables, ``infer_shape``, ``attr_dict``, graph
+walks, and ``tojson``/``load_json``.
 The JSON layout is the JAX package's byte for byte, so a graph saved by
 either package loads in the other.  ``sym.<Op>`` functions are generated
 from the registry by :func:`_init_symbol_module`.
@@ -70,6 +71,11 @@ class Symbol:
 
     def list_auxiliary_states(self):
         return [n.name for n in self._topo() if n.is_aux_var]
+
+    def attr_dict(self):
+        """``{node name: {attr: str}}`` for every node with attributes."""
+        return {node.name: {k: str(v) for k, v in node.attrs.items()}
+                for node in self._topo() if node.attrs}
 
     # -- arithmetic --------------------------------------------------------
     def _binop(self, other, opname, scalar_opname):

@@ -7,7 +7,8 @@ installed::
 
 Shapes are small and ragged on purpose (masked tile edges, both kernel-A
 tile configurations, several kernel-B tq tiles, page sizes, head dims and
-pool dtypes); ``chip_smoke.py`` covers the serving shapes.  Tolerances:
+pool dtypes, flash T that are not multiples of the 64-row tile, kv
+groups); ``chip_smoke.py`` covers the serving and training shapes.  Tolerances:
 f32 1e-5 relative to the output's magnitude (the same products summed in
 another order); bf16 one bf16 ulp (2^-7 relative, a rounding flip); the
 paged kernel 1e-5 (f32 softmax, streamed in another order), 1e-2 for
@@ -134,3 +135,133 @@ def test_dense_ring_kernel_matches_plain(card):
     got = dk.dense_ring_attend(q, kc, vc, lens, num_heads=heads)
     want = attn._sdpa_cache(q, kc, vc, lens, heads, None)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernels C, D, E (flash attention) and F (fused backward).  f32: 1e-5 of
+# each output's largest magnitude (the same f32 products summed in
+# another order; F's column sums add per-tile atomics in varying order);
+# bf16: 2^-7 of it (bf16 outputs, and p / ds rounded to bf16 inside the
+# backward: a rounding flip between orders moves a sum by one bf16 ulp
+# of a term).
+# ---------------------------------------------------------------------------
+
+CARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _card_close(got, want, tol):
+    mag = max(1.0, float(want.float().abs().max()))
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * mag)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,hd,groups", [(128, 64, 1), (100, 128, 2),
+                                         (67, 64, 2), (193, 128, 1)])
+def test_flash_kernels_match_plain(card, dtype, causal, t, hd, groups):
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cpu").manual_seed(t + hd + groups)
+    bh = 4
+
+    def rand(rows):
+        return torch.randn(rows, t, hd, generator=g).to(dtype).to(card)
+
+    q, k, v, do = rand(bh), rand(bh // groups), rand(bh // groups), rand(bh)
+    scale = hd ** -0.5
+    before = dict(fl.LAUNCHES)
+    o, lse = fl.flash_fwd(q, k, v, scale, causal, groups)
+    dq, dk, dv = fl.flash_bwd(q, k, v, o, lse, do, scale, causal, groups)
+    torch.cuda.synchronize()
+    assert {n: fl.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    wo, wlse = fl.flash_plain_fwd(q, k, v, scale, causal, groups)
+    _card_close(o, wo, CARD_TOL[dtype])
+    _card_close(lse, wlse, 1e-5)
+    # the backward from the same o / lse, so the check is D and E alone
+    want = fl.flash_plain_bwd(q, k, v, o, lse, do, scale, causal, groups)
+    for got, w in zip((dq, dk, dv), want):
+        _card_close(got, w, CARD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 5, 3), (67, 130, 65), (256, 64, 96)])
+def test_fused_bwd_kernel_matches_plain(card, dtype, m, k, n):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cpu").manual_seed(m * 7 + k)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(card)
+
+    x, dy = rand(m, k).to(dtype), rand(m, n).to(dtype)
+    w = (rand(n, k) / k ** 0.5).to(dtype)
+    scale, shift = 1 + 0.1 * rand(k), 0.1 * rand(k)
+    for relu in (True, False):
+        before = fk.LAUNCHES["fused_bwd"]
+        got = fk.fused_bwd(x, dy, scale, shift, w, relu)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES["fused_bwd"] == before + 1
+        want = fk.fused_bwd_plain(x, dy, scale, shift, w, relu)
+        tols = (CARD_TOL[dtype], 1e-5, 1e-5, 1e-5)
+        for gv, wv, tol in zip(got, want, tols):
+            _card_close(gv, wv, tol)
+
+
+def test_autograd_runs_the_kernels(card):
+    """FlashAttentionFn and FusedLNLinearFn launch the kernels forward
+    and backward on the card, and their gradients equal the plain
+    path's."""
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q, k, v = (torch.randn(4, 96, 64, generator=g).to(card)
+               for _ in range(3))
+    grads = []
+    for plain in (False, True):
+        leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        before = dict(fl.LAUNCHES)
+        out = fl.FlashAttentionFn.apply(*leaves, 0.125, True, 1, plain)
+        grads.append(torch.autograd.grad(out.square().sum(), leaves))
+        launched = sum(fl.LAUNCHES[n] - before[n] for n in before)
+        assert launched == (0 if plain else 3)
+    for a, b in zip(*grads):
+        _card_close(a, b, 1e-5)
+
+    x = torch.randn(40, 24, generator=g).to(card)
+    w = (torch.randn(16, 24, generator=g) / 5).to(card)
+    sc, sh, b = (torch.randn(n, generator=g).to(card) for n in (24, 24, 16))
+    res = torch.randn(40, 16, generator=g).to(card)
+    grads = []
+    for plain in (False, True):
+        leaves = [a.clone().requires_grad_(True)
+                  for a in (x, sc, sh, w, b, res)]
+        before = dict(fk.LAUNCHES)
+        y, s1, s2 = fk.FusedLNLinearFn.apply(*leaves, True, plain)
+        grads.append(torch.autograd.grad((y * y).sum() + s1.sum(), leaves))
+        assert fk.LAUNCHES["fused_bwd"] - before["fused_bwd"] == (
+            0 if plain else 1)
+    for a, b in zip(*grads):
+        _card_close(a, b, 1e-5)
+
+
+def test_card_tensors_the_training_kernels_refuse_raise(card):
+    """A dtype or head dim kernels C-F do not take raises on the card."""
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    h = torch.zeros((2, 64, 64), dtype=torch.float16, device=card)
+    with pytest.raises(ValueError, match="float16"):
+        fl.flash_fwd(h, h, h, 0.125, True)
+    q = torch.zeros((2, 64, 256), device=card)
+    with pytest.raises(ValueError, match="head dim 256"):
+        fl.flash_fwd(q, q, q, 0.0625, True)
+    x = torch.zeros((4, 8), dtype=torch.float16, device=card)
+    one = torch.ones((8,), device=card)
+    with pytest.raises(ValueError, match="float16"):
+        fk.fused_bwd(x, torch.zeros((4, 4), dtype=torch.float16,
+                                    device=card), one, one,
+                     torch.zeros((4, 8), dtype=torch.float16, device=card),
+                     False)

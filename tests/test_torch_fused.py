@@ -1,5 +1,6 @@
-"""Kernel A of the PyTorch port (mxnet_tpu_torch.ops.fused_kernel) and
-the FusedLNLinear op, held against the JAX package's fused forward.
+"""Kernels A and F of the PyTorch port (mxnet_tpu_torch.ops.fused_kernel),
+the FusedLNLinear op and the SoftmaxOutput loss gradient, held against
+the JAX package's fused op (forward and VJP) and loss head.
 
 On the CPU the port's wrapper runs its plain PyTorch version; it is
 compared with ``pallas_fused.fused_scale_relu_matmul(..., interpret=True)``
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mxnet_tpu.ops import pallas_fused as pf
@@ -160,3 +162,136 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fk.fused_scale_relu_matmul(x, x[0], x[0], x)
 
+
+
+# ---------------------------------------------------------------------------
+# kernel F (the backward) and FusedLNLinearFn against jax.vjp of the JAX
+# package's fused op (Pallas interpreter).  f32: 1e-5 relative to each
+# gradient's largest magnitude (the same f32 products in another order).
+# bf16: x, dy, W and so dx, dW and dresidual are bf16, rounded at the
+# same places on both sides; 2^-7 of the magnitude covers one bf16
+# rounding flip; the f32 sums (dscale, dshift, dbias) of bf16 terms keep
+# 1e-5.
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _grad_close(got, want, tol):
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    mag = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.detach().float().numpy(), want, rtol=0,
+                               atol=tol * mag)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu,has_res,has_bias", COMBOS)
+def test_fused_bwd_matches_jax_vjp(dtype, relu, has_res, has_bias):
+    d = _inputs(4, 32, 24, 16)
+    rng = np.random.RandomState(5)
+    dy = rng.randn(32, 16).astype(np.float32)
+    # nonzero statistics cotangents exercise the fold into dy
+    dys1 = (0.1 * rng.randn(16)).astype(np.float32)
+    dys2 = (0.01 * rng.randn(16)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+
+    def t(a, cast=True):
+        x = torch.from_numpy(a)
+        return x.to(dtype) if cast else x
+
+    x, w, res = t(d["x"]), t(d["w"]), t(d["res"])
+    scale, shift, bias = (t(d[k], cast=False)
+                          for k in ("scale", "shift", "bias"))
+    leaves = [x, scale, shift, w] + ([bias] if has_bias else []) \
+        + ([res] if has_res else [])
+    leaves = [a.clone().requires_grad_(True) for a in leaves]
+    it = iter(leaves[4:])
+    lb = next(it) if has_bias else None
+    lr = next(it) if has_res else None
+    before = fk.LAUNCHES["fused_bwd"]
+    outs = fk.FusedLNLinearFn.apply(*leaves[:4], lb, lr, relu, False)
+    grads = torch.autograd.grad(outs, leaves, (t(dy), torch.from_numpy(dys1),
+                                               torch.from_numpy(dys2)))
+    assert fk.LAUNCHES["fused_bwd"] == before
+
+    def jx(a, cast=True):
+        return jnp.asarray(a).astype(jdt) if cast else jnp.asarray(a)
+
+    jargs = [jx(d["x"]), jx(d["scale"], False), jx(d["shift"], False),
+             jx(d["w"])] + ([jx(d["bias"], False)] if has_bias else []) \
+        + ([jx(d["res"])] if has_res else [])
+
+    def f(x_, sc_, sh_, w_, *extra):
+        extra = list(extra)
+        b_ = extra.pop(0) if has_bias else None
+        r_ = extra.pop(0) if has_res else None
+        return pf.fused_scale_relu_matmul(x_, sc_, sh_, w_, residual=r_,
+                                          relu=relu, bias=b_, wt=True,
+                                          interpret=True)
+
+    _, vjp = jax.vjp(f, *jargs)
+    want = vjp((jx(dy), jnp.asarray(dys1), jnp.asarray(dys2)))
+    for i, (g, wv) in enumerate(zip(grads, want)):
+        lowp = g.dtype == torch.bfloat16
+        _grad_close(g, wv, BWD_TOL[dtype] if lowp else 1e-5)
+        assert g.dtype == leaves[i].dtype
+
+    # the plain version alone, on the effective dy the VJP folds
+    y = outs[0].detach().float()
+    dy_eff = (torch.from_numpy(dy).to(dtype).float()
+              + torch.from_numpy(dys1) + 2.0 * y
+              * torch.from_numpy(dys2)).to(dtype)
+    dx, dw, dsc, dsh = fk.fused_bwd_plain(x, dy_eff, scale, shift, w, relu)
+    torch.testing.assert_close(dx, grads[0], rtol=0, atol=0)
+    torch.testing.assert_close(dw.to(dtype), grads[3], rtol=0, atol=0)
+    torch.testing.assert_close(dsc, grads[1], rtol=0, atol=0)
+    torch.testing.assert_close(dsh, grads[2], rtol=0, atol=0)
+
+
+def test_fused_op_backward_reaches_gamma_beta():
+    """Through the registered op, gamma and beta (shape (1, 1, E)) take
+    dscale/dshift; a no_affine segment's constant scale takes none."""
+    d = _inputs(6, 12, 16, 20)
+    for relu, has_res in ((False, False), (True, True)):
+        attrs, ins = _op_inputs(d, relu, has_res)
+        ins = [a.clone().requires_grad_(True) for a in ins]
+        op = get_op("FusedLNLinear")
+        (y,), _ = op.fcompute(op.parse_attrs(attrs), ins, [], OpContext())
+        grads = torch.autograd.grad(y.sum(), ins)
+        assert [tuple(g.shape) for g in grads] == [tuple(a.shape)
+                                                   for a in ins]
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("norm", ["null", "batch", "valid"])
+def test_softmax_output_gradient_matches_jax(norm):
+    """SoftmaxOutput's loss gradient (softmax - onehot, ignore-masked,
+    normalised, scaled) equals the JAX head's custom VJP; the upstream
+    gradient is ignored.  f32 on both sides: 1e-6 absolute on O(1)
+    values."""
+    from mxnet_tpu.registry import OpContext as JOpContext
+    from mxnet_tpu.registry import get_op as jget_op
+
+    rng = np.random.RandomState(7)
+    data = rng.randn(12, 10).astype(np.float32)
+    label = rng.randint(0, 10, 12).astype(np.float32)
+    label[[2, 5]] = -1
+    attrs = {"use_ignore": "True", "ignore_label": "-1",
+             "normalization": norm, "grad_scale": "0.5"}
+    op = get_op("SoftmaxOutput")
+    td = torch.from_numpy(data).requires_grad_(True)
+    (out,), _ = op.fcompute(op.parse_attrs(attrs),
+                            [td, torch.from_numpy(label)], [], OpContext())
+    (g,) = torch.autograd.grad(out, [td], torch.full_like(out, 3.0))
+    jop = jget_op("SoftmaxOutput")
+    jattrs = jop.parse_attrs(attrs)
+
+    def head(x):
+        return jop.fcompute(jattrs, [x, jnp.asarray(label)], [],
+                            JOpContext())[0][0]
+
+    jout, vjp = jax.vjp(head, jnp.asarray(data))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(g.numpy(), np.asarray(vjp(jout)[0]),
+                               rtol=0, atol=1e-6)

@@ -161,7 +161,12 @@ def test_dense_server_matches_jax():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.decode, "
             "mxnet_tpu_torch.ops.decode_kernel, "
-            "mxnet_tpu_torch.ops.fused_kernel, mxnet_tpu_torch.weights; "
+            "mxnet_tpu_torch.ops.fused_kernel, "
+            "mxnet_tpu_torch.ops.flash_kernel, mxnet_tpu_torch.module, "
+            "mxnet_tpu_torch.executor, mxnet_tpu_torch.train_step, "
+            "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
+            "mxnet_tpu_torch.metric, mxnet_tpu_torch.io, "
+            "mxnet_tpu_torch.ndarray, mxnet_tpu_torch.weights; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.')) "
             "or m == 'mxnet_tpu'); print(json.dumps(bad))")
