@@ -7,8 +7,8 @@ Run from the repository root on a machine with one CUDA card::
 
 Phases (any failure ends the run with a non-zero exit code):
 
-1. build — compile both hand-written kernels (``mxnet_tpu_torch/csrc``)
-   with nvcc for sm_90a, in parallel, and load them;
+1. build — compile every hand-written kernel (``mxnet_tpu_torch/csrc``)
+   with nvcc for sm_90a, one nvcc per source, in parallel, and load them;
 2. kernels — hold each kernel against its plain PyTorch version on the
    card at the serving path's shapes, and time kernel, plain version and
    one library call that computes the same function (a yardstick the
@@ -16,23 +16,44 @@ Phases (any failure ends the run with a non-zero exit code):
 3. kernels C-F — the training kernels (flash attention forward, dQ,
    dK/dV; the fused LN->linear backward) against their plain versions at
    the training path's shapes, timed the same way;
-4. serve — build the full-width ``attention_lm`` (vocab 8192, embed
+4. kernel B1 — the multi-tensor optimizer update against its plain
+   version over the slabs of ResNet-50's 157 trainables (12,556 blocks)
+   and of the LM's, for SGD, SGD-momentum and Adam, f32 masters with and
+   without a bf16 compute copy, bf16 masters, clip on and off, lr / wd
+   differing per segment: bit for bit for SGD and SGD-momentum, within
+   one f32 ulp for Adam, padding still 0; timed beside the port's
+   per-parameter update and ``torch.optim``'s fused SGD / Adam step;
+5. serve — build the full-width ``attention_lm`` (vocab 8192, embed
    1024, 4 heads, FFN 4096; depth cut to 2 layers) from seeded random
    weights and serve 8 requests (128-1024-token prompts, half sharing a
    256-token prefix, 32 greedy tokens each) through ``DecodeServer`` over
    a paged int8 ``DecodePredictor`` (4 slots, 16-token pages, 256-token
    prefill chunks), counting every kernel launch; then re-serve with the
    plain versions and compare teacher-forced probabilities;
-5. train — ``Module.forward_backward`` + ``update`` steps of the
+6. train — ``Module.forward_backward`` + ``update`` steps of the
    full-width training configuration (vocab 8192, T 2048, batch 8, embed
    1024, 8 heads, FFN 4096, 4 layers, f32, SGD, seeded Xavier-gaussian
-   weights) on one repeated token batch, counting every kernel launch;
-   the first step's gradients are held against a ``plain=True``
-   module's; the loss must fall; the bench's learning rate is recorded
-   beside the one timed; then one profiled step.
+   weights) on one repeated token batch, the optimizer update through
+   the slab plan (kernel B1), counting every kernel launch; the first
+   step's update is held bit for bit against the plain version on copies
+   of its slabs, its gradients against a ``plain=True`` module's; the
+   loss must fall; the bench's learning rate is recorded beside the one
+   timed; then one profiled step;
+7. train ResNet-50 — ``bench.py``'s configuration at full depth and
+   width (batch 256, bf16 compute, f32 masters, SGD lr 0.1, momentum
+   0.9, wd 1e-4, seeded Xavier(gaussian, in, 2) weights, one resident
+   batch) through the slab plan: a warm-up step whose update is held
+   against the plain version and, on copies of the masters and the
+   momentum from before it with the gradients it packed, against the
+   per-parameter update (the optimizer's ``update_multi``), bit for bit
+   in the masters, the momentum and the bf16 copy; timed steps (one B1
+   launch each, the moving statistics moving, finite losses); then one
+   profiled step.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+TF32 is off throughout (``allow_tf32`` False for matmuls and cuDNN), so
+f32 products and convolutions are full f32.
 """
 import json
 import subprocess
@@ -58,6 +79,23 @@ VOCAB, SEQ, EMBED, HEADS, FFN, LAYERS = 8192, 2048, 1024, 4, 4096, 2
 TRAIN_BATCH, TRAIN_HEADS, TRAIN_LAYERS = 8, 8, 4
 TRAIN_LR, BENCH_LR = 0.001, 0.01
 TRAIN_STEPS = 3     # timed steps after one warm-up step
+# the ResNet-50 training configuration: bench.py:87-125 at full depth and
+# width, one resident batch (x uniform(-1, 1), labels in [0, 1000))
+RESNET_BATCH, RESNET_STEPS = 256, 3
+RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# the profiled ResNet-50 step's device time by kind of kernel (kernel B1;
+# convolutions and products, cuDNN's layout transposes; the BatchNorm /
+# ReLU / loss element-wise ops and reductions; dtype casts and copies,
+# the grad pack among them); the first label whose substring a kernel's
+# name holds
+RESNET_KERNEL_GROUPS = {
+    "B1 (mtu_kernel)": ("mtu_kernel",),
+    "cuDNN layout transposes": ("nchwToNhwc", "nhwcToNchw"),
+    "convolutions and products": ("cudnn", "xmma", "gemm", "cutlass",
+                                  "sm90_", "conv"),
+    "casts and copies": ("direct_copy",),
+    "element-wise and reductions": ("elementwise", "reduce_kernel"),
+}
 SLOTS, PAGE_TOKENS, CHUNK, MAX_NEW = 4, 16, 256, 32
 PROMPT_LENS = [384, 128, 640, 1024, 512, 300, 1000, 768]
 SHARED_PREFIX = 256
@@ -90,6 +128,11 @@ TOL_F32, TOL_F32_LONG, TOL_BF16 = 1e-5, 1e-4, 2 ** -7
 # about 6e-2).  The analytically-zero *_k_bias gradient is measured on
 # its layer's *_q_bias gradient norm
 TOL_TRAIN_GRAD, TOL_TRAIN_GRAD_RELU = 1e-4, 1e-2
+# kernel B1 against its plain version: SGD and SGD-momentum bit for bit
+# (both round every f32 product and sum once, in the same order); Adam
+# within one f32 ulp (its square root and quotient are correctly rounded
+# on both sides, so 0 is expected and the measured distance is printed)
+B1_ADAM_ULPS = 1
 # greedy tokens of the kernel run and the plain run must all agree: the
 # weights and prompts are seeded, so a near-tie that a 1e-6 gap could flip
 # would show in every run, not now and then
@@ -407,12 +450,14 @@ def _serve(torch, pred, prompts):
     return results, time.perf_counter() - t0, srv.stats()
 
 
-def _profile(torch, run):
+def _profile(torch, run, groups=None):
     """Device time by kernel over one more run of ``run`` (which returns
     its wall seconds, ending in a synchronize) under torch.profiler: busy
-    share of the wall clock and the kernels that take most of it.  The
-    profiler slows the host side, so the idle share read here is an upper
-    bound."""
+    share of the wall clock and the kernels that take most of it; with
+    ``groups`` ({label: name substrings}), the device time of the kernels
+    whose names hold each label's substrings (first label that matches).
+    The profiler slows the host side, so the idle share read here is an
+    upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -424,11 +469,22 @@ def _profile(torch, run):
     busy_s = sum(r[0] for r in rows) * 1e-6
     if not rows:
         return {"wall_s": wall, "device_busy_s": "not measured"}
-    return {"wall_s": wall, "device_busy_s": busy_s,
-            "device_idle_share": 1.0 - busy_s / wall,
-            "top": [{"name": k[:90], "calls": n, "device_ms": us * 1e-3,
-                     "share_of_busy": us * 1e-6 / busy_s}
-                    for us, n, k in rows[:10]]}
+    out = {"wall_s": wall, "device_busy_s": busy_s,
+           "device_idle_share": 1.0 - busy_s / wall,
+           "top": [{"name": k[:90], "calls": n, "device_ms": us * 1e-3,
+                    "share_of_busy": us * 1e-6 / busy_s}
+                   for us, n, k in rows[:10]]}
+    if groups:
+        sums = {label: [0, 0.0] for label in list(groups) + ["other"]}
+        for us, n, k in rows:
+            label = next((lb for lb, subs in groups.items()
+                          if any(sub in k for sub in subs)), "other")
+            sums[label][0] += n
+            sums[label][1] += us
+        out["groups"] = {lb: {"calls": n, "device_ms": us * 1e-3,
+                              "share_of_busy": us * 1e-6 / busy_s}
+                         for lb, (n, us) in sums.items()}
+    return out
 
 
 def phase_serve(torch, dev):
@@ -687,6 +743,215 @@ def phase_kernel_f(torch, dev, flush):
     return cases
 
 
+def _ulps(torch, a, b):
+    """Largest distance in f32 ulps between two tensors, read as f32."""
+    def ordered(t):
+        i = t.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _trainable_shapes(sym, **shapes):
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    return {n: s for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in shapes}
+
+
+def _b1_capture(torch, uk):
+    """A stand-in for ``uk.multi_tensor_update`` that copies each launch's
+    slabs just before it, runs the plain version on the copies after it,
+    and records whether the two agree bit for bit."""
+    real = uk.multi_tensor_update
+    report = {"launches": 0, "bitwise": True, "path": None}
+
+    def checked(kind, nslots, w, g, slots, wc, lrb, wdb, hyp, plain=False):
+        ref = [w.clone()] + [s.clone() for s in slots] \
+            + ([wc.clone()] if wc is not None else [])
+        path = real(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
+                    plain=plain)
+        uk.update_plain(kind, nslots, ref[0], g, ref[1:1 + nslots],
+                        ref[-1] if wc is not None else None, lrb, wdb, hyp)
+        got = [w, *slots] + ([wc] if wc is not None else [])
+        report["launches"] += 1
+        report["path"] = path
+        report["bitwise"] &= all(torch.equal(a, b) for a, b in zip(got, ref))
+        return path
+
+    return real, checked, report
+
+
+def _b1_case(torch, dev, flush, net, shapes, kind, nslots, master, cdtype,
+             clip, g):
+    """Kernel B1 over the slab of ``shapes`` (trainable name -> shape):
+    held against the plain version on copies, then timed beside the plain
+    version, ``torch.optim``'s fused step over the same tensors (the
+    yardstick; its momentum form is ``buf = m * buf + g; w -= lr * buf``,
+    not MXNet's) and the port's per-parameter update over them."""
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    metas = {n: torch.empty(s, dtype=master, device="meta")
+             for n, s in shapes.items()}
+    plan = uk.UpdatePlan(kind, nslots, uk._segments_for(metas), cdtype)
+    (bk,) = plan.buckets
+    segs = plan.buckets[bk]
+    rows = plan.rows(bk)
+    live = torch.zeros(rows * uk.LANES, dtype=torch.bool, device=dev)
+    for s in segs:
+        live[s.row0 * uk.LANES:s.row0 * uk.LANES + s.size] = True
+    live = live.view(rows, uk.LANES)
+
+    def slab(scale, dtype, positive=False):
+        t = torch.randn((rows, uk.LANES), generator=g, device=dev) * scale
+        return torch.where(live, t.abs() if positive else t, 0.0).to(dtype)
+
+    w = slab(1.0, master)
+    grad = slab(1.0, torch.float32)
+    slots = tuple(slab(0.01, master, positive=i == 1) for i in range(nslots))
+    wc = w.to(cdtype) if cdtype is not None else None
+    lrb, wdb = plan.lr_wd_blocks(
+        {s.name: 0.1 * (1 + i % 5) / 5 for i, s in enumerate(segs)},
+        {s.name: 1e-4 * (i % 3) for i, s in enumerate(segs)})
+    lrb = torch.from_numpy(lrb[bk]).to(dev)
+    wdb = torch.from_numpy(wdb[bk]).to(dev)
+    hyp = [0.5, clip, 0.9] if kind == "sgd" else [0.5, clip, 0.9, 0.999,
+                                                    1e-8]
+    ref = [w.clone()] + [s.clone() for s in slots] \
+        + ([wc.clone()] if wc is not None else [])
+    uk.multi_tensor_update(kind, nslots, w, grad, slots, wc, lrb, wdb, hyp)
+    uk.update_plain(kind, nslots, ref[0], grad, ref[1:1 + nslots],
+                    ref[-1] if wc is not None else None, lrb, wdb, hyp)
+    torch.cuda.synchronize()
+    got = [w, *slots] + ([wc] if wc is not None else [])
+    name = {("sgd", 0): "sgd", ("sgd", 1): "sgd_momentum",
+            ("adam", 2): "adam"}[(kind, nslots)]
+    mname = str(master).split(".")[-1]
+    cname = str(cdtype).split(".")[-1] if cdtype is not None else None
+    what = "kernel B1 %s %s master=%s wc=%s clip=%g" % (net, name, mname,
+                                                        cname, clip)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+    ulps = max(_ulps(torch, a, b) for a, b in zip(got, ref))
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, ref))
+    if kind == "sgd" and not bitwise:
+        raise AssertionError("%s: not bit for bit equal to the plain "
+                             "version (%d ulps, max abs %.3g)"
+                             % (what, ulps, err))
+    if ulps > B1_ADAM_ULPS:
+        raise AssertionError("%s: %d ulps from the plain version > %d"
+                             % (what, ulps, B1_ADAM_ULPS))
+    if any(bool(t[~live].any()) for t in got):
+        raise AssertionError("%s: a padding lane is not 0" % what)
+    del ref
+
+    # the same tensors one by one: torch.optim's fused step, the port's
+    # per-parameter update, and the grad pack of the train step (one copy
+    # per gradient, in the compute dtype, into the f32 grad slab's views)
+    params = []
+    for s in shapes.values():
+        p = torch.randn(s, generator=g, device=dev).to(master)
+        p.requires_grad_(True)
+        p.grad = torch.randn(s, generator=g, device=dev).to(master)
+        params.append(p)
+    if kind == "sgd":
+        lib = torch.optim.SGD(params, lr=0.1, momentum=0.9 if nslots else 0.0,
+                              weight_decay=1e-4, fused=True)
+        mine = topt.SGD(learning_rate=0.1, momentum=0.9 if nslots else 0.0,
+                        wd=1e-4, rescale_grad=0.5,
+                        clip_gradient=clip if clip > 0 else None)
+    else:
+        lib = torch.optim.Adam(params, lr=1e-3, weight_decay=1e-4,
+                               fused=True)
+        mine = topt.Adam(learning_rate=1e-3, wd=1e-4, rescale_grad=0.5,
+                         clip_gradient=clip if clip > 0 else None)
+    lib.step()   # creates its state
+    weights = [nd.NDArray(p.detach()) for p in params]
+    grads = [nd.NDArray(p.grad) for p in params]
+    states = [mine.create_state(i, wt) for i, wt in enumerate(weights)]
+    indices = list(range(len(weights)))
+
+    def per_param():
+        mine.update_multi(indices, weights, grads, states)
+
+    views = list(plan.unpack(bk, grad).values())
+    cgrads = [p.grad.to(cdtype or master) for p in params]
+
+    def pack():
+        for v, c in zip(views, cgrads):
+            v.copy_(c)
+
+    n = rows * uk.LANES
+    isz = w.element_size()
+    nbytes = n * (2 * isz + 4 + 2 * nslots * isz
+                  + (wc.element_size() if wc is not None else 0)) \
+        + 2 * 4 * lrb.numel()
+    flops = n * {"sgd": 5, "sgd_momentum": 7, "adam": 17}[name]
+    bound_ms, bound_by = _bound(nbytes, flops, "float32")
+    case = _case(
+        torch, flush,
+        lambda: uk.multi_tensor_update(kind, nslots, w, grad, slots, wc,
+                                       lrb, wdb, hyp),
+        lambda: uk.update_plain(kind, nslots, w, grad, slots, wc, lrb, wdb,
+                                hyp),
+        lib.step, extra={
+            "kernel": "B1", "net": net, "kind": name, "master": mname,
+            "wc": cname, "clip": clip, "tensors": len(shapes),
+            "blocks": lrb.numel(), "elements": n, "bitwise": bitwise,
+            "max_ulps": ulps, "max_abs_err": err,
+            "library": "torch.optim.%s(fused=True).step"
+            % ("SGD" if kind == "sgd" else "Adam"),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+    case["per_param_ms"] = _timed(torch, per_param, flush, 10)
+    case["grad_pack_ms"] = _timed(torch, pack, flush, 10)
+    case["device_ms"]["per_param"] = _device_ms(torch, per_param)
+    case["device_ms"]["grad_pack"] = _device_ms(torch, pack)
+    return case
+
+
+def phase_kernel_b1(torch, dev, flush):
+    """Kernel B1 over ResNet-50's slab (157 tensors, 12,556 blocks) and
+    the training LM's: SGD, SGD-momentum and Adam; f32 masters without and
+    with a bf16 compute copy (clip off and on), bf16 masters (clip on).
+    Every segment is padded to whole 2,048-element blocks, and lr / wd
+    differ from segment to segment."""
+    from mxnet_tpu_torch.models import attention_lm, resnet
+
+    nets = {
+        "resnet50": _trainable_shapes(
+            resnet.get_symbol(1000, 50, (3, 224, 224)),
+            data=(RESNET_BATCH, 3, 224, 224),
+            softmax_label=(RESNET_BATCH,)),
+        "lm": _trainable_shapes(
+            attention_lm.get_symbol(vocab_size=VOCAB, seq_len=SEQ,
+                                    num_layers=TRAIN_LAYERS, embed=EMBED,
+                                    heads=TRAIN_HEADS, ffn_hidden=FFN),
+            data=(TRAIN_BATCH, SEQ), softmax_label=(TRAIN_BATCH, SEQ))}
+    n50 = nets["resnet50"]
+    if (len(n50), sum(int(np.prod(s)) for s in n50.values())) \
+            != (157, 25_549_486):
+        raise AssertionError("ResNet-50 trainables: %d tensors, %d values"
+                             % (len(n50), sum(int(np.prod(s))
+                                              for s in n50.values())))
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    variants = ((torch.float32, None, -1.0),
+                (torch.float32, torch.bfloat16, -1.0),
+                (torch.float32, torch.bfloat16, 0.3),
+                (torch.bfloat16, None, 0.3))
+    cases = []
+    for net, shapes in nets.items():
+        for kind, nslots in (("sgd", 0), ("sgd", 1), ("adam", 2)):
+            for master, cdtype, clip in variants:
+                case = _b1_case(torch, dev, flush, net, shapes, kind, nslots,
+                                master, cdtype, clip, g)
+                log("kernel B1 case: " + json.dumps(case))
+                cases.append(case)
+                torch.cuda.empty_cache()
+    return cases
+
+
 def _train_params(sym):
     """Seeded numpy parameters: Xavier-gaussian weights (magnitude 3,
     factor avg, the initializer's formula), LayerNorm gamma 1, beta and
@@ -721,6 +986,7 @@ def phase_train(torch, dev):
     from mxnet_tpu_torch.ops import flash_kernel as fl
     from mxnet_tpu_torch.ops import fused_kernel as fk
     from mxnet_tpu_torch.ops import fused_lm
+    from mxnet_tpu_torch.ops import update_kernel as uk
 
     b, t = TRAIN_BATCH, SEQ
     sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=t,
@@ -746,6 +1012,8 @@ def phase_train(torch, dev):
         mod.init_params(arg_params=params, aux_params={})
         mod.init_optimizer(optimizer="sgd",
                            optimizer_params={"learning_rate": lr})
+        if mod._train_step.plan is None:
+            raise AssertionError("the LM's train step armed no slab plan")
         return mod
 
     def grads(mod):
@@ -761,19 +1029,30 @@ def phase_train(torch, dev):
     kmod = module(False)
     torch.cuda.reset_peak_memory_stats()
     # warm-up: the first step, whose gradients the plain module must match
-    t0 = time.perf_counter()
-    kmod.forward_backward(batch)
-    kmod.update()
-    losses = [loss(kmod)]
-    warm_s = time.perf_counter() - t0
+    # and whose update the plain version must match bit for bit
+    real, checked, b1_first = _b1_capture(torch, uk)
+    uk.multi_tensor_update = checked
+    try:
+        t0 = time.perf_counter()
+        kmod.forward_backward(batch)
+        kmod.update()
+        losses = [loss(kmod)]
+        warm_s = time.perf_counter() - t0
+    finally:
+        uk.multi_tensor_update = real
+    if b1_first != {"launches": 1, "bitwise": True, "path": "kernel"}:
+        raise AssertionError("the LM's first update, kernel B1 vs plain on "
+                             "the same slabs: %s" % b1_first)
     first = grads(kmod)
 
     counters = ((fk.LAUNCHES, "fused_fwd"), (fk.LAUNCHES, "fused_bwd"),
                 (fl.LAUNCHES, "flash_fwd"), (fl.LAUNCHES, "flash_bwd_dq"),
-                (fl.LAUNCHES, "flash_bwd_dkv"))
+                (fl.LAUNCHES, "flash_bwd_dkv"),
+                (uk.LAUNCHES, "multi_tensor_update"))
     for d, name in counters:
         d[name] = 0
     fused_lm.FUSED_PATH["last"] = attn.PATH_TAKEN["last"] = None
+    uk.UPDATE_PATH["last"] = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -784,16 +1063,18 @@ def phase_train(torch, dev):
     wall = time.perf_counter() - t0
     launches = {name: d[name] for d, name in counters}
     paths = {"fused": fused_lm.FUSED_PATH["last"],
-             "attention": attn.PATH_TAKEN["last"]}
+             "attention": attn.PATH_TAKEN["last"],
+             "update": uk.UPDATE_PATH["last"]}
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     segments = 5 * TRAIN_LAYERS
     want = {"fused_fwd": segments, "fused_bwd": segments,
             "flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
-            "flash_bwd_dkv": TRAIN_LAYERS}
+            "flash_bwd_dkv": TRAIN_LAYERS, "multi_tensor_update": 1}
     log("train launches: %s per step %s paths: %s"
         % (launches, per_step, paths))
     if per_step != want or paths != {"fused": "kernel",
-                                     "attention": "flash"}:
+                                     "attention": "flash",
+                                     "update": "kernel"}:
         raise AssertionError("the train step did not run every kernel the "
                              "expected number of times: %s (want %s per "
                              "step) %s" % (per_step, want, paths))
@@ -852,9 +1133,10 @@ def phase_train(torch, dev):
                         "embed": EMBED, "heads": TRAIN_HEADS, "ffn": FFN,
                         "layers": TRAIN_LAYERS, "dtype": "float32",
                         "optimizer": "sgd", "lr": TRAIN_LR,
-                        "params": n_params},
+                        "params": n_params, "update": "slab plan"},
              "smoke_reading": True, "steps": TRAIN_STEPS,
              "step_s": wall / TRAIN_STEPS, "warmup_step_s": warm_s,
+             "first_update_bitwise_vs_plain": b1_first["bitwise"],
              "tokens_per_s": b * t * TRAIN_STEPS / wall, "losses": losses,
              "bench_lr": BENCH_LR, "bench_lr_losses": bench_losses,
              "launches": launches, "launches_per_step": per_step,
@@ -862,6 +1144,178 @@ def phase_train(torch, dev):
              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     log("train: " + json.dumps(train))
     log("train profile: " + json.dumps(profile))
+    return train, launches
+
+
+def _resnet_values(sym, b):
+    """bench.py's start, drawn with numpy: Xavier(gaussian, in, 2) weights
+    (normal with std sqrt(2 / fan_in), OIHW fan-in I*kh*kw) from
+    RandomState(0), gammas 1, betas and the bias 0, moving means 0 and
+    variances 1; the resident batch from another RandomState(0)."""
+    shapes, _, aux_shapes = sym.infer_shape(data=(b, 3, 224, 224),
+                                            softmax_label=(b,))
+    rng = np.random.RandomState(0)
+    args = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_weight"):
+            fan_in = shape[1] * int(np.prod(shape[2:]))
+            args[name] = rng.normal(0.0, np.sqrt(2.0 / fan_in),
+                                    shape).astype(np.float32)
+        elif name.endswith("_gamma"):
+            args[name] = np.ones(shape, np.float32)
+        else:
+            args[name] = np.zeros(shape, np.float32)
+    aux = {n: (np.ones if n.endswith("_var") else np.zeros)(s, np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (b, 3, 224, 224)).astype(np.float32)
+    y = rng.randint(0, 1000, (b,)).astype(np.float32)
+    return args, aux, x, y
+
+
+def phase_train_resnet(torch, dev):
+    """ResNet-50 training through Module at bench.py's configuration, the
+    optimizer update through the slab plan."""
+    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    b = RESNET_BATCH
+    sym = resnet.get_symbol(num_classes=1000, num_layers=50,
+                            image_shape=(3, 224, 224))
+    args, aux, x, y = _resnet_values(sym, b)
+    n_params = sum(v.size for v in args.values())
+    log("train model: resnet-50 batch=%d params=%d (f32 masters, bf16 "
+        "compute), SGD %s" % (b, n_params, RESNET_OPT))
+    batch = DataBatch([nd.array(x, ctx=gpu(0))], [nd.array(y, ctx=gpu(0))])
+    labels = torch.from_numpy(y).long().to(dev)[:, None]
+
+    kmod = Module(sym, context=gpu(0), compute_dtype="bfloat16")
+    kmod.bind(data_shapes=[DataDesc("data", (b, 3, 224, 224))],
+              label_shapes=[DataDesc("softmax_label", (b,))])
+    kmod.init_params(arg_params=args, aux_params=aux)
+    kmod.init_optimizer(optimizer="sgd", optimizer_params=RESNET_OPT)
+    tstep = kmod._train_step
+    if tstep.plan is None:
+        raise AssertionError("ResNet-50's train step armed no slab plan")
+
+    def step(mod):
+        # the loss of the step's forward, left on the card
+        mod.forward_backward(batch)
+        mod.update()
+        p = mod.get_outputs()[0].data.float().gather(1, labels)
+        return -torch.log(torch.clamp_min(p, 1e-30)).mean()
+
+    plan = tstep.plan
+    blocks = {bk: plan.rows(bk) // uk.BLOCK_ROWS for bk in plan.buckets}
+    # the per-parameter update's inputs from before the first step: copies
+    # of the masters and the momentum, and an optimizer made as
+    # init_optimizer made the module's
+    group = kmod._exec_group
+    idx = sorted(kmod._updater.states)
+    ref_w = [nd.NDArray(group.param_arrays[i].data.clone()) for i in idx]
+    ref_m = [kmod._updater.states[i].clone() for i in idx]
+    ref_opt = opt_mod.create("sgd", sym=sym, rescale_grad=1.0 / b,
+                             param_idx2name=dict(enumerate(
+                                 group.param_names)), **RESNET_OPT)
+    real, checked, b1_first = _b1_capture(torch, uk)
+    uk.multi_tensor_update = checked
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [step(kmod)]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        uk.multi_tensor_update = real
+    if b1_first != {"launches": 1, "bitwise": True, "path": "kernel"}:
+        raise AssertionError("ResNet-50's first update, kernel B1 vs plain "
+                             "on the same slabs: %s" % b1_first)
+    # the per-parameter update (the path a step takes where the plan
+    # declines) on the copies, with the gradients the step packed: the
+    # masters, the momentum and the bf16 copy the next forward reads must
+    # equal the kernel's bit for bit
+    ref_opt.update_multi(idx, ref_w, [group.grad_arrays[i] for i in idx],
+                         ref_m)
+    sides = {"params": [(group.param_arrays[i].data, w.data)
+                        for i, w in zip(idx, ref_w)],
+             "momentum": [(kmod._updater.states[i], m)
+                          for i, m in zip(idx, ref_m)],
+             "bf16_copy": [(tstep._views[group.param_names[i]],
+                            w.data.to(torch.bfloat16))
+                           for i, w in zip(idx, ref_w)]}
+    parity = {}
+    for label, pairs in sides.items():
+        diff = [(a, c) for a, c in pairs if not torch.equal(a, c)]
+        parity[label] = {"tensors": len(pairs), "unequal": len(diff),
+                         "max_abs_diff": max(
+                             [float((a.float() - c.float()).abs().max())
+                              for a, c in diff] or [0.0])}
+    del sides, ref_w, ref_m, ref_opt
+    log("train resnet plan vs per-parameter update: " + json.dumps(parity))
+    if any(v["unequal"] for v in parity.values()):
+        raise AssertionError("ResNet-50's first update, kernel B1 vs the "
+                             "per-parameter update: %s" % parity)
+
+    # the peak over the timed steps, without the copies above (the cache
+    # keeps its blocks: emptying it would time the allocator's refill)
+    torch.cuda.reset_peak_memory_stats()
+    uk.LAUNCHES["multi_tensor_update"] = 0
+    uk.UPDATE_PATH["last"] = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        losses.append(step(kmod))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"multi_tensor_update": uk.LAUNCHES["multi_tensor_update"]}
+    path = uk.UPDATE_PATH["last"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    log("train resnet launches: %s path: %s" % (launches, path))
+    if launches["multi_tensor_update"] != RESNET_STEPS or path != "kernel":
+        raise AssertionError("the ResNet-50 step did not launch kernel B1 "
+                             "once a step: %s %s" % (launches, path))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("ResNet-50 losses %s" % losses)
+    _, aux_now = kmod.get_params()
+    unmoved = [n for n, v in aux_now.items()
+               if np.array_equal(v.asnumpy(), aux[n])]
+    if unmoved:
+        raise AssertionError("moving statistics that did not move: %s"
+                             % unmoved)
+
+    torch.cuda.empty_cache()
+
+    def one_step():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(kmod)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    profile = _profile(torch, one_step, groups=RESNET_KERNEL_GROUPS)
+    train = {"config": {"model": "resnet-50", "batch": b,
+                        "image": [3, 224, 224], "compute_dtype": "bfloat16",
+                        "masters": "float32", "optimizer": "sgd",
+                        "optimizer_params": RESNET_OPT, "params": n_params,
+                        "update": "slab plan",
+                        "source": "bench.py:87-125"},
+             "slab_blocks": blocks, "steps": RESNET_STEPS,
+             "step_s": wall / RESNET_STEPS, "warmup_step_s": warm_s,
+             "img_per_s": b * RESNET_STEPS / wall, "losses": losses,
+             "launches": launches, "update_path": path,
+             "first_update_bitwise_vs_plain": b1_first["bitwise"],
+             "moving_stats_moved": len(aux_now),
+             "plan_vs_per_param": parity, "peak_memory_gb": peak_gb}
+    log("train resnet: " + json.dumps(train))
+    log("train resnet profile: " + json.dumps(profile))
     return train, launches
 
 
@@ -908,11 +1362,14 @@ def main():
     b_cases = phase_kernel_b(torch, dev, flush)
     cde_cases = phase_kernels_cde(torch, dev, flush)
     f_cases = phase_kernel_f(torch, dev, flush)
+    b1_cases = phase_kernel_b1(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
     serve, launches = phase_serve(torch, dev)
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, dev)
+    torch.cuda.empty_cache()
+    resnet, resnet_launches = phase_train_resnet(torch, dev)
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1)
@@ -966,6 +1423,26 @@ def main():
         shape="m=16384 k=1024 n=4096 float32",
         launches_by_path={"train": train_launches["fused_bwd"]},
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
+    # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
+    # with the bf16 compute copy, no clip
+    b1_main = next(c for c in b1_cases if c["net"] == "resnet50"
+                   and c["kind"] == "sgd_momentum" and c["master"] == "float32"
+                   and c["wc"] == "bfloat16" and c["clip"] < 0)
+    b1_by_path = {"train_lm": train_launches["multi_tensor_update"],
+                  "train_resnet": resnet_launches["multi_tensor_update"]}
+    kernels.append(dict(
+        _entry("multi_tensor_update",
+               "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
+               "mxnet_tpu/ops/pallas_update.py:346",
+               sum(b1_by_path.values()), b1_main),
+        shape="resnet-50 slab (157 tensors, %d blocks) sgd-momentum "
+              "float32 masters + bfloat16 copy" % b1_main["blocks"],
+        launches_by_path=b1_by_path,
+        per_param_ms=b1_main["per_param_ms"],
+        grad_pack_ms=b1_main["grad_pack_ms"],
+        library=b1_main["library"],
+        max_abs_err_all_cases=max(c["max_abs_err"] for c in b1_cases),
+        max_ulps_all_cases=max(c["max_ulps"] for c in b1_cases)))
     log("total wall: %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -6,14 +6,16 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
   the ops the model uses, :mod:`~mxnet_tpu_torch.decode`
   (``DecodePredictor`` / ``DecodeServer``);
 * training through ``Module`` (:mod:`~mxnet_tpu_torch.module`,
-  ``executor``, ``train_step``, ``optimizer``, ``initializer``,
-  ``metric``, ``io``, ``ndarray``).
+  ``executor``, ``train_step``, ``optimizer``, ``lr_scheduler``,
+  ``initializer``, ``metric``, ``io``, ``ndarray``) of
+  ``models.attention_lm`` and ``models.resnet``.
 
 The hand-written Hopper kernels (``csrc/``): the fused LN->linear
 forward and backward (:mod:`~mxnet_tpu_torch.ops.fused_kernel`), flash
 attention forward, dQ and dK/dV
-(:mod:`~mxnet_tpu_torch.ops.flash_kernel`) and paged split-K flash
-decoding (:mod:`~mxnet_tpu_torch.ops.decode_kernel`).  Entry points run
+(:mod:`~mxnet_tpu_torch.ops.flash_kernel`), paged split-K flash
+decoding (:mod:`~mxnet_tpu_torch.ops.decode_kernel`) and the
+multi-tensor optimizer update (:mod:`~mxnet_tpu_torch.ops.update_kernel`).  Entry points run
 on the card unless given the CPU (``device="cpu"``, ``context=cpu()``).
 """
 from . import base, config, context, ops, registry
@@ -25,14 +27,14 @@ symbol._init_symbol_module()
 sym = symbol
 
 from . import decode, models, serve, weights  # noqa: E402
-from . import (executor, initializer, io, metric, module,  # noqa: E402
-               ndarray, optimizer, train_step)
+from . import (executor, initializer, io, lr_scheduler,  # noqa: E402
+               metric, module, ndarray, optimizer, train_step)
 
 mod = module
 nd = ndarray
 
 __all__ = ["AttrScope", "Context", "MXNetError", "NameManager", "base",
            "config", "context", "cpu", "decode", "executor", "gpu",
-           "initializer", "io", "metric", "mod", "models", "module", "nd",
-           "ndarray", "ops", "optimizer", "registry", "serve", "sym",
-           "symbol", "train_step", "weights"]
+           "initializer", "io", "lr_scheduler", "metric", "mod", "models",
+           "module", "nd", "ndarray", "ops", "optimizer", "registry",
+           "serve", "sym", "symbol", "train_step", "weights"]

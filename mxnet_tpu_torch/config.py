@@ -1,8 +1,10 @@
 """Runtime environment-variable configuration registry.
 
-The port's copy of ``mxnet_tpu/config.py`` with the knobs the serving
-slice reads.  There is no kernel on/off knob: on the card the kernels
-always run, on the CPU their plain versions do.
+The port's copy of ``mxnet_tpu/config.py`` with the knobs the port
+reads.  There is no kernel on/off knob: on the card the kernels always
+run, on the CPU their plain versions do.  That holds for the train
+step's multi-tensor optimizer update too: its slab plan is armed
+wherever the optimizer and the masters allow it.
 """
 from __future__ import annotations
 

@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "build", "lib", "BUILD_LOG"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("fused_fwd", "paged_decode", "flash_attention", "fused_bwd")
+SOURCES = ("fused_fwd", "paged_decode", "flash_attention", "fused_bwd",
+           "multi_tensor_update")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -75,6 +76,12 @@ def _declare(name, cdll):
                                        i, i, i, f, i, p]
         for fn in (cdll.flash_fwd, cdll.flash_bwd_dq, cdll.flash_bwd_dkv):
             fn.restype = i
+    elif name == "multi_tensor_update":
+        # kind, nslots, master, wc_code, w, g, s0, s1, wc, lr, wd, nblocks,
+        # rescale, clip, h2, h3, h4, stream
+        cdll.multi_tensor_update.argtypes = [i, i, i, i, p, p, p, p, p, p, p,
+                                             i, f, f, f, f, f, p]
+        cdll.multi_tensor_update.restype = i
     else:
         # pool dtype, q, kpool, vpool, kscale, vscale, table, lens,
         # acc, m, l, B, tq, H, Hkv, Dk, Dv, pt, M, S, TQ, scale, stream

@@ -74,7 +74,7 @@ class Executor:
     def __init__(self, symbol, device, args, args_grad=None,
                  grad_req="write", aux_states=None, plain=False):
         self._symbol = symbol
-        self._octx = OpContext(plain=plain)
+        self.plain = plain
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
         self.arg_dict = ({n: args[n] for n in arg_names}
@@ -106,6 +106,9 @@ class Executor:
         return ({n: a.data for n, a in self.arg_dict.items()},
                 {n: a.data for n, a in self.aux_dict.items()})
 
+    def op_context(self, is_train):
+        return OpContext(is_train=is_train, plain=self.plain)
+
     def _set_aux(self, new_aux):
         for n in self._aux_names:
             self.aux_dict[n]._set_data(new_aux[n])
@@ -117,11 +120,11 @@ class Executor:
         if is_train and self._grad_names:
             outs, new_aux, self._grads = forward_backward(
                 self._symbol, env_args, env_aux, self._grad_names,
-                self._octx)
+                self.op_context(True))
         else:
             with torch.no_grad():
                 outs, new_aux = run_graph(self._symbol, env_args, env_aux,
-                                          self._octx)
+                                          self.op_context(is_train))
             self._grads = None
         self._set_aux(new_aux)
         self._outputs = [NDArray(o) for o in outs]

@@ -7,6 +7,11 @@ trains its parameters, and the following ``update()`` is then a no-op,
 as in the JAX package.  ``forward``/``backward``/``update`` remain the
 eager path; both paths update the same parameter tensors through the
 same :class:`~mxnet_tpu_torch.optimizer.Updater`, so they mix freely.
+``init_optimizer`` arms the train step's slab plan wherever the
+optimizer and the masters allow it: the executor's trainables and the
+updater's states become views of the plan's slabs, so the eager update,
+``get_params`` and ``set_params`` read and write the storage the
+multi-tensor kernel updates.
 
 The module runs on the card (``gpu(0)``) unless ``context=cpu()``; with
 no card and no CPU context it raises, as ``DecodePredictor`` does.
@@ -129,6 +134,8 @@ class Module(BaseModule):
             _impl(name, arr, aux_params)
         self.params_initialized = True
         self._exec_group.set_params(self._arg_params, self._aux_params)
+        if self._train_step is not None:
+            self._train_step.masters_changed()
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True):
@@ -150,7 +157,8 @@ class Module(BaseModule):
                        force_init=False):
         """Create the optimizer (``rescale_grad`` defaults to 1 /
         batch size) and its updater; a training module also gets its
-        :class:`TrainStep`.  Only the local single-device store exists:
+        :class:`TrainStep` (with the slab plan armed where the
+        optimizer and the masters allow it).  Only the local single-device store exists:
         ``kvstore`` must be "local" or None."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
@@ -222,6 +230,8 @@ class Module(BaseModule):
                 grads.append(g)
                 weights.append(w)
         self._updater.update_multi(idxs, grads, weights)
+        if self._train_step is not None:
+            self._train_step.masters_changed()
 
     def get_outputs(self):
         if not (self.binded and self.params_initialized):

@@ -1,18 +1,197 @@
-"""Layer ops: ``FullyConnected`` and the ``SoftmaxOutput`` loss head.
+"""Layer ops: ``FullyConnected``, ``Convolution``, ``Activation``,
+``Pooling``, ``BatchNorm`` and the ``SoftmaxOutput`` loss head (names,
+schemas and hints as in ``mxnet_tpu/ops/nn.py``).
 
-FullyConnected is a plain ``torch.matmul``, differentiated by autograd:
-the JAX package leaves this product to XLA, so it has no hand-written
-kernel to port.  SoftmaxOutput's gradient is :class:`SoftmaxOutputFn`,
-the head's custom VJP (``mxnet_tpu/ops/nn.py``): it ignores the upstream
-gradient and returns (softmax - onehot(label)) masked by
-``ignore_label``, normalised and scaled by ``grad_scale``.
+FullyConnected and Convolution are plain ``torch.matmul`` /
+``F.conv2d``, differentiated by autograd: the JAX package leaves these
+products to XLA, so they have no hand-written kernel to port.  Pooling
+pads explicitly (``pooling_convention="full"`` pads the far edge) and
+its average divides by kh * kw, padding included, as ``reduce_window``
+does.  BatchNorm's training form is :class:`BatchNormTrainFn`, the JAX
+package's custom VJP: shifted single-pass statistics with a refine pass
+selected on the device, compute-dtype residuals and f32 statistics.
+SoftmaxOutput's gradient is :class:`SoftmaxOutputFn`, the head's custom
+VJP: it ignores the upstream gradient and returns (softmax -
+onehot(label)) masked by ``ignore_label``, normalised and scaled by
+``grad_scale``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from ..attrs import Param, ParamSchema
 from ..registry import OpDef, register_op, simple_compute
+
+
+def _pair(v, n=2):
+    if isinstance(v, int):
+        return (v,) * n
+    if len(v) == 1:
+        return tuple(v) * n
+    return tuple(v)
+
+
+def _conv_shape(attrs, in_shapes, aux_shapes):
+    n, c, h, w = in_shapes[0]
+    kh, kw = _pair(attrs["kernel"])
+    sh, sw = _pair(attrs.get("stride", (1, 1)))
+    ph, pw = _pair(attrs.get("pad", (0, 0)))
+    dh, dw = _pair(attrs.get("dilate", (1, 1)))
+    nf = attrs["num_filter"]
+    shapes = [tuple(in_shapes[0]),
+              (nf, c // attrs.get("num_group", 1), kh, kw)]
+    if not attrs.get("no_bias", False):
+        shapes.append((nf,))
+    oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    ow = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    return shapes, [(n, nf, oh, ow)], []
+
+
+def _bn_shape(attrs, in_shapes, aux_shapes):
+    dshape = in_shapes[0]
+    axis = attrs.get("axis", 1) if len(dshape) > 1 else 0
+    c = dshape[axis]
+    return [dshape, (c,), (c,)], [dshape, (c,), (c,)], [(c,), (c,)]
+
+
+def _pool_geometry(attrs, h, w):
+    """((kh, kw), (sh, sw), (top, bottom, left, right) pads, (oh, ow))."""
+    kh, kw = _pair(attrs["kernel"])
+    sh, sw = _pair(attrs.get("stride", (1, 1)))
+    ph, pw = _pair(attrs.get("pad", (0, 0)))
+    if attrs.get("global_pool", False):
+        return (h, w), (1, 1), (0, 0, 0, 0), (1, 1)
+    if attrs.get("pooling_convention", "valid") == "full":
+        oh = int(math.ceil((h + 2 * ph - kh) / sh)) + 1
+        ow = int(math.ceil((w + 2 * pw - kw) / sw)) + 1
+    else:
+        oh = (h + 2 * ph - kh) // sh + 1
+        ow = (w + 2 * pw - kw) // sw + 1
+    eh = max(0, (oh - 1) * sh + kh - h - 2 * ph)
+    ew = max(0, (ow - 1) * sw + kw - w - 2 * pw)
+    return (kh, kw), (sh, sw), (ph, ph + eh, pw, pw + ew), (oh, ow)
+
+
+def _pool_shape(attrs, in_shapes, aux_shapes):
+    n, c, h, w = in_shapes[0]
+    _, _, _, (oh, ow) = _pool_geometry(attrs, h, w)
+    return [tuple(in_shapes[0])], [(n, c, oh, ow)], []
+
+
+def _activation(attrs, x):
+    act = attrs.get("act_type", "relu")
+    if act == "relu":
+        return torch.relu(x)
+    if act == "sigmoid":
+        return torch.sigmoid(x)
+    if act == "tanh":
+        return torch.tanh(x)
+    if act == "softrelu":
+        return torch.logaddexp(x, torch.zeros_like(x))
+    if act == "softsign":
+        return x / (1 + torch.abs(x))
+    raise ValueError("unknown act_type %s" % act)
+
+
+def _conv(attrs, data, weight, *bias):
+    if attrs.get("layout") == "NHWC":
+        raise NotImplementedError(
+            "Convolution(layout='NHWC') is not ported yet; NCHW only")
+    out = F.conv2d(data, weight, stride=_pair(attrs.get("stride", (1, 1))),
+                   padding=_pair(attrs.get("pad", (0, 0))),
+                   dilation=_pair(attrs.get("dilate", (1, 1))),
+                   groups=attrs.get("num_group", 1))
+    if bias:
+        out = out + bias[0].reshape(1, -1, 1, 1)
+    return out.to(data.dtype)
+
+
+def _pooling(attrs, x):
+    if attrs.get("layout") == "NHWC":
+        raise NotImplementedError(
+            "Pooling(layout='NHWC') is not ported yet; NCHW only")
+    (kh, kw), stride, (top, bottom, left, right), _ = _pool_geometry(
+        attrs, x.shape[2], x.shape[3])
+    ptype = attrs.get("pool_type", "max")
+    fill = float("-inf") if ptype == "max" else 0.0
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=fill)
+    if ptype == "max":
+        return F.max_pool2d(x, (kh, kw), stride)
+    # the window sum, then (avg) one division by the full window size
+    out = F.avg_pool2d(x, (kh, kw), stride, divisor_override=1)
+    return out / (kh * kw) if ptype == "avg" else out
+
+
+def _bn_stats(x, center, eps, red, bshape):
+    """Batch mean and variance, f32, in the JAX package's shifted single
+    pass: var = E[(x - c)^2] - (mean - c)^2 centred on c = the moving
+    mean.  Where that would lose the variance to cancellation (|mean - c|
+    much larger than the spread, as at the zero-initialised moving mean)
+    the exact two-pass variance replaces it, for every channel, as the
+    reference's ``lax.cond`` does; the selection is a ``torch.where`` on
+    the device, so both variances are always computed and the host never
+    waits on the predicate."""
+    x32 = x.float()
+    if not red:
+        return x32.reshape(-1), torch.zeros_like(x32.reshape(-1))
+    xc = x32 - center.reshape(bshape)
+    mc = xc.mean(dim=red)
+    var_fast = torch.clamp_min(xc.square().mean(dim=red) - mc.square(), 0.0)
+    mean = mc + center
+    mc2 = mc.square()
+    bad = ((var_fast <= 1e-5 * mc2) & (1e-7 * mc2 > eps)).any()
+    refine = (x32 - mean.reshape(bshape)).square().mean(dim=red)
+    return mean, torch.where(bad, refine, var_fast)
+
+
+def _bn_apply(x, gamma, beta, mean, inv, bshape):
+    g32 = gamma.float()
+    scale = (inv * g32).to(x.dtype)
+    shift = (beta.float() - mean * inv * g32).to(x.dtype)
+    return x * scale.reshape(bshape) + shift.reshape(bshape)
+
+
+class BatchNormTrainFn(torch.autograd.Function):
+    """Training-mode BatchNorm, ``(out, mean, var)`` from (x, gamma, beta,
+    center): the JAX package's ``_bn_train_core`` custom VJP.  The saved
+    residuals are x in its compute dtype plus the (C,) f32 statistics; the
+    backward folds the mean / var outputs' cotangents into dx."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, center, eps, caxis):
+        red = tuple(i for i in range(x.dim()) if i != caxis)
+        bshape = tuple(x.shape[caxis] if i == caxis else 1
+                       for i in range(x.dim()))
+        mean, var = _bn_stats(x, center, eps, red, bshape)
+        inv = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, gamma, mean, inv)
+        ctx.geometry = (red, bshape)
+        ctx.set_materialize_grads(False)
+        return _bn_apply(x, gamma, beta, mean, inv, bshape), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, gamma, mean, inv = ctx.saved_tensors
+        red, bshape = ctx.geometry
+        n = math.prod(x.shape[i] for i in red)
+        xmu = x.float() - mean.reshape(bshape)
+        xhat = xmu * inv.reshape(bshape)
+        dy32 = dy.float() if dy is not None else torch.zeros_like(xhat)
+        dbeta = dy32.sum(dim=red)
+        dgamma = (dy32 * xhat).sum(dim=red)
+        dx = (inv * gamma.float()).reshape(bshape) \
+            * (dy32 - (dbeta / n).reshape(bshape)
+               - xhat * (dgamma / n).reshape(bshape))
+        if dmean is not None:
+            dx = dx + (dmean / n).reshape(bshape)
+        if dvar is not None:
+            dx = dx + (dvar * 2.0 / n).reshape(bshape) * xmu
+        return (dx.to(x.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(gamma.dtype), None, None, None)
 
 
 def _fc_shape(attrs, in_shapes, aux_shapes):
@@ -127,6 +306,86 @@ def register_all():
         arguments=lambda a: ["data", "weight"] if a.get("no_bias")
         else ["data", "weight", "bias"],
         infer_shape=_fc_shape, hint="fullyconnected"))
+
+    register_op(OpDef(
+        "Activation", simple_compute(_activation),
+        schema=ParamSchema(Param("act_type", str, required=True,
+                                 enum=("relu", "sigmoid", "tanh",
+                                       "softrelu", "softsign"))),
+        num_inputs=1, hint="activation"))
+
+    register_op(OpDef(
+        "Convolution", simple_compute(_conv),
+        schema=ParamSchema(
+            Param("kernel", "shape", required=True),
+            Param("stride", "shape", default=(1, 1)),
+            Param("dilate", "shape", default=(1, 1)),
+            Param("pad", "shape", default=(0, 0)),
+            Param("num_filter", int, required=True),
+            Param("num_group", int, default=1),
+            Param("workspace", int, default=1024),
+            Param("no_bias", bool, default=False),
+            Param("cudnn_tune", str, default=None),
+            Param("cudnn_off", bool, default=False),
+            Param("layout", str, default=None)),
+        num_inputs=lambda a: 2 if a.get("no_bias") else 3,
+        arguments=lambda a: ["data", "weight"] if a.get("no_bias")
+        else ["data", "weight", "bias"],
+        infer_shape=_conv_shape, hint="convolution"))
+
+    register_op(OpDef(
+        "Pooling", simple_compute(_pooling),
+        schema=ParamSchema(
+            Param("kernel", "shape", required=True),
+            Param("pool_type", str, default="max",
+                  enum=("max", "avg", "sum")),
+            Param("global_pool", bool, default=False),
+            Param("pooling_convention", str, default="valid"),
+            Param("stride", "shape", default=(1, 1)),
+            Param("pad", "shape", default=(0, 0)),
+            Param("layout", str, default=None)),
+        num_inputs=1, infer_shape=_pool_shape, hint="pooling"))
+
+    def _batchnorm(attrs, inputs, aux, octx):
+        data, gamma, beta = inputs
+        moving_mean, moving_var = aux
+        eps = attrs.get("eps", 1e-3)
+        momentum = attrs.get("momentum", 0.9)
+        caxis = attrs.get("axis", 1) if data.dim() > 1 else 0
+        if caxis < 0:
+            caxis += data.dim()
+        if attrs.get("fix_gamma", True):
+            # a constant: the gamma parameter takes a zero gradient, and
+            # weight decay still moves it, as in the reference
+            gamma = torch.ones_like(gamma)
+        if attrs.get("use_global_stats", False) or not octx.is_train:
+            bshape = tuple(data.shape[caxis] if i == caxis else 1
+                           for i in range(data.dim()))
+            mean, var = moving_mean, moving_var
+            out = _bn_apply(data, gamma, beta, mean,
+                            torch.rsqrt(var + eps), bshape)
+            return [out, mean, var], [moving_mean, moving_var]
+        out, mean, var = BatchNormTrainFn.apply(
+            data, gamma, beta, moving_mean.detach().float(), eps, caxis)
+        new_mm = momentum * moving_mean + (1 - momentum) * mean.detach()
+        new_mv = momentum * moving_var + (1 - momentum) * var.detach()
+        return [out, mean, var], [new_mm, new_mv]
+
+    register_op(OpDef(
+        "BatchNorm", _batchnorm,
+        schema=ParamSchema(
+            Param("eps", float, default=1e-3),
+            Param("momentum", float, default=0.9),
+            Param("fix_gamma", bool, default=True),
+            Param("use_global_stats", bool, default=False),
+            Param("output_mean_var", bool, default=False),
+            Param("axis", int, default=1)),
+        num_inputs=3, num_outputs=3,
+        num_visible_outputs=lambda a: 3 if a.get("output_mean_var") else 1,
+        arguments=["data", "gamma", "beta"],
+        outputs=["output", "mean", "var"],
+        aux=["moving_mean", "moving_var"],
+        infer_shape=_bn_shape, hint="batchnorm"))
 
     def _softmax_output(attrs, data, label):
         return SoftmaxOutputFn.apply(data, label, attrs)

@@ -1,5 +1,5 @@
-"""Tensor ops of the LM: ``mean``, ``Reshape`` and ``Embedding`` (names,
-schemas and hints as in ``mxnet_tpu/ops/tensor.py``).  Each is plain
+"""Tensor ops: ``mean``, ``Reshape``, ``Flatten`` and ``Embedding``
+(names, schemas and hints as in ``mxnet_tpu/ops/tensor.py``).  Each is plain
 torch, so autograd differentiates it; Embedding's weight gradient is
 the scatter-add of torch indexing."""
 from __future__ import annotations
@@ -102,6 +102,12 @@ def register_all():
                           Param("keep_highest", bool, default=False)),
                       hint="reshape"),
                 aliases=["reshape"])
+
+    register_op(OpDef("Flatten",
+                      simple_compute(lambda attrs, x:
+                                     x.reshape(x.shape[0], -1)),
+                      num_inputs=1, hint="flatten"),
+                aliases=["flatten"])
 
     def _embedding(attrs, data, weight):
         # tokens arrive as float32 ids (the symbol's data variable)

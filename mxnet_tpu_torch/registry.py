@@ -22,14 +22,17 @@ _OPS = {}
 class OpContext:
     """Per-invocation execution context.
 
-    ``plain`` makes ops that own a hand-written CUDA kernel run the
-    kernel's plain PyTorch version instead, whatever the device — the
-    reference the kernels are held to (``DecodePredictor(plain=True)``).
+    ``is_train`` is the training flag (BatchNorm uses batch statistics
+    and updates its moving ones only when it is set).  ``plain`` makes
+    ops that own a hand-written CUDA kernel run the kernel's plain
+    PyTorch version instead, whatever the device — the reference the
+    kernels are held to (``DecodePredictor(plain=True)``).
     """
 
-    __slots__ = ("plain",)
+    __slots__ = ("is_train", "plain")
 
-    def __init__(self, plain=False):
+    def __init__(self, is_train=False, plain=False):
+        self.is_train = is_train
         self.plain = plain
 
 
@@ -45,14 +48,18 @@ class OpDef:
     """A registered operator."""
 
     def __init__(self, name, fcompute, schema=None, num_inputs=1,
-                 num_outputs=1, arguments=None, aux=None,
-                 infer_shape=None, hint=None, doc=""):
+                 num_outputs=1, num_visible_outputs=None, arguments=None,
+                 outputs=None, aux=None, infer_shape=None, hint=None,
+                 doc=""):
         self.name = name
         self.fcompute = fcompute
         self.schema = schema or ParamSchema()
         self.num_inputs = num_inputs  # int or callable(attrs) -> int
         self.num_outputs = num_outputs
+        # outputs a composed symbol exposes (defaults to num_outputs)
+        self.num_visible_outputs = num_visible_outputs
         self._arguments = arguments
+        self._outputs = outputs
         self._aux = aux
         self.infer_shape_fn = infer_shape
         self.hint = hint or name.lstrip("_").lower()
@@ -65,6 +72,19 @@ class OpDef:
     def n_outputs(self, attrs):
         n = self.num_outputs
         return n(attrs) if callable(n) else n
+
+    def n_visible_outputs(self, attrs):
+        n = self.num_visible_outputs
+        if n is None:
+            return self.n_outputs(attrs)
+        return n(attrs) if callable(n) else n
+
+    def list_outputs(self, attrs):
+        if self._outputs is not None:
+            o = self._outputs
+            return list(o(attrs)) if callable(o) else list(o)
+        n = self.n_outputs(attrs)
+        return ["output"] if n == 1 else ["output%d" % i for i in range(n)]
 
     def list_arguments(self, attrs):
         if self._arguments is not None:

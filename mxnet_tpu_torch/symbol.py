@@ -254,7 +254,7 @@ def _create(op_name, sym_inputs, attrs, name=None):
             entries.append(v._outputs[0])
 
     node = _Node(op, name, node_attrs, entries)
-    return Symbol([(node, i) for i in range(op.n_outputs(parsed))])
+    return Symbol([(node, i) for i in range(op.n_visible_outputs(parsed))])
 
 
 def _make_sym_func(op_name):

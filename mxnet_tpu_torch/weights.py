@@ -54,7 +54,10 @@ def params_to_numpy(arg_params, aux_params=None):
     def host(v):
         t = v.data if hasattr(v, "asnumpy") else v
         t = t.detach()
-        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        # a copy: under the slab plan a parameter is a view of a slab the
+        # next step updates in place
+        return np.array((t.float() if t.dtype == torch.bfloat16 else t)
+                        .cpu().numpy(), copy=True)
 
     out = {k: host(v) for k, v in arg_params.items()}
     out.update({"aux:" + k: host(v) for k, v in (aux_params or {}).items()})

@@ -265,3 +265,173 @@ def test_card_tensors_the_training_kernels_refuse_raise(card):
                                     device=card), one, one,
                      torch.zeros((4, 8), dtype=torch.float16, device=card),
                      False)
+
+
+# ---------------------------------------------------------------------------
+# kernel B1 (the multi-tensor optimizer update).  Bitwise against its plain
+# version: both round every f32 operation once, in the same order, and
+# round to bf16 / f16 to nearest even; Adam's square root and quotient are
+# correctly rounded on both sides (__fsqrt_rn / __fdiv_rn, torch's sqrt and
+# division), so Adam is held to one f32 ulp and reported when it is not 0.
+# ---------------------------------------------------------------------------
+
+def _ulps(a, b):
+    """Largest distance in f32 ulps between two f32 tensors."""
+    ia = a.float().contiguous().view(torch.int32).long()
+    ib = b.float().contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def _update_case(dev, kind, nslots, master, cdtype, seed):
+    """Slabs of a plan over ragged segments (sizes not multiples of the
+    2,048-element block), with lr / wd differing per segment."""
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    sizes = [(7,), (3, 700), (2049,), (64, 3, 3, 3), (1,), (5000,)]
+    params = {"p%d" % i: torch.randn(s, generator=g).to(master)
+              for i, s in enumerate(sizes)}
+    plan = uk.UpdatePlan(kind, nslots, uk._segments_for(params), cdtype)
+    (bk,) = plan.buckets
+    w = plan.pack(params, dev)[bk]
+    grads = {n: 0.1 * torch.randn(v.shape, generator=g)
+             for n, v in params.items()}
+    gs = plan.pack(grads, dev, dtype=torch.float32)[bk]
+    slots = {n: tuple(0.01 * torch.randn(v.shape, generator=g).abs()
+                      for _ in range(nslots)) for n, v in params.items()}
+    ss = plan.pack_slots(slots, dev)[bk]
+    wc = plan.cast_slabs({bk: w}).get(bk)
+    lrs = {n: 0.01 * (i + 1) for i, n in enumerate(params)}
+    wds = {n: 1e-4 * (i % 3) for i, n in enumerate(params)}
+    lrb, wdb = plan.lr_wd_blocks(lrs, wds)
+    lrb = torch.from_numpy(lrb[bk]).to(dev)
+    wdb = torch.from_numpy(wdb[bk]).to(dev)
+    return plan, w, gs, ss, wc, lrb, wdb
+
+
+@pytest.mark.parametrize("kind,nslots", [("sgd", 0), ("sgd", 1),
+                                         ("adam", 2)])
+@pytest.mark.parametrize("master,cdtype", [
+    (torch.float32, None), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float16), (torch.bfloat16, None)])
+@pytest.mark.parametrize("clip", [-1.0, 0.05])
+def test_update_kernel_matches_plain(card, kind, nslots, master, cdtype,
+                                     clip):
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    plan, w, gs, ss, wc, lrb, wdb = _update_case(card, kind, nslots, master,
+                                                 cdtype, nslots + len(kind))
+    hyp = [0.5, clip, 0.9] if kind == "sgd" else [0.5, clip, 0.9, 0.999,
+                                                    1e-8]
+    want = [t.clone() for t in (w, *ss)] + ([wc.clone()] if wc is not None
+                                            else [])
+    ptrs = [t.data_ptr() for t in (w, gs, *ss)]
+    before = uk.LAUNCHES["multi_tensor_update"]
+    path = uk.multi_tensor_update(kind, nslots, w, gs, ss, wc, lrb, wdb, hyp)
+    torch.cuda.synchronize()
+    assert path == "kernel"
+    assert uk.LAUNCHES["multi_tensor_update"] == before + 1
+    # in place: the same storage, padding lanes still 0
+    assert [t.data_ptr() for t in (w, gs, *ss)] == ptrs
+    uk.update_plain(kind, nslots, want[0], gs, want[1:1 + nslots],
+                    want[-1] if wc is not None else None, lrb, wdb, hyp)
+    got = [w, *ss] + ([wc] if wc is not None else [])
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        if kind == "sgd":
+            assert torch.equal(a, b)
+        else:
+            assert _ulps(a, b) <= 1
+    pad = torch.ones(w.numel(), dtype=torch.bool, device=card)
+    for segs in plan.buckets.values():
+        for seg in segs:
+            start = seg.row0 * uk.LANES
+            pad[start:start + seg.size] = False
+    for t in got:
+        assert not bool(t.reshape(-1)[pad].any())
+
+
+def test_update_kernel_refuses_what_it_does_not_take(card):
+    """A CUDA slab of a dtype the kernel does not take, a slot count the
+    kind does not have, or a misshapen slab raises: no third path."""
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    lr = torch.full((1,), 0.1, device=card)
+    g = torch.zeros((16, 128), device=card)
+    for dtype in (torch.float16, torch.float64):
+        w = torch.zeros((16, 128), dtype=dtype, device=card)
+        with pytest.raises(ValueError, match="dtype"):
+            uk.multi_tensor_update("sgd", 0, w, g, (), None, lr, lr,
+                                   [1.0, -1.0, 0.0])
+    w = torch.zeros((16, 128), device=card)
+    with pytest.raises(ValueError, match="slots"):
+        uk.multi_tensor_update("adam", 1, w, g, (w.clone(),), None, lr, lr,
+                               [1.0, -1.0, 0.9, 0.999, 1e-8])
+    with pytest.raises(ValueError, match="slab"):
+        uk.multi_tensor_update("sgd", 0, torch.zeros((8, 128), device=card),
+                               g[:8], (), None, lr, lr, [1.0, -1.0, 0.0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resnet_step_plan_matches_per_param(card, dtype):
+    """A small ResNet's train step on the card through the slab plan
+    (kernel B1), held against the per-parameter update (the optimizer's
+    ``update_multi``, the path a step takes where the plan declines) run
+    on copies of the masters and the momentum from before the step, with
+    the gradients the step packed: the masters, the momentum and the
+    compute copy the next forward reads are bit for bit equal."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    sym = resnet.resnet(units=[1, 1, 1, 1], num_stages=4,
+                        filter_list=[8, 16, 32, 64, 128], num_classes=10,
+                        image_shape=(3, 32, 32))
+    b = 8
+    shapes, _, aux_shapes = sym.infer_shape(data=(b, 3, 32, 32),
+                                            softmax_label=(b,))
+    rng = np.random.RandomState(0)
+    args = {n: (rng.randn(*s) * 0.1 + (n.endswith("_gamma"))).astype(
+        np.float32) for n, s in zip(sym.list_arguments(), shapes)
+        if n not in ("data", "softmax_label")}
+    aux = {n: (np.ones(s) if n.endswith("_var") else np.zeros(s)).astype(
+        np.float32) for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    batch = DataBatch([mt.nd.array(rng.uniform(-1, 1, (b, 3, 32, 32)))],
+                      [mt.nd.array(rng.randint(0, 10, b))])
+    mod = mt.mod.Module(sym, context=mt.gpu(0), compute_dtype=dtype)
+    mod.bind(data_shapes=[DataDesc("data", (b, 3, 32, 32))],
+             label_shapes=[DataDesc("softmax_label", (b,))])
+    mod.init_params(arg_params=args, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    step = mod._train_step
+    assert step.plan is not None
+    group = mod._exec_group
+    idx = sorted(mod._updater.states)
+    weights = [NDArray(group.param_arrays[i].data.clone()) for i in idx]
+    states = [mod._updater.states[i].clone() for i in idx]
+    # an optimizer made as init_optimizer made the module's
+    opt = mt.optimizer.create("sgd", sym=sym, rescale_grad=1.0 / b,
+                              param_idx2name=dict(enumerate(
+                                  group.param_names)),
+                              learning_rate=0.1, momentum=0.9, wd=1e-4)
+    before = uk.LAUNCHES["multi_tensor_update"]
+    mod.forward_backward(batch)
+    mod.update()
+    assert uk.UPDATE_PATH["last"] == "kernel"
+    assert uk.LAUNCHES["multi_tensor_update"] - before == 1
+    opt.update_multi(idx, weights, [group.grad_arrays[i] for i in idx],
+                     states)
+    torch.cuda.synchronize()
+    for i, w, m in zip(idx, weights, states):
+        name = group.param_names[i]
+        assert torch.equal(group.param_arrays[i].data, w.data), name
+        assert torch.equal(mod._updater.states[i], m), name
+        want = w.data if dtype == "float32" else w.data.to(torch.bfloat16)
+        assert torch.equal(step._views[name], want), name
