@@ -14,155 +14,126 @@
 // cotangents into dy first and casts dW to w's dtype, as the TPU path's
 // custom VJP does.
 //
+// What bounds it on an H100: 4*M*N*K operations (two products of
+// 2*M*N*K) against reading x and dy and writing dx once; at the LM's
+// training shapes (M = 16384) it is compute-bound: 67 TFLOP/s on the CUDA
+// cores in f32, 989 TFLOP/s on the tensor cores in bf16.
+//
 // Design.  On the TPU one kernel walked the row blocks in order and
 // accumulated dW, dscale and dshift in VMEM across the whole grid.  Blocks
-// on Hopper run in no order, so the reduction over M is split into two
-// kernels of one launch:
-//   (i)  row tiles: a (BM x BN) tile of dz over (rows, K) reduces over N,
-//        then the epilogue recomputes u from x, applies the ReLU mask,
-//        writes dx and reduces du * x and du per column in shared memory,
-//        adding one partial per column and tile with atomicAdd (the order
-//        of those atomics varies, so dscale/dshift vary at about one ulp
-//        from run to run);
-//   (ii) dW tiles: each block owns a (BM x BN) tile of dW over (N, K) and
-//        loops over all M rows, recomputing a from x as the x tile enters
-//        shared memory, so the activation never reaches device memory,
-//        and writes its tile once: dW is deterministic.
-// Both are 64 x 64 tiles, 16-deep reduction steps, 4 x 4 outputs per
-// thread, masked edges in every dimension.
+// on Hopper run in no order, so one launch runs two products, each on
+// fused_tiles.cuh's engines (the variants ops/fused_kernel.py `_plan`
+// picks: f32 simt128 / simt64 / simt32 with 16-byte or scalar loads,
+// bf16 mma128 / mma64 on the tensor cores):
+//   (i)  dx: dz = dy . W over (rows m, columns k), W read as [n][k]; the
+//        epilogue recomputes u from the x tile at (m, k), applies the
+//        strict u > 0 mask, writes dx and reduces du * x and du per column
+//        in the tile, one atomicAdd per column and tile (the order of
+//        those atomics varies, so dscale / dshift vary at about one ulp);
+//   (ii) dW: dy^T . a(x) over (rows n, columns k), contraction over M,
+//        the prologue applied to x on its way into shared memory.  Where
+//        the (N, K) tiles are too few to fill the card (q/k/v: 64 tiles of
+//        128 x 128 on 132 SMs) M is split into a fixed number of ranges,
+//        each writing an f32 partial into scratch the wrapper allocates,
+//        and a second pass sums the partials in a fixed order: dW stays
+//        deterministic.
 //
-// What bounds it on an H100: 4*M*N*K FLOPs (two products of 2*M*N*K)
-// against reading x and dy and writing dx once: at the LM's training
-// shapes (M = 16384) it is compute-bound.  This version runs f32 FMAs on
-// CUDA cores (67 TFLOP/s peak), bf16 inputs widened: it is written to be
-// right, not fast.  Tensor-core products and TMA loads are later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Earlier design: 64 x 64 tiles 16 deep, 4 x 4 outputs a thread,
+// scalar loads and scalar shared-memory reads, nothing in flight during
+// the multiply-adds, bf16 widened to f32.  Its times stay in PERF.md (ffn1
+// f32 13.901 ms, 2.5x its two-matmul yardstick).
+#include "fused_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BKR = 16, TM = 4, TN = 4;
-constexpr int NT = (BM / TM) * (BN / TN);  // 256
+using ft::bf16;
+using ft::to_f32;
+using ft::from_f32;
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// variant codes, as ops/fused_kernel.py VARIANTS (no decode variant here)
+enum {
+  V_SIMT128 = 2, V_SIMT128_S, V_SIMT64, V_SIMT64_S, V_SIMT32, V_SIMT32_S,
+  V_MMA128, V_MMA64
+};
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch casts
-}
-
-// x * scale + shift rounded after the multiply and after the add, as
-// the plain version's two torch ops round it: an FMA would round once,
-// and in bf16 the activation's rounding then flips for some elements
-__device__ __forceinline__ float affine(float x, float scale, float shift) {
-  return __fadd_rn(__fmul_rn(x, scale), shift);
-}
-
-// acc += As^T Bs over one BKR-deep step: As[kk][row], Bs[kk][col]
-__device__ __forceinline__ void mac_step(float (&acc)[TM][TN],
-                                         const float (&As)[BKR][BM + 1],
-                                         const float (&Bs)[BKR][BN + 1],
-                                         int ty, int tx) {
-#pragma unroll
-  for (int kk = 0; kk < BKR; ++kk) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// (i) dz = dy @ W over a (rows m, cols k) tile; epilogue: dx, dscale, dshift
+// dx, dscale, dshift epilogue for one element: returns du
 template <typename T>
-__global__ void __launch_bounds__(NT)
-fused_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ shift, const T* __restrict__ w,
-                    T* __restrict__ dx, float* __restrict__ dscale,
-                    float* __restrict__ dshift, int M, int K, int N,
-                    int relu) {
-  __shared__ float As[BKR][BM + 1];  // dy tile, n-major
-  __shared__ float Bs[BKR][BN + 1];  // W tile, n-major
-  __shared__ float colx[BN];
-  __shared__ float col1[BN];
+__device__ __forceinline__ float dx_elem(float acc, float xv, float sc,
+                                         float sh, int relu, T* out) {
+  const float u = ft::affine(xv, sc, sh);
+  const float du = (relu && !(u > 0.f)) ? 0.f : acc;
+  *out = from_f32<T>(du * sc);
+  return du;
+}
 
+// (i) dz = dy . W over a (rows m, columns k) tile
+template <class C, typename T, bool VEC>
+__global__ void __launch_bounds__(C::NT)
+simt_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+               const float* __restrict__ scale,
+               const float* __restrict__ shift, const T* __restrict__ w,
+               T* __restrict__ dx, float* __restrict__ dscale,
+               float* __restrict__ dshift, int M, int K, int N, int relu) {
+  __shared__ __align__(16) float As[2 * C::BK * C::BM];
+  __shared__ __align__(16) float Bs[2 * C::BK * C::BN];
+  __shared__ float colx[C::BN], col1[C::BN];
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM;
-  const int k0 = blockIdx.x * BN;
+  const int ty = tid / C::NTX, tx = tid % C::NTX;
+  const int m0 = blockIdx.y * C::BM, k0 = blockIdx.x * C::BN;
+  for (int i = tid; i < C::BN; i += C::NT) colx[i] = col1[i] = 0.f;
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  ft::SimtOperand<T, C::BM, C::BK, C::NT, true, false, VEC> a(
+      dy, N, M, N, nullptr, nullptr, 0, nullptr);
+  ft::SimtOperand<T, C::BN, C::BK, C::NT, false, false, VEC> b(
+      w, K, K, N, nullptr, nullptr, 0, nullptr);
+  float acc[C::TM][C::TN];
+  ft::simt_mainloop<C>(a, b, m0, k0, 0, N, As, Bs, acc);
 
-  for (int n0 = 0; n0 < N; n0 += BKR) {
-    // neighbouring threads read neighbouring n of a dy row
-    for (int i = tid; i < BM * BKR; i += NT) {
-      const int r = i / BKR, c = i % BKR;
-      const int gm = m0 + r, gn = n0 + c;
-      As[c][r] = (gm < M && gn < N) ? to_f32(dy[(size_t)gm * N + gn]) : 0.f;
-    }
-    // neighbouring threads read neighbouring k of a W row
-    for (int i = tid; i < BN * BKR; i += NT) {
-      const int r = i / BN, c = i % BN;
-      const int gn = n0 + r, gk = k0 + c;
-      Bs[r][c] = (gn < N && gk < K) ? to_f32(w[(size_t)gn * K + gk]) : 0.f;
-    }
-    __syncthreads();
-    mac_step(acc, As, Bs, ty, tx);
-    __syncthreads();
-  }
-
-  for (int i = tid; i < BN; i += NT) colx[i] = col1[i] = 0.f;
-  __syncthreads();
-  float px[TN], p1[TN];
+  float px[C::TN], p1[C::TN];
 #pragma unroll
-  for (int j = 0; j < TN; ++j) px[j] = p1[j] = 0.f;
+  for (int j = 0; j < C::TN; ++j) px[j] = p1[j] = 0.f;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
+  for (int i = 0; i < C::TM; ++i) {
+    const int gm = m0 + ft::simt_row<C>(i, ty);
     if (gm >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gk = k0 + tx * TN + j;
-      if (gk >= K) continue;
+    for (int jq = 0; jq < C::TN / 4; ++jq) {
+      const int gk = k0 + ft::simt_col<C>(4 * jq, tx);
       const size_t at = (size_t)gm * K + gk;
-      const float xv = to_f32(x[at]);
-      const float u = affine(xv, scale[gk], shift[gk]);
-      const float du = (relu && !(u > 0.f)) ? 0.f : acc[i][j];
-      dx[at] = from_f32<T>(du * scale[gk]);
-      px[j] += du * xv;
-      p1[j] += du;
-    }
-  }
+      if constexpr (VEC) static_assert(sizeof(T) == 4, "f32 only");
+      if (VEC && gk + 3 < K) {
+        float xv[4], sc[4], sh[4], o[4];
+        ft::load4<T>(x + at, xv);
+        ft::load4<float>(scale + gk, sc);
+        ft::load4<float>(shift + gk, sh);
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    if (k0 + tx * TN + j < K) {
-      atomicAdd(&colx[tx * TN + j], px[j]);
-      atomicAdd(&col1[tx * TN + j], p1[j]);
+        for (int e = 0; e < 4; ++e) {
+          T ov;
+          const float du = dx_elem<T>(acc[i][4 * jq + e], xv[e], sc[e],
+                                      sh[e], relu, &ov);
+          o[e] = to_f32(ov);
+          px[4 * jq + e] += du * xv[e];
+          p1[4 * jq + e] += du;
+        }
+        *reinterpret_cast<float4*>(dx + at) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (gk + e >= K) continue;
+          const float xv = to_f32(x[at + e]);
+          const float du = dx_elem<T>(acc[i][4 * jq + e], xv, scale[gk + e],
+                                      shift[gk + e], relu, dx + at + e);
+          px[4 * jq + e] += du * xv;
+          p1[4 * jq + e] += du;
+        }
+      }
     }
   }
+  ft::simt_col_add<C>(px, colx, tx);
+  ft::simt_col_add<C>(p1, col1, tx);
   __syncthreads();
-  for (int i = tid; i < BN; i += NT) {
+  for (int i = tid; i < C::BN; i += C::NT) {
     if (k0 + i < K) {
       atomicAdd(&dscale[k0 + i], colx[i]);
       atomicAdd(&dshift[k0 + i], col1[i]);
@@ -170,77 +141,321 @@ fused_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// (ii) dW = dy^T @ a over a (rows n, cols k) tile, looping over all M rows
-template <typename T>
-__global__ void __launch_bounds__(NT)
-fused_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ shift, float* __restrict__ dw,
-                    int M, int K, int N, int relu) {
-  __shared__ float As[BKR][BM + 1];  // dy tile, m-major: As[mm][n]
-  __shared__ float Bs[BKR][BN + 1];  // activation tile, m-major: Bs[mm][k]
-
+// (ii) dW = dy^T . a(x) over a (rows n, columns k) tile, contraction over
+// the rows [z * chunk, (z + 1) * chunk) of M; out is dW or the z-th
+// partial
+template <class C, typename T, bool VEC>
+__global__ void __launch_bounds__(C::NT)
+simt_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+               const float* __restrict__ scale,
+               const float* __restrict__ shift, float* __restrict__ out,
+               int M, int K, int N, int relu, int chunk) {
+  __shared__ __align__(16) float As[2 * C::BK * C::BM];
+  __shared__ __align__(16) float Bs[2 * C::BK * C::BN];
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int n0 = blockIdx.y * BM;
-  const int k0 = blockIdx.x * BN;
+  const int ty = tid / C::NTX, tx = tid % C::NTX;
+  const int n0 = blockIdx.y * C::BM, k0 = blockIdx.x * C::BN;
+  const int kbeg = blockIdx.z * chunk, kend = min(M, kbeg + chunk);
+  out += (size_t)blockIdx.z * N * K;
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int m0 = 0; m0 < M; m0 += BKR) {
-    for (int i = tid; i < BM * BKR; i += NT) {
-      const int r = i / BM, c = i % BM;
-      const int gm = m0 + r, gn = n0 + c;
-      As[r][c] = (gm < M && gn < N) ? to_f32(dy[(size_t)gm * N + gn]) : 0.f;
-    }
-    for (int i = tid; i < BN * BKR; i += NT) {
-      const int r = i / BN, c = i % BN;
-      const int gm = m0 + r, gk = k0 + c;
-      float a = 0.f;
-      if (gm < M && gk < K) {
-        a = affine(to_f32(x[(size_t)gm * K + gk]), scale[gk], shift[gk]);
-        if (relu) a = fmaxf(a, 0.f);
-        a = to_f32(from_f32<T>(a));  // the activation in dy's dtype
-      }
-      Bs[r][c] = a;
-    }
-    __syncthreads();
-    mac_step(acc, As, Bs, ty, tx);
-    __syncthreads();
-  }
+  typedef ft::SimtOperand<T, C::BN, C::BK, C::NT, false, true, VEC> OB;
+  __shared__ __align__(16) float tab[OB::TAB];
+  ft::SimtOperand<T, C::BM, C::BK, C::NT, false, false, VEC> a(
+      dy, N, N, kend, nullptr, nullptr, 0, nullptr);
+  OB b(x, K, K, kend, scale, shift, relu, tab);
+  float acc[C::TM][C::TN];
+  ft::simt_mainloop<C>(a, b, n0, k0, kbeg, kend, As, Bs, acc);
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gn = n0 + ty * TM + i;
+  for (int i = 0; i < C::TM; ++i) {
+    const int gn = n0 + ft::simt_row<C>(i, ty);
     if (gn >= N) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gk = k0 + tx * TN + j;
-      if (gk < K) dw[(size_t)gn * K + gk] = acc[i][j];
+    for (int jq = 0; jq < C::TN / 4; ++jq) {
+      const int gk = k0 + ft::simt_col<C>(4 * jq, tx);
+      float* o = out + (size_t)gn * K + gk;
+      if (VEC && gk + 3 < K) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[i][4 * jq], acc[i][4 * jq + 1],
+                        acc[i][4 * jq + 2], acc[i][4 * jq + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (gk + e < K) o[e] = acc[i][4 * jq + e];
+      }
+    }
+  }
+}
+
+template <class C>
+struct MmaDx {
+  // dy [m][n]; W [n][k]
+  typedef ft::MmaOperand<C::BM, C::NT, true, false> OA;
+  typedef ft::MmaOperand<C::BN, C::NT, false, false> OB;
+  typedef ft::MmaSmem<OA, OB, 2 * C::BN> Smem;            // + column sums
+};
+
+template <class C>
+struct MmaDw {
+  // dy [m][n]; x [m][k], through the prologue
+  typedef ft::MmaOperand<C::BM, C::NT, false, false> OA;
+  typedef ft::MmaOperand<C::BN, C::NT, false, true> OB;
+  typedef ft::MmaSmem<OA, OB, 0> Smem;
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::NT)
+mma_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+              const float* __restrict__ scale,
+              const float* __restrict__ shift, const bf16* __restrict__ w,
+              bf16* __restrict__ dx, float* __restrict__ dscale,
+              float* __restrict__ dshift, int M, int K, int N, int relu) {
+  typedef typename MmaDx<C>::OA OA;
+  typedef typename MmaDx<C>::OB OB;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const typename MmaDx<C>::Smem sm(smem);
+  float* colx = sm.extra;
+  float* col1 = sm.extra + C::BN;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * C::BM, k0 = blockIdx.x * C::BN;
+  for (int i = tid; i < C::BN; i += C::NT) colx[i] = col1[i] = 0.f;
+
+  OA a(dy, N, M, N, nullptr, nullptr, 0, sm.tab_a);
+  OB b(w, K, K, N, nullptr, nullptr, 0, sm.tab_b);
+  float acc[C::MT][C::NT8][4];
+  ft::mma_mainloop<C, OA, OB, true, false>(a, b, m0, k0, 0, N, sm, acc);
+
+  float px[C::NT8][2], p1[C::NT8][2];
+#pragma unroll
+  for (int nt = 0; nt < C::NT8; ++nt)
+    px[nt][0] = px[nt][1] = p1[nt][0] = p1[nt][1] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < C::NT8; ++nt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int gm = m0 + ft::mma_row<C>(mt, 2 * hr);
+        const int gk = k0 + ft::mma_col<C>(nt, 0);  // even; K % 8 == 0
+        if (gm >= M || gk >= K) continue;
+        const size_t at = (size_t)gm * K + gk;
+        const float2 xv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(x + at));
+        bf16 o0, o1;
+        const float du0 = dx_elem<bf16>(acc[mt][nt][2 * hr], xv.x, scale[gk],
+                                        shift[gk], relu, &o0);
+        const float du1 =
+            dx_elem<bf16>(acc[mt][nt][2 * hr + 1], xv.y, scale[gk + 1],
+                          shift[gk + 1], relu, &o1);
+        __nv_bfloat162 o;
+        o.x = o0;
+        o.y = o1;
+        *reinterpret_cast<__nv_bfloat162*>(dx + at) = o;
+        px[nt][0] += du0 * xv.x;
+        px[nt][1] += du1 * xv.y;
+        p1[nt][0] += du0;
+        p1[nt][1] += du1;
+      }
+  __syncthreads();  // every column sum was zeroed
+  ft::mma_col_add<C>(px, colx);
+  ft::mma_col_add<C>(p1, col1);
+  __syncthreads();
+  for (int i = tid; i < C::BN; i += C::NT) {
+    if (k0 + i < K) {
+      atomicAdd(&dscale[k0 + i], colx[i]);
+      atomicAdd(&dshift[k0 + i], col1[i]);
+    }
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::NT)
+mma_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+              const float* __restrict__ scale,
+              const float* __restrict__ shift, float* __restrict__ out,
+              int M, int K, int N, int relu, int chunk) {
+  typedef typename MmaDw<C>::OA OA;
+  typedef typename MmaDw<C>::OB OB;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const typename MmaDw<C>::Smem sm(smem);
+  const int n0 = blockIdx.y * C::BM, k0 = blockIdx.x * C::BN;
+  const int kbeg = blockIdx.z * chunk, kend = min(M, kbeg + chunk);
+  out += (size_t)blockIdx.z * N * K;
+
+  OA a(dy, N, N, kend, nullptr, nullptr, 0, sm.tab_a);
+  OB b(x, K, K, kend, scale, shift, relu, sm.tab_b);
+  float acc[C::MT][C::NT8][4];
+  ft::mma_mainloop<C, OA, OB, false, false>(a, b, n0, k0, kbeg, kend, sm,
+                                            acc);
+#pragma unroll
+  for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < C::NT8; ++nt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int gn = n0 + ft::mma_row<C>(mt, 2 * hr);
+        const int gk = k0 + ft::mma_col<C>(nt, 0);
+        if (gn >= N || gk >= K) continue;
+        *reinterpret_cast<float2*>(out + (size_t)gn * K + gk) =
+            make_float2(acc[mt][nt][2 * hr], acc[mt][nt][2 * hr + 1]);
+      }
+}
+
+// dW = the partials summed in split order (deterministic)
+__global__ void dw_sum_kernel(const float* __restrict__ part,
+                              float* __restrict__ dw, size_t nk,
+                              int splits) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < nk;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = part[i];
+    for (int j = 1; j < splits; ++j) s += part[j * nk + i];
+    dw[i] = s;
+  }
+}
+
+struct Args {
+  const void* x;
+  const void* dy;
+  const float* scale;
+  const float* shift;
+  const void* w;
+  void* dx;
+  float* dw;  // dW, or the partials when split
+  float* dscale;
+  float* dshift;
+  int M, K, N, relu, splits, chunk;
+};
+
+template <class C>
+dim3 dx_grid(const Args& a) {
+  return dim3((a.K + C::BN - 1) / C::BN, (a.M + C::BM - 1) / C::BM);
+}
+template <class C>
+dim3 dw_grid(const Args& a) {
+  return dim3((a.K + C::BN - 1) / C::BN, (a.N + C::BM - 1) / C::BM,
+              a.splits);
+}
+
+template <class C, typename T, bool VEC>
+cudaError_t simt_dx(const Args& a, cudaStream_t s) {
+  const dim3 g = dx_grid<C>(a);
+  if (g.y > 65535) return cudaErrorInvalidValue;
+  simt_dx_kernel<C, T, VEC><<<g, C::NT, 0, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.dy), a.scale,
+      a.shift, static_cast<const T*>(a.w), static_cast<T*>(a.dx), a.dscale,
+      a.dshift, a.M, a.K, a.N, a.relu);
+  return cudaSuccess;
+}
+
+template <class C, typename T, bool VEC>
+cudaError_t simt_dw(const Args& a, cudaStream_t s) {
+  const dim3 g = dw_grid<C>(a);
+  if (g.y > 65535) return cudaErrorInvalidValue;
+  simt_dw_kernel<C, T, VEC><<<g, C::NT, 0, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.dy), a.scale,
+      a.shift, a.dw, a.M, a.K, a.N, a.relu, a.chunk);
+  return cudaSuccess;
+}
+
+template <class C>
+cudaError_t mma_dx(const Args& a, cudaStream_t s) {
+  const dim3 g = dx_grid<C>(a);
+  if (g.y > 65535) return cudaErrorInvalidValue;
+  constexpr int bytes = MmaDx<C>::Smem::BYTES;
+  static const cudaError_t attr = ft::allow_smem(mma_dx_kernel<C>, bytes);
+  if (attr != cudaSuccess) return attr;
+  mma_dx_kernel<C><<<g, C::NT, bytes, s>>>(
+      static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.dy), a.scale,
+      a.shift, static_cast<const bf16*>(a.w), static_cast<bf16*>(a.dx),
+      a.dscale, a.dshift, a.M, a.K, a.N, a.relu);
+  return cudaSuccess;
+}
+
+template <class C>
+cudaError_t mma_dw(const Args& a, cudaStream_t s) {
+  const dim3 g = dw_grid<C>(a);
+  if (g.y > 65535) return cudaErrorInvalidValue;
+  constexpr int bytes = MmaDw<C>::Smem::BYTES;
+  static const cudaError_t attr = ft::allow_smem(mma_dw_kernel<C>, bytes);
+  if (attr != cudaSuccess) return attr;
+  mma_dw_kernel<C><<<g, C::NT, bytes, s>>>(
+      static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.dy), a.scale,
+      a.shift, a.dw, a.M, a.K, a.N, a.relu, a.chunk);
+  return cudaSuccess;
+}
+
+bool aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the vector variants' preconditions (ops/fused_kernel.py `_plan` holds
+// the same; refusing here turns a planning slip into an error, not a
+// misaligned load)
+bool vec_ok(const Args& a, int width) {
+  return a.K % width == 0 && a.N % width == 0 && aligned(a.x) &&
+         aligned(a.dy) && aligned(a.w) && aligned(a.dx) && aligned(a.dw) &&
+         aligned(a.scale) && aligned(a.shift);
+}
+
+// one product: dx (dw = false) or dW
+template <typename T, bool DW>
+cudaError_t product(const Args& a, int variant, cudaStream_t s) {
+  switch (variant) {
+    case V_SIMT128_S:
+      return DW ? simt_dw<ft::Simt128, T, false>(a, s)
+                : simt_dx<ft::Simt128, T, false>(a, s);
+    case V_SIMT64_S:
+      return DW ? simt_dw<ft::Simt64, T, false>(a, s)
+                : simt_dx<ft::Simt64, T, false>(a, s);
+    case V_SIMT32_S:
+      return DW ? simt_dw<ft::Simt32, T, false>(a, s)
+                : simt_dx<ft::Simt32, T, false>(a, s);
+    default:
+      break;
+  }
+  if constexpr (sizeof(T) == 4) {
+    if (!vec_ok(a, 4)) return cudaErrorInvalidValue;
+    switch (variant) {
+      case V_SIMT128:
+        return DW ? simt_dw<ft::Simt128, T, true>(a, s)
+                  : simt_dx<ft::Simt128, T, true>(a, s);
+      case V_SIMT64:
+        return DW ? simt_dw<ft::Simt64, T, true>(a, s)
+                  : simt_dx<ft::Simt64, T, true>(a, s);
+      case V_SIMT32:
+        return DW ? simt_dw<ft::Simt32, T, true>(a, s)
+                  : simt_dx<ft::Simt32, T, true>(a, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  } else {
+    if (!vec_ok(a, 8)) return cudaErrorInvalidValue;
+    switch (variant) {
+      case V_MMA128:
+        return DW ? mma_dw<ft::Mma128>(a, s) : mma_dx<ft::Mma128>(a, s);
+      case V_MMA64:
+        return DW ? mma_dw<ft::Mma64>(a, s) : mma_dx<ft::Mma64>(a, s);
+      default:
+        return cudaErrorInvalidValue;
     }
   }
 }
 
 template <typename T>
-cudaError_t run(const void* x, const void* dy, const float* scale,
-                const float* shift, const void* w, void* dx, float* dw,
-                float* dscale, float* dshift, int M, int K, int N, int relu,
-                cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
-  dim3 g1((K + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_bwd_dx_kernel<T><<<g1, NT, 0, s>>>(
-      xt, dyt, scale, shift, static_cast<const T*>(w), static_cast<T*>(dx),
-      dscale, dshift, M, K, N, relu);
-  cudaError_t e = cudaGetLastError();
+cudaError_t run(Args a, int variant_dx, int variant_dw, float* dw,
+                float* dw_part, cudaStream_t s) {
+  cudaError_t e = product<T, false>(a, variant_dx, s);
   if (e != cudaSuccess) return e;
-  dim3 g2((K + BN - 1) / BN, (N + BM - 1) / BM);
-  fused_bwd_dw_kernel<T><<<g2, NT, 0, s>>>(xt, dyt, scale, shift, dw, M, K,
-                                           N, relu);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  a.dw = a.splits > 1 ? dw_part : dw;
+  e = product<T, true>(a, variant_dw, s);
+  if (e != cudaSuccess) return e;
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return e;
+  const size_t nk = (size_t)a.N * a.K;
+  const int blocks = (int)((nk + 255) / 256 < 4096 ? (nk + 255) / 256 : 4096);
+  dw_sum_kernel<<<blocks, 256, 0, s>>>(dw_part, dw, nk, a.splits);
   return cudaGetLastError();
 }
 
@@ -250,26 +465,32 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dy, w, dx).  x (M, K), dy (M, N),
 // w (N, K), dx (M, K); dw (N, K) f32; dscale / dshift (K,) f32, zeroed by
-// the caller.  Returns the CUDA error of the launches (0 = cudaSuccess).
+// the caller.  variant_dx / variant_dw: codes of ops/fused_kernel.py
+// VARIANTS; splits: the ranges M is split into for dW, and dw_part
+// (splits, N, K) f32 scratch when splits > 1.  Returns the CUDA error of
+// the launches (0 = cudaSuccess).
 int fused_bwd(int dtype, const void* x, const void* dy, const void* scale,
               const void* shift, const void* w, void* dx, void* dw,
               void* dscale, void* dshift, int M, int K, int N, int relu,
+              int variant_dx, int variant_dw, int splits, void* dw_part,
               void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || (M + BM - 1) / BM > 65535 ||
-      (N + BM - 1) / BM > 65535)
+  if (M <= 0 || K <= 0 || N <= 0 || splits < 1 || splits > 64 ||
+      (splits > 1 && dw_part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  const float* sh = static_cast<const float*>(shift);
+  // each split's rows a multiple of 32, the deepest stage of any engine
+  const int chunk = ((M + splits - 1) / splits + 31) / 32 * 32;
+  Args a = {x, dy, static_cast<const float*>(scale),
+            static_cast<const float*>(shift), w, dx, static_cast<float*>(dw),
+            static_cast<float*>(dscale), static_cast<float*>(dshift),
+            M, K, N, relu, splits, chunk};
   float* dwf = static_cast<float*>(dw);
-  float* ds = static_cast<float*>(dscale);
-  float* db = static_cast<float*>(dshift);
+  float* part = static_cast<float*>(dw_part);
   cudaError_t e;
   if (dtype == 0)
-    e = run<float>(x, dy, sc, sh, w, dx, dwf, ds, db, M, K, N, relu, s);
+    e = run<float>(a, variant_dx, variant_dw, dwf, part, s);
   else if (dtype == 1)
-    e = run<__nv_bfloat16>(x, dy, sc, sh, w, dx, dwf, ds, db, M, K, N, relu,
-                           s);
+    e = run<bf16>(a, variant_dx, variant_dw, dwf, part, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)e;

@@ -5,12 +5,14 @@ shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds.  Builds happen at first use
 (never at import: the CPU tests import every module), all sources in
 parallel, into ``_build/`` next to this file (listed in ``.gitignore``).
-A library's file name carries a digest of its source and flags, so an
-edited source rebuilds and an unchanged one is reused.
+A library's file name carries a digest of its source, of every shared
+header (``csrc/*.cuh``) and of the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -43,8 +45,12 @@ def _nvcc():
 
 
 def _target(name):
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, name + ".cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + f.read())
     return os.path.join(BUILD_DIR, "lib%s-%s.so"
                         % (name, digest.hexdigest()[:12]))
 
@@ -53,15 +59,15 @@ def _declare(name, cdll):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "fused_fwd":
         # dtype, x, scale, shift, w, bias, residual, y, ysum, ysumsq,
-        # M, K, N, relu, stream
+        # M, K, N, relu, variant, stream
         cdll.fused_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p,
-                                   i, i, i, i, p]
+                                   i, i, i, i, i, p]
         cdll.fused_fwd.restype = i
     elif name == "fused_bwd":
         # dtype, x, dy, scale, shift, w, dx, dw, dscale, dshift, M, K, N,
-        # relu, stream
+        # relu, variant_dx, variant_dw, splits, dw_part, stream
         cdll.fused_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p,
-                                   i, i, i, i, p]
+                                   i, i, i, i, i, i, i, p, p]
         cdll.fused_bwd.restype = i
     elif name == "flash_attention":
         # dtype, hd, q, k, v, o, lse, BH, T, G, scale, causal, stream

@@ -15,21 +15,110 @@ with per-column statistics, forward and backward — the counterpart of
 Each wrapper launches its kernel on a CUDA tensor (built at first use,
 see :mod:`~mxnet_tpu_torch.cuda_build`) or raises, and runs its plain
 version on a CPU tensor.  ``LAUNCHES`` counts kernel launches.
+
+Which variant of a kernel runs is chosen here, by :func:`_plan`, from the
+shape and dtype alone, and handed to the C entry as an int:
+
+* ``decode`` (kernel A, M <= 16): weight streaming, one warp per output
+  column;
+* ``simt128`` / ``simt64`` / ``simt32``: the f32 tile engine of
+  ``csrc/fused_tiles.cuh`` with square tiles of that side, the largest
+  that gives the grid about one block per SM (``SMS``);
+* ``wgmma128`` (kernel A): bf16 on the tensor cores by
+  ``wgmma.mma_async``, 128 x 128 tiles, the activation built in
+  registers;
+* ``mma128`` / ``mma64``: bf16 on the tensor cores by ``mma.sync``
+  (kernel A at the serve's chunks takes ``mma64``; kernel F both);
+* a ``_scalar`` suffix: the same kernel with scalar loads, for widths
+  that are not multiples of the 16-byte load or unaligned pointers
+  (bf16 shapes the tensor-core path cannot load take the scalar f32
+  engine).
+
+Kernel F's dW product splits its contraction over M into ``splits``
+ranges when its (N, K) tiles are too few to fill the card; the partials
+are summed in a fixed order, so dW stays deterministic.
+``LAST_VARIANT`` records what the last launch of each kernel ran.
 """
 from __future__ import annotations
+
+from collections import namedtuple
 
 import torch
 
 from .. import cuda_build
 
 __all__ = ["fused_scale_relu_matmul", "fused_plain", "fused_bwd",
-           "fused_bwd_plain", "FusedLNLinearFn", "LAUNCHES"]
+           "fused_bwd_plain", "FusedLNLinearFn", "LAUNCHES", "LAST_VARIANT",
+           "VARIANTS"]
 
 # kernel launches since the count was last set to 0 (plain-version calls
 # do not count)
 LAUNCHES = {"fused_fwd": 0, "fused_bwd": 0}
+# the variant(s) the last launch ran: kernel A's name; kernel F's
+# "<dx variant>/<dW variant>x<splits>"
+LAST_VARIANT = {"fused_fwd": None, "fused_bwd": None}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the C entries' variant codes (csrc/fused_fwd.cu, csrc/fused_bwd.cu)
+VARIANTS = ("decode", "decode_scalar", "simt128", "simt128_scalar",
+            "simt64", "simt64_scalar", "simt32", "simt32_scalar", "mma128",
+            "mma64", "wgmma128")
+SMS = 132            # streaming multiprocessors of an H100 SXM
+DECODE_ROWS = 16     # kernel A streams W up to this many rows
+DW_SPLIT_MIN_M = 1024  # dW splits M only when M is at least this deep
+DW_SPLIT_ROWS = 1024   # and each range keeps at least this many rows
+MAX_SPLITS = 16
+
+Plan = namedtuple("Plan", "variant code splits")
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _plan(m, k, n, dtype, product="fwd", aligned=True):
+    """The variant of kernel A (``product="fwd"``) or of one of kernel
+    F's products (``"dx"``, ``"dw"``) for x (m, k), W (n, k) in
+    ``dtype``: a :class:`Plan` of the variant's name, its C code and,
+    for dW, the number of ranges M is split into.  ``aligned``: every
+    pointer is 16-byte aligned.  The C entry sizes its grid from the
+    variant's tile side."""
+    bf16 = dtype == torch.bfloat16
+    if product == "fwd" and m <= DECODE_ROWS:
+        width = 8 if bf16 else 4   # elements of a 16-byte load
+        vec = aligned and k % width == 0
+        variant = "decode" if vec else "decode_scalar"
+        return Plan(variant, VARIANTS.index(variant), 1)
+    # output rows, columns and the contraction of the product
+    rows, cols, depth = {"fwd": (m, n, k), "dx": (m, k, n),
+                         "dw": (n, k, m)}[product]
+    mma = bf16 and aligned and k % 8 == 0 and n % 8 == 0
+    vec = not bf16 and aligned and k % 4 == 0 and n % 4 == 0
+    sides = (128, 64) if mma else (128, 64, 32)
+
+    def blocks(side):
+        return _cdiv(rows, side) * _cdiv(cols, side)
+
+    if product == "dw" and depth >= DW_SPLIT_MIN_M:
+        side = 128          # a deep contraction: split it, keep the tile
+    else:
+        side = next((t for t in sides if blocks(t) >= SMS), sides[-1])
+    splits = 1
+    if product == "dw" and depth >= DW_SPLIT_MIN_M:
+        splits = max(1, min(MAX_SPLITS, (2 * SMS) // blocks(side),
+                            depth // DW_SPLIT_ROWS))
+    if mma and product == "fwd" and side == 128:
+        variant = "wgmma128"
+    elif mma:
+        variant = "mma%d" % side
+    else:
+        variant = "simt%d%s" % (side, "" if vec else "_scalar")
+    return Plan(variant, VARIANTS.index(variant), splits)
+
+
+def _aligned(*tensors):
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def fused_plain(x, scale, shift, w, residual=None, relu=True, bias=None,
@@ -105,6 +194,8 @@ def fused_scale_relu_matmul(x, scale, shift, w, residual=None, relu=True,
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     s1 = torch.zeros((n,), dtype=torch.float32, device=dev)
     s2 = torch.zeros((n,), dtype=torch.float32, device=dev)
+    plan = _plan(m, k, n, x.dtype, "fwd",
+                 _aligned(x, w, scale, shift, bias, residual, y))
     lib = cuda_build.lib("fused_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -113,9 +204,10 @@ def fused_scale_relu_matmul(x, scale, shift, w, residual=None, relu=True,
             w.data_ptr(), bias.data_ptr() if bias is not None else None,
             residual.data_ptr() if residual is not None else None,
             y.data_ptr(), s1.data_ptr(), s2.data_ptr(), m, k, n,
-            int(bool(relu)), stream)
+            int(bool(relu)), plan.code, stream)
     cuda_build.check(lib, rc, "fused_fwd")
     LAUNCHES["fused_fwd"] += 1
+    LAST_VARIANT["fused_fwd"] = plan.variant
     return y, s1, s2
 
 
@@ -160,6 +252,12 @@ def fused_bwd(x, dy, scale, shift, w, relu):
     dw = torch.empty((n, k), dtype=torch.float32, device=dev)
     dscale = torch.zeros((k,), dtype=torch.float32, device=dev)
     dshift = torch.zeros((k,), dtype=torch.float32, device=dev)
+    aligned = _aligned(x, dy, w, scale, shift, dx, dw)
+    pdx = _plan(m, k, n, x.dtype, "dx", aligned)
+    pdw = _plan(m, k, n, x.dtype, "dw", aligned)
+    # the dW partials, summed by the kernel's second pass
+    part = (torch.empty((pdw.splits, n, k), dtype=torch.float32, device=dev)
+            if pdw.splits > 1 else None)
     lib = cuda_build.lib("fused_bwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -167,9 +265,13 @@ def fused_bwd(x, dy, scale, shift, w, relu):
                            scale.data_ptr(), shift.data_ptr(), w.data_ptr(),
                            dx.data_ptr(), dw.data_ptr(), dscale.data_ptr(),
                            dshift.data_ptr(), m, k, n, int(bool(relu)),
+                           pdx.code, pdw.code, pdw.splits,
+                           part.data_ptr() if part is not None else None,
                            stream)
     cuda_build.check(lib, rc, "fused_bwd")
     LAUNCHES["fused_bwd"] += 1
+    LAST_VARIANT["fused_bwd"] = "%s/%sx%d" % (pdx.variant, pdw.variant,
+                                              pdw.splits)
     return dx, dw, dscale, dshift
 
 

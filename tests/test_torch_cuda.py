@@ -5,8 +5,8 @@ installed::
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Shapes are small and ragged on purpose (masked tile edges, both kernel-A
-tile configurations, several kernel-B tq tiles, page sizes, head dims and
+Shapes are small and ragged on purpose (masked tile edges, every kernel
+A / F variant, several kernel-B tq tiles, page sizes, head dims and
 pool dtypes, flash T that are not multiples of the 64-row tile, kv
 groups); ``chip_smoke.py`` covers the serving and training shapes.  Tolerances:
 f32 1e-5 relative to the output's magnitude (the same products summed in
@@ -33,17 +33,34 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(1, 5, 3), (4, 33, 70), (67, 130, 65)])
-def test_fused_kernel_matches_plain(card, dtype, m, k, n):
-    g = torch.Generator(device="cpu").manual_seed(m * 1000 + k)
+# kernels A and F over every variant's edges: M across the decode / tile
+# boundary, K and N not multiples of any tile, K = 1 mod 4 (scalar loads),
+# K and N multiples of 8 (16-byte loads, the tensor-core path), and
+# shapes large enough for the 128 x 128 tiles and dW's split over M.
+# scale and shift are views whose storage continues past K with huge
+# values, so a kernel that read past K would show it.
+FUSED_M = [1, 4, 16, 17, 100, 256, 1000]
+FUSED_KN = [(33, 70), (136, 200), (5, 3)]
+FUSED_BIG = [(4200, 264, 1104), (2100, 1032, 136)]
+
+
+def _fused_inputs(card, dtype, m, k, n, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(*shape, generator=g).to(card)
 
+    def padded(v):
+        return torch.cat([v, torch.full((9,), 1e30, device=card)])[:v.numel()]
+
     x, w, r = rand(m, k).to(dtype), (rand(n, k) / k ** 0.5).to(dtype), \
         rand(m, n).to(dtype)
-    scale, shift, bias = 1 + 0.1 * rand(k), 0.1 * rand(k), 0.1 * rand(n)
+    scale, shift, bias = padded(1 + 0.1 * rand(k)), padded(0.1 * rand(k)), \
+        0.1 * rand(n)
+    return x, w, r, scale, shift, bias
+
+
+def _fwd_case(card, dtype, m, k, n, x, w, r, scale, shift, bias):
     for relu, res, b in ((True, r, bias), (False, None, bias),
                          (False, None, None)):
         before = fk.LAUNCHES["fused_fwd"]
@@ -58,6 +75,73 @@ def test_fused_kernel_matches_plain(card, dtype, m, k, n):
             mag = max(1.0, float(wv.float().abs().max()))
             torch.testing.assert_close(gv.float(), wv.float(), rtol=tol,
                                        atol=tol * mag)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", FUSED_M)
+@pytest.mark.parametrize("k,n", FUSED_KN)
+def test_fused_kernel_matches_plain(card, dtype, m, k, n):
+    args = _fused_inputs(card, dtype, m, k, n, m * 1000 + k)
+    _fwd_case(card, dtype, m, k, n, *args)
+    aligned = fk._aligned(*args)
+    assert fk.LAST_VARIANT["fused_fwd"] == fk._plan(
+        m, k, n, dtype, "fwd", aligned).variant
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", FUSED_BIG)
+def test_fused_kernel_large_tiles_match_plain(card, dtype, m, k, n):
+    args = _fused_inputs(card, dtype, m, k, n, m + k)
+    _fwd_case(card, dtype, m, k, n, *args)
+    assert fk.LAST_VARIANT["fused_fwd"] == fk._plan(m, k, n, dtype).variant
+    if n > 1000:
+        assert fk.LAST_VARIANT["fused_fwd"] in ("simt128", "wgmma128")
+
+
+def test_fused_kernel_unaligned_takes_scalar_loads(card):
+    """A view 4 bytes into its storage takes the scalar-load variant."""
+    x, w, r, scale, shift, bias = _fused_inputs(card, torch.float32, 300,
+                                                64, 96, 5)
+    xs = torch.empty(300 * 64 + 1, device=card)[1:].view(300, 64)
+    xs.copy_(x)
+    _fwd_case(card, torch.float32, 300, 64, 96, xs, w, r, scale, shift, bias)
+    assert fk.LAST_VARIANT["fused_fwd"].endswith("_scalar")
+
+
+FWD_ONLY = ("decode", "decode_scalar", "wgmma128")  # kernel A's alone
+BWD_ONLY = ("mma128",)                             # kernel F's alone
+
+
+@pytest.mark.parametrize("variant", fk.VARIANTS)
+def test_every_fused_variant_matches_plain(card, variant, monkeypatch):
+    """Each variant forced onto ragged shapes it accepts: decode at M <= 16,
+    the tiles at M = 100 and 1000, 16-byte loads only where K and N
+    allow them, bf16 only for the tensor-core variants; each through the
+    kernels that have it."""
+    dtypes = ([torch.bfloat16] if "mma" in variant else
+              [torch.float32] if variant.startswith("simt")
+              and not variant.endswith("_scalar")
+              else [torch.float32, torch.bfloat16])
+    ms = [1, 13] if variant.startswith("decode") else [100, 1000]
+    kn = [(136, 200)] + ([] if not variant.endswith("_scalar") else [(33, 70)])
+    code = fk.VARIANTS.index(variant)
+    real = fk._plan
+
+    def forced(m, k, n, dtype, product="fwd", aligned=True):
+        p = real(m, k, n, dtype, product, aligned)
+        return p._replace(variant=variant, code=code)
+
+    monkeypatch.setattr(fk, "_plan", forced)
+    for dtype in dtypes:
+        for m in ms:
+            for k, n in kn:
+                args = _fused_inputs(card, dtype, m, k, n, m + n)
+                if variant not in BWD_ONLY:
+                    _fwd_case(card, dtype, m, k, n, *args)
+                if variant in FWD_ONLY:
+                    continue
+                _bwd_case(card, dtype, *args[:2], args[3], args[4])
+                assert fk.LAST_VARIANT["fused_bwd"].startswith(variant)
 
 
 @pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
@@ -187,27 +271,47 @@ def test_flash_kernels_match_plain(card, dtype, causal, t, hd, groups):
         _card_close(got, w, CARD_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(1, 5, 3), (67, 130, 65), (256, 64, 96)])
-def test_fused_bwd_kernel_matches_plain(card, dtype, m, k, n):
+def _bwd_case(card, dtype, x, w, scale, shift, seed=0):
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cpu").manual_seed(m * 7 + k)
-
-    def rand(*shape):
-        return torch.randn(*shape, generator=g).to(card)
-
-    x, dy = rand(m, k).to(dtype), rand(m, n).to(dtype)
-    w = (rand(n, k) / k ** 0.5).to(dtype)
-    scale, shift = 1 + 0.1 * rand(k), 0.1 * rand(k)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dy = torch.randn(x.shape[0], w.shape[0], generator=g).to(card).to(dtype)
     for relu in (True, False):
         before = fk.LAUNCHES["fused_bwd"]
         got = fk.fused_bwd(x, dy, scale, shift, w, relu)
         torch.cuda.synchronize()
         assert fk.LAUNCHES["fused_bwd"] == before + 1
         want = fk.fused_bwd_plain(x, dy, scale, shift, w, relu)
-        tols = (CARD_TOL[dtype], 1e-5, 1e-5, 1e-5)
+        # dW, dscale and dshift sum over M: 1e-4 past a few hundred rows
+        tol = 1e-5 if x.shape[0] <= 256 else 1e-4
+        tols = (CARD_TOL[dtype], tol, tol, tol)
         for gv, wv, tol in zip(got, want, tols):
             _card_close(gv, wv, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", FUSED_M)
+@pytest.mark.parametrize("k,n", FUSED_KN)
+def test_fused_bwd_kernel_matches_plain(card, dtype, m, k, n):
+    x, w, _, scale, shift, _ = _fused_inputs(card, dtype, m, k, n, m * 7 + k)
+    _bwd_case(card, dtype, x, w, scale, shift, m)
+    aligned = fk._aligned(x, w, scale, shift)
+    dx, dw = (fk._plan(m, k, n, dtype, p, aligned) for p in ("dx", "dw"))
+    assert fk.LAST_VARIANT["fused_bwd"] == "%s/%sx%d" % (
+        dx.variant, dw.variant, dw.splits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", FUSED_BIG)
+def test_fused_bwd_large_tiles_and_split_match_plain(card, dtype, m, k, n):
+    x, w, _, scale, shift, _ = _fused_inputs(card, dtype, m, k, n, m + k)
+    _bwd_case(card, dtype, x, w, scale, shift, 1)
+    assert fk._plan(m, k, n, dtype, "dw").splits > 1
+    dy = torch.randn(m, n, device=card).to(dtype)
+    dw1 = fk.fused_bwd(x, dy, scale, shift, w, True)[1]
+    dw2 = fk.fused_bwd(x, dy, scale, shift, w, True)[1]
+    # the split's partials are summed in a fixed order: dW is bitwise
+    # the same from run to run
+    assert torch.equal(dw1, dw2)
 
 
 def test_autograd_runs_the_kernels(card):

@@ -295,3 +295,106 @@ def test_softmax_output_gradient_matches_jax(norm):
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(g.numpy(), np.asarray(vjp(jout)[0]),
                                rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the variant plan (ops/fused_kernel.py _plan) over the LM's shapes: the
+# serve's decode (M = 4) and prefill chunks (M = 256), the training batch
+# (M = 8 x 2048), the q/k/v (1024 -> 1024), ffn1 (1024 -> 4096) and ffn2
+# (4096 -> 1024) segments, f32 and bf16.  No card needed.
+# ---------------------------------------------------------------------------
+
+LM_SEGMENTS = [(1024, 1024), (1024, 4096), (4096, 1024)]
+
+
+def _side(plan):
+    """The square tile side a tiled variant's name carries."""
+    return int("".join(c for c in plan.variant.split("_")[0] if c.isdigit()))
+
+
+def _blocks(plan, m, k, n, product="fwd"):
+    """Blocks a tiled variant launches: output tiles of its side times
+    the dW splits."""
+    rows, cols = {"fwd": (m, n), "dx": (m, k), "dw": (n, k)}[product]
+    side = _side(plan)
+    return -(-rows // side) * -(-cols // side) * plan.splits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", LM_SEGMENTS)
+def test_plan_decode_rows_stream_the_weight(dtype, k, n):
+    for m in (1, 4, 16):
+        plan = fk._plan(m, k, n, dtype)
+        assert (plan.variant, plan.splits) == ("decode", 1)
+    assert fk._plan(17, k, n, dtype).variant != "decode"
+
+
+@pytest.mark.parametrize("k,n", LM_SEGMENTS)
+def test_plan_prefill_chunk_fills_the_card(k, n):
+    plan = fk._plan(256, k, n, torch.float32)
+    assert plan.variant.startswith("simt") and plan.variant != "simt128"
+    assert plan.splits == 1 and _blocks(plan, 256, k, n) >= fk.SMS
+    # the largest tile that fills the card: one side up falls short
+    if _side(plan) < 128:
+        bigger = fk.Plan("simt%d" % (2 * _side(plan)), 0, 1)
+        assert _blocks(bigger, 256, k, n) < fk.SMS
+    if n == 1024:
+        assert plan.variant == "simt32" and _blocks(plan, 256, k, n) == 256
+
+
+@pytest.mark.parametrize("k,n", LM_SEGMENTS)
+def test_plan_training_batch_takes_the_large_tiles(k, n):
+    m = 8 * 2048
+    for product in ("fwd", "dx", "dw"):
+        assert fk._plan(m, k, n, torch.float32, product).variant == "simt128"
+    for product in ("dx", "dw"):
+        assert fk._plan(m, k, n, torch.bfloat16, product).variant == "mma128"
+    # kernel A in bf16: wgmma on the same 128 x 128 tiles
+    wg = fk._plan(m, k, n, torch.bfloat16)
+    assert (wg.variant, wg.splits) == ("wgmma128", 1)
+    assert _blocks(wg, m, k, n) == (n // 128) * (m // 128)
+    for product in ("fwd", "dx"):
+        assert fk._plan(m, k, n, torch.float32, product).splits == 1
+
+
+def test_plan_splits_dw_over_m_where_its_tiles_are_few():
+    m = 8 * 2048
+    qkv = fk._plan(m, 1024, 1024, torch.float32, "dw")
+    # 64 tiles of 128 x 128 on 132 SMs: M in 4 ranges, 256 blocks
+    assert (qkv.variant, qkv.splits) == ("simt128", 4)
+    assert _blocks(qkv, m, 1024, 1024, "dw") == 256 >= 2 * fk.SMS - 64
+    for k, n in ((1024, 4096), (4096, 1024)):
+        plan = fk._plan(m, k, n, torch.float32, "dw")
+        assert plan.splits == 1 and _blocks(plan, m, k, n, "dw") == 256
+    # a shallow contraction is not split
+    assert fk._plan(512, 1024, 1024, torch.float32, "dw").splits == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_unaligned_takes_scalar_loads(dtype):
+    # K = 1 mod 4: no 16-byte load lines up with a row
+    for m in (4, 256, 16384):
+        for product in ("fwd", "dx", "dw"):
+            if m == 4 and product != "fwd":
+                continue
+            plan = fk._plan(m, 1025, 1024, dtype, product)
+            assert plan.variant.endswith("_scalar"), (m, product, plan)
+    # unaligned pointers likewise, with aligned widths
+    assert fk._plan(4, 1024, 1024, dtype,
+                    aligned=False).variant == "decode_scalar"
+    assert fk._plan(16384, 1024, 1024, dtype, "fwd",
+                    aligned=False).variant == "simt128_scalar"
+    # bf16 widths the tensor cores cannot load (K % 8 == 4) take the
+    # scalar f32 engine
+    if dtype == torch.bfloat16:
+        assert fk._plan(16384, 1028, 1024, dtype).variant == "simt128_scalar"
+    else:
+        assert fk._plan(16384, 1028, 1024, dtype).variant == "simt128"
+
+
+def test_plan_codes_match_the_variant_table():
+    for m in (1, 100, 256, 16384):
+        for dtype in (torch.float32, torch.bfloat16):
+            for product in ("fwd", "dx", "dw"):
+                plan = fk._plan(m, 1032, 264, dtype, product)
+                assert fk.VARIANTS[plan.code] == plan.variant
