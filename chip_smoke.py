@@ -17,7 +17,9 @@ Phases (any failure ends the run with a non-zero exit code):
    ran and the share of the bound it reached;
 3. kernels C-F — the training kernels (flash attention forward, dQ,
    dK/dV; the fused LN->linear backward) against their plain versions at
-   the training path's shapes, timed the same way;
+   the training path's shapes (C-E in f32 and bf16, G = 1 and 2; C and
+   E cases name the variant that ran, ``simt`` or ``wgmma``), timed the
+   same way;
 4. kernel B1 — the multi-tensor optimizer update against its plain
    version over the slabs of ResNet-50's 157 trainables (12,556 blocks)
    and of the LM's, for SGD, SGD-momentum and Adam, f32 masters with and
@@ -622,8 +624,9 @@ def _case(torch, flush, kernel, plain, library, extra, iters=10):
 
 def phase_kernels_cde(torch, dev, flush):
     """Kernels C, D and E at the training path's attention shape: (B*H,
-    T, hd) = (64, 2048, 128), causal; f32 and bf16 with G = 1, and f32
-    with G = 2 (32 kv rows).  D and E run on the kernel's own o / lse.
+    T, hd) = (64, 2048, 128), causal; f32 and bf16 with G = 1 and with
+    G = 2 (32 kv rows).  D and E run on the kernel's own o / lse; C and E
+    cases name the variant that ran (``flash_kernel.LAST_VARIANT``).
     Yardsticks: SDPA's forward (C) and its backward through autograd,
     which computes dq, dk and dv in one call (D and E)."""
     import torch.nn.functional as F
@@ -638,7 +641,7 @@ def phase_kernels_cde(torch, dev, flush):
     pairs = t * (t + 1) // 2   # causal (query, key) pairs per row
     cases = {"C": [], "D": [], "E": []}
     for dtype, groups in ((torch.float32, 1), (torch.bfloat16, 1),
-                          (torch.float32, 2)):
+                          (torch.float32, 2), (torch.bfloat16, 2)):
         dname = str(dtype).split(".")[-1]
         isz = torch.empty((), dtype=dtype).element_size()
         tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
@@ -656,6 +659,8 @@ def phase_kernels_cde(torch, dev, flush):
         delta = fl.flash_delta(o, do)
         dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, *args)
         dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+        variants = {"C": fl.LAST_VARIANT["flash_fwd"],
+                    "E": fl.LAST_VARIANT["flash_bwd_dkv"]}
         wdq, wdk, wdv = fl.flash_plain_bwd(q, k, v, o, lse, do, *args)
         torch.cuda.synchronize()
         errs = {"C": max(_check_close("kernel C %s o" % what, o, wo, tol),
@@ -694,10 +699,13 @@ def phase_kernels_cde(torch, dev, flush):
                  "E": 8.0 * pairs * hd * bh}
         for name in "CDE":
             bound_ms, bound_by = _bound(nbytes[name], flops[name], dname)
-            case = _case(torch, flush, *fns[name], extra={
+            extra = {
                 "kernel": name, "dtype": dname, "bh": bh, "t": t, "hd": hd,
                 "groups": groups, "causal": True, "max_abs_err": errs[name],
-                "tol": tol, "bound_ms": bound_ms, "bound_by": bound_by})
+                "tol": tol, "bound_ms": bound_ms, "bound_by": bound_by}
+            if name in variants:
+                extra["variant"] = variants[name]
+            case = _case(torch, flush, *fns[name], extra=extra)
             log("kernel %s case: %s" % (name, json.dumps(case)))
             cases[name].append(case)
         del lo, leaves
@@ -1429,14 +1437,17 @@ def main():
             ("D", "flash_bwd_dq", "mxnet_tpu/ops/pallas_attention.py:300"),
             ("E", "flash_bwd_dkv",
              "mxnet_tpu/ops/pallas_attention.py:336 (and :381, G > 1)")):
-        kernels.append(dict(
+        entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
                    train_launches[counter], cde_main[name]),
             shape="bh=64 t=2048 hd=128 causal float32",
             launches_by_path={"train": train_launches[counter]},
             max_abs_err_all_cases=max(c["max_abs_err"]
-                                      for c in cde_cases[name])))
+                                      for c in cde_cases[name]))
+        if "variant" in cde_main[name]:   # C and E
+            entry["variant"] = cde_main[name]["variant"]
+        kernels.append(entry)
     kernels.append(dict(
         _entry("fused_ln_linear_bwd", "mxnet_tpu_torch/csrc/fused_bwd.cu",
                "mxnet_tpu/ops/pallas_fused.py:214",

@@ -17,6 +17,16 @@ Tensors are head-folded: q (B*H, T, hd), k and v (B*H_kv, T, hd), q-row
 A CUDA tensor the kernels do not take (dtype other than f32/bf16, head
 dim other than 64 or 128, q and k/v of different dtypes or lengths)
 raises; nothing falls back.  ``LAUNCHES`` counts kernel launches.
+
+Kernels C and E each have two variants, picked by :func:`_variant` from
+the dtype alone (the C entry dispatches on the same dtype code):
+
+* ``simt`` (f32): register-blocked tiles on the CUDA cores;
+* ``wgmma`` (bf16): ``wgmma.mma_async`` on the tensor cores.
+
+Both read 16-byte chunks: a tensor whose storage is not 16-byte aligned
+is copied first (:func:`_aligned16`).  ``LAST_VARIANT`` records what the
+last launch of C and of E ran.
 """
 from __future__ import annotations
 
@@ -26,16 +36,33 @@ from .. import cuda_build
 
 __all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_delta", "flash_plain_fwd", "flash_plain_bwd",
-           "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES"]
+           "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "LAST_VARIANT"]
 
 # kernel launches since the counts were last set to 0 (plain-version calls
 # do not count)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# the variant the last launch of kernel C / E ran (see _variant)
+LAST_VARIANT = {"flash_fwd": None, "flash_bwd_dkv": None}
 
 # head dims the kernels are built for
 HEAD_DIMS = (64, 128)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _variant(dtype, hd):
+    """The variant of kernels C and E for ``dtype`` and head dim ``hd``:
+    ``"simt"`` for float32, ``"wgmma"`` for bfloat16 (every head dim the
+    kernels take)."""
+    if dtype not in _DTYPE_CODE or hd not in HEAD_DIMS:
+        raise ValueError("no flash kernel for %s, head dim %d" % (dtype, hd))
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def _aligned16(x):
+    """``x``, or a copy of it where its data is not 16-byte aligned (the
+    kernels read 16-byte chunks; a fresh allocation is aligned)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _expand_kv(x, groups):
@@ -115,7 +142,8 @@ def _check(q, k, v, groups, where):
                                 q.device))
     if q.device.type != "cuda":
         raise ValueError("%s: unsupported device %s" % (where, q.device))
-    return code, q.contiguous(), k.contiguous(), v.contiguous()
+    return code, _aligned16(q.contiguous()), _aligned16(k.contiguous()), \
+        _aligned16(v.contiguous())
 
 
 def flash_fwd(q, k, v, scale, causal, groups=1):
@@ -135,6 +163,7 @@ def flash_fwd(q, k, v, scale, causal, groups=1):
                            groups, float(scale), int(bool(causal)), stream)
     cuda_build.check(lib, rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
+    LAST_VARIANT["flash_fwd"] = _variant(q.dtype, hd)
     return o, lse
 
 
@@ -149,7 +178,7 @@ def _check_bwd(q, do, lse, delta, where):
                 or x.device != q.device:
             raise ValueError("%s: %s must be (%d, %d) float32 on %s"
                              % (where, name, bh, t, q.device))
-    return do.contiguous(), lse.contiguous(), delta.contiguous()
+    return _aligned16(do.contiguous()), lse.contiguous(), delta.contiguous()
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, groups=1):
@@ -189,6 +218,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, groups=1):
                                float(scale), int(bool(causal)), stream)
     cuda_build.check(lib, rc, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
+    LAST_VARIANT["flash_bwd_dkv"] = _variant(q.dtype, hd)
     return dk, dv
 
 

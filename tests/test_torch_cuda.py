@@ -243,7 +243,8 @@ def _card_close(got, want, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t,hd,groups", [(128, 64, 1), (100, 128, 2),
-                                         (67, 64, 2), (193, 128, 1)])
+                                         (67, 64, 2), (193, 128, 1),
+                                         (1000, 128, 1), (321, 64, 2)])
 def test_flash_kernels_match_plain(card, dtype, causal, t, hd, groups):
     from mxnet_tpu_torch.ops import flash_kernel as fl
 
@@ -262,6 +263,9 @@ def test_flash_kernels_match_plain(card, dtype, causal, t, hd, groups):
     torch.cuda.synchronize()
     assert {n: fl.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    variant = "simt" if dtype == torch.float32 else "wgmma"
+    assert fl.LAST_VARIANT == {"flash_fwd": variant,
+                               "flash_bwd_dkv": variant}
     wo, wlse = fl.flash_plain_fwd(q, k, v, scale, causal, groups)
     _card_close(o, wo, CARD_TOL[dtype])
     _card_close(lse, wlse, 1e-5)
@@ -269,6 +273,56 @@ def test_flash_kernels_match_plain(card, dtype, causal, t, hd, groups):
     want = fl.flash_plain_bwd(q, k, v, o, lse, do, scale, causal, groups)
     for got, w in zip((dq, dk, dv), want):
         _card_close(got, w, CARD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_are_bitwise_repeatable(card, dtype):
+    """C and E own their output tiles and sum in a fixed order (no
+    atomics): two runs on the same inputs agree bit for bit."""
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    t, hd, groups = 321, 128, 2
+
+    def rand(rows):
+        return torch.randn(rows, t, hd, generator=g).to(dtype).to(card)
+
+    q, k, v, do = rand(4), rand(2), rand(2), rand(4)
+    runs = []
+    for _ in range(2):
+        o, lse = fl.flash_fwd(q, k, v, hd ** -0.5, True, groups)
+        delta = fl.flash_delta(o, do)
+        dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, hd ** -0.5, True,
+                                  groups)
+        runs.append((o, lse, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_kernels_take_unaligned_views(card):
+    """A view whose data is not 16-byte aligned is copied before the
+    16-byte loads of C and E (never a plain fallback)."""
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    g = torch.Generator(device="cpu").manual_seed(6)
+    n = 2 * 70 * 64
+    base = torch.randn(4 * n + 1, generator=g).to(torch.bfloat16).to(card)
+    q, k, v, do = (base[1 + i * n:1 + (i + 1) * n].view(2, 70, 64)
+                   for i in range(4))
+    assert q.data_ptr() % 16 != 0
+    before = dict(fl.LAUNCHES)
+    o, lse = fl.flash_fwd(q, k, v, 0.125, True)
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, fl.flash_delta(o, do),
+                              0.125, True)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert fl.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    wo, wlse = fl.flash_plain_fwd(q, k, v, 0.125, True)
+    _card_close(o, wo, CARD_TOL[torch.bfloat16])
+    _, wdk, wdv = fl.flash_plain_bwd(q, k, v, o, lse, do, 0.125, True)
+    _card_close(dk, wdk, CARD_TOL[torch.bfloat16])
+    _card_close(dv, wdv, CARD_TOL[torch.bfloat16])
 
 
 def _bwd_case(card, dtype, x, w, scale, shift, seed=0):

@@ -7,7 +7,10 @@ flash-attention Pallas kernels, run in Pallas's interpreter.
 * ``flash_plain_bwd`` vs ``jax.vjp`` of ``pallas_attention.
   flash_attention`` (the custom VJP over the dQ and dK/dV kernels);
 * causal and not, G = 1 and 2 (grouped K/V), f32 and bf16;
-* ``FlashAttentionFn``'s autograd gradients equal ``flash_plain_bwd``.
+* ``FlashAttentionFn``'s autograd gradients equal ``flash_plain_bwd``;
+* the wrapper's side of the kernels: which variant of C and E a dtype
+  and head dim take, the aligned copy of an unaligned view, and the C
+  entries' ctypes declarations.
 
 Shapes: (B*H, T, hd) = (4, 128, 64), which clears the JAX gate (T % 128,
 hd % 64).  Tolerances: f32 1e-5 relative to each tensor's largest
@@ -112,3 +115,57 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fk.flash_bwd(meta(32), meta(32), meta(32), meta(32),
                      torch.empty((BH, T), device="meta"), meta(32), SCALE,
                      True)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma")])
+def test_variant_rule(dtype, hd, want):
+    """Kernels C and E run the CUDA-core tiles in f32 and wgmma in bf16,
+    at every head dim they take."""
+    assert fk._variant(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float16, 64),
+                                      (torch.float32, 96)])
+def test_variant_rule_refuses_what_has_no_kernel(dtype, hd):
+    with pytest.raises(ValueError, match="no flash kernel"):
+        fk._variant(dtype, hd)
+
+
+def test_unaligned_data_is_copied_before_the_kernels():
+    """The kernels read 16-byte chunks: a view whose data starts off a
+    16-byte boundary is copied, an aligned tensor passes as it is."""
+    base = torch.arange(65, dtype=torch.float32)
+    view = base[1:].view(4, 16)
+    assert view.data_ptr() % 16 != 0
+    copy = fk._aligned16(view)
+    assert copy.data_ptr() % 16 == 0
+    assert torch.equal(copy, view)
+    aligned = torch.zeros(4, 16)
+    assert aligned.data_ptr() % 16 == 0
+    assert fk._aligned16(aligned) is aligned
+
+
+def test_flash_entries_ctypes_declarations():
+    """The C entries keep their signatures: every pointer and the stream
+    as c_void_p (a 64-bit pointer never cut to an int), ints, the scale a
+    float, an int error code back."""
+    import ctypes
+    from types import SimpleNamespace
+
+    from mxnet_tpu_torch import cuda_build
+
+    fake = SimpleNamespace(flash_fwd=SimpleNamespace(),
+                           flash_bwd_dq=SimpleNamespace(),
+                           flash_bwd_dkv=SimpleNamespace(),
+                           mx_error_string=SimpleNamespace())
+    cuda_build._declare("flash_attention", fake)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    assert fake.flash_fwd.argtypes == [i, i, p, p, p, p, p, i, i, i, f, i, p]
+    assert fake.flash_bwd_dq.argtypes == [i, i, p, p, p, p, p, p, p,
+                                          i, i, i, f, i, p]
+    assert fake.flash_bwd_dkv.argtypes == [i, i, p, p, p, p, p, p, p, p,
+                                           i, i, i, f, i, p]
+    for fn in (fake.flash_fwd, fake.flash_bwd_dq, fake.flash_bwd_dkv):
+        assert fn.restype is i
