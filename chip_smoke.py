@@ -14,11 +14,13 @@ Phases (any failure ends the run with a non-zero exit code):
    one library call that computes the same function (a yardstick the
    port never calls) with the L2 cache flushed before every launch;
    kernel A and F cases name the variant ``ops/fused_kernel.py``'s plan
-   ran and the share of the bound it reached;
+   ran and the share of the bound it reached; kernel B cases the variant
+   and split count of ``ops/decode_kernel.py``'s plan, with the combine
+   kernel held against its plain version and timed beside kernel B;
 3. kernels C-F — the training kernels (flash attention forward, dQ,
    dK/dV; the fused LN->linear backward) against their plain versions at
-   the training path's shapes (C-E in f32 and bf16, G = 1 and 2; C and
-   E cases name the variant that ran, ``simt`` or ``wgmma``), timed the
+   the training path's shapes (C-E in f32 and bf16, G = 1 and 2; each
+   case names the variant that ran, ``simt`` or ``wgmma``), timed the
    same way;
 4. kernel B1 — the multi-tensor optimizer update against its plain
    version over the slabs of ResNet-50's 157 trainables (12,556 blocks)
@@ -42,7 +44,10 @@ Phases (any failure ends the run with a non-zero exit code):
    step's update is held bit for bit against the plain version on copies
    of its slabs, its gradients against a ``plain=True`` module's; the
    loss must fall; the bench's learning rate is recorded beside the one
-   timed; then one profiled step;
+   timed; then one profiled step; then the attention routing: a Module
+   at head dims 32 and 256, which the flash kernels are not built for,
+   takes sdpa ("einsum") and matches a plain module's forward and
+   backward;
 7. train ResNet-50 — ``bench.py``'s configuration at full depth and
    width (batch 256, bf16 compute, f32 masters, SGD lr 0.1, momentum
    0.9, wd 1e-4, seeded Xavier(gaussian, in, 2) weights, one resident
@@ -100,6 +105,9 @@ RESNET_KERNEL_GROUPS = {
     "casts and copies": ("direct_copy",),
     "element-wise and reductions": ("elementwise", "reduce_kernel"),
 }
+# the profiled serve's device time of kernel B and of its combine kernel
+SERVE_KERNEL_GROUPS = {"B (paged_decode)": ("paged_decode_",),
+                       "B's combine (paged_combine)": ("paged_combine",)}
 SLOTS, PAGE_TOKENS, CHUNK, MAX_NEW = 4, 16, 256, 32
 PROMPT_LENS = [384, 128, 640, 1024, 512, 300, 1000, 768]
 SHARED_PREFIX = 256
@@ -178,23 +186,30 @@ def _kernel_us(evt):
 def _device_ms(torch, fn, calls=3):
     """Device-busy ms per call of ``fn`` (the sum of its kernels' device
     time under torch.profiler, no host time), or "not measured" when the
-    profiler sees no device activity.  One profiled run; a run whose
-    records the profiler dropped (no device activity at all) is profiled
-    again, at most twice."""
+    profiler sees no device activity."""
+    return _device_parts(torch, fn, {"all": ""}, calls)["all"]
+
+
+def _device_parts(torch, fn, parts, calls=3):
+    """Device ms per call of ``fn`` by part: {label: ms of the kernels
+    whose names hold the label's substring}, one profiled run (profiled
+    again, at most twice, when it recorded no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    us = 0.0
+    out = {}
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_kernel_us(e) for e in prof.key_averages())
-        if us > 0:
-            break
-    return us * 1e-3 / calls if us > 0 else "not measured"
+        rows = [(_kernel_us(e), e.key) for e in prof.key_averages()]
+        out = {label: sum(us for us, k in rows if sub in k) * 1e-3 / calls
+               for label, sub in parts.items()}
+        if any(v > 0 for v in out.values()):
+            return out
+    return {label: "not measured" for label in parts}
 
 
 def _bound_share(case):
@@ -322,10 +337,14 @@ def _pools(torch, attn, dev, g, pages, kvh, hd, dtype):
 
 
 def phase_kernel_b(torch, dev, flush):
-    """Kernel B at the serving shapes: 4 slots x 2048-token views of
-    16-token pages, 4 heads of 256; tq = 1 (decode, 4 slots) and tq =
-    256 (a prefill chunk, 1 slot); f32 / int8 / fp8-e4m3 pools; G = 1
-    and 2; padded, long and wrapped rings."""
+    """Kernel B and its combine kernel at the serving shapes: 4 slots x
+    2048-token views of 16-token pages, 4 heads of 256; tq = 1 (decode, 4
+    slots) and tq = 256 (a prefill chunk, 1 slot); f32 / int8 / fp8-e4m3
+    pools; G = 1 and 2; padded, long and wrapped rings; and the int8 G = 1
+    decode at 8 heads of 128.  Each case names the variant and split count
+    ``decode_kernel._plan`` chose and reports the combine kernel's device
+    ms beside kernel B's; the combine is also held against its plain
+    version (``_combine``) on the case's own partials."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import attention as attn
@@ -334,86 +353,132 @@ def phase_kernel_b(torch, dev, flush):
     cases = []
     g = torch.Generator(device=dev)
     g.manual_seed(1)
-    hd = EMBED // HEADS
     m = SEQ // PAGE_TOKENS
     c = m * PAGE_TOKENS
     pages = SLOTS * m + 1
     perm = torch.randperm(pages - 1, generator=g, device=dev).to(
         torch.int32) + 1
     table_all = perm[:SLOTS * m].reshape(SLOTS, m).contiguous()
-    for pdt in (torch.float32, torch.int8, torch.float8_e4m3fn):
+    windows = ((1, [130, 700, 1100, c + 37]), (CHUNK, [768 + CHUNK]))
+    configs = [(HEADS, pdt, group, windows)
+               for pdt in (torch.float32, torch.int8, torch.float8_e4m3fn)
+               for group in (1, 2)]
+    # head dim 128 (twice the heads over the same width): the decode
+    # variant's four-dim lanes
+    configs.append((2 * HEADS, torch.int8, 1, windows[:1]))
+    for heads, pdt, group, wins in configs:
         pname = str(pdt).split(".")[-1]
-        for group in (1, 2):
-            kvh = HEADS // group
-            kp, vp = _pools(torch, attn, dev, g, pages, kvh, hd, pdt)
-            isz = torch.empty((), dtype=pdt).element_size()
-            for tq, lens_list in ((1, [130, 700, 1100, c + 37]),
-                                  (CHUNK, [768 + CHUNK])):
-                b = len(lens_list)
-                table = table_all[:b].contiguous()
-                lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
-                q = torch.randn(b, tq, EMBED, generator=g, device=dev)
-                fn = dk.flash_sdpa_decode if tq == 1 \
-                    else dk.flash_sdpa_verify
-                kw = dict(num_heads=HEADS, num_kv_heads=kvh)
-                got = fn(q, kp, vp, table, lens, **kw)
-                want = dk.paged_plain(q, kp, vp, table, lens, HEADS, None,
-                                      kvh)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                if not (err <= TOL_B and bool(torch.isfinite(got).all())):
-                    raise AssertionError(
-                        "kernel B %s G=%d tq=%d: max |out - plain| %.3g > "
-                        "%.3g" % (pname, group, tq, err, TOL_B))
-                # yardstick: SDPA over the already-gathered, dequantized
-                # view (it skips the page walk and the dequantization)
-                kv = attn.dequantize_kv(attn.paged_gather(kp, table), kvh)
-                vv = attn.dequantize_kv(attn.paged_gather(vp, table), kvh)
-                kh = kv.reshape(b, c, kvh, hd).permute(0, 2, 1, 3)
-                vh = vv.reshape(b, c, kvh, hd).permute(0, 2, 1, 3)
-                qh = q.reshape(b, tq, HEADS, hd).permute(0, 2, 1, 3)
-                limit = torch.clamp_max(
-                    lens.long()[:, None] - (tq - 1)
-                    + torch.arange(tq, device=dev)[None, :], c)
-                mask = (torch.arange(c, device=dev)[None, None, :]
-                        < limit[:, :, None])[:, None]
-                iters = 20
-                ms = _timed(torch, lambda: fn(q, kp, vp, table, lens, **kw),
-                            flush, iters)
-                plain_ms = _timed(torch, lambda: dk.paged_plain(
-                    q, kp, vp, table, lens, HEADS, None, kvh), flush, iters)
-                lib_ms = _timed(torch, lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask, enable_gqa=group > 1),
-                    flush, iters)
-                dev_ms = {
-                    "kernel": _device_ms(torch, lambda: fn(
-                        q, kp, vp, table, lens, **kw)),
-                    "plain": _device_ms(torch, lambda: dk.paged_plain(
-                        q, kp, vp, table, lens, HEADS, None, kvh)),
-                    "library": _device_ms(
-                        torch, lambda: F.scaled_dot_product_attention(
-                            qh, kh, vh, attn_mask=mask,
-                            enable_gqa=group > 1))}
-                live = [min(int(t), c) for t in lens_list]
-                nbytes = (q.numel() * 4 + b * m * 4 + b * 4
-                          + b * tq * EMBED * 4
-                          + sum(live) * kvh * hd * isz * 2
-                          + (sum(live) * kvh * 4 * 2 if pdt != torch.float32
-                             else 0))
-                keys = sum(min(int(t) - (tq - 1) + i, c)
-                           for t in lens_list for i in range(tq))
-                flops = 4.0 * keys * HEADS * hd
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                t_ops = flops / PEAK_FLOPS["float32"]
-                case = {"pool": pname, "group": group, "tq": tq,
-                        "lens": lens_list, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "device_ms": dev_ms,
-                        "bound_ms": max(t_bytes, t_ops) * 1e3,
-                        "bound_by": "bytes" if t_bytes >= t_ops
-                        else "operations"}
-                log("kernel B case: " + json.dumps(case))
-                cases.append(case)
+        hd = EMBED // heads
+        kvh = heads // group
+        kp, vp = _pools(torch, attn, dev, g, pages, kvh, hd, pdt)
+        isz = torch.empty((), dtype=pdt).element_size()
+        for tq, lens_list in wins:
+            b = len(lens_list)
+            table = table_all[:b].contiguous()
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            q = torch.randn(b, tq, EMBED, generator=g, device=dev)
+            fn = dk.flash_sdpa_decode if tq == 1 \
+                else dk.flash_sdpa_verify
+            kw = dict(num_heads=heads, num_kv_heads=kvh)
+            got = fn(q, kp, vp, table, lens, **kw)
+            variant = dk.LAST_VARIANT["paged_decode"]
+            plan = dk._plan(b, tq, heads, kvh, hd, hd, m, PAGE_TOKENS,
+                            dk._sm_count(dev))
+            want = dk.paged_plain(q, kp, vp, table, lens, heads, None,
+                                  kvh)
+            parts = dk._paged_launch(q, kp, vp, table, lens, heads,
+                                     None, kvh, combined=False)
+            comb = dk._launch_combine(*parts)
+            comb_plain = dk._combine(*parts)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not (err <= TOL_B and bool(torch.isfinite(got).all())):
+                raise AssertionError(
+                    "kernel B %s hd=%d G=%d tq=%d: max |out - plain| %.3g "
+                    "> %.3g" % (pname, hd, group, tq, err, TOL_B))
+            comb_err = float((comb - comb_plain).abs().max())
+            if not comb_err <= TOL_B:
+                raise AssertionError(
+                    "combine kernel %s hd=%d G=%d tq=%d: max |out - plain| "
+                    "%.3g > %.3g" % (pname, hd, group, tq, comb_err, TOL_B))
+            # yardstick: SDPA over the already-gathered, dequantized
+            # view (it skips the page walk and the dequantization)
+            kv = attn.dequantize_kv(attn.paged_gather(kp, table), kvh)
+            vv = attn.dequantize_kv(attn.paged_gather(vp, table), kvh)
+            kh = kv.reshape(b, c, kvh, hd).permute(0, 2, 1, 3)
+            vh = vv.reshape(b, c, kvh, hd).permute(0, 2, 1, 3)
+            qh = q.reshape(b, tq, heads, hd).permute(0, 2, 1, 3)
+            limit = torch.clamp_max(
+                lens.long()[:, None] - (tq - 1)
+                + torch.arange(tq, device=dev)[None, :], c)
+            mask = (torch.arange(c, device=dev)[None, None, :]
+                    < limit[:, :, None])[:, None]
+            iters = 20
+            ms = _timed(torch, lambda: fn(q, kp, vp, table, lens, **kw),
+                        flush, iters)
+            plain_ms = _timed(torch, lambda: dk.paged_plain(
+                q, kp, vp, table, lens, heads, None, kvh), flush, iters)
+            lib_ms = _timed(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=group > 1),
+                flush, iters)
+            comb_ms = _timed(torch, lambda: dk._launch_combine(*parts),
+                             flush, iters)
+            comb_plain_ms = _timed(torch, lambda: dk._combine(*parts),
+                                   flush, iters)
+            dev_parts = _device_parts(
+                torch, lambda: fn(q, kp, vp, table, lens, **kw),
+                {"kernel_b": "paged_decode_", "combine": "paged_combine"})
+            dev_ms = {
+                "kernel": _device_ms(torch, lambda: fn(
+                    q, kp, vp, table, lens, **kw)),
+                "kernel_b": dev_parts["kernel_b"],
+                "combine": dev_parts["combine"],
+                "combine_plain": _device_ms(
+                    torch, lambda: dk._combine(*parts)),
+                "plain": _device_ms(torch, lambda: dk.paged_plain(
+                    q, kp, vp, table, lens, heads, None, kvh)),
+                "library": _device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask,
+                        enable_gqa=group > 1))}
+            live = [min(int(t), c) for t in lens_list]
+            nbytes = (q.numel() * 4 + b * m * 4 + b * 4
+                      + b * tq * EMBED * 4
+                      + sum(live) * kvh * hd * isz * 2
+                      + (sum(live) * kvh * 4 * 2 if pdt != torch.float32
+                         else 0))
+            keys = sum(min(int(t) - (tq - 1) + i, c)
+                       for t in lens_list for i in range(tq))
+            flops = 4.0 * keys * heads * hd
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS["float32"]
+            # the combine reads m and l of every split, acc of the
+            # splits that saw something, and writes the output
+            seen = int((parts[1] > -torch.inf).sum())
+            comb_bytes = (seen * hd + parts[1].numel() * 2) * 4 \
+                + b * tq * EMBED * 4
+            case = {"pool": pname, "head_dim": hd, "group": group, "tq": tq,
+                    "lens": lens_list, "variant": variant,
+                    "splits": plan.splits,
+                    "pages_per_split": plan.pages_per_split,
+                    "blocks": plan.blocks, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "device_ms": dev_ms,
+                    "bound_ms": max(t_bytes, t_ops) * 1e3,
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations",
+                    "combine": {
+                        "max_abs_err": comb_err, "ms": comb_ms,
+                        "plain_ms": comb_plain_ms,
+                        "bound_ms": comb_bytes / HBM_BYTES_PER_S * 1e3,
+                        "bound_by": "bytes",
+                        "device_ms": dev_parts["combine"],
+                        "plain_device_ms": dev_ms["combine_plain"],
+                        "splits_seen": seen}}
+            case["bound_share"] = _bound_share(case)
+            log("kernel B case: " + json.dumps(case))
+            cases.append(case)
+            del parts, comb, comb_plain
     return cases
 
 
@@ -522,16 +587,17 @@ def phase_serve(torch, dev):
     _serve(torch, pred, [p[:64] for p in prompts[:2]])
 
     fk.LAUNCHES["fused_fwd"] = 0
-    dk.LAUNCHES["paged_decode"] = 0
+    dk.LAUNCHES["paged_decode"] = dk.LAUNCHES["paged_combine"] = 0
     results, wall, stats = _serve(torch, pred, prompts)
     launches = {"fused_fwd": fk.LAUNCHES["fused_fwd"],
-                "paged_decode": dk.LAUNCHES["paged_decode"]}
+                "paged_decode": dk.LAUNCHES["paged_decode"],
+                "paged_combine": dk.LAUNCHES["paged_combine"]}
     paths = {"fused": fused_lm.FUSED_PATH["last"],
              "decode": attn.DECODE_PATH["last"]}
     log("serve launches: %s paths: %s" % (launches, paths))
     if min(launches.values()) <= 0 or paths != {"fused": "kernel",
                                                  "decode": "kernel"}:
-        raise AssertionError("the serve did not run through both kernels: "
+        raise AssertionError("the serve did not run through every kernel: "
                              "%s %s" % (launches, paths))
     for rid in range(len(prompts)):
         toks = results[rid]
@@ -574,7 +640,8 @@ def phase_serve(torch, dev):
         raise AssertionError("teacher-forced |log p_kernel - log p_plain| "
                              "%.3g > %.3g" % (worst, TOL_LOGP))
     tokens = sum(len(t) for t in results.values())
-    profile = _profile(torch, lambda: _serve(torch, pred, prompts)[1])
+    profile = _profile(torch, lambda: _serve(torch, pred, prompts)[1],
+                       groups=SERVE_KERNEL_GROUPS)
     serve = {"requests": len(prompts), "tokens": tokens, "wall_s": wall,
              "tokens_per_s": tokens / wall,
              "ttft_p50_s": stats.get("ttft_p50_s"),
@@ -625,10 +692,10 @@ def _case(torch, flush, kernel, plain, library, extra, iters=10):
 def phase_kernels_cde(torch, dev, flush):
     """Kernels C, D and E at the training path's attention shape: (B*H,
     T, hd) = (64, 2048, 128), causal; f32 and bf16 with G = 1 and with
-    G = 2 (32 kv rows).  D and E run on the kernel's own o / lse; C and E
-    cases name the variant that ran (``flash_kernel.LAST_VARIANT``).
+    G = 2 (32 kv rows).  D and E run on the kernel's own o / lse.
     Yardsticks: SDPA's forward (C) and its backward through autograd,
-    which computes dq, dk and dv in one call (D and E)."""
+    which computes dq, dk and dv in one call (D and E).  Every case names
+    the variant that ran (``flash_kernel.LAST_VARIANT``)."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import flash_kernel as fl
@@ -660,6 +727,7 @@ def phase_kernels_cde(torch, dev, flush):
         dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, *args)
         dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
         variants = {"C": fl.LAST_VARIANT["flash_fwd"],
+                    "D": fl.LAST_VARIANT["flash_bwd_dq"],
                     "E": fl.LAST_VARIANT["flash_bwd_dkv"]}
         wdq, wdk, wdv = fl.flash_plain_bwd(q, k, v, o, lse, do, *args)
         torch.cuda.synchronize()
@@ -703,9 +771,9 @@ def phase_kernels_cde(torch, dev, flush):
                 "kernel": name, "dtype": dname, "bh": bh, "t": t, "hd": hd,
                 "groups": groups, "causal": True, "max_abs_err": errs[name],
                 "tol": tol, "bound_ms": bound_ms, "bound_by": bound_by}
-            if name in variants:
-                extra["variant"] = variants[name]
+            extra["variant"] = variants[name]
             case = _case(torch, flush, *fns[name], extra=extra)
+            case["bound_share"] = _bound_share(case)
             log("kernel %s case: %s" % (name, json.dumps(case)))
             cases[name].append(case)
         del lo, leaves
@@ -1175,6 +1243,78 @@ def phase_train(torch, dev):
     return train, launches
 
 
+def phase_routing(torch, dev):
+    """The attention routing on the card: a Module over attention_lm at
+    head dim 32 (16 heads over 512) and 256 (2 heads over 512), shapes
+    the flash kernels are not built for, takes sdpa ("einsum") as the JAX
+    package's gate routes them, launches no flash kernel, and matches a
+    plain=True module's forward and backward."""
+    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops import attention as attn
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    b, t, embed = 2, 256, 512
+    out = {}
+    for heads in (16, 2):
+        sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=t,
+                                      num_layers=1, embed=embed, heads=heads,
+                                      ffn_hidden=2 * embed)
+        rng = np.random.RandomState(heads)
+        shapes, _, _ = sym.infer_shape(data=(b, t), softmax_label=(b, t))
+        params = {n: (rng.normal(0, 0.05, sh) + n.endswith("_gamma"))
+                  .astype(np.float32)
+                  for n, sh in zip(sym.list_arguments(), shapes)
+                  if n not in ("data", "softmax_label")}
+        x = rng.randint(0, VOCAB, (b, t)).astype(np.float32)
+        batch = DataBatch([nd.array(x)], [nd.array(np.roll(x, -1, 1))])
+        outs, grads = [], []
+        for plain in (False, True):
+            mod = Module(sym, context=gpu(0), plain=plain)
+            mod.bind(data_shapes=[DataDesc("data", (b, t), layout="NT")],
+                     label_shapes=[DataDesc("softmax_label", (b, t),
+                                            layout="NT")])
+            mod.init_params(arg_params=params, aux_params={})
+            before = dict(fl.LAUNCHES)
+            attn.PATH_TAKEN["last"] = None
+            mod.forward_backward(batch)
+            torch.cuda.synchronize()
+            if attn.PATH_TAKEN["last"] != "einsum" or fl.LAUNCHES != before:
+                raise AssertionError(
+                    "hd %d: attention took %s, flash launches %s -> %s"
+                    % (embed // heads, attn.PATH_TAKEN["last"], before,
+                       fl.LAUNCHES))
+            group = mod._exec_group
+            outs.append(mod.get_outputs()[0].data.clone())
+            grads.append({n: a.data.clone() for n, a in
+                          zip(group.param_names, group.grad_arrays)})
+            del mod
+        err = _check_close("routing hd %d outputs" % (embed // heads), outs[0],
+                           outs[1], TOL_F32)
+        worst = {}
+        for name, gp in grads[1].items():
+            ref = name[:-len("_k_bias")] + "_q_bias" \
+                if name.endswith("_k_bias") else name
+            rel = float(torch.linalg.vector_norm(
+                (grads[0][name] - gp).double())) / max(float(
+                    torch.linalg.vector_norm(grads[1][ref].double())), 1e-30)
+            tol = TOL_TRAIN_GRAD if name.startswith(
+                ("head_", "final_", "layer0_ffn2_")) else TOL_TRAIN_GRAD_RELU
+            if not rel <= tol:
+                raise AssertionError(
+                    "routing hd %d: %s gradient off by %.3g > %.3g"
+                    % (embed // heads, name, rel, tol))
+            worst[name] = rel
+        out["hd%d" % (embed // heads)] = {
+            "path": "einsum", "max_abs_err_out": err,
+            "max_grad_rel_err": max(worst.values())}
+    log("routing: " + json.dumps(out))
+    return out
+
+
 def _resnet_values(sym, b):
     """bench.py's start, drawn with numpy: Xavier(gaussian, in, 2) weights
     (normal with std sqrt(2 / fan_in), OIHW fan-in I*kh*kw) from
@@ -1397,6 +1537,8 @@ def main():
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, dev)
     torch.cuda.empty_cache()
+    phase_routing(torch, dev)
+    torch.cuda.empty_cache()
     resnet, resnet_launches = phase_train_resnet(torch, dev)
 
     # one line per kernel at its main serving shape: A at decode ffn1
@@ -1404,6 +1546,7 @@ def main():
     a_main = next(c for c in a_cases if c["dtype"] == "float32"
                   and c["m"] == 4 and c["n"] == 4096)
     b_main = next(c for c in b_cases if c["pool"] == "int8"
+                  and c["head_dim"] == EMBED // HEADS
                   and c["group"] == 1 and c["tq"] == 1)
     # C, D, E at (64, 2048, 128) f32 G=1; F at ffn1 (m=16384, 1024->4096)
     # f32: the training step's shapes
@@ -1429,8 +1572,20 @@ def main():
                     launches["paged_decode"], b_main),
              shape="B=4 tq=1 H=4 hd=256 int8 pages lens=%s"
              % b_main["lens"],
+             variant=b_main["variant"], splits=b_main["splits"],
              launches_by_path={"serve": launches["paged_decode"]},
              max_abs_err_all_cases=max(c["max_abs_err"] for c in b_cases)),
+        dict(_entry("paged_split_combine",
+                    "mxnet_tpu_torch/csrc/paged_decode.cu",
+                    "mxnet_tpu/ops/pallas_decode.py:354",
+                    launches["paged_combine"],
+                    dict(b_main["combine"], library_ms=None,
+                         device_ms=b_main["combine"]["device_ms"])),
+             shape="B=4 tq=1 H=4 hd=256, %d splits (%d seen)"
+             % (b_main["splits"], b_main["combine"]["splits_seen"]),
+             launches_by_path={"serve": launches["paged_combine"]},
+             max_abs_err_all_cases=max(c["combine"]["max_abs_err"]
+                                       for c in b_cases)),
     ]
     for name, counter, replaces in (
             ("C", "flash_fwd", "mxnet_tpu/ops/pallas_attention.py:129"),
@@ -1445,8 +1600,7 @@ def main():
             launches_by_path={"train": train_launches[counter]},
             max_abs_err_all_cases=max(c["max_abs_err"]
                                       for c in cde_cases[name]))
-        if "variant" in cde_main[name]:   # C and E
-            entry["variant"] = cde_main[name]["variant"]
+        entry["variant"] = cde_main[name]["variant"]
         kernels.append(entry)
     kernels.append(dict(
         _entry("fused_ln_linear_bwd", "mxnet_tpu_torch/csrc/fused_bwd.cu",

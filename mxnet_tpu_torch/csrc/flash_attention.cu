@@ -28,35 +28,38 @@
 // hd is 64 or 128.  No atomics: each block owns its output tile, so
 // results are bitwise the same from run to run.
 //
-// What bounds C and E on an H100: at T = 2048, hd = 128 the work is
-// T^2 * hd * BH / 2 multiply-adds a product, 2 products in C and 4 in E;
-// both are bound by operations, not bytes: f32 on the CUDA cores (67
-// TFLOP/s), bf16 on the tensor cores (989 TFLOP/s).  Each has two
+// What bounds C, D and E on an H100: at T = 2048, hd = 128 the work is
+// T^2 * hd * BH / 2 multiply-adds a product, 2 products in C, 3 in D and
+// 4 in E; all are bound by operations, not bytes: f32 on the CUDA cores
+// (67 TFLOP/s), bf16 on the tensor cores (989 TFLOP/s).  Each has two
 // variants, picked by dtype (ops/flash_kernel.py's _variant):
 //
 // * simt (f32): register-blocked tiles on the CUDA cores, each thread 8
 //   rows by 4 or 8 columns of every product so a float4 read feeds 8 or
-//   16 FMAs.  C keeps Q^T resident and streams K^T slices (transposed
-//   through registers) and V slices (cp.async) through a double buffer,
-//   with both products on fused_tiles.cuh's simt_stage; q tiles are
-//   issued heaviest first under causal masking.  E keeps K and V
-//   resident and one Q and one dO tile in flight, all in XOR-swizzled
-//   rows that both of its walks read as float4s without bank conflicts,
-//   in 112 KB at hd 128 so two blocks share an SM.
+//   16 FMAs.  C keeps Q resident and streams each key tile through a
+//   three-stage cp.async ring of 8 KB stages: K d-slices (64 keys x 32
+//   d, XOR-swizzled rows) for S = Q K^T as a dot walk over d, then V row
+//   stages for P.V on fused_tiles.cuh's simt_stage; query tiles are
+//   issued heaviest first under causal masking.  D has C's shape with Q
+//   and dO resident and three products a key tile: dP = dO V^T and S =
+//   Q K^T as dot walks over V and K d-slices (dP parked in shared
+//   memory, so one score tile is live in registers), then dQ += dS K on
+//   simt_stage over K row stages.  E keeps K and V resident and one Q
+//   and one dO tile in flight, all in XOR-swizzled rows that both of its
+//   walks read as float4s without bank conflicts, in 112 KB at hd 128 so
+//   two blocks share an SM.
 // * wgmma (bf16, sm_90a): one warpgroup a block, products by
 //   wgmma.mma_async from 128-byte-swizzled shared memory filled by a
 //   two-stage cp.async ring.  C holds Q's A fragments in registers and
 //   forms P's from the S accumulator; P.V runs as two bf16 products (P's
 //   bf16 part and its remainder's), keeping f32-level accuracy for 1.5x
-//   the tensor-core work.  E reads K and V as A by descriptor (its four
-//   accumulators fill the registers), forms bf16(P) and bf16(dS) in
-//   registers, and reads the same Q and dO tiles K-major for S^T, dP^T
-//   and MN-major (transpose bit) for dK, dV.
-//
-// D is the first port's design, written to be right: 256 threads on a
-// 16 x 16 grid, f32 tiles padded to hd + 1 floats, K and V through one
-// buffer in turn, every product an FMA loop on the CUDA cores (bf16
-// widened).  Its redesign is later work.
+//   the tensor-core work.  D holds Q's A fragments in registers and dO
+//   resident (A by descriptor), forms bf16(dS) from the S and dP
+//   accumulators and reads K MN-major for dQ += dS K, as C reads V.  E
+//   reads K and V as A by descriptor (its four accumulators fill the
+//   registers), forms bf16(P) and bf16(dS) in registers, and reads the
+//   same Q and dO tiles K-major for S^T, dP^T and MN-major (transpose
+//   bit) for dK, dV.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -67,36 +70,10 @@
 namespace {
 
 using ft::bf16;
-
-constexpr int BQ = 64;    // query rows per tile
-constexpr int BKT = 64;   // key rows per tile
-constexpr int NT = 256;   // threads per block (16 x 16)
-constexpr int TR = 4;     // tile rows per thread
-constexpr int TC = 4;     // tile columns per thread (64 / 16)
-constexpr int PLD = 65;   // padded row length of the 64 x 64 P / dS tiles
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch casts
-}
-
-// v rounded through T (the TPU kernels' astype before a product)
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
+using ft::dot4;
+using ft::dot_walk_stage;
+using ft::lds4;
+using ft::swz;
 
 __device__ __forceinline__ float row_max(float v) {
 #pragma unroll
@@ -112,174 +89,9 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// rows [row0, row0 + 64) of a (T, HD) slab into a padded f32 tile; rows
-// past T read as zeros
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int Tn) {
-  constexpr int LD = HD + 1;
-  for (int i = threadIdx.x; i < 64 * HD; i += NT) {
-    const int r = i / HD, c = i % HD;
-    const int g = row0 + r;
-    dst[r * LD + c] = g < Tn ? to_f32(src[(size_t)g * HD + c]) : 0.f;
-  }
-}
-
-// acc[i][j] += sum_d A[arow(i)][d] * B[brow(j)][d] over padded tiles:
-// A rows 4*ty + i (broadcast within a half-warp), B rows tx + 16*j
-template <int HD>
-__device__ __forceinline__ void tile_dot(float (&acc)[TR][TC], const float* A,
-                                         const float* B, int ty, int tx) {
-  constexpr int LD = HD + 1;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float av[TR], bv[TC];
-#pragma unroll
-    for (int i = 0; i < TR; ++i) av[i] = A[(ty * TR + i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < TC; ++j) bv[j] = B[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// D: dq
-// ---------------------------------------------------------------------------
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int Tn, int G, float scale, int causal) {
-  constexpr int LD = HD + 1;
-  constexpr int HC = HD / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // BQ x LD
-  float* dOs = Qs + BQ * LD;    // BQ x LD
-  float* KVs = dOs + BQ * LD;   // BKT x LD: V, then K
-  float* dSs = KVs + BKT * LD;  // BQ x PLD
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const size_t qoff = (size_t)b * Tn * HD;
-  const size_t kvoff = (size_t)(b / G) * Tn * HD;
-
-  load_tile<T, HD>(Qs, q + qoff, q0, Tn);
-  load_tile<T, HD>(dOs, dout + qoff, q0, Tn);
-  float lr[TR], dr[TR], acc[TR][HC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int qi = q0 + ty * TR + i;
-    lr[i] = qi < Tn ? lse[(size_t)b * Tn + qi] : 0.f;
-    dr[i] = qi < Tn ? delta[(size_t)b * Tn + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < HC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int nkt = (Tn + BKT - 1) / BKT;
-  const int kt_end = causal ? min(nkt, (q0 + BQ - 1) / BKT + 1) : nkt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BKT;
-    __syncthreads();  // the last tile's dS.K readers are done
-    load_tile<T, HD>(KVs, v + kvoff, k0, Tn);
-    __syncthreads();
-    float dp[TR][TC], s[TR][TC];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j) dp[i][j] = s[i][j] = 0.f;
-    tile_dot<HD>(dp, dOs, KVs, ty, tx);
-    __syncthreads();  // V is read
-    load_tile<T, HD>(KVs, k + kvoff, k0, Tn);
-    __syncthreads();
-    tile_dot<HD>(s, Qs, KVs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int qi = q0 + ty * TR + i;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool masked = kj >= Tn || (causal && kj > qi);
-        const float p =
-            masked ? 0.f : expf(__fmul_rn(s[i][j], scale) - lr[i]);
-        const float ds = p * (dp[i][j] - dr[i]) * scale;
-        dSs[(ty * TR + i) * PLD + tx + 16 * j] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BKT; ++kk) {
-      float dv[TR];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) dv[i] = dSs[(ty * TR + i) * PLD + kk];
-#pragma unroll
-      for (int c = 0; c < HC; ++c) {
-        const float kv = KVs[kk * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) acc[i][c] = fmaf(dv[i], kv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int qi = q0 + ty * TR + i;
-    if (qi >= Tn) continue;
-#pragma unroll
-    for (int c = 0; c < HC; ++c)
-      dq[qoff + (size_t)qi * HD + tx + 16 * c] = from_f32<T>(acc[i][c]);
-  }
-}
-
-template <int HD> constexpr int dq_smem() {
-  return (2 * BQ * (HD + 1) + BKT * (HD + 1) + BQ * PLD) * 4;
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
-template <typename T, int HD>
-cudaError_t run_dq(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, int BH, int Tn, int G, float scale, int causal,
-                   cudaStream_t s) {
-  constexpr int bytes = dq_smem<HD>();
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, HD>, bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Tn + BQ - 1) / BQ, BH);
-  flash_bwd_dq_kernel<T, HD><<<grid, NT, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), Tn, G, scale, causal);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // C, f32: register-blocked tiles on the CUDA cores
 // ---------------------------------------------------------------------------
-
-// Row-major f32 tiles in 16-byte chunks, the chunk index XOR-swizzled:
-// chunk c of row r lies at chunk c ^ ((r >> SH) & 7) of its row.  A dot
-// walk (a product contracting over the row's chunks) reads 16 consecutive
-// rows at one chunk, or rows 8 apart, and the swizzle puts them on
-// distinct banks; a column walk (contracting over rows) reads one row,
-// whose chunks stay a permutation of themselves.  The XOR depends only on
-// the thread and on the loop's unrolled position, so it is computed once
-// per unrolled step and the inner loops are loads and FMAs.  SH < 0: no
-// swizzle (a tile read by ft::simt_stage).
-template <int L, int SH>
-__device__ __forceinline__ int swz(int r, int c) {
-  return SH < 0 ? r * L + c * 4 : r * L + ((c ^ ((r >> SH) & 7)) << 2);
-}
 
 // rows [row0, row0 + R) x floats [col0, col0 + L) of a row-major slab of
 // row length ld into a swizzled R x L tile by 16-byte cp.async chunks,
@@ -297,19 +109,6 @@ __device__ __forceinline__ void load_swz(float* dst, const float* src,
                    ok ? src + (size_t)(row0 + r) * ld + col0 + ch * 4 : src,
                    ok);
   }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// the float4 at byte offset `off` of dynamic shared memory
-__device__ __forceinline__ float4 lds4(const float* base, int off) {
-  return *reinterpret_cast<const float4*>(
-      reinterpret_cast<const char*>(base) + off);
 }
 
 // A block: 64 query rows against 64-key tiles, 128 threads.  Q stays
@@ -404,24 +203,7 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
           for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
       }
       // s[i][j] += Q[simt_row(i)][st KD ..] . K[tx + 16 j][..]
-#pragma unroll
-      for (int x = 0; x < KD / 4; ++x) {
-        // chunk x of key row tx + 16 j sits at x ^ (tx & 7); of query row
-        // simt_row(i, ty) (row mod 8: 4 (ty & 1) + i % 4) at x ^ that
-        float4 kf[4];
-        const int ko = cur + tx * KD * 4 + ((x ^ (tx & 7)) << 4);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kf[j] = lds4(smem, ko + j * 16 * KD * 4);
-#pragma unroll
-        for (int i = 0; i < MR; ++i) {
-          const int qo = QS + ty * 4 * HD * 4 + st * KD * 4 +
-                         ((x ^ (i & 3) ^ (4 * (ty & 1))) << 4);
-          const float4 qf =
-              lds4(smem, qo + ((i >> 2) * NTY * 4 + (i & 3)) * HD * 4);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = dot4(qf, kf[j], s[i][j]);
-        }
-      }
+      dot_walk_stage<HD, MR, NTY>(s, smem, QS, cur, st, ty, tx);
     } else {
       ft::simt_stage<CO>(Ps + (st - KST) * VK * BQ,
                          smem + cur / 4, acc, ty, tx);
@@ -489,6 +271,177 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                       acc[i][c + 2] / denom, acc[i][c + 3] / denom);
     if (tx == 0)
       lse[(size_t)b * Tn + qi] = (m[i] == -INFINITY ? 0.f : m[i]) + logf(denom);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// D, f32: register-blocked tiles on the CUDA cores
+// ---------------------------------------------------------------------------
+
+// C's shape with three products: a block owns 64 query rows, 128
+// threads; Q and dO stay resident, row-major and swizzled (with lse and
+// delta), and each key tile streams through C's three-stage ring of 8 KB
+// stages: HD / 32 V stages and HD / 32 K stages (32 d of 64 keys,
+// swizzled by row), then 64 / VK K stages (VK keys x HD as stored).
+//   dP = dO V^T   dot walk over the V stages; stored key-major in the dS
+//                 tile, so only one 8 x 4 score tile is live in registers
+//   S = Q K^T     dot walk over the K stages, then p = exp(s - lse) and
+//                 dS = p (dP - delta) scale, each thread reading back the
+//                 dP it stored and writing dS in its place
+//   dQ += dS K    ft::simt_stage over dS (key-major) and the K row stages
+// Thread (ty, tx) owns query rows ft::simt_row(i, ty) and keys tx + 16 j
+// in the walks, dQ columns ft::simt_col(c, tx).  Query tiles are issued
+// heaviest first under causal masking; mask compares run only on tiles
+// that cross the diagonal or T.
+template <int HD>
+struct DqSimt {
+  static constexpr int NT = 128, BQ = 64, BK = 64, KD = 32, RING = 3;
+  static constexpr int MR = 64 * 16 / NT;            // query rows a thread
+  static constexpr int STAGE = 64 * KD;              // floats of a stage
+  static constexpr int VK = STAGE / HD;              // keys a K row stage
+  static constexpr int KST = HD / KD;                // V, K d-slice stages
+  static constexpr int NST = 2 * KST + BK / VK;      // stages a key tile
+  typedef ft::SimtCfg<BQ, HD, VK, MR, HD / 16> CQ;   // dQ += dS K
+  // Q, dO, the ring, dS (BK x BQ, key-major), lse and delta
+  static constexpr int BYTES =
+      (2 * HD * BQ + RING * STAGE + BK * BQ + 2 * BQ) * 4;
+  static_assert(CQ::NT == NT && VK * HD == STAGE, "one thread grid");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(DqSimt<HD>::NT, 2)
+flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int Tn, int G, float scale, int causal) {
+  typedef DqSimt<HD> C;
+  typedef typename C::CQ CQ;
+  constexpr int BQ = C::BQ, BK = C::BK, KD = C::KD, VK = C::VK;
+  constexpr int KST = C::KST, NST = C::NST, TN = HD / 16, RING = C::RING;
+  constexpr int MR = C::MR, NTY = CQ::NTY;
+  extern __shared__ float smem[];
+  // byte offsets: Q, dO (BQ x HD each), the ring, dS, lse, delta
+  constexpr int QS = 0, DOS = HD * BQ * 4, RS = 2 * HD * BQ * 4;
+  constexpr int SS = RS + RING * C::STAGE * 4, LS = SS + BK * BQ * 4;
+  float* dSs = smem + SS / 4;
+  float* Ls = smem + LS / 4;
+  float* Ds = Ls + BQ;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int b = blockIdx.x;
+  const int nqt = (Tn + BQ - 1) / BQ;
+  const int q0 = (causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y) * BQ;
+  const size_t qoff = (size_t)b * Tn * HD;
+  const size_t kvoff = (size_t)(b / G) * Tn * HD;
+  const int nkt = (Tn + BK - 1) / BK;
+  const int kt_end = causal ? min(nkt, (q0 + BQ - 1) / BK + 1) : nkt;
+  const int total = kt_end * NST;
+
+  // stage g into ring slot g % RING: a V or K d-slice (keys x 32 d,
+  // swizzled by row) or a K row stage (VK keys x HD as stored); rows past
+  // T zero-filled
+  auto issue = [&](int g) {
+    if (g < total) {
+      const int kt = g / NST, st = g % NST;
+      float* slot = smem + RS / 4 + (g % RING) * C::STAGE;
+      if (st < 2 * KST)
+        load_swz<BK, KD, 0, C::NT>(slot, (st < KST ? v : k) + kvoff, HD,
+                                   kt * BK, (st % KST) * KD, Tn, tid);
+      else
+        load_swz<VK, HD, -1, C::NT>(slot, k + kvoff, HD,
+                                   kt * BK + (st - 2 * KST) * VK, 0, Tn,
+                                   tid);
+    }
+    ft::cp_async_commit();
+  };
+  load_swz<BQ, HD, 0, C::NT>(smem + QS / 4, q + qoff, HD, q0, 0, Tn, tid);
+  load_swz<BQ, HD, 0, C::NT>(smem + DOS / 4, dout + qoff, HD, q0, 0, Tn,
+                             tid);
+  if (tid < 2 * BQ) {
+    const int r = tid % BQ;
+    const bool ok = q0 + r < Tn;
+    const float* src = (tid < BQ ? lse : delta) + (size_t)b * Tn + q0 + r;
+    ft::cp_async4((tid < BQ ? Ls : Ds) + r, ok ? src : lse, ok);
+  }
+  issue(0);
+  issue(1);
+
+  float acc[MR][TN], s[MR][4];
+#pragma unroll
+  for (int i = 0; i < MR; ++i)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[i][c] = 0.f;
+
+  for (int g = 0; g < total; ++g) {
+    const int st = g % NST;
+    ft::cp_async_wait_group<1>();  // stage g landed (and Q, dO, lse, delta)
+    __syncthreads();               // stage g - 1's slot is free
+    issue(g + 2);
+    const int cur = RS + (g % RING) * C::STAGE * 4;
+    if (st >= 2 * KST) {
+      ft::simt_stage<CQ>(dSs + (st - 2 * KST) * VK * BQ, smem + cur / 4, acc,
+                         ty, tx);
+      continue;
+    }
+    if (st % KST == 0) {
+#pragma unroll
+      for (int i = 0; i < MR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    }
+    dot_walk_stage<HD, MR, NTY>(s, smem, st < KST ? DOS : QS, cur, st % KST,
+                                ty, tx);
+    if (st % KST != KST - 1) continue;
+    // dS element (row simt_row(i, ty), key tx + 16 j) of the tile: at
+    // dSs[(tx + 16 j) BQ + simt_row(i, ty)], four rows a float4
+    if (st == KST - 1) {  // dP is whole: park it where dS will go
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < MR / 4; ++h)
+          *reinterpret_cast<float4*>(dSs + (tx + 16 * j) * BQ + h * NTY * 4 +
+                                     ty * 4) =
+              make_float4(s[4 * h][j], s[4 * h + 1][j], s[4 * h + 2][j],
+                          s[4 * h + 3][j]);
+      continue;
+    }
+    // S is whole: p = exp(s - lse), dS = p (dP - delta) scale (f32: the
+    // cast to k's dtype is exact).  exp(-inf) = 0 gives masked p.
+    const int k0 = (g / NST) * BK;
+    const bool edge = k0 + BK > Tn || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < MR / 4; ++h) {
+        float* at = dSs + (tx + 16 * j) * BQ + h * NTY * 4 + ty * 4;
+        const float4 dp4 = *reinterpret_cast<const float4*>(at);
+        const float dp[4] = {dp4.x, dp4.y, dp4.z, dp4.w};
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = h * NTY * 4 + ty * 4 + e;
+          const int qi = q0 + r, kj = k0 + tx + 16 * j;
+          const bool masked = edge && (kj >= Tn || (causal && kj > qi));
+          const float p = expf(
+              masked ? -INFINITY : __fmul_rn(s[4 * h + e][j], scale) - Ls[r]);
+          ds[e] = p * (dp[e] - Ds[r]) * scale;
+        }
+        *reinterpret_cast<float4*>(at) = make_float4(ds[0], ds[1], ds[2],
+                                                     ds[3]);
+      }
+  }
+  ft::cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    const int qi = q0 + ft::simt_row<CQ>(i, ty);
+    if (qi >= Tn) continue;
+#pragma unroll
+    for (int c = 0; c < TN; c += 4)
+      *reinterpret_cast<float4*>(dq + qoff + (size_t)qi * HD +
+                                 ft::simt_col<CQ>(c, tx)) =
+          make_float4(acc[i][c], acc[i][c + 1], acc[i][c + 2], acc[i][c + 3]);
   }
 }
 
@@ -897,6 +850,160 @@ flash_fwd_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// D on the tensor cores: C's shape (one warpgroup, 64 query rows against
+// 64-key tiles, K and V through C's two-stage ring of 128-byte-swizzled
+// tiles).  Q's A fragments stay in registers, as in C; dO stays resident
+// in a swizzled tile and is A by descriptor (the SS form), which leaves
+// the registers to the two score accumulators and dQ.  Per key tile:
+//   S = Q K^T     m64n64k16, Q from registers, K K-major by descriptor
+//   dP = dO V^T   m64n64k16, dO and V K-major by descriptor
+//   dQ += bf16(dS) K   m64n{HD}k16, dS's A fragments built in registers
+//                 from the two accumulators, K MN-major (wg_desc_sw128_mn,
+//                 the transpose bit), as C reads V
+// The TPU kernel rounds dS to K's dtype before the product, so one bf16
+// product matches its numerics.
+template <int HD>
+struct DqWg {
+  static constexpr int NT = 128, BQ = 64, BK = 64;
+  static constexpr int TILE = BK * HD * 2;           // bytes of a tile
+  static constexpr int BYTES = 1024 + TILE + 2 * 2 * TILE;  // dO, 2 stages
+};
+
+template <int HD>
+__global__ void __launch_bounds__(128, 2)
+flash_bwd_dq_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                int Tn, int G, float scale, int causal) {
+  typedef DqWg<HD> C;
+  constexpr int BQ = C::BQ, BK = C::BK, KS = HD / 16, TILE = C::TILE;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* ring = base + TILE;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int b = blockIdx.x;
+  const int nqt = (Tn + BQ - 1) / BQ;
+  // causal: the query tiles with the most key tiles are issued first
+  const int q0 = (causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y) * BQ;
+  const size_t qoff = (size_t)b * Tn * HD;
+  const size_t kvoff = (size_t)(b / G) * Tn * HD;
+  const int nkt = (Tn + BK - 1) / BK;
+  const int kt_end = causal ? min(nkt, (q0 + BQ - 1) / BK + 1) : nkt;
+
+  auto issue = [&](int kt) {
+    unsigned char* st = ring + (kt & 1) * 2 * TILE;
+    ft::load_sw128<BK, HD, C::NT>(st, k + kvoff, kt * BK, Tn, tid);
+    ft::load_sw128<BK, HD, C::NT>(st + TILE, v + kvoff, kt * BK, Tn, tid);
+  };
+  ft::load_sw128<BQ, HD, C::NT>(base, dout + qoff, q0, Tn, tid);
+  issue(0);
+  ft::cp_async_commit();
+
+  // this thread's rows r0 and r0 + 8: Q's A fragments, lse and delta
+  const int r0 = q0 + w * 16 + g;
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + 8 * (e & 1);
+      const int col = ks * 16 + 8 * (e >> 1) + 2 * q4;
+      qa[ks][e] = row < Tn ? __ldg(reinterpret_cast<const unsigned int*>(
+                                 q + qoff + (size_t)row * HD + col))
+                           : 0u;
+    }
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lr[h] = row < Tn ? lse[(size_t)b * Tn + row] : 0.f;
+    dr[h] = row < Tn ? delta[(size_t)b * Tn + row] : 0.f;
+  }
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  const uint32_t da = ft::smem_addr(base);
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    ft::cp_async_wait_all();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile kt landed; tile kt - 1's products are done
+    if (kt + 1 < kt_end) issue(kt + 1);
+    ft::cp_async_commit();
+    const uint32_t ka = ft::smem_addr(ring + (kt & 1) * 2 * TILE);
+    const uint32_t va = ka + TILE;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    pin(s);
+    pin(dp);
+    ft::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      ft::wgmma_rs<64, 0>(
+          s, qa[ks], ft::wg_desc_sw128(ka + (ks >> 2) * BK * 128) + 2 * (ks & 3));
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t blk = (ks >> 2) * 64 * 128, sub = 2 * (ks & 3);
+      ft::wgmma_ss<64>(dp, ft::wg_desc_sw128(da + blk) + sub,
+                       ft::wg_desc_sw128(va + blk) + sub);
+    }
+    ft::wg_commit();
+    ft::wg_wait<0>();
+    pin(s);
+    pin(dp);
+
+    // s[4 j + 2 h + e], dp[..]: row r0 + 8 h, key k0 + 8 j + 2 q4 + e.
+    // p = exp(s - lse), ds = p (dp - delta) scale in f32, rounded to bf16
+    // as dS's A fragments; masks only on tiles that cross the diagonal or
+    // T (exp(-inf) = 0 gives masked p)
+    const bool edge = k0 + BK > Tn || (causal && k0 + BK - 1 > q0);
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = frag_idx(kk, e), h = e & 1, qi = r0 + 8 * h;
+        float ds2[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int kj = k0 + 8 * (x >> 2) + 2 * q4 + t;
+          const bool masked = edge && (kj >= Tn || (causal && kj > qi));
+          const float p =
+              expf(masked ? -INFINITY : __fmul_rn(s[x + t], scale) - lr[h]);
+          ds2[t] = p * (dp[x + t] - dr[h]) * scale;
+        }
+        dsa[kk][e] = pack_bf16(ds2[0], ds2[1]);
+      }
+    pin(acc);
+    ft::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ft::wgmma_rs<HD, 1>(acc, dsa[kk],
+                          ft::wg_desc_sw128_mn(ka + kk * 2048, BK * 128));
+    ft::wg_commit();
+    ft::wg_wait<0>();
+    pin(acc);
+    pin(dsa);
+  }
+  ft::cp_async_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = r0 + 8 * h;
+    if (qi >= Tn) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dq + qoff + (size_t)qi * HD + 8 * j +
+                                         2 * q4) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
 // A block is one warpgroup owning 64 keys (m64); it walks 64-row query
 // tiles over the G q-heads of its kv group.  K and V stay resident in
 // 128-byte-swizzled shared memory and are read as A by descriptor (the
@@ -1085,6 +1192,40 @@ cudaError_t run_fwd_wg(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int HD>
+cudaError_t run_dq_simt(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse,
+                        const float* delta, void* dq, int BH, int Tn, int G,
+                        float scale, int causal, cudaStream_t s) {
+  typedef DqSimt<HD> C;
+  static const cudaError_t attr =
+      ft::allow_smem(flash_bwd_dq_simt<HD>, C::BYTES);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(BH, (Tn + C::BQ - 1) / C::BQ);
+  flash_bwd_dq_simt<HD><<<grid, C::NT, C::BYTES, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), Tn, G, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t run_dq_wg(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int BH, int Tn, int G, float scale,
+                      int causal, cudaStream_t s) {
+  typedef DqWg<HD> C;
+  static const cudaError_t attr =
+      ft::allow_smem(flash_bwd_dq_wg<HD>, C::BYTES);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(BH, (Tn + C::BQ - 1) / C::BQ);
+  flash_bwd_dq_wg<HD><<<grid, C::NT, C::BYTES, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dq), Tn, G, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int HD>
 cudaError_t run_dkv_simt(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
                          const float* delta, void* dk, void* dv, int BHkv,
@@ -1161,14 +1302,15 @@ int flash_bwd_dq(int dtype, int hd, const void* q, const void* k,
   const float* d = static_cast<const float*>(delta);
   cudaError_t e;
   if (dtype == 0)
-    e = hd == 64
-            ? run_dq<float, 64>(q, k, v, dout, l, d, dq, BH, Tn, G, scale, causal, s)
-            : run_dq<float, 128>(q, k, v, dout, l, d, dq, BH, Tn, G, scale, causal, s);
+    e = hd == 64 ? run_dq_simt<64>(q, k, v, dout, l, d, dq, BH, Tn, G, scale,
+                                   causal, s)
+                 : run_dq_simt<128>(q, k, v, dout, l, d, dq, BH, Tn, G, scale,
+                                    causal, s);
   else
-    e = hd == 64 ? run_dq<__nv_bfloat16, 64>(q, k, v, dout, l, d, dq, BH, Tn, G,
-                                             scale, causal, s)
-                 : run_dq<__nv_bfloat16, 128>(q, k, v, dout, l, d, dq, BH, Tn,
-                                              G, scale, causal, s);
+    e = hd == 64 ? run_dq_wg<64>(q, k, v, dout, l, d, dq, BH, Tn, G, scale,
+                                 causal, s)
+                 : run_dq_wg<128>(q, k, v, dout, l, d, dq, BH, Tn, G, scale,
+                                  causal, s);
   return (int)e;
 }
 

@@ -45,10 +45,10 @@
 // The prologue's scale and shift are read from shared memory (ProTable),
 // never from device memory inside the mainloop.
 //
-// Kernels C and E (flash_attention.cu) use simt_stage for C's f32 P.V
-// and the WGMMA building blocks for their bf16 products, with two more:
-// MN-major operands (wg_desc_sw128_mn, the instruction's transpose bit)
-// and the SS form (A by descriptor too).
+// Kernels C, D and E (flash_attention.cu) use simt_stage for C's f32
+// P.V and D's f32 dS.K and the WGMMA building blocks for their bf16
+// products, with two more: MN-major operands (wg_desc_sw128_mn, the
+// instruction's transpose bit) and the SS form (A by descriptor too).
 //
 // Every edge in every dimension is masked, so any shape is taken.
 #pragma once
@@ -422,6 +422,65 @@ __device__ __forceinline__ void simt_col_add(const float (&p)[C::TN],
     for (int o = C::NTX; o < 32; o <<= 1)
       v += __shfl_xor_sync(0xffffffffu, v, o);
     if (lane < C::NTX) atomicAdd(&col[simt_col<C>(j, tx)], v);
+  }
+}
+
+// Row-major f32 tiles in 16-byte chunks, the chunk index XOR-swizzled:
+// chunk c of row r lies at chunk c ^ ((r >> SH) & 7) of its row.  A dot
+// walk (a product contracting over the row's chunks) reads 16 consecutive
+// rows at one chunk, or rows 8 apart, and the swizzle puts them on
+// distinct banks; a column walk (contracting over rows) reads one row,
+// whose chunks stay a permutation of themselves.  The XOR depends only on
+// the thread and on the loop's unrolled position, so it is computed once
+// per unrolled step and the inner loops are loads and FMAs.  SH < 0: no
+// swizzle (a tile read by ft::simt_stage).
+template <int L, int SH>
+__device__ __forceinline__ int swz(int r, int c) {
+  return SH < 0 ? r * L + c * 4 : r * L + ((c ^ ((r >> SH) & 7)) << 2);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// the float4 at byte offset `off` of dynamic shared memory
+__device__ __forceinline__ float4 lds4(const float* base, int off) {
+  return *reinterpret_cast<const float4*>(
+      reinterpret_cast<const char*>(base) + off);
+}
+
+// One K-stage step of a dot walk over d (C's S = Q K^T, D's S and dP, B's
+// chunk S):
+// s[i][j] += A[simt_row(i, ty)][st KD .. st KD + 31] . B[tx + 16 j][..],
+// A a resident BQ x HD tile swizzled by row at byte offset `a`, B a ring
+// stage of 64 rows x 32 floats swizzled by row at byte offset `cur`:
+// MR x 4 outputs from MR + 4 float4 reads per 4 d.  Chunk x of B row tx
+// + 16 j sits at x ^ (tx & 7); of A row simt_row(i, ty) (row mod 8: 4 (ty
+// & 1) + i % 4) at x ^ that.
+template <int HD, int MR, int NTY>
+__device__ __forceinline__ void dot_walk_stage(float (&s)[MR][4],
+                                               const float* smem, int a,
+                                               int cur, int st, int ty,
+                                               int tx) {
+  constexpr int KD = 32;
+#pragma unroll
+  for (int x = 0; x < KD / 4; ++x) {
+    float4 kf[4];
+    const int ko = cur + tx * KD * 4 + ((x ^ (tx & 7)) << 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kf[j] = lds4(smem, ko + j * 16 * KD * 4);
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      const int qo = a + ty * 4 * HD * 4 + st * KD * 4 +
+                     ((x ^ (i & 3) ^ (4 * (ty & 1))) << 4);
+      const float4 qf =
+          lds4(smem, qo + ((i >> 2) * NTY * 4 + (i & 3)) * HD * 4);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dot4(qf, kf[j], s[i][j]);
+    }
   }
 }
 

@@ -89,13 +89,16 @@ def _declare(name, cdll):
                                              i, f, f, f, f, f, p]
         cdll.multi_tensor_update.restype = i
     else:
-        # pool dtype, q, kpool, vpool, kscale, vscale, table, lens,
-        # acc, m, l, B, tq, H, Hkv, Dk, Dv, pt, M, S, TQ, scale, stream
-        cdll.paged_decode.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
-                                      i, i, i, i, i, i, i, i, i, i, f, p]
+        # variant, pool dtype, q, kpool, vpool, kscale, vscale, table,
+        # lens, acc, m, l, B, tq, H, Hkv, Dk, Dv, pt, M, S, pps, rows,
+        # epl, vec, scale, stream
+        cdll.paged_decode.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p,
+                                      i, i, i, i, i, i, i, i, i, i, i, i, i,
+                                      f, p]
         cdll.paged_decode.restype = i
-        cdll.paged_decode_smem_bytes.argtypes = [i, i, i]
-        cdll.paged_decode_smem_bytes.restype = i
+        # out dtype, acc, m, l, out, B, tq, H, S, Dv, stream
+        cdll.paged_combine.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
+        cdll.paged_combine.restype = i
     cdll.mx_error_string.argtypes = [i]
     cdll.mx_error_string.restype = ctypes.c_char_p
     return cdll

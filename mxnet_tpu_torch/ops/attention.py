@@ -3,10 +3,11 @@
 
 * :func:`sdpa`: full causal multi-head attention (the serving dense
   prefill and cross-attention), grouped-query aware.
-* The ``dot_product_attention`` op: self-attention through
+* The ``dot_product_attention`` op: the shapes
+  :func:`~mxnet_tpu_torch.ops.flash_kernel.supported` takes through
   :func:`sdpa_flash` (kernels C, D and E of
-  :mod:`~mxnet_tpu_torch.ops.flash_kernel`, differentiable), other
-  shapes through :func:`sdpa`; :data:`PATH_TAKEN` records which.
+  :mod:`~mxnet_tpu_torch.ops.flash_kernel`, differentiable), every
+  other shape through :func:`sdpa`; :data:`PATH_TAKEN` records which.
 * The KV-cache ops: :class:`QuantKV` with :func:`quantize_kv` /
   :func:`dequantize_kv`, the dense ring (:func:`cache_append`,
   :func:`sdpa_decode`, :func:`sdpa_verify`) and the paged pools
@@ -381,9 +382,10 @@ def _attn_shape(attrs, in_shapes, aux_shapes):
 
 # Which path the last dot_product_attention op took: "flash" (kernels C,
 # D and E through FlashAttentionFn), "plain" (FlashAttentionFn on their
-# plain versions: CPU tensors or a plain run) or "einsum" (cross-attention
-# or a value head dim other than the query's: sdpa, which has no kernel
-# in either package)
+# plain versions: CPU tensors or a plain run) or "einsum" (sdpa: every
+# shape flash_kernel.supported refuses — cross-attention, a value head
+# dim other than the query's, a head dim or dtype the kernels are not
+# built for — on every device, as the JAX package's gate routes them)
 PATH_TAKEN = {"last": None}
 
 
@@ -412,6 +414,8 @@ def sdpa_flash(q, k, v, num_heads, causal, scale=None, num_kv_heads=0,
 
 
 def register_all():
+    from . import flash_kernel
+
     def _compute_full(attrs, inputs, aux, octx):
         q, k, v = inputs
         heads = attrs.get("num_heads", 1)
@@ -420,8 +424,8 @@ def register_all():
         scale = attrs.get("scale", 0.0) or None
         check_head_groups(heads, kv_heads, q.shape[2], v.shape[2],
                           k.shape[2], where="dot_product_attention")
-        if q.shape[1] == k.shape[1] \
-                and v.shape[2] // kv_heads == q.shape[2] // heads:
+        if q.dtype == k.dtype == v.dtype and flash_kernel.supported(
+                q.shape, k.shape, q.dtype, heads, kv_heads, v.shape):
             out = sdpa_flash(q, k, v, heads, causal, scale,
                              num_kv_heads=kv_heads, plain=octx.plain)
             PATH_TAKEN["last"] = ("plain" if octx.plain

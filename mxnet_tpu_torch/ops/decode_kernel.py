@@ -1,21 +1,31 @@
 """Kernel B: paged split-K flash decoding with in-kernel dequantization —
-the counterpart of ``mxnet_tpu/ops/pallas_decode.py``.
+the counterpart of ``mxnet_tpu/ops/pallas_decode.py`` — and the combine
+of its split partials.
 
 The wrappers :func:`flash_sdpa_decode` (tq = 1), :func:`flash_sdpa_verify`
 (tq > 1: a verify window or a prefill chunk) and
 :func:`dense_ring_attend` (dense (B, C, E) rings through an identity page
-table) launch the hand-written kernel in ``csrc/paged_decode.cu`` on CUDA
-tensors, or raise (also on shapes :func:`supported` refuses); on CPU
-tensors they run the plain version,
-:func:`paged_plain` (``paged_gather`` + ``dequantize_kv`` + the masked
-softmax of ``_sdpa_cache``).  ``LAUNCHES["paged_decode"]`` counts kernel
-launches.
+table) launch the hand-written kernels in ``csrc/paged_decode.cu`` on
+CUDA tensors, or raise (also on shapes :func:`supported` refuses); on CPU
+tensors they run the plain version, :func:`paged_plain`
+(``paged_gather`` + ``dequantize_kv`` + the masked softmax of
+``_sdpa_cache``).
 
-The kernel writes unnormalised per-split partials; the cross-split
-logsumexp combine (:func:`_combine`) stays a few torch ops, as it is jnp
-outside the ``pallas_call`` in the JAX package.
+Kernel B writes unnormalised per-split partials; the cross-split
+logsumexp combine, jnp outside the ``pallas_call`` in the JAX package,
+is a second kernel here (:func:`_launch_combine`), which writes (B, tq,
+H*hd_v) in the output dtype; :func:`_combine` is its plain version.
+:func:`_plan` makes the card's choices — the variant (``decode`` for
+windows of at most :data:`DECODE_MAX_TQ` rows, ``chunk`` for prefill
+chunks at head dims :data:`CHUNK_HEAD_DIMS`), the split count from the
+card's SM count, the rows a block serves — and ``LAST_VARIANT`` records
+what ran.  ``LAUNCHES["paged_decode"]`` counts kernel-B launches,
+``LAUNCHES["paged_combine"]`` the combine's.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,21 +35,34 @@ from .attention import QuantKV, _sdpa_cache, paged_gather
 
 __all__ = ["flash_sdpa_decode", "flash_sdpa_verify", "dense_ring_attend",
            "paged_plain", "supported", "LAUNCHES",
-           "MAX_SPLITS"]
+           "LAST_VARIANT", "MAX_SPLITS"]
 
-# Split-K: at most MAX_SPLITS splits over the view's M pages (the largest
-# power of two <= min(M, MAX_SPLITS) dividing M).  A constant: this port
-# has no tuning cache yet.
+# The JAX package's split cap, kept for _num_splits (the reference's
+# split rule); the card's split count comes from _plan.
 MAX_SPLITS = 8
-# Query rows per block at most (the tq-tile height); halved until the
-# block's shared memory fits the card's 227 KB.
-MAX_TQ_TILE = 16
-_SMEM_LIMIT = 227 * 1024
+# windows of at most this many query rows take the decode variant
+DECODE_MAX_TQ = 16
+# head dims (Dk = Dv) the chunk variant is built for
+CHUNK_HEAD_DIMS = (64, 128, 256)
+# rows a decode-variant block serves (1 for a single row); the chunk
+# variant's row tile
+DECODE_ROWS, CHUNK_ROWS = 4, 64
+# blocks a split count aims at per SM; tokens a split holds at least
+BLOCKS_PER_SM = 4
+MIN_SPLIT_TOKENS = {"decode": 32, "chunk": 64}
+# page ids a split holds at most (the kernel keeps them in shared memory)
+MAX_SPLIT_PAGES = 2048
+# the largest head dim the decode variant takes (32 lanes x 16 dims)
+MAX_HEAD_DIM = 512
 
-LAUNCHES = {"paged_decode": 0}
+LAUNCHES = {"paged_decode": 0, "paged_combine": 0}
+# the variant the last launch of kernel B ran (see _plan)
+LAST_VARIANT = {"paged_decode": None}
 
 _POOL_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
               torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
+_OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SMS = {}
 
 
 def _num_splits(m, cap=MAX_SPLITS):
@@ -56,7 +79,8 @@ def supported(q_shape, k_pool, v_pool, table_shape, num_heads,
     """Whether the kernel handles this paged shape: heads divide both
     embed dims, the pools are H_kv heads wide and quantized scale planes
     carry exactly H_kv columns.  The TPU tile gates have no counterpart:
-    any page size and head dim are taken."""
+    any page size and any head dim up to :data:`MAX_HEAD_DIM` are
+    taken."""
     kd = k_pool.data if isinstance(k_pool, QuantKV) else k_pool
     vd = v_pool.data if isinstance(v_pool, QuantKV) else v_pool
     b, tq, e = q_shape
@@ -66,6 +90,8 @@ def supported(q_shape, k_pool, v_pool, table_shape, num_heads,
     if e % num_heads or vd.shape[2] % kvh:
         return False
     if kd.shape[2] != kvh * (e // num_heads):
+        return False
+    if max(e // num_heads, vd.shape[2] // kvh) > MAX_HEAD_DIM:
         return False
     if isinstance(k_pool, QuantKV) and k_pool.scale.shape[-1] != kvh:
         return False
@@ -102,8 +128,9 @@ def paged_plain(q, k_pool, v_pool, table, total_len, num_heads=1,
 
 
 def _combine(acc, m_p, l_p, out_dtype):
-    """Exact cross-split logsumexp combine of (B, H, S, tq, hd_v) partials
-    -> (B, tq, H*hd_v)."""
+    """Plain version of the combine kernel: the exact cross-split
+    logsumexp combine of (B, H, S, tq, hd_v) partials -> (B, tq,
+    H*hd_v)."""
     m_star = m_p.amax(dim=2, keepdim=True)
     m_star = torch.where(m_star == -torch.inf, torch.zeros_like(m_star),
                          m_star)
@@ -117,21 +144,83 @@ def _combine(acc, m_p, l_p, out_dtype):
     return out.permute(0, 2, 1, 3).reshape(b, tq, h * hd).to(out_dtype)
 
 
-def _tq_tile(tq, hd_k, hd_v, lib):
-    tile = min(tq, MAX_TQ_TILE)
-    while tile > 1 and lib.paged_decode_smem_bytes(tile, hd_k, hd_v) \
-            > _SMEM_LIMIT:
-        tile //= 2
-    if lib.paged_decode_smem_bytes(tile, hd_k, hd_v) > _SMEM_LIMIT:
-        raise ValueError("paged decode kernel: head dims (%d, %d) exceed a "
-                         "block's shared memory" % (hd_k, hd_v))
-    return tile
+def _launch_combine(acc, m_p, l_p, out_dtype):
+    """Launch the combine kernel on kernel B's partials: acc (B, H, S, tq,
+    hd_v), m_p and l_p (B, H, S, tq), f32 and contiguous on the card ->
+    (B, tq, H*hd_v) in ``out_dtype`` (float32 or bfloat16).  A split whose
+    m is -inf is skipped, its acc never read."""
+    b, h, s, tq, hd = acc.shape
+    out = torch.empty((b, tq, h * hd), dtype=out_dtype, device=acc.device)
+    lib = cuda_build.lib("paged_decode")
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    rc = lib.paged_combine(_OUT_CODE[out_dtype], acc.data_ptr(),
+                           m_p.data_ptr(), l_p.data_ptr(), out.data_ptr(), b,
+                           tq, h, s, hd, stream)
+    cuda_build.check(lib, rc, "paged_combine")
+    LAUNCHES["paged_combine"] += 1
+    return out
 
 
-def _paged_flash_call(q, k_pool, v_pool, table, lens, num_heads, scale,
-                      num_kv_heads=0):
-    """Launch kernel B and combine its split partials; returns (B, tq,
-    Ev) in the V pool's compute dtype (f32 for quantized pools)."""
+class Plan(NamedTuple):
+    """Kernel B's launch on the card: ``variant`` ("decode" or "chunk",
+    ``code`` its number in the C entry), ``splits`` of
+    ``pages_per_split`` view pages, ``rows`` of the window a block serves
+    (G q-heads x tq queries share a kv-head's pages; ``row_tiles`` blocks
+    cover them), ``epl`` head dims a lane owns in the decode variant and
+    ``blocks`` in the grid."""
+
+    variant: str
+    code: int
+    splits: int
+    pages_per_split: int
+    rows: int
+    row_tiles: int
+    epl: int
+    blocks: int
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(b, tq, heads, kv_heads, hd_k, hd_v, m, pt, sms, aligned=True):
+    """The card's choices for kernel B (pure Python: the CPU tests read
+    it).  One block per (split, kv-head, row tile, slot) serves every
+    q-head of the kv group; the split count aims at BLOCKS_PER_SM blocks
+    an SM of a card with ``sms`` SMs, since the live lengths stay on the
+    device (splits past a slot's length exit at once)."""
+    rows = (heads // kv_heads) * tq
+    chunk = (tq > DECODE_MAX_TQ and hd_k == hd_v
+             and hd_k in CHUNK_HEAD_DIMS and aligned)
+    variant = "chunk" if chunk else "decode"
+    row_tile = CHUNK_ROWS if chunk else (1 if rows == 1 else DECODE_ROWS)
+    row_tiles = _cdiv(rows, row_tile)
+    per_split = b * kv_heads * row_tiles
+    splits = max(1, min(m, _cdiv(BLOCKS_PER_SM * sms, per_split)))
+    pps = max(_cdiv(m, splits), _cdiv(MIN_SPLIT_TOKENS[variant], pt))
+    pps = min(pps, m, MAX_SPLIT_PAGES)
+    splits = _cdiv(m, pps)
+    # head dims 64 / 128 / 256 / 512 fill the warp's 32 lanes exactly
+    epl = next(e for e in (2, 4, 8, 16) if 32 * e >= max(hd_k, hd_v))
+    return Plan(variant, int(chunk), splits, pps, row_tile, row_tiles, epl,
+                splits * per_split)
+
+
+def _sm_count(dev):
+    got = _SMS.get(dev)
+    if got is None:
+        got = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return got
+
+
+def _paged_launch(q, k_pool, v_pool, table, lens, num_heads, scale,
+                  num_kv_heads, combined):
+    """Launch kernel B (and, with ``combined``, the combine kernel in the
+    same device context); returns the output, or the split partials
+    (acc, m, l) and the output dtype (the V pool's compute dtype: f32
+    for quantized pools)."""
     quant = isinstance(k_pool, QuantKV)
     kd = k_pool.data if quant else k_pool
     vd = v_pool.data if quant else v_pool
@@ -142,7 +231,6 @@ def _paged_flash_call(q, k_pool, v_pool, table, lens, num_heads, scale,
     hd_v = vd.shape[2] // kvh
     pt = kd.shape[1]
     m = table.shape[1]
-    s = _num_splits(m)
     scale = float(scale or 1.0 / np.sqrt(hd_k))
     dev = q.device
     code = _POOL_CODE.get(kd.dtype)
@@ -159,28 +247,49 @@ def _paged_flash_call(q, k_pool, v_pool, table, lens, num_heads, scale,
             raise ValueError("paged decode kernel: pools, scales and "
                              "table must be contiguous")
     qf = q.float().contiguous()
+    if qf.data_ptr() % 16:
+        qf = qf.clone()
     table = table.to(torch.int32).contiguous()
     lens = torch.as_tensor(lens, dtype=torch.int32, device=dev).reshape(
         -1).expand(b).contiguous()
     ks = k_pool.scale.float().contiguous() if quant else None
     vs = v_pool.scale.float().contiguous() if quant else None
-    acc = torch.empty((b, h, s, tq, hd_v), dtype=torch.float32, device=dev)
-    m_p = torch.empty((b, h, s, tq), dtype=torch.float32, device=dev)
-    l_p = torch.empty((b, h, s, tq), dtype=torch.float32, device=dev)
+    aligned = kd.data_ptr() % 16 == 0 and vd.data_ptr() % 16 == 0
+    plan = _plan(b, tq, h, kvh, hd_k, hd_v, m, pt, _sm_count(dev), aligned)
+    vec = int(aligned and hd_k == hd_v == 32 * plan.epl)
+    s = plan.splits
+    # the partials in one allocation: acc (B, H, S, tq, hd_v), then m, l
+    n = b * h * s * tq
+    buf = torch.empty(n * (hd_v + 2), dtype=torch.float32, device=dev)
+    acc = buf[:n * hd_v].view(b, h, s, tq, hd_v)
+    m_p = buf[n * hd_v:n * (hd_v + 1)].view(b, h, s, tq)
+    l_p = buf[n * (hd_v + 1):].view(b, h, s, tq)
+    out_dtype = torch.float32 if quant else vd.dtype
     lib = cuda_build.lib("paged_decode")
-    tile = _tq_tile(tq, hd_k, hd_v, lib)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.paged_decode(
-            code, qf.data_ptr(), kd.data_ptr(), vd.data_ptr(),
+            plan.code, code, qf.data_ptr(), kd.data_ptr(), vd.data_ptr(),
             ks.data_ptr() if quant else None,
             vs.data_ptr() if quant else None,
             table.data_ptr(), lens.data_ptr(), acc.data_ptr(),
             m_p.data_ptr(), l_p.data_ptr(), b, tq, h, kvh, hd_k, hd_v, pt,
-            m, s, tile, scale, stream)
-    cuda_build.check(lib, rc, "paged_decode")
-    LAUNCHES["paged_decode"] += 1
-    return _combine(acc, m_p, l_p, torch.float32 if quant else vd.dtype)
+            m, s, plan.pages_per_split, plan.rows, plan.epl, vec, scale,
+            stream)
+        cuda_build.check(lib, rc, "paged_decode")
+        LAUNCHES["paged_decode"] += 1
+        LAST_VARIANT["paged_decode"] = plan.variant
+        if not combined:
+            return acc, m_p, l_p, out_dtype
+        return _launch_combine(acc, m_p, l_p, out_dtype)
+
+
+def _paged_flash_call(q, k_pool, v_pool, table, lens, num_heads, scale,
+                      num_kv_heads=0):
+    """Launch kernel B and the combine kernel; returns (B, tq, Ev) in the
+    V pool's compute dtype (f32 for quantized pools)."""
+    return _paged_launch(q, k_pool, v_pool, table, lens, num_heads, scale,
+                         num_kv_heads, combined=True)
 
 
 def _paged_entry(q, k_pool, v_pool, table, total_len, num_heads, scale,

@@ -16,17 +16,20 @@ Tensors are head-folded: q (B*H, T, hd), k and v (B*H_kv, T, hd), q-row
 
 A CUDA tensor the kernels do not take (dtype other than f32/bf16, head
 dim other than 64 or 128, q and k/v of different dtypes or lengths)
-raises; nothing falls back.  ``LAUNCHES`` counts kernel launches.
+raises; nothing falls back.  :func:`supported` is the gate the
+``dot_product_attention`` op asks first (as the JAX package asks
+``pallas_attention.supported``): shapes it refuses go to ``sdpa``.
+``LAUNCHES`` counts kernel launches.
 
-Kernels C and E each have two variants, picked by :func:`_variant` from
-the dtype alone (the C entry dispatches on the same dtype code):
+Kernels C, D and E each have two variants, picked by :func:`_variant`
+from the dtype alone (the C entries dispatch on the same dtype code):
 
 * ``simt`` (f32): register-blocked tiles on the CUDA cores;
 * ``wgmma`` (bf16): ``wgmma.mma_async`` on the tensor cores.
 
-Both read 16-byte chunks: a tensor whose storage is not 16-byte aligned
+All read 16-byte chunks: a tensor whose storage is not 16-byte aligned
 is copied first (:func:`_aligned16`).  ``LAST_VARIANT`` records what the
-last launch of C and of E ran.
+last launch of C, of D and of E ran.
 """
 from __future__ import annotations
 
@@ -36,13 +39,15 @@ from .. import cuda_build
 
 __all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_delta", "flash_plain_fwd", "flash_plain_bwd",
-           "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "LAST_VARIANT"]
+           "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "LAST_VARIANT",
+           "supported"]
 
 # kernel launches since the counts were last set to 0 (plain-version calls
 # do not count)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-# the variant the last launch of kernel C / E ran (see _variant)
-LAST_VARIANT = {"flash_fwd": None, "flash_bwd_dkv": None}
+# the variant the last launch of kernel C / D / E ran (see _variant)
+LAST_VARIANT = {"flash_fwd": None, "flash_bwd_dq": None,
+                "flash_bwd_dkv": None}
 
 # head dims the kernels are built for
 HEAD_DIMS = (64, 128)
@@ -50,10 +55,35 @@ HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def supported(q_shape, k_shape, dtype, num_heads=1, num_kv_heads=0,
+              v_shape=None):
+    """Whether kernels C, D and E take this (B, T, E) self-attention:
+    equal query and key lengths, heads dividing the embed dims with the
+    K (and V) width exactly H_kv head slices of the query's head dim, a
+    head dim in :data:`HEAD_DIMS` and a float32 or bfloat16 dtype.  Any
+    T is taken (the kernels mask ragged tiles).  The counterpart of
+    ``pallas_attention.supported``, with the port's head dims and dtypes
+    in place of the TPU tile rules."""
+    b, tq, e = q_shape
+    if tq != k_shape[1] or tq <= 0:
+        return False
+    heads = int(num_heads)
+    kvh = int(num_kv_heads) or heads
+    if heads <= 0 or kvh <= 0 or heads % kvh or e % heads:
+        return False
+    hd = e // heads
+    if k_shape[2] != kvh * hd:
+        return False
+    if v_shape is not None and (tuple(v_shape[:2]) != tuple(k_shape[:2])
+                                or v_shape[2] != kvh * hd):
+        return False
+    return hd in HEAD_DIMS and dtype in _DTYPE_CODE
+
+
 def _variant(dtype, hd):
-    """The variant of kernels C and E for ``dtype`` and head dim ``hd``:
-    ``"simt"`` for float32, ``"wgmma"`` for bfloat16 (every head dim the
-    kernels take)."""
+    """The variant of kernels C, D and E for ``dtype`` and head dim
+    ``hd``: ``"simt"`` for float32, ``"wgmma"`` for bfloat16 (every head
+    dim the kernels take)."""
     if dtype not in _DTYPE_CODE or hd not in HEAD_DIMS:
         raise ValueError("no flash kernel for %s, head dim %d" % (dtype, hd))
     return "wgmma" if dtype == torch.bfloat16 else "simt"
@@ -197,6 +227,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, groups=1):
                               float(scale), int(bool(causal)), stream)
     cuda_build.check(lib, rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
+    LAST_VARIANT["flash_bwd_dq"] = _variant(q.dtype, hd)
     return dq
 
 

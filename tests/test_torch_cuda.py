@@ -144,16 +144,12 @@ def test_every_fused_variant_matches_plain(card, variant, monkeypatch):
                 assert fk.LAST_VARIANT["fused_bwd"].startswith(variant)
 
 
-@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
-                                        torch.int8, torch.float8_e4m3fn,
-                                        torch.float8_e5m2])
-@pytest.mark.parametrize("tq,pt,hd,group", [(1, 16, 256, 1),
-                                            (3, 4, 16, 2),
-                                            (37, 16, 64, 2),
-                                            (256, 16, 256, 1)])
-def test_paged_kernel_matches_plain(card, pool_dtype, tq, pt, hd, group):
-    g = torch.Generator(device="cpu").manual_seed(tq + pt + hd)
-    heads, m = 4, 8
+POOL_DTYPES = [torch.float32, torch.bfloat16, torch.int8,
+               torch.float8_e4m3fn, torch.float8_e5m2]
+
+
+def _paged_case(card, pool_dtype, tq, pt, hd, group, m, seed, heads=4):
+    g = torch.Generator(device="cpu").manual_seed(seed)
     kvh = heads // group
     pages = 1 + 2 * m
     e_kv = kvh * hd
@@ -171,6 +167,18 @@ def test_paged_kernel_matches_plain(card, pool_dtype, tq, pt, hd, group):
     table = torch.randint(1, pages, (2, m), generator=g,
                           dtype=torch.int32).to(card)
     q = torch.randn(2, tq, heads * hd, generator=g).to(card)
+    return q, kp, vp, table, kvh
+
+
+@pytest.mark.parametrize("pool_dtype", POOL_DTYPES)
+@pytest.mark.parametrize("tq,pt,hd,group", [(1, 16, 256, 1),
+                                            (3, 4, 16, 2),
+                                            (37, 16, 64, 2),
+                                            (256, 16, 256, 1)])
+def test_paged_kernel_matches_plain(card, pool_dtype, tq, pt, hd, group):
+    heads, m = 4, 8
+    q, kp, vp, table, kvh = _paged_case(card, pool_dtype, tq, pt, hd, group,
+                                        m, tq + pt + hd)
     c = m * pt
     # every window holds its own queries (total >= tq), as in serving
     for lens in ([tq + 3, tq], [c + tq + 5, min(tq + 1, c) + tq]):
@@ -185,6 +193,123 @@ def test_paged_kernel_matches_plain(card, pool_dtype, tq, pt, hd, group):
         tol = 1e-2 if pool_dtype == torch.bfloat16 else 1e-5
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("pool_dtype", POOL_DTYPES)
+@pytest.mark.parametrize("tq", [1, 4, 16, 17, 64, 256])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("pt", [4, 16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_kernel_variants_match_plain(card, pool_dtype, tq, group, pt,
+                                           hd):
+    """Kernel B and the combine kernel across the decode / chunk boundary
+    (tq 16 / 17), G q-heads a kv-head, every pool dtype, page sizes 4 and
+    16, head dims 64 and 128; windows whose later splits lie wholly past
+    the live length, and a wrapped ring (every view slot live).
+    ``LAST_VARIANT`` names what ran, as ``_plan`` chose it."""
+    heads, m = 4, 32
+    q, kp, vp, table, kvh = _paged_case(card, pool_dtype, tq, pt, hd, group,
+                                        m, tq * 7 + group + pt + hd)
+    c = m * pt
+    for lens in ([tq + 3, tq + 40], [c + tq + 5, min(tq + 1, c) + tq]):
+        lens = torch.tensor(lens, dtype=torch.int32, device=card)
+        before = dict(dk.LAUNCHES)
+        fn = dk.flash_sdpa_decode if tq == 1 else dk.flash_sdpa_verify
+        got = fn(q, kp, vp, table, lens, num_heads=heads, num_kv_heads=kvh)
+        torch.cuda.synchronize()
+        assert {n: dk.LAUNCHES[n] - before[n] for n in before} == {
+            "paged_decode": 1, "paged_combine": 1}
+        assert dk.LAST_VARIANT["paged_decode"] == dk._plan(
+            2, tq, heads, kvh, hd, hd, m, pt, dk._sm_count(card)).variant
+        want = dk.paged_plain(q, kp, vp, table, lens, heads, None, kvh)
+        assert got.dtype == want.dtype
+        tol = 1e-2 if pool_dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("b,heads,kvh,tq", [(32, 32, 32, 1),
+                                            (8, 32, 8, 16)])
+def test_paged_kernel_long_views_on_full_grids(card, pool_dtype, b, heads,
+                                               kvh, tq):
+    """Grids already full at one split (b * kv-heads * row tiles >= four
+    blocks an SM) over views longer than a split's page-id store
+    (MAX_SPLIT_PAGES): 32 slots of a 32-head model decoding, and 8 slots'
+    16-row verify windows at G = 4, over 2050 pages of 4 tokens.  The
+    plan still cuts the view into splits the kernel takes."""
+    hd, pt, m, pages = 64, 4, 2050, 257
+    g = torch.Generator(device="cpu").manual_seed(b + tq)
+    e_kv = kvh * hd
+
+    def pool():
+        x = torch.randn(pages, pt, e_kv, generator=g)
+        if pool_dtype == torch.float32:
+            return x.to(card)
+        qkv = attn.quantize_kv(x.reshape(1, pages * pt, e_kv), pool_dtype,
+                               kvh)
+        return attn.QuantKV(qkv.data.reshape(pages, pt, e_kv).to(card),
+                            qkv.scale.reshape(pages, pt, kvh).to(card))
+
+    kp, vp = pool(), pool()
+    table = torch.randint(1, pages, (b, m), generator=g,
+                          dtype=torch.int32).to(card)
+    q = torch.randn(b, tq, heads * hd, generator=g).to(card)
+    c = m * pt
+    lens = torch.randint(tq, c, (b,), generator=g, dtype=torch.int32)
+    lens[0], lens[1] = tq, c + tq + 5
+    lens = lens.to(card)
+    plan = dk._plan(b, tq, heads, kvh, hd, hd, m, pt, dk._sm_count(card))
+    assert plan.splits >= 2 and plan.pages_per_split <= dk.MAX_SPLIT_PAGES
+    before = dk.LAUNCHES["paged_decode"]
+    fn = dk.flash_sdpa_decode if tq == 1 else dk.flash_sdpa_verify
+    got = fn(q, kp, vp, table, lens, num_heads=heads, num_kv_heads=kvh)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["paged_decode"] == before + 1
+    want = dk.paged_plain(q, kp, vp, table, lens, heads, None, kvh)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tq,hd", [(1, 256), (16, 128), (256, 256),
+                                   (64, 128)])
+def test_paged_kernel_is_bitwise_repeatable(card, tq, hd):
+    """Each block owns its partials and the combine sums the splits in a
+    fixed order (no atomics): two runs agree bit for bit."""
+    q, kp, vp, table, kvh = _paged_case(card, torch.int8, tq, 16, hd, 2, 16,
+                                        tq + hd)
+    lens = torch.tensor([tq + 100, 16 * 16 + tq], dtype=torch.int32,
+                        device=card)
+    fn = dk.flash_sdpa_decode if tq == 1 else dk.flash_sdpa_verify
+    runs = [fn(q, kp, vp, table, lens, num_heads=4, num_kv_heads=kvh)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [256, 6])
+def test_combine_kernel_matches_plain(card, out_dtype, hd):
+    """The combine kernel against ``_combine`` on partials with splits
+    that saw nothing (m = -inf, l = 0, acc 0) and a row no split saw."""
+    g = torch.Generator(device="cpu").manual_seed(hd)
+    b, h, s, tq = 2, 3, 5, 4
+    acc = torch.randn(b, h, s, tq, hd, generator=g)
+    m = torch.randn(b, h, s, tq, generator=g) * 3
+    l = torch.rand(b, h, s, tq, generator=g) + 0.5
+    m[:, :, 2] = -torch.inf
+    m[0, 1, :, 3] = -torch.inf
+    dead = m == -torch.inf
+    l[dead] = 0.0
+    acc[dead] = 0.0
+    acc, m, l = acc.to(card), m.to(card), l.to(card)
+    before = dk.LAUNCHES["paged_combine"]
+    got = dk._launch_combine(acc, m, l, out_dtype)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["paged_combine"] == before + 1
+    want = dk._combine(acc, m, l, out_dtype)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = 1e-6 if out_dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_card_tensors_the_kernels_refuse_raise(card):
@@ -264,7 +389,7 @@ def test_flash_kernels_match_plain(card, dtype, causal, t, hd, groups):
     assert {n: fl.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     variant = "simt" if dtype == torch.float32 else "wgmma"
-    assert fl.LAST_VARIANT == {"flash_fwd": variant,
+    assert fl.LAST_VARIANT == {"flash_fwd": variant, "flash_bwd_dq": variant,
                                "flash_bwd_dkv": variant}
     wo, wlse = fl.flash_plain_fwd(q, k, v, scale, causal, groups)
     _card_close(o, wo, CARD_TOL[dtype])
@@ -277,7 +402,7 @@ def test_flash_kernels_match_plain(card, dtype, causal, t, hd, groups):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_are_bitwise_repeatable(card, dtype):
-    """C and E own their output tiles and sum in a fixed order (no
+    """C, D and E own their output tiles and sum in a fixed order (no
     atomics): two runs on the same inputs agree bit for bit."""
     from mxnet_tpu_torch.ops import flash_kernel as fl
 
@@ -292,9 +417,11 @@ def test_flash_kernels_are_bitwise_repeatable(card, dtype):
     for _ in range(2):
         o, lse = fl.flash_fwd(q, k, v, hd ** -0.5, True, groups)
         delta = fl.flash_delta(o, do)
+        dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, hd ** -0.5, True,
+                             groups)
         dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, hd ** -0.5, True,
                                   groups)
-        runs.append((o, lse, dk, dv))
+        runs.append((o, lse, dq, dk, dv))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -302,7 +429,7 @@ def test_flash_kernels_are_bitwise_repeatable(card, dtype):
 
 def test_flash_kernels_take_unaligned_views(card):
     """A view whose data is not 16-byte aligned is copied before the
-    16-byte loads of C and E (never a plain fallback)."""
+    16-byte loads of C, D and E (never a plain fallback)."""
     from mxnet_tpu_torch.ops import flash_kernel as fl
 
     g = torch.Generator(device="cpu").manual_seed(6)
@@ -313,14 +440,16 @@ def test_flash_kernels_take_unaligned_views(card):
     assert q.data_ptr() % 16 != 0
     before = dict(fl.LAUNCHES)
     o, lse = fl.flash_fwd(q, k, v, 0.125, True)
-    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, fl.flash_delta(o, do),
-                              0.125, True)
+    delta = fl.flash_delta(o, do)
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, 0.125, True)
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, 0.125, True)
     torch.cuda.synchronize()
-    assert fl.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
-    assert fl.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert {n: fl.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     wo, wlse = fl.flash_plain_fwd(q, k, v, 0.125, True)
     _card_close(o, wo, CARD_TOL[torch.bfloat16])
-    _, wdk, wdv = fl.flash_plain_bwd(q, k, v, o, lse, do, 0.125, True)
+    wdq, wdk, wdv = fl.flash_plain_bwd(q, k, v, o, lse, do, 0.125, True)
+    _card_close(dq, wdq, CARD_TOL[torch.bfloat16])
     _card_close(dk, wdk, CARD_TOL[torch.bfloat16])
     _card_close(dv, wdv, CARD_TOL[torch.bfloat16])
 
@@ -423,6 +552,65 @@ def test_card_tensors_the_training_kernels_refuse_raise(card):
                                     device=card), one, one,
                      torch.zeros((4, 8), dtype=torch.float16, device=card),
                      False)
+
+
+@pytest.mark.parametrize("embed,heads", [(512, 16), (512, 2)])
+def test_module_trains_head_dims_the_flash_kernels_refuse(card, embed,
+                                                          heads):
+    """A Module over attention_lm at head dim 32 (16 heads over 512) and
+    256 (2 heads over 512): the attention goes to sdpa ("einsum") on the
+    card, as the JAX package routes the shapes its gate refuses, the
+    flash kernels are not launched, and the step matches a plain=True
+    module: outputs 1e-5, gradients 1e-4 of their norm before any ReLU
+    mask and 1e-2 behind one (a mask flip where a pre-activation lies
+    within f32 rounding of 0, as chip_smoke.py states)."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, t, vocab = 2, 64, 64
+    sym = attention_lm.get_symbol(vocab_size=vocab, seq_len=t, num_layers=1,
+                                  embed=embed, heads=heads, ffn_hidden=1024)
+    rng = np.random.RandomState(embed + heads)
+    shapes, _, _ = sym.infer_shape(data=(b, t), softmax_label=(b, t))
+    params = {n: (rng.randn(*s) * 0.05 + n.endswith("_gamma")).astype(
+        np.float32) for n, s in zip(sym.list_arguments(), shapes)
+        if n not in ("data", "softmax_label")}
+    x = rng.randint(0, vocab, (b, t)).astype(np.float32)
+    batch = DataBatch([mt.nd.array(x)], [mt.nd.array(np.roll(x, -1, 1))])
+    outs, grads = [], []
+    for plain in (False, True):
+        mod = mt.mod.Module(sym, context=mt.gpu(0), plain=plain)
+        mod.bind(data_shapes=[DataDesc("data", (b, t), layout="NT")],
+                 label_shapes=[DataDesc("softmax_label", (b, t),
+                                        layout="NT")])
+        mod.init_params(arg_params=params, aux_params={})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.01})
+        attn.PATH_TAKEN["last"] = None
+        before = dict(fl.LAUNCHES)
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        assert attn.PATH_TAKEN["last"] == "einsum"
+        assert fl.LAUNCHES == before
+        group = mod._exec_group
+        outs.append(mod.get_outputs()[0].data.clone())
+        grads.append({n: a.data.clone() for n, a in
+                      zip(group.param_names, group.grad_arrays)})
+    _card_close(outs[0], outs[1], 1e-5)
+    for name, gp in grads[1].items():
+        err = float(torch.linalg.vector_norm(grads[0][name] - gp))
+        ref = name[:-len("_k_bias")] + "_q_bias" \
+            if name.endswith("_k_bias") else name
+        norm = float(torch.linalg.vector_norm(grads[1][ref]))
+        tol = 1e-4 if name.startswith(("head_", "final_",
+                                       "layer0_ffn2_")) else 1e-2
+        assert err <= tol * max(norm, 1e-30), (name, err, norm)
 
 
 # ---------------------------------------------------------------------------

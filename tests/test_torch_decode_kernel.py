@@ -272,3 +272,90 @@ def test_attend_raises_off_cpu_on_shapes_the_kernel_refuses():
     with pytest.raises(ValueError, match="unsupported device"):
         attn.paged_attend(q, meta(tk), meta(tv), table, lens,
                           num_heads=HEADS, num_kv_heads=2)
+
+
+@pytest.mark.parametrize("tq,hd,want", [
+    (1, 256, "decode"), (4, 256, "decode"), (16, 64, "decode"),
+    (17, 64, "chunk"), (64, 128, "chunk"), (256, 256, "chunk"),
+    (17, 16, "decode"), (256, 96, "decode")])
+def test_plan_variant_by_window(tq, hd, want):
+    """Windows of at most 16 rows take the decode variant, longer ones
+    (prefill chunks) the chunk variant where it is built (head dims 64 /
+    128 / 256, equal K and V head dims); the choice does not depend on
+    the pool dtype (both variants dequantize in registers)."""
+    plan = dk._plan(1, tq, 4, 4, hd, hd, 128, 16, sms=132)
+    assert plan.variant == want and plan.code == (want == "chunk")
+    if want == "chunk":
+        assert not dk._plan(1, tq, 4, 4, hd, hd, 128, 16, sms=132,
+                            aligned=False).code
+        assert dk._plan(1, tq, 4, 4, hd, hd // 2, 128, 16,
+                        sms=132).variant == "decode"
+
+
+@pytest.mark.parametrize("b,tq,heads,kvh,m,pt", [
+    (4, 1, 4, 4, 128, 16),      # the serve's decode step
+    (1, 256, 4, 4, 128, 16),    # the serve's prefill chunk
+    (2, 3, 4, 2, 8, 4), (3, 16, 4, 1, 5, 16), (1, 1, 1, 1, 1, 4),
+    # grids full at one split (b * kv-heads * row tiles >= 4 * 132) over
+    # views longer than a split's page-id store: 32 slots of a 32-head
+    # model, and 8 slots' 16-row verify windows at G = 4
+    (32, 1, 32, 32, 4096, 16), (8, 16, 32, 8, 2049, 16)])
+def test_plan_splits_cover_the_view(b, tq, heads, kvh, m, pt):
+    """The splits cover the M view pages exactly once, hold at least a
+    warp step (32 tokens; 64 for the chunk variant) where the view has
+    them and at most MAX_SPLIT_PAGES page ids (the kernel's store), and
+    the grid aims at four blocks an SM."""
+    plan = dk._plan(b, tq, heads, kvh, 256, 256, m, pt, sms=132)
+    s, pps = plan.splits, plan.pages_per_split
+    assert (s - 1) * pps < m <= s * pps
+    assert pps <= dk.MAX_SPLIT_PAGES
+    tokens = 64 if plan.variant == "chunk" else 32
+    assert pps * pt >= min(tokens, m * pt)
+    per = b * kvh * plan.row_tiles
+    assert plan.blocks == s * per
+    if pps * pt > 2 * tokens:    # splits not held at their floor
+        assert plan.blocks >= 2 * 132
+    assert plan.row_tiles * plan.rows >= (heads // kvh) * tq
+
+
+def test_plan_one_block_serves_a_kv_group():
+    """A block serves all G q-heads of its kv-head: the grid shrinks by
+    G, not the work per page."""
+    mha = dk._plan(4, 1, 4, 4, 256, 256, 128, 16, sms=132)
+    gqa = dk._plan(4, 1, 4, 1, 256, 256, 128, 16, sms=132)
+    assert mha.rows == 1 and gqa.rows == dk.DECODE_ROWS
+    assert mha.row_tiles == gqa.row_tiles == 1
+    assert gqa.blocks * 4 >= mha.blocks and gqa.splits >= mha.splits
+    # the decode case at the serve's shape: 32 splits of 4 pages
+    assert (mha.splits, mha.pages_per_split, mha.epl) == (32, 4, 8)
+
+
+@pytest.mark.parametrize("hd,epl,vec", [
+    (32, 2, False), (64, 2, True), (96, 4, False), (128, 4, True),
+    (192, 8, False), (256, 8, True), (512, 16, True)])
+def test_plan_lanes_cover_the_head_dim(hd, epl, vec):
+    """A decode-variant lane owns ``epl`` consecutive head dims, the
+    fewest that let 32 lanes cover the row; at head dims 64 / 128 / 256 /
+    512 the lanes cover it exactly, so each lane's slice is one vector
+    load."""
+    plan = dk._plan(4, 1, 4, 4, hd, hd, 128, 16, sms=132)
+    assert plan.variant == "decode" and plan.epl == epl
+    assert (32 * plan.epl == hd) == vec
+
+
+def test_paged_entries_ctypes_declarations():
+    """Every pointer and the stream as c_void_p, ints, the scale a
+    float, an int error code back."""
+    import ctypes
+    from types import SimpleNamespace
+
+    from mxnet_tpu_torch import cuda_build
+
+    fake = SimpleNamespace(paged_decode=SimpleNamespace(),
+                           paged_combine=SimpleNamespace(),
+                           mx_error_string=SimpleNamespace())
+    cuda_build._declare("paged_decode", fake)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    assert fake.paged_decode.argtypes == [i, i] + [p] * 10 + [i] * 13 + [f, p]
+    assert fake.paged_combine.argtypes == [i, p, p, p, p, i, i, i, i, i, p]
+    assert fake.paged_decode.restype is i and fake.paged_combine.restype is i

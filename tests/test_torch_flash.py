@@ -121,7 +121,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma")])
 def test_variant_rule(dtype, hd, want):
-    """Kernels C and E run the CUDA-core tiles in f32 and wgmma in bf16,
+    """Kernels C, D and E run the CUDA-core tiles in f32 and wgmma in bf16,
     at every head dim they take."""
     assert fk._variant(dtype, hd) == want
 
@@ -169,3 +169,9 @@ def test_flash_entries_ctypes_declarations():
                                            i, i, i, f, i, p]
     for fn in (fake.flash_fwd, fake.flash_bwd_dq, fake.flash_bwd_dkv):
         assert fn.restype is i
+
+
+def test_last_variant_names_c_d_and_e():
+    """LAST_VARIANT carries one entry for each kernel, D among them."""
+    assert set(fk.LAST_VARIANT) == {"flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"}
