@@ -31,11 +31,17 @@ Phases (any failure ends the run with a non-zero exit code):
    per-parameter update and ``torch.optim``'s fused SGD / Adam step;
 5. serve — build the full-width ``attention_lm`` (vocab 8192, embed
    1024, 4 heads, FFN 4096; depth cut to 2 layers) from seeded random
-   weights and serve 8 requests (128-1024-token prompts, half sharing a
-   256-token prefix, 32 greedy tokens each) through ``DecodeServer`` over
-   a paged int8 ``DecodePredictor`` (4 slots, 16-token pages, 256-token
-   prefill chunks), counting every kernel launch; then re-serve with the
-   plain versions and compare teacher-forced probabilities;
+   weights, capture its paged programs (``prepare_programs``: decode
+   step, prefill chunk, slot commit, page fork as CUDA graphs) and serve
+   8 requests (128-1024-token prompts, half sharing a 256-token prefix,
+   32 greedy tokens each) through ``DecodeServer`` over a paged int8
+   ``DecodePredictor`` (4 slots, 16-token pages, 256-token prefill
+   chunks), counting every kernel launch and graph replay; serve again
+   under ``programs.eager()`` (the same tokens and launches); then
+   re-serve with the plain versions and compare teacher-forced
+   probabilities (the kernel side replaying the captured programs); a
+   profiled repeat of each of the captured and eager serves; the
+   programs must not have been captured again;
 6. train — ``Module.forward_backward`` + ``update`` steps of the
    full-width training configuration (vocab 8192, T 2048, batch 8, embed
    1024, 8 heads, FFN 4096, 4 layers, f32, SGD, seeded Xavier-gaussian
@@ -64,6 +70,7 @@ limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 TF32 is off throughout (``allow_tf32`` False for matmuls and cuDNN), so
 f32 products and convolutions are full f32.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -532,7 +539,8 @@ def _serve(torch, pred, prompts):
     t0 = time.perf_counter()
     results = srv.run()
     torch.cuda.synchronize()
-    return results, time.perf_counter() - t0, srv.stats()
+    return results, time.perf_counter() - t0, dict(srv.stats(),
+                                                   chunks=srv.chunks)
 
 
 def _profile(torch, run, groups=None):
@@ -572,7 +580,23 @@ def _profile(torch, run, groups=None):
     return out
 
 
+def _serve_reading(stats, wall, tokens, profile):
+    """A serve's end-to-end numbers: tokens/s, TTFT, wall, and the
+    device busy seconds of its profiled repeat, with the idle share of
+    the timed (unprofiled) wall and of the profiled one."""
+    busy = profile["device_busy_s"]
+    measured = isinstance(busy, float)
+    return {"tokens_per_s": tokens / wall, "wall_s": wall,
+            "ttft_p50_s": stats.get("ttft_p50_s"),
+            "ttft_p95_s": stats.get("ttft_p95_s"),
+            "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall if measured else busy,
+            "profiled_wall_s": profile["wall_s"],
+            "profiled_idle_share": profile.get("device_idle_share", busy)}
+
+
 def phase_serve(torch, dev):
+    from mxnet_tpu_torch import programs
     from mxnet_tpu_torch.ops import attention as attn
     from mxnet_tpu_torch.ops import decode_kernel as dk
     from mxnet_tpu_torch.ops import fused_kernel as fk
@@ -583,31 +607,58 @@ def phase_serve(torch, dev):
         "params=%d (f32)" % (VOCAB, EMBED, HEADS, FFN, LAYERS, n_params))
     prompts = _prompts()
     pred = _predictor(sym, params, False, dev)
+    # every paged program captured before the first request
+    report = pred.prepare_programs(SLOTS, CHUNK)
+    log("prepare_programs: " + json.dumps(report))
+    log("program fingerprints: "
+        + json.dumps(pred.program_fingerprints(SLOTS, CHUNK)))
     # warm-up: CUDA context, library handles, allocator
     _serve(torch, pred, [p[:64] for p in prompts[:2]])
 
-    fk.LAUNCHES["fused_fwd"] = 0
-    dk.LAUNCHES["paged_decode"] = dk.LAUNCHES["paged_combine"] = 0
-    results, wall, stats = _serve(torch, pred, prompts)
-    launches = {"fused_fwd": fk.LAUNCHES["fused_fwd"],
-                "paged_decode": dk.LAUNCHES["paged_decode"],
-                "paged_combine": dk.LAUNCHES["paged_combine"]}
+    def counted_serve():
+        fk.LAUNCHES["fused_fwd"] = 0
+        dk.LAUNCHES["paged_decode"] = dk.LAUNCHES["paged_combine"] = 0
+        replays = programs.GRAPH_STATS["replays"]
+        out = _serve(torch, pred, prompts)
+        launches = {"fused_fwd": fk.LAUNCHES["fused_fwd"],
+                    "paged_decode": dk.LAUNCHES["paged_decode"],
+                    "paged_combine": dk.LAUNCHES["paged_combine"]}
+        return out + (launches,
+                      programs.GRAPH_STATS["replays"] - replays)
+
+    # the captured programs (the default), then the same requests with
+    # every program run as its eager body
+    results, wall, stats, launches, replays = counted_serve()
     paths = {"fused": fused_lm.FUSED_PATH["last"],
              "decode": attn.DECODE_PATH["last"]}
-    log("serve launches: %s paths: %s" % (launches, paths))
+    log("serve launches: %s paths: %s replays: %d (steps %d, chunks %d)"
+        % (launches, paths, replays, stats["steps"], stats["chunks"]))
     if min(launches.values()) <= 0 or paths != {"fused": "kernel",
                                                  "decode": "kernel"}:
         raise AssertionError("the serve did not run through every kernel: "
                              "%s %s" % (launches, paths))
+    if replays < stats["steps"] + stats["chunks"]:
+        raise AssertionError("%d replays for %d decode steps and %d chunks"
+                             % (replays, stats["steps"], stats["chunks"]))
     for rid in range(len(prompts)):
         toks = results[rid]
         if toks.shape != (MAX_NEW,) or toks.min() < 0 \
                 or toks.max() >= VOCAB:
             raise AssertionError("request %d returned %s" % (rid, toks))
+    with programs.eager():
+        e_results, e_wall, e_stats, e_launches, e_replays = counted_serve()
+    log("eager serve launches: %s replays: %d" % (e_launches, e_replays))
+    if any(not np.array_equal(results[r], e_results[r]) for r in results):
+        raise AssertionError("greedy tokens of the captured and eager runs "
+                             "differ")
+    if e_launches != launches:
+        raise AssertionError("launches of the captured run %s != the eager "
+                             "run's %s" % (launches, e_launches))
 
-    # the same requests with every kernel's plain version
+    # the same requests with every kernel's plain version (eager)
     plain = _predictor(sym, params, True, dev)
-    p_results, p_wall, _ = _serve(torch, plain, prompts)
+    with programs.eager():
+        p_results, p_wall, _ = _serve(torch, plain, prompts)
     agree = float(np.mean([np.mean(results[r] == p_results[r])
                            for r in results]))
     if not agree >= MIN_GREEDY_AGREEMENT:
@@ -616,12 +667,15 @@ def phase_serve(torch, dev):
                              % (agree, MIN_GREEDY_AGREEMENT))
 
     # teacher-forced probabilities: the kernel run's tokens fed to both
+    # (the kernel side through the captured programs)
     batch = np.zeros((SLOTS, max(PROMPT_LENS[:SLOTS])), np.float32)
     for i in range(SLOTS):
         batch[i, :PROMPT_LENS[i]] = prompts[i]
     lens = np.asarray(PROMPT_LENS[:SLOTS])
+    replays_tf = programs.GRAPH_STATS["replays"]
     ks, kprobs = pred.prefill(batch, lens)
-    ps, pprobs = plain.prefill(batch, lens)
+    with programs.eager():
+        ps, pprobs = plain.prefill(batch, lens)
     worst = 0.0
     for step in range(9):
         if not bool(torch.isfinite(kprobs).all()) \
@@ -635,26 +689,44 @@ def phase_serve(torch, dev):
                                for i in range(SLOTS)], dtype=torch.int32,
                               device=dev)
         ks, kprobs = pred.step(ks._replace(tok=forced))
-        ps, pprobs = plain.step(ps._replace(tok=forced.clone()))
+        with programs.eager():
+            ps, pprobs = plain.step(ps._replace(tok=forced.clone()))
+    if programs.GRAPH_STATS["replays"] - replays_tf < 8:
+        raise AssertionError("the teacher-forced steps did not replay the "
+                             "captured programs")
     if not worst <= TOL_LOGP:
         raise AssertionError("teacher-forced |log p_kernel - log p_plain| "
                              "%.3g > %.3g" % (worst, TOL_LOGP))
     tokens = sum(len(t) for t in results.values())
     profile = _profile(torch, lambda: _serve(torch, pred, prompts)[1],
                        groups=SERVE_KERNEL_GROUPS)
+    with programs.eager():
+        e_profile = _profile(torch, lambda: _serve(torch, pred, prompts)[1],
+                             groups=SERVE_KERNEL_GROUPS)
+    traces = pred.trace_counts
+    log("trace_counts: " + json.dumps(traces))
+    log("graph stats: " + json.dumps(programs.GRAPH_STATS))
+    if (traces["decode"], traces["chunk"], traces["commit"]) != (1, 1, 1) \
+            or traces["fork"] > 1:
+        raise AssertionError("the serve captured its programs again: %s"
+                             % traces)
     serve = {"requests": len(prompts), "tokens": tokens, "wall_s": wall,
              "tokens_per_s": tokens / wall,
              "ttft_p50_s": stats.get("ttft_p50_s"),
              "ttft_p95_s": stats.get("ttft_p95_s"),
-             "decode_steps": stats["steps"],
+             "decode_steps": stats["steps"], "chunks": stats["chunks"],
+             "replays": replays,
              "prefix_cache_hit_rate": stats.get("prefix_cache_hit_rate"),
              "cow_forks": stats.get("cow_forks"),
+             "captured": _serve_reading(stats, wall, tokens, profile),
+             "eager": _serve_reading(e_stats, e_wall, tokens, e_profile),
              "plain_wall_s": p_wall, "plain_tokens_per_s": tokens / p_wall,
              "greedy_token_agreement": agree,
              "teacher_forced_max_abs_dlogp": worst,
              "launches": launches}
     log("serve: " + json.dumps(serve))
     log("profile: " + json.dumps(profile))
+    log("eager profile: " + json.dumps(e_profile))
     return serve, launches
 
 
@@ -1534,6 +1606,10 @@ def main():
     del flush
     torch.cuda.empty_cache()
     serve, launches = phase_serve(torch, dev)
+    # a predictor and its programs reference each other (each program
+    # holds a bound method): collect them, their buffers and their
+    # graphs' memory pool before training
+    gc.collect()
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, dev)
     torch.cuda.empty_cache()

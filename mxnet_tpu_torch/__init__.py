@@ -4,7 +4,8 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
 
 * paged, KV-cached serving of ``models.attention_lm``: the symbol layer,
   the ops the model uses, :mod:`~mxnet_tpu_torch.decode`
-  (``DecodePredictor`` / ``DecodeServer``);
+  (``DecodePredictor`` / ``DecodeServer``), its serving programs
+  captured as CUDA graphs (:mod:`~mxnet_tpu_torch.programs`);
 * training through ``Module`` (:mod:`~mxnet_tpu_torch.module`,
   ``executor``, ``train_step``, ``optimizer``, ``lr_scheduler``,
   ``initializer``, ``metric``, ``io``, ``ndarray``) of
@@ -26,7 +27,7 @@ from .context import Context, cpu, gpu
 symbol._init_symbol_module()
 sym = symbol
 
-from . import decode, models, serve, weights  # noqa: E402
+from . import decode, models, programs, serve, weights  # noqa: E402
 from . import (executor, initializer, io, lr_scheduler,  # noqa: E402
                metric, module, ndarray, optimizer, train_step)
 
@@ -36,5 +37,5 @@ nd = ndarray
 __all__ = ["AttrScope", "Context", "MXNetError", "NameManager", "base",
            "config", "context", "cpu", "decode", "executor", "gpu",
            "initializer", "io", "lr_scheduler", "metric", "mod", "models",
-           "module", "nd", "ndarray", "ops", "optimizer", "registry",
-           "serve", "sym", "symbol", "train_step", "weights"]
+           "module", "nd", "ndarray", "ops", "optimizer", "programs",
+           "registry", "serve", "sym", "symbol", "train_step", "weights"]

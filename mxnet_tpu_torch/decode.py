@@ -27,13 +27,27 @@ one fixed-width batch; finished ones retire and free slots refill from
 the queue.  The paged loop interleaves one prefill chunk of the admitting
 request with each decode step.
 
-PyTorch runs eagerly, so the JAX package's jit / donation / AOT
-machinery and its trace counters have no counterpart here.  Speculative
-decoding, the mesh plan, the fleet layer, swap/preemption, metrics and
-roofline hooks are not ported yet.
+Paged serving runs as compiled programs (:mod:`~mxnet_tpu_torch.programs`):
+the decode step (``paged_decode_step``), the prefill chunk
+(``prefill_chunk``, one per chunk width), the slot commit
+(``slot_commit``) and the copy-on-write page fork (``page_fork``) are
+each a :class:`~mxnet_tpu_torch.programs.GraphProgram` — on the card a
+CUDA graph captured once per argument signature and replayed on every
+later call, as the JAX package jits each once.  :attr:`DecodePredictor.
+trace_counts` counts the captures under the JAX package's keys, and
+:meth:`DecodePredictor.prepare_programs` captures them all before the
+first request.  The graphs bake in pointers, so the predictor keeps one
+set of pools and state buffers per (slots, pool pages), zeroed in place
+by :meth:`DecodePredictor.paged_batch_state`; page tables and activity
+masks live in device buffers refreshed only when they change.  The
+dense (ring-buffer) predictor runs eagerly.  Speculative decoding (and
+its verify program), page extract / install, the mesh plan, the fleet
+layer, swap/preemption, metrics and roofline hooks are not ported yet.
 """
 from __future__ import annotations
 
+import hashlib
+import json
 import math
 import time
 from collections import deque
@@ -43,10 +57,12 @@ import numpy as np
 import torch
 
 from . import config as _config
+from . import programs as _programs
 from .base import MXNetError
 from .context import resolve_device
 from .ops import attention as _attn
 from .ops.sample import is_greedy_policy, sample_tokens
+from .programs import GraphPool, GraphProgram, ProgramSpec
 from .registry import OpContext
 from .serve import PagedKVManager
 from .weights import to_tensors
@@ -96,6 +112,22 @@ class DecodeState(NamedTuple):
     caches: tuple   # ((k, v), ...) per attention node: tensors or QuantKV
     lens: object    # (B,) int32 — tokens appended to each cache so far
     tok: object     # (B, 1) int32 — last sampled token, not yet appended
+
+
+class _PagedBuffers(NamedTuple):
+    """A paged batch's device buffers, kept per (slots, pool pages): the
+    programs are captured over them."""
+
+    pools: tuple    # as DecodeState.caches
+    lens: object    # (slots,) int32
+    tok: object     # (slots, 1) int32
+    tables: object  # (slots, M) int32 page tables
+    act: object     # (slots,) int32 activity mask
+
+
+# trace_counts keys (the JAX package's)
+_TRACE_KINDS = ("prefill", "decode", "verify", "chunk", "fork", "commit",
+                "extract", "install")
 
 
 class DecodePredictor:
@@ -189,7 +221,28 @@ class DecodePredictor:
         self._manager = None          # serve.PagedKVManager, per batch
         self._pools_template = None   # per-node cache shapes (probed)
         self._paged_lens = None       # host lens for standalone use
-        self._tables_dev = None       # (manager, version, device tables)
+        self._buffers = {}            # (slots, pool pages) -> buffers
+        self._live = None             # the current batch's buffers
+        self._tables_dev = None       # (manager, version) shipped
+        self._act_key = None          # activity mask shipped
+        self._table_ships = 0         # host-to-device table copies
+        self._gen = None              # see _sampling_generator
+        self._program_specs = {}      # kind -> ProgramSpec (owned here)
+        self._prepared = None         # the last prepare_programs report
+        if self._paged:
+            # the serving programs share one graph memory pool; each
+            # binds the predictor's own buffers (pools, lens, tok,
+            # tables, mask) and copies the rest in
+            pool = GraphPool()
+            self._decode_fn = GraphProgram(
+                "paged_decode_step", self._decode_body, bind=range(5),
+                pool=pool)
+            self._chunk_fn = GraphProgram("prefill_chunk", self._chunk_body,
+                                          bind=(0,), pool=pool)
+            self._commit_fn = GraphProgram("slot_commit", self._commit_body,
+                                           bind=(0, 1), pool=pool)
+            self._fork_fn = GraphProgram("page_fork", self._fork_body,
+                                         bind=(0,), pool=pool)
 
     @property
     def cache_len(self):
@@ -342,58 +395,76 @@ class DecodePredictor:
         toks = torch.empty((1, 1), dtype=torch.float32, device="meta")
         return self._run(toks, None, 0, env=env, plain=True)[1]
 
+    def _pools_like(self, shape_of, device):
+        """Zeroed pools (or, on the meta device, their shapes) after the
+        probed cache template: ``shape_of(template_leaf)`` per leaf."""
+        if self._pools_template is None:
+            self._pools_template = self._probe_cache_shapes()
+
+        def one(like):
+            return torch.zeros(shape_of(like), dtype=like.dtype,
+                               device=device)
+
+        return tuple(tuple(
+            _attn.QuantKV(one(c.data), one(c.scale))
+            if isinstance(c, _attn.QuantKV) else one(c) for c in pair)
+            for pair in self._pools_template)
+
     def paged_batch_state(self, slots):
         """Fresh paged serving state over ``slots`` slots: a new
-        :class:`~mxnet_tpu_torch.serve.PagedKVManager` and zeroed
-        pools."""
+        :class:`~mxnet_tpu_torch.serve.PagedKVManager` and zeroed pools.
+        The pools, lengths, tokens, tables and activity mask are the
+        predictor's buffers for this (slots, pool pages) sizing, zeroed
+        in place, so every program captured over them stays valid."""
+        slots = int(slots)
         self._manager = PagedKVManager(
             slots, self._cache_len, self._page_tokens,
             pool_pages=self._pool_pages,
             prefix_cache=self._prefix_cache_on)
-        self._tables_dev = None
-        if self._pools_template is None:
-            self._pools_template = self._probe_cache_shapes()
         pp = self._manager.pool_pages
-        pt = self._page_tokens
-
-        def pool_of(like):
-            return torch.zeros((pp, pt, like.shape[2]), dtype=like.dtype,
-                               device=self._device)
-
-        pools = []
-        for pair in self._pools_template:
-            pools.append(tuple(
-                _attn.QuantKV(pool_of(c.data), pool_of(c.scale))
-                if isinstance(c, _attn.QuantKV) else pool_of(c)
-                for c in pair))
+        m = self._manager.pages_per_slot
+        buf = self._buffers.get((slots, pp))
+        if buf is None:
+            dev = self._device
+            pt = self._page_tokens
+            buf = self._buffers[(slots, pp)] = _PagedBuffers(
+                self._pools_like(lambda c: (pp, pt, c.shape[2]), dev),
+                torch.zeros((slots,), dtype=torch.int32, device=dev),
+                torch.zeros((slots, 1), dtype=torch.int32, device=dev),
+                torch.zeros((slots, m), dtype=torch.int32, device=dev),
+                torch.zeros((slots,), dtype=torch.int32, device=dev))
+        else:
+            for t in _cache_leaves(buf.pools) + list(buf[1:]):
+                t.zero_()
+        self._live = buf
+        self._tables_dev = None
+        self._act_key = None
         self._paged_lens = np.zeros(slots, np.int64)
-        return DecodeState(
-            tuple(pools),
-            torch.zeros((slots,), dtype=torch.int32, device=self._device),
-            torch.zeros((slots, 1), dtype=torch.int32, device=self._device))
+        return DecodeState(buf.pools, buf.lens, buf.tok)
 
     def _run_forks(self, caches, copies):
         """Execute manager-planned (src, dst) copy-on-write page copies
-        in every pool before the append that needs them."""
+        in every pool (the fork program, ids as data) before the append
+        that needs them."""
         for src, dst in copies:
-            for pool in _cache_leaves(caches):
-                _attn.paged_copy(pool, src, dst)
+            self._fork_fn(caches, torch.tensor([src, dst],
+                                               dtype=torch.int64))
 
     def _device_tables(self):
-        """The manager's page tables on the device, re-shipped only after
-        the manager changed them."""
+        """The manager's page tables in the batch's device buffer,
+        re-shipped only after the manager changed them."""
         mgr = self._manager
-        cached = self._tables_dev
-        if cached is None or cached[0] is not mgr \
-                or cached[1] != mgr.version:
-            self._tables_dev = (mgr, mgr.version, torch.as_tensor(
-                mgr.tables, device=self._device))
-        return self._tables_dev[2]
+        if self._tables_dev != (mgr, mgr.version):
+            self._live.tables.copy_(torch.from_numpy(mgr.tables))
+            self._tables_dev = (mgr, mgr.version)
+            self._table_ships += 1
+        return self._live.tables
 
     def paged_prepare(self, state, lens_h, width, active=None):
         """Make positions [lens, lens + width) of every active row
         writable (allocate / copy-on-write fork through the manager) and
-        return ``(tables, active)`` on the device."""
+        return ``(tables, active)``: the batch's device buffers, the mask
+        re-shipped only when it changed."""
         mgr = self._manager
         act = np.ones(mgr.slots, np.int32) if active is None \
             else np.asarray(active).astype(np.int32).reshape(-1)
@@ -403,43 +474,88 @@ class DecodePredictor:
                                     int(lens_h[s]) + int(width))
                 if copies:
                     self._run_forks(state.caches, copies)
-        return self._device_tables(), torch.as_tensor(act,
-                                                      device=self._device)
+        key = act.tobytes()
+        if key != self._act_key:
+            self._live.act.copy_(torch.from_numpy(act))
+            self._act_key = key
+        return self._device_tables(), self._live.act
 
     def paged_step(self, state, lens_h, generator=None, active=None):
-        """One paged decode step over the batch; rows with ``active`` 0
-        keep their length and token.  The caller owns the host length
-        vector ``lens_h`` and advances it by the activity."""
+        """One paged decode step over the batch (the decode program);
+        rows with ``active`` 0 keep their length and token.  The caller
+        owns the host length vector ``lens_h`` and advances it by the
+        activity.  The returned state holds the batch's length and token
+        buffers, updated in place; ``probs`` is valid until the next
+        program call."""
         tables, act = self.paged_prepare(state, lens_h, 1, active)
-        probs3, caches = self._run(state.tok, state.caches, state.lens,
-                                   tables=tables, active=act)
+        live = self._live
+        # a state built elsewhere (a teacher-forced token) lands in the
+        # batch's buffers, which the program is captured over
+        for mine, given in ((live.lens, state.lens), (live.tok, state.tok)):
+            if given is not mine:
+                mine.copy_(given)
+        probs = self._decode_fn(state.caches, live.lens, live.tok, tables,
+                                act, generator)
+        return DecodeState(state.caches, live.lens, live.tok), probs
+
+    def _decode_body(self, caches, lens, tok, tables, act, generator):
+        """The decode program: one token per active row, in place."""
+        probs3, _ = self._run(tok, caches, lens, tables=tables, active=act)
         probs = probs3[:, 0]
-        tok = self._sample(probs, generator)
-        tok = torch.where(act.bool()[:, None], tok, state.tok)
-        lens = state.lens + act.to(torch.int32)
-        return DecodeState(caches, lens, tok), probs
+        new = self._sample(probs, generator)
+        tok.copy_(torch.where(act.bool()[:, None], new, tok))
+        lens.add_(act)
+        return probs
 
     def _chunk(self, caches, slot, toks, pos0, width, generator=None):
-        """One fixed-width prefill chunk for one slot: append the
-        chunk's K/V at [pos0, pos0 + len(toks)) of the slot's pages (pad
-        positions are never written), attend causally against everything
-        cached, sample at the last real position.  Returns ``(caches,
-        probs (1, V), tok (1, 1))``."""
+        """One fixed-width prefill chunk for one slot (the chunk
+        program): append the chunk's K/V at [pos0, pos0 + len(toks)) of
+        the slot's pages (pad positions are never written), attend
+        causally against everything cached, sample at the last real
+        position.  Returns ``(caches, probs (1, V), tok (1, 1))``, valid
+        until the next program call."""
         n = int(np.asarray(toks).size)
-        dev = self._device
-        probs3, caches = self._run(
-            torch.as_tensor(_pad_window(toks, width), device=dev), caches,
-            torch.tensor([pos0], dtype=torch.int32, device=dev),
-            tables=torch.as_tensor(self._manager.tables[slot:slot + 1],
-                                   device=dev),
-            active=torch.ones((1,), dtype=torch.int32, device=dev),
-            valid=torch.tensor([n], dtype=torch.int32, device=dev))
-        probs = probs3[:, min(max(n - 1, 0), width - 1)]
-        return caches, probs, self._sample(probs, generator)
+        probs, tok = self._chunk_fn(
+            caches, self._device_tables()[slot:slot + 1],
+            torch.from_numpy(_pad_window(toks, width)),
+            torch.tensor([pos0, n], dtype=torch.int32), generator)
+        return caches, probs, tok
+
+    def _chunk_body(self, caches, table1, tokens, meta, generator):
+        """The chunk program; ``meta`` = [pos0, real tokens]."""
+        valid = meta[1:2]
+        probs3, _ = self._run(
+            tokens, caches, meta[0:1], tables=table1,
+            active=torch.ones((1,), dtype=torch.int32,
+                              device=tokens.device), valid=valid)
+        last = torch.clamp(valid.long() - 1, 0, tokens.shape[1] - 1)
+        probs = probs3.index_select(1, last)[:, 0]
+        return probs, self._sample(probs, generator)
+
+    def _commit(self, state, slot, new_len, new_tok):
+        """Activate a freshly prefilled slot (the commit program, the slot
+        as data): ``lens[slot] = new_len``, ``tok[slot, 0] = new_tok``."""
+        self._commit_fn(state.lens, state.tok,
+                        torch.tensor([slot, new_len], dtype=torch.int32),
+                        new_tok)
+
+    @staticmethod
+    def _commit_body(lens, tok, meta, new_tok):
+        slot = meta[0:1].long()
+        lens.index_copy_(0, slot, meta[1:2])
+        tok.index_copy_(0, slot, new_tok.reshape(1, 1).to(tok.dtype))
+
+    @staticmethod
+    def _fork_body(caches, ids):
+        """The fork program: page ``ids[0]`` -> ``ids[1]`` in every pool
+        (page ids are one global space)."""
+        for pool in _cache_leaves(caches):
+            _attn.paged_copy(pool, ids[0:1], ids[1:2])
 
     def _chunked_fill(self, caches, slot, prompt, start, generator=None):
         """Prefill [start, len(prompt)) of one slot's prompt in
-        fixed-width chunks; returns (caches, first token, its probs)."""
+        fixed-width chunks; returns (caches, first token, its probs),
+        valid until the next program call."""
         mgr = self._manager
         total = int(prompt.size)
         w = int(self._prefill_chunk or (total - int(start)))
@@ -472,7 +588,7 @@ class DecodePredictor:
         state = self.paged_batch_state(b)
         mgr = self._manager
         caches = state.caches
-        toks_out, probs_out = [], []
+        probs_out = []
         for row in range(b):
             prompt = tokens[row, :int(lens_h[row])].astype(np.int64)
             gate = mgr.gate(prompt, prompt.size, self._cache_len,
@@ -487,13 +603,163 @@ class DecodePredictor:
             caches, tok, probs = self._chunked_fill(caches, row, prompt,
                                                     matched, generator)
             mgr.publish(row, prompt, prompt.size)
-            toks_out.append(tok)
-            probs_out.append(probs)
+            state.tok[row:row + 1].copy_(tok)
+            probs_out.append(probs.clone())
         self._paged_lens = lens_h
-        return (DecodeState(caches, torch.as_tensor(lens_h, dtype=torch.int32,
-                                                    device=self._device),
-                            torch.cat(toks_out, dim=0)),
-                torch.cat(probs_out, dim=0))
+        state.lens.copy_(torch.from_numpy(lens_h.astype(np.int32)))
+        return state, torch.cat(probs_out, dim=0)
+
+    # ------------------------------------------------------------------
+    # the compiled programs
+    # ------------------------------------------------------------------
+    @property
+    def trace_counts(self):
+        """Captures per program kind under the JAX package's keys (one
+        per argument signature; ``prefill``, ``verify``, ``extract`` and
+        ``install`` have no program here and stay 0)."""
+        out = dict.fromkeys(_TRACE_KINDS, 0)
+        for kind, prog in self._programs().items():
+            out[kind] = prog.traces
+        return out
+
+    def _programs(self):
+        """kind -> the paged serving program (none in dense mode)."""
+        if not self._paged:
+            return {}
+        return {"chunk": self._chunk_fn, "decode": self._decode_fn,
+                "commit": self._commit_fn, "fork": self._fork_fn}
+
+    def _sampling_generator(self, seed=None):
+        """The predictor's one generator for sampled decoding (the
+        programs are captured with it registered), seeded with ``seed``
+        when given; None under the greedy policy."""
+        if self._greedy:
+            return None
+        if self._gen is None:
+            self._gen = torch.Generator(device=self._device)
+        if seed is not None:
+            self._gen.manual_seed(int(seed))
+        return self._gen
+
+    def _symbol_fingerprint(self):
+        """Digest of the model graph, part of every program's key.
+        Generated op-node names are replaced by their topological index
+        first: their counters depend on how many symbols the process
+        built before, and two hosts building the same model must get the
+        same key."""
+        d = getattr(self, "_sym_digest", None)
+        if d is None:
+            g = json.loads(self._symbol.tojson())
+            for i, node in enumerate(g.get("nodes", ())):
+                if node.get("op") not in (None, "null"):
+                    node["name"] = "n%d" % i
+            blob = json.dumps(g, sort_keys=True)
+            d = self._sym_digest = hashlib.blake2b(
+                blob.encode(), digest_size=16).hexdigest()
+        return d
+
+    def _serving_args(self, slots, chunk_w=None):
+        """Each paged program's arguments at batch width ``slots`` as
+        ``meta`` tensors (shapes and dtypes only: no pool is allocated
+        and nothing runs)."""
+        if not self._paged:
+            raise MXNetError("serving programs need a paged predictor")
+        slots = int(slots)
+        pt = self._page_tokens
+        m = self._cache_len // pt
+        pp = PagedKVManager.pool_sizing(slots, self._cache_len, pt,
+                                        self._pool_pages)
+        caches = self._pools_like(lambda c: (pp, pt, c.shape[2]), "meta")
+
+        def meta(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        env = {n: meta(*v.shape, dtype=v.dtype) for n, v in self._env.items()}
+        cw = int(chunk_w or self._prefill_chunk or self._cache_len)
+        return {
+            "chunk": (env, caches, meta(1, m),
+                      meta(1, cw, dtype=torch.float32), meta(2)),
+            "decode": (env, caches, meta(slots), meta(slots, 1),
+                       meta(slots, m), meta(slots)),
+            "commit": (meta(slots), meta(slots, 1), meta(2), meta(1, 1)),
+            "fork": (caches, meta(2, dtype=torch.int64)),
+        }
+
+    def _program_spec(self, kind, args):
+        """The :class:`~mxnet_tpu_torch.programs.ProgramSpec` of one paged
+        program at ``args``: trace counter and identity extras."""
+        prog = self._programs()[kind]
+        extra = {"symbol": self._symbol_fingerprint(),
+                 "cache_len": self._cache_len,
+                 "page_tokens": self._page_tokens,
+                 "kv_dtype": str(self._kv_dtype),
+                 "temperature": self._temperature, "top_k": self._top_k,
+                 "plain": self._plain, "kind": kind}
+        return ProgramSpec(prog.name, prog, owner=self,
+                           abstract_args=lambda a=args: a,
+                           trace_count=lambda p=prog: p.traces,
+                           device=self._device, fingerprint_extra=extra)
+
+    def program_fingerprints(self, slots, chunk_w=None):
+        """kind -> content address of each paged program at this sizing:
+        equal keys across hosts mean the same programs on the same
+        kernels."""
+        return {kind: self._program_spec(kind, args).fingerprint(args)
+                for kind, args in self._serving_args(slots,
+                                                    chunk_w).items()}
+
+    def prepare_programs(self, slots, chunk_w=None):
+        """Capture every paged program at batch width ``slots`` (and
+        chunk width ``chunk_w``) before the first request, each driven
+        once on inert inputs (inactive rows, no valid chunk token:
+        every write lands in the scratch page), then zero the state.
+        Registers each program's spec.  Returns the readiness report
+        ``{"signature", "programs": {kind: {"name", "source", "key",
+        "seconds"}}, "wall_s"}``: ``source`` is "capture", or "resident"
+        for a program captured before.  Idempotent per signature."""
+        cw = int(chunk_w or self._prefill_chunk or self._cache_len)
+        sig = (int(slots), cw)
+        if self._prepared is not None and self._prepared["signature"] == sig:
+            return self._prepared
+        t_all = time.perf_counter()
+        avals = self._serving_args(slots, cw)
+        state = self.paged_batch_state(slots)
+        live = self._live
+        gen = self._sampling_generator()
+        dev = self._device
+        calls = {
+            "chunk": lambda: self._chunk_fn(
+                state.caches, live.tables[0:1],
+                torch.zeros((1, cw), dtype=torch.float32),
+                torch.zeros((2,), dtype=torch.int32), gen),
+            "decode": lambda: self._decode_fn(
+                state.caches, live.lens, live.tok, live.tables, live.act,
+                gen),
+            "commit": lambda: self._commit_fn(
+                live.lens, live.tok, torch.zeros((2,), dtype=torch.int32),
+                torch.zeros((1, 1), dtype=torch.int32, device=dev)),
+            "fork": lambda: self._fork_fn(
+                state.caches, torch.zeros((2,), dtype=torch.int64)),
+        }
+        report = {"signature": sig, "programs": {}}
+        for kind, args in avals.items():
+            spec = self._program_specs[kind] = _programs.registry.register(
+                self._program_spec(kind, args))
+            before = self._programs()[kind].traces
+            t0 = time.perf_counter()
+            calls[kind]()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            report["programs"][kind] = {
+                "name": spec.name,
+                "source": "capture" if spec.trace_count() > before
+                else "resident",
+                "key": spec.fingerprint(args),
+                "seconds": time.perf_counter() - t0}
+        self.paged_batch_state(slots)
+        report["wall_s"] = time.perf_counter() - t_all
+        self._prepared = report
+        return report
 
     # ------------------------------------------------------------------
     # public surface
@@ -548,18 +814,15 @@ class DecodePredictor:
         """Prefill + ``max_new_tokens`` decode steps; returns a (B, N)
         int32 numpy array of sampled tokens (rows keep decoding past
         their EOS — slice per row)."""
-        gen = None
-        if not self._greedy:
-            gen = torch.Generator(device=self._device)
-            gen.manual_seed(int(seed))
+        gen = self._sampling_generator(seed)
         state, _ = self.prefill(tokens, prompt_len, gen)
-        out = [state.tok.cpu().numpy()]
+        out = [state.tok.cpu().numpy().copy()]
         done = (out[0][:, 0] == eos_id) if eos_id is not None else None
         for _ in range(max_new_tokens - 1):
             if done is not None and done.all():
                 break
             state, _ = self.step(state, gen)
-            out.append(state.tok.cpu().numpy())
+            out.append(state.tok.cpu().numpy().copy())
             if done is not None:
                 done |= out[-1][:, 0] == eos_id
         return np.concatenate(out, axis=1)
@@ -629,6 +892,7 @@ class DecodeServer:
         self._chunk_w = min(int(predictor._prefill_chunk or max_prefill),
                             int(max_prefill))
         self.steps = 0          # decode steps executed
+        self.chunks = 0         # paged prefill chunks executed
         self.tokens_out = 0     # tokens delivered to finished requests
 
     def submit(self, tokens, max_new_tokens=None):
@@ -646,11 +910,7 @@ class DecodeServer:
         return rid
 
     def _generator(self):
-        if self._pred._greedy:
-            return None
-        gen = torch.Generator(device=self._pred.device)
-        gen.manual_seed(self._seed)
-        return gen
+        return self._pred._sampling_generator(self._seed)
 
     def _deliver(self, rec, emitted):
         """Append emitted tokens to a request, honoring its cap and
@@ -779,13 +1039,13 @@ class DecodeServer:
                     state.caches, p["slot"],
                     p["prompt"][p["pos"]:p["pos"] + n], p["pos"],
                     self._chunk_w, gen)
+                self.chunks += 1
                 p["pos"] += n
                 if p["pos"] >= p["prompt"].size:
                     # (3) commit: the slot joins the batch
                     slot, plen = p["slot"], p["prompt"].size
                     first = int(tok[0, 0])
-                    state.lens[slot] = plen
-                    state.tok[slot, 0] = first
+                    pred._commit(state, slot, plen, tok)
                     mgr.publish(slot, p["prompt"], plen)
                     active[slot] = {"rid": p["rid"], "toks": [first],
                                     "cap": p["cap"]}

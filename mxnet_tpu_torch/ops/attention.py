@@ -312,12 +312,18 @@ def paged_append(pool, table, new, start_pos, num_heads=1, active=None,
 
 def paged_copy(pool, src, dst):
     """Copy page ``src`` -> page ``dst`` in place (the device half of a
-    copy-on-write fork); :class:`QuantKV` pools copy both planes."""
+    copy-on-write fork); :class:`QuantKV` pools copy both planes.  The
+    ids are ints, or (1,) int64 tensors on the pool's device (what a
+    captured fork reads)."""
     if isinstance(pool, QuantKV):
         paged_copy(pool.data, src, dst)
         paged_copy(pool.scale, src, dst)
         return pool
-    _raw(pool)[int(dst)] = _raw(pool)[int(src)]
+    raw = _raw(pool)
+    src, dst = (torch.as_tensor(i, dtype=torch.int64,
+                                device=pool.device).reshape(1)
+                for i in (src, dst))
+    raw.index_copy_(0, dst, raw.index_select(0, src))
     return pool
 
 

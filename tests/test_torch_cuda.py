@@ -781,3 +781,129 @@ def test_resnet_step_plan_matches_per_param(card, dtype):
         assert torch.equal(mod._updater.states[i], m), name
         want = w.data if dtype == "float32" else w.data.to(torch.bfloat16)
         assert torch.equal(step._views[name], want), name
+
+
+# ---------------------------------------------------------------------------
+# the serving programs as captured CUDA graphs (programs/graphs.py): a
+# small int8 paged LM (2 layers, embed 128, 2 heads of 64, 16-token pages)
+# ---------------------------------------------------------------------------
+
+def _graph_lm(card, **kw):
+    import numpy as np
+
+    from mxnet_tpu_torch.decode import DecodePredictor
+    from mxnet_tpu_torch.models import attention_lm
+
+    sym = attention_lm.get_symbol(vocab_size=64, seq_len=64, num_layers=2,
+                                  embed=128, heads=2, ffn_hidden=256)
+    rng = np.random.RandomState(0)
+    shapes, _, _ = sym.infer_shape(data=(1, 64), softmax_label=(1, 64))
+    params = {n: rng.normal(0, 0.1, s).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    return DecodePredictor(sym, params, cache_len=64, device=card,
+                           paged=True, kv_dtype="int8", page_tokens=16,
+                           prefill_chunk=16, **kw)
+
+
+def _graph_prompts():
+    import numpy as np
+
+    x = np.random.RandomState(1).randint(0, 64, (2, 40)).astype(np.float32)
+    return x, np.array([23, 40])
+
+
+def test_captured_paged_step_matches_eager_bitwise(card):
+    """Prepared (captured) programs against a second predictor run under
+    programs.eager() from the same state: prefill and 30 steps (across
+    page boundaries, one row idle now and then) give bit-equal
+    probabilities, tokens, lengths and pools (the scratch page aside,
+    where idle rows' writes collide); each replay adds the launches its
+    capture recorded, equal to the eager step's; the tables are shipped
+    exactly when the manager changed them."""
+    import numpy as np
+
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.decode import _cache_leaves
+
+    g, e = _graph_lm(card), _graph_lm(card)
+    rep = g.prepare_programs(2)
+    assert {r["source"] for r in rep["programs"].values()} == {"capture"}
+    x, lens = _graph_prompts()
+    gs, gp = g.prefill(x, lens)
+    with programs.eager():
+        es, ep = e.prefill(x, lens)
+    assert torch.equal(gp, ep)
+    counters = (fk.LAUNCHES, dk.LAUNCHES)
+    lens_h = lens.astype(np.int64)
+    for i in range(30):
+        act = np.array([1, 0 if i % 7 == 3 else 1], np.int32)
+        version, ships = g._manager.version, g._table_ships
+        before = [dict(c) for c in counters]
+        replays = programs.GRAPH_STATS["replays"]
+        gs, gp = g.paged_step(gs, lens_h, active=act)
+        gp = gp.clone()
+        mid = [dict(c) for c in counters]
+        with programs.eager():
+            es, ep = e.paged_step(es, lens_h, active=act)
+        torch.cuda.synchronize()
+        after = [dict(c) for c in counters]
+        assert torch.equal(gp, ep), i
+        assert torch.equal(gs.tok, es.tok) and torch.equal(gs.lens, es.lens)
+        assert programs.GRAPH_STATS["replays"] - replays == 1
+        assert (g._table_ships - ships) == int(g._manager.version
+                                                != version)
+        for b, m, a in zip(before, mid, after):
+            for k in b:
+                assert m[k] - b[k] == a[k] - m[k], (i, k)
+        assert mid[0]["fused_fwd"] - before[0]["fused_fwd"] == 10
+        assert mid[1]["paged_decode"] - before[1]["paged_decode"] == 2
+        assert mid[1]["paged_combine"] - before[1]["paged_combine"] == 2
+        lens_h = lens_h + act
+    for a, b in zip(_cache_leaves(gs.caches), _cache_leaves(es.caches)):
+        assert torch.equal(a[1:], b[1:])
+    assert g.trace_counts["decode"] == g.trace_counts["chunk"] == 1
+    assert e.trace_counts["decode"] == 0
+
+
+def test_captured_sampling_stays_in_top_k(card):
+    """Temperature 1, top_k 8 through the captured chunk and decode
+    programs with the predictor's seeded generator registered: every
+    drawn token is among its row's 8 most probable, and the same seed
+    draws the same tokens again (without a new capture)."""
+    import numpy as np
+
+    pred = _graph_lm(card, temperature=1.0, top_k=8)
+    pred.prepare_programs(2)
+    x, lens = _graph_prompts()
+    st, probs = pred.prefill(x, lens, pred._sampling_generator(7))
+    lens_h = lens.astype(np.int64)
+    drawn = set()
+    for _ in range(12):
+        top = torch.topk(probs, 8, dim=-1).indices
+        assert bool((top == st.tok.long()).any(dim=-1).all())
+        drawn.update(st.tok.flatten().tolist())
+        st, probs = pred.paged_step(st, lens_h, pred._gen)
+        lens_h = lens_h + 1
+    assert len(drawn) > 2
+    traces = dict(pred.trace_counts)
+    a = pred.generate(x, lens, max_new_tokens=10, seed=3)
+    b = pred.generate(x, lens, max_new_tokens=10, seed=3)
+    np.testing.assert_array_equal(a, b)
+    assert pred.trace_counts == traces
+
+
+def test_uncapturable_program_raises(card):
+    """A body that syncs with the host (.item()) cannot be captured: the
+    call raises (no eager stand-in), nothing is counted, and the card
+    goes on working."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.programs import GraphProgram
+
+    prog = GraphProgram("t_item", lambda x: x * float(x.sum().item()))
+    x = torch.ones(4, device=card)
+    with pytest.raises(MXNetError, match="capture failed"):
+        prog(x)
+    assert prog.traces == 0
+    torch.cuda.synchronize()
+    assert float((x + 1).sum()) == 8.0

@@ -160,6 +160,7 @@ def test_dense_server_matches_jax():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.decode, "
+            "mxnet_tpu_torch.programs, "
             "mxnet_tpu_torch.ops.decode_kernel, "
             "mxnet_tpu_torch.ops.fused_kernel, "
             "mxnet_tpu_torch.ops.flash_kernel, mxnet_tpu_torch.module, "
