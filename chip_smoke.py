@@ -42,6 +42,17 @@ Phases (any failure ends the run with a non-zero exit code):
    probabilities (the kernel side replaying the captured programs); a
    profiled repeat of each of the captured and eager serves; the
    programs must not have been captured again;
+5b. serve spec — the same model and requests with speculative decoding
+   (``bench_decode.py``'s spec_k 8, the n-gram proposer at n-gram 2):
+   ``prepare_programs`` captures the verify program too; the captured
+   serve (timed) must emit the non-speculative serve's tokens, the
+   eager one the same tokens and launches, the plain one the same
+   greedy tokens; a teacher-forced verify (the kernel run's tokens as
+   drafts) against the plain predictor, at all k + 1 positions; a
+   self-draft serve (a dense int8 predictor of the same weights) must
+   accept every draft; a sampled serve (temperature 1, top-k 8) must
+   repeat from its seed with every token in the plain top 8; then
+   profiled repeats, captured and eager;
 6. train — ``Module.forward_backward`` + ``update`` steps of the
    full-width training configuration (vocab 8192, T 2048, batch 8, embed
    1024, 8 heads, FFN 4096, 4 layers, f32, SGD, seeded Xavier-gaussian
@@ -116,6 +127,17 @@ RESNET_KERNEL_GROUPS = {
 SERVE_KERNEL_GROUPS = {"B (paged_decode)": ("paged_decode_",),
                        "B's combine (paged_combine)": ("paged_combine",)}
 SLOTS, PAGE_TOKENS, CHUNK, MAX_NEW = 4, 16, 256, 32
+# speculation: benchmarks/bench_decode.py:139's spec_k, the n-gram
+# proposer at MXNET_SPEC_NGRAM's default; a verify window is k + 1 rows
+# a slot, so kernel A sees SLOTS x (k + 1) rows
+SPEC_K, SPEC_NGRAM = 8, 2
+VERIFY_M = SLOTS * (SPEC_K + 1)
+# one decode or verify step's device time by kernel: A's weight-streaming
+# (decode) and tile (simt) variants, B, its combine, and all of it
+STEP_PARTS = {"all": "", "A decode": "decode_kernel", "A simt": "simt_kernel",
+              "B": "paged_decode_", "combine": "paged_combine"}
+# the sampled speculative serve's policy
+SAMPLE_TEMPERATURE, SAMPLE_TOP_K, SAMPLE_SEED = 1.0, 8, 5
 PROMPT_LENS = [384, 128, 640, 1024, 512, 300, 1000, 768]
 SHARED_PREFIX = 256
 
@@ -240,91 +262,93 @@ def phase_build():
                                                   dt))
 
 
+def _a_case(torch, dev, flush, g, dtype, m, k, n, relu_res):
+    """Kernel A at one (M, K, N) against its plain version, timed beside
+    the plain version and an ``addmm`` yardstick."""
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+
+    dname = str(dtype).split(".")[-1]
+    isz = torch.empty((), dtype=dtype).element_size()
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    x = r(m, k).to(dtype)
+    w = (r(n, k) / k ** 0.5).to(dtype)
+    scale, shift, bias = 1 + 0.1 * r(k), 0.1 * r(k), 0.1 * r(n)
+    res = r(m, n).to(dtype) if relu_res else None
+    kw = dict(residual=res, relu=relu_res, bias=bias)
+    got = fk.fused_scale_relu_matmul(x, scale, shift, w, **kw)
+    variant = fk.LAST_VARIANT["fused_fwd"]
+    want = fk.fused_plain(x, scale, shift, w, **kw)
+    torch.cuda.synchronize()
+    err = float((got[0].float() - want[0].float()).abs().max())
+    mag = max(1.0, float(want[0].float().abs().max()))
+    if not err <= TOL_A[dname] * mag:
+        raise AssertionError(
+            "kernel A %s m=%d k=%d n=%d: max |y - plain| %.3g > %.3g"
+            % (dname, m, k, n, err, TOL_A[dname] * mag))
+    yabs = want[0].float().abs()
+    for i, lim in ((1, yabs.sum(0)), (2, (yabs * yabs).sum(0))):
+        serr = (got[i] - want[i]).abs()
+        if not bool((serr <= TOL_A_STATS[dname]
+                     * torch.clamp_min(lim, 1.0)).all()):
+            raise AssertionError(
+                "kernel A %s m=%d k=%d n=%d: column statistic %d off by "
+                "%.3g" % (dname, m, k, n, i, float(serr.max())))
+    # the library yardstick: one addmm on the pre-applied input (no
+    # prologue, no statistics)
+    a = x.float() * scale + shift
+    if relu_res:
+        a = torch.clamp_min(a, 0)
+    a = a.to(dtype)
+    c = (bias + res.float()).to(dtype) if relu_res else bias.to(dtype)
+    wt = w.t()
+    iters = 20
+    ms = _timed(torch, lambda: fk.fused_scale_relu_matmul(
+        x, scale, shift, w, **kw), flush, iters)
+    plain_ms = _timed(torch, lambda: fk.fused_plain(
+        x, scale, shift, w, **kw), flush, iters)
+    lib_ms = _timed(torch, lambda: torch.addmm(c, a, wt), flush, iters)
+    dev_ms = {
+        "kernel": _device_ms(torch, lambda: fk.fused_scale_relu_matmul(
+            x, scale, shift, w, **kw)),
+        "plain": _device_ms(torch, lambda: fk.fused_plain(
+            x, scale, shift, w, **kw)),
+        "library": _device_ms(torch, lambda: torch.addmm(c, a, wt))}
+    nbytes = (m * k * isz + 2 * k * 4 + n * k * isz + n * 4
+              + (m * n * isz if relu_res else 0) + m * n * isz + 2 * n * 4)
+    bound_ms, bound_by = _bound(nbytes, 2.0 * m * n * k, dname)
+    case = {"dtype": dname, "m": m, "k": k, "n": n,
+            "relu_residual": relu_res, "variant": variant,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    case["bound_share"] = _bound_share(case)
+    log("kernel A case: " + json.dumps(case))
+    return case
+
+
 def phase_kernel_a(torch, dev, flush):
     """Kernel A at the LM's segments: M = 4 (decode), 256 (a prefill
     chunk) and 16384 (a training batch of 8 x 2048 tokens);
     q/k/v/attout-sized (1024, 1024), ffn1 (1024, 4096) and ffn2 (4096,
-    1024, ReLU + residual); f32 and bf16."""
-    from mxnet_tpu_torch.ops import fused_kernel as fk
-
+    1024, ReLU + residual); f32 and bf16.  Then at the speculative serve's
+    verify rows, M = 4 slots x 9 = 36, f32: ffn1, ffn2 and a head-wide N
+    (1024 -> 8192; the model's head itself is a FullyConnected)."""
     cases = []
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        isz = torch.empty((), dtype=dtype).element_size()
         for m in (4, 256, TRAIN_BATCH * SEQ):
             for k, n, relu_res in ((1024, 1024, False), (1024, 4096, False),
                                    (4096, 1024, True)):
-                def r(*shape):
-                    return torch.randn(*shape, generator=g, device=dev)
-
-                x = r(m, k).to(dtype)
-                w = (r(n, k) / k ** 0.5).to(dtype)
-                scale, shift, bias = 1 + 0.1 * r(k), 0.1 * r(k), 0.1 * r(n)
-                res = r(m, n).to(dtype) if relu_res else None
-                kw = dict(residual=res, relu=relu_res, bias=bias)
-                got = fk.fused_scale_relu_matmul(x, scale, shift, w, **kw)
-                variant = fk.LAST_VARIANT["fused_fwd"]
-                want = fk.fused_plain(x, scale, shift, w, **kw)
-                torch.cuda.synchronize()
-                err = float((got[0].float() - want[0].float()).abs().max())
-                mag = max(1.0, float(want[0].float().abs().max()))
-                if not err <= TOL_A[dname] * mag:
-                    raise AssertionError(
-                        "kernel A %s m=%d k=%d n=%d: max |y - plain| %.3g "
-                        "> %.3g" % (dname, m, k, n, err,
-                                    TOL_A[dname] * mag))
-                yabs = want[0].float().abs()
-                for i, lim in ((1, yabs.sum(0)), (2, (yabs * yabs).sum(0))):
-                    serr = (got[i] - want[i]).abs()
-                    if not bool((serr <= TOL_A_STATS[dname]
-                                 * torch.clamp_min(lim, 1.0)).all()):
-                        raise AssertionError(
-                            "kernel A %s m=%d k=%d n=%d: column statistic "
-                            "%d off by %.3g" % (dname, m, k, n, i,
-                                                float(serr.max())))
-                # the library yardstick: one addmm on the pre-applied
-                # input (no prologue, no statistics)
-                a = x.float() * scale + shift
-                if relu_res:
-                    a = torch.clamp_min(a, 0)
-                a = a.to(dtype)
-                c = (bias + res.float()).to(dtype) if relu_res \
-                    else bias.to(dtype)
-                wt = w.t()
-                iters = 20
-                ms = _timed(torch, lambda: fk.fused_scale_relu_matmul(
-                    x, scale, shift, w, **kw), flush, iters)
-                plain_ms = _timed(torch, lambda: fk.fused_plain(
-                    x, scale, shift, w, **kw), flush, iters)
-                lib_ms = _timed(torch, lambda: torch.addmm(c, a, wt), flush,
-                                iters)
-                dev_ms = {
-                    "kernel": _device_ms(torch, lambda: (
-                        fk.fused_scale_relu_matmul(x, scale, shift, w,
-                                                   **kw))),
-                    "plain": _device_ms(torch, lambda: fk.fused_plain(
-                        x, scale, shift, w, **kw)),
-                    "library": _device_ms(torch,
-                                          lambda: torch.addmm(c, a, wt))}
-                nbytes = (m * k * isz + 2 * k * 4 + n * k * isz + n * 4
-                          + (m * n * isz if relu_res else 0) + m * n * isz
-                          + 2 * n * 4)
-                flops = 2.0 * m * n * k
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                t_ops = flops / PEAK_FLOPS[dname]
-                case = {"dtype": dname, "m": m, "k": k, "n": n,
-                        "relu_residual": relu_res, "variant": variant,
-                        "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "device_ms": dev_ms,
-                        "bound_ms": max(t_bytes, t_ops) * 1e3,
-                        "bound_by": "bytes" if t_bytes >= t_ops
-                        else "operations"}
-                case["bound_share"] = _bound_share(case)
-                log("kernel A case: " + json.dumps(case))
-                cases.append(case)
+                cases.append(_a_case(torch, dev, flush, g, dtype, m, k, n,
+                                     relu_res))
+    for k, n, relu_res in ((EMBED, FFN, False), (FFN, EMBED, True),
+                           (EMBED, VOCAB, False)):
+        cases.append(_a_case(torch, dev, flush, g, torch.float32, VERIFY_M,
+                             k, n, relu_res))
     return cases
 
 
@@ -347,11 +371,14 @@ def phase_kernel_b(torch, dev, flush):
     """Kernel B and its combine kernel at the serving shapes: 4 slots x
     2048-token views of 16-token pages, 4 heads of 256; tq = 1 (decode, 4
     slots) and tq = 256 (a prefill chunk, 1 slot); f32 / int8 / fp8-e4m3
-    pools; G = 1 and 2; padded, long and wrapped rings; and the int8 G = 1
-    decode at 8 heads of 128.  Each case names the variant and split count
-    ``decode_kernel._plan`` chose and reports the combine kernel's device
-    ms beside kernel B's; the combine is also held against its plain
-    version (``_combine``) on the case's own partials."""
+    pools; G = 1 and 2; padded, long and wrapped rings; the int8 G = 1
+    decode at 8 heads of 128; and the speculative serve's verify window,
+    tq = SPEC_K + 1 = 9 over int8 pages at G = 1, 4 slots at lengths like
+    the serve's.  Each case names the variant, split count, rows a block
+    serves and row tiles ``decode_kernel._plan`` chose and reports the
+    combine kernel's device ms beside kernel B's; the combine is also
+    held against its plain version (``_combine``) on the case's own
+    partials."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import attention as attn
@@ -367,7 +394,10 @@ def phase_kernel_b(torch, dev, flush):
         torch.int32) + 1
     table_all = perm[:SLOTS * m].reshape(SLOTS, m).contiguous()
     windows = ((1, [130, 700, 1100, c + 37]), (CHUNK, [768 + CHUNK]))
-    configs = [(HEADS, pdt, group, windows)
+    verify = (SPEC_K + 1, [416, 160, 672, 1056])
+    configs = [(HEADS, pdt, group,
+                windows + ((verify,) if (pdt, group) == (torch.int8, 1)
+                           else ()))
                for pdt in (torch.float32, torch.int8, torch.float8_e4m3fn)
                for group in (1, 2)]
     # head dim 128 (twice the heads over the same width): the decode
@@ -468,6 +498,7 @@ def phase_kernel_b(torch, dev, flush):
                     "lens": lens_list, "variant": variant,
                     "splits": plan.splits,
                     "pages_per_split": plan.pages_per_split,
+                    "rows": plan.rows, "row_tiles": plan.row_tiles,
                     "blocks": plan.blocks, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "device_ms": dev_ms,
@@ -519,20 +550,23 @@ def _prompts():
     return out
 
 
-def _predictor(sym, params, plain, dev):
+def _predictor(sym, params, plain, dev, **kw):
     from mxnet_tpu_torch.decode import DecodePredictor
 
     return DecodePredictor(sym, params, cache_len=SEQ, device=dev,
                            paged=True, kv_dtype="int8",
                            page_tokens=PAGE_TOKENS, prefill_chunk=CHUNK,
-                           plain=plain)
+                           plain=plain, **kw)
 
 
-def _serve(torch, pred, prompts):
+def _serve(torch, pred, prompts, **kw):
+    """Serve ``prompts`` through a new DecodeServer (``kw``: its
+    speculation and seed arguments); returns (results, wall s,
+    stats)."""
     from mxnet_tpu_torch.decode import DecodeServer
 
     srv = DecodeServer(pred, max_prefill=max(PROMPT_LENS), slots=SLOTS,
-                       max_new_tokens=MAX_NEW)
+                       max_new_tokens=MAX_NEW, **kw)
     for p in prompts:
         srv.submit(p)
     torch.cuda.synchronize()
@@ -727,7 +761,273 @@ def phase_serve(torch, dev):
     log("serve: " + json.dumps(serve))
     log("profile: " + json.dumps(profile))
     log("eager profile: " + json.dumps(e_profile))
-    return serve, launches
+    return serve, launches, (sym, params, results)
+
+
+def _launch_counts():
+    from mxnet_tpu_torch.ops import decode_kernel as dk
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+
+    return {"fused_fwd": fk.LAUNCHES["fused_fwd"],
+            "paged_decode": dk.LAUNCHES["paged_decode"],
+            "paged_combine": dk.LAUNCHES["paged_combine"]}
+
+
+def _spec_reading(stats):
+    """Steps and acceptance of a speculative serve: decode and verify
+    steps, chunks, drafted and accepted tokens, and the tokens a verify
+    step commits, per active slot (1 + k x accept rate) and in all."""
+    spec = stats["spec_steps"]
+    slot_steps = stats["proposed"] / SPEC_K
+    return {"decode_steps": stats["steps"] - spec, "verify_steps": spec,
+            "chunks": stats["chunks"], "proposed": stats["proposed"],
+            "accepted": stats["accepted"],
+            "accept_rate": stats["accept_rate"],
+            "tokens_per_verify_step_per_slot":
+                1.0 + SPEC_K * stats["accept_rate"],
+            "tokens_per_verify_step":
+                (stats["accepted"] + slot_steps) / spec if spec else None}
+
+
+def _first_rejection(torch, pred):
+    """Wrap ``pred.paged_verify`` to record the first window in which an
+    active row rejected a draft: row, position, the draft, the token the
+    target emitted there and the target's top-2 log-probability gap."""
+    real = pred.paged_verify
+    seen = {}
+
+    def spy(state, lens_h, drafts, draft_probs=None, generator=None,
+            active=None):
+        out = real(state, lens_h, drafts, draft_probs, generator, active)
+        if not seen:
+            counts = out[2].cpu().numpy()
+            act = np.ones(len(counts)) if active is None \
+                else np.asarray(active)
+            bad = [r for r in range(len(counts))
+                   if act[r] and counts[r] < SPEC_K + 1]
+            if bad:
+                r, i = bad[0], int(counts[bad[0]]) - 1
+                top = torch.log(pred.verify_probs[r, i].double()).topk(2)
+                seen.update(row=r, position=i,
+                            draft=int(np.asarray(drafts[r, i].cpu()
+                                                 if torch.is_tensor(drafts)
+                                                 else drafts[r, i])),
+                            emitted=int(out[1][r, i]),
+                            top2=top.indices.tolist(),
+                            top2_logp_gap=float(top.values[0]
+                                                - top.values[1]))
+        return out
+
+    pred.paged_verify = spy
+    return seen
+
+
+def phase_serve_spec(torch, dev, base):
+    """The serve cell with speculation: the same model and requests,
+    spec_k 8 with the n-gram proposer, captured (timed), under
+    programs.eager(), and with the plain versions; then a teacher-forced
+    verify against the plain predictor, a self-draft serve and a sampled
+    serve."""
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.decode import DecodePredictor, NGramProposer
+    from mxnet_tpu_torch.ops import decode_kernel as dk
+
+    sym, params, base_results = base
+    prompts = _prompts()
+    spec = dict(proposer=NGramProposer(SPEC_K, SPEC_NGRAM))
+    pred = _predictor(sym, params, False, dev)
+    report = pred.prepare_programs(SLOTS, CHUNK, spec_k=SPEC_K)
+    keys = pred.program_fingerprints(SLOTS, CHUNK, spec_k=SPEC_K)
+    log("serve spec: prepare_programs: " + json.dumps(report))
+    log("serve spec: program fingerprints: " + json.dumps(keys))
+    if "verify" not in report["programs"] or "verify" not in keys \
+            or report["programs"]["verify"]["source"] != "capture":
+        raise AssertionError("prepare_programs did not capture verify: %s"
+                             % report)
+    _serve(torch, pred, [p[:64] for p in prompts[:2]], **spec)
+
+    def counted(p, **kw):
+        before = _launch_counts()
+        replays = programs.GRAPH_STATS["replays"]
+        out = _serve(torch, p, prompts, **dict(spec, **kw))
+        after = _launch_counts()
+        return out + ({n: after[n] - before[n] for n in after},
+                      programs.GRAPH_STATS["replays"] - replays)
+
+    results, wall, stats, launches, replays = counted(pred)
+    reading = _spec_reading(stats)
+    log("serve spec launches: %s replays: %d %s"
+        % (launches, replays, json.dumps(reading)))
+    # 1. greedy speculation emits the non-speculative serve's tokens
+    diff = [r for r in base_results
+            if not np.array_equal(results[r], base_results[r])]
+    if diff:
+        raise AssertionError("speculative tokens differ from the serve's "
+                             "for requests %s" % diff)
+    # 4. counters
+    if stats["spec_steps"] <= 0 or min(launches.values()) <= 0:
+        raise AssertionError("no verify step or a kernel not launched: %s "
+                             "%s" % (reading, launches))
+    if replays < reading["decode_steps"] + reading["verify_steps"] \
+            + reading["chunks"]:
+        raise AssertionError("%d replays for %s" % (replays, reading))
+    # 2. the eager bodies: the same tokens and launches
+    with programs.eager():
+        e_results, e_wall, e_stats, e_launches, _ = counted(pred)
+    if any(not np.array_equal(results[r], e_results[r]) for r in results):
+        raise AssertionError("speculative tokens of the captured and eager "
+                             "runs differ")
+    if e_launches != launches:
+        raise AssertionError("launches of the captured speculative run %s "
+                             "!= the eager run's %s" % (launches,
+                                                        e_launches))
+    # 3. the plain versions (eager)
+    plain = _predictor(sym, params, True, dev)
+    with programs.eager():
+        p_results, p_wall, _ = _serve(torch, plain, prompts, **spec)
+    agree = float(np.mean([np.mean(results[r] == p_results[r])
+                           for r in results]))
+    if not agree >= MIN_GREEDY_AGREEMENT:
+        raise AssertionError("speculative greedy tokens of the kernel and "
+                             "plain runs agree at %.4f < %.4f"
+                             % (agree, MIN_GREEDY_AGREEMENT))
+
+    # 5. teacher-forced verify: the kernel run's tokens as the drafts
+    batch = np.zeros((SLOTS, max(PROMPT_LENS[:SLOTS])), np.float32)
+    for i in range(SLOTS):
+        batch[i, :PROMPT_LENS[i]] = prompts[i]
+    lens = np.asarray(PROMPT_LENS[:SLOTS])
+    ks, _ = pred.prefill(batch, lens)
+    with programs.eager():
+        ps, _ = plain.prefill(batch, lens)
+    done = np.ones(SLOTS, np.int64)     # tokens committed past the prompt
+    worst, tf_counts = 0.0, []
+    replays_tf = programs.GRAPH_STATS["replays"]
+    for _ in range(3):
+        drafts = np.stack([results[i][done[i]:done[i] + SPEC_K]
+                           for i in range(SLOTS)]).astype(np.int32)
+        lens_k, lens_p = pred._paged_lens.copy(), plain._paged_lens.copy()
+        ks, _, kc = pred.verify_step(ks, drafts)
+        kp = pred.verify_probs.double()
+        kc = kc.cpu().numpy()
+        with programs.eager():
+            ps, _, pc = plain.verify_step(ps, drafts)
+        pc = pc.cpu().numpy()
+        if not (bool(torch.isfinite(kp).all())
+                and tuple(kp.shape) == (SLOTS, SPEC_K + 1, VOCAB)):
+            raise AssertionError("bad verify probabilities")
+        worst = max(worst, float((torch.log(kp) - torch.log(
+            plain.verify_probs.double())).abs().max()))
+        if not np.array_equal(kc, pc) or not np.array_equal(lens_k, lens_p):
+            raise AssertionError("teacher-forced verify counts %s != the "
+                                 "plain run's %s" % (kc, pc))
+        tf_counts.append(kc.tolist())
+        done += kc
+    if programs.GRAPH_STATS["replays"] - replays_tf < 3:
+        raise AssertionError("the teacher-forced verify steps did not "
+                             "replay the captured program")
+    if not worst <= TOL_LOGP:
+        raise AssertionError("teacher-forced verify |log p_kernel - log "
+                             "p_plain| %.3g > %.3g" % (worst, TOL_LOGP))
+    # kernel B's variant at the verify window (an eager verify: a replay
+    # runs no Python)
+    dk.LAST_VARIANT["paged_decode"] = None
+    with programs.eager():
+        pred.verify_step(ks, np.zeros((SLOTS, SPEC_K), np.int32))
+    verify_variant = dk.LAST_VARIANT["paged_decode"]
+    if verify_variant != "decode":
+        raise AssertionError("kernel B ran %r at the verify window"
+                             % verify_variant)
+    # the device time of one verify step and one decode step (replays,
+    # from the teacher-forced state) by kernel
+    zeros = np.zeros((SLOTS, SPEC_K), np.int32)
+    step_ms = {
+        "verify": _device_parts(torch, lambda: pred.verify_step(ks, zeros),
+                                STEP_PARTS),
+        "decode": _device_parts(torch, lambda: pred.step(ks), STEP_PARTS)}
+    if all(isinstance(v["all"], float) for v in step_ms.values()):
+        step_ms["verify_over_decode"] = step_ms["verify"]["all"] \
+            / step_ms["decode"]["all"]
+    log("serve spec step device ms: " + json.dumps(step_ms))
+
+    # 6. self-draft: a dense int8 predictor of the same weights drafts
+    draft = DecodePredictor(sym, params, cache_len=SEQ, device=dev,
+                            kv_dtype="int8")
+    rejected = _first_rejection(torch, pred)
+    d_results, d_wall, d_stats = _serve(torch, pred, prompts,
+                                        spec_k=SPEC_K, draft=draft)
+    del pred.paged_verify
+    d_reading = _spec_reading(d_stats)
+    log("serve spec self-draft: %s first rejection: %s wall %.5f s"
+        % (json.dumps(d_reading), json.dumps(rejected or None), d_wall))
+    if any(not np.array_equal(d_results[r], base_results[r])
+           for r in base_results):
+        raise AssertionError("self-draft tokens differ from the serve's")
+    if d_stats["accept_rate"] != 1.0 or d_stats["spec_steps"] <= 0:
+        raise AssertionError("self-draft accept rate %r (first rejection "
+                             "%s)" % (d_stats["accept_rate"], rejected))
+
+    # 7. sampled speculation: the same seed twice, tokens in the top 8
+    hot = _predictor(sym, params, False, dev,
+                     temperature=SAMPLE_TEMPERATURE, top_k=SAMPLE_TOP_K)
+    hot.prepare_programs(SLOTS, CHUNK, spec_k=SPEC_K)
+    s_runs = [_serve(torch, hot, prompts, seed=SAMPLE_SEED, **spec)
+              for _ in range(2)]
+    if any(not np.array_equal(s_runs[0][0][r], s_runs[1][0][r])
+           for r in s_runs[0][0]):
+        raise AssertionError("two sampled speculative serves from one "
+                             "seed differ")
+    with programs.eager():
+        ps, probs = plain.prefill(batch, lens)
+        outside = 0
+        for step in range(MAX_NEW):
+            tok = np.array([s_runs[0][0][i][step] for i in range(SLOTS)])
+            top = torch.topk(probs, SAMPLE_TOP_K, dim=-1).indices
+            outside += int((~(top == torch.from_numpy(tok).to(dev)[:, None])
+                            .any(dim=-1)).sum())
+            if step + 1 < MAX_NEW:
+                forced = torch.from_numpy(tok[:, None].astype(np.int32))
+                ps, probs = plain.step(ps._replace(tok=forced.to(dev)))
+    s_reading = dict(_spec_reading(s_runs[0][2]), wall_s=s_runs[0][1],
+                     tokens_outside_top_k=outside)
+    log("serve spec sampled: " + json.dumps(s_reading))
+    if outside:
+        raise AssertionError("%d sampled speculative tokens outside the "
+                             "top %d" % (outside, SAMPLE_TOP_K))
+
+    tokens = sum(len(t) for t in results.values())
+    profile = _profile(torch, lambda: _serve(torch, pred, prompts,
+                                             **spec)[1],
+                       groups=SERVE_KERNEL_GROUPS)
+    with programs.eager():
+        e_profile = _profile(torch, lambda: _serve(torch, pred, prompts,
+                                                   **spec)[1],
+                             groups=SERVE_KERNEL_GROUPS)
+    traces = pred.trace_counts
+    log("serve spec trace_counts: " + json.dumps(traces))
+    if (traces["verify"], traces["chunk"], traces["commit"]) != (1, 1, 1) \
+            or traces["decode"] > 1 or traces["fork"] > 1:
+        raise AssertionError("the speculative serve captured its programs "
+                             "again: %s" % traces)
+    out = {"requests": len(prompts), "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ttft_p50_s": stats.get("ttft_p50_s"),
+           "ttft_p95_s": stats.get("ttft_p95_s"),
+           "replays": replays,
+           "captured": _serve_reading(stats, wall, tokens, profile),
+           "eager": _serve_reading(e_stats, e_wall, tokens, e_profile),
+           "plain_wall_s": p_wall, "plain_tokens_per_s": tokens / p_wall,
+           "greedy_token_agreement": agree,
+           "teacher_forced_verify_max_abs_dlogp": worst,
+           "teacher_forced_verify_counts": tf_counts,
+           "verify_variant": verify_variant, "step_device_ms": step_ms,
+           "self_draft": dict(d_reading, wall_s=d_wall),
+           "sampled": s_reading, "launches": launches}
+    out.update(reading)
+    log("serve spec: " + json.dumps(out))
+    log("serve spec profile: " + json.dumps(profile))
+    log("serve spec eager profile: " + json.dumps(e_profile))
+    return out, launches
 
 
 def _check_close(what, got, want, tol):
@@ -1605,7 +1905,11 @@ def main():
     b1_cases = phase_kernel_b1(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    serve, launches = phase_serve(torch, dev)
+    serve, launches, base = phase_serve(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, spec_launches = phase_serve_spec(torch, dev, base)
+    del base
     # a predictor and its programs reference each other (each program
     # holds a bound method): collect them, their buffers and their
     # graphs' memory pool before training
@@ -1618,12 +1922,20 @@ def main():
     resnet, resnet_launches = phase_train_resnet(torch, dev)
 
     # one line per kernel at its main serving shape: A at decode ffn1
-    # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1)
+    # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
+    # A's and B's entries carry their cases at the verify window too
     a_main = next(c for c in a_cases if c["dtype"] == "float32"
                   and c["m"] == 4 and c["n"] == 4096)
+    a_verify = [c for c in a_cases if c["m"] == VERIFY_M]
     b_main = next(c for c in b_cases if c["pool"] == "int8"
                   and c["head_dim"] == EMBED // HEADS
                   and c["group"] == 1 and c["tq"] == 1)
+    b_verify = next(c for c in b_cases if c["tq"] == SPEC_K + 1)
+
+    def brief(c, *keys):
+        return {k: c[k] for k in keys + (
+            "variant", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bound_share", "device_ms")}
     # C, D, E at (64, 2048, 128) f32 G=1; F at ffn1 (m=16384, 1024->4096)
     # f32: the training step's shapes
     cde_main = {name: next(c for c in cases if c["dtype"] == "float32"
@@ -1631,7 +1943,8 @@ def main():
                 for name, cases in cde_cases.items()}
     f_main = next(c for c in f_cases if c["dtype"] == "float32"
                   and c["n"] == FFN)
-    a_launch = launches["fused_fwd"] + train_launches["fused_fwd"]
+    a_launch = launches["fused_fwd"] + spec_launches["fused_fwd"] \
+        + train_launches["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -1640,26 +1953,35 @@ def main():
              shape="m=4 k=1024 n=4096 float32",
              variant=a_main["variant"],
              launches_by_path={"serve": launches["fused_fwd"],
+                               "serve_spec": spec_launches["fused_fwd"],
                                "train": train_launches["fused_fwd"]},
+             verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
         dict(_entry("paged_flash_decode",
                     "mxnet_tpu_torch/csrc/paged_decode.cu",
                     "mxnet_tpu/ops/pallas_decode.py:169",
-                    launches["paged_decode"], b_main),
+                    launches["paged_decode"] + spec_launches["paged_decode"],
+                    b_main),
              shape="B=4 tq=1 H=4 hd=256 int8 pages lens=%s"
              % b_main["lens"],
              variant=b_main["variant"], splits=b_main["splits"],
-             launches_by_path={"serve": launches["paged_decode"]},
+             launches_by_path={"serve": launches["paged_decode"],
+                               "serve_spec": spec_launches["paged_decode"]},
+             verify_case=brief(b_verify, "tq", "lens", "splits", "rows",
+                               "row_tiles"),
              max_abs_err_all_cases=max(c["max_abs_err"] for c in b_cases)),
         dict(_entry("paged_split_combine",
                     "mxnet_tpu_torch/csrc/paged_decode.cu",
                     "mxnet_tpu/ops/pallas_decode.py:354",
-                    launches["paged_combine"],
+                    launches["paged_combine"]
+                    + spec_launches["paged_combine"],
                     dict(b_main["combine"], library_ms=None,
                          device_ms=b_main["combine"]["device_ms"])),
              shape="B=4 tq=1 H=4 hd=256, %d splits (%d seen)"
              % (b_main["splits"], b_main["combine"]["splits_seen"]),
-             launches_by_path={"serve": launches["paged_combine"]},
+             launches_by_path={"serve": launches["paged_combine"],
+                               "serve_spec": spec_launches["paged_combine"]},
+             verify_case=b_verify["combine"],
              max_abs_err_all_cases=max(c["combine"]["max_abs_err"]
                                        for c in b_cases)),
     ]

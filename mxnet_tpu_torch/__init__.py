@@ -4,8 +4,9 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
 
 * paged, KV-cached serving of ``models.attention_lm``: the symbol layer,
   the ops the model uses, :mod:`~mxnet_tpu_torch.decode`
-  (``DecodePredictor`` / ``DecodeServer``), its serving programs
-  captured as CUDA graphs (:mod:`~mxnet_tpu_torch.programs`);
+  (``DecodePredictor`` / ``DecodeServer``) with speculative decoding
+  (``NGramProposer`` / ``DraftProposer``, the verify step), its serving
+  programs captured as CUDA graphs (:mod:`~mxnet_tpu_torch.programs`);
 * training through ``Module`` (:mod:`~mxnet_tpu_torch.module`,
   ``executor``, ``train_step``, ``optimizer``, ``lr_scheduler``,
   ``initializer``, ``metric``, ``io``, ``ndarray``) of

@@ -104,6 +104,15 @@ register("MXNET_PREFILL_CHUNK", int, 0,
          "Chunk width for paged-mode prefill: prompts are admitted in "
          "chunks of this many tokens, interleaved with decode steps.  0 "
          "(default) prefills each prompt's tail in one chunk.")
+register("MXNET_SPEC_K", int, 0,
+         "Tokens drafted per speculative-decoding step (decode.DecodeServer "
+         "/ DecodePredictor.generate_speculative): a proposer drafts k "
+         "tokens, one verify pass through the target scores all k+1 "
+         "positions and the acceptance-rejection rule keeps the output "
+         "distribution the target's.  0 (default) disables speculation.")
+register("MXNET_SPEC_NGRAM", int, 2,
+         "Suffix length the n-gram proposer (decode.NGramProposer) matches "
+         "against each sequence's own history.")
 register("MXNET_DECODE_MAX_NEW", int, 256,
          "Default cap on generated tokens per request in the serving loop "
          "when the caller gives no explicit max_new_tokens.")

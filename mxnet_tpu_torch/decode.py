@@ -8,7 +8,11 @@ modes over one graph walk (:meth:`DecodePredictor._run`):
   ``dot_product_attention`` node's K/V into a ring-buffer cache (dense
   mode), or chunked prefill through the page pools (paged mode);
 * **decode step** — one token per call: append its K/V, attend the query
-  against the cache with a length mask, sample the next token.
+  against the cache with a length mask, sample the next token;
+* **verify step** — speculative decoding: append the last token and k
+  drafted tokens, score all k+1 positions in one pass, accept a prefix
+  of the drafts and draw one more token (:func:`~mxnet_tpu_torch.ops.
+  sample.speculative_accept`); rejection rolls back the lengths only.
 
 Every ``FusedLNLinear`` node runs kernel A and every cached attention
 runs kernel B on the card (their plain PyTorch versions on the CPU, or
@@ -25,13 +29,19 @@ page tables owned by :class:`~mxnet_tpu_torch.serve.PagedKVManager`
 :class:`DecodeServer` is the serving loop: ``slots`` sequences decode as
 one fixed-width batch; finished ones retire and free slots refill from
 the queue.  The paged loop interleaves one prefill chunk of the admitting
-request with each decode step.
+request with each decode step.  With speculation armed (``spec_k`` /
+``MXNET_SPEC_K``, a ``proposer`` or a ``draft`` predictor) each step
+is a verify step over k drafts per slot from :class:`NGramProposer`
+(n-gram lookup in each request's own history) or
+:class:`DraftProposer` (a small dense predictor); greedy speculation
+emits exactly the target's greedy tokens.
 
 Paged serving runs as compiled programs (:mod:`~mxnet_tpu_torch.programs`):
-the decode step (``paged_decode_step``), the prefill chunk
-(``prefill_chunk``, one per chunk width), the slot commit
-(``slot_commit``) and the copy-on-write page fork (``page_fork``) are
-each a :class:`~mxnet_tpu_torch.programs.GraphProgram` — on the card a
+the decode step (``paged_decode_step``), the speculative verify step
+(``paged_verify_step``), the prefill chunk (``prefill_chunk``, one per
+chunk width), the slot commit (``slot_commit``) and the copy-on-write
+page fork (``page_fork``) are each a
+:class:`~mxnet_tpu_torch.programs.GraphProgram` — on the card a
 CUDA graph captured once per argument signature and replayed on every
 later call, as the JAX package jits each once.  :attr:`DecodePredictor.
 trace_counts` counts the captures under the JAX package's keys, and
@@ -40,9 +50,9 @@ first request.  The graphs bake in pointers, so the predictor keeps one
 set of pools and state buffers per (slots, pool pages), zeroed in place
 by :meth:`DecodePredictor.paged_batch_state`; page tables and activity
 masks live in device buffers refreshed only when they change.  The
-dense (ring-buffer) predictor runs eagerly.  Speculative decoding (and
-its verify program), page extract / install, the mesh plan, the fleet
-layer, swap/preemption, metrics and roofline hooks are not ported yet.
+dense (ring-buffer) predictor, its verify step included, runs eagerly.
+Page extract / install, the mesh plan, the fleet layer,
+swap/preemption, metrics and roofline hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -61,13 +71,15 @@ from . import programs as _programs
 from .base import MXNetError
 from .context import resolve_device
 from .ops import attention as _attn
-from .ops.sample import is_greedy_policy, sample_tokens
+from .ops.sample import (is_greedy_policy, policy_logits, sample_tokens,
+                         speculative_accept)
 from .programs import GraphPool, GraphProgram, ProgramSpec
 from .registry import OpContext
 from .serve import PagedKVManager
 from .weights import to_tensors
 
-__all__ = ["DecodePredictor", "DecodeServer", "DecodeState"]
+__all__ = ["DecodePredictor", "DecodeServer", "DecodeState",
+           "DraftProposer", "NGramProposer"]
 
 # MXNET_KV_DTYPE spellings -> storage dtypes
 _KV_DTYPES = {
@@ -229,6 +241,9 @@ class DecodePredictor:
         self._gen = None              # see _sampling_generator
         self._program_specs = {}      # kind -> ProgramSpec (owned here)
         self._prepared = None         # the last prepare_programs report
+        # the (B, k+1, V) target probabilities of the last verify step
+        # (paged: valid until the next program call)
+        self.verify_probs = None
         if self._paged:
             # the serving programs share one graph memory pool; each
             # binds the predictor's own buffers (pools, lens, tok,
@@ -236,6 +251,9 @@ class DecodePredictor:
             pool = GraphPool()
             self._decode_fn = GraphProgram(
                 "paged_decode_step", self._decode_body, bind=range(5),
+                pool=pool)
+            self._verify_fn = GraphProgram(
+                "paged_verify_step", self._verify_body, bind=range(5),
                 pool=pool)
             self._chunk_fn = GraphProgram("prefill_chunk", self._chunk_body,
                                           bind=(0,), pool=pool)
@@ -384,6 +402,29 @@ class DecodePredictor:
         return sample_tokens(logits, self._temperature, self._top_k,
                              generator)[:, None]
 
+    def _policy_probs(self, probs):
+        """The distribution :meth:`_sample` draws from, as probability
+        vectors: the softmax of the same ``policy_logits`` (what the
+        speculative acceptance rule compares against)."""
+        logits = torch.log(probs.float() + 1e-30)
+        return torch.softmax(
+            policy_logits(logits, self._temperature, self._top_k), dim=-1)
+
+    def _accept(self, probs3, draft_toks, draft_probs, generator):
+        """``speculative_accept`` over a verify window's (B, k+1, V)
+        probabilities under the predictor's sampling policy."""
+        greedy = self._greedy
+        pi = probs3 if greedy else self._policy_probs(probs3)
+        return speculative_accept(pi, draft_toks, draft_probs,
+                                  greedy=greedy, generator=generator)
+
+    def _draft_tensor(self, draft_toks):
+        """(B, k) int32 drafts: host numpy as a host tensor (a program
+        copies it in), a tensor as it is."""
+        if isinstance(draft_toks, torch.Tensor):
+            return draft_toks.to(torch.int32)
+        return torch.from_numpy(np.ascontiguousarray(draft_toks, np.int32))
+
     # ------------------------------------------------------------------
     # paged mode
     # ------------------------------------------------------------------
@@ -507,6 +548,47 @@ class DecodePredictor:
         lens.add_(act)
         return probs
 
+    def paged_verify(self, state, lens_h, draft_toks, draft_probs=None,
+                     generator=None, active=None):
+        """One paged speculative verify step (the verify program; see
+        :meth:`verify_step`): positions [lens, lens + k + 1) of every
+        active row are made writable first (page allocation and forks
+        run here, outside the program).  Rows with ``active`` 0 commit
+        no token and keep theirs.  Returns ``(state', out_toks (B, k+1),
+        counts (B,))``; the caller advances ``lens_h`` by the counts.
+        ``out_toks``, ``counts`` and :attr:`verify_probs` are valid
+        until the next program call."""
+        draft = self._draft_tensor(draft_toks)
+        tables, act = self.paged_prepare(state, lens_h, draft.shape[1] + 1,
+                                         active)
+        live = self._live
+        for mine, given in ((live.lens, state.lens), (live.tok, state.tok)):
+            if given is not mine:
+                mine.copy_(given)
+        out, counts, self.verify_probs = self._verify_fn(
+            state.caches, live.lens, live.tok, tables, act, draft,
+            draft_probs, generator)
+        return DecodeState(state.caches, live.lens, live.tok), out, counts
+
+    def _verify_body(self, caches, lens, tok, tables, act, draft_toks,
+                     draft_probs, generator):
+        """The verify program: append the last token and the k drafts
+        of every row (inactive rows write the scratch page), score the
+        k+1 positions, accept; active rows advance by their counts."""
+        k = draft_toks.shape[1]
+        toks_in = torch.cat([tok, draft_toks.to(tok.dtype)], dim=1)
+        probs3, _ = self._run(toks_in, caches, lens, tables=tables,
+                              active=act)
+        counts, out = self._accept(probs3, draft_toks, draft_probs,
+                                   generator)
+        on = act.bool()
+        counts = torch.where(on, counts, 0)
+        last = torch.gather(out, 1, torch.clamp(counts.long() - 1, 0,
+                                                k)[:, None])
+        tok.copy_(torch.where(on[:, None], last, tok))
+        lens.add_(counts)
+        return out, counts, probs3
+
     def _chunk(self, caches, slot, toks, pos0, width, generator=None):
         """One fixed-width prefill chunk for one slot (the chunk
         program): append the chunk's K/V at [pos0, pos0 + len(toks)) of
@@ -615,8 +697,9 @@ class DecodePredictor:
     @property
     def trace_counts(self):
         """Captures per program kind under the JAX package's keys (one
-        per argument signature; ``prefill``, ``verify``, ``extract`` and
-        ``install`` have no program here and stay 0)."""
+        per argument signature: ``verify`` counts one for deterministic
+        drafts and one for drafts with probabilities; ``prefill``,
+        ``extract`` and ``install`` have no program here and stay 0)."""
         out = dict.fromkeys(_TRACE_KINDS, 0)
         for kind, prog in self._programs().items():
             out[kind] = prog.traces
@@ -627,7 +710,8 @@ class DecodePredictor:
         if not self._paged:
             return {}
         return {"chunk": self._chunk_fn, "decode": self._decode_fn,
-                "commit": self._commit_fn, "fork": self._fork_fn}
+                "verify": self._verify_fn, "commit": self._commit_fn,
+                "fork": self._fork_fn}
 
     def _sampling_generator(self, seed=None):
         """The predictor's one generator for sampled decoding (the
@@ -658,10 +742,11 @@ class DecodePredictor:
                 blob.encode(), digest_size=16).hexdigest()
         return d
 
-    def _serving_args(self, slots, chunk_w=None):
+    def _serving_args(self, slots, chunk_w=None, spec_k=0):
         """Each paged program's arguments at batch width ``slots`` as
         ``meta`` tensors (shapes and dtypes only: no pool is allocated
-        and nothing runs)."""
+        and nothing runs); the verify program's only when ``spec_k`` is
+        set (deterministic drafts)."""
         if not self._paged:
             raise MXNetError("serving programs need a paged predictor")
         slots = int(slots)
@@ -676,7 +761,7 @@ class DecodePredictor:
 
         env = {n: meta(*v.shape, dtype=v.dtype) for n, v in self._env.items()}
         cw = int(chunk_w or self._prefill_chunk or self._cache_len)
-        return {
+        out = {
             "chunk": (env, caches, meta(1, m),
                       meta(1, cw, dtype=torch.float32), meta(2)),
             "decode": (env, caches, meta(slots), meta(slots, 1),
@@ -684,6 +769,11 @@ class DecodePredictor:
             "commit": (meta(slots), meta(slots, 1), meta(2), meta(1, 1)),
             "fork": (caches, meta(2, dtype=torch.int64)),
         }
+        if spec_k:
+            out["verify"] = (env, caches, meta(slots), meta(slots, 1),
+                             meta(slots, m), meta(slots),
+                             meta(slots, int(spec_k)), None)
+        return out
 
     def _program_spec(self, kind, args):
         """The :class:`~mxnet_tpu_torch.programs.ProgramSpec` of one paged
@@ -700,29 +790,31 @@ class DecodePredictor:
                            trace_count=lambda p=prog: p.traces,
                            device=self._device, fingerprint_extra=extra)
 
-    def program_fingerprints(self, slots, chunk_w=None):
-        """kind -> content address of each paged program at this sizing:
-        equal keys across hosts mean the same programs on the same
-        kernels."""
+    def program_fingerprints(self, slots, chunk_w=None, spec_k=0):
+        """kind -> content address of each paged program at this sizing
+        (the verify program's with ``spec_k``): equal keys across hosts
+        mean the same programs on the same kernels."""
         return {kind: self._program_spec(kind, args).fingerprint(args)
-                for kind, args in self._serving_args(slots,
-                                                    chunk_w).items()}
+                for kind, args in self._serving_args(slots, chunk_w,
+                                                    spec_k).items()}
 
-    def prepare_programs(self, slots, chunk_w=None):
-        """Capture every paged program at batch width ``slots`` (and
-        chunk width ``chunk_w``) before the first request, each driven
-        once on inert inputs (inactive rows, no valid chunk token:
-        every write lands in the scratch page), then zero the state.
-        Registers each program's spec.  Returns the readiness report
-        ``{"signature", "programs": {kind: {"name", "source", "key",
-        "seconds"}}, "wall_s"}``: ``source`` is "capture", or "resident"
-        for a program captured before.  Idempotent per signature."""
+    def prepare_programs(self, slots, chunk_w=None, spec_k=0):
+        """Capture every paged program at batch width ``slots`` (chunk
+        width ``chunk_w``; with ``spec_k``, the verify program over
+        ``spec_k`` deterministic drafts) before the first request, each
+        driven once on inert inputs (inactive rows, zero drafts, no
+        valid chunk token: every write lands in the scratch page), then
+        zero the state.  Registers each program's spec.  Returns the
+        readiness report ``{"signature", "programs": {kind: {"name",
+        "source", "key", "seconds"}}, "wall_s"}``: ``source`` is
+        "capture", or "resident" for a program captured before.
+        Idempotent per signature (slots, chunk width, spec_k)."""
         cw = int(chunk_w or self._prefill_chunk or self._cache_len)
-        sig = (int(slots), cw)
+        sig = (int(slots), cw, int(spec_k or 0))
         if self._prepared is not None and self._prepared["signature"] == sig:
             return self._prepared
         t_all = time.perf_counter()
-        avals = self._serving_args(slots, cw)
+        avals = self._serving_args(slots, cw, spec_k)
         state = self.paged_batch_state(slots)
         live = self._live
         gen = self._sampling_generator()
@@ -735,6 +827,10 @@ class DecodePredictor:
             "decode": lambda: self._decode_fn(
                 state.caches, live.lens, live.tok, live.tables, live.act,
                 gen),
+            "verify": lambda: self._verify_fn(
+                state.caches, live.lens, live.tok, live.tables, live.act,
+                torch.zeros((int(slots), int(spec_k)), dtype=torch.int32),
+                None, gen),
             "commit": lambda: self._commit_fn(
                 live.lens, live.tok, torch.zeros((2,), dtype=torch.int32),
                 torch.zeros((1, 1), dtype=torch.int32, device=dev)),
@@ -809,6 +905,112 @@ class DecodePredictor:
         return DecodeState(caches, state.lens + 1,
                            self._sample(probs, generator)), probs
 
+    def verify_step(self, state, draft_toks, draft_probs=None,
+                    generator=None):
+        """One speculative step: verify k drafted tokens in one forward
+        pass and commit the accepted prefix plus one drawn token.
+
+        ``draft_toks`` (B, k) int32 (numpy or a tensor); ``draft_probs``
+        (B, k, V), the distributions they were drawn from, or None for a
+        deterministic proposer.  Returns ``(state', out_toks, counts)``:
+        ``out_toks`` (B, k+1) are the emitted tokens, valid through
+        ``counts`` (B,) in [1, k+1]; ``state'.tok`` is the last emitted
+        token and ``state'.lens`` advanced by ``counts`` (rejected
+        entries stay in the cache, masked, until overwritten).  The
+        caller keeps the window inside the ring: ``lens + k + 1 <=
+        cache_len`` for every row.  In paged mode this is the verify
+        program and the host lengths advance by the counts it reads
+        back; the dense predictor runs it eagerly and consumes
+        ``state`` as :meth:`step` does."""
+        if self._paged:
+            out = self.paged_verify(state, self._paged_lens, draft_toks,
+                                    draft_probs, generator)
+            self._paged_lens += out[2].cpu().numpy().astype(np.int64)
+            return out
+        draft = self._draft_tensor(draft_toks).to(self._device)
+        toks_in = torch.cat([state.tok.to(torch.int32), draft], dim=1)
+        probs3, caches = self._run(toks_in, state.caches, state.lens)
+        self.verify_probs = probs3
+        counts, out = self._accept(probs3, draft, draft_probs, generator)
+        tok = torch.gather(out, 1, (counts.long() - 1)[:, None])
+        return DecodeState(caches, state.lens + counts, tok), out, counts
+
+    def generate_speculative(self, tokens, prompt_len=None,
+                             max_new_tokens=16, seed=0, eos_id=None, k=None,
+                             draft=None, proposer=None):
+        """Speculative :meth:`generate`: a (B, N) int32 array, each loop
+        iteration drafting ``k`` tokens (``MXNET_SPEC_K``, else 4) and
+        committing 1..k+1 of them through one verify step.  With
+        ``eos_id`` a row stops at its EOS: the rest of that window is
+        discarded and the row pads with its last token.  ``draft`` (a
+        dense predictor over the same vocabulary) drafts through a
+        :class:`DraftProposer`; otherwise ``proposer`` or an
+        :class:`NGramProposer`.  Greedy speculation emits exactly the
+        greedy tokens of :meth:`generate`.  Where a window would wrap
+        the ring (or the draft's), plain steps run instead."""
+        if k is None:
+            k = int(_config.get("MXNET_SPEC_K")) or 4
+        k = int(k)
+        if k <= 0:
+            raise MXNetError("speculative k must be positive (got %d)" % k)
+        gen = self._sampling_generator(seed)
+        tokens = np.asarray(tokens)
+        b = tokens.shape[0]
+        if prompt_len is None:
+            prompt_len = tokens.shape[1]
+        lens_h = np.broadcast_to(
+            np.asarray(prompt_len, np.int64).reshape(-1), (b,)).copy()
+        state, _ = self.prefill(tokens, prompt_len, gen)
+        if proposer is None:
+            proposer = DraftProposer(draft, k) if draft is not None \
+                else NGramProposer(k)
+        else:
+            # the proposer's draft width is the verify shape
+            k = int(getattr(proposer, "k", k))
+        dgen = _proposer_generator(proposer, seed)
+        hist = [list(tokens[i, :lens_h[i]].astype(np.int64))
+                for i in range(b)]
+        first = state.tok[:, 0].cpu().numpy()
+        rows = [[int(t)] for t in first]
+        for i in range(b):
+            hist[i].append(int(first[i]))
+        if getattr(proposer, "needs_prefill", False):
+            proposer.start(tokens, prompt_len, dgen)
+        done = np.array([eos_id is not None and rows[i][-1] == eos_id
+                         for i in range(b)])
+        limit = _window_limit(self._cache_len, proposer)
+        while True:
+            live = [i for i in range(b) if len(rows[i]) < max_new_tokens
+                    and not done[i]]
+            if not live:
+                break
+            if max(lens_h[i] for i in live) + k + 1 <= limit:
+                draft_toks, draft_probs = proposer.propose(
+                    hist, state, lens_h, dgen)
+                state, out, counts = self.verify_step(
+                    state, draft_toks, draft_probs, gen)
+                out_h, counts_h = _read_window(out, counts)
+            else:
+                state, _ = self.step(state, gen)
+                out_h = state.tok.cpu().numpy()
+                counts_h = np.ones(b, np.int64)
+            lens_h += counts_h
+            for i in range(b):
+                emitted = [int(t) for t in out_h[i, :counts_h[i]]]
+                # the history holds everything committed to the cache,
+                # a window's tail past an EOS included
+                hist[i].extend(emitted)
+                if i in live:
+                    if eos_id is not None and eos_id in emitted:
+                        emitted = emitted[:emitted.index(eos_id) + 1]
+                        done[i] = True
+                    rows[i].extend(emitted)
+        n = min(max_new_tokens, max(len(r) for r in rows))
+        out = np.zeros((b, n), np.int32)
+        for i in range(b):
+            out[i] = (rows[i] + [rows[i][-1]] * n)[:n]
+        return out
+
     def generate(self, tokens, prompt_len=None, max_new_tokens=16, seed=0,
                  eos_id=None):
         """Prefill + ``max_new_tokens`` decode steps; returns a (B, N)
@@ -851,6 +1053,184 @@ def _empty_batch_state(one, slots):
     return DecodeState(caches, zeros(one.lens), zeros(one.tok))
 
 
+def _window_limit(cache_len, proposer):
+    """The largest length a verify window may reach: the target's ring,
+    and a draft's ring plus one (the draft appends k entries to its
+    own)."""
+    if getattr(proposer, "cache_len", None):
+        return min(cache_len, proposer.cache_len + 1)
+    return cache_len
+
+
+def _read_window(out, counts):
+    """A verify step's (B, k+1) tokens and (B,) counts on the host as
+    int64 numpy, in one device-to-host copy."""
+    both = torch.cat([out, counts[:, None]], dim=1).cpu().numpy()
+    both = both.astype(np.int64)
+    return both[:, :-1], both[:, -1]
+
+
+def _proposer_generator(proposer, seed):
+    """The draft predictor's generator, seeded with ``seed`` (None for a
+    proposer without a predictor, or a greedy draft)."""
+    pred = getattr(proposer, "predictor", None)
+    return pred._sampling_generator(seed) if pred is not None else None
+
+
+class NGramProposer:
+    """Model-free draft proposer: n-gram lookup in each sequence's own
+    history (prompt lookup / self-speculation).
+
+    Matches the last ``ngram`` committed tokens (``MXNET_SPEC_NGRAM``)
+    against the earlier history and proposes the k tokens that followed
+    their most recent earlier occurrence, backing off to shorter
+    suffixes and finally to repeating the last token: always exactly k
+    proposals, so the verify shape stays fixed.  Deterministic, so its
+    proposals need no probabilities (``draft_probs`` None).  Host numpy
+    only: it costs no device work."""
+
+    cache_len = None      # no draft ring to keep inside
+    needs_prefill = False
+
+    def __init__(self, k, ngram=None):
+        self.k = int(k)
+        if self.k <= 0:
+            raise MXNetError("NGramProposer k must be positive")
+        self.ngram = int(ngram) if ngram is not None \
+            else int(_config.get("MXNET_SPEC_NGRAM"))
+        self.ngram = max(1, self.ngram)
+
+    def propose(self, histories, state=None, lens=None, generator=None):
+        """``(draft_toks (B, k) int32 numpy, None)`` for B histories."""
+        out = np.zeros((len(histories), self.k), np.int32)
+        for r, h in enumerate(histories):
+            out[r] = self._row(np.asarray(h, np.int64).reshape(-1))
+        return out, None
+
+    def _row(self, h):
+        k = self.k
+        if h.size == 0:
+            return np.zeros(k, np.int32)
+        for n in range(min(self.ngram, h.size - 1), 0, -1):
+            # every window start with a continuation: the body drops the
+            # last element, which also leaves out the suffix itself
+            body = h[:-1]
+            if body.size < n:
+                continue
+            win = np.lib.stride_tricks.sliding_window_view(body, n)
+            hits = np.flatnonzero((win == h[-n:]).all(axis=1))
+            if hits.size:
+                i = int(hits[-1])            # the most recent match
+                cont = h[i + n:i + n + k]
+                pad = np.full(k - cont.size, cont[-1], np.int64)
+                return np.concatenate([cont, pad]).astype(np.int32)
+        return np.full(k, h[-1], np.int32)
+
+
+class DraftProposer:
+    """Draft-model proposer: k decode steps of a small dense
+    :class:`DecodePredictor` over the same vocabulary.
+
+    The draft keeps its own ring caches in step with the target's
+    committed prefix: each call resumes from the target's (lens, tok),
+    so rejected draft entries sit past ``lens``, masked until the next
+    append overwrites them.  Committed tokens the draft never stepped
+    through (the k-th draft of a fully accepted window, tokens of plain
+    steps near the ring's end) are replayed first, teacher-forced, from
+    the caller's histories (the per-row ``filled`` counters stay on the
+    host).  A greedy draft proposes deterministically (``draft_probs``
+    None); a sampled one returns its per-step sampling distributions."""
+
+    needs_prefill = True
+
+    def __init__(self, predictor, k):
+        if getattr(predictor, "_paged", False):
+            raise MXNetError(
+                "DraftProposer needs a dense-cache DecodePredictor: the "
+                "draft's per-admission prefill would reset a paged "
+                "predictor's page bookkeeping")
+        self._pred = predictor
+        self.k = int(k)
+        if self.k <= 0:
+            raise MXNetError("DraftProposer k must be positive")
+        self.cache_len = predictor.cache_len
+        self._state = None
+        self._filled = None     # (B,) host int64: cache valid through
+
+    @property
+    def predictor(self):
+        return self._pred
+
+    def start(self, tokens, prompt_len, generator=None):
+        """Prefill the draft on the same (B, P) prompt batch (the
+        fixed-batch :meth:`DecodePredictor.generate_speculative`
+        path)."""
+        self._state, _ = self._pred.prefill(tokens, prompt_len, generator)
+        b = self._state.lens.shape[0]
+        self._filled = np.broadcast_to(
+            np.asarray(prompt_len, np.int64).reshape(-1), (b,)).copy()
+
+    def admit(self, tokens, prompt_len, slot, slots, generator=None):
+        """Prefill one request and splice it into draft slot ``slot``
+        (the serving loop's admission)."""
+        one, _ = self._pred.prefill(tokens, prompt_len, generator)
+        if self._state is None:
+            self._state = _empty_batch_state(one, slots)
+            self._filled = np.zeros(slots, np.int64)
+        _insert(self._state, one, slot)
+        self._filled[slot] = int(prompt_len)
+
+    @staticmethod
+    def _hist_tok(histories, pos):
+        """(B, 1) int32 of each row's committed token at ``pos``
+        (clamped: a row past its history replays its last token, which
+        only touches dead cache slots)."""
+        out = np.zeros((len(histories), 1), np.int32)
+        for r, h in enumerate(histories):
+            out[r, 0] = int(h[min(int(pos[r]), len(h) - 1)])
+        return out
+
+    def propose(self, histories, state, lens, generator=None):
+        """Teacher-forced catch-up to the target's committed prefix,
+        then k draft steps; returns ``(draft_toks (B, k), draft_probs
+        (B, k, V) or None)`` on the draft's device.  ``lens`` is the
+        caller's host committed-length vector."""
+        if self._state is None:
+            raise MXNetError("DraftProposer.propose before start()/admit()")
+        pred = self._pred
+        dev = pred.device
+        lens_h = np.broadcast_to(np.asarray(lens, np.int64).reshape(-1),
+                                 (self._state.lens.shape[0],)).copy()
+        # catch-up: replay the committed tokens the draft never saw.  A
+        # row already caught up re-appends its pending token at ``lens``,
+        # the slot the proposal steps below overwrite first
+        cur = np.minimum(self._filled, lens_h)
+        st = self._state
+        for _ in range(int((lens_h - cur).max()) if cur.size else 0):
+            st = DecodeState(
+                st.caches,
+                torch.as_tensor(cur.astype(np.int32), device=dev),
+                torch.as_tensor(self._hist_tok(histories, cur), device=dev))
+            st, _ = pred.step(st, generator)
+            cur = np.minimum(cur + 1, lens_h)
+        # k proposal steps from the target's committed (lens, tok)
+        st = DecodeState(st.caches,
+                         state.lens.to(dev, torch.int32).clone(),
+                         state.tok.to(dev, torch.int32).clone())
+        toks, qs = [], []
+        for _ in range(self.k):
+            st, probs = pred.step(st, generator)
+            toks.append(st.tok)
+            if not pred._greedy:
+                qs.append(pred._policy_probs(probs))
+        self._state = st
+        # the appended inputs [tok, d_1..d_{k-1}] are valid through the
+        # accepted prefix, which the caller's next ``lens`` reveals
+        self._filled = lens_h + self.k
+        return (torch.cat(toks, dim=1),
+                torch.stack(qs, dim=1) if qs else None)
+
+
 def _nearest_rank(values, q):
     """Nearest-rank percentile of a sorted list (None when empty)."""
     if not values:
@@ -869,10 +1249,20 @@ class DecodeServer:
     request at a time in prefill chunks interleaved with decode steps,
     maps prefix-cache hits instead of recomputing them, forks shared pages
     before divergent writes and frees a retiring request's pages at once.
+
+    Speculation: ``spec_k`` (default ``MXNET_SPEC_K``) drafts per slot
+    and step from ``proposer``, else from a :class:`DraftProposer` over
+    ``draft`` (k = ``spec_k`` or 4), else from an :class:`NGramProposer`
+    when ``spec_k`` is set.  Each step then verifies the drafts and
+    commits 1..k+1 tokens a slot; a request that ends inside a window
+    retires at once, the rest of the window discarded.  Plain steps run
+    instead where a window would wrap the ring and, in paged mode,
+    while an admission is mid-prefill.
     """
 
     def __init__(self, predictor, max_prefill, slots=None, eos_id=None,
-                 max_new_tokens=None, seed=0):
+                 max_new_tokens=None, seed=0, spec_k=None, proposer=None,
+                 draft=None):
         self._pred = predictor
         self._max_prefill = int(max_prefill)
         if self._max_prefill > predictor.cache_len:
@@ -891,9 +1281,40 @@ class DecodeServer:
         # admission window
         self._chunk_w = min(int(predictor._prefill_chunk or max_prefill),
                             int(max_prefill))
-        self.steps = 0          # decode steps executed
+        if spec_k is None:
+            spec_k = int(_config.get("MXNET_SPEC_K"))
+        if proposer is not None:
+            spec_k = int(getattr(proposer, "k", spec_k))
+        elif draft is not None:
+            spec_k = int(spec_k) or 4
+            proposer = DraftProposer(draft, spec_k)
+        elif spec_k:
+            proposer = NGramProposer(spec_k)
+        self._spec_k = int(spec_k or 0)
+        self._proposer = proposer
+        if getattr(proposer, "cache_len", None) \
+                and self._max_prefill > proposer.cache_len:
+            raise MXNetError("max_prefill %d exceeds the draft's cache_len "
+                             "%d" % (self._max_prefill, proposer.cache_len))
+        self.steps = 0          # device steps executed (verify included)
+        self.spec_steps = 0     # of which speculative verify steps
         self.chunks = 0         # paged prefill chunks executed
         self.tokens_out = 0     # tokens delivered to finished requests
+        self.proposed = 0       # drafted tokens offered to verify
+        self.accepted = 0       # drafted tokens accepted
+
+    @property
+    def accept_rate(self):
+        """Share of drafted tokens the target accepted."""
+        return self.accepted / max(self.proposed, 1)
+
+    def _note_step(self, spec=False):
+        self.steps += 1
+        self.spec_steps += int(spec)
+
+    def _note_accept(self, proposed, accepted):
+        self.proposed += proposed
+        self.accepted += accepted
 
     def submit(self, tokens, max_new_tokens=None):
         """Queue a prompt (1-D int sequence); returns the request id."""
@@ -945,7 +1366,10 @@ class DecodeServer:
         """Loop counters, time-to-first-token percentiles (seconds from
         submit) and, in paged mode, pool and prefix-cache accounting."""
         done = [r for r in self._req.values() if "retire" in r]
-        out = {"steps": self.steps, "tokens_out": self.tokens_out,
+        out = {"steps": self.steps, "spec_steps": self.spec_steps,
+               "proposed": self.proposed, "accepted": self.accepted,
+               "accept_rate": self.accept_rate,
+               "tokens_out": self.tokens_out,
                "requests_completed": len(done),
                "requests_queued": len(self._queue)}
         if done:
@@ -956,6 +1380,31 @@ class DecodeServer:
             out.update(self._pred._manager.stats())
         return out
 
+    def _verify(self, state, lens_h, active, histories, gen, dgen,
+                act_mask=None):
+        """One speculative step over the batch: propose, verify, deliver
+        each active slot's emitted tokens; returns ``(state', counts)``
+        with counts read back to the host (0 for inactive rows)."""
+        pred = self._pred
+        k = self._spec_k
+        hists = [histories.get(s) or [0] for s in range(self._slots)]
+        draft_toks, draft_probs = self._proposer.propose(hists, state,
+                                                         lens_h, dgen)
+        if act_mask is None:
+            state, out, counts = pred.verify_step(state, draft_toks,
+                                                  draft_probs, gen)
+        else:
+            state, out, counts = pred.paged_verify(
+                state, lens_h, draft_toks, draft_probs, gen, act_mask)
+        out_h, counts_h = _read_window(out, counts)
+        self._note_step(spec=True)
+        for slot, rec in active.items():
+            emitted = out_h[slot, :counts_h[slot]]
+            self._note_accept(k, int(counts_h[slot]) - 1)
+            self._deliver(rec, emitted)
+            histories[slot].extend(int(t) for t in emitted)
+        return state, counts_h
+
     def run(self):
         """Drain the queue; returns ``{request_id: np.int32 array}`` of
         generated tokens (EOS included when hit)."""
@@ -963,16 +1412,22 @@ class DecodeServer:
             return self._run_paged()
         pred = self._pred
         gen = self._generator()
+        proposer = self._proposer
+        dgen = _proposer_generator(proposer, self._seed)
+        k = self._spec_k
+        limit = _window_limit(pred.cache_len, proposer)
         state = None
         active = {}
         results = {}
+        histories = {}      # slot -> committed tokens (proposer food)
+        slot_lens = np.zeros(self._slots, np.int64)
         while self._queue or active:
             # admit: prefill one request per free slot, splice into batch
             while self._queue and len(active) < self._slots:
                 entry = self._queue.popleft()
                 rid, prompt = entry["rid"], entry["prompt"]
-                one, _ = pred.prefill(_pad_window(prompt, self._max_prefill),
-                                      prompt.size, gen)
+                padded = _pad_window(prompt, self._max_prefill)
+                one, _ = pred.prefill(padded, prompt.size, gen)
                 first = int(one.tok[0, 0])
                 rec = self._req[rid]
                 rec["admit"] = rec["first"] = time.perf_counter()
@@ -981,16 +1436,29 @@ class DecodeServer:
                 if state is None:
                     state = _empty_batch_state(one, self._slots)
                 _insert(state, one, slot)
+                if getattr(proposer, "needs_prefill", False):
+                    proposer.admit(padded, prompt.size, slot, self._slots,
+                                   dgen)
                 active[slot] = {"rid": rid, "toks": [first],
                                 "cap": entry["cap"]}
+                histories[slot] = list(prompt.astype(np.int64)) + [first]
+                slot_lens[slot] = prompt.size
             self._retire_finished(active, results)
             if not active:
                 continue
-            state, _ = pred.step(state, gen)
-            self.steps += 1
-            toks = state.tok[:, 0].cpu().numpy()
-            for slot, rec in active.items():
-                self._deliver(rec, toks[slot:slot + 1])
+            if proposer is not None and k > 0 \
+                    and max(slot_lens[s] for s in active) + k + 1 <= limit:
+                state, counts_h = self._verify(state, slot_lens, active,
+                                               histories, gen, dgen)
+                slot_lens += counts_h
+            else:
+                state, _ = pred.step(state, gen)
+                self._note_step()
+                toks = state.tok[:, 0].cpu().numpy()
+                for slot, rec in active.items():
+                    self._deliver(rec, toks[slot:slot + 1])
+                    histories[slot].append(int(toks[slot]))
+                slot_lens += 1
             self._retire_finished(active, results)
         return results
 
@@ -998,10 +1466,15 @@ class DecodeServer:
         pred = self._pred
         slots = self._slots
         gen = self._generator()
+        proposer = self._proposer
+        dgen = _proposer_generator(proposer, self._seed)
+        k = self._spec_k
+        limit = _window_limit(pred.cache_len, proposer)
         state = pred.paged_batch_state(slots)
         mgr = pred._manager
         active = {}
         results = {}
+        histories = {}      # slot -> committed tokens (proposer food)
         slot_lens = np.zeros(slots, np.int64)
         act_mask = np.zeros(slots, np.int32)
         pending = None      # the one admission mid-chunked-prefill
@@ -1047,8 +1520,13 @@ class DecodeServer:
                     first = int(tok[0, 0])
                     pred._commit(state, slot, plen, tok)
                     mgr.publish(slot, p["prompt"], plen)
+                    if getattr(proposer, "needs_prefill", False):
+                        proposer.admit(
+                            _pad_window(p["prompt"], self._max_prefill),
+                            plen, slot, slots, dgen)
                     active[slot] = {"rid": p["rid"], "toks": [first],
                                     "cap": p["cap"]}
+                    histories[slot] = list(p["prompt"]) + [first]
                     slot_lens[slot] = plen
                     act_mask[slot] = 1
                     self._req[p["rid"]]["first"] = time.perf_counter()
@@ -1056,13 +1534,22 @@ class DecodeServer:
                     self._retire_finished(active, results, on_retire)
             if not active:
                 continue
-            # (4) one decode step over the active slots
-            state, _ = pred.paged_step(state, slot_lens, gen, act_mask)
-            self.steps += 1
-            toks = state.tok[:, 0].cpu().numpy()
-            for slot, rec in active.items():
-                self._deliver(rec, toks[slot:slot + 1])
-            slot_lens += act_mask.astype(np.int64)
+            # (4) one decode or verify step over the active slots; no
+            # speculation while an admission is mid-prefill
+            if proposer is not None and k > 0 and pending is None \
+                    and max(slot_lens[s] for s in active) + k + 1 <= limit:
+                state, counts_h = self._verify(state, slot_lens, active,
+                                               histories, gen, dgen,
+                                               act_mask)
+                slot_lens += counts_h
+            else:
+                state, _ = pred.paged_step(state, slot_lens, gen, act_mask)
+                self._note_step()
+                toks = state.tok[:, 0].cpu().numpy()
+                for slot, rec in active.items():
+                    self._deliver(rec, toks[slot:slot + 1])
+                    histories[slot].append(int(toks[slot]))
+                slot_lens += act_mask.astype(np.int64)
             self._retire_finished(active, results, on_retire)
         return results
 
@@ -1071,7 +1558,7 @@ class DecodeServer:
         pending-prefill record, or None on backpressure."""
         entry = self._queue[0]
         prompt = entry["prompt"]
-        gate = mgr.gate(prompt, prompt.size, entry["cap"])
+        gate = mgr.gate(prompt, prompt.size, entry["cap"], self._spec_k)
         if gate is None:
             return None
         self._queue.popleft()

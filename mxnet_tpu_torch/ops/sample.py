@@ -1,13 +1,16 @@
-"""Token sampling for the decode loop (counterpart of the sampling half of
-``mxnet_tpu/ops/sample.py``).  Random draws come from an explicit
-``torch.Generator``; it gives other numbers than ``jax.random`` from the
-same seed, so cross-package parity is token identity under greedy
-decoding only."""
+"""Token sampling for the decode loop and the speculative acceptance rule
+(counterpart of the sampling half of ``mxnet_tpu/ops/sample.py``).
+Random draws come from an explicit ``torch.Generator``; it gives other
+numbers than ``jax.random`` from the same seed, so cross-package parity
+is token identity under greedy decoding only.  Everything here is plain
+torch with fixed shapes and no host read, so it runs inside a captured
+program (the paged verify step)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["is_greedy_policy", "policy_logits", "sample_tokens"]
+__all__ = ["is_greedy_policy", "policy_logits", "sample_tokens",
+           "residual_probs", "speculative_accept"]
 
 
 def is_greedy_policy(temperature, top_k):
@@ -36,3 +39,79 @@ def sample_tokens(logits, temperature=1.0, top_k=0, generator=None):
     flat = probs.reshape(-1, probs.shape[-1])
     draw = torch.multinomial(flat, 1, generator=generator)
     return draw.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Speculative sampling (Leviathan et al., "Fast Inference from Transformers
+# via Speculative Decoding"): a proposer drafts k tokens, the target scores
+# all k+1 positions in one verify pass, and the acceptance-rejection rule
+# below keeps the output distribution exactly the target's.
+# ---------------------------------------------------------------------------
+
+def residual_probs(p, q):
+    """The rejection-resample distribution ``norm(max(p - q, 0))`` over
+    (..., V) probability vectors; where ``p <= q`` everywhere (the
+    branch is never taken) it is ``p``, so nothing turns NaN."""
+    res = torch.clamp_min(p.float() - q.float(), 0.0)
+    tot = res.sum(dim=-1, keepdim=True)
+    return torch.where(tot > 0, res / torch.where(tot > 0, tot, 1.0),
+                       p.float())
+
+
+def speculative_accept(target_probs, draft_toks, draft_probs=None,
+                       greedy=False, generator=None):
+    """Accept a prefix of k drafted tokens against k+1 target
+    distributions and draw one more token at the first mismatch.
+
+    ``target_probs`` (B, k+1, V): row i is the target's sampling
+    distribution after the committed prefix and drafts d_1..d_i.
+    ``draft_toks`` (B, k): the drafts.  ``draft_probs`` (B, k, V): the
+    distributions they were drawn from; None for a deterministic
+    proposer (n-gram lookup, a greedy draft: q is a delta at each
+    draft).  ``greedy``: accept d_i iff it is the argmax of row i and
+    take the next token by argmax too (no draw).  Otherwise uniforms and
+    the residual's categorical come from ``generator``.
+
+    Returns ``(counts, out_toks)``: counts (B,) int32 in [1, k+1], the
+    accepted drafts plus the one drawn token; out_toks (B, k+1) int32,
+    valid through counts (later columns are the caller's to mask)."""
+    b, kp1, v = target_probs.shape
+    k = kp1 - 1
+    p = target_probs.float()
+    toks = draft_toks.to(device=p.device, dtype=torch.int64)
+    if greedy:
+        tgt = torch.argmax(p, dim=-1)                         # (B, k+1)
+        accept = toks == tgt[:, :k]
+    else:
+        p_at_d = torch.gather(p[:, :k], 2, toks[..., None])[..., 0]
+        if draft_probs is None:
+            ratio = p_at_d                                    # q = delta
+        else:
+            q_at_d = torch.gather(draft_probs.float(), 2,
+                                  toks[..., None])[..., 0]
+            ratio = p_at_d / torch.clamp_min(q_at_d, 1e-30)
+        u = torch.rand((b, k), generator=generator, device=p.device)
+        accept = u < ratio                                    # min(1, .)
+    # accepted prefix length a in [0, k]: the drafts before the first
+    # rejection
+    a = torch.cumprod(accept.to(torch.int64), dim=1).sum(dim=1)
+    # the next token's distribution is row a (the bonus row at a == k),
+    # with the rejected draft's proposal mass taken out when a < k
+    p_next = torch.gather(p, 1, a[:, None, None].expand(b, 1, v))[:, 0]
+    if greedy:
+        next_tok = torch.argmax(p_next, dim=-1)
+    else:
+        j = torch.clamp_max(a, k - 1)
+        if draft_probs is None:
+            d_rej = torch.gather(toks, 1, j[:, None])
+            q_row = torch.zeros_like(p_next).scatter_(1, d_rej, 1.0)
+        else:
+            q_row = torch.gather(draft_probs.float(), 1,
+                                 j[:, None, None].expand(b, 1, v))[:, 0]
+        dist = torch.where((a == k)[:, None], p_next,
+                           residual_probs(p_next, q_row))
+        next_tok = torch.multinomial(dist, 1, generator=generator)[:, 0]
+    out = torch.cat([toks, torch.zeros((b, 1), dtype=torch.int64,
+                                       device=p.device)], dim=1)
+    out.scatter_(1, a[:, None], next_tok[:, None])
+    return (a + 1).to(torch.int32), out.to(torch.int32)

@@ -101,7 +101,8 @@ class PagedKVManager:
 
     # admission is two-phase so the serving loop can gate BEFORE touching
     # any slot state:
-    def gate(self, prompt, prompt_len, max_new, budget_wrap_forks=True):
+    def gate(self, prompt, prompt_len, max_new, spec_k=0,
+             budget_wrap_forks=True):
         """Reserve the worst-case page budget for a request; returns
         ``(matched_len, pages, reserve_n)`` or ``None`` on backpressure.
         ``pages`` are prefix-cache pages covering [0, matched_len),
@@ -117,6 +118,10 @@ class PagedKVManager:
         generation length is unknown (``max_new`` = capacity, which
         would predict a wrap always) and the rare tight-pool wrap fork
         falls back to :meth:`ensure`'s eviction path instead.
+
+        ``spec_k``: the serving loop's speculation width; a verify window
+        makes positions up to ``spec_k + 1`` past the length writable, so
+        the reservation covers them too.
         """
         prompt_len = int(prompt_len)
         matched, pages = (0, [])
@@ -128,9 +133,10 @@ class PagedKVManager:
         # pages still to allocate for the prompt itself...
         need_now = _pages_for(prompt_len, self.page_tokens) - len(pages)
         # ... plus one fork if the first tail write lands mid-page in a
-        # shared page, plus the decode growth to capacity
+        # shared page, plus the decode growth to capacity (a speculative
+        # verify window reaches spec_k + 1 positions past the length)
         fork = 1 if matched % self.page_tokens else 0
-        total = prompt_len + int(max_new) + 1
+        total = prompt_len + int(max_new) + int(spec_k) + 1
         if budget_wrap_forks and total > self.capacity and pages:
             fork += len(pages)
         growth = _pages_for(min(total, self.capacity), self.page_tokens) \

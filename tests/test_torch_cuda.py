@@ -270,6 +270,76 @@ def test_paged_kernel_long_views_on_full_grids(card, pool_dtype, b, heads,
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.int8,
+                                        torch.float8_e4m3fn])
+@pytest.mark.parametrize("group", [1, 2])
+def test_paged_kernel_at_the_verify_window(card, pool_dtype, group):
+    """Kernel B at the speculative verify window, tq = k + 1 = 9, over
+    the serve's head dim (4 heads of 256, 16-token pages): the decode
+    variant, 4-row tiles (3 of them at G = 1, 5 at G = 2).  Four slots
+    of different lengths: one just past its window (every later split
+    dead), one mid-view, one at the full view, and an inactive row whose
+    table is all scratch page and whose length is its own window."""
+    heads, hd, pt, m, tq = 4, 256, 16, 16, 9
+    g = torch.Generator(device="cpu").manual_seed(90 + group)
+    kvh = heads // group
+    pages = 1 + 3 * m
+    e_kv = kvh * hd
+
+    def pool():
+        x = torch.randn(pages, pt, e_kv, generator=g)
+        if pool_dtype == torch.float32:
+            return x.to(card)
+        qkv = attn.quantize_kv(x.reshape(1, pages * pt, e_kv), pool_dtype,
+                               kvh)
+        return attn.QuantKV(qkv.data.reshape(pages, pt, e_kv).to(card),
+                            qkv.scale.reshape(pages, pt, kvh).to(card))
+
+    kp, vp = pool(), pool()
+    table = torch.randint(1, pages, (4, m), generator=g, dtype=torch.int32)
+    table[3] = 0
+    table = table.to(card)
+    q = torch.randn(4, tq, heads * hd, generator=g).to(card)
+    lens = torch.tensor([tq + 3, 130, m * pt, tq], dtype=torch.int32,
+                        device=card)
+    plan = dk._plan(4, tq, heads, kvh, hd, hd, m, pt, dk._sm_count(card))
+    assert (plan.variant, plan.rows) == ("decode", 4)
+    assert plan.row_tiles == -(-group * tq // 4) and plan.splits >= 2
+    before = dict(dk.LAUNCHES)
+    got = dk.flash_sdpa_verify(q, kp, vp, table, lens, num_heads=heads,
+                               num_kv_heads=kvh)
+    torch.cuda.synchronize()
+    assert dk.LAST_VARIANT["paged_decode"] == "decode"
+    assert dk.LAUNCHES["paged_decode"] == before["paged_decode"] + 1
+    assert dk.LAUNCHES["paged_combine"] == before["paged_combine"] + 1
+    want = dk.paged_plain(q, kp, vp, table, lens, heads, None, kvh)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,n,relu_res", [(1024, 1024, False),
+                                          (1024, 4096, False),
+                                          (4096, 1024, True),
+                                          (1024, 8192, False)])
+def test_fused_kernel_at_the_verify_rows(card, k, n, relu_res):
+    """Kernel A at M = slots x (k + 1) = 36 rows, past the decode
+    variant's 16: the serve's q/k/v, ffn1 and ffn2 widths and a
+    vocabulary-wide N, f32, against the plain version."""
+    x, w, r, scale, shift, bias = _fused_inputs(card, torch.float32, 36, k,
+                                                n, k + n)
+    assert fk._plan(36, k, n, torch.float32).variant.startswith("simt")
+    kw = dict(residual=r if relu_res else None, relu=relu_res, bias=bias)
+    before = fk.LAUNCHES["fused_fwd"]
+    got = fk.fused_scale_relu_matmul(x, scale, shift, w, **kw)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fused_fwd"] == before + 1
+    assert fk.LAST_VARIANT["fused_fwd"].startswith("simt")
+    want = fk.fused_plain(x, scale, shift, w, **kw)
+    for gv, wv in zip(got, want):
+        mag = max(1.0, float(wv.abs().max()))
+        torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-5 * mag)
+
+
 @pytest.mark.parametrize("tq,hd", [(1, 256), (16, 128), (256, 256),
                                    (64, 128)])
 def test_paged_kernel_is_bitwise_repeatable(card, tq, hd):
@@ -907,3 +977,144 @@ def test_uncapturable_program_raises(card):
     assert prog.traces == 0
     torch.cuda.synchronize()
     assert float((x + 1).sum()) == 8.0
+
+
+def test_captured_paged_verify_matches_eager_bitwise(card):
+    """The prepared (captured) verify program against a second predictor
+    run under programs.eager() from the same state: prefill and 20
+    verify steps with n-gram drafts (rows that would pass the ring sit
+    out, inactive) give bit-equal emitted tokens, counts, window
+    probabilities, tokens, lengths and pools (the scratch page aside);
+    each replay adds the launches its capture recorded, equal to the
+    eager step's: A 10 (2 layers x q, k, v, ffn1, ffn2 at M = 2 x 4),
+    B 2 and the combine 2."""
+    import numpy as np
+
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.decode import NGramProposer, _cache_leaves
+
+    k = 3
+    g, e = _graph_lm(card), _graph_lm(card)
+    rep = g.prepare_programs(2, spec_k=k)
+    assert rep["programs"]["verify"]["source"] == "capture"
+    x, lens = _graph_prompts()
+    x, lens = x[:, :20], np.array([12, 20])
+    gs, _ = g.prefill(x, lens)
+    with programs.eager():
+        es, _ = e.prefill(x, lens)
+    hists = [list(x[r, :lens[r]].astype(np.int64)) + [int(gs.tok[r, 0])]
+             for r in range(2)]
+    proposer = NGramProposer(k)
+    counters = (fk.LAUNCHES, dk.LAUNCHES)
+    lens_h = lens.astype(np.int64)
+    accepted = 0
+    for i in range(20):
+        act = (lens_h + k + 1 <= 64).astype(np.int32)
+        drafts, _ = proposer.propose(hists)
+        before = [dict(c) for c in counters]
+        replays = programs.GRAPH_STATS["replays"]
+        gs, out, counts = g.paged_verify(gs, lens_h, drafts, active=act)
+        out, counts = out.clone(), counts.clone()
+        probs = g.verify_probs.clone()
+        mid = [dict(c) for c in counters]
+        with programs.eager():
+            es, eout, ecounts = e.paged_verify(es, lens_h, drafts,
+                                               active=act)
+        torch.cuda.synchronize()
+        after = [dict(c) for c in counters]
+        assert torch.equal(out, eout) and torch.equal(counts, ecounts), i
+        assert torch.equal(probs, e.verify_probs), i
+        assert torch.equal(gs.tok, es.tok) and torch.equal(gs.lens, es.lens)
+        assert programs.GRAPH_STATS["replays"] - replays == 1
+        for b, m, a in zip(before, mid, after):
+            for key in b:
+                assert m[key] - b[key] == a[key] - m[key], (i, key)
+        assert mid[0]["fused_fwd"] - before[0]["fused_fwd"] == 10
+        assert mid[1]["paged_decode"] - before[1]["paged_decode"] == 2
+        assert mid[1]["paged_combine"] - before[1]["paged_combine"] == 2
+        counts_h = counts.cpu().numpy().astype(np.int64)
+        assert (counts_h[act == 0] == 0).all()
+        for r in range(2):
+            hists[r].extend(int(t) for t in out[r, :counts_h[r]])
+        accepted += int(np.maximum(counts_h - 1, 0).sum())
+        lens_h = lens_h + counts_h
+    assert accepted > 0
+    for a, b in zip(_cache_leaves(gs.caches), _cache_leaves(es.caches)):
+        assert torch.equal(a[1:], b[1:])
+    assert g.trace_counts["verify"] == 1 and e.trace_counts["verify"] == 0
+
+
+def test_speculative_server_matches_plain_server(card):
+    """A paged int8 DecodeServer with spec_k 3 (n-gram drafts) returns
+    the non-speculative server's greedy tokens for every request, with
+    verify steps taken and the verify program captured once; the same
+    serve under programs.eager() gives the same tokens."""
+    import numpy as np
+
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.decode import DecodeServer
+
+    rng = np.random.RandomState(2)
+    prefix = rng.randint(0, 64, 16)
+    prompts = [np.concatenate([prefix, rng.randint(0, 64, n)])
+               for n in (3, 9, 5)] + [rng.randint(0, 64, 12)]
+
+    def serve(pred, spec_k):
+        srv = DecodeServer(pred, 32, slots=2, max_new_tokens=12,
+                           spec_k=spec_k)
+        for p in prompts:
+            srv.submit(p)
+        return srv.run(), srv
+
+    want, _ = serve(_graph_lm(card), 0)
+    spec = _graph_lm(card)
+    spec.prepare_programs(2, spec_k=3)
+    got, srv = serve(spec, 3)
+    with programs.eager():
+        eager, _ = serve(spec, 3)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+        np.testing.assert_array_equal(eager[rid], want[rid])
+    assert srv.spec_steps > 0 and srv.proposed > 0
+    assert spec.trace_counts["verify"] == 1
+
+
+def test_captured_sampled_verify_repeats_per_seed(card):
+    """Temperature 1, top_k 8 through the captured verify program with
+    the predictor's generator registered: every emitted token lies in
+    the top 8 of its window row's probabilities (accepted drafts and
+    the drawn token alike), and the same seed emits the same tokens
+    again without a new capture."""
+    import numpy as np
+
+    pred = _graph_lm(card, temperature=1.0, top_k=8)
+    pred.prepare_programs(2, spec_k=3)
+    x, lens = _graph_prompts()
+
+    def run(seed):
+        gen = pred._sampling_generator(seed)
+        st, _ = pred.prefill(x, lens, gen)
+        lens_h = lens.astype(np.int64)
+        rng = np.random.RandomState(0)
+        emitted = []
+        for _ in range(5):
+            drafts = rng.randint(0, 64, (2, 3)).astype(np.int32)
+            drafts[:, 0] = st.tok[:, 0].cpu().numpy()
+            st, out, counts = pred.paged_verify(st, lens_h, drafts, None,
+                                                gen)
+            top = torch.topk(pred.verify_probs, 8, dim=-1).indices
+            for r in range(2):
+                c = int(counts[r])
+                for i in range(c):
+                    assert int(out[r, i]) in top[r, i].tolist()
+                emitted.append(out[r, :c].cpu().numpy().copy())
+            lens_h = lens_h + counts.cpu().numpy()
+        return emitted
+
+    a = run(7)
+    traces = dict(pred.trace_counts)
+    b = run(7)
+    assert len(a) == len(b)
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+    assert pred.trace_counts == traces and traces["verify"] == 1
