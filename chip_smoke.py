@@ -26,8 +26,9 @@ Phases (any failure ends the run with a non-zero exit code):
    version over the slabs of ResNet-50's 157 trainables (12,556 blocks)
    and of the LM's, for SGD, SGD-momentum and Adam, f32 masters with and
    without a bf16 compute copy, bf16 masters, clip on and off, lr / wd
-   differing per segment: bit for bit for SGD and SGD-momentum, within
-   one f32 ulp for Adam, padding still 0; timed beside the port's
+   differing per segment, and over the bucketed LSTM LM's slab for the
+   Adam update its path runs: bit for bit for SGD and SGD-momentum,
+   within one f32 ulp for Adam, padding still 0; timed beside the port's
    per-parameter update and ``torch.optim``'s fused SGD / Adam step;
 5. serve — build the full-width ``attention_lm`` (vocab 8192, embed
    1024, 4 heads, FFN 4096; depth cut to 2 layers) from seeded random
@@ -75,6 +76,19 @@ Phases (any failure ends the run with a non-zero exit code):
    in the masters, the momentum and the bf16 copy; timed steps (one B1
    launch each, the moving statistics moving, finite losses); then one
    profiled step.
+8. train LSTM — the bucketed LSTM language model (see LSTM_* below):
+   the fused RNN op (cuDNN) against the unfused LSTMCell stack carrying
+   the same blob at batch 32, T 40, 2 x 200 (outputs, final states, the
+   data's and the blob's gradients); then the bench's LSTMCell
+   configuration (2 epochs) and ``models.lstm_lm``'s fused default (1
+   epoch) through ``BucketingModule.fit`` with Adam, every bucket on the
+   primary's one slab plan: the first step's B1 launch against its plain
+   version and against the per-parameter update on copies, its outputs
+   and gradients against the port on the CPU; B1 launches equal to the
+   steps; every bucket's parameters and gradients the slab views (equal
+   data_ptr), none demoted; perplexity finite and (configuration 1)
+   falling; tokens/s, ms per step by bucket, peak memory, and a profiled
+   repeat of 8 batches (idle share, device ms by kernel).
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -110,6 +124,37 @@ TRAIN_STEPS = 3     # timed steps after one warm-up step
 # width, one resident batch (x uniform(-1, 1), labels in [0, 1000))
 RESNET_BATCH, RESNET_STEPS = 256, 3
 RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# the bucketed LSTM language model.  Configuration 1 is
+# benchmarks/bench_bucketing.py:32-60 at full width: two LSTMCell(200)
+# layers ("l0_", "l1_") over a 10,000-word embedding of 200, an FC head
+# ("fc") and SoftmaxOutput(use_ignore, ignore_label -1); batch 32,
+# buckets 10 / 20 / 30 / 40 over 2,000 sentences of 5-40 tokens from
+# RandomState(0), iterator seed 0; Xavier weights (torch's generator at
+# seed 0), Adam at lr 0.001, Perplexity(ignore_label=-1); 2 epochs, the
+# first a warm-up as in the bench.  Configuration 2 is
+# models.lstm_lm.sym_gen_factory()'s defaults (FusedRNNCell 2 x 200 over
+# the same embedding and vocabulary, the cuDNN RNN op) with the same
+# padded head, 1 epoch over the same iterator.  Train in f32: token ids
+# up to 9,999 ride in float data
+LSTM_VOCAB, LSTM_EMBED, LSTM_HIDDEN, LSTM_LAYERS = 10000, 200, 200, 2
+LSTM_BATCH, LSTM_BUCKETS, LSTM_SENTENCES = 32, [10, 20, 30, 40], 2000
+LSTM_LR, LSTM_EPOCHS, LSTM_FUSED_EPOCHS = 0.001, 2, 1
+LSTM_PARAMS = 4_653_200     # embed 2,000,000, 2 x 321,600, fc 2,010,000
+LSTM_PROFILE_BATCHES = 8    # the profiled repeat, over every bucket
+# the profiled LSTM steps' device time by kind of kernel; the copies to
+# the host are the perplexity's read of each step's probabilities (the
+# port's metrics reduce on the host), a copy engine's time, not a kernel's
+LSTM_HOST_COPIES = "copies to the host (the metric)"
+LSTM_KERNEL_GROUPS = {
+    LSTM_HOST_COPIES: ("Memcpy DtoH",),
+    "B1 (mtu_kernel)": ("mtu_kernel",),
+    "cuDNN RNN": ("RNN", "rnn", "LSTM", "lstm"),
+    "products": ("gemm", "gemv", "sm90_", "cutlass", "xmma", "splitK"),
+    "softmax": ("softmax", "Softmax", "SoftMax"),
+    "indexing (embedding, its scatter-add)": ("index",),
+    "element-wise and reductions": ("elementwise", "reduce_kernel"),
+    "casts and copies": ("copy", "Copy", "Cat"),
+}
 # the profiled ResNet-50 step's device time by kind of kernel (kernel B1;
 # convolutions and products, cuDNN's layout transposes; the BatchNorm /
 # ReLU / loss element-wise ops and reductions; dtype casts and copies,
@@ -169,6 +214,26 @@ TOL_F32, TOL_F32_LONG, TOL_BF16 = 1e-5, 1e-4, 2 ** -7
 # about 6e-2).  The analytically-zero *_k_bias gradient is measured on
 # its layer's *_q_bias gradient norm
 TOL_TRAIN_GRAD, TOL_TRAIN_GRAD_RELU = 1e-4, 1e-2
+# the fused RNN op (cuDNN) against the unfused LSTMCell graph carrying the
+# same blob (cuBLAS products, torch element-wise ops), both full f32 at
+# batch 32, T 40, 2 x 200: outputs and final states absolute (values in
+# (-1, 1); the same f32 products summed in another order), gradients of
+# the data and of the blob relative to their largest magnitude (the same
+# rounding chained back through 40 steps and 2 layers)
+TOL_RNN_OUT, TOL_RNN_GRAD = 1e-5, 1e-4
+# the first LSTM step on the card against the port on the CPU (ATen's
+# loops and BLAS) from the same parameters and batch: outputs and every
+# gradient, max |card - cpu| / max |cpu| per tensor
+TOL_LSTM_CPU = 1e-4
+# the first Adam update on the LSTM LM's shared slab against the
+# per-parameter update on copies: the per-parameter update rounds
+# 1 - beta1 and 1 - beta2 from f64 constants (the JAX package's eager
+# adam_update), kernel B1 in f32 (its fused step), so the second moment
+# differs by up to 4.7e-5 relative and the step by half that: each
+# tensor within 1e-4 of its change, or 1 ulp where that is larger (the
+# ulp distance is printed).  Kernel
+# B1 against its plain version on copies of the slabs stays within 1 ulp
+TOL_ADAM_PER_PARAM = 1e-4
 # kernel B1 against its plain version: SGD and SGD-momentum bit for bit
 # (both round every f32 product and sum once, in the same order); Adam
 # within one f32 ulp (its square root and quotient are correctly rounded
@@ -1211,13 +1276,19 @@ def phase_kernel_f(torch, dev, flush):
     return cases
 
 
-def _ulps(torch, a, b):
-    """Largest distance in f32 ulps between two tensors, read as f32."""
+def _ulp_map(torch, a, b):
+    """Elementwise distance in f32 ulps between two tensors, read as
+    f32."""
     def ordered(t):
         i = t.float().contiguous().view(torch.int32).long()
         return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
 
-    return int((ordered(a) - ordered(b)).abs().max())
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _ulps(torch, a, b):
+    """Largest distance in f32 ulps between two tensors, read as f32."""
+    return int(_ulp_map(torch, a, b).max())
 
 
 def _trainable_shapes(sym, **shapes):
@@ -1381,9 +1452,11 @@ def _b1_case(torch, dev, flush, net, shapes, kind, nslots, master, cdtype,
 def phase_kernel_b1(torch, dev, flush):
     """Kernel B1 over ResNet-50's slab (157 tensors, 12,556 blocks) and
     the training LM's: SGD, SGD-momentum and Adam; f32 masters without and
-    with a bf16 compute copy (clip off and on), bf16 masters (clip on).
-    Every segment is padded to whole 2,048-element blocks, and lr / wd
-    differ from segment to segment."""
+    with a bf16 compute copy (clip off and on), bf16 masters (clip on);
+    and over the bucketed LSTM LM's slab (11 tensors, 4,653,200 values)
+    the update its path runs, Adam over f32 masters.  Every segment is
+    padded to whole 2,048-element blocks, and lr / wd differ from segment
+    to segment."""
     from mxnet_tpu_torch.models import attention_lm, resnet
 
     nets = {
@@ -1395,28 +1468,39 @@ def phase_kernel_b1(torch, dev, flush):
             attention_lm.get_symbol(vocab_size=VOCAB, seq_len=SEQ,
                                     num_layers=TRAIN_LAYERS, embed=EMBED,
                                     heads=TRAIN_HEADS, ffn_hidden=FFN),
-            data=(TRAIN_BATCH, SEQ), softmax_label=(TRAIN_BATCH, SEQ))}
-    n50 = nets["resnet50"]
-    if (len(n50), sum(int(np.prod(s)) for s in n50.values())) \
-            != (157, 25_549_486):
-        raise AssertionError("ResNet-50 trainables: %d tensors, %d values"
-                             % (len(n50), sum(int(np.prod(s))
-                                              for s in n50.values())))
+            data=(TRAIN_BATCH, SEQ), softmax_label=(TRAIN_BATCH, SEQ)),
+        "lstm": _trainable_shapes(
+            _bench_lstm_sym_gen()(LSTM_BUCKETS[-1])[0],
+            data=(LSTM_BATCH, LSTM_BUCKETS[-1]),
+            softmax_label=(LSTM_BATCH, LSTM_BUCKETS[-1]))}
+    for net, want in (("resnet50", (157, 25_549_486)),
+                      ("lstm", (11, LSTM_PARAMS))):
+        got = (len(nets[net]), sum(int(np.prod(s))
+                                   for s in nets[net].values()))
+        if got != want:
+            raise AssertionError("%s trainables: %d tensors, %d values"
+                                 % ((net,) + got))
     g = torch.Generator(device=dev)
     g.manual_seed(4)
     variants = ((torch.float32, None, -1.0),
                 (torch.float32, torch.bfloat16, -1.0),
                 (torch.float32, torch.bfloat16, 0.3),
                 (torch.bfloat16, None, 0.3))
+    # every update over the ResNet-50 and LM slabs; over the LSTM LM's,
+    # the one its bucketed path runs (Adam, f32 masters, no clip)
+    by_net = {"resnet50": [(k, n, v) for k, n in (("sgd", 0), ("sgd", 1),
+                                                   ("adam", 2))
+                           for v in variants]}
+    by_net["lm"] = by_net["resnet50"]
+    by_net["lstm"] = [("adam", 2, variants[0])]
     cases = []
     for net, shapes in nets.items():
-        for kind, nslots in (("sgd", 0), ("sgd", 1), ("adam", 2)):
-            for master, cdtype, clip in variants:
-                case = _b1_case(torch, dev, flush, net, shapes, kind, nslots,
-                                master, cdtype, clip, g)
-                log("kernel B1 case: " + json.dumps(case))
-                cases.append(case)
-                torch.cuda.empty_cache()
+        for kind, nslots, (master, cdtype, clip) in by_net[net]:
+            case = _b1_case(torch, dev, flush, net, shapes, kind, nslots,
+                            master, cdtype, clip, g)
+            log("kernel B1 case: " + json.dumps(case))
+            cases.append(case)
+            torch.cuda.empty_cache()
     return cases
 
 
@@ -1859,6 +1943,378 @@ def phase_train_resnet(torch, dev):
     return train, launches
 
 
+def _bench_lstm_sym_gen():
+    """benchmarks/bench_bucketing.py's sym_gen (configuration 1), built
+    with the port's symbols and cells."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import symbol as sym
+
+    def sym_gen(seq_len):
+        net = sym.Embedding(sym.Variable("data"), input_dim=LSTM_VOCAB,
+                            output_dim=LSTM_EMBED, name="embed")
+        for i in range(LSTM_LAYERS):
+            cell = mt.rnn.LSTMCell(LSTM_HIDDEN, prefix="l%d_" % i)
+            net, _ = cell.unroll(seq_len, inputs=net, merge_outputs=True)
+        pred = sym.FullyConnected(sym.Reshape(net, shape=(-1, LSTM_HIDDEN)),
+                                  num_hidden=LSTM_VOCAB, name="fc")
+        label = sym.Reshape(sym.Variable("softmax_label"), shape=(-1,))
+        out = sym.SoftmaxOutput(pred, label, use_ignore=True,
+                                ignore_label=-1, name="softmax")
+        return out, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def _lstm_sentences():
+    """The bench's corpus: 2,000 sentences of 5-40 tokens in [1, 10000)
+    from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(LSTM_SENTENCES):
+        length = rng.randint(5, 41)
+        out.append(rng.randint(1, LSTM_VOCAB, size=length).tolist())
+    return out
+
+
+def _rel_err(got, want):
+    """max |got - want| / max |want| (0 when both are 0)."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    return err / scale if scale > 0 else err
+
+
+def _rnn_fused_vs_unfused(torch, dev):
+    """Gate 1: the fused RNN op (cuDNN) against the unfused LSTMCell
+    stack carrying ``FusedRNNCell.unpack_weights`` of the same blob, at
+    batch 32, T 40 and the LM's widths, f32: outputs, final states and
+    the gradients of the data and the blob, both graphs seeded with ones
+    at every output; then the device ms of each graph's forward and
+    backward."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.executor import simple_bind
+
+    n, t, i, h, layers = LSTM_BATCH, LSTM_BUCKETS[-1], LSTM_EMBED, \
+        LSTM_HIDDEN, LSTM_LAYERS
+    fused = mt.rnn.FusedRNNCell(h, num_layers=layers, mode="lstm",
+                                prefix="lstm_", get_next_state=True)
+    rng = np.random.RandomState(2)
+    x = rng.uniform(-1, 1, (n, t, i)).astype(np.float32)
+    blob = None
+    runs = []
+    for cell in (fused, fused.unfuse()):
+        out, states = cell.unroll(t, inputs=mt.sym.Variable("data"),
+                                  layout="NTC", merge_outputs=True)
+        exe = simple_bind(mt.sym.Group([out] + states), dev,
+                          data=(n, t, i))
+        if blob is None:
+            blob = rng.uniform(-0.07, 0.07, exe.arg_dict[
+                "lstm_parameters"].shape).astype(np.float32)
+            values = {"lstm_parameters": blob}
+        else:
+            values = fused.unpack_weights({"lstm_parameters": blob},
+                                          input_size=i)
+        values["data"] = x
+        for name, v in values.items():
+            exe.arg_dict[name][:] = v
+
+        def fwd_bwd(exe=exe):
+            exe.forward(is_train=True)
+            exe.backward()
+
+        fwd_bwd()
+        torch.cuda.synchronize()
+        outs = [o.data.clone() for o in exe.outputs]
+        grads = {k: g.data.clone() for k, g in exe.grad_dict.items()}
+        runs.append((outs, grads, _device_ms(torch, fwd_bwd)))
+    (f_outs, f_grads, f_ms), (u_outs, u_grads, u_ms) = runs
+    # the fused states are (layers, n, h); the unfused h0, c0, h1, c1
+    u_cmp = [u_outs[0], torch.stack(u_outs[1::2]),
+             torch.stack(u_outs[2::2])]
+    out_err = max(float((a - b).abs().max()) for a, b in zip(f_outs, u_cmp))
+    packed = fused.pack_weights(
+        {k: v.cpu().numpy() for k, v in u_grads.items() if k != "data"},
+        input_size=i)["lstm_parameters"]
+    grad_err = {"data": _rel_err(f_grads["data"], u_grads["data"]),
+                "lstm_parameters": _rel_err(
+                    f_grads["lstm_parameters"],
+                    torch.from_numpy(packed).to(dev))}
+    report = {"shape": [n, t, i, h, layers], "max_abs_err_out": out_err,
+              "tol_out": TOL_RNN_OUT, "grad_rel_err": grad_err,
+              "tol_grad": TOL_RNN_GRAD,
+              "fused_fwd_bwd_device_ms": f_ms,
+              "unfused_fwd_bwd_device_ms": u_ms}
+    log("train lstm fused vs unfused: " + json.dumps(report))
+    if not (out_err <= TOL_RNN_OUT
+            and max(grad_err.values()) <= TOL_RNN_GRAD):
+        raise AssertionError("the fused RNN op against the unfused cells: "
+                             "%s" % report)
+    return report
+
+
+def _lstm_first_step(torch, dev, mod, batch, sym_gen):
+    """Gates 2 and 3 on the first step of a BucketingModule: kernel B1
+    against its plain version on copies of the shared slabs (within one
+    ulp) and against the per-parameter update on copies; outputs and
+    gradients against the port on the CPU from the same parameters and
+    batch."""
+    from mxnet_tpu_torch import cpu
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    primary = mod._primary
+    group = primary._exec_group
+    args, aux = mod.get_params()
+    args = {k: v.asnumpy().copy() for k, v in args.items()}
+    aux = {k: v.asnumpy().copy() for k, v in aux.items()}
+    idx = sorted(primary._updater.states)
+    before = [group.param_arrays[i].data.clone() for i in idx]
+    ref_w = [NDArray(w.clone()) for w in before]
+    ref_s = [tuple(t.clone() for t in primary._updater.states[i])
+             for i in idx]
+    ref_opt = opt_mod.create("adam", sym=primary.symbol,
+                             rescale_grad=1.0 / LSTM_BATCH,
+                             param_idx2name=dict(enumerate(
+                                 group.param_names)),
+                             learning_rate=LSTM_LR)
+    real = uk.multi_tensor_update
+    b1 = {"launches": 0, "max_ulps": 0, "path": None}
+
+    def checked(kind, nslots, w, g, slots, wc, lrb, wdb, hyp, plain=False):
+        ref = [w.clone()] + [t.clone() for t in slots]
+        path = real(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
+                    plain=plain)
+        uk.update_plain(kind, nslots, ref[0], g, ref[1:], None, lrb, wdb,
+                        hyp)
+        b1["launches"] += 1
+        b1["path"] = path
+        b1["max_ulps"] = max(b1["max_ulps"], max(
+            _ulps(torch, a, c) for a, c in zip([w, *slots], ref)))
+        return path
+
+    uk.multi_tensor_update = checked
+    try:
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+    finally:
+        uk.multi_tensor_update = real
+    if b1["launches"] != 1 or b1["path"] != "kernel" \
+            or b1["max_ulps"] > B1_ADAM_ULPS:
+        raise AssertionError("the first LSTM update, kernel B1 vs plain on "
+                             "the shared slabs: %s" % b1)
+    active = mod._active._exec_group
+    out = mod.get_outputs()[0].data.clone()
+    grads = {n: g.data.clone() for n, g in zip(active.param_names,
+                                               active.grad_arrays)}
+    # the per-parameter update on the copies, with the gradients the
+    # step packed
+    ref_opt.update_multi(idx, ref_w, [group.grad_arrays[i] for i in idx],
+                         ref_s)
+    per_param = {"max_rel_to_change": 0.0, "max_ulps": 0, "outside": 0}
+    for i, w0, w, s in zip(idx, before, ref_w, ref_s):
+        pairs = [(group.param_arrays[i].data, w.data, w0)] + [
+            (a, c, torch.zeros_like(c))
+            for a, c in zip(primary._updater.states[i], s)]
+        for got, want, start in pairs:
+            change = float((want - start).abs().max())
+            diff = (got - want).abs()
+            per_param["max_rel_to_change"] = max(
+                per_param["max_rel_to_change"],
+                float(diff.max()) / max(change, 1e-30))
+            per_param["max_ulps"] = max(per_param["max_ulps"],
+                                        _ulps(torch, got, want))
+            # an element may also sit one ulp from the other side's
+            # (w near 1 rounds at 2^-23 when its change is 1e-3)
+            per_param["outside"] += int(
+                ((diff > TOL_ADAM_PER_PARAM * change)
+                 & (_ulp_map(torch, got, want) > 1)).sum())
+    del ref_w, ref_s, before
+    if per_param["outside"]:
+        raise AssertionError("the first LSTM update against the "
+                             "per-parameter update: %s" % per_param)
+
+    # the same step's forward and backward on the CPU
+    sym, data_names, label_names = sym_gen(batch.bucket_key)
+    cmod = Module(sym, data_names, label_names, context=cpu())
+    cmod.bind(data_shapes=batch.provide_data,
+              label_shapes=batch.provide_label)
+    cmod.init_params(arg_params=args, aux_params=aux)
+    cmod.forward(batch, is_train=True)
+    cmod.backward()
+    cgroup = cmod._exec_group
+    errs = {"outputs": _rel_err(out.cpu(), cmod.get_outputs()[0].data)}
+    for n, g in zip(cgroup.param_names, cgroup.grad_arrays):
+        errs[n] = _rel_err(grads[n].cpu(), g.data)
+    del cmod
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= TOL_LSTM_CPU:
+        raise AssertionError("the first LSTM step, card against CPU: %s "
+                             "off by %.3g > %g" % (worst, errs[worst],
+                                                   TOL_LSTM_CPU))
+    return {"bucket": batch.bucket_key, "b1_vs_plain": b1,
+            "vs_per_param_update": per_param,
+            "vs_cpu": {"max_rel_err": errs[worst], "tensor": worst,
+                       "tol": TOL_LSTM_CPU}}
+
+
+def _train_lstm(torch, dev, label, sym_gen, epochs):
+    """One configuration through BucketingModule.fit on the card: bind,
+    Xavier weights and Adam (the calls fit makes), the first step under
+    gates 2 and 3, then ``epochs`` epochs of fit; ms per step by bucket
+    in the last epoch, tokens/s of the last epoch (tokens counted as the
+    bench counts them), perplexity per epoch, B1 launches against steps,
+    the sharing and learning gates, peak memory, and a profiled repeat
+    of a few batches."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    sentences = _lstm_sentences()
+    tokens = sum(min(len(s), LSTM_BUCKETS[-1]) for s in sentences)
+    it = mt.rnn.BucketSentenceIter(sentences, batch_size=LSTM_BATCH,
+                                   buckets=LSTM_BUCKETS, seed=0)
+    mod = mt.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mt.gpu(0))
+    torch.manual_seed(0)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(initializer=mt.initializer.Xavier())
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": LSTM_LR})
+    step = mod._primary._train_step
+    if step is None or step.plan is None or step.plan.kind != "adam":
+        raise AssertionError("%s: the train step armed no Adam slab plan"
+                             % label)
+    n_params = sum(int(np.prod(s.shape))
+                   for s in step.plan.unpack_all(step._w).values())
+    first = _lstm_first_step(torch, dev, mod, next(it), sym_gen)
+
+    metric = mt.metric.Perplexity(ignore_label=-1)
+    clock = {"last": None, "epoch_start": None}
+    step_s, epoch_s, perplexity, steps = {}, [], [], [0]
+
+    def batch_end(param):
+        now = time.perf_counter()
+        steps[0] += 1
+        if param.epoch == epochs - 1 and param.nbatch > 0:
+            key = param.locals["batch"].bucket_key
+            step_s.setdefault(key, []).append(now - clock["last"])
+        clock["last"] = now
+
+    def epoch_end(epoch, *_):
+        now = time.perf_counter()
+        epoch_s.append(now - clock["epoch_start"])
+        clock["epoch_start"] = now
+        perplexity.append(metric.get()[1])
+
+    uk.LAUNCHES["multi_tensor_update"] = 0
+    uk.UPDATE_PATH["last"] = None
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    clock["epoch_start"] = clock["last"] = time.perf_counter()
+    mod.fit(it, eval_metric=metric, optimizer="adam",
+            optimizer_params={"learning_rate": LSTM_LR},
+            initializer=mt.initializer.Xavier(), num_epoch=epochs,
+            batch_end_callback=batch_end, epoch_end_callback=epoch_end)
+    torch.cuda.synchronize()
+    launches = uk.LAUNCHES["multi_tensor_update"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    path = uk.UPDATE_PATH["last"]
+    log("train lstm %s launches: B1 %d, steps %d, path %s"
+        % (label, launches, steps[0], path))
+    if launches != steps[0] or path != "kernel":
+        raise AssertionError("%s: kernel B1 launched %d times in %d steps "
+                             "(path %s)" % (label, launches, steps[0], path))
+    # gate 4: every bucket on the primary's train step and its slab views
+    views = step.plan.unpack_all(step._w)
+    grad_views = step.plan.unpack_all(step._g)
+    unshared = [(key, name) for key, m in mod._buckets.items()
+                for name, v in views.items()
+                if m._train_step is not step
+                or m._exec_group.exec_.arg_dict[name].data.data_ptr()
+                != v.data_ptr()
+                or m._exec_group.exec_.grad_dict[name].data.data_ptr()
+                != grad_views[name].data_ptr()]
+    if sorted(mod._buckets) != LSTM_BUCKETS or unshared:
+        raise AssertionError("%s: buckets %s, parameters not on the shared "
+                             "slab (or demoted): %s"
+                             % (label, sorted(mod._buckets), unshared[:5]))
+    if not (all(np.isfinite(perplexity))
+            and (len(perplexity) < 2 or perplexity[-1] < perplexity[0])):
+        raise AssertionError("%s: perplexity per epoch %s" % (label,
+                                                              perplexity))
+
+    batches = []
+    it.reset()
+    for b in it:
+        if len(batches) < LSTM_PROFILE_BATCHES:
+            batches.append(b)
+
+    def repeat():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in batches:
+            mod.forward_backward(b)
+            mod.update()
+            mod.update_metric(metric, b.label)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    wall = repeat()
+    profile = _profile(torch, repeat, groups=LSTM_KERNEL_GROUPS)
+    busy = profile["device_busy_s"]
+    kernels_busy = busy - profile["groups"][LSTM_HOST_COPIES]["device_ms"] \
+        * 1e-3 if isinstance(busy, float) else busy
+    reading = {
+        "config": label, "epochs": epochs, "params": n_params,
+        "buckets_bound": sorted(mod._buckets), "steps": steps[0],
+        "b1_launches": launches, "first_step": first,
+        "epoch_s": epoch_s, "perplexity_per_epoch": perplexity,
+        "tokens_per_epoch": tokens,
+        # epoch 0 also binds each bucket and, in configuration 2, plans
+        # cuDNN's RNN at each bucket's length
+        "tokens_per_s_last_epoch": tokens / epoch_s[-1],
+        "step_ms_by_bucket_last_epoch": {
+            str(k): {"steps": len(v), "mean_ms": 1e3 * sum(v) / len(v),
+                     "min_ms": 1e3 * min(v)}
+            for k, v in sorted(step_s.items())},
+        "repeat": {"batches": [b.bucket_key for b in batches],
+                   "wall_s": wall, "device_busy_s": busy,
+                   "idle_share": 1.0 - busy / wall
+                   if isinstance(busy, float) else busy,
+                   "profiled_idle_share": profile.get("device_idle_share",
+                                                      busy),
+                   "kernels_busy_s": kernels_busy,
+                   "kernels_idle_share": 1.0 - kernels_busy / wall
+                   if isinstance(busy, float) else busy},
+        "peak_memory_gb": peak_gb}
+    log("train lstm %s: %s" % (label, json.dumps(reading)))
+    log("train lstm %s profile: %s" % (label, json.dumps(profile)))
+    return reading, launches
+
+
+def phase_train_lstm(torch, dev):
+    """The bucketed LSTM LM on the card: gate 1 (the fused RNN op against
+    the unfused cells), then configuration 1 (the bench's LSTMCell
+    stack, 2 epochs) and configuration 2 (the fused default of
+    models.lstm_lm, 1 epoch) through BucketingModule.fit, every bucket
+    on one Adam slab (kernel B1 once a step)."""
+    from mxnet_tpu_torch.models import lstm_lm
+
+    rnn = _rnn_fused_vs_unfused(torch, dev)
+    torch.cuda.empty_cache()
+    bench, bench_launches = _train_lstm(
+        torch, dev, "bench", _bench_lstm_sym_gen(), LSTM_EPOCHS)
+    torch.cuda.empty_cache()
+    sym_gen, _ = lstm_lm.sym_gen_factory(ignore_label=-1)
+    fused, fused_launches = _train_lstm(torch, dev, "fused", sym_gen,
+                                        LSTM_FUSED_EPOCHS)
+    return {"fused_vs_unfused": rnn, "bench": bench, "fused": fused}, \
+        {"train_lstm_bench": bench_launches,
+         "train_lstm_fused": fused_launches}
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1920,6 +2376,9 @@ def main():
     phase_routing(torch, dev)
     torch.cuda.empty_cache()
     resnet, resnet_launches = phase_train_resnet(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, lstm_launches = phase_train_lstm(torch, dev)
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -2015,6 +2474,8 @@ def main():
                    and c["wc"] == "bfloat16" and c["clip"] < 0)
     b1_by_path = {"train_lm": train_launches["multi_tensor_update"],
                   "train_resnet": resnet_launches["multi_tensor_update"]}
+    b1_by_path.update(lstm_launches)
+    b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     kernels.append(dict(
         _entry("multi_tensor_update",
                "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
@@ -2026,6 +2487,10 @@ def main():
         per_param_ms=b1_main["per_param_ms"],
         grad_pack_ms=b1_main["grad_pack_ms"],
         library=b1_main["library"],
+        lstm_case={k: b1_lstm[k] for k in (
+            "kind", "master", "blocks", "elements", "max_ulps",
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "device_ms")},
         max_abs_err_all_cases=max(c["max_abs_err"] for c in b1_cases),
         max_ulps_all_cases=max(c["max_ulps"] for c in b1_cases)))
     log("total wall: %.1f s" % (time.perf_counter() - t0))

@@ -10,7 +10,11 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
 * training through ``Module`` (:mod:`~mxnet_tpu_torch.module`,
   ``executor``, ``train_step``, ``optimizer``, ``lr_scheduler``,
   ``initializer``, ``metric``, ``io``, ``ndarray``) of
-  ``models.attention_lm`` and ``models.resnet``.
+  ``models.attention_lm`` and ``models.resnet``;
+* bucketed recurrent training: the ``RNN`` op, the cells and
+  ``BucketSentenceIter`` (:mod:`~mxnet_tpu_torch.rnn`) and
+  ``BucketingModule``, whose buckets share one slab plan, over
+  ``models.lstm_lm``.
 
 The hand-written Hopper kernels (``csrc/``): the fused LN->linear
 forward and backward (:mod:`~mxnet_tpu_torch.ops.fused_kernel`), flash
@@ -30,7 +34,7 @@ sym = symbol
 
 from . import decode, models, programs, serve, weights  # noqa: E402
 from . import (executor, initializer, io, lr_scheduler,  # noqa: E402
-               metric, module, ndarray, optimizer, train_step)
+               metric, module, ndarray, optimizer, rnn, train_step)
 
 mod = module
 nd = ndarray
@@ -39,4 +43,5 @@ __all__ = ["AttrScope", "Context", "MXNetError", "NameManager", "base",
            "config", "context", "cpu", "decode", "executor", "gpu",
            "initializer", "io", "lr_scheduler", "metric", "mod", "models",
            "module", "nd", "ndarray", "ops", "optimizer", "programs",
-           "registry", "serve", "sym", "symbol", "train_step", "weights"]
+           "registry", "rnn", "serve", "sym", "symbol", "train_step",
+           "weights"]

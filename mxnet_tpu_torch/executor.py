@@ -69,12 +69,15 @@ class Executor:
     ``arg_dict``/``grad_dict``/``aux_dict`` map names to
     :class:`~mxnet_tpu_torch.ndarray.NDArray`; ``grad_req`` is "write" or
     "null" per argument ("add" is not ported).  ``plain`` runs every op
-    that owns a kernel through its plain version."""
+    that owns a kernel through its plain version.  ``generator`` (a
+    ``torch.Generator`` on the device, None for torch's default one) is
+    what Dropout and the RNN op's dropout draw their masks from."""
 
     def __init__(self, symbol, device, args, args_grad=None,
                  grad_req="write", aux_states=None, plain=False):
         self._symbol = symbol
         self.plain = plain
+        self.generator = None
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
         self.arg_dict = ({n: args[n] for n in arg_names}
@@ -107,7 +110,8 @@ class Executor:
                 {n: a.data for n, a in self.aux_dict.items()})
 
     def op_context(self, is_train):
-        return OpContext(is_train=is_train, plain=self.plain)
+        return OpContext(is_train=is_train, plain=self.plain,
+                         generator=self.generator)
 
     def _set_aux(self, new_aux):
         for n in self._aux_names:
@@ -158,22 +162,33 @@ class Executor:
 
 
 def simple_bind(symbol, device, grad_req="write", type_dict=None,
-                plain=False, **shapes):
+                plain=False, shared_exec=None, **shapes):
     """Allocate zeroed argument, gradient and aux arrays on ``device``
     from the input ``shapes`` and bind them.  ``grad_req`` is a string or
-    a per-name dict; ``type_dict`` gives input dtypes (default f32)."""
+    a per-name dict; ``type_dict`` gives input dtypes (default f32).
+    With ``shared_exec``, every argument (with its gradient) and aux
+    state that it holds under the same name and shape is taken from it
+    by identity — the same NDArray, so a later rebinding of its tensor
+    reaches both executors (bucketing); the rest is allocated."""
     arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
     arg_names = symbol.list_arguments()
     aux_names = symbol.list_auxiliary_states()
     type_dict = type_dict or {}
     req = ({n: grad_req for n in arg_names} if isinstance(grad_req, str)
            else {n: grad_req.get(n, "null") for n in arg_names})
+
+    def take(table, name, shape, dtype):
+        arr = getattr(shared_exec, table, {}).get(name)
+        if arr is not None and arr.shape == tuple(shape):
+            return arr
+        return zeros(shape, device, dtype)
+
     args, grads = {}, {}
     for name, shape in zip(arg_names, arg_shapes):
         dtype = type_dict.get(name)
-        args[name] = zeros(shape, device, dtype)
+        args[name] = take("arg_dict", name, shape, dtype)
         if req[name] != "null":
-            grads[name] = zeros(shape, device, dtype)
-    aux = {name: zeros(shape, device, type_dict.get(name))
+            grads[name] = take("grad_dict", name, shape, dtype)
+    aux = {name: take("aux_dict", name, shape, type_dict.get(name))
            for name, shape in zip(aux_names, aux_shapes)}
     return Executor(symbol, device, args, grads, req, aux, plain=plain)

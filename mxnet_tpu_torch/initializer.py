@@ -1,6 +1,6 @@
 """Weight initializers (the counterparts of ``mxnet_tpu/initializer.py``'s
 ``InitDesc``, ``Initializer``, ``Uniform``, ``Normal``, ``Xavier``,
-``Zero``, ``One`` and ``Constant``).
+``Zero``, ``One``, ``Constant``, ``LSTMBias`` and ``FusedRNN``).
 
 A parameter's role comes from its name suffix, as in the JAX package:
 ``*_weight`` takes the scheme's random values, ``*_bias``/``*_beta``
@@ -18,9 +18,11 @@ import numpy as np
 import torch
 
 from .base import MXNetError
+from .ndarray import NDArray
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Xavier",
-           "Constant", "One", "Zero", "create", "init_registry"]
+           "Constant", "One", "Zero", "LSTMBias", "FusedRNN", "create",
+           "init_registry"]
 
 init_registry = {}
 
@@ -195,3 +197,72 @@ class Zero(Constant):
     def __init__(self):
         super().__init__(0.0)
         self._kwargs = {}
+
+
+def _lstm_bias(shape, forget_bias):
+    """Zero bias with the forget gate (the second quarter, gate order
+    i, f, c, o) set to ``forget_bias``."""
+    bias = np.zeros(shape, np.float32)
+    nh = shape[0] // 4
+    bias[nh:2 * nh] = forget_bias
+    return bias
+
+
+@register
+class LSTMBias(Initializer):
+    """An LSTM bias with a configurable forget-gate bias."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def generate(self, name, shape):
+        return torch.from_numpy(_lstm_bias(shape, self.forget_bias))
+
+    # attr dispatch enters through _init_weight whatever the target is
+    _init_bias = Initializer._init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """Initialize a FusedRNNCell's packed parameter blob: unpack it, run
+    the inner initializer (or the global one) over each weight, set each
+    LSTM bias as ``LSTMBias`` does, and pack it again."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = init_registry[klass.lower()](**kwargs)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._spec = dict(num_hidden=num_hidden, num_layers=num_layers,
+                          mode=mode, bidirectional=bidirectional,
+                          forget_bias=forget_bias)
+
+    def _init_weight(self, name, arr):
+        from .rnn.rnn_cell import FusedRNNCell
+
+        inner = self._init or getattr(name, "global_init", None)
+        if inner is None:
+            raise MXNetError("FusedRNN needs an inner initializer (or a "
+                             "global one via InitDesc) for its weights")
+        spec = self._spec
+        # a bare prefix: this cell only translates the layout
+        cell = FusedRNNCell(spec["num_hidden"], spec["num_layers"],
+                            spec["mode"], spec["bidirectional"],
+                            forget_bias=spec["forget_bias"], prefix="")
+        pieces = cell.unpack_weights({"parameters": arr.asnumpy()})
+        for pname, piece in pieces.items():
+            if spec["mode"] == "lstm" and pname.endswith("bias"):
+                piece[:] = _lstm_bias(piece.shape, spec["forget_bias"])
+            else:
+                # an NDArray over the piece's memory: written in place
+                inner(pname, NDArray(torch.from_numpy(piece)))
+        arr[:] = cell.pack_weights(pieces)["parameters"]
+
+    # '<prefix>parameters' has no role suffix; direct calls route here too
+    _init_default = _init_weight

@@ -1,7 +1,9 @@
 """DataParallelExecutorGroup on one device (the single-device part of
 ``mxnet_tpu/module/executor_group.py``): binds the executor, loads
-batches into it and runs forward / backward.  There is no mesh: the
-port's parallel paths are later work."""
+batches into it and runs forward / backward.  A group bound with a
+``shared_group`` takes that group's parameter, gradient and aux arrays
+by identity wherever name and shape match (bucketing).  There is no
+mesh: the port's parallel paths are later work."""
 from __future__ import annotations
 
 from ..base import MXNetError
@@ -12,7 +14,7 @@ from ..io import as_desc_list
 class DataParallelExecutorGroup:
     def __init__(self, symbol, device, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
-                 grad_req="write", plain=False):
+                 grad_req="write", plain=False, shared_group=None):
         self.symbol = symbol
         self.param_names = list(param_names)
         self.for_training = for_training
@@ -40,8 +42,10 @@ class DataParallelExecutorGroup:
                   + self.label_shapes}
         types = {d.name: d.dtype for d in self.data_shapes
                  + self.label_shapes}
-        self.exec_ = simple_bind(symbol, device, grad_req=self.grad_req,
-                                 type_dict=types, plain=plain, **shapes)
+        self.exec_ = simple_bind(
+            symbol, device, grad_req=self.grad_req, type_dict=types,
+            plain=plain, shared_exec=(shared_group.exec_ if shared_group
+                                      is not None else None), **shapes)
         exe = self.exec_
         self.param_arrays = [exe.arg_dict[n] for n in self.param_names]
         self.grad_arrays = [exe.grad_dict.get(n) for n in self.param_names]

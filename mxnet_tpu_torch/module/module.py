@@ -13,6 +13,12 @@ updater's states become views of the plan's slabs, so the eager update,
 ``get_params`` and ``set_params`` read and write the storage the
 multi-tensor kernel updates.
 
+``bind(..., shared_module=)`` takes the shared module's parameter and
+aux arrays (the same NDArrays) wherever name and shape match, and its
+host parameter dicts; ``borrow_optimizer`` takes its optimizer, updater
+and train step, which then runs this module's graph over the one set of
+slabs (``BucketingModule``).
+
 The module runs on the card (``gpu(0)``) unless ``context=cpu()``; with
 no card and no CPU context it raises, as ``DecodePredictor`` does.
 ``plain=True`` runs every op that owns a hand-written kernel through its
@@ -73,7 +79,8 @@ class Module(BaseModule):
 
     # ------------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
-             inputs_need_grad=False, force_rebind=False, grad_req="write"):
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
         if force_rebind:
             self.binded = False
             self._exec_group = None
@@ -84,13 +91,24 @@ class Module(BaseModule):
         if inputs_need_grad:
             raise NotImplementedError("inputs_need_grad is not ported")
         self.for_training = for_training
+        shared_group = None
+        if shared_module is not None:
+            if not (shared_module.binded
+                    and shared_module.params_initialized):
+                raise MXNetError("bind and initialize the shared module "
+                                 "first")
+            shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._device, data_shapes, label_shapes,
             self._param_names, for_training,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            plain=self._plain)
+            plain=self._plain, shared_group=shared_group)
         self.binded = True
-        if self.params_initialized:
+        if shared_module is not None:
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     def init_params(self, initializer=None, arg_params=None,
@@ -190,13 +208,24 @@ class Module(BaseModule):
         self._step_update_done = False
         self.optimizer_initialized = True
 
+    def borrow_optimizer(self, shared_module):
+        """Share ``shared_module``'s optimizer, updater and train step
+        (bucketing): this module's steps update the same slabs."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("the shared module has no optimizer yet")
+        self._optimizer = shared_module._optimizer
+        self._updater = shared_module._updater
+        self._train_step = shared_module._train_step
+        self._step_update_done = False
+        self.optimizer_initialized = True
+
     # ------------------------------------------------------------------
     def forward_backward(self, data_batch):
         """One training forward + backward.  With a train step this runs
         the whole step, the optimizer update included; the following
         ``update()`` is then a no-op."""
         if self._train_step is not None:
-            self._train_step.run(data_batch)
+            self._train_step.run(data_batch, group=self._exec_group)
             self._step_update_done = True
         else:
             self.forward(data_batch, is_train=True)

@@ -1,7 +1,8 @@
-"""Operator library of the port — registers the ops of the LM's serving
-and training paths on import.  Kernel modules load their CUDA libraries
+"""Operator library of the port — registers the ops of the serving and
+training paths (the attention LM, ResNet, the RNN cells and the fused
+RNN op) on import.  Kernel modules load their CUDA libraries
 only when a kernel is first launched."""
-from . import attention, elemwise, fused_lm, nn, tensor
+from . import attention, elemwise, fused_lm, nn, rnn_op, tensor
 
 _registered = False
 
@@ -16,6 +17,7 @@ def register_all():
     nn.register_all()
     attention.register_all()
     fused_lm.register_all()
+    rnn_op.register_all()
 
 
 register_all()

@@ -1,6 +1,6 @@
 """Layer ops: ``FullyConnected``, ``Convolution``, ``Activation``,
-``Pooling``, ``BatchNorm`` and the ``SoftmaxOutput`` loss head (names,
-schemas and hints as in ``mxnet_tpu/ops/nn.py``).
+``Pooling``, ``BatchNorm``, ``Dropout`` and the ``SoftmaxOutput`` loss
+head (names, schemas and hints as in ``mxnet_tpu/ops/nn.py``).
 
 FullyConnected and Convolution are plain ``torch.matmul`` /
 ``F.conv2d``, differentiated by autograd: the JAX package leaves these
@@ -10,6 +10,9 @@ its average divides by kh * kw, padding included, as ``reduce_window``
 does.  BatchNorm's training form is :class:`BatchNormTrainFn`, the JAX
 package's custom VJP: shifted single-pass statistics with a refine pass
 selected on the device, compute-dtype residuals and f32 statistics.
+Dropout draws its Bernoulli mask from the executor's generator
+(``OpContext.generator``) and is the identity outside training or at
+p = 0; its second output is the mask scaled by 1 / (1 - p).
 SoftmaxOutput's gradient is :class:`SoftmaxOutputFn`, the head's custom
 VJP: it ignores the upstream gradient and returns (softmax -
 onehot(label)) masked by ``ignore_label``, normalised and scaled by
@@ -386,6 +389,23 @@ def register_all():
         outputs=["output", "mean", "var"],
         aux=["moving_mean", "moving_var"],
         infer_shape=_bn_shape, hint="batchnorm"))
+
+    def _dropout(attrs, inputs, aux, octx):
+        (x,) = inputs
+        p = attrs.get("p", 0.5)
+        if not octx.is_train or p <= 0.0:
+            return [x, torch.ones_like(x)], []
+        keep = 1.0 - p
+        mask = torch.empty_like(x).bernoulli_(keep,
+                                              generator=octx.generator) / keep
+        return [x * mask, mask], []
+
+    register_op(OpDef(
+        "Dropout", _dropout,
+        schema=ParamSchema(Param("p", float, default=0.5),
+                           Param("mode", str, default="training")),
+        num_inputs=1, num_outputs=2, num_visible_outputs=1,
+        outputs=["output", "mask"], hint="dropout"))
 
     def _softmax_output(attrs, data, label):
         return SoftmaxOutputFn.apply(data, label, attrs)

@@ -1,8 +1,14 @@
-"""Tensor ops: ``mean``, ``Reshape``, ``Flatten`` and ``Embedding``
-(names, schemas and hints as in ``mxnet_tpu/ops/tensor.py``).  Each is plain
-torch, so autograd differentiates it; Embedding's weight gradient is
-the scatter-add of torch indexing."""
+"""Tensor ops: ``mean``, ``Reshape``, ``Flatten``, ``Embedding`` and the
+ops the RNN cells build — ``expand_dims``, ``SwapAxis``, ``Concat``
+(variadic), ``SliceChannel`` (multi-output), ``zeros_like``,
+``ones_like`` and ``where`` (names, schemas and hints as in
+``mxnet_tpu/ops/tensor.py``).  Each is plain torch, so autograd
+differentiates it: Embedding's weight gradient is the scatter-add of
+torch indexing, and a SliceChannel output nothing reads takes a zero
+gradient."""
 from __future__ import annotations
+
+import torch
 
 from ..attrs import Param, ParamSchema
 from ..registry import OpDef, register_op, simple_compute
@@ -126,3 +132,66 @@ def register_all():
                           Param("dtype", str, default="float32")),
                       num_inputs=2, arguments=["data", "weight"],
                       infer_shape=_embedding_shape, hint="embedding"))
+
+    register_op(OpDef("expand_dims",
+                      simple_compute(lambda attrs, x:
+                                     x.unsqueeze(attrs["axis"])),
+                      schema=ParamSchema(Param("axis", int, required=True)),
+                      num_inputs=1))
+
+    register_op(OpDef("SwapAxis",
+                      simple_compute(lambda attrs, x: x.transpose(
+                          attrs.get("dim1", 0), attrs.get("dim2", 0))),
+                      schema=ParamSchema(Param("dim1", int, default=0),
+                                         Param("dim2", int, default=0)),
+                      num_inputs=1, hint="swapaxis"),
+                aliases=["swapaxes"])
+
+    register_op(OpDef("Concat",
+                      simple_compute(lambda attrs, *xs:
+                                     torch.cat(xs, dim=attrs.get("dim", 1))),
+                      schema=ParamSchema(Param("num_args", int,
+                                               required=True),
+                                         Param("dim", int, default=1)),
+                      num_inputs=lambda a: a["num_args"],
+                      arguments=lambda a: ["arg%d" % i
+                                           for i in range(a["num_args"])],
+                      key_var_num_args="num_args", hint="concat"),
+                aliases=["concat"])
+
+    def _split(attrs, x):
+        n = attrs["num_outputs"]
+        axis = attrs.get("axis", 1)
+        if x.shape[axis] % n:
+            raise ValueError("SliceChannel: axis %d of %s does not split "
+                             "into %d equal parts" % (axis, tuple(x.shape),
+                                                      n))
+        parts = torch.split(x, x.shape[axis] // n, dim=axis)
+        if attrs.get("squeeze_axis", False):
+            parts = [p.squeeze(axis) for p in parts]
+        return tuple(parts)
+
+    register_op(OpDef("SliceChannel", simple_compute(_split),
+                      schema=ParamSchema(Param("num_outputs", int,
+                                               required=True),
+                                         Param("axis", int, default=1),
+                                         Param("squeeze_axis", bool,
+                                               default=False)),
+                      num_inputs=1, num_outputs=lambda a: a["num_outputs"],
+                      hint="slicechannel"),
+                aliases=["split"])
+
+    register_op(OpDef("zeros_like",
+                      simple_compute(lambda attrs, x: torch.zeros_like(x)),
+                      num_inputs=1))
+    register_op(OpDef("ones_like",
+                      simple_compute(lambda attrs, x: torch.ones_like(x)),
+                      num_inputs=1))
+
+    def _where(attrs, cond, x, y):
+        if cond.dim() == 1 and x.dim() > 1:
+            cond = cond.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(cond != 0, x, y)
+
+    register_op(OpDef("where", simple_compute(_where), num_inputs=3,
+                      arguments=["condition", "x", "y"]))

@@ -23,17 +23,21 @@ class OpContext:
     """Per-invocation execution context.
 
     ``is_train`` is the training flag (BatchNorm uses batch statistics
-    and updates its moving ones only when it is set).  ``plain`` makes
-    ops that own a hand-written CUDA kernel run the kernel's plain
-    PyTorch version instead, whatever the device — the reference the
-    kernels are held to (``DecodePredictor(plain=True)``).
+    and updates its moving ones only when it is set; Dropout and the
+    RNN op's inter-layer dropout mask only then).  ``plain`` makes ops
+    that own a hand-written CUDA kernel run the kernel's plain PyTorch
+    version instead, whatever the device — the reference the kernels
+    are held to (``DecodePredictor(plain=True)``).  ``generator`` is the
+    ``torch.Generator`` random ops draw from (None: torch's default
+    generator of the tensor's device).
     """
 
-    __slots__ = ("is_train", "plain")
+    __slots__ = ("is_train", "plain", "generator")
 
-    def __init__(self, is_train=False, plain=False):
+    def __init__(self, is_train=False, plain=False, generator=None):
         self.is_train = is_train
         self.plain = plain
+        self.generator = generator
 
 
 def _default_arg_names(n):
@@ -50,7 +54,7 @@ class OpDef:
     def __init__(self, name, fcompute, schema=None, num_inputs=1,
                  num_outputs=1, num_visible_outputs=None, arguments=None,
                  outputs=None, aux=None, infer_shape=None, hint=None,
-                 doc=""):
+                 doc="", key_var_num_args=None):
         self.name = name
         self.fcompute = fcompute
         self.schema = schema or ParamSchema()
@@ -62,6 +66,8 @@ class OpDef:
         self._outputs = outputs
         self._aux = aux
         self.infer_shape_fn = infer_shape
+        # the attr a variadic op's input count fills in (Concat's num_args)
+        self.key_var_num_args = key_var_num_args
         self.hint = hint or name.lstrip("_").lower()
         self.doc = doc
 

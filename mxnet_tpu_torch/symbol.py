@@ -1,9 +1,11 @@
 """Symbol — declarative graph composition.
 
-The port's copy of the parts of ``mxnet_tpu/symbol.py`` that serving
-and ``Module`` use: variables, composition with auto-naming and
-auto-created argument variables, ``infer_shape``, ``attr_dict``, graph
-walks, and ``tojson``/``load_json``.
+The port's copy of the parts of ``mxnet_tpu/symbol.py`` that serving,
+``Module`` and the RNN cells use: variables (with an ``init`` attr),
+composition with auto-naming and auto-created argument variables
+(variadic ops fill their input count), multi-output indexing and
+``Group``, the arithmetic operators, ``infer_shape``, ``attr_dict``,
+graph walks, and ``tojson``/``load_json``.
 The JSON layout is the JAX package's byte for byte, so a graph saved by
 either package loads in the other.  ``sym.<Op>`` functions are generated
 from the registry by :func:`_init_symbol_module`.
@@ -16,7 +18,7 @@ from . import registry as _reg
 from .attrs import parse_tuple
 from .base import AttrScope, MXNetError, NameManager
 
-__all__ = ["Symbol", "Variable", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -49,6 +51,18 @@ class Symbol:
             return self._outputs[0][0].name
         return None
 
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("Cannot find output %s in %s"
+                                 % (index, names))
+            index = names.index(index)
+        return Symbol([self._outputs[index]])
+
+    def __len__(self):
+        return len(self._outputs)
+
     # -- graph walk --------------------------------------------------------
     def _topo(self):
         order, seen = [], set()
@@ -69,6 +83,17 @@ class Symbol:
         return [n.name for n in self._topo()
                 if n.is_variable and not n.is_aux_var]
 
+    def list_outputs(self):
+        names = []
+        for node, idx in self._outputs:
+            if node.is_variable:
+                names.append(node.name)
+            else:
+                outs = node.op.list_outputs(node.parsed_attrs())
+                suffix = outs[idx] if idx < len(outs) else str(idx)
+                names.append("%s_%s" % (node.name, suffix))
+        return names
+
     def list_auxiliary_states(self):
         return [n.name for n in self._topo() if n.is_aux_var]
 
@@ -78,9 +103,10 @@ class Symbol:
                 for node in self._topo() if node.attrs}
 
     # -- arithmetic --------------------------------------------------------
-    def _binop(self, other, opname, scalar_opname):
+    def _binop(self, other, opname, scalar_opname, rop=False):
         if isinstance(other, Symbol):
-            return _create(opname, [self, other], {})
+            lhs, rhs = (other, self) if rop else (self, other)
+            return _create(opname, [lhs, rhs], {})
         if isinstance(other, (int, float)):
             return _create(scalar_opname, [self],
                            {"scalar": str(float(other))})
@@ -90,6 +116,27 @@ class Symbol:
         return self._binop(other, "_plus", "_plus_scalar")
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "_minus", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binop(other, "_minus", "_rminus_scalar", rop=True)
+
+    def __mul__(self, other):
+        return self._binop(other, "_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __div__(self, other):
+        return self._binop(other, "_div", "_div_scalar")
+
+    __truediv__ = __div__
+
+    def __rdiv__(self, other):
+        return self._binop(other, "_div", "_rdiv_scalar", rop=True)
+
+    __rtruediv__ = __rdiv__
 
     def __repr__(self):
         name = self.name
@@ -182,16 +229,28 @@ class Symbol:
                           indent=2)
 
 
-def Variable(name, attr=None, shape=None, **kwargs):
-    """Create a variable symbol."""
+def Variable(name, attr=None, shape=None, init=None, **kwargs):
+    """Create a variable symbol; ``init`` (an initializer) rides on it as
+    its ``__init__`` attr and overrides the global initializer."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     attr = AttrScope.current().get(attr)
     attr = dict(attr) if attr else {}
     if shape is not None:
         attr["__shape__"] = str(tuple(shape))
+    if init is not None:
+        attr["__init__"] = init.dumps() if hasattr(init, "dumps") \
+            else str(init)
     attr.update(kwargs)
     return Symbol([(_Node(None, name, attr, []), 0)])
+
+
+def Group(symbols):
+    """One multi-output symbol from the outputs of ``symbols``."""
+    entries = []
+    for s in symbols:
+        entries.extend(s._outputs)
+    return Symbol(entries)
 
 
 def load_json(json_str):
@@ -221,6 +280,9 @@ def load(fname):
 
 def _create(op_name, sym_inputs, attrs, name=None):
     op = _reg.get_op(op_name)
+    if op.key_var_num_args and op.key_var_num_args not in attrs:
+        attrs = dict(attrs)
+        attrs[op.key_var_num_args] = str(len(sym_inputs))
     scope_attrs = AttrScope.current().get(None)
     node_attrs = dict(scope_attrs) if scope_attrs else {}
     node_attrs.update(attrs)
@@ -271,6 +333,9 @@ def _make_sym_func(op_name):
                 if maybe_names is None:
                     probe = {pk: pv for pk, pv in kwargs.items()
                              if not isinstance(pv, Symbol)}
+                    if op.key_var_num_args \
+                            and op.key_var_num_args not in probe:
+                        probe[op.key_var_num_args] = str(len(args) or 1)
                     try:
                         parsed_probe = op.parse_attrs(probe)
                         maybe_names = (op.list_arguments(parsed_probe)

@@ -11,6 +11,16 @@ the optimizer state, which is therefore the same whether a step ran here
 or through ``Module.update``: there is no store to hand off or flush.
 No jit and no donation; CUDA graphs are later work.
 
+**Buckets** (``BucketingModule``): one step serves every executor group
+bound against the primary's (``run(batch, group=...)``, after the JAX
+package's ``compatible`` / ``_entry_for`` / ``run`` ``:550-590``,
+``:758``).  A bucket's group shares the primary's parameter and gradient
+NDArrays by identity, so after arming they show the slab views, whether
+the bucket was bound before arming or after; its graph forwards through
+the views, its gradients land in the one grad slab, and one update runs
+over the shared slabs.  A group whose parameters are not all shared is
+not ``compatible`` and is refused.
+
 **The slab plan** (``ops/update_kernel.py``), armed whenever ``plan_for``
 accepts the optimizer and the masters; the per-parameter update remains
 only where it declines (NAG, masters that are not f32 / bf16).  Arming
@@ -39,6 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .base import MXNetError
 from .executor import forward_backward
 from .ndarray import torch_dtype
 from .ops import update_kernel
@@ -116,6 +127,21 @@ class TrainStep:
         for n, v in self._grad_views.items():
             grad_dict[n]._set_data(v)
 
+    def compatible(self, group):
+        """Whether a (bucket) executor group can train through this
+        step: every parameter and aux array the primary's NDArray itself
+        (shared binding shares them where the shapes match), and no
+        trainable parameter of its own."""
+        exe, prim = group.exec_, self._group.exec_
+        params = self._group.param_names
+        if any(exe.arg_dict.get(n) is not prim.arg_dict[n] for n in params):
+            return False
+        if any(exe.aux_dict.get(n) is not a
+               for n, a in prim.aux_dict.items()):
+            return False
+        inputs = set(group.data_names) | set(group.label_names)
+        return all(n in inputs or n in params for n in exe.arg_dict)
+
     def masters_changed(self):
         """The masters were written outside the step (an eager update,
         ``set_params``): recast the compute slab before the next
@@ -154,9 +180,15 @@ class TrainStep:
         self._hyper_cache = (lrs, wds, lrb, wdb)
         return lrb, wdb
 
-    def run(self, data_batch):
-        """One step on ``data_batch``; returns the outputs (tensors)."""
-        group = self._group
+    def run(self, data_batch, group=None):
+        """One step on ``data_batch`` through ``group``'s graph (the
+        primary's by default); returns the outputs (tensors)."""
+        if group is None:
+            group = self._group
+        elif group is not self._group and not self.compatible(group):
+            raise MXNetError(
+                "the bucket's parameters are not all shared with the "
+                "train step's; demote every bucket to the eager update")
         group.load_data_batch(data_batch)
         exe = group.exec_
         plan = self.plan

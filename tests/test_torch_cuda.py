@@ -1118,3 +1118,185 @@ def test_captured_sampled_verify_repeats_per_seed(card):
     for u, v in zip(a, b):
         np.testing.assert_array_equal(u, v)
     assert pred.trace_counts == traces and traces["verify"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the bucketed LSTM language model (models/lstm_lm.py, BucketingModule):
+# the fused RNN op on cuDNN against the unfused cell stack, and every
+# bucket training through the one slab plan (kernel B1)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def full_f32():
+    """Full f32 products and cuDNN calls (no TF32) for the test."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _rnn_fused_and_unfused(card, n, t, i, h, layers, seed=0):
+    """Outputs, final states and gradients (data, the flat blob) of the
+    fused LSTM graph and of the unfused LSTMCell stack carrying
+    ``unpack_weights`` of the same blob, both seeded with ones at every
+    output on the card."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.executor import simple_bind
+
+    fused = mt.rnn.FusedRNNCell(h, num_layers=layers, mode="lstm",
+                                prefix="lstm_", get_next_state=True)
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1, 1, (n, t, i)).astype(np.float32)
+    runs = []
+    for cell in (fused, fused.unfuse()):
+        out, states = cell.unroll(t, inputs=mt.sym.Variable("data"),
+                                  layout="NTC", merge_outputs=True)
+        exe = simple_bind(mt.sym.Group([out] + states), card,
+                          data=(n, t, i))
+        if cell is fused:
+            blob = rng.uniform(-0.3, 0.3, exe.arg_dict[
+                "lstm_parameters"].shape).astype(np.float32)
+            values = {"lstm_parameters": blob}
+        else:
+            values = fused.unpack_weights({"lstm_parameters": blob},
+                                          input_size=i)
+        values["data"] = x
+        for name, v in values.items():
+            exe.arg_dict[name][:] = v
+        outs = exe.forward(is_train=True)
+        exe.backward()
+        grads = {k: g.asnumpy() for k, g in exe.grad_dict.items()}
+        if cell is not fused:
+            grads["lstm_parameters"] = fused.pack_weights(
+                {k: v for k, v in grads.items() if k != "data"},
+                input_size=i)["lstm_parameters"]
+        runs.append(([o.asnumpy() for o in outs], grads))
+    (f_outs, f_grads), (u_outs, u_grads) = runs
+    # the fused states are (layers, n, h); the unfused h0, c0, h1, c1
+    u_states = [np.stack(u_outs[1::2][:layers]),
+                np.stack(u_outs[2::2][:layers])]
+    return f_outs, [u_outs[0]] + u_states, f_grads, u_grads
+
+
+@pytest.mark.parametrize("n,t,i,h", [(4, 7, 8, 6), (3, 12, 16, 32)])
+def test_fused_rnn_on_the_card_matches_unfused_cells(card, full_f32, n, t,
+                                                     i, h):
+    """The RNN op (cuDNN) against the unfused LSTMCell graph (cuBLAS and
+    torch element-wise ops) from one blob: outputs and final states 1e-5
+    absolute, the data's and the blob's gradients 1e-4 relative to their
+    largest magnitude."""
+    import numpy as np
+
+    f_outs, u_outs, f_grads, u_grads = _rnn_fused_and_unfused(
+        card, n, t, i, h, layers=2)
+    assert [o.shape for o in f_outs] == [(n, t, h), (2, n, h), (2, n, h)]
+    for a, b in zip(f_outs, u_outs):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    for name in ("data", "lstm_parameters"):
+        scale = float(np.abs(u_grads[name]).max())
+        assert float(np.abs(f_grads[name] - u_grads[name]).max()) \
+            <= 1e-4 * scale, name
+
+
+def test_bucketed_lstm_trains_through_one_slab(card, full_f32,
+                                              monkeypatch):
+    """A small unfused LSTM LM through BucketingModule on the card (two
+    buckets): every bucket's parameters and gradients are the primary's
+    slab views (equal data_ptr), no bucket is demoted, kernel B1
+    launches once a step, each launch equals its plain version on
+    copies of the slabs within one f32 ulp, and the first Adam update
+    lands where the per-parameter update (the optimizer's
+    ``update_multi`` on copies, with the gradients the step packed)
+    does.  That update rounds 1 - beta1 and 1 - beta2 from f64 constants
+    (the JAX package's eager ``adam_update``), the kernel in f32 (its
+    fused step), so the second moment differs by up to 5e-5 relative:
+    each element within 1e-4 of its tensor's change, or one ulp (a
+    weight near 1 whose change is 1e-3 rounds at 2^-23)."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import lstm_lm
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    vocab, batch = 50, 4
+    sym_gen, _ = lstm_lm.sym_gen_factory(16, 2, 16, vocab, fused=False,
+                                         ignore_label=-1)
+    rng = np.random.RandomState(0)
+    sents = [rng.randint(1, vocab, size=rng.randint(2, 9)).tolist()
+             for _ in range(48)]
+    it = mt.rnn.BucketSentenceIter(sents, batch, buckets=[4, 8], seed=0)
+    mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=8,
+                                 context=mt.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(initializer=mt.initializer.Xavier())
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 0.01})
+    primary = mod._primary
+    step = primary._train_step
+    assert step.plan is not None and step.plan.kind == "adam"
+    group = primary._exec_group
+    idx = sorted(primary._updater.states)
+    before_w = [group.param_arrays[i].data.clone() for i in idx]
+    weights = [NDArray(w.clone()) for w in before_w]
+    states = [tuple(s.clone() for s in primary._updater.states[i])
+              for i in idx]
+    opt = mt.optimizer.create("adam", sym=primary.symbol,
+                              rescale_grad=1.0 / batch,
+                              param_idx2name=dict(enumerate(
+                                  group.param_names)), learning_rate=0.01)
+    real = uk.multi_tensor_update
+    ulps = []
+
+    def checked(kind, nslots, w, g, slots, wc, lrb, wdb, hyp, plain=False):
+        ref = [w.clone()] + [t.clone() for t in slots]
+        path = real(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
+                    plain=plain)
+        uk.update_plain(kind, nslots, ref[0], g, ref[1:], None, lrb, wdb,
+                        hyp)
+        ulps.append(max(_ulps(a, b) for a, b in zip([w, *slots], ref)))
+        return path
+
+    monkeypatch.setattr(uk, "multi_tensor_update", checked)
+    batches = list(it)
+    before = uk.LAUNCHES["multi_tensor_update"]
+    mod.forward_backward(batches[0])
+    mod.update()
+    torch.cuda.synchronize()
+    opt.update_multi(idx, weights, [group.grad_arrays[i] for i in idx],
+                     states)
+    for i, w0, w, s in zip(idx, before_w, weights, states):
+        name = group.param_names[i]
+        pairs = [(group.param_arrays[i].data, w.data, w0)] + [
+            (a, b, torch.zeros_like(b))
+            for a, b in zip(primary._updater.states[i], s)]
+        for got, want, start in pairs:
+            change = float((want - start).abs().max())
+            ia = got.contiguous().view(torch.int32).long()
+            ib = want.contiguous().view(torch.int32).long()
+            dist = (torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+                    - torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)).abs()
+            outside = ((got - want).abs() > 1e-4 * change) & (dist > 1)
+            assert not bool(outside.any()), name
+    for b in batches[1:]:
+        mod.forward_backward(b)
+        mod.update()
+    torch.cuda.synchronize()
+    assert uk.LAUNCHES["multi_tensor_update"] - before == len(batches)
+    assert uk.UPDATE_PATH["last"] == "kernel"
+    assert ulps and max(ulps) <= 1
+    assert set(mod._buckets) == {4, 8}
+    views = step.plan.unpack_all(step._w)
+    grads = step.plan.unpack_all(step._g)
+    for module in mod._buckets.values():
+        assert module._train_step is step
+        exe = module._exec_group.exec_
+        for name, view in views.items():
+            assert exe.arg_dict[name].data.data_ptr() == view.data_ptr()
+            assert exe.grad_dict[name].data.data_ptr() == \
+                grads[name].data_ptr()

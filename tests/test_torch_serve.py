@@ -167,7 +167,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.executor, mxnet_tpu_torch.train_step, "
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
             "mxnet_tpu_torch.metric, mxnet_tpu_torch.io, "
-            "mxnet_tpu_torch.ndarray, mxnet_tpu_torch.weights; "
+            "mxnet_tpu_torch.ndarray, mxnet_tpu_torch.weights, "
+            "mxnet_tpu_torch.rnn, mxnet_tpu_torch.ops.rnn_op, "
+            "mxnet_tpu_torch.module.bucketing_module, "
+            "mxnet_tpu_torch.models.lstm_lm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.')) "
             "or m == 'mxnet_tpu'); print(json.dumps(bad))")
