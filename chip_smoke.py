@@ -57,48 +57,67 @@ Phases (any failure ends the run with a non-zero exit code):
 6. train — ``Module.forward_backward`` + ``update`` steps of the
    full-width training configuration (vocab 8192, T 2048, batch 8, embed
    1024, 8 heads, FFN 4096, 4 layers, f32, SGD, seeded Xavier-gaussian
-   weights) on one repeated token batch, the optimizer update through
-   the slab plan (kernel B1), counting every kernel launch; the first
-   step's update is held bit for bit against the plain version on copies
-   of its slabs, its gradients against a ``plain=True`` module's; the
-   loss must fall; the bench's learning rate is recorded beside the one
-   timed; then one profiled step; then the attention routing: a Module
-   at head dims 32 and 256, which the flash kernels are not built for,
-   takes sdpa ("einsum") and matches a plain module's forward and
-   backward;
+   weights) on one repeated token batch through the compiled train step
+   (``train_step.CompiledTrainStep``: forward, backward, the gradient
+   pack and kernel B1 in one CUDA graph), counting every kernel launch
+   and graph replay; the first step runs unrecorded
+   (``programs.eager()``): its update is held bit for bit against the
+   plain version on copies of its slabs, its gradients against a
+   ``plain=True`` module's; the second sets up the graph (a warm-up run
+   and the capture), the timed steps replay it; the loss must fall; the
+   bench's learning rate is recorded beside the one timed; the captured
+   steps against the same steps under ``programs.eager()`` from the same
+   start (and two eager runs against each other, naming the gradients
+   that differ between them); profiled steps, captured and eager; then
+   the attention routing: a Module at head dims 32 and 256, which the
+   flash kernels are not built for, takes sdpa ("einsum") and matches a
+   plain module's forward and backward;
 7. train ResNet-50 — ``bench.py``'s configuration at full depth and
    width (batch 256, bf16 compute, f32 masters, SGD lr 0.1, momentum
    0.9, wd 1e-4, seeded Xavier(gaussian, in, 2) weights, one resident
-   batch) through the slab plan: a warm-up step whose update is held
-   against the plain version and, on copies of the masters and the
-   momentum from before it with the gradients it packed, against the
-   per-parameter update (the optimizer's ``update_multi``), bit for bit
-   in the masters, the momentum and the bf16 copy; timed steps (one B1
-   launch each, the moving statistics moving, finite losses); then one
-   profiled step.
+   batch) through the compiled step and its slab plan: an unrecorded
+   first step whose update is held against the plain version and, on
+   copies of the masters and the momentum from before it with the
+   gradients it packed, against the per-parameter update (the
+   optimizer's ``update_multi``), bit for bit in the masters, the
+   momentum and the bf16 copy; the graph's set-up, then timed replays
+   (one B1 launch each, the moving statistics moving, finite losses);
+   profiled steps, captured and eager; then, at the same batch with
+   cuDNN's deterministic algorithms, captured steps against eager ones
+   bit for bit and the card round trip (``save_checkpoint`` with the
+   optimizer states, ``Module.load``, one more step of each: bit for
+   bit), with the peak memory of the two modules alive at once.
 8. train LSTM — the bucketed LSTM language model (see LSTM_* below):
    the fused RNN op (cuDNN) against the unfused LSTMCell stack carrying
    the same blob at batch 32, T 40, 2 x 200 (outputs, final states, the
    data's and the blob's gradients); then the bench's LSTMCell
-   configuration (2 epochs) and ``models.lstm_lm``'s fused default (1
-   epoch) through ``BucketingModule.fit`` with Adam, every bucket on the
-   primary's one slab plan: the first step's B1 launch against its plain
-   version and against the per-parameter update on copies, its outputs
-   and gradients against the port on the CPU; B1 launches equal to the
-   steps; every bucket's parameters and gradients the slab views (equal
-   data_ptr), none demoted; perplexity finite and (configuration 1)
-   falling; tokens/s, ms per step by bucket, peak memory, and a profiled
-   repeat of 8 batches (idle share, device ms by kernel).
+   configuration and ``models.lstm_lm``'s fused default (2 epochs each)
+   through ``BucketingModule.fit`` with Adam, every bucket on the
+   primary's one store, compiled (a captured program a bucket, the
+   perplexity accumulated on the card) and again under
+   ``programs.eager()`` from the same start: the first step's B1 launch
+   against its plain version and against the per-parameter update on
+   copies, its outputs and gradients against the port on the CPU; B1
+   launches equal to the steps; one capture a bucket; every bucket's
+   parameters and gradients the slab views (equal data_ptr), none
+   demoted; perplexity finite and (configuration 1) falling; the
+   device-side perplexity against the host metric over 8 more batches;
+   tokens/s, ms per step by bucket, peak memory, and a profiled repeat
+   of those batches (idle share, device ms by kernel); the compiled and
+   eager runs' parameters bit for bit.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 TF32 is off throughout (``allow_tf32`` False for matmuls and cuDNN), so
 f32 products and convolutions are full f32.
 """
+import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -124,6 +143,10 @@ TRAIN_STEPS = 3     # timed steps after one warm-up step
 # width, one resident batch (x uniform(-1, 1), labels in [0, 1000))
 RESNET_BATCH, RESNET_STEPS = 256, 3
 RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# the captured-vs-eager gate and the checkpoint round trip: the timed
+# steps' shapes (two modules of batch 256 alive at once in the round
+# trip, twice the ~22 GB peak of one)
+RESNET_GATE_STEPS = 3
 # the bucketed LSTM language model.  Configuration 1 is
 # benchmarks/bench_bucketing.py:32-60 at full width: two LSTMCell(200)
 # layers ("l0_", "l1_") over a 10,000-word embedding of 200, an FC head
@@ -134,11 +157,12 @@ RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 # first a warm-up as in the bench.  Configuration 2 is
 # models.lstm_lm.sym_gen_factory()'s defaults (FusedRNNCell 2 x 200 over
 # the same embedding and vocabulary, the cuDNN RNN op) with the same
-# padded head, 1 epoch over the same iterator.  Train in f32: token ids
+# padded head, 2 epochs over the same iterator (the first captures each
+# bucket's step program).  Train in f32: token ids
 # up to 9,999 ride in float data
 LSTM_VOCAB, LSTM_EMBED, LSTM_HIDDEN, LSTM_LAYERS = 10000, 200, 200, 2
 LSTM_BATCH, LSTM_BUCKETS, LSTM_SENTENCES = 32, [10, 20, 30, 40], 2000
-LSTM_LR, LSTM_EPOCHS, LSTM_FUSED_EPOCHS = 0.001, 2, 1
+LSTM_LR, LSTM_EPOCHS, LSTM_FUSED_EPOCHS = 0.001, 2, 2
 LSTM_PARAMS = 4_653_200     # embed 2,000,000, 2 x 321,600, fc 2,010,000
 LSTM_PROFILE_BATCHES = 8    # the profiled repeat, over every bucket
 # the profiled LSTM steps' device time by kind of kernel; the copies to
@@ -214,6 +238,22 @@ TOL_F32, TOL_F32_LONG, TOL_BF16 = 1e-5, 1e-4, 2 ** -7
 # about 6e-2).  The analytically-zero *_k_bias gradient is measured on
 # its layer's *_q_bias gradient norm
 TOL_TRAIN_GRAD, TOL_TRAIN_GRAD_RELU = 1e-4, 1e-2
+# a compiled (captured) train step against its body run under
+# programs.eager() from the same start.  ResNet-50 (with cuDNN's
+# deterministic algorithms for the comparison) and the LSTM are held bit
+# for bit.  The LM's kernel F sums the LayerNorm scale / shift gradients
+# with atomics, so two eager runs of the LM differ from the first step,
+# and near the edge of stability (lr 0.001, above) the difference grows
+# with every step: one step from the same masters is held bit for bit
+# but those gradients (TOL_F32_LONG there), and after 2 + TRAIN_STEPS
+# steps per parameter ||captured - eager|| / ||eager - start|| (the train
+# gradients' two tiers) to CAPTURE_SPREAD times two eager runs' own
+# spread
+CAPTURE_SPREAD = 4.0
+# the perplexity the compiled step accumulates on the card against the
+# host metric fed the same steps' outputs: per-batch exp(mean nll) summed
+# in f32 on the card, in f64 on the host
+TOL_DEVICE_METRIC = 1e-5
 # the fused RNN op (cuDNN) against the unfused LSTMCell graph carrying the
 # same blob (cuBLAS products, torch element-wise ops), both full f32 at
 # batch 32, T 40, 2 x 200: outputs and final states absolute (values in
@@ -1527,9 +1567,55 @@ def _train_params(sym):
     return out
 
 
+def _snapshot(mod):
+    """Device copies of a module's parameters and aux states."""
+    exe = mod._exec_group.exec_
+    out = {n: a.data.clone() for n, a in exe.arg_dict.items()
+           if n in mod._exec_group.param_names}
+    out.update({"aux:" + n: a.data.clone() for n, a in exe.aux_dict.items()})
+    return out
+
+
+def _run_diff(torch, got, want, start, direct):
+    """``got`` against ``want`` (snapshots after the same steps from
+    ``start``): per tensor ||got - want|| / ||want - start|| (a *_k_bias
+    on its layer's *_q_bias change), the worst in each tier (``direct``:
+    the name prefixes the backward reaches before any ReLU), and the
+    tensors that are not bit for bit equal."""
+    errs, unequal = {}, []
+    for name, w in want.items():
+        if not torch.equal(got[name], w):
+            unequal.append(name)
+        ref = name[:-len("_k_bias")] + "_q_bias" \
+            if name.endswith("_k_bias") else name
+        denom = float(torch.linalg.vector_norm(
+            (want[ref] - start[ref]).double()))
+        errs[name] = float(torch.linalg.vector_norm(
+            (got[name] - w).double())) / max(denom, 1e-30)
+    tiers = {}
+    for tier, keep in (("before_relu", True), ("behind_relu", False)):
+        sub = {n: e for n, e in errs.items()
+               if n.startswith(direct) == keep}
+        worst = max(sub, key=sub.get) if sub else None
+        tiers[tier] = {"max": sub[worst] if worst else 0.0,
+                       "tensor": worst}
+    return {"bitwise": not unequal, "unequal": len(unequal),
+            "tensors": len(want), "first_unequal": unequal[:6],
+            "tiers": tiers}
+
+
+def _graph_delta(before):
+    from mxnet_tpu_torch import programs
+
+    return {k: programs.GRAPH_STATS[k] - before[k]
+            for k in ("captures", "replays", "capture_s")}
+
+
 def phase_train(torch, dev):
-    """The full-width training step through Module on the card."""
-    from mxnet_tpu_torch import gpu
+    """The full-width training step through Module on the card: the
+    compiled step (one CUDA graph), held against its body under
+    programs.eager()."""
+    from mxnet_tpu_torch import gpu, programs
     from mxnet_tpu_torch import ndarray as nd
     from mxnet_tpu_torch.io import DataBatch, DataDesc
     from mxnet_tpu_torch.models import attention_lm
@@ -1578,16 +1664,19 @@ def phase_train(torch, dev):
         p = mod.get_outputs()[0].data.gather(1, labels)
         return float(-torch.log(torch.clamp_min(p, 1e-30)).mean())
 
+    start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
     kmod = module(False)
     torch.cuda.reset_peak_memory_stats()
-    # warm-up: the first step, whose gradients the plain module must match
-    # and whose update the plain version must match bit for bit
+    # warm-up: the first step, run unrecorded, whose gradients the plain
+    # module must match and whose update the plain version must match bit
+    # for bit
     real, checked, b1_first = _b1_capture(torch, uk)
     uk.multi_tensor_update = checked
     try:
         t0 = time.perf_counter()
-        kmod.forward_backward(batch)
-        kmod.update()
+        with programs.eager():
+            kmod.forward_backward(batch)
+            kmod.update()
         losses = [loss(kmod)]
         warm_s = time.perf_counter() - t0
     finally:
@@ -1596,6 +1685,15 @@ def phase_train(torch, dev):
         raise AssertionError("the LM's first update, kernel B1 vs plain on "
                              "the same slabs: %s" % b1_first)
     first = grads(kmod)
+    # the second step sets up the step program: a warm-up run (the step's
+    # real work) and the capture
+    graphs0 = dict(programs.GRAPH_STATS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kmod.forward_backward(batch)
+    kmod.update()
+    losses.append(loss(kmod))
+    setup_s = time.perf_counter() - t0
 
     counters = ((fk.LAUNCHES, "fused_fwd"), (fk.LAUNCHES, "fused_bwd"),
                 (fl.LAUNCHES, "flash_fwd"), (fl.LAUNCHES, "flash_bwd_dq"),
@@ -1613,10 +1711,17 @@ def phase_train(torch, dev):
         losses.append(loss(kmod))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    graphs = _graph_delta(graphs0)
+    peak_captured_gb = torch.cuda.max_memory_allocated() / 1e9
+    captured = _snapshot(kmod)
     launches = {name: d[name] for d, name in counters}
     paths = {"fused": fused_lm.FUSED_PATH["last"],
              "attention": attn.PATH_TAKEN["last"],
              "update": uk.UPDATE_PATH["last"]}
+    if graphs["captures"] != 1 \
+            or graphs["replays"] != TRAIN_STEPS:
+        raise AssertionError("the LM's train step: %s (want one capture, "
+                             "then a replay a step)" % graphs)
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     segments = 5 * TRAIN_LAYERS
     want = {"fused_fwd": segments, "fused_bwd": segments,
@@ -1633,7 +1738,8 @@ def phase_train(torch, dev):
 
     # the same first step from the same params through the plain versions
     pmod = module(True)
-    pmod.forward_backward(batch)
+    with programs.eager():
+        pmod.forward_backward(batch)
     plain = grads(pmod)
     del pmod
     errs = {}
@@ -1670,17 +1776,99 @@ def phase_train(torch, dev):
         bmod.update()
         bench_losses.append(loss(bmod))
     del bmod
+    gc.collect()
     torch.cuda.empty_cache()
 
-    def one_step():
+    # one replay against one eager step from the same masters (SGD
+    # without momentum: the masters are the whole state): every gradient
+    # and master bit for bit but the LayerNorm scale / shift gradients
+    # kernel F sums with atomics (and the masters they update), which are
+    # held to TOL_F32_LONG of their largest magnitude
+    tstep = kmod._train_step
+    saved = {bk: w.clone() for bk, w in tstep._w.items()}
+
+    def from_saved(eager):
+        with torch.no_grad():
+            for bk, w in tstep._w.items():
+                w.copy_(saved[bk])
+        with programs.eager() if eager else contextlib.nullcontext():
+            kmod.forward_backward(batch)
+        torch.cuda.synchronize()
+        out = {"grad:" + n: g for n, g in grads(kmod).items()}
+        out.update({n: v.clone() for n, v in
+                    tstep.plan.unpack_all(tstep._w).items()})
+        return out
+
+    one_c, one_e = from_saved(False), from_saved(True)
+    unequal = sorted(n for n in one_e if not torch.equal(one_c[n], one_e[n]))
+    atomics = [n for n in unequal if n.split(":")[-1].endswith(
+        ("_ln_gamma", "_ln_beta")) and n.split(":")[-1].startswith("layer")]
+    worst = max([_rel_err(one_c[n], one_e[n]) for n in atomics] or [0.0])
+    one_step_gate = {"tensors": len(one_e), "unequal": unequal,
+                     "kernel_f_atomics": len(atomics),
+                     "max_rel_err_atomics": worst, "tol": TOL_F32_LONG}
+    del one_c, one_e, saved
+    log("train captured vs eager, one step: " + json.dumps(one_step_gate))
+    if set(unequal) != set(atomics) or not worst <= TOL_F32_LONG:
+        raise AssertionError("the LM's captured step against eager from "
+                             "the same masters: %s" % one_step_gate)
+
+    # the same 2 + TRAIN_STEPS steps under programs.eager(), twice: the
+    # captured run against the first, and the eager runs' own spread
+    def eager_run():
+        mod = module(False)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        with programs.eager():
+            for i in range(2 + TRAIN_STEPS):
+                mod.forward_backward(batch)
+                mod.update()
+                if i == 0:
+                    g1 = grads(mod)
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / TRAIN_STEPS
+        snap = _snapshot(mod)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+        return snap, g1, step_s, peak
+
+    eager1, eg1, eager_step_s, peak_eager_gb = eager_run()
+    eager2, eg2, _, _ = eager_run()
+    vs_eager = _run_diff(torch, captured, eager1, start, direct)
+    spread = _run_diff(torch, eager2, eager1, start, direct)
+    nondeterministic = sorted(n for n in eg1 if not torch.equal(eg1[n],
+                                                                eg2[n]))
+    del eager1, eager2, eg1, eg2, captured
+    capture_gate = {"steps": 2 + TRAIN_STEPS, "captured_vs_eager": vs_eager,
+                    "eager_vs_eager": spread,
+                    "first_step_grads_differing_between_eager_runs":
+                        nondeterministic,
+                    "max_over_spread": CAPTURE_SPREAD}
+    log("train captured vs eager: " + json.dumps(capture_gate))
+    if any(vs_eager["tiers"][t]["max"]
+           > CAPTURE_SPREAD * max(spread["tiers"][t]["max"], 1e-7)
+           for t in ("before_relu", "behind_relu")):
+        raise AssertionError("the LM's captured steps against eager, "
+                             "beyond the eager runs' own spread: %s"
+                             % capture_gate)
+    capture_gate["one_step"] = one_step_gate
+
+    def one_step(eager=False):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        kmod.forward_backward(batch)
-        kmod.update()
+        with programs.eager() if eager else contextlib.nullcontext():
+            kmod.forward_backward(batch)
+            kmod.update()
         torch.cuda.synchronize()
         return time.perf_counter() - t1
 
     profile = _profile(torch, one_step)
+    profile_eager = _profile(torch, lambda: one_step(eager=True))
     train = {"config": {"vocab": VOCAB, "t": t, "batch": b,
                         "embed": EMBED, "heads": TRAIN_HEADS, "ffn": FFN,
                         "layers": TRAIN_LAYERS, "dtype": "float32",
@@ -1690,12 +1878,19 @@ def phase_train(torch, dev):
              "step_s": wall / TRAIN_STEPS, "warmup_step_s": warm_s,
              "first_update_bitwise_vs_plain": b1_first["bitwise"],
              "tokens_per_s": b * t * TRAIN_STEPS / wall, "losses": losses,
+             "setup_step_s": setup_s, "graph_stats": graphs,
+             "eager_step_s": eager_step_s,
+             "eager_tokens_per_s": b * t / eager_step_s,
+             "idle_share": {"captured": profile.get("device_idle_share"),
+                            "eager": profile_eager.get("device_idle_share")},
              "bench_lr": BENCH_LR, "bench_lr_losses": bench_losses,
              "launches": launches, "launches_per_step": per_step,
              "grad_rel_err": grad_check,
-             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+             "peak_memory_gb": {"captured": peak_captured_gb,
+                                "eager": peak_eager_gb}}
     log("train: " + json.dumps(train))
     log("train profile: " + json.dumps(profile))
+    log("train profile eager: " + json.dumps(profile_eager))
     return train, launches
 
 
@@ -1802,7 +1997,7 @@ def _resnet_values(sym, b):
 def phase_train_resnet(torch, dev):
     """ResNet-50 training through Module at bench.py's configuration, the
     optimizer update through the slab plan."""
-    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch import gpu, programs
     from mxnet_tpu_torch import ndarray as nd
     from mxnet_tpu_torch import optimizer as opt_mod
     from mxnet_tpu_torch.io import DataBatch, DataDesc
@@ -1853,7 +2048,8 @@ def phase_train_resnet(torch, dev):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses = [step(kmod)]
+        with programs.eager():
+            losses = [step(kmod)]
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
     finally:
@@ -1887,20 +2083,30 @@ def phase_train_resnet(torch, dev):
         raise AssertionError("ResNet-50's first update, kernel B1 vs the "
                              "per-parameter update: %s" % parity)
 
-    # the peak over the timed steps, without the copies above (the cache
-    # keeps its blocks: emptying it would time the allocator's refill)
+    # the peak over the set-up and timed steps, without the copies above
+    # (the cache keeps its blocks: emptying it would time the allocator's
+    # refill)
     torch.cuda.reset_peak_memory_stats()
+    graphs0 = dict(programs.GRAPH_STATS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses.append(step(kmod))   # the step program's set-up: warm-up, capture
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
     uk.LAUNCHES["multi_tensor_update"] = 0
     uk.UPDATE_PATH["last"] = None
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(RESNET_STEPS):
         losses.append(step(kmod))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    graphs = _graph_delta(graphs0)
     launches = {"multi_tensor_update": uk.LAUNCHES["multi_tensor_update"]}
     path = uk.UPDATE_PATH["last"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if graphs["captures"] != 1 or graphs["replays"] != RESNET_STEPS:
+        raise AssertionError("the ResNet-50 step: %s (want one capture, "
+                             "then a replay a step)" % graphs)
     losses = [float(v) for v in losses]
     log("train resnet launches: %s path: %s" % (launches, path))
     if launches["multi_tensor_update"] != RESNET_STEPS or path != "kernel":
@@ -1915,16 +2121,23 @@ def phase_train_resnet(torch, dev):
         raise AssertionError("moving statistics that did not move: %s"
                              % unmoved)
 
-    torch.cuda.empty_cache()
-
-    def one_step():
+    def one_step(eager=False):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        step(kmod)
+        with programs.eager() if eager else contextlib.nullcontext():
+            step(kmod)
         torch.cuda.synchronize()
         return time.perf_counter() - t1
 
     profile = _profile(torch, one_step, groups=RESNET_KERNEL_GROUPS)
+    profile_eager = _profile(torch, lambda: one_step(eager=True),
+                             groups=RESNET_KERNEL_GROUPS)
+    eager_s = min(one_step(eager=True) for _ in range(RESNET_STEPS))
+    del kmod, tstep, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    capture_gate, round_trip = _resnet_capture_and_round_trip(
+        torch, dev, sym, args, aux, x, y)
     train = {"config": {"model": "resnet-50", "batch": b,
                         "image": [3, 224, 224], "compute_dtype": "bfloat16",
                         "masters": "float32", "optimizer": "sgd",
@@ -1933,14 +2146,114 @@ def phase_train_resnet(torch, dev):
                         "source": "bench.py:87-125"},
              "slab_blocks": blocks, "steps": RESNET_STEPS,
              "step_s": wall / RESNET_STEPS, "warmup_step_s": warm_s,
+             "setup_step_s": setup_s, "graph_stats": graphs,
+             "eager_step_s": eager_s,
+             "idle_share": {"captured": profile.get("device_idle_share"),
+                            "eager": profile_eager.get("device_idle_share")},
              "img_per_s": b * RESNET_STEPS / wall, "losses": losses,
              "launches": launches, "update_path": path,
              "first_update_bitwise_vs_plain": b1_first["bitwise"],
              "moving_stats_moved": len(aux_now),
-             "plan_vs_per_param": parity, "peak_memory_gb": peak_gb}
+             "plan_vs_per_param": parity, "peak_memory_gb": peak_gb,
+             "captured_vs_eager": capture_gate, "round_trip": round_trip}
     log("train resnet: " + json.dumps(train))
     log("train resnet profile: " + json.dumps(profile))
+    log("train resnet profile eager: " + json.dumps(profile_eager))
     return train, launches
+
+
+def _resnet_capture_and_round_trip(torch, dev, sym, args, aux, x, y):
+    """ResNet-50 at batch RESNET_BATCH with cuDNN's deterministic
+    algorithms: RESNET_GATE_STEPS captured steps against the same steps
+    under programs.eager() from the same start (masters, moving
+    statistics and momentum bit for bit), then the card round trip: the
+    captured module saves a checkpoint with its optimizer states,
+    ``Module.load`` reads it back into a new module, and one more step
+    of each lands on the same values bit for bit."""
+    from mxnet_tpu_torch import gpu, programs
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.module import Module
+
+    b = RESNET_BATCH
+    batch = DataBatch([nd.array(x, ctx=gpu(0))], [nd.array(y, ctx=gpu(0))])
+    shapes = ([DataDesc("data", (b, 3, 224, 224))],
+              [DataDesc("softmax_label", (b,))])
+
+    def ready(mod):
+        mod.bind(*shapes)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=RESNET_OPT)
+        return mod
+
+    def fresh():
+        mod = Module(sym, context=gpu(0), compute_dtype="bfloat16")
+        mod.bind(*shapes)
+        mod.init_params(arg_params=args, aux_params=aux)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=RESNET_OPT)
+        return mod
+
+    def state(mod):
+        snap = _snapshot(mod)
+        snap.update({"momentum:%d" % i: s.clone()
+                     for i, s in mod._updater.states.items()})
+        return snap
+
+    def run(mod, steps, eager):
+        with programs.eager() if eager else contextlib.nullcontext():
+            for _ in range(steps):
+                mod.forward_backward(batch)
+        torch.cuda.synchronize()
+
+    start = {n: torch.from_numpy(v).to(dev) for n, v in args.items()}
+    start.update({"aux:" + n: torch.from_numpy(v).to(dev)
+                  for n, v in aux.items()})
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        emod = fresh()
+        run(emod, RESNET_GATE_STEPS, eager=True)
+        eager = state(emod)
+        del emod
+        cmod = fresh()
+        run(cmod, RESNET_GATE_STEPS, eager=False)
+        got = state(cmod)
+        start.update({k: torch.zeros_like(v) for k, v in got.items()
+                      if k.startswith("momentum:")})
+        gate = _run_diff(torch, got, eager, start, ("fc1_",))
+        gate.update(steps=RESNET_GATE_STEPS, batch=b,
+                    cudnn_deterministic=True)
+        log("train resnet captured vs eager: " + json.dumps(gate))
+        del eager, got
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "resnet50")
+            cmod.save_checkpoint(prefix, 1, save_optimizer_states=True)
+            sizes = {f: os.path.getsize(os.path.join(tmp, f))
+                     for f in sorted(os.listdir(tmp))}
+            lmod = ready(Module.load(prefix, 1, load_optimizer_states=True,
+                                     context=gpu(0),
+                                     compute_dtype="bfloat16"))
+        loaded = _run_diff(torch, state(lmod), state(cmod), start,
+                           ("fc1_",))
+        run(cmod, 1, eager=False)
+        run(lmod, 1, eager=False)
+        after = _run_diff(torch, state(lmod), state(cmod), start,
+                          ("fc1_",))
+        del cmod, lmod
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    trip = {"files": sizes, "loaded_vs_saved": loaded,
+            "one_more_step": after,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("train resnet round trip: " + json.dumps(trip))
+    if not gate["bitwise"]:
+        raise AssertionError("ResNet-50's captured steps against eager: %s"
+                             % gate)
+    if not (loaded["bitwise"] and after["bitwise"]):
+        raise AssertionError("ResNet-50's checkpoint round trip: %s" % trip)
+    return gate, trip
 
 
 def _bench_lstm_sym_gen():
@@ -2057,7 +2370,7 @@ def _lstm_first_step(torch, dev, mod, batch, sym_gen):
     ulp) and against the per-parameter update on copies; outputs and
     gradients against the port on the CPU from the same parameters and
     batch."""
-    from mxnet_tpu_torch import cpu
+    from mxnet_tpu_torch import cpu, programs
     from mxnet_tpu_torch import optimizer as opt_mod
     from mxnet_tpu_torch.module import Module
     from mxnet_tpu_torch.ndarray import NDArray
@@ -2095,8 +2408,9 @@ def _lstm_first_step(torch, dev, mod, batch, sym_gen):
 
     uk.multi_tensor_update = checked
     try:
-        mod.forward_backward(batch)
-        mod.update()
+        with programs.eager():
+            mod.forward_backward(batch)
+            mod.update()
         torch.cuda.synchronize()
     finally:
         uk.multi_tensor_update = real
@@ -2159,16 +2473,25 @@ def _lstm_first_step(torch, dev, mod, batch, sym_gen):
                        "tol": TOL_LSTM_CPU}}
 
 
-def _train_lstm(torch, dev, label, sym_gen, epochs):
+def _train_lstm(torch, dev, label, sym_gen, epochs, eager=False):
     """One configuration through BucketingModule.fit on the card: bind,
     Xavier weights and Adam (the calls fit makes), the first step under
-    gates 2 and 3, then ``epochs`` epochs of fit; ms per step by bucket
-    in the last epoch, tokens/s of the last epoch (tokens counted as the
-    bench counts them), perplexity per epoch, B1 launches against steps,
-    the sharing and learning gates, peak memory, and a profiled repeat
-    of a few batches."""
+    gates 2 and 3, then ``epochs`` epochs of fit — the compiled step, a
+    captured program a bucket, or with ``eager`` every step under
+    programs.eager(); ms per step by bucket in the last epoch (host
+    clock between batch-end callbacks: with the async loop, the time to
+    dispatch), tokens/s of the last epoch (tokens counted as the bench
+    counts them), perplexity per epoch (accumulated on the card), B1
+    launches against steps, the sharing and learning gates, peak memory,
+    the device-side perplexity against the host metric over a few more
+    batches, and a profiled repeat of them.  Returns the reading, the B1
+    launches and the parameters after fit."""
     import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import programs
     from mxnet_tpu_torch.ops import update_kernel as uk
+
+    mode = programs.eager if eager else contextlib.nullcontext
+    label = "%s %s" % (label, "eager" if eager else "captured")
 
     sentences = _lstm_sentences()
     tokens = sum(min(len(s), LSTM_BUCKETS[-1]) for s in sentences)
@@ -2210,17 +2533,29 @@ def _train_lstm(torch, dev, label, sym_gen, epochs):
 
     uk.LAUNCHES["multi_tensor_update"] = 0
     uk.UPDATE_PATH["last"] = None
+    graphs0 = dict(programs.GRAPH_STATS)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     clock["epoch_start"] = clock["last"] = time.perf_counter()
-    mod.fit(it, eval_metric=metric, optimizer="adam",
-            optimizer_params={"learning_rate": LSTM_LR},
-            initializer=mt.initializer.Xavier(), num_epoch=epochs,
-            batch_end_callback=batch_end, epoch_end_callback=epoch_end)
+    with mode():
+        mod.fit(it, eval_metric=metric, optimizer="adam",
+                optimizer_params={"learning_rate": LSTM_LR},
+                initializer=mt.initializer.Xavier(), num_epoch=epochs,
+                batch_end_callback=batch_end, epoch_end_callback=epoch_end)
     torch.cuda.synchronize()
+    graphs = _graph_delta(graphs0)
     launches = uk.LAUNCHES["multi_tensor_update"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     path = uk.UPDATE_PATH["last"]
+    trained = {n: v.clone() for n, v in step.plan.unpack_all(step._w).items()}
+    want_graphs = (0, 0) if eager else (len(LSTM_BUCKETS),
+                                        steps[0] - len(LSTM_BUCKETS))
+    if (graphs["captures"], graphs["replays"]) != want_graphs \
+            or step._metric_acc is None:
+        raise AssertionError("%s: graph stats %s (want captures and replays "
+                             "%s), metric on the card: %s"
+                             % (label, graphs, want_graphs,
+                                step._metric_acc is not None))
     log("train lstm %s launches: B1 %d, steps %d, path %s"
         % (label, launches, steps[0], path))
     if launches != steps[0] or path != "kernel":
@@ -2251,13 +2586,32 @@ def _train_lstm(torch, dev, label, sym_gen, epochs):
         if len(batches) < LSTM_PROFILE_BATCHES:
             batches.append(b)
 
+    # the perplexity accumulated on the card against the host metric fed
+    # the same steps' outputs
+    on_card = mt.metric.Perplexity(ignore_label=-1)
+    on_host = mt.metric.Perplexity(ignore_label=-1)
+    mod._bind_metric(on_card)
+    with mode():
+        for b in batches:
+            mod.forward_backward(b)
+            mod.update_metric(on_card, b.label)
+            on_host.update(b.label, mod.get_outputs())
+    metric_gate = {"device": on_card.get()[1], "host": on_host.get()[1],
+                   "tol": TOL_DEVICE_METRIC}
+    metric_gate["rel_err"] = abs(metric_gate["device"] - metric_gate["host"]) \
+        / abs(metric_gate["host"])
+    if not metric_gate["rel_err"] <= TOL_DEVICE_METRIC:
+        raise AssertionError("%s: the perplexity on the card against the "
+                             "host metric: %s" % (label, metric_gate))
+
     def repeat():
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        for b in batches:
-            mod.forward_backward(b)
-            mod.update()
-            mod.update_metric(metric, b.label)
+        with mode():
+            for b in batches:
+                mod.forward_backward(b)
+                mod.update()
+                mod.update_metric(on_card, b.label)
         torch.cuda.synchronize()
         return time.perf_counter() - t1
 
@@ -2269,6 +2623,7 @@ def _train_lstm(torch, dev, label, sym_gen, epochs):
     reading = {
         "config": label, "epochs": epochs, "params": n_params,
         "buckets_bound": sorted(mod._buckets), "steps": steps[0],
+        "graph_stats": graphs, "device_metric_vs_host": metric_gate,
         "b1_launches": launches, "first_step": first,
         "epoch_s": epoch_s, "perplexity_per_epoch": perplexity,
         "tokens_per_epoch": tokens,
@@ -2291,28 +2646,53 @@ def _train_lstm(torch, dev, label, sym_gen, epochs):
         "peak_memory_gb": peak_gb}
     log("train lstm %s: %s" % (label, json.dumps(reading)))
     log("train lstm %s profile: %s" % (label, json.dumps(profile)))
-    return reading, launches
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reading, launches, trained
 
 
 def phase_train_lstm(torch, dev):
     """The bucketed LSTM LM on the card: gate 1 (the fused RNN op against
     the unfused cells), then configuration 1 (the bench's LSTMCell
     stack, 2 epochs) and configuration 2 (the fused default of
-    models.lstm_lm, 1 epoch) through BucketingModule.fit, every bucket
-    on one Adam slab (kernel B1 once a step)."""
+    models.lstm_lm, 2 epochs) through BucketingModule.fit, every bucket
+    on one Adam slab (kernel B1 once a step): each configuration
+    compiled (a captured program a bucket) and under programs.eager()
+    from the same start, the two runs' parameters bit for bit."""
     from mxnet_tpu_torch.models import lstm_lm
 
     rnn = _rnn_fused_vs_unfused(torch, dev)
     torch.cuda.empty_cache()
-    bench, bench_launches = _train_lstm(
-        torch, dev, "bench", _bench_lstm_sym_gen(), LSTM_EPOCHS)
-    torch.cuda.empty_cache()
     sym_gen, _ = lstm_lm.sym_gen_factory(ignore_label=-1)
-    fused, fused_launches = _train_lstm(torch, dev, "fused", sym_gen,
-                                        LSTM_FUSED_EPOCHS)
-    return {"fused_vs_unfused": rnn, "bench": bench, "fused": fused}, \
-        {"train_lstm_bench": bench_launches,
-         "train_lstm_fused": fused_launches}
+    out, launches = {"fused_vs_unfused": rnn}, {}
+    for label, gen, epochs in (("bench", _bench_lstm_sym_gen(), LSTM_EPOCHS),
+                               ("fused", sym_gen, LSTM_FUSED_EPOCHS)):
+        runs = {}
+        for eager in (False, True):
+            runs[eager] = _train_lstm(torch, dev, label, gen, epochs,
+                                      eager=eager)
+        (captured, n, w_c), (eager_run, _, w_e) = runs[False], runs[True]
+        unequal = sorted(k for k in w_e if not torch.equal(w_c[k], w_e[k]))
+        gate = {"steps": captured["steps"], "tensors": len(w_e),
+                "unequal": unequal,
+                "tokens_per_s": {
+                    "captured": captured["tokens_per_s_last_epoch"],
+                    "eager": eager_run["tokens_per_s_last_epoch"]},
+                "idle_share": {"captured": captured["repeat"]["idle_share"],
+                               "eager": eager_run["repeat"]["idle_share"]},
+                "peak_memory_gb": {"captured": captured["peak_memory_gb"],
+                                   "eager": eager_run["peak_memory_gb"]}}
+        log("train lstm %s captured vs eager: %s" % (label, json.dumps(gate)))
+        if unequal:
+            raise AssertionError("%s: the captured run's parameters differ "
+                                 "from the eager run's: %s" % (label,
+                                                               unequal))
+        out[label] = {"captured": captured, "eager": eager_run,
+                      "captured_vs_eager": gate}
+        launches["train_lstm_" + label] = n
+        del runs, w_c, w_e
+    return out, launches
 
 
 def _entry(name, source, replaces, launches, case):

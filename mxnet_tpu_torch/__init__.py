@@ -10,7 +10,10 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
 * training through ``Module`` (:mod:`~mxnet_tpu_torch.module`,
   ``executor``, ``train_step``, ``optimizer``, ``lr_scheduler``,
   ``initializer``, ``metric``, ``io``, ``ndarray``) of
-  ``models.attention_lm`` and ``models.resnet``;
+  ``models.attention_lm`` and ``models.resnet``: each step one captured
+  program (``train_step.CompiledTrainStep``) with the metric accumulated
+  on the card, ``fit``'s async loop, checkpoints in the JAX package's
+  files (``model``, ``callback``, ``ndarray.save`` / ``load``);
 * bucketed recurrent training: the ``RNN`` op, the cells and
   ``BucketSentenceIter`` (:mod:`~mxnet_tpu_torch.rnn`) and
   ``BucketingModule``, whose buckets share one slab plan, over
@@ -33,15 +36,17 @@ symbol._init_symbol_module()
 sym = symbol
 
 from . import decode, models, programs, serve, weights  # noqa: E402
-from . import (executor, initializer, io, lr_scheduler,  # noqa: E402
-               metric, module, ndarray, optimizer, rnn, train_step)
+from . import (callback, executor, initializer, io,  # noqa: E402
+               lr_scheduler, metric, model, module, ndarray, optimizer, rnn,
+               train_step)
 
 mod = module
 nd = ndarray
 
 __all__ = ["AttrScope", "Context", "MXNetError", "NameManager", "base",
-           "config", "context", "cpu", "decode", "executor", "gpu",
-           "initializer", "io", "lr_scheduler", "metric", "mod", "models",
+           "callback", "config", "context", "cpu", "decode", "executor",
+           "gpu", "initializer", "io", "lr_scheduler", "metric", "mod",
+           "model", "models",
            "module", "nd", "ndarray", "ops", "optimizer", "programs",
            "registry", "rnn", "serve", "sym", "symbol", "train_step",
            "weights"]

@@ -4,13 +4,18 @@ The port's copy of ``mxnet_tpu/config.py`` with the knobs the port
 reads.  There is no kernel on/off knob: on the card the kernels always
 run, on the CPU their plain versions do.  That holds for the train
 step's multi-tensor optimizer update too: its slab plan is armed
-wherever the optimizer and the masters allow it.
+wherever the optimizer and the masters allow it.  The training loop's
+keys (``MXNET_FUSED_TRAIN_STEP``, ``MXNET_DEVICE_METRICS``,
+``MXNET_MAX_STEPS_IN_FLIGHT``, ``MXNET_PREFETCH_DEPTH``,
+``MXNET_DEVICE_PREFETCH``) are the JAX package's, with its defaults.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
-__all__ = ["EnvVar", "register", "get", "describe", "refresh"]
+__all__ = ["EnvVar", "register", "get", "describe", "refresh",
+           "overrides"]
 
 _REGISTRY = {}
 
@@ -70,6 +75,23 @@ def refresh(name=None):
             var.reset()
 
 
+@contextlib.contextmanager
+def overrides(**values):
+    """Set flags for the duration of a ``with`` block (tests), then
+    restore what the environment says."""
+    old = {}
+    for name, value in values.items():
+        var = _REGISTRY[name]
+        old[name] = (var._value, var._loaded)
+        var._value, var._loaded = value, True
+    try:
+        yield
+    finally:
+        for name, (value, loaded) in old.items():
+            var = _REGISTRY[name]
+            var._value, var._loaded = value, loaded
+
+
 def describe():
     """Human-readable catalog of every declared flag."""
     lines = []
@@ -116,3 +138,27 @@ register("MXNET_SPEC_NGRAM", int, 2,
 register("MXNET_DECODE_MAX_NEW", int, 256,
          "Default cap on generated tokens per request in the serving loop "
          "when the caller gives no explicit max_new_tokens.")
+register("MXNET_FUSED_TRAIN_STEP", bool, True,
+         "Run forward, backward and the optimizer update of Module's "
+         "training step as one captured program (train_step."
+         "CompiledTrainStep: a CUDA graph a bucket executor on the card) "
+         "when the optimizer supports it.  0 = the eager forward / "
+         "backward / update path.")
+register("MXNET_DEVICE_METRICS", bool, True,
+         "Fold the metric's (sum, count) accumulation into the compiled "
+         "train step (and score()'s compiled eval step) as device scalars "
+         "for metrics that implement the device protocol (metric.py "
+         "device_batch); reading the metric is the only sync.  0 = the "
+         "host-side metric.update path.")
+register("MXNET_MAX_STEPS_IN_FLIGHT", int, 2,
+         "Upper bound on dispatched-but-unfinished training steps in "
+         "fit(): the loop waits on the event of the step K behind, not on "
+         "the newest.  1 = a synchronous loop.")
+register("MXNET_PREFETCH_DEPTH", int, 2,
+         "How many batches DevicePrefetchIter keeps in flight to the card "
+         "ahead of the consumer.")
+register("MXNET_DEVICE_PREFETCH", bool, True,
+         "Let fit() wrap the training iterator in a DevicePrefetchIter "
+         "when a compiled train step is active: batches are pinned and "
+         "copied on a side stream the step's stream waits on.  0 = feed "
+         "host batches directly.")

@@ -7,8 +7,10 @@ The graph runs eagerly, node by node, as the decode walk does: each op's
 A training forward runs under autograd with every parameter whose
 ``grad_req`` is not "null" as a leaf; :meth:`Executor.backward` seeds the
 outputs with ones (loss heads such as SoftmaxOutput ignore the seed) and
-writes the gradients into ``grad_dict``.  There is no jit: PyTorch runs
-eagerly, and CUDA graphs are later work.
+writes the gradients into ``grad_dict``.  Aux states and gradients are
+written into their arrays IN PLACE, so the tensors a captured train step
+binds by pointer (``train_step.CompiledTrainStep``) stay the arrays'
+storage whichever path ran last.
 """
 from __future__ import annotations
 
@@ -114,8 +116,9 @@ class Executor:
                          generator=self.generator)
 
     def _set_aux(self, new_aux):
-        for n in self._aux_names:
-            self.aux_dict[n]._set_data(new_aux[n])
+        with torch.no_grad():
+            for n in self._aux_names:
+                self.aux_dict[n].data.copy_(new_aux[n])
 
     def forward(self, is_train=False):
         """Run the graph; with ``is_train`` also compute the gradients that
@@ -146,10 +149,11 @@ class Executor:
         self._grads = None
 
     def set_grads(self, grads):
-        """Bind gradients (in ``grad_req`` order) into ``grad_dict``, in
-        each gradient array's dtype."""
-        for n, g in zip(self._grad_names, grads):
-            self.grad_dict[n]._set_data(g.to(self.grad_dict[n].data.dtype))
+        """Write gradients (in ``grad_req`` order) into ``grad_dict``'s
+        arrays, in place and in each array's dtype."""
+        with torch.no_grad():
+            for n, g in zip(self._grad_names, grads):
+                self.grad_dict[n].data.copy_(g)
 
     @property
     def outputs(self):

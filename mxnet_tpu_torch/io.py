@@ -1,14 +1,20 @@
-"""Data iterators: :class:`DataDesc`, :class:`DataBatch`, :class:`DataIter`
-and :class:`NDArrayIter` (the counterparts of ``mxnet_tpu/io.py``'s
-classes of the same names).  Batches are host NDArrays; ``Module`` copies
-them onto its device."""
+"""Data iterators: :class:`DataDesc`, :class:`DataBatch`, :class:`DataIter`,
+:class:`NDArrayIter` and :class:`DevicePrefetchIter` (the counterparts
+of ``mxnet_tpu/io.py``'s classes of the same names).  Batches are host
+NDArrays; ``Module`` copies them onto its device, or
+:class:`DevicePrefetchIter` does ahead of time."""
 from __future__ import annotations
 
-import numpy as np
+from collections import deque
 
+import numpy as np
+import torch
+
+from . import config
 from .ndarray import NDArray, array
 
-__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter"]
+__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter",
+           "DevicePrefetchIter"]
 
 
 class DataDesc:
@@ -193,3 +199,73 @@ class NDArrayIter(DataIter):
                 and self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+class DevicePrefetchIter(DataIter):
+    """Copy the next ``depth`` batches onto a CUDA device ahead of the
+    consumer (``mxnet_tpu/io.py:596``'s counterpart): each batch's host
+    arrays are pinned and copied on a side stream, and the consumer's
+    stream waits on the copy's event when it takes the batch, so the
+    host-to-device copy of step n + 1 overlaps step n instead of
+    stalling the host in front of it.  The copies are issued from the
+    consumer's thread (no worker thread touches the card).  Depth
+    defaults to ``MXNET_PREFETCH_DEPTH``."""
+
+    def __init__(self, data_iter, device, depth=None):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self._device = torch.device(device)
+        self._depth = max(1, int(depth if depth is not None
+                                 else config.get("MXNET_PREFETCH_DEPTH")))
+        self._stream = torch.cuda.Stream(device=self._device)
+        self._queue = deque()
+        self._done = False
+
+    @property
+    def provide_data(self):
+        return self.data_iter.provide_data
+
+    @property
+    def provide_label(self):
+        return self.data_iter.provide_label
+
+    def reset(self):
+        self._queue.clear()
+        self._done = False
+        self.data_iter.reset()
+
+    def _put(self, arr):
+        t = arr.data if isinstance(arr, NDArray) else torch.as_tensor(arr)
+        if t.device.type == "cpu":
+            t = t.pin_memory().to(self._device, non_blocking=True)
+        return t
+
+    def _fill(self):
+        while not self._done and len(self._queue) < self._depth:
+            try:
+                batch = self.data_iter.next()
+            except StopIteration:
+                self._done = True
+                break
+            with torch.cuda.stream(self._stream):
+                data = [self._put(a) for a in batch.data or []]
+                label = [self._put(a) for a in batch.label or []]
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            self._queue.append((batch, data, label, event))
+
+    def next(self):
+        self._fill()
+        if not self._queue:
+            raise StopIteration
+        batch, data, label, event = self._queue.popleft()
+        cur = torch.cuda.current_stream(self._device)
+        cur.wait_event(event)
+        for t in data + label:
+            t.record_stream(cur)
+        self._fill()
+        return DataBatch(data=[NDArray(t) for t in data],
+                         label=[NDArray(t) for t in label], pad=batch.pad,
+                         index=batch.index, bucket_key=batch.bucket_key,
+                         provide_data=batch.provide_data,
+                         provide_label=batch.provide_label)

@@ -1,13 +1,24 @@
 """BaseModule — the high-level train / evaluate interface (the parts of
-``mxnet_tpu/module/base_module.py`` the training loop calls: ``fit``,
-``score``, ``forward_backward`` and the abstract surface)."""
+``mxnet_tpu/module/base_module.py`` the training loop calls: ``fit``
+with its async loop, ``score``, ``forward_backward``, ``save_params`` /
+``load_params`` and the abstract surface).
+
+``fit`` runs ``_fit_epoch``'s async loop: with a compiled step and
+device-side metric accumulation the loop body does not wait on the
+card, so up to ``MXNET_MAX_STEPS_IN_FLIGHT`` steps stay outstanding and
+the host prepares batch n + K while the card runs step n; the loop
+blocks on the CUDA event of the step K behind (``_dispatch_fence``),
+never the newest.  The JAX package's elastic and telemetry hooks are
+not ported."""
 from __future__ import annotations
 
 import logging
 import time
-from collections import namedtuple
+from collections import deque, namedtuple
 
+from .. import config
 from .. import metric as metric_mod
+from .. import ndarray as nd
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -39,20 +50,31 @@ class BaseModule:
 
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, reset=True, epoch=0):
-        """An evaluation pass; returns the metric's (name, value) list."""
+        """An evaluation pass; returns the metric's (name, value) list.
+        A driver with a compiled forward accumulates a device-capable
+        metric on the card (``_bind_eval_metric``): the pass then reads
+        no output back."""
         if not (self.binded and self.params_initialized):
             raise RuntimeError("bind and initialize the module first")
         eval_metric = metric_mod.create(eval_metric)
         eval_metric.reset()
         if reset:
             eval_data.reset()
-        for nbatch, batch in enumerate(eval_data):
-            if num_batch is not None and nbatch >= num_batch:
-                break
-            self.forward(batch, is_train=False)
-            self.update_metric(eval_metric, batch.label)
-            _fire(batch_end_callback,
-                  BatchEndParam(epoch, nbatch, eval_metric, locals()))
+        eval_step = self._bind_eval_metric(eval_metric)
+        try:
+            for nbatch, batch in enumerate(eval_data):
+                if num_batch is not None and nbatch >= num_batch:
+                    break
+                if eval_step is not None:
+                    eval_step.run(batch)
+                else:
+                    self.forward(batch, is_train=False)
+                    self.update_metric(eval_metric, batch.label)
+                _fire(batch_end_callback,
+                      BatchEndParam(epoch, nbatch, eval_metric, locals()))
+        finally:
+            if eval_step is not None:
+                eval_step.finish()
         return eval_metric.get_name_value()
 
     def prepare_fit(self, train_data, initializer=None, arg_params=None,
@@ -73,6 +95,50 @@ class BaseModule:
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
 
+    # ------------------------------------------------------------------
+    # async-loop hooks (drivers with compiled steps override them)
+    # ------------------------------------------------------------------
+    def _bind_metric(self, eval_metric):
+        """Let the driver fold ``eval_metric`` into its compiled step.
+        Default: the host path."""
+
+    def _bind_eval_metric(self, eval_metric):
+        """A ``CompiledEvalStep``-like object (``run`` / ``finish``) for
+        ``score``, or None for the host path (the default)."""
+        return None
+
+    def _wrap_train_data(self, train_data):
+        """Optionally wrap the training iterator (device prefetch)."""
+        return train_data
+
+    def _dispatch_fence(self):
+        """A CUDA event that completes with the last dispatched step, or
+        None when the driver runs synchronously."""
+        return None
+
+    def _fit_epoch(self, epoch, train_data, eval_metric, batch_end_callback):
+        """One pass over ``train_data``; returns the wall-clock cost."""
+        start = time.time()
+        eval_metric.reset()
+        limit = max(1, int(config.get("MXNET_MAX_STEPS_IN_FLIGHT")))
+        fences = deque()
+        for nbatch, batch in enumerate(train_data):
+            self.forward_backward(batch)
+            self.update()
+            self.update_metric(eval_metric, batch.label)
+            fence = self._dispatch_fence()
+            if fence is not None:
+                fences.append(fence)
+                # at most `limit` dispatched-but-unfinished steps
+                if len(fences) >= limit:
+                    fences.popleft().synchronize()
+            _fire(batch_end_callback,
+                  BatchEndParam(epoch, nbatch, eval_metric, locals()))
+        if fences:
+            # the steps run in order on one stream: the newest covers all
+            fences[-1].synchronize()
+        return time.time() - start
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
             kvstore="local", optimizer="sgd",
@@ -81,8 +147,8 @@ class BaseModule:
             aux_params=None, allow_missing=False, force_rebind=False,
             force_init=False, begin_epoch=0, num_epoch=None,
             validation_metric=None):
-        """Train for ``num_epoch`` epochs: one forward_backward + update
-        per batch, an optional validation pass per epoch."""
+        """Train for ``num_epoch`` epochs through ``_fit_epoch``, an
+        optional validation pass per epoch."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
         self.prepare_fit(train_data, initializer=initializer,
@@ -93,23 +159,19 @@ class BaseModule:
                          optimizer_params=optimizer_params)
         eval_metric = metric_mod.create(eval_metric)
         validation_metric = validation_metric or eval_metric
+        self._bind_metric(eval_metric)
+        fit_data = self._wrap_train_data(train_data)
         try:
             for epoch in range(begin_epoch, num_epoch):
                 if epoch > begin_epoch:
-                    train_data.reset()
-                start = time.time()
-                eval_metric.reset()
-                for nbatch, batch in enumerate(train_data):
-                    self.forward_backward(batch)
-                    self.update()
-                    self.update_metric(eval_metric, batch.label)
-                    _fire(batch_end_callback,
-                          BatchEndParam(epoch, nbatch, eval_metric, locals()))
+                    fit_data.reset()
+                cost = self._fit_epoch(epoch, fit_data, eval_metric,
+                                       batch_end_callback)
+                # reading the metric drains the device accumulation
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
                                      val)
-                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                                 time.time() - start)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch, cost)
                 arg_snap, aux_snap = self.get_params()
                 _fire(epoch_end_callback, epoch, self.symbol, arg_snap,
                       aux_snap)
@@ -123,6 +185,27 @@ class BaseModule:
         finally:
             # leave the caller's iterator fresh for a second fit()
             train_data.reset()
+
+    # ------------------------------------------------------------------
+    # parameter files
+    # ------------------------------------------------------------------
+    def save_params(self, fname):
+        arg_params, aux_params = self.get_params()
+        blob = {"arg:%s" % k: v for k, v in arg_params.items()}
+        blob.update({"aux:%s" % k: v for k, v in aux_params.items()})
+        nd.save(fname, blob)
+
+    def load_params(self, fname):
+        arg_params, aux_params = {}, {}
+        for key, value in nd.load(fname).items():
+            kind, _, name = key.partition(":")
+            if kind == "arg":
+                arg_params[name] = value
+            elif kind == "aux":
+                aux_params[name] = value
+            else:
+                raise ValueError("Invalid param file " + fname)
+        self.set_params(arg_params, aux_params)
 
     # the abstract surface
     def bind(self, data_shapes, label_shapes=None, for_training=True,

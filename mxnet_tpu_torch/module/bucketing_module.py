@@ -3,14 +3,17 @@
 
 ``sym_gen(bucket_key)`` gives each bucket its own graph (an unrolled
 RNN of that many steps).  A ``_primary`` module (the default bucket)
-owns the parameters, the optimizer and the train step; ``switch_bucket``
-binds each further bucket on first use against the primary
-(``bind(shared_module=)``: the same parameter NDArrays wherever name and
-shape match) and lends it the primary's optimizer, updater and train
-step (``borrow_optimizer``).  Every bucket therefore trains through the
-one slab plan: its graph reads the shared slab views, its gradients
-land in the one grad slab, and one multi-tensor update runs a step,
-whichever bucket ran.
+owns the parameters, the optimizer and the compiled train step;
+``switch_bucket`` binds each further bucket on first use against the
+primary (``bind(shared_module=)``: the same parameter NDArrays wherever
+name and shape match) and lends it the primary's optimizer, updater and
+train step (``borrow_optimizer``).  Every bucket therefore trains
+through the one store and slab plan — its own captured program, all of
+them in one memory pool: its graph reads the shared slab views, its
+gradients land in the one grad slab, and one multi-tensor update runs a
+step, whichever bucket ran.  ``fit``'s metric is bound once for every
+bucket, bound now or later (``_bind_metric``), and ``_dispatch_fence``
+is the active bucket's.
 
 The reference's one exception is ported as it stands
 (``_ensure_fused_compat``): a bucket whose parameters are not all shared
@@ -45,6 +48,7 @@ class BucketingModule(BaseModule):
     def _clear(self):
         self._buckets = {}
         self._active = None
+        self._fit_metric = None
 
     @property
     def _primary(self):
@@ -123,6 +127,8 @@ class BucketingModule(BaseModule):
             if self.optimizer_initialized:
                 module.borrow_optimizer(self._primary)
                 self._ensure_fused_compat(module)
+            if self._fit_metric is not None:
+                module._bind_metric(self._fit_metric)
             self._buckets[bucket_key] = module
         self._active = module
 
@@ -157,8 +163,10 @@ class BucketingModule(BaseModule):
         self.logger.info(
             "bucket parameters are not fully shared with the primary; "
             "using the eager update path for all buckets")
+        step.detach_metric()
         for m in list(self._buckets.values()) + [module]:
             m._train_step = None
+            m._pending_metric = None
 
     # ------------------------------------------------------------------
     def forward_backward(self, data_batch):
@@ -197,3 +205,15 @@ class BucketingModule(BaseModule):
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
         self._active.update_metric(eval_metric, labels)
+
+    def _bind_metric(self, eval_metric):
+        # one store for every bucket: binding through each module arms
+        # it for all, and buckets bound later in the fit take it too
+        self._fit_metric = eval_metric
+        for module in self._buckets.values():
+            module._bind_metric(eval_metric)
+
+    def _dispatch_fence(self):
+        if self._active is None:
+            return None
+        return self._active._dispatch_fence()

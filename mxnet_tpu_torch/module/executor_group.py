@@ -2,8 +2,10 @@
 ``mxnet_tpu/module/executor_group.py``): binds the executor, loads
 batches into it and runs forward / backward.  A group bound with a
 ``shared_group`` takes that group's parameter, gradient and aux arrays
-by identity wherever name and shape match (bucketing).  There is no
-mesh: the port's parallel paths are later work."""
+by identity wherever name and shape match (bucketing).  With
+``inputs_need_grad`` the data inputs get gradients too
+(``get_input_grads``).  There is no mesh: the port's parallel paths are
+later work."""
 from __future__ import annotations
 
 from ..base import MXNetError
@@ -14,7 +16,8 @@ from ..io import as_desc_list
 class DataParallelExecutorGroup:
     def __init__(self, symbol, device, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
-                 grad_req="write", plain=False, shared_group=None):
+                 grad_req="write", plain=False, shared_group=None,
+                 inputs_need_grad=False):
         self.symbol = symbol
         self.param_names = list(param_names)
         self.for_training = for_training
@@ -34,6 +37,8 @@ class DataParallelExecutorGroup:
                     else grad_req.get(name, "write")
                 if not for_training or name in self.fixed_param_names:
                     req = "null"
+            elif inputs_need_grad and name in self.data_names:
+                req = "write"
             else:
                 req = "null"
             self.grad_req[name] = req
@@ -91,6 +96,9 @@ class DataParallelExecutorGroup:
 
     def get_outputs(self):
         return list(self.exec_.outputs)
+
+    def get_input_grads(self):
+        return [self.exec_.grad_dict[n] for n in self.data_names]
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.exec_.outputs)

@@ -1,23 +1,36 @@
 """Module — the standard symbol-backed module (the counterpart of
 ``mxnet_tpu/module/module.py``, single device).
 
-``forward_backward`` runs one whole :class:`~mxnet_tpu_torch.train_step.
-TrainStep` (forward, backward and the optimizer update) when the module
-trains its parameters, and the following ``update()`` is then a no-op,
-as in the JAX package.  ``forward``/``backward``/``update`` remain the
-eager path; both paths update the same parameter tensors through the
-same :class:`~mxnet_tpu_torch.optimizer.Updater`, so they mix freely.
-``init_optimizer`` arms the train step's slab plan wherever the
-optimizer and the masters allow it: the executor's trainables and the
-updater's states become views of the plan's slabs, so the eager update,
-``get_params`` and ``set_params`` read and write the storage the
-multi-tensor kernel updates.
+Training runs through :class:`~mxnet_tpu_torch.train_step.
+CompiledTrainStep` where the JAX package's rule allows it
+(``_fused_eligible``: ``MXNET_FUSED_TRAIN_STEP``, training without
+``inputs_need_grad``, the local store, an optimizer with a
+``fused_kernel``): ``forward_backward`` then runs the whole step
+(forward, backward, the optimizer update and, after ``fit`` binds one,
+the metric's accumulation) as one captured program — one CUDA-graph
+replay a step on the card — and the following ``update()`` is a no-op.
+``forward``/``backward``/``update`` remain the eager path; both paths
+update the same arrays through the same
+:class:`~mxnet_tpu_torch.optimizer.Updater` states, so they mix freely.
+The step arms its slab plan wherever the optimizer and the masters
+allow it: the executor's trainables and the updater's states become
+views of the plan's slabs, so the eager update, ``get_params`` and
+``set_params`` read and write the storage the multi-tensor kernel
+updates.  ``get_outputs`` after a compiled step returns copies (a
+replay overwrites the program's outputs).
+
+``score`` accumulates a device-capable metric through a
+:class:`~mxnet_tpu_torch.train_step.CompiledEvalStep`
+(``_bind_eval_metric``).  ``save_checkpoint`` / ``Module.load`` /
+``save_optimizer_states`` / ``load_optimizer_states`` read and write the
+JAX package's files (``.params``, ``-symbol.json``, the fused
+``.states`` payload).
 
 ``bind(..., shared_module=)`` takes the shared module's parameter and
 aux arrays (the same NDArrays) wherever name and shape match, and its
 host parameter dicts; ``borrow_optimizer`` takes its optimizer, updater
-and train step, which then runs this module's graph over the one set of
-slabs (``BucketingModule``).
+and train step, which then runs this module's graph over the one store
+(``BucketingModule``).
 
 The module runs on the card (``gpu(0)``) unless ``context=cpu()``; with
 no card and no CPU context it raises, as ``DecodePredictor`` does.
@@ -28,12 +41,15 @@ from __future__ import annotations
 
 import logging
 
+from .. import config
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..context import Context, gpu, resolve_device
 from ..initializer import InitDesc
-from ..ndarray import array, zeros
-from ..train_step import TrainStep
+from ..metric import DeviceMetricAccumulator, select_outputs
+from ..model import load_checkpoint
+from ..ndarray import NDArray, array, zeros
+from ..train_step import CompiledEvalStep, CompiledTrainStep
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
@@ -68,6 +84,37 @@ class Module(BaseModule):
         self._exec_group = None
         self._train_step = None
         self._step_update_done = False
+        self._fused_outputs = None
+        self._pending_metric = None
+        self._preload_opt_states = None
+        self._eval_step_cache = None
+        self.inputs_need_grad = False
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module from a checkpoint (``prefix-symbol.json``,
+        ``prefix-%04d.params`` and, with ``load_optimizer_states``,
+        ``prefix-%04d.states``, loaded at ``init_optimizer``)."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write ``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states``."""
+        self._symbol.save("%s-symbol.json" % prefix)
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(param_name)
+        logging.info("Saved checkpoint to \"%s\"", param_name)
+        if save_optimizer_states:
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            logging.info("Saved optimizer state to \"%s\"", state_name)
 
     @property
     def data_names(self):
@@ -82,15 +129,21 @@ class Module(BaseModule):
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
         if force_rebind:
+            if self._train_step is not None:
+                self._train_step.detach_metric()
             self.binded = False
             self._exec_group = None
             self._train_step = None
+            self._fused_outputs = None
+            self._pending_metric = None
+            self._eval_step_cache = None
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
-        if inputs_need_grad:
-            raise NotImplementedError("inputs_need_grad is not ported")
+        if inputs_need_grad and not for_training:
+            raise MXNetError("inputs_need_grad needs for_training")
         self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
         shared_group = None
         if shared_module is not None:
             if not (shared_module.binded
@@ -102,7 +155,8 @@ class Module(BaseModule):
             self._symbol, self._device, data_shapes, label_shapes,
             self._param_names, for_training,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            plain=self._plain, shared_group=shared_group)
+            plain=self._plain, shared_group=shared_group,
+            inputs_need_grad=inputs_need_grad)
         self.binded = True
         if shared_module is not None:
             self.params_initialized = True
@@ -153,7 +207,7 @@ class Module(BaseModule):
         self.params_initialized = True
         self._exec_group.set_params(self._arg_params, self._aux_params)
         if self._train_step is not None:
-            self._train_step.masters_changed()
+            self._train_step.load_from_executor()
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True):
@@ -174,10 +228,12 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
         """Create the optimizer (``rescale_grad`` defaults to 1 /
-        batch size) and its updater; a training module also gets its
-        :class:`TrainStep` (with the slab plan armed where the
-        optimizer and the masters allow it).  Only the local single-device store exists:
-        ``kvstore`` must be "local" or None."""
+        batch size) and its updater; a training module whose
+        configuration is eligible also gets its
+        :class:`CompiledTrainStep` (with the slab plan armed where the
+        optimizer and the masters allow it).  Only the local
+        single-device store exists: ``kvstore`` must be "local" or
+        None."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
         if self.optimizer_initialized and not force_init:
@@ -201,16 +257,45 @@ class Module(BaseModule):
                 optimizer.rescale_grad, rescale_grad)
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
-        self._train_step = None
-        if self.for_training:
-            self._train_step = TrainStep(self._exec_group, self._updater,
-                                         compute_dtype=self._compute_dtype)
-        self._step_update_done = False
         self.optimizer_initialized = True
+        self._maybe_build_fused_step()
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def _fused_eligible(self, optimizer):
+        """Whether the compiled train step can own the update (the JAX
+        package's rule, decided before anything runs): the switch on,
+        training without input gradients, and an optimizer with a fused
+        kernel.  The store is always local here."""
+        if not config.get("MXNET_FUSED_TRAIN_STEP"):
+            return False
+        if not self.for_training or self.inputs_need_grad:
+            return False
+        if optimizer.fused_kernel() is None:
+            self.logger.info(
+                "optimizer %s has no fused kernel; using eager update path",
+                type(optimizer).__name__)
+            return False
+        return True
+
+    def _maybe_build_fused_step(self):
+        """Build the compiled train step when the configuration allows
+        it (dropping an earlier one and its metric)."""
+        if self._train_step is not None:
+            self._train_step.detach_metric()
+        self._train_step = None
+        self._step_update_done = False
+        self._fused_outputs = None
+        if self._fused_eligible(self._optimizer):
+            self._train_step = CompiledTrainStep(
+                self._exec_group, self._optimizer, self._updater,
+                compute_dtype=self._compute_dtype)
 
     def borrow_optimizer(self, shared_module):
         """Share ``shared_module``'s optimizer, updater and train step
-        (bucketing): this module's steps update the same slabs."""
+        (bucketing): this module's steps update the same store, through
+        a program of its own graph."""
         if not shared_module.optimizer_initialized:
             raise MXNetError("the shared module has no optimizer yet")
         self._optimizer = shared_module._optimizer
@@ -222,19 +307,29 @@ class Module(BaseModule):
     # ------------------------------------------------------------------
     def forward_backward(self, data_batch):
         """One training forward + backward.  With a train step this runs
-        the whole step, the optimizer update included; the following
-        ``update()`` is then a no-op."""
+        the whole compiled step, the optimizer update included; the
+        following ``update()`` is then a no-op."""
         if self._train_step is not None:
-            self._train_step.run(data_batch, group=self._exec_group)
-            self._step_update_done = True
+            self._run_fused(data_batch)
         else:
             self.forward(data_batch, is_train=True)
             self.backward()
+
+    def _run_fused(self, data_batch):
+        if self._pending_metric is not None:
+            # arm device-side accumulation once; a metric the step cannot
+            # host stays on the host update_metric path
+            self._train_step.attach_metric(self._pending_metric)
+            self._pending_metric = None
+        self._fused_outputs = self._train_step.run(data_batch,
+                                                   group=self._exec_group)
+        self._step_update_done = True
 
     def forward(self, data_batch, is_train=None):
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
         self._step_update_done = False
+        self._fused_outputs = None
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self):
@@ -244,7 +339,7 @@ class Module(BaseModule):
 
     def update(self):
         """The optimizer step over the gradients of the last backward; a
-        no-op right after a train step's ``forward_backward``."""
+        no-op right after a compiled step's ``forward_backward``."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
         if self._step_update_done:
@@ -260,12 +355,107 @@ class Module(BaseModule):
                 weights.append(w)
         self._updater.update_multi(idxs, grads, weights)
         if self._train_step is not None:
-            self._train_step.masters_changed()
+            self._train_step.load_from_executor()
 
     def get_outputs(self):
+        """The outputs of the last forward or step (copies after a
+        compiled step: the next replay overwrites its outputs)."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
+        if self._fused_outputs is not None:
+            return [NDArray(o.clone()) for o in self._fused_outputs]
         return self._exec_group.get_outputs()
 
+    def get_input_grads(self):
+        if not (self.binded and self.params_initialized
+                and self.inputs_need_grad):
+            raise MXNetError("bind with inputs_need_grad first")
+        return self._exec_group.get_input_grads()
+
     def update_metric(self, eval_metric, labels):
-        self._exec_group.update_metric(eval_metric, labels)
+        if self._fused_outputs is None:
+            self._exec_group.update_metric(eval_metric, labels)
+            return
+        acc = self._train_step._metric_acc \
+            if self._train_step is not None else None
+        if acc is not None and acc.metric is eval_metric:
+            return  # accumulated inside the step
+        eval_metric.update(labels, [NDArray(o) for o in select_outputs(
+            eval_metric, self._fused_outputs)])
+
+    # ------------------------------------------------------------------
+    # the async loop's hooks
+    # ------------------------------------------------------------------
+    def _bind_metric(self, eval_metric):
+        self._pending_metric = None
+        if self._train_step is None:
+            return
+        if not config.get("MXNET_DEVICE_METRICS"):
+            self._train_step.detach_metric()
+            return
+        acc = self._train_step._metric_acc
+        if acc is not None and acc.metric is not eval_metric:
+            self._train_step.detach_metric()
+        self._pending_metric = eval_metric
+
+    def _bind_eval_metric(self, eval_metric):
+        """A :class:`CompiledEvalStep` accumulating ``eval_metric`` on the
+        device for ``score``, or None for the host path."""
+        if not config.get("MXNET_DEVICE_METRICS"):
+            return None
+        if not (self.binded and self.params_initialized):
+            return None
+        if not DeviceMetricAccumulator.supported(eval_metric):
+            return None
+        # a metric whose hooks the train step owns (fit's default
+        # validation metric is the train metric) scores on the host
+        if any(getattr(m, "_device_sync", None) is not None
+               for m in DeviceMetricAccumulator._flatten(eval_metric)):
+            return None
+        cached = self._eval_step_cache
+        if cached is not None and cached[0] is self._exec_group.exec_ \
+                and cached[1] is eval_metric:
+            return cached[2].rearm()
+        try:
+            step = CompiledEvalStep(self._exec_group, eval_metric)
+        except MXNetError as exc:
+            self.logger.info("device-side eval metrics unavailable (%s); "
+                             "using the host path", exc)
+            return None
+        self._eval_step_cache = (self._exec_group.exec_, eval_metric, step)
+        return step
+
+    def _wrap_train_data(self, train_data):
+        from ..io import DevicePrefetchIter
+
+        if self._train_step is None or self._device.type != "cuda" \
+                or not config.get("MXNET_DEVICE_PREFETCH") \
+                or isinstance(train_data, DevicePrefetchIter):
+            return train_data
+        return DevicePrefetchIter(train_data, self._device)
+
+    def _dispatch_fence(self):
+        """The CUDA event recorded after the last compiled step (None on
+        the CPU or after an eager step)."""
+        if self._fused_outputs is None or self._train_step is None:
+            return None
+        return self._train_step.last_event
+
+    # ------------------------------------------------------------------
+    # optimizer states
+    # ------------------------------------------------------------------
+    def save_optimizer_states(self, fname):
+        if not self.optimizer_initialized:
+            raise MXNetError("call init_optimizer first")
+        source = self._train_step if self._train_step is not None \
+            else self._updater
+        with open(fname, "wb") as fout:
+            fout.write(source.get_states())
+
+    def load_optimizer_states(self, fname):
+        if not self.optimizer_initialized:
+            raise MXNetError("call init_optimizer first")
+        target = self._train_step if self._train_step is not None \
+            else self._updater
+        with open(fname, "rb") as fin:
+            target.set_states(fin.read())

@@ -2,23 +2,27 @@
 
 The part of ``mxnet_tpu/ndarray.py`` that ``Module`` and ``io`` use:
 :class:`NDArray` with ``shape``, ``dtype``, ``context``, ``asnumpy``,
-``copyto`` and whole-array assignment, plus :func:`array` and
-:func:`zeros`.  Unlike the JAX package's immutable arrays, an NDArray's
-tensor is updated in place where that saves a copy (optimizer steps,
-parameter loads); :meth:`NDArray._set_data` rebinds it.
+``copyto`` and whole-array assignment, plus :func:`array`,
+:func:`zeros`, and :func:`save` / :func:`load` in the JAX package's
+``.params`` format.  Unlike the JAX package's immutable arrays, an
+NDArray's tensor is updated in place where that saves a copy (optimizer
+steps, parameter loads); :meth:`NDArray._set_data` rebinds it.
 
 New arrays live in host memory unless a context is given, as MXNet's
 ``nd.array`` does; ``Module`` moves each batch onto its own device.
-``.params`` file I/O is not ported yet.
 """
 from __future__ import annotations
+
+import io
+import struct
 
 import numpy as np
 import torch
 
+from .base import MXNetError
 from .context import Context
 
-__all__ = ["NDArray", "array", "zeros"]
+__all__ = ["NDArray", "array", "zeros", "save", "load"]
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64,
@@ -135,3 +139,89 @@ def zeros(shape, ctx=None, dtype=None):
         shape = (shape,)
     return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
                                device=_device(ctx)))
+
+
+# ---------------------------------------------------------------------------
+# .params files: the JAX package's MXTPU001 format (mxnet_tpu/ndarray.py
+# :410-470): magic, count, then per array its name, dtype string, shape
+# and raw little-endian bytes.  bfloat16 is written under its own dtype
+# string as the raw 16-bit patterns (numpy has no bfloat16 here).
+# ---------------------------------------------------------------------------
+
+_MAGIC = b"MXTPU001"
+
+
+def _raw(value):
+    """(dtype string, shape, bytes) of an NDArray, tensor or array."""
+    if isinstance(value, NDArray):
+        value = value.data
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return "bfloat16", tuple(t.shape), \
+                t.view(torch.int16).numpy().tobytes()
+        value = t.numpy()
+    npy = np.ascontiguousarray(np.asarray(value))
+    return str(npy.dtype), npy.shape, npy.tobytes()
+
+
+def save(fname, data):
+    """Write an NDArray, a list of them or a ``{name: NDArray}`` dict
+    (tensors and numpy arrays are taken too) to ``fname``."""
+    if not isinstance(data, (dict, list, tuple)):
+        data = [data]
+    if isinstance(data, dict):
+        names, arrays = list(data.keys()), list(data.values())
+    else:
+        names, arrays = [""] * len(data), list(data)
+    with open(fname, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<q", len(arrays)))
+        for name, arr in zip(names, arrays):
+            nb = name.encode()
+            dt, shape, raw = _raw(arr)
+            f.write(struct.pack("<i", len(nb)))
+            f.write(nb)
+            f.write(struct.pack("<i", len(dt)))
+            f.write(dt.encode())
+            f.write(struct.pack("<i", len(shape)))
+            f.write(struct.pack("<%dq" % len(shape), *shape))
+            f.write(struct.pack("<q", len(raw)))
+            f.write(raw)
+
+
+def load(fname):
+    """Host NDArrays from a ``.params`` path or an in-memory ``bytes``
+    blob: a dict when the arrays are named, else a list."""
+    if isinstance(fname, (bytes, bytearray, memoryview)):
+        return _load_stream(io.BytesIO(bytes(fname)), "<bytes>")
+    with open(fname, "rb") as f:
+        return _load_stream(f, fname)
+
+
+def _load_stream(f, fname):
+    if f.read(8) != _MAGIC:
+        raise MXNetError("Invalid NDArray file format: %s" % fname)
+    (count,) = struct.unpack("<q", f.read(8))
+    names, arrays = [], []
+    for _ in range(count):
+        (nlen,) = struct.unpack("<i", f.read(4))
+        name = f.read(nlen).decode()
+        (dlen,) = struct.unpack("<i", f.read(4))
+        dt = f.read(dlen).decode()
+        (ndim,) = struct.unpack("<i", f.read(4))
+        shape = struct.unpack("<%dq" % ndim, f.read(8 * ndim)) if ndim \
+            else ()
+        (rawlen,) = struct.unpack("<q", f.read(8))
+        raw = f.read(rawlen)
+        if dt == "bfloat16":
+            t = torch.from_numpy(np.frombuffer(raw, np.int16).copy()) \
+                .view(torch.bfloat16).reshape(shape)
+        else:
+            t = torch.from_numpy(np.frombuffer(raw, np.dtype(dt))
+                                 .reshape(shape).copy())
+        names.append(name)
+        arrays.append(NDArray(t))
+    if any(names):
+        return dict(zip(names, arrays))
+    return arrays

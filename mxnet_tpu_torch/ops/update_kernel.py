@@ -237,10 +237,11 @@ def plan_for(optimizer, params, grad_names, compute_dtype):
 
 def update_plain(kind, nslots, w, g, slots, wc, lrb, wdb, hyp):
     """Plain PyTorch version of kernel B1, in place on the slabs: the
-    same f32 chain as torch ops, the hyperparameters as f32 tensors."""
+    same f32 chain as torch ops, the hyperparameters as f32 tensors
+    (filled on the device, so a captured step can hold it)."""
     f32 = torch.float32
     dev = w.device
-    h = torch.tensor([float(v) for v in hyp], dtype=f32, device=dev)
+    h = [torch.full((), float(v), dtype=f32, device=dev) for v in hyp]
     lr = lrb.to(dev, f32).repeat_interleave(BLOCK).view(w.shape)
     wd = wdb.to(dev, f32).repeat_interleave(BLOCK).view(w.shape)
     rescale, clip = h[0], h[1]

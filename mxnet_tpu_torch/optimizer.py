@@ -14,13 +14,25 @@ Learning rate and weight decay per parameter follow the reference's
 attrs, then the dicts, by index or by name); an ``lr_scheduler`` maps the
 update count to the base rate.  :meth:`Optimizer.fused_hyper` and
 :meth:`Optimizer.fused_extra` are the host-side hyperparameters of the
+compiled train step (``train_step.CompiledTrainStep``) and its
 multi-tensor update (``ops/update_kernel.py``): per-index lr / wd with the
 update counts bumped as the eager path bumps them, Adam's bias correction
-folded into lr at the true count.
+folded into lr at the true count, computed once a step OUTSIDE the
+captured body.  Each optimizer has ONE arithmetic body, :meth:`apply`,
+which updates a weight and its slots in place: the eager ``update`` does
+the host bookkeeping (count, lr, wd) and calls it with floats, and
+:meth:`Optimizer.fused_kernel` hands it to the compiled step, which runs
+it per parameter where the slab plan declines (NAG, masters that are not
+f32 / bf16) with lr / wd as device scalars refreshed before each replay.
+``Updater.get_states`` / ``set_states`` and ``pack_state`` speak the
+JAX package's fused ``.states`` format: a pickled dict of tuples of numpy
+arrays keyed by parameter name (or index).
 """
 from __future__ import annotations
 
+import logging
 import math
+import pickle
 
 import numpy as np
 import torch
@@ -76,6 +88,17 @@ class Optimizer:
         return None
 
     def update(self, index, weight, grad, state):
+        """One step on ``weight`` (an NDArray, updated in place) from
+        ``grad`` (NDArray); ``state`` is ``create_state``'s value."""
+        self._update_count(index)
+        with torch.no_grad():
+            self.apply(weight.data, grad.data, _state_tensors(state),
+                       self._step_lr(index), self._get_wd(index))
+
+    def apply(self, w, g, slots, lr, wd):
+        """The update's arithmetic: ``w`` and the ``slots`` tuple updated
+        in place from the raw gradient ``g``; ``lr`` / ``wd`` floats or
+        device scalars (lr scheduled and bias-corrected on the host)."""
         raise NotImplementedError()
 
     def update_multi(self, indices, weights, grads, states):
@@ -119,9 +142,13 @@ class Optimizer:
     def _get_wd(self, index):
         return self._mult(index, self.wd, self.sym_wd_mult, self.wd_mult)
 
-    def _prep_grad(self, grad, dtype):
+    def _step_lr(self, index):
+        """The lr ``apply`` takes for ``index`` at its current count."""
+        return self._get_lr(index)
+
+    def _prep_grad(self, g, dtype):
         """The rescaled, clipped gradient in the weight's dtype."""
-        g = grad.data.to(dtype) * self.rescale_grad
+        g = g.to(dtype) * self.rescale_grad
         if self.clip_gradient is not None and self.clip_gradient > 0:
             g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
         return g
@@ -144,6 +171,22 @@ class Optimizer:
         epsilon), re-read every step."""
         return np.zeros(0, np.float32)
 
+    def fused_kernel(self):
+        """The compiled step's per-parameter update, :meth:`apply`, or
+        None (Module then keeps the eager path).  The floats it reads
+        from the optimizer (rescale, clip, momentum / betas / epsilon)
+        are part of the step program's signature."""
+        return None
+
+    def pack_state(self, arrays):
+        """A ``create_state``-shaped value from a flat list of state
+        arrays: 0 -> None, 1 -> the array, n -> a tuple."""
+        if not arrays:
+            return None
+        if len(arrays) == 1:
+            return arrays[0]
+        return tuple(arrays)
+
 
 register = Optimizer.register
 
@@ -161,23 +204,19 @@ class SGD(Optimizer):
             return None
         return torch.zeros_like(weight.data)
 
-    def update(self, index, weight, grad, state):
-        """One step on ``weight`` (an NDArray, updated in place) from
-        ``grad`` (NDArray); ``state`` is the momentum tensor or None."""
-        self._update_count(index)
-        lr = self._get_lr(index)
-        wd = self._get_wd(index)
-        w = weight.data
-        with torch.no_grad():
-            step = (self._prep_grad(grad, w.dtype) + wd * w) * lr
-            if state is not None:
-                state.mul_(self.momentum).sub_(step)
-                w.add_(state)
-            else:
-                w.sub_(step)
+    def apply(self, w, g, slots, lr, wd):
+        step = (self._prep_grad(g, w.dtype) + wd * w) * lr
+        if slots:
+            slots[0].mul_(self.momentum).sub_(step)
+            w.add_(slots[0])
+        else:
+            w.sub_(step)
 
     def fused_extra(self):
         return np.array([self.momentum], np.float32)
+
+    def fused_kernel(self):
+        return self.apply
 
 
 @register
@@ -191,21 +230,17 @@ class NAG(SGD):
     implement it: ``kind_of`` checks exact types, so NAG keeps the
     per-parameter update)."""
 
-    def update(self, index, weight, grad, state):
-        self._update_count(index)
-        lr = self._get_lr(index)
-        wd = self._get_wd(index)
-        w = weight.data
-        with torch.no_grad():
-            g = self._prep_grad(grad, w.dtype)
-            if state is not None:
-                state.mul_(self.momentum)
-                g = g + wd * w
-                state.add_(g)
-                g = g + self.momentum * state
-                w.add_(-lr * g)
-            else:
-                w.add_(-lr * (g + wd * w))
+    def apply(self, w, g, slots, lr, wd):
+        g = self._prep_grad(g, w.dtype)
+        if slots:
+            (m,) = slots
+            m.mul_(self.momentum)
+            g = g + wd * w
+            m.add_(g)
+            g = g + self.momentum * m
+            w.add_(-lr * g)
+        else:
+            w.add_(-lr * (g + wd * w))
 
 
 @register
@@ -223,22 +258,23 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return (torch.zeros_like(weight.data), torch.zeros_like(weight.data))
 
-    def update(self, index, weight, grad, state):
-        self._update_count(index)
+    def _step_lr(self, index):
         t = self._index_update_count[index]
-        lr = self._get_lr(index)
-        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
-        wd = self._get_wd(index)
-        mean, var = state
-        w = weight.data
-        with torch.no_grad():
-            g = self._prep_grad(grad, w.dtype) + wd * w
-            mean.mul_(self.beta1).add_((1 - self.beta1) * g)
-            var.mul_(self.beta2).add_((1 - self.beta2) * g.square())
-            w.sub_(lr * mean / (var.sqrt() + self.epsilon))
+        return self._get_lr(index) * (math.sqrt(1.0 - self.beta2 ** t)
+                                      / (1.0 - self.beta1 ** t))
+
+    def apply(self, w, g, slots, lr, wd):
+        mean, var = slots
+        g = self._prep_grad(g, w.dtype) + wd * w
+        mean.mul_(self.beta1).add_((1 - self.beta1) * g)
+        var.mul_(self.beta2).add_((1 - self.beta2) * g.square())
+        w.sub_(lr * mean / (var.sqrt() + self.epsilon))
 
     def fused_extra(self):
         return np.array([self.beta1, self.beta2, self.epsilon], np.float32)
+
+    def fused_kernel(self):
+        return self.apply
 
     def fused_hyper(self, indices):
         lrs, wds, rescale, clip = super().fused_hyper(indices)
@@ -273,6 +309,59 @@ class Updater:
                                                                  weight)
         self.optimizer.update_multi(indices, weights, grads,
                                     [self.states[i] for i in indices])
+
+    def get_states(self):
+        """The states as the fused ``.states`` payload: a pickled dict of
+        tuples of numpy arrays (bf16 as f32), keyed by parameter name
+        where the optimizer knows it, else by index."""
+        names = self.optimizer.idx2name
+        host = {}
+        for idx, state in self.states.items():
+            host[names.get(idx, idx)] = tuple(
+                _to_numpy(t) for t in _state_tensors(state))
+        return pickle.dumps(host)
+
+    def set_states(self, payload):
+        """Load a ``.states`` payload (name- or index-keyed tuples of
+        arrays), copying into existing states in place: a state may be a
+        view of the train step's slot slab."""
+        loaded = pickle.loads(payload)
+        name2idx = {n: i for i, n in self.optimizer.idx2name.items()}
+        for key, state in loaded.items():
+            idx = name2idx.get(key, key) if isinstance(key, str) else key
+            if isinstance(idx, str):
+                logging.warning(
+                    "optimizer state key %r has no index mapping; its "
+                    "saved state will not be applied", key)
+                continue
+            arrays = list(_state_tensors(state))
+            current = self.states.get(idx)
+            if current is None:
+                self.states[idx] = self.optimizer.pack_state(
+                    [torch.as_tensor(np.asarray(a)).clone()
+                     for a in arrays])
+                continue
+            for dst, src in zip(_state_tensors(current), arrays):
+                with torch.no_grad():
+                    dst.copy_(torch.as_tensor(np.asarray(src)))
+
+
+def _state_tensors(state):
+    """A state's arrays as a tuple (None -> (), one array -> 1-tuple)."""
+    if state is None:
+        return ()
+    if isinstance(state, (tuple, list)):
+        return tuple(state)
+    return (state,)
+
+
+def _to_numpy(t):
+    if isinstance(t, np.ndarray):
+        return t
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy().copy()
 
 
 def get_updater(optimizer):

@@ -1,8 +1,10 @@
-"""Serving programs as captured CUDA graphs — the port's counterpart of
+"""Programs as captured CUDA graphs — the port's counterpart of
 ``jax.jit`` and of ``mxnet_tpu/programs/aot.py``'s ``AotDispatch``.
 
 A :class:`GraphProgram` wraps one program body (a Python function over
-tensors, e.g. one paged decode step).  Its first call at a new argument
+tensors: one paged decode step, or one whole training step — forward,
+autograd's backward, the optimizer update — whose body turns autograd
+on itself).  Its first call at a new argument
 signature runs the body eagerly on a side stream (which builds the
 kernels and makes their one-time attribute calls), then captures the
 body into a ``torch.cuda.CUDAGraph`` and counts one trace; every later
@@ -33,7 +35,13 @@ next replay of any program sharing the graph's memory pool
 consumes or copies them first.  Kernel wrappers count their launches
 in Python, which a replay does not run: each graph records the launch
 counts its capture made and adds them on every replay, so
-``LAUNCHES`` mean the same with and without graphs.
+``LAUNCHES`` mean the same with and without graphs; likewise the path
+markers (``FUSED_PATH``, ``PATH_TAKEN``, ``DECODE_PATH``,
+``UPDATE_PATH`` and the kernels' ``LAST_VARIANT``) are set on every
+replay to what the capture's run set them to.  The body's Python runs
+twice at a new signature on the card (the warm-up, which is the call's
+real work, and the capture, which runs nothing): host side effects
+(update counts, schedules, metric hooks) belong outside it.
 
 On a CPU device the same object keeps the same static buffers and the
 same signatures and counts, and runs the body on the buffers without a
@@ -99,6 +107,18 @@ def _launch_counters():
             flash_kernel.LAUNCHES, update_kernel.LAUNCHES)
 
 
+def _path_markers():
+    """Every path marker and last-variant record an op or a wrapper
+    sets."""
+    from ..ops import (attention, decode_kernel, flash_kernel, fused_kernel,
+                       fused_lm, update_kernel)
+
+    return (fused_lm.FUSED_PATH, attention.PATH_TAKEN,
+            attention.DECODE_PATH, update_kernel.UPDATE_PATH,
+            fused_kernel.LAST_VARIANT, flash_kernel.LAST_VARIANT,
+            decode_kernel.LAST_VARIANT)
+
+
 class GraphPool:
     """One CUDA-graph memory pool shared by several programs, made at the
     first capture."""
@@ -118,16 +138,17 @@ class _Entry:
     the card the graph, its static outputs and its launch counts."""
 
     __slots__ = ("specs", "leaves", "copies", "graph", "outputs",
-                 "launches")
+                 "launches", "paths")
 
     def __init__(self, specs, leaves, copies, graph=None, outputs=None,
-                 launches=()):
+                 launches=(), paths=()):
         self.specs = specs
         self.leaves = leaves
         self.copies = copies
         self.graph = graph
         self.outputs = outputs
         self.launches = launches
+        self.paths = paths
 
 
 class GraphProgram:
@@ -207,6 +228,8 @@ class GraphProgram:
         entry.graph.replay()
         for counter, name, n in entry.launches:
             counter[name] += n
+        for marker, name, value in entry.paths:
+            marker[name] = value
         return entry.outputs
 
     def _setup(self, key, leaves, bound):
@@ -245,6 +268,11 @@ class GraphProgram:
                 graph.register_generator_state(x)
         counters = _launch_counters()
         before = [dict(c) for c in counters]
+        # the markers the capture's run sets are the ones a replay sets
+        markers = _path_markers()
+        warm = [dict(m) for m in markers]
+        for m in markers:
+            m.update(dict.fromkeys(m))
         try:
             with torch.cuda.device(dev), \
                     torch.cuda.graph(graph, pool=self.pool.handle()):
@@ -258,4 +286,9 @@ class GraphProgram:
                              for k in c if c[k] != b[k])
             for c, b in zip(counters, before):
                 c.update(b)
-        return out, _Entry(specs, leaves, copies, graph, outputs, launches)
+            paths = tuple((m, k, v) for m in markers for k, v in m.items()
+                          if v is not None)
+            for m, w in zip(markers, warm):
+                m.update(w)
+        return out, _Entry(specs, leaves, copies, graph, outputs, launches,
+                           paths)

@@ -1,8 +1,9 @@
-"""The RNN package: cells (``rnn_cell``) and the bucketing sentence
-iterator (``io``), after ``mxnet_tpu/rnn/``.  The checkpoint helpers of
-``rnn/rnn.py`` wait for ``.params`` file I/O."""
+"""The RNN package: cells (``rnn_cell``), the bucketing sentence
+iterator (``io``) and the checkpoint helpers (``rnn``), after
+``mxnet_tpu/rnn/``."""
 from . import rnn_cell
 from .io import BucketSentenceIter
+from .rnn import do_rnn_checkpoint, load_rnn_checkpoint, save_rnn_checkpoint
 from .rnn_cell import (BaseRNNCell, BidirectionalCell, DropoutCell,
                        FusedRNNCell, GRUCell, LSTMCell, ModifierCell,
                        ResidualCell, RNNCell, RNNParams, SequentialRNNCell,
@@ -11,4 +12,5 @@ from .rnn_cell import (BaseRNNCell, BidirectionalCell, DropoutCell,
 __all__ = ["BaseRNNCell", "BidirectionalCell", "BucketSentenceIter",
            "DropoutCell", "FusedRNNCell", "GRUCell", "LSTMCell",
            "ModifierCell", "ResidualCell", "RNNCell", "RNNParams",
-           "SequentialRNNCell", "ZoneoutCell", "rnn_cell"]
+           "SequentialRNNCell", "ZoneoutCell", "do_rnn_checkpoint",
+           "load_rnn_checkpoint", "rnn_cell", "save_rnn_checkpoint"]

@@ -228,6 +228,10 @@ class Symbol:
                                          if n.is_variable]},
                           indent=2)
 
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
 
 def Variable(name, attr=None, shape=None, init=None, **kwargs):
     """Create a variable symbol; ``init`` (an initializer) rides on it as

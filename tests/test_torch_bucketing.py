@@ -152,7 +152,7 @@ def test_one_slab_plan_serves_every_bucket(monkeypatch):
     train step and shares its slab views by storage, and each step runs
     exactly one update over the shared slabs."""
     arms, updates = [], []
-    real_arm, real_plain = train_step.TrainStep._arm, uk.update_plain
+    real_arm, real_plain = train_step.CompiledTrainStep._arm, uk.update_plain
 
     def arm(self, plan):
         arms.append(plan)
@@ -162,7 +162,7 @@ def test_one_slab_plan_serves_every_bucket(monkeypatch):
         updates.append(args[0])
         return real_plain(*args)
 
-    monkeypatch.setattr(train_step.TrainStep, "_arm", arm)
+    monkeypatch.setattr(train_step.CompiledTrainStep, "_arm", arm)
     monkeypatch.setattr(uk, "update_plain", plain)
     mod, it = _port_module(False, "adam", _init_params(False))
     for _, batch in zip(range(STEPS), it):

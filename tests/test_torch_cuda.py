@@ -14,6 +14,8 @@ another order); bf16 one bf16 ulp (2^-7 relative, a rounding flip); the
 paged kernel 1e-5 (f32 softmax, streamed in another order), 1e-2 for
 bf16 pools, whose plain version rounds the probabilities to bf16.
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -1220,6 +1222,7 @@ def test_bucketed_lstm_trains_through_one_slab(card, full_f32,
     import numpy as np
 
     import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import programs
     from mxnet_tpu_torch.models import lstm_lm
     from mxnet_tpu_torch.ndarray import NDArray
     from mxnet_tpu_torch.ops import update_kernel as uk
@@ -1265,8 +1268,11 @@ def test_bucketed_lstm_trains_through_one_slab(card, full_f32,
     monkeypatch.setattr(uk, "multi_tensor_update", checked)
     batches = list(it)
     before = uk.LAUNCHES["multi_tensor_update"]
-    mod.forward_backward(batches[0])
-    mod.update()
+    # the checked step runs unrecorded: a Python check cannot run inside
+    # a replay
+    with programs.eager():
+        mod.forward_backward(batches[0])
+        mod.update()
     torch.cuda.synchronize()
     opt.update_multi(idx, weights, [group.grad_arrays[i] for i in idx],
                      states)
@@ -1283,10 +1289,15 @@ def test_bucketed_lstm_trains_through_one_slab(card, full_f32,
                     - torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)).abs()
             outside = ((got - want).abs() > 1e-4 * change) & (dist > 1)
             assert not bool(outside.any()), name
+    # the rest through the captured programs, whose replays re-add the
+    # launches and path markers their captures saw
+    monkeypatch.setattr(uk, "multi_tensor_update", real)
+    replays = programs.GRAPH_STATS["replays"]
     for b in batches[1:]:
         mod.forward_backward(b)
         mod.update()
     torch.cuda.synchronize()
+    assert programs.GRAPH_STATS["replays"] - replays >= len(batches) - 3
     assert uk.LAUNCHES["multi_tensor_update"] - before == len(batches)
     assert uk.UPDATE_PATH["last"] == "kernel"
     assert ulps and max(ulps) <= 1
@@ -1300,3 +1311,183 @@ def test_bucketed_lstm_trains_through_one_slab(card, full_f32,
             assert exe.arg_dict[name].data.data_ptr() == view.data_ptr()
             assert exe.grad_dict[name].data.data_ptr() == \
                 grads[name].data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# the compiled train step (train_step.CompiledTrainStep): one CUDA graph a
+# bucket executor, held against its body run under programs.eager()
+# ---------------------------------------------------------------------------
+
+def _lstm_bucketing(card, fused, vocab=60, batch=4):
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import lstm_lm
+
+    sym_gen, _ = lstm_lm.sym_gen_factory(16, 2, 16, vocab, fused=fused,
+                                         ignore_label=-1)
+    rng = np.random.RandomState(1)
+    sents = [rng.randint(1, vocab, size=rng.randint(2, 9)).tolist()
+             for _ in range(40)]
+    it = mt.rnn.BucketSentenceIter(sents, batch, buckets=[4, 8], seed=0)
+    torch.manual_seed(0)
+    mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=8,
+                                 context=mt.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(initializer=mt.initializer.Xavier())
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 0.01})
+    return mod, list(it)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_captured_train_step_matches_eager_bitwise(card, full_f32, fused):
+    """The bucketed LSTM LM (unfused cells, or cuDNN's RNN op) trained
+    through its captured step programs against the same steps under
+    programs.eager() from the same start: the parameters, the Adam slots
+    and the device-accumulated perplexity bit for bit; one capture a
+    bucket, replays after; B1 once a step in both."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    runs = []
+    for eager in (False, True):
+        mod, batches = _lstm_bucketing(card, fused)
+        metric = mt.metric.Perplexity(ignore_label=-1)
+        mod._bind_metric(metric)
+        stats = dict(programs.GRAPH_STATS)
+        launches = uk.LAUNCHES["multi_tensor_update"]
+        for b in batches:
+            if eager:
+                with programs.eager():
+                    mod.forward_backward(b)
+            else:
+                mod.forward_backward(b)
+            mod.update()
+            mod.update_metric(metric, b.label)
+        torch.cuda.synchronize()
+        step = mod._primary._train_step
+        runs.append((
+            {n: v.clone() for n, v in step.plan.unpack_all(step._w).items()},
+            [t.clone() for t in step._slots["float32"]], metric.get()[1],
+            {k: programs.GRAPH_STATS[k] - stats[k]
+             for k in ("captures", "replays")},
+            uk.LAUNCHES["multi_tensor_update"] - launches, len(batches),
+            len(mod._buckets)))
+    (w_c, s_c, m_c, st_c, l_c, n, buckets), \
+        (w_e, s_e, m_e, st_e, l_e, _, _) = runs
+    for name in w_e:
+        assert torch.equal(w_c[name], w_e[name]), name
+    assert all(torch.equal(a, b) for a, b in zip(s_c, s_e))
+    assert m_c == m_e
+    assert st_c == {"captures": buckets, "replays": n - buckets}
+    assert st_e == {"captures": 0, "replays": 0}
+    assert l_c == l_e == n
+
+
+def test_bucket_graphs_share_one_pool(card, full_f32):
+    """Every bucket's captured program belongs to the one store and
+    captures into its one memory pool; a second pass over the batches
+    captures nothing more."""
+    from mxnet_tpu_torch import programs
+
+    mod, batches = _lstm_bucketing(card, False)
+    for b in batches:
+        mod.forward_backward(b)
+    step = mod._primary._train_step
+    progs = [p for p, _ in step._fns.values()]
+    assert len(progs) == len(mod._buckets) == 2
+    assert all(p.pool is step._pool for p in progs)
+    assert step._pool.handle() is not None
+    assert all(m._train_step is step for m in mod._buckets.values())
+    captures = programs.GRAPH_STATS["captures"]
+    for b in batches:
+        mod.forward_backward(b)
+    assert programs.GRAPH_STATS["captures"] == captures
+    assert step.trace_count == step.programs_built == 2
+
+
+def _mlp_module(card, dropout):
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+
+    s = mt.sym
+    net = s.FullyConnected(s.Variable("data"), num_hidden=32, name="fc1")
+    net = s.Activation(net, act_type="tanh", name="act")
+    if dropout:
+        net = s.Dropout(net, p=0.5, name="drop")
+    net = s.SoftmaxOutput(s.FullyConnected(net, num_hidden=5, name="fc2"),
+                          name="softmax")
+    rng = np.random.RandomState(2)
+    x = rng.randn(48, 16).astype(np.float32)
+    y = rng.randint(0, 5, 48).astype(np.float32)
+    shapes, _, _ = net.infer_shape(data=(8, 16), softmax_label=(8,))
+    args = {n: (0.3 * rng.randn(*sh)).astype(np.float32)
+            for n, sh in zip(net.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+    mod = mt.mod.Module(net, context=mt.gpu(0))
+    return mod, mt.io.NDArrayIter(x, y, batch_size=8), args
+
+
+def test_captured_dropout_draws_from_the_registered_generator(card,
+                                                              full_f32):
+    """Dropout's explicit generator (``Executor.generator``) rides the
+    captured step as a registered generator: every replay draws a new
+    mask, the same masks the eager steps draw from the same seed, so the
+    two runs' parameters agree bit for bit."""
+    from mxnet_tpu_torch import programs
+
+    runs = []
+    for eager in (False, True):
+        mod, it, args = _mlp_module(card, dropout=True)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params=args)
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+        exe = mod._exec_group.exec_
+        exe.generator = torch.Generator(device=card).manual_seed(7)
+        for b in it:
+            with programs.eager() if eager else contextlib.nullcontext():
+                mod.forward_backward(b)
+        torch.cuda.synchronize()
+        runs.append({n: a.data.clone() for n, a in exe.arg_dict.items()
+                     if n in args})
+    assert all(torch.equal(runs[0][n], runs[1][n]) for n in runs[1])
+
+
+def test_fit_feeds_the_step_through_device_prefetch(card, full_f32,
+                                                   monkeypatch):
+    """``Module.fit`` on the card wraps the iterator in a
+    ``DevicePrefetchIter`` (pinned batches copied on a side stream the
+    step waits on) and lands on the parameters of a fit without it
+    (``MXNET_DEVICE_PREFETCH=0``), bit for bit; the metric is
+    accumulated on the card."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config, io
+
+    taken = []
+    real_next = io.DevicePrefetchIter.next
+
+    def counted(self):
+        batch = real_next(self)
+        taken.append(batch.data[0].data.device.type)
+        return batch
+
+    monkeypatch.setattr(io.DevicePrefetchIter, "next", counted)
+    runs = []
+    for prefetch in (True, False):
+        mod, it, args = _mlp_module(card, dropout=False)
+        metric = mt.metric.Accuracy()
+        with config.overrides(MXNET_DEVICE_PREFETCH=prefetch):
+            mod.fit(it, eval_metric=metric, arg_params=args,
+                    optimizer="sgd", num_epoch=2,
+                    optimizer_params={"learning_rate": 0.1})
+        assert mod._train_step._metric_acc.metric is metric
+        runs.append(({n: v.asnumpy() for n, v in
+                      mod.get_params()[0].items()}, metric.get()[1]))
+    assert taken and set(taken) == {"cuda"} and len(taken) == 12
+    (p1, m1), (p2, m2) = runs
+    assert m1 == m2
+    assert all((p1[n] == p2[n]).all() for n in p2)
