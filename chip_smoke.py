@@ -72,6 +72,20 @@ Phases (any failure ends the run with a non-zero exit code):
    the attention routing: a Module at head dims 32 and 256, which the
    flash kernels are not built for, takes sdpa ("einsum") and matches a
    plain module's forward and backward;
+6b. predict — the training configuration's LM and weights saved with
+   ``model.save_checkpoint`` and loaded by ``Module.load``, then
+   ``Module.predict`` over 20 sequences at batch 8 (the last batch
+   padded by 4): each batch one replay of the captured inference forward
+   (``train_step.CompiledForward``: kernels A 20 and C 4 times a batch),
+   bit for bit against the same predict under ``programs.eager()`` and
+   within TOL_LOGP of a plain module; timed captured and eager, a
+   profiled batch of each; ``Predictor.from_checkpoint`` bit for bit
+   against predict's first batch, its reshape to batch 2 and back with
+   no new capture; ``Module.reshape`` to batch 4; ``backward(out_grads)``
+   on the logits with a random head gradient against a plain module
+   (kernels D, E, F); a serve from the ``.params`` file (path, then
+   bytes) over a prompt holding ids ``vocab``, ``vocab + 2`` and
+   ``-vocab - 1``, equal to the prompt with the clamped ids;
 7. train ResNet-50 — ``bench.py``'s configuration at full depth and
    width (batch 256, bf16 compute, f32 masters, SGD lr 0.1, momentum
    0.9, wd 1e-4, seeded Xavier(gaussian, in, 2) weights, one resident
@@ -139,6 +153,20 @@ VOCAB, SEQ, EMBED, HEADS, FFN, LAYERS = 8192, 2048, 1024, 4, 4096, 2
 TRAIN_BATCH, TRAIN_HEADS, TRAIN_LAYERS = 8, 8, 4
 TRAIN_LR, BENCH_LR = 0.001, 0.01
 TRAIN_STEPS = 3     # timed steps after one warm-up step
+# inference (phase 6b): the training configuration's LM and weights
+# through Module.predict, 20 sequences at batch 8 (two full batches and
+# one padded by 4), then at batch 4 after Module.reshape; its profiled
+# batch's device time by kind of kernel
+PREDICT_N, PREDICT_SMALL_BATCH = 20, 4
+PREDICT_OOB_PROMPT = 300    # the out-of-range serve's prompt length
+PREDICT_KERNEL_GROUPS = {
+    "A (simt_kernel)": ("simt_kernel",),
+    "C (flash_fwd_simt)": ("flash_fwd_simt",),
+    "products (the head, cuBLAS)": ("gemm", "sm90_", "cutlass", "xmma"),
+    "softmax": ("softmax", "Softmax", "SoftMax"),
+    "element-wise and reductions": ("elementwise", "reduce_kernel"),
+    "copies": ("copy", "Copy", "Memcpy"),
+}
 # the ResNet-50 training configuration: bench.py:87-125 at full depth and
 # width, one resident batch (x uniform(-1, 1), labels in [0, 1000))
 RESNET_BATCH, RESNET_STEPS = 256, 3
@@ -1611,6 +1639,38 @@ def _graph_delta(before):
             for k in ("captures", "replays", "capture_s")}
 
 
+# the LM parameters the backward reaches before any ReLU mask
+_DIRECT = ("head_", "final_", "layer%d_ffn2_" % (TRAIN_LAYERS - 1))
+
+
+def _grad_tiers(torch, got, want, what):
+    """Per parameter ||got - want|| / ||want|| (a *_k_bias on its layer's
+    *_q_bias), the worst in each tier against its tolerance
+    (TOL_TRAIN_GRAD before any ReLU mask, TOL_TRAIN_GRAD_RELU behind
+    one); raises past it."""
+    errs = {}
+    for name, gp in want.items():
+        ref = name[:-len("_k_bias")] + "_q_bias" \
+            if name.endswith("_k_bias") else name
+        denom = float(torch.linalg.vector_norm(want[ref].double()))
+        errs[name] = float(torch.linalg.vector_norm(
+            (got[name] - gp).double())) / max(denom, 1e-30)
+    tiers = {"before_relu": ({n: e for n, e in errs.items()
+                              if n.startswith(_DIRECT)}, TOL_TRAIN_GRAD),
+             "behind_relu": ({n: e for n, e in errs.items()
+                              if not n.startswith(_DIRECT)},
+                             TOL_TRAIN_GRAD_RELU)}
+    check = {}
+    for tier, (tier_errs, tol) in tiers.items():
+        worst = max(tier_errs, key=tier_errs.get)
+        check[tier] = {"max": tier_errs[worst], "param": worst, "tol": tol}
+        if not tier_errs[worst] <= tol:
+            raise AssertionError(
+                "%s gradients, kernel vs plain: %s off by %.3g > %.3g"
+                % (what, worst, tier_errs[worst], tol))
+    return check
+
+
 def phase_train(torch, dev):
     """The full-width training step through Module on the card: the
     compiled step (one CUDA graph), held against its body under
@@ -1742,28 +1802,7 @@ def phase_train(torch, dev):
         pmod.forward_backward(batch)
     plain = grads(pmod)
     del pmod
-    errs = {}
-    for name, gp in plain.items():
-        ref = name[:-len("_k_bias")] + "_q_bias" \
-            if name.endswith("_k_bias") else name
-        denom = float(torch.linalg.vector_norm(plain[ref].double()))
-        errs[name] = float(torch.linalg.vector_norm(
-            (first[name] - gp).double())) / max(denom, 1e-30)
-    direct = ("head_", "final_", "layer%d_ffn2_" % (TRAIN_LAYERS - 1))
-    tiers = {"before_relu": ({n: e for n, e in errs.items()
-                              if n.startswith(direct)}, TOL_TRAIN_GRAD),
-             "behind_relu": ({n: e for n, e in errs.items()
-                              if not n.startswith(direct)},
-                             TOL_TRAIN_GRAD_RELU)}
-    grad_check = {}
-    for tier, (tier_errs, tol) in tiers.items():
-        worst = max(tier_errs, key=tier_errs.get)
-        grad_check[tier] = {"max": tier_errs[worst], "param": worst,
-                            "tol": tol}
-        if not tier_errs[worst] <= tol:
-            raise AssertionError(
-                "train gradients, kernel vs plain: %s off by %.3g > %.3g"
-                % (worst, tier_errs[worst], tol))
+    grad_check = _grad_tiers(torch, first, plain, "train")
     del first, plain
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError("the loss did not fall on the repeated batch: "
@@ -1839,8 +1878,8 @@ def phase_train(torch, dev):
 
     eager1, eg1, eager_step_s, peak_eager_gb = eager_run()
     eager2, eg2, _, _ = eager_run()
-    vs_eager = _run_diff(torch, captured, eager1, start, direct)
-    spread = _run_diff(torch, eager2, eager1, start, direct)
+    vs_eager = _run_diff(torch, captured, eager1, start, _DIRECT)
+    spread = _run_diff(torch, eager2, eager1, start, _DIRECT)
     nondeterministic = sorted(n for n in eg1 if not torch.equal(eg1[n],
                                                                 eg2[n]))
     del eager1, eager2, eg1, eg2, captured
@@ -1892,6 +1931,306 @@ def phase_train(torch, dev):
     log("train profile: " + json.dumps(profile))
     log("train profile eager: " + json.dumps(profile_eager))
     return train, launches
+
+
+def _logp_gap(torch, got, want):
+    """max |log got - log want| over probabilities (floored at 1e-30)."""
+    return float((torch.log(torch.clamp_min(got, 1e-30))
+                  - torch.log(torch.clamp_min(want, 1e-30))).abs().max())
+
+
+def phase_predict(torch, dev):
+    """Inference through the normal entry points at the training
+    configuration's full width: a checkpoint saved and loaded back
+    (``Module.load``), ``Module.predict`` over a padded iterator through
+    the captured inference forward (kernels A and C inside), held
+    against the same predict under programs.eager() and against a plain
+    module; ``Predictor.from_checkpoint`` and its reshape round trip;
+    ``Module.reshape`` to batch 4; ``backward(out_grads)`` on the LM's
+    logits against a plain module (kernels D, E, F behind it); a serve
+    from the ``.params`` file over a prompt holding out-of-range ids."""
+    from mxnet_tpu_torch import Predictor, gpu, model, programs
+    from mxnet_tpu_torch.decode import DecodeServer
+    from mxnet_tpu_torch.io import DataBatch, DataDesc, NDArrayIter
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import attention as attn
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.ops import fused_lm
+
+    b, t, n = TRAIN_BATCH, SEQ, PREDICT_N
+    sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=t,
+                                  num_layers=TRAIN_LAYERS, embed=EMBED,
+                                  heads=TRAIN_HEADS, ffn_hidden=FFN)
+    params = _train_params(sym)
+    rng = np.random.RandomState(2)
+    x = rng.randint(0, VOCAB, (n, t)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.full((n, 1), -1, np.float32)], 1)
+    batches = -(-n // b)
+    pad = batches * b - n
+    segments = 5 * TRAIN_LAYERS
+    counters = ((fk.LAUNCHES, "fused_fwd"), (fl.LAUNCHES, "flash_fwd"))
+    log("predict model: the train model's LM and weights, %d sequences at "
+        "batch %d (%d batches, the last padded by %d)" % (n, b, batches,
+                                                          pad))
+
+    def descs(batch):
+        return ([DataDesc("data", (batch, t), layout="NT")],
+                [DataDesc("softmax_label", (batch, t), layout="NT")])
+
+    def loaded(prefix, plain=False):
+        mod = Module.load(prefix, 0, context=gpu(0), plain=plain)
+        mod.bind(*descs(b), for_training=False)
+        return mod
+
+    def timed_predict(mod, batch=b, eager=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with programs.eager() if eager else contextlib.nullcontext():
+            out = mod.predict(NDArrayIter(x, y, batch_size=batch)).data
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "lm")
+        model.save_checkpoint(prefix, 0, sym, params, {})
+        kmod = loaded(prefix)
+        torch.cuda.reset_peak_memory_stats()
+        for d, name in counters:
+            d[name] = 0
+        fused_lm.FUSED_PATH["last"] = attn.PATH_TAKEN["last"] = None
+        graphs0 = dict(programs.GRAPH_STATS)
+        out, first_wall = timed_predict(kmod)
+        launches = {name: d[name] for d, name in counters}
+        paths = {"fused": fused_lm.FUSED_PATH["last"],
+                 "attention": attn.PATH_TAKEN["last"]}
+        graphs = _graph_delta(graphs0)
+        want = {"fused_fwd": segments * batches,
+                "flash_fwd": TRAIN_LAYERS * batches}
+        # the reference's strip: each output loses the pad by its own
+        # leading dimension, here the flattened (B * T, V) head's rows
+        rows = batches * b * t - pad
+        log("predict launches: %s paths: %s graph stats: %s rows: %d"
+            % (launches, paths, graphs, out.shape[0]))
+        if launches != want or paths != {"fused": "kernel",
+                                         "attention": "flash"}:
+            raise AssertionError("predict did not run kernels A and C %s "
+                                 "times: %s %s" % (want, launches, paths))
+        if (graphs["captures"], graphs["replays"]) != (1, batches - 1):
+            raise AssertionError("predict: %s (want one capture, then a "
+                                 "replay a batch)" % graphs)
+        if tuple(out.shape) != (rows, VOCAB) \
+                or not bool(torch.isfinite(out).all()):
+            raise AssertionError("predict output %s (want (%d, %d), "
+                                 "finite)" % (tuple(out.shape), rows, VOCAB))
+        graphs1 = dict(programs.GRAPH_STATS)
+        again, wall = timed_predict(kmod)
+        replay_graphs = _graph_delta(graphs1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # eager timed on its second call, as captured is (the first
+        # fills the allocator's cache)
+        eager_out, _ = timed_predict(kmod, eager=True)
+        _, eager_wall = timed_predict(kmod, eager=True)
+        capture_gate = {"replayed_bitwise": bool(torch.equal(again, out)),
+                        "eager_bitwise": bool(torch.equal(eager_out, out)),
+                        "replay_graphs": replay_graphs}
+        log("predict captured vs eager: " + json.dumps(capture_gate))
+        if not (capture_gate["replayed_bitwise"]
+                and capture_gate["eager_bitwise"]) \
+                or replay_graphs["captures"] != 0:
+            raise AssertionError("predict captured against eager: %s"
+                                 % capture_gate)
+        del again, eager_out
+
+        # the plain versions, over the n real sequences' rows
+        pmod = loaded(prefix, plain=True)
+        with programs.eager():
+            plain = pmod.predict(NDArrayIter(x, y, batch_size=b)).data
+        del pmod
+        live = n * t
+        plain_gate = {
+            "max_abs_logp": _logp_gap(torch, out[:live], plain[:live]),
+            "max_abs_p": float((out[:live] - plain[:live]).abs().max()),
+            "tol_logp": TOL_LOGP}
+        del plain
+        log("predict kernel vs plain: " + json.dumps(plain_gate))
+        if not plain_gate["max_abs_logp"] <= TOL_LOGP:
+            raise AssertionError("predict, kernel vs plain: %s"
+                                 % plain_gate)
+
+        # one batch profiled, captured and eager
+        it = NDArrayIter(x, y, batch_size=b)
+        one = next(iter(it))
+
+        def one_batch(eager=False):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with programs.eager() if eager else contextlib.nullcontext():
+                kmod.forward(one, is_train=False)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        profile = _profile(torch, one_batch, PREDICT_KERNEL_GROUPS)
+        profile_eager = _profile(torch, lambda: one_batch(eager=True),
+                                 PREDICT_KERNEL_GROUPS)
+
+        # Predictor from the same files: its first batch is predict's,
+        # and a reshape round trip captures nothing new on the way back
+        pred = Predictor.from_checkpoint(
+            prefix, 0, {"data": (b, t), "softmax_label": (b, t)},
+            ctx=gpu(0))
+        p_out = pred.forward(data=x[:b])[0].data.clone()
+        small = pred.reshape({"data": (2, t), "softmax_label": (2, t)})
+        s_out = small.forward(data=x[:2])[0].data
+        captures = programs.GRAPH_STATS["captures"]
+        back = small.reshape({"data": (b, t), "softmax_label": (b, t)})
+        b_out = back.forward(data=x[:b])[0].data
+        torch.cuda.synchronize()
+        predictor_gate = {
+            "first_batch_bitwise": bool(torch.equal(p_out, out[:b * t])),
+            "batch2_bitwise": bool(torch.equal(s_out, out[:2 * t])),
+            "batch2_max_abs_logp": _logp_gap(torch, s_out, out[:2 * t]),
+            "round_trip_new_captures":
+                programs.GRAPH_STATS["captures"] - captures,
+            "round_trip_same_executor": back._exec is pred._exec,
+            "round_trip_bitwise": bool(torch.equal(b_out, p_out))}
+        del pred, small, back, p_out, s_out, b_out
+        log("predict Predictor: " + json.dumps(predictor_gate))
+        if not (predictor_gate["first_batch_bitwise"]
+                and predictor_gate["round_trip_bitwise"]
+                and predictor_gate["round_trip_same_executor"]
+                and predictor_gate["round_trip_new_captures"] == 0
+                and predictor_gate["batch2_max_abs_logp"] <= TOL_LOGP):
+            raise AssertionError("Predictor against predict: %s"
+                                 % predictor_gate)
+
+        # Module.reshape to batch 4: n / 4 unpadded batches
+        kmod.reshape(*descs(PREDICT_SMALL_BATCH))
+        r_out, r_first_wall = timed_predict(kmod, batch=PREDICT_SMALL_BATCH)
+        _, r_wall = timed_predict(kmod, batch=PREDICT_SMALL_BATCH)
+        reshape_gate = {"rows": r_out.shape[0],
+                        "bitwise": bool(torch.equal(r_out, out[:live])),
+                        "max_abs_logp": _logp_gap(torch, r_out,
+                                                  out[:live]),
+                        "tol_logp": TOL_LOGP}
+        del r_out, kmod, out
+        log("predict reshape: " + json.dumps(reshape_gate))
+        if reshape_gate["rows"] != live \
+                or not reshape_gate["max_abs_logp"] <= TOL_LOGP:
+            raise AssertionError("predict after Module.reshape: %s"
+                                 % reshape_gate)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # backward(out_grads) on the logits: D, E and F behind the head
+        # gradients, against the plain versions
+        head = sym.get_internals()["head_output"]
+        gen = torch.Generator(device=dev).manual_seed(3)
+        g = torch.randn((b * t, VOCAB), generator=gen, device=dev) * 1e-3
+        data = [NDArray(torch.from_numpy(x[:b]))]
+        grad_counters = counters + ((fk.LAUNCHES, "fused_bwd"),
+                                    (fl.LAUNCHES, "flash_bwd_dq"),
+                                    (fl.LAUNCHES, "flash_bwd_dkv"))
+
+        def head_grads(plain):
+            mod = Module(head, label_names=None, context=gpu(0),
+                         plain=plain)
+            mod.bind(descs(b)[0], None, for_training=True)
+            mod.init_params(arg_params=params)
+            mod.forward(DataBatch(data, []), is_train=True)
+            mod.backward(out_grads=[NDArray(g)])
+            group = mod._exec_group
+            return {name: a.data.clone() for name, a in
+                    zip(group.param_names, group.grad_arrays)}
+
+        for d, name in grad_counters:
+            d[name] = 0
+        kgrads = head_grads(False)
+        torch.cuda.synchronize()
+        grad_launches = {name: d[name] for d, name in grad_counters}
+        pgrads = head_grads(True)
+        grad_check = _grad_tiers(torch, kgrads, pgrads, "out_grads")
+        # the head's bias gradient is the column sum of the head gradient
+        bias_err = _rel_err(kgrads["head_bias"], g.sum(0))
+        del kgrads, pgrads, g
+        out_grads_gate = {"launches": grad_launches,
+                          "grad_rel_err": grad_check,
+                          "head_bias_vs_column_sum": bias_err,
+                          "tol": TOL_TRAIN_GRAD}
+        log("predict out_grads: " + json.dumps(out_grads_gate))
+        if not bias_err <= TOL_TRAIN_GRAD or any(
+                v == 0 for v in grad_launches.values()):
+            raise AssertionError("backward(out_grads): %s" % out_grads_gate)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a serve over a prompt holding out-of-range ids, predictors made
+        # from the .params file (its path, then its bytes)
+        json_path, params_path = prefix + "-symbol.json", \
+            prefix + "-0000.params"
+        prompt = np.random.RandomState(4).randint(0, VOCAB,
+                                                  PREDICT_OOB_PROMPT)
+        at = [3, PREDICT_OOB_PROMPT // 3, PREDICT_OOB_PROMPT - 2]
+        bad, clamped = prompt.copy(), prompt.copy()
+        bad[at] = [VOCAB, VOCAB + 2, -VOCAB - 1]
+        clamped[at] = [VOCAB - 1, VOCAB - 1, 0]
+        pred = _predictor(json_path, params_path, False, dev)
+        _, probs = pred.prefill(np.stack([bad, clamped]).astype(np.float32))
+        torch.cuda.synchronize()
+        prefill_equal = bool(torch.equal(probs[0], probs[1]))
+        del pred, probs
+        with open(params_path, "rb") as f:
+            pred = _predictor(json_path, f.read(), False, dev)
+        srv = DecodeServer(pred, max_prefill=len(prompt), slots=2,
+                           max_new_tokens=8)
+        rids = [srv.submit(bad), srv.submit(clamped)]
+        served = srv.run()
+        torch.cuda.synchronize()
+        oob_gate = {"prefill_probs_equal": prefill_equal,
+                    "tokens_equal": bool(np.array_equal(served[rids[0]],
+                                                        served[rids[1]])),
+                    "tokens": len(served[rids[0]])}
+        del pred, srv
+        log("predict out-of-range serve: " + json.dumps(oob_gate))
+        if not (prefill_equal and oob_gate["tokens_equal"]
+                and oob_gate["tokens"] == 8):
+            raise AssertionError("out-of-range prompt: %s" % oob_gate)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reading = {"config": {"model": "train-f32 LM", "sequences": n,
+                          "batch": b, "t": t, "pad": pad,
+                          "checkpoint": "model.save_checkpoint -> "
+                                        "Module.load"},
+               "tokens_per_s": {"captured": live / wall,
+                                "captured_first_call": live / first_wall,
+                                "eager": live / eager_wall,
+                                "batch4_first_call": live / r_first_wall,
+                                "batch4": live / r_wall},
+               "wall_s": {"captured": wall, "captured_first_call":
+                          first_wall, "eager": eager_wall,
+                          "batch4_first_call": r_first_wall,
+                          "batch4": r_wall},
+               "idle_share": {"captured": profile.get("device_idle_share"),
+                              "eager": profile_eager.get(
+                                  "device_idle_share")},
+               "batch_device_busy_s": {
+                   "captured": profile.get("device_busy_s"),
+                   "eager": profile_eager.get("device_busy_s")},
+               "device_ms_by_kernel": {
+                   k: v["device_ms"] for k, v in
+                   profile.get("groups", {}).items()},
+               "peak_memory_gb": peak_gb, "launches": launches,
+               "launches_per_batch": {k: v / batches
+                                      for k, v in launches.items()},
+               "graph_stats": graphs, "kernel_vs_plain": plain_gate,
+               "reshape_batch4": reshape_gate}
+    log("predict: " + json.dumps(reading))
+    log("predict profile: " + json.dumps(profile))
+    log("predict profile eager: " + json.dumps(profile_eager))
+    return reading, launches, grad_launches
 
 
 def phase_routing(torch, dev):
@@ -2752,7 +3091,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, dev)
+    gc.collect()
     torch.cuda.empty_cache()
+    _, predict_launches, out_grads_launches = phase_predict(torch, dev)
     phase_routing(torch, dev)
     torch.cuda.empty_cache()
     resnet, resnet_launches = phase_train_resnet(torch, dev)
@@ -2783,7 +3124,7 @@ def main():
     f_main = next(c for c in f_cases if c["dtype"] == "float32"
                   and c["n"] == FFN)
     a_launch = launches["fused_fwd"] + spec_launches["fused_fwd"] \
-        + train_launches["fused_fwd"]
+        + train_launches["fused_fwd"] + predict_launches["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -2793,7 +3134,8 @@ def main():
              variant=a_main["variant"],
              launches_by_path={"serve": launches["fused_fwd"],
                                "serve_spec": spec_launches["fused_fwd"],
-                               "train": train_launches["fused_fwd"]},
+                               "train": train_launches["fused_fwd"],
+                               "predict": predict_launches["fused_fwd"]},
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
         dict(_entry("paged_flash_decode",
@@ -2829,12 +3171,17 @@ def main():
             ("D", "flash_bwd_dq", "mxnet_tpu/ops/pallas_attention.py:300"),
             ("E", "flash_bwd_dkv",
              "mxnet_tpu/ops/pallas_attention.py:336 (and :381, G > 1)")):
+        by_path = {"train": train_launches[counter]}
+        if counter == "flash_fwd":
+            by_path["predict"] = predict_launches[counter]
+        else:
+            by_path["out_grads"] = out_grads_launches[counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
-                   train_launches[counter], cde_main[name]),
+                   sum(by_path.values()), cde_main[name]),
             shape="bh=64 t=2048 hd=128 causal float32",
-            launches_by_path={"train": train_launches[counter]},
+            launches_by_path=by_path,
             max_abs_err_all_cases=max(c["max_abs_err"]
                                       for c in cde_cases[name]))
         entry["variant"] = cde_main[name]["variant"]
@@ -2842,10 +3189,12 @@ def main():
     kernels.append(dict(
         _entry("fused_ln_linear_bwd", "mxnet_tpu_torch/csrc/fused_bwd.cu",
                "mxnet_tpu/ops/pallas_fused.py:214",
-               train_launches["fused_bwd"], f_main),
+               train_launches["fused_bwd"] + out_grads_launches["fused_bwd"],
+               f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
-        launches_by_path={"train": train_launches["fused_bwd"]},
+        launches_by_path={"train": train_launches["fused_bwd"],
+                          "out_grads": out_grads_launches["fused_bwd"]},
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
     # with the bf16 compute copy, no clip

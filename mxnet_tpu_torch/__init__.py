@@ -14,6 +14,12 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
   program (``train_step.CompiledTrainStep``) with the metric accumulated
   on the card, ``fit``'s async loop, checkpoints in the JAX package's
   files (``model``, ``callback``, ``ndarray.save`` / ``load``);
+* inference: ``Module.predict`` / ``iter_predict``, :class:`Predictor`
+  and ``model.FeedForward``, each executor's inference forward one
+  captured program (``train_step.CompiledForward``), the rest of the
+  Module / Executor / Symbol API (``reshape``, ``backward(out_grads)``,
+  ``bind`` / ``simple_bind`` / ``eval``, ``get_internals``,
+  ``infer_type``) and :mod:`~mxnet_tpu_torch.monitor`;
 * bucketed recurrent training: the ``RNN`` op, the cells and
   ``BucketSentenceIter`` (:mod:`~mxnet_tpu_torch.rnn`) and
   ``BucketingModule``, whose buckets share one slab plan, over
@@ -37,16 +43,19 @@ sym = symbol
 
 from . import decode, models, programs, serve, weights  # noqa: E402
 from . import (callback, executor, initializer, io,  # noqa: E402
-               lr_scheduler, metric, model, module, ndarray, optimizer, rnn,
-               train_step)
+               lr_scheduler, metric, model, module, monitor, ndarray,
+               optimizer, predictor, rnn, train_step)
+from .decode import DecodePredictor, DecodeServer  # noqa: E402
+from .model import FeedForward  # noqa: E402
+from .predictor import Predictor  # noqa: E402
 
 mod = module
 nd = ndarray
 
-__all__ = ["AttrScope", "Context", "MXNetError", "NameManager", "base",
+__all__ = ["AttrScope", "Context", "DecodePredictor", "DecodeServer",
+           "FeedForward", "MXNetError", "NameManager", "Predictor", "base",
            "callback", "config", "context", "cpu", "decode", "executor",
            "gpu", "initializer", "io", "lr_scheduler", "metric", "mod",
-           "model", "models",
-           "module", "nd", "ndarray", "ops", "optimizer", "programs",
-           "registry", "rnn", "serve", "sym", "symbol", "train_step",
-           "weights"]
+           "model", "models", "module", "monitor", "nd", "ndarray", "ops",
+           "optimizer", "predictor", "programs", "registry", "rnn",
+           "serve", "sym", "symbol", "train_step", "weights"]

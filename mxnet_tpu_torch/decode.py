@@ -149,9 +149,11 @@ class DecodePredictor:
     ----------
     symbol : Symbol or str
         The network, or its JSON text, or a ``*-symbol.json`` path.
-    params : dict
-        Parameters as tensors or numpy arrays (``arg:``/``aux:`` prefixes
-        optional) — e.g. :func:`~mxnet_tpu_torch.weights.params_from_jax`.
+    params : dict, str, or bytes
+        Parameters as NDArrays, tensors or numpy arrays (``arg:``/``aux:``
+        prefixes optional) — e.g.
+        :func:`~mxnet_tpu_torch.weights.params_from_jax` — or a
+        ``.params`` file path, or the file's bytes.
     cache_len : int
         KV capacity C per sequence; generation past C wraps (the cache
         keeps the latest C tokens).
@@ -221,7 +223,12 @@ class DecodePredictor:
                     "paged capacity must tile into whole pages"
                     % (self._cache_len, self._page_tokens))
 
-        self._env = to_tensors(params, self._device)
+        from .predictor import _as_param_dicts
+
+        arg_params, aux_params = _as_param_dicts(params)
+        self._env = to_tensors({n: v.data for n, v in
+                                {**arg_params, **aux_params}.items()},
+                               self._device)
         free = [n for n in symbol.list_arguments() if n not in self._env]
         if data_name not in free:
             raise MXNetError("%r is not a free input of the symbol (free "

@@ -1,8 +1,8 @@
 """Modules: the high-level training interface."""
-from .base_module import BaseModule
+from .base_module import BaseModule, BatchEndParam
 from .bucketing_module import BucketingModule
 from .executor_group import DataParallelExecutorGroup
 from .module import Module
 
-__all__ = ["BaseModule", "BucketingModule", "DataParallelExecutorGroup",
-           "Module"]
+__all__ = ["BaseModule", "BatchEndParam", "BucketingModule",
+           "DataParallelExecutorGroup", "Module"]

@@ -15,6 +15,11 @@ step, whichever bucket ran.  ``fit``'s metric is bound once for every
 bucket, bound now or later (``_bind_metric``), and ``_dispatch_fence``
 is the active bucket's.
 
+``predict`` / ``iter_predict`` / ``score`` run each batch through its
+bucket's module (``forward`` switches bucket), so every bucket replays
+its own captured inference forward; ``install_monitor`` puts the
+monitor on every bucket bound so far (each then trains eagerly).
+
 The reference's one exception is ported as it stands
 (``_ensure_fused_compat``): a bucket whose parameters are not all shared
 with the primary (a parameter whose shape varies with the bucket gets
@@ -59,6 +64,36 @@ class BucketingModule(BaseModule):
         return Module(symbol, data_names, label_names, **self._module_kwargs)
 
     # ------------------------------------------------------------------
+    @property
+    def data_names(self):
+        if self._active is not None:
+            return self._active.data_names
+        return self._sym_gen(self._default_bucket_key)[1]
+
+    @property
+    def output_names(self):
+        if self._active is not None:
+            return self._active.output_names
+        return self._sym_gen(self._default_bucket_key)[0].list_outputs()
+
+    @property
+    def data_shapes(self):
+        if not self.binded:
+            raise MXNetError("call bind first")
+        return self._active.data_shapes
+
+    @property
+    def label_shapes(self):
+        if not self.binded:
+            raise MXNetError("call bind first")
+        return self._active.label_shapes
+
+    @property
+    def output_shapes(self):
+        if not self.binded:
+            raise MXNetError("call bind first")
+        return self._active.output_shapes
+
     @property
     def symbol(self):
         if not self.binded:
@@ -105,6 +140,7 @@ class BucketingModule(BaseModule):
             return
         self.binded = True
         self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
         primary = self._new_module(self._default_bucket_key)
         primary.bind(data_shapes, label_shapes, for_training,
                      inputs_need_grad, grad_req=grad_req)
@@ -185,10 +221,10 @@ class BucketingModule(BaseModule):
                            data_batch.provide_label)
         self._active.forward(data_batch, is_train=is_train)
 
-    def backward(self):
+    def backward(self, out_grads=None):
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
-        self._active.backward()
+        self._active.backward(out_grads=out_grads)
 
     def update(self):
         if not (self.binded and self.params_initialized
@@ -196,10 +232,16 @@ class BucketingModule(BaseModule):
             raise MXNetError("bind, initialize and init_optimizer first")
         self._active.update()
 
-    def get_outputs(self):
+    def get_outputs(self, merge_multi_context=True):
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
-        return self._active.get_outputs()
+        return self._active.get_outputs(merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):
+        if not (self.binded and self.params_initialized
+                and self.inputs_need_grad):
+            raise MXNetError("bind with inputs_need_grad first")
+        return self._active.get_input_grads(merge_multi_context)
 
     def update_metric(self, eval_metric, labels):
         if not (self.binded and self.params_initialized):
@@ -217,3 +259,9 @@ class BucketingModule(BaseModule):
         if self._active is None:
             return None
         return self._active._dispatch_fence()
+
+    def install_monitor(self, mon):
+        if not self.binded:
+            raise MXNetError("call bind first")
+        for module in self._buckets.values():
+            module.install_monitor(mon)

@@ -1,11 +1,15 @@
 """DataParallelExecutorGroup on one device (the single-device part of
 ``mxnet_tpu/module/executor_group.py``): binds the executor, loads
-batches into it and runs forward / backward.  A group bound with a
-``shared_group`` takes that group's parameter, gradient and aux arrays
-by identity wherever name and shape match (bucketing).  With
-``inputs_need_grad`` the data inputs get gradients too
-(``get_input_grads``).  There is no mesh: the port's parallel paths are
-later work."""
+batches into it and runs forward / backward (with head gradients,
+``backward(out_grads)``).  A group bound with a ``shared_group`` takes
+that group's parameter, gradient and aux arrays by identity wherever
+name and shape match (bucketing); ``reshape`` rebinds for new input
+shapes that way against itself.  With ``inputs_need_grad`` the data
+inputs get gradients too (``get_input_grads``).  ``install_monitor``
+hooks a :class:`~mxnet_tpu_torch.monitor.Monitor` to the executor.
+There is no mesh: the port's parallel paths are later work, so
+``merge_multi_context`` has one device's arrays to return either
+way."""
 from __future__ import annotations
 
 from ..base import MXNetError
@@ -13,11 +17,22 @@ from ..executor import simple_bind
 from ..io import as_desc_list
 
 
+class _Shared:
+    """A shared group's face: its executor."""
+
+    def __init__(self, exec_):
+        self.exec_ = exec_
+
+
 class DataParallelExecutorGroup:
     def __init__(self, symbol, device, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
                  grad_req="write", plain=False, shared_group=None,
                  inputs_need_grad=False):
+        self._bind_args = dict(device=device, grad_req=grad_req,
+                               plain=plain,
+                               fixed_param_names=fixed_param_names,
+                               inputs_need_grad=inputs_need_grad)
         self.symbol = symbol
         self.param_names = list(param_names)
         self.for_training = for_training
@@ -55,6 +70,18 @@ class DataParallelExecutorGroup:
         self.param_arrays = [exe.arg_dict[n] for n in self.param_names]
         self.grad_arrays = [exe.grad_dict.get(n) for n in self.param_names]
 
+    def reshape(self, data_shapes, label_shapes):
+        """Rebind for new input shapes against the current executor: every
+        array whose name and shape are unchanged (the parameters) is
+        shared by identity, the rest are allocated."""
+        if as_desc_list(data_shapes) == self.data_shapes and \
+                as_desc_list(label_shapes) == self.label_shapes:
+            return
+        args = dict(self._bind_args)
+        self.__init__(self.symbol, args.pop("device"), data_shapes,
+                      label_shapes, self.param_names, self.for_training,
+                      shared_group=_Shared(self.exec_), **args)
+
     def set_params(self, arg_params, aux_params):
         for name, arr in arg_params.items():
             if name in self.exec_.arg_dict:
@@ -88,17 +115,20 @@ class DataParallelExecutorGroup:
             is_train = self.for_training
         self.exec_.forward(is_train=is_train)
 
-    def backward(self):
+    def backward(self, out_grads=None):
         if not self.for_training:
             raise MXNetError("re-bind with for_training=True to run "
                              "backward")
-        self.exec_.backward()
+        self.exec_.backward(out_grads)
 
-    def get_outputs(self):
+    def get_outputs(self, merge_multi_context=True):
         return list(self.exec_.outputs)
 
-    def get_input_grads(self):
+    def get_input_grads(self, merge_multi_context=True):
         return [self.exec_.grad_dict[n] for n in self.data_names]
+
+    def install_monitor(self, mon):
+        mon.install(self.exec_)
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.exec_.outputs)

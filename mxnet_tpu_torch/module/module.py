@@ -26,6 +26,17 @@ replay overwrites the program's outputs).
 JAX package's files (``.params``, ``-symbol.json``, the fused
 ``.states`` payload).
 
+Inference (``forward(is_train=False)``, ``predict``, ``score``'s host
+path) replays the executor's captured forward
+(:class:`~mxnet_tpu_torch.train_step.CompiledForward`) over the same
+arrays the train step updates, so it sees the step's parameters.
+``reshape`` rebinds for new input shapes, sharing the parameters.
+``install_monitor`` puts a :class:`~mxnet_tpu_torch.monitor.Monitor`'s
+tap on the executor; as in the JAX package a monitored module drops its
+train step (the optimizer's slots handed to the eager updater through
+``export_updater_states``) and trains eagerly, and scores on the host
+path.
+
 ``bind(..., shared_module=)`` takes the shared module's parameter and
 aux arrays (the same NDArrays) wherever name and shape match, and its
 host parameter dicts; ``borrow_optimizer`` takes its optimizer, updater
@@ -46,6 +57,7 @@ from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..context import Context, gpu, resolve_device
 from ..initializer import InitDesc
+from ..io import as_desc_list
 from ..metric import DeviceMetricAccumulator, select_outputs
 from ..model import load_checkpoint
 from ..ndarray import NDArray, array, zeros
@@ -88,6 +100,8 @@ class Module(BaseModule):
         self._pending_metric = None
         self._preload_opt_states = None
         self._eval_step_cache = None
+        self._monitor = None
+        self._output_names = symbol.list_outputs()
         self.inputs_need_grad = False
 
     @staticmethod
@@ -123,6 +137,33 @@ class Module(BaseModule):
     @property
     def label_names(self):
         return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        if not self.binded:
+            raise MXNetError("call bind first")
+        return self._exec_group.data_shapes
+
+    @property
+    def label_shapes(self):
+        if not self.binded:
+            raise MXNetError("call bind first")
+        return self._exec_group.label_shapes or None
+
+    @property
+    def output_shapes(self):
+        """``(name, shape)`` of each output of the last forward ([]
+        before one)."""
+        if not self.binded:
+            raise MXNetError("call bind first")
+        if self._exec_group.exec_._outputs is None:
+            return []
+        return [(n, o.shape) for n, o in
+                zip(self._output_names, self._exec_group.get_outputs())]
 
     # ------------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
@@ -211,9 +252,21 @@ class Module(BaseModule):
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True):
-        self.init_params(initializer=None, arg_params=arg_params,
-                         aux_params=aux_params, allow_missing=allow_missing,
-                         force_init=force_init)
+        """Load ``arg_params`` / ``aux_params`` into the executor.  With
+        ``allow_missing`` on an initialized module only the given names
+        are written (the rest keep their current values), as in the JAX
+        package."""
+        if not (allow_missing and self.params_initialized):
+            self.init_params(initializer=None, arg_params=arg_params,
+                             aux_params=aux_params,
+                             allow_missing=allow_missing,
+                             force_init=force_init)
+            return
+        if not force_init:
+            return
+        self._exec_group.set_params(arg_params, aux_params)
+        if self._train_step is not None:
+            self._train_step.load_from_executor()
 
     def get_params(self):
         """Host copies ``(arg_params, aux_params)`` of the current
@@ -287,7 +340,7 @@ class Module(BaseModule):
         self._train_step = None
         self._step_update_done = False
         self._fused_outputs = None
-        if self._fused_eligible(self._optimizer):
+        if self._monitor is None and self._fused_eligible(self._optimizer):
             self._train_step = CompiledTrainStep(
                 self._exec_group, self._optimizer, self._updater,
                 compute_dtype=self._compute_dtype)
@@ -332,10 +385,12 @@ class Module(BaseModule):
         self._fused_outputs = None
         self._exec_group.forward(data_batch, is_train)
 
-    def backward(self):
+    def backward(self, out_grads=None):
+        """The gradients of the last training forward, seeded with
+        ``out_grads`` (one an output) when given, else with ones."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
-        self._exec_group.backward()
+        self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
         """The optimizer step over the gradients of the last backward; a
@@ -357,20 +412,47 @@ class Module(BaseModule):
         if self._train_step is not None:
             self._train_step.load_from_executor()
 
-    def get_outputs(self):
+    def get_outputs(self, merge_multi_context=True):
         """The outputs of the last forward or step (copies after a
         compiled step: the next replay overwrites its outputs)."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
         if self._fused_outputs is not None:
             return [NDArray(o.clone()) for o in self._fused_outputs]
-        return self._exec_group.get_outputs()
+        return self._exec_group.get_outputs(merge_multi_context)
 
-    def get_input_grads(self):
+    def get_input_grads(self, merge_multi_context=True):
         if not (self.binded and self.params_initialized
                 and self.inputs_need_grad):
             raise MXNetError("bind with inputs_need_grad first")
-        return self._exec_group.get_input_grads()
+        return self._exec_group.get_input_grads(merge_multi_context)
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Rebind for new input shapes (a new batch size), sharing the
+        parameters, their gradients and the aux states by identity."""
+        if not self.binded:
+            raise MXNetError("call bind first")
+        self._fused_outputs = None
+        self._exec_group.reshape(as_desc_list(data_shapes),
+                                 as_desc_list(label_shapes))
+
+    def install_monitor(self, mon):
+        """Tap every node's outputs into ``mon``.  A monitored module
+        drops its compiled train step (its optimizer slots go to the
+        eager updater, so nothing is lost) and runs eagerly."""
+        if not self.binded:
+            raise MXNetError("call bind first")
+        self._monitor = mon
+        if self._train_step is not None:
+            self._train_step.detach_metric()
+            if self._updater is not None:
+                self._train_step.export_updater_states(
+                    self._updater, self._exec_group.param_names)
+            self._train_step = None
+            self._step_update_done = False
+            self._fused_outputs = None
+            self._pending_metric = None
+        self._exec_group.install_monitor(mon)
 
     def update_metric(self, eval_metric, labels):
         if self._fused_outputs is None:
@@ -403,6 +485,8 @@ class Module(BaseModule):
         device for ``score``, or None for the host path."""
         if not config.get("MXNET_DEVICE_METRICS"):
             return None
+        if self._monitor is not None:
+            return None  # the taps need the eager forward
         if not (self.binded and self.params_initialized):
             return None
         if not DeviceMetricAccumulator.supported(eval_metric):

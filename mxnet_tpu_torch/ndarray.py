@@ -1,10 +1,11 @@
 """NDArray — a ``torch.Tensor`` on a device context.
 
 The part of ``mxnet_tpu/ndarray.py`` that ``Module`` and ``io`` use:
-:class:`NDArray` with ``shape``, ``dtype``, ``context``, ``asnumpy``,
-``copyto`` and whole-array assignment, plus :func:`array`,
-:func:`zeros`, and :func:`save` / :func:`load` in the JAX package's
-``.params`` format.  Unlike the JAX package's immutable arrays, an
+:class:`NDArray` with ``shape``, ``ndim``, ``size``, ``dtype``,
+``context``, ``asnumpy``, ``copyto``, basic indexing (a view) and
+whole-array assignment, plus :func:`array`, :func:`zeros`,
+:func:`concatenate`, and :func:`save` / :func:`load` in the JAX
+package's ``.params`` format.  Unlike the JAX package's immutable arrays, an
 NDArray's tensor is updated in place where that saves a copy (optimizer
 steps, parameter loads); :meth:`NDArray._set_data` rebinds it.
 
@@ -22,7 +23,7 @@ import torch
 from .base import MXNetError
 from .context import Context
 
-__all__ = ["NDArray", "array", "zeros", "save", "load"]
+__all__ = ["NDArray", "array", "zeros", "concatenate", "save", "load"]
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64,
@@ -74,6 +75,14 @@ class NDArray:
         return tuple(self._data.shape)
 
     @property
+    def ndim(self):
+        return self._data.dim()
+
+    @property
+    def size(self):
+        return self._data.numel()
+
+    @property
     def dtype(self):
         """numpy scalar type (``bfloat16`` stays a torch dtype)."""
         if self._data.dtype == torch.bfloat16:
@@ -97,6 +106,11 @@ class NDArray:
         """Copy into ``other``, an NDArray written in place."""
         other[:] = self
         return other
+
+    def __getitem__(self, key):
+        """Basic indexing (ints and slices): a view of the same
+        storage."""
+        return NDArray(self._data[key])
 
     def __setitem__(self, key, value):
         if not (isinstance(key, slice) and key == slice(None)):
@@ -139,6 +153,14 @@ def zeros(shape, ctx=None, dtype=None):
         shape = (shape,)
     return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
                                device=_device(ctx)))
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """One NDArray joining ``arrays`` along ``axis``, on the first one's
+    device."""
+    if not arrays:
+        raise MXNetError("concatenate needs at least one array")
+    return NDArray(torch.cat([a.data for a in arrays], dim=axis))
 
 
 # ---------------------------------------------------------------------------

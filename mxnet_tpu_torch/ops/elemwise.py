@@ -1,10 +1,11 @@
 """Elementwise ops: ``square``, ``rsqrt`` and the binary arithmetic
 family after ``mxnet_tpu/ops/elemwise.py``'s — for each of plus, minus,
-mul and div the elemwise form (``_plus`` / ``_minus`` / ``_mul`` /
-``_div``, aliased ``elemwise_*``), the broadcast form
-(``broadcast_add`` ...) and the scalar forms (``_plus_scalar`` ...,
-``_rminus_scalar`` and ``_rdiv_scalar`` with the scalar on the left) —
-plain torch, differentiated by autograd.
+mul, div and power the elemwise form (``_plus`` / ``_minus`` / ``_mul``
+/ ``_div`` / ``_power``, the first four aliased ``elemwise_*``), the
+broadcast form (``broadcast_add`` ...) and the scalar forms
+(``_plus_scalar`` ..., ``_rminus_scalar``, ``_rdiv_scalar`` and
+``_rpower_scalar`` with the scalar on the left) — plain torch,
+differentiated by autograd.
 
 Names, hints and aliases follow the JAX package so that auto-naming —
 and with it the symbol JSON — matches.  A scalar stays a Python number
@@ -19,11 +20,12 @@ from ..attrs import Param, ParamSchema
 from ..registry import OpDef, register_op, simple_compute
 
 _BINARY = {"plus": torch.add, "minus": torch.sub, "mul": torch.mul,
-           "div": torch.div}
+           "div": torch.div, "power": torch.pow}
 # scalar on the left: s - a, and s / a as a true quotient (torch's
 # ``s / a`` multiplies by the reciprocal, which rounds twice)
 _RSCALAR = {"minus": lambda a, s: torch.rsub(a, s),
-            "div": lambda a, s: torch.full_like(a, s) / a}
+            "div": lambda a, s: torch.full_like(a, s) / a,
+            "power": lambda a, s: torch.pow(s, a)}
 
 
 def register_all():
@@ -37,7 +39,7 @@ def register_all():
     for name, fn in _BINARY.items():
         canon = {"plus": "add", "minus": "sub"}.get(name, name)
         extra = (["_" + canon] if canon != name else []) \
-            + ["elemwise_" + canon]
+            + (["elemwise_" + canon] if name != "power" else [])
         register_op(
             OpDef("_" + name,
                   simple_compute(lambda attrs, a, b, f=fn: f(a, b)),

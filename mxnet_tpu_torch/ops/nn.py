@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -374,6 +375,12 @@ def register_all():
         new_mv = momentum * moving_var + (1 - momentum) * var.detach()
         return [out, mean, var], [new_mm, new_mv]
 
+    def _bn_type(attrs, in_types, aux_types):
+        # the output follows the data; the statistics stay f32
+        f32 = np.dtype(np.float32)
+        d = in_types[0] if in_types[0] is not None else f32
+        return [d, f32, f32], [d, f32, f32], [f32, f32]
+
     register_op(OpDef(
         "BatchNorm", _batchnorm,
         schema=ParamSchema(
@@ -388,7 +395,7 @@ def register_all():
         arguments=["data", "gamma", "beta"],
         outputs=["output", "mean", "var"],
         aux=["moving_mean", "moving_var"],
-        infer_shape=_bn_shape, hint="batchnorm"))
+        infer_shape=_bn_shape, infer_type=_bn_type, hint="batchnorm"))
 
     def _dropout(attrs, inputs, aux, octx):
         (x,) = inputs

@@ -8,6 +8,7 @@ torch indexing, and a SliceChannel output nothing reads takes a zero
 gradient."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..attrs import Param, ParamSchema
@@ -116,8 +117,15 @@ def register_all():
                 aliases=["flatten"])
 
     def _embedding(attrs, data, weight):
-        # tokens arrive as float32 ids (the symbol's data variable)
-        return weight[data.long()]
+        # tokens arrive as float32 ids (the symbol's data variable).  The
+        # reference's gather: truncate toward zero, wrap a negative id
+        # once, clamp to the table.  On the device, with no host read
+        # and no branch, so an out-of-range id neither asserts on the
+        # card nor stops a capture
+        n = weight.shape[0]
+        idx = data.long()
+        idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
+        return weight[idx]
 
     def _embedding_shape(attrs, in_shapes, aux_shapes):
         dshape = in_shapes[0]
@@ -125,13 +133,21 @@ def register_all():
         out = tuple(dshape) + (attrs["output_dim"],)
         return [dshape, wshape], [out], []
 
+    def _embedding_type(attrs, in_types, aux_types):
+        # ids keep their own dtype; the output follows the table's
+        w = in_types[1] if in_types[1] is not None \
+            else np.dtype(attrs.get("dtype", "float32"))
+        d = in_types[0] if in_types[0] is not None else np.dtype(np.float32)
+        return [d, w], [w], aux_types
+
     register_op(OpDef("Embedding", simple_compute(_embedding),
                       schema=ParamSchema(
                           Param("input_dim", int, required=True),
                           Param("output_dim", int, required=True),
                           Param("dtype", str, default="float32")),
                       num_inputs=2, arguments=["data", "weight"],
-                      infer_shape=_embedding_shape, hint="embedding"))
+                      infer_shape=_embedding_shape,
+                      infer_type=_embedding_type, hint="embedding"))
 
     register_op(OpDef("expand_dims",
                       simple_compute(lambda attrs, x:

@@ -58,16 +58,23 @@ the set-ups took (``capture_s``).
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["GraphProgram", "GraphPool", "GRAPH_STATS", "eager"]
+__all__ = ["GraphProgram", "GraphPool", "GRAPH_STATS", "eager",
+           "eager_active"]
 
 GRAPH_STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
 _EAGER = [0]
+
+
+def eager_active():
+    """Whether a :func:`eager` block is open."""
+    return _EAGER[0] > 0
 
 
 @contextlib.contextmanager
@@ -273,6 +280,12 @@ class GraphProgram:
         warm = [dict(m) for m in markers]
         for m in markers:
             m.update(dict.fromkeys(m))
+        # no garbage collection while the stream captures: collecting a
+        # dead program would destroy its graph, a CUDA call that
+        # invalidates the capture (torch.cuda.graph no longer collects
+        # before it begins)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.device(dev), \
                     torch.cuda.graph(graph, pool=self.pool.handle()):
@@ -281,6 +294,8 @@ class GraphProgram:
             raise MXNetError("program %r: CUDA graph capture failed: %s"
                              % (self.name, exc)) from exc
         finally:
+            if collecting:
+                gc.enable()
             launches = tuple((c, k, c[k] - b[k])
                              for c, b in zip(counters, before)
                              for k in c if c[k] != b[k])

@@ -54,7 +54,7 @@ class OpDef:
     def __init__(self, name, fcompute, schema=None, num_inputs=1,
                  num_outputs=1, num_visible_outputs=None, arguments=None,
                  outputs=None, aux=None, infer_shape=None, hint=None,
-                 doc="", key_var_num_args=None):
+                 doc="", key_var_num_args=None, infer_type=None):
         self.name = name
         self.fcompute = fcompute
         self.schema = schema or ParamSchema()
@@ -66,6 +66,10 @@ class OpDef:
         self._outputs = outputs
         self._aux = aux
         self.infer_shape_fn = infer_shape
+        # (attrs, in_types, aux_types) -> (in_types, out_types, aux_types)
+        # for an op whose dtypes do not follow Symbol.infer_type's
+        # unification (Embedding's ids, BatchNorm's f32 statistics)
+        self.infer_type_fn = infer_type
         # the attr a variadic op's input count fills in (Concat's num_args)
         self.key_var_num_args = key_var_num_args
         self.hint = hint or name.lstrip("_").lower()

@@ -1,11 +1,14 @@
 """Symbol — declarative graph composition.
 
-The port's copy of the parts of ``mxnet_tpu/symbol.py`` that serving,
-``Module`` and the RNN cells use: variables (with an ``init`` attr),
-composition with auto-naming and auto-created argument variables
-(variadic ops fill their input count), multi-output indexing and
-``Group``, the arithmetic operators, ``infer_shape``, ``attr_dict``,
-graph walks, and ``tojson``/``load_json``.
+The port's copy of ``mxnet_tpu/symbol.py``: variables (with an
+``init`` attr), composition with auto-naming and auto-created argument
+variables (variadic ops fill their input count), multi-output indexing,
+iteration and ``Group``, ``get_internals`` / ``get_children``, the
+arithmetic operators (``-s`` and ``s ** x`` included), ``infer_shape``
+/ ``infer_shape_partial`` / ``infer_type``, ``attr`` / ``attr_dict``,
+graph walks, ``tojson``/``load_json``, and ``bind`` / ``simple_bind`` /
+``eval`` onto an :class:`~mxnet_tpu_torch.executor.Executor` (on the
+card unless given ``cpu()``).
 The JSON layout is the JAX package's byte for byte, so a graph saved by
 either package loads in the other.  ``sym.<Op>`` functions are generated
 from the registry by :func:`_init_symbol_module`.
@@ -14,9 +17,13 @@ from __future__ import annotations
 
 import json
 
+import numpy as np
+import torch
+
 from . import registry as _reg
 from .attrs import parse_tuple
 from .base import AttrScope, MXNetError, NameManager
+from .context import gpu, resolve_device
 
 __all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
@@ -63,6 +70,9 @@ class Symbol:
     def __len__(self):
         return len(self._outputs)
 
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
     # -- graph walk --------------------------------------------------------
     def _topo(self):
         order, seen = [], set()
@@ -96,6 +106,34 @@ class Symbol:
 
     def list_auxiliary_states(self):
         return [n.name for n in self._topo() if n.is_aux_var]
+
+    def get_internals(self):
+        """Every node's visible outputs as one grouped symbol (variables
+        by their name, op outputs as ``<node>_<output>``)."""
+        entries = []
+        for node in self._topo():
+            if node.is_variable:
+                entries.append((node, 0))
+            else:
+                n_vis = node.op.n_visible_outputs(node.parsed_attrs())
+                entries.extend((node, i) for i in range(n_vis))
+        return Symbol(entries)
+
+    def get_children(self):
+        """The inputs of the output nodes as one grouped symbol (None for
+        a variable)."""
+        nodes = []
+        for node, _ in self._outputs:
+            nodes.extend(node.inputs)
+        return Symbol(nodes) if nodes else None
+
+    # -- attributes --------------------------------------------------------
+    def attr(self, key):
+        """The attribute ``key`` of a single-output symbol's node (None
+        when absent or when the symbol is grouped)."""
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].attrs.get(key, None)
+        return None
 
     def attr_dict(self):
         """``{node name: {attr: str}}`` for every node with attributes."""
@@ -138,6 +176,15 @@ class Symbol:
 
     __rtruediv__ = __rdiv__
 
+    def __pow__(self, other):
+        return self._binop(other, "_power", "_power_scalar")
+
+    def __neg__(self):
+        return self * (-1.0)
+
+    def __copy__(self):
+        return Symbol(list(self._outputs))
+
     def __repr__(self):
         name = self.name
         return "<Symbol %s>" % (name if name else "Grouped")
@@ -146,6 +193,14 @@ class Symbol:
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the given input
         shapes (positional in ``list_arguments`` order, or by name)."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As :meth:`infer_shape`, with None for every shape the given
+        ones do not determine, instead of an error."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         arg_names = self.list_arguments()
         known = {}
         for name, shape in zip(arg_names, args):
@@ -175,14 +230,25 @@ class Symbol:
             in_shapes = [shapes.get((id(n), i)) for n, i in in_entries]
             if any(s is None for s in in_shapes) and \
                     (node.op.infer_shape_fn is None or in_shapes[0] is None):
+                if partial:
+                    for i in range(node.op.n_outputs(attrs)):
+                        shapes[(id(node), i)] = None
+                    continue
                 unknown = [inode.name for (inode, _), s
                            in zip(in_entries, in_shapes) if s is None]
                 raise MXNetError(
                     "Cannot infer shape for node %s (op %s): inputs %s have "
                     "unknown shapes" % (node.name, node.op.name, unknown))
-            new_in, out_sh, aux_sh = node.op.infer_shape(
-                attrs, in_shapes,
-                [shapes.get((id(n), i)) for n, i in aux_entries])
+            try:
+                new_in, out_sh, aux_sh = node.op.infer_shape(
+                    attrs, in_shapes,
+                    [shapes.get((id(n), i)) for n, i in aux_entries])
+            except MXNetError:
+                if not partial:
+                    raise
+                for i in range(node.op.n_outputs(attrs)):
+                    shapes[(id(node), i)] = None
+                continue
             for (inode, iidx), s in zip(in_entries, new_in):
                 if s is None:
                     continue
@@ -203,11 +269,73 @@ class Symbol:
         arg_res = [var_shapes.get(n) for n in arg_names]
         out_res = [shapes.get((id(n), i)) for n, i in self._outputs]
         aux_res = [aux_shapes.get(n) for n in self.list_auxiliary_states()]
-        if any(s is None for s in arg_res + out_res):
+        if not partial and any(s is None for s in arg_res + out_res):
             missing = [n for n, s in zip(arg_names, arg_res) if s is None]
             raise MXNetError("Cannot fully infer shapes; missing: %s"
                              % missing)
         return arg_res, out_res, aux_res
+
+    def infer_type(self, *args, **kwargs):
+        """``(arg_types, out_types, aux_types)`` propagated from the given
+        input dtypes (positional or by name; numpy dtypes or their
+        names): the JAX package's unification rule.  An op's unresolved
+        inputs take the dtype promoted over its known floating inputs
+        (integer inputs such as ids neither promote nor type a weight),
+        so declaring only ``data=float16`` types every weight after it
+        float16; ops with their own rule (Embedding, BatchNorm) give it
+        as ``infer_type`` on their OpDef.  Types are numpy dtypes, with
+        ``torch.bfloat16`` for bfloat16; unresolved ones are float32."""
+        arg_names = self.list_arguments()
+        known = {}
+        for name, dt in zip(arg_names, args):
+            if dt is not None:
+                known[name] = _np_dtype(dt)
+        known.update({k: _np_dtype(v) for k, v in kwargs.items()
+                      if v is not None})
+        f32 = np.dtype(np.float32)
+        entry_t, var_t, aux_t = {}, {}, {}
+        for node in self._topo():
+            if node.is_variable:
+                dt = known.get(node.name)
+                if dt is None and node.attrs.get("__dtype__"):
+                    dt = _np_dtype(node.attrs["__dtype__"])
+                (aux_t if node.is_aux_var else var_t)[node.name] = dt
+                entry_t[(id(node), 0)] = dt
+                continue
+            attrs = node.parsed_attrs()
+            n_args = node.op.n_inputs(attrs)
+            in_entries = node.inputs[:n_args]
+            aux_entries = node.inputs[n_args:]
+            in_types = [entry_t.get((id(s), i)) for s, i in in_entries]
+            aux_types = [entry_t.get((id(s), i)) for s, i in aux_entries]
+            if node.op.infer_type_fn is not None:
+                new_in, out_types, new_aux = node.op.infer_type_fn(
+                    attrs, in_types, aux_types)
+            else:
+                resolved = [t for t in in_types if t is not None]
+                floats = [t for t in resolved if _floating(t)]
+                if floats:
+                    base = _promote(floats)
+                elif resolved and len(resolved) == len(in_types):
+                    base = _promote(resolved)
+                else:
+                    base = f32
+                new_in = [t if t is not None else base for t in in_types]
+                out_types = [base] * node.op.n_outputs(attrs)
+                new_aux = [t if t is not None else base for t in aux_types]
+            for entries, table, types in ((in_entries, var_t, new_in),
+                                          (aux_entries, aux_t, new_aux or [])):
+                for (src, i), t in zip(entries, types):
+                    if t is None:
+                        continue
+                    entry_t[(id(src), i)] = t
+                    if src.is_variable and table.get(src.name) is None:
+                        table[src.name] = t
+            for i, t in enumerate(out_types):
+                entry_t[(id(node), i)] = t
+        return ([var_t.get(n) or f32 for n in arg_names],
+                [entry_t.get((id(n), i)) or f32 for n, i in self._outputs],
+                [aux_t.get(n) or f32 for n in self.list_auxiliary_states()])
 
     # -- serialization -----------------------------------------------------
     def tojson(self):
@@ -231,6 +359,92 @@ class Symbol:
     def save(self, fname):
         with open(fname, "w") as f:
             f.write(self.tojson())
+
+    # -- binding -----------------------------------------------------------
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` over zeroed
+        arrays of the shapes ``kwargs`` determine, on ``ctx``.
+        ``group2ctx`` (model-parallel placement) is not ported."""
+        from .executor import simple_bind
+
+        _no_group2ctx(group2ctx)
+        return simple_bind(self, resolve_device(ctx), grad_req=grad_req,
+                           type_dict=type_dict, shared_exec=shared_exec,
+                           **kwargs)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` over the given
+        arrays (a list in ``list_arguments`` order or a dict; NDArrays,
+        tensors or numpy), on ``ctx``: an array already there is bound as
+        it is, any other is copied there."""
+        from .executor import Executor
+
+        _no_group2ctx(group2ctx)
+        dev = resolve_device(ctx)
+
+        def place(table):
+            if table is None:
+                return None
+            if isinstance(table, dict):
+                return {k: _on(v, dev) for k, v in table.items()}
+            return [_on(v, dev) for v in table]
+
+        return Executor(self, dev, place(args), place(args_grad), grad_req,
+                        place(aux_states))
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind ``kwargs`` (every argument by name) on ``ctx`` (the card
+        by default) and run one inference forward; returns the outputs."""
+        return self.bind(ctx if ctx is not None else gpu(0),
+                         kwargs).forward()
+
+
+def _no_group2ctx(group2ctx):
+    if group2ctx:
+        raise MXNetError("group2ctx (model-parallel placement) is not "
+                         "ported")
+
+
+def _on(value, dev):
+    """``value`` as an NDArray on ``dev``: itself when it is one there."""
+    from .ndarray import NDArray, array
+
+    if isinstance(value, NDArray) and value.data.device == dev:
+        return value
+    return array(value, dev)
+
+
+def _np_dtype(dt):
+    """A numpy dtype, or ``torch.bfloat16`` (numpy has none)."""
+    if dt is torch.bfloat16 or str(dt) == "bfloat16":
+        return torch.bfloat16
+    if isinstance(dt, torch.dtype):
+        return torch.empty((), dtype=dt).numpy().dtype
+    return np.dtype(dt)
+
+
+def _floating(dt):
+    return dt is torch.bfloat16 or dt.kind == "f"
+
+
+def _promote(dts):
+    """numpy's promotion; bfloat16 with any other type widens to
+    float32 (or beyond), as the JAX package's rule does."""
+    if all(d is torch.bfloat16 for d in dts):
+        return torch.bfloat16
+    rest = [d for d in dts if d is not torch.bfloat16]
+    if len(rest) < len(dts):
+        rest.append(np.dtype(np.float32))
+    out = rest[0]
+    for d in rest[1:]:
+        if d != out:
+            try:
+                out = np.promote_types(out, d)
+            except TypeError:
+                out = np.dtype(np.float32)
+    return out
 
 
 def Variable(name, attr=None, shape=None, init=None, **kwargs):

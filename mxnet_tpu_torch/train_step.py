@@ -1,5 +1,8 @@
-"""CompiledTrainStep / CompiledEvalStep — the whole training step as one
-captured program (the counterparts of ``mxnet_tpu/train_step.py``'s).
+"""CompiledTrainStep / CompiledEvalStep / CompiledForward — the whole
+training step, the evaluation pass's forward and metric, and an
+executor's inference forward, each as one captured program (the
+counterparts of ``mxnet_tpu/train_step.py``'s steps and of
+``mxnet_tpu/executor.py``'s jitted ``fwd_test``).
 
 The JAX package compiles forward, backward, the optimizer update and
 the metric's accumulation into one donated XLA program with its own
@@ -70,7 +73,7 @@ from .programs import GraphPool, GraphProgram, ProgramSpec
 from .programs import registry as _registry
 from .registry import OpContext
 
-__all__ = ["CompiledTrainStep", "CompiledEvalStep"]
+__all__ = ["CompiledTrainStep", "CompiledEvalStep", "CompiledForward"]
 
 
 def _register_step_spec(step):
@@ -99,18 +102,44 @@ def _host_to(dst, src):
     dst.copy_(t, non_blocking=dst.device.type == "cuda")
 
 
-class _StepBase:
-    """What both steps share: the executor's argument order, its input
-    names, the device, the metric accumulator and the programs' trace
-    counters."""
+def _forward_body(exe, finish):
+    """The inference forward over ``exe``'s graph as a program body:
+    ``body(env_vals, aux_vals, generator, *rest)`` runs the graph under
+    ``OpContext(is_train=False)`` and returns ``finish(env, outs,
+    *rest)``.  Inference updates no aux state."""
+    symbol = exe._symbol
+    arg_names = list(exe.arg_dict)
+    aux_names = list(exe.aux_dict)
+    plain = exe.plain
 
-    def __init__(self, exec_group):
-        exe = exec_group.exec_
+    def body(env_vals, aux_vals, generator, *rest):
+        env = dict(zip(arg_names, env_vals))
+        octx = OpContext(is_train=False, plain=plain, generator=generator)
+        outs, _ = run_graph(symbol, env, dict(zip(aux_names, aux_vals)),
+                            octx)
+        return finish(env, outs, *rest)
+
+    return body
+
+
+def _bound_args(exe):
+    """An executor's argument and aux tensors and its generator: the
+    bound (by pointer) head of every forward program's arguments."""
+    return (tuple(a.data for a in exe.arg_dict.values()),
+            tuple(a.data for a in exe.aux_dict.values()), exe.generator)
+
+
+class _StepBase:
+    """What the steps share: the executor's argument order, its input
+    names (a group's), the device, the metric accumulator and the
+    programs' trace counters."""
+
+    def __init__(self, exe, exec_group=None):
         self._group = exec_group
         self._exec = exe
         self._device = next(iter(exe.arg_dict.values())).data.device
-        self._label_names = [n for n in exec_group.label_names
-                             if n in exe.arg_dict]
+        self._label_names = [] if exec_group is None else \
+            [n for n in exec_group.label_names if n in exe.arg_dict]
         self._pool = GraphPool()
         self._metric_acc = None
         self.trace_count = 0
@@ -144,7 +173,7 @@ class CompiledTrainStep(_StepBase):
         if apply is None:
             raise MXNetError("optimizer %s has no fused kernel"
                              % type(optimizer).__name__)
-        super().__init__(exec_group)
+        super().__init__(exec_group.exec_, exec_group)
         self._opt_apply = apply
         self._optimizer = optimizer
         self._updater = updater
@@ -509,7 +538,7 @@ class CompiledEvalStep(_StepBase):
     telemetry_name = "eval_step"
 
     def __init__(self, exec_group, metric):
-        super().__init__(exec_group)
+        super().__init__(exec_group.exec_, exec_group)
         if len(self._label_names) != len(exec_group.label_names):
             raise MXNetError("graph does not consume every label input; "
                              "metric pairing would differ from the host "
@@ -520,35 +549,24 @@ class CompiledEvalStep(_StepBase):
             raise MXNetError(str(exc))
         acc.install(self._device)
         self._metric_acc = acc
-        exe = self._exec
-        symbol = exe._symbol
-        arg_names = list(exe.arg_dict)
-        aux_names = list(exe.aux_dict)
         group = exec_group
 
-        def body(env_vals, aux_vals, mstate, generator):
-            env = dict(zip(arg_names, env_vals))
-            octx = OpContext(is_train=False, plain=exe.plain,
-                             generator=generator)
-            outs, _ = run_graph(symbol, env, dict(zip(aux_names, aux_vals)),
-                                octx)
+        def accumulate(env, outs, mstate):
             acc.update(mstate, self._labels(group, env), outs)
 
         self.programs_built = 1
-        self._prog = GraphProgram(self.telemetry_name, body, bind=range(4),
-                                  pool=self._pool)
+        self._prog = GraphProgram(self.telemetry_name,
+                                  _forward_body(self._exec, accumulate),
+                                  bind=range(4), pool=self._pool)
 
     def run(self, data_batch):
         """Accumulate one batch on the device."""
-        group, exe = self._group, self._exec
         if self._label_names and not data_batch.label:
             raise MXNetError("eval batch is missing inputs %s"
                              % self._label_names)
-        group.load_data_batch(data_batch)
-        self._call(self._prog, (
-            tuple(a.data for a in exe.arg_dict.values()),
-            tuple(a.data for a in exe.aux_dict.values()),
-            self._metric_acc.state, exe.generator))
+        self._group.load_data_batch(data_batch)
+        self._call(self._prog, _bound_args(self._exec)
+                   + (self._metric_acc.state,))
 
     def finish(self):
         """Fold the pending device sums into the metric and detach the
@@ -561,3 +579,27 @@ class CompiledEvalStep(_StepBase):
         self._metric_acc.install(self._device)
         return self
 
+
+class CompiledForward(_StepBase):
+    """An executor's inference forward (``Executor.forward(is_train=
+    False)``) as one captured program: the graph under
+    ``OpContext(is_train=False)`` over the executor's arguments and aux
+    states, bound by pointer (one capture per executor and argument
+    signature: an array whose tensor is rebound, or a new executor, is a
+    new signature), and its generator.  ``run`` returns fresh tensors:
+    the next replay overwrites the program's own outputs."""
+
+    telemetry_name = "eval_forward"
+
+    def __init__(self, exe):
+        super().__init__(exe)
+        self.programs_built = 1
+        self._prog = GraphProgram(
+            self.telemetry_name,
+            _forward_body(exe, lambda env, outs: outs),
+            bind=range(3), pool=self._pool)
+
+    def run(self):
+        """One forward over the executor's arrays as they are now."""
+        return [o.clone() for o in self._call(self._prog,
+                                              _bound_args(self._exec))]

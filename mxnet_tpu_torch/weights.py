@@ -6,8 +6,9 @@ names or bare names — and returns the port's ``{name: torch.Tensor}``
 on a chosen device, so both packages compute the same thing from the
 same numbers.  :func:`params_to_numpy` is the way back: the port's
 parameters (``Module.get_params()``'s NDArrays, or tensors) as numpy
-arrays, for comparing the two packages after training steps.  Loading
-``.params`` files is not ported yet.
+arrays, for comparing the two packages after training steps.
+``.params`` files are read by :func:`~mxnet_tpu_torch.ndarray.load`
+and :func:`~mxnet_tpu_torch.model.load_checkpoint`.
 """
 from __future__ import annotations
 

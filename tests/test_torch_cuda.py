@@ -1491,3 +1491,154 @@ def test_fit_feeds_the_step_through_device_prefetch(card, full_f32,
     (p1, m1), (p2, m2) = runs
     assert m1 == m2
     assert all((p1[n] == p2[n]).all() for n in p2)
+
+
+# ---------------------------------------------------------------------------
+# inference: the captured eval forward (train_step.CompiledForward) under
+# Module.predict and Predictor, the monitor's handoff, Embedding's range
+# ---------------------------------------------------------------------------
+
+def _predict_lm(card, plain=False, batch=4):
+    """A small attention LM (2 layers, embed 128, 2 heads of 64, T 64) as
+    an inference Module on the card, its weights seeded, and 10
+    sequences (the last batch padded by 2)."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import attention_lm
+
+    sym = attention_lm.get_symbol(vocab_size=64, seq_len=64, num_layers=2,
+                                  embed=128, heads=2, ffn_hidden=256)
+    rng = np.random.RandomState(0)
+    shapes, _, _ = sym.infer_shape(data=(batch, 64),
+                                   softmax_label=(batch, 64))
+    params = {n: rng.normal(0, 0.1, s).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    x = rng.randint(0, 64, (10, 64)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.full((10, 1), -1, np.float32)], 1)
+    it = mt.io.NDArrayIter(x, y, batch_size=batch)
+    mod = mt.mod.Module(sym, context=mt.gpu(0), plain=plain)
+    mod.bind(it.provide_data, it.provide_label, for_training=False)
+    mod.init_params(arg_params=params)
+    return mod, it, sym, params
+
+
+def test_captured_eval_forward_matches_eager_bitwise(card, full_f32):
+    """``Module.predict`` through the captured inference forward against
+    the same predict under programs.eager(): the merged outputs bit for
+    bit, one capture then a replay a batch, and each batch launching
+    kernels A (10: five fused linears a layer) and C (2) in both; the
+    plain module within 1e-5."""
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    mod, it, _, _ = _predict_lm(card)
+    counters = ((fk.LAUNCHES, "fused_fwd"), (fl.LAUNCHES, "flash_fwd"))
+    runs = []
+    for eager in (False, True):
+        before = [d[k] for d, k in counters]
+        stats = dict(programs.GRAPH_STATS)
+        with programs.eager() if eager else contextlib.nullcontext():
+            out = mod.predict(it).data.clone()
+        torch.cuda.synchronize()
+        runs.append((out, [d[k] - b for (d, k), b in zip(counters, before)],
+                     {k: programs.GRAPH_STATS[k] - stats[k]
+                      for k in ("captures", "replays")}))
+    (cap, cap_l, cap_s), (eag, eag_l, eag_s) = runs
+    assert torch.equal(cap, eag)
+    assert cap_l == eag_l == [30, 6]
+    assert cap_s == {"captures": 1, "replays": 2}
+    assert eag_s == {"captures": 0, "replays": 0}
+    pmod, pit, _, _ = _predict_lm(card, plain=True)
+    _card_close(cap, pmod.predict(pit).data, 1e-5)
+
+
+def test_predictor_reshape_round_trip_captures_once(card):
+    """A card Predictor reshaped to batch 2 and back to 4: the way back
+    reuses the first executor and its captured forward (no new capture)
+    and gives the first forward's outputs bit for bit."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import programs
+
+    _, _, sym, params = _predict_lm(card)
+    shapes = {"data": (4, 64), "softmax_label": (4, 64)}
+    x = np.random.RandomState(3).randint(0, 64, (4, 64))
+    pred = mt.Predictor(sym, params, shapes, ctx=mt.gpu(0))
+    first = pred.forward(data=x)[0].data.clone()
+    small = pred.reshape({"data": (2, 64), "softmax_label": (2, 64)})
+    two = small.forward(data=x[:2])[0].data
+    captures = programs.GRAPH_STATS["captures"]
+    back = small.reshape(shapes)
+    again = back.forward(data=x)[0].data
+    torch.cuda.synchronize()
+    assert programs.GRAPH_STATS["captures"] == captures
+    assert back._exec is pred._exec
+    assert torch.equal(again, first)
+    _card_close(two, first[:128], 1e-5)
+
+
+def test_install_monitor_hands_the_slots_to_the_eager_update(card,
+                                                            full_f32):
+    """Two compiled SGD-momentum steps, ``install_monitor``, two more
+    (eager, monitored) steps: the parameters equal a module that took
+    all four steps eagerly (the momentum carried over), and the monitor
+    collected on the card."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config
+
+    runs = []
+    for compiled in (True, False):
+        mod, it, args = _mlp_module(card, dropout=False)
+        with config.overrides(MXNET_FUSED_TRAIN_STEP=compiled):
+            mod.bind(it.provide_data, it.provide_label)
+            mod.init_params(arg_params=args)
+            mod.init_optimizer(optimizer="sgd", optimizer_params={
+                "learning_rate": 0.1, "momentum": 0.9})
+        assert (mod._train_step is not None) == compiled
+        mon = mt.monitor.Monitor(1, pattern=".*output")
+        records = []
+        for i, b in enumerate(it):
+            if i == 4:
+                break
+            if i == 2:
+                mod.install_monitor(mon)
+                assert mod._train_step is None
+            if i >= 2:
+                mon.tic()
+            mod.forward_backward(b)
+            mod.update()
+            if i >= 2:
+                records += mon.toc()
+        torch.cuda.synchronize()
+        runs.append(({n: v.data.clone() for n, v in
+                      mod.get_params()[0].items()}, records))
+    (p1, r1), (p2, r2) = runs
+    for n in p2:
+        _card_close(p1[n], p2[n], 1e-5)
+    assert [r[:2] for r in r1] == [r[:2] for r in r2] and len(r1) >= 8
+
+
+def test_out_of_range_prompt_serves_without_a_device_assert(card):
+    """A prompt holding ids ``vocab``, ``vocab + 2`` and ``-vocab - 1``
+    through a captured paged DecodeServer: no device assert (the card
+    stays usable), and the tokens of the same prompt with the ids the
+    reference's gather takes (clamped)."""
+    import numpy as np
+
+    from mxnet_tpu_torch.decode import DecodeServer
+
+    prompt = np.random.RandomState(4).randint(0, 64, 12)
+    bad, clamped = prompt.copy(), prompt.copy()
+    bad[[1, 4, 7]] = [64, 66, -65]
+    clamped[[1, 4, 7]] = [63, 63, 0]
+    pred = _graph_lm(card)
+    pred.prepare_programs(2)
+    srv = DecodeServer(pred, 32, slots=2, max_new_tokens=8)
+    rids = [srv.submit(bad), srv.submit(clamped)]
+    out = srv.run()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out[rids[0]], out[rids[1]])
+    assert len(out[rids[0]]) == 8
