@@ -26,10 +26,13 @@ Phases (any failure ends the run with a non-zero exit code):
    version over the slabs of ResNet-50's 157 trainables (12,556 blocks)
    and of the LM's, for SGD, SGD-momentum and Adam, f32 masters with and
    without a bf16 compute copy, bf16 masters, clip on and off, lr / wd
-   differing per segment, and over the bucketed LSTM LM's slab for the
-   Adam update its path runs: bit for bit for SGD and SGD-momentum,
-   within one f32 ulp for Adam, padding still 0; timed beside the port's
-   per-parameter update and ``torch.optim``'s fused SGD / Adam step;
+   differing per segment, over the bucketed LSTM LM's slab for the
+   Adam update its path runs, and over Inception-v3's (284 tensors, f32
+   masters with the bf16 copy) and AlexNet's (16 tensors, 50.8M values,
+   f32) for the SGD-momentum theirs run: bit for bit for SGD and
+   SGD-momentum, within one f32 ulp for Adam, padding still 0; timed
+   beside the port's per-parameter update and ``torch.optim``'s fused
+   SGD / Adam step;
 5. serve — build the full-width ``attention_lm`` (vocab 8192, embed
    1024, 4 heads, FFN 4096; depth cut to 2 layers) from seeded random
    weights, capture its paged programs (``prepare_programs``: decode
@@ -120,6 +123,30 @@ Phases (any failure ends the run with a non-zero exit code):
    of those batches (idle share, device ms by kernel); the compiled and
    eager runs' parameters bit for bit.
 
+9. train zoo — Inception-v3 (batch 32 of 3 x 299 x 299, bf16 compute
+   over f32 masters, SGD lr 0.1) and AlexNet (batch 256 of 3 x 224 x 224,
+   f32, SGD lr 0.01) at full width, train_imagenet.py --benchmark 1's
+   settings (ZOO_TRAIN), through Module and the slab plan: a first step,
+   unrecorded and with cuDNN's deterministic algorithms, whose B1 launch
+   is held against its plain version and against the per-parameter
+   update on copies (bit for bit), whose gradients are held against a
+   ``plain=True`` module's in the two tiers, whose fixed gammas
+   (Inception-v3's ``fix_gamma``) take a zero gradient and move by the
+   weight decay alone; the graph's set-up and timed replays (one B1
+   launch each); profiled steps, captured and eager (device time by
+   kind of kernel); captured steps against eager ones bit for bit, the
+   Dropout masks from generators seeded alike; AlexNet's LRN on the card
+   against the CPU on its real input;
+10. train MNIST — the canonical drive: MNISTIter's synthetic set,
+   ``models.get_mlp`` then ``get_lenet``, one epoch of ``Module.fit``
+   with SGD-momentum (one B1 launch a step), ``score`` at least
+   MNIST_MIN_ACC; the MLP under AdaGrad and RMSProp (plain, centered)
+   through the compiled step's per-parameter path, captured against
+   eager bit for bit; AdaDelta (eager only) against the CPU;
+11. zoo steps — VGG, GoogLeNet, Inception-BN and ResNeXt-50 at full
+   width, one step each (batch 32, f32) with the first-step gates of
+   phase 9 and one timed replay.
+
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 TF32 is off throughout (``allow_tf32`` False for matmuls and cuDNN), so
@@ -207,6 +234,74 @@ LSTM_KERNEL_GROUPS = {
     "element-wise and reductions": ("elementwise", "reduce_kernel"),
     "casts and copies": ("copy", "Copy", "Cat"),
 }
+# the zoo's full-width training cells: example/image-classification's
+# train_imagenet.py --benchmark 1 settings (BASELINE.md:9-16, from the
+# reference's docs/how_to/perf.md:157-190): Inception-v3 at batch 32 of
+# 3 x 299 x 299 with bf16 compute over f32 masters, AlexNet at batch 256
+# of 3 x 224 x 224 in f32; SGD as ResNet-50's (RESNET_OPT: the script's
+# default lr 0.1, momentum 0.9, wd 1e-4), but AlexNet, which has no
+# BatchNorm, at lr 0.01: over one resident batch lr 0.1 takes its loss
+# to NaN by the fifth step (measured with the port on the CPU at batch
+# 16); weights Xavier(gaussian, in, 2) and one resident batch from
+# RandomState(0), as _resnet_values draws them; every module that is
+# compared draws its Dropout masks from a generator seeded with
+# ZOO_DROPOUT_SEED
+ZOO_TRAIN = {
+    "inception_v3": {"batch": 32, "image": (3, 299, 299),
+                     "compute_dtype": "bfloat16", "opt": RESNET_OPT,
+                     "params": (284, 23_834_568), "classifier": ("fc_",)},
+    "alexnet": {"batch": 256, "image": (3, 224, 224), "compute_dtype": None,
+                "opt": dict(RESNET_OPT, learning_rate=0.01),
+                "params": (16, 50_844_008),
+                "classifier": ("fullyconnected2_",)},
+}
+ZOO_STEPS = 3       # timed steps after the set-up step
+ZOO_DROPOUT_SEED = 11
+# the profiled zoo steps' device time by kind of kernel (the first label
+# whose substring a kernel's name holds)
+ZOO_KERNEL_GROUPS = {
+    "B1 (mtu_kernel)": ("mtu_kernel",),
+    "cuDNN layout transposes": ("nchwToNhwc", "nhwcToNchw"),
+    "convolutions and products": ("cudnn", "xmma", "gemm", "cutlass",
+                                  "sm90_", "conv"),
+    "Concat copies": ("CatArray",),
+    "pooling": ("pool",),
+    "casts and copies (the grad pack among them)": ("direct_copy", "copy",
+                                                    "Copy"),
+    "element-wise and reductions (BatchNorm, ReLU, LRN, Dropout)": (
+        "elementwise", "reduce_kernel", "bernoulli"),
+}
+# the other zoo members, one step each at batch 32 of 3 x 224 x 224 in
+# f32 against a plain=True module: (builder kwargs, classifier prefix,
+# SGD settings; the nets without BatchNorm at lr 0.01, as AlexNet)
+ZOO_ONE_STEP_BATCH, ZOO_ONE_STEP_IMAGE = 32, (3, 224, 224)
+ZOO_ONE_STEP = {
+    "vgg": ({}, ("fc8_",), ZOO_TRAIN["alexnet"]["opt"]),
+    "googlenet": ({}, ("fc_",), ZOO_TRAIN["alexnet"]["opt"]),
+    "inception_bn": ({}, ("fc1_",), RESNET_OPT),
+    "resnext": ({"num_layers": 50}, ("fc_",), RESNET_OPT)}
+# MNIST through the canonical drive (the reference's train_mnist.py):
+# MNISTIter's synthetic set (6,000 images, seed 0; validation seed 1) at
+# batch 100, one epoch of Module.fit with SGD-momentum, then score.  The
+# JAX package's drive reaches accuracy 1.0 on the CPU with the MLP and
+# with LeNet; the card must reach MNIST_MIN_ACC (its Xavier draws come
+# from torch's generator, not numpy's)
+MNIST_BATCH, MNIST_MIN_ACC = 100, 0.99
+MNIST_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# AdaGrad / RMSProp through the compiled step's per-parameter path,
+# captured against eager; AdaDelta (eager only) on the card against the
+# CPU: parameters max |card - cpu| (the same f32 operations; the card
+# divides by a host scalar as a product with its reciprocal)
+MNIST_OPT_STEPS = 4
+MNIST_PER_PARAM = (("adagrad", {"learning_rate": 0.05, "wd": 1e-4}),
+                   ("rmsprop", {"learning_rate": 0.001, "wd": 1e-4}),
+                   ("rmsprop", {"learning_rate": 0.001, "centered": True,
+                                "clip_weights": 2.0}))
+TOL_ADADELTA_CPU = 1e-5
+# AlexNet's LRN on the card against the CPU: max |card - cpu| over max
+# |cpu| for the output and the input gradient (f32 pow and division,
+# correctly rounded on neither side)
+TOL_LRN_CPU = 1e-5
 # the profiled ResNet-50 step's device time by kind of kernel (kernel B1;
 # convolutions and products, cuDNN's layout transposes; the BatchNorm /
 # ReLU / loss element-wise ops and reductions; dtype casts and copies,
@@ -744,6 +839,22 @@ def _profile(torch, run, groups=None):
         out["groups"] = {lb: {"calls": n, "device_ms": us * 1e-3,
                               "share_of_busy": us * 1e-6 / busy_s}
                          for lb, (n, us) in sums.items()}
+    return out
+
+
+def _idle_shares(profile, profile_eager, step_s, eager_step_s):
+    """A training step's idle share, captured and eager: 1 - the device
+    busy seconds of its profiled repeat / the wall of the timed
+    (unprofiled) step.  The profiler slows the host, the eager step's
+    thousands of launches most, so the profiled steps' own shares
+    (``profiled``) are upper bounds only."""
+    out = {}
+    for key, prof, wall in (("captured", profile, step_s),
+                            ("eager", profile_eager, eager_step_s)):
+        busy = prof["device_busy_s"]
+        out[key] = 1.0 - busy / wall if isinstance(busy, float) else busy
+    out["profiled"] = {"captured": profile.get("device_idle_share"),
+                       "eager": profile_eager.get("device_idle_share")}
     return out
 
 
@@ -1489,12 +1600,14 @@ def _b1_case(torch, dev, flush, net, shapes, kind, nslots, master, cdtype,
         for v, c in zip(views, cgrads):
             v.copy_(c)
 
+    # the bound counts the tensors' own values, not the slab's padding
     n = rows * uk.LANES
+    values = sum(int(np.prod(s)) for s in shapes.values())
     isz = w.element_size()
-    nbytes = n * (2 * isz + 4 + 2 * nslots * isz
-                  + (wc.element_size() if wc is not None else 0)) \
+    nbytes = values * (2 * isz + 4 + 2 * nslots * isz
+                       + (wc.element_size() if wc is not None else 0)) \
         + 2 * 4 * lrb.numel()
-    flops = n * {"sgd": 5, "sgd_momentum": 7, "adam": 17}[name]
+    flops = values * {"sgd": 5, "sgd_momentum": 7, "adam": 17}[name]
     bound_ms, bound_by = _bound(nbytes, flops, "float32")
     case = _case(
         torch, flush,
@@ -1505,7 +1618,8 @@ def _b1_case(torch, dev, flush, net, shapes, kind, nslots, master, cdtype,
         lib.step, extra={
             "kernel": "B1", "net": net, "kind": name, "master": mname,
             "wc": cname, "clip": clip, "tensors": len(shapes),
-            "blocks": lrb.numel(), "elements": n, "bitwise": bitwise,
+            "blocks": lrb.numel(), "elements": n, "values": values,
+            "bitwise": bitwise,
             "max_ulps": ulps, "max_abs_err": err,
             "library": "torch.optim.%s(fused=True).step"
             % ("SGD" if kind == "sgd" else "Adam"),
@@ -1521,11 +1635,16 @@ def phase_kernel_b1(torch, dev, flush):
     """Kernel B1 over ResNet-50's slab (157 tensors, 12,556 blocks) and
     the training LM's: SGD, SGD-momentum and Adam; f32 masters without and
     with a bf16 compute copy (clip off and on), bf16 masters (clip on);
-    and over the bucketed LSTM LM's slab (11 tensors, 4,653,200 values)
-    the update its path runs, Adam over f32 masters.  Every segment is
+    over the bucketed LSTM LM's slab (11 tensors, 4,653,200 values) the
+    update its path runs, Adam over f32 masters; and over the zoo's
+    training slabs the update theirs run, SGD-momentum: Inception-v3's
+    (284 tensors, most of them BatchNorm vectors of 32-2048 values) over
+    f32 masters with the bf16 compute copy, AlexNet's (16 tensors,
+    50,844,008 values) over f32 masters.  Every segment is
     padded to whole 2,048-element blocks, and lr / wd differ from segment
     to segment."""
-    from mxnet_tpu_torch.models import attention_lm, resnet
+    from mxnet_tpu_torch.models import alexnet, attention_lm, inception_v3
+    from mxnet_tpu_torch.models import resnet
 
     nets = {
         "resnet50": _trainable_shapes(
@@ -1540,9 +1659,19 @@ def phase_kernel_b1(torch, dev, flush):
         "lstm": _trainable_shapes(
             _bench_lstm_sym_gen()(LSTM_BUCKETS[-1])[0],
             data=(LSTM_BATCH, LSTM_BUCKETS[-1]),
-            softmax_label=(LSTM_BATCH, LSTM_BUCKETS[-1]))}
+            softmax_label=(LSTM_BATCH, LSTM_BUCKETS[-1])),
+        "inception_v3": _trainable_shapes(
+            inception_v3.get_symbol(num_classes=1000),
+            data=(ZOO_TRAIN["inception_v3"]["batch"], 3, 299, 299),
+            softmax_label=(ZOO_TRAIN["inception_v3"]["batch"],)),
+        "alexnet": _trainable_shapes(
+            alexnet.get_symbol(num_classes=1000),
+            data=(ZOO_TRAIN["alexnet"]["batch"], 3, 224, 224),
+            softmax_label=(ZOO_TRAIN["alexnet"]["batch"],))}
     for net, want in (("resnet50", (157, 25_549_486)),
-                      ("lstm", (11, LSTM_PARAMS))):
+                      ("lstm", (11, LSTM_PARAMS)),
+                      ("inception_v3", ZOO_TRAIN["inception_v3"]["params"]),
+                      ("alexnet", ZOO_TRAIN["alexnet"]["params"])):
         got = (len(nets[net]), sum(int(np.prod(s))
                                    for s in nets[net].values()))
         if got != want:
@@ -1561,6 +1690,10 @@ def phase_kernel_b1(torch, dev, flush):
                            for v in variants]}
     by_net["lm"] = by_net["resnet50"]
     by_net["lstm"] = [("adam", 2, variants[0])]
+    # the zoo's training paths: SGD-momentum, Inception-v3's f32 masters
+    # with the bf16 compute copy, AlexNet's f32
+    by_net["inception_v3"] = [("sgd", 1, variants[1])]
+    by_net["alexnet"] = [("sgd", 1, variants[0])]
     cases = []
     for net, shapes in nets.items():
         for kind, nslots, (master, cdtype, clip) in by_net[net]:
@@ -1643,11 +1776,11 @@ def _graph_delta(before):
 _DIRECT = ("head_", "final_", "layer%d_ffn2_" % (TRAIN_LAYERS - 1))
 
 
-def _grad_tiers(torch, got, want, what):
+def _grad_tiers(torch, got, want, what, direct=_DIRECT):
     """Per parameter ||got - want|| / ||want|| (a *_k_bias on its layer's
     *_q_bias), the worst in each tier against its tolerance
-    (TOL_TRAIN_GRAD before any ReLU mask, TOL_TRAIN_GRAD_RELU behind
-    one); raises past it."""
+    (TOL_TRAIN_GRAD before any ReLU mask: the names ``direct`` begins,
+    TOL_TRAIN_GRAD_RELU behind one); raises past it."""
     errs = {}
     for name, gp in want.items():
         ref = name[:-len("_k_bias")] + "_q_bias" \
@@ -1656,9 +1789,9 @@ def _grad_tiers(torch, got, want, what):
         errs[name] = float(torch.linalg.vector_norm(
             (got[name] - gp).double())) / max(denom, 1e-30)
     tiers = {"before_relu": ({n: e for n, e in errs.items()
-                              if n.startswith(_DIRECT)}, TOL_TRAIN_GRAD),
+                              if n.startswith(direct)}, TOL_TRAIN_GRAD),
              "behind_relu": ({n: e for n, e in errs.items()
-                              if not n.startswith(_DIRECT)},
+                              if not n.startswith(direct)},
                              TOL_TRAIN_GRAD_RELU)}
     check = {}
     for tier, (tier_errs, tol) in tiers.items():
@@ -1920,8 +2053,8 @@ def phase_train(torch, dev):
              "setup_step_s": setup_s, "graph_stats": graphs,
              "eager_step_s": eager_step_s,
              "eager_tokens_per_s": b * t / eager_step_s,
-             "idle_share": {"captured": profile.get("device_idle_share"),
-                            "eager": profile_eager.get("device_idle_share")},
+             "idle_share": _idle_shares(profile, profile_eager,
+                                        wall / TRAIN_STEPS, eager_step_s),
              "bench_lr": BENCH_LR, "bench_lr_losses": bench_losses,
              "launches": launches, "launches_per_step": per_step,
              "grad_rel_err": grad_check,
@@ -2305,12 +2438,13 @@ def phase_routing(torch, dev):
     return out
 
 
-def _resnet_values(sym, b):
+def _resnet_values(sym, b, image=(3, 224, 224)):
     """bench.py's start, drawn with numpy: Xavier(gaussian, in, 2) weights
     (normal with std sqrt(2 / fan_in), OIHW fan-in I*kh*kw) from
     RandomState(0), gammas 1, betas and the bias 0, moving means 0 and
-    variances 1; the resident batch from another RandomState(0)."""
-    shapes, _, aux_shapes = sym.infer_shape(data=(b, 3, 224, 224),
+    variances 1; the resident batch (``image`` a sample, labels in
+    [0, 1000)) from another RandomState(0)."""
+    shapes, _, aux_shapes = sym.infer_shape(data=(b,) + tuple(image),
                                             softmax_label=(b,))
     rng = np.random.RandomState(0)
     args = {}
@@ -2328,7 +2462,7 @@ def _resnet_values(sym, b):
     aux = {n: (np.ones if n.endswith("_var") else np.zeros)(s, np.float32)
            for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
     rng = np.random.RandomState(0)
-    x = rng.uniform(-1, 1, (b, 3, 224, 224)).astype(np.float32)
+    x = rng.uniform(-1, 1, (b,) + tuple(image)).astype(np.float32)
     y = rng.randint(0, 1000, (b,)).astype(np.float32)
     return args, aux, x, y
 
@@ -2487,8 +2621,8 @@ def phase_train_resnet(torch, dev):
              "step_s": wall / RESNET_STEPS, "warmup_step_s": warm_s,
              "setup_step_s": setup_s, "graph_stats": graphs,
              "eager_step_s": eager_s,
-             "idle_share": {"captured": profile.get("device_idle_share"),
-                            "eager": profile_eager.get("device_idle_share")},
+             "idle_share": _idle_shares(profile, profile_eager,
+                                        wall / RESNET_STEPS, eager_s),
              "img_per_s": b * RESNET_STEPS / wall, "losses": losses,
              "launches": launches, "update_path": path,
              "first_update_bitwise_vs_plain": b1_first["bitwise"],
@@ -3034,6 +3168,530 @@ def phase_train_lstm(torch, dev):
     return out, launches
 
 
+def _zoo_module(torch, dev, sym, cfg, args, aux, plain=False):
+    """A Module of a zoo symbol on the card at ``cfg``'s batch, compute
+    dtype and SGD-momentum settings (``opt``, RESNET_OPT by default), its
+    Dropout masks from a generator seeded with ZOO_DROPOUT_SEED; the slab
+    plan must arm."""
+    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch.io import DataDesc
+    from mxnet_tpu_torch.module import Module
+
+    b = cfg["batch"]
+    kw = {"compute_dtype": cfg["compute_dtype"]} \
+        if cfg["compute_dtype"] else {}
+    mod = Module(sym, context=gpu(0), plain=plain, **kw)
+    mod.bind(data_shapes=[DataDesc("data", (b,) + tuple(cfg["image"]))],
+             label_shapes=[DataDesc("softmax_label", (b,))])
+    mod.init_params(arg_params=args, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params=cfg.get("opt", RESNET_OPT))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ZOO_DROPOUT_SEED)
+    mod._exec_group.exec_.generator = gen
+    if mod._train_step is None or mod._train_step.plan is None:
+        raise AssertionError("the zoo module's train step armed no slab "
+                             "plan")
+    return mod
+
+
+def _loss_step(torch, dev, batch, y):
+    """``step(mod)``: one training step of ``mod`` on ``batch`` (labels
+    ``y``), returning the mean -log p(label) of its forward, on the
+    card."""
+    labels = torch.from_numpy(y).long().to(dev)[:, None]
+
+    def step(mod):
+        mod.forward_backward(batch)
+        mod.update()
+        p = mod.get_outputs()[0].data.float().gather(1, labels)
+        return -torch.log(torch.clamp_min(p, 1e-30)).mean()
+
+    return step
+
+
+def _zoo_grads(mod):
+    group = mod._exec_group
+    return {n: a.data.clone() for n, a in zip(group.param_names,
+                                               group.grad_arrays)}
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(torch):
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _fixed_gammas(sym):
+    """The gamma parameters of the symbol's ``fix_gamma`` BatchNorms."""
+    out = []
+    for node in json.loads(sym.tojson())["nodes"]:
+        attrs = node.get("attrs", node.get("param", {})) or {}
+        if node["op"] == "BatchNorm" \
+                and str(attrs.get("fix_gamma", "True")) == "True":
+            out.append(node["name"] + "_gamma")
+    return out
+
+
+def _zoo_first_step(torch, dev, sym, cfg, args, aux, step, what):
+    """The first step of a kernel module (unrecorded), with cuDNN's
+    deterministic algorithms: B1 against its plain version on copies of
+    the slabs, then against the per-parameter update on copies of the
+    masters and momentum with the gradients the step packed (masters,
+    momentum and the bf16 copy bit for bit); the gradients against a
+    ``plain=True`` module's first step in the two tiers; fixed gammas:
+    a zero gradient and the weight decay's move, bit for bit."""
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    with _cudnn_deterministic(torch):
+        kmod = _zoo_module(torch, dev, sym, cfg, args, aux)
+        group = kmod._exec_group
+        idx = sorted(kmod._updater.states)
+        ref_w = [nd.NDArray(group.param_arrays[i].data.clone()) for i in idx]
+        ref_m = [kmod._updater.states[i].clone() for i in idx]
+        opt = cfg.get("opt", RESNET_OPT)
+        ref_opt = opt_mod.create(
+            "sgd", sym=sym, rescale_grad=1.0 / cfg["batch"],
+            param_idx2name=dict(enumerate(group.param_names)), **opt)
+        real, checked, b1_first = _b1_capture(torch, uk)
+        uk.multi_tensor_update = checked
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with programs.eager():
+                loss = step(kmod)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+        finally:
+            uk.multi_tensor_update = real
+        if b1_first != {"launches": 1, "bitwise": True, "path": "kernel"}:
+            raise AssertionError("%s's first update, kernel B1 vs plain on "
+                                 "the same slabs: %s" % (what, b1_first))
+        kgrads = _zoo_grads(kmod)
+        ref_opt.update_multi(idx, ref_w, [group.grad_arrays[i] for i in idx],
+                             ref_m)
+        tstep = kmod._train_step
+        sides = {"params": [(group.param_arrays[i].data, w.data)
+                            for i, w in zip(idx, ref_w)],
+                 "momentum": [(kmod._updater.states[i], m)
+                              for i, m in zip(idx, ref_m)]}
+        if cfg["compute_dtype"]:
+            sides["bf16_copy"] = [(tstep._views[group.param_names[i]],
+                                   w.data.to(torch.bfloat16))
+                                  for i, w in zip(idx, ref_w)]
+        parity = {}
+        for label, pairs in sides.items():
+            diff = [(a, c) for a, c in pairs if not torch.equal(a, c)]
+            parity[label] = {"tensors": len(pairs), "unequal": len(diff),
+                             "max_abs_diff": max(
+                                 [float((a.float() - c.float()).abs().max())
+                                  for a, c in diff] or [0.0])}
+        log("%s plan vs per-parameter update: %s"
+            % (what, json.dumps(parity)))
+        if any(v["unequal"] for v in parity.values()):
+            raise AssertionError("%s's first update, kernel B1 vs the "
+                                 "per-parameter update: %s" % (what, parity))
+        # fix_gamma: the gamma takes a zero gradient, and weight decay
+        # alone moves it: w + (momentum * 0 - lr * (0 + wd * w)) in f32
+        gammas = _fixed_gammas(sym)
+        lr = torch.tensor(opt["learning_rate"], device=dev)
+        wd = torch.tensor(opt["wd"], device=dev)
+        fixed = {"gammas": len(gammas), "zero_grad": True,
+                 "wd_move_bitwise": True}
+        for n in gammas:
+            w0 = torch.from_numpy(args[n]).to(dev)
+            fixed["zero_grad"] &= not bool(kgrads[n].any())
+            want = w0 + (opt["momentum"] * torch.zeros_like(w0)
+                         - lr * (0.0 + wd * w0))
+            fixed["wd_move_bitwise"] &= torch.equal(
+                kmod._exec_group.exec_.arg_dict[n].data, want)
+        if gammas and not (fixed["zero_grad"] and fixed["wd_move_bitwise"]):
+            raise AssertionError("%s's fixed gammas: %s" % (what, fixed))
+        pmod = _zoo_module(torch, dev, sym, cfg, args, aux, plain=True)
+        with programs.eager():
+            step(pmod)
+        pgrads = _zoo_grads(pmod)
+        bitwise = all(torch.equal(kgrads[n], pgrads[n]) for n in kgrads)
+        tiers = _grad_tiers(torch, kgrads, pgrads, what,
+                            direct=cfg["classifier"])
+        del pmod, pgrads, kgrads, ref_w, ref_m, sides
+    grads = {"tiers": tiers, "bitwise": bitwise, "cudnn_deterministic": True}
+    log("%s gradients vs plain module: %s" % (what, json.dumps(grads)))
+    return kmod, float(loss), warm_s, b1_first, parity, fixed, grads
+
+
+def _zoo_capture_gate(torch, dev, sym, cfg, args, aux, batch, what):
+    """ZOO_STEPS captured steps against the same steps under
+    programs.eager() from the same start and the same Dropout masks
+    (generators seeded alike), cuDNN deterministic: masters, moving
+    statistics and momentum bit for bit."""
+    from mxnet_tpu_torch import programs
+
+    def run(mod, eager):
+        with programs.eager() if eager else contextlib.nullcontext():
+            for _ in range(ZOO_STEPS):
+                mod.forward_backward(batch)
+        torch.cuda.synchronize()
+
+    def state(mod):
+        snap = _snapshot(mod)
+        snap.update({"momentum:%d" % i: s.clone()
+                     for i, s in mod._updater.states.items()})
+        return snap
+
+    start = {n: torch.from_numpy(v).to(dev) for n, v in args.items()}
+    start.update({"aux:" + n: torch.from_numpy(v).to(dev)
+                  for n, v in aux.items()})
+    with _cudnn_deterministic(torch):
+        emod = _zoo_module(torch, dev, sym, cfg, args, aux)
+        run(emod, eager=True)
+        eager = state(emod)
+        del emod
+        cmod = _zoo_module(torch, dev, sym, cfg, args, aux)
+        run(cmod, eager=False)
+        got = state(cmod)
+        del cmod
+    start.update({k: torch.zeros_like(v) for k, v in got.items()
+                  if k.startswith("momentum:")})
+    gate = _run_diff(torch, got, eager, start, cfg["classifier"])
+    gate.update(steps=ZOO_STEPS, batch=cfg["batch"],
+                cudnn_deterministic=True)
+    log("%s captured vs eager: %s" % (what, json.dumps(gate)))
+    if not gate["bitwise"]:
+        raise AssertionError("%s's captured steps against eager: %s"
+                             % (what, gate))
+    return gate
+
+
+def _lrn_card_vs_cpu(torch, dev, args, x):
+    """AlexNet's first LRN on the card against the CPU: its input is
+    conv1 -> ReLU of the first 8 images of the batch under the starting
+    weights; forward and input gradient (a random head gradient), max
+    |card - cpu| over max |cpu| against TOL_LRN_CPU."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.registry import OpContext, get_op
+
+    op = get_op("LRN")
+    attrs = op.parse_attrs({"nsize": "5", "alpha": "0.0001",
+                            "beta": "0.75", "knorm": "2"})
+    with torch.no_grad():
+        xin = F.relu(F.conv2d(
+            torch.from_numpy(x[:8]).to(dev),
+            torch.from_numpy(args["convolution0_weight"]).to(dev),
+            torch.from_numpy(args["convolution0_bias"]).to(dev), stride=4))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    dy = torch.randn(xin.shape, generator=gen, device=dev)
+    out = {}
+    runs = {}
+    for where in ("card", "cpu"):
+        leaf = (xin if where == "card" else xin.cpu()).clone()
+        leaf.requires_grad_(True)
+        (y,), _ = op.fcompute(attrs, [leaf], [], OpContext())
+        (dx,) = torch.autograd.grad(y, leaf, dy.to(leaf.device))
+        runs[where] = (y.detach().cpu(), dx.cpu())
+    for i, part in enumerate(("out", "dx")):
+        got, want = runs["card"][i], runs["cpu"][i]
+        err = float((got - want).abs().max() / want.abs().max())
+        out[part] = err
+        if not err <= TOL_LRN_CPU:
+            raise AssertionError("LRN %s on the card vs the CPU: %.3g > %g"
+                                 % (part, err, TOL_LRN_CPU))
+    out["shape"] = list(xin.shape)
+    log("train alexnet LRN card vs cpu: " + json.dumps(out))
+    return out
+
+
+def phase_train_zoo(torch, dev, name):
+    """A zoo model at full width through Module on the card (ZOO_TRAIN):
+    the first step's gates (_zoo_first_step), the step program's set-up,
+    ZOO_STEPS timed replays (one B1 launch each), profiled steps captured
+    and eager, and the captured-vs-eager gate; AlexNet also holds LRN on
+    the card against the CPU."""
+    from mxnet_tpu_torch import NameManager, gpu, models, programs
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    cfg = ZOO_TRAIN[name]
+    b, image = cfg["batch"], tuple(cfg["image"])
+    what = "train %s" % name.replace("_", "-")
+    with NameManager():
+        sym = getattr(models, "get_" + name)(num_classes=1000)
+    args, aux, x, y = _resnet_values(sym, b, image)
+    n_params = sum(v.size for v in args.values())
+    log("%s model: batch=%d image=%s params=%d (%s), SGD %s"
+        % (what, b, image, n_params, "f32 masters, bf16 compute"
+           if cfg["compute_dtype"] else "f32", cfg["opt"]))
+    batch = DataBatch([nd.array(x, ctx=gpu(0))], [nd.array(y, ctx=gpu(0))])
+    step = _loss_step(torch, dev, batch, y)
+    lrn = _lrn_card_vs_cpu(torch, dev, args, x) if name == "alexnet" \
+        else None
+    kmod, loss0, warm_s, b1_first, parity, fixed, grads = _zoo_first_step(
+        torch, dev, sym, cfg, args, aux, step, what)
+    plan = kmod._train_step.plan
+    blocks = {bk: plan.rows(bk) // uk.BLOCK_ROWS for bk in plan.buckets}
+    padding = {bk: 1.0 - sum(sg.size for sg in segs)
+               / (plan.rows(bk) * uk.LANES)
+               for bk, segs in plan.buckets.items()}
+    losses = [loss0]
+    torch.cuda.reset_peak_memory_stats()
+    graphs0 = dict(programs.GRAPH_STATS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses.append(step(kmod))   # the step program's set-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    uk.LAUNCHES["multi_tensor_update"] = 0
+    uk.UPDATE_PATH["last"] = None
+    t0 = time.perf_counter()
+    for _ in range(ZOO_STEPS):
+        losses.append(step(kmod))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graphs = _graph_delta(graphs0)
+    launches = {"multi_tensor_update": uk.LAUNCHES["multi_tensor_update"]}
+    path = uk.UPDATE_PATH["last"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    log("%s launches: %s path: %s" % (what, launches, path))
+    if graphs["captures"] != 1 or graphs["replays"] != ZOO_STEPS:
+        raise AssertionError("%s: %s (want one capture, then a replay a "
+                             "step)" % (what, graphs))
+    if launches["multi_tensor_update"] != ZOO_STEPS or path != "kernel":
+        raise AssertionError("%s did not launch kernel B1 once a step: %s "
+                             "%s" % (what, launches, path))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("%s losses %s" % (what, losses))
+    _, aux_now = kmod.get_params()
+    unmoved = [n for n, v in aux_now.items()
+               if np.array_equal(v.asnumpy(), aux[n])]
+    if unmoved:
+        raise AssertionError("%s: moving statistics that did not move: %s"
+                             % (what, unmoved))
+
+    def one_step(eager=False):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with programs.eager() if eager else contextlib.nullcontext():
+            step(kmod)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    profile = _profile(torch, one_step, groups=ZOO_KERNEL_GROUPS)
+    profile_eager = _profile(torch, lambda: one_step(eager=True),
+                             groups=ZOO_KERNEL_GROUPS)
+    eager_s = min(one_step(eager=True) for _ in range(ZOO_STEPS))
+    del kmod
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate = _zoo_capture_gate(torch, dev, sym, cfg, args, aux, batch, what)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reading = {
+        "config": {"model": name, "batch": b, "image": list(image),
+                   "compute_dtype": cfg["compute_dtype"] or "float32",
+                   "masters": "float32", "optimizer": "sgd",
+                   "optimizer_params": cfg["opt"], "params": n_params,
+                   "trainable_tensors": len(args), "update": "slab plan",
+                   "source": "BASELINE.md:9-16 (train_imagenet.py "
+                             "--benchmark 1)"},
+        "slab_blocks": blocks, "slab_padding_share": padding,
+        "steps": ZOO_STEPS, "step_s": wall / ZOO_STEPS,
+        "warmup_step_s": warm_s, "setup_step_s": setup_s,
+        "graph_stats": graphs, "eager_step_s": eager_s,
+        "img_per_s": b * ZOO_STEPS / wall, "eager_img_per_s": b / eager_s,
+        "idle_share": _idle_shares(profile, profile_eager,
+                                   wall / ZOO_STEPS, eager_s),
+        "losses": losses, "launches": launches, "update_path": path,
+        "first_update_bitwise_vs_plain": b1_first["bitwise"],
+        "plan_vs_per_param": parity, "fixed_gammas": fixed,
+        "grads_vs_plain": grads, "moving_stats_moved": len(aux_now),
+        "peak_memory_gb": peak_gb, "captured_vs_eager": gate}
+    if lrn is not None:
+        reading["lrn_card_vs_cpu"] = lrn
+    log("%s: %s" % (what, json.dumps(reading)))
+    log("%s profile: %s" % (what, json.dumps(profile)))
+    log("%s profile eager: %s" % (what, json.dumps(profile_eager)))
+    return reading, launches
+
+
+def phase_zoo_steps(torch, dev):
+    """VGG, GoogLeNet, Inception-BN and ResNeXt-50 at full width, one
+    step each (batch ZOO_ONE_STEP_BATCH, f32): the first step's gates
+    (_zoo_first_step), then the step program's set-up and one timed
+    replay, a reading only."""
+    from mxnet_tpu_torch import NameManager, gpu, models
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+
+    out = {}
+    for name, (kw, classifier, opt) in ZOO_ONE_STEP.items():
+        cfg = {"batch": ZOO_ONE_STEP_BATCH, "image": ZOO_ONE_STEP_IMAGE,
+               "compute_dtype": None, "classifier": classifier, "opt": opt}
+        with NameManager():
+            sym = getattr(models, "get_" + name)(num_classes=1000, **kw)
+        args, aux, x, y = _resnet_values(sym, cfg["batch"], cfg["image"])
+        batch = DataBatch([nd.array(x, ctx=gpu(0))],
+                          [nd.array(y, ctx=gpu(0))])
+        step = _loss_step(torch, dev, batch, y)
+        what = "zoo step %s" % name
+        kmod, loss0, _, b1_first, parity, fixed, grads = _zoo_first_step(
+            torch, dev, sym, cfg, args, aux, step, what)
+        step(kmod)   # the step program's set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(kmod))
+        torch.cuda.synchronize()
+        out[name] = {"params": sum(v.size for v in args.values()),
+                     "batch": cfg["batch"], "optimizer_params": opt,
+                     "step_s":
+                     time.perf_counter() - t0, "losses": [loss0, loss],
+                     "b1_bitwise_vs_plain": b1_first["bitwise"],
+                     "plan_vs_per_param": parity, "grads_vs_plain": grads,
+                     "fixed_gammas": fixed}
+        if not np.isfinite([loss0, loss]).all():
+            raise AssertionError("%s losses %s" % (what, [loss0, loss]))
+        log("%s: %s" % (what, json.dumps(out[name])))
+        del kmod, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_mnist(torch, dev):
+    """The canonical MNIST drive through the port on the card: MNISTIter
+    (synthetic, seeds 0 / 1), get_mlp then get_lenet, Module.fit for one
+    epoch with SGD-momentum (one B1 launch a step), score against
+    MNIST_MIN_ACC; then the MLP under AdaGrad and RMSProp (plain and
+    centered) through the compiled step's per-parameter path, captured
+    against eager bit for bit; then AdaDelta (eager only) on the card
+    against the CPU."""
+    from mxnet_tpu_torch import NameManager, cpu, gpu, initializer, models
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.io import DataDesc, MNISTIter
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    out = {}
+    fit_launches = 0
+    steps = 6000 // MNIST_BATCH
+    for name in ("mlp", "lenet"):
+        flat = name == "mlp"
+        train = MNISTIter(batch_size=MNIST_BATCH, seed=0, flat=flat,
+                          silent=True)
+        val = MNISTIter(batch_size=MNIST_BATCH, seed=1, flat=flat,
+                        silent=True)
+        with NameManager():
+            sym = getattr(models, "get_" + name)(num_classes=10)
+        torch.manual_seed(0)
+        mod = Module(sym, context=gpu(0))
+        uk.LAUNCHES["multi_tensor_update"] = 0
+        uk.UPDATE_PATH["last"] = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit(train, eval_data=val, initializer=initializer.Xavier(),
+                optimizer="sgd", optimizer_params=MNIST_OPT, num_epoch=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        n = uk.LAUNCHES["multi_tensor_update"]
+        path = uk.UPDATE_PATH["last"]
+        armed = mod._train_step is not None \
+            and mod._train_step.plan is not None
+        acc = dict(mod.score(val, "acc"))["accuracy"]
+        out[name] = {"fit_s": fit_s, "steps": steps, "b1_launches": n,
+                     "update_path": path, "plan_armed": armed,
+                     "accuracy": acc, "min_accuracy": MNIST_MIN_ACC,
+                     "img_per_s": steps * MNIST_BATCH / fit_s}
+        log("train mnist %s: %s" % (name, json.dumps(out[name])))
+        if not armed or n != steps or path != "kernel":
+            raise AssertionError("MNIST %s: plan %s, %d B1 launches for %d "
+                                 "steps, path %s" % (name, armed, n, steps,
+                                                     path))
+        if not acc >= MNIST_MIN_ACC:
+            raise AssertionError("MNIST %s accuracy %.4f < %g"
+                                 % (name, acc, MNIST_MIN_ACC))
+        fit_launches += n
+
+    # the MLP under the per-parameter optimizers, from seeded weights
+    with NameManager():
+        sym = models.get_mlp(num_classes=10)
+    it = MNISTIter(batch_size=MNIST_BATCH, seed=0, flat=True, silent=True)
+    batches = [it.next() for _ in range(MNIST_OPT_STEPS)]
+    shapes, _, _ = sym.infer_shape(data=(MNIST_BATCH, 784),
+                                   softmax_label=(MNIST_BATCH,))
+    rng = np.random.RandomState(0)
+    params = {n: (rng.randn(*s) * np.sqrt(2.0 / s[1]) if len(s) > 1
+                  else np.zeros(s)).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+
+    def run(opt, kw, ctx, eager=False):
+        mod = Module(sym, context=ctx)
+        mod.bind(data_shapes=[DataDesc("data", (MNIST_BATCH, 784))],
+                 label_shapes=[DataDesc("softmax_label", (MNIST_BATCH,))])
+        mod.init_params(arg_params=params)
+        mod.init_optimizer(optimizer=opt, optimizer_params=kw)
+        with programs.eager() if eager else contextlib.nullcontext():
+            for b in batches:
+                mod.forward_backward(b)
+                mod.update()
+        return mod
+
+    def values(mod):
+        arg, _ = mod.get_params()
+        vals = {n: v.data.float().cpu() for n, v in arg.items()}
+        for i, st in mod._updater.states.items():
+            for j, t in enumerate(st if isinstance(st, tuple) else (st,)):
+                vals["state:%d:%d" % (i, j)] = t.float().cpu()
+        return vals
+
+    per_param = []
+    for opt, kw in MNIST_PER_PARAM:
+        graphs0 = dict(programs.GRAPH_STATS)
+        cmod = run(opt, kw, gpu(0))
+        graphs = _graph_delta(graphs0)
+        path = uk.UPDATE_PATH["last"]
+        no_plan = cmod._train_step is not None \
+            and cmod._train_step.plan is None
+        emod = run(opt, kw, gpu(0), eager=True)
+        got, want = values(cmod), values(emod)
+        unequal = [n for n in want if not torch.equal(got[n], want[n])]
+        case = {"optimizer": opt, "params": kw, "steps": MNIST_OPT_STEPS,
+                "update_path": path, "no_slab_plan": no_plan,
+                "graph_stats": graphs, "tensors": len(want),
+                "unequal": len(unequal), "first_unequal": unequal[:4]}
+        log("train mnist per-parameter captured vs eager: "
+            + json.dumps(case))
+        if unequal or path != "per_param" or not no_plan \
+                or graphs["captures"] != 1 \
+                or graphs["replays"] != MNIST_OPT_STEPS - 1:
+            raise AssertionError("MNIST %s captured vs eager: %s"
+                                 % (opt, case))
+        per_param.append(case)
+        del cmod, emod
+    kmod = run("adadelta", {"wd": 1e-4}, gpu(0))
+    hmod = run("adadelta", {"wd": 1e-4}, cpu())
+    got, want = values(kmod), values(hmod)
+    err = max(float((got[n] - want[n]).abs().max()) for n in want)
+    adadelta = {"steps": MNIST_OPT_STEPS, "eager": kmod._train_step is None,
+                "max_abs_err": err, "tol": TOL_ADADELTA_CPU}
+    log("train mnist adadelta card vs cpu: " + json.dumps(adadelta))
+    if not adadelta["eager"] or not err <= TOL_ADADELTA_CPU:
+        raise AssertionError("MNIST AdaDelta card vs cpu: %s" % adadelta)
+    out["per_param"] = per_param
+    out["adadelta_card_vs_cpu"] = adadelta
+    return out, {"multi_tensor_update": fit_launches}
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3100,6 +3758,19 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     _, lstm_launches = phase_train_lstm(torch, dev)
+    zoo_launches = {}
+    for name in ZOO_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, launched = phase_train_zoo(torch, dev, name)
+        zoo_launches["train_" + name] = launched["multi_tensor_update"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, mnist_launches = phase_train_mnist(torch, dev)
+    zoo_launches["train_mnist"] = mnist_launches["multi_tensor_update"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_zoo_steps(torch, dev)
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -3204,7 +3875,9 @@ def main():
     b1_by_path = {"train_lm": train_launches["multi_tensor_update"],
                   "train_resnet": resnet_launches["multi_tensor_update"]}
     b1_by_path.update(lstm_launches)
+    b1_by_path.update(zoo_launches)
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
+    b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}
     kernels.append(dict(
         _entry("multi_tensor_update",
                "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
@@ -3220,6 +3893,11 @@ def main():
             "kind", "master", "blocks", "elements", "max_ulps",
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "device_ms")},
+        zoo_cases={net: {k: c[k] for k in (
+            "kind", "master", "wc", "tensors", "blocks", "elements",
+            "bitwise", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "per_param_ms", "grad_pack_ms", "bound_ms", "bound_by",
+            "device_ms")} for net, c in b1_zoo.items()},
         max_abs_err_all_cases=max(c["max_abs_err"] for c in b1_cases),
         max_ulps_all_cases=max(c["max_ulps"] for c in b1_cases)))
     log("total wall: %.1f s" % (time.perf_counter() - t0))

@@ -23,7 +23,12 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
 * bucketed recurrent training: the ``RNN`` op, the cells and
   ``BucketSentenceIter`` (:mod:`~mxnet_tpu_torch.rnn`) and
   ``BucketingModule``, whose buckets share one slab plan, over
-  ``models.lstm_lm``.
+  ``models.lstm_lm``;
+* image classification: the model zoo (``models.get_mlp`` ...
+  ``get_resnext``, with ``LRN``), the optimizers, initializers, metrics
+  and iterators (``MNISTIter``, ``CSVIter``, ``ResizeIter``,
+  ``PrefetchingIter``) the reference's image-classification scripts
+  reach, and the optimizer update ops.
 
 The hand-written Hopper kernels (``csrc/``): the fused LN->linear
 forward and backward (:mod:`~mxnet_tpu_torch.ops.fused_kernel`), flash

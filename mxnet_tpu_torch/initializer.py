@@ -1,18 +1,22 @@
 """Weight initializers (the counterparts of ``mxnet_tpu/initializer.py``'s
-``InitDesc``, ``Initializer``, ``Uniform``, ``Normal``, ``Xavier``,
-``Zero``, ``One``, ``Constant``, ``LSTMBias`` and ``FusedRNN``).
+``InitDesc``, ``Initializer``, ``Uniform``, ``Normal``, ``Orthogonal``,
+``Xavier``, ``MSRAPrelu``, ``Bilinear``, ``Zero``, ``One``, ``Constant``,
+``Load``, ``Mixed``, ``LSTMBias`` and ``FusedRNN``).
 
 A parameter's role comes from its name suffix, as in the JAX package:
 ``*_weight`` takes the scheme's random values, ``*_bias``/``*_beta``
-zeros, ``*_gamma`` ones, BatchNorm statistics their constants.  Random
-values are drawn on the host from PyTorch's default ``torch.Generator``
-(seed it with ``torch.manual_seed``), so they differ from the JAX
-package's numpy draws; parity tests load the same numpy values into both
-instead.
+zeros, ``*_gamma`` ones, BatchNorm statistics their constants; a name
+starting with ``upsampling`` takes the bilinear kernel.  Random values
+are drawn on the host from PyTorch's default ``torch.Generator`` (seed it
+with ``torch.manual_seed``), so they differ from the JAX package's numpy
+draws; parity tests load the same numpy values into both instead.  The
+deterministic schemes (the constants, Bilinear, Load, Mixed's routing)
+give the JAX package's values exactly.
 """
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as np
 import torch
@@ -20,8 +24,9 @@ import torch
 from .base import MXNetError
 from .ndarray import NDArray
 
-__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Xavier",
-           "Constant", "One", "Zero", "LSTMBias", "FusedRNN", "create",
+__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Orthogonal",
+           "Xavier", "MSRAPrelu", "Bilinear", "Constant", "One", "Zero",
+           "Load", "Mixed", "LSTMBias", "FusedRNN", "create",
            "init_registry"]
 
 init_registry = {}
@@ -47,6 +52,16 @@ class InitDesc(str):
         desc.attrs = attrs or {}
         desc.global_init = global_init
         return desc
+
+
+def _bilinear_kernel(shape):
+    """The bilinear upsampling kernel of a (..., H, W) shape, f32."""
+    h, w = shape[-2], shape[-1]
+    f = np.ceil(w / 2.0)
+    center = (2 * f - 1 - f % 2) / (2.0 * f)
+    ys, xs = np.ogrid[:h, :w]
+    tap = (1 - np.abs(xs / f - center)) * (1 - np.abs(ys / f - center))
+    return np.broadcast_to(tap, shape).astype(np.float32)
 
 
 # suffix -> method name, checked in order (the JAX package's table)
@@ -78,6 +93,9 @@ class Initializer:
             create(spec)._init_weight(name, arr)
             return
         name_s = str(name)
+        if name_s.startswith("upsampling"):
+            arr[:] = _bilinear_kernel(arr.shape)
+            return
         for suffix, method in _ROLE_RULES:
             if name_s.endswith(suffix):
                 getattr(self, method)(name, arr)
@@ -134,6 +152,34 @@ class Normal(Initializer):
         return torch.randn(tuple(shape), dtype=torch.float64) * self.sigma
 
 
+@register
+class Orthogonal(Initializer):
+    """A scaled orthogonal matrix over (rows, prod(other dims)) (Saxe et
+    al. 2013): QR of a uniform or normal draw, the signs of R's diagonal
+    folded into Q."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def generate(self, name, shape):
+        rows = shape[0]
+        cols = int(np.prod(shape[1:]))
+        size = (max(rows, cols), min(rows, cols))
+        if self.rand_type == "uniform":
+            seed = torch.rand(size, dtype=torch.float64) * 2.0 - 1.0
+        elif self.rand_type == "normal":
+            seed = torch.randn(size, dtype=torch.float64)
+        else:
+            raise ValueError("rand_type must be 'uniform' or 'normal'")
+        q, r = torch.linalg.qr(seed)
+        q = q * torch.sign(torch.diagonal(r))
+        if rows < cols:
+            q = q.t()
+        return (self.scale * q).reshape(tuple(shape))
+
+
 def _fan_in_out(shape):
     """(fan_in, fan_out); dims beyond the first two multiply both."""
     receptive = int(np.prod(shape[2:])) if len(shape) > 2 else 1
@@ -173,6 +219,24 @@ class Xavier(Initializer):
 
 
 @register
+class MSRAPrelu(Xavier):
+    """He / Kaiming initialisation for a PReLU slope: Xavier gaussian at
+    magnitude 2 / (1 + slope^2)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel (for a Deconvolution's weight)."""
+
+    def generate(self, name, shape):
+        return torch.from_numpy(_bilinear_kernel(shape))
+
+
+@register
 class Constant(Initializer):
     def __init__(self, value=0.0):
         super().__init__(value=value)
@@ -197,6 +261,55 @@ class Zero(Constant):
     def __init__(self):
         super().__init__(0.0)
         self._kwargs = {}
+
+
+@register
+class Load:
+    """Values from a ``{name: array}`` dict (``arg:`` / ``aux:`` prefixes
+    dropped); names it lacks go to ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {}
+        for key, value in param.items():
+            bare = key.split(":", 1)[1] if key[:4] in ("arg:", "aux:") \
+                else key
+            self.param[bare] = value
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        source = self.param.get(str(name))
+        if source is not None:
+            if tuple(source.shape) != tuple(arr.shape):
+                raise MXNetError(
+                    "Loaded parameter %r has shape %s, expected %s"
+                    % (str(name), tuple(source.shape), tuple(arr.shape)))
+            arr[:] = source
+        elif self.default_init is not None:
+            self.default_init(name, arr)
+        else:
+            raise MXNetError("Parameter %r is not in the loaded dict and no "
+                             "default_init was given" % str(name))
+
+
+@register
+class Mixed:
+    """Routes a parameter to the first initializer whose regular
+    expression matches its name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must pair up")
+        self.map = [(re.compile(p), init)
+                    for p, init in zip(patterns, initializers)]
+
+    def __call__(self, name, arr):
+        for matcher, init in self.map:
+            if matcher.match(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError("Parameter %r matched no pattern (have: %s)"
+                         % (str(name), [m.pattern for m, _ in self.map]))
 
 
 def _lstm_bias(shape, forget_bias):

@@ -1,10 +1,21 @@
 """Data iterators: :class:`DataDesc`, :class:`DataBatch`, :class:`DataIter`,
-:class:`NDArrayIter` and :class:`DevicePrefetchIter` (the counterparts
-of ``mxnet_tpu/io.py``'s classes of the same names).  Batches are host
-NDArrays; ``Module`` copies them onto its device, or
-:class:`DevicePrefetchIter` does ahead of time."""
+:class:`NDArrayIter`, :class:`MNISTIter`, :class:`CSVIter`,
+:class:`ResizeIter`, :class:`PrefetchingIter` and
+:class:`DevicePrefetchIter` (the counterparts of ``mxnet_tpu/io.py``'s
+classes of the same names).  Batches are host NDArrays; ``Module``
+copies them onto its device, or :class:`DevicePrefetchIter` does ahead
+of time.  :class:`PrefetchingIter` reads the next batches of its
+iterators on a worker thread (``_BackgroundIter``: a bounded queue, a
+stop flag the worker checks while it waits, the worker's exception
+raised in the consumer); ``reset`` and ``close`` stop and join it."""
 from __future__ import annotations
 
+import gzip
+import logging
+import os
+import queue as _queue
+import struct
+import threading
 from collections import deque
 
 import numpy as np
@@ -13,8 +24,8 @@ import torch
 from . import config
 from .ndarray import NDArray, array
 
-__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter",
-           "DevicePrefetchIter"]
+__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter", "MNISTIter",
+           "CSVIter", "ResizeIter", "PrefetchingIter", "DevicePrefetchIter"]
 
 
 class DataDesc:
@@ -199,6 +210,288 @@ class NDArrayIter(DataIter):
                 and self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+class MNISTIter(NDArrayIter):
+    """MNIST from its idx files (``image`` / ``label``, or ``.gz``), scaled
+    to [0, 1]: (n, 1, 28, 28), flat (n, 784) with ``flat``, or
+    ``input_shape``; ``num_parts`` / ``part_index`` take one contiguous
+    part, ``shuffle`` permutes with ``RandomState(seed)``; the last
+    partial batch is dropped.  Without the files it serves the JAX
+    package's synthetic set of 6,000 class-conditional digits, the same
+    arrays for the same ``seed`` (with a warning unless ``silent``)."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=0,
+                 input_shape=None, num_parts=1, part_index=0, **kwargs):
+        if os.path.exists(image) or os.path.exists(image + ".gz"):
+            images = _read_idx(image)
+            labels = _read_idx(label)
+        else:
+            if not silent:
+                logging.warning(
+                    "MNISTIter: idx files %r not found; substituting a "
+                    "deterministic SYNTHETIC dataset (accuracy numbers will "
+                    "not be comparable to real MNIST). Pass silent=True to "
+                    "suppress.", image)
+            images, labels = _synthetic_mnist(seed=seed)
+        images = images.astype(np.float32) / 255.0
+        if num_parts > 1:
+            part = len(images) // num_parts
+            images = images[part_index * part:(part_index + 1) * part]
+            labels = labels[part_index * part:(part_index + 1) * part]
+        if input_shape is not None:
+            images = images.reshape((len(images),) + tuple(input_shape))
+        elif flat:
+            images = images.reshape(len(images), -1)
+        elif images.ndim == 3:
+            # the file's own (H, W) with a channel axis
+            images = images.reshape(len(images), 1, *images.shape[1:])
+        else:
+            images = images.reshape(len(images), 1, 28, 28)
+        if shuffle:
+            idx = np.random.RandomState(seed).permutation(len(images))
+            images, labels = images[idx], labels[idx]
+        super().__init__(images, labels.astype(np.float32),
+                         batch_size=batch_size, last_batch_handle="discard")
+
+
+def _read_idx(path):
+    """An idx file (big-endian magic, dims, uint8 payload) as an array;
+    ``path + ".gz"`` where ``path`` itself is missing."""
+    if not os.path.exists(path) and os.path.exists(path + ".gz"):
+        f = gzip.open(path + ".gz", "rb")
+    else:
+        f = open(path, "rb")
+    with f:
+        magic = struct.unpack(">i", f.read(4))[0]
+        ndim = magic % 256
+        shape = tuple(struct.unpack(">i", f.read(4))[0]
+                      for _ in range(ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(shape)
+
+
+def _synthetic_mnist(n=6000, seed=0):
+    """The JAX package's synthetic digits: ten fixed 28 x 28 prototypes
+    from ``RandomState(42)``, samples 0.7 x prototype + N(0, 16) noise
+    clipped to uint8, labels and noise from ``RandomState(seed)``."""
+    protos = np.random.RandomState(42).uniform(
+        0, 255, size=(10, 28, 28)).astype(np.float32)
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, size=n).astype(np.uint8)
+    noise = rng.normal(0, 16.0, size=(n, 28, 28)).astype(np.float32)
+    images = np.clip(protos[labels] * 0.7 + noise, 0, 255).astype(np.uint8)
+    return images, labels
+
+
+class CSVIter(NDArrayIter):
+    """Rows of a CSV file reshaped to ``data_shape`` (labels from
+    ``label_csv``, else zeros), batched as :class:`NDArrayIter` does:
+    padded from the front with ``round_batch``, else the last partial
+    batch dropped."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 **kwargs):
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.float32)
+        data = data.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32)
+            label = label.reshape((-1,) + tuple(label_shape))
+        else:
+            label = np.zeros((len(data),), dtype=np.float32)
+        super().__init__(
+            data, label, batch_size=batch_size,
+            last_batch_handle="pad" if round_batch else "discard",
+            label_name="label")
+
+
+class ResizeIter(DataIter):
+    """``size`` batches an epoch from ``data_iter``, restarting it when it
+    runs out; ``reset_internal`` resets it with each reset."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        if hasattr(data_iter, "default_bucket_key"):
+            self.default_bucket_key = data_iter.default_bucket_key
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class _BackgroundIter(DataIter):
+    """A worker thread filling a bounded queue.  Its puts give up when the
+    consumer has set the stop flag (a worker blocked on a full queue does
+    not hold ``close`` / ``reset`` up), and an exception in the worker is
+    raised in the consumer at its next ``next()``.  Subclasses implement
+    ``_produce()`` (the next payload, or StopIteration) and
+    ``_reset_source()``, and call ``_restart()`` once built."""
+
+    def __init__(self, batch_size, capacity):
+        super().__init__(batch_size)
+        self._capacity = max(1, int(capacity))
+        self._queue = None
+        self._stop = threading.Event()
+        self._thread = None
+        self._done = False
+
+    # -- the worker ------------------------------------------------------
+    def _produce(self):
+        raise NotImplementedError()
+
+    def _put(self, item):
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.05)
+                return True
+            except _queue.Full:
+                continue
+        return False
+
+    def _worker(self):
+        while not self._stop.is_set():
+            try:
+                payload = self._produce()
+            except StopIteration:
+                self._put(("end", None))
+                return
+            except BaseException as exc:
+                self._put(("error", exc))
+                return
+            if not self._put(("batch", payload)):
+                return
+
+    # -- the consumer ----------------------------------------------------
+    def _restart(self):
+        self._stop = threading.Event()
+        self._queue = _queue.Queue(maxsize=self._capacity)
+        self._done = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def close(self):
+        """Stop the worker and join it (again is a no-op); a closed
+        iterator raises StopIteration."""
+        self._stop.set()
+        self._done = True
+        while self._thread is not None and self._thread.is_alive():
+            try:  # a worker blocked in put() sees the flag
+                self._queue.get_nowait()
+            except _queue.Empty:
+                pass
+            self._thread.join(timeout=0.01)
+        self._thread = None
+
+    def _reset_source(self):
+        raise NotImplementedError()
+
+    def reset(self):
+        self.close()
+        self._reset_source()
+        self._restart()
+
+    def __del__(self):
+        self._stop.set()
+
+    def next(self):
+        if self._done:
+            raise StopIteration
+        kind, payload = self._queue.get()
+        if kind == "batch":
+            return payload
+        self._done = True
+        if kind == "error":
+            raise payload
+        raise StopIteration
+
+
+class PrefetchingIter(_BackgroundIter):
+    """The next ``capacity`` batches of one iterator (or of several,
+    joined: their data and labels concatenated, the first one's pad) read
+    on a worker thread; ``rename_data`` / ``rename_label`` (one
+    ``{old: new}`` dict an iterator) rename the descriptors."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 capacity=2):
+        if not isinstance(iters, list):
+            iters = [iters]
+        if not iters:
+            raise ValueError("PrefetchingIter needs at least one iterator")
+        super().__init__(iters[0].batch_size, capacity)
+        self.n_iter = len(iters)
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self._restart()
+
+    @staticmethod
+    def _renamed(descs_by_iter, renames):
+        if renames is None:
+            return sum(descs_by_iter, [])
+        return sum([[DataDesc(r[x.name], x.shape, x.dtype)
+                     if isinstance(r[x.name], str) else r[x.name]
+                     for x in descs]
+                    for r, descs in zip(renames, descs_by_iter)], [])
+
+    @property
+    def provide_data(self):
+        return self._renamed([i.provide_data for i in self.iters],
+                             self.rename_data)
+
+    @property
+    def provide_label(self):
+        return self._renamed([i.provide_label for i in self.iters],
+                             self.rename_label)
+
+    def _produce(self):
+        batches = [i.next() for i in self.iters]
+        if self.n_iter == 1:
+            return batches[0]
+        return DataBatch(data=sum([b.data for b in batches], []),
+                         label=sum([b.label for b in batches], []),
+                         pad=batches[0].pad)
+
+    def _reset_source(self):
+        for i in self.iters:
+            i.reset()
 
 
 class DevicePrefetchIter(DataIter):

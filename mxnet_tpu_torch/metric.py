@@ -1,8 +1,9 @@
 """Evaluation metrics (the counterparts of ``mxnet_tpu/metric.py``'s):
 :class:`EvalMetric`, :class:`Accuracy`, :class:`TopKAccuracy`,
-:class:`Perplexity`, :class:`MAE`, :class:`MSE`, :class:`RMSE`,
-:class:`CrossEntropy`, :class:`Loss`, :class:`CompositeEvalMetric`,
-:func:`create` and :class:`DeviceMetricAccumulator`.
+:class:`F1`, :class:`Perplexity`, :class:`MAE`, :class:`MSE`,
+:class:`RMSE`, :class:`CrossEntropy`, :class:`Loss`, :class:`Torch`,
+:class:`Caffe`, :class:`CustomMetric`, :class:`CompositeEvalMetric`,
+:func:`np_metric`, :func:`create` and :class:`DeviceMetricAccumulator`.
 
 Each metric reduces one (label, pred) pair on the host to a
 ``(statistic_sum, count)`` tuple (``_batch``).  A metric that also has
@@ -13,16 +14,19 @@ int64 count a slot as device scalars, which the step adds to in place
 (a captured graph binds them by pointer), and installs drain / reset
 hooks on the metric, so reading it (``get``, ``get_name_value``) folds
 the device sums into the host ones first: reading the metric is the
-only sync point.
+only sync point.  The device-capable metrics are the JAX package's:
+F1 and CustomMetric stay on the host, Torch and Caffe accumulate like
+Loss.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "Perplexity", "MAE",
-           "MSE", "RMSE", "CrossEntropy", "Loss", "CompositeEvalMetric",
-           "DeviceMetricAccumulator", "create", "select_outputs"]
+__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "F1", "Perplexity",
+           "MAE", "MSE", "RMSE", "CrossEntropy", "Loss", "Torch", "Caffe",
+           "CustomMetric", "CompositeEvalMetric", "DeviceMetricAccumulator",
+           "np_metric", "create", "select_outputs"]
 
 
 def select_outputs(metric, outputs):
@@ -182,6 +186,29 @@ class TopKAccuracy(EvalMetric):
         return hits.sum(), hits.numel()
 
 
+class F1(EvalMetric):
+    """Binary F1 of each batch (the batch's confusion counts), averaged
+    over batches."""
+
+    def __init__(self):
+        super().__init__("f1")
+
+    def _batch(self, label, pred):
+        y = label.astype("int64").ravel()
+        if np.unique(y).size > 2:
+            raise ValueError("F1 currently only supports binary "
+                             "classification.")
+        yhat = np.argmax(pred, axis=1).ravel()
+        tp = int(np.sum((yhat == 1) & (y == 1)))
+        fp = int(np.sum((yhat == 1) & (y == 0)))
+        fn = int(np.sum((yhat == 0) & (y == 1)))
+        precision = tp / (tp + fp) if tp + fp else 0.0
+        recall = tp / (tp + fn) if tp + fn else 0.0
+        f1 = 2 * precision * recall / (precision + recall) \
+            if precision + recall else 0.0
+        return f1, 1
+
+
 class Perplexity(EvalMetric):
     """exp(mean negative log-prob of the target tokens), per batch."""
 
@@ -305,6 +332,53 @@ class Loss(EvalMetric):
         for pred in preds:
             sums[0].add_(pred.sum())
             counts[0].add_(pred.numel())
+
+
+class Torch(Loss):
+    """The mean of the outputs, named "torch" (a Loss)."""
+
+    def __init__(self, name="torch"):
+        EvalMetric.__init__(self, name)
+
+
+class Caffe(Loss):
+    """The mean of the outputs, named "caffe" (a Loss)."""
+
+    def __init__(self, name="caffe"):
+        EvalMetric.__init__(self, name)
+
+
+class CustomMetric(EvalMetric):
+    """A metric from ``feval(label, pred)`` over numpy arrays, which
+    returns a value (one instance) or a ``(sum, count)`` pair."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False):
+        if name is None:
+            name = feval.__name__
+            if "<" in name:
+                name = "custom(%s)" % name
+        super().__init__(name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            result = self._feval(_host(label), _host(pred))
+            s, n = result if isinstance(result, tuple) else (result, 1)
+            self._sums[0] += s
+            self._counts[0] += n
+
+
+def np_metric(name=None, allow_extra_outputs=False):
+    """Decorator making a :class:`CustomMetric` of a numpy ``feval``."""
+
+    def wrap(numpy_feval):
+        return CustomMetric(numpy_feval, name or numpy_feval.__name__,
+                            allow_extra_outputs)
+
+    return wrap
 
 
 class CompositeEvalMetric(EvalMetric):
@@ -458,17 +532,19 @@ class DeviceMetricAccumulator:
 
 
 _BY_NAME = {"acc": Accuracy, "accuracy": Accuracy, "ce": CrossEntropy,
-            "cross-entropy": CrossEntropy, "perplexity": Perplexity,
-            "mae": MAE, "mse": MSE, "rmse": RMSE,
+            "cross-entropy": CrossEntropy, "f1": F1,
+            "perplexity": Perplexity, "mae": MAE, "mse": MSE, "rmse": RMSE,
             "top_k_accuracy": TopKAccuracy, "topkaccuracy": TopKAccuracy,
-            "loss": Loss}
+            "loss": Loss, "torch": Torch, "caffe": Caffe}
 
 
 def create(metric, **kwargs):
-    """A metric from a name, a list of names / metrics (a composite) or
-    an instance."""
+    """A metric from a name, a callable (a :class:`CustomMetric`), a list
+    of them (a composite) or an instance."""
     if isinstance(metric, EvalMetric):
         return metric
+    if callable(metric):
+        return CustomMetric(metric)
     if isinstance(metric, list):
         out = CompositeEvalMetric()
         for m in metric:

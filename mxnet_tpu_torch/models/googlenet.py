@@ -1,0 +1,67 @@
+"""GoogLeNet (Inception v1), the port's copy of
+``mxnet_tpu/models/googlenet.py``: the paper's Table 1 blocks without
+the auxiliary heads, ending in global average pooling, Dropout(0.4) and
+the classifier.
+"""
+from __future__ import annotations
+
+from .. import symbol as sym
+
+
+def _conv(data, num_filter, kernel, stride=(1, 1), pad=(0, 0), name=None):
+    c = sym.Convolution(data, num_filter=num_filter, kernel=kernel,
+                        stride=stride, pad=pad, name="conv_%s" % name)
+    return sym.Activation(c, act_type="relu", name="relu_%s" % name)
+
+
+def _inception(data, f1, f3r, f3, f5r, f5, proj, name):
+    """One inception block: 1x1 / 3x3 / 5x5 / pool-proj branches."""
+    b1 = _conv(data, f1, (1, 1), name="%s_1x1" % name)
+    b3 = _conv(data, f3r, (1, 1), name="%s_3x3r" % name)
+    b3 = _conv(b3, f3, (3, 3), pad=(1, 1), name="%s_3x3" % name)
+    b5 = _conv(data, f5r, (1, 1), name="%s_5x5r" % name)
+    b5 = _conv(b5, f5, (5, 5), pad=(2, 2), name="%s_5x5" % name)
+    bp = sym.Pooling(data, kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                     pool_type="max", name="%s_pool" % name)
+    bp = _conv(bp, proj, (1, 1), name="%s_proj" % name)
+    return sym.Concat(b1, b3, b5, bp, name="%s_concat" % name)
+
+
+# (f1, f3r, f3, f5r, f5, proj) per block, paper Table 1
+_BLOCKS = [
+    ("3a", 64, 96, 128, 16, 32, 32),
+    ("3b", 128, 128, 192, 32, 96, 64),
+    ("pool",),
+    ("4a", 192, 96, 208, 16, 48, 64),
+    ("4b", 160, 112, 224, 24, 64, 64),
+    ("4c", 128, 128, 256, 24, 64, 64),
+    ("4d", 112, 144, 288, 32, 64, 64),
+    ("4e", 256, 160, 320, 32, 128, 128),
+    ("pool",),
+    ("5a", 256, 160, 320, 32, 128, 128),
+    ("5b", 384, 192, 384, 48, 128, 128),
+]
+
+
+def get_symbol(num_classes=1000, **kwargs):
+    data = sym.Variable("data")
+    net = _conv(data, 64, (7, 7), stride=(2, 2), pad=(3, 3), name="stem1")
+    net = sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                      pool_type="max")
+    net = _conv(net, 64, (1, 1), name="stem2r")
+    net = _conv(net, 192, (3, 3), pad=(1, 1), name="stem2")
+    net = sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                      pool_type="max")
+    for block in _BLOCKS:
+        if block[0] == "pool":
+            net = sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                              pool_type="max")
+        else:
+            name, f1, f3r, f3, f5r, f5, proj = block
+            net = _inception(net, f1, f3r, f3, f5r, f5, proj, name)
+    net = sym.Pooling(net, kernel=(7, 7), stride=(1, 1), pool_type="avg",
+                      global_pool=True)
+    net = sym.Dropout(net, p=0.4)
+    net = sym.Flatten(net)
+    net = sym.FullyConnected(net, num_hidden=num_classes, name="fc")
+    return sym.SoftmaxOutput(net, name="softmax")

@@ -1,0 +1,115 @@
+"""Inception-v3, the port's copy of ``mxnet_tpu/models/inception_v3.py``:
+factorised 7x7 (1x7 / 7x1) towers, grid reductions, BatchNorm with a
+fixed gamma after every convolution, average pooling that counts its
+padding, Dropout(0.2) before the classifier; 299 x 299 input.
+"""
+from __future__ import annotations
+
+from .. import symbol as sym
+
+BN_EPS = 2e-5
+BN_MOM = 0.9
+
+
+def _conv(data, nf, kernel, stride=(1, 1), pad=(0, 0), name=None):
+    c = sym.Convolution(data, num_filter=nf, kernel=kernel, stride=stride,
+                        pad=pad, no_bias=True, name="%s_conv" % name)
+    b = sym.BatchNorm(c, fix_gamma=True, eps=BN_EPS, momentum=BN_MOM,
+                      name="%s_bn" % name)
+    return sym.Activation(b, act_type="relu", name="%s_relu" % name)
+
+
+def _pool(data, kind, kernel=(3, 3), stride=(1, 1), pad=(1, 1)):
+    return sym.Pooling(data, kernel=kernel, stride=stride, pad=pad,
+                       pool_type=kind)
+
+
+def _block_a(data, proj, name):
+    """35x35 block: 1x1 / 5x5 / double-3x3 / pool towers."""
+    t1 = _conv(data, 64, (1, 1), name=name + "_t1")
+    t2 = _conv(data, 48, (1, 1), name=name + "_t2a")
+    t2 = _conv(t2, 64, (5, 5), pad=(2, 2), name=name + "_t2b")
+    t3 = _conv(data, 64, (1, 1), name=name + "_t3a")
+    t3 = _conv(t3, 96, (3, 3), pad=(1, 1), name=name + "_t3b")
+    t3 = _conv(t3, 96, (3, 3), pad=(1, 1), name=name + "_t3c")
+    t4 = _conv(_pool(data, "avg"), proj, (1, 1), name=name + "_t4")
+    return sym.Concat(t1, t2, t3, t4, name=name)
+
+
+def _reduction_a(data, name):
+    t1 = _conv(data, 384, (3, 3), stride=(2, 2), name=name + "_t1")
+    t2 = _conv(data, 64, (1, 1), name=name + "_t2a")
+    t2 = _conv(t2, 96, (3, 3), pad=(1, 1), name=name + "_t2b")
+    t2 = _conv(t2, 96, (3, 3), stride=(2, 2), name=name + "_t2c")
+    t3 = _pool(data, "max", stride=(2, 2), pad=(0, 0))
+    return sym.Concat(t1, t2, t3, name=name)
+
+
+def _block_b(data, c7, name):
+    """17x17 block with factorized 7x7 (1x7 + 7x1) towers."""
+    t1 = _conv(data, 192, (1, 1), name=name + "_t1")
+    t2 = _conv(data, c7, (1, 1), name=name + "_t2a")
+    t2 = _conv(t2, c7, (1, 7), pad=(0, 3), name=name + "_t2b")
+    t2 = _conv(t2, 192, (7, 1), pad=(3, 0), name=name + "_t2c")
+    t3 = _conv(data, c7, (1, 1), name=name + "_t3a")
+    t3 = _conv(t3, c7, (7, 1), pad=(3, 0), name=name + "_t3b")
+    t3 = _conv(t3, c7, (1, 7), pad=(0, 3), name=name + "_t3c")
+    t3 = _conv(t3, c7, (7, 1), pad=(3, 0), name=name + "_t3d")
+    t3 = _conv(t3, 192, (1, 7), pad=(0, 3), name=name + "_t3e")
+    t4 = _conv(_pool(data, "avg"), 192, (1, 1), name=name + "_t4")
+    return sym.Concat(t1, t2, t3, t4, name=name)
+
+
+def _reduction_b(data, name):
+    t1 = _conv(data, 192, (1, 1), name=name + "_t1a")
+    t1 = _conv(t1, 320, (3, 3), stride=(2, 2), name=name + "_t1b")
+    t2 = _conv(data, 192, (1, 1), name=name + "_t2a")
+    t2 = _conv(t2, 192, (1, 7), pad=(0, 3), name=name + "_t2b")
+    t2 = _conv(t2, 192, (7, 1), pad=(3, 0), name=name + "_t2c")
+    t2 = _conv(t2, 192, (3, 3), stride=(2, 2), name=name + "_t2d")
+    t3 = _pool(data, "max", stride=(2, 2), pad=(0, 0))
+    return sym.Concat(t1, t2, t3, name=name)
+
+
+def _block_c(data, name):
+    """8x8 block with split 3x3 -> (1x3, 3x1) towers."""
+    t1 = _conv(data, 320, (1, 1), name=name + "_t1")
+    t2 = _conv(data, 384, (1, 1), name=name + "_t2a")
+    t2a = _conv(t2, 384, (1, 3), pad=(0, 1), name=name + "_t2b")
+    t2b = _conv(t2, 384, (3, 1), pad=(1, 0), name=name + "_t2c")
+    t3 = _conv(data, 448, (1, 1), name=name + "_t3a")
+    t3 = _conv(t3, 384, (3, 3), pad=(1, 1), name=name + "_t3b")
+    t3a = _conv(t3, 384, (1, 3), pad=(0, 1), name=name + "_t3c")
+    t3b = _conv(t3, 384, (3, 1), pad=(1, 0), name=name + "_t3d")
+    t4 = _conv(_pool(data, "avg"), 192, (1, 1), name=name + "_t4")
+    return sym.Concat(t1, t2a, t2b, t3a, t3b, t4, name=name)
+
+
+def get_symbol(num_classes=1000, **kwargs):
+    data = sym.Variable("data")
+    # stem: 299 -> 35
+    net = _conv(data, 32, (3, 3), stride=(2, 2), name="stem1")
+    net = _conv(net, 32, (3, 3), name="stem2")
+    net = _conv(net, 64, (3, 3), pad=(1, 1), name="stem3")
+    net = _pool(net, "max", stride=(2, 2), pad=(0, 0))
+    net = _conv(net, 80, (1, 1), name="stem4")
+    net = _conv(net, 192, (3, 3), name="stem5")
+    net = _pool(net, "max", stride=(2, 2), pad=(0, 0))
+
+    net = _block_a(net, 32, "mixed_a1")
+    net = _block_a(net, 64, "mixed_a2")
+    net = _block_a(net, 64, "mixed_a3")
+    net = _reduction_a(net, "reduce_a")
+    net = _block_b(net, 128, "mixed_b1")
+    net = _block_b(net, 160, "mixed_b2")
+    net = _block_b(net, 160, "mixed_b3")
+    net = _block_b(net, 192, "mixed_b4")
+    net = _reduction_b(net, "reduce_b")
+    net = _block_c(net, "mixed_c1")
+    net = _block_c(net, "mixed_c2")
+
+    net = sym.Pooling(net, kernel=(8, 8), pool_type="avg", global_pool=True)
+    net = sym.Dropout(net, p=0.2)
+    net = sym.Flatten(net)
+    net = sym.FullyConnected(net, num_hidden=num_classes, name="fc")
+    return sym.SoftmaxOutput(net, name="softmax")

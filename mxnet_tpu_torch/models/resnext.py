@@ -1,0 +1,78 @@
+"""ResNeXt, the port's copy of ``mxnet_tpu/models/resnext.py``
+(aggregated residual transformations, Xie et al. 2016): bottleneck units
+whose middle 3x3 convolution is grouped (``num_group`` = cardinality,
+32), one ``F.conv2d(groups=...)`` call.
+"""
+from __future__ import annotations
+
+from .. import symbol as sym
+
+BN_EPS = 2e-5
+BN_MOM = 0.9
+
+
+def resnext_unit(data, num_filter, stride, dim_match, cardinality,
+                 bottleneck_width, name):
+    """One ResNeXt bottleneck: 1x1 reduce -> grouped 3x3 -> 1x1 expand."""
+    group_width = cardinality * bottleneck_width * (num_filter // 256)
+    c1 = sym.Convolution(data, num_filter=group_width, kernel=(1, 1),
+                         no_bias=True, name=name + "_conv1")
+    b1 = sym.BatchNorm(c1, fix_gamma=False, eps=BN_EPS, momentum=BN_MOM,
+                       name=name + "_bn1")
+    a1 = sym.Activation(b1, act_type="relu")
+    c2 = sym.Convolution(a1, num_filter=group_width, kernel=(3, 3),
+                         stride=stride, pad=(1, 1), num_group=cardinality,
+                         no_bias=True, name=name + "_conv2")
+    b2 = sym.BatchNorm(c2, fix_gamma=False, eps=BN_EPS, momentum=BN_MOM,
+                       name=name + "_bn2")
+    a2 = sym.Activation(b2, act_type="relu")
+    c3 = sym.Convolution(a2, num_filter=num_filter, kernel=(1, 1),
+                         no_bias=True, name=name + "_conv3")
+    b3 = sym.BatchNorm(c3, fix_gamma=False, eps=BN_EPS, momentum=BN_MOM,
+                       name=name + "_bn3")
+    if dim_match:
+        shortcut = data
+    else:
+        sc = sym.Convolution(data, num_filter=num_filter, kernel=(1, 1),
+                             stride=stride, no_bias=True, name=name + "_sc")
+        shortcut = sym.BatchNorm(sc, fix_gamma=False, eps=BN_EPS,
+                                 momentum=BN_MOM, name=name + "_sc_bn")
+    return sym.Activation(b3 + shortcut, act_type="relu")
+
+
+def get_symbol(num_classes=1000, num_layers=50, cardinality=32,
+               bottleneck_width=4, image_shape=(3, 224, 224), **kwargs):
+    units = {50: [3, 4, 6, 3], 101: [3, 4, 23, 3],
+             152: [3, 8, 36, 3]}.get(num_layers)
+    if units is None:
+        raise ValueError("unsupported resnext depth %d" % num_layers)
+    filters = [256, 512, 1024, 2048]
+
+    data = sym.Variable("data")
+    small = image_shape[1] <= 64
+    if small:                       # cifar-style stem
+        net = sym.Convolution(data, num_filter=64, kernel=(3, 3),
+                              pad=(1, 1), no_bias=True, name="conv0")
+    else:
+        net = sym.Convolution(data, num_filter=64, kernel=(7, 7),
+                              stride=(2, 2), pad=(3, 3), no_bias=True,
+                              name="conv0")
+    net = sym.BatchNorm(net, fix_gamma=False, eps=BN_EPS, momentum=BN_MOM,
+                        name="bn0")
+    net = sym.Activation(net, act_type="relu")
+    if not small:
+        net = sym.Pooling(net, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                          pool_type="max")
+
+    for stage, (n_units, nf) in enumerate(zip(units, filters)):
+        for unit in range(n_units):
+            stride = (1, 1) if stage == 0 or unit > 0 else (2, 2)
+            net = resnext_unit(net, nf, stride, dim_match=(unit > 0),
+                               cardinality=cardinality,
+                               bottleneck_width=bottleneck_width,
+                               name="stage%d_unit%d" % (stage + 1, unit + 1))
+
+    net = sym.Pooling(net, kernel=(7, 7), pool_type="avg", global_pool=True)
+    net = sym.Flatten(net)
+    net = sym.FullyConnected(net, num_hidden=num_classes, name="fc")
+    return sym.SoftmaxOutput(net, name="softmax")

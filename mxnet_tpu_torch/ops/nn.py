@@ -1,6 +1,6 @@
 """Layer ops: ``FullyConnected``, ``Convolution``, ``Activation``,
-``Pooling``, ``BatchNorm``, ``Dropout`` and the ``SoftmaxOutput`` loss
-head (names, schemas and hints as in ``mxnet_tpu/ops/nn.py``).
+``Pooling``, ``BatchNorm``, ``Dropout``, ``LRN`` and the ``SoftmaxOutput``
+loss head (names, schemas and hints as in ``mxnet_tpu/ops/nn.py``).
 
 FullyConnected and Convolution are plain ``torch.matmul`` /
 ``F.conv2d``, differentiated by autograd: the JAX package leaves these
@@ -12,7 +12,12 @@ package's custom VJP: shifted single-pass statistics with a refine pass
 selected on the device, compute-dtype residuals and f32 statistics.
 Dropout draws its Bernoulli mask from the executor's generator
 (``OpContext.generator``) and is the identity outside training or at
-p = 0; its second output is the mask scaled by 1 / (1 - p).
+p = 0; its second output is the mask scaled by 1 / (1 - p).  LRN
+(AlexNet's local response normalisation across channels) is
+``x / (knorm + alpha / nsize * S) ** beta``, S the sum of x^2 over
+``nsize`` neighbouring channels zero-padded by ``nsize // 2`` a side,
+every step in the input's dtype as the JAX package computes it, with
+autograd's gradient.
 SoftmaxOutput's gradient is :class:`SoftmaxOutputFn`, the head's custom
 VJP: it ignores the upstream gradient and returns (softmax -
 onehot(label)) masked by ``ignore_label``, normalised and scaled by
@@ -196,6 +201,20 @@ class BatchNormTrainFn(torch.autograd.Function):
             dx = dx + (dvar * 2.0 / n).reshape(bshape) * xmu
         return (dx.to(x.dtype), dgamma.to(gamma.dtype),
                 dbeta.to(gamma.dtype), None, None, None)
+
+
+def _lrn(attrs, x):
+    n = attrs["nsize"]
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    knorm = attrs.get("knorm", 2.0)
+    half = n // 2
+    padded = F.pad(x * x, (0, 0, 0, 0, half, half))
+    # the window sum term by term, in the reference's order
+    win = padded[:, 0:x.shape[1]]
+    for i in range(1, n):
+        win = win + padded[:, i:i + x.shape[1]]
+    return x / torch.pow(knorm + (alpha / n) * win, beta)
 
 
 def _fc_shape(attrs, in_shapes, aux_shapes):
@@ -413,6 +432,14 @@ def register_all():
                            Param("mode", str, default="training")),
         num_inputs=1, num_outputs=2, num_visible_outputs=1,
         outputs=["output", "mask"], hint="dropout"))
+
+    register_op(OpDef(
+        "LRN", simple_compute(_lrn),
+        schema=ParamSchema(Param("nsize", int, required=True),
+                           Param("alpha", float, default=1e-4),
+                           Param("beta", float, default=0.75),
+                           Param("knorm", float, default=2.0)),
+        num_inputs=1, hint="lrn"))
 
     def _softmax_output(attrs, data, label):
         return SoftmaxOutputFn.apply(data, label, attrs)

@@ -1,6 +1,8 @@
 """Optimizers: :class:`Optimizer`, :class:`SGD`, :class:`ccSGD`,
-:class:`NAG`, :class:`Adam`, :class:`Updater`, :func:`get_updater` and
-:func:`create` (the counterparts of ``mxnet_tpu/optimizer.py``'s).
+:class:`NAG`, :class:`Adam`, :class:`AdaGrad`, :class:`RMSProp`,
+:class:`AdaDelta`, :class:`Ftrl`, :class:`SGLD`, :class:`DCASGD`,
+:class:`Test`, :class:`Updater`, :func:`get_updater` and :func:`create`
+(the counterparts of ``mxnet_tpu/optimizer.py``'s).
 
 Each ``update`` is the JAX package's eager form written as torch ops that
 update the weight and the state IN PLACE under ``torch.no_grad()`` (the
@@ -22,14 +24,20 @@ captured body.  Each optimizer has ONE arithmetic body, :meth:`apply`,
 which updates a weight and its slots in place: the eager ``update`` does
 the host bookkeeping (count, lr, wd) and calls it with floats, and
 :meth:`Optimizer.fused_kernel` hands it to the compiled step, which runs
-it per parameter where the slab plan declines (NAG, masters that are not
-f32 / bf16) with lr / wd as device scalars refreshed before each replay.
+it per parameter where the slab plan declines (NAG, AdaGrad, RMSProp,
+masters that are not f32 / bf16) with lr / wd as device scalars
+refreshed before each replay.  AdaDelta, Ftrl, SGLD, DCASGD and Test
+have no ``fused_kernel``, as in the JAX package: a Module keeps the
+eager update for them.  Each body repeats the JAX package's eager
+arithmetic in its order, the constants (``1 - rho``) rounded from
+Python floats as its eager update rounds them.
 ``Updater.get_states`` / ``set_states`` and ``pack_state`` speak the
 JAX package's fused ``.states`` format: a pickled dict of tuples of numpy
 arrays keyed by parameter name (or index).
 """
 from __future__ import annotations
 
+import io
 import logging
 import math
 import pickle
@@ -37,8 +45,9 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "SGD", "ccSGD", "NAG", "Adam", "Updater", "create",
-           "get_updater", "register"]
+__all__ = ["Optimizer", "SGD", "ccSGD", "NAG", "Adam", "AdaGrad", "RMSProp",
+           "AdaDelta", "Ftrl", "SGLD", "DCASGD", "Test", "Updater",
+           "create", "get_updater", "register"]
 
 
 class Optimizer:
@@ -286,6 +295,183 @@ class Adam(Optimizer):
         return lrs, wds, rescale, clip
 
 
+def _zeros(weight):
+    """An f32 state the shape of ``weight`` on its device (the JAX
+    package's ``zeros(weight.shape, weight.context)``)."""
+    return torch.zeros(weight.shape, dtype=torch.float32,
+                       device=weight.data.device)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: ``h += g * g; w -= lr * (g / sqrt(h + eps) + wd * w)``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def apply(self, w, g, slots, lr, wd):
+        (h,) = slots
+        g = self._prep_grad(g, w.dtype)
+        h.add_(g * g)
+        w.sub_(lr * (g / torch.sqrt(h + self.float_stable_eps) + wd * w))
+
+    def fused_extra(self):
+        return np.array([self.float_stable_eps], np.float32)
+
+    def fused_kernel(self):
+        return self.apply
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp; ``centered=True`` is Alex Graves' variant (slots n, g and
+    delta, momentum ``gamma2``); ``clip_weights`` clamps the new weight."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def pack_state(self, arrays):
+        # the state is a tuple even with one slot (uncentered)
+        return tuple(arrays)
+
+    def create_state(self, index, weight):
+        return tuple(_zeros(weight) for _ in range(3 if self.centered
+                                                   else 1))
+
+    def apply(self, w, g, slots, lr, wd):
+        rho = self.gamma1
+        g = self._prep_grad(g, w.dtype) + wd * w
+        if self.centered:
+            n, gbar, delta = slots
+            n.mul_(rho).add_((1 - rho) * torch.square(g))
+            gbar.mul_(rho).add_((1 - rho) * g)
+            delta.mul_(self.gamma2).sub_(lr * g / torch.sqrt(
+                n - torch.square(gbar) + self.epsilon))
+            w.add_(delta)
+        else:
+            (n,) = slots
+            n.mul_(rho).add_((1 - rho) * torch.square(g))
+            w.sub_(lr * g / torch.sqrt(n + self.epsilon))
+        if self.clip_weights:
+            w.clamp_(-self.clip_weights, self.clip_weights)
+
+    def fused_extra(self):
+        cw = self.clip_weights if self.clip_weights else -1.0
+        return np.array([self.gamma1, self.gamma2, self.epsilon, cw],
+                        np.float32)
+
+    def fused_kernel(self):
+        return self.apply
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (no learning rate; eager only)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def apply(self, w, g, slots, lr, wd):
+        rho, eps = self.rho, self.epsilon
+        acc_g, acc_delta = slots
+        g = self._prep_grad(g, w.dtype)
+        acc_g.mul_(rho).add_((1 - rho) * g * g)
+        delta = (torch.sqrt(acc_delta + eps) / torch.sqrt(acc_g + eps)) * g
+        acc_delta.mul_(rho).add_((1 - rho) * delta * delta)
+        w.add_(-delta - wd * w)
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow the regularised leader (FTRL-proximal; eager only)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def apply(self, w, g, slots, lr, wd):
+        dn, n = slots
+        g = self._prep_grad(g, w.dtype)
+        dn.add_(g - (torch.sqrt(n + g * g) - torch.sqrt(n)) * w / lr)
+        n.add_(g * g)
+        w.copy_((torch.sign(dn) * self.lamda1 - dn)
+                / ((self.beta + torch.sqrt(n)) / lr + wd)
+                * (torch.abs(dn) > self.lamda1))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half an SGD step plus
+    N(0, lr) noise, drawn from torch's default generator of the weight's
+    device (seed it with ``torch.manual_seed``; eager only)."""
+
+    def apply(self, w, g, slots, lr, wd):
+        g = self._prep_grad(g, w.dtype)
+        noise = torch.randn(w.shape, dtype=torch.float32,
+                            device=w.device) * math.sqrt(lr)
+        w.add_(-lr / 2 * (g + wd * w) + noise)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD; the state is (momentum or
+    None, the weight before the last update) (eager only)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        prev = weight.data.clone()
+        if self.momentum == 0.0:
+            return (None, prev)
+        return (_zeros(weight), prev)
+
+    def apply(self, w, g, slots, lr, wd):
+        mom, prev = slots
+        g = self._prep_grad(g, w.dtype)
+        delta = -lr * (g + wd * w + self.lamda * g * g * (w - prev))
+        if mom is not None:
+            mom.mul_(self.momentum).add_(delta)
+            delta = mom
+        prev.copy_(w)
+        w.add_(delta)
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: ``w += rescale_grad * g`` and the
+    state a copy of the new weight (no update count)."""
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            weight.data.add_(grad.data * self.rescale_grad)
+            state.copy_(weight.data)
+
+
 create = Optimizer.create_optimizer
 
 
@@ -312,8 +498,9 @@ class Updater:
 
     def get_states(self):
         """The states as the fused ``.states`` payload: a pickled dict of
-        tuples of numpy arrays (bf16 as f32), keyed by parameter name
-        where the optimizer knows it, else by index."""
+        tuples of numpy arrays (bf16 as f32; DCASGD's absent momentum
+        None), keyed by parameter name where the optimizer knows it, else
+        by index."""
         names = self.optimizer.idx2name
         host = {}
         for idx, state in self.states.items():
@@ -323,9 +510,10 @@ class Updater:
 
     def set_states(self, payload):
         """Load a ``.states`` payload (name- or index-keyed tuples of
-        arrays), copying into existing states in place: a state may be a
-        view of the train step's slot slab."""
-        loaded = pickle.loads(payload)
+        numpy arrays, see :func:`load_states`), copying into existing
+        states in place: a state may be a view of the train step's slot
+        slab."""
+        loaded = load_states(payload)
         name2idx = {n: i for i, n in self.optimizer.idx2name.items()}
         for key, state in loaded.items():
             idx = name2idx.get(key, key) if isinstance(key, str) else key
@@ -334,16 +522,18 @@ class Updater:
                     "optimizer state key %r has no index mapping; its "
                     "saved state will not be applied", key)
                 continue
-            arrays = list(_state_tensors(state))
+            arrays = [None if a is None else np.asarray(a)
+                      for a in _state_tensors(state)]
             current = self.states.get(idx)
             if current is None:
                 self.states[idx] = self.optimizer.pack_state(
-                    [torch.as_tensor(np.asarray(a)).clone()
+                    [None if a is None else torch.from_numpy(a.copy())
                      for a in arrays])
                 continue
             for dst, src in zip(_state_tensors(current), arrays):
-                with torch.no_grad():
-                    dst.copy_(torch.as_tensor(np.asarray(src)))
+                if dst is not None and src is not None:
+                    with torch.no_grad():
+                        dst.copy_(torch.from_numpy(src))
 
 
 def _state_tensors(state):
@@ -355,8 +545,32 @@ def _state_tensors(state):
     return (state,)
 
 
+class _StatesUnpickler(pickle.Unpickler):
+    """Unpickles numpy arrays in builtin containers and refuses every
+    other class, so that loading a payload never imports a package."""
+
+    _BUILTINS = frozenset(("set", "frozenset", "complex", "bytearray",
+                           "slice"))
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("numpy", "_codecs") or (
+                module == "builtins" and name in self._BUILTINS):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            "a .states payload holds numpy arrays only, not %s.%s: "
+            "convert another package's arrays to numpy before saving"
+            % (module, name))
+
+
+def load_states(payload):
+    """A ``.states`` payload: a pickled dict of tuples of numpy arrays
+    (or None), keyed by parameter name or index.  Any other class in the
+    pickle raises ``pickle.UnpicklingError``."""
+    return _StatesUnpickler(io.BytesIO(payload)).load()
+
+
 def _to_numpy(t):
-    if isinstance(t, np.ndarray):
+    if t is None or isinstance(t, np.ndarray):
         return t
     t = t.detach()
     if t.dtype == torch.bfloat16:

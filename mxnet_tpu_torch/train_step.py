@@ -69,6 +69,7 @@ from .executor import forward_backward, run_graph
 from .metric import DeviceMetricAccumulator
 from .ndarray import torch_dtype
 from .ops import update_kernel
+from .optimizer import load_states
 from .programs import GraphPool, GraphProgram, ProgramSpec
 from .programs import registry as _registry
 from .registry import OpContext
@@ -487,7 +488,7 @@ class CompiledTrainStep(_StepBase):
     def set_states(self, payload):
         """Load slots from a ``.states`` payload: the fused format (keyed
         by name, numpy tuples) or an eager updater's (keyed by index)."""
-        self.import_updater_states(pickle.loads(payload), self._param_names)
+        self.import_updater_states(load_states(payload), self._param_names)
 
     def import_updater_states(self, states, param_names):
         """Copy an updater's states (index- or name-keyed; None, one

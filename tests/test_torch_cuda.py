@@ -1642,3 +1642,191 @@ def test_out_of_range_prompt_serves_without_a_device_assert(card):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(out[rids[0]], out[rids[1]])
     assert len(out[rids[0]]) == 8
+
+
+# ---------------------------------------------------------------------------
+# the image-classification zoo on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("net,batch,image,cdtype", [
+    ("inception_v3", 32, (3, 299, 299), torch.bfloat16),
+    ("alexnet", 256, (3, 224, 224), None)])
+def test_update_kernel_over_the_zoo_slabs(card, net, batch, image, cdtype):
+    """B1's SGD-momentum over Inception-v3's slab (284 tensors, most of
+    them BatchNorm vectors, f32 masters with the bf16 copy) and
+    AlexNet's (16 tensors, 50,844,008 values, f32): bit for bit against
+    its plain version, padding lanes still 0."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    sym = getattr(mt.models, "get_" + net)(num_classes=1000)
+    shapes, _, _ = sym.infer_shape(data=(batch,) + image,
+                                   softmax_label=(batch,))
+    metas = {n: torch.empty(s, device="meta")
+             for n, s in zip(sym.list_arguments(), shapes)
+             if n not in ("data", "softmax_label")}
+    plan = uk.UpdatePlan("sgd", 1, uk._segments_for(metas), cdtype)
+    (bk,) = plan.buckets
+    rows = plan.rows(bk)
+    live = torch.zeros(rows * uk.LANES, dtype=torch.bool, device=card)
+    for s in plan.buckets[bk]:
+        live[s.row0 * uk.LANES:s.row0 * uk.LANES + s.size] = True
+    live = live.view(rows, uk.LANES)
+    g = torch.Generator(device=card).manual_seed(5)
+
+    def slab(scale):
+        t = torch.randn((rows, uk.LANES), generator=g, device=card) * scale
+        return torch.where(live, t, 0.0)
+
+    w, grad, mom = slab(1.0), slab(1.0), slab(0.01)
+    wc = w.to(cdtype) if cdtype is not None else None
+    segs = plan.buckets[bk]
+    lrb, wdb = plan.lr_wd_blocks(
+        {s.name: 0.1 * (1 + i % 4) for i, s in enumerate(segs)},
+        {s.name: 1e-4 * (i % 2) for i, s in enumerate(segs)})
+    lrb = torch.from_numpy(lrb[bk]).to(card)
+    wdb = torch.from_numpy(wdb[bk]).to(card)
+    want = [w.clone(), mom.clone()] + ([wc.clone()] if wc is not None
+                                       else [])
+    hyp = [1.0 / batch, -1.0, 0.9]
+    assert uk.multi_tensor_update("sgd", 1, w, grad, (mom,), wc, lrb, wdb,
+                                  hyp) == "kernel"
+    uk.update_plain("sgd", 1, want[0], grad, (want[1],),
+                    want[2] if wc is not None else None, lrb, wdb, hyp)
+    torch.cuda.synchronize()
+    got = [w, mom] + ([wc] if wc is not None else [])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not any(bool(t[~live].any()) for t in got)
+    assert len(segs) == len(metas)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+def test_lrn_on_the_card_matches_the_cpu(card, dtype, tol):
+    """LRN's output and input gradient on the card against the CPU's, in
+    the input's dtype: f32 within 1e-5 of the largest magnitude, bf16
+    within one bf16 rounding (2^-7)."""
+    from mxnet_tpu_torch.registry import OpContext, get_op
+
+    op = get_op("LRN")
+    attrs = op.parse_attrs({"nsize": "5", "alpha": "0.0001",
+                            "beta": "0.75", "knorm": "2"})
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = (4 * torch.randn(3, 17, 9, 11, generator=g)).abs().to(dtype)
+    dy = torch.randn(3, 17, 9, 11, generator=g).to(dtype)
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        leaf = x.to(dev).requires_grad_(True)
+        (y,), _ = op.fcompute(attrs, [leaf], [], OpContext())
+        (dx,) = torch.autograd.grad(y, leaf, dy.to(dev))
+        assert y.dtype == dx.dtype == dtype
+        runs.append((y.detach().float().cpu(), dx.float().cpu()))
+    for a, b in zip(*runs):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def _zoo_small(card, name, image, seed=0):
+    """A small zoo Module on the card (batch 4, 10 classes, the slab plan
+    armed), its seeded parameters and one resident batch."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+
+    with mt.NameManager():
+        sym = getattr(mt.models, "get_" + name)(num_classes=10)
+    shape = (4,) + image
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=shape,
+                                                softmax_label=(4,))
+    rng = np.random.RandomState(seed)
+    args = {}
+    for n, s in zip(sym.list_arguments(), arg_shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        args[n] = (rng.randn(*s) * np.sqrt(2.0 / np.prod(s[1:]))
+                   if n.endswith("_weight") else
+                   np.ones(s) if n.endswith("_gamma")
+                   else np.zeros(s)).astype(np.float32)
+    aux = {n: (np.ones(s) if n.endswith("_var") else np.zeros(s))
+           .astype(np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    batch = mt.io.DataBatch(
+        [mt.nd.array(rng.uniform(-1, 1, shape).astype(np.float32))],
+        [mt.nd.array(rng.randint(0, 10, 4).astype(np.float32))])
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", (4,))])
+    mod.init_params(arg_params=args, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    assert mod._train_step.plan is not None
+    mod._exec_group.exec_.generator = \
+        torch.Generator(device=card).manual_seed(9)
+    return mod, batch
+
+
+@pytest.mark.parametrize("name,image", [("inception_bn", (3, 64, 64)),
+                                        ("alexnet", (3, 67, 67))])
+def test_captured_zoo_step_matches_eager_bitwise(card, full_f32, name,
+                                                 image):
+    """Inception-BN and AlexNet (LRN, two Dropouts from the executor's
+    seeded generator) at a small size: 3 captured steps against the same
+    steps under programs.eager() with cuDNN's deterministic algorithms:
+    masters, momentum and moving statistics bit for bit; one capture,
+    replays after, B1 once a step."""
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for eager in (False, True):
+            mod, batch = _zoo_small(card, name, image)
+            stats = dict(programs.GRAPH_STATS)
+            launches = uk.LAUNCHES["multi_tensor_update"]
+            with programs.eager() if eager else contextlib.nullcontext():
+                for _ in range(3):
+                    mod.forward_backward(batch)
+            torch.cuda.synchronize()
+            exe = mod._exec_group.exec_
+            state = {n: a.data.clone() for n, a in exe.arg_dict.items()
+                     if n in mod._exec_group.param_names}
+            state.update({"aux:" + n: a.data.clone()
+                          for n, a in exe.aux_dict.items()})
+            state.update({"mom:%d" % i: s.clone()
+                          for i, s in mod._updater.states.items()})
+            runs.append((state, {k: programs.GRAPH_STATS[k] - stats[k]
+                                 for k in ("captures", "replays")},
+                         uk.LAUNCHES["multi_tensor_update"] - launches))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (c, st_c, l_c), (e, st_e, l_e) = runs
+    assert all(torch.equal(c[k], e[k]) for k in e), \
+        [k for k in e if not torch.equal(c[k], e[k])][:5]
+    assert st_c == {"captures": 1, "replays": 2}
+    assert st_e == {"captures": 0, "replays": 0}
+    assert l_c == l_e == 3
+
+
+def test_mnist_drive_reaches_the_reference_accuracy(card):
+    """The canonical drive on the card: MNISTIter's synthetic set, the
+    MLP, one epoch of Module.fit with SGD-momentum through B1 (one launch
+    a step), then score: accuracy at least 0.99 (the JAX package's drive
+    reaches 1.0 on the CPU)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    train = mt.io.MNISTIter(batch_size=100, seed=0, flat=True, silent=True)
+    val = mt.io.MNISTIter(batch_size=100, seed=1, flat=True, silent=True)
+    torch.manual_seed(0)
+    mod = mt.mod.Module(mt.models.get_mlp(num_classes=10),
+                        context=mt.gpu(0))
+    before = uk.LAUNCHES["multi_tensor_update"]
+    mod.fit(train, eval_data=val, initializer=mt.initializer.Xavier(),
+            optimizer="sgd", optimizer_params={
+                "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+            num_epoch=1)
+    torch.cuda.synchronize()
+    assert uk.LAUNCHES["multi_tensor_update"] - before == 60
+    assert uk.UPDATE_PATH["last"] == "kernel"
+    assert dict(mod.score(val, "acc"))["accuracy"] >= 0.99
