@@ -89,6 +89,18 @@ Phases (any failure ends the run with a non-zero exit code):
    (kernels D, E, F); a serve from the ``.params`` file (path, then
    bytes) over a prompt holding ids ``vocab``, ``vocab + 2`` and
    ``-vocab - 1``, equal to the prompt with the clamped ids;
+6c. train imperative — the training configuration written as ``nd``
+   calls (``models/attention_lm.py``'s ``imperative_lm``, the graph of
+   its ``get_symbol``) on a thread of its own under
+   ``autograd.record()``, ``autograd.backward`` into marked gradient
+   buffers and ``nd.sgd_update(w, g, out=w)`` per parameter: the first
+   step's loss and gradients and the parameters after 3 steps against a
+   Module's eager SGD steps from the same parameters and batch, 20 / 20
+   / 4 / 4 / 4 launches of A / F / C / D / E a step, 3 timed steps, the
+   host time spent in ``imperative_invoke``, a profiled step; then ops
+   — every op case of the slice (``tests/test_torch_op_cases.py``: the
+   elementwise, tensor and layer ops, forward and gradient) on the card
+   against the CPU, and the samplers' moments and repeatability;
 7. train ResNet-50 — ``bench.py``'s configuration at full depth and
    width (batch 256, bf16 compute, f32 masters, SGD lr 0.1, momentum
    0.9, wd 1e-4, seeded Xavier(gaussian, in, 2) weights, one resident
@@ -159,6 +171,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -402,6 +415,30 @@ TOL_ADAM_PER_PARAM = 1e-4
 # within one f32 ulp (its square root and quotient are correctly rounded
 # on both sides, so 0 is expected and the measured distance is printed)
 B1_ADAM_ULPS = 1
+# the imperative LM (phase 6c): the training configuration written as
+# nd calls under autograd.record() with an sgd_update per parameter (the
+# Module's rescale_grad, 1 / batch), IMP_GATE_STEPS steps held against a
+# Module's eager SGD steps (kernel B1, bit for bit with the per-parameter
+# update), then IMP_TIMED_STEPS timed steps.  Gates: the first step's
+# loss within TOL_IMP_LOSS relative of the Module's (the same kernels on
+# the same inputs; only F's atomics differ, in the LayerNorm gradients),
+# every first-step gradient within TOL_TRAIN_GRAD norm-wise, every
+# parameter after that step within TOL_IMP_PARAMS of the Module's,
+# ||dw|| / ||w||.  Past the first step the runs part: at this learning
+# rate (the edge of stability, above) F's atomics flip ReLU masks and
+# the difference grows with every step, so two Module runs from the same
+# start differ too.  After IMP_GATE_STEPS steps the imperative run is
+# held to CAPTURE_SPREAD times two Module runs' own spread, per tier, as
+# the captured step is held to eager ones (phase 6)
+IMP_GATE_STEPS, IMP_TIMED_STEPS = 3, 3
+TOL_IMP_LOSS, TOL_IMP_PARAMS = 1e-6, 1e-5
+# phase 12: every op case of the slice on the card against the CPU, f32
+# with TF32 off: |card - cpu| <= TOL_OPS_CARD x max(1, max|cpu|) (the
+# same formulas in CUDA's and the host's libraries, a few ulp apart;
+# cuDNN's and the host's convolutions sum in another order); the
+# samplers' mean and variance over OPS_DRAWS draws within 6 standard
+# errors of the difference
+TOL_OPS_CARD, OPS_DRAWS = 1e-5, 100000
 # greedy tokens of the kernel run and the plain run must all agree: the
 # weights and prompts are seeded, so a near-tie that a 1e-6 gap could flip
 # would show in every run, not now and then
@@ -2064,6 +2101,350 @@ def phase_train(torch, dev):
     log("train profile: " + json.dumps(profile))
     log("train profile eager: " + json.dumps(profile_eager))
     return train, launches
+
+
+def _op_cases():
+    """``tests/test_torch_op_cases.py`` loaded by its path (nothing else
+    of ``tests/`` becomes importable): the slice's op cases and samplers
+    and their runners (jax-free)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "test_torch_op_cases.py")
+    spec = importlib.util.spec_from_file_location("_smoke_op_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    return cases
+
+
+def _on_own_thread(fn, *args):
+    """``fn(*args)`` on a thread of its own.  autograd's marked variables
+    are thread-local, so the marks ``fn`` makes (and the parameters and
+    gradient buffers they hold) end with its thread."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:  # re-raised on the main thread
+            box["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def phase_train_imperative(torch, dev):
+    """The full-width training configuration through the imperative
+    front end: the LM as nd calls under autograd.record(), autograd's
+    backward into marked gradient buffers, then nd.sgd_update(w, g,
+    out=w) per parameter; held against a Module's eager SGD steps from
+    the same parameters and batch."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.models.attention_lm import imperative_lm
+    from mxnet_tpu_torch.ops import attention as attn
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.ops import fused_lm
+
+    b, t = TRAIN_BATCH, SEQ
+    sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=t,
+                                  num_layers=TRAIN_LAYERS, embed=EMBED,
+                                  heads=TRAIN_HEADS, ffn_hidden=FFN)
+    params = _train_params(sym)
+    names = sorted(params)
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, VOCAB, size=(b, t)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.zeros((b, 1), np.float32)], axis=1)
+    labels = torch.from_numpy(y.reshape(-1)).long().to(dev)[:, None]
+
+    def loss_of(probs):
+        p = probs.detach().gather(1, labels)
+        return float(-torch.log(torch.clamp_min(p, 1e-30)).mean())
+
+    start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+
+    def module_run():
+        """IMP_GATE_STEPS eager SGD steps of a Module (kernel B1): the
+        first step's gradients and loss, the parameters after the first
+        and after the last step."""
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.bind(data_shapes=[DataDesc("data", (b, t), layout="NT")],
+                 label_shapes=[DataDesc("softmax_label", (b, t),
+                                        layout="NT")])
+        mod.init_params(arg_params=params, aux_params={})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": TRAIN_LR})
+        batch = DataBatch([mt.nd.array(x)], [mt.nd.array(y)])
+        snaps = []
+        with programs.eager():
+            for i in range(IMP_GATE_STEPS):
+                mod.forward_backward(batch)
+                if i == 0:
+                    group = mod._exec_group
+                    grads = {n: a.data.clone() for n, a in zip(
+                        group.param_names, group.grad_arrays)}
+                    loss = loss_of(mod.get_outputs()[0].data)
+                mod.update()
+                if i in (0, IMP_GATE_STEPS - 1):
+                    snaps.append(_snapshot(mod))
+        del mod, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        return grads, loss, snaps
+
+    m_grads, m_loss, (m_one, m_last) = module_run()
+    _, _, (_, m2_last) = module_run()
+
+    # the imperative steps
+    counters = ((fk.LAUNCHES, "fused_fwd"), (fk.LAUNCHES, "fused_bwd"),
+                (fl.LAUNCHES, "flash_fwd"), (fl.LAUNCHES, "flash_bwd_dq"),
+                (fl.LAUNCHES, "flash_bwd_dkv"))
+    ctx = mt.current_context()
+    if ctx != mt.gpu(0):
+        raise AssertionError("the default context on the card is %s, not "
+                             "gpu(0)" % ctx)
+    p = {k: mt.nd.array(v) for k, v in params.items()}
+    g = {k: mt.nd.zeros(v.shape) for k, v in params.items()}
+    data, label = mt.nd.array(x), mt.nd.array(y)
+    if not (data.data.is_cuda and p[names[0]].data.is_cuda):
+        raise AssertionError("nd.array without a context is not on the "
+                             "card")
+    mt.autograd.mark_variables([p[k] for k in names], [g[k] for k in names])
+
+    def step():
+        with mt.autograd.record():
+            out = imperative_lm(mt.nd, p, data, label, TRAIN_LAYERS, EMBED,
+                                TRAIN_HEADS, FFN, VOCAB)
+        mt.autograd.backward([out])
+        for k in names:
+            mt.nd.sgd_update(p[k], g[k], lr=TRAIN_LR,
+                             rescale_grad=1.0 / b, out=p[k])
+        return out
+
+    def snapshot():
+        return {k: p[k].data.detach().clone() for k in names}
+
+    for d, name in counters:
+        d[name] = 0
+    fused_lm.FUSED_PATH["last"] = attn.PATH_TAKEN["last"] = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step()
+    i_loss = loss_of(out.data)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    i_grads = {k: g[k].data.clone() for k in names}
+    i_one = snapshot()
+    for _ in range(IMP_GATE_STEPS - 1):
+        step()
+    torch.cuda.synchronize()
+    i_last = snapshot()
+    paths = {"fused": fused_lm.FUSED_PATH["last"],
+             "attention": attn.PATH_TAKEN["last"]}
+
+    # gates
+    def on_q(k, table):
+        # the analytically-zero *_k_bias gradient (its parameter holds
+        # rounding noise) on its layer's *_q_bias norm
+        return table[k[:-len("_k_bias")] + "_q_bias"] \
+            if k.endswith("_k_bias") else table[k]
+
+    def rel(got, want):
+        errs = {k: float(torch.linalg.vector_norm((got[k] - w).double()))
+                / max(float(torch.linalg.vector_norm(
+                    on_q(k, want).double())), 1e-30)
+                for k, w in want.items()}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst, sum(torch.equal(got[k], w)
+                                       for k, w in want.items())
+
+    grad_err, grad_worst, grads_bitwise = rel(i_grads, m_grads)
+    one_err, one_worst, one_bitwise = rel(i_one, m_one)
+    last_err, last_worst, _ = rel(i_last, m_last)
+    vs_module = _run_diff(torch, i_last, m_last, start, _DIRECT)
+    spread = _run_diff(torch, m2_last, m_last, start, _DIRECT)
+    gates = {"loss": i_loss, "module_loss": m_loss,
+             "loss_rel_err": abs(i_loss - m_loss) / abs(m_loss),
+             "loss_tol": TOL_IMP_LOSS,
+             "grad_max_rel_err": grad_err, "grad_worst": grad_worst,
+             "grad_tol": TOL_TRAIN_GRAD, "grads_bitwise": grads_bitwise,
+             "params_one_step_max_rel_err": one_err,
+             "params_one_step_worst": one_worst,
+             "params_one_step_bitwise": one_bitwise,
+             "param_tol": TOL_IMP_PARAMS,
+             "steps": IMP_GATE_STEPS,
+             "params_last_max_rel_err": last_err,
+             "params_last_worst": last_worst,
+             "imperative_vs_module": vs_module,
+             "module_vs_module": spread,
+             "max_over_spread": CAPTURE_SPREAD, "tensors": len(m_last)}
+    log("train imperative vs module: " + json.dumps(gates))
+    del m_grads, i_grads, m_one, m_last, m2_last, i_one, i_last, start
+    within_spread = all(
+        vs_module["tiers"][tr]["max"]
+        <= CAPTURE_SPREAD * max(spread["tiers"][tr]["max"], 1e-7)
+        for tr in ("before_relu", "behind_relu"))
+    if not (gates["loss_rel_err"] <= TOL_IMP_LOSS
+            and grad_err <= TOL_TRAIN_GRAD and one_err <= TOL_IMP_PARAMS
+            and within_spread):
+        raise AssertionError("the imperative LM against the Module: %s"
+                             % gates)
+
+    # timed steps
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(IMP_TIMED_STEPS):
+        losses.append(step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [loss_of(o.data) for o in losses]
+    steps = IMP_GATE_STEPS + IMP_TIMED_STEPS
+    launches = {name: d[name] for d, name in counters}
+    per_step = {k: v / steps for k, v in launches.items()}
+    segments = 5 * TRAIN_LAYERS
+    want = {"fused_fwd": segments, "fused_bwd": segments,
+            "flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+            "flash_bwd_dkv": TRAIN_LAYERS}
+    log("train imperative launches: %s per step %s paths: %s"
+        % (launches, per_step, paths))
+    if per_step != want or paths != {"fused": "kernel",
+                                     "attention": "flash"}:
+        raise AssertionError("the imperative step did not run every kernel "
+                             "the expected number of times: %s (want %s "
+                             "per step) %s" % (per_step, want, paths))
+    if not (all(np.isfinite(losses)) and losses[-1] < i_loss):
+        raise AssertionError("the imperative loss did not fall: %s, %s"
+                             % (i_loss, losses))
+
+    # host time in the dispatch path, over one more step
+    real = mt.ndarray.imperative_invoke
+    spent = [0.0, 0]
+
+    def timed_invoke(*args, **kwargs):
+        t1 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            spent[0] += time.perf_counter() - t1
+            spent[1] += 1
+
+    mt.ndarray.imperative_invoke = timed_invoke
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host_step_s = time.perf_counter() - t1
+    finally:
+        mt.ndarray.imperative_invoke = real
+
+    def one_step():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    profile = _profile(torch, one_step)
+    busy = profile["device_busy_s"]
+    step_s = wall / IMP_TIMED_STEPS
+    reading = {"config": {"vocab": VOCAB, "t": t, "batch": b,
+                          "embed": EMBED, "heads": TRAIN_HEADS, "ffn": FFN,
+                          "layers": TRAIN_LAYERS, "dtype": "float32",
+                          "update": "nd.sgd_update per parameter",
+                          "lr": TRAIN_LR, "params": int(sum(
+                              v.size for v in params.values()))},
+               "smoke_reading": True, "steps": IMP_TIMED_STEPS,
+               "step_s": step_s, "warmup_step_s": warm_s,
+               "tokens_per_s": b * t * IMP_TIMED_STEPS / wall,
+               "losses": [i_loss] + losses,
+               "idle_share": 1.0 - busy / step_s
+               if isinstance(busy, float) else busy,
+               "profiled_idle_share": profile.get("device_idle_share"),
+               "peak_memory_gb": peak_gb,
+               "invoke_host_ms_per_step": spent[0] * 1e3,
+               "invoke_calls_per_step": spent[1],
+               "instrumented_step_s": host_step_s,
+               "launches": launches, "launches_per_step": per_step,
+               "gates": gates}
+    log("train imperative: " + json.dumps(reading))
+    log("train imperative profile: " + json.dumps(profile))
+    del p, g, out, data, label
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reading, launches
+
+
+def phase_ops(torch, dev):
+    """Every op case of the slice (tests/test_torch_op_cases.py: the
+    elementwise, tensor and layer ops, forward and gradient) on the card
+    against the same op on the CPU, and the samplers by their moments;
+    every op of the slice's 163 names runs."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import registry as reg
+
+    cases = _op_cases()
+    ran = {id(reg.get_op(n)) for n in cases.case_ops()}
+    missing = [n for n in cases.NEW_NAMES if id(reg.get_op(n)) not in ran]
+    if missing:
+        raise AssertionError("ops of the slice no case runs: %s" % missing)
+    worst, bad, count = (0.0, None), [], 0
+    t0 = time.perf_counter()
+    for table in (cases.ELEMWISE, cases.TENSOR, cases.NN):
+        for name, (op, arrays, attrs, grad) in sorted(table.items()):
+            (outs, grads), (c_outs, c_grads) = (
+                cases.run_port(op, arrays, attrs, grad, ctx)
+                for ctx in (mt.gpu(0), mt.cpu()))
+            count += 1
+            for got, want in zip(outs + grads, c_outs + c_grads):
+                if not want.size:
+                    continue
+                mag = max(1.0, float(np.nanmax(np.abs(want))))
+                err = float(np.nanmax(np.abs(got.astype(np.float64)
+                                             - want))) / mag
+                if got.dtype != want.dtype or not err <= TOL_OPS_CARD \
+                        or not np.array_equal(np.isnan(got),
+                                              np.isnan(want)):
+                    bad.append({"case": name, "err": err,
+                                "dtype": str(got.dtype)})
+                if err > worst[0]:
+                    worst = (err, name)
+    samplers = {}
+    for op, (attrs, params) in sorted(cases.SAMPLERS.items()):
+        got = cases.draw_port(op, attrs, params, OPS_DRAWS, 3, mt.gpu(0))
+        again = cases.draw_port(op, attrs, params, OPS_DRAWS, 3, mt.gpu(0))
+        want = cases.draw_port(op, attrs, params, OPS_DRAWS, 3, mt.cpu())
+        z = max(max(abs(gr.mean() - w.mean())
+                    / np.sqrt((gr.var() + w.var()) / OPS_DRAWS),
+                    abs(gr.var() - w.var()) / np.sqrt(
+                        2 * max(np.mean((w - w.mean()) ** 4) - w.var() ** 2,
+                                1e-12) / OPS_DRAWS))
+                for gr, w in zip(got, want))
+        samplers[op] = {"repeats": bool(np.array_equal(got, again)),
+                        "max_z": float(z)}
+        if not (samplers[op]["repeats"] and z <= 6.0):
+            bad.append({"sampler": op, **samplers[op]})
+    line = {"cases": count, "names": len(cases.NEW_NAMES),
+            "ops": len({id(reg.get_op(n)) for n in cases.NEW_NAMES}),
+            "max_rel_err": worst[0], "worst_case": worst[1],
+            "tol": TOL_OPS_CARD, "samplers": len(samplers),
+            "sampler_max_z": max(v["max_z"] for v in samplers.values()),
+            "draws": OPS_DRAWS, "seconds": time.perf_counter() - t0,
+            "failed": bad}
+    log("ops: " + json.dumps(line))
+    if bad:
+        raise AssertionError("ops on the card against the CPU: %s" % bad)
+    return line
 
 
 def _logp_gap(torch, got, want):
@@ -3751,6 +4132,11 @@ def main():
     train, train_launches = phase_train(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # on a thread of its own: the phase's autograd marks end with it
+    _, imp_launches = _on_own_thread(phase_train_imperative, torch, dev)
+    phase_ops(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     _, predict_launches, out_grads_launches = phase_predict(torch, dev)
     phase_routing(torch, dev)
     torch.cuda.empty_cache()
@@ -3795,7 +4181,8 @@ def main():
     f_main = next(c for c in f_cases if c["dtype"] == "float32"
                   and c["n"] == FFN)
     a_launch = launches["fused_fwd"] + spec_launches["fused_fwd"] \
-        + train_launches["fused_fwd"] + predict_launches["fused_fwd"]
+        + train_launches["fused_fwd"] + predict_launches["fused_fwd"] \
+        + imp_launches["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -3806,7 +4193,8 @@ def main():
              launches_by_path={"serve": launches["fused_fwd"],
                                "serve_spec": spec_launches["fused_fwd"],
                                "train": train_launches["fused_fwd"],
-                               "predict": predict_launches["fused_fwd"]},
+                               "predict": predict_launches["fused_fwd"],
+                               "imperative": imp_launches["fused_fwd"]},
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
         dict(_entry("paged_flash_decode",
@@ -3842,7 +4230,8 @@ def main():
             ("D", "flash_bwd_dq", "mxnet_tpu/ops/pallas_attention.py:300"),
             ("E", "flash_bwd_dkv",
              "mxnet_tpu/ops/pallas_attention.py:336 (and :381, G > 1)")):
-        by_path = {"train": train_launches[counter]}
+        by_path = {"train": train_launches[counter],
+                   "imperative": imp_launches[counter]}
         if counter == "flash_fwd":
             by_path["predict"] = predict_launches[counter]
         else:
@@ -3860,12 +4249,13 @@ def main():
     kernels.append(dict(
         _entry("fused_ln_linear_bwd", "mxnet_tpu_torch/csrc/fused_bwd.cu",
                "mxnet_tpu/ops/pallas_fused.py:214",
-               train_launches["fused_bwd"] + out_grads_launches["fused_bwd"],
-               f_main),
+               train_launches["fused_bwd"] + out_grads_launches["fused_bwd"]
+               + imp_launches["fused_bwd"], f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
         launches_by_path={"train": train_launches["fused_bwd"],
-                          "out_grads": out_grads_launches["fused_bwd"]},
+                          "out_grads": out_grads_launches["fused_bwd"],
+                          "imperative": imp_launches["fused_bwd"]},
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
     # with the bf16 compute copy, no clip

@@ -28,7 +28,13 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
   ``get_resnext``, with ``LRN``), the optimizers, initializers, metrics
   and iterators (``MNISTIter``, ``CSVIter``, ``ResizeIter``,
   ``PrefetchingIter``) the reference's image-classification scripts
-  reach, and the optimizer update ops.
+  reach, and the optimizer update ops;
+* the imperative front end: ``nd`` arrays with their operators and an
+  op function for every registered op (the reference's elemwise,
+  tensor, nn and sample ops), :mod:`~mxnet_tpu_torch.autograd` on
+  torch's autograd, :mod:`~mxnet_tpu_torch.random`,
+  :mod:`~mxnet_tpu_torch.test_utils`, ``current_context`` and the
+  ``with ctx:`` scope (the default context is the card).
 
 The hand-written Hopper kernels (``csrc/``): the fused LN->linear
 forward and backward (:mod:`~mxnet_tpu_torch.ops.fused_kernel`), flash
@@ -41,26 +47,28 @@ on the card unless given the CPU (``device="cpu"``, ``context=cpu()``).
 from . import base, config, context, ops, registry
 from . import symbol
 from .base import AttrScope, MXNetError, NameManager
-from .context import Context, cpu, gpu
+from .context import Context, cpu, current_context, gpu
 
 symbol._init_symbol_module()
 sym = symbol
 
 from . import decode, models, programs, serve, weights  # noqa: E402
-from . import (callback, executor, initializer, io,  # noqa: E402
-               lr_scheduler, metric, model, module, monitor, ndarray,
-               optimizer, predictor, rnn, train_step)
+from . import (autograd, callback, executor, initializer,  # noqa: E402
+               io, lr_scheduler, metric, model, module, monitor, ndarray,
+               optimizer, predictor, random, rnn, test_utils, train_step)
 from .decode import DecodePredictor, DecodeServer  # noqa: E402
 from .model import FeedForward  # noqa: E402
 from .predictor import Predictor  # noqa: E402
 
+ndarray._init_ndarray_module()
 mod = module
 nd = ndarray
 
 __all__ = ["AttrScope", "Context", "DecodePredictor", "DecodeServer",
-           "FeedForward", "MXNetError", "NameManager", "Predictor", "base",
-           "callback", "config", "context", "cpu", "decode", "executor",
-           "gpu", "initializer", "io", "lr_scheduler", "metric", "mod",
-           "model", "models", "module", "monitor", "nd", "ndarray", "ops",
-           "optimizer", "predictor", "programs", "registry", "rnn",
-           "serve", "sym", "symbol", "train_step", "weights"]
+           "FeedForward", "MXNetError", "NameManager", "Predictor",
+           "autograd", "base", "callback", "config", "context", "cpu",
+           "current_context", "decode", "executor", "gpu", "initializer",
+           "io", "lr_scheduler", "metric", "mod", "model", "models",
+           "module", "monitor", "nd", "ndarray", "ops", "optimizer",
+           "predictor", "programs", "random", "registry", "rnn", "serve",
+           "sym", "symbol", "test_utils", "train_step", "weights"]

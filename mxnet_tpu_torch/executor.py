@@ -6,10 +6,11 @@ The graph runs node by node, as the decode walk does: each op's
 ``fcompute`` on torch tensors, the hand-written kernels inside the ops.
 A training forward runs under autograd with every parameter whose
 ``grad_req`` is not "null" as a leaf; :meth:`Executor.backward` writes
-the gradients into ``grad_dict``, seeded with ones at the outputs (loss
-heads such as SoftmaxOutput ignore the seed) or, given ``out_grads``,
-with the caller's head gradients (the forward is run again from the
-generator state the first one drew from, so Dropout's masks repeat).
+the gradients into ``grad_dict`` (adds them under ``grad_req`` "add"),
+seeded with ones at the outputs (loss heads such as SoftmaxOutput
+ignore the seed) or, given ``out_grads``, with the caller's head
+gradients (the forward is run again from the generator state the first
+one drew from, so Dropout's masks repeat).
 An inference forward (``is_train=False``) replays one captured program
 per executor (:class:`~mxnet_tpu_torch.train_step.CompiledForward`,
 the counterpart of the JAX package's jitted ``fwd_test``) unless
@@ -88,8 +89,9 @@ class Executor:
     ``arg_dict``/``grad_dict``/``aux_dict`` map names to
     :class:`~mxnet_tpu_torch.ndarray.NDArray` (``arg_arrays`` /
     ``grad_arrays`` / ``aux_arrays`` list them in the symbol's order);
-    ``grad_req`` is "write" or "null" per argument ("add" is not
-    ported).  ``plain`` runs every op that owns a kernel through its
+    ``grad_req`` is "write", "add" (each backward adds its gradient into
+    the buffer, which only the caller zeroes) or "null" per argument.
+    ``plain`` runs every op that owns a kernel through its
     plain version.  ``generator`` (a ``torch.Generator`` on the device,
     None for torch's default one) is what Dropout and the RNN op's
     dropout draw their masks from."""
@@ -121,9 +123,9 @@ class Executor:
                               if g is not None}
         for n in arg_names:
             req = self.grad_req[n]
-            if req not in ("null", "write"):
-                raise MXNetError("grad_req %r for %s is not supported "
-                                 "(null/write only)" % (req, n))
+            if req not in ("null", "write", "add"):
+                raise MXNetError("grad_req %r for %s is not one of null, "
+                                 "write, add" % (req, n))
             if req != "null" and n not in self.grad_dict:
                 self.grad_req[n] = "null"
         aux_states = aux_states or {}
@@ -158,7 +160,7 @@ class Executor:
 
     def op_context(self, is_train):
         return OpContext(is_train=is_train, plain=self.plain,
-                         generator=self.generator)
+                         generator=self.generator, device=self._device)
 
     def _set_aux(self, new_aux):
         with torch.no_grad():
@@ -202,7 +204,9 @@ class Executor:
             outs, new_aux, self._grads = forward_backward(
                 self._symbol, env_args, env_aux, self._grad_names,
                 self.op_context(True), tap=tap)
-        elif is_train or tap is not None or programs.graphs.eager_active():
+        elif (is_train or tap is not None or programs.graphs.eager_active()
+              or not (self.arg_dict or self.aux_dict)):
+            # a graph without arrays gives a program nothing to bind
             with torch.no_grad():
                 outs, new_aux = run_graph(self._symbol, env_args, env_aux,
                                           self.op_context(is_train), tap)
@@ -252,10 +256,15 @@ class Executor:
 
     def set_grads(self, grads):
         """Write gradients (in ``grad_req`` order) into ``grad_dict``'s
-        arrays, in place and in each array's dtype."""
+        arrays — added to them under "add" — in place and in each
+        array's dtype."""
         with torch.no_grad():
             for n, g in zip(self._grad_names, grads):
-                self.grad_dict[n].data.copy_(g)
+                buf = self.grad_dict[n].data
+                if self.grad_req[n] == "add":
+                    buf.add_(g.to(buf.dtype))
+                else:
+                    buf.copy_(g)
 
     @property
     def outputs(self):

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import config
+from .context import cpu
 from .ndarray import NDArray, array
 
 __all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter", "MNISTIter",
@@ -193,11 +194,12 @@ class NDArrayIter(DataIter):
 
     def _getdata(self, data_source):
         if self.cursor + self.batch_size <= self.num_data:
-            return [array(x[1][self.cursor:self.cursor + self.batch_size])
-                    for x in data_source]
+            return [array(x[1][self.cursor:self.cursor + self.batch_size],
+                          ctx=cpu()) for x in data_source]
         pad = self.batch_size - self.num_data + self.cursor
         return [array(np.concatenate((x[1][self.cursor:], x[1][:pad]),
-                                     axis=0)) for x in data_source]
+                                     axis=0), ctx=cpu())
+                for x in data_source]
 
     def getdata(self):
         return self._getdata(self.data)

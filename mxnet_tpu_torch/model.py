@@ -11,7 +11,7 @@ import numpy as np
 from . import io as io_mod
 from . import ndarray as nd
 from . import symbol as sym_mod
-from .context import gpu
+from .context import cpu, gpu
 
 __all__ = ["save_checkpoint", "load_checkpoint", "FeedForward"]
 
@@ -32,7 +32,7 @@ def load_checkpoint(prefix, epoch):
     """``(symbol, arg_params, aux_params)`` from a checkpoint; the
     parameters are host NDArrays."""
     symbol = sym_mod.load("%s-symbol.json" % prefix)
-    save_dict = nd.load("%s-%04d.params" % (prefix, epoch))
+    save_dict = nd._load("%s-%04d.params" % (prefix, epoch), cpu())
     arg_params, aux_params = {}, {}
     for k, v in save_dict.items():
         tp, name = k.split(":", 1)

@@ -94,3 +94,54 @@ def get_symbol(vocab_size, seq_len, num_layers=2, embed=128, heads=4,
     flat_label = sym.Reshape(label, shape=(-1,))
     return sym.SoftmaxOutput(logits, flat_label, use_ignore=True,
                              ignore_label=-1, name="softmax")
+
+
+def imperative_lm(nd, p, data, label, layers, embed, heads, ffn, vocab):
+    """:func:`get_symbol`'s graph (all heads for keys and values) as
+    imperative calls of ``nd``, the ndarray module (this package's, or
+    another with the same op functions), on the parameters ``p``
+    (``{name: NDArray}``, :func:`get_symbol`'s argument names): the
+    SoftmaxOutput probabilities (B * T, vocab).  Under
+    ``autograd.record()`` it is a training step's forward.
+    FusedLNLinear takes every array by name (positional and keyword
+    arrays bind in argument order otherwise)."""
+    def normalize(x):
+        mean = nd.mean(x, axis=-1, keepdims=True)
+        centered = nd.broadcast_sub(x, mean)
+        var = nd.mean(nd.square(centered), axis=-1, keepdims=True)
+        return nd.broadcast_mul(centered, nd.rsqrt(var + 1e-5))
+
+    def segment(name, x, gamma, beta, n):
+        return nd.FusedLNLinear(data=x, gamma=gamma, beta=beta,
+                                weight=p[name + "_weight"],
+                                bias=p[name + "_bias"], num_hidden=n)
+
+    net = nd.Embedding(data, p["embed_weight"], input_dim=vocab,
+                       output_dim=embed)
+    net = nd.broadcast_add(net, p["pos_embed_weight"])
+    for i in range(layers):
+        n = "layer%d" % i
+        normed = normalize(net)
+        g, b = p[n + "_att_ln_gamma"], p[n + "_att_ln_beta"]
+        q = segment(n + "_q", normed, g, b, embed)
+        k = segment(n + "_k", normed, g, b, embed)
+        v = segment(n + "_v", normed, g, b, embed)
+        att = nd.dot_product_attention(q, k, v, num_heads=heads, causal=True)
+        att = nd.FullyConnected(att, p[n + "_attout_weight"],
+                                p[n + "_attout_bias"], num_hidden=embed,
+                                flatten=False)
+        net = net + att
+        h = segment(n + "_ffn1", normalize(net), p[n + "_ffn_ln_gamma"],
+                    p[n + "_ffn_ln_beta"], ffn)
+        net = nd.FusedLNLinear(data=h, residual=net,
+                               weight=p[n + "_ffn2_weight"],
+                               bias=p[n + "_ffn2_bias"], num_hidden=embed,
+                               relu=True, no_affine=True, has_residual=True)
+    net = nd.broadcast_add(nd.broadcast_mul(normalize(net),
+                                            p["final_ln_gamma"]),
+                           p["final_ln_beta"])
+    logits = nd.FullyConnected(nd.Reshape(net, shape=(-1, embed)),
+                               p["head_weight"], p["head_bias"],
+                               num_hidden=vocab)
+    return nd.SoftmaxOutput(logits, nd.Reshape(label, shape=(-1,)),
+                            use_ignore=True, ignore_label=-1)

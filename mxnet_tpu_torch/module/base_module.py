@@ -28,6 +28,7 @@ from collections import deque, namedtuple
 from .. import config
 from .. import metric as metric_mod
 from .. import ndarray as nd
+from ..context import cpu
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -268,7 +269,7 @@ class BaseModule:
 
     def load_params(self, fname):
         arg_params, aux_params = {}, {}
-        for key, value in nd.load(fname).items():
+        for key, value in nd._load(fname, cpu()).items():
             kind, _, name = key.partition(":")
             if kind == "arg":
                 arg_params[name] = value

@@ -55,7 +55,7 @@ import logging
 from .. import config
 from .. import optimizer as opt_mod
 from ..base import MXNetError
-from ..context import Context, gpu, resolve_device
+from ..context import Context, cpu, gpu, resolve_device
 from ..initializer import InitDesc
 from ..io import as_desc_list
 from ..metric import DeviceMetricAccumulator, select_outputs
@@ -217,18 +217,18 @@ class Module(BaseModule):
             raise MXNetError("call bind before initializing the parameters")
         exe = self._exec_group.exec_
         if self._arg_params is None:
-            self._arg_params = {n: zeros(exe.arg_dict[n].shape,
-                                         dtype=exe.arg_dict[n].data.dtype)
+            self._arg_params = {n: zeros(exe.arg_dict[n].shape, cpu(),
+                                         exe.arg_dict[n].data.dtype)
                                 for n in self._param_names}
         if self._aux_params is None:
-            self._aux_params = {n: zeros(exe.aux_dict[n].shape,
-                                         dtype=exe.aux_dict[n].data.dtype)
+            self._aux_params = {n: zeros(exe.aux_dict[n].shape, cpu(),
+                                         exe.aux_dict[n].data.dtype)
                                 for n in self._aux_names}
         attrs = self._symbol.attr_dict()
 
         def _impl(name, arr, cache):
             if cache is not None and name in cache:
-                src = array(cache[name])
+                src = array(cache[name], cpu())
                 if src.shape != arr.shape:
                     raise MXNetError(
                         "Parameter %s cannot be initialized from loading. "
@@ -341,9 +341,15 @@ class Module(BaseModule):
         self._step_update_done = False
         self._fused_outputs = None
         if self._monitor is None and self._fused_eligible(self._optimizer):
-            self._train_step = CompiledTrainStep(
-                self._exec_group, self._optimizer, self._updater,
-                compute_dtype=self._compute_dtype)
+            try:
+                self._train_step = CompiledTrainStep(
+                    self._exec_group, self._optimizer, self._updater,
+                    compute_dtype=self._compute_dtype)
+            except MXNetError as exc:
+                # the JAX package's rule: a step the compiled program
+                # refuses (grad_req "add") trains on the eager path
+                self.logger.warning("compiled train step unavailable (%s); "
+                                    "using the eager update path", exc)
 
     def borrow_optimizer(self, shared_module):
         """Share ``shared_module``'s optimizer, updater and train step

@@ -1,10 +1,10 @@
-"""Operator library of the port — registers the ops of the serving and
-training paths (the attention LM, the image-classification zoo, the RNN
-cells and the fused RNN op) and the optimizer update ops on import.
-Kernel modules load their CUDA libraries only when a kernel is first
-launched."""
+"""Operator library of the port — registers, on import, the ops of
+``mxnet_tpu/ops/elemwise.py``, ``tensor.py``, ``nn.py`` and
+``sample.py``, the attention and fused LM ops, the fused RNN op and the
+optimizer update ops.  Kernel modules load their CUDA libraries only
+when a kernel is first launched."""
 from . import (attention, elemwise, fused_lm, nn, optimizer_ops, rnn_op,
-               tensor)
+               sample, tensor)
 
 _registered = False
 
@@ -21,6 +21,7 @@ def register_all():
     fused_lm.register_all()
     rnn_op.register_all()
     optimizer_ops.register_all()
+    sample.register_all()
 
 
 register_all()

@@ -21,7 +21,25 @@ autograd's gradient.
 SoftmaxOutput's gradient is :class:`SoftmaxOutputFn`, the head's custom
 VJP: it ignores the upstream gradient and returns (softmax -
 onehot(label)) masked by ``ignore_label``, normalised and scaled by
-``grad_scale``.
+``grad_scale``.  The other loss heads (``LinearRegressionOutput``,
+``LogisticRegressionOutput``, ``MAERegressionOutput``, ``MakeLoss``,
+``SVMOutput``) are :class:`LossHeadFn`: their forward and the
+reference's gradient, the upstream gradient ignored.
+
+Convolution and Pooling take ``layout="NHWC"`` (the weight stays OIHW,
+as in the reference) by running the NCHW op between two transposes.
+Deconvolution is ``F.conv_transpose2d`` over the full output, cropped
+(or zero-padded) to the reference's ``pad`` / ``adj`` /
+``target_shape`` window; its weight is (C, F / g, kh, kw), the
+reference's and torch's layout.  The rest of the reference's layer ops
+are element-wise torch: ``LeakyReLU`` (leaky, rrelu as leaky, elu,
+prelu), ``SoftmaxActivation``, ``InstanceNorm`` (population variance),
+``L2Normalization``, ``Pad`` (constant, edge, reflect), ``UpSampling``
+(nearest; bilinear as half-pixel interpolation, which is what
+``jax.image.resize`` computes when enlarging by an integer factor; only
+the first input is read, as in the reference), ``SequenceLast`` /
+``SequenceMask`` / ``SequenceReverse`` over time-major data and
+``IdentityAttachKLSparseReg`` (the identity, as in the reference).
 """
 from __future__ import annotations
 
@@ -43,8 +61,15 @@ def _pair(v, n=2):
     return tuple(v)
 
 
+def _nhwc(attrs):
+    return attrs.get("layout") == "NHWC"
+
+
 def _conv_shape(attrs, in_shapes, aux_shapes):
-    n, c, h, w = in_shapes[0]
+    if _nhwc(attrs):
+        n, h, w, c = in_shapes[0]
+    else:
+        n, c, h, w = in_shapes[0]
     kh, kw = _pair(attrs["kernel"])
     sh, sw = _pair(attrs.get("stride", (1, 1)))
     ph, pw = _pair(attrs.get("pad", (0, 0)))
@@ -56,7 +81,7 @@ def _conv_shape(attrs, in_shapes, aux_shapes):
         shapes.append((nf,))
     oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
     ow = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
-    return shapes, [(n, nf, oh, ow)], []
+    return shapes, [(n, oh, ow, nf) if _nhwc(attrs) else (n, nf, oh, ow)], []
 
 
 def _bn_shape(attrs, in_shapes, aux_shapes):
@@ -85,9 +110,23 @@ def _pool_geometry(attrs, h, w):
 
 
 def _pool_shape(attrs, in_shapes, aux_shapes):
-    n, c, h, w = in_shapes[0]
+    if _nhwc(attrs):
+        n, h, w, c = in_shapes[0]
+    else:
+        n, c, h, w = in_shapes[0]
     _, _, _, (oh, ow) = _pool_geometry(attrs, h, w)
-    return [tuple(in_shapes[0])], [(n, c, oh, ow)], []
+    out = (n, oh, ow, c) if _nhwc(attrs) else (n, c, oh, ow)
+    return [tuple(in_shapes[0])], [out], []
+
+
+def _as_nchw(fn):
+    """``fn(attrs, x, *rest)`` on NCHW data, run on NHWC data (layout
+    "NHWC") between two transposes."""
+    def run(attrs, x, *rest):
+        if not _nhwc(attrs):
+            return fn(attrs, x, *rest)
+        return fn(attrs, x.permute(0, 3, 1, 2), *rest).permute(0, 2, 3, 1)
+    return run
 
 
 def _activation(attrs, x):
@@ -105,10 +144,8 @@ def _activation(attrs, x):
     raise ValueError("unknown act_type %s" % act)
 
 
+@_as_nchw
 def _conv(attrs, data, weight, *bias):
-    if attrs.get("layout") == "NHWC":
-        raise NotImplementedError(
-            "Convolution(layout='NHWC') is not ported yet; NCHW only")
     out = F.conv2d(data, weight, stride=_pair(attrs.get("stride", (1, 1))),
                    padding=_pair(attrs.get("pad", (0, 0))),
                    dilation=_pair(attrs.get("dilate", (1, 1))),
@@ -118,10 +155,8 @@ def _conv(attrs, data, weight, *bias):
     return out.to(data.dtype)
 
 
+@_as_nchw
 def _pooling(attrs, x):
-    if attrs.get("layout") == "NHWC":
-        raise NotImplementedError(
-            "Pooling(layout='NHWC') is not ported yet; NCHW only")
     (kh, kw), stride, (top, bottom, left, right), _ = _pool_geometry(
         attrs, x.shape[2], x.shape[3])
     ptype = attrs.get("pool_type", "max")
@@ -311,6 +346,243 @@ class SoftmaxOutputFn(torch.autograd.Function):
         return grad * attrs.get("grad_scale", 1.0), None, None
 
 
+def _leaky_relu(attrs, x, *rest):
+    act = attrs.get("act_type", "leaky")
+    slope = attrs.get("slope", 0.25)
+    if act in ("leaky", "rrelu"):
+        return torch.where(x > 0, x, slope * x)
+    if act == "elu":
+        return torch.where(x > 0, x, slope * (torch.exp(x) - 1))
+    if act == "prelu":
+        gamma = rest[0].reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(x > 0, x, gamma * x)
+    raise ValueError(act)
+
+
+def _lrelu_shape(attrs, in_shapes, aux_shapes):
+    d = in_shapes[0]
+    if attrs.get("act_type", "leaky") == "prelu":
+        return [d, (d[1],)], [d], []
+    return [d], [d], []
+
+
+def _softmax_act(attrs, x):
+    if attrs.get("mode", "instance") == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+def _deconv_pad(attrs, h, w):
+    """(pad h, pad w, adj h, adj w); ``target_shape`` overrides pad and
+    adj so the output comes out exactly that size (the reference's
+    InferPad: pad = ceil(d / 2), adj = d % 2, d = stride (in - 1) +
+    kernel - target)."""
+    kh, kw = _pair(attrs["kernel"])
+    sh, sw = _pair(attrs.get("stride", (1, 1)))
+    target = tuple(attrs.get("target_shape", ()) or ())
+    if target:
+        th, tw = _pair(target)
+        dh = (h - 1) * sh + kh - th
+        dw = (w - 1) * sw + kw - tw
+        if dh < 0 or dw < 0:
+            raise ValueError(
+                "Deconvolution target_shape %s is larger than the maximum "
+                "output %s for input %s" % (target, ((h - 1) * sh + kh,
+                                                     (w - 1) * sw + kw),
+                                            (h, w)))
+        return (dh + 1) // 2, (dw + 1) // 2, dh % 2, dw % 2
+    ph, pw = _pair(attrs.get("pad", (0, 0)))
+    ah, aw = _pair(attrs.get("adj", (0, 0)))
+    return ph, pw, ah, aw
+
+
+def _deconv_shape(attrs, in_shapes, aux_shapes):
+    n, c, h, w = in_shapes[0]
+    kh, kw = _pair(attrs["kernel"])
+    sh, sw = _pair(attrs.get("stride", (1, 1)))
+    ph, pw, ah, aw = _deconv_pad(attrs, h, w)
+    nf = attrs["num_filter"]
+    shapes = [tuple(in_shapes[0]),
+              (c, nf // attrs.get("num_group", 1), kh, kw)]
+    if not attrs.get("no_bias", True):
+        shapes.append((nf,))
+    oh = (h - 1) * sh - 2 * ph + kh + ah
+    ow = (w - 1) * sw - 2 * pw + kw + aw
+    return shapes, [(n, nf, oh, ow)], []
+
+
+def _deconv(attrs, data, weight, *bias):
+    ph, pw, ah, aw = _deconv_pad(attrs, data.shape[2], data.shape[3])
+    full = F.conv_transpose2d(data, weight,
+                              stride=_pair(attrs.get("stride", (1, 1))),
+                              groups=attrs.get("num_group", 1))
+    # the reference's window: rows [pad, pad + out) of the full output,
+    # zeros past its end (negative F.pad widths crop)
+    out = F.pad(full, (-pw, aw - pw, -ph, ah - ph))
+    if bias:
+        out = out + bias[0].reshape(1, -1, 1, 1)
+    return out.to(data.dtype)
+
+
+def _instance_norm(attrs, x, gamma, beta):
+    red = tuple(range(2, x.dim()))
+    mean = x.mean(dim=red, keepdim=True)
+    var = x.var(dim=red, unbiased=False, keepdim=True)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    return (x - mean) / torch.sqrt(var + attrs.get("eps", 1e-3)) \
+        * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def _in_shape(attrs, in_shapes, aux_shapes):
+    d = in_shapes[0]
+    return [d, (d[1],), (d[1],)], [d], []
+
+
+def _l2norm(attrs, x):
+    mode = attrs.get("mode", "instance")
+    if mode == "instance":
+        red = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, x.dim()))
+    return x / torch.sqrt(torch.sum(x * x, dim=red, keepdim=True)
+                          + attrs.get("eps", 1e-10))
+
+
+def _pad(attrs, x):
+    pw = attrs["pad_width"]
+    widths = []
+    for i in reversed(range(x.dim())):
+        widths += [pw[2 * i], pw[2 * i + 1]]
+    mode = attrs.get("mode", "constant")
+    if mode == "constant":
+        return F.pad(x, widths, value=attrs.get("constant_value", 0.0))
+    while widths and widths[-1] == 0 and widths[-2] == 0:
+        widths = widths[:-2]       # unpadded leading (batch) dims
+    return F.pad(x, widths, mode="replicate" if mode == "edge"
+                 else "reflect")
+
+
+def _upsampling(attrs, *xs):
+    scale = attrs["scale"]
+    x = xs[0]
+    if attrs.get("sample_type", "nearest") == "nearest":
+        return x.repeat_interleave(scale, dim=2).repeat_interleave(scale,
+                                                                   dim=3)
+    return F.interpolate(x, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
+
+
+def _seq_args(a):
+    return ["data", "sequence_length"] if a.get("use_sequence_length") \
+        else ["data"]
+
+
+def _seq_n(a):
+    return 2 if a.get("use_sequence_length") else 1
+
+
+def _seq_last(attrs, data, *seq_len):
+    if attrs.get("use_sequence_length", False) and seq_len:
+        idx = (seq_len[0] - 1).long()
+        return data[idx, torch.arange(data.shape[1], device=data.device)]
+    return data[-1]
+
+
+def _seqlast_shape(attrs, in_shapes, aux_shapes):
+    d = in_shapes[0]
+    if attrs.get("use_sequence_length"):
+        return [d, (d[1],)], [tuple(d[1:])], []
+    return [d], [tuple(d[1:])], []
+
+
+def _time_index(data, seq_len):
+    """(T, N) time indices against (N,) lengths (truncated)."""
+    t = torch.arange(data.shape[0], device=data.device)[:, None]
+    return t, seq_len.long()[None, :]
+
+
+def _seq_mask(attrs, data, *seq_len):
+    if not attrs.get("use_sequence_length", False) or not seq_len:
+        return data.clone()
+    t, sl = _time_index(data, seq_len[0])
+    mask = (t < sl).reshape(t.shape[0], -1, *(1,) * (data.dim() - 2))
+    return torch.where(mask, data, torch.full_like(
+        data, attrs.get("value", 0.0)))
+
+
+def _seq_reverse(attrs, data, *seq_len):
+    if not attrs.get("use_sequence_length", False) or not seq_len:
+        return torch.flip(data, dims=(0,))
+    t, sl = _time_index(data, seq_len[0])
+    src = torch.where(t < sl, sl - 1 - t, t)
+    src = src.reshape(src.shape + (1,) * (data.dim() - 2)).expand_as(data)
+    return torch.gather(data, 0, src)
+
+
+class LossHeadFn(torch.autograd.Function):
+    """A loss head: ``fwd(data)`` forward and the reference's gradient
+    ``grad(out, data, label)`` backward, whatever the upstream gradient
+    (the reference's custom VJPs ignore it); the label takes none."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad):
+        out = fwd(data)
+        ctx.save_for_backward(out, data, label)
+        ctx.grad = grad
+        return out
+
+    @staticmethod
+    def backward(ctx, _upstream):
+        out, data, label = ctx.saved_tensors
+        return ctx.grad(out, data, label), None, None, None
+
+
+def _regression(fwd, grad):
+    def fcompute(attrs, inputs, aux, octx):
+        data, label = inputs
+        scale = attrs.get("grad_scale", 1.0)
+
+        def head_grad(out, d, l):
+            n = math.prod(out.shape[1:])
+            return grad(out, l.reshape(out.shape)) * scale / n
+
+        return [LossHeadFn.apply(data, label, fwd, head_grad)], []
+    return fcompute
+
+
+def _make_loss(attrs, inputs, aux, octx):
+    scale = attrs.get("grad_scale", 1.0)
+    norm = attrs.get("normalization", "null")
+
+    def head_grad(out, d, _label):
+        g = torch.full_like(d, scale)
+        if norm == "batch":
+            g = g / d.shape[0]
+        elif norm == "valid":
+            valid = (d > attrs.get("valid_thresh", 0.0)).to(d.dtype).sum()
+            g = g / torch.clamp_min(valid, 1.0)
+        return g
+
+    return [LossHeadFn.apply(inputs[0], None, torch.clone, head_grad)], []
+
+
+def _svm_output(attrs, inputs, aux, octx):
+    margin = attrs.get("margin", 1.0)
+    reg = attrs.get("regularization_coefficient", 1.0)
+    linear = attrs.get("use_linear", False)
+
+    def head_grad(out, d, label):
+        sgn = 2 * _onehot(label.long(), d.shape[1], d.dtype, -1) - 1
+        if linear:   # the L1-SVM subgradient
+            return -sgn * ((margin - sgn * d) > 0).to(d.dtype) * reg
+        return -2.0 * sgn * torch.clamp_min(margin - sgn * d, 0.0) * reg
+
+    return [LossHeadFn.apply(inputs[0], inputs[1], torch.clone,
+                             head_grad)], []
+
+
 def register_all():
     def _fc(attrs, data, weight, *bias):
         x = data.reshape(data.shape[0], -1) if attrs.get("flatten", True) \
@@ -456,3 +728,117 @@ def register_all():
         num_inputs=2, arguments=["data", "label"],
         infer_shape=_softmax_out_shape, hint="softmaxoutput"),
         aliases=["Softmax"])
+
+    register_op(OpDef(
+        "LeakyReLU", simple_compute(_leaky_relu),
+        schema=ParamSchema(Param("act_type", str, default="leaky"),
+                           Param("slope", float, default=0.25),
+                           Param("lower_bound", float, default=0.125),
+                           Param("upper_bound", float, default=0.334)),
+        num_inputs=lambda a: 2 if a.get("act_type") == "prelu" else 1,
+        arguments=lambda a: ["data", "gamma"]
+        if a.get("act_type") == "prelu" else ["data"],
+        infer_shape=_lrelu_shape, hint="leakyrelu"))
+    register_op(OpDef(
+        "SoftmaxActivation", simple_compute(_softmax_act),
+        schema=ParamSchema(Param("mode", str, default="instance")),
+        hint="softmaxactivation"))
+    register_op(OpDef(
+        "Deconvolution", simple_compute(_deconv),
+        schema=ParamSchema(
+            Param("kernel", "shape", required=True),
+            Param("stride", "shape", default=(1, 1)),
+            Param("pad", "shape", default=(0, 0)),
+            Param("adj", "shape", default=(0, 0)),
+            Param("target_shape", "shape", default=()),
+            Param("num_filter", int, required=True),
+            Param("num_group", int, default=1),
+            Param("workspace", int, default=512),
+            Param("no_bias", bool, default=True),
+            Param("cudnn_tune", str, default=None),
+            Param("cudnn_off", bool, default=False),
+            Param("layout", str, default=None)),
+        num_inputs=lambda a: 2 if a.get("no_bias", True) else 3,
+        arguments=lambda a: ["data", "weight"] if a.get("no_bias", True)
+        else ["data", "weight", "bias"],
+        infer_shape=_deconv_shape, hint="deconvolution"))
+    register_op(OpDef(
+        "InstanceNorm", simple_compute(_instance_norm),
+        schema=ParamSchema(Param("eps", float, default=1e-3)),
+        num_inputs=3, arguments=["data", "gamma", "beta"],
+        infer_shape=_in_shape, hint="instancenorm"))
+    register_op(OpDef(
+        "L2Normalization", simple_compute(_l2norm),
+        schema=ParamSchema(Param("eps", float, default=1e-10),
+                           Param("mode", str, default="instance")),
+        hint="l2normalization"))
+    register_op(OpDef(
+        "Pad", simple_compute(_pad),
+        schema=ParamSchema(Param("mode", str, default="constant"),
+                           Param("pad_width", "shape", required=True),
+                           Param("constant_value", float, default=0.0)),
+        hint="pad"), aliases=["pad"])
+    register_op(OpDef(
+        "UpSampling", simple_compute(_upsampling),
+        schema=ParamSchema(Param("scale", int, required=True),
+                           Param("num_filter", int, default=0),
+                           Param("sample_type", str, default="nearest"),
+                           Param("multi_input_mode", str, default="concat"),
+                           Param("num_args", int, default=1),
+                           Param("workspace", int, default=512)),
+        num_inputs=lambda a: a.get("num_args", 1),
+        key_var_num_args="num_args", hint="upsampling"))
+
+    seq_schema = ParamSchema(Param("use_sequence_length", bool,
+                                   default=False),
+                             Param("value", float, default=0.0),
+                             Param("axis", int, default=0))
+    register_op(OpDef("SequenceLast", simple_compute(_seq_last),
+                      schema=seq_schema, num_inputs=_seq_n,
+                      arguments=_seq_args, infer_shape=_seqlast_shape,
+                      hint="sequencelast"))
+    register_op(OpDef("SequenceMask", simple_compute(_seq_mask),
+                      schema=seq_schema, num_inputs=_seq_n,
+                      arguments=_seq_args, hint="sequencemask"))
+    register_op(OpDef("SequenceReverse", simple_compute(_seq_reverse),
+                      schema=seq_schema, num_inputs=_seq_n,
+                      arguments=_seq_args, hint="sequencereverse"))
+    register_op(OpDef(
+        "IdentityAttachKLSparseReg",
+        simple_compute(lambda attrs, x: x.clone()),
+        schema=ParamSchema(Param("sparseness_target", float, default=0.1),
+                           Param("penalty", float, default=0.001),
+                           Param("momentum", float, default=0.9)),
+        hint="identityattachklsparsereg"))
+
+    def _same_shape(attrs, in_shapes, aux_shapes):
+        return [in_shapes[0], in_shapes[0]], [in_shapes[0]], []
+
+    reg_schema = ParamSchema(Param("grad_scale", float, default=1.0))
+    for name, fwd, grad in (
+            ("LinearRegressionOutput", torch.clone, lambda o, l: o - l),
+            ("LogisticRegressionOutput", torch.sigmoid, lambda o, l: o - l),
+            ("MAERegressionOutput", torch.clone,
+             lambda o, l: torch.sign(o - l))):
+        register_op(OpDef(name, _regression(fwd, grad), schema=reg_schema,
+                          num_inputs=2, arguments=["data", "label"],
+                          infer_shape=_same_shape, hint=name.lower()))
+    register_op(OpDef(
+        "MakeLoss", _make_loss,
+        schema=ParamSchema(Param("grad_scale", float, default=1.0),
+                           Param("valid_thresh", float, default=0.0),
+                           Param("normalization", str, default="null")),
+        hint="makeloss"), aliases=["make_loss"])
+
+    def _svm_shape(attrs, in_shapes, aux_shapes):
+        d = in_shapes[0]
+        return [d, (d[0],)], [d], []
+
+    register_op(OpDef(
+        "SVMOutput", _svm_output,
+        schema=ParamSchema(Param("margin", float, default=1.0),
+                           Param("regularization_coefficient", float,
+                                 default=1.0),
+                           Param("use_linear", bool, default=False)),
+        num_inputs=2, arguments=["data", "label"], infer_shape=_svm_shape,
+        hint="svmoutput"))

@@ -1,16 +1,31 @@
-"""Token sampling for the decode loop and the speculative acceptance rule
-(counterpart of the sampling half of ``mxnet_tpu/ops/sample.py``).
-Random draws come from an explicit ``torch.Generator``; it gives other
+"""Random sampling (counterpart of ``mxnet_tpu/ops/sample.py``): token
+sampling for the decode loop, the speculative acceptance rule, and the
+sampler ops — ``uniform`` / ``normal`` (aliased ``random_*``),
+``random_gamma`` / ``random_exponential`` / ``random_poisson`` /
+``random_negative_binomial`` / ``random_generalized_negative_binomial``
+(an output of ``shape`` on ``OpContext.device``) and the multisample
+family ``_sample_*`` (one draw of ``shape`` for each element of the
+parameter arrays: output shape = param shape + ``shape``).
+
+Random draws come from an explicit ``torch.Generator``
+(``OpContext.generator``: the device's generator of
+:mod:`~mxnet_tpu_torch.random` on the imperative path); it gives other
 numbers than ``jax.random`` from the same seed, so cross-package parity
-is token identity under greedy decoding only.  Everything here is plain
-torch with fixed shapes and no host read, so it runs inside a captured
-program (the paged verify step)."""
+is token identity under greedy decoding, and the samplers' moments.
+The negative binomials are Poisson draws over Gamma rates, as in the
+reference.  The decode-loop functions are plain torch with fixed shapes
+and no host read, so they run inside a captured program (the paged
+verify step)."""
 from __future__ import annotations
 
 import torch
 
+from ..attrs import Param, ParamSchema
+from ..registry import OpDef, register_op
+from .tensor import attr_dtype
+
 __all__ = ["is_greedy_policy", "policy_logits", "sample_tokens",
-           "residual_probs", "speculative_accept"]
+           "residual_probs", "speculative_accept", "register_all"]
 
 
 def is_greedy_policy(temperature, top_k):
@@ -115,3 +130,130 @@ def speculative_accept(target_probs, draft_toks, draft_probs=None,
                                        device=p.device)], dim=1)
     out.scatter_(1, a[:, None], next_tok[:, None])
     return (a + 1).to(torch.int32), out.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The sampler ops.  Each draw is f32 (the reference's jax.random draws),
+# then cast to the op's dtype.
+# ---------------------------------------------------------------------------
+
+def _uniform(sh, dev, gen):
+    return torch.rand(sh, generator=gen, device=dev)
+
+
+def _normal(sh, dev, gen):
+    return torch.randn(sh, generator=gen, device=dev)
+
+
+def _exponential(sh, dev, gen):
+    return torch.empty(sh, device=dev).exponential_(1.0, generator=gen)
+
+
+def _gamma(alpha, gen):
+    """Gamma(alpha, 1) draws of ``alpha``'s shape."""
+    return torch._standard_gamma(alpha, generator=gen)
+
+
+def _poisson(lam, gen):
+    return torch.poisson(lam, generator=gen)
+
+
+def _full(sh, dev, value):
+    return torch.full(sh, float(value), device=dev)
+
+
+# {op name: (its parameters, draw(attrs, shape, device, generator))}
+_SAMPLERS = {
+    "uniform": (
+        (Param("low", float, default=0.0), Param("high", float, default=1.0)),
+        lambda a, sh, dev, gen: a.get("low", 0.0) + _uniform(sh, dev, gen)
+        * (a.get("high", 1.0) - a.get("low", 0.0))),
+    "normal": (
+        (Param("loc", float, default=0.0),
+         Param("scale", float, default=1.0)),
+        lambda a, sh, dev, gen: _normal(sh, dev, gen) * a.get("scale", 1.0)
+        + a.get("loc", 0.0)),
+    "random_gamma": (
+        (Param("alpha", float, default=1.0),
+         Param("beta", float, default=1.0)),
+        lambda a, sh, dev, gen: _gamma(_full(sh, dev, a.get("alpha", 1.0)),
+                                       gen) * a.get("beta", 1.0)),
+    "random_exponential": (
+        (Param("lam", float, default=1.0),),
+        lambda a, sh, dev, gen: _exponential(sh, dev, gen)
+        / a.get("lam", 1.0)),
+    "random_poisson": (
+        (Param("lam", float, default=1.0),),
+        lambda a, sh, dev, gen: _poisson(_full(sh, dev, a.get("lam", 1.0)),
+                                         gen)),
+    "random_negative_binomial": (
+        (Param("k", int, default=1), Param("p", float, default=1.0)),
+        lambda a, sh, dev, gen: _poisson(
+            _gamma(_full(sh, dev, a.get("k", 1)), gen)
+            * (1 - a.get("p", 1.0)) / a.get("p", 1.0), gen)),
+    "random_generalized_negative_binomial": (
+        (Param("mu", float, default=1.0),
+         Param("alpha", float, default=1.0)),
+        lambda a, sh, dev, gen: _poisson(
+            _gamma(_full(sh, dev, 1.0 / a.get("alpha", 1.0)), gen)
+            * (a.get("mu", 1.0) * a.get("alpha", 1.0)), gen)),
+}
+
+# {op name: (number of parameter arrays, draw(shape, generator, *params))}
+# with the parameters broadcast against the output shape
+_MULTI_SAMPLERS = {
+    "_sample_uniform": (2, lambda sh, gen, lo, hi:
+                        lo + _uniform(sh, lo.device, gen) * (hi - lo)),
+    "_sample_normal": (2, lambda sh, gen, mu, sigma:
+                       mu + _normal(sh, mu.device, gen) * sigma),
+    "_sample_gamma": (2, lambda sh, gen, alpha, beta:
+                      _gamma(alpha.expand(sh).contiguous(), gen) * beta),
+    "_sample_exponential": (1, lambda sh, gen, lam:
+                            _exponential(sh, lam.device, gen) / lam),
+    "_sample_poisson": (1, lambda sh, gen, lam:
+                        _poisson(lam.expand(sh).contiguous(), gen)),
+    "_sample_negative_binomial": (2, lambda sh, gen, k, p: _poisson(
+        _gamma(k.expand(sh).contiguous(), gen) * (1 - p) / p, gen)),
+    "_sample_generalized_negative_binomial": (
+        2, lambda sh, gen, mu, alpha: _poisson(
+            _gamma((1.0 / alpha).expand(sh).contiguous(), gen)
+            * (mu * alpha), gen)),
+}
+
+
+def register_all():
+    def _sample_shape(attrs, in_shapes, aux_shapes):
+        return [], [tuple(attrs.get("shape", ()) or ())], []
+
+    for name, (extra, draw) in _SAMPLERS.items():
+        def fcompute(attrs, inputs, aux, octx, draw=draw):
+            sh = tuple(attrs.get("shape", ()) or ())
+            out = draw(attrs, sh, octx.device or "cpu", octx.generator)
+            return [out.to(attr_dtype(attrs))], []
+
+        schema = ParamSchema(*extra, Param("shape", "shape", default=()),
+                             Param("ctx", str, default=""),
+                             Param("dtype", str, default="float32"))
+        aliases = ["random_" + name] if name in ("uniform", "normal") else []
+        register_op(OpDef(name, fcompute, schema=schema, num_inputs=0,
+                          infer_shape=_sample_shape, hint=name),
+                    aliases=aliases)
+
+    ms_schema = ParamSchema(Param("shape", "shape", default=()),
+                            Param("dtype", str, default="float32"))
+    for name, (n_params, draw) in _MULTI_SAMPLERS.items():
+        def _ms_shape(attrs, in_shapes, aux_shapes, n=n_params):
+            s = tuple(attrs.get("shape", ()) or ())
+            base = tuple(in_shapes[0]) if in_shapes[0] is not None else ()
+            return [base] * n, [base + s], []
+
+        def fcompute(attrs, inputs, aux, octx, draw=draw):
+            s = tuple(attrs.get("shape", ()) or ())
+            base = tuple(inputs[0].shape)
+            ps = [p.reshape(base + (1,) * len(s)).float() for p in inputs]
+            out = draw(base + s, octx.generator, *ps)
+            return [out.to(attr_dtype(attrs))], []
+
+        register_op(OpDef(name, fcompute, schema=ms_schema,
+                          num_inputs=n_params, infer_shape=_ms_shape,
+                          hint=name.lstrip("_")))

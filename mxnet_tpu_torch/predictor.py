@@ -27,7 +27,7 @@ import torch
 from . import ndarray as nd
 from . import symbol as sym_mod
 from .base import MXNetError
-from .context import gpu, resolve_device
+from .context import cpu, gpu, resolve_device
 from .executor import simple_bind
 
 __all__ = ["Predictor", "DecodePredictor", "DecodeServer", "NGramProposer",
@@ -183,7 +183,7 @@ def _as_param_dicts(params):
     ``aux:`` prefixes optional; NDArrays, tensors or numpy), a ``.params``
     path, or the file's bytes."""
     if isinstance(params, (str, bytes, bytearray, memoryview)):
-        params = nd.load(params)
+        params = nd._load(params, cpu())
     if not isinstance(params, dict):
         raise MXNetError("params must be a dict, a .params path, or bytes")
     arg_params, aux_params = {}, {}
@@ -191,7 +191,7 @@ def _as_param_dicts(params):
         if isinstance(value, torch.Tensor):
             value = nd.NDArray(value)
         elif not isinstance(value, nd.NDArray):
-            value = nd.array(np.asarray(value))
+            value = nd.array(np.asarray(value), ctx=cpu())
         if key.startswith("arg:"):
             arg_params[key[4:]] = value
         elif key.startswith("aux:"):

@@ -6,7 +6,9 @@ bundles a parameter schema, shape inference, argument naming and
 
     fcompute(attrs, inputs, aux, octx) -> (outputs, new_aux)
 
-PyTorch runs eagerly, so there is no per-op compile cache.
+PyTorch runs eagerly, so there is no per-op compile cache: :func:`invoke`
+(the imperative path, ``ndarray.imperative_invoke``) and the executor's
+graph walk both call ``fcompute`` directly.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from .attrs import FrozenAttrs, ParamSchema
 from .base import MXNetError
 
 __all__ = ["OpDef", "OpContext", "register_op", "get_op", "list_ops",
-           "simple_compute"]
+           "simple_compute", "invoke"]
 
 _OPS = {}
 
@@ -29,15 +31,19 @@ class OpContext:
     version instead, whatever the device — the reference the kernels
     are held to (``DecodePredictor(plain=True)``).  ``generator`` is the
     ``torch.Generator`` random ops draw from (None: torch's default
-    generator of the tensor's device).
+    generator of the tensor's device).  ``device`` is where an op with
+    no inputs (``_zeros``, ``_arange``, the samplers) puts its output
+    (None: the host).
     """
 
-    __slots__ = ("is_train", "plain", "generator")
+    __slots__ = ("is_train", "plain", "generator", "device")
 
-    def __init__(self, is_train=False, plain=False, generator=None):
+    def __init__(self, is_train=False, plain=False, generator=None,
+                 device=None):
         self.is_train = is_train
         self.plain = plain
         self.generator = generator
+        self.device = device
 
 
 def _default_arg_names(n):
@@ -122,7 +128,8 @@ class OpDef:
         import torch
 
         ins = [torch.empty(tuple(s), device="meta") for s in in_shapes]
-        outs, _ = self.fcompute(attrs, ins, [], OpContext())
+        outs, _ = self.fcompute(attrs, ins, [],
+                                OpContext(device=torch.device("meta")))
         return in_shapes, [tuple(o.shape) for o in outs], aux_shapes or []
 
     def __repr__(self):
@@ -158,3 +165,15 @@ def get_op(name):
 
 def list_ops():
     return sorted(_OPS.keys())
+
+
+def invoke(opdef, inputs, attrs=None, is_train=False, generator=None,
+           aux=(), device=None):
+    """Run an op on tensors: ``(outputs, new_aux)``, every output
+    (hidden ones included).  The counterpart of the JAX package's
+    ``registry.invoke``, without its per-op compile cache."""
+    attrs = opdef.parse_attrs(attrs or {})
+    octx = OpContext(is_train=bool(is_train), generator=generator,
+                     device=device)
+    outs, new_aux = opdef.fcompute(attrs, list(inputs), list(aux), octx)
+    return list(outs), list(new_aux)

@@ -16,6 +16,7 @@ import numpy as np
 
 from ..io import DataIter, DataBatch, DataDesc
 from .. import ndarray as nd
+from ..context import cpu
 
 __all__ = ["BucketSentenceIter"]
 
@@ -130,8 +131,8 @@ class BucketSentenceIter(DataIter):
         if not self._batch_major:
             tokens = tokens.T
             labels = labels.T
-        data = nd.array(tokens, dtype=self.dtype)
-        label = nd.array(labels, dtype=self.dtype)
+        data = nd.array(tokens, ctx=cpu(), dtype=self.dtype)
+        label = nd.array(labels, ctx=cpu(), dtype=self.dtype)
         return DataBatch([data], [label], pad=0,
                          bucket_key=self.buckets[b],
                          provide_data=[DataDesc(self.data_name, data.shape)],

@@ -111,11 +111,12 @@ def _forward_body(exe, finish):
     symbol = exe._symbol
     arg_names = list(exe.arg_dict)
     aux_names = list(exe.aux_dict)
-    plain = exe.plain
+    plain, device = exe.plain, exe._device
 
     def body(env_vals, aux_vals, generator, *rest):
         env = dict(zip(arg_names, env_vals))
-        octx = OpContext(is_train=False, plain=plain, generator=generator)
+        octx = OpContext(is_train=False, plain=plain, generator=generator,
+                         device=device)
         outs, _ = run_graph(symbol, env, dict(zip(aux_names, aux_vals)),
                             octx)
         return finish(env, outs, *rest)
@@ -174,11 +175,16 @@ class CompiledTrainStep(_StepBase):
         if apply is None:
             raise MXNetError("optimizer %s has no fused kernel"
                              % type(optimizer).__name__)
-        super().__init__(exec_group.exec_, exec_group)
+        exe = exec_group.exec_
+        added = [n for n in exec_group.param_names
+                 if exe.grad_req.get(n, "null") == "add"]
+        if added:
+            raise MXNetError("the compiled train step takes grad_req "
+                             "null / write only; got add for %s" % added)
+        super().__init__(exe, exec_group)
         self._opt_apply = apply
         self._optimizer = optimizer
         self._updater = updater
-        exe = self._exec
         self._param_names = list(exec_group.param_names)
         self._grad_names = [n for n in self._param_names
                             if exe.grad_req.get(n, "null") == "write"]
@@ -363,13 +369,14 @@ class CompiledTrainStep(_StepBase):
                  and (n in group.data_names or n in self._param_names)}
         grad_names, plan = self._grad_names, self.plan
         plain, acc = exe.plain, self._metric_acc
-        apply = self._opt_apply
+        apply, device = self._opt_apply, exe._device
 
         def body(env_vals, aux_vals, update, mstate, generator, hyp):
             env = {n: self._cast(v) if n in casts else v
                    for n, v in zip(arg_names, env_vals)}
             aux = dict(zip(aux_names, aux_vals))
-            octx = OpContext(is_train=True, plain=plain, generator=generator)
+            octx = OpContext(is_train=True, plain=plain, generator=generator,
+                             device=device)
             outs, new_aux, grads = forward_backward(symbol, env, aux,
                                                     grad_names, octx)
             with torch.no_grad():

@@ -27,6 +27,15 @@ from mxnet_tpu_torch.models import lstm_lm
 from mxnet_tpu_torch.ops import update_kernel as uk
 from mxnet_tpu_torch.weights import params_to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 VOCAB, EMBED, HIDDEN, LAYERS, BATCH = 20, 8, 8, 2, 4

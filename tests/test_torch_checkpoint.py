@@ -25,6 +25,15 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.io import DataBatch
 from mxnet_tpu_torch.models import lstm_lm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 B, CLASSES = 4, 5

@@ -39,6 +39,15 @@ from mxnet_tpu_torch import programs
 from mxnet_tpu_torch.models import attention_lm, lstm_lm
 from mxnet_tpu_torch.ops import update_kernel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 TOL = {"sgd": 1e-5, "nag": 1e-5, "adam": 1e-4}

@@ -16,6 +16,7 @@ bf16 pools, whose plain version rounds the probabilities to bf16.
 """
 import contextlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -1830,3 +1831,137 @@ def test_mnist_drive_reaches_the_reference_accuracy(card):
     assert uk.LAUNCHES["multi_tensor_update"] - before == 60
     assert uk.UPDATE_PATH["last"] == "kernel"
     assert dict(mod.score(val, "acc"))["accuracy"] >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# the imperative front end: every op of the slice, the samplers and the
+# small LM through nd + autograd, card against CPU
+# ---------------------------------------------------------------------------
+
+def _card_vs_cpu(card, table):
+    """Every case of ``table`` run on the card and on the CPU; the cases
+    whose outputs or gradients differ by more than 1e-5 of the CPU's
+    largest magnitude (f32, TF32 off), or whose dtypes differ."""
+    import mxnet_tpu_torch as mt
+    from test_torch_op_cases import run_port
+
+    bad = []
+    for name, (op, arrays, attrs, grad) in sorted(table.items()):
+        runs = [run_port(op, arrays, attrs, grad, ctx)
+                for ctx in (mt.gpu(card.index or 0), mt.cpu())]
+        (outs, grads), (c_outs, c_grads) = runs
+        for got, want in zip(outs + grads, c_outs + c_grads):
+            mag = max(1.0, float(np.nanmax(np.abs(want))) if want.size
+                      else 1.0)
+            err = float(np.nanmax(np.abs(got.astype(np.float64) - want)))\
+                if want.size else 0.0
+            if got.dtype != want.dtype or not err <= 1e-5 * mag \
+                    or not np.array_equal(np.isnan(got), np.isnan(want)):
+                bad.append((name, got.dtype, want.dtype, err))
+    return bad
+
+
+@pytest.mark.parametrize("group", ["ELEMWISE", "TENSOR", "NN"])
+def test_slice_ops_on_the_card_match_the_cpu(card, full_f32, group):
+    """Forward and gradients of every op case on the card against the
+    CPU (the same port ops: ATen's CUDA and CPU loops, cuBLAS / cuDNN)."""
+    import test_torch_op_cases as cases
+
+    assert _card_vs_cpu(card, getattr(cases, group)) == []
+
+
+def test_samplers_on_the_card_repeat_and_match_the_cpu(card):
+    """Each sampler on the card repeats its draws after ``seed`` and
+    agrees with the CPU's draws in mean and variance (20,000 each, 6
+    standard errors of the difference)."""
+    import mxnet_tpu_torch as mt
+    from test_torch_op_cases import SAMPLERS, draw_port
+
+    n = 20000
+    for op, (attrs, params) in sorted(SAMPLERS.items()):
+        got = draw_port(op, attrs, params, n, 3, mt.gpu(card.index or 0))
+        again = draw_port(op, attrs, params, n, 3, mt.gpu(card.index or 0))
+        want = draw_port(op, attrs, params, n, 3, mt.cpu())
+        assert np.array_equal(got, again), op
+        for g, w in zip(got, want):
+            se = np.sqrt((g.var() + w.var()) / n)
+            assert abs(g.mean() - w.mean()) <= 6 * se, op
+
+
+def test_load_lands_on_the_card_with_no_scope(card, full_f32, tmp_path):
+    """``nd.load`` with no ``with ctx:`` scope reads onto the card, as
+    ``nd.array`` does, so ops on what it read run there; under
+    ``with mt.cpu():`` it reads onto the host, and the checkpoint reader
+    names the host whatever the scope."""
+    import mxnet_tpu_torch as mt
+
+    w = np.random.RandomState(5).randn(4, 4).astype(np.float32)
+    fname = str(tmp_path / "p-0000.params")
+    mt.nd.save(fname, {"arg:w": w})
+    got = mt.nd.load(fname)["arg:w"]
+    assert got.data.device == card and got.context == mt.current_context()
+    prod = mt.nd.dot(got, got)
+    assert prod.data.device == card
+    np.testing.assert_allclose(prod.asnumpy(), w @ w, rtol=1e-5, atol=1e-5)
+    with mt.cpu():
+        assert mt.nd.load(fname)["arg:w"].context == mt.cpu()
+    mt.sym.Variable("w").save(str(tmp_path / "p-symbol.json"))
+    _, args, _ = mt.model.load_checkpoint(str(tmp_path / "p"), 0)
+    assert args["w"].context == mt.cpu()
+
+
+def test_imperative_lm_on_the_card_matches_the_cpu(card, full_f32):
+    """The LM as nd calls under autograd.record() on the card (kernels A,
+    F, C, D, E) against the same step on the CPU (their plain versions):
+    the probabilities within 1e-4 relative, every gradient within 1e-4
+    norm-wise (the kernels sum in another order), and one kernel launch
+    a segment (A, F) and a layer (C, D, E)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.models.attention_lm import imperative_lm
+
+    b, t, vocab, embed, heads, ffn, layers = 2, 128, 64, 128, 2, 256, 2
+    sym = mt.models.attention_lm.get_symbol(
+        vocab_size=vocab, seq_len=t, num_layers=layers, embed=embed,
+        heads=heads, ffn_hidden=ffn)
+    shapes, _, _ = sym.infer_shape(data=(b, t), softmax_label=(b, t))
+    rng = np.random.RandomState(2)
+    params = {n: (1.0 + 0.1 * rng.randn(*s) if n.endswith("_gamma")
+                  else 0.08 * rng.randn(*s)).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    x = rng.randint(0, vocab, (b, t)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.full((b, 1), -1, np.float32)], 1)
+    runs = []
+    for ctx in (mt.gpu(card.index or 0), mt.cpu()):
+        with ctx:
+            p = {k: mt.nd.array(v) for k, v in params.items()}
+            g = {k: mt.nd.zeros(v.shape) for k, v in params.items()}
+            mt.autograd._st().variables.clear()
+            mt.autograd.mark_variables([p[k] for k in sorted(p)],
+                                       [g[k] for k in sorted(p)])
+            before = (fk.LAUNCHES["fused_fwd"], fk.LAUNCHES["fused_bwd"],
+                      fl.LAUNCHES["flash_fwd"], fl.LAUNCHES["flash_bwd_dq"],
+                      fl.LAUNCHES["flash_bwd_dkv"])
+            with mt.autograd.record():
+                out = imperative_lm(mt.nd, p, mt.nd.array(x),
+                                    mt.nd.array(y), layers, embed, heads,
+                                    ffn, vocab)
+            mt.autograd.backward([out])
+            launched = tuple(a - c for a, c in zip(
+                (fk.LAUNCHES["fused_fwd"], fk.LAUNCHES["fused_bwd"],
+                 fl.LAUNCHES["flash_fwd"], fl.LAUNCHES["flash_bwd_dq"],
+                 fl.LAUNCHES["flash_bwd_dkv"]), before))
+            mt.autograd._st().variables.clear()
+            runs.append((out.asnumpy(), {k: v.asnumpy()
+                                         for k, v in g.items()}, launched))
+    (out, grads, launched), (c_out, c_grads, c_launched) = runs
+    assert launched == (5 * layers, 5 * layers, layers, layers, layers)
+    assert c_launched == (0, 0, 0, 0, 0)
+    np.testing.assert_allclose(out, c_out, rtol=1e-4, atol=1e-6)
+    for k, want in c_grads.items():
+        # the analytically-zero *_k_bias gradient on its *_q_bias's norm
+        ref = c_grads[k[:-len("_k_bias")] + "_q_bias"] \
+            if k.endswith("_k_bias") else want
+        err = np.linalg.norm(grads[k] - want) / np.linalg.norm(ref)
+        assert err <= 1e-4, (k, err)

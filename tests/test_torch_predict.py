@@ -31,6 +31,15 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import programs
 from mxnet_tpu_torch.models import attention_lm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 TOL_OUT = 1e-5

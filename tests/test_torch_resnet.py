@@ -52,6 +52,15 @@ from mxnet_tpu_torch.ops import update_kernel as uk
 from mxnet_tpu_torch.registry import OpContext, get_op
 from mxnet_tpu_torch.weights import params_from_jax, params_to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 TOL_OP = 1e-5
@@ -242,8 +251,18 @@ def test_convolution_matches_jax(attrs):
     _close(g_out, w_out)
     for a, b in zip(g_grads, w_grads):
         _close(a, b, scale=np.abs(b).max())
-    with pytest.raises(NotImplementedError, match="NHWC"):
-        _port_op("Convolution", dict(attrs, layout="NHWC"), inputs)
+    # NHWC data, the weight still OIHW, through both packages
+    nhwc = dict(attrs, layout="NHWC")
+    inputs = [np.ascontiguousarray(x.transpose(0, 2, 3, 1))] + inputs[1:]
+    dy = np.ascontiguousarray(dy.transpose(0, 2, 3, 1))
+    (w_out,), _, w_grads = _jax_op("Convolution", nhwc, inputs, cotangent=dy)
+    (g_out,), _, g_grads = _port_op("Convolution", nhwc, inputs,
+                                    cotangent=dy)
+    assert g_out.shape == w_out.shape == op.infer_shape(
+        op.parse_attrs(nhwc), [inputs[0].shape])[1][0]
+    _close(g_out, w_out)
+    for a, b in zip(g_grads, w_grads):
+        _close(a, b, scale=np.abs(b).max())
 
 
 @pytest.mark.parametrize("act", ["relu", "sigmoid", "tanh", "softrelu",

@@ -26,6 +26,15 @@ from mxnet_tpu_torch import registry as treg
 from mxnet_tpu_torch.base import NameManager as TNameManager
 from mxnet_tpu_torch.executor import simple_bind
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 TOL_OUT = 1e-5

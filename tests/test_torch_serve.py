@@ -171,7 +171,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.rnn, mxnet_tpu_torch.ops.rnn_op, "
             "mxnet_tpu_torch.module.bucketing_module, "
             "mxnet_tpu_torch.models.lstm_lm, mxnet_tpu_torch.model, "
-            "mxnet_tpu_torch.callback, mxnet_tpu_torch.rnn.rnn; "
+            "mxnet_tpu_torch.callback, mxnet_tpu_torch.rnn.rnn, "
+            "mxnet_tpu_torch.autograd, mxnet_tpu_torch.random, "
+            "mxnet_tpu_torch.test_utils, mxnet_tpu_torch.ops.sample; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.')) "
             "or m == 'mxnet_tpu'); print(json.dumps(bad))")

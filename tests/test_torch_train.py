@@ -41,6 +41,15 @@ from mxnet_tpu_torch.ops import attention as tattn
 from mxnet_tpu_torch.ops import fused_lm
 from mxnet_tpu_torch.weights import params_to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 B, T, VOCAB, EMBED, HEADS, FFN, LAYERS = 2, 128, 32, 128, 2, 256, 1

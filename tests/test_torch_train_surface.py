@@ -62,6 +62,15 @@ from mxnet_tpu_torch.ndarray import NDArray
 from mxnet_tpu_torch.ops import update_kernel as uk
 from mxnet_tpu_torch.registry import OpContext, get_op
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 TOL_EAGER = 1e-6

@@ -41,6 +41,15 @@ from mxnet_tpu_torch.io import DataBatch, DataDesc
 from mxnet_tpu_torch.ops import update_kernel as uk
 from mxnet_tpu_torch.weights import params_to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 SHAPES = {"a_weight": (3, 700), "a_bias": (7,), "b_weight": (64, 3, 3, 3),

@@ -80,6 +80,15 @@ from mxnet_tpu_torch.ops import update_kernel as uk
 from mxnet_tpu_torch.registry import OpContext, get_op
 from mxnet_tpu_torch.weights import params_from_jax, params_to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _host_context():
+    """Arrays made without a context go to the host: the port's default
+    context is the card."""
+    with mt.cpu():
+        yield
+
+
 torch.set_num_threads(1)
 
 TOL_OUT = 1e-5
