@@ -26,8 +26,9 @@ Phases (any failure ends the run with a non-zero exit code):
    version over the slabs of ResNet-50's 157 trainables (12,556 blocks)
    and of the LM's, for SGD, SGD-momentum and Adam, f32 masters with and
    without a bf16 compute copy, bf16 masters, clip on and off, lr / wd
-   differing per segment, over the bucketed LSTM LM's slab for the
-   Adam update its path runs, and over Inception-v3's (284 tensors, f32
+   differing per segment, over the bucketed LSTM LM's slab and the SSD
+   example's for the Adam update their paths run, and over
+   Inception-v3's (284 tensors, f32
    masters with the bf16 copy) and AlexNet's (16 tensors, 50.8M values,
    f32) for the SGD-momentum theirs run: bit for bit for SGD and
    SGD-momentum, within one f32 ulp for Adam, padding still 0; timed
@@ -157,7 +158,19 @@ Phases (any failure ends the run with a non-zero exit code):
    eager bit for bit; AdaDelta (eager only) against the CPU;
 11. zoo steps — VGG, GoogLeNet, Inception-BN and ResNeXt-50 at full
    width, one step each (batch 32, f32) with the first-step gates of
-   phase 9 and one timed replay.
+   phase 9 and one timed replay;
+12. train SSD — the SSD example (``models.ssd``, SSD_* below) end to
+   end: its record file, ImageDetIter, Adam through Module, 3 epochs of 8
+   captured steps (one B1 launch each); the first step against the port
+   on the CPU, captured against eager, the loss falling, the trained
+   model's detections card vs CPU; img/s, step ms, idle share, peak
+   memory, device ms by class (``train ssd`` lines);
+13. detection ops — MultiBoxPrior (SSD300's six maps, 8,732 anchors),
+   MultiBoxTarget with hard-negative mining and MultiBoxDetection (full
+   NMS, nms_topk 400) at batch 8 and 21 classes, card against the CPU,
+   timed (the ``detection:`` line, with the card's name and power
+   limit).  The ops phase (6c) now also holds the contrib and spatial
+   op cases, the 38 x 50 Proposal among them.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -168,6 +181,7 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -432,10 +446,12 @@ B1_ADAM_ULPS = 1
 # the captured step is held to eager ones (phase 6)
 IMP_GATE_STEPS, IMP_TIMED_STEPS = 3, 3
 TOL_IMP_LOSS, TOL_IMP_PARAMS = 1e-6, 1e-5
-# phase 12: every op case of the slice on the card against the CPU, f32
-# with TF32 off: |card - cpu| <= TOL_OPS_CARD x max(1, max|cpu|) (the
-# same formulas in CUDA's and the host's libraries, a few ulp apart;
-# cuDNN's and the host's convolutions sum in another order); the
+# phase 6c's ops: every op case on the card against the CPU, f32 with
+# TF32 off: |card - cpu| <= TOL_OPS_CARD x max(1, max|cpu|) (the same
+# formulas in CUDA's and the host's libraries, a few ulp apart; cuDNN's
+# and the host's convolutions sum in another order, and the backward
+# scatter-adds of count_sketch, the gathers and the bilinear sampler add
+# with atomics on the card); the
 # samplers' mean and variance over OPS_DRAWS draws within 6 standard
 # errors of the difference
 TOL_OPS_CARD, OPS_DRAWS = 1e-5, 100000
@@ -443,6 +459,37 @@ TOL_OPS_CARD, OPS_DRAWS = 1e-5, 100000
 # weights and prompts are seeded, so a near-tie that a 1e-6 gap could flip
 # would show in every run, not now and then
 MIN_GREEDY_AGREEMENT = 1.0
+# phase 12, the SSD example (examples/ssd_detection.py) at its own
+# widths (32 x 32 images, 16 / 32 filters, 256 anchors, 3 classes):
+# make_dataset's 64 records, ImageDetIter at batch 8 (shuffle, mirror,
+# seed 0), Adam lr 2e-3, 3 epochs of 8 steps through Module, captured.
+# Its first step on the card against the port on the CPU: the class
+# targets and box masks exactly, the two losses (the class cross-entropy
+# and the smooth-L1 box loss, per image) within TOL_SSD_LOSS relative,
+# the gradients in _grad_tiers' two tiers (the heads, cls_pred_* /
+# loc_pred_*, reach no ReLU; c1 / c2 are behind one)
+SSD_IMAGES, SSD_BATCH, SSD_EPOCHS = 64, 8, 3
+SSD_OPT = {"learning_rate": 2e-3}
+SSD_DIRECT = ("cls_pred_", "loc_pred_")
+TOL_SSD_LOSS = 1e-5
+SSD_KERNEL_GROUPS = {"convolutions": ("conv", "cudnn", "xmma", "gemm",
+                                      "Conv", "wgrad", "dgrad"),
+                     "B1 (multi_tensor_update)": ("mtu_kernel",)}
+# phase 13, the MultiBox ops at SSD300 scale (VOC, 21 classes, batch 8,
+# benchmarks/bench_detection.py): MXNet's example/ssd VGG16-reduced
+# priors over six maps (8,732 anchors), MultiBoxTarget with hard-negative
+# mining, MultiBoxDetection on the bench's inputs with full NMS and with
+# nms_topk 400.  Card against the port on the CPU: integer outputs
+# exactly, floats within TOL_DET x max(1, max|cpu|)
+DET_MAPS = (38, 19, 10, 5, 3, 1)
+DET_SIZES = ((.1, .141), (.2, .272), (.37, .447), (.54, .619), (.71, .79),
+             (.88, .961))
+DET_RATIOS = ((1, 2, .5), (1, 2, .5, 3, 1 / 3), (1, 2, .5, 3, 1 / 3),
+              (1, 2, .5, 3, 1 / 3), (1, 2, .5), (1, 2, .5))
+DET_STEPS = (8, 16, 32, 64, 100, 300)
+DET_ANCHORS, DET_CLASSES, DET_BATCH, DET_TOPK = 8732, 21, 8, 400
+DET_LABEL_ROWS = 16
+TOL_DET = 1e-5
 
 
 def log(*args):
@@ -1677,11 +1724,12 @@ def phase_kernel_b1(torch, dev, flush):
     training slabs the update theirs run, SGD-momentum: Inception-v3's
     (284 tensors, most of them BatchNorm vectors of 32-2048 values) over
     f32 masters with the bf16 compute copy, AlexNet's (16 tensors,
-    50,844,008 values) over f32 masters.  Every segment is
+    50,844,008 values) over f32 masters; and over the SSD example's slab
+    (8 tensors, 14,336 values) its Adam update.  Every segment is
     padded to whole 2,048-element blocks, and lr / wd differ from segment
     to segment."""
     from mxnet_tpu_torch.models import alexnet, attention_lm, inception_v3
-    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.models import resnet, ssd
 
     nets = {
         "resnet50": _trainable_shapes(
@@ -1704,8 +1752,12 @@ def phase_kernel_b1(torch, dev, flush):
         "alexnet": _trainable_shapes(
             alexnet.get_symbol(num_classes=1000),
             data=(ZOO_TRAIN["alexnet"]["batch"], 3, 224, 224),
-            softmax_label=(ZOO_TRAIN["alexnet"]["batch"],))}
+            softmax_label=(ZOO_TRAIN["alexnet"]["batch"],)),
+        "ssd": _trainable_shapes(ssd.get_symbol(),
+                                 data=(SSD_BATCH, 3, 32, 32),
+                                 label=(SSD_BATCH, 1, 5))}
     for net, want in (("resnet50", (157, 25_549_486)),
+                      ("ssd", (8, 14_336)),
                       ("lstm", (11, LSTM_PARAMS)),
                       ("inception_v3", ZOO_TRAIN["inception_v3"]["params"]),
                       ("alexnet", ZOO_TRAIN["alexnet"]["params"])):
@@ -1731,6 +1783,7 @@ def phase_kernel_b1(torch, dev, flush):
     # with the bf16 compute copy, AlexNet's f32
     by_net["inception_v3"] = [("sgd", 1, variants[1])]
     by_net["alexnet"] = [("sgd", 1, variants[0])]
+    by_net["ssd"] = [("adam", 2, variants[0])]
     cases = []
     for net, shapes in nets.items():
         for kind, nslots, (master, cdtype, clip) in by_net[net]:
@@ -2386,10 +2439,11 @@ def phase_train_imperative(torch, dev):
 
 
 def phase_ops(torch, dev):
-    """Every op case of the slice (tests/test_torch_op_cases.py: the
-    elementwise, tensor and layer ops, forward and gradient) on the card
-    against the same op on the CPU, and the samplers by their moments;
-    every op of the slice's 163 names runs."""
+    """Every op case (tests/test_torch_op_cases.py: the elementwise,
+    tensor and layer ops, the contrib ops with the 38 x 50 Proposal, the
+    spatial ops; forward and gradient) on the card against the same op
+    on the CPU, and the samplers by their moments; every op of the
+    imperative slice's 163 names runs."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import registry as reg
 
@@ -2400,7 +2454,8 @@ def phase_ops(torch, dev):
         raise AssertionError("ops of the slice no case runs: %s" % missing)
     worst, bad, count = (0.0, None), [], 0
     t0 = time.perf_counter()
-    for table in (cases.ELEMWISE, cases.TENSOR, cases.NN):
+    for table in (cases.ELEMWISE, cases.TENSOR, cases.NN, cases.CONTRIB,
+                  cases.CONTRIB_LARGE, cases.SPATIAL):
         for name, (op, arrays, attrs, grad) in sorted(table.items()):
             (outs, grads), (c_outs, c_grads) = (
                 cases.run_port(op, arrays, attrs, grad, ctx)
@@ -4073,6 +4128,467 @@ def phase_train_mnist(torch, dev):
     return out, {"multi_tensor_update": fit_launches}
 
 
+def _smi_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError("nvidia-smi failed: %s" % smi.stderr)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _ssd_losses(torch, outs):
+    """The two losses of the SSD objective a step trains, per image: the
+    class cross-entropy over the anchors MultiBoxTarget did not ignore,
+    and the smooth-L1 box loss, from the step's outputs (on its
+    device)."""
+    prob, loc_loss, cls_t = (o.data for o in outs[:3])
+    keep = cls_t >= 0
+    p = prob.gather(1, torch.clamp_min(cls_t, 0).long()[:, None])[:, 0]
+    ce = torch.where(keep, -torch.log(torch.clamp_min(p, 1e-30)), 0.0)
+    return torch.stack([ce.sum(), loc_loss.sum()]) / prob.shape[0]
+
+
+def _ssd_targets(torch, sym, ctx, params, batch):
+    """The graph's MultiBoxTarget outputs (box mask, class targets) at
+    ``params`` on ``batch``, by an executor on ``ctx`` (numpy)."""
+    from mxnet_tpu_torch import symbol as S
+
+    internals = sym.get_internals()
+    names = internals.list_outputs()
+    pick = [next(n for n in names if n.endswith(suffix))
+            for suffix in ("loc_mask", "cls_target")]
+    tgt = S.Group([internals[n] for n in pick])
+    exe = tgt.simple_bind(ctx, grad_req="null",
+                          data=tuple(batch.data[0].shape),
+                          label=tuple(batch.label[0].shape))
+    for n, a in exe.arg_dict.items():
+        a[:] = params[n] if n in params else \
+            (batch.data[0] if n == "data" else batch.label[0])
+    return [o.asnumpy() for o in exe.forward(is_train=True)]
+
+
+def _multibox_ms(torch, dev, mod, batch):
+    """Device ms of the graph's three MultiBox ops a step, each alone on
+    the card at the path's shapes (their inputs taken from one forward
+    of ``mod``); the ops are ordinary torch kernels, so the step's
+    profile cannot tell them apart by name."""
+    from mxnet_tpu_torch import symbol as S
+    from mxnet_tpu_torch.registry import get_op, invoke
+
+    internals = mod.symbol.get_internals()
+    names = internals.list_outputs()
+    want = {}
+    for key, suffix in (("anchors", "multiboxprior0_output"),
+                        ("cls_pred", "transpose1_output"),
+                        ("loc_pred", "flatten0_output"),
+                        ("cls_prob", "cls_prob_output")):
+        want[key] = next(n for n in names if n.endswith(suffix))
+    exe = S.Group([internals[want[k]] for k in
+                   ("anchors", "cls_pred", "loc_pred", "cls_prob")]) \
+        .simple_bind(mod._context, grad_req="null",
+                     data=tuple(batch.data[0].shape),
+                     label=tuple(batch.label[0].shape))
+    arg, _ = mod.get_params()
+    for n, a in exe.arg_dict.items():
+        a[:] = arg[n] if n in arg else \
+            (batch.data[0] if n == "data" else batch.label[0])
+    anchors, cls_pred, loc_pred, cls_prob = \
+        [o.data for o in exe.forward(is_train=True)]
+    label = batch.label[0].data.to(dev)
+    feat = torch.zeros((SSD_BATCH, 32, 8, 8), device=dev)
+    calls = {
+        "MultiBoxPrior": (get_op("MultiBoxPrior"), [feat],
+                          {"sizes": (0.3, 0.6), "ratios": (1.0, 2.0, 0.5)}),
+        "MultiBoxTarget": (get_op("MultiBoxTarget"),
+                           [anchors, label, cls_pred], {}),
+        "MultiBoxDetection": (get_op("MultiBoxDetection"),
+                              [cls_prob, loc_pred, anchors], {})}
+    return {name: _device_ms(torch, lambda op=op, xs=xs, at=at:
+                             invoke(op, xs, at))
+            for name, (op, xs, at) in calls.items()}
+
+
+def phase_train_ssd(torch, dev):
+    """The SSD example end to end on the card: its record file
+    (``models.ssd.make_dataset``: 64 images of 32 x 32, seed 0, ".png"
+    through OpenCV where it is installed, else the raw-array codec; the
+    reading names which), ImageDetIter (batch 8, shuffle, mirror,
+    seed 0), ``models.ssd.get_symbol()`` through Module on gpu(0) with
+    Xavier (seeded) and Adam lr 2e-3, SSD_EPOCHS epochs of 8 captured
+    steps, the example's loop (reset, forward_backward, update).  Gates:
+    the first step against the port's CPU Module (class targets and box
+    masks exactly, both losses within TOL_SSD_LOSS, gradients in two
+    tiers); one B1 launch a step; the captured run against the same run
+    under programs.eager() bit for bit (cuDNN deterministic); the loss
+    of epoch 3 below that of epoch 1; detections of the trained model
+    card vs CPU (kept rows' class ids and order exactly, scores and
+    boxes within TOL_DET).  Readings: img/s and step ms captured and
+    eager, idle share, peak memory, device ms by class."""
+    from mxnet_tpu_torch import NameManager, cpu, gpu, initializer, models
+    from mxnet_tpu_torch import image, programs
+    from mxnet_tpu_torch.image import ImageDetIter
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    tmp = tempfile.mkdtemp(prefix="ssd_smoke_")
+    prefix = os.path.join(tmp, "shapes")
+    models.ssd.make_dataset(prefix, n=SSD_IMAGES)
+
+    def iterator():
+        return ImageDetIter(batch_size=SSD_BATCH, data_shape=(3, 32, 32),
+                            path_imgrec=prefix + ".rec",
+                            path_imgidx=prefix + ".idx", shuffle=True,
+                            rand_mirror=True, label_name="label", seed=0)
+
+    probe = iterator()
+    first = probe.next()
+    with NameManager():
+        sym = models.ssd.get_symbol()
+    torch.manual_seed(0)
+    init = Module(sym, data_names=("data",), label_names=("label",),
+                  context=cpu())
+    init.bind(data_shapes=probe.provide_data,
+              label_shapes=probe.provide_label, for_training=False)
+    init.init_params(initializer.Xavier())
+    start = {k: v.asnumpy() for k, v in init.get_params()[0].items()}
+
+    def module(ctx):
+        mod = Module(sym, data_names=("data",), label_names=("label",),
+                     context=ctx)
+        mod.bind(data_shapes=probe.provide_data,
+                 label_shapes=probe.provide_label)
+        mod.init_params(arg_params=start)
+        mod.init_optimizer(optimizer="adam", optimizer_params=SSD_OPT)
+        return mod
+
+    out = {"images": SSD_IMAGES, "batch": SSD_BATCH, "epochs": SSD_EPOCHS,
+           "anchors": 256,
+           "image_codec": "cv2" if image._cv2() is not None else "raw"}
+    with _cudnn_deterministic(torch):
+        # the first step, card against the host
+        kmod, hmod = module(gpu(0)), module(cpu())
+        if kmod._train_step is None or kmod._train_step.plan is None:
+            raise AssertionError("the SSD module armed no slab plan")
+        steps = []
+        for mod in (kmod, hmod):
+            before = uk.LAUNCHES["multi_tensor_update"]
+            mod.forward_backward(first)
+            mod.update()
+            outs = mod.get_outputs()
+            steps.append(([o.asnumpy() for o in outs],
+                          _ssd_losses(torch, outs).double().cpu().numpy(),
+                          _zoo_grads(mod),
+                          uk.LAUNCHES["multi_tensor_update"] - before))
+        (k_outs, k_loss, k_grads, k_b1), (h_outs, h_loss, h_grads, h_b1) \
+            = steps
+        targets = [_ssd_targets(torch, sym, ctx, start, first)
+                   for ctx in (gpu(0), cpu())]
+        loss_err = [float(abs(k - h) / max(abs(h), 1e-30))
+                    for k, h in zip(k_loss, h_loss)]
+        first_gate = {
+            "cls_target_equal": bool(np.array_equal(k_outs[2], h_outs[2])
+                                     and np.array_equal(targets[0][1],
+                                                        targets[1][1])),
+            "loc_mask_equal": bool(np.array_equal(targets[0][0],
+                                                  targets[1][0])),
+            "matched_anchors": int(targets[1][0].sum() / 4),
+            "losses": [float(v) for v in h_loss],
+            "loss_rel_err": loss_err, "tol": TOL_SSD_LOSS,
+            "b1_launches": [k_b1, h_b1],
+            "grads": _grad_tiers(torch, k_grads,
+                                 {n: g.to(dev) for n, g in h_grads.items()},
+                                 "ssd first step", direct=SSD_DIRECT)}
+        log("train ssd first step card vs cpu: " + json.dumps(first_gate))
+        if not (first_gate["cls_target_equal"]
+                and first_gate["loc_mask_equal"]
+                and max(loss_err) <= TOL_SSD_LOSS and k_b1 == 1):
+            raise AssertionError("SSD first step, card vs cpu: %s"
+                                 % first_gate)
+        del kmod, hmod, steps, k_grads, h_grads
+
+        def train(eager):
+            mod = module(gpu(0))
+            it = iterator()
+            losses, walls, nsteps = [], [], 0
+            with programs.eager() if eager else contextlib.nullcontext():
+                for _ in range(SSD_EPOCHS):
+                    it.reset()
+                    total = torch.zeros((), device=dev)
+                    n = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for batch in it:
+                        mod.forward_backward(batch)
+                        mod.update()
+                        total += _ssd_losses(torch, mod.get_outputs()).sum()
+                        n += 1
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    losses.append(float(total) / n)
+                    nsteps += n
+            return mod, losses, walls, nsteps
+
+        def values(mod):
+            arg, _ = mod.get_params()
+            vals = {n: v.data.clone() for n, v in arg.items()}
+            for i, st in mod._updater.states.items():
+                for j, t in enumerate(st if isinstance(st, tuple)
+                                      else (st,)):
+                    vals["state:%d:%d" % (i, j)] = t.clone()
+            return vals
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        graphs0 = dict(programs.GRAPH_STATS)
+        uk.LAUNCHES["multi_tensor_update"] = 0
+        cmod, losses, walls, nsteps = train(eager=False)
+        launched = uk.LAUNCHES["multi_tensor_update"]
+        graphs = _graph_delta(graphs0)
+        # the run's own peak, above what earlier phases left allocated
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        emod, e_losses, e_walls, _ = train(eager=True)
+        got, want = values(cmod), values(emod)
+        unequal = [n for n in want if not torch.equal(got[n], want[n])]
+        capture = {"tensors": len(want), "unequal": len(unequal),
+                   "first_unequal": unequal[:4],
+                   "losses_equal": losses == e_losses}
+        if unequal:
+            # the rule of phase 6: within twice two eager runs' spread
+            e2 = values(train(eager=True)[0])
+            spread = max(float((want[n] - e2[n]).abs().max())
+                         for n in want)
+            diff = max(float((got[n] - want[n]).abs().max())
+                       for n in want)
+            capture.update(eager_spread=spread, max_abs_diff=diff)
+        log("train ssd captured vs eager: " + json.dumps(capture))
+        if unequal and not capture["max_abs_diff"] <= \
+                2 * capture["eager_spread"]:
+            raise AssertionError("SSD captured vs eager: %s" % capture)
+        if launched != nsteps or not losses[-1] < losses[0]:
+            raise AssertionError("SSD: %d B1 launches for %d steps, losses "
+                                 "%s" % (launched, nsteps, losses))
+
+        # the trained model's detections, card against the host
+        trained = {k: v.asnumpy() for k, v in cmod.get_params()[0].items()}
+        dets = []
+        for ctx in (gpu(0), cpu()):
+            mod = Module(sym, data_names=("data",), label_names=("label",),
+                         context=ctx)
+            mod.bind(data_shapes=probe.provide_data,
+                     label_shapes=probe.provide_label, for_training=False)
+            mod.init_params(arg_params=trained)
+            mod.forward(first, is_train=False)
+            dets.append(mod.get_outputs()[3].asnumpy())
+        det, h_det = dets
+        kept = h_det[..., 0] >= 0
+        det_gate = {"kept_rows": int(kept.sum()),
+                    "rows_equal": bool(np.array_equal(det[..., 0] >= 0,
+                                                      kept)),
+                    "class_ids_equal": bool(np.array_equal(
+                        det[..., 0][kept], h_det[..., 0][kept])),
+                    "max_rel_err": float(np.abs(det[kept][:, 1:]
+                                                - h_det[kept][:, 1:]).max())
+                    / max(1.0, float(np.abs(h_det[kept][:, 1:]).max()))
+                    if kept.any() else 0.0, "tol": TOL_DET}
+        log("train ssd detections card vs cpu: " + json.dumps(det_gate))
+        if not (det_gate["kept_rows"] and det_gate["rows_equal"]
+                and det_gate["class_ids_equal"]
+                and det_gate["max_rel_err"] <= TOL_DET):
+            raise AssertionError("SSD detections card vs cpu: %s"
+                                 % det_gate)
+
+        # readings: the last epochs' walls, a profiled epoch of each
+        def epoch_run(mod, eager):
+            def run():
+                it = iterator()
+                with programs.eager() if eager \
+                        else contextlib.nullcontext():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for batch in it:
+                        mod.forward_backward(batch)
+                        mod.update()
+                    torch.cuda.synchronize()
+                return time.perf_counter() - t0
+            return run
+
+        epoch_s = epoch_run(cmod, False)()
+        eager_epoch_s = epoch_run(emod, True)()
+        profile = _profile(torch, epoch_run(cmod, False), SSD_KERNEL_GROUPS)
+        profile_eager = _profile(torch, epoch_run(emod, True),
+                                 SSD_KERNEL_GROUPS)
+        multibox = _multibox_ms(torch, dev, cmod, first)
+    steps_epoch = SSD_IMAGES // SSD_BATCH
+    out.update(
+        losses=losses, eager_losses=e_losses, b1_launches=launched,
+        steps=nsteps, graph_stats=graphs, peak_memory_gb=peak,
+        epoch_walls_s=walls, eager_epoch_walls_s=e_walls,
+        step_ms={"captured": epoch_s / steps_epoch * 1e3,
+                 "eager": eager_epoch_s / steps_epoch * 1e3},
+        img_per_s={"captured": SSD_IMAGES / epoch_s,
+                   "eager": SSD_IMAGES / eager_epoch_s},
+        idle_share=_idle_shares(profile, profile_eager, epoch_s,
+                                eager_epoch_s),
+        device_ms_by_class={
+            "captured_epoch": profile.get("groups"),
+            "eager_epoch": profile_eager.get("groups"),
+            "multibox_ops_a_step": multibox},
+        first_step=first_gate, capture=capture, detections=det_gate)
+    log("train ssd: " + json.dumps(out))
+    log("train ssd profile: " + json.dumps(profile))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out, {"multi_tensor_update": launched}
+
+
+def _det_labels(rng):
+    """(DET_BATCH, DET_LABEL_ROWS, 5) ground truth: 1-8 real boxes an
+    image (classes 0-19, sides 0.05-0.5), -1 padding."""
+    out = np.full((DET_BATCH, DET_LABEL_ROWS, 5), -1.0, np.float32)
+    for i in range(DET_BATCH):
+        k = rng.randint(1, 9)
+        wh = rng.uniform(0.05, 0.5, (k, 2))
+        x0 = rng.uniform(0, 1, k) * (1 - wh[:, 0])
+        y0 = rng.uniform(0, 1, k) * (1 - wh[:, 1])
+        out[i, :k] = np.stack([rng.randint(0, DET_CLASSES - 1, k), x0, y0,
+                               x0 + wh[:, 0], y0 + wh[:, 1]], axis=1)
+    return out
+
+
+def _det_compare(outs, h_outs, ints):
+    """Card outputs against the host's: ``ints`` (output indices, or
+    (index, column)) exactly, the rest within TOL_DET x max(1,
+    max|cpu|)."""
+    res = {"int_equal": True, "max_rel_err": 0.0}
+    for i, (got, want) in enumerate(zip(outs, h_outs)):
+        got, want = got.astype(np.float64), want.astype(np.float64)
+        if i in ints:
+            res["int_equal"] &= bool(np.array_equal(got, want))
+            continue
+        if (i, 0) in ints:
+            res["int_equal"] &= bool(np.array_equal(got[..., 0],
+                                                    want[..., 0]))
+            got, want = got[..., 1:], want[..., 1:]
+        err = float(np.abs(got - want).max()) / max(
+            1.0, float(np.abs(want).max()))
+        res["max_rel_err"] = max(res["max_rel_err"], err)
+    res["ok"] = res["int_equal"] and res["max_rel_err"] <= TOL_DET
+    return res
+
+
+def phase_detection_ops(torch, dev):
+    """MultiBoxPrior, MultiBoxTarget and MultiBoxDetection (full NMS and
+    nms_topk) at SSD300 scale on the card against the port on the CPU
+    (see DET_*), with ms a batch (CUDA events), device ms and peak
+    memory; a ``detection:`` line with the card's name and power
+    limit."""
+    from mxnet_tpu_torch.registry import get_op, invoke
+
+    def run(op, xs, attrs, device):
+        return [o for o in invoke(get_op(op), [x.to(device) for x in xs],
+                                  attrs)[0]]
+
+    def timed(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def peak_gb(fn):
+        """The call's own peak: above what was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    cases = {}
+    # MultiBoxPrior over the six maps, concatenated
+    prior_calls = []
+    for m, size, ratio, step in zip(DET_MAPS, DET_SIZES, DET_RATIOS,
+                                    DET_STEPS):
+        prior_calls.append(([torch.zeros((1, 1, m, m))],
+                            {"sizes": size, "ratios": ratio,
+                             "steps": (step / 300, step / 300)}))
+
+    def priors(device):
+        return torch.cat([run("MultiBoxPrior", xs, at, device)[0]
+                          for xs, at in prior_calls], dim=1)
+
+    anchors = priors(dev)
+    h_anchors = priors(torch.device("cpu"))
+    if anchors.shape != (1, DET_ANCHORS, 4):
+        raise AssertionError("SSD300 priors: %s anchors, not %d"
+                             % (tuple(anchors.shape), DET_ANCHORS))
+    cases["MultiBoxPrior"] = (lambda: priors(dev), [anchors], [h_anchors],
+                              ())
+    rng = np.random.RandomState(0)
+    labels = torch.from_numpy(_det_labels(rng))
+    cls_pred = torch.from_numpy(rng.randn(DET_BATCH, DET_CLASSES,
+                                          DET_ANCHORS).astype(np.float32))
+    tattrs = {"overlap_threshold": 0.5, "negative_mining_ratio": 3.0,
+              "negative_mining_thresh": 0.5}
+    txs = [h_anchors, labels, cls_pred]
+    cases["MultiBoxTarget"] = (
+        lambda: run("MultiBoxTarget", txs, tattrs, dev),
+        run("MultiBoxTarget", txs, tattrs, dev),
+        run("MultiBoxTarget", txs, tattrs, torch.device("cpu")), (1, 2))
+    # benchmarks/bench_detection.py:37-46's inputs
+    rng = np.random.RandomState(0)
+    logits = rng.randn(DET_BATCH, DET_CLASSES, DET_ANCHORS) \
+        .astype(np.float32)
+    logits[:, 0] += 3.0
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    loc = (rng.randn(DET_BATCH, DET_ANCHORS * 4) * 0.1).astype(np.float32)
+    centers = rng.rand(1, DET_ANCHORS, 4).astype(np.float32)
+    bench_anchors = np.concatenate(
+        [centers[..., :2] - 0.05 * centers[..., 2:],
+         centers[..., :2] + 0.05 * centers[..., 2:]], axis=-1) \
+        .astype(np.float32)
+    dxs = [torch.from_numpy(prob), torch.from_numpy(loc),
+           torch.from_numpy(bench_anchors)]
+    for name, extra in (("MultiBoxDetection", {}),
+                        ("MultiBoxDetection nms_topk",
+                         {"nms_topk": DET_TOPK})):
+        attrs = dict({"threshold": 0.01, "nms_threshold": 0.45}, **extra)
+        cases[name] = (
+            lambda attrs=attrs: run("MultiBoxDetection", dxs, attrs, dev),
+            run("MultiBoxDetection", dxs, attrs, dev),
+            run("MultiBoxDetection", dxs, attrs, torch.device("cpu")),
+            ((0, 0),))
+    line = {"card": _smi_line(), "anchors": DET_ANCHORS,
+            "classes": DET_CLASSES, "batch": DET_BATCH, "ops": {}}
+    bad = []
+    for name, (fn, outs, h_outs, ints) in cases.items():
+        gate = _det_compare([o.cpu().numpy() for o in outs],
+                            [o.numpy() for o in h_outs], ints)
+        reading = {"ms": timed(fn), "device_ms": _device_ms(torch, fn, 1),
+                   "peak_memory_gb": peak_gb(fn), **gate}
+        if name.startswith("MultiBoxDetection"):
+            reading["kept"] = int((outs[0][..., 0] >= 0).sum())
+        if name == "MultiBoxTarget":
+            cls_t = outs[2]
+            reading.update(positives=int((cls_t > 0).sum()),
+                           negatives=int((cls_t == 0).sum()),
+                           ignored=int((cls_t < 0).sum()))
+        line["ops"][name] = reading
+        if not gate["ok"]:
+            bad.append(name)
+    log("detection: " + json.dumps(line))
+    if bad:
+        raise AssertionError("detection ops card vs cpu: %s" % bad)
+    return line
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4157,6 +4673,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_zoo_steps(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, ssd_launches = phase_train_ssd(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_detection_ops(torch, dev)
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -4266,7 +4788,9 @@ def main():
                   "train_resnet": resnet_launches["multi_tensor_update"]}
     b1_by_path.update(lstm_launches)
     b1_by_path.update(zoo_launches)
+    b1_by_path["train_ssd"] = ssd_launches["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
+    b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}
     kernels.append(dict(
         _entry("multi_tensor_update",
@@ -4283,6 +4807,10 @@ def main():
             "kind", "master", "blocks", "elements", "max_ulps",
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "device_ms")},
+        ssd_case={k: b1_ssd[k] for k in (
+            "kind", "master", "blocks", "elements", "max_ulps",
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "device_ms")},
         zoo_cases={net: {k: c[k] for k in (
             "kind", "master", "wc", "tensors", "blocks", "elements",
             "bitwise", "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -4292,12 +4820,7 @@ def main():
         max_ulps_all_cases=max(c["max_ulps"] for c in b1_cases)))
     log("total wall: %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        raise RuntimeError("nvidia-smi failed: %s" % smi.stderr)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

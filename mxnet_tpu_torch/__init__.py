@@ -34,7 +34,15 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
   tensor, nn and sample ops), :mod:`~mxnet_tpu_torch.autograd` on
   torch's autograd, :mod:`~mxnet_tpu_torch.random`,
   :mod:`~mxnet_tpu_torch.test_utils`, ``current_context`` and the
-  ``with ctx:`` scope (the default context is the card).
+  ``with ctx:`` scope (the default context is the card);
+* detection and the rest of the op library: the contrib ops (the SSD
+  MultiBox ops, ``Proposal``, ``CTCLoss``, ``fft``, quantization,
+  ``count_sketch``), the spatial ops, user ops
+  (:mod:`~mxnet_tpu_torch.operator`, ``Custom``),
+  :mod:`~mxnet_tpu_torch.recordio` and
+  :mod:`~mxnet_tpu_torch.image` (the image and detection iterators),
+  ``PythonModule`` / ``PythonLossModule`` / ``SequentialModule`` and
+  ``models.ssd``.
 
 The hand-written Hopper kernels (``csrc/``): the fused LN->linear
 forward and backward (:mod:`~mxnet_tpu_torch.ops.fused_kernel`), flash
@@ -45,6 +53,7 @@ multi-tensor optimizer update (:mod:`~mxnet_tpu_torch.ops.update_kernel`).  Entr
 on the card unless given the CPU (``device="cpu"``, ``context=cpu()``).
 """
 from . import base, config, context, ops, registry
+from . import operator  # registers Custom
 from . import symbol
 from .base import AttrScope, MXNetError, NameManager
 from .context import Context, cpu, current_context, gpu
@@ -54,8 +63,9 @@ sym = symbol
 
 from . import decode, models, programs, serve, weights  # noqa: E402
 from . import (autograd, callback, executor, initializer,  # noqa: E402
-               io, lr_scheduler, metric, model, module, monitor, ndarray,
-               optimizer, predictor, random, rnn, test_utils, train_step)
+               image, io, lr_scheduler, metric, model, module, monitor,
+               ndarray, optimizer, predictor, random, recordio, rnn,
+               test_utils, train_step)
 from .decode import DecodePredictor, DecodeServer  # noqa: E402
 from .model import FeedForward  # noqa: E402
 from .predictor import Predictor  # noqa: E402
@@ -67,8 +77,9 @@ nd = ndarray
 __all__ = ["AttrScope", "Context", "DecodePredictor", "DecodeServer",
            "FeedForward", "MXNetError", "NameManager", "Predictor",
            "autograd", "base", "callback", "config", "context", "cpu",
-           "current_context", "decode", "executor", "gpu", "initializer",
-           "io", "lr_scheduler", "metric", "mod", "model", "models",
-           "module", "monitor", "nd", "ndarray", "ops", "optimizer",
-           "predictor", "programs", "random", "registry", "rnn", "serve",
-           "sym", "symbol", "test_utils", "train_step", "weights"]
+           "current_context", "decode", "executor", "gpu", "image",
+           "initializer", "io", "lr_scheduler", "metric", "mod", "model",
+           "models", "module", "monitor", "nd", "ndarray", "operator",
+           "ops", "optimizer", "predictor", "programs", "random",
+           "recordio", "registry", "rnn", "serve", "sym", "symbol",
+           "test_utils", "train_step", "weights"]

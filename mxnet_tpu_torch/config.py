@@ -6,8 +6,9 @@ run, on the CPU their plain versions do.  That holds for the train
 step's multi-tensor optimizer update too: its slab plan is armed
 wherever the optimizer and the masters allow it.  The training loop's
 keys (``MXNET_FUSED_TRAIN_STEP``, ``MXNET_DEVICE_METRICS``,
-``MXNET_MAX_STEPS_IN_FLIGHT``, ``MXNET_PREFETCH_DEPTH``,
-``MXNET_DEVICE_PREFETCH``) are the JAX package's, with its defaults.
+``MXNET_METRIC_SYNC_PERIOD``, ``MXNET_MAX_STEPS_IN_FLIGHT``,
+``MXNET_PREFETCH_DEPTH``, ``MXNET_DEVICE_PREFETCH``) are the JAX
+package's, with its defaults.
 """
 from __future__ import annotations
 
@@ -150,6 +151,11 @@ register("MXNET_DEVICE_METRICS", bool, True,
          "for metrics that implement the device protocol (metric.py "
          "device_batch); reading the metric is the only sync.  0 = the "
          "host-side metric.update path.")
+register("MXNET_METRIC_SYNC_PERIOD", int, 0,
+         "With device-side metric accumulation active, pull the metric "
+         "accumulators to the host every N training steps.  0 (default) "
+         "syncs only at natural boundaries (epoch end, or whenever a "
+         "callback reads the metric).")
 register("MXNET_MAX_STEPS_IN_FLIGHT", int, 2,
          "Upper bound on dispatched-but-unfinished training steps in "
          "fit(): the loop waits on the event of the step K behind, not on "

@@ -14,8 +14,9 @@ one drew from, so Dropout's masks repeat).
 An inference forward (``is_train=False``) replays one captured program
 per executor (:class:`~mxnet_tpu_torch.train_step.CompiledForward`,
 the counterpart of the JAX package's jitted ``fwd_test``) unless
-``programs.eager()`` is on or a monitor tap is armed; a monitored run
-is eager and calls the tap with every node's outputs by name.  Aux
+``programs.eager()`` is on, a monitor tap is armed or the graph holds a
+node no program may capture (a Custom op); a monitored run is eager and
+calls the tap with every node's outputs by name.  Aux
 states and gradients are written into their arrays IN PLACE, so the
 tensors a captured program binds by pointer stay the arrays' storage
 whichever path ran last.
@@ -30,6 +31,14 @@ from .ndarray import NDArray, _device, zeros
 from .registry import OpContext
 
 __all__ = ["Executor", "simple_bind"]
+
+
+def uncapturable_ops(symbol):
+    """The names of ``symbol``'s nodes whose op may read values back to
+    the host (``OpDef.capturable`` False: Custom), which no captured
+    program may hold."""
+    return [n.name for n in symbol._topo()
+            if not n.is_variable and not n.op.capturable]
 
 
 def run_graph(symbol, env_args, env_aux, octx, tap=None):
@@ -67,8 +76,11 @@ def forward_backward(symbol, env_args, env_aux, grad_names, octx,
                      head_grads=None, tap=None):
     """One training pass: forward under autograd with ``grad_names`` as
     leaves, then their gradients from ``head_grads`` seeded at the
-    outputs (ones when None).  Returns ``(outputs, new_aux, grads)``,
-    outputs detached."""
+    outputs (ones when None); outputs no gradient reaches (BlockGrad's)
+    are skipped.  Returns ``(outputs, new_aux, grads)``, outputs
+    detached."""
+    from .autograd import _grads
+
     env = dict(env_args)
     leaves = [env[n].detach().requires_grad_(True) for n in grad_names]
     env.update(zip(grad_names, leaves))
@@ -76,9 +88,7 @@ def forward_backward(symbol, env_args, env_aux, grad_names, octx,
         outs, new_aux = run_graph(symbol, env, env_aux, octx, tap)
         seeds = [torch.ones_like(o) for o in outs] if head_grads is None \
             else [g.to(o.device, o.dtype) for g, o in zip(head_grads, outs)]
-        grads = torch.autograd.grad(outs, leaves, seeds, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(leaves, grads)]
+        grads = _grads(outs, seeds, leaves, retain_graph=False)
     return ([o.detach() for o in outs],
             {n: v.detach() for n, v in new_aux.items()}, grads)
 
@@ -141,6 +151,7 @@ class Executor:
         self._last_gen_state = None   # the last training forward's
         self._monitor_callback = None
         self._compiled_forward = None
+        self._capturable = not uncapturable_ops(symbol)
 
     @property
     def arg_arrays(self):
@@ -205,8 +216,10 @@ class Executor:
                 self._symbol, env_args, env_aux, self._grad_names,
                 self.op_context(True), tap=tap)
         elif (is_train or tap is not None or programs.graphs.eager_active()
-              or not (self.arg_dict or self.aux_dict)):
-            # a graph without arrays gives a program nothing to bind
+              or not (self.arg_dict or self.aux_dict)
+              or not self._capturable):
+            # a graph without arrays gives a program nothing to bind;
+            # a Custom node's Python body cannot be captured
             with torch.no_grad():
                 outs, new_aux = run_graph(self._symbol, env_args, env_aux,
                                           self.op_context(is_train), tap)

@@ -1,0 +1,882 @@
+"""Image pipeline: decode, geometric/photometric augmenters, image iterators.
+
+The port's copy of ``mxnet_tpu/image.py`` (the reference's
+``python/mxnet/image.py`` + ``src/io/iter_image_recordio.cc`` /
+``image_aug_default.cc``): the same seed gives the JAX package's batches
+bit for bit.  As every iterator of the port, the batches are host
+NDArrays (``ctx=cpu()``); ``Module`` (or ``io.DevicePrefetchIter``)
+moves them onto its device.  The design, as the JAX package's:
+
+* augmenters are single-image -> single-image callables with an explicit
+  per-pipeline ``numpy.random.Generator`` (reproducible via ``seed``;
+  the reference uses process-global RNG state);
+* the sample stream is split out into small Source objects (record file,
+  image list / directory) so the iterator body is only batching+augmenting;
+* batches are assembled HWC and transposed to NCHW once, at the end.
+
+Decode uses cv2 when available and falls back to the raw-array codec in
+``recordio`` otherwise.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .base import MXNetError
+from . import io as io_mod
+from . import recordio
+from .context import cpu
+from .io import DataBatch, DataDesc, DataIter
+from .ndarray import array
+
+__all__ = ["imdecode", "scale_down", "resize_short", "fixed_crop",
+           "random_crop", "center_crop", "color_normalize",
+           "random_size_crop", "ResizeAug", "RandomCropAug",
+           "RandomSizedCropAug", "CenterCropAug", "RandomOrderAug",
+           "ColorJitterAug", "LightingAug", "ColorNormalizeAug",
+           "HorizontalFlipAug", "CastAug", "CreateAugmenter", "ImageIter",
+           "ImageRecordIter", "DetAugmenter", "DetHorizontalFlipAug",
+           "DetRandomCropAug", "DetBorderAug", "CreateDetAugmenter",
+           "ImageDetIter", "ImageDetRecordIter"]
+
+_LUMA = np.array([0.299, 0.587, 0.114], np.float32)  # ITU-R BT.601
+
+
+def _cv2():
+    try:
+        import cv2
+        return cv2
+    except ImportError:
+        return None
+
+
+def imdecode(buf, flag=1, to_rgb=True):
+    """Decode a compressed image buffer to an HWC uint8 array."""
+    cv2 = _cv2()
+    if cv2 is None:
+        raise MXNetError("imdecode needs cv2; store raw-array records when "
+                         "OpenCV is unavailable")
+    img = cv2.imdecode(np.frombuffer(buf, dtype=np.uint8), flag)
+    if img is None:
+        raise MXNetError("imdecode failed (truncated or unsupported buffer)")
+    return img[:, :, ::-1] if to_rgb else img
+
+
+def _resize(img, w, h, interp=1):
+    cv2 = _cv2()
+    if cv2 is not None:
+        return cv2.resize(img, (w, h), interpolation=interp)
+    # nearest-neighbor fallback via index maps
+    rows = np.minimum((np.arange(h) * img.shape[0]) // h, img.shape[0] - 1)
+    cols = np.minimum((np.arange(w) * img.shape[1]) // w, img.shape[1] - 1)
+    return img[rows[:, None], cols[None, :]]
+
+
+# -- functional geometry ----------------------------------------------------
+
+
+def scale_down(src_size, size):
+    """Shrink the requested crop size to fit inside the source, keeping
+    aspect."""
+    sw, sh = src_size
+    w, h = size
+    if sh < h:
+        w, h = w * sh / h, sh
+    if sw < w:
+        w, h = sw, h * sw / w
+    return int(w), int(h)
+
+
+def resize_short(src, size, interp=2):
+    """Resize so the SHORTER edge equals ``size`` exactly (the longer edge
+    rounds to preserve aspect)."""
+    h, w = src.shape[:2]
+    if h <= w:
+        new_h, new_w = size, max(1, int(round(w * size / h)))
+    else:
+        new_h, new_w = max(1, int(round(h * size / w))), size
+    return _resize(src, new_w, new_h, interp)
+
+
+def fixed_crop(src, x0, y0, w, h, size=None, interp=2):
+    window = src[y0:y0 + h, x0:x0 + w]
+    if size is not None and size != (w, h):
+        window = _resize(window, size[0], size[1], interp)
+    return window
+
+
+def _rng_of(rng):
+    return rng if rng is not None else np.random.default_rng()
+
+
+def random_crop(src, size, interp=2, rng=None):
+    rng = _rng_of(rng)
+    h, w = src.shape[:2]
+    cw, ch = scale_down((w, h), size)
+    x0 = int(rng.integers(0, w - cw + 1))
+    y0 = int(rng.integers(0, h - ch + 1))
+    return fixed_crop(src, x0, y0, cw, ch, size, interp), (x0, y0, cw, ch)
+
+
+def center_crop(src, size, interp=2):
+    h, w = src.shape[:2]
+    cw, ch = scale_down((w, h), size)
+    x0, y0 = (w - cw) // 2, (h - ch) // 2
+    return fixed_crop(src, x0, y0, cw, ch, size, interp), (x0, y0, cw, ch)
+
+
+def random_size_crop(src, size, min_area, ratio, interp=2, rng=None,
+                     attempts=10):
+    """Crop a random area/aspect window (Inception-style), falling back to a
+    center crop when no attempt fits."""
+    rng = _rng_of(rng)
+    h, w = src.shape[:2]
+    for _ in range(attempts):
+        target_area = rng.uniform(min_area, 1.0) * w * h
+        aspect = rng.uniform(*ratio)
+        cw = int(round(np.sqrt(target_area * aspect)))
+        ch = int(round(np.sqrt(target_area / aspect)))
+        if rng.random() < 0.5:
+            cw, ch = ch, cw
+        if cw <= w and ch <= h:
+            x0 = int(rng.integers(0, w - cw + 1))
+            y0 = int(rng.integers(0, h - ch + 1))
+            return fixed_crop(src, x0, y0, cw, ch, size, interp), \
+                (x0, y0, cw, ch)
+    return center_crop(src, size, interp)
+
+
+def color_normalize(src, mean, std=None):
+    out = src.astype(np.float32) - mean
+    return out if std is None else out / std
+
+
+# -- augmenters -------------------------------------------------------------
+#
+# An augmenter is a callable (img) -> img carrying its own Generator.  The
+# factory names mirror the reference API; seed= gives reproducibility.
+
+
+class Augmenter:
+    def __init__(self, fn, rng=None):
+        self._fn = fn
+        self.rng = _rng_of(rng)
+
+    def __call__(self, img):
+        return self._fn(img, self.rng)
+
+
+def ResizeAug(size, interp=2, seed=None):
+    return Augmenter(lambda img, rng: resize_short(img, size, interp),
+                     np.random.default_rng(seed))
+
+
+def RandomCropAug(size, interp=2, seed=None):
+    return Augmenter(
+        lambda img, rng: random_crop(img, size, interp, rng)[0],
+        np.random.default_rng(seed))
+
+
+def RandomSizedCropAug(size, min_area, ratio, interp=2, seed=None):
+    return Augmenter(
+        lambda img, rng: random_size_crop(img, size, min_area, ratio,
+                                          interp, rng)[0],
+        np.random.default_rng(seed))
+
+
+def CenterCropAug(size, interp=2, seed=None):
+    return Augmenter(lambda img, rng: center_crop(img, size, interp)[0],
+                     np.random.default_rng(seed))
+
+
+def HorizontalFlipAug(p, seed=None):
+    return Augmenter(
+        lambda img, rng: img[:, ::-1] if rng.random() < p else img,
+        np.random.default_rng(seed))
+
+
+def CastAug(seed=None):
+    return Augmenter(lambda img, rng: img.astype(np.float32),
+                     np.random.default_rng(seed))
+
+
+def ColorNormalizeAug(mean, std, seed=None):
+    return Augmenter(lambda img, rng: color_normalize(img, mean, std),
+                     np.random.default_rng(seed))
+
+
+def RandomOrderAug(members, seed=None):
+    """Apply every member augmenter, in a freshly shuffled order per image."""
+    members = list(members)
+
+    def apply(img, rng):
+        order = rng.permutation(len(members))
+        for i in order:
+            img = members[i](img)
+        return img
+
+    return Augmenter(apply, np.random.default_rng(seed))
+
+
+def _jitter(img, alpha, toward):
+    """Blend img toward a target frame: alpha*img + (1-alpha)*toward."""
+    return img * alpha + toward * (1.0 - alpha)
+
+
+def ColorJitterAug(brightness, contrast, saturation, seed=None):
+    """Random brightness/contrast/saturation jitter, shuffled order.
+
+    Each member augmenter gets an independent generator derived from
+    ``seed`` (SeedSequence spawn), so a seeded pipeline is fully
+    reproducible and the three jitters stay uncorrelated.
+    """
+    ss = seed if isinstance(seed, np.random.SeedSequence) \
+        else np.random.SeedSequence(seed)
+    children = iter(ss.spawn(4))
+    members = []
+    if brightness > 0:
+        def jitter_b(img, rng):
+            return img * (1.0 + rng.uniform(-brightness, brightness))
+        members.append(Augmenter(jitter_b,
+                                 np.random.default_rng(next(children))))
+    if contrast > 0:
+        def jitter_c(img, rng):
+            alpha = 1.0 + rng.uniform(-contrast, contrast)
+            mean_luma = (img * _LUMA).sum() / (img.size / 3)
+            return _jitter(img, alpha, mean_luma)
+        members.append(Augmenter(jitter_c,
+                                 np.random.default_rng(next(children))))
+    if saturation > 0:
+        def jitter_s(img, rng):
+            alpha = 1.0 + rng.uniform(-saturation, saturation)
+            luma = (img * _LUMA).sum(axis=2, keepdims=True)
+            return _jitter(img, alpha, luma)
+        members.append(Augmenter(jitter_s,
+                                 np.random.default_rng(next(children))))
+    return RandomOrderAug(members, next(children))
+
+
+def LightingAug(alphastd, eigval, eigvec, seed=None):
+    """AlexNet-style PCA lighting noise."""
+    def light(img, rng):
+        alpha = rng.normal(0, alphastd, 3)
+        return img + eigvec @ (alpha * eigval)
+
+    return Augmenter(light, np.random.default_rng(seed))
+
+
+# ImageNet RGB PCA basis (AlexNet paper) and torchvision-convention moments
+_IMAGENET_EIGVAL = np.array([55.46, 4.794, 1.148])
+_IMAGENET_EIGVEC = np.array([[-0.5675, 0.7192, 0.4009],
+                             [-0.5808, -0.0045, -0.8140],
+                             [-0.5836, -0.6948, 0.4203]])
+_IMAGENET_MEAN = np.array([123.68, 116.28, 103.53])
+_IMAGENET_STD = np.array([58.395, 57.12, 57.375])
+
+
+def CreateAugmenter(data_shape, resize=0, rand_crop=False, rand_resize=False,
+                    rand_mirror=False, mean=None, std=None, brightness=0,
+                    contrast=0, saturation=0, pca_noise=0, inter_method=2,
+                    seed=None, cast=True):
+    """Assemble the standard training/eval chain: resize -> crop -> flip ->
+    cast -> photometric -> normalize.
+
+    Every random augmenter gets its own generator spawned from ``seed``
+    (independent streams; reproducible when seed is set).
+    """
+    spawn = iter(np.random.SeedSequence(seed).spawn(8))
+    chain = []
+    if resize > 0:
+        chain.append(ResizeAug(resize, inter_method, next(spawn)))
+    crop = (data_shape[2], data_shape[1])
+    if rand_resize:
+        if not rand_crop:
+            raise ValueError("rand_resize requires rand_crop")
+        chain.append(RandomSizedCropAug(crop, 0.3, (3 / 4, 4 / 3),
+                                        inter_method, next(spawn)))
+    elif rand_crop:
+        chain.append(RandomCropAug(crop, inter_method, next(spawn)))
+    else:
+        chain.append(CenterCropAug(crop, inter_method, next(spawn)))
+    if rand_mirror:
+        chain.append(HorizontalFlipAug(0.5, next(spawn)))
+    if cast:
+        chain.append(CastAug())
+    if brightness or contrast or saturation:
+        chain.append(ColorJitterAug(brightness, contrast, saturation,
+                                    next(spawn)))
+    if pca_noise > 0:
+        chain.append(LightingAug(pca_noise, _IMAGENET_EIGVAL,
+                                 _IMAGENET_EIGVEC, next(spawn)))
+    if mean is True:
+        mean = _IMAGENET_MEAN
+    if std is True:
+        std = _IMAGENET_STD
+    if mean is not None and getattr(mean, "shape", None):
+        chain.append(ColorNormalizeAug(mean, std))
+    return chain
+
+
+# -- sample sources ---------------------------------------------------------
+
+
+class _RecordSource:
+    """Samples from a RecordIO file, optionally index-seekable."""
+
+    def __init__(self, path_imgrec, path_imgidx):
+        if path_imgidx:
+            self._rec = recordio.MXIndexedRecordIO(path_imgidx, path_imgrec,
+                                                   "r")
+            self.keys = list(self._rec.keys)
+        else:
+            self._rec = recordio.MXRecordIO(path_imgrec, "r")
+            self.keys = None
+
+    def reset(self):
+        self._rec.reset()
+
+    def read(self, key=None):
+        """(label, payload) — by key when index-backed, else sequential."""
+        blob = self._rec.read_idx(key) if key is not None else \
+            self._rec.read()
+        if blob is None:
+            raise StopIteration
+        header, payload = recordio.unpack(blob)
+        return header.label, payload
+
+
+class _ListSource:
+    """Samples named by an image-list (key -> (label, filename))."""
+
+    def __init__(self, entries, path_root):
+        self.table = entries
+        self.keys = list(entries)
+        self.root = path_root or "."
+
+    def reset(self):
+        pass
+
+    def read(self, key):
+        label, fname = self.table[key]
+        with open(os.path.join(self.root, fname), "rb") as f:
+            return label, f.read()
+
+
+def _parse_imglist_file(path):
+    entries = {}
+    with open(path) as f:
+        for line in f:
+            cols = line.strip().split("\t")
+            if not cols or not cols[0]:
+                continue
+            entries[int(cols[0])] = (
+                np.array([float(v) for v in cols[1:-1]], np.float32),
+                cols[-1])
+    return entries
+
+
+class ImageIter(DataIter):
+    """Batched, augmented image iterator over .rec files or image lists.
+
+    Combines a sample source, an augmenter chain, and batch assembly; decode
+    failures fall back to the raw-array record codec.  ``seed`` makes the
+    shuffle + augmenter randomness reproducible.
+    """
+
+    def __init__(self, batch_size, data_shape, label_width=1,
+                 path_imgrec=None, path_imglist=None, path_root=None,
+                 path_imgidx=None, shuffle=False, part_index=0, num_parts=1,
+                 aug_list=None, imglist=None, data_name="data",
+                 label_name="softmax_label", seed=None,
+                 preprocess_threads=4, dtype="float32", **kwargs):
+        super().__init__(batch_size)
+        self._rng = np.random.default_rng(seed)
+        # dtype="uint8": assemble and ship uint8 batches (4x less host ->
+        # device traffic; the compiled train step casts/normalizes on
+        # device).  The uint8 input recipe: photometric/normalize
+        # augmenters need float and are rejected at batch time.
+        self._dtype = np.dtype(dtype)
+        # parallel DECODE pool (the C++ reader's preprocess_threads analog,
+        # iter_image_recordio.cc): cv2 imdecode releases the GIL so threads
+        # overlap; augmentation stays on the caller thread because the
+        # augmenters carry sequential per-pipeline RNG state
+        self._pool = None
+        if preprocess_threads and preprocess_threads > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=preprocess_threads,
+                                            thread_name_prefix="mxtorch-decode")
+
+        # choose a source; a list/imglist overrides record labels
+        self._labels = None
+        if path_imglist:
+            self._labels = _parse_imglist_file(path_imglist)
+        elif isinstance(imglist, list):
+            self._labels = {i + 1: (np.asarray(row[:-1], np.float32),
+                                    row[-1])
+                            for i, row in enumerate(imglist)}
+        if path_imgrec:
+            if self._labels and not path_imgidx:
+                raise MXNetError(
+                    "an external label list over a record file needs "
+                    "path_imgidx (records must be fetched by key)")
+            self._source = _RecordSource(path_imgrec, path_imgidx)
+            self._order = list(self._labels) if self._labels else \
+                self._source.keys
+        elif self._labels:
+            self._source = _ListSource(self._labels, path_root)
+            self._order = self._source.keys
+        else:
+            raise MXNetError("ImageIter needs path_imgrec, path_imglist, or "
+                             "imglist")
+
+        self.batch_size = batch_size
+        self.data_shape = tuple(data_shape)
+        self.label_width = label_width
+        self.shuffle = shuffle
+        if num_parts > 1:
+            if self._order is None:
+                # silently iterating the full set would duplicate every
+                # sample across workers — fail loudly instead (sequential
+                # record files can't be sharded; supply path_imgidx)
+                raise MXNetError(
+                    "num_parts > 1 needs a keyed source to shard "
+                    "(path_imgidx for record files, or an image list)")
+            span = len(self._order) // num_parts
+            self._order = self._order[part_index * span:
+                                      (part_index + 1) * span]
+
+        if aug_list is None:
+            aug_keys = ("resize", "rand_crop", "rand_resize", "rand_mirror",
+                        "mean", "std", "brightness", "contrast",
+                        "saturation", "pca_noise", "inter_method")
+            if self._dtype == np.uint8:
+                for k in ("mean", "std", "brightness", "contrast",
+                          "saturation", "pca_noise"):
+                    v = kwargs.get(k)
+                    # mean/std arrive as arrays (ambiguous truth value)
+                    if v is not None and np.any(v):
+                        raise MXNetError(
+                            "dtype='uint8' keeps batches integral; "
+                            "%r needs float math — normalize on device "
+                            "instead (cast + scale in the graph)" % k)
+            aug_list = CreateAugmenter(
+                data_shape, seed=seed, cast=self._dtype != np.uint8,
+                **{k: v for k, v in kwargs.items() if k in aug_keys})
+        self.auglist = aug_list
+
+        label_shape = (batch_size, label_width) if label_width > 1 \
+            else (batch_size,)
+        self.provide_data = [DataDesc(data_name,
+                                      (batch_size,) + self.data_shape,
+                                      dtype=self._dtype)]
+        self.provide_label = [DataDesc(label_name, label_shape)]
+        self._cursor = 0
+        self.reset()
+
+    def reset(self):
+        self._cursor = 0
+        self._source.reset()
+        if self.shuffle and self._order is not None:
+            self._rng.shuffle(self._order)
+
+    # -- sample stream -----------------------------------------------------
+    def _next_raw(self):
+        """(label, undecoded payload) for the next sample — the one copy of
+        the order/cursor/label-override protocol (det iterator reuses it)."""
+        if self._order is not None:
+            if self._cursor >= len(self._order):
+                raise StopIteration
+            key = self._order[self._cursor]
+            self._cursor += 1
+            label, payload = self._source.read(key)
+            if self._labels is not None:
+                label = self._labels[key][0]
+            return label, payload
+        return self._source.read()
+
+    def next_sample(self):
+        """(label, decoded HWC image) for the next sample."""
+        label, payload = self._next_raw()
+        return label, self._decode(payload, label)
+
+    def _decode(self, payload, label):
+        if not isinstance(payload, bytes):
+            return payload
+        try:
+            return imdecode(payload)
+        except MXNetError:
+            _, arr = recordio.unpack_img(
+                recordio.pack(recordio.IRHeader(0, label, 0, 0), payload))
+            return arr
+
+    def close(self):
+        """Release the decode thread pool (also runs at GC)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+    def __del__(self):
+        self.close()
+
+    def _collect_decoded(self, n):
+        """Up to ``n`` (label, decoded image) pairs; raw reads are
+        sequential (cheap), decodes run on the thread pool."""
+        overridden = type(self).next_sample is not ImageIter.next_sample
+        if overridden:
+            # honor the documented next_sample() extension hook: subclass
+            # overrides see every sample (sequential, no pool)
+            out = []
+            for _ in range(n):
+                try:
+                    out.append(self.next_sample())
+                except StopIteration:
+                    break
+            if not out:
+                raise StopIteration
+            return out
+        raws = []
+        for _ in range(n):
+            try:
+                raws.append(self._next_raw())
+            except StopIteration:
+                break
+        if not raws:
+            raise StopIteration
+        if self._pool is not None and len(raws) > 1:
+            decoded = list(self._pool.map(
+                lambda lp: self._decode(lp[1], lp[0]), raws))
+        else:
+            decoded = [self._decode(p, l) for l, p in raws]
+        return [(l, img) for (l, _), img in zip(raws, decoded)]
+
+    # -- batching ----------------------------------------------------------
+    def next(self):
+        c, h, w = self.data_shape
+        # assemble NCHW directly: one strided store per image instead of an
+        # NHWC store plus a whole-batch transposed copy (the assembly cost
+        # matters — on a 1-core host it was ~35% of pipeline time,
+        # benchmarks/bench_input_pipeline.py)
+        images = np.zeros((self.batch_size, c, h, w), self._dtype)
+        label_shape = self.provide_label[0].shape
+        labels = np.zeros(label_shape, np.float32)
+        samples = self._collect_decoded(self.batch_size)
+        for filled, (label, img) in enumerate(samples):
+            if img.ndim == 2:
+                img = np.repeat(img[:, :, None], c, axis=2)
+            for aug in self.auglist:
+                img = aug(img)
+            if self._dtype == np.uint8 and img.dtype != np.uint8:
+                # a float augmenter slipped into a uint8 pipeline: numpy
+                # would wrap negatives modulo 256 silently — fail instead
+                raise MXNetError(
+                    "dtype='uint8' batch received a %s image from the "
+                    "augmenter chain; float augmenters (normalize/jitter) "
+                    "are incompatible — normalize on device instead"
+                    % img.dtype)
+            if img.shape[:2] != (h, w):
+                if self._dtype != np.uint8:
+                    img = img.astype(np.float32)
+                img = _resize(img, w, h)
+            images[filled] = img.transpose(2, 0, 1)
+            labels[filled] = label
+        return DataBatch([array(images, cpu())], [array(labels, cpu())],
+                         pad=self.batch_size - len(samples))
+
+
+def ImageRecordIter(path_imgrec=None, data_shape=None, batch_size=None,
+                    shuffle=False, mean_r=0, mean_g=0, mean_b=0,
+                    std_r=1, std_g=1, std_b=1, rand_crop=False,
+                    rand_mirror=False, preprocess_threads=4, num_parts=1,
+                    part_index=0, path_imgidx=None, prefetch_buffer=4,
+                    seed=None, dtype="float32", **kwargs):
+    """RecordIO image pipeline (C++ ``ImageRecordIter`` analog): ImageIter
+    decode+augment wrapped in a prefetch thread double-buffer."""
+    mean = np.array([mean_r, mean_g, mean_b]) \
+        if (mean_r or mean_g or mean_b) else None
+    std = np.array([std_r, std_g, std_b]) \
+        if (std_r, std_g, std_b) != (1, 1, 1) else None
+    passthrough = ("resize", "rand_resize", "brightness", "contrast",
+                   "saturation", "pca_noise", "inter_method")
+    inner = ImageIter(batch_size=batch_size, data_shape=data_shape,
+                      path_imgrec=path_imgrec, path_imgidx=path_imgidx,
+                      shuffle=shuffle, rand_crop=rand_crop,
+                      rand_mirror=rand_mirror, mean=mean, std=std,
+                      num_parts=num_parts, part_index=part_index, seed=seed,
+                      preprocess_threads=preprocess_threads, dtype=dtype,
+                      **{k: v for k, v in kwargs.items() if k in passthrough})
+    return io_mod.PrefetchingIter(inner, capacity=prefetch_buffer)
+
+
+# ---------------------------------------------------------------------------
+# Detection pipeline (reference: src/io/iter_image_det_recordio.cc +
+# image_det_aug_default.cc).  Labels are object lists
+# ``[header_width, object_width, ...header extras, (cls, xmin, ymin, xmax,
+# ymax)*]`` with normalized [0,1] corner coordinates; augmenters transform
+# boxes together with pixels.
+# ---------------------------------------------------------------------------
+
+class DetAugmenter:
+    """Augmenter over (image, boxes): boxes is (N, >=5) [cls, x0, y0, x1, y1]
+    in normalized coordinates."""
+
+    def __init__(self, fn, rng=None):
+        self._fn = fn
+        self.rng = _rng_of(rng)
+
+    def __call__(self, img, boxes):
+        return self._fn(img, boxes, self.rng)
+
+
+def DetHorizontalFlipAug(p, seed=None):
+    """Mirror image and x-coordinates together (det_aug_default mirror)."""
+    def flip(img, boxes, rng):
+        if rng.random() < p:
+            img = img[:, ::-1]
+            boxes = boxes.copy()
+            x0 = boxes[:, 1].copy()
+            boxes[:, 1] = 1.0 - boxes[:, 3]
+            boxes[:, 3] = 1.0 - x0
+        return img, boxes
+
+    return DetAugmenter(flip, np.random.default_rng(seed))
+
+
+def DetRandomCropAug(min_object_covered=0.3, aspect_ratio_range=(0.75, 1.33),
+                     area_range=(0.3, 1.0), max_attempts=20, seed=None):
+    """Sample a crop keeping enough of the objects (SSD-style data aug,
+    image_det_aug_default.cc crop sampling); boxes are clipped and
+    re-normalized to the crop, fully-cropped-out objects dropped."""
+    def crop(img, boxes, rng):
+        h, w = img.shape[:2]
+        for _ in range(max_attempts):
+            area = rng.uniform(*area_range) * h * w
+            ratio = rng.uniform(*aspect_ratio_range)
+            cw = int(round(np.sqrt(area * ratio)))
+            ch = int(round(np.sqrt(area / ratio)))
+            if cw > w or ch > h or cw <= 0 or ch <= 0:
+                continue
+            x0 = rng.integers(0, w - cw + 1)
+            y0 = rng.integers(0, h - ch + 1)
+            cx0, cy0 = x0 / w, y0 / h
+            cx1, cy1 = (x0 + cw) / w, (y0 + ch) / h
+            if len(boxes):
+                ix0 = np.maximum(boxes[:, 1], cx0)
+                iy0 = np.maximum(boxes[:, 2], cy0)
+                ix1 = np.minimum(boxes[:, 3], cx1)
+                iy1 = np.minimum(boxes[:, 4], cy1)
+                inter = np.clip(ix1 - ix0, 0, None) * \
+                    np.clip(iy1 - iy0, 0, None)
+                obj = (boxes[:, 3] - boxes[:, 1]) * (boxes[:, 4] - boxes[:, 2])
+                covered = np.where(obj > 0, inter / np.maximum(obj, 1e-12), 0)
+                keep = covered >= min_object_covered
+                if not keep.any():
+                    continue
+            else:
+                keep = np.zeros((0,), bool)
+            img = img[y0:y0 + ch, x0:x0 + cw]
+            boxes = boxes[keep].copy()
+            if len(boxes):
+                sw, sh = cx1 - cx0, cy1 - cy0
+                boxes[:, 1] = np.clip((boxes[:, 1] - cx0) / sw, 0, 1)
+                boxes[:, 2] = np.clip((boxes[:, 2] - cy0) / sh, 0, 1)
+                boxes[:, 3] = np.clip((boxes[:, 3] - cx0) / sw, 0, 1)
+                boxes[:, 4] = np.clip((boxes[:, 4] - cy0) / sh, 0, 1)
+            return img, boxes
+        return img, boxes
+
+    return DetAugmenter(crop, np.random.default_rng(seed))
+
+
+def DetBorderAug(pad_ratio_range=(1.0, 1.5), fill=127, seed=None):
+    """Zoom-out padding (expand canvas, objects shrink) — the complement of
+    random crop in SSD augmentation."""
+    def border(img, boxes, rng):
+        ratio = rng.uniform(*pad_ratio_range)
+        if ratio <= 1.0:
+            return img, boxes
+        h, w = img.shape[:2]
+        nh, nw = int(h * ratio), int(w * ratio)
+        y0 = rng.integers(0, nh - h + 1)
+        x0 = rng.integers(0, nw - w + 1)
+        canvas = np.full((nh, nw) + img.shape[2:], fill, img.dtype)
+        canvas[y0:y0 + h, x0:x0 + w] = img
+        boxes = boxes.copy()
+        if len(boxes):
+            boxes[:, 1] = (boxes[:, 1] * w + x0) / nw
+            boxes[:, 2] = (boxes[:, 2] * h + y0) / nh
+            boxes[:, 3] = (boxes[:, 3] * w + x0) / nw
+            boxes[:, 4] = (boxes[:, 4] * h + y0) / nh
+        return canvas, boxes
+
+    return DetAugmenter(border, np.random.default_rng(seed))
+
+
+def CreateDetAugmenter(data_shape, resize=0, rand_crop=0, rand_pad=0,
+                       rand_mirror=False, mean=None, std=None,
+                       min_object_covered=0.3, area_range=(0.3, 1.0),
+                       aspect_ratio_range=(0.75, 1.33),
+                       pad_ratio_range=(1.0, 1.5), pad_val=127,
+                       inter_method=2, seed=None):
+    """Standard detection chain (det_aug_default): [resize-short] -> [pad]
+    -> [crop] -> resize-to-shape -> [mirror] -> [normalize]."""
+    ss = seed if isinstance(seed, np.random.SeedSequence) \
+        else np.random.SeedSequence(seed)
+    children = iter(ss.spawn(6))
+    augs = []
+    if resize > 0:
+        def resize_aug(img, boxes, rng, _s=resize, _i=inter_method):
+            # box coords are normalized, so a pure resize leaves them alone
+            return resize_short(img, _s, _i), boxes
+
+        augs.append(DetAugmenter(resize_aug))
+    if rand_pad > 0:
+        pad_aug = DetBorderAug(pad_ratio_range, pad_val, next(children))
+        prob = rand_pad
+
+        def maybe_pad(img, boxes, rng, _a=pad_aug, _p=prob):
+            return _a(img, boxes) if rng.random() < _p else (img, boxes)
+
+        augs.append(DetAugmenter(maybe_pad, np.random.default_rng(next(children))))
+    if rand_crop > 0:
+        crop_aug = DetRandomCropAug(min_object_covered, aspect_ratio_range,
+                                    area_range, seed=next(children))
+        prob = rand_crop
+
+        def maybe_crop(img, boxes, rng, _a=crop_aug, _p=prob):
+            return _a(img, boxes) if rng.random() < _p else (img, boxes)
+
+        augs.append(DetAugmenter(maybe_crop, np.random.default_rng(next(children))))
+
+    h, w = data_shape[1], data_shape[2]
+
+    def force_resize(img, boxes, rng, _i=inter_method):
+        return _resize(img.astype(np.float32), w, h, _i), boxes
+
+    augs.append(DetAugmenter(force_resize))
+    if rand_mirror:
+        augs.append(DetHorizontalFlipAug(0.5, next(children)))
+    if mean is not None or std is not None:
+        m = np.asarray(mean if mean is not None else 0.0, np.float32)
+        s = np.asarray(std if std is not None else 1.0, np.float32)
+
+        def normalize(img, boxes, rng):
+            return (img.astype(np.float32) - m) / s, boxes
+
+        augs.append(DetAugmenter(normalize))
+    return augs
+
+
+class ImageDetIter(ImageIter):
+    """Detection iterator: images + variable-length object-box labels padded
+    to a fixed (batch, max_objects, object_width) tensor (pad value -1),
+    the shape MultiBoxTarget consumes.  Analog of the reference's
+    ImageDetRecordIter (iter_image_det_recordio.cc)."""
+
+    def __init__(self, batch_size, data_shape, path_imgrec=None,
+                 path_imglist=None, path_root=None, path_imgidx=None,
+                 shuffle=False, part_index=0, num_parts=1, aug_list=None,
+                 imglist=None, data_name="data", label_name="label",
+                 label_pad_width=None, label_pad_value=-1.0, seed=None,
+                 preprocess_threads=4, **kwargs):
+        if aug_list is None:
+            det_keys = ("resize", "rand_crop", "rand_pad", "rand_mirror",
+                        "mean", "std", "min_object_covered", "area_range",
+                        "aspect_ratio_range", "pad_ratio_range", "pad_val",
+                        "inter_method")
+            aug_list = CreateDetAugmenter(
+                data_shape, seed=seed,
+                **{k: v for k, v in kwargs.items() if k in det_keys})
+        super().__init__(batch_size, data_shape, label_width=1,
+                         path_imgrec=path_imgrec, path_imglist=path_imglist,
+                         path_root=path_root, path_imgidx=path_imgidx,
+                         shuffle=shuffle, part_index=part_index,
+                         num_parts=num_parts, aug_list=aug_list,
+                         imglist=imglist, data_name=data_name,
+                         label_name=label_name, seed=seed,
+                         preprocess_threads=preprocess_threads)
+        self.label_pad_value = float(label_pad_value)
+        if label_pad_width is None:
+            if num_parts > 1:
+                # each part would scan only its slice and derive a different
+                # max_objs -> mismatched label shapes across workers
+                raise MXNetError(
+                    "ImageDetIter with num_parts>1 needs an explicit "
+                    "label_pad_width so every worker pads identically")
+            label_pad_width, obj_width = self._scan_label_shape()
+        else:
+            # size the object width from the first record even when the pad
+            # width is caller-supplied (labels may be wider than 5)
+            obj_width = self._scan_label_shape(first_only=True)[1]
+        self._obj_width = obj_width or 5
+        self._max_objs = max(1, label_pad_width)
+        self.provide_label = [DataDesc(
+            label_name, (batch_size, self._max_objs, self._obj_width))]
+
+    def _scan_label_shape(self, first_only=False):
+        """Pass over the labels to size the padded tensor (construction-time
+        I/O; pass label_pad_width to skip the full scan)."""
+        max_objs, obj_width = 0, None
+        self.reset()
+        while True:
+            try:
+                label, _ = self._next_raw()
+            except StopIteration:
+                break
+            objs, ow = self._parse_label(label)
+            max_objs = max(max_objs, len(objs))
+            obj_width = ow if obj_width is None else obj_width
+            if first_only:
+                break
+        self.reset()
+        return max_objs, obj_width
+
+    def _parse_label(self, label):
+        """-> (objects (N, obj_width), obj_width).  Accepts the packed
+        header format or a flat (N*5,) / (N,5) array."""
+        raw = np.asarray(label, np.float32).ravel()
+        if raw.size > 2 and float(raw[0]).is_integer() \
+                and 2 <= raw[0] <= raw.size and raw[1] >= 5 \
+                and (raw.size - raw[0]) % raw[1] == 0 \
+                and float(raw[1]).is_integer():
+            hw, ow = int(raw[0]), int(raw[1])
+            return raw[hw:].reshape(-1, ow), ow
+        if raw.size % 5 == 0:
+            return raw.reshape(-1, 5), 5
+        raise MXNetError("cannot parse detection label of size %d" % raw.size)
+
+    def next(self):
+        c, h, w = self.data_shape
+        images = np.zeros((self.batch_size, h, w, c), np.float32)
+        labels = np.full((self.batch_size, self._max_objs, self._obj_width),
+                         self.label_pad_value, np.float32)
+        samples = self._collect_decoded(self.batch_size)
+        for filled, (label, img) in enumerate(samples):
+            boxes, _ = self._parse_label(label)
+            if img.ndim == 2:
+                img = np.repeat(img[:, :, None], c, axis=2)
+            for aug in self.auglist:
+                img, boxes = aug(img, boxes)
+            if img.shape[:2] != (h, w):
+                img = _resize(img.astype(np.float32), w, h)
+            images[filled] = img
+            n = min(len(boxes), self._max_objs)
+            if n:
+                width = min(boxes.shape[1], self._obj_width)
+                labels[filled, :n, :width] = boxes[:n, :width]
+        return DataBatch([array(np.ascontiguousarray(
+            images.transpose(0, 3, 1, 2)), cpu())],
+                         [array(labels, cpu())],
+                         pad=self.batch_size - len(samples))
+
+
+def ImageDetRecordIter(path_imgrec=None, data_shape=None, batch_size=None,
+                       shuffle=False, prefetch_buffer=4, seed=None,
+                       **kwargs):
+    """Detection RecordIO pipeline with prefetch (C++ ImageDetRecordIter
+    analog)."""
+    inner = ImageDetIter(batch_size=batch_size, data_shape=data_shape,
+                         path_imgrec=path_imgrec, shuffle=shuffle, seed=seed,
+                         **kwargs)
+    return io_mod.PrefetchingIter(inner, capacity=prefetch_buffer)

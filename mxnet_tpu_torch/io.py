@@ -1,8 +1,8 @@
 """Data iterators: :class:`DataDesc`, :class:`DataBatch`, :class:`DataIter`,
 :class:`NDArrayIter`, :class:`MNISTIter`, :class:`CSVIter`,
-:class:`ResizeIter`, :class:`PrefetchingIter` and
-:class:`DevicePrefetchIter` (the counterparts of ``mxnet_tpu/io.py``'s
-classes of the same names).  Batches are host NDArrays; ``Module``
+:class:`ResizeIter`, :class:`PrefetchingIter`,
+:class:`DevicePrefetchIter` and :func:`ImageRecordIter` (the counterparts
+of ``mxnet_tpu/io.py``'s names).  Batches are host NDArrays; ``Module``
 copies them onto its device, or :class:`DevicePrefetchIter` does ahead
 of time.  :class:`PrefetchingIter` reads the next batches of its
 iterators on a worker thread (``_BackgroundIter``: a bounded queue, a
@@ -26,7 +26,8 @@ from .context import cpu
 from .ndarray import NDArray, array
 
 __all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter", "MNISTIter",
-           "CSVIter", "ResizeIter", "PrefetchingIter", "DevicePrefetchIter"]
+           "CSVIter", "ResizeIter", "PrefetchingIter", "DevicePrefetchIter",
+           "ImageRecordIter"]
 
 
 class DataDesc:
@@ -564,3 +565,11 @@ class DevicePrefetchIter(DataIter):
                          index=batch.index, bucket_key=batch.bucket_key,
                          provide_data=batch.provide_data,
                          provide_label=batch.provide_label)
+
+
+def ImageRecordIter(**kwargs):
+    """The RecordIO image pipeline, :func:`image.ImageRecordIter` under
+    the reference's ``io`` name."""
+    from . import image
+
+    return image.ImageRecordIter(**kwargs)

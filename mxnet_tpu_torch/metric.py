@@ -503,6 +503,17 @@ class DeviceMetricAccumulator:
         """The step has added to the state."""
         self.dirty = True
 
+    def maybe_drain(self, num_steps):
+        """The periodic drain: fold the sums into the host metric every
+        ``MXNET_METRIC_SYNC_PERIOD`` steps (0: only when the metric is
+        read).  The Module drivers call it from ``update_metric`` once a
+        step."""
+        from . import config
+
+        period = config.get("MXNET_METRIC_SYNC_PERIOD")
+        if period and num_steps % int(period) == 0:
+            self.drain()
+
     def drain(self):
         """Fold the device sums into the host metric (one transfer) and
         zero them in place; nothing to do when clean."""

@@ -467,7 +467,9 @@ class Module(BaseModule):
         acc = self._train_step._metric_acc \
             if self._train_step is not None else None
         if acc is not None and acc.metric is eval_metric:
-            return  # accumulated inside the step
+            # accumulated inside the step; the periodic drain's policy
+            acc.maybe_drain(self._train_step.num_steps)
+            return
         eval_metric.update(labels, [NDArray(o) for o in select_outputs(
             eval_metric, self._fused_outputs)])
 

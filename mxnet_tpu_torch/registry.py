@@ -60,7 +60,8 @@ class OpDef:
     def __init__(self, name, fcompute, schema=None, num_inputs=1,
                  num_outputs=1, num_visible_outputs=None, arguments=None,
                  outputs=None, aux=None, infer_shape=None, hint=None,
-                 doc="", key_var_num_args=None, infer_type=None):
+                 doc="", key_var_num_args=None, infer_type=None,
+                 capturable=True):
         self.name = name
         self.fcompute = fcompute
         self.schema = schema or ParamSchema()
@@ -80,6 +81,9 @@ class OpDef:
         self.key_var_num_args = key_var_num_args
         self.hint = hint or name.lstrip("_").lower()
         self.doc = doc
+        # False for an op whose body may read values back to the host
+        # (Custom): the compiled steps refuse a graph holding one
+        self.capturable = capturable
 
     def n_inputs(self, attrs):
         n = self.num_inputs

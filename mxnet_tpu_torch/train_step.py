@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError
-from .executor import forward_backward, run_graph
+from .executor import forward_backward, run_graph, uncapturable_ops
 from .metric import DeviceMetricAccumulator
 from .ndarray import torch_dtype
 from .ops import update_kernel
@@ -92,6 +92,16 @@ def _register_step_spec(step):
                                  if ref() is not None and is_train else 1),
         device=step._device)
     return _registry.register(spec)
+
+
+def _refuse_uncapturable(exe):
+    """MXNetError when the executor's graph holds a node no captured
+    program may hold (a Custom op, whose Python body may read values
+    back to the host)."""
+    names = uncapturable_ops(exe._symbol)
+    if names:
+        raise MXNetError("the graph holds nodes a compiled step cannot "
+                         "capture (Custom): %s" % names)
 
 
 def _host_to(dst, src):
@@ -181,6 +191,7 @@ class CompiledTrainStep(_StepBase):
         if added:
             raise MXNetError("the compiled train step takes grad_req "
                              "null / write only; got add for %s" % added)
+        _refuse_uncapturable(exe)
         super().__init__(exe, exec_group)
         self._opt_apply = apply
         self._optimizer = optimizer
@@ -546,6 +557,7 @@ class CompiledEvalStep(_StepBase):
     telemetry_name = "eval_step"
 
     def __init__(self, exec_group, metric):
+        _refuse_uncapturable(exec_group.exec_)
         super().__init__(exec_group.exec_, exec_group)
         if len(self._label_names) != len(exec_group.label_names):
             raise MXNetError("graph does not consume every label input; "

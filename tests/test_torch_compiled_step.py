@@ -346,3 +346,45 @@ def test_slot_handoffs_round_trip():
     step.import_updater_states(other.states, names)
     for n, v in step._slot_views().items():
         assert all(torch.equal(a, b) for a, b in zip(v, trained[n]))
+
+
+@pytest.mark.parametrize("period", [0, 3])
+def test_metric_sync_period_drains_like_jax(period):
+    """``MXNET_METRIC_SYNC_PERIOD``: with the metric accumulated inside
+    the compiled step, ``update_metric`` folds the device sums into the
+    host metric every ``period`` steps and not between (0: never until
+    the metric is read), step for step as the JAX Module does; reading
+    the metric drains the rest."""
+    rng = np.random.RandomState(12)
+    x = rng.randn(4, 5).astype(np.float32)
+    y = rng.randint(0, 3, 4).astype(np.float32)
+    w = {"fc_weight": rng.randn(3, 5).astype(np.float32) * 0.3,
+         "fc_bias": np.zeros(3, np.float32)}
+    seen = {}
+    for pkg, cfg in ((mx, jconfig), (mt, tconfig)):
+        sym = pkg.sym.SoftmaxOutput(pkg.sym.FullyConnected(
+            pkg.sym.Variable("data"), num_hidden=3, name="fc"),
+            name="softmax")
+        mod = pkg.mod.Module(sym, context=pkg.cpu())
+        mod.bind([pkg.io.DataDesc("data", (4, 5))],
+                 [pkg.io.DataDesc("softmax_label", (4,))])
+        mod.init_params(arg_params={k: pkg.nd.array(v)
+                                    for k, v in w.items()})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+        metric = pkg.metric.create("acc")
+        mod._bind_metric(metric)
+        batch = pkg.io.DataBatch([pkg.nd.array(x)], [pkg.nd.array(y)])
+        host = []
+        with cfg.overrides(MXNET_METRIC_SYNC_PERIOD=period):
+            for _ in range(7):
+                mod.forward_backward(batch)
+                mod.update()
+                mod.update_metric(metric, batch.label)
+                host.append(metric._counts[0])
+            value = metric.get()[1]
+        seen[pkg] = host, metric._counts[0], value
+    assert seen[mt] == seen[mx]
+    want = [4 * ((i + 1) // period * period if period else 0)
+            for i in range(7)]
+    assert seen[mt][0] == want and seen[mt][1] == 28

@@ -1861,10 +1861,13 @@ def _card_vs_cpu(card, table):
     return bad
 
 
-@pytest.mark.parametrize("group", ["ELEMWISE", "TENSOR", "NN"])
+@pytest.mark.parametrize("group", ["ELEMWISE", "TENSOR", "NN", "CONTRIB",
+                                   "SPATIAL"])
 def test_slice_ops_on_the_card_match_the_cpu(card, full_f32, group):
     """Forward and gradients of every op case on the card against the
-    CPU (the same port ops: ATen's CUDA and CPU loops, cuBLAS / cuDNN)."""
+    CPU (the same port ops: ATen's CUDA and CPU loops, cuBLAS / cuDNN;
+    count_sketch's and the samplers' gather backward add with atomics,
+    within the same 1e-5)."""
     import test_torch_op_cases as cases
 
     assert _card_vs_cpu(card, getattr(cases, group)) == []
@@ -1965,3 +1968,159 @@ def test_imperative_lm_on_the_card_matches_the_cpu(card, full_f32):
             if k.endswith("_k_bias") else want
         err = np.linalg.norm(grads[k] - want) / np.linalg.norm(ref)
         assert err <= 1e-4, (k, err)
+
+
+def _ssd_module(ctx, batch_shape, label_shape, args):
+    import mxnet_tpu_torch as mt
+
+    mod = mt.mod.Module(mt.models.ssd.get_symbol(), data_names=("data",),
+                        label_names=("label",), context=ctx)
+    mod.bind(data_shapes=[mt.io.DataDesc("data", batch_shape)],
+             label_shapes=[mt.io.DataDesc("label", label_shape)])
+    mod.init_params(arg_params=args)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 2e-3})
+    return mod
+
+
+def test_ssd_first_step_on_the_card_matches_the_cpu(card, full_f32,
+                                                    tmp_path):
+    """The SSD example's first Adam step (captured program: its eager
+    warm-up run) on the card against the CPU from the same parameters and
+    ImageDetIter batch: class targets exactly, the two losses (the class
+    cross-entropy over the anchors not ignored and the smooth-L1 box
+    loss) within 1e-5 relative, gradients within 1e-4 (heads, no ReLU
+    behind them) and 1e-2 (behind a ReLU) of each tensor's norm, one B1
+    launch."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    prefix = str(tmp_path / "shapes")
+    mt.models.ssd.make_dataset(prefix, n=16)
+    it = mt.image.ImageDetIter(batch_size=8, data_shape=(3, 32, 32),
+                               path_imgrec=prefix + ".rec",
+                               path_imgidx=prefix + ".idx", shuffle=True,
+                               rand_mirror=True, label_name="label", seed=0)
+    batch = it.next()
+    shapes = (tuple(batch.data[0].shape), tuple(batch.label[0].shape))
+    mt.random.seed(0)
+    with mt.cpu():
+        start = _ssd_module(mt.cpu(), *shapes, None)
+    init = mt.initializer.Xavier()
+    start.init_params(init, force_init=True)
+    args = {k: v.asnumpy() for k, v in start.get_params()[0].items()}
+    runs = []
+    for ctx in (mt.gpu(card.index or 0), mt.cpu()):
+        mod = _ssd_module(ctx, *shapes, args)
+        before = uk.LAUNCHES["multi_tensor_update"]
+        mod.forward_backward(batch)
+        mod.update()
+        launched = uk.LAUNCHES["multi_tensor_update"] - before
+        group = mod._exec_group
+        grads = {n: a.asnumpy() for n, a in zip(group.param_names,
+                                                 group.grad_arrays)}
+        runs.append(([o.asnumpy() for o in mod.get_outputs()], grads,
+                     launched))
+    (outs, grads, launched), (c_outs, c_grads, c_launched) = runs
+    assert (launched, c_launched) == (1, 0)
+    np.testing.assert_array_equal(outs[2], c_outs[2])
+
+    def losses(o):
+        keep = o[2] >= 0
+        p = np.take_along_axis(o[0], np.maximum(o[2], 0).astype(np.int64)
+                               [:, None], axis=1)[:, 0].astype(np.float64)
+        ce = np.where(keep, -np.log(np.maximum(p, 1e-30)), 0.0)
+        return np.array([ce.sum(), o[1].astype(np.float64).sum()])
+
+    np.testing.assert_allclose(losses(outs), losses(c_outs), rtol=1e-5)
+    for n, want in c_grads.items():
+        err = np.linalg.norm(grads[n] - want) / max(np.linalg.norm(want),
+                                                     1e-30)
+        tol = 1e-4 if n.startswith(("cls_pred_", "loc_pred_")) else 1e-2
+        assert err <= tol, (n, err)
+
+
+def test_multibox_detection_replays_bitwise(card):
+    """MultiBoxDetection (the suppression loop, sorts, gathers) captured
+    in a GraphProgram and replayed on new inputs: bit for bit against
+    the eager op on the card, and the eager op equal to the CPU's."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.programs import GraphProgram
+    from mxnet_tpu_torch.registry import get_op, invoke
+    from test_torch_op_cases import _det_inputs
+
+    op = get_op("MultiBoxDetection")
+    attrs = {"nms_threshold": 0.45, "nms_topk": 200}
+
+    def det(*xs):
+        return invoke(op, list(xs), attrs)[0][0]
+
+    prog = GraphProgram("t_multibox_detection", det)
+    for seed in (1, 2, 3):
+        xs = [torch.from_numpy(a) for a in _det_inputs(seed, 4, 5, 1000)]
+        on_card = [x.to(card) for x in xs]
+        got = prog(*on_card).clone()
+        want = det(*on_card)
+        assert torch.equal(got, want), seed
+        host = det(*xs)
+        assert torch.equal(want.cpu(), host), seed
+    assert prog.traces == 1
+
+
+def test_custom_graph_trains_eagerly_on_the_card(card, full_f32, caplog):
+    """A Custom node keeps a Module on the eager path on the card (a
+    warning, no train step), its forward and backward running on the
+    card; four SGD steps end where the same steps on the CPU end."""
+    import logging
+
+    import mxnet_tpu_torch as mt
+
+    @mt.operator.register("card_scale2x")
+    class Scale2Prop(mt.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class Scale2(mt.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    assert in_data[0].context == devices[-1]
+                    self.assign(out_data[0], req[0], in_data[0] * 2.0)
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    self.assign(in_grad[0], req[0], out_grad[0] * 2.0)
+            return Scale2()
+
+    sym = mt.sym
+    net = sym.FullyConnected(sym.Variable("data"), num_hidden=8, name="fc1")
+    net = sym.Custom(net, op_type="card_scale2x", name="c")
+    net = sym.SoftmaxOutput(sym.FullyConnected(net, num_hidden=2,
+                                               name="fc2"), name="softmax")
+    rng = np.random.RandomState(0)
+    x = rng.randn(10, 6).astype(np.float32)
+    y = (x[:, 0] > 0).astype(np.float32)
+    args = {"fc1_weight": rng.randn(8, 6).astype(np.float32) * 0.3,
+            "fc1_bias": np.zeros(8, np.float32),
+            "fc2_weight": rng.randn(2, 8).astype(np.float32) * 0.3,
+            "fc2_bias": np.zeros(2, np.float32)}
+    devices, params = [], []
+    for ctx in (mt.gpu(card.index or 0), mt.cpu()):
+        devices.append(ctx)
+        mod = mt.mod.Module(net, context=ctx)
+        mod.bind([mt.io.DataDesc("data", x.shape)],
+                 [mt.io.DataDesc("softmax_label", y.shape)])
+        mod.init_params(arg_params=args)
+        with caplog.at_level(logging.WARNING):
+            mod.init_optimizer(optimizer="sgd",
+                               optimizer_params={"learning_rate": 0.5})
+        assert mod._train_step is None
+        batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                [mt.nd.array(y, ctx=mt.cpu())])
+        for _ in range(4):
+            mod.forward_backward(batch)
+            mod.update()
+        mod.forward(batch, is_train=False)
+        params.append({k: v.asnumpy()
+                       for k, v in mod.get_params()[0].items()})
+    assert "compiled train step unavailable" in caplog.text
+    for k in args:
+        np.testing.assert_allclose(params[0][k], params[1][k], rtol=1e-5,
+                                   atol=1e-6)
+

@@ -1,10 +1,13 @@
-"""The op cases of this slice: every op of ``mxnet_tpu/ops/elemwise.py``,
-``tensor.py`` and ``nn.py`` that the port gained, with seeded numpy
-inputs away from each op's kinks and ties.  Data only (no tests, no JAX
-import): ``test_torch_ops_elemwise.py`` / ``_tensor.py`` / ``_nn.py``
-hold each case against the JAX package on the CPU,
-``test_torch_cuda.py`` and ``chip_smoke.py``'s ``ops`` phase hold it on
-the card against the CPU.
+"""The op cases of the imperative and detection slices: every op of
+``mxnet_tpu/ops/elemwise.py``, ``tensor.py``, ``nn.py``,
+``contrib_ops.py`` and ``spatial.py`` that the port gained, with seeded
+numpy inputs away from each op's kinks and ties.  Data only (no tests,
+no JAX import): ``test_torch_ops_elemwise.py`` / ``_tensor.py`` /
+``_nn.py`` / ``test_torch_contrib.py`` / ``test_torch_spatial.py`` hold
+each case against the JAX package on the CPU, ``test_torch_cuda.py``
+and ``chip_smoke.py``'s ``ops`` phase hold it on the card against the
+CPU (the phase also runs ``CONTRIB_LARGE``, the detection scale's
+Proposal).
 
 ``NEW_NAMES`` are the 163 op names the slice adds; every op they name
 is run by a case or a sampler (``test_torch_ops_elemwise.py`` checks).
@@ -376,6 +379,179 @@ NN = {
                           "pool_type": "sum", "layout": "NHWC"}, (0,)),
 }
 
+# ---------------------------------------------------------------------------
+# contrib and spatial (the detection slice).  The MultiBox cases take
+# seeded random boxes and softmax scores with a background bias, so the
+# suppression and the score threshold both bite; A = 2100 reaches the
+# JAX package's lax.map branch (A > 2048)
+# ---------------------------------------------------------------------------
+
+def _boxes(seed, n, lo=0.05, hi=0.4):
+    """``n`` corner boxes inside the unit square, sides in [lo, hi)."""
+    rng = np.random.RandomState(seed)
+    wh = rng.uniform(lo, hi, (n, 2))
+    x0 = rng.uniform(0, 1, n) * (1 - wh[:, 0])
+    y0 = rng.uniform(0, 1, n) * (1 - wh[:, 1])
+    return np.stack([x0, y0, x0 + wh[:, 0], y0 + wh[:, 1]],
+                    axis=1).astype(np.float32)
+
+
+def _det_inputs(seed, n, classes, a):
+    """MultiBoxDetection's (cls_prob, loc_pred, anchors): softmax scores
+    over classes + 1 with the background logit raised by 1."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(n, classes + 1, a)
+    logits[:, 0] += 1.0
+    prob = np.exp(logits) / np.exp(logits).sum(axis=1, keepdims=True)
+    loc = (rng.randn(n, a * 4) * 0.1).astype(np.float32)
+    return [prob.astype(np.float32), loc, _boxes(seed + 1, a)[None]]
+
+
+def _det_labels(seed, n, rows, anchors):
+    """(N, rows, 5) ground truth: 1..rows - 1 real boxes an image (each
+    near an anchor, so some match above the threshold), -1 padding."""
+    rng = np.random.RandomState(seed)
+    out = np.full((n, rows, 5), -1.0, np.float32)
+    for i in range(n):
+        k = rng.randint(1, rows)
+        pick = anchors[rng.choice(len(anchors), k, replace=False)]
+        jitter = rng.uniform(-0.03, 0.03, (k, 4))
+        box = np.clip(pick + jitter, 0.0, 1.0)
+        box[:, 2:] = np.maximum(box[:, 2:], box[:, :2] + 0.02)
+        out[i, :k, 0] = rng.randint(0, 3, k)
+        out[i, :k, 1:] = box
+    return out
+
+
+ANCHORS = _boxes(70, 64)[None]
+DET = _det_inputs(71, 2, 3, 300)
+DET_2100 = _det_inputs(72, 2, 3, 2100)
+CTC_ACTS = _x(73, (6, 3, 5))
+CTC_LABELS = _ids([[1, 2], [3, 0], [4, 4]])
+SKETCH_H = _ids(np.random.RandomState(74).randint(0, 6, 10))
+SKETCH_S = _ids(np.random.RandomState(75).choice([-1.0, 1.0], 10))
+
+
+def _rpn(seed, k, h, w, scale=0.1):
+    """Proposal's (cls_prob, bbox_pred) for k anchors on an h x w map."""
+    rng = np.random.RandomState(seed)
+    return [rng.rand(1, 2 * k, h, w).astype(np.float32),
+            (rng.randn(1, 4 * k, h, w) * scale).astype(np.float32)]
+
+
+CONTRIB = {
+    "multibox_prior": ("MultiBoxPrior", [np.zeros((1, 3, 4, 5), np.float32)],
+                       {"sizes": (0.5, 0.25), "ratios": (1.0, 2.0, 0.5)},
+                       ()),
+    "multibox_prior_steps": ("_contrib_MultiBoxPrior",
+                             [np.zeros((2, 3, 3, 2), np.float32)],
+                             {"sizes": (0.9, 0.3), "ratios": (1.0, 3.0),
+                              "clip": True, "steps": (0.3, 0.2),
+                              "offsets": (0.4, 0.6)}, ()),
+    "multibox_target": ("MultiBoxTarget",
+                        [ANCHORS, _det_labels(76, 2, 4, ANCHORS[0]),
+                         _x(77, (2, 4, 64))], {}, (0, 1, 2)),
+    "multibox_target_mining": ("_contrib_MultiBoxTarget",
+                               [ANCHORS, _det_labels(78, 3, 5, ANCHORS[0]),
+                                _x(79, (3, 4, 64))],
+                               {"negative_mining_ratio": 3.0,
+                                "negative_mining_thresh": 0.5,
+                                "overlap_threshold": 0.4,
+                                "variances": (0.1, 0.1, 0.2, 0.2)}, ()),
+    "multibox_detection": ("MultiBoxDetection", DET,
+                           {"nms_threshold": 0.45}, (0, 1, 2)),
+    "multibox_detection_topk": ("MultiBoxDetection", DET,
+                                {"nms_threshold": 0.45, "nms_topk": 40},
+                                (0, 1, 2)),
+    "multibox_detection_force": ("_contrib_MultiBoxDetection", DET,
+                                 {"nms_threshold": 0.3,
+                                  "force_suppress": True,
+                                  "threshold": 0.2}, ()),
+    "multibox_detection_2100": ("MultiBoxDetection", DET_2100,
+                                {"nms_threshold": 0.45}, ()),
+    "multibox_detection_2100_topk": ("MultiBoxDetection", DET_2100,
+                                     {"nms_threshold": 0.45, "nms_topk": 400,
+                                      "force_suppress": True}, ()),
+    "proposal": ("Proposal", _rpn(80, 12, 4, 5)
+                 + [np.array([[64, 80, 1.0]], np.float32)],
+                 {"rpn_pre_nms_top_n": 50, "rpn_post_nms_top_n": 20,
+                  "threshold": 0.5, "rpn_min_size": 8}, (0, 1, 2)),
+    "proposal_scaled": ("_contrib_Proposal", _rpn(81, 6, 3, 4, 0.2)
+                        + [np.array([[48, 64, 2.0]], np.float32)],
+                        {"scales": (2.0, 4.0, 8.0), "ratios": (0.5, 2.0),
+                         "feature_stride": 8, "rpn_pre_nms_top_n": 30,
+                         "rpn_post_nms_top_n": 40, "threshold": 0.6}, ()),
+    "ctc": ("CTCLoss", [CTC_ACTS, CTC_LABELS], {}, (0,)),
+    "ctc_loss": ("ctc_loss", [_x(82, (5, 2, 4)), _ids([[1, 1], [2, 3]])], {},
+                 (0,)),
+    "fft": ("fft", [_x(83, (3, 8))], {}, (0,)),
+    "ifft": ("_contrib_ifft", [_x(84, (2, 3, 12))], {}, (0,)),
+    "quantize": ("quantize", [_x(85, (4, 5), -3.0, 3.0),
+                              np.float32([-3.0]), np.float32([3.0])], {},
+                 ()),
+    "dequantize": ("_contrib_dequantize",
+                   [np.random.RandomState(86).randint(0, 256, (4, 5))
+                    .astype(np.uint8), np.float32([-2.0]),
+                    np.float32([3.0])], {}, ()),
+    "count_sketch": ("count_sketch", [_x(87, (3, 10)), SKETCH_H, SKETCH_S],
+                     {"out_dim": 6}, (0,)),
+}
+
+# the detection scale's RPN (a 38 x 50 map, 12 anchors: 22,800 boxes
+# through a full NMS): the card against the host only (chip_smoke.py's
+# ops phase), too large for a parity run against the JAX package here
+CONTRIB_LARGE = {
+    "proposal_38x50": ("Proposal", _rpn(88, 12, 38, 50)
+                       + [np.array([[600, 800, 1.0]], np.float32)],
+                       {"rpn_pre_nms_top_n": 6000,
+                        "rpn_post_nms_top_n": 300}, ()),
+}
+
+ROI_DATA = _x(90, (2, 3, 12, 12))
+ROIS = _ids([[0, 0, 0, 11, 11], [1, 2, 2, 9, 9], [0, 4, 4, 7, 7],
+             [1, 3, 5, 11, 8]])
+THETA = (np.array([[0.8, 0.1, 0.05, -0.1, 0.9, 0.02],
+                   [1.1, -0.2, 0.1, 0.15, 0.7, -0.05]], np.float32))
+
+SPATIAL = {
+    "roi_pooling": ("ROIPooling", [ROI_DATA, ROIS],
+                    {"pooled_size": (4, 4), "spatial_scale": 1.0}, (0,)),
+    # scale 0.5 puts corners on .5: C rounding (away from zero) decides
+    "roi_pooling_half": ("ROIPooling", [ROI_DATA, ROIS],
+                         {"pooled_size": (3, 2), "spatial_scale": 0.5},
+                         (0,)),
+    "grid_affine": ("GridGenerator", [THETA],
+                    {"transform_type": "affine", "target_shape": (5, 6)},
+                    (0,)),
+    "grid_warp": ("GridGenerator", [_x(91, (1, 2, 4, 5))],
+                  {"transform_type": "warp"}, (0,)),
+    "bilinear_sampler": ("BilinearSampler",
+                         [_x(92, (2, 3, 5, 6)),
+                          _x(93, (2, 2, 4, 5), -1.2, 1.2)], {}, (0, 1)),
+    "spatial_transformer": ("SpatialTransformer", [_x(94, (2, 3, 5, 5)),
+                                                   THETA],
+                            {"target_shape": (4, 4)}, (0, 1)),
+    "crop": ("Crop", [_x(95, (1, 2, 8, 8))],
+             {"num_args": 1, "offset": (1, 2), "h_w": (4, 5)}, (0,)),
+    "crop_center": ("Crop", [_x(95, (1, 2, 8, 8))],
+                    {"num_args": 1, "h_w": (4, 4), "center_crop": True},
+                    (0,)),
+    "crop_like": ("Crop", [_x(96, (1, 2, 7, 8)), _x(97, (1, 2, 3, 3))], {},
+                  (0,)),
+    "correlation": ("Correlation", [_x(98, (1, 4, 6, 6)),
+                                    _x(99, (1, 4, 6, 6))],
+                    {"max_displacement": 1}, (0, 1)),
+    "correlation_window": ("Correlation", [_x(100, (2, 3, 7, 6)),
+                                           _x(101, (2, 3, 7, 6))],
+                           {"kernel_size": 3, "max_displacement": 2,
+                            "stride1": 2, "stride2": 2, "pad_size": 2},
+                           (0, 1)),
+    "correlation_absdiff": ("Correlation", [_x(102, (1, 2, 5, 5)),
+                                            _x(103, (1, 2, 5, 5))],
+                            {"max_displacement": 1, "kernel_size": 2,
+                             "is_multiply": False}, (0, 1)),
+}
+
 # the samplers: (attrs, parameter arrays of the _sample_* family)
 SAMPLERS = {
     "uniform": ({"low": -1.0, "high": 3.0}, ()),
@@ -468,5 +644,5 @@ def draw_port(op, attrs, params, n, seed, ctx):
 
 def case_ops():
     """Every op name a case or a sampler runs."""
-    return {c[0] for table in (ELEMWISE, TENSOR, NN)
+    return {c[0] for table in (ELEMWISE, TENSOR, NN, CONTRIB, SPATIAL)
             for c in table.values()} | set(SAMPLERS)

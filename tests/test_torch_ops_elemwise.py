@@ -140,27 +140,15 @@ def test_alias_runs_as_its_op(alias, op):
 
 
 def test_every_reference_op_is_ported_under_its_names():
-    """The registries differ by exactly the names this slice leaves for
-    later (contrib_ops, spatial, Custom, MoEFFN), and every other name of
-    the reference is an alias of the same op in both packages."""
-    later = {
-        # ops/contrib_ops.py
-        "CTCLoss", "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
-        "Proposal", "_contrib_CTCLoss", "_contrib_MultiBoxDetection",
-        "_contrib_MultiBoxPrior", "_contrib_MultiBoxTarget",
-        "_contrib_Proposal", "_contrib_count_sketch", "_contrib_dequantize",
-        "_contrib_fft", "_contrib_ifft", "_contrib_quantize",
-        "count_sketch", "ctc_loss", "dequantize", "fft", "ifft", "quantize",
-        # ops/spatial.py
-        "BilinearSampler", "Correlation", "Crop", "GridGenerator",
-        "ROIPooling", "SpatialTransformer",
-        # operator.py, ops/moe.py
-        "Custom", "MoEFFN", "_contrib_MoEFFN"}
+    """The registries differ by exactly the names left for the
+    parallelism slice (ops/moe.py's MoEFFN), and every other name of the
+    reference is an alias of the same op in both packages."""
+    later = {"MoEFFN", "_contrib_MoEFFN"}
     # user kernels other tests register at run time (mx.rtc) are not
     # the package's
     ref = {n for n in jreg.list_ops() if not jreg.get_op(n).user_defined}
     port = set(treg.list_ops())
-    assert len(later) == 30
+    assert len(later) == 2
     assert ref - port == later
     assert port <= ref
     for name in sorted(port):

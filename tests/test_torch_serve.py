@@ -173,7 +173,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.models.lstm_lm, mxnet_tpu_torch.model, "
             "mxnet_tpu_torch.callback, mxnet_tpu_torch.rnn.rnn, "
             "mxnet_tpu_torch.autograd, mxnet_tpu_torch.random, "
-            "mxnet_tpu_torch.test_utils, mxnet_tpu_torch.ops.sample; "
+            "mxnet_tpu_torch.test_utils, mxnet_tpu_torch.ops.sample, "
+            "mxnet_tpu_torch.image, mxnet_tpu_torch.recordio, "
+            "mxnet_tpu_torch._native, mxnet_tpu_torch.operator, "
+            "mxnet_tpu_torch.ops.contrib_ops, mxnet_tpu_torch.ops.spatial, "
+            "mxnet_tpu_torch.models.ssd, "
+            "mxnet_tpu_torch.module.python_module, "
+            "mxnet_tpu_torch.module.sequential_module; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.')) "
             "or m == 'mxnet_tpu'); print(json.dumps(bad))")
