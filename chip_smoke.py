@@ -170,7 +170,29 @@ Phases (any failure ends the run with a non-zero exit code):
    NMS, nms_topk 400) at batch 8 and 21 classes, card against the CPU,
    timed (the ``detection:`` line, with the card's name and power
    limit).  The ops phase (6c) now also holds the contrib and spatial
-   op cases, the 38 x 50 Proposal among them.
+   op cases, the 38 x 50 Proposal among them;
+14. fleet — run right after phase 5b on phase 5's model and tokens:
+   (a) phase 5's requests through ``DecodeServer``'s session one
+   ``serve_tick`` at a time, phase 5's tokens; (b) preemption by page
+   swap: a pool cut to the four longest requests' reservations plus
+   FLEET_SWAP_SLACK pages (its size printed), those four submitted first
+   at priority -1, MXNET_FLEET_DECODE_BOUND 4, MXNET_FLEET_SWAP on:
+   swap-outs equal swap-ins, at least one; restored pages re-extracted
+   and held byte for byte (``_verify_restore``); phase 5's tokens;
+   extract and install captured once; a page's bytes and the CUDA-event
+   and device ms of one swap-out and one swap-in of the largest record;
+   (c) FLEET_HOSTS hosts x SLOTS slots and one prefill worker under
+   ``cache_aware``, then ``round_robin``: 16 requests in 2 waves from
+   two tenants, each with its own 256-token prefix and 128-768-token
+   tails, MAX_NEW greedy tokens; the tokens of one host serving the same
+   requests, pages migrated, one host per tenant, no program captured
+   twice, every pool drained to 0 once the prefix caches are cleared;
+   fleet tokens/s, TTFT p50 / p95 (``mx_fleet_ttft``) and the cache hit
+   rates; (d) ``/metrics`` and ``/metrics.json`` scraped over HTTP, the
+   trace exported with the serving programs' spans, the ``mfu_table``
+   with the H100 spec peaks, three profiled captured decode steps with
+   the same kernels and counts with MXNET_TELEMETRY on and off, and
+   phase 5's captured serve tokens/s with telemetry on beside off.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -359,6 +381,17 @@ STEP_PARTS = {"all": "", "A decode": "decode_kernel", "A simt": "simt_kernel",
 SAMPLE_TEMPERATURE, SAMPLE_TOP_K, SAMPLE_SEED = 1.0, 8, 5
 PROMPT_LENS = [384, 128, 640, 1024, 512, 300, 1000, 768]
 SHARED_PREFIX = 256
+# phase 14, the fleet: FLEET_HOSTS hosts of SLOTS slots and one prefill
+# worker; FLEET_WAVES waves of FLEET_PER_TENANT requests from each of two
+# tenants (a SHARED_PREFIX-token prefix of its own and a tail of
+# FLEET_TAIL tokens), FLEET_WAVE_TICKS router ticks apart; the swap
+# serve's pool holds the four longest requests' reservations plus
+# FLEET_SWAP_SLACK pages; the fleet drained FLEET_REPEATS times under
+# each policy, in turns; phase 5's serve timed TELEMETRY_REPEATS times
+# with telemetry on and off each, in turns
+FLEET_HOSTS, FLEET_WAVES, FLEET_PER_TENANT = 2, 2, 4
+FLEET_TAIL, FLEET_WAVE_TICKS, FLEET_SWAP_SLACK = (128, 768), 8, 2
+FLEET_REPEATS, TELEMETRY_REPEATS = 2, 2
 
 # tolerances (kernel vs plain version on the same inputs)
 TOL_A = {"float32": 1e-5, "bfloat16": 2 ** -7}   # x max|y| (abs)
@@ -1356,6 +1389,466 @@ def phase_serve_spec(torch, dev, base):
     log("serve spec profile: " + json.dumps(profile))
     log("serve spec eager profile: " + json.dumps(e_profile))
     return out, launches
+
+
+def _fleet_prompts():
+    """The fleet traffic: FLEET_WAVES waves of FLEET_PER_TENANT requests
+    from each of two tenants, each tenant's own SHARED_PREFIX-token
+    prefix and a seeded tail of FLEET_TAIL tokens; (tenant, prompt)."""
+    rng = np.random.RandomState(2)
+    prefixes = [rng.randint(0, VOCAB, SHARED_PREFIX) for _ in range(2)]
+    out = []
+    for _ in range(FLEET_WAVES):
+        for tenant in range(2):
+            for _ in range(FLEET_PER_TENANT):
+                tail = rng.randint(FLEET_TAIL[0], FLEET_TAIL[1] + 1)
+                out.append((tenant, np.concatenate(
+                    [prefixes[tenant], rng.randint(0, VOCAB, tail)])))
+    return out
+
+
+def _swap_pool_pages(prompts, longest):
+    """A pool that holds the ``longest`` requests' admission reservations
+    (a dry run of the page manager, their prefix hits included) and the
+    scratch page, plus FLEET_SWAP_SLACK pages: the gate blocks with
+    those four slots busy."""
+    from mxnet_tpu_torch.serve import PagedKVManager
+
+    mgr = PagedKVManager(SLOTS, SEQ, PAGE_TOKENS)
+    for slot, i in enumerate(longest):
+        p = np.asarray(prompts[i], np.int64)
+        matched, pages, need = mgr.gate(p, p.size, MAX_NEW)
+        mgr.map_slot(slot, pages, need)
+        mgr.ensure(slot, matched, p.size)
+        mgr.publish(slot, p, p.size)
+    return mgr.pool_pages - mgr.allocator.available() + FLEET_SWAP_SLACK
+
+
+def _telemetry(on):
+    from mxnet_tpu_torch import config
+
+    os.environ["MXNET_TELEMETRY"] = "1" if on else "0"
+    config.refresh("MXNET_TELEMETRY")
+
+
+def _launch_delta(before):
+    now = _launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _event_ms(torch, fn, calls=5):
+    """Median ms of ``fn`` by CUDA events around the call (its host
+    work, copies and synchronizations included)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _same_tokens(what, got, want):
+    bad = [k for k in want if not np.array_equal(got[k], want[k])]
+    if bad:
+        raise AssertionError("%s: tokens differ for requests %s" % (what,
+                                                                    bad))
+
+
+def _fleet_session(torch, pred, prompts, base_results):
+    """(a) phase 5's requests one serve_tick at a time."""
+    from mxnet_tpu_torch.decode import DecodeServer
+
+    srv = DecodeServer(pred, max_prefill=max(PROMPT_LENS), slots=SLOTS,
+                       max_new_tokens=MAX_NEW)
+    rids = [srv.submit(p) for p in prompts]
+    srv.serve_reset()
+    srv.serve_open()
+    before = _launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, ticks = {}, 0
+    while srv.has_work:
+        srv.serve_tick()
+        ticks += 1
+        results.update(srv.serve_results())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_delta(before)
+    _same_tokens("fleet (a) session vs phase 5",
+                 {i: results[r] for i, r in enumerate(rids)}, base_results)
+    if min(launches.values()) <= 0:
+        raise AssertionError("the session ran no kernel A or B: %s"
+                             % launches)
+    tokens = sum(len(t) for t in results.values())
+    reading = {"ticks": ticks, "steps": srv.steps, "chunks": srv.chunks,
+               "tokens": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall, "launches": launches}
+    log("fleet (a) session: " + json.dumps(reading))
+    return reading, launches
+
+
+def _fleet_swap(torch, sym, params, dev, prompts, base_results):
+    """(b) preemption by page swap: a tight pool, the four longest
+    requests at priority -1 submitted first."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.decode import DecodeServer, _cache_leaves
+
+    longest = sorted(range(len(prompts)),
+                     key=lambda i: -len(prompts[i]))[:SLOTS]
+    order = longest + [i for i in range(len(prompts)) if i not in longest]
+    pool = _swap_pool_pages(prompts, longest)
+    pred = _predictor(sym, params, False, dev, pool_pages=pool)
+    pred.prepare_programs(SLOTS, CHUNK)
+    with config.overrides(MXNET_FLEET_DECODE_BOUND=4, MXNET_FLEET_SWAP=True):
+        srv = DecodeServer(pred, max_prefill=max(PROMPT_LENS), slots=SLOTS,
+                           max_new_tokens=MAX_NEW)
+    srv._verify_restore = True
+    records = []
+    swap_out = srv._swap_out
+
+    def spy(ps, slot):
+        records.append(swap_out(ps, slot))
+        return records[-1]
+
+    srv._swap_out = spy
+    index = {srv.submit(prompts[i], priority=-1 if i in longest else 0): i
+             for i in order}
+    before = _launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_delta(before)
+    _same_tokens("fleet (b) swap vs phase 5",
+                 {index[r]: t for r, t in res.items()}, base_results)
+    tc = pred.trace_counts
+    if not srv.swap_outs >= 1 or srv.swap_ins != srv.swap_outs:
+        raise AssertionError("swap_outs %d, swap_ins %d"
+                             % (srv.swap_outs, srv.swap_ins))
+    if (tc["extract"], tc["install"], tc["decode"], tc["chunk"]) \
+            != (1, 1, 1, 1) or tc["commit"] != 1 or tc["fork"] > 1:
+        raise AssertionError("the swap serve captured a program again: %s"
+                             % tc)
+    if min(launches.values()) <= 0:
+        raise AssertionError("the swap serve ran no kernel A or B: %s"
+                             % launches)
+    # one swap-out and one swap-in of the largest record, timed
+    caches = srv._ps["state"].caches
+    page_bytes = sum(t[0].numel() * t.element_size()
+                     for t in _cache_leaves(caches))
+    big = max(records, key=lambda r: r.n_pages)
+    row = np.zeros(pred._manager.pages_per_slot, np.int64)
+    row[:big.n_pages] = np.arange(1, big.n_pages + 1)
+    data = pred.extract_pages(caches, row)
+
+    def out():
+        pred.extract_pages(caches, row)
+
+    def back():
+        pred.install_pages(caches, row, data)
+
+    timing = {"out_event_ms": _event_ms(torch, out),
+              "in_event_ms": _event_ms(torch, back),
+              "out_device_ms": _device_ms(torch, out),
+              "in_device_ms": _device_ms(torch, back)}
+    if pred.trace_counts["extract"] != 1 \
+            or pred.trace_counts["install"] != 1:
+        raise AssertionError("timing the swap captured again: %s"
+                             % pred.trace_counts)
+    tokens = sum(len(t) for t in res.values())
+    reading = {"pool_pages": pool, "page_bytes": page_bytes,
+               "swap_outs": srv.swap_outs, "swap_ins": srv.swap_ins,
+               "swapped_pages": [r.n_pages for r in records],
+               "record_bytes": big.nbytes(), "record_pages": big.n_pages,
+               "tokens": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall, "launches": launches,
+               "trace_counts": tc, **timing}
+    log("fleet (b) swap: " + json.dumps(reading))
+    return reading, launches
+
+
+def _host_seconds(obj, name, acc, key):
+    """Wrap ``obj.name`` (an instance's method) to add its host seconds
+    to ``acc[key]``; returns the undo."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+    return lambda: delattr(obj, name)
+
+
+def _fleet_drain(torch, router, fprompts, rids_out):
+    """One timed drain of the fleet traffic through ``router`` (reset
+    first); the waves are FLEET_WAVE_TICKS router ticks apart.  Returns
+    the results, the wall, the launches and where the host's time went
+    (seconds inside the worker's prefills, each host's serve_tick and
+    the routing around the worker; router ticks)."""
+    router.reset()
+    split = {}
+    undo = [_host_seconds(w, "prefill", split, "worker_prefill_s")
+            for w in router.workers]
+    undo += [_host_seconds(h.server, "serve_tick", split,
+                           "%s_tick_s" % h.name) for h in router.hosts]
+    undo.append(_host_seconds(router, "route", split, "route_s"))
+    before = _launch_counts()
+    steps = {h.name: (h.server.steps, h.server.chunks) for h in router.hosts}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_wave = len(fprompts) // FLEET_WAVES
+    rids_out.clear()
+    ticks = 0
+    for wave in range(FLEET_WAVES):
+        for _, p in fprompts[wave * per_wave:(wave + 1) * per_wave]:
+            rids_out.append(router.submit(p, MAX_NEW))
+        for _ in range(FLEET_WAVE_TICKS):
+            router.tick()
+            ticks += 1
+    while router.has_work:
+        router.tick()
+        ticks += 1
+    res = dict(router.results)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for u in undo:
+        u()
+    split["ticks"] = ticks
+    for h in router.hosts:
+        split["%s_steps_chunks" % h.name] = [
+            h.server.steps - steps[h.name][0],
+            h.server.chunks - steps[h.name][1]]
+    return res, wall, _launch_delta(before), split
+
+
+def _fleet_hosts(torch, sym, params, dev, fprompts, one_pred):
+    """(c) the fleet against one host, cache_aware and round_robin."""
+    from mxnet_tpu_torch.decode import DecodeServer
+    from mxnet_tpu_torch.serve.fleet import FleetHost, PrefillWorker, Router
+
+    one = DecodeServer(one_pred, max_prefill=max(PROMPT_LENS), slots=SLOTS,
+                       max_new_tokens=MAX_NEW)
+    for _, p in fprompts:
+        one.submit(p)
+    want = one.run()
+    hosts = []
+    for i in range(FLEET_HOSTS):
+        pred = _predictor(sym, params, False, dev)
+        pred.prepare_programs(SLOTS, CHUNK)
+        hosts.append(FleetHost("h%d" % i, DecodeServer(
+            pred, max_prefill=max(PROMPT_LENS), slots=SLOTS,
+            max_new_tokens=MAX_NEW)))
+    wpred = _predictor(sym, params, False, dev)
+    wpred.prepare_programs(1, CHUNK)
+    worker = PrefillWorker(wpred, "w0")
+    preds = [h.server._pred for h in hosts] + [wpred]
+    # a warm-up drain: the first page migration captures extract and
+    # install
+    warm = Router(hosts, [worker], policy="cache_aware")
+    for tenant in range(2):
+        warm.submit(next(p for t, p in fprompts if t == tenant)[:300],
+                    MAX_NEW)
+    warm.drain()
+    readings, launches = {"cache_aware": [], "round_robin": []}, {}
+    for policy in ("cache_aware", "round_robin") * FLEET_REPEATS:
+        router = Router(hosts, [worker] if policy == "cache_aware" else [],
+                        policy=policy)
+        rids = []
+        res, wall, launched, split = _fleet_drain(torch, router, fprompts,
+                                                  rids)
+        _same_tokens("fleet (c) %s vs one host" % policy,
+                     {i: res[r] for i, r in enumerate(rids)}, want)
+        stats = router.stats()
+        tokens = sum(len(res[r]) for r in rids)
+        hits = [h.server.stats().get("prefix_cache_hit_rate")
+                for h in hosts]
+        reading = {
+            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_p50_s": stats.get("ttft_p50_s"),
+            "ttft_p95_s": stats.get("ttft_p95_s"),
+            "router_cache_hit_rate": stats["router_cache_hit_rate"],
+            "host_prefix_cache_hit_rate": hits,
+            "routed_by_host": stats["routed_by_host"],
+            "migrated_pages_by_host": stats["migrated_pages_by_host"],
+            "worker_prefills": stats["worker_prefills"],
+            "host_split": split, "launches": launched}
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        if min(launched.values()) <= 0:
+            raise AssertionError("the %s fleet ran no kernel A or B: %s"
+                                 % (policy, launched))
+        if policy == "cache_aware":
+            if not sum(stats["migrated_pages_by_host"].values()) > 0:
+                raise AssertionError("no page migrated: %s" % stats)
+            tenants = {}
+            for (rid, host, _, _), (tenant, _) in zip(router.decisions,
+                                                      fprompts):
+                tenants.setdefault(tenant, set()).add(host)
+            if any(len(h) != 1 for h in tenants.values()):
+                raise AssertionError("a tenant spans hosts: %s" % tenants)
+            reading["tenant_hosts"] = {
+                str(t): sorted(h) for t, h in tenants.items()}
+        readings[policy].append(reading)
+        log("fleet (c) %s: %s" % (policy, json.dumps(reading)))
+    # one profiled drain a policy: device busy time, the idle share of
+    # the timed drains' walls, the kernels that take most of it
+    for policy in ("cache_aware", "round_robin"):
+        router = Router(hosts, [worker] if policy == "cache_aware" else [],
+                        policy=policy)
+        prof = _profile(torch, lambda: _fleet_drain(
+            torch, router, fprompts, [])[1], groups=SERVE_KERNEL_GROUPS)
+        busy = prof["device_busy_s"]
+        walls = [r["wall_s"] for r in readings[policy]]
+        prof["idle_share_of_timed"] = [1.0 - busy / w for w in walls] \
+            if isinstance(busy, float) else busy
+        prof["top"] = prof.get("top", [])[:6]
+        readings[policy + "_profile"] = prof
+        log("fleet (c) %s profile: %s" % (policy, json.dumps(prof)))
+    for pred in preds:
+        tc = pred.trace_counts
+        if max(tc.values()) > 1:
+            raise AssertionError("a fleet predictor captured a program "
+                                 "twice: %s" % tc)
+        mgr = pred._manager
+        if mgr.prefix_cache is not None:
+            mgr.prefix_cache.clear()
+        if mgr.allocator.used_pages:
+            raise AssertionError("a pool kept %d pages: %s"
+                                 % (mgr.allocator.used_pages, mgr.stats()))
+    return readings, launches, hosts
+
+
+def _profiled_step_kernels(torch, pred, prompts, steps=3):
+    """{kernel name: launches} of ``steps`` captured decode steps under
+    torch.profiler (device activities only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = np.zeros((SLOTS, max(PROMPT_LENS[:SLOTS])), np.float32)
+    for i in range(SLOTS):
+        batch[i, :PROMPT_LENS[i]] = prompts[i]
+    state, _ = pred.prefill(batch, np.asarray(PROMPT_LENS[:SLOTS]))
+    state, _ = pred.step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = pred.step(state)
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if _kernel_us(e) > 0}
+
+
+def _kernel_brief(kernels):
+    """A profiled kernel set as (names, launches, the longest names cut to
+    90 characters with their counts)."""
+    return {"names": len(kernels), "launches": sum(kernels.values()),
+            "by_name": sorted((k[:90], n) for k, n in kernels.items())}
+
+
+def _fleet_telemetry(torch, pred, prompts, base_results, hosts):
+    """(d) the exporter, the trace, the roofline table, and the kernels
+    and tokens/s with MXNET_TELEMETRY on and off."""
+    import urllib.request
+
+    from mxnet_tpu_torch import obs
+    from mxnet_tpu_torch.test_utils import assert_chrome_trace
+
+    ms = obs.MetricsServer(port=0).start()
+    try:
+        ms.add_json("mx_serve_summary:h0", hosts[0].server.serve_summary)
+        base = "http://127.0.0.1:%d" % ms.port
+        text = urllib.request.urlopen(base + "/metrics",
+                                      timeout=30).read().decode()
+        payload = json.loads(urllib.request.urlopen(
+            base + "/metrics.json", timeout=30).read())
+    finally:
+        ms.stop()
+    for want in ("mx_serve_steps", 'mx_fleet_ttft_count{host="h0"}',
+                 "mx_request_ttft_seconds_count", "mx_fleet_migrated_pages"):
+        if want not in text:
+            raise AssertionError("/metrics lacks %s" % want)
+    summ = payload.get("mx_serve_summary:h0") or {}
+    if (summ.get("chains") or {}).get("page_tokens") != PAGE_TOKENS:
+        raise AssertionError("/metrics.json lacks h0's chain summary: %s"
+                             % summ)
+    trace = obs.timeline.export()
+    names = assert_chrome_trace(trace, ("paged_decode_step",
+                                        "prefill_chunk", "page_extract",
+                                        "page_install", "swap_out",
+                                        "swap_in", "route"))
+    rows = obs.mfu_table()
+    peaks = {"bfloat16": obs.auto_peak("bfloat16"),
+             "float32": obs.auto_peak("float32")}
+    for line in obs.render_mfu_table(rows).splitlines():
+        log("mfu table: " + line)
+    f32_rows = obs.programs.table(peaks["float32"])
+    # the same captured decode steps with telemetry on and off
+    _telemetry(True)
+    kern_on = _profiled_step_kernels(torch, pred, prompts)
+    _telemetry(False)
+    kern_off = _profiled_step_kernels(torch, pred, prompts)
+    _telemetry(True)
+    if kern_on != kern_off or not kern_on:
+        raise AssertionError("the decode steps' kernels differ with "
+                             "telemetry on %s and off %s"
+                             % (kern_on, kern_off))
+    # phase 5's captured serve, telemetry on / off / on / off
+    rates = {"on": [], "off": []}
+    for on in (True, False) * TELEMETRY_REPEATS:
+        _telemetry(on)
+        results, wall, _ = _serve(torch, pred, prompts)
+        _same_tokens("serve with telemetry %s" % on, results, base_results)
+        rates["on" if on else "off"].append(
+            sum(len(t) for t in results.values()) / wall)
+    _telemetry(True)
+    reading = {"metrics_bytes": len(text), "metrics_json_keys": len(payload),
+               "trace_events": len(trace["traceEvents"]),
+               "trace_dropped": obs.timeline.dropped,
+               "trace_names": len(names), "peaks": peaks,
+               "mfu_rows": rows,
+               "mfu_f32": {r["program"]: r["mfu"] for r in f32_rows},
+               "decode_step_kernels": _kernel_brief(kern_on),
+               "serve_tokens_per_s": rates}
+    log("fleet (d) telemetry: " + json.dumps(reading))
+    return reading
+
+
+def phase_fleet(torch, dev, base):
+    """Phase 14: phase 5's model served (a) as a tick session, (b) with
+    priorities and preemption by page swap, (c) as a fleet of hosts and
+    a prefill worker, with (d) its telemetry exported."""
+    from mxnet_tpu_torch import obs
+
+    sym, params, base_results = base
+    prompts = _prompts()
+    obs.programs.reset()
+    pred = _predictor(sym, params, False, dev)
+    pred.prepare_programs(SLOTS, CHUNK)
+    _serve(torch, pred, [p[:64] for p in prompts[:2]])
+    session, session_launches = _fleet_session(torch, pred, prompts,
+                                               base_results)
+    gc.collect()
+    swap, swap_launches = _fleet_swap(torch, sym, params, dev, prompts,
+                                      base_results)
+    gc.collect()
+    fprompts = _fleet_prompts()
+    fleet, fleet_launches, hosts = _fleet_hosts(torch, sym, params, dev,
+                                                fprompts, pred)
+    telemetry = _fleet_telemetry(torch, pred, prompts, base_results, hosts)
+    reading = {"session": session, "swap": swap, "fleet": fleet,
+               "telemetry": telemetry, "requests": len(fprompts)}
+    log("fleet: " + json.dumps({k: reading[k] for k in ("session", "swap")}))
+    return reading, {"session": session_launches, "swap": swap_launches,
+                     "fleet": fleet_launches}
 
 
 def _check_close(what, got, want, tol):
@@ -4639,6 +5132,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     _, spec_launches = phase_serve_spec(torch, dev, base)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, fleet_launches = phase_fleet(torch, dev, base)
     del base
     # a predictor and its programs reference each other (each program
     # holds a bound method): collect them, their buffers and their
@@ -4704,7 +5200,8 @@ def main():
                   and c["n"] == FFN)
     a_launch = launches["fused_fwd"] + spec_launches["fused_fwd"] \
         + train_launches["fused_fwd"] + predict_launches["fused_fwd"] \
-        + imp_launches["fused_fwd"]
+        + imp_launches["fused_fwd"] \
+        + sum(f["fused_fwd"] for f in fleet_launches.values())
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -4716,19 +5213,24 @@ def main():
                                "serve_spec": spec_launches["fused_fwd"],
                                "train": train_launches["fused_fwd"],
                                "predict": predict_launches["fused_fwd"],
-                               "imperative": imp_launches["fused_fwd"]},
+                               "imperative": imp_launches["fused_fwd"],
+                               **{path: f["fused_fwd"] for path, f
+                                  in fleet_launches.items()}},
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
         dict(_entry("paged_flash_decode",
                     "mxnet_tpu_torch/csrc/paged_decode.cu",
                     "mxnet_tpu/ops/pallas_decode.py:169",
-                    launches["paged_decode"] + spec_launches["paged_decode"],
+                    launches["paged_decode"] + spec_launches["paged_decode"]
+                    + sum(f["paged_decode"] for f in fleet_launches.values()),
                     b_main),
              shape="B=4 tq=1 H=4 hd=256 int8 pages lens=%s"
              % b_main["lens"],
              variant=b_main["variant"], splits=b_main["splits"],
              launches_by_path={"serve": launches["paged_decode"],
-                               "serve_spec": spec_launches["paged_decode"]},
+                               "serve_spec": spec_launches["paged_decode"],
+                               **{path: f["paged_decode"] for path, f
+                                  in fleet_launches.items()}},
              verify_case=brief(b_verify, "tq", "lens", "splits", "rows",
                                "row_tiles"),
              max_abs_err_all_cases=max(c["max_abs_err"] for c in b_cases)),
@@ -4736,13 +5238,16 @@ def main():
                     "mxnet_tpu_torch/csrc/paged_decode.cu",
                     "mxnet_tpu/ops/pallas_decode.py:354",
                     launches["paged_combine"]
-                    + spec_launches["paged_combine"],
+                    + spec_launches["paged_combine"]
+                    + sum(f["paged_combine"] for f in fleet_launches.values()),
                     dict(b_main["combine"], library_ms=None,
                          device_ms=b_main["combine"]["device_ms"])),
              shape="B=4 tq=1 H=4 hd=256, %d splits (%d seen)"
              % (b_main["splits"], b_main["combine"]["splits_seen"]),
              launches_by_path={"serve": launches["paged_combine"],
-                               "serve_spec": spec_launches["paged_combine"]},
+                               "serve_spec": spec_launches["paged_combine"],
+                               **{path: f["paged_combine"] for path, f
+                                  in fleet_launches.items()}},
              verify_case=b_verify["combine"],
              max_abs_err_all_cases=max(c["combine"]["max_abs_err"]
                                        for c in b_cases)),

@@ -42,7 +42,14 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
   :mod:`~mxnet_tpu_torch.recordio` and
   :mod:`~mxnet_tpu_torch.image` (the image and detection iterators),
   ``PythonModule`` / ``PythonLossModule`` / ``SequentialModule`` and
-  ``models.ssd``.
+  ``models.ssd``;
+* serving as a fleet and its telemetry: ``DecodeServer``'s session
+  (``serve_tick``, ``inject``, priorities, preemption by page swap),
+  :mod:`~mxnet_tpu_torch.serve.swap` and :mod:`~mxnet_tpu_torch.serve.
+  fleet` (``Router``, ``FleetHost``, ``PrefillWorker``), and
+  :mod:`~mxnet_tpu_torch.obs` (metrics registry, trace timeline,
+  Prometheus endpoint, per-program roofline) under
+  :mod:`~mxnet_tpu_torch.profiler`.
 
 The hand-written Hopper kernels (``csrc/``): the fused LN->linear
 forward and backward (:mod:`~mxnet_tpu_torch.ops.fused_kernel`), flash
@@ -64,8 +71,8 @@ sym = symbol
 from . import decode, models, programs, serve, weights  # noqa: E402
 from . import (autograd, callback, executor, initializer,  # noqa: E402
                image, io, lr_scheduler, metric, model, module, monitor,
-               ndarray, optimizer, predictor, random, recordio, rnn,
-               test_utils, train_step)
+               ndarray, obs, optimizer, predictor, profiler, random,
+               recordio, rnn, test_utils, train_step)
 from .decode import DecodePredictor, DecodeServer  # noqa: E402
 from .model import FeedForward  # noqa: E402
 from .predictor import Predictor  # noqa: E402
@@ -79,7 +86,8 @@ __all__ = ["AttrScope", "Context", "DecodePredictor", "DecodeServer",
            "autograd", "base", "callback", "config", "context", "cpu",
            "current_context", "decode", "executor", "gpu", "image",
            "initializer", "io", "lr_scheduler", "metric", "mod", "model",
-           "models", "module", "monitor", "nd", "ndarray", "operator",
-           "ops", "optimizer", "predictor", "programs", "random",
+           "models", "module", "monitor", "nd", "ndarray", "obs",
+           "operator", "ops", "optimizer", "predictor", "profiler",
+           "programs", "random",
            "recordio", "registry", "rnn", "serve", "sym", "symbol",
            "test_utils", "train_step", "weights"]

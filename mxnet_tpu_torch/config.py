@@ -8,7 +8,10 @@ wherever the optimizer and the masters allow it.  The training loop's
 keys (``MXNET_FUSED_TRAIN_STEP``, ``MXNET_DEVICE_METRICS``,
 ``MXNET_METRIC_SYNC_PERIOD``, ``MXNET_MAX_STEPS_IN_FLIGHT``,
 ``MXNET_PREFETCH_DEPTH``, ``MXNET_DEVICE_PREFETCH``) are the JAX
-package's, with its defaults.
+package's, with its defaults, and so are the telemetry keys
+(``MXNET_TELEMETRY`` ... ``MXNET_PEAK_FLOPS``, ``MXNET_PROFILER_AUTOSTART``)
+and the fleet's (``MXNET_FLEET_SWAP``, ``MXNET_FLEET_DECODE_BOUND``,
+``MXNET_FLEET_PREFILL_THRESHOLD``).
 """
 from __future__ import annotations
 
@@ -168,3 +171,68 @@ register("MXNET_DEVICE_PREFETCH", bool, True,
          "when a compiled train step is active: batches are pinned and "
          "copied on a side stream the step's stream waits on.  0 = feed "
          "host batches directly.")
+register("MXNET_PROFILER_AUTOSTART", bool, False,
+         "Start the profiler at import time (reference env_var.md:71-79).")
+register("MXNET_TELEMETRY", bool, True,
+         "Arm the telemetry subsystem (mxnet_tpu_torch.obs): timed "
+         "dispatch wrappers around the captured programs (the "
+         "per-program MFU/roofline table), timeline spans and instant "
+         "events (bounded ring buffer) and the static-cost probers.  "
+         "Host-side only: the captured graphs replay the same kernels on "
+         "or off.  The step_stats loop counters stay on regardless.")
+register("MXNET_TRACE_BUFFER", int, 65536,
+         "Capacity (events) of the trace-timeline ring buffer "
+         "(mxnet_tpu_torch.obs.timeline).  Oldest events are evicted "
+         "first, so an armed timeline costs bounded memory however long "
+         "the process lives; profiler.dump_profile exports whatever is "
+         "retained as Chrome-trace JSON.")
+register("MXNET_METRICS_EXPORT", str, "",
+         "Path for the metrics registry's JSON-lines snapshot exporter: "
+         "with MXNET_METRICS_EXPORT_PERIOD > 0, a background thread "
+         "appends one {ts, metrics} line per period.  Empty (default) = "
+         "no file export; the registry is still readable in-process "
+         "(obs.registry.snapshot) and over HTTP (MXNET_METRICS_PORT).")
+register("MXNET_METRICS_EXPORT_PERIOD", float, 0.0,
+         "Seconds between JSON-lines metric snapshots written to "
+         "MXNET_METRICS_EXPORT (0 = off).")
+register("MXNET_METRICS_PORT", int, 0,
+         "Serve the metrics registry over HTTP from decode.DecodeServer "
+         "(obs.MetricsServer, 127.0.0.1): /metrics is the Prometheus "
+         "text format, /metrics.json the snapshot, /trace the current "
+         "timeline as Chrome-trace JSON.  0 (default) = no server.")
+register("MXNET_PEAK_FLOPS", float, 0.0,
+         "Peak FLOP/s used as the MFU denominator in the per-program "
+         "roofline table (obs.mfu_table).  0 (default) = look the card's "
+         "name up in obs.roofline.PEAK_FLOPS (spec-sheet figures); "
+         "unknown devices (the CPU) then report mfu=null while "
+         "flops/bytes/wall stay populated.")
+register("MXNET_FLEET_SWAP", bool, True,
+         "Arm preemption/swap in the paged serving loop "
+         "(decode.DecodeServer / serve.swap): when the page pool cannot "
+         "admit the queue head for MXNET_FLEET_DECODE_BOUND consecutive "
+         "decode iterations, the lowest-priority (then longest-running) "
+         "slot's pages move to host RAM as a restorable record, the "
+         "waiter admits on the freed pages, and the victim re-queues — "
+         "readmitted later by restoring its pages bit-exactly at the "
+         "same ring positions, so a long decode can no longer wedge "
+         "admission.  0 = classic backpressure only (the queue waits "
+         "for retirements).")
+register("MXNET_FLEET_DECODE_BOUND", int, 8,
+         "Fair-admission bound for the paged serving loop: consecutive "
+         "pool-gate-blocked decode iterations tolerated before a "
+         "preemption swap-out (MXNET_FLEET_SWAP) makes room for the "
+         "queue head.  Bounds the admission-starvation tail a long "
+         "wrapped decode can inflict (single host AND fleet p95 TTFT); "
+         "equal-priority thrash is bounded to one swap per this many "
+         "iterations — round-robin time slicing, every request still "
+         "finishes.  0 disables the bound (swap never triggers on "
+         "fairness grounds).")
+register("MXNET_FLEET_PREFILL_THRESHOLD", float, 0.5,
+         "Disaggregation routing threshold (serve.fleet.Router): a "
+         "prompt whose best cache-aware chain match covers at least "
+         "this fraction of its tokens admits DIRECTLY on the matching "
+         "decode host (its chunked prefill computes only the tail); "
+         "colder prompts go to a dedicated prefill worker, whose "
+         "committed pages migrate to the least-loaded decode host "
+         "(DistServe-style prefill/decode split).  Only consulted when "
+         "the router has prefill workers.")

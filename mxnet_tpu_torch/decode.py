@@ -51,15 +51,24 @@ set of pools and state buffers per (slots, pool pages), zeroed in place
 by :meth:`DecodePredictor.paged_batch_state`; page tables and activity
 masks live in device buffers refreshed only when they change.  The
 dense (ring-buffer) predictor, its verify step included, runs eagerly.
-Page extract / install, the mesh plan, the fleet layer,
-swap/preemption, metrics and roofline hooks are not ported yet.
+
+Page extract / install (``page_extract`` / ``page_install``, two more
+programs: a slot's pages gathered to the host and scattered back in
+place, one fixed (M,) table row whatever the page count) carry
+:class:`DecodeServer`'s preemption by page swap and the fleet's page
+migration (:mod:`~mxnet_tpu_torch.serve.fleet`).  The paged server runs
+as a session, one :meth:`DecodeServer.serve_tick` at a time.  Every
+program call is timed around its replay for the roofline table and the
+trace timeline (:mod:`~mxnet_tpu_torch.obs`, ``MXNET_TELEMETRY``);
+nothing of the telemetry runs inside a captured body.  The mesh plan is
+not ported yet.
 """
 from __future__ import annotations
 
 import hashlib
 import json
-import math
 import time
+import weakref
 from collections import deque
 from typing import NamedTuple
 
@@ -67,15 +76,19 @@ import numpy as np
 import torch
 
 from . import config as _config
+from . import obs as _obs
 from . import programs as _programs
 from .base import MXNetError
 from .context import resolve_device
 from .ops import attention as _attn
 from .ops.sample import (is_greedy_policy, policy_logits, sample_tokens,
                          speculative_accept)
+from .obs.metrics import percentile as _percentile
+from .obs.roofline import tensor_bytes
 from .programs import GraphPool, GraphProgram, ProgramSpec
 from .registry import OpContext
 from .serve import PagedKVManager
+from .serve.swap import SwappedRequest
 from .weights import to_tensors
 
 __all__ = ["DecodePredictor", "DecodeServer", "DecodeState",
@@ -116,6 +129,27 @@ def _cache_leaves(caches):
             out.extend([c.data, c.scale] if isinstance(c, _attn.QuantKV)
                        else [c])
     return out
+
+
+def _map_caches(fn, caches, *others):
+    """``caches``' structure with ``fn(leaf, *other leaves)`` at every
+    tensor (QuantKV planes included)."""
+    def one(c, *o):
+        if isinstance(c, _attn.QuantKV):
+            return _attn.QuantKV(fn(c.data, *(x.data for x in o)),
+                                 fn(c.scale, *(x.scale for x in o)))
+        return fn(c, *o)
+
+    return tuple(tuple(one(c, *(o[i][j] for o in others))
+                       for j, c in enumerate(pair))
+                 for i, pair in enumerate(caches))
+
+
+def _host_array(t):
+    """A host tensor as numpy: dtypes numpy lacks (bf16) as their bits."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
 
 
 class DecodeState(NamedTuple):
@@ -233,10 +267,21 @@ class DecodePredictor:
         if data_name not in free:
             raise MXNetError("%r is not a free input of the symbol (free "
                              "inputs: %s)" % (data_name, free))
-        if not any(not n.is_variable and n.op.name == "dot_product_attention"
-                   for n in symbol._topo()):
+        attn_nodes = [n for n in symbol._topo() if not n.is_variable
+                      and n.op.name == "dot_product_attention"]
+        if not attn_nodes:
             raise MXNetError("symbol has no dot_product_attention node; "
                              "nothing to cache")
+        # the grouped-query layout (any node with num_kv_heads <
+        # num_heads): a swapped record's pages carry it, a restore checks
+        # it
+        grouped = []
+        for n in attn_nodes:
+            a = n.parsed_attrs()
+            kvh = a.get("num_kv_heads", 0) or a.get("num_heads", 1)
+            if kvh != a.get("num_heads", 1):
+                grouped.append(int(kvh))
+        self._grouped_kv_heads = min(grouped) if grouped else None
         self._manager = None          # serve.PagedKVManager, per batch
         self._pools_template = None   # per-node cache shapes (probed)
         self._paged_lens = None       # host lens for standalone use
@@ -248,6 +293,7 @@ class DecodePredictor:
         self._gen = None              # see _sampling_generator
         self._program_specs = {}      # kind -> ProgramSpec (owned here)
         self._prepared = None         # the last prepare_programs report
+        self._costs = {}              # program name -> roofline inputs
         # the (B, k+1, V) target probabilities of the last verify step
         # (paged: valid until the next program call)
         self.verify_probs = None
@@ -268,6 +314,10 @@ class DecodePredictor:
                                            bind=(0, 1), pool=pool)
             self._fork_fn = GraphProgram("page_fork", self._fork_body,
                                          bind=(0,), pool=pool)
+            self._extract_fn = GraphProgram(
+                "page_extract", self._extract_body, bind=(0,), pool=pool)
+            self._install_fn = GraphProgram(
+                "page_install", self._install_body, bind=(0,), pool=pool)
 
     @property
     def cache_len(self):
@@ -280,6 +330,77 @@ class DecodePredictor:
     @property
     def _greedy(self):
         return is_greedy_policy(self._temperature, self._top_k)
+
+    # ------------------------------------------------------------------
+    # telemetry: host-side only, around each program call
+    # ------------------------------------------------------------------
+    def _dispatch(self, prog, *args):
+        """One call of a paged program.  With telemetry on, the call is
+        timed (host wall, and CUDA events around the replay on the card)
+        into the program's roofline row and the timeline, and its static
+        cost is registered at the first call; the program itself, and
+        so every captured graph, is the same on or off."""
+        if not _obs.enabled():
+            return prog(*args)
+        with _obs.program_span(prog.name, self._device):
+            out = prog(*args)
+        if prog.name not in self._costs:
+            self._costs[prog.name] = (self._program_rows(prog, args),
+                                      tensor_bytes(args), tensor_bytes(out))
+            ref = weakref.ref(self)
+            _obs.programs.register_static(prog.name, lambda n=prog.name: (
+                ref()._program_cost(n) if ref() is not None else None))
+        return out
+
+    def _program_rows(self, prog, args):
+        """Token rows one call of ``prog`` pushes through the model (0
+        for the programs that only move pages or lengths)."""
+        if prog is self._decode_fn:
+            return int(args[1].shape[0])
+        if prog is self._verify_fn:
+            return int(args[1].shape[0]) * (int(args[5].shape[1]) + 1)
+        if prog is self._chunk_fn:
+            return int(args[2].shape[1])
+        return 0
+
+    def _serving_flops(self, rows):
+        """FLOPs of ``rows`` token rows through the model against a full
+        cache: 2·rows·K·N for each FullyConnected / FusedLNLinear and
+        4·rows·cache_len·hd·heads for each attention (the tables'
+        capacity: what the argument shapes give)."""
+        if self._pools_template is None:
+            self._pools_template = self._probe_cache_shapes()
+        flops = 0
+        ci = 0
+        for node in self._symbol._topo():
+            if node.is_variable:
+                continue
+            attrs = node.parsed_attrs()
+            if node.op.name in ("FullyConnected", "FusedLNLinear"):
+                names = node.op.list_arguments(attrs)
+                w = self._env.get(node.inputs[names.index("weight")][0].name)
+                if w is not None:
+                    flops += 2 * rows * int(w.shape[1]) * int(w.shape[0])
+            elif node.op.name == "dot_product_attention":
+                heads = attrs.get("num_heads", 1)
+                kvh = attrs.get("num_kv_heads", 0) or heads
+                k = self._pools_template[ci][0]
+                e_kv = int((k.data if isinstance(k, _attn.QuantKV)
+                            else k).shape[2])
+                flops += 4 * rows * self._cache_len * (e_kv // kvh) * heads
+                ci += 1
+        return flops
+
+    def _program_cost(self, name):
+        """The roofline row's static columns of program ``name``: FLOPs
+        of its token rows, and bytes of its arguments (the weights too,
+        for the programs that run the model) and outputs, each read or
+        written once."""
+        rows, arg_bytes, out_bytes = self._costs[name]
+        if rows:
+            arg_bytes += tensor_bytes(self._env)
+        return {"flops": self._serving_flops(rows) if rows else 0,
+                "bytes": arg_bytes + out_bytes}
 
     # ------------------------------------------------------------------
     # the shared graph walk
@@ -495,8 +616,8 @@ class DecodePredictor:
         in every pool (the fork program, ids as data) before the append
         that needs them."""
         for src, dst in copies:
-            self._fork_fn(caches, torch.tensor([src, dst],
-                                               dtype=torch.int64))
+            self._dispatch(self._fork_fn, caches,
+                           torch.tensor([src, dst], dtype=torch.int64))
 
     def _device_tables(self):
         """The manager's page tables in the batch's device buffer,
@@ -542,8 +663,8 @@ class DecodePredictor:
         for mine, given in ((live.lens, state.lens), (live.tok, state.tok)):
             if given is not mine:
                 mine.copy_(given)
-        probs = self._decode_fn(state.caches, live.lens, live.tok, tables,
-                                act, generator)
+        probs = self._dispatch(self._decode_fn, state.caches, live.lens,
+                               live.tok, tables, act, generator)
         return DecodeState(state.caches, live.lens, live.tok), probs
 
     def _decode_body(self, caches, lens, tok, tables, act, generator):
@@ -572,9 +693,9 @@ class DecodePredictor:
         for mine, given in ((live.lens, state.lens), (live.tok, state.tok)):
             if given is not mine:
                 mine.copy_(given)
-        out, counts, self.verify_probs = self._verify_fn(
-            state.caches, live.lens, live.tok, tables, act, draft,
-            draft_probs, generator)
+        out, counts, self.verify_probs = self._dispatch(
+            self._verify_fn, state.caches, live.lens, live.tok, tables,
+            act, draft, draft_probs, generator)
         return DecodeState(state.caches, live.lens, live.tok), out, counts
 
     def _verify_body(self, caches, lens, tok, tables, act, draft_toks,
@@ -604,8 +725,8 @@ class DecodePredictor:
         position.  Returns ``(caches, probs (1, V), tok (1, 1))``, valid
         until the next program call."""
         n = int(np.asarray(toks).size)
-        probs, tok = self._chunk_fn(
-            caches, self._device_tables()[slot:slot + 1],
+        probs, tok = self._dispatch(
+            self._chunk_fn, caches, self._device_tables()[slot:slot + 1],
             torch.from_numpy(_pad_window(toks, width)),
             torch.tensor([pos0, n], dtype=torch.int32), generator)
         return caches, probs, tok
@@ -624,9 +745,9 @@ class DecodePredictor:
     def _commit(self, state, slot, new_len, new_tok):
         """Activate a freshly prefilled slot (the commit program, the slot
         as data): ``lens[slot] = new_len``, ``tok[slot, 0] = new_tok``."""
-        self._commit_fn(state.lens, state.tok,
-                        torch.tensor([slot, new_len], dtype=torch.int32),
-                        new_tok)
+        self._dispatch(self._commit_fn, state.lens, state.tok,
+                       torch.tensor([slot, new_len], dtype=torch.int32),
+                       new_tok)
 
     @staticmethod
     def _commit_body(lens, tok, meta, new_tok):
@@ -640,6 +761,60 @@ class DecodePredictor:
         (page ids are one global space)."""
         for pool in _cache_leaves(caches):
             _attn.paged_copy(pool, ids[0:1], ids[1:2])
+
+    @staticmethod
+    def _extract_body(caches, row):
+        """The extract program: gather one slot's (M,) table row out of
+        every pool (data and scale planes; fp8 planes as their bytes)
+        into fresh outputs.  The page ids are data, so one capture
+        serves every migration and swap-out; unmapped entries (0)
+        gather the scratch page, whose content is never read."""
+        return _map_caches(lambda pool: _attn._raw(pool).index_select(
+            0, row), caches)
+
+    @staticmethod
+    def _install_body(caches, row, data):
+        """The install program: scatter extracted page contents back
+        into the pools, in place, at a (freshly allocated) table row.
+        Unmapped entries (0) write the scratch page, so one fixed-(M,)
+        program carries any live page count."""
+        for pool, d in zip(_cache_leaves(caches), _cache_leaves(data)):
+            _attn._raw(pool).index_copy_(0, row, d)
+
+    def extract_pages(self, caches, row):
+        """Host (numpy) copy of one slot's pages, the shippable payload of
+        page migration and swap-out: per attention node the K and V
+        planes (quantized data and per-(token, head) scales) in
+        table-row order, ``(M, page_tokens, E)`` each.  ``row`` is the
+        slot's (M,) page-table row (0 = unmapped).  On the card the
+        program's outputs go to pinned host buffers."""
+        row_t = torch.from_numpy(np.asarray(row, np.int64).reshape(-1))
+        out = self._dispatch(self._extract_fn, caches, row_t)
+        if self._device.type != "cuda":
+            return _map_caches(lambda t: _host_array(t.clone()), out)
+        host = _map_caches(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, pin_memory=True), out)
+        for h, t in zip(_cache_leaves(host), _cache_leaves(out)):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self._device).synchronize()
+        return _map_caches(_host_array, host)
+
+    def install_pages(self, caches, row, data):
+        """Write a shipped page payload (:meth:`extract_pages`' form)
+        into this predictor's pools, in place, at table row ``row`` (0 =
+        unmapped, redirected to the scratch page).  The payload is
+        staged into the program's input buffers before the replay.
+        Returns the pools."""
+        row_t = torch.from_numpy(np.asarray(row, np.int64).reshape(-1))
+
+        def staged(pool, a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            raw = _attn._raw(pool)
+            return t.view(raw.dtype) if t.dtype != raw.dtype else t
+
+        self._dispatch(self._install_fn, caches, row_t,
+                       _map_caches(staged, caches, data))
+        return caches
 
     def _chunked_fill(self, caches, slot, prompt, start, generator=None):
         """Prefill [start, len(prompt)) of one slot's prompt in
@@ -705,8 +880,8 @@ class DecodePredictor:
     def trace_counts(self):
         """Captures per program kind under the JAX package's keys (one
         per argument signature: ``verify`` counts one for deterministic
-        drafts and one for drafts with probabilities; ``prefill``,
-        ``extract`` and ``install`` have no program here and stay 0)."""
+        drafts and one for drafts with probabilities; ``prefill`` has no
+        program here and stays 0)."""
         out = dict.fromkeys(_TRACE_KINDS, 0)
         for kind, prog in self._programs().items():
             out[kind] = prog.traces
@@ -718,7 +893,8 @@ class DecodePredictor:
             return {}
         return {"chunk": self._chunk_fn, "decode": self._decode_fn,
                 "verify": self._verify_fn, "commit": self._commit_fn,
-                "fork": self._fork_fn}
+                "fork": self._fork_fn, "extract": self._extract_fn,
+                "install": self._install_fn}
 
     def _sampling_generator(self, seed=None):
         """The predictor's one generator for sampled decoding (the
@@ -1238,14 +1414,6 @@ class DraftProposer:
                 torch.stack(qs, dim=1) if qs else None)
 
 
-def _nearest_rank(values, q):
-    """Nearest-rank percentile of a sorted list (None when empty)."""
-    if not values:
-        return None
-    return values[min(len(values) - 1, max(0, math.ceil(q * len(values))
-                                           - 1))]
-
-
 class DecodeServer:
     """Continuous batching over a :class:`DecodePredictor`.
 
@@ -1265,12 +1433,28 @@ class DecodeServer:
     retires at once, the rest of the window discarded.  Plain steps run
     instead where a window would wrap the ring and, in paged mode,
     while an admission is mid-prefill.
+
+    The paged loop is also a fleet citizen (:mod:`~mxnet_tpu_torch.
+    serve.fleet`): it runs as a persistent session, one
+    :meth:`serve_tick` at a time, so a router can interleave hosts;
+    accepts page-restorable records through :meth:`inject` (migrated
+    prefills, swapped-out requests); publishes its routing view through
+    :meth:`serve_summary` (``/metrics.json`` with ``metrics_port`` /
+    ``MXNET_METRICS_PORT``); and preempts under pressure — a
+    higher-priority waiter, or any waiter after
+    ``MXNET_FLEET_DECODE_BOUND`` pool-blocked iterations, swaps the
+    lowest-priority slot's pages to host RAM (``MXNET_FLEET_SWAP``); the
+    victim readmits bit-exactly here or on any other host.  ``host``
+    labels the per-host ``mx_fleet_*`` metric children.  Request times
+    are wall-clock (``time.time()``): a swapped record carries them
+    across hosts.
     """
 
     def __init__(self, predictor, max_prefill, slots=None, eos_id=None,
                  max_new_tokens=None, seed=0, spec_k=None, proposer=None,
-                 draft=None):
+                 draft=None, metrics_port=None, host=None):
         self._pred = predictor
+        self._host = str(host) if host is not None else "local"
         self._max_prefill = int(max_prefill)
         if self._max_prefill > predictor.cache_len:
             raise MXNetError("max_prefill %d exceeds the predictor's "
@@ -1284,6 +1468,7 @@ class DecodeServer:
         self._queue = deque()
         self._next_id = 0
         self._req = {}          # rid -> submit/admit/first/retire times
+        self._done_rids = deque()   # retired rids, oldest first (pruning)
         # paged chunk width: the predictor's chunk clamped to the
         # admission window
         self._chunk_w = min(int(predictor._prefill_chunk or max_prefill),
@@ -1309,6 +1494,75 @@ class DecodeServer:
         self.tokens_out = 0     # tokens delivered to finished requests
         self.proposed = 0       # drafted tokens offered to verify
         self.accepted = 0       # drafted tokens accepted
+        # registry mirrors of the loop counters (scrapeable over
+        # /metrics; the ints above stay the callers' source)
+        self._m_steps = _obs.registry.counter(
+            "mx_serve_steps", "device steps executed by the serving loop")
+        self._m_spec = _obs.registry.counter(
+            "mx_serve_spec_steps", "speculative verify steps")
+        self._m_tokens = _obs.registry.counter(
+            "mx_serve_tokens", "tokens delivered to finished requests")
+        self._m_proposed = _obs.registry.counter(
+            "mx_spec_proposed", "drafted tokens offered to verify")
+        self._m_accepted = _obs.registry.counter(
+            "mx_spec_accepted", "drafted tokens accepted by the target")
+        # preemption (paged loop): after this many consecutive
+        # pool-gate-blocked iterations the lowest-priority slot swaps out
+        self._fair_bound = int(_config.get("MXNET_FLEET_DECODE_BOUND"))
+        self._swap_armed = bool(_config.get("MXNET_FLEET_SWAP"))
+        self._preempt_cb = None     # serve.fleet routes records back out
+        self._verify_restore = False   # re-extract and compare restores
+        self._ps = None             # the persistent paged session
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.metrics_server = None
+        self._summary_key = None
+        self._bind_host_metrics(self._host)
+        # the process-wide HTTP exporter (one per port): /metrics,
+        # /metrics.json (with this server's mx_serve_summary:<host>
+        # section), /trace, /healthz
+        if metrics_port is None:
+            metrics_port = int(_config.get("MXNET_METRICS_PORT"))
+        if metrics_port:
+            self.metrics_server = _obs.serve_metrics(metrics_port)
+            self._register_summary()
+
+    def _register_summary(self):
+        """(Re)register this server's ``/metrics.json`` section under
+        its current host label (a rename drops the old key)."""
+        if self.metrics_server is None:
+            return
+        key = "mx_serve_summary:%s" % self._host
+        if self._summary_key and self._summary_key != key:
+            self.metrics_server.remove_json(self._summary_key)
+        self._summary_key = key
+        self.metrics_server.add_json(key, self.serve_summary)
+
+    def _bind_host_metrics(self, host):
+        """(Re)bind the per-host ``mx_fleet_*`` children: the fleet
+        names its hosts after construction, and the labeled series
+        follow the name."""
+        self._host = str(host)
+        self._register_summary()
+        lab = {"host": self._host}
+        reg = _obs.registry
+        self._m_swapped_pages = reg.counter(
+            "mx_fleet_swapped_pages",
+            "pages moved to host RAM by preemption swap-outs",
+            labels=("host",)).labels(**lab)
+        self._m_migrated_pages = reg.counter(
+            "mx_fleet_migrated_pages",
+            "pages installed from migrated/restored records",
+            labels=("host",)).labels(**lab)
+        self._m_queue_depth = reg.gauge(
+            "mx_fleet_queue_depth", "requests waiting in the host queue",
+            labels=("host",)).labels(**lab)
+        self._m_free_pages = reg.gauge(
+            "mx_fleet_free_pages", "free pages in the host's KV pool",
+            labels=("host",)).labels(**lab)
+        self._m_ttft = reg.histogram(
+            "mx_fleet_ttft", "seconds from submit to first token",
+            labels=("host",)).labels(**lab)
 
     @property
     def accept_rate(self):
@@ -1317,14 +1571,23 @@ class DecodeServer:
 
     def _note_step(self, spec=False):
         self.steps += 1
-        self.spec_steps += int(spec)
+        self._m_steps.inc()
+        if spec:
+            self.spec_steps += 1
+            self._m_spec.inc()
 
     def _note_accept(self, proposed, accepted):
         self.proposed += proposed
         self.accepted += accepted
+        self._m_proposed.inc(proposed)
+        self._m_accepted.inc(accepted)
 
-    def submit(self, tokens, max_new_tokens=None):
-        """Queue a prompt (1-D int sequence); returns the request id."""
+    def submit(self, tokens, max_new_tokens=None, priority=0):
+        """Queue a prompt (1-D int sequence); returns the request id.
+
+        ``priority`` matters only under preemption (paged mode with
+        ``MXNET_FLEET_SWAP``): higher values are swapped out last when
+        the pool runs dry.  Admission order stays FIFO."""
         tokens = np.asarray(tokens).reshape(-1)
         if tokens.size > self._max_prefill:
             raise MXNetError("prompt length %d exceeds max_prefill %d"
@@ -1333,12 +1596,52 @@ class DecodeServer:
         self._next_id += 1
         cap = int(max_new_tokens) if max_new_tokens is not None \
             else self._max_new
-        self._queue.append({"rid": rid, "prompt": tokens, "cap": cap})
-        self._req[rid] = {"submit": time.perf_counter()}
+        self._queue.append({"rid": rid, "prompt": tokens, "cap": cap,
+                            "prio": int(priority), "swap": None})
+        self._req[rid] = {"submit": time.time()}
         return rid
 
-    def _generator(self):
-        return self._pred._sampling_generator(self._seed)
+    def inject(self, record, front=False):
+        """Queue a restorable :class:`~mxnet_tpu_torch.serve.swap.
+        SwappedRequest` — a migrated prefill from a prefill worker, or a
+        request another host swapped out.  It admits through the normal
+        reservation gate and restores by installing its saved pages (no
+        prefill); its times carry over, so fleet TTFT stays honest.
+        Returns this host's rid."""
+        rid = self._next_id
+        self._next_id += 1
+        entry = {"rid": rid, "prompt": record.prompt, "cap": record.cap,
+                 "prio": record.priority, "swap": record}
+        (self._queue.appendleft if front else self._queue.append)(entry)
+        self._req[rid] = {"submit": record.submit_ts
+                          if record.submit_ts is not None else time.time()}
+        return rid
+
+    # retained retired-request records (stats percentiles); older ones
+    # are pruned so a long-lived server cannot grow without bound
+    _REQ_CAP = 4096
+
+    def _finish(self, rid, ntokens):
+        """Close a request's record and publish it to the profiler
+        (queue wait, time to first token, decode tokens/s)."""
+        from . import profiler as _prof
+
+        rec = self._req.get(rid)
+        if rec is None or "retire" in rec:
+            return
+        now = time.time()
+        rec["retire"] = now
+        rec["tokens"] = int(ntokens)
+        first = rec.get("first", now)
+        self._m_ttft.observe(max(first - rec["submit"], 0.0))
+        _prof.record_request(
+            rec.get("admit", rec["submit"]) - rec["submit"],
+            first - rec["submit"], ntokens, now - first)
+        _obs.instant("retire", cat="serve",
+                     args={"rid": rid, "tokens": int(ntokens)})
+        self._done_rids.append(rid)
+        while len(self._done_rids) > self._REQ_CAP:
+            self._req.pop(self._done_rids.popleft(), None)
 
     def _deliver(self, rec, emitted):
         """Append emitted tokens to a request, honoring its cap and
@@ -1353,7 +1656,8 @@ class DecodeServer:
 
     def _retire_finished(self, active, results, on_retire=None):
         """Retire every finished request in ``active`` (EOS delivered or
-        cap reached): record the result and free the slot."""
+        cap reached): record the result, close its record, free the
+        slot (``on_retire(slot)``: the paged loop frees its pages)."""
         for slot in list(active):
             rec = active[slot]
             rid, toks = rec["rid"], rec["toks"]
@@ -1362,16 +1666,16 @@ class DecodeServer:
                     or len(toks) >= rec["cap"]:
                 results[rid] = np.asarray(toks, np.int32)
                 self.tokens_out += len(toks)
-                req = self._req[rid]
-                req["retire"] = time.perf_counter()
-                req["tokens"] = len(toks)
+                self._m_tokens.inc(len(toks))
+                self._finish(rid, len(toks))
                 del active[slot]
                 if on_retire is not None:
                     on_retire(slot)
 
     def stats(self):
-        """Loop counters, time-to-first-token percentiles (seconds from
-        submit) and, in paged mode, pool and prefix-cache accounting."""
+        """Loop counters, per-request percentiles (queue wait, TTFT,
+        decode tokens/s; seconds from submit) and, in paged mode, pool
+        and prefix-cache accounting, with the swap counts."""
         done = [r for r in self._req.values() if "retire" in r]
         out = {"steps": self.steps, "spec_steps": self.spec_steps,
                "proposed": self.proposed, "accepted": self.accepted,
@@ -1380,12 +1684,50 @@ class DecodeServer:
                "requests_completed": len(done),
                "requests_queued": len(self._queue)}
         if done:
-            tf = sorted(r["first"] - r["submit"] for r in done)
-            out["ttft_p50_s"] = _nearest_rank(tf, 0.50)
-            out["ttft_p95_s"] = _nearest_rank(tf, 0.95)
+            qw = sorted(r.get("admit", r["submit"]) - r["submit"]
+                        for r in done)
+            tf = sorted(r.get("first", r["retire"]) - r["submit"]
+                        for r in done)
+            out["queue_wait_p50_s"] = _percentile(qw, 0.50)
+            out["queue_wait_p95_s"] = _percentile(qw, 0.95)
+            out["ttft_p50_s"] = _percentile(tf, 0.50)
+            out["ttft_p95_s"] = _percentile(tf, 0.95)
+            rates = sorted(
+                (r["tokens"] - 1)
+                / max(r["retire"] - r.get("first", r["retire"]), 1e-9)
+                for r in done if r["tokens"] > 1)
+            if rates:
+                out["decode_tokens_per_sec_p50"] = _percentile(rates, 0.50)
+                out["decode_tokens_per_sec_p95"] = _percentile(rates, 0.95)
         if self._pred._paged and self._pred._manager is not None:
             out.update(self._pred._manager.stats())
+        out["swap_outs"] = self.swap_outs
+        out["swap_ins"] = self.swap_ins
         return out
+
+    def serve_summary(self):
+        """The routing view a fleet front end scores this host by: the
+        free-page and queue-depth load signals and the prefix-cache
+        chain summary (``PrefixCache.summary``) the cache-aware policy
+        matches prompts against.  Served inside ``/metrics.json`` (the
+        ``mx_serve_summary:<host>`` key) when the exporter is armed."""
+        mgr = getattr(self._pred, "_manager", None)
+        active = len(self._ps["active"]) if self._ps is not None else 0
+        pending = 1 if self._ps is not None and self._ps["pending"] else 0
+        out = {"host": self._host,
+               "slots": self._slots,
+               "active": active + pending,
+               "queue_depth": len(self._queue),
+               "free_pages": mgr.allocator.free_pages
+               if mgr is not None else None,
+               "swap_outs": self.swap_outs,
+               "chains": None}
+        if mgr is not None and mgr.prefix_cache is not None:
+            out["chains"] = mgr.prefix_cache.summary()
+        return out
+
+    def _generator(self):
+        return self._pred._sampling_generator(self._seed)
 
     def _verify(self, state, lens_h, active, histories, gen, dgen,
                 act_mask=None):
@@ -1414,7 +1756,9 @@ class DecodeServer:
 
     def run(self):
         """Drain the queue; returns ``{request_id: np.int32 array}`` of
-        generated tokens (EOS included when hit)."""
+        generated tokens (EOS included when hit).  A paged predictor
+        runs the session's tick loop (:meth:`serve_tick`) on a fresh
+        session."""
         if self._pred._paged:
             return self._run_paged()
         pred = self._pred
@@ -1437,9 +1781,11 @@ class DecodeServer:
                 one, _ = pred.prefill(padded, prompt.size, gen)
                 first = int(one.tok[0, 0])
                 rec = self._req[rid]
-                rec["admit"] = rec["first"] = time.perf_counter()
+                rec["admit"] = rec["first"] = time.time()
                 slot = next(s for s in range(self._slots)
                             if s not in active)
+                _obs.instant("admit", cat="serve",
+                             args={"rid": rid, "slot": slot})
                 if state is None:
                     state = _empty_batch_state(one, self._slots)
                 _insert(state, one, slot)
@@ -1447,7 +1793,8 @@ class DecodeServer:
                     proposer.admit(padded, prompt.size, slot, self._slots,
                                    dgen)
                 active[slot] = {"rid": rid, "toks": [first],
-                                "cap": entry["cap"]}
+                                "cap": entry["cap"], "prio": entry["prio"],
+                                "prompt": prompt}
                 histories[slot] = list(prompt.astype(np.int64)) + [first]
                 slot_lens[slot] = prompt.size
             self._retire_finished(active, results)
@@ -1469,110 +1816,361 @@ class DecodeServer:
             self._retire_finished(active, results)
         return results
 
-    def _run_paged(self):
-        pred = self._pred
+    # ------------------------------------------------------------------
+    # the paged serving schedule: a persistent session driven one
+    # iteration at a time (serve_tick), so a fleet router can interleave
+    # hosts, inject migrated state and collect preemptions between
+    # iterations; run() drives the same tick loop to drain the queue
+    # ------------------------------------------------------------------
+    def serve_open(self):
+        """Get-or-create the paged serving session: the predictor's pools
+        zeroed in place, a fresh page manager and batch bookkeeping, the
+        sampling generators seeded.  Idempotent while a session is live;
+        :meth:`serve_reset` closes it (the captured programs are the
+        predictor's and survive: a reopened session captures nothing)."""
+        if self._ps is not None:
+            return self._ps
         slots = self._slots
-        gen = self._generator()
+        self._ps = {
+            "gen": self._generator(),
+            "dgen": _proposer_generator(self._proposer, self._seed),
+            "state": self._pred.paged_batch_state(slots),
+            "active": {},       # slot -> request record
+            "results": {},
+            "histories": {},    # slot -> committed tokens (proposer food)
+            "slot_lens": np.zeros(slots, np.int64),
+            "act_mask": np.zeros(slots, np.int32),
+            "pending": None,    # the one admission mid-chunked-prefill
+            "blocked": 0,       # consecutive pool-gate-blocked ticks
+        }
+        return self._ps
+
+    def serve_reset(self):
+        """Close the paged session.  The predictor's manager is dropped
+        now, not at reopen: a router polls :meth:`serve_summary` before
+        the first tick, and the previous session's chains would mis-route
+        the first burst."""
+        self._ps = None
+        if self._pred._paged:
+            self._pred._manager = None
+
+    @property
+    def has_work(self):
+        """Whether the session still has queued, mid-prefill or decoding
+        requests."""
+        if self._ps is None:
+            return bool(self._queue)
+        ps = self._ps
+        return bool(self._queue or ps["active"] or ps["pending"])
+
+    def serve_results(self, clear=True):
+        """``{rid: np.int32 tokens}`` finished since the session opened
+        (or since the last ``clear``)."""
+        if self._ps is None:
+            return {}
+        out = dict(self._ps["results"])
+        if clear:
+            self._ps["results"].clear()
+        return out
+
+    def _run_paged(self):
+        """Drain the local queue through the tick loop on a fresh
+        session."""
+        self.serve_reset()
+        self.serve_open()
+        while self.has_work:
+            self.serve_tick()
+        return self.serve_results(clear=True)
+
+    def _on_retire_paged(self, ps):
+        def on_retire(slot):
+            ps["act_mask"][slot] = 0
+            # pages back to the pool now: the next admission sees them
+            self._pred._manager.free_slot(slot)
+        return on_retire
+
+    def _admit_one(self, ps):
+        """Gate the queue head: a fresh prompt starts chunked prefill
+        (returns its pending record, stored in ``ps``); a restorable
+        record installs its pages and its slot activates at once
+        (returns True).  None: the pool cannot cover it yet
+        (backpressure)."""
+        mgr = self._pred._manager
+        entry = self._queue[0]
+        if entry["swap"] is not None:
+            return self._try_restore(ps, entry)
+        rid, prompt, cap = entry["rid"], entry["prompt"], entry["cap"]
+        gate = mgr.gate(prompt, prompt.size, cap, self._spec_k)
+        if gate is None:
+            return None
+        self._queue.popleft()
+        matched, pages, reserve_n = gate
+        slot = next(s for s in range(self._slots) if s not in ps["active"])
+        mgr.map_slot(slot, pages, reserve_n)
+        self._req[rid]["admit"] = time.time()
+        _obs.instant("admit", cat="serve",
+                     args={"rid": rid, "slot": slot,
+                           "prefix_matched": int(matched)})
+        ps["pending"] = {"slot": slot, "rid": rid,
+                         "prompt": np.asarray(prompt).reshape(-1)
+                         .astype(np.int64), "cap": cap,
+                         "prio": entry["prio"], "pos": int(matched)}
+        return ps["pending"]
+
+    def _try_restore(self, ps, entry):
+        """Admit a :class:`~mxnet_tpu_torch.serve.swap.SwappedRequest`
+        by restoring its pages: reserve through the normal gate, allocate
+        fresh pages at the same ring positions, scatter the saved
+        contents back (the install program), set the slot's length and
+        token (the commit program).  No prefill, no new capture; with
+        ``_verify_restore`` the pages are extracted again and held
+        against the record byte for byte."""
+        pred = self._pred
+        mgr = pred._manager
+        rec = entry["swap"]
+        if getattr(rec, "kv_heads", None) != pred._grouped_kv_heads:
+            # page planes are raw pool bytes with no head structure of
+            # their own: another grouped layout would misread every page
+            raise MXNetError(
+                "swap restore: record kv layout (kv_heads=%r) does not "
+                "match this host's (kv_heads=%r)"
+                % (rec.kv_heads, pred._grouped_kv_heads))
+        m = mgr.pages_per_slot
+        remaining = max(rec.cap - len(rec.delivered), 0)
+        total = rec.lens + remaining + self._spec_k + 1
+        target = min(-(-min(total, pred.cache_len) // mgr.page_tokens), m)
+        # a record that re-publishes its prompt chain and will wrap
+        # budgets one fork per prompt page up front (the gate's
+        # budget_wrap_forks rule)
+        fork = -(-rec.prompt.size // mgr.page_tokens) \
+            if rec.publish and total > pred.cache_len else 0
+        need = rec.n_pages + max(target - rec.n_pages, 0) + fork
+        if not mgr.gate_pages(need):
+            return None
+        self._queue.popleft()
+        slot = next(s for s in range(self._slots) if s not in ps["active"])
+        row = mgr.restore_slot(slot, rec.row_valid, need)
+        state = ps["state"]
+        pred.install_pages(state.caches, row, rec.data)
+        pred._commit(state, slot, rec.lens,
+                     torch.tensor([[rec.tok]], dtype=torch.int32))
+        if self._verify_restore:
+            back = pred.extract_pages(state.caches, row)
+            for a, b in zip(_cache_leaves(back), _cache_leaves(rec.data)):
+                if not np.array_equal(np.asarray(a)[rec.row_valid],
+                                      np.asarray(b)[rec.row_valid]):
+                    raise MXNetError("restored pages are not bit-identical")
+        if rec.publish:
+            mgr.publish(slot, rec.prompt, rec.prompt.size)
+        if getattr(self._proposer, "needs_prefill", False):
+            self._proposer.admit(
+                _pad_window(rec.prompt, self._max_prefill),
+                rec.prompt.size, slot, self._slots, ps["dgen"])
+        rid = entry["rid"]
+        req = self._req[rid]
+        req["admit"] = time.time()
+        req["first"] = rec.first_ts if rec.first_ts is not None \
+            else req["admit"]
+        ps["active"][slot] = {"rid": rid, "toks": list(rec.delivered),
+                              "cap": rec.cap, "prio": rec.priority,
+                              "prompt": rec.prompt}
+        ps["histories"][slot] = list(rec.history)
+        ps["slot_lens"][slot] = rec.lens
+        ps["act_mask"][slot] = 1
+        if rec.kind == "swap":
+            self.swap_ins += 1
+        else:
+            self._m_migrated_pages.inc(rec.n_pages)
+        _obs.instant("swap_in" if rec.kind == "swap" else "page_migrate",
+                     cat="serve", args={"rid": rid, "slot": slot,
+                                        "pages": rec.n_pages})
+        self._retire_finished(ps["active"], ps["results"],
+                              self._on_retire_paged(ps))
+        return True
+
+    def _swap_out(self, ps, slot):
+        """Preempt ``slot``: extract its pages to host RAM (the extract
+        program), free them, and hand the restorable record to the
+        fleet's preemption callback — or re-queue it here at the back,
+        so the blocked waiter admits and the victim resumes later.
+        Returns the record."""
+        pred = self._pred
+        mgr = pred._manager
+        rec = ps["active"][slot]
+        row = mgr.tables[slot].copy()
+        data = pred.extract_pages(ps["state"].caches, row)
+        req = self._req.get(rec["rid"], {})
+        record = SwappedRequest(
+            rec["prompt"], rec["toks"], ps["histories"][slot],
+            rec["cap"], rec["prio"], int(ps["slot_lens"][slot]),
+            int(ps["state"].tok[slot, 0]), row != 0, data, kind="swap",
+            submit_ts=req.get("submit"), first_ts=req.get("first"),
+            rid=rec["rid"], kv_heads=pred._grouped_kv_heads)
+        mgr.free_slot(slot)
+        ps["act_mask"][slot] = 0
+        ps["slot_lens"][slot] = 0
+        del ps["active"][slot]
+        del ps["histories"][slot]
+        self.swap_outs += 1
+        self._m_swapped_pages.inc(record.n_pages)
+        _obs.instant("swap_out", cat="serve",
+                     args={"rid": record.rid, "slot": int(slot),
+                           "pages": record.n_pages})
+        if self._preempt_cb is not None:
+            # the request's times travel with the record; the readmitting
+            # host makes its own entry
+            self._req.pop(record.rid, None)
+            self._preempt_cb(record)
+        else:
+            self._queue.append({"rid": record.rid, "prompt": record.prompt,
+                                "cap": record.cap, "prio": record.priority,
+                                "swap": record})
+        return record
+
+    def _preempt_for_waiter(self, ps, allow_bound):
+        """The preemption rule, for both blocking modes (slots full, pool
+        gate blocked): the queue head evicts the lowest-priority (then
+        longest-running) slot when it strictly outranks it — or, with
+        ``allow_bound``, once the fair-admission bound is reached.
+        Swaps out, readmits, restarts the blocked count; returns the
+        readmission's result (None: no preemption, or still blocked)."""
+        active = ps["active"]
+        if not (self._swap_armed and active and self._queue):
+            return None
+        victim = min(active, key=lambda s: (active[s]["prio"],
+                                            -int(ps["slot_lens"][s])))
+        bound_hit = allow_bound and self._fair_bound > 0 \
+            and ps["blocked"] >= self._fair_bound
+        if active[victim]["prio"] >= self._queue[0]["prio"] \
+                and not bound_hit:
+            return None
+        self._swap_out(ps, victim)
+        got = self._admit_one(ps)
+        # one swap per bound window, even when the waiter is still
+        # blocked: preemption cannot cascade through every resident
+        ps["blocked"] = 0
+        return got
+
+    def serve_tick(self):
+        """One iteration of the paged serving schedule.
+
+        (1) gate at most one queued request through the page allocator
+        (a reservation failure is backpressure: the request waits for
+        retirements); a waiter that outranks the lowest-priority slot,
+        or any waiter after ``MXNET_FLEET_DECODE_BOUND`` blocked
+        iterations, swaps that slot out (``MXNET_FLEET_SWAP``); (2) run
+        one prefill chunk of the admission in flight (prefix-cache
+        matched pages were mapped at the gate); (3) on its last chunk,
+        set the slot's length and first token, publish the prompt's
+        pages to the prefix cache and activate the slot; (4) run one
+        decode (or speculative verify) step over the active slots,
+        inactive rows masked; (5) retire finished requests, freeing their
+        pages at once.  Page tables, masks, slot indices, page ids and
+        swapped page contents are all data: nothing is captured again."""
+        pred = self._pred
+        ps = self.serve_open()
+        mgr = pred._manager
+        slots = self._slots
+        active = ps["active"]
+        histories = ps["histories"]
+        slot_lens = ps["slot_lens"]
+        act_mask = ps["act_mask"]
+        gen, dgen = ps["gen"], ps["dgen"]
         proposer = self._proposer
-        dgen = _proposer_generator(proposer, self._seed)
         k = self._spec_k
         limit = _window_limit(pred.cache_len, proposer)
-        state = pred.paged_batch_state(slots)
-        mgr = pred._manager
-        active = {}
-        results = {}
-        histories = {}      # slot -> committed tokens (proposer food)
-        slot_lens = np.zeros(slots, np.int64)
-        act_mask = np.zeros(slots, np.int32)
-        pending = None      # the one admission mid-chunked-prefill
+        on_retire = self._on_retire_paged(ps)
 
-        def on_retire(slot):
-            act_mask[slot] = 0
-            # pages back to the pool now: the next admission sees them
-            mgr.free_slot(slot)
+        def retire():
+            self._retire_finished(active, ps["results"], on_retire)
 
-        while self._queue or active or pending is not None:
-            # (1) admission gate: at most one request starts prefill
-            if pending is None and self._queue and len(active) < slots:
-                pending = self._admit(mgr, active)
-                if pending is None and not active:
+        # (1a) slots full: a waiter that outranks the lowest-priority
+        # resident evicts it; equal priorities wait for a retirement
+        if ps["pending"] is None and len(active) >= slots:
+            self._preempt_for_waiter(ps, allow_bound=False)
+        # (1) admission gate: one request starts (or restores)
+        if ps["pending"] is None and self._queue and len(active) < slots:
+            got = self._admit_one(ps)
+            if got is None:
+                ps["blocked"] += 1
+                if not active:
                     # nothing running to free pages: spill the prefix
                     # cache; then the pool is genuinely too small
                     if mgr.prefix_cache is not None:
                         mgr.prefix_cache.evict(mgr.pool_pages)
-                        pending = self._admit(mgr, active)
-                    if pending is None:
+                        got = self._admit_one(ps)
+                    if got is None:
                         raise MXNetError(
                             "KV page pool (%d pages) cannot admit a "
                             "%d-token request even with an empty batch — "
                             "raise MXNET_KV_POOL_PAGES"
                             % (mgr.pool_pages,
                                self._queue[0]["prompt"].size))
-            # (2) one prefill chunk of the in-flight admission
-            if pending is not None:
-                p = pending
-                n = min(self._chunk_w, p["prompt"].size - p["pos"])
-                copies = mgr.ensure(p["slot"], p["pos"], p["pos"] + n)
-                if copies:
-                    pred._run_forks(state.caches, copies)
-                _, _, tok = pred._chunk(
-                    state.caches, p["slot"],
-                    p["prompt"][p["pos"]:p["pos"] + n], p["pos"],
-                    self._chunk_w, gen)
-                self.chunks += 1
-                p["pos"] += n
-                if p["pos"] >= p["prompt"].size:
-                    # (3) commit: the slot joins the batch
-                    slot, plen = p["slot"], p["prompt"].size
-                    first = int(tok[0, 0])
-                    pred._commit(state, slot, plen, tok)
-                    mgr.publish(slot, p["prompt"], plen)
-                    if getattr(proposer, "needs_prefill", False):
-                        proposer.admit(
-                            _pad_window(p["prompt"], self._max_prefill),
-                            plen, slot, slots, dgen)
-                    active[slot] = {"rid": p["rid"], "toks": [first],
-                                    "cap": p["cap"]}
-                    histories[slot] = list(p["prompt"]) + [first]
-                    slot_lens[slot] = plen
-                    act_mask[slot] = 1
-                    self._req[p["rid"]]["first"] = time.perf_counter()
-                    pending = None
-                    self._retire_finished(active, results, on_retire)
-            if not active:
-                continue
-            # (4) one decode or verify step over the active slots; no
-            # speculation while an admission is mid-prefill
-            if proposer is not None and k > 0 and pending is None \
-                    and max(slot_lens[s] for s in active) + k + 1 <= limit:
-                state, counts_h = self._verify(state, slot_lens, active,
-                                               histories, gen, dgen,
-                                               act_mask)
-                slot_lens += counts_h
-            else:
-                state, _ = pred.paged_step(state, slot_lens, gen, act_mask)
-                self._note_step()
-                toks = state.tok[:, 0].cpu().numpy()
-                for slot, rec in active.items():
-                    self._deliver(rec, toks[slot:slot + 1])
-                    histories[slot].append(int(toks[slot]))
-                slot_lens += act_mask.astype(np.int64)
-            self._retire_finished(active, results, on_retire)
-        return results
+                else:
+                    got = self._preempt_for_waiter(ps, allow_bound=True)
+            if got is not None:
+                ps["blocked"] = 0
+        # (2) one prefill chunk of the admission in flight
+        if ps["pending"] is not None:
+            p = ps["pending"]
+            state = ps["state"]
+            n = min(self._chunk_w, p["prompt"].size - p["pos"])
+            copies = mgr.ensure(p["slot"], p["pos"], p["pos"] + n)
+            if copies:
+                pred._run_forks(state.caches, copies)
+            _obs.instant("prefill_chunk", cat="serve",
+                         args={"slot": p["slot"], "pos": p["pos"],
+                               "tokens": int(n)})
+            _, _, tok = pred._chunk(
+                state.caches, p["slot"], p["prompt"][p["pos"]:p["pos"] + n],
+                p["pos"], self._chunk_w, gen)
+            self.chunks += 1
+            p["pos"] += n
+            if p["pos"] >= p["prompt"].size:
+                # (3) commit: the slot joins the batch
+                slot, plen = p["slot"], p["prompt"].size
+                first = int(tok[0, 0])
+                pred._commit(state, slot, plen, tok)
+                mgr.publish(slot, p["prompt"], plen)
+                if getattr(proposer, "needs_prefill", False):
+                    proposer.admit(_pad_window(p["prompt"],
+                                               self._max_prefill),
+                                   plen, slot, slots, dgen)
+                active[slot] = {"rid": p["rid"], "toks": [first],
+                                "cap": p["cap"], "prio": p["prio"],
+                                "prompt": p["prompt"]}
+                histories[slot] = list(p["prompt"]) + [first]
+                slot_lens[slot] = plen
+                act_mask[slot] = 1
+                self._req[p["rid"]]["first"] = time.time()
+                ps["pending"] = None
+                retire()        # a first-token EOS / cap-1 request
+        self._note_gauges()
+        if not active:
+            return
+        # (4) one decode or verify step over the active slots; no
+        # speculation while an admission is mid-prefill
+        if proposer is not None and k > 0 and ps["pending"] is None \
+                and max(slot_lens[s] for s in active) + k + 1 <= limit:
+            _, counts_h = self._verify(ps["state"], slot_lens, active,
+                                       histories, gen, dgen, act_mask)
+            slot_lens += counts_h
+        else:
+            state, _ = pred.paged_step(ps["state"], slot_lens, gen,
+                                       act_mask)
+            self._note_step()
+            toks = state.tok[:, 0].cpu().numpy()
+            for slot, rec in active.items():
+                self._deliver(rec, toks[slot:slot + 1])
+                histories[slot].append(int(toks[slot]))
+            slot_lens += act_mask.astype(np.int64)
+        # (5) retire
+        retire()
 
-    def _admit(self, mgr, active):
-        """Gate the queue head through the page allocator; returns its
-        pending-prefill record, or None on backpressure."""
-        entry = self._queue[0]
-        prompt = entry["prompt"]
-        gate = mgr.gate(prompt, prompt.size, entry["cap"], self._spec_k)
-        if gate is None:
-            return None
-        self._queue.popleft()
-        matched, pages, reserve_n = gate
-        slot = next(s for s in range(self._slots) if s not in active)
-        mgr.map_slot(slot, pages, reserve_n)
-        self._req[entry["rid"]]["admit"] = time.perf_counter()
-        return {"slot": slot, "rid": entry["rid"],
-                "prompt": prompt.astype(np.int64), "cap": entry["cap"],
-                "pos": int(matched)}
+    def _note_gauges(self):
+        """Refresh the per-host queue-depth and free-page gauges (the
+        router's load and headroom signals)."""
+        self._m_queue_depth.set(len(self._queue))
+        mgr = self._pred._manager
+        if mgr is not None:
+            self._m_free_pages.set(mgr.allocator.free_pages)

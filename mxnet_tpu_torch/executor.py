@@ -46,6 +46,13 @@ def run_graph(symbol, env_args, env_aux, octx, tap=None):
     ``env_args``/``env_aux`` map variable names to tensors.  ``tap(name,
     tensor)``, when given, sees every node's visible outputs, named
     ``<node>_<output>`` (the monitor's callback)."""
+    from . import profiler as _prof
+    from .programs.graphs import in_body
+
+    # per-node profiler spans only where the walk executes eagerly: a
+    # captured program's body runs once at capture (the reference's
+    # jit-trace rule)
+    spans = _prof.is_running() and not in_body()
     values = {}
     new_aux = dict(env_aux)
     for node in symbol._topo():
@@ -59,7 +66,12 @@ def run_graph(symbol, env_args, env_aux, octx, tap=None):
         n_args = node.op.n_inputs(attrs)
         ins = [values[(id(s), i)] for s, i in node.inputs[:n_args]]
         aux_ins = [values[(id(s), i)] for s, i in node.inputs[n_args:]]
-        outs, node_new_aux = node.op.fcompute(attrs, ins, aux_ins, octx)
+        if spans:
+            with _prof.Scope(node.name):
+                outs, node_new_aux = node.op.fcompute(attrs, ins, aux_ins,
+                                                      octx)
+        else:
+            outs, node_new_aux = node.op.fcompute(attrs, ins, aux_ins, octx)
         for i, o in enumerate(outs):
             values[(id(node), i)] = o
         if tap is not None:
@@ -200,6 +212,7 @@ class Executor:
         """Run the graph; with ``is_train`` also compute the gradients
         that :meth:`backward` stores.  ``kwargs`` are copied into the
         named arguments first."""
+        from . import profiler as _prof
         from . import programs
         from .train_step import CompiledForward
 
@@ -212,15 +225,16 @@ class Executor:
         if is_train:
             self._last_gen_state = self._generator_state()[1]
         if is_train and self._grad_names:
-            outs, new_aux, self._grads = forward_backward(
-                self._symbol, env_args, env_aux, self._grad_names,
-                self.op_context(True), tap=tap)
+            with _prof.Scope("forward_backward", "executor"):
+                outs, new_aux, self._grads = forward_backward(
+                    self._symbol, env_args, env_aux, self._grad_names,
+                    self.op_context(True), tap=tap)
         elif (is_train or tap is not None or programs.graphs.eager_active()
               or not (self.arg_dict or self.aux_dict)
               or not self._capturable):
             # a graph without arrays gives a program nothing to bind;
             # a Custom node's Python body cannot be captured
-            with torch.no_grad():
+            with torch.no_grad(), _prof.Scope("forward", "executor"):
                 outs, new_aux = run_graph(self._symbol, env_args, env_aux,
                                           self.op_context(is_train), tap)
             self._grads = None

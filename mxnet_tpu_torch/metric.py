@@ -39,7 +39,15 @@ def select_outputs(metric, outputs):
 
 
 def _host(x):
-    return x if isinstance(x, np.ndarray) else x.asnumpy()
+    """``x`` on the host; every call on a non-numpy input is a
+    device-to-host copy, counted for the profiler's
+    ``host_syncs_per_step``."""
+    if isinstance(x, np.ndarray):
+        return x
+    from . import profiler as _prof
+
+    _prof.bump_metric_d2h()
+    return x.asnumpy()
 
 
 def check_label_shapes(labels, preds, shape=0):
@@ -522,6 +530,10 @@ class DeviceMetricAccumulator:
         self.dirty = False
         tensors = self._tensors()
         host = torch.stack([t.double() for t in tensors]).cpu().tolist()
+        from . import profiler as _prof
+
+        _prof.bump_metric_d2h(len(host))
+        _prof.bump_metric_sync()
         it = iter(host)
         for (sums, counts), m in zip(self.state, self._leaves):
             vals = [next(it) for _ in sums]

@@ -17,8 +17,10 @@ device-side metric accumulation the loop body does not wait on the
 card, so up to ``MXNET_MAX_STEPS_IN_FLIGHT`` steps stay outstanding and
 the host prepares batch n + K while the card runs step n; the loop
 blocks on the CUDA event of the step K behind (``_dispatch_fence``),
-never the newest.  The JAX package's elastic and telemetry hooks are
-not ported."""
+never the newest.  Each epoch is one ``fit_epoch`` timeline span;
+input waits, host waits on the fences and steps go to
+``profiler.step_stats``.  The JAX package's elastic hooks are not
+ported."""
 from __future__ import annotations
 
 import logging
@@ -183,29 +185,48 @@ class BaseModule:
     def _fit_epoch(self, epoch, train_data, eval_metric, batch_end_callback,
                    monitor=None):
         """One pass over ``train_data``; returns the wall-clock cost."""
+        from .. import obs as _obs
+        from .. import profiler as _prof
+
         start = time.time()
         eval_metric.reset()
         limit = max(1, int(config.get("MXNET_MAX_STEPS_IN_FLIGHT")))
         fences = deque()
-        for nbatch, batch in enumerate(train_data):
-            if monitor is not None:
-                monitor.tic()
-            self.forward_backward(batch)
-            self.update()
-            self.update_metric(eval_metric, batch.label)
-            fence = self._dispatch_fence()
-            if fence is not None:
-                fences.append(fence)
-                # at most `limit` dispatched-but-unfinished steps
-                if len(fences) >= limit:
-                    fences.popleft().synchronize()
-            if monitor is not None:
-                monitor.toc_print()
-            _fire(batch_end_callback,
-                  BatchEndParam(epoch, nbatch, eval_metric, locals()))
+        it = iter(train_data)
+        nbatch = 0
+        # one timeline span an epoch: the loop spans nest under it
+        with _obs.span("fit_epoch", cat="loop", args={"epoch": int(epoch)}):
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                _prof.record_input_wait(time.perf_counter() - t0)
+                if monitor is not None:
+                    monitor.tic()
+                self.forward_backward(batch)
+                self.update()
+                self.update_metric(eval_metric, batch.label)
+                fence = self._dispatch_fence()
+                if fence is not None:
+                    fences.append(fence)
+                    # at most `limit` dispatched-but-unfinished steps
+                    if len(fences) >= limit:
+                        t0 = time.perf_counter()
+                        fences.popleft().synchronize()
+                        _prof.record_host_wait(time.perf_counter() - t0)
+                if monitor is not None:
+                    monitor.toc_print()
+                _prof.record_step()
+                _fire(batch_end_callback,
+                      BatchEndParam(epoch, nbatch, eval_metric, locals()))
+                nbatch += 1
         if fences:
             # the steps run in order on one stream: the newest covers all
+            t0 = time.perf_counter()
             fences[-1].synchronize()
+            _prof.record_host_wait(time.perf_counter() - t0)
         return time.time() - start
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",

@@ -43,6 +43,8 @@ output is a copy, as the reference's are.
 """
 from __future__ import annotations
 
+import contextlib
+
 import io
 import struct
 import sys
@@ -522,7 +524,13 @@ def imperative_invoke(opdef, nd_inputs, raw_attrs, out=None, is_train=None):
     aux = [a.data for a in nd_aux]
     dev = ins[0].device if ins else _attr_device(attrs)
     recording = autograd.is_recording()
-    with torch.enable_grad() if recording else torch.no_grad():
+    from . import profiler as _prof
+
+    with torch.enable_grad() if recording else torch.no_grad(), \
+            _prof.Scope(opdef.name, "imperative") if _prof.is_running() \
+            else contextlib.nullcontext():
+        # a per-op dispatch span while the profiler runs (the engine's
+        # OprExecStat analog)
         outs, new_aux = _reg.invoke(opdef, ins, attrs, is_train=is_train,
                                     generator=_random.generator(dev),
                                     aux=aux, device=dev)

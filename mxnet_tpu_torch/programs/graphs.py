@@ -66,10 +66,17 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["GraphProgram", "GraphPool", "GRAPH_STATS", "eager",
-           "eager_active"]
+           "eager_active", "in_body"]
 
 GRAPH_STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
 _EAGER = [0]
+_IN_BODY = [0]
+
+
+def in_body():
+    """Whether a program's body is running (its warm-up, its capture, or
+    its run on the CPU): telemetry spans stay out of it."""
+    return _IN_BODY[0] > 0
 
 
 def eager_active():
@@ -185,8 +192,12 @@ class GraphProgram:
     def _run(self, specs, leaves):
         it = iter(leaves)
         args = [_unflatten(s, it) for s in specs]
-        with torch.no_grad():
-            return self.body(*args)
+        _IN_BODY[0] += 1
+        try:
+            with torch.no_grad():
+                return self.body(*args)
+        finally:
+            _IN_BODY[0] -= 1
 
     def _key(self, args):
         leaves, specs, sig, bound = [], [], [], []

@@ -162,6 +162,39 @@ class PagedKVManager:
         self._reserve[slot] = int(reserve_n)
         self.version += 1
 
+    # ------------------------------------------------------------------
+    def gate_pages(self, need):
+        """Reserve ``need`` pages for a restore (swap-in / migrated
+        prefill) — the SAME admission gate a fresh prompt passes, minus
+        the prefix-cache match (restored pages arrive with their
+        content).  Evicts LRU prefix-cache pages first; False on
+        backpressure (nothing changed)."""
+        need = int(need)
+        if self.allocator.available() < need and self.prefix_cache is not None:
+            self.prefix_cache.evict(need - self.allocator.available())
+        return self.allocator.reserve(need)
+
+    def restore_slot(self, slot, valid, reserve_n):
+        """Bind a restored request to ``slot``: allocate one fresh page
+        per True entry of ``valid`` (a (pages_per_slot,) mask of the
+        saved table row — ring positions matter for wrapped decodes),
+        spending the :meth:`gate_pages` reservation.  All pages are
+        slot-OWNED (refcount 1, private copies), so later appends never
+        fork.  Returns the new table row (0 = unmapped)."""
+        row = self.tables[slot]
+        assert not row.any(), "restoring into a non-empty slot %d" % slot
+        self._reserve[slot] = int(reserve_n)
+        for i in np.flatnonzero(np.asarray(valid).reshape(-1)):
+            self._reserve[slot] -= 1
+            row[i] = self.allocator.alloc(from_reserve=True)
+            self._own[slot, i] = True
+        self.version += 1
+        return row.copy()
+
+    def slot_page_count(self, slot):
+        """Mapped pages of ``slot`` (swap accounting)."""
+        return int(np.count_nonzero(self.tables[slot]))
+
     def ensure(self, slot, lo, hi):
         """Make positions [lo, hi) of ``slot`` writable.
 
@@ -210,6 +243,14 @@ class PagedKVManager:
             self._own[slot, idx] = True
             self.allocator.forks += 1
             self.version = v0 + 1
+        if copies:
+            from .. import obs as _obs
+
+            _obs.registry.counter(
+                "mx_cow_forks",
+                "copy-on-write page forks planned").inc(len(copies))
+            _obs.instant("cow_fork", cat="serve",
+                         args={"slot": int(slot), "copies": len(copies)})
         return copies
 
     def publish(self, slot, prompt, prompt_len):

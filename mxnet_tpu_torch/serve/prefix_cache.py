@@ -29,6 +29,12 @@ Matches are capped at ``len(prompt) - 1`` tokens so at least one position
 always prefills — the sampled first token needs a freshly computed
 distribution (the vLLM full-hit rule).
 
+:func:`chain_hash` digests token chains for the
+``/metrics.json`` **chain summary** (:meth:`PrefixCache.summary`) the
+fleet router scores hosts against (``serve.fleet``): full-page chains
+export as prefix hashes, partial entries as (prefix hash, length,
+content hash) — compact, content-free, and computable on both ends.
+
 The cache holds one refcount per cached page, so retirement of the slot
 that produced a page does not free it; :meth:`evict` walks LRU order and
 drops entries until enough pages actually return to the free list (pages
@@ -36,12 +42,21 @@ still mapped by live slots just lose their cache ref).
 """
 from __future__ import annotations
 
+import hashlib
 from collections import OrderedDict
 
 import numpy as np
 
-__all__ = ["PrefixCache"]
+__all__ = ["PrefixCache", "chain_hash"]
 
+
+def chain_hash(tokens):
+    """Stable 16-hex-char digest of a token chain — the wire spelling of
+    a cached prefix in the router-facing chain summary.  Both ends (the
+    host's :meth:`PrefixCache.summary` and the router's prompt scoring)
+    hash through here, so a match estimate is an exact set lookup."""
+    arr = np.ascontiguousarray(np.asarray(tokens, np.int64).reshape(-1))
+    return hashlib.blake2b(arr.tobytes(), digest_size=8).hexdigest()
 
 
 class PrefixCache:
@@ -69,6 +84,11 @@ class PrefixCache:
         self.lookups = 0
         self.hits = 0           # lookups that matched at least one page
         self.radix_hits = 0     # frontier matches that diverged MID-page
+        # content-mutation stamp: summary() caches against it, so the
+        # router's per-submission polls re-hash nothing while the cache
+        # is unchanged (the PagedKVManager.version pattern)
+        self._content_version = 0
+        self._summary_cache = None
 
     @property
     def pages_held(self):
@@ -170,6 +190,7 @@ class PrefixCache:
             self._by_page.setdefault(page, set()).add(key)
             self._children.setdefault(toks[:i * self._pt],
                                       {})[key[i * self._pt:]] = key
+            self._content_version += 1
         tail = toks[n_full * self._pt:]
         if tail and n_full < len(pages):
             full_key = toks[:n_full * self._pt]
@@ -182,7 +203,8 @@ class PrefixCache:
                 self._entries[key] = page
                 self._by_page.setdefault(page, set()).add(key)
                 self._children.setdefault(full_key, {})[tail] = key
-    
+                self._content_version += 1
+
     # ------------------------------------------------------------------
     def evict(self, need_pages):
         """Drop LRU entries until ``need_pages`` pages actually freed (or
@@ -219,6 +241,7 @@ class PrefixCache:
         return len(keys)
 
     def _drop(self, key):
+        self._content_version += 1
         page = self._entries.pop(key)
         held = self._by_page.get(page)
         if held is not None:
@@ -243,3 +266,31 @@ class PrefixCache:
         self._entries.clear()
         self._children.clear()
         self._by_page.clear()
+        self._content_version += 1
+
+    # ------------------------------------------------------------------
+    def summary(self):
+        """Content-free digest of the cached chains for router scoring
+        (served in ``/metrics.json``): full-page chains as prefix hashes
+        (:func:`chain_hash`), partial entries as (parent-prefix hash,
+        partial length, content hash).  The fleet router replays the
+        same hashes over an incoming prompt to estimate each host's
+        longest cached chain without ever shipping token content.
+        Cached against the content version — a routing burst polling an
+        unchanged cache re-hashes nothing (treat the result as
+        read-only)."""
+        if self._summary_cache is not None \
+                and self._summary_cache[0] == self._content_version:
+            return self._summary_cache[1]
+        full, partial = [], []
+        for key in self._entries:
+            if len(key) == 2 and isinstance(key[0], tuple) \
+                    and isinstance(key[1], tuple):
+                partial.append({"prefix": chain_hash(key[0]),
+                                "len": len(key[1]),
+                                "hash": chain_hash(key[1])})
+            else:
+                full.append(chain_hash(key))
+        out = {"page_tokens": self._pt, "full": full, "partial": partial}
+        self._summary_cache = (self._content_version, out)
+        return out

@@ -7,12 +7,14 @@ current_context`: the innermost ``with ctx:`` scope, else ``gpu(0)``),
 so the checks run on the host only under ``with cpu():`` or given
 ``ctx=cpu()``.  ``check_consistency`` compares every configuration
 against the widest-dtype one — on one card with a CPU, "cpu vs gpu" is
-the oracle pair.  The reference's ``check_speed`` and
-``assert_chrome_trace`` are not ported (they wait for the profiler).
+the oracle pair.  :func:`check_speed` times forward (and backward) passes
+of a bound symbol; :func:`assert_chrome_trace` validates a Chrome-trace
+export of the profiler (``profiler.dump_profile`` / ``obs.timeline``).
 """
 from __future__ import annotations
 
 import logging
+import time
 
 import numpy as np
 
@@ -25,7 +27,7 @@ __all__ = ["default_context", "default_dtype", "random_arrays",
            "same", "reldiff", "almost_equal", "assert_almost_equal",
            "simple_forward", "numeric_grad", "check_numeric_gradient",
            "check_symbolic_forward", "check_symbolic_backward",
-           "check_consistency"]
+           "check_consistency", "check_speed", "assert_chrome_trace"]
 
 _rng = np.random.RandomState(1234)
 
@@ -373,3 +375,67 @@ def check_consistency(sym, ctx_list, scale=1.0, grad_req="write",
         oracle = ground_truth or collect_all(exes[oracle_idx])
         compare(collect_all, oracle)
     return oracle
+
+
+def check_speed(sym, location=None, ctx=None, N=20, grad_req="write",
+                typ="whole", **kwargs):
+    """Mean seconds per forward (+ backward when ``typ='whole'``) over
+    ``N`` runs, after one warm-up pass (kernel builds, the inference
+    forward's capture).  ``location`` gives the inputs (numpy by name),
+    else ``kwargs`` their shapes and the values are random."""
+    ctx = ctx or default_context()
+    shapes = kwargs if location is None \
+        else {k: np.shape(v) for k, v in location.items()}
+    exe = sym.simple_bind(ctx=ctx, grad_req=grad_req, **shapes)
+    if location is None:
+        location = {k: _rng.standard_normal(arr.shape)
+                    for k, arr in exe.arg_dict.items()}
+    for name, value in location.items():
+        exe.arg_dict[name][:] = np.asarray(value).astype(
+            exe.arg_dict[name].dtype)
+    if typ not in ("whole", "forward"):
+        raise ValueError("typ must be 'whole' or 'forward'")
+    train = typ == "whole"
+
+    def one_pass():
+        exe.forward(is_train=train)
+        if train:
+            exe.backward()
+
+    one_pass()
+    nd.waitall()
+    start = time.time()
+    for _ in range(N):
+        one_pass()
+    nd.waitall()
+    return (time.time() - start) / N
+
+
+def assert_chrome_trace(payload, required_names=()):
+    """Validate a Chrome-trace export (``obs.timeline.export`` /
+    ``profiler.dump_profile`` payload): the ``traceEvents`` schema every
+    viewer relies on, plus the presence of ``required_names``.  Events
+    merged from ``torch.profiler`` carry float timestamps and phases
+    beyond the framework's own; only what every viewer requires is asked
+    of them, and the full contract of the phases the framework emits.
+    Returns the set of event names."""
+    assert isinstance(payload, dict) and "traceEvents" in payload, payload
+    events = payload["traceEvents"]
+    assert isinstance(events, list) and events
+    for e in events:
+        assert isinstance(e, dict)
+        ph = e.get("ph")
+        assert isinstance(ph, str) and ph, e
+        assert isinstance(e.get("ts", 0), (int, float)), e
+        if ph == "X":
+            assert isinstance(e.get("name"), str) and "pid" in e \
+                and "tid" in e, e
+            assert e.get("dur", 0) >= 0, e
+        if ph == "i":
+            assert isinstance(e.get("name"), str), e
+            assert e.get("s") in ("t", "p", "g"), e
+    names = {e.get("name") for e in events}
+    missing = set(required_names) - names
+    assert not missing, ("missing trace events %s (have %d events)"
+                        % (sorted(missing), len(events)))
+    return names

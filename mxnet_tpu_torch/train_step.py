@@ -43,6 +43,9 @@ Adam's bias correction (``fused_hyper``) run once per call on the host;
 the floats the update takes as launch arguments (rescale, clip,
 momentum / betas / epsilon) are part of the program's signature.  A
 replay overwrites the step's outputs: ``Module.get_outputs`` clones them.
+Telemetry (``obs``) times each call around the replay, never inside
+it: a ``train_step`` / ``eval_step`` / ``eval_forward`` row of the
+roofline table and a timeline span.
 
 **Buckets** (``BucketingModule``): one store serves every executor group
 bound against the primary's (``run(batch, group=...)``, ``compatible``,
@@ -64,10 +67,12 @@ import weakref
 import numpy as np
 import torch
 
+from . import obs as _obs
 from .base import MXNetError
 from .executor import forward_backward, run_graph, uncapturable_ops
 from .metric import DeviceMetricAccumulator
 from .ndarray import torch_dtype
+from .obs.roofline import graph_flops, symbol_shapes, tensor_bytes
 from .ops import update_kernel
 from .optimizer import load_states
 from .programs import GraphPool, GraphProgram, ProgramSpec
@@ -75,6 +80,19 @@ from .programs import registry as _registry
 from .registry import OpContext
 
 __all__ = ["CompiledTrainStep", "CompiledEvalStep", "CompiledForward"]
+
+
+def _weak_prober(step):
+    """A roofline static-cost prober that does not pin the step (and its
+    executors and masters) in the process-global accounting: once the
+    step is collected it resolves to None."""
+    ref = weakref.ref(step)
+
+    def prober():
+        live = ref()
+        return live.roofline_static() if live is not None else None
+
+    return prober
 
 
 def _register_step_spec(step):
@@ -158,13 +176,26 @@ class _StepBase:
         self.programs_built = 0
         self._last_args = None
         self._program_spec = None
+        self._out_bytes = None      # the program's outputs (roofline)
 
     def _call(self, prog, args):
         if self._program_spec is None:
             self._program_spec = _register_step_spec(self)
         self._last_args = args
         traces = prog.traces
-        outs = prog(*args)
+        if _obs.enabled():
+            # the program's roofline row: its time around the replay
+            # (host wall, and CUDA events on the card) and a lazy
+            # static cost; nothing of it runs inside the captured body
+            if not _obs.programs.has_static(self.telemetry_name):
+                _obs.programs.register_static(self.telemetry_name,
+                                              _weak_prober(self))
+            with _obs.program_span(self.telemetry_name, self._device):
+                outs = prog(*args)
+        else:
+            outs = prog(*args)
+        if self._out_bytes is None:
+            self._out_bytes = tensor_bytes(outs)
         self.trace_count += prog.traces - traces
         if self._metric_acc is not None:
             self._metric_acc.commit()
@@ -172,6 +203,23 @@ class _StepBase:
 
     def _labels(self, group, env):
         return [env[n] for n in group.label_names if n in env]
+
+    def roofline_static(self):
+        """The step's static cost for the roofline table: FLOPs of the
+        symbol's products (:func:`~mxnet_tpu_torch.obs.roofline.
+        graph_flops`; a training step counts its forward three times:
+        the forward and the two backward products) at the bound shapes,
+        and the bytes of its arguments and outputs, each read or written
+        once."""
+        exe = self._exec
+        shapes = {n: tuple(a.shape) for n, a in exe.arg_dict.items()}
+        flops = graph_flops(exe._symbol,
+                            symbol_shapes(exe._symbol, **shapes))
+        if isinstance(self, CompiledTrainStep):
+            flops *= 3
+        return {"flops": flops,
+                "bytes": tensor_bytes(self._last_args)
+                + (self._out_bytes or 0)}
 
 
 class CompiledTrainStep(_StepBase):

@@ -2124,3 +2124,131 @@ def test_custom_graph_trains_eagerly_on_the_card(card, full_f32, caplog):
         np.testing.assert_allclose(params[0][k], params[1][k], rtol=1e-5,
                                    atol=1e-6)
 
+
+
+# ---------------------------------------------------------------------------
+# the serving session on the card: page swap, the fleet, extract / install
+# ---------------------------------------------------------------------------
+def _swap_serve(card, pred, swap):
+    """A long low-priority request and a short high-priority one through
+    a pool too small for both: with ``swap`` the long one is preempted
+    to host RAM and restored (bit-identical, ``_verify_restore``)."""
+    import numpy as np
+
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.decode import DecodeServer
+
+    rng = np.random.RandomState(3)
+    long_p, short_p = rng.randint(0, 64, 24), rng.randint(0, 64, 20)
+    with config.overrides(MXNET_FLEET_DECODE_BOUND=4,
+                          MXNET_FLEET_SWAP=bool(swap)):
+        srv = DecodeServer(pred, 32, slots=2, max_new_tokens=96)
+    srv._verify_restore = True
+    r1 = srv.submit(long_p, 96, priority=-1)
+    r2 = srv.submit(short_p, 16, priority=1)
+    res = srv.run()
+    return srv, (res[r1], res[r2])
+
+
+def test_swap_round_trip_restores_pages_bitwise(card):
+    """Preemption by page swap on the card: the restored pages equal the
+    extracted ones byte for byte, the tokens equal a serve without swap,
+    swap-outs equal swap-ins, extract and install are captured once, and
+    every page returns to the pool."""
+    import numpy as np
+
+    pred = _graph_lm(card, pool_pages=6, prefix_cache=False)
+    _, want = _swap_serve(card, pred, swap=False)
+    srv, got = _swap_serve(card, pred, swap=True)
+    assert srv.swap_outs >= 1 and srv.swap_ins == srv.swap_outs
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    tc = pred.trace_counts
+    assert (tc["extract"], tc["install"], tc["decode"], tc["chunk"]) == \
+        (1, 1, 1, 1), tc
+    assert pred._manager.allocator.used_pages == 0
+
+
+def test_page_extract_install_captured_once(card):
+    """Extract and install at many rows (0 = unmapped, the scratch page)
+    replay one capture each; installed pages land in the pools the decode
+    program reads (a re-extract returns them bit for bit) and each call
+    is one replay."""
+    import numpy as np
+
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.decode import _cache_leaves
+
+    pred = _graph_lm(card)
+    x, lens = _graph_prompts()
+    state, _ = pred.prefill(x, lens)
+    m = pred._manager.pages_per_slot
+    src = pred._manager.tables[1].copy()
+    saved = pred.extract_pages(state.caches, src)
+    ptrs = [t.data_ptr() for t in _cache_leaves(state.caches)]
+    rng = np.random.RandomState(0)
+    pp = pred._manager.pool_pages
+    for i in range(6):
+        row = np.zeros(m, np.int64)
+        n = 1 + i % m
+        row[:n] = rng.choice(np.arange(1, pp), n, replace=False)
+        replays = programs.GRAPH_STATS["replays"]
+        pred.install_pages(state.caches, row, saved)
+        back = pred.extract_pages(state.caches, row)
+        # the first install sets its capture up; every later call replays
+        assert programs.GRAPH_STATS["replays"] - replays == (1 if i == 0
+                                                              else 2)
+        for a, b in zip(_cache_leaves(back), _cache_leaves(saved)):
+            np.testing.assert_array_equal(a[:n], b[:n])
+    assert pred.trace_counts["extract"] == pred.trace_counts["install"] == 1
+    # the pools are the same tensors, written in place
+    assert [t.data_ptr() for t in _cache_leaves(state.caches)] == ptrs
+
+
+def test_fleet_on_one_card_matches_one_host(card):
+    """Two hosts and a prefill worker (each a predictor of its own on the
+    card) give the tokens of one host serving the same requests; pages
+    migrate, each tenant stays on one host, no program is captured twice,
+    and kernels A and B (with the combine) launch on the fleet path."""
+    import numpy as np
+
+    from mxnet_tpu_torch.decode import DecodeServer
+    from mxnet_tpu_torch.serve.fleet import FleetHost, PrefillWorker, Router
+
+    rng = np.random.RandomState(11)
+    prefixes = [rng.randint(0, 64, 32) for _ in range(2)]
+    prompts = [np.concatenate([prefixes[t], rng.randint(0, 64, 4 + i)])
+               for i in range(4) for t in range(2)]
+    one = DecodeServer(_graph_lm(card), 48, slots=2, max_new_tokens=8)
+    for p in prompts:
+        one.submit(p)
+    want = one.run()
+    hosts = [FleetHost("h%d" % i, DecodeServer(_graph_lm(card), 48,
+                                               slots=2, max_new_tokens=8))
+             for i in range(2)]
+    worker = PrefillWorker(_graph_lm(card))
+    router = Router(hosts, [worker], policy="cache_aware")
+    before = (dict(fk.LAUNCHES), dict(dk.LAUNCHES))
+    rids = []
+    for wave in range(2):
+        for p in prompts[wave * 4:(wave + 1) * 4]:
+            rids.append(router.submit(p, 8))
+        for _ in range(4):
+            router.tick()
+    got = router.drain()
+    torch.cuda.synchronize()
+    for i, rid in enumerate(rids):
+        np.testing.assert_array_equal(got[rid], want[i])
+    assert fk.LAUNCHES["fused_fwd"] > before[0]["fused_fwd"]
+    for k in ("paged_decode", "paged_combine"):
+        assert dk.LAUNCHES[k] > before[1][k]
+    stats = router.stats()
+    assert sum(stats["migrated_pages_by_host"].values()) > 0
+    tenant_hosts = {}
+    for (rid, host, _, _), i in zip(router.decisions, range(len(rids))):
+        tenant_hosts.setdefault(i % 2, set()).add(host)
+    assert all(len(h) == 1 for h in tenant_hosts.values()), tenant_hosts
+    for pred in [h.server._pred for h in hosts] + [worker._pred]:
+        assert max(pred.trace_counts.values()) <= 1, pred.trace_counts
+        pred._manager.prefix_cache.clear()
+        assert pred._manager.allocator.used_pages == 0
