@@ -193,6 +193,26 @@ Phases (any failure ends the run with a non-zero exit code):
    with the H100 spec peaks, three profiled captured decode steps with
    the same kernels and counts with MXNET_TELEMETRY on and off, and
    phase 5's captured serve tokens/s with telemetry on beside off.
+15. export — deployment export on ``torch.export``, kernels A, B and C
+   being torch operators (``mxnet_tpu_torch::fused_fwd``,
+   ``::paged_decode``, ``::flash_fwd``): (a) phase 6b's LM (the training
+   configuration, 4 layers, f32, from its checkpoint) as a
+   ``Predictor`` at batch 8 exported on the card, saved to a file (its
+   size printed), loaded with ``load_exported`` and run: A 20 and C 4
+   launches a forward from the loaded graph, within TOL_LOGP of the
+   captured ``Predictor.forward`` on the same batch ("bitwise" printed),
+   the export and load seconds, and the CUDA-event and device ms of one
+   forward of each; (b) the same model exported from a ``cpu()``
+   Predictor and loaded with the card as its device
+   (``move_to_device_pass``): the same launches and gate; (c) phase 5's
+   predictor's decode, verify and prefill-chunk artifacts and its decode
+   program's ``ProgramSpec.artifact``: 5 ``fused_fwd`` and one
+   ``paged_decode`` node a layer, none in a ``plain=True`` twin's
+   decode artifact; (d)
+   the deploy walkthrough (``examples/deploy_predictor.py``) on the
+   card: ``Module.fit``, ``save_checkpoint``,
+   ``Predictor.from_checkpoint``, export, ``load_exported``, the same
+   classes as the Predictor.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -523,6 +543,13 @@ DET_STEPS = (8, 16, 32, 64, 100, 300)
 DET_ANCHORS, DET_CLASSES, DET_BATCH, DET_TOPK = 8732, 21, 8, 400
 DET_LABEL_ROWS = 16
 TOL_DET = 1e-5
+# phase 15, export: the predict configuration's LM (phase 6b) exported
+# through torch.export, saved and loaded; EXPORT_CALLS forwards of the
+# loaded program and of the captured Predictor timed each.  The
+# walkthrough: examples/deploy_predictor.py's MLP and data (256 x 16,
+# batch 32, Adam lr 5e-3, 5 epochs)
+EXPORT_CALLS = 5
+DEPLOY_N, DEPLOY_IN, DEPLOY_BATCH, DEPLOY_EPOCHS = 256, 16, 32, 5
 
 
 def log(*args):
@@ -3295,6 +3322,221 @@ def phase_predict(torch, dev):
     return reading, launches, grad_launches
 
 
+def _forward_reading(torch, fn, counters):
+    """One forward of ``fn`` (already warm) with the kernels' launches it
+    made, then its CUDA-event ms (median of EXPORT_CALLS) and device ms
+    (mean of 3, profiled)."""
+    for d, name in counters:
+        d[name] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {name: d[name] for d, name in counters}
+    return out, {"launches": launches,
+                 "event_ms": _event_ms(torch, fn, EXPORT_CALLS),
+                 "device_ms": _device_ms(torch, fn)}
+
+
+def _export_decode_artifacts(torch, dev):
+    """Phase 15 (c): phase 5's predictor (the serve model, paged int8):
+    the decode, verify (k = SPEC_K) and prefill-chunk artifacts and the
+    decode program's ``ProgramSpec.artifact``, against the node counts
+    the model implies (5 A nodes and one B node a layer); the decode
+    artifact of its plain twin holds none."""
+    from mxnet_tpu_torch.analysis import kernel_ops
+
+    sym, params, _ = _lm(torch, dev)
+    want = {"fused_fwd": 5 * LAYERS, "paged_decode": LAYERS}
+    got, seconds = {}, {}
+    for plain in (False, True):
+        pred = _predictor(sym, params, plain, dev)
+        state = pred.paged_batch_state(SLOTS)
+        key = "plain" if plain else "kernel"
+        t0 = time.perf_counter()
+        arts = {"decode": pred.decode_artifact(state)}
+        if not plain:
+            arts["verify"] = pred.verify_artifact(state, SPEC_K)
+            arts["prefill"] = pred.prefill_artifact(1, CHUNK)
+            args = pred._serving_args(SLOTS, CHUNK)["decode"]
+            arts["spec_decode"] = pred._program_spec(
+                "decode", args).artifact()
+        seconds[key] = time.perf_counter() - t0
+        got[key] = {k: kernel_ops(a) for k, a in arts.items()}
+        del pred, state
+    expect = {"kernel": {k: want for k in got["kernel"]},
+              "plain": {"decode": {}}}
+    gate = {"kernel_ops": got, "expected": expect,
+            "artifacts_s": seconds}
+    log("export decode artifacts: " + json.dumps(gate))
+    if got != expect:
+        raise AssertionError("decode artifacts' kernel nodes: %s (want %s)"
+                             % (got, expect))
+    return gate
+
+
+def _export_walkthrough(torch, dev, tmp):
+    """Phase 15 (d): examples/deploy_predictor.py on the card through the
+    port: Module.fit, save_checkpoint, Predictor.from_checkpoint (and a
+    tap on fc1), export, load_exported; the loaded program's classes
+    must be the Predictor's."""
+    from mxnet_tpu_torch import Predictor, gpu, sym
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.predictor import load_exported
+
+    rng = np.random.RandomState(0)
+    x = rng.normal(size=(DEPLOY_N, DEPLOY_IN)).astype(np.float32)
+    half = DEPLOY_IN // 2
+    y = (x[:, :half].sum(1) > x[:, half:].sum(1)).astype(np.float32)
+    net = sym.FullyConnected(sym.Variable("data"), num_hidden=32,
+                             name="fc1")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.FullyConnected(net, num_hidden=2, name="fc2")
+    net = sym.SoftmaxOutput(net, name="softmax")
+    mod = Module(net, context=gpu(0))
+    mod.fit(NDArrayIter(x, y, batch_size=DEPLOY_BATCH), optimizer="adam",
+            optimizer_params={"learning_rate": 5e-3}, initializer=Xavier(),
+            num_epoch=DEPLOY_EPOCHS)
+    prefix = os.path.join(tmp, "clf")
+    mod.save_checkpoint(prefix, DEPLOY_EPOCHS)
+    shapes = {"data": (DEPLOY_BATCH, DEPLOY_IN)}
+    pred = Predictor.from_checkpoint(prefix, DEPLOY_EPOCHS, shapes,
+                                     ctx=gpu(0))
+    probs = pred.forward(data=x[:DEPLOY_BATCH])[0].data.clone()
+    taps = Predictor.from_checkpoint(prefix, DEPLOY_EPOCHS,
+                                     {"data": (4, DEPLOY_IN)},
+                                     output_names=["fc1"], ctx=gpu(0))
+    tap_shape = tuple(taps.forward(data=x[:4])[0].shape)
+    path = prefix + ".pt2"
+    pred.export(path)
+    out = load_exported(path)(x[:DEPLOY_BATCH])[0]
+    torch.cuda.synchronize()
+    gate = {"accuracy": float((probs.argmax(1).cpu().numpy()
+                               == y[:DEPLOY_BATCH]).mean()),
+            "fc1_tap_shape": tap_shape,
+            "artifact_bytes": os.path.getsize(path),
+            "same_classes": bool(torch.equal(out.argmax(1),
+                                             probs.argmax(1))),
+            "bitwise": bool(torch.equal(out, probs)),
+            "max_abs": float((out - probs).abs().max()),
+            "device": str(out.device)}
+    log("export walkthrough: " + json.dumps(gate))
+    if not (gate["same_classes"] and gate["max_abs"] <= TOL_F32
+            and tap_shape == (4, 32) and out.device == dev):
+        raise AssertionError("deploy walkthrough: %s" % gate)
+    return gate
+
+
+def phase_export(torch, dev):
+    """Phase 15: deployment export through the port.  (a) phase 6b's LM
+    Predictor, from its checkpoint, exported on the card (``torch.export``
+    with kernels A and C as operators), saved, loaded with
+    ``load_exported`` and run: A 20 and C 4 launches a forward, within
+    TOL_LOGP of the captured ``Predictor.forward`` on the same batch,
+    both timed; (b) the same model exported from a ``cpu()`` Predictor
+    and loaded onto the card: the same kernels and gate; (c) the serve
+    model's decode, verify and prefill artifacts; (d) the deploy
+    walkthrough."""
+    from mxnet_tpu_torch import Predictor, cpu, gpu, model
+    from mxnet_tpu_torch.analysis import kernel_ops
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.predictor import load_exported
+
+    b, t = TRAIN_BATCH, SEQ
+    lm = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=t,
+                                 num_layers=TRAIN_LAYERS, embed=EMBED,
+                                 heads=TRAIN_HEADS, ffn_hidden=FFN)
+    params = _train_params(lm)
+    x = np.random.RandomState(2).randint(0, VOCAB, (b, t)).astype(
+        np.float32)
+    label = np.zeros((b, t), np.float32)
+    shapes = {"data": (b, t), "softmax_label": (b, t)}
+    counters = ((fk.LAUNCHES, "fused_fwd"), (fl.LAUNCHES, "flash_fwd"))
+    want = {"fused_fwd": 5 * TRAIN_LAYERS, "flash_fwd": TRAIN_LAYERS}
+    want_ops = dict(want)
+    xd = torch.from_numpy(x).to(dev)
+    yd = torch.from_numpy(label).to(dev)
+    reading = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "lm")
+        model.save_checkpoint(prefix, 0, lm, params, {})
+        pred = Predictor.from_checkpoint(prefix, 0, shapes, ctx=gpu(0))
+        pred.forward(data=xd)          # captures the inference forward
+        ref, captured = _forward_reading(
+            torch, lambda: pred.forward(data=xd)[0].data, counters)
+        ref = ref.clone()
+
+        # (a) exported on the card
+        path = os.path.join(tmp, "lm.pt2")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.export(path)
+        export_s = time.perf_counter() - t0
+        ops = kernel_ops(pred.artifact())
+        t0 = time.perf_counter()
+        run = load_exported(path)
+        load_s = time.perf_counter() - t0
+        run(xd, yd)                     # first call: the kernels' set-up
+        out, loaded = _forward_reading(torch, lambda: run(xd, yd)[0],
+                                       counters)
+        card = {"artifact_bytes": os.path.getsize(path),
+                "export_s": export_s, "load_s": load_s, "kernel_ops": ops,
+                "bitwise": bool(torch.equal(out, ref)),
+                "max_abs_logp": _logp_gap(torch, out, ref),
+                "max_abs_p": float((out - ref).abs().max()),
+                "device": str(out.device), "loaded": loaded,
+                "captured_predictor": captured}
+        del out, run
+        log("export (a) card: " + json.dumps(card))
+        if not (ops == want_ops and loaded["launches"] == want
+                and captured["launches"] == want
+                and card["device"] == str(dev)
+                and card["max_abs_logp"] <= TOL_LOGP):
+            raise AssertionError("export on the card: %s (want kernel ops "
+                                 "and launches %s)" % (card, want))
+
+        # (b) exported from the host, loaded onto the card
+        cpred = Predictor.from_checkpoint(prefix, 0, shapes, ctx=cpu())
+        t0 = time.perf_counter()
+        blob = cpred.export()
+        cexport_s = time.perf_counter() - t0
+        cops = kernel_ops(cpred.artifact())
+        del cpred
+        t0 = time.perf_counter()
+        crun = load_exported(blob, device=gpu(0))
+        cload_s = time.perf_counter() - t0
+        crun(xd, yd)
+        cout, cloaded = _forward_reading(torch, lambda: crun(xd, yd)[0],
+                                         counters)
+        host = {"artifact_bytes": len(blob), "export_s": cexport_s,
+                "load_to_card_s": cload_s, "kernel_ops": cops,
+                "bitwise": bool(torch.equal(cout, ref)),
+                "max_abs_logp": _logp_gap(torch, cout, ref),
+                "device": str(cout.device), "loaded": cloaded}
+        del cout, crun, blob
+        log("export (b) host to card: " + json.dumps(host))
+        if not (cops == want_ops and cloaded["launches"] == want
+                and host["device"] == str(dev)
+                and host["max_abs_logp"] <= TOL_LOGP):
+            raise AssertionError("export from the host, run on the card: "
+                                 "%s" % host)
+        del pred, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        reading["predictor"] = {"card": card, "host_to_card": host}
+        reading["decode_artifacts"] = _export_decode_artifacts(torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reading["walkthrough"] = _export_walkthrough(torch, dev, tmp)
+    launches = {name: card["loaded"]["launches"][name]
+                + host["loaded"]["launches"][name]
+                for name in ("fused_fwd", "flash_fwd")}
+    log("export: " + json.dumps(reading))
+    return reading, launches
+
+
 def phase_routing(torch, dev):
     """The attention routing on the card: a Module over attention_lm at
     head dim 32 (16 heads over 512) and 256 (2 heads over 512), shapes
@@ -5151,6 +5393,9 @@ def main():
     torch.cuda.empty_cache()
     _, predict_launches, out_grads_launches = phase_predict(torch, dev)
     phase_routing(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, export_launches = phase_export(torch, dev)
     torch.cuda.empty_cache()
     resnet, resnet_launches = phase_train_resnet(torch, dev)
     gc.collect()
@@ -5200,7 +5445,7 @@ def main():
                   and c["n"] == FFN)
     a_launch = launches["fused_fwd"] + spec_launches["fused_fwd"] \
         + train_launches["fused_fwd"] + predict_launches["fused_fwd"] \
-        + imp_launches["fused_fwd"] \
+        + imp_launches["fused_fwd"] + export_launches["fused_fwd"] \
         + sum(f["fused_fwd"] for f in fleet_launches.values())
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
@@ -5214,6 +5459,7 @@ def main():
                                "train": train_launches["fused_fwd"],
                                "predict": predict_launches["fused_fwd"],
                                "imperative": imp_launches["fused_fwd"],
+                               "export": export_launches["fused_fwd"],
                                **{path: f["fused_fwd"] for path, f
                                   in fleet_launches.items()}},
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
@@ -5261,6 +5507,7 @@ def main():
                    "imperative": imp_launches[counter]}
         if counter == "flash_fwd":
             by_path["predict"] = predict_launches[counter]
+            by_path["export"] = export_launches[counter]
         else:
             by_path["out_grads"] = out_grads_launches[counter]
         entry = dict(

@@ -49,7 +49,14 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
   fleet` (``Router``, ``FleetHost``, ``PrefillWorker``), and
   :mod:`~mxnet_tpu_torch.obs` (metrics registry, trace timeline,
   Prometheus endpoint, per-program roofline) under
-  :mod:`~mxnet_tpu_torch.profiler`.
+  :mod:`~mxnet_tpu_torch.profiler`;
+* deployment export on ``torch.export``: ``Predictor.export`` /
+  ``artifact`` and ``predictor.load_exported``, the decode programs'
+  artifacts (``DecodePredictor.*_artifact``, ``ProgramSpec.artifact``)
+  and :mod:`~mxnet_tpu_torch.analysis` (``ProgramArtifact``,
+  ``kernel_ops``); kernels A, B and C are torch operators
+  (``mxnet_tpu_torch::fused_fwd``, ``::paged_decode``, ``::flash_fwd``),
+  registered when this package is imported.
 
 The hand-written Hopper kernels (``csrc/``): the fused LN->linear
 forward and backward (:mod:`~mxnet_tpu_torch.ops.fused_kernel`), flash
@@ -63,7 +70,7 @@ from . import base, config, context, ops, registry
 from . import operator  # registers Custom
 from . import symbol
 from .base import AttrScope, MXNetError, NameManager
-from .context import Context, cpu, current_context, gpu
+from .context import Context, cpu, current_context, gpu, num_devices
 
 symbol._init_symbol_module()
 sym = symbol
@@ -73,21 +80,27 @@ from . import (autograd, callback, executor, initializer,  # noqa: E402
                image, io, lr_scheduler, metric, model, module, monitor,
                ndarray, obs, optimizer, predictor, profiler, random,
                recordio, rnn, test_utils, train_step)
+from . import analysis  # noqa: E402
 from .decode import DecodePredictor, DecodeServer  # noqa: E402
+from .executor import Executor  # noqa: E402
+from .initializer import init_registry  # noqa: E402
 from .model import FeedForward  # noqa: E402
+from .optimizer import Optimizer  # noqa: E402
 from .predictor import Predictor  # noqa: E402
+from .symbol import Group, Variable  # noqa: E402
 
 ndarray._init_ndarray_module()
 mod = module
 nd = ndarray
 
 __all__ = ["AttrScope", "Context", "DecodePredictor", "DecodeServer",
-           "FeedForward", "MXNetError", "NameManager", "Predictor",
-           "autograd", "base", "callback", "config", "context", "cpu",
+           "Executor", "FeedForward", "Group", "MXNetError", "NameManager",
+           "Optimizer", "Predictor", "Variable", "analysis", "autograd",
+           "base", "callback", "config", "context", "cpu",
            "current_context", "decode", "executor", "gpu", "image",
-           "initializer", "io", "lr_scheduler", "metric", "mod", "model",
-           "models", "module", "monitor", "nd", "ndarray", "obs",
-           "operator", "ops", "optimizer", "predictor", "profiler",
-           "programs", "random",
+           "init_registry", "initializer", "io", "lr_scheduler", "metric",
+           "mod", "model", "models", "module", "monitor", "nd", "ndarray",
+           "num_devices", "obs", "operator", "ops", "optimizer",
+           "predictor", "profiler", "programs", "random",
            "recordio", "registry", "rnn", "serve", "sym", "symbol",
            "test_utils", "train_step", "weights"]

@@ -8,8 +8,8 @@ from __future__ import annotations
 
 import threading
 
-__all__ = ["MXNetError", "NameManager", "AttrScope", "string_types",
-           "numeric_types"]
+__all__ = ["MXNetError", "NameManager", "Prefix", "AttrScope",
+           "string_types", "numeric_types"]
 
 string_types = (str,)
 numeric_types = (float, int)
@@ -54,6 +54,18 @@ class NameManager:
         if not cls._state.stack:
             cls._state.stack.append(NameManager())
         return cls._state.stack[-1]
+
+
+class Prefix(NameManager):
+    """A name manager that prefixes every name it gives
+    (``with Prefix("net1_"):``)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)
 
 
 class AttrScope:

@@ -15,7 +15,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "resolve_device"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_devices",
+           "resolve_device"]
 
 
 class Context:
@@ -68,6 +69,15 @@ def cpu(device_id=0):
 def gpu(device_id=0):
     """A CUDA card."""
     return Context("gpu", device_id)
+
+
+def num_devices(device_type="gpu"):
+    """How many devices of ``device_type`` there are: the host is one
+    (``"cpu"`` / ``"cpu_pinned"``), any other type counts the CUDA cards
+    (the JAX package counts its accelerators, default ``"tpu"``)."""
+    if device_type in ("cpu", "cpu_pinned"):
+        return 1
+    return torch.cuda.device_count()
 
 
 def current_context():

@@ -62,6 +62,15 @@ program call is timed around its replay for the roofline table and the
 trace timeline (:mod:`~mxnet_tpu_torch.obs`, ``MXNET_TELEMETRY``);
 nothing of the telemetry runs inside a captured body.  The mesh plan is
 not ported yet.
+
+:meth:`DecodePredictor.decode_artifact`, :meth:`~DecodePredictor.
+verify_artifact` and :meth:`~DecodePredictor.prefill_artifact` export
+the bodies those programs run (the dense step's, verify's and
+prefill's when not paged) with ``torch.export``
+(:mod:`~mxnet_tpu_torch.analysis`): kernels A and B are operators, so
+with the kernels on each graph holds one ``paged_decode`` node an
+attention layer.  The trace runs on fake tensors: nothing is computed
+and no buffer is written.
 """
 from __future__ import annotations
 
@@ -667,9 +676,13 @@ class DecodePredictor:
                                live.tok, tables, act, generator)
         return DecodeState(state.caches, live.lens, live.tok), probs
 
-    def _decode_body(self, caches, lens, tok, tables, act, generator):
-        """The decode program: one token per active row, in place."""
-        probs3, _ = self._run(tok, caches, lens, tables=tables, active=act)
+    def _decode_body(self, caches, lens, tok, tables, act, generator,
+                     env=None):
+        """The decode program: one token per active row, in place.
+        ``env`` (the weights by name; the predictor's by default) lets an
+        export trace the body over weights it holds as buffers."""
+        probs3, _ = self._run(tok, caches, lens, tables=tables, active=act,
+                              env=env)
         probs = probs3[:, 0]
         new = self._sample(probs, generator)
         tok.copy_(torch.where(act.bool()[:, None], new, tok))
@@ -699,14 +712,14 @@ class DecodePredictor:
         return DecodeState(state.caches, live.lens, live.tok), out, counts
 
     def _verify_body(self, caches, lens, tok, tables, act, draft_toks,
-                     draft_probs, generator):
+                     draft_probs, generator, env=None):
         """The verify program: append the last token and the k drafts
         of every row (inactive rows write the scratch page), score the
         k+1 positions, accept; active rows advance by their counts."""
         k = draft_toks.shape[1]
         toks_in = torch.cat([tok, draft_toks.to(tok.dtype)], dim=1)
         probs3, _ = self._run(toks_in, caches, lens, tables=tables,
-                              active=act)
+                              active=act, env=env)
         counts, out = self._accept(probs3, draft_toks, draft_probs,
                                    generator)
         on = act.bool()
@@ -731,13 +744,14 @@ class DecodePredictor:
             torch.tensor([pos0, n], dtype=torch.int32), generator)
         return caches, probs, tok
 
-    def _chunk_body(self, caches, table1, tokens, meta, generator):
+    def _chunk_body(self, caches, table1, tokens, meta, generator,
+                    env=None):
         """The chunk program; ``meta`` = [pos0, real tokens]."""
         valid = meta[1:2]
         probs3, _ = self._run(
             tokens, caches, meta[0:1], tables=table1,
             active=torch.ones((1,), dtype=torch.int32,
-                              device=tokens.device), valid=valid)
+                              device=tokens.device), valid=valid, env=env)
         last = torch.clamp(valid.long() - 1, 0, tokens.shape[1] - 1)
         probs = probs3.index_select(1, last)[:, 0]
         return probs, self._sample(probs, generator)
@@ -971,7 +985,22 @@ class DecodePredictor:
         return ProgramSpec(prog.name, prog, owner=self,
                            abstract_args=lambda a=args: a,
                            trace_count=lambda p=prog: p.traces,
-                           device=self._device, fingerprint_extra=extra)
+                           device=self._device, fingerprint_extra=extra,
+                           program=lambda a, k=kind: self._spec_program(
+                               k, a))
+
+    def _spec_program(self, kind, args):
+        """``(module, example args)`` of paged program ``kind``'s body at
+        :meth:`_serving_args`' arguments (the weights first for the
+        programs that run the model; they become the module's buffers,
+        and the generator is None): what ``ProgramSpec.artifact``
+        exports."""
+        from .analysis.artifact import BufferModule
+
+        body = self._programs()[kind].body
+        if kind in ("chunk", "decode", "verify"):
+            return BufferModule(body, args[0]), tuple(args[1:]) + (None,)
+        return BufferModule(body), tuple(args)
 
     def program_fingerprints(self, slots, chunk_w=None, spec_k=0):
         """kind -> content address of each paged program at this sizing
@@ -1041,6 +1070,158 @@ class DecodePredictor:
         return report
 
     # ------------------------------------------------------------------
+    # artifacts: torch.export of the bodies the programs run
+    # ------------------------------------------------------------------
+    def cache_bytes(self, state):
+        """Bytes of the caches (dense rings or page pools) behind
+        ``state``, data and scale planes, counted from the tensors."""
+        return sum(t.numel() * t.element_size()
+                   for t in _cache_leaves(state.caches))
+
+    def pool_bytes(self):
+        """Bytes of the shared page pools of the current paged batch (the
+        paged serving memory bill), data and scale planes."""
+        if self._manager is None:
+            raise MXNetError("pool_bytes before any paged prefill/serve")
+        pp, pt = self._manager.pool_pages, self._page_tokens
+        return sum(t.numel() * t.element_size() for t in _cache_leaves(
+            self._pools_like(lambda c: (pp, pt, c.shape[2]), "meta")))
+
+    def _cache_meta(self, state):
+        """The cache metadata of the step artifacts: byte budget, stored
+        data dtypes, layout, the kernel promise (``decode_kernel``: the
+        graph must hold a ``paged_decode`` operator for every attention
+        node) and the grouped-head and page sizes."""
+        planes = [c.data if isinstance(c, _attn.QuantKV) else c
+                  for pair in state.caches for c in pair]
+        meta = {"cache_len": self._cache_len,
+                "cache_bytes": self.cache_bytes(state),
+                "kv_dtype": str(self._kv_dtype)
+                if self._kv_dtype is not None else None,
+                "cache_data_dtypes": sorted({str(c.dtype) for c in planes}),
+                "cache_layout": "paged" if self._paged else "dense",
+                "kv_paged": self._paged,
+                "decode_kernel": not self._plain}
+        if self._grouped_kv_heads is not None:
+            meta["num_kv_heads"] = int(self._grouped_kv_heads)
+            meta["cache_kv_dims"] = sorted({int(c.shape[2]) for c in planes})
+        if self._paged:
+            meta["page_tokens"] = self._page_tokens
+            if self._manager is not None:
+                meta["pool_pages"] = self._manager.pool_pages
+        return meta
+
+    def _artifact(self, body, args, name, env=None, **kw):
+        from .analysis.artifact import BufferModule, artifact_from_export
+
+        return artifact_from_export(
+            BufferModule(body, self._env if env is None else env), args,
+            name, **kw)
+
+    def _paged_step_inputs(self, state):
+        """The page tables and activity mask a paged step over ``state``
+        reads: the batch's device buffers, or zeros at its width."""
+        b = int(state.lens.shape[0])
+        live = self._live
+        if live is not None and int(live.lens.shape[0]) == b:
+            return live.tables, live.act
+        m = self._cache_len // self._page_tokens
+        dev = state.lens.device
+        return (torch.zeros((b, m), dtype=torch.int32, device=dev),
+                torch.zeros((b,), dtype=torch.int32, device=dev))
+
+    def prefill_artifact(self, b, p, name="prefill"):
+        """:class:`~mxnet_tpu_torch.analysis.ProgramArtifact` of the
+        prefill at batch ``b`` and prompt width ``p``.  Dense: the full
+        causal forward that builds the rings.  Paged: the prefill-chunk
+        program at chunk width ``p`` (a batch prefills slot by slot, one
+        call a chunk: ``meta["slots_per_call"]`` 1), over the batch's
+        pools, or over ``meta`` tensors before the first paged batch."""
+        b, p = int(b), int(p)
+        if not self._paged:
+            dev = self._device
+            return self._artifact(
+                self._prefill_body,
+                (torch.zeros((b, p), dtype=torch.float32, device=dev),
+                 torch.full((b,), p, dtype=torch.int32, device=dev), None),
+                name, trace_count=self.trace_counts["prefill"],
+                expected_traces=1, cache_len=self._cache_len,
+                cache_layout="dense", decode_kernel=False)
+        m = self._cache_len // self._page_tokens
+        env = None
+        if self._live is not None:
+            pools, dev = self._live.pools, self._device
+        else:
+            pp = PagedKVManager.pool_sizing(b, self._cache_len,
+                                            self._page_tokens,
+                                            self._pool_pages)
+            pt = self._page_tokens
+            dev = torch.device("meta")
+            pools = self._pools_like(lambda c: (pp, pt, c.shape[2]), dev)
+            env = {n: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                   for n, v in self._env.items()}
+        args = (pools, torch.zeros((1, m), dtype=torch.int32, device=dev),
+                torch.zeros((1, p), dtype=torch.float32, device=dev),
+                torch.zeros((2,), dtype=torch.int32, device=dev), None)
+        state = DecodeState(pools, None, None)
+        return self._artifact(
+            self._chunk_body, args, name, env=env,
+            donated_leaves=len(_cache_leaves(pools)),
+            trace_count=self.trace_counts["chunk"], expected_traces=1,
+            program="prefill_chunk", slots_per_call=1,
+            **self._cache_meta(state))
+
+    def decode_artifact(self, state, name="decode_step"):
+        """:class:`~mxnet_tpu_torch.analysis.ProgramArtifact` of the
+        decode step at ``state``'s shapes (the paged decode program's
+        body, or the dense step): one ``paged_decode`` operator for every
+        attention node when the kernels are on.  ``donated_leaves``
+        counts the buffers the step writes in place; the cache metadata
+        is :meth:`_cache_meta`'s.  The trace reads shapes only: no
+        buffer is written."""
+        leaves = len(_cache_leaves(state.caches))
+        if self._paged:
+            tables, act = self._paged_step_inputs(state)
+            body = self._decode_body
+            args = (state.caches, state.lens, state.tok, tables, act, None)
+            leaves += 2
+        else:
+            body = self._step_body
+            args = (state.caches, state.lens, state.tok, None)
+        return self._artifact(
+            body, args, name, donated_leaves=leaves,
+            trace_count=self.trace_counts["decode"], expected_traces=1,
+            **self._cache_meta(state))
+
+    def verify_artifact(self, state, k, draft_probs=None,
+                        name="verify_step"):
+        """:class:`~mxnet_tpu_torch.analysis.ProgramArtifact` of the
+        speculative verify step at ``state``'s shapes and draft width
+        ``k``; ``draft_probs`` (a (B, k, V) tensor) selects the variant
+        with the proposal distribution, None the deterministic one."""
+        b = int(state.lens.shape[0])
+        draft = torch.zeros((b, int(k)), dtype=torch.int32,
+                            device=state.lens.device)
+        leaves = len(_cache_leaves(state.caches))
+        if self._paged:
+            tables, act = self._paged_step_inputs(state)
+            body = self._verify_body
+            args = (state.caches, state.lens, state.tok, tables, act, draft,
+                    draft_probs, None)
+            leaves += 2
+            expected = max(self._verify_fn.traces, 1)
+        else:
+            body = self._dense_verify_body
+            args = (state.caches, state.lens, state.tok, draft, draft_probs,
+                    None)
+            expected = 1
+        return self._artifact(
+            body, args, name, donated_leaves=leaves,
+            trace_count=self.trace_counts["verify"],
+            expected_traces=expected, spec_k=int(k),
+            **self._cache_meta(state))
+
+    # ------------------------------------------------------------------
     # public surface
     # ------------------------------------------------------------------
     def _place_tokens(self, tokens):
@@ -1069,11 +1250,35 @@ class DecodePredictor:
         lens = torch.as_tensor(prompt_len, dtype=torch.int32,
                                device=self._device).reshape(-1).expand(
             b).clone()
-        probs3, caches = self._run(tokens, None, 0)
+        probs, tok, caches = self._prefill_body(tokens, lens, generator)
+        return DecodeState(caches, lens, tok), probs
+
+    def _prefill_body(self, tokens, lens, generator, env=None):
+        """The dense prefill: the full causal forward over (B, P) tokens,
+        fresh ring caches, the probabilities at each row's last real
+        position and the token sampled from them."""
+        b, p = tokens.shape
+        probs3, caches = self._run(tokens, None, 0, env=env)
         last = torch.clamp(lens.long() - 1, 0, p - 1)
-        probs = probs3[torch.arange(b, device=self._device), last]
-        return DecodeState(caches, lens, self._sample(probs, generator)), \
-            probs
+        probs = probs3[torch.arange(b, device=tokens.device), last]
+        return probs, self._sample(probs, generator), caches
+
+    def _step_body(self, caches, lens, tok, generator, env=None):
+        """The dense decode step: ``tok``'s K/V appended to the ring caches
+        in place, the probabilities and the next token."""
+        probs3, _ = self._run(tok, caches, lens, env=env)
+        probs = probs3[:, 0]
+        return probs, self._sample(probs, generator)
+
+    def _dense_verify_body(self, caches, lens, tok, draft, draft_probs,
+                           generator, env=None):
+        """The dense verify step: the last token and the drafts appended
+        to the ring caches in place, the k + 1 positions scored and the
+        drafts accepted; returns ``(out, counts, probs3)``."""
+        toks_in = torch.cat([tok.to(torch.int32), draft], dim=1)
+        probs3, _ = self._run(toks_in, caches, lens, env=env)
+        counts, out = self._accept(probs3, draft, draft_probs, generator)
+        return out, counts, probs3
 
     def step(self, state, generator=None):
         """One decode step: append ``state.tok``'s K/V, attend, sample.
@@ -1083,10 +1288,9 @@ class DecodePredictor:
             out = self.paged_step(state, self._paged_lens, generator)
             self._paged_lens += 1
             return out
-        probs3, caches = self._run(state.tok, state.caches, state.lens)
-        probs = probs3[:, 0]
-        return DecodeState(caches, state.lens + 1,
-                           self._sample(probs, generator)), probs
+        probs, tok = self._step_body(state.caches, state.lens, state.tok,
+                                     generator)
+        return DecodeState(state.caches, state.lens + 1, tok), probs
 
     def verify_step(self, state, draft_toks, draft_probs=None,
                     generator=None):
@@ -1111,12 +1315,12 @@ class DecodePredictor:
             self._paged_lens += out[2].cpu().numpy().astype(np.int64)
             return out
         draft = self._draft_tensor(draft_toks).to(self._device)
-        toks_in = torch.cat([state.tok.to(torch.int32), draft], dim=1)
-        probs3, caches = self._run(toks_in, state.caches, state.lens)
-        self.verify_probs = probs3
-        counts, out = self._accept(probs3, draft, draft_probs, generator)
+        out, counts, self.verify_probs = self._dense_verify_body(
+            state.caches, state.lens, state.tok, draft, draft_probs,
+            generator)
         tok = torch.gather(out, 1, (counts.long() - 1)[:, None])
-        return DecodeState(caches, state.lens + counts, tok), out, counts
+        return DecodeState(state.caches, state.lens + counts, tok), out, \
+            counts
 
     def generate_speculative(self, tokens, prompt_len=None,
                              max_new_tokens=16, seed=0, eos_id=None, k=None,

@@ -308,6 +308,15 @@ class Executor:
         one); a monitored forward runs eagerly."""
         self._monitor_callback = callback
 
+    @staticmethod
+    def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
+        """:meth:`Symbol.simple_bind` as the JAX package's static method
+        of the Executor."""
+        return symbol.simple_bind(ctx, grad_req=grad_req,
+                                  type_dict=type_dict, group2ctx=group2ctx,
+                                  shared_exec=shared_exec, **kwargs)
+
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
         """Copy parameters (NDArrays, tensors or numpy) into the bound

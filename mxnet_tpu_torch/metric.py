@@ -108,6 +108,32 @@ class EvalMetric:
             sums[idx].add_(s)
             counts[idx].add_(n)
 
+    # the JAX package's attribute views (Module and callbacks poke them):
+    # reading one drains the device sums first
+    @property
+    def sum_metric(self):
+        self._drain_device()
+        return self._sums[0] if self.num is None else self._sums
+
+    @sum_metric.setter
+    def sum_metric(self, v):
+        if self.num is None:
+            self._sums[0] = v
+        else:
+            self._sums = list(v)
+
+    @property
+    def num_inst(self):
+        self._drain_device()
+        return self._counts[0] if self.num is None else self._counts
+
+    @num_inst.setter
+    def num_inst(self, v):
+        if self.num is None:
+            self._counts[0] = v
+        else:
+            self._counts = list(v)
+
     def _batch(self, label, pred):
         raise NotImplementedError()
 

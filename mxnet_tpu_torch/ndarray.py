@@ -54,7 +54,7 @@ import torch
 
 from . import registry as _reg
 from .base import MXNetError
-from .context import Context, current_context
+from .context import Context, cpu, current_context
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "onehot_encode", "imperative_invoke", "waitall",
@@ -122,10 +122,13 @@ def _module():
 class NDArray:
     """An n-dimensional array: a torch tensor plus its context."""
 
-    __slots__ = ("_data",)
+    __slots__ = ("_data", "writable")
 
-    def __init__(self, data):
+    def __init__(self, data, writable=True):
         self._data = data
+        # an array with writable False refuses item assignment, as the
+        # JAX package's does
+        self.writable = writable
 
     # -- data access -------------------------------------------------------
     @property
@@ -135,6 +138,12 @@ class NDArray:
 
     def _set_data(self, new_data):
         self._data = new_data
+
+    @property
+    def handle(self):
+        """The array itself (the JAX package's stand-in for the C
+        handle)."""
+        return self
 
     @property
     def shape(self):
@@ -239,6 +248,8 @@ class NDArray:
             return NDArray(self._data[self._key(key)])
 
     def __setitem__(self, key, value):
+        if not self.writable:
+            raise MXNetError("trying to write to an immutable NDArray")
         t = self._data
         if isinstance(value, NDArray):
             value = value._data

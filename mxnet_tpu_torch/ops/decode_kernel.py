@@ -5,11 +5,13 @@ of its split partials.
 The wrappers :func:`flash_sdpa_decode` (tq = 1), :func:`flash_sdpa_verify`
 (tq > 1: a verify window or a prefill chunk) and
 :func:`dense_ring_attend` (dense (B, C, E) rings through an identity page
-table) launch the hand-written kernels in ``csrc/paged_decode.cu`` on
-CUDA tensors, or raise (also on shapes :func:`supported` refuses); on CPU
-tensors they run the plain version, :func:`paged_plain`
-(``paged_gather`` + ``dequantize_kv`` + the masked softmax of
-``_sdpa_cache``).
+table) call one torch operator, ``mxnet_tpu_torch::paged_decode``
+(:func:`paged_decode_op`): on CUDA tensors it launches the hand-written
+kernels in ``csrc/paged_decode.cu``, on CPU tensors it runs the plain
+version, :func:`paged_plain` (``paged_gather`` + ``dequantize_kv`` + the
+masked softmax of ``_sdpa_cache``), on any other device it raises, and
+a traced graph (``torch.export``) holds it as one node.  Shapes
+:func:`supported` refuses raise off the host before the operator.
 
 Kernel B writes unnormalised per-split partials; the cross-split
 logsumexp combine, jnp outside the ``pallas_call`` in the JAX package,
@@ -25,16 +27,17 @@ what ran.  ``LAUNCHES["paged_decode"]`` counts kernel-B launches,
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from .. import cuda_build
 from .attention import QuantKV, _sdpa_cache, paged_gather
 
 __all__ = ["flash_sdpa_decode", "flash_sdpa_verify", "dense_ring_attend",
-           "paged_plain", "supported", "LAUNCHES",
+           "paged_decode_op", "paged_plain", "supported", "LAUNCHES",
            "LAST_VARIANT", "MAX_SPLITS"]
 
 # The JAX package's split cap, kept for _num_splits (the reference's
@@ -292,13 +295,71 @@ def _paged_flash_call(q, k_pool, v_pool, table, lens, num_heads, scale,
                          num_kv_heads, combined=True)
 
 
+def _pools(k_data, v_data, k_scale, v_scale):
+    """The operator's separate planes as the pools the wrappers take
+    (:class:`QuantKV` where a scale plane is given)."""
+    kp = QuantKV(k_data, k_scale) if k_scale is not None else k_data
+    vp = QuantKV(v_data, v_scale) if v_scale is not None else v_data
+    return kp, vp
+
+
+@torch.library.custom_op("mxnet_tpu_torch::paged_decode", mutates_args=(),
+                         device_types="cuda")
+def paged_decode_op(q: torch.Tensor, k_data: torch.Tensor,
+                    v_data: torch.Tensor, k_scale: Optional[torch.Tensor],
+                    v_scale: Optional[torch.Tensor], table: torch.Tensor,
+                    lens: torch.Tensor, num_heads: int,
+                    scale: Optional[float], num_kv_heads: int
+                    ) -> torch.Tensor:
+    """Kernel B and its combine as one torch operator: (B, tq, E) queries
+    over (P, pt, E_kv) pools through a (B, M) table -> (B, tq, Ev) in
+    the V pool's compute dtype (f32 for quantized pools).  A quantized
+    pool comes as its data plane and its f32 scale plane (``k_scale`` /
+    ``v_scale``; None for a float pool).  The CUDA implementation
+    launches ``csrc/paged_decode.cu``'s two kernels
+    (:func:`_paged_flash_call`); the CPU implementation is
+    :func:`paged_plain`; the fake implementation gives the output's
+    shape and dtype, so a traced (exported) graph holds this one
+    node."""
+    kp, vp = _pools(k_data, v_data, k_scale, v_scale)
+    return _paged_flash_call(q, kp, vp, table, lens, num_heads, scale,
+                             num_kv_heads=num_kv_heads)
+
+
+@paged_decode_op.register_kernel("cpu")
+def _paged_decode_cpu(q, k_data, v_data, k_scale, v_scale, table, lens,
+                      num_heads, scale, num_kv_heads):
+    kp, vp = _pools(k_data, v_data, k_scale, v_scale)
+    return paged_plain(q, kp, vp, table, lens, num_heads, scale,
+                       num_kv_heads)
+
+
+@paged_decode_op.register_fake
+def _paged_decode_fake(q, k_data, v_data, k_scale, v_scale, table, lens,
+                       num_heads, scale, num_kv_heads):
+    if q.device.type != "cpu":
+        if k_data.dtype not in _POOL_CODE or v_data.dtype != k_data.dtype:
+            raise ValueError("paged decode kernel: unsupported pool dtypes "
+                             "%s/%s" % (k_data.dtype, v_data.dtype))
+        if not is_fake(q):
+            raise ValueError("paged decode kernel: unsupported device %s"
+                             % q.device)
+    kvh = int(num_kv_heads) or int(num_heads)
+    b, tq = q.shape[0], q.shape[1]
+    out_dtype = torch.float32 if v_scale is not None else v_data.dtype
+    return q.new_empty((b, tq, int(num_heads) * (v_data.shape[2] // kvh)),
+                       dtype=out_dtype)
+
+
 def _paged_entry(q, k_pool, v_pool, table, total_len, num_heads, scale,
                  num_kv_heads):
-    if q.device.type == "cpu":
-        return paged_plain(q, k_pool, v_pool, table, total_len, num_heads,
-                           scale, num_kv_heads)
     if not supported(q.shape, k_pool, v_pool, table.shape, num_heads,
                      num_kv_heads=num_kv_heads):
+        if q.device.type == "cpu":
+            # no kernel would take it: the plain version, as ever on the
+            # host
+            return paged_plain(q, k_pool, v_pool, table, total_len,
+                               num_heads, scale, num_kv_heads)
         kd = k_pool.data if isinstance(k_pool, QuantKV) else k_pool
         vd = v_pool.data if isinstance(v_pool, QuantKV) else v_pool
         raise ValueError(
@@ -306,11 +367,17 @@ def _paged_entry(q, k_pool, v_pool, table, total_len, num_heads, scale,
             "do not fit pools %s / %s through a %s table"
             % (tuple(q.shape), num_heads, num_kv_heads or num_heads,
                tuple(kd.shape), tuple(vd.shape), tuple(table.shape)))
-    if q.device.type != "cuda":
-        raise ValueError("paged decode kernel: unsupported device %s"
-                         % q.device)
-    return _paged_flash_call(q, k_pool, v_pool, table, total_len,
-                             num_heads, scale, num_kv_heads=num_kv_heads)
+    quant = isinstance(k_pool, QuantKV)
+    if quant != isinstance(v_pool, QuantKV):
+        raise ValueError("paged decode kernel: K and V pools must both be "
+                         "quantized or both be float")
+    lens = total_len if isinstance(total_len, torch.Tensor) \
+        else torch.as_tensor(total_len, dtype=torch.int64, device=q.device)
+    return paged_decode_op(
+        q, k_pool.data if quant else k_pool, v_pool.data if quant else v_pool,
+        k_pool.scale if quant else None, v_pool.scale if quant else None,
+        table, lens, int(num_heads), None if scale is None else float(scale),
+        int(num_kv_heads))
 
 
 def flash_sdpa_decode(q, k_pool, v_pool, table, total_len, num_heads=1,
@@ -336,10 +403,8 @@ def dense_ring_attend(q, k_cache, v_cache, total_len, num_heads=1,
                       scale=None, num_kv_heads=0):
     """The dense-ring variant: the same kernel over (B, C, E) ring
     buffers, viewed as (B*Mb, bs, E) pages with ``table[b, m] = b*Mb +
-    m``.  CPU tensors take ``sdpa_decode``'s plain path."""
-    if q.device.type == "cpu":
-        return _sdpa_cache(q, k_cache, v_cache, total_len, num_heads,
-                           scale, num_kv_heads=num_kv_heads)
+    m``.  CPU tensors take the operator's plain version, which gathers
+    the identity view back into the rings."""
     kd = k_cache.data if isinstance(k_cache, QuantKV) else k_cache
     b, c = kd.shape[0], kd.shape[1]
     bs = _dense_block(c)

@@ -5,8 +5,10 @@ its lse residual) and its dQ and dK/dV backward kernels.
 Tensors are head-folded: q (B*H, T, hd), k and v (B*H_kv, T, hd), q-row
 ``b`` attending kv-row ``b // G`` with G = H / H_kv.
 
-* :func:`flash_fwd` — kernel C on a CUDA tensor, :func:`flash_plain_fwd`
-  on a CPU tensor: ``(o, lse)`` with lse (B*H, T) f32.
+* :func:`flash_fwd` — the torch operator ``mxnet_tpu_torch::flash_fwd``
+  (:func:`flash_fwd_op`): kernel C on a CUDA tensor,
+  :func:`flash_plain_fwd` on a CPU tensor, ``(o, lse)`` with lse (B*H,
+  T) f32; a traced graph (``torch.export``) holds it as one node.
 * :func:`flash_bwd` — kernels D (:func:`flash_bwd_dq`) and E
   (:func:`flash_bwd_dkv`) on a CUDA tensor, :func:`flash_plain_bwd` on a
   CPU tensor: ``(dq, dk, dv)``.  delta = rowsum(dO * O) is computed in
@@ -33,12 +35,16 @@ last launch of C, of D and of E ran.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from .. import cuda_build
 
-__all__ = ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_delta", "flash_plain_fwd", "flash_plain_bwd",
+__all__ = ["flash_fwd", "flash_fwd_op", "flash_bwd", "flash_bwd_dq",
+           "flash_bwd_dkv", "flash_delta", "flash_plain_fwd",
+           "flash_plain_bwd",
            "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "LAST_VARIANT",
            "supported"]
 
@@ -146,9 +152,10 @@ def flash_plain_bwd(q, k, v, o, lse, do, scale, causal, groups=1):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(q, k, v, groups, where):
+def _check(q, k, v, groups, where, fake=False):
     """The kernels' contract for CUDA tensors; returns (dtype code,
-    contiguous q, k, v)."""
+    contiguous q, k, v).  ``fake``: only check (the operator's fake
+    implementation, which a ``meta`` tensor given directly reaches)."""
     code = _DTYPE_CODE.get(q.dtype)
     if code is None:
         raise ValueError("%s: the kernel takes float32 or bfloat16, not %s"
@@ -170,17 +177,24 @@ def _check(q, k, v, groups, where):
             raise ValueError("%s: %s is %s on %s, q is %s on %s"
                              % (where, name, x.dtype, x.device, q.dtype,
                                 q.device))
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not (fake and is_fake(q)):
         raise ValueError("%s: unsupported device %s" % (where, q.device))
+    if fake:
+        return None
     return code, _aligned16(q.contiguous()), _aligned16(k.contiguous()), \
         _aligned16(v.contiguous())
 
 
-def flash_fwd(q, k, v, scale, causal, groups=1):
-    """``(o, lse)``: kernel C on a CUDA tensor (or an error where it does
-    not take the shapes), :func:`flash_plain_fwd` on a CPU tensor."""
-    if q.device.type == "cpu":
-        return flash_plain_fwd(q, k, v, scale, causal, groups)
+@torch.library.custom_op("mxnet_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, causal: bool, groups: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C as a torch operator: its CUDA implementation launches
+    ``csrc/flash_attention.cu``'s forward; its CPU implementation is
+    :func:`flash_plain_fwd`; its fake implementation gives ``(o, lse)``'s
+    shapes and dtypes, so a traced (exported) graph holds this one
+    node."""
     code, q, k, v = _check(q, k, v, groups, "flash_fwd")
     bh, t, hd = q.shape
     o = torch.empty_like(q)
@@ -195,6 +209,26 @@ def flash_fwd(q, k, v, scale, causal, groups=1):
     LAUNCHES["flash_fwd"] += 1
     LAST_VARIANT["flash_fwd"] = _variant(q.dtype, hd)
     return o, lse
+
+
+@flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, scale, causal, groups):
+    return flash_plain_fwd(q, k, v, scale, causal, groups)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, scale, causal, groups):
+    if q.device.type != "cpu":
+        _check(q, k, v, groups, "flash_fwd", fake=True)
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def flash_fwd(q, k, v, scale, causal, groups=1):
+    """``(o, lse)`` through the operator ``mxnet_tpu_torch::flash_fwd``:
+    kernel C on a CUDA tensor (or an error where it does not take the
+    shapes), :func:`flash_plain_fwd` on a CPU tensor."""
+    return flash_fwd_op(q, k, v, float(scale), bool(causal), int(groups))
 
 
 def _check_bwd(q, do, lse, delta, where):

@@ -4,7 +4,11 @@ with per-column statistics, forward and backward — the counterpart of
 
 * :func:`fused_scale_relu_matmul` (kernel A, ``csrc/fused_fwd.cu``) and
   its plain version :func:`fused_plain`, which mirrors
-  ``pallas_fused.reference_impl``;
+  ``pallas_fused.reference_impl``: the wrapper calls the torch operator
+  ``mxnet_tpu_torch::fused_fwd`` (:func:`fused_fwd_op`), whose CUDA
+  implementation is the launch and whose CPU implementation is the plain
+  version, so a traced graph (``torch.export``) holds one node that
+  launches kernel A once its tensors are on the card;
 * :func:`fused_bwd` (kernel F, ``csrc/fused_bwd.cu``): dx, dW, dscale
   and dshift from x and dy, and its plain version
   :func:`fused_bwd_plain`;
@@ -14,7 +18,9 @@ with per-column statistics, forward and backward — the counterpart of
 
 Each wrapper launches its kernel on a CUDA tensor (built at first use,
 see :mod:`~mxnet_tpu_torch.cuda_build`) or raises, and runs its plain
-version on a CPU tensor.  ``LAUNCHES`` counts kernel launches.
+version on a CPU tensor (kernel A through its operator's dispatch,
+kernel F by a branch on the device: its operator comes with the training
+artifacts).  ``LAUNCHES`` counts kernel launches.
 
 Which variant of a kernel runs is chosen here, by :func:`_plan`, from the
 shape and dtype alone, and handed to the C entry as an int:
@@ -42,14 +48,16 @@ are summed in a fixed order, so dW stays deterministic.
 from __future__ import annotations
 
 from collections import namedtuple
+from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from .. import cuda_build
 
-__all__ = ["fused_scale_relu_matmul", "fused_plain", "fused_bwd",
-           "fused_bwd_plain", "FusedLNLinearFn", "LAUNCHES", "LAST_VARIANT",
-           "VARIANTS"]
+__all__ = ["fused_scale_relu_matmul", "fused_fwd_op", "fused_plain",
+           "fused_bwd", "fused_bwd_plain", "FusedLNLinearFn", "LAUNCHES",
+           "LAST_VARIANT", "VARIANTS"]
 
 # kernel launches since the count was last set to 0 (plain-version calls
 # do not count)
@@ -142,6 +150,13 @@ def fused_plain(x, scale, shift, w, residual=None, relu=True, bias=None,
     return y, y32.sum(0), (y32 * y32).sum(0)
 
 
+def _refuse_meta(x, where):
+    """A ``meta`` tensor given directly (not a fake one of a traced graph)
+    stands for a device no kernel runs on: raise, as a launch would."""
+    if x.device.type == "meta" and not is_fake(x):
+        raise ValueError("%s: unsupported device %s" % (where, x.device))
+
+
 def _check(t, name, shape, dtype, device, where="fused_scale_relu_matmul"):
     if t.device != device:
         raise ValueError("%s: %s on %s, x on %s"
@@ -155,42 +170,47 @@ def _check(t, name, shape, dtype, device, where="fused_scale_relu_matmul"):
     return t.contiguous()
 
 
-def fused_scale_relu_matmul(x, scale, shift, w, residual=None, relu=True,
-                            bias=None, wt=True):
-    """y = [relu](x*scale + shift) @ W^T (+ bias) (+ residual); returns
-    ``(y, ysum, ysumsq)``.
-
-    x: (M, K) f32 or bf16; scale, shift: (K,) f32; w: (N, K) in x's dtype
-    (FullyConnected's layout, ``wt=True``); bias: (N,) or None; residual:
-    (M, N) in x's dtype or None.  ysum/ysumsq are the per-column sums of
-    the stored y (f32).  CPU tensors take :func:`fused_plain`; CUDA
-    tensors launch kernel A."""
-    if x.device.type == "cpu":
-        return fused_plain(x, scale, shift, w, residual=residual, relu=relu,
-                           bias=bias, wt=wt)
-    if not wt:
-        raise NotImplementedError(
-            "fused_scale_relu_matmul: only the (N, K) weight layout "
-            "(wt=True) has a kernel")
-    code = _DTYPE_CODE.get(x.dtype)
-    if code is None or x.dim() != 2:
+def _fused_fwd_check(x, scale, shift, w, bias, residual):
+    """Kernel A's contract for a tensor off the host (a CUDA tensor, or a
+    fake one while a graph is traced): ``(m, k, n)``, or a ValueError
+    naming what the kernel does not take."""
+    if _DTYPE_CODE.get(x.dtype) is None or x.dim() != 2:
         raise ValueError("fused_scale_relu_matmul: x must be a 2-D f32 or "
                          "bf16 tensor (got %s %s)" % (x.dtype,
                                                       tuple(x.shape)))
-    if x.device.type != "cuda":
-        raise ValueError("fused_scale_relu_matmul: unsupported device %s"
-                         % x.device)
     m, k = x.shape
     n = w.shape[0]
     dev = x.device
-    x = x.contiguous()
-    w = _check(w, "w", (n, k), x.dtype, dev)
-    scale = _check(scale, "scale", (k,), torch.float32, dev)
-    shift = _check(shift, "shift", (k,), torch.float32, dev)
+    _check(w, "w", (n, k), x.dtype, dev)
+    _check(scale, "scale", (k,), torch.float32, dev)
+    _check(shift, "shift", (k,), torch.float32, dev)
     if bias is not None:
-        bias = _check(bias.float(), "bias", (n,), torch.float32, dev)
+        _check(bias.float(), "bias", (n,), torch.float32, dev)
     if residual is not None:
-        residual = _check(residual, "residual", (m, n), x.dtype, dev)
+        _check(residual, "residual", (m, n), x.dtype, dev)
+    return m, k, n
+
+
+@torch.library.custom_op("mxnet_tpu_torch::fused_fwd", mutates_args=(),
+                         device_types="cuda")
+def fused_fwd_op(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                 w: torch.Tensor, bias: Optional[torch.Tensor],
+                 residual: Optional[torch.Tensor], relu: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel A as a torch operator: its CUDA implementation launches
+    ``csrc/fused_fwd.cu``; its CPU implementation is :func:`fused_plain`;
+    its fake implementation gives the shapes and dtypes a launch gives,
+    so a traced (exported) graph holds this one node."""
+    m, k, n = _fused_fwd_check(x, scale, shift, w, bias, residual)
+    dev = x.device
+    x = x.contiguous()
+    w = w.contiguous()
+    scale = scale.contiguous()
+    shift = shift.contiguous()
+    if bias is not None:
+        bias = bias.float().contiguous()
+    if residual is not None:
+        residual = residual.contiguous()
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     s1 = torch.zeros((n,), dtype=torch.float32, device=dev)
     s2 = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -200,8 +220,9 @@ def fused_scale_relu_matmul(x, scale, shift, w, residual=None, relu=True,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_fwd(
-            code, x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            w.data_ptr(), bias.data_ptr() if bias is not None else None,
+            _DTYPE_CODE[x.dtype], x.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), w.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
             residual.data_ptr() if residual is not None else None,
             y.data_ptr(), s1.data_ptr(), s2.data_ptr(), m, k, n,
             int(bool(relu)), plan.code, stream)
@@ -209,6 +230,40 @@ def fused_scale_relu_matmul(x, scale, shift, w, residual=None, relu=True,
     LAUNCHES["fused_fwd"] += 1
     LAST_VARIANT["fused_fwd"] = plan.variant
     return y, s1, s2
+
+
+@fused_fwd_op.register_kernel("cpu")
+def _fused_fwd_cpu(x, scale, shift, w, bias, residual, relu):
+    return fused_plain(x, scale, shift, w, residual=residual, relu=relu,
+                       bias=bias)
+
+
+@fused_fwd_op.register_fake
+def _fused_fwd_fake(x, scale, shift, w, bias, residual, relu):
+    if x.device.type == "cpu":
+        m, n = x.shape[0], w.shape[0]
+    else:
+        m, _, n = _fused_fwd_check(x, scale, shift, w, bias, residual)
+        _refuse_meta(x, "fused_scale_relu_matmul")
+    return (x.new_empty((m, n)),
+            x.new_empty((n,), dtype=torch.float32),
+            x.new_empty((n,), dtype=torch.float32))
+
+
+def fused_scale_relu_matmul(x, scale, shift, w, residual=None, relu=True,
+                            bias=None, wt=True):
+    """y = [relu](x*scale + shift) @ W^T (+ bias) (+ residual); returns
+    ``(y, ysum, ysumsq)``.
+
+    x: (M, K) f32 or bf16; scale, shift: (K,) f32; w: (N, K) in x's dtype
+    (FullyConnected's layout, ``wt=True``; ``wt=False`` takes a (K, N)
+    weight, passed on transposed); bias: (N,) or None; residual: (M, N)
+    in x's dtype or None.  ysum/ysumsq are the per-column sums of the
+    stored y (f32).  The call is the operator ``mxnet_tpu_torch::
+    fused_fwd``: CPU tensors take :func:`fused_plain`, CUDA tensors
+    launch kernel A, and any other device raises."""
+    return fused_fwd_op(x, scale, shift, w if wt else w.t(), bias,
+                        residual, bool(relu))
 
 
 def fused_bwd_plain(x, dy, scale, shift, w, relu):

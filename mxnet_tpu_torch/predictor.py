@@ -15,11 +15,22 @@ reference                       here
 
 Each bound input shape has one executor whose inference forward is one
 captured program (:class:`~mxnet_tpu_torch.train_step.CompiledForward`:
-a CUDA graph on the card, replayed for every later call).  The JAX
-package's StableHLO export (``export``, ``artifact``,
-``export_stablehlo_text``, ``load_exported``) has no counterpart here.
+a CUDA graph on the card, replayed for every later call).
+
+Deployment export (the JAX package's StableHLO export) goes through
+``torch.export``: :meth:`Predictor.export` writes the forward at the
+bound input shapes, weights included, as a saved ``ExportedProgram``
+(``torch.export.save``); :func:`load_exported` loads it into a callable
+that runs without the symbol, the executor or this class.  The graph
+holds the hand-written kernels as the operators
+``mxnet_tpu_torch::fused_fwd`` and ``::flash_fwd``, which launch kernels
+A and C on the card and run their plain versions on the host, so a
+program exported on either device runs on either.
 """
 from __future__ import annotations
+
+import io
+import os
 
 import numpy as np
 import torch
@@ -31,7 +42,7 @@ from .context import cpu, gpu, resolve_device
 from .executor import simple_bind
 
 __all__ = ["Predictor", "DecodePredictor", "DecodeServer", "NGramProposer",
-           "DraftProposer"]
+           "DraftProposer", "load_exported"]
 
 
 def _shape_key(input_shapes):
@@ -61,10 +72,14 @@ class Predictor:
         ``_output`` suffix.
     type_dict : dict, optional
         Input dtypes (default float32).
+    plain : bool
+        Run every op that owns a kernel through its plain PyTorch
+        version, whatever the device (the reference the kernels are held
+        to; an exported program then holds no kernel operator).
     """
 
     def __init__(self, symbol, params, input_shapes, ctx=None,
-                 output_names=None, type_dict=None):
+                 output_names=None, type_dict=None, plain=False):
         if isinstance(symbol, str):
             symbol = sym_mod.load_json(symbol) \
                 if symbol.lstrip().startswith("{") else sym_mod.load(symbol)
@@ -87,6 +102,7 @@ class Predictor:
         self._device = resolve_device(self._ctx)
         self._input_shapes = dict(input_shapes)
         self._type_dict = dict(type_dict) if type_dict else None
+        self._plain = bool(plain)
         # free inputs: arguments without stored weights; those given no
         # shape (loss labels) are inferred and stay zeros
         self._data_names = [n for n in symbol.list_arguments()
@@ -109,8 +125,8 @@ class Predictor:
         ``shared_exec``, the arrays of the same name and shape are its
         (the weights are not held twice)."""
         exe = simple_bind(self._symbol, self._device, grad_req="null",
-                          type_dict=self._type_dict, shared_exec=shared_exec,
-                          **shapes)
+                          type_dict=self._type_dict, plain=self._plain,
+                          shared_exec=shared_exec, **shapes)
         exe.copy_params_from(self._arg_params, self._aux_params,
                              allow_extra_params=True)
         return exe
@@ -176,6 +192,142 @@ class Predictor:
         clone._exec = exe
         clone._outputs = None
         return clone
+
+    # ------------------------------------------------------------------
+    # deployment export
+    # ------------------------------------------------------------------
+    def _feed_names(self):
+        """The data inputs an exported program takes, in the symbol's
+        order: the free inputs named in ``input_shapes``."""
+        return [n for n in self._data_names if n in self._input_shapes]
+
+    def _export_module(self):
+        """The inference forward as an ``nn.Module`` of the data inputs
+        (:meth:`_feed_names`): its buffers are the executor's other
+        arguments (the weights, and unfed inputs such as labels, which
+        stay zeros) and aux states; its forward is the graph walk
+        (``run_graph``) on the executor's inference op context, under
+        ``no_grad`` — the counterpart of the reference's ``_pure_fn``."""
+        from .analysis.artifact import BufferModule
+        from .executor import run_graph
+
+        exe = self._exec
+        feed = self._feed_names()
+        aux_names = set(exe._aux_names)
+        env = {n: exe.arg_dict[n].data for n in exe._arg_names
+               if n not in feed}
+        env.update({n: exe.aux_dict[n].data for n in exe._aux_names})
+        symbol, octx = self._symbol, exe.op_context(False)
+
+        def forward(*data, env):
+            args = {n: t for n, t in env.items() if n not in aux_names}
+            args.update(zip(feed, data))
+            aux = {n: t for n, t in env.items() if n in aux_names}
+            with torch.no_grad():
+                outs, _ = run_graph(symbol, args, aux, octx)
+            return tuple(outs)
+
+        return BufferModule(forward, env)
+
+    def artifact(self, name="predict_forward"):
+        """:class:`~mxnet_tpu_torch.analysis.ProgramArtifact` of the
+        inference forward at the bound input shapes: the exported graph
+        (``torch.export``) and its text, with the kernels' operators as
+        nodes (:func:`~mxnet_tpu_torch.analysis.kernel_ops` counts
+        them)."""
+        from .analysis.artifact import artifact_from_export
+
+        exe = self._exec
+        feed = self._feed_names()
+        return artifact_from_export(
+            self._export_module(),
+            tuple(exe.arg_dict[n].data for n in feed), name,
+            donated_leaves=0, input_names=feed,
+            output_names=self.output_names, device=str(self._device),
+            plain=self._plain)
+
+    def export(self, path=None):
+        """Serialize the inference forward, weights included, as a saved
+        ``torch.export`` program; returns its bytes and writes them to
+        ``path`` when one is given.  :func:`load_exported` runs it."""
+        buf = io.BytesIO()
+        torch.export.save(self.artifact().program, buf)
+        blob = buf.getvalue()
+        if path is not None:
+            with open(path, "wb") as f:
+                f.write(blob)
+        return blob
+
+    def export_stablehlo_text(self):
+        """The exported program's text (``str(ExportedProgram)``).  Named
+        as the JAX package's method for parity: it is torch's exported
+        graph, not StableHLO."""
+        return self.artifact().exported_text
+
+
+def _program_device(ep):
+    """The one device an exported program's state and inputs are on
+    (None for a program with no tensor)."""
+    devices = {t.device for t in list(ep.state_dict.values())
+               + list(ep.constants.values()) if isinstance(t, torch.Tensor)}
+    for node in ep.graph.nodes:
+        val = node.meta.get("val") if node.op == "placeholder" else None
+        if isinstance(val, torch.Tensor):
+            devices.add(val.device)
+    if len(devices) > 1:
+        raise MXNetError("exported program spans devices %s"
+                         % sorted(map(str, devices)))
+    return next(iter(devices), None)
+
+
+def load_exported(blob_or_path, device=None):
+    """Load a :meth:`Predictor.export` program (a path, or its bytes) into
+    a callable that takes the data inputs (tensors, NDArrays or numpy, in
+    the order of the symbol's inputs) and returns a tuple of output
+    tensors.
+
+    ``device`` is where it runs: the card by default, as for every entry
+    point of the port (it raises without one); ``cpu()`` runs it on the
+    host.  A program exported on another device is moved there with
+    ``torch.export.passes.move_to_device_pass``.  The graph calls the
+    kernels' operators, which importing :mod:`mxnet_tpu_torch` registers:
+    that, and torch, is all it needs (the counterpart of the
+    reference's "needs only an XLA runtime")."""
+    dev = resolve_device(device)
+    if isinstance(blob_or_path, (str, os.PathLike)):
+        ep = torch.export.load(blob_or_path)
+    else:
+        ep = torch.export.load(io.BytesIO(bytes(blob_or_path)))
+    src = _program_device(ep)
+    if src is not None and src != dev:
+        try:
+            from torch.export.passes import move_to_device_pass
+        except ImportError as exc:
+            raise MXNetError(
+                "this torch (%s) cannot move an exported program from %s "
+                "to %s: export it on the device that will run it"
+                % (torch.__version__, src, dev)) from exc
+        ep = move_to_device_pass(ep, str(dev))
+    names = set(ep.graph_signature.user_inputs)
+    dtypes = [node.meta["val"].dtype for node in ep.graph.nodes
+              if node.op == "placeholder" and node.name in names]
+    module = ep.module()
+
+    def run(*data_vals):
+        if len(data_vals) != len(dtypes):
+            raise MXNetError("the exported program takes %d inputs, got %d"
+                             % (len(dtypes), len(data_vals)))
+        args = []
+        for value, dtype in zip(data_vals, dtypes):
+            if isinstance(value, nd.NDArray):
+                value = value.data
+            elif not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.asarray(value))
+            args.append(value.to(device=dev, dtype=dtype))
+        with torch.no_grad():
+            return tuple(module(*args))
+
+    return run
 
 
 def _as_param_dicts(params):

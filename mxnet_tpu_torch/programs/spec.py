@@ -8,9 +8,12 @@ the device kind, the abstract args' shapes and dtypes, the caller's
 extras and a digest of the kernel sources (``csrc/*.cu*``).  Two hosts
 with equal keys run the same program on the same kernels.
 
-The reference's HLO probes (``artifact``, ``cost``, ``lowered``,
-``compiled``) have no counterpart yet: a CUDA graph has no text to lint
-or price.
+:meth:`ProgramSpec.artifact` exports the program's body (the Python the
+:class:`~mxnet_tpu_torch.programs.graphs.GraphProgram` captures) with
+``torch.export`` through the one artifact function,
+:func:`~mxnet_tpu_torch.analysis.artifact_from_export`.  The reference's
+other probes (``cost``, ``lowered``, ``compiled``) have no counterpart
+yet: a CUDA graph has no text to price.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import weakref
 
 import torch
 
+from ..base import MXNetError
 from ..cuda_build import CSRC
 
 __all__ = ["ProgramSpec", "kernel_digest", "device_kind"]
@@ -91,11 +95,17 @@ class ProgramSpec:
     fingerprint_extra : dict or callable, optional
         What changes the program but not its argument shapes (the symbol
         digest, the decode knobs).
+    program : callable, optional
+        ``program(args) -> (module, example_args)``: the body to export
+        at the abstract args, for an owner whose body takes them in
+        another form (the weights as buffers); by default a
+        :class:`~mxnet_tpu_torch.programs.graphs.GraphProgram`'s
+        ``body`` called on the args as they are.
     """
 
     def __init__(self, name, fn, *, owner=None, abstract_args=None,
                  trace_count=None, expected_traces=1, device=None,
-                 fingerprint_extra=None):
+                 fingerprint_extra=None, program=None):
         self.name = name
         self.fn = fn
         self._owner = weakref.ref(owner) if owner is not None else None
@@ -104,6 +114,7 @@ class ProgramSpec:
         self._expected_traces = expected_traces
         self._device = device
         self._fingerprint_extra = fingerprint_extra
+        self._program = program
 
     def owner(self):
         return self._owner() if self._owner is not None else None
@@ -139,3 +150,28 @@ class ProgramSpec:
         }
         blob = json.dumps(payload, sort_keys=True, default=str)
         return hashlib.blake2b(blob.encode(), digest_size=16).hexdigest()
+
+    def artifact(self, args=None, name=None, **extra_meta):
+        """:class:`~mxnet_tpu_torch.analysis.ProgramArtifact` of the
+        program's body at ``args`` (or the spec's abstract args; ``meta``
+        tensors do), traced by ``torch.export``; None before the program
+        is runnable.  The training steps' specs have none yet (their
+        kernels D, E, F and B1 are not operators)."""
+        from ..analysis.artifact import BufferModule, artifact_from_export
+        from .graphs import GraphProgram
+
+        args = self.avals(args)
+        if args is None:
+            return None
+        if self._program is not None:
+            module, example = self._program(args)
+        elif isinstance(self.fn, GraphProgram):
+            module, example = BufferModule(self.fn.body), tuple(args)
+        else:
+            raise MXNetError("program %r has no body to export"
+                             % self.name)
+        return artifact_from_export(
+            module, example, name or self.name,
+            trace_count=self.trace_count(),
+            expected_traces=self.expected_traces() or 1,
+            fingerprint=self.fingerprint(args), **extra_meta)

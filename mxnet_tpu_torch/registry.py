@@ -15,8 +15,8 @@ from __future__ import annotations
 from .attrs import FrozenAttrs, ParamSchema
 from .base import MXNetError
 
-__all__ = ["OpDef", "OpContext", "register_op", "get_op", "list_ops",
-           "simple_compute", "invoke"]
+__all__ = ["OpDef", "OpContext", "register", "register_op", "get_op",
+           "has_op", "list_ops", "simple_compute", "invoke"]
 
 _OPS = {}
 
@@ -153,11 +153,29 @@ def simple_compute(fn):
     return fcompute
 
 
+def register(name, aliases=(), simple=True, **kwargs):
+    """Decorator registering a compute function under ``name`` (and its
+    aliases): ``fn(attrs, *inputs)`` adapted by :func:`simple_compute`,
+    or with ``simple=False`` a canonical ``fcompute(attrs, inputs, aux,
+    octx)``; ``kwargs`` go to :class:`OpDef`."""
+
+    def deco(fn):
+        fcompute = simple_compute(fn) if simple else fn
+        register_op(OpDef(name, fcompute, **kwargs), aliases)
+        return fn
+
+    return deco
+
+
 def register_op(opdef, aliases=()):
     _OPS[opdef.name] = opdef
     for a in aliases:
         _OPS[a] = opdef
     return opdef
+
+
+def has_op(name):
+    return name in _OPS
 
 
 def get_op(name):

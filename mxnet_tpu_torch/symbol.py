@@ -25,7 +25,7 @@ from .attrs import parse_tuple
 from .base import AttrScope, MXNetError, NameManager
 from .context import gpu, resolve_device
 
-__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -461,6 +461,9 @@ def Variable(name, attr=None, shape=None, init=None, **kwargs):
             else str(init)
     attr.update(kwargs)
     return Symbol([(_Node(None, name, attr, []), 0)])
+
+
+var = Variable
 
 
 def Group(symbols):
