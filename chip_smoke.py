@@ -191,7 +191,10 @@ Phases (any failure ends the run with a non-zero exit code):
    rates; (d) ``/metrics`` and ``/metrics.json`` scraped over HTTP, the
    trace exported with the serving programs' spans, the ``mfu_table``
    with the H100 spec peaks, three profiled captured decode steps with
-   the same kernels and counts with MXNET_TELEMETRY on and off, and
+   the same kernels and counts in PROFILE_REPEATS reads with
+   MXNET_TELEMETRY on and as many off (one profiling session, opened by
+   a long spin of the card and an uncounted step, each read between two
+   marker spins; a read in a session of its own printed beside), and
    phase 5's captured serve tokens/s with telemetry on beside off.
 15. export — deployment export on ``torch.export``, kernels A, B and C
    being torch operators (``mxnet_tpu_torch::fused_fwd``,
@@ -213,6 +216,28 @@ Phases (any failure ends the run with a non-zero exit code):
    card: ``Module.fit``, ``save_checkpoint``,
    ``Predictor.from_checkpoint``, export, ``load_exported``, the same
    classes as the Predictor.
+16. moe — the mixture-of-experts op and LM (``ops/moe.py``, MOE_*
+   below): (a) MoEFFN's op cases (dense top-1 and top-2, sparse at
+   capacity factor 1.25 with 1 and 4 token groups, dropless) on the card
+   against the CPU, the output and the six gradients with the balance
+   loss at 0.3, the routing tables exactly, and each sparse case under
+   MXNET_MOE_DISPATCH ``sort`` and ``onehot`` bit for bit; (b)
+   ``benchmarks/bench_moe.py``'s chip configuration (1 layer, 8 experts,
+   top-2, f32) trained through Module's captured step at capacity
+   factor 1.25 and at 0 (the dense oracle): the first step's gradients
+   against a ``plain=True`` module's, A / F 3, C / D / E 1 and B1 1
+   launches a step, ``MOE_PATH`` / ``MOE_DISPATCH``, the captured steps
+   against eager ones within CAPTURE_SPREAD of two eager runs' spread,
+   the loss falling, tokens/s of both and their ratio, MoEFFN's share of
+   a profiled step's device time and the step's roofline row; (c) phase
+   5's model with 8 experts, top-2, capacity factor 1.25, serving phase
+   5's requests through the paged int8 ``DecodeServer`` programs
+   captured by ``prepare_programs``: the same tokens and launches under
+   ``programs.eager()``, the plain versions' greedy tokens, teacher-forced
+   probabilities within TOL_LOGP where no routing flip reached, every
+   flip a near tie (TOL_FLIP_GAP) and counted, tokens/s and the launches
+   of A, B and the combine; and, not gated, the same model with its
+   LayerNorm gammas at 1 teacher-forced over int8 and over f32 pages.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -412,6 +437,35 @@ SHARED_PREFIX = 256
 FLEET_HOSTS, FLEET_WAVES, FLEET_PER_TENANT = 2, 2, 4
 FLEET_TAIL, FLEET_WAVE_TICKS, FLEET_SWAP_SLACK = (128, 768), 8, 2
 FLEET_REPEATS, TELEMETRY_REPEATS = 2, 2
+# phase 16, mixture-of-experts: (a) the op cases at MOE_OP_SHAPE (N
+# tokens, width d, E experts, hidden h), the aux term at MOE_OP_COEFF;
+# (b) benchmarks/bench_moe.py:87-129's chip configuration (vocab 8192, T
+# 2048, batch 8, embed 1024, 8 heads, FFN 4096, 8 experts, top-2, one
+# layer, Xavier-gaussian, SGD-momentum 0.9) in f32 (bf16 compute casts
+# token ids to bf16 in the reference), at capacity factor MOE_CF
+# (sparse) and 0 (the dense oracle), the timed steps at TRAIN_LR and the
+# bench's rate recorded; (c) phase 5's model with MOE_EXPERTS experts,
+# top-MOE_TOP_K, capacity factor MOE_CF, serving phase 5's requests
+MOE_OP_SHAPE, MOE_OP_COEFF = (512, 64, 8, 128), 0.3
+MOE_OP_CASES = [("dense", 1, 1, False), ("dense", 2, 1, False),
+                ("sparse", 2, 1, False), ("sparse", 2, 4, False),
+                ("sparse", 2, 1, True)]
+MOE_EXPERTS, MOE_TOP_K, MOE_CF = 8, 2, 1.25
+MOE_SERVE = {"moe_experts": MOE_EXPERTS, "moe_top_k": MOE_TOP_K,
+             "moe_capacity_factor": MOE_CF}
+MOE_TRAIN_LAYERS, MOE_MOMENTUM = 1, 0.9
+# a routing choice that differs between the kernel and the plain serve
+# must be a near tie: the plain run's probabilities of the two experts
+# within TOL_FLIP_GAP (the runs' router inputs differ by f32 rounding,
+# about 1e-6 relative, which moves the probabilities by about 1e-7)
+TOL_FLIP_GAP = 1e-5
+# phase 14 (d)'s profiled decode steps: PROFILE_REPEATS reads with
+# telemetry on and as many off in one profiling session that opens with
+# a spin of the card of PROFILE_LEAD_CYCLES (100-200 ms at the H100's
+# clocks), each read between two spins of PROFILE_MARK_CYCLES (see
+# _step_kernel_reads)
+PROFILE_REPEATS = 5
+PROFILE_LEAD_CYCLES, PROFILE_MARK_CYCLES = 200_000_000, 2_000_000
 
 # tolerances (kernel vs plain version on the same inputs)
 TOL_A = {"float32": 1e-5, "bfloat16": 2 ** -7}   # x max|y| (abs)
@@ -892,19 +946,25 @@ def phase_kernel_b(torch, dev, flush):
     return cases
 
 
-def _lm(torch, dev):
+def _lm(torch, dev, unit_gammas=False, **moe_kw):
+    """Phase 5's model (``moe_kw``: get_symbol's MoE options) with every
+    weight drawn from normal(0, 0.02), the LayerNorm gammas set to 1 with
+    ``unit_gammas``."""
     from mxnet_tpu_torch.models import attention_lm
     from mxnet_tpu_torch.weights import params_from_jax
 
     sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=SEQ,
                                   num_layers=LAYERS, embed=EMBED,
-                                  heads=HEADS, ffn_hidden=FFN)
+                                  heads=HEADS, ffn_hidden=FFN, **moe_kw)
     rng = np.random.RandomState(0)
     arg_shapes, _, _ = sym.infer_shape(data=(1, SEQ),
                                        softmax_label=(1, SEQ))
     params = {n: rng.normal(0, 0.02, s).astype(np.float32)
               for n, s in zip(sym.list_arguments(), arg_shapes)
               if n not in ("data", "softmax_label")}
+    if unit_gammas:
+        params.update({n: np.ones_like(v) for n, v in params.items()
+                       if n.endswith("_gamma")})
     n_params = sum(v.size for v in params.values())
     return sym, params_from_jax(params, device=dev), n_params
 
@@ -1756,22 +1816,99 @@ def _fleet_hosts(torch, sym, params, dev, fprompts, one_pred):
     return readings, launches, hosts
 
 
-def _profiled_step_kernels(torch, pred, prompts, steps=3):
-    """{kernel name: launches} of ``steps`` captured decode steps under
-    torch.profiler (device activities only)."""
-    from torch.profiler import ProfilerActivity, profile
+def _guard(torch, cycles=None):
+    """A spin of the card (``torch.cuda._sleep``, PROFILE_MARK_CYCLES
+    cycles unless given), waited for: a marker in the profiler's
+    record."""
+    torch.cuda._sleep(PROFILE_MARK_CYCLES if cycles is None else cycles)
+    torch.cuda.synchronize()
 
+
+def _decode_state(pred, prompts):
+    """Phase 5's first SLOTS prompts prefilled and one decode step
+    taken: the state the profiled steps start from."""
     batch = np.zeros((SLOTS, max(PROMPT_LENS[:SLOTS])), np.float32)
     for i in range(SLOTS):
         batch[i, :PROMPT_LENS[i]] = prompts[i]
     state, _ = pred.prefill(batch, np.asarray(PROMPT_LENS[:SLOTS]))
     state, _ = pred.step(state)
+    return state
+
+
+def _profiled_step_kernels(torch, pred, prompts, steps=3):
+    """{kernel name: launches} of ``steps`` captured decode steps, in a
+    torch.profiler session of their own (device activities only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = _decode_state(pred, prompts)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state, _ = pred.step(state)
         torch.cuda.synchronize()
     return {e.key: e.count for e in prof.key_averages() if _kernel_us(e) > 0}
+
+
+def _step_kernel_reads(torch, pred, prompts, repeats=PROFILE_REPEATS,
+                       steps=3):
+    """Phase 14 (d)'s kernel gate: ``repeats`` reads of ``steps``
+    captured decode steps with telemetry on and as many off, in turns,
+    all equal; returns (the kernels, a reading).
+
+    A profiling session loses device records near its start: late in a
+    long run the first replay of a graph loses its first kernels (the
+    Embedding's id cast, compare, add and where: 773-775 of 777 in a
+    session of its own, as ``_profiled_step_kernels`` counts), and now
+    and then a session drops its first tens of milliseconds.  So the
+    reads share one session that opens with a PROFILE_LEAD_CYCLES spin
+    and one uncounted prefill and step (every program's first replay),
+    and each read counts the device activities between two marker
+    spins.  One read in a session of its own is printed beside them (not
+    gated), with the launches it lacks by name."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    order = (True, False) * repeats
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _guard(torch, PROFILE_LEAD_CYCLES)
+        _decode_state(pred, prompts)
+        torch.cuda.synchronize()
+        for on in order:
+            _telemetry(on)
+            state = _decode_state(pred, prompts)
+            torch.cuda.synchronize()
+            _guard(torch)
+            for _ in range(steps):
+                state, _ = pred.step(state)
+            torch.cuda.synchronize()
+            _guard(torch)
+    _telemetry(True)
+    device = [e for e in prof.events()
+              if "CUDA" in str(getattr(e, "device_type", ""))]
+    spins = sorted((e.time_range.start, e.time_range.end) for e in device
+                   if "spin_kernel" in e.name)
+    if len(spins) < 2 * len(order):
+        raise AssertionError("the profiled decode steps: %d marker spins "
+                             "recorded of %d" % (len(spins), 2 * len(order)))
+    marks = spins[-2 * len(order):]
+    reads = [dict(Counter(
+        e.name for e in device if marks[2 * i][1] <= e.time_range.start
+        and e.time_range.end <= marks[2 * i + 1][0]))
+        for i in range(len(order))]
+    kern = reads[0]
+    for on, k in zip(order, reads):
+        if k != kern or not k:
+            raise AssertionError(
+                "the decode steps' kernels differ between reads (telemetry "
+                "%s): %s against %s" % (on, k, kern))
+    bare = _profiled_step_kernels(torch, pred, prompts, steps)
+    lacks = {n[:90]: kern[n] - bare.get(n, 0) for n in kern
+             if bare.get(n, 0) != kern[n]}
+    return kern, {"reads": [[on, sum(k.values())]
+                            for on, k in zip(order, reads)],
+                  "own_session": sum(bare.values()),
+                  "own_session_lacks": lacks}
 
 
 def _kernel_brief(kernels):
@@ -1819,15 +1956,7 @@ def _fleet_telemetry(torch, pred, prompts, base_results, hosts):
         log("mfu table: " + line)
     f32_rows = obs.programs.table(peaks["float32"])
     # the same captured decode steps with telemetry on and off
-    _telemetry(True)
-    kern_on = _profiled_step_kernels(torch, pred, prompts)
-    _telemetry(False)
-    kern_off = _profiled_step_kernels(torch, pred, prompts)
-    _telemetry(True)
-    if kern_on != kern_off or not kern_on:
-        raise AssertionError("the decode steps' kernels differ with "
-                             "telemetry on %s and off %s"
-                             % (kern_on, kern_off))
+    kern_on, window = _step_kernel_reads(torch, pred, prompts)
     # phase 5's captured serve, telemetry on / off / on / off
     rates = {"on": [], "off": []}
     for on in (True, False) * TELEMETRY_REPEATS:
@@ -1844,6 +1973,7 @@ def _fleet_telemetry(torch, pred, prompts, base_results, hosts):
                "mfu_rows": rows,
                "mfu_f32": {r["program"]: r["mfu"] for r in f32_rows},
                "decode_step_kernels": _kernel_brief(kern_on),
+               "decode_step_reads": window,
                "serve_tokens_per_s": rates}
     log("fleet (d) telemetry: " + json.dumps(reading))
     return reading
@@ -5324,6 +5454,587 @@ def phase_detection_ops(torch, dev):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 16: mixture-of-experts
+# ---------------------------------------------------------------------------
+def _moe_op_inputs(torch, seed):
+    """The op cases' seeded inputs (MOE_OP_SHAPE) as host tensors."""
+    n, d, e, h = MOE_OP_SHAPE
+    rng = np.random.RandomState(seed)
+    arrays = [rng.normal(size=(n, d)), rng.normal(0, 0.5, (d, e)),
+              rng.normal(0, 0.5, (e, d, h)) / np.sqrt(d),
+              rng.normal(0, 0.1, (e, h)),
+              rng.normal(0, 0.5, (e, h, d)) / np.sqrt(h),
+              rng.normal(0, 0.1, (e, d))]
+    dy = rng.normal(size=(n, d))
+    return ([torch.from_numpy(a.astype(np.float32)) for a in arrays],
+            torch.from_numpy(dy.astype(np.float32)))
+
+
+def _moe_fwd(moe, path, k, groups, dropless):
+    """The forward of one op case: the dense oracle or the sparse path at
+    MOE_CF (``groups`` token groups, dropless or not)."""
+    e = MOE_OP_SHAPE[2]
+    if path == "dense":
+        return lambda *a: moe._moe_forward(*a, e, num_experts_per_tok=k)
+    return lambda *a: moe._moe_forward_sparse(
+        *a, e, MOE_CF, num_experts_per_tok=k, num_groups=groups,
+        dropless=dropless)
+
+
+def _moe_run(torch, moe, dev, case, inputs, dy):
+    """One op case on ``dev``: y, the six gradients of y + coeff * aux
+    (MoEFn's backward, head gradient ``dy``) and the routing tables."""
+    path, k, groups, dropless = case
+    fwd = _moe_fwd(moe, path, k, groups, dropless)
+    xs = [t.detach().to(dev).requires_grad_(True) for t in inputs]
+    y = moe.MoEFn.apply(fwd, MOE_OP_COEFF, *xs)
+    y.backward(dy.to(dev))
+    with torch.no_grad():
+        probs = torch.softmax(xs[0] @ xs[1], dim=-1)
+        choice, _ = moe._route(probs, k)
+        e, n = MOE_OP_SHAPE[2], MOE_OP_SHAPE[0]
+        tables = [choice]
+        if path == "sparse":
+            ng = n // groups
+            cap = moe._capacity(MOE_CF, k, ng, e, dropless)
+            for g in range(groups):
+                tables += list(moe._slot_assign(choice[g * ng:(g + 1) * ng],
+                                                e, cap))
+    return ([y.detach()] + [t.grad for t in xs],
+            [t.detach() for t in tables])
+
+
+def _moe_op_cases(torch, dev):
+    """(a) MoEFFN on the card against the CPU, forward and six gradients,
+    the routing tables exactly; under each MXNET_MOE_DISPATCH on the
+    card, the sparse cases' tables, outputs and gradients bit for bit."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.ops import moe
+
+    names = ["y", "d_data", "d_gate_weight", "d_expert1_weight",
+             "d_expert1_bias", "d_expert2_weight", "d_expert2_bias"]
+    rows = []
+    for i, case in enumerate(MOE_OP_CASES):
+        inputs, dy = _moe_op_inputs(torch, 40 + i)
+        card, card_tables = _moe_run(torch, moe, dev, case, inputs, dy)
+        host, host_tables = _moe_run(torch, moe, torch.device("cpu"), case,
+                                     inputs, dy)
+        errs = {nm: float((a.cpu() - b).abs().max())
+                / max(1.0, float(b.abs().max()))
+                for nm, a, b in zip(names, card, host)}
+        tables_equal = all(torch.equal(a.cpu(), b)
+                           for a, b in zip(card_tables, host_tables))
+        row = {"case": "%s k=%d groups=%d%s" % (
+                   case[0], case[1], case[2],
+                   " dropless" if case[3] else ""),
+               "tables_equal": tables_equal,
+               "max_rel_err": max(errs.values()),
+               "worst": max(errs, key=errs.get), "tol": TOL_OPS_CARD}
+        if case[0] == "sparse":
+            runs = {}
+            for algo in ("sort", "onehot"):
+                with config.overrides(MXNET_MOE_DISPATCH=algo):
+                    runs[algo] = _moe_run(torch, moe, dev, case, inputs, dy)
+                    if moe.MOE_DISPATCH["last"] != algo:
+                        raise AssertionError("dispatch %s ran %s" % (
+                            algo, moe.MOE_DISPATCH["last"]))
+            row["sort_equals_onehot"] = all(
+                torch.equal(a, b) for part in (0, 1)
+                for a, b in zip(runs["sort"][part], runs["onehot"][part]))
+            row["dropped_choices"] = int(sum(
+                int((~keep).sum()) for keep in card_tables[2::3]))
+        rows.append(row)
+        if not tables_equal or not row["max_rel_err"] <= TOL_OPS_CARD \
+                or row.get("sort_equals_onehot") is False:
+            raise AssertionError("MoEFFN on the card against the CPU: %s"
+                                 % row)
+    return rows
+
+
+# the MoE LM's parameters the backward reaches before any ReLU mask
+_MOE_DIRECT = ("head_", "final_", "layer%d_moe_expert2_"
+               % (MOE_TRAIN_LAYERS - 1))
+
+
+def _train_moe(torch, dev, cf):
+    """(b) one configuration of the MoE LM through Module on the card (see
+    MOE_* above): returns (its reading, launches)."""
+    from mxnet_tpu_torch import gpu, obs, programs
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.ops import moe
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    b, t = TRAIN_BATCH, SEQ
+    sym = attention_lm.get_symbol(
+        vocab_size=VOCAB, seq_len=t, num_layers=MOE_TRAIN_LAYERS,
+        embed=EMBED, heads=TRAIN_HEADS, ffn_hidden=FFN,
+        moe_experts=MOE_EXPERTS, moe_capacity_factor=cf,
+        moe_top_k=MOE_TOP_K)
+    params = _train_params(sym)
+    n_params = sum(v.size for v in params.values())
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, VOCAB, size=(b, t)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.zeros((b, 1), np.float32)], axis=1)
+    batch = DataBatch([nd.array(x)], [nd.array(y)])
+    labels = torch.from_numpy(y.reshape(-1)).long().to(dev)[:, None]
+    opt = {"momentum": MOE_MOMENTUM}
+
+    def module(plain, lr=TRAIN_LR):
+        mod = Module(sym, context=gpu(0), plain=plain)
+        mod.bind(data_shapes=[DataDesc("data", (b, t), layout="NT")],
+                 label_shapes=[DataDesc("softmax_label", (b, t),
+                                        layout="NT")])
+        mod.init_params(arg_params=params, aux_params={})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=dict(opt, learning_rate=lr))
+        if mod._train_step is None or mod._train_step.plan is None:
+            raise AssertionError("the MoE LM's train step armed no slab "
+                                 "plan")
+        return mod
+
+    def grads(mod):
+        group = mod._exec_group
+        return {n: a.data.clone() for n, a in zip(group.param_names,
+                                                   group.grad_arrays)}
+
+    def loss(mod):
+        p = mod.get_outputs()[0].data.gather(1, labels)
+        return float(-torch.log(torch.clamp_min(p, 1e-30)).mean())
+
+    start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+    kmod = module(False)
+    moe.MOE_PATH["last"] = moe.MOE_DISPATCH["last"] = None
+    with programs.eager():
+        kmod.forward_backward(batch)
+        kmod.update()
+    losses = [loss(kmod)]
+    first = grads(kmod)
+    # the step program's set-up (a warm-up run and the capture), then the
+    # timed replays with a fresh roofline row
+    kmod.forward_backward(batch)
+    kmod.update()
+    losses.append(loss(kmod))
+    counters = ((fk.LAUNCHES, "fused_fwd"), (fk.LAUNCHES, "fused_bwd"),
+                (fl.LAUNCHES, "flash_fwd"), (fl.LAUNCHES, "flash_bwd_dq"),
+                (fl.LAUNCHES, "flash_bwd_dkv"),
+                (uk.LAUNCHES, "multi_tensor_update"))
+    for d, name in counters:
+        d[name] = 0
+    obs.programs.reset(clear_static=True)
+    graphs0 = dict(programs.GRAPH_STATS)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        kmod.forward_backward(batch)
+        kmod.update()
+        losses.append(loss(kmod))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graphs = _graph_delta(graphs0)
+    launches = {name: d[name] for d, name in counters}
+    paths = {"moe": moe.MOE_PATH["last"],
+             "dispatch": moe.MOE_DISPATCH["last"]}
+    mfu = next((r for r in obs.mfu_table(obs.auto_peak("float32"))
+                if r["program"] == "train_step"), None)
+    captured = _snapshot(kmod)
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    want = {"fused_fwd": 3 * MOE_TRAIN_LAYERS,
+            "fused_bwd": 3 * MOE_TRAIN_LAYERS,
+            "flash_fwd": MOE_TRAIN_LAYERS, "flash_bwd_dq": MOE_TRAIN_LAYERS,
+            "flash_bwd_dkv": MOE_TRAIN_LAYERS, "multi_tensor_update": 1}
+    want_paths = {"moe": "sparse" if cf else "dense",
+                  "dispatch": "sort" if cf else None}
+    if graphs["captures"] != 0 or graphs["replays"] != TRAIN_STEPS \
+            or per_step != want or paths != want_paths:
+        raise AssertionError("the MoE LM's train step (cf %g): graphs %s, "
+                             "launches a step %s (want %s), paths %s"
+                             % (cf, graphs, per_step, want, paths))
+    if mfu is None or not mfu.get("flops"):
+        raise AssertionError("no train_step roofline row: %s" % mfu)
+
+    # the first step's gradients against a plain module's
+    pmod = module(True)
+    with programs.eager():
+        pmod.forward_backward(batch)
+    plain = grads(pmod)
+    del pmod
+    grad_check = _grad_tiers(torch, first, plain, "train moe", _MOE_DIRECT)
+    del first, plain
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("the MoE LM's loss did not fall: %s" % losses)
+    bmod = module(False, lr=BENCH_LR)
+    bench_losses = []
+    for _ in range(1 + TRAIN_STEPS):
+        bmod.forward_backward(batch)
+        bmod.update()
+        bench_losses.append(loss(bmod))
+    del bmod
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same 2 + TRAIN_STEPS steps under programs.eager(), twice
+    def eager_run():
+        mod = module(False)
+        with programs.eager():
+            for _ in range(2 + TRAIN_STEPS):
+                mod.forward_backward(batch)
+                mod.update()
+        torch.cuda.synchronize()
+        snap = _snapshot(mod)
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+        return snap
+
+    eager1 = eager_run()
+    eager2 = eager_run()
+    vs_eager = _run_diff(torch, captured, eager1, start, _MOE_DIRECT)
+    spread = _run_diff(torch, eager2, eager1, start, _MOE_DIRECT)
+    del eager1, eager2, captured
+    capture_gate = {"steps": 2 + TRAIN_STEPS, "captured_vs_eager": vs_eager,
+                    "eager_vs_eager": spread,
+                    "max_over_spread": CAPTURE_SPREAD}
+    if any(vs_eager["tiers"][tr]["max"]
+           > CAPTURE_SPREAD * max(spread["tiers"][tr]["max"], 1e-7)
+           for tr in ("before_relu", "behind_relu")):
+        raise AssertionError("the MoE LM's captured steps against eager "
+                             "(cf %g), beyond the eager runs' own spread: "
+                             "%s" % (cf, capture_gate))
+
+    def one_step(eager=False):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with programs.eager() if eager else contextlib.nullcontext():
+            kmod.forward_backward(batch)
+            kmod.update()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    profile = _profile(torch, one_step)
+    share = _moe_share(torch, lambda: one_step(eager=True))
+    del kmod
+    gc.collect()
+    torch.cuda.empty_cache()
+    reading = {"config": {"vocab": VOCAB, "t": t, "batch": b,
+                          "embed": EMBED, "heads": TRAIN_HEADS, "ffn": FFN,
+                          "layers": MOE_TRAIN_LAYERS,
+                          "experts": MOE_EXPERTS, "top_k": MOE_TOP_K,
+                          "capacity_factor": cf, "dtype": "float32",
+                          "optimizer": "sgd", "momentum": MOE_MOMENTUM,
+                          "lr": TRAIN_LR, "params": n_params},
+               "paths": paths, "steps": TRAIN_STEPS,
+               "step_s": wall / TRAIN_STEPS,
+               "tokens_per_s": b * t * TRAIN_STEPS / wall,
+               "losses": losses, "bench_lr": BENCH_LR,
+               "bench_lr_losses": bench_losses, "graph_stats": graphs,
+               "launches_per_step": per_step, "grad_rel_err": grad_check,
+               "captured_vs_eager": capture_gate,
+               "moe_share_of_step": share, "mfu_row": mfu,
+               "profile_device_busy_s": profile["device_busy_s"],
+               "idle_share": (1.0 - profile["device_busy_s"]
+                              / (wall / TRAIN_STEPS)
+                              if isinstance(profile["device_busy_s"], float)
+                              else profile["device_busy_s"]),
+               "peak_memory_gb": peak_gb}
+    log("train moe cf=%g: %s" % (cf, json.dumps(reading)))
+    log("train moe cf=%g profile: %s" % (cf, json.dumps(profile)))
+    return reading, launches
+
+
+def _moe_share(torch, run):
+    """The share of a step's device time that MoEFFN takes: one eager
+    step (``run``) under torch.profiler with host activities, the device
+    time of the kernels launched inside the op's autograd Function
+    (``MoEFn``, its forward) and its backward (``MoEFnBackward``: the
+    recompute and the gradients), over all kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    rows = prof.key_averages()
+    busy = sum(_kernel_us(e) for e in rows)
+
+    def device_us(e):
+        us = getattr(e, "device_time_total", None)
+        return us if us is not None else e.cuda_time_total
+
+    parts = {e.key: device_us(e) for e in rows
+             if e.key in ("MoEFn", "MoEFnBackward")}
+    if not busy or len(parts) != 2:
+        return {"share": "not measured", "parts_ms": parts}
+    return {"share": sum(parts.values()) / busy,
+            "forward_ms": parts["MoEFn"] * 1e-3,
+            "backward_ms": parts["MoEFnBackward"] * 1e-3,
+            "step_device_ms": busy * 1e-3}
+
+
+def phase_train_moe(torch, dev):
+    """(b) the MoE LM trained at full width, sparse (MOE_CF) and dense."""
+    sparse, sparse_launches = _train_moe(torch, dev, MOE_CF)
+    dense, dense_launches = _train_moe(torch, dev, 0.0)
+    ratio = sparse["tokens_per_s"] / dense["tokens_per_s"]
+    flops = {"sparse": sparse["mfu_row"]["flops"],
+             "dense": dense["mfu_row"]["flops"]}
+    log("train moe: " + json.dumps({
+        "tokens_per_s": {"sparse": sparse["tokens_per_s"],
+                         "dense": dense["tokens_per_s"]},
+        "sparse_over_dense": ratio, "train_step_flops": flops,
+        "mfu": {"sparse": sparse["mfu_row"]["mfu"],
+                "dense": dense["mfu_row"]["mfu"]},
+        "moe_share": {"sparse": sparse["moe_share_of_step"]["share"],
+                      "dense": dense["moe_share_of_step"]["share"]}}))
+    return {"sparse": sparse_launches, "dense": dense_launches}
+
+
+def _routed_run(torch, moe, pred, batch, lens, forced):
+    """A teacher-forced run (prefill, then a step a column of ``forced``)
+    under programs.eager(), with every MoEFFN call's routing recorded:
+    returns (the probabilities after the prefill and each step, [(tag,
+    router probabilities, choice)] in call order), the tag ("prefill",
+    slot, the chunk's first position) for a prefill chunk's call and
+    ("step", s) for step s's."""
+    from mxnet_tpu_torch import programs
+
+    calls, tag = [], [None]
+    route, chunk = moe._route, pred._chunk
+
+    def tapped_route(probs, k):
+        choice, gate = route(probs, k)
+        if probs.device.type != "meta":     # not a shape probe's run
+            calls.append((tag[0], probs.clone(), choice.clone()))
+        return choice, gate
+
+    def tagged_chunk(caches, slot, toks, pos0, *args, **kw):
+        tag[0] = ("prefill", int(slot), int(pos0))
+        return chunk(caches, slot, toks, pos0, *args, **kw)
+
+    moe._route, pred._chunk = tapped_route, tagged_chunk
+    try:
+        with programs.eager():
+            state, probs = pred.prefill(batch, lens)
+            out = [probs.clone()]
+            for col in range(forced.shape[1]):
+                tag[0] = ("step", col)
+                state, probs = pred.step(state._replace(
+                    tok=forced[:, col:col + 1].clone()))
+                out.append(probs.clone())
+    finally:
+        moe._route = route
+        del pred._chunk
+    return out, calls
+
+
+def _route_flips(k_calls, p_calls):
+    """The routing choices that differ between a kernel and a plain run:
+    [(tag, token, rank, kernel's expert, plain's expert, the plain run's
+    probability gap between the two)] (a flip is explained by a near tie:
+    a gap within TOL_FLIP_GAP)."""
+    if [(t, c.shape) for t, _, c in k_calls] \
+            != [(t, c.shape) for t, _, c in p_calls]:
+        raise AssertionError("the kernel and plain runs made other MoE "
+                             "calls")
+    flips = []
+    for (tag, _, kc), (_, pp, pc) in zip(k_calls, p_calls):
+        for tok, rank in (kc != pc).nonzero().tolist():
+            a, b = int(kc[tok, rank]), int(pc[tok, rank])
+            flips.append((tag, tok, rank, a, b,
+                          float((pp[tok, a] - pp[tok, b]).abs())))
+    return flips
+
+
+def _teacher_forced_moe(torch, moe, pred, plain, prompts, forced):
+    """The kernel predictor ``pred`` against ``plain``, teacher-forced
+    (phase 5's first SLOTS prompts, then the columns of ``forced``),
+    both eagerly with their routing recorded: (the kernel run's
+    probabilities, a reading).  A flip moves its token's output by O(1):
+    a prefill flip its slot and every slot that shares the token's prefix
+    (the prefix cache shares its pages) from the prefill on, a step's
+    flip every slot from that step on (the step's capacity is shared);
+    ``max_abs_dlogp`` is the gap of the positions no flip reached."""
+    batch = np.zeros((SLOTS, max(PROMPT_LENS[:SLOTS])), np.float32)
+    for i in range(SLOTS):
+        batch[i, :PROMPT_LENS[i]] = prompts[i]
+    lens = np.asarray(PROMPT_LENS[:SLOTS])
+    k_probs, k_calls = _routed_run(torch, moe, pred, batch, lens, forced)
+    p_probs, p_calls = _routed_run(torch, moe, plain, batch, lens, forced)
+    flips = _route_flips(k_calls, p_calls)
+    reached = torch.zeros((1 + forced.shape[1], SLOTS), dtype=torch.bool)
+    for tag, tok, *_ in flips:
+        if tag[0] == "prefill":
+            pos = tag[2] + tok
+            for slot in range(SLOTS):
+                if PROMPT_LENS[slot] > pos and np.array_equal(
+                        prompts[slot][:pos + 1], prompts[tag[1]][:pos + 1]):
+                    reached[:, slot] = True
+        else:
+            reached[1 + tag[1]:] = True
+    if bool(reached.all()):
+        raise AssertionError("routing flips reached every teacher-forced "
+                             "position: %s" % flips)
+    gaps = torch.stack([(torch.log(a.double()) - torch.log(b.double()))
+                        .abs().amax(-1).cpu()
+                        for a, b in zip(k_probs, p_probs)])
+    return k_probs, {
+        "max_abs_dlogp": float(gaps[~reached].max()),
+        "positions_reached_by_a_flip": int(reached.sum()),
+        "positions": int(reached.numel()),
+        "max_abs_dlogp_reached": (float(gaps[reached].max())
+                                  if reached.any() else None),
+        "routing_choices": sum(c.numel() for _, _, c in k_calls),
+        "routing_flips": len(flips),
+        "flips": [{"call": list(tag), "token": tok, "rank": rank,
+                   "kernel_expert": a, "plain_expert": b,
+                   "plain_prob_gap": gap}
+                  for tag, tok, rank, a, b, gap in flips]}
+
+
+def _unit_gamma_probe(torch, moe, dev, prompts, forced):
+    """Not gated: the teacher-forced comparison of the MoE serve model
+    with its LayerNorm gammas at 1 (unit-scale activations, 50 times
+    phase 5's), over int8 pages and over f32 pages."""
+    from mxnet_tpu_torch.decode import DecodePredictor
+
+    sym, params, _ = _lm(torch, dev, unit_gammas=True, **MOE_SERVE)
+    out = {}
+    for kv in ("int8", ""):
+        pair = [DecodePredictor(sym, params, cache_len=SEQ, device=dev,
+                                paged=True, kv_dtype=kv,
+                                page_tokens=PAGE_TOKENS, prefill_chunk=CHUNK,
+                                plain=plain) for plain in (False, True)]
+        _, reading = _teacher_forced_moe(torch, moe, *pair, prompts, forced)
+        out[kv or "float32"] = reading
+        del pair
+        gc.collect()
+    return out
+
+
+def phase_serve_moe(torch, dev):
+    """(c) the MoE LM served through the paged DecodeServer's captured
+    programs: returns the launches of the captured serve."""
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.ops import moe
+
+    sym, params, n_params = _lm(torch, dev, **MOE_SERVE)
+    prompts = _prompts()
+    pred = _predictor(sym, params, False, dev)
+    report = pred.prepare_programs(SLOTS, CHUNK)
+    _serve(torch, pred, [p[:64] for p in prompts[:2]])
+
+    def counted(p):
+        before = _launch_counts()
+        replays = programs.GRAPH_STATS["replays"]
+        out = _serve(torch, p, prompts)
+        return out + (_launch_delta(before),
+                      programs.GRAPH_STATS["replays"] - replays)
+
+    moe.MOE_PATH["last"] = moe.MOE_DISPATCH["last"] = None
+    results, wall, stats, launches, replays = counted(pred)
+    paths = {"moe": moe.MOE_PATH["last"],
+             "dispatch": moe.MOE_DISPATCH["last"]}
+    if min(launches.values()) <= 0 \
+            or paths != {"moe": "sparse", "dispatch": "sort"} \
+            or replays < stats["steps"] + stats["chunks"]:
+        raise AssertionError("the MoE serve: launches %s paths %s replays "
+                             "%d" % (launches, paths, replays))
+    for rid in range(len(prompts)):
+        toks = results[rid]
+        if toks.shape != (MAX_NEW,) or toks.min() < 0 \
+                or toks.max() >= VOCAB:
+            raise AssertionError("MoE request %d returned %s" % (rid, toks))
+    with programs.eager():
+        e_results, e_wall, _, e_launches, _ = counted(pred)
+    _same_tokens("the MoE serve under programs.eager()", e_results, results)
+    if e_launches != launches:
+        raise AssertionError("MoE serve launches, captured %s against eager "
+                             "%s" % (launches, e_launches))
+    plain = _predictor(sym, params, True, dev)
+    with programs.eager():
+        p_results, p_wall, _ = _serve(torch, plain, prompts)
+    _same_tokens("the MoE serve's plain versions", p_results, results)
+
+    # teacher-forced: the kernel run's tokens fed to both; the kernel side
+    # captured must equal it eager, bit for bit
+    forced = torch.tensor([[int(results[i][s]) for s in range(8)]
+                           for i in range(SLOTS)], dtype=torch.int32,
+                          device=dev)
+    batch = np.zeros((SLOTS, max(PROMPT_LENS[:SLOTS])), np.float32)
+    for i in range(SLOTS):
+        batch[i, :PROMPT_LENS[i]] = prompts[i]
+    ks, kprobs = pred.prefill(batch, np.asarray(PROMPT_LENS[:SLOTS]))
+    captured = [kprobs.clone()]
+    for step in range(forced.shape[1]):
+        ks, kprobs = pred.step(ks._replace(tok=forced[:, step:step + 1]
+                                           .clone()))
+        captured.append(kprobs.clone())
+    k_probs, forced_reading = _teacher_forced_moe(torch, moe, pred, plain,
+                                                  prompts, forced)
+    if not all(torch.equal(a, b) for a, b in zip(captured, k_probs)):
+        raise AssertionError("the MoE serve's captured teacher-forced "
+                             "probabilities differ from eager ones")
+    traces = pred.trace_counts
+    if (traces["decode"], traces["chunk"], traces["commit"]) != (1, 1, 1):
+        raise AssertionError("the MoE serve captured its programs again: %s"
+                             % traces)
+    del pred, plain
+    gc.collect()
+    probe = _unit_gamma_probe(torch, moe, dev, prompts, forced)
+    tokens = sum(len(t) for t in results.values())
+    reading = {"model": dict(MOE_SERVE, vocab=VOCAB, embed=EMBED,
+                             heads=HEADS, ffn=FFN, layers=LAYERS,
+                             params=n_params),
+               "prepare_programs_s": report["wall_s"],
+               "requests": len(prompts), "tokens": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall,
+               "eager_tokens_per_s": tokens / e_wall,
+               "plain_tokens_per_s": tokens / p_wall,
+               "ttft_p50_s": stats.get("ttft_p50_s"),
+               "ttft_p95_s": stats.get("ttft_p95_s"),
+               "decode_steps": stats["steps"], "chunks": stats["chunks"],
+               "replays": replays, "paths": paths, "launches": launches,
+               "captured_equals_eager": True,
+               "greedy_token_agreement_plain": 1.0,
+               "teacher_forced_captured_equals_eager": True,
+               "teacher_forced": forced_reading, "tol": TOL_LOGP,
+               "tol_flip_gap": TOL_FLIP_GAP, "trace_counts": traces,
+               "unit_gamma_probe": probe}
+    log("serve moe: " + json.dumps(reading))
+    flips = forced_reading["flips"]
+    if not forced_reading["max_abs_dlogp"] <= TOL_LOGP \
+            or any(f["plain_prob_gap"] > TOL_FLIP_GAP for f in flips):
+        raise AssertionError("the MoE serve, teacher-forced |log p_kernel - "
+                             "log p_plain| %.3g (tol %.3g) where no routing "
+                             "flip reached; flips %s (gap tol %.3g)"
+                             % (forced_reading["max_abs_dlogp"], TOL_LOGP,
+                                flips, TOL_FLIP_GAP))
+    return launches
+
+
+def phase_moe(torch, dev):
+    """Phase 16: (a) the op cases, (b) the MoE LM trained, (c) served."""
+    rows = _moe_op_cases(torch, dev)
+    log("moe (a) op cases: " + json.dumps(rows))
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train_moe(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = phase_serve_moe(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moe_train_sparse": train["sparse"],
+            "moe_train_dense": train["dense"], "moe_serve": serve}
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5420,6 +6131,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_detection_ops(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches = phase_moe(torch, dev)
+    moe_train = {k: v for k, v in moe_launches.items() if "train" in k}
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -5446,7 +6161,8 @@ def main():
     a_launch = launches["fused_fwd"] + spec_launches["fused_fwd"] \
         + train_launches["fused_fwd"] + predict_launches["fused_fwd"] \
         + imp_launches["fused_fwd"] + export_launches["fused_fwd"] \
-        + sum(f["fused_fwd"] for f in fleet_launches.values())
+        + sum(f["fused_fwd"] for f in fleet_launches.values()) \
+        + sum(m["fused_fwd"] for m in moe_launches.values())
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -5461,14 +6177,17 @@ def main():
                                "imperative": imp_launches["fused_fwd"],
                                "export": export_launches["fused_fwd"],
                                **{path: f["fused_fwd"] for path, f
-                                  in fleet_launches.items()}},
+                                  in fleet_launches.items()},
+                               **{path: m["fused_fwd"] for path, m
+                                  in moe_launches.items()}},
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
         dict(_entry("paged_flash_decode",
                     "mxnet_tpu_torch/csrc/paged_decode.cu",
                     "mxnet_tpu/ops/pallas_decode.py:169",
                     launches["paged_decode"] + spec_launches["paged_decode"]
-                    + sum(f["paged_decode"] for f in fleet_launches.values()),
+                    + sum(f["paged_decode"] for f in fleet_launches.values())
+                    + moe_launches["moe_serve"]["paged_decode"],
                     b_main),
              shape="B=4 tq=1 H=4 hd=256 int8 pages lens=%s"
              % b_main["lens"],
@@ -5476,7 +6195,9 @@ def main():
              launches_by_path={"serve": launches["paged_decode"],
                                "serve_spec": spec_launches["paged_decode"],
                                **{path: f["paged_decode"] for path, f
-                                  in fleet_launches.items()}},
+                                  in fleet_launches.items()},
+                               "moe_serve":
+                                   moe_launches["moe_serve"]["paged_decode"]},
              verify_case=brief(b_verify, "tq", "lens", "splits", "rows",
                                "row_tiles"),
              max_abs_err_all_cases=max(c["max_abs_err"] for c in b_cases)),
@@ -5485,7 +6206,8 @@ def main():
                     "mxnet_tpu/ops/pallas_decode.py:354",
                     launches["paged_combine"]
                     + spec_launches["paged_combine"]
-                    + sum(f["paged_combine"] for f in fleet_launches.values()),
+                    + sum(f["paged_combine"] for f in fleet_launches.values())
+                    + moe_launches["moe_serve"]["paged_combine"],
                     dict(b_main["combine"], library_ms=None,
                          device_ms=b_main["combine"]["device_ms"])),
              shape="B=4 tq=1 H=4 hd=256, %d splits (%d seen)"
@@ -5493,7 +6215,9 @@ def main():
              launches_by_path={"serve": launches["paged_combine"],
                                "serve_spec": spec_launches["paged_combine"],
                                **{path: f["paged_combine"] for path, f
-                                  in fleet_launches.items()}},
+                                  in fleet_launches.items()},
+                               "moe_serve":
+                                   moe_launches["moe_serve"]["paged_combine"]},
              verify_case=b_verify["combine"],
              max_abs_err_all_cases=max(c["combine"]["max_abs_err"]
                                        for c in b_cases)),
@@ -5510,6 +6234,7 @@ def main():
             by_path["export"] = export_launches[counter]
         else:
             by_path["out_grads"] = out_grads_launches[counter]
+        by_path.update({path: m[counter] for path, m in moe_train.items()})
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -5524,12 +6249,15 @@ def main():
         _entry("fused_ln_linear_bwd", "mxnet_tpu_torch/csrc/fused_bwd.cu",
                "mxnet_tpu/ops/pallas_fused.py:214",
                train_launches["fused_bwd"] + out_grads_launches["fused_bwd"]
-               + imp_launches["fused_bwd"], f_main),
+               + imp_launches["fused_bwd"]
+               + sum(m["fused_bwd"] for m in moe_train.values()), f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
         launches_by_path={"train": train_launches["fused_bwd"],
                           "out_grads": out_grads_launches["fused_bwd"],
-                          "imperative": imp_launches["fused_bwd"]},
+                          "imperative": imp_launches["fused_bwd"],
+                          **{path: m["fused_bwd"] for path, m
+                             in moe_train.items()}},
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
     # with the bf16 compute copy, no clip
@@ -5541,6 +6269,8 @@ def main():
     b1_by_path.update(lstm_launches)
     b1_by_path.update(zoo_launches)
     b1_by_path["train_ssd"] = ssd_launches["multi_tensor_update"]
+    b1_by_path.update({path: m["multi_tensor_update"]
+                       for path, m in moe_train.items()})
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}

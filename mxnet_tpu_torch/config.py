@@ -9,9 +9,11 @@ keys (``MXNET_FUSED_TRAIN_STEP``, ``MXNET_DEVICE_METRICS``,
 ``MXNET_METRIC_SYNC_PERIOD``, ``MXNET_MAX_STEPS_IN_FLIGHT``,
 ``MXNET_PREFETCH_DEPTH``, ``MXNET_DEVICE_PREFETCH``) are the JAX
 package's, with its defaults, and so are the telemetry keys
-(``MXNET_TELEMETRY`` ... ``MXNET_PEAK_FLOPS``, ``MXNET_PROFILER_AUTOSTART``)
-and the fleet's (``MXNET_FLEET_SWAP``, ``MXNET_FLEET_DECODE_BOUND``,
-``MXNET_FLEET_PREFILL_THRESHOLD``).
+(``MXNET_TELEMETRY`` ... ``MXNET_PEAK_FLOPS``, ``MXNET_PROFILER_AUTOSTART``),
+the fleet's (``MXNET_FLEET_SWAP``, ``MXNET_FLEET_DECODE_BOUND``,
+``MXNET_FLEET_PREFILL_THRESHOLD``) and the mixture-of-experts op's
+(``MXNET_MOE_DISPATCH``, ``MXNET_MOE_TOPK``, ``MXNET_MOE_DROPLESS``,
+``MXNET_MOE_CAPACITY``).
 """
 from __future__ import annotations
 
@@ -236,3 +238,37 @@ register("MXNET_FLEET_PREFILL_THRESHOLD", float, 0.5,
          "committed pages migrate to the least-loaded decode host "
          "(DistServe-style prefill/decode split).  Only consulted when "
          "the router has prefill workers.")
+register("MXNET_MOE_DISPATCH", str, "sort",
+         "Capacity-slot assignment algorithm for the sparse MoE "
+         "dispatch (ops/moe.py): 'sort' (default) ranks the (token, "
+         "rank-k choice) pairs by argsort over a composite "
+         "(expert, priority) key and derives each choice's capacity "
+         "position from its index within the sorted expert group "
+         "(MegaBlocks-style sort/scatter dispatch — no (N*k, E) one-hot "
+         "cumsum ever materializes); 'onehot' restores the one-hot "
+         "cumsum pack for A/B comparison.  Both produce BIT-IDENTICAL "
+         "slot assignments, outputs, grads and drop sets (tier-1 "
+         "asserted); the dispatch intermediates they materialize "
+         "differ, priced by analysis/cost.py sort/scatter accounting.")
+register("MXNET_MOE_TOPK", int, 0,
+         "Override the MoEFFN op's num_experts_per_tok attribute at trace "
+         "time (top-k routing: each token is dispatched to its k highest-"
+         "probability experts, gates renormalized over the chosen k when "
+         "k > 1).  0 (default) keeps the per-op attribute; k = 1 is the "
+         "classic switch (top-1) routing with the raw chosen probability "
+         "as the gate.")
+register("MXNET_MOE_DROPLESS", bool, False,
+         "Force the sparse MoE dispatch's overflow policy to 'dropless': "
+         "per-device capacity stretches to the worst case (every local "
+         "choice fits, padding-masked slots carry the slack) so no token "
+         "is ever dropped — at the cost of expert-FFN compute/memory that "
+         "scales like the dense path's worst case.  0 (default) keeps the "
+         "per-op 'overflow' attribute (Switch drop semantics unless the "
+         "symbol says otherwise).")
+register("MXNET_MOE_CAPACITY", float, 0.0,
+         "Override the MoEFFN op's capacity_factor attribute at trace "
+         "time: > 0 arms the sparse capacity-slot dispatch with per-"
+         "(group, expert) capacity ceil(cf * k * group_tokens / E).  "
+         "0 (default) keeps the per-op attribute.  Under an 'expert' mesh "
+         "the sparse path is the explicit all-to-all shard_map program "
+         "(docs/moe.md).")

@@ -90,6 +90,7 @@ from . import programs as _programs
 from .base import MXNetError
 from .context import resolve_device
 from .ops import attention as _attn
+from .ops.moe import moe_flops
 from .ops.sample import (is_greedy_policy, policy_logits, sample_tokens,
                          speculative_accept)
 from .obs.metrics import percentile as _percentile
@@ -374,9 +375,11 @@ class DecodePredictor:
 
     def _serving_flops(self, rows):
         """FLOPs of ``rows`` token rows through the model against a full
-        cache: 2·rows·K·N for each FullyConnected / FusedLNLinear and
+        cache: 2·rows·K·N for each FullyConnected / FusedLNLinear,
         4·rows·cache_len·hd·heads for each attention (the tables'
-        capacity: what the argument shapes give)."""
+        capacity: what the argument shapes give), and each MoEFFN's
+        router and expert products over ``rows`` tokens
+        (:func:`~mxnet_tpu_torch.ops.moe.moe_flops`)."""
         if self._pools_template is None:
             self._pools_template = self._probe_cache_shapes()
         flops = 0
@@ -398,6 +401,12 @@ class DecodePredictor:
                             else k).shape[2])
                 flops += 4 * rows * self._cache_len * (e_kv // kvh) * heads
                 ci += 1
+            elif node.op.name == "MoEFFN":
+                names = node.op.list_arguments(attrs)
+                wg = self._env.get(
+                    node.inputs[names.index("gate_weight")][0].name)
+                if wg is not None:
+                    flops += moe_flops(attrs, rows, int(wg.shape[0]))
         return flops
 
     def _program_cost(self, name):

@@ -1,12 +1,13 @@
 """Decoder-only attention language model (a copy of
-``mxnet_tpu/models/attention_lm.py`` without the MoE option).
+``mxnet_tpu/models/attention_lm.py``).
 
 Pre-norm blocks: LayerNorm statistics as graph ops, the LN affine tail
 plus each projection as one ``FusedLNLinear``, causal
 ``dot_product_attention`` (grouped-query when ``num_kv_heads`` <
 ``heads``), and an FFN whose ReLU and residual ride the second
-projection.  For the same arguments the symbol JSON is byte-identical to
-the JAX package's.
+projection, or, with ``moe_experts`` > 0, a mixture-of-experts FFN
+(``MoEFFN``) after the LN affine tail as broadcast ops.  For the same
+arguments the symbol JSON is byte-identical to the JAX package's.
 """
 from __future__ import annotations
 
@@ -35,10 +36,12 @@ def layer_norm(data, embed, name):
     return sym.broadcast_add(sym.broadcast_mul(normed, gamma), beta)
 
 
-def block(data, embed, heads, ffn_hidden, name, num_kv_heads=0):
+def block(data, embed, heads, ffn_hidden, name, moe_experts=0,
+          moe_capacity_factor=0.0, moe_top_k=1, num_kv_heads=0):
     """One pre-norm decoder block (parameter names as in the JAX
     package: ``*_ln_gamma``/``*_ln_beta``, FullyConnected-layout
-    ``*_weight``/``*_bias``)."""
+    ``*_weight``/``*_bias``; the MoE FFN's ``*_moe_gate_weight``,
+    ``*_moe_expert1_weight`` ...)."""
     kv_heads = int(num_kv_heads) or heads
     if heads % kv_heads:
         raise ValueError(
@@ -65,6 +68,18 @@ def block(data, embed, heads, ffn_hidden, name, num_kv_heads=0):
 
     ffn_normed = _normalize(data)
     fgamma, fbeta = _ln_affine(name + "_ffn", embed)
+    if moe_experts > 0:
+        # MoEFFN routes tokens over the trailing axis; (B, T, E) in/out.
+        # capacity_factor > 0 arms the sparse capacity-slot dispatch;
+        # moe_top_k routes each token to its k best experts
+        ffn_in = sym.broadcast_add(sym.broadcast_mul(ffn_normed, fgamma),
+                                   fbeta)
+        ffn = sym.MoEFFN(ffn_in, num_experts=moe_experts,
+                         hidden_size=ffn_hidden,
+                         capacity_factor=moe_capacity_factor,
+                         num_experts_per_tok=moe_top_k,
+                         name=name + "_moe")
+        return data + ffn
     h = sym.FusedLNLinear(ffn_normed, fgamma, fbeta,
                           num_hidden=ffn_hidden, name=name + "_ffn1")
     # ffn2 consumes the PRE-activation h: its ReLU is the fused op's
@@ -75,7 +90,8 @@ def block(data, embed, heads, ffn_hidden, name, num_kv_heads=0):
 
 
 def get_symbol(vocab_size, seq_len, num_layers=2, embed=128, heads=4,
-               ffn_hidden=512, num_kv_heads=0, **kwargs):
+               ffn_hidden=512, moe_experts=0, moe_capacity_factor=0.0,
+               moe_top_k=1, num_kv_heads=0, **kwargs):
     """Decoder-only LM: data (B, T) tokens, softmax over the vocabulary at
     every position; labels (B, T) next tokens (pad = -1 ignored)."""
     data = sym.Variable("data")
@@ -87,7 +103,9 @@ def get_symbol(vocab_size, seq_len, num_layers=2, embed=128, heads=4,
     net = sym.broadcast_add(net, pos)
     for i in range(num_layers):
         net = block(net, embed, heads, ffn_hidden, "layer%d" % i,
-                    num_kv_heads=num_kv_heads)
+                    moe_experts=moe_experts,
+                    moe_capacity_factor=moe_capacity_factor,
+                    moe_top_k=moe_top_k, num_kv_heads=num_kv_heads)
     net = layer_norm(net, embed, "final")
     logits = sym.FullyConnected(sym.Reshape(net, shape=(-1, embed)),
                                 num_hidden=vocab_size, name="head")

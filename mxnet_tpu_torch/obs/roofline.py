@@ -115,8 +115,10 @@ def _weight_shape(node, attrs, shapes):
 
 def graph_flops(symbol, shapes):
     """FLOPs of one forward pass of ``symbol``: 2·M·K·N for each
-    FullyConnected / FusedLNLinear node (M the rows its input holds) and
-    4·rows·keys·hd·heads for each ``dot_product_attention`` node.
+    FullyConnected / FusedLNLinear node (M the rows its input holds),
+    4·rows·keys·hd·heads for each ``dot_product_attention`` node, and
+    for each ``MoEFFN`` node its router and the expert products of the
+    path it takes (:func:`~mxnet_tpu_torch.ops.moe.moe_flops`).
     ``shapes`` maps every node's outputs ``(id(node), index)`` to its
     shape (see :func:`symbol_shapes`)."""
     flops = 0
@@ -137,6 +139,13 @@ def graph_flops(symbol, shapes):
             keys = int(shapes[(id(ks), ki)][-2])
             # q_shape[-1] is heads * hd
             flops += 4 * rows * keys * int(q_shape[-1])
+        elif name == "MoEFFN":
+            from ..ops.moe import moe_flops
+
+            src, idx = node.inputs[0]
+            x_shape = shapes[(id(src), idx)]
+            flops += moe_flops(attrs, int(np.prod(x_shape[:-1])),
+                               int(x_shape[-1]))
     return flops
 
 

@@ -1,10 +1,10 @@
 """Operator library of the port — registers, on import, the ops of
 ``mxnet_tpu/ops/elemwise.py``, ``tensor.py``, ``nn.py``, ``sample.py``,
-``contrib_ops.py`` and ``spatial.py``, the attention and fused LM ops,
-the fused RNN op and the optimizer update ops (``operator.py``
-registers ``Custom``).  Kernel modules load their CUDA libraries only
-when a kernel is first launched."""
-from . import (attention, contrib_ops, elemwise, fused_lm, nn,
+``contrib_ops.py``, ``spatial.py`` and ``moe.py``, the attention and
+fused LM ops, the fused RNN op and the optimizer update ops
+(``operator.py`` registers ``Custom``).  Kernel modules load their CUDA
+libraries only when a kernel is first launched."""
+from . import (attention, contrib_ops, elemwise, fused_lm, moe, nn,
                optimizer_ops, rnn_op, sample, spatial, tensor)
 
 _registered = False
@@ -25,6 +25,7 @@ def register_all():
     sample.register_all()
     contrib_ops.register_all()
     spatial.register_all()
+    moe.register_all()
 
 
 register_all()

@@ -275,7 +275,9 @@ def paged_append(pool, table, new, start_pos, num_heads=1, active=None,
     """Scatter ``new`` (B, t, E) into the pool at ring positions
     [start_pos, start_pos + t) of each slot's table, in place; returns
     the pool.  Rows with ``active`` 0 and positions >= ``valid`` write to
-    the scratch page instead.  A :class:`QuantKV` pool quantizes on the
+    the scratch page instead, its own content back, so the scratch page
+    keeps what it held (zeros from a fresh batch state) whatever order
+    the card writes them in.  A :class:`QuantKV` pool quantizes on the
     way in."""
     if isinstance(pool, QuantKV):
         qnew = quantize_kv(new, pool.data.dtype, num_heads)
@@ -304,9 +306,17 @@ def paged_append(pool, table, new, start_pos, num_heads=1, active=None,
         write &= torch.arange(t, device=dev)[None, :] < torch.as_tensor(
             valid, device=dev).reshape(-1, 1)
     page = torch.where(write, page, torch.zeros_like(page))
-    slot = pos % pt
-    _raw(pool)[page.reshape(-1), slot.reshape(-1)] = _raw(
-        new.reshape(b * t, -1))
+    slot = (pos % pt).reshape(-1)
+    raw = _raw(pool)
+    rows = _raw(new.reshape(b * t, -1))
+    # the rows that do not write put back what the scratch page holds:
+    # several of them land on one scratch position, and a scatter of
+    # differing values there keeps whichever the card wrote last, which
+    # rows of a pad or an idle slot then read (a mixture of experts
+    # routes those rows, and they take capacity)
+    rows = torch.where(write.reshape(-1, 1), rows,
+                       raw[0].index_select(0, slot))
+    raw[page.reshape(-1), slot] = rows
     return pool
 
 

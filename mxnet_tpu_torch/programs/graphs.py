@@ -37,8 +37,9 @@ in Python, which a replay does not run: each graph records the launch
 counts its capture made and adds them on every replay, so
 ``LAUNCHES`` mean the same with and without graphs; likewise the path
 markers (``FUSED_PATH``, ``PATH_TAKEN``, ``DECODE_PATH``,
-``UPDATE_PATH`` and the kernels' ``LAST_VARIANT``) are set on every
-replay to what the capture's run set them to.  The body's Python runs
+``UPDATE_PATH``, ``MOE_PATH``, ``MOE_DISPATCH`` and the kernels'
+``LAST_VARIANT``) are set on every replay to what the capture's run set
+them to.  The body's Python runs
 twice at a new signature on the card (the warm-up, which is the call's
 real work, and the capture, which runs nothing): host side effects
 (update counts, schedules, metric hooks) belong outside it.
@@ -125,12 +126,12 @@ def _path_markers():
     """Every path marker and last-variant record an op or a wrapper
     sets."""
     from ..ops import (attention, decode_kernel, flash_kernel, fused_kernel,
-                       fused_lm, update_kernel)
+                       fused_lm, moe, update_kernel)
 
     return (fused_lm.FUSED_PATH, attention.PATH_TAKEN,
             attention.DECODE_PATH, update_kernel.UPDATE_PATH,
             fused_kernel.LAST_VARIANT, flash_kernel.LAST_VARIANT,
-            decode_kernel.LAST_VARIANT)
+            decode_kernel.LAST_VARIANT, moe.MOE_PATH, moe.MOE_DISPATCH)
 
 
 class GraphPool:

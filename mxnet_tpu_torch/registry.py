@@ -61,7 +61,7 @@ class OpDef:
                  num_outputs=1, num_visible_outputs=None, arguments=None,
                  outputs=None, aux=None, infer_shape=None, hint=None,
                  doc="", key_var_num_args=None, infer_type=None,
-                 capturable=True):
+                 capturable=True, mesh_axes=None):
         self.name = name
         self.fcompute = fcompute
         self.schema = schema or ParamSchema()
@@ -84,6 +84,10 @@ class OpDef:
         # False for an op whose body may read values back to the host
         # (Custom): the compiled steps refuse a graph holding one
         self.capturable = capturable
+        # {argument_name: mesh_axis}: weights whose leading dim belongs on
+        # a named mesh axis (MoE expert stacks on 'expert'); data only on
+        # one card
+        self.mesh_axes = dict(mesh_axes or {})
 
     def n_inputs(self, attrs):
         n = self.num_inputs

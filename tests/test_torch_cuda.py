@@ -2252,3 +2252,60 @@ def test_fleet_on_one_card_matches_one_host(card):
         assert max(pred.trace_counts.values()) <= 1, pred.trace_counts
         pred._manager.prefix_cache.clear()
         assert pred._manager.allocator.used_pages == 0
+
+
+# ---------------------------------------------------------------------------
+# MoEFFN (ops/moe.py): no kernel of its own, but its forward and its
+# recomputing backward run inside the captured train and serve programs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cf,k", [(0.0, 2), (1.25, 2), (1.25, 1)])
+def test_moe_op_captured_matches_eager_and_host(card, full_f32, cf, k):
+    """MoEFFN's forward and backward (the aux term at 0.3) captured in
+    one CUDA graph: bit for bit against the same calls run eagerly on
+    the card, and within 1e-5 of the host."""
+    from mxnet_tpu_torch.ops import moe
+
+    n, d, e, h = 96, 16, 4, 24
+    g = torch.Generator(device="cpu").manual_seed(3)
+    host = [torch.randn(n, d, generator=g), torch.randn(d, e, generator=g),
+            torch.randn(e, d, h, generator=g) / d ** 0.5,
+            torch.randn(e, h, generator=g) * 0.1,
+            torch.randn(e, h, d, generator=g) / h ** 0.5,
+            torch.randn(e, d, generator=g) * 0.1]
+    dy = torch.randn(n, d, generator=g)
+    attrs = {"num_experts": e, "hidden_size": h, "aux_loss_coeff": 0.3,
+             "capacity_factor": cf, "num_experts_per_tok": k}
+
+    def run(xs, dyv):
+        for x in xs:
+            x.grad = None
+        y = moe.moe_ffn(attrs, *xs)
+        y.backward(dyv)
+        return [y.detach()] + [x.grad for x in xs]
+
+    def leaves(dev):
+        return [t.detach().to(dev).requires_grad_(True) for t in host]
+
+    want = run(leaves("cpu"), dy)
+    eager = run(leaves(card), dy.to(card))
+    xs, dyv = leaves(card), dy.to(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(xs, dyv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    for x in xs:
+        x.grad = None
+    with torch.cuda.graph(graph):
+        y = moe.moe_ffn(attrs, *xs)
+        y.backward(dyv)
+    graph.replay()
+    torch.cuda.synchronize()
+    captured = [y.detach()] + [x.grad for x in xs]
+    assert moe.MOE_PATH["last"] == ("sparse" if cf else "dense")
+    for a, b, c in zip(captured, eager, want):
+        assert torch.equal(a, b)
+        scale = max(1.0, float(c.abs().max()))
+        assert float((b.cpu() - c).abs().max()) <= 1e-5 * scale

@@ -412,8 +412,7 @@ NAME_EXCEPTIONS = {
             "kvstore": "later", "kvstore_server": "later",
             "parallel": "later", "rtc": "later", "visualization": "later",
             "viz": "later"},
-    "sym": {"MoEFFN": "later"},
-    "nd": {"MoEFFN": "later", "deque": "a module import, not an API",
+    "nd": {"deque": "a module import, not an API",
            "functools": "a module import, not an API",
            "numeric_types": "a module import, not an API"},
     "io": {"MXDataIter": "the JAX package's raises: no legacy C "

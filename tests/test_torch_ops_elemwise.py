@@ -140,17 +140,16 @@ def test_alias_runs_as_its_op(alias, op):
 
 
 def test_every_reference_op_is_ported_under_its_names():
-    """The registries differ by exactly the names left for the
-    parallelism slice (ops/moe.py's MoEFFN), and every other name of the
-    reference is an alias of the same op in both packages."""
-    later = {"MoEFFN", "_contrib_MoEFFN"}
+    """The registries hold the same names (ops/moe.py's MoEFFN and its
+    alias were the last), and every name is an alias of the same op in
+    both packages."""
+    later = set()
     # user kernels other tests register at run time (mx.rtc) are not
     # the package's
     ref = {n for n in jreg.list_ops() if not jreg.get_op(n).user_defined}
     port = set(treg.list_ops())
-    assert len(later) == 2
     assert ref - port == later
-    assert port <= ref
+    assert ref == port
     for name in sorted(port):
         assert treg.get_op(name).name == jreg.get_op(name).name, name
         assert treg.get_op(name).hint == jreg.get_op(name).hint, name
