@@ -194,7 +194,8 @@ Phases (any failure ends the run with a non-zero exit code):
    the same kernels and counts in PROFILE_REPEATS reads with
    MXNET_TELEMETRY on and as many off (one profiling session, opened by
    a long spin of the card and an uncounted step, each read between two
-   marker spins; a read in a session of its own printed beside), and
+   marker spins; a session that lost a marker run once again, a second
+   loss fails; a read in a session of its own printed beside), and
    phase 5's captured serve tokens/s with telemetry on beside off.
 15. export — deployment export on ``torch.export``, kernels A, B and C
    being torch operators (``mxnet_tpu_torch::fused_fwd``,
@@ -238,6 +239,27 @@ Phases (any failure ends the run with a non-zero exit code):
    flip a near tie (TOL_FLIP_GAP) and counted, tokens/s and the launches
    of A, B and the combine; and, not gated, the same model with its
    LayerNorm gammas at 1 teacher-forced over int8 and over f32 pages.
+17. resume — ``Module.fit(..., elastic=ElasticController(...))`` over
+   RESUME_BATCHES seeded batches, RESUME_EPOCHS epochs, fence checkpoints
+   every RESUME_PERIOD steps (``elastic.Checkpointer``: clones on the
+   card, a writer thread copying them to pinned host buffers on a side
+   stream and writing a ``torch.distributed.checkpoint`` step
+   directory): (a) phase 6's LM with Adam, two uninterrupted runs
+   (asynchronous and synchronous writes: the stall of each, the write
+   ms, the snapshot's bytes, the peak memory), a run killed at
+   RESUME_KILL (``FaultInjector``) and one resumed from the fence at
+   RESUME_FENCE (epoch 1, 2 batches in): every parameter within
+   RESUME_SPREAD times the two uninterrupted runs' spread, the metric
+   across the kill bit for bit (after its first step the resumed run's
+   perplexity sums and counts are the killed run's after that step) and
+   the last epoch's count the uninterrupted run's, steps overlapping a
+   write, A / F 20, C / D / E 4 and B1 1 launches a step; (b) AlexNet at phase 9's configuration with cuDNN's
+   deterministic algorithms, killed and resumed: parameters, momentum
+   and the accuracy line bit for bit; (c) ``checkpoint.save_sharded`` /
+   ``load_sharded`` of (a)'s trained module: a bit-for-bit round trip, an
+   inference Module loaded from it whose ``predict`` equals the trained
+   module's forward bit for bit (A and C), a torn step skipped by
+   ``latest_step``.
 
 The last lines are a ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -247,6 +269,7 @@ f32 products and convolutions are full f32.
 import contextlib
 import gc
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -466,6 +489,13 @@ TOL_FLIP_GAP = 1e-5
 # _step_kernel_reads)
 PROFILE_REPEATS = 5
 PROFILE_LEAD_CYCLES, PROFILE_MARK_CYCLES = 200_000_000, 2_000_000
+# a session that lost marker spins (the profiler drops device records
+# now and then, late in a long run: one full run in four on the H100) is
+# run once again; a second session that loses them fails the run, so a
+# profiler fault that keeps coming back is not hidden.  The reads of a
+# session with every marker are gated, the lost sessions' spin counts
+# are printed (sessions_with_lost_markers)
+PROFILE_SESSIONS = 2
 
 # tolerances (kernel vs plain version on the same inputs)
 TOL_A = {"float32": 1e-5, "bfloat16": 2 ** -7}   # x max|y| (abs)
@@ -604,6 +634,20 @@ TOL_DET = 1e-5
 # batch 32, Adam lr 5e-3, 5 epochs)
 EXPORT_CALLS = 5
 DEPLOY_N, DEPLOY_IN, DEPLOY_BATCH, DEPLOY_EPOCHS = 256, 16, 32, 5
+# phase 17, resume: fit over RESUME_BATCHES seeded batches for
+# RESUME_EPOCHS epochs with fence checkpoints every RESUME_PERIOD steps,
+# killed at RESUME_KILL (the writer waited for at RESUME_FENCE, so that
+# fence is written), resumed from RESUME_FENCE: epoch 1, 2 batches in.
+# The LM (phase 6's configuration, Adam at RESUME_LM_LR, perplexity)
+# within RESUME_SPREAD times the spread of two uninterrupted runs (F's
+# atomicAdd rules out bit equality), its metric across the kill bit for
+# bit; AlexNet (phase 9's configuration,
+# SGD-momentum, Dropout from torch's default CUDA generator, accuracy,
+# cuDNN's deterministic algorithms) bit for bit
+RESUME_BATCHES, RESUME_EPOCHS, RESUME_PERIOD = 4, 2, 3
+RESUME_KILL, RESUME_FENCE, RESUME_SEED = 7, 6, 5
+RESUME_LM_LR = 1e-4
+RESUME_SPREAD = 4.0
 
 
 def log(*args):
@@ -1863,34 +1907,41 @@ def _step_kernel_reads(torch, pred, prompts, repeats=PROFILE_REPEATS,
     reads share one session that opens with a PROFILE_LEAD_CYCLES spin
     and one uncounted prefill and step (every program's first replay),
     and each read counts the device activities between two marker
-    spins.  One read in a session of its own is printed beside them (not
-    gated), with the launches it lacks by name."""
+    spins.  A session that lost a marker spin is run once again; a
+    second such session fails (PROFILE_SESSIONS).  One read in a session of its own is printed
+    beside them (not gated), with the launches it lacks by name."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
     order = (True, False) * repeats
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _guard(torch, PROFILE_LEAD_CYCLES)
-        _decode_state(pred, prompts)
-        torch.cuda.synchronize()
-        for on in order:
-            _telemetry(on)
-            state = _decode_state(pred, prompts)
+    lost = []
+    for _ in range(PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _guard(torch, PROFILE_LEAD_CYCLES)
+            _decode_state(pred, prompts)
             torch.cuda.synchronize()
-            _guard(torch)
-            for _ in range(steps):
-                state, _ = pred.step(state)
-            torch.cuda.synchronize()
-            _guard(torch)
-    _telemetry(True)
-    device = [e for e in prof.events()
-              if "CUDA" in str(getattr(e, "device_type", ""))]
-    spins = sorted((e.time_range.start, e.time_range.end) for e in device
-                   if "spin_kernel" in e.name)
-    if len(spins) < 2 * len(order):
-        raise AssertionError("the profiled decode steps: %d marker spins "
-                             "recorded of %d" % (len(spins), 2 * len(order)))
+            for on in order:
+                _telemetry(on)
+                state = _decode_state(pred, prompts)
+                torch.cuda.synchronize()
+                _guard(torch)
+                for _ in range(steps):
+                    state, _ = pred.step(state)
+                torch.cuda.synchronize()
+                _guard(torch)
+        _telemetry(True)
+        device = [e for e in prof.events()
+                  if "CUDA" in str(getattr(e, "device_type", ""))]
+        spins = sorted((e.time_range.start, e.time_range.end)
+                       for e in device if "spin_kernel" in e.name)
+        if len(spins) >= 2 * len(order):
+            break
+        lost.append(len(spins))
+    else:
+        raise AssertionError("the profiled decode steps: %s marker spins "
+                             "recorded of %d in %d sessions"
+                             % (lost, 2 * len(order), PROFILE_SESSIONS))
     marks = spins[-2 * len(order):]
     reads = [dict(Counter(
         e.name for e in device if marks[2 * i][1] <= e.time_range.start
@@ -1907,6 +1958,7 @@ def _step_kernel_reads(torch, pred, prompts, repeats=PROFILE_REPEATS,
              if bare.get(n, 0) != kern[n]}
     return kern, {"reads": [[on, sum(k.values())]
                             for on, k in zip(order, reads)],
+                  "sessions_with_lost_markers": lost,
                   "own_session": sum(bare.values()),
                   "own_session_lacks": lacks}
 
@@ -6035,6 +6087,391 @@ def phase_moe(torch, dev):
             "moe_train_dense": train["dense"], "moe_serve": serve}
 
 
+class _Lines(logging.Handler):
+    """The messages of a module's logger (fit's epoch lines)."""
+
+    def __init__(self):
+        super().__init__()
+        self.rows = []
+
+    def emit(self, record):
+        self.rows.append(record.getMessage())
+
+
+def _resume_counts(zero=False):
+    """The launch counts of A, F, C, D, E and B1 (set to 0 first with
+    ``zero``)."""
+    from mxnet_tpu_torch.ops import flash_kernel, fused_kernel, update_kernel
+
+    out = {}
+    for counts, names in (
+            (fused_kernel.LAUNCHES, ("fused_fwd", "fused_bwd")),
+            (flash_kernel.LAUNCHES, ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")),
+            (update_kernel.LAUNCHES, ("multi_tensor_update",))):
+        for name in names:
+            if zero:
+                counts[name] = 0
+            out[name] = counts[name]
+    return out
+
+
+def _store(mod):
+    """Clones of a module's store: parameters, aux states, slots."""
+    from mxnet_tpu_torch import checkpoint
+
+    return {k: t.clone() for k, t in checkpoint._flatten(
+        checkpoint._state_of(mod)).items()}
+
+
+def _resume_run(torch, make, X, Y, batch, directory, async_write,
+                metric, kill=False):
+    """One seeded ``fit`` of ``make(logger)``'s module (it returns the
+    module and fit's keyword arguments) over RESUME_EPOCHS epochs of an
+    NDArrayIter over ``X`` / ``Y``, with a Checkpointer (RESUME_PERIOD)
+    in ``directory``.  ``kill``: the FaultInjector waits for the writer
+    at RESUME_FENCE (that fence is then written, not skipped) and kills
+    the run at RESUME_KILL.  ``metric()`` makes the eval metric.  The
+    train step's metric accumulators are cloned after every step (a copy
+    on the stream, no sync), keyed by (epoch, batch): ``"acc"``."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import elastic, profiler
+
+    t_make = time.perf_counter()
+    mt.random.seed(RESUME_SEED)
+    lines = _Lines()
+    logger = logging.Logger("resume")
+    logger.addHandler(lines)
+    mod, fit_kw = make(logger)
+    ck = elastic.Checkpointer(directory, period=RESUME_PERIOD,
+                              async_write=async_write)
+    inj = elastic.FaultInjector()
+    if kill:
+        inj.at_step(RESUME_FENCE, ck.wait).kill_at(RESUME_KILL)
+    ctl = elastic.ElasticController(checkpointer=ck, injector=inj)
+    acc = {}
+
+    def after_step(p):
+        state = mod._train_step._metric_acc
+        if state is not None and state.state is not None:
+            acc[(p.epoch, p.nbatch)] = [t.clone() for t in state._tensors()]
+
+    profiler.reset_step_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    killed = False
+    try:
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=batch),
+                eval_metric=metric(), num_epoch=RESUME_EPOCHS, elastic=ctl,
+                batch_end_callback=after_step, **fit_kw)
+    except elastic.WorkerKilled:
+        killed = True
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if killed != kill:
+        raise AssertionError("resume: the run was%s killed" %
+                             ("" if killed else " not"))
+    stats = profiler.step_stats()
+    return {"mod": mod, "ck": ck, "ctl": ctl, "wall_s": wall,
+            "run_s": time.perf_counter() - t_make,
+            "lines": [r for r in lines.rows if "Train-" in r],
+            "acc": {k: [float(t) for t in v] for k, v in acc.items()},
+            "steps": stats["steps"], "stats": stats,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _ckpt_reading(run):
+    ck, st = run["ck"], run["stats"]
+    return {"ckpt_stall_s": st["ckpt_stall_s"],
+            "checkpoint_stall_fraction": st["checkpoint_stall_fraction"],
+            "wall_s": run["wall_s"], "run_s": run["run_s"],
+            "steps": run["steps"],
+            "writes": ck.writes, "skipped_busy": ck.skipped_busy,
+            "steps_during_write": ck.steps_during_write,
+            "last_write_ms": ck.last_write_ms,
+            "snapshot_bytes": ck.snapshot_bytes,
+            "peak_memory_gb": run["peak_gb"]}
+
+
+def _metric_value(line):
+    return float(line.rsplit("=", 1)[1])
+
+
+def _fence_meta(directory):
+    with open(os.path.join(directory, str(RESUME_FENCE),
+                           "elastic.json")) as f:
+        meta = json.load(f)
+    if (meta["epoch"], meta["nbatch_done"], meta["global_step"]) != (
+            1, 2, RESUME_FENCE):
+        raise AssertionError("resume: the fence is not epoch 1, 2 batches "
+                             "in: %s" % {k: meta[k] for k in (
+                                 "epoch", "nbatch_done", "global_step")})
+    return {k: meta[k] for k in ("epoch", "nbatch_done", "global_step")}
+
+
+def _resume_lm(torch, dev, base):
+    """(a) the LM killed and resumed, and (c) its step-directory
+    checkpoint; returns the launches and the trained module's reading."""
+    from mxnet_tpu_torch import checkpoint, gpu
+    from mxnet_tpu_torch import metric as metric_mod
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.elastic import FaultInjector
+    from mxnet_tpu_torch.io import DataBatch, DataDesc, NDArrayIter
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.module import Module
+
+    b, t = TRAIN_BATCH, SEQ
+    sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=t,
+                                  num_layers=TRAIN_LAYERS, embed=EMBED,
+                                  heads=TRAIN_HEADS, ffn_hidden=FFN)
+    params = _train_params(sym)
+    rng = np.random.RandomState(7)
+    X = rng.randint(0, VOCAB, size=(RESUME_BATCHES * b, t)) \
+        .astype(np.float32)
+    Y = np.concatenate([X[:, 1:], np.zeros((len(X), 1), np.float32)],
+                       axis=1)
+    fit_kw = {"optimizer": "adam",
+              "optimizer_params": {"learning_rate": RESUME_LM_LR},
+              "arg_params": params}
+
+    def make(logger):
+        return Module(sym, context=gpu(0), logger=logger), fit_kw
+
+    def perplexity():
+        return metric_mod.Perplexity(None)
+
+    def dirs(name):
+        return os.path.join(base, "lm-" + name)
+
+    _resume_counts(zero=True)
+    runs = {}
+    for name, async_write, kill, directory in (
+            ("whole", True, False, dirs("whole")),
+            ("whole_sync", False, False, dirs("whole_sync")),
+            ("killed", True, True, dirs("kill")),
+            ("resumed", True, False, dirs("kill"))):
+        run = _resume_run(torch, make, X, Y, b, directory, async_write,
+                          perplexity, kill)
+        run["store"] = _store(run["mod"])
+        if name == "killed":
+            fence = _fence_meta(directory)
+        if name == "resumed" and run["ctl"].recoveries != 1:
+            raise AssertionError("resume (a): the run did not resume")
+        if run["ck"]._error is not None:
+            raise AssertionError("resume (a): a write failed")
+        if name != "whole":
+            run["mod"] = None     # the first run's module stays for (c)
+        runs[name] = run
+        if name == "whole_sync":
+            shutil.rmtree(directory, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = _resume_counts()
+    steps = sum(r["steps"] for r in runs.values())
+    per_step = {"fused_fwd": 5 * TRAIN_LAYERS, "fused_bwd": 5 * TRAIN_LAYERS,
+                "flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+                "flash_bwd_dkv": TRAIN_LAYERS, "multi_tensor_update": 1}
+    if launches != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError("resume (a): launches %s over %d steps, want "
+                             "%s a step" % (launches, steps, per_step))
+    if runs["whole"]["ck"].steps_during_write <= 0:
+        raise AssertionError("resume (a): no step overlapped a write")
+    whole, other, resumed = (runs[k]["store"] for k in (
+        "whole", "whole_sync", "resumed"))
+
+    def gap(a, c):
+        return float(torch.linalg.vector_norm(a.double() - c.double()))
+
+    spread = {}
+    for k in whole:
+        if not k.startswith("params/"):
+            continue
+        s, r = gap(other[k], whole[k]), gap(resumed[k], whole[k])
+        spread[k] = (r, s)
+        if not r <= RESUME_SPREAD * s:
+            raise AssertionError(
+                "resume (a): %s resumed vs uninterrupted %.3g, the two "
+                "uninterrupted runs %.3g (x%g allowed)"
+                % (k, r, s, RESUME_SPREAD))
+    lines = {k: runs[k]["lines"][-1] for k in ("whole", "whole_sync",
+                                               "resumed")}
+    # the metric across the kill: after its first step the resumed run
+    # holds what the killed run held after that step, bit for bit (the
+    # fence's sums, the batch the iterator gave, the parameters the
+    # forward read), and its last epoch counts the uninterrupted run's
+    # batches.  The lines' values part with the runs' histories (F's
+    # atomics), as the parameters do: those are held to the spread above
+    first = divmod(RESUME_FENCE, RESUME_BATCHES)
+    last = (RESUME_EPOCHS - 1, RESUME_BATCHES - 1)
+    across = {k: runs[k]["acc"].get(first) for k in ("killed", "resumed")}
+    counts = {k: runs[k]["acc"][last][1] for k in ("whole", "resumed")}
+    if across["killed"] is None or across["killed"] != across["resumed"] \
+            or counts["resumed"] != counts["whole"]:
+        raise AssertionError(
+            "resume (a): the metric across the kill: after epoch %d batch "
+            "%d %s (killed) against %s (resumed); the last epoch's count %s; "
+            "lines %s" % (first + (across["killed"], across["resumed"],
+                                   counts, lines)))
+    vals = {k: _metric_value(v) for k, v in lines.items()}
+    worst = max(spread, key=lambda k: spread[k][0] / max(spread[k][1],
+                                                         1e-300))
+    reading = {
+        "card": _smi_line(), "fence": fence, "lines": lines,
+        "line_gap": {"resumed": vals["resumed"] - vals["whole"],
+                     "whole_sync": vals["whole_sync"] - vals["whole"]},
+        "metric_across_kill": across["resumed"], "metric_counts": counts,
+        "params_bitwise": all(r == 0 for r, _ in spread.values()),
+        "spread_bitwise": all(s == 0 for _, s in spread.values()),
+        "worst": {"param": worst, "resumed_gap": spread[worst][0],
+                  "spread": spread[worst][1]},
+        "async": _ckpt_reading(runs["whole"]),
+        "sync": _ckpt_reading(runs["whole_sync"]),
+        "killed": _ckpt_reading(runs["killed"]),
+        "resumed": _ckpt_reading(runs["resumed"]),
+        "launches": launches, "steps": steps}
+    log("resume (a) lm: " + json.dumps(reading))
+
+    # (c) the step-directory checkpoint of the trained module
+    trained = runs["whole"]["mod"]
+    d = os.path.join(base, "sharded")
+    t0 = time.perf_counter()
+    checkpoint.save_sharded(d, 8, trained)
+    save_s = time.perf_counter() - t0
+    descs = ([DataDesc("data", (b, t))], [DataDesc("softmax_label", (b, t))])
+    fresh = Module(sym, context=gpu(0))
+    fresh.bind(data_shapes=descs[0], label_shapes=descs[1])
+    fresh.init_params(arg_params=params)
+    fresh.init_optimizer(optimizer="adam", optimizer_params=fit_kw[
+        "optimizer_params"])
+    t0 = time.perf_counter()
+    checkpoint.load_sharded(d, 8, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got, want = _store(fresh), _store(trained)
+    if sorted(got) != sorted(want) or not all(
+            torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("resume (c): the round trip is not bit for "
+                             "bit")
+    del fresh, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    infer = Module(sym, context=gpu(0))
+    infer.bind(data_shapes=descs[0], label_shapes=descs[1],
+               for_training=False)
+    infer.init_params(arg_params=params)
+    checkpoint.load_sharded(d, 8, infer)
+    before = _resume_counts()
+    pred = infer.predict(NDArrayIter(X[:b], Y[:b], batch_size=b))
+    trained.forward(DataBatch([nd.array(X[:b], ctx=gpu(0))],
+                              [nd.array(Y[:b], ctx=gpu(0))]),
+                    is_train=False)
+    ref = trained.get_outputs()[0]
+    torch.cuda.synchronize()
+    after = _resume_counts()
+    c_launches = {k: after[k] - before[k] for k in after}
+    if not torch.equal(pred.data, ref.data):
+        raise AssertionError("resume (c): the inference module's predict "
+                             "differs from the trained module's forward "
+                             "(max |d| %g)" % float(
+                                 (pred.data - ref.data).abs().max()))
+    if (c_launches["fused_fwd"], c_launches["flash_fwd"]) != (
+            2 * 5 * TRAIN_LAYERS, 2 * TRAIN_LAYERS):
+        raise AssertionError("resume (c): forward launches %s" % c_launches)
+    FaultInjector.torn_checkpoint(d, 9)
+    if checkpoint.latest_step(d) != 8:
+        raise AssertionError("resume (c): latest_step took the torn step")
+    log("resume (c) sharded: " + json.dumps({
+        "card": _smi_line(), "save_s": save_s, "load_s": load_s,
+        "files": sorted(os.listdir(os.path.join(d, "8"))),
+        "bytes": sum(os.path.getsize(os.path.join(d, "8", f))
+                     for f in os.listdir(os.path.join(d, "8"))),
+        "round_trip_bitwise": True, "predict_bitwise": True,
+        "launches": c_launches, "torn_skipped": True}))
+    for k in c_launches:
+        launches[k] += c_launches[k]
+    return launches
+
+
+def _resume_alexnet(torch, dev, base):
+    """(b) AlexNet killed and resumed, bit for bit."""
+    from mxnet_tpu_torch import NameManager, gpu, models
+    from mxnet_tpu_torch.module import Module
+
+    cfg = ZOO_TRAIN["alexnet"]
+    b, image = cfg["batch"], tuple(cfg["image"])
+    with NameManager():
+        sym = models.get_alexnet(num_classes=1000)
+    args, aux, _, _ = _resnet_values(sym, b, image)
+    rng = np.random.RandomState(3)
+    X = rng.uniform(-1, 1, (RESUME_BATCHES * b,) + image).astype(np.float32)
+    Y = rng.randint(0, 1000, (RESUME_BATCHES * b,)).astype(np.float32)
+    fit_kw = {"optimizer": "sgd", "optimizer_params": cfg["opt"],
+              "arg_params": args, "aux_params": aux}
+
+    def make(logger):
+        return Module(sym, context=gpu(0), logger=logger), fit_kw
+
+    before = _resume_counts()
+    runs = {}
+    with _cudnn_deterministic(torch):
+        for name, kill, sub in (("whole", False, "whole"),
+                                ("killed", True, "kill"),
+                                ("resumed", False, "kill")):
+            directory = os.path.join(base, "alexnet-" + sub)
+            run = _resume_run(torch, make, X, Y, b, directory, True,
+                              lambda: "acc", kill)
+            run["store"] = _store(run["mod"])
+            run["mod"] = None
+            if name == "killed":
+                fence = _fence_meta(directory)
+            runs[name] = run
+            gc.collect()
+            torch.cuda.empty_cache()
+    after = _resume_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    steps = sum(r["steps"] for r in runs.values())
+    if launches["multi_tensor_update"] != steps:
+        raise AssertionError("resume (b): B1 launched %d times in %d steps"
+                             % (launches["multi_tensor_update"], steps))
+    whole, resumed = runs["whole"]["store"], runs["resumed"]["store"]
+    unequal = [k for k in whole if not torch.equal(whole[k], resumed[k])]
+    lines = (runs["whole"]["lines"][-1], runs["resumed"]["lines"][-1])
+    if unequal or lines[0] != lines[1]:
+        raise AssertionError("resume (b): not bit for bit: %s, lines %s"
+                             % (unequal[:6], lines))
+    log("resume (b) alexnet: " + json.dumps({
+        "card": _smi_line(), "fence": fence, "lines": lines,
+        "bitwise": True, "tensors": len(whole),
+        "slots": sum(k.startswith("slots/") for k in whole),
+        "async": _ckpt_reading(runs["whole"]),
+        "killed": _ckpt_reading(runs["killed"]),
+        "resumed": _ckpt_reading(runs["resumed"]), "launches": launches,
+        "steps": steps}))
+    return launches
+
+
+def phase_resume(torch, dev):
+    """Phase 17: fit killed and resumed from its fence checkpoint, (a)
+    the LM, (b) AlexNet, (c) the LM's step-directory checkpoint.
+    Returns the launches of A, F, C, D, E and B1."""
+    base = tempfile.mkdtemp(prefix="mxtorch-resume-")
+    t0 = time.perf_counter()
+    try:
+        lm = _resume_lm(torch, dev, base)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        alexnet = _resume_alexnet(torch, dev, base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("resume: (a) + (c) %.1f s, (b) %.1f s" % (
+        t1 - t0, time.perf_counter() - t1))
+    return {k: lm[k] + alexnet[k] for k in lm}
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6135,6 +6572,9 @@ def main():
     torch.cuda.empty_cache()
     moe_launches = phase_moe(torch, dev)
     moe_train = {k: v for k, v in moe_launches.items() if "train" in k}
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume_launches = phase_resume(torch, dev)
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -6162,7 +6602,8 @@ def main():
         + train_launches["fused_fwd"] + predict_launches["fused_fwd"] \
         + imp_launches["fused_fwd"] + export_launches["fused_fwd"] \
         + sum(f["fused_fwd"] for f in fleet_launches.values()) \
-        + sum(m["fused_fwd"] for m in moe_launches.values())
+        + sum(m["fused_fwd"] for m in moe_launches.values()) \
+        + resume_launches["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -6179,7 +6620,8 @@ def main():
                                **{path: f["fused_fwd"] for path, f
                                   in fleet_launches.items()},
                                **{path: m["fused_fwd"] for path, m
-                                  in moe_launches.items()}},
+                                  in moe_launches.items()},
+                               "resume": resume_launches["fused_fwd"]},
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
         dict(_entry("paged_flash_decode",
@@ -6235,6 +6677,7 @@ def main():
         else:
             by_path["out_grads"] = out_grads_launches[counter]
         by_path.update({path: m[counter] for path, m in moe_train.items()})
+        by_path["resume"] = resume_launches[counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -6250,14 +6693,16 @@ def main():
                "mxnet_tpu/ops/pallas_fused.py:214",
                train_launches["fused_bwd"] + out_grads_launches["fused_bwd"]
                + imp_launches["fused_bwd"]
-               + sum(m["fused_bwd"] for m in moe_train.values()), f_main),
+               + sum(m["fused_bwd"] for m in moe_train.values())
+               + resume_launches["fused_bwd"], f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
         launches_by_path={"train": train_launches["fused_bwd"],
                           "out_grads": out_grads_launches["fused_bwd"],
                           "imperative": imp_launches["fused_bwd"],
                           **{path: m["fused_bwd"] for path, m
-                             in moe_train.items()}},
+                             in moe_train.items()},
+                          "resume": resume_launches["fused_bwd"]},
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
     # with the bf16 compute copy, no clip
@@ -6271,6 +6716,7 @@ def main():
     b1_by_path["train_ssd"] = ssd_launches["multi_tensor_update"]
     b1_by_path.update({path: m["multi_tensor_update"]
                        for path, m in moe_train.items()})
+    b1_by_path["resume"] = resume_launches["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}

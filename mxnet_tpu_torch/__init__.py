@@ -56,7 +56,13 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
   and :mod:`~mxnet_tpu_torch.analysis` (``ProgramArtifact``,
   ``kernel_ops``); kernels A, B and C are torch operators
   (``mxnet_tpu_torch::fused_fwd``, ``::paged_decode``, ``::flash_fwd``),
-  registered when this package is imported.
+  registered when this package is imported;
+* persistence and resume: :mod:`~mxnet_tpu_torch.checkpoint` (step
+  directories on ``torch.distributed.checkpoint``), :mod:`~mxnet_tpu_torch.
+  elastic` (async fenced checkpoints, the controller ``fit(...,
+  elastic=)`` drives, the fault injector), the iterators' resume surface
+  and :mod:`~mxnet_tpu_torch.parallel.health` (heartbeats and the
+  failure monitor).
 
 The hand-written Hopper kernels (``csrc/``): the fused LN->linear
 forward and backward (:mod:`~mxnet_tpu_torch.ops.fused_kernel`), flash
@@ -81,6 +87,7 @@ from . import (autograd, callback, executor, initializer,  # noqa: E402
                ndarray, obs, optimizer, predictor, profiler, random,
                recordio, rnn, test_utils, train_step)
 from . import analysis  # noqa: E402
+from . import checkpoint, parallel  # noqa: E402
 from .decode import DecodePredictor, DecodeServer  # noqa: E402
 from .executor import Executor  # noqa: E402
 from .initializer import init_registry  # noqa: E402
@@ -96,11 +103,12 @@ nd = ndarray
 __all__ = ["AttrScope", "Context", "DecodePredictor", "DecodeServer",
            "Executor", "FeedForward", "Group", "MXNetError", "NameManager",
            "Optimizer", "Predictor", "Variable", "analysis", "autograd",
-           "base", "callback", "config", "context", "cpu",
+           "base", "callback", "checkpoint", "config", "context", "cpu",
            "current_context", "decode", "executor", "gpu", "image",
            "init_registry", "initializer", "io", "lr_scheduler", "metric",
            "mod", "model", "models", "module", "monitor", "nd", "ndarray",
            "num_devices", "obs", "operator", "ops", "optimizer",
+           "parallel",
            "predictor", "profiler", "programs", "random",
            "recordio", "registry", "rnn", "serve", "sym", "symbol",
            "test_utils", "train_step", "weights"]

@@ -13,7 +13,14 @@ package's, with its defaults, and so are the telemetry keys
 the fleet's (``MXNET_FLEET_SWAP``, ``MXNET_FLEET_DECODE_BOUND``,
 ``MXNET_FLEET_PREFILL_THRESHOLD``) and the mixture-of-experts op's
 (``MXNET_MOE_DISPATCH``, ``MXNET_MOE_TOPK``, ``MXNET_MOE_DROPLESS``,
-``MXNET_MOE_CAPACITY``).
+``MXNET_MOE_CAPACITY``), and the persistence and liveness keys
+(``MXNET_CKPT_DIR`` ... ``MXNET_CKPT_RESUME``, ``MXNET_ELASTIC_POLL``,
+``MXNET_ELASTIC_TIMEOUT``, ``MXNET_ELASTIC_GRACE``).  The JAX package's
+``MXNET_TRANSFER_GUARD`` has no counterpart: it arms jax's device-to-host
+transfer guard, which torch does not have.  Nor has its
+``MXNET_HEARTBEAT_DIR``: there only the distributed KVStore reads it, to
+start its heartbeat, and the port has no KVStore yet; a heartbeat here
+is started with an explicit directory (``parallel.health``).
 """
 from __future__ import annotations
 
@@ -272,3 +279,45 @@ register("MXNET_MOE_CAPACITY", float, 0.0,
          "0 (default) keeps the per-op attribute.  Under an 'expert' mesh "
          "the sparse path is the explicit all-to-all shard_map program "
          "(docs/moe.md).")
+register("MXNET_CKPT_DIR", str, "",
+         "Directory for elastic fence checkpoints (mxnet_tpu_torch."
+         "elastic).  Set together with MXNET_CKPT_PERIOD to arm fit()'s "
+         "async fenced checkpointing: at every period-th step the "
+         "training store (parameters, aux states, optimizer slots, metric "
+         "accumulators) is cloned on the card and written as a committed "
+         "torch.distributed.checkpoint step directory by a background "
+         "writer thread, with a sidecar carrying the loop state (epoch / "
+         "step, generator states, metric sums, iterator cursor) for "
+         "deterministic resume.  Empty (default) = no automatic "
+         "checkpointing; an ElasticController passed to fit() overrides "
+         "the environment.")
+register("MXNET_CKPT_PERIOD", int, 0,
+         "Steps between elastic fence checkpoints (0 = off).  The "
+         "snapshot is enqueued on the loop's stream after the step, so "
+         "the loop never waits on the card to checkpoint.")
+register("MXNET_CKPT_ASYNC", bool, True,
+         "Write fence checkpoints on a background writer thread (at most "
+         "ONE write in flight; a fence landing while a write is busy is "
+         "skipped, not queued: the next fence writes).  0 = synchronous "
+         "saves on the loop thread, the A/B baseline whose stall "
+         "profiler.step_stats()['checkpoint_stall_fraction'] measures.")
+register("MXNET_CKPT_KEEP", int, 2,
+         "Committed fence checkpoints to retain (older step directories "
+         "are pruned after each commit; 0 = keep all).")
+register("MXNET_CKPT_RESUME", bool, True,
+         "Auto-resume: when the checkpoint directory already holds a "
+         "committed step at fit() start, restore it (parameters, "
+         "optimizer slots and counts, generator states, metric sums, "
+         "iterator cursor) and continue from the recorded epoch / step.  "
+         "0 = start fresh; fit() then refuses a directory that already "
+         "holds commits.")
+register("MXNET_ELASTIC_POLL", int, 1,
+         "Poll the failure monitor every N steps (a poll is num_workers "
+         "stat / read calls on the heartbeat directory, no card work).")
+register("MXNET_ELASTIC_TIMEOUT", float, 10.0,
+         "Heartbeat staleness threshold (seconds) for the elastic "
+         "FailureMonitor: a rank whose stamp is older is declared dead.")
+register("MXNET_ELASTIC_GRACE", float, 30.0,
+         "Startup allowance (seconds) for registered-but-not-yet-stamped "
+         "workers: within this window of the heartbeat directory's epoch "
+         "a missing first stamp does not read as dead.")

@@ -7,7 +7,16 @@ copies them onto its device, or :class:`DevicePrefetchIter` does ahead
 of time.  :class:`PrefetchingIter` reads the next batches of its
 iterators on a worker thread (``_BackgroundIter``: a bounded queue, a
 stop flag the worker checks while it waits, the worker's exception
-raised in the consumer); ``reset`` and ``close`` stop and join it."""
+raised in the consumer); ``reset`` and ``close`` stop and join it.
+
+The resume surface (the elastic loop's): ``fast_forward(n)`` advances
+``n`` batches as if they had been consumed (the base class draws and
+discards, which every iterator replays deterministically; NDArrayIter
+and its subclasses ``MNISTIter`` / ``CSVIter`` jump the cursor);
+``reset_carries_state`` says whether ``reset`` depends on the position
+earlier epochs reached (only NDArrayIter's ``roll_over``; wrappers ask
+their source); NDArrayIter's ``checkpoint_state`` / ``restore_state``
+give its cursor as a dict."""
 from __future__ import annotations
 
 import gzip
@@ -82,6 +91,12 @@ class DataBatch:
 class DataIter:
     """Iterator base."""
 
+    # whether reset() depends on the position earlier epochs reached
+    # (NDArrayIter's roll_over carries the tail cursor across reset): a
+    # resumed fit replays the prior epochs' drain / reset only for such
+    # iterators
+    reset_carries_state = False
+
     def __init__(self, batch_size=0):
         self.batch_size = batch_size
 
@@ -114,6 +129,14 @@ class DataIter:
 
     def getpad(self):
         raise NotImplementedError()
+
+    def fast_forward(self, n):
+        """Advance ``n`` batches from the current position, as if they had
+        been consumed (a resumed epoch's cursor).  Draws and discards:
+        every iterator replays that deterministically, and a read-ahead
+        wrapper's queue is the only place that counts consumed batches."""
+        for _ in range(int(n)):
+            self.next()
 
 
 def _init_data(data, allow_empty, default_name):
@@ -213,6 +236,25 @@ class NDArrayIter(DataIter):
                 and self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+    @property
+    def reset_carries_state(self):
+        # roll_over's reset() folds the over-run cursor back in; pad and
+        # discard restart the epoch from the top
+        return self.last_batch_handle == "roll_over"
+
+    def fast_forward(self, n):
+        """Jump the cursor: ``n`` batches forward is ``n`` ``iter_next``
+        increments (the sample order is fixed at construction)."""
+        self.cursor += int(n) * self.batch_size
+
+    def checkpoint_state(self):
+        """The cursor as a dict, for loops that snapshot and seek the
+        iterator themselves (``fit``'s resume records a batch count)."""
+        return {"cursor": int(self.cursor)}
+
+    def restore_state(self, state):
+        self.cursor = int(state["cursor"])
 
 
 class MNISTIter(NDArrayIter):
@@ -330,6 +372,11 @@ class ResizeIter(DataIter):
         self.cur = 0
         if self.reset_internal:
             self.data_iter.reset()
+
+    @property
+    def reset_carries_state(self):
+        # without the internal reset the source keeps rolling regardless
+        return self.data_iter.reset_carries_state or not self.reset_internal
 
     def iter_next(self):
         if self.cur == self.size:
@@ -484,6 +531,10 @@ class PrefetchingIter(_BackgroundIter):
         return self._renamed([i.provide_label for i in self.iters],
                              self.rename_label)
 
+    @property
+    def reset_carries_state(self):
+        return any(i.reset_carries_state for i in self.iters)
+
     def _produce(self):
         batches = [i.next() for i in self.iters]
         if self.n_iter == 1:
@@ -524,6 +575,10 @@ class DevicePrefetchIter(DataIter):
     @property
     def provide_label(self):
         return self.data_iter.provide_label
+
+    @property
+    def reset_carries_state(self):
+        return self.data_iter.reset_carries_state
 
     def reset(self):
         self._queue.clear()

@@ -19,8 +19,16 @@ the host prepares batch n + K while the card runs step n; the loop
 blocks on the CUDA event of the step K behind (``_dispatch_fence``),
 never the newest.  Each epoch is one ``fit_epoch`` timeline span;
 input waits, host waits on the fences and steps go to
-``profiler.step_stats``.  The JAX package's elastic hooks are not
-ported."""
+``profiler.step_stats``.
+
+``fit(..., elastic=)`` takes an
+:class:`~mxnet_tpu_torch.elastic.ElasticController` (one is made from
+``MXNET_CKPT_DIR`` / ``MXNET_CKPT_PERIOD`` when none is passed): async
+fenced checkpoints of the training store, auto-resume from the last
+committed fence (``attach`` before the first epoch, ``on_epoch_start``
+fast-forwards the resumed epoch, ``on_step`` after each batch's
+callback) and, with a failure monitor, a drained stop on a liveness
+transition.  Without a controller the loop is unchanged."""
 from __future__ import annotations
 
 import logging
@@ -52,6 +60,7 @@ class BaseModule:
         self.params_initialized = False
         self.optimizer_initialized = False
         self._symbol = None
+        self._elastic = None
 
     @property
     def symbol(self):
@@ -192,8 +201,13 @@ class BaseModule:
         eval_metric.reset()
         limit = max(1, int(config.get("MXNET_MAX_STEPS_IN_FLIGHT")))
         fences = deque()
-        it = iter(train_data)
         nbatch = 0
+        if self._elastic is not None:
+            # resuming into this epoch: metric sums back to the fence's,
+            # the iterator past the batches already done
+            nbatch = self._elastic.on_epoch_start(self, epoch, train_data,
+                                                  eval_metric)
+        it = iter(train_data)
         # one timeline span an epoch: the loop spans nest under it
         with _obs.span("fit_epoch", cat="loop", args={"epoch": int(epoch)}):
             while True:
@@ -221,6 +235,12 @@ class BaseModule:
                 _prof.record_step()
                 _fire(batch_end_callback,
                       BatchEndParam(epoch, nbatch, eval_metric, locals()))
+                if self._elastic is not None:
+                    # fault injection, the periodic fence and the liveness
+                    # poll (which drains `fences` and raises
+                    # ReconfigureSignal); after the callback, so callbacks
+                    # see every batch once across a resume
+                    self._elastic.on_step(self, epoch, nbatch, fences)
                 nbatch += 1
         if fences:
             # the steps run in order on one stream: the newest covers all
@@ -237,10 +257,14 @@ class BaseModule:
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None):
+            monitor=None, elastic=None):
         """Train for ``num_epoch`` epochs through ``_fit_epoch``, an
         optional validation pass per epoch (``eval_end_callback`` after
-        each)."""
+        each).  ``elastic``: an
+        :class:`~mxnet_tpu_torch.elastic.ElasticController` (made from
+        ``MXNET_CKPT_DIR`` / ``MXNET_CKPT_PERIOD`` when None)."""
+        from .. import elastic as elastic_mod
+
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
         self.prepare_fit(train_data, initializer=initializer,
@@ -253,12 +277,36 @@ class BaseModule:
         validation_metric = validation_metric or eval_metric
         self._bind_metric(eval_metric)
         fit_data = self._wrap_train_data(train_data)
+        if elastic is None:
+            elastic = elastic_mod.from_env()
+            if elastic is not None and \
+                    getattr(self, "_exec_group", None) is None:
+                # the env knobs are ambient: a module without executor-
+                # group state to fence trains without checkpoints (an
+                # explicitly passed controller still fails loudly)
+                self.logger.warning(
+                    "MXNET_CKPT_DIR is set but %s has no executor-group "
+                    "state to fence; training without elastic "
+                    "checkpoints", type(self).__name__)
+                elastic = None
+        self._elastic = elastic
+        failed = False
         try:
+            if elastic is not None:
+                # auto-resume: a committed fence restores the store, the
+                # generators and the counts and advances the first epoch
+                begin_epoch = elastic.attach(self, eval_metric, begin_epoch)
             for epoch in range(begin_epoch, num_epoch):
                 if epoch > begin_epoch:
                     fit_data.reset()
-                cost = self._fit_epoch(epoch, fit_data, eval_metric,
-                                       batch_end_callback, monitor)
+                try:
+                    cost = self._fit_epoch(epoch, fit_data, eval_metric,
+                                           batch_end_callback, monitor)
+                except elastic_mod.ReconfigureSignal as sig:
+                    # a liveness transition, the steps drained: the
+                    # controller raises (no mesh to re-form yet)
+                    elastic.handle_reconfigure(self, sig, eval_metric)
+                    raise
                 # reading the metric drains the device accumulation
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
@@ -275,7 +323,14 @@ class BaseModule:
                             epoch=epoch):
                         self.logger.info("Epoch[%d] Validation-%s=%f",
                                          epoch, name, val)
+        except BaseException:
+            failed = True
+            raise
         finally:
+            if elastic is not None:
+                # a failed write does not replace the exception unwinding
+                elastic.finish(raise_error=not failed)
+            self._elastic = None
             # leave the caller's iterator fresh for a second fit()
             train_data.reset()
 

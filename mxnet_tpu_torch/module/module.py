@@ -488,6 +488,20 @@ class Module(BaseModule):
             self._train_step.detach_metric()
         self._pending_metric = eval_metric
 
+    def _device_metric(self, eval_metric):
+        """The train step's device accumulator of ``eval_metric``
+        (attached now when ``fit`` bound the metric and no step has run
+        yet), or None when the metric accumulates on the host."""
+        step = self._train_step
+        if step is None:
+            return None
+        if self._pending_metric is eval_metric:
+            step.attach_metric(eval_metric)
+            self._pending_metric = None
+        acc = step._metric_acc
+        return acc if acc is not None and acc.metric is eval_metric \
+            else None
+
     def _bind_eval_metric(self, eval_metric):
         """A :class:`CompiledEvalStep` accumulating ``eval_metric`` on the
         device for ``score``, or None for the host path."""

@@ -52,7 +52,10 @@ in its place.  :func:`eager` is the counterpart of
 on the arguments given, with no buffers, no capture and no counting
 (tests and ``chip_smoke.py`` use it to hold the graphs against the
 eager path); host tensors still move to the program's device.
-:data:`GRAPH_STATS` counts set-ups (``captures``; a capture on the card,
+A capture holds :data:`CAPTURE_LOCK`: another thread that makes CUDA
+calls a capture forbids (a synchronization, a pinned allocation, an
+event's destruction) takes the lock around them, as the elastic
+checkpoint writer does.  :data:`GRAPH_STATS` counts set-ups (``captures``; a capture on the card,
 buffers on the CPU), calls served by them (``replays``) and the seconds
 the set-ups took (``capture_s``).
 """
@@ -60,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 import time
 
 import torch
@@ -70,6 +74,7 @@ __all__ = ["GraphProgram", "GraphPool", "GRAPH_STATS", "eager",
            "eager_active", "in_body"]
 
 GRAPH_STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
+CAPTURE_LOCK = threading.Lock()
 _EAGER = [0]
 _IN_BODY = [0]
 
@@ -299,7 +304,7 @@ class GraphProgram:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(dev), \
+            with CAPTURE_LOCK, torch.cuda.device(dev), \
                     torch.cuda.graph(graph, pool=self.pool.handle()):
                 outputs = self._run(specs, leaves)
         except Exception as exc:

@@ -363,9 +363,30 @@ class CompiledTrainStep(_StepBase):
 
     def load_from_executor(self):
         """The masters were written outside the step (an eager update,
-        ``set_params``): the executor's arrays are the store, so only the
-        compute slab is recast, before the next forward."""
+        ``set_params``, a checkpoint restore): the executor's arrays are
+        the store, so only the compute slab is recast, before the next
+        forward."""
         self._wc_stale = bool(self._wc) if self.plan is not None else False
+
+    def flush_to_executor(self):
+        """Nothing to do: the JAX step keeps donated masters of its own
+        and copies them back to the executor here; this step updates the
+        executor's arrays in place, so they are always current."""
+
+    @property
+    def params(self):
+        """``{name: tensor}``: the parameters the step reads and updates,
+        the executor's own arrays (views of the master slab when the
+        plan is armed)."""
+        exe = self._exec
+        return {n: exe.arg_dict[n].data for n in self._param_names}
+
+    @property
+    def slots(self):
+        """``{name: tuple of tensors}``: each trainable's optimizer slots,
+        updated in place by the step (empty tuples for a stateless
+        optimizer)."""
+        return {n: tuple(v) for n, v in self._slot_views().items()}
 
     # ------------------------------------------------------------------
     # device-side metrics

@@ -3,7 +3,12 @@
 and the fused ``.states`` payload written by either package load in the
 other; a resumed run (``Module.load(..., load_optimizer_states=True)``
 and one more step) lands where the uninterrupted run does; and the
-checkpoint callbacks write the JAX callbacks' files.
+checkpoint callbacks write the JAX callbacks' files.  The port's
+step-directory checkpoints (``checkpoint.save_sharded`` / ``load_sharded``
+on ``torch.distributed.checkpoint``) are held to the JAX package's
+``tests/test_sharded_checkpoint.py`` cases: the round trip, restores in
+place that the next compiled step reads, the commit rules, slot-less
+and inference restores; bit for bit, within the port.
 
 Tolerances: what a file carries is compared exactly (values, dtypes,
 bytes); one step after loading, each package's parameters against the
@@ -22,6 +27,7 @@ from mxnet_tpu.io import DataBatch as JBatch
 from mxnet_tpu.models import lstm_lm as jlstm
 
 import mxnet_tpu_torch as mt
+from mxnet_tpu_torch import elastic
 from mxnet_tpu_torch.io import DataBatch
 from mxnet_tpu_torch.models import lstm_lm
 
@@ -259,3 +265,168 @@ def test_fused_rnn_checkpoint_unpacks_in_jax(tmp_path):
         np.testing.assert_array_equal(
             got.asnumpy() if hasattr(got, "asnumpy") else got, v,
             err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# step-directory checkpoints (checkpoint.save_sharded / load_sharded): the
+# JAX package's tests/test_sharded_checkpoint.py cases on the port's files
+# ---------------------------------------------------------------------------
+def _state(mod):
+    """Parameters, aux states and the train step's slots, as numpy."""
+    out = _params(mod)
+    if mod._train_step is not None:
+        for n, slots in _slots(mt, mod).items():
+            for i, s in enumerate(slots):
+                out["slot:%s:%d" % (n, i)] = s.copy()
+    return out
+
+
+def _other_values(seed):
+    rng = np.random.RandomState(seed)
+    args, aux, _ = _values()
+    args = {k: (v + 0.1 * rng.randn(*v.shape)).astype(np.float32)
+            for k, v in args.items()}
+    batches = [(rng.randn(B, 3, 8, 8).astype(np.float32),
+                rng.randint(0, CLASSES, B).astype(np.float32))
+               for _ in range(2)]
+    return args, aux, batches
+
+
+def _eval_out(mod, x):
+    mod.forward(_batch(mt, x, np.zeros(B, np.float32)), is_train=False)
+    return mod.get_outputs()[0].asnumpy()
+
+
+def test_sharded_round_trip_and_restore_feeds_the_step(tmp_path):
+    """``save_sharded`` writes a committed DCP step directory; a module
+    that has already stepped (its program bound to its arrays) restores
+    it in place: parameters, aux states and slots bit for bit, and its
+    next compiled step lands where the saving module's next step does."""
+    args, aux, batches = _values()
+    mod = _bound(mt, mt.mod.Module(_sym(mt), context=mt.cpu()), args, aux)
+    _train(mt, mod, batches[:2])
+    d = str(tmp_path / "ck")
+    path = mt.checkpoint.save_sharded(d, 3, mod)
+    assert path == os.path.join(d, "3")
+    assert sorted(os.listdir(path)) == [".metadata", "__0_0.distcp",
+                                        "commit_success.txt"]
+    assert mt.checkpoint.latest_step(d) == 3
+    want = _state(mod)
+    assert any(k.startswith("slot:") for k in want)
+
+    oargs, oaux, obatches = _other_values(9)
+    other = _bound(mt, mt.mod.Module(_sym(mt), context=mt.cpu()), oargs,
+                   oaux)
+    _train(mt, other, obatches)
+    bound = {n: a.data.data_ptr()
+             for n, a in other._exec_group.exec_.arg_dict.items()}
+    mt.checkpoint.load_sharded(d, 3, other)
+    assert {n: a.data.data_ptr() for n, a in
+            other._exec_group.exec_.arg_dict.items()} == bound
+    got = _state(other)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    _train(mt, mod, batches[2:])
+    _train(mt, other, batches[2:])
+    want, got = _state(mod), _state(other)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_latest_step_skips_torn_checkpoint(tmp_path):
+    """Only the commit marker makes a step directory count: a torn one
+    (or one carrying DCP's metadata without the marker) is skipped."""
+    args, aux, batches = _values()
+    mod = _bound(mt, mt.mod.Module(_sym(mt), context=mt.cpu()), args, aux)
+    d = str(tmp_path / "ck")
+    mt.checkpoint.save_sharded(d, 3, mod)
+    torn = elastic.FaultInjector.torn_checkpoint(d, 9)
+    assert not mt.checkpoint.is_committed(d, 9)
+    assert mt.checkpoint.latest_step(d) == 3
+    mt.checkpoint.commit_step(torn)
+    assert mt.checkpoint.latest_step(d) == 9
+    os.remove(os.path.join(torn, mt.checkpoint.COMMIT_MARKER))
+    with open(os.path.join(torn, ".metadata"), "w") as f:
+        f.write("")
+    assert not mt.checkpoint.is_committed(d, 9)
+    assert mt.checkpoint.latest_step(d) == 3
+    # an interrupted write's temporary sibling is not a step either
+    os.makedirs(os.path.join(d, "12" + mt.checkpoint.TMP_SUFFIX))
+    assert mt.checkpoint.latest_step(d) == 3
+
+
+def test_slotless_restore_gives_fresh_slots(tmp_path):
+    """An inference module's checkpoint (no slots) loaded into a training
+    module: the parameters restored, the slots zeroed (not the moments of
+    the weights they replaced), training goes on."""
+    args, aux, batches = _values()
+    infer = mt.mod.Module(_sym(mt), context=mt.cpu())
+    infer.bind(data_shapes=[("data", (B, 3, 8, 8))],
+               label_shapes=[("softmax_label", (B,))], for_training=False)
+    infer.init_params(arg_params={k: mt.nd.array(v) for k, v in
+                                  args.items()},
+                      aux_params={k: mt.nd.array(v) for k, v in aux.items()})
+    want = _params(infer)
+    d = str(tmp_path / "ck")
+    mt.checkpoint.save_sharded(d, 0, infer)
+    oargs, oaux, obatches = _other_values(2)
+    trained = _bound(mt, mt.mod.Module(_sym(mt), context=mt.cpu()), oargs,
+                     oaux)
+    _train(mt, trained, obatches)
+    assert any(np.abs(s).max() > 0 for v in _slots(mt, trained).values()
+               for s in v)
+    mt.checkpoint.load_sharded(d, 0, trained)
+    got = _params(trained)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for n, v in _slots(mt, trained).items():
+        for s in v:
+            assert np.abs(s).max() == 0.0, n
+    _train(mt, trained, batches)
+    assert all(np.isfinite(v).all() for v in _params(trained).values())
+
+
+def test_training_checkpoint_into_inference_module(tmp_path):
+    """A checkpoint with slots restores into an inference module (its
+    slots are not read); the inference forward equals the trained
+    module's bit for bit."""
+    args, aux, batches = _values()
+    mod = _bound(mt, mt.mod.Module(_sym(mt), context=mt.cpu()), args, aux)
+    _train(mt, mod, batches)
+    d = str(tmp_path / "ck")
+    mt.checkpoint.save_sharded(d, 1, mod)
+    infer = mt.mod.Module(_sym(mt), context=mt.cpu())
+    infer.bind(data_shapes=[("data", (B, 3, 8, 8))],
+               label_shapes=[("softmax_label", (B,))], for_training=False)
+    infer.init_params(arg_params={k: mt.nd.array(v) for k, v in
+                                  args.items()},
+                      aux_params={k: mt.nd.array(v) for k, v in aux.items()})
+    x = batches[0][0]
+    _eval_out(infer, x)                  # its forward program is bound
+    mt.checkpoint.load_sharded(d, 1, infer)
+    want, got = _params(mod), _params(infer)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(_eval_out(infer, x), _eval_out(mod, x))
+
+
+def test_load_sharded_refuses_what_it_cannot_restore(tmp_path):
+    """No directory, no step (the resume idiom over an empty directory),
+    a parameter the checkpoint lacks or of another shape: MXNetError."""
+    args, aux, _ = _values()
+    mod = _bound(mt, mt.mod.Module(_sym(mt), context=mt.cpu()), args, aux)
+    d = str(tmp_path / "nope")
+    assert mt.checkpoint.latest_step(d) is None
+    with pytest.raises(mt.MXNetError, match="no sharded checkpoint"):
+        mt.checkpoint.load_sharded(d, 0, mod)
+    with pytest.raises(mt.MXNetError, match="step"):
+        mt.checkpoint.load_sharded(d, mt.checkpoint.latest_step(d), mod)
+    mt.checkpoint.save_state_tree(d, 5, {"params": {
+        "fc_weight": torch.zeros(CLASSES, 4)}})
+    with pytest.raises(mt.MXNetError, match="has no params/conv_weight"):
+        mt.checkpoint.load_sharded(d, 5, mod)
+    mt.checkpoint.save_state_tree(d, 6, {"params": {
+        n: torch.zeros(3) for n in mod._exec_group.param_names}})
+    with pytest.raises(mt.MXNetError, match="shape"):
+        mt.checkpoint.load_sharded(d, 6, mod)

@@ -2309,3 +2309,130 @@ def test_moe_op_captured_matches_eager_and_host(card, full_f32, cf, k):
         assert torch.equal(a, b)
         scale = max(1.0, float(c.abs().max()))
         assert float((b.cpu() - c).abs().max()) <= 1e-5 * scale
+
+
+def _resume_fit(card, sym, args, aux, X, Y, directory, kill=False,
+                lr=0.01):
+    """A seeded fit of 2 epochs (4 batches of 4, SGD-momentum at ``lr``)
+    on the card with async fence checkpoints every 3 steps; ``kill``: the
+    writer waited for at step 6, the run killed at 7.  Returns the
+    store's clones and the last accuracy line."""
+    import logging
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import checkpoint, elastic
+
+    mt.random.seed(5)
+    rows = []
+    logger = logging.Logger("resume-card")
+    logger.addHandler(type("H", (logging.Handler,), {
+        "emit": lambda self, r: rows.append(r.getMessage())})())
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=logger)
+    ck = elastic.Checkpointer(directory, period=3, async_write=True)
+    inj = elastic.FaultInjector()
+    if kill:
+        inj.at_step(6, ck.wait).kill_at(7)
+    try:
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=4), eval_metric="acc",
+                optimizer="sgd", optimizer_params={
+                    "learning_rate": lr, "momentum": 0.9, "wd": 1e-4},
+                arg_params=args, aux_params=aux, num_epoch=2,
+                elastic=elastic.ElasticController(checkpointer=ck,
+                                                  injector=inj))
+        assert not kill
+    except elastic.WorkerKilled:
+        assert kill
+    torch.cuda.synchronize()
+    store = {k: t.clone() for k, t in checkpoint._flatten(
+        checkpoint._state_of(mod)).items()}
+    return store, [r for r in rows if "Train-" in r][-1:], ck
+
+
+def test_fit_killed_and_resumed_on_the_card_bitwise(card, full_f32,
+                                                    tmp_path):
+    """AlexNet (LRN, two Dropouts from torch's default CUDA generator,
+    which the fence's generator record restores) through the captured
+    step, killed at step 7 and resumed from the step-6 fence with cuDNN's
+    deterministic algorithms: parameters, momentum and the last accuracy
+    line bit for bit against the uninterrupted run, B1 once a step.  SGD
+    at lr 0.01: at 0.1 this net diverges, every tensor of both runs NaN
+    at the same positions (``tools/resume_lr_probe.py``), and a NaN is
+    unequal to itself, so the stores are checked finite before equal."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import checkpoint
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    with mt.NameManager():
+        sym = mt.models.get_alexnet(num_classes=10)
+    shape = (16, 3, 67, 67)
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=(4,) + shape[1:],
+                                                softmax_label=(4,))
+    rng = np.random.RandomState(0)
+    args = {n: (rng.randn(*s) * np.sqrt(2.0 / np.prod(s[1:]))
+                if n.endswith("_weight") else np.zeros(s)).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    X = rng.uniform(-1, 1, shape).astype(np.float32)
+    Y = rng.randint(0, 10, 16).astype(np.float32)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches = uk.LAUNCHES["multi_tensor_update"]
+        whole, line, _ = _resume_fit(card, sym, args, {}, X, Y,
+                                     str(tmp_path / "whole"))
+        d = str(tmp_path / "kill")
+        _, _, ck = _resume_fit(card, sym, args, {}, X, Y, d, kill=True)
+        assert checkpoint.latest_step(d) == 6
+        resumed, rline, _ = _resume_fit(card, sym, args, {}, X, Y, d)
+        launches = uk.LAUNCHES["multi_tensor_update"] - launches
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    # finite first: a NaN is unequal to itself, so a diverged run fails
+    # torch.equal whatever the restore did
+    assert all(bool(torch.isfinite(t).all()) for t in whole.values())
+    assert all(bool(torch.isfinite(t).all()) for t in resumed.values())
+    unequal = [k for k in whole if not torch.equal(whole[k], resumed[k])]
+    assert not unequal, unequal[:5]
+    assert any(k.startswith("slots/") for k in whole)
+    assert rline == line
+    assert launches == 8 + 7 + 2
+    assert ck.writes >= 2 and ck.snapshot_bytes > 0
+
+
+def test_restore_reaches_the_captured_step(card, full_f32, tmp_path):
+    """A module whose step is captured and replaying restores a step
+    directory in place (the bound tensors keep their addresses) and its
+    next replay reads the restored store: the step lands where the saving
+    module's next step does, bit for bit."""
+    from mxnet_tpu_torch import checkpoint, programs
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mod, batch = _zoo_small(card, "alexnet", (3, 67, 67))
+        other, _ = _zoo_small(card, "alexnet", (3, 67, 67), seed=1)
+        for m in (mod, other):
+            for _ in range(3):
+                m.forward_backward(batch)
+        checkpoint.save_sharded(str(tmp_path), 3, mod)
+        gen_state = mod._exec_group.exec_.generator.get_state()
+        ptrs = {n: a.data.data_ptr()
+                for n, a in other._exec_group.exec_.arg_dict.items()}
+        checkpoint.load_sharded(str(tmp_path), 3, other)
+        other._exec_group.exec_.generator.set_state(gen_state)
+        assert {n: a.data.data_ptr() for n, a in
+                other._exec_group.exec_.arg_dict.items()} == ptrs
+        replays = programs.GRAPH_STATS["replays"]
+        for m in (mod, other):
+            m.forward_backward(batch)
+        torch.cuda.synchronize()
+        assert programs.GRAPH_STATS["replays"] == replays + 2
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    want, got = (
+        {k: t.clone() for k, t in checkpoint._flatten(
+            checkpoint._state_of(m)).items()} for m in (mod, other))
+    assert all(torch.equal(got[k], want[k]) for k in want), \
+        [k for k in want if not torch.equal(got[k], want[k])][:5]

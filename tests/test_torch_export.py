@@ -408,10 +408,9 @@ def test_composite_metric_views_match_jax():
 # queue A); everything else is a stated difference.
 NAME_EXCEPTIONS = {
     "top": {"tpu": "no TPU in the port",
-            "checkpoint": "later", "contrib": "later",
-            "kvstore": "later", "kvstore_server": "later",
-            "parallel": "later", "rtc": "later", "visualization": "later",
-            "viz": "later"},
+            "contrib": "later", "kvstore": "later",
+            "kvstore_server": "later", "rtc": "later",
+            "visualization": "later", "viz": "later"},
     "nd": {"deque": "a module import, not an API",
            "functools": "a module import, not an API",
            "numeric_types": "a module import, not an API"},
@@ -436,14 +435,13 @@ NAME_EXCEPTIONS = {
                     "register_roofline": "later"},
     "Context": {"jax_device": "jax", "device_type": "later",
                 "devstr2type": "later", "devtype2str": "later"},
-    "CompiledTrainStep": {"artifact": "later", "compiled_hlo": "later",
-                          "flush_to_executor": "later", "params": "later",
-                          "slots": "later"},
+    "CompiledTrainStep": {"artifact": "later", "compiled_hlo": "later"},
     "CompiledEvalStep": {"artifact": "later"},
-    "DataIter": {"fast_forward": "later", "reset_carries_state": "later"},
-    "NDArrayIter": {"checkpoint_state": "later", "fast_forward": "later",
-                    "reset_carries_state": "later",
-                    "restore_state": "later"},
+    "parallel": {n: "later" for n in (
+        "MeshConfig", "build_mesh", "collectives", "compat",
+        "data_parallel_mesh", "launch", "mesh", "pipeline",
+        "pipeline_apply", "ring", "ring_attention", "shard_map",
+        "stack_stage_params")},
 }
 
 
@@ -463,7 +461,8 @@ def _name_pairs():
                 "module", "random", "autograd", "callback", "monitor",
                 "lr_scheduler", "test_utils", "profiler", "recordio",
                 "operator", "rnn", "models", "obs", "programs", "serve",
-                "config", "attrs"):
+                "config", "attrs", "checkpoint", "elastic", "parallel",
+                "parallel.health"):
         pairs.append((mod, importlib.import_module("mxnet_tpu." + mod),
                       importlib.import_module("mxnet_tpu_torch." + mod)))
     pairs += [

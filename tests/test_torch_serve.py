@@ -182,7 +182,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.module.sequential_module, "
             "mxnet_tpu_torch.obs, mxnet_tpu_torch.profiler, "
             "mxnet_tpu_torch.serve.swap, mxnet_tpu_torch.serve.fleet, "
-            "mxnet_tpu_torch.ops.moe; "
+            "mxnet_tpu_torch.ops.moe, mxnet_tpu_torch.checkpoint, "
+            "mxnet_tpu_torch.elastic, mxnet_tpu_torch.parallel.health, "
+            "torch.distributed.checkpoint; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.')) "
             "or m == 'mxnet_tpu'); print(json.dumps(bad))")
