@@ -260,9 +260,35 @@ Phases (any failure ends the run with a non-zero exit code):
    inference Module loaded from it whose ``predict`` equals the trained
    module's forward bit for bit (A and C), a torn step skipped by
    ``latest_step``.
+18. tuning — kernel plans (``ops/tuning.py``) and user kernels
+   (``rtc.py``), in a tuning cache of the phase's own (a temporary
+   directory, deleted after; phases 1-17 run the hand-fixed plans from
+   an empty, unarmed cache of the run's own): (a) MXNET_PALLAS_TUNE
+   armed, every class of TUNE_CASES resolved, so swept: each candidate
+   plan timed (CUDA events over a captured replay) and held against
+   the kernel's plain version within the tolerance of the kernel's own
+   phase; each class's candidates, the default's ms and the winner
+   printed (``tuning (a)`` lines); (b) a cold process sharing only the
+   cache directory resolves every class with 0 probes and the same
+   params; (c) with the cache warm and the sweep unarmed, phase 5's
+   serve against the same serve on the hand-fixed plans (greedy tokens
+   equal, teacher-forced |d log p| <= TOL_LOGP, kernel A's and B's last
+   plan the winners', tokens/s of both) and TUNE_LM_STEPS captured
+   steps of phase 6's LM against two runs on the hand-fixed plans
+   (launches A / F 20, C / D / E 4, B1 1 a step, finite losses, the
+   parameters within CAPTURE_SPREAD of the two runs' spread, step s of
+   each); (d) a user kernel built from a source string by
+   ``rtc.build`` and registered by ``rtc.register_cuda_op``: bit for bit
+   against its plain expression imperatively and through a bound
+   symbol's gradient, an MLP with it inside trained through the
+   captured Module step bit for bit against eager, the kernel found in
+   a profiled replay, the build seconds.  Every line names the card and
+   its power limit.
 
-The last lines are a ``kernels`` JSON object, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The last lines are a ``kernels`` JSON object (each entry with its
+phase 18 ``tuning`` reading: the class, the winner, its ms and the
+default's), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 TF32 is off throughout (``allow_tf32`` False for matmuls and cuDNN), so
 f32 products and convolutions are full f32.
 """
@@ -648,6 +674,64 @@ RESUME_BATCHES, RESUME_EPOCHS, RESUME_PERIOD = 4, 2, 3
 RESUME_KILL, RESUME_FENCE, RESUME_SEED = 7, 6, 5
 RESUME_LM_LR = 1e-4
 RESUME_SPREAD = 4.0
+# phase 18, tuning: the shape classes of the main paths swept under
+# MXNET_PALLAS_TUNE (label, space, dims, dtype).  A / F at the LM training
+# step's three segments and the serve's 256-row chunks (f32), and a bf16
+# class of the zoo (ResNet-50's stage-4 1x1 convolution at batch 256:
+# 12,544 x 2048 -> 512; the zoo runs it on cuDNN, so this class is a
+# reading for queue B's B4); B at the int8 serve's decode (tq 1), its
+# verify window (tq 9) and its prefill chunk (tq 256) over 128-page
+# views; C-E at the LM's attention; B1 at ResNet-50's slab and the LM's.
+# Phase 18 (c) reruns the serve and three captured LM steps with the
+# winners against the hand-fixed plans: greedy tokens equal,
+# teacher-forced |d log p| within TOL_LOGP, the LM's parameters within
+# CAPTURE_SPREAD times two untuned runs' spread
+TUNE_CASES = [
+    ("A+F LM q/k/v", "fused_kernel",
+     {"m": TRAIN_BATCH * SEQ, "k": EMBED, "n": EMBED}, "float32"),
+    ("A+F LM ffn1", "fused_kernel",
+     {"m": TRAIN_BATCH * SEQ, "k": EMBED, "n": FFN}, "float32"),
+    ("A+F LM ffn2", "fused_kernel",
+     {"m": TRAIN_BATCH * SEQ, "k": FFN, "n": EMBED}, "float32"),
+    ("A+F serve chunk q/k/v", "fused_kernel",
+     {"m": CHUNK, "k": EMBED, "n": EMBED}, "float32"),
+    ("A+F serve chunk ffn1", "fused_kernel",
+     {"m": CHUNK, "k": EMBED, "n": FFN}, "float32"),
+    ("A+F serve chunk ffn2", "fused_kernel",
+     {"m": CHUNK, "k": FFN, "n": EMBED}, "float32"),
+    ("A+F resnet50 1x1 bf16", "fused_kernel",
+     {"m": 256 * 7 * 7, "k": 2048, "n": 512}, "bfloat16"),
+    ("B serve decode", "decode_kernel",
+     {"m": SEQ // PAGE_TOKENS, "tq": 1}, "any"),
+    ("B serve verify", "decode_kernel",
+     {"m": SEQ // PAGE_TOKENS, "tq": SPEC_K + 1}, "any"),
+    ("B serve chunk", "decode_kernel",
+     {"m": SEQ // PAGE_TOKENS, "tq": CHUNK}, "any"),
+    ("C-E LM attention", "flash_kernel",
+     {"t": SEQ, "d": EMBED // TRAIN_HEADS, "g": 1}, "float32"),
+    ("B1 resnet50 slab", "update_kernel", None, "any"),
+    ("B1 LM slab", "update_kernel", None, "any"),
+]
+TUNE_LM_STEPS = 3
+# phase 18 (d), rtc: a user kernel from a source string, x * alpha + y
+# rounded as the plain expression rounds it (a product, then a sum: no
+# FMA), trained inside a small MLP (RTC_MLP: batch, inputs, hidden,
+# classes) for TUNE_LM_STEPS captured steps against eager ones
+RTC_SOURCE = r'''
+#include <cuda_runtime.h>
+__global__ void rtc_scale_add_kernel(const float* x, const float* y,
+                                     float* o, float a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = __fadd_rn(__fmul_rn(x[i], a), y[i]);
+}
+extern "C" int rtc_scale_add(const void* x, const void* y, void* o,
+                             float a, int n, void* stream) {
+  rtc_scale_add_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)y, (float*)o, a, n);
+  return (int)cudaGetLastError();
+}
+'''
+RTC_MLP = (256, 512, 1024, 10)
 
 
 def log(*args):
@@ -851,6 +935,7 @@ def phase_kernel_b(torch, dev, flush):
     partials."""
     import torch.nn.functional as F
 
+    from mxnet_tpu_torch import cuda_build
     from mxnet_tpu_torch.ops import attention as attn
     from mxnet_tpu_torch.ops import decode_kernel as dk
 
@@ -890,7 +975,7 @@ def phase_kernel_b(torch, dev, flush):
             got = fn(q, kp, vp, table, lens, **kw)
             variant = dk.LAST_VARIANT["paged_decode"]
             plan = dk._plan(b, tq, heads, kvh, hd, hd, m, PAGE_TOKENS,
-                            dk._sm_count(dev))
+                            cuda_build.sm_count(dev))
             want = dk.paged_plain(q, kp, vp, table, lens, heads, None,
                                   kvh)
             parts = dk._paged_launch(q, kp, vp, table, lens, heads,
@@ -2269,13 +2354,15 @@ def _b1_capture(torch, uk):
     real = uk.multi_tensor_update
     report = {"launches": 0, "bitwise": True, "path": None}
 
-    def checked(kind, nslots, w, g, slots, wc, lrb, wdb, hyp, plain=False):
+    def checked(kind, nslots, w, g, slots, wc, lrb, wdb, hyp, plain=False,
+                block_rows=uk.BLOCK_ROWS):
         ref = [w.clone()] + [s.clone() for s in slots] \
             + ([wc.clone()] if wc is not None else [])
         path = real(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
-                    plain=plain)
+                    plain=plain, block_rows=block_rows)
         uk.update_plain(kind, nslots, ref[0], g, ref[1:1 + nslots],
-                        ref[-1] if wc is not None else None, lrb, wdb, hyp)
+                        ref[-1] if wc is not None else None, lrb, wdb, hyp,
+                        block_rows)
         got = [w, *slots] + ([wc] if wc is not None else [])
         report["launches"] += 1
         report["path"] = path
@@ -4220,12 +4307,13 @@ def _lstm_first_step(torch, dev, mod, batch, sym_gen):
     real = uk.multi_tensor_update
     b1 = {"launches": 0, "max_ulps": 0, "path": None}
 
-    def checked(kind, nslots, w, g, slots, wc, lrb, wdb, hyp, plain=False):
+    def checked(kind, nslots, w, g, slots, wc, lrb, wdb, hyp, plain=False,
+                block_rows=uk.BLOCK_ROWS):
         ref = [w.clone()] + [t.clone() for t in slots]
         path = real(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
-                    plain=plain)
+                    plain=plain, block_rows=block_rows)
         uk.update_plain(kind, nslots, ref[0], g, ref[1:], None, lrb, wdb,
-                        hyp)
+                        hyp, block_rows)
         b1["launches"] += 1
         b1["path"] = path
         b1["max_ulps"] = max(b1["max_ulps"], max(
@@ -6472,6 +6560,502 @@ def phase_resume(torch, dev):
     return {k: lm[k] + alexnet[k] for k in lm}
 
 
+def _tune_classes():
+    """TUNE_CASES with their shape classes: (label, op, class, dtype); the
+    B1 classes from the ResNet-50 and LM trainables' element counts."""
+    from mxnet_tpu_torch.models import attention_lm, resnet
+    from mxnet_tpu_torch.ops import tuning
+
+    slabs = {
+        "B1 resnet50 slab": _trainable_shapes(
+            resnet.get_symbol(1000, 50, (3, 224, 224)),
+            data=(1, 3, 224, 224), softmax_label=(1,)),
+        "B1 LM slab": _trainable_shapes(
+            attention_lm.get_symbol(vocab_size=VOCAB, seq_len=SEQ,
+                                    num_layers=TRAIN_LAYERS, embed=EMBED,
+                                    heads=TRAIN_HEADS, ffn_hidden=FFN),
+            data=(1, SEQ), softmax_label=(1, SEQ))}
+    out = []
+    for label, op, dims, dtype in TUNE_CASES:
+        if dims is None:
+            dims = {"n": sum(int(np.prod(s)) for s in slabs[label].values())}
+        out.append((label, op, tuning.shape_class_for(**dims), dtype))
+    return out
+
+
+def _sweep_table(tuning, aot, op, sc, dtype, gen):
+    """The record a sweep wrote: the winner and every candidate."""
+    space = tuning.spaces()[op]
+    key = tuning.cache_key(op, sc, dtype, space.version, device=gen)
+    with open(os.path.join(aot.cache_dir(), key + ".json")) as f:
+        entry = json.load(f)
+    swept = entry["swept"]
+    default = next(r for r in swept if r["params"] == space.defaults)
+    win = min((r for r in swept if r["tol_share"] <= 1.0),
+              key=lambda r: r["ms"])
+    if win["params"] != entry["params"]:
+        raise AssertionError("tuning %s %s: the record's winner %s is not "
+                             "its fastest candidate %s"
+                             % (op, sc, entry["params"], win["params"]))
+    return {"candidates": len(swept), "default_ms": default["ms"],
+            "winner": entry["params"], "winner_ms": win["ms"],
+            "max_abs_err": max(r["max_abs_err"] for r in swept),
+            "worst_tol_share": max(r["tol_share"] for r in swept),
+            "table": [[list(r["params"].values()), round(r["ms"], 5),
+                       float("%.3g" % r["max_abs_err"])] for r in swept]}
+
+
+def _tuned_serve(torch, dev, sym, params, prompts, cache, forced):
+    """Phase 5's serve through a predictor whose plans resolve from
+    ``cache`` (an empty directory: the hand-fixed plans), unarmed; then a
+    teacher-forced prefill of the first SLOTS prompts and 8 decode steps
+    fed ``forced`` (or the serve's own tokens).  Returns the tokens, the
+    serve's tokens/s, the per-step probabilities and what kernels A and
+    B last ran after the prefill and after the steps."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.ops import decode_kernel as dk
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.ops import tuning
+
+    with config.overrides(MXNET_PROGRAM_CACHE=cache,
+                          MXNET_PALLAS_TUNE=False):
+        tuning.reset_memo()
+        pred = _predictor(sym, params, False, dev)
+        pred.prepare_programs(SLOTS, CHUNK)
+        _serve(torch, pred, [p[:64] for p in prompts[:2]])
+        _all_counts(zero=True)
+        results, wall, _ = _serve(torch, pred, prompts)
+        launches = _all_counts()
+        forced = forced or results
+        batch = np.zeros((SLOTS, max(PROMPT_LENS[:SLOTS])), np.float32)
+        for i in range(SLOTS):
+            batch[i, :PROMPT_LENS[i]] = prompts[i]
+        state, probs = pred.prefill(batch, np.asarray(PROMPT_LENS[:SLOTS]))
+        after_prefill = fk.LAST_VARIANT["fused_fwd"]
+        steps = [probs.double().clone()]
+        for step in range(8):
+            tok = torch.tensor([[int(forced[i][step])] for i in range(SLOTS)],
+                               dtype=torch.int32, device=dev)
+            state, probs = pred.step(state._replace(tok=tok))
+            steps.append(probs.double().clone())
+        b_ran = (dk.LAST_VARIANT["paged_decode"],
+                 dk.LAST_VARIANT["paged_decode_splits"])
+        tokens = sum(len(t) for t in results.values())
+        del pred, state, probs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"results": results, "tokens_per_s": tokens / wall,
+            "steps": steps, "a_after_prefill": after_prefill,
+            "b_after_steps": b_ran, "launches": launches}
+
+
+def _tuned_lm_run(torch, dev, sym, params, batch, labels, cache):
+    """Phase 6's LM through Module with plans resolved from ``cache``,
+    unarmed: the set-up step (warm-up and capture), then TUNE_LM_STEPS
+    captured steps, counted and timed.  Returns (parameters, launches,
+    step s, losses)."""
+    from mxnet_tpu_torch import config, gpu
+    from mxnet_tpu_torch.io import DataDesc
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops import tuning
+
+    with config.overrides(MXNET_PROGRAM_CACHE=cache,
+                          MXNET_PALLAS_TUNE=False):
+        tuning.reset_memo()
+        mod = Module(sym, context=gpu(0))
+        mod.bind(data_shapes=[DataDesc("data", (TRAIN_BATCH, SEQ),
+                                       layout="NT")],
+                 label_shapes=[DataDesc("softmax_label", (TRAIN_BATCH, SEQ),
+                                        layout="NT")])
+        mod.init_params(arg_params=params, aux_params={})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": TRAIN_LR})
+        mod.forward_backward(batch)
+        mod.update()
+        _all_counts(zero=True)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TUNE_LM_STEPS):
+            mod.forward_backward(batch)
+            mod.update()
+            p = mod.get_outputs()[0].data.gather(1, labels)
+            losses.append(float(-torch.log(torch.clamp_min(p, 1e-30))
+                                .mean()))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / TUNE_LM_STEPS
+        launches = _all_counts()
+        snap = _snapshot(mod)
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+    return snap, launches, step_s, losses
+
+
+_COLD_CHILD = """
+import json, sys
+import torch
+from mxnet_tpu_torch.ops import tuning
+
+tuning.spaces()
+dev = torch.device("cuda", 0)
+out = [tuning.resolve(op, sc, dt, device=dev)
+       for op, sc, dt in json.loads(sys.argv[1])]
+print(json.dumps({"probes": tuning.PROBE_COUNT["n"], "params": out}))
+"""
+
+
+def _rtc_phase(torch, dev, card):
+    """(d): build a user kernel from a source string, register it, hold
+    it against the plain expression imperatively and through a bound
+    symbol's gradient, train an MLP with the op inside through the
+    captured Module step bit for bit against eager, and find the user
+    kernel in a profiled replay."""
+    import ctypes
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import programs
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    lib = mt.rtc.build(RTC_SOURCE)
+    build_s = time.perf_counter() - t0
+    p = ctypes.c_void_p
+    lib.rtc_scale_add.argtypes = [p, p, p, ctypes.c_float, ctypes.c_int, p]
+    launched = {"n": 0}
+
+    def forward(x, y, alpha=2.0):
+        if x.device.type != "cuda":
+            return x * alpha + y
+        x, y = x.contiguous(), y.contiguous()
+        o = torch.empty_like(x)
+        rc = lib.rtc_scale_add(x.data_ptr(), y.data_ptr(), o.data_ptr(),
+                               alpha, x.numel(),
+                               torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError("rtc_scale_add: CUDA error %d" % rc)
+        launched["n"] += 1
+        return o
+
+    def backward(inputs, outputs, cotangents, alpha=2.0):
+        (g,) = cotangents
+        return [g * alpha, g]
+
+    mt.rtc.register_cuda_op("smoke_scale_add", forward, backward=backward,
+                            num_inputs=2, attr_params={"alpha": 2.0})
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    x = torch.randn(1 << 20, generator=g, device=dev)
+    y = torch.randn(1 << 20, generator=g, device=dev)
+    got = mt.nd.smoke_scale_add(mt.nd.NDArray(x), mt.nd.NDArray(y),
+                                alpha=3.0).data
+    torch.cuda.synchronize()
+    imp_err = float((got - (x * 3.0 + y)).abs().max())
+    a, b = mt.sym.Variable("a"), mt.sym.Variable("b")
+    xs, ys = x[:4096].reshape(64, 64), y[:4096].reshape(64, 64)
+    ex = mt.sym.smoke_scale_add(a, b, alpha=1.5).bind(
+        mt.gpu(0), {"a": mt.nd.NDArray(xs), "b": mt.nd.NDArray(ys)},
+        args_grad={"a": mt.nd.NDArray(torch.zeros_like(xs)),
+                   "b": mt.nd.NDArray(torch.zeros_like(ys))})
+    sym_out = ex.forward(is_train=True)[0].data
+    dy = torch.randn(64, 64, generator=g, device=dev)
+    ex.backward(out_grads=mt.nd.NDArray(dy))
+    torch.cuda.synchronize()
+    sym_err = max(float((sym_out - (xs * 1.5 + ys)).abs().max()),
+                  float((ex.grad_dict["a"].data - dy * 1.5).abs().max()),
+                  float((ex.grad_dict["b"].data - dy).abs().max()))
+    if imp_err != 0.0 or sym_err != 0.0 or launched["n"] < 2:
+        raise AssertionError("rtc (d): the user kernel against the plain "
+                             "expression: imperative %g, symbolic %g, %d "
+                             "launches" % (imp_err, sym_err, launched["n"]))
+
+    nb, ni, nh, nc = RTC_MLP
+    rng = np.random.RandomState(18)
+    xb = rng.randn(nb, ni).astype(np.float32)
+    yb = rng.randint(0, nc, size=nb).astype(np.float32)
+    args = {"fc1_weight": rng.randn(nh, ni) * ni ** -0.5,
+            "fc1_bias": np.zeros(nh), "skip_weight": rng.randn(nh, ni)
+            * ni ** -0.5, "skip_bias": np.zeros(nh),
+            "fc2_weight": rng.randn(nc, nh) * nh ** -0.5,
+            "fc2_bias": np.zeros(nc)}
+    args = {k: v.astype(np.float32) for k, v in args.items()}
+    data = mt.sym.Variable("data")
+    h = mt.sym.smoke_scale_add(
+        mt.sym.FullyConnected(data, num_hidden=nh, name="fc1"),
+        mt.sym.FullyConnected(data, num_hidden=nh, name="skip"), alpha=0.5)
+    net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+        mt.sym.Activation(h, act_type="tanh"), num_hidden=nc, name="fc2"),
+        name="softmax")
+    batch = mt.io.DataBatch([mt.nd.array(xb, ctx=mt.gpu(0))],
+                            [mt.nd.array(yb, ctx=mt.gpu(0))])
+
+    def train(eager):
+        mod = mt.mod.Module(net, context=mt.gpu(0))
+        mod.bind(data_shapes=[("data", xb.shape)],
+                 label_shapes=[("softmax_label", yb.shape)])
+        mod.init_params(arg_params={k: mt.nd.array(v, ctx=mt.gpu(0))
+                                    for k, v in args.items()})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+        if mod._train_step is None:
+            raise AssertionError("rtc (d): no compiled step for the MLP")
+        for _ in range(TUNE_LM_STEPS):
+            with programs.eager() if eager else contextlib.nullcontext():
+                mod.forward_backward(batch)
+                mod.update()
+        torch.cuda.synchronize()
+        return mod, {k: v.data.detach().cpu().clone()
+                     for k, v in mod.get_params()[0].items()}
+
+    replays = programs.GRAPH_STATS["replays"]
+    mod, captured = train(False)
+    replays = programs.GRAPH_STATS["replays"] - replays
+    _, eager = train(True)
+    unequal = sorted(k for k in eager if not torch.equal(captured[k],
+                                                         eager[k]))
+    moved = sorted(k for k in args if not torch.equal(
+        captured[k], torch.from_numpy(args[k])))
+    # the profiled replays: a spin first, so the session's early loss of
+    # device records falls on the spin, then five replays of the step
+    spin = torch.randn(4096, 4096, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            spin = spin @ spin * (1.0 / 64)
+        for _ in range(5):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+    calls = sum(e.count for e in prof.key_averages()
+                if "rtc_scale_add_kernel" in e.key)
+    out = {"card": card, "build_s": build_s, "imperative_max_abs_err":
+           imp_err, "symbolic_max_abs_err": sym_err,
+           "captured_steps": TUNE_LM_STEPS, "step_replays": replays,
+           "captured_vs_eager_bitwise": not unequal, "unequal": unequal,
+           "parameters_moved": moved,
+           "profiled_kernel_calls": calls}
+    log("rtc (d): " + json.dumps(out))
+    if unequal or replays < TUNE_LM_STEPS - 1 or calls < 1 \
+            or "fc1_weight" not in moved:
+        raise AssertionError("rtc (d): the MLP with the user op, captured "
+                             "against eager: %s" % out)
+    return out
+
+
+def phase_tuning(torch, dev):
+    """Phase 18: sweep the main paths' shape classes (a), read them back
+    in a cold process with zero probes (b), run the serve and the LM's
+    captured steps with the winners against the hand-fixed plans (c),
+    and a user kernel through rtc (d).  The tuning cache is a fresh
+    temporary directory, deleted at the end; the memo is reset at the
+    start and at the end."""
+    from mxnet_tpu_torch import config, cuda_build
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.ops import decode_kernel as dk
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.ops import tuning
+    from mxnet_tpu_torch.programs import aot
+
+    card = _smi_line()
+    # the sweeps hold each candidate to the tolerance of its kernel's own
+    # phase
+    want_tol = (fk.SWEEP_TOL == {"a": TOL_A, "a_stats": TOL_A_STATS,
+                                 "dx": {"float32": TOL_F32,
+                                        "bfloat16": TOL_BF16},
+                                 "long": TOL_F32_LONG}
+                and dk.SWEEP_TOL == TOL_B
+                and fl.SWEEP_TOL == {"float32": TOL_F32,
+                                     "bfloat16": TOL_BF16,
+                                     "lse": TOL_F32})
+    if not want_tol:
+        raise AssertionError("tuning: the sweeps' tolerances differ from "
+                             "the kernel phases'")
+    t_all = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mx_tuning_")
+    cache, cold = os.path.join(root, "cache"), os.path.join(root, "cold")
+    gen = tuning.device_generation(dev)
+    tuning.reset_memo()
+    try:
+        # (a) the sweep
+        classes = _tune_classes()
+        tables = {}
+        t0 = time.perf_counter()
+        with config.overrides(MXNET_PROGRAM_CACHE=cache,
+                              MXNET_PALLAS_TUNE=True):
+            launches0 = _all_counts()
+            for label, op, sc, dtype in classes:
+                t1 = time.perf_counter()
+                tuning.resolve(op, sc, dtype, device=dev)
+                table = _sweep_table(tuning, aot, op, sc, dtype, gen)
+                table.update(label=label, op=op, shape_class=sc,
+                             dtype=dtype, card=card,
+                             sweep_s=time.perf_counter() - t1)
+                log("tuning (a) %s: %s" % (label, json.dumps(table)))
+                tables[label] = table
+                if table["worst_tol_share"] > 1.0:
+                    raise AssertionError(
+                        "tuning (a) %s: a candidate beyond its kernel's "
+                        "tolerance (%.3gx)" % (label,
+                                               table["worst_tol_share"]))
+            if _all_counts() != launches0:
+                raise AssertionError("tuning (a): the sweeps moved the "
+                                     "kernels' launch counters")
+        sweep_s = time.perf_counter() - t0
+        probes = tuning.PROBE_COUNT["n"]
+
+        # (b) a cold process sharing only the cache directory
+        t0 = time.perf_counter()
+        env = dict(os.environ, MXNET_PROGRAM_CACHE=cache,
+                   MXNET_PALLAS_TUNE="1")
+        proc = subprocess.run(
+            [sys.executable, "-c", _COLD_CHILD,
+             json.dumps([c[1:] for c in classes])], capture_output=True,
+            text=True, timeout=600, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError("tuning (b): the cold process failed:\n"
+                                 + proc.stderr[-3000:])
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        same = child["params"] == [tables[c[0]]["winner"] for c in classes]
+        cold_read = {"card": card, "probes": child["probes"],
+                     "classes": len(classes), "same_params": same,
+                     "wall_s": time.perf_counter() - t0}
+        log("tuning (b): " + json.dumps(cold_read))
+        if child["probes"] != 0 or not same:
+            raise AssertionError("tuning (b): the cold process probed %d "
+                                 "times or resolved other params: %s"
+                                 % (child["probes"], child["params"]))
+
+        # (c) the winners on the main paths, against the hand-fixed plans
+        t0 = time.perf_counter()
+        sym, params, _ = _lm(torch, dev)
+        prompts = _prompts()
+        base = _tuned_serve(torch, dev, sym, params, prompts, cold, None)
+        tuned = _tuned_serve(torch, dev, sym, params, prompts, cache,
+                             base["results"])
+        del params
+        agree = float(np.mean([np.mean(base["results"][r]
+                                       == tuned["results"][r])
+                               for r in base["results"]]))
+        dlogp = max(float((torch.log(a) - torch.log(b)).abs().max())
+                    for a, b in zip(tuned["steps"], base["steps"]))
+        sms = cuda_build.sm_count(dev)
+        hd = EMBED // HEADS
+        win = {label: tables[label]["winner"] for label in tables}
+        want_a = fk._plan(CHUNK, FFN, EMBED, torch.float32, "fwd", True,
+                          win["A+F serve chunk ffn2"], sms).variant
+        bw = win["B serve decode"]
+        b_plan = dk._plan(SLOTS, 1, HEADS, HEADS, hd, hd,
+                          SEQ // PAGE_TOKENS, PAGE_TOKENS, sms, True,
+                          bw["blocks_per_sm"], bw["min_split_tokens"],
+                          bw["max_splits"])
+        serve = {"card": card, "greedy_token_agreement": agree,
+                 "teacher_forced_max_abs_dlogp": dlogp,
+                 "tokens_per_s": {"tuned": tuned["tokens_per_s"],
+                                  "untuned": base["tokens_per_s"]},
+                 "a_variant": {"tuned": tuned["a_after_prefill"],
+                               "untuned": base["a_after_prefill"],
+                               "winner": want_a},
+                 "b_ran": {"tuned": tuned["b_after_steps"],
+                           "untuned": base["b_after_steps"],
+                           "winner": [b_plan.variant, b_plan.splits]}}
+        log("tuning (c) serve: " + json.dumps(serve))
+        path_launches = dict(tuned["launches"])
+        del base, tuned
+        if not (agree >= MIN_GREEDY_AGREEMENT and dlogp <= TOL_LOGP):
+            raise AssertionError("tuning (c): the tuned serve against the "
+                                 "untuned one: %s" % serve)
+        if serve["a_variant"]["tuned"] != want_a or \
+                list(serve["b_ran"]["tuned"]) != serve["b_ran"]["winner"]:
+            raise AssertionError("tuning (c): kernels A and B did not run "
+                                 "the winners: %s" % serve)
+
+        lm_sym = attention_lm.get_symbol(
+            vocab_size=VOCAB, seq_len=SEQ, num_layers=TRAIN_LAYERS,
+            embed=EMBED, heads=TRAIN_HEADS, ffn_hidden=FFN)
+        lm_params = _train_params(lm_sym)
+        rng = np.random.RandomState(1)
+        x = rng.randint(0, VOCAB, size=(TRAIN_BATCH, SEQ)).astype(np.float32)
+        y = np.concatenate([x[:, 1:], np.zeros((TRAIN_BATCH, 1),
+                                               np.float32)], axis=1)
+        batch = DataBatch([nd.array(x)], [nd.array(y)])
+        labels = torch.from_numpy(y.reshape(-1)).long().to(dev)[:, None]
+        start = {n: torch.from_numpy(v).to(dev)
+                 for n, v in lm_params.items()}
+        runs = {k: _tuned_lm_run(torch, dev, lm_sym, lm_params, batch,
+                                 labels, d)
+                for k, d in (("untuned", cold), ("untuned_2", cold),
+                             ("tuned", cache))}
+        per_step = {"fused_fwd": 20, "fused_bwd": 20, "flash_fwd": 4,
+                    "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
+                    "multi_tensor_update": 1}
+        vs = _run_diff(torch, runs["tuned"][0], runs["untuned"][0], start,
+                       _DIRECT)
+        spread = _run_diff(torch, runs["untuned_2"][0], runs["untuned"][0],
+                           start, _DIRECT)
+        train = {"card": card, "steps": TUNE_LM_STEPS,
+                 "step_s": {k: r[2] for k, r in runs.items()},
+                 "losses": {k: r[3] for k, r in runs.items()},
+                 "launches": runs["tuned"][1],
+                 "tuned_vs_untuned": vs, "untuned_vs_untuned": spread,
+                 "max_over_spread": CAPTURE_SPREAD}
+        log("tuning (c) train: " + json.dumps(train))
+        for k, r in runs.items():
+            if {n: r[1].get(n) for n in per_step} != \
+                    {n: v * TUNE_LM_STEPS for n, v in per_step.items()}:
+                raise AssertionError("tuning (c): %s launches %s, want %s a "
+                                     "step" % (k, r[1], per_step))
+            if not all(np.isfinite(r[3])):
+                raise AssertionError("tuning (c): %s losses %s" % (k, r[3]))
+        if any(vs["tiers"][t]["max"]
+               > CAPTURE_SPREAD * max(spread["tiers"][t]["max"], 1e-7)
+               for t in ("before_relu", "behind_relu")):
+            raise AssertionError("tuning (c): the tuned LM steps beyond "
+                                 "two untuned runs' spread: %s" % train)
+        for k, v in runs["tuned"][1].items():
+            path_launches[k] += v
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        c_s = time.perf_counter() - t0
+
+        # (d) a user kernel
+        rtc = _rtc_phase(torch, dev, card)
+    finally:
+        tuning.reset_memo()
+        shutil.rmtree(root, ignore_errors=True)
+    log("tuning: %s" % json.dumps({
+        "card": card, "sweep_s": sweep_s, "probes": probes,
+        "cold_s": cold_read["wall_s"], "winners_s": c_s,
+        "rtc_build_s": rtc["build_s"], "launches": path_launches,
+        "wall_s": time.perf_counter() - t_all}))
+    return tables, path_launches
+
+
+def _all_counts(zero=False):
+    """Every kernel's launch count (set to 0 first with ``zero``)."""
+    out = _resume_counts(zero)
+    if zero:
+        from mxnet_tpu_torch.ops import decode_kernel as dk
+        from mxnet_tpu_torch.ops import fused_kernel as fk
+
+        fk.LAUNCHES["fused_fwd"] = 0
+        dk.LAUNCHES["paged_decode"] = dk.LAUNCHES["paged_combine"] = 0
+    out.update(_launch_counts())
+    return out
+
+
+def _tuning_field(tables, label):
+    """A kernels-line entry's tuning reading: the class, the winner, its
+    ms and the default's."""
+    t = tables[label]
+    return {"class": "%s %s" % (t["shape_class"], t["dtype"]),
+            "winner": t["winner"], "winner_ms": t["winner_ms"],
+            "default_ms": t["default_ms"]}
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6488,6 +7072,19 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # phases 1-17 run the hand-fixed kernel plans: an empty tuning cache
+    # of this run's own, unarmed (phase 18 arms a directory of its own);
+    # nothing is read from or left in the user's cache
+    tune_root = tempfile.mkdtemp(prefix="mx_smoke_tuning_")
+    os.environ["MXNET_PROGRAM_CACHE"] = os.path.join(tune_root, "empty")
+    os.environ["MXNET_PALLAS_TUNE"] = "0"
+    try:
+        return _main(torch)
+    finally:
+        shutil.rmtree(tune_root, ignore_errors=True)
+
+
+def _main(torch):
     import mxnet_tpu_torch  # noqa: F401  (fails outside the repository)
 
     # the plain versions and yardsticks run in full f32, as stated
@@ -6575,6 +7172,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     resume_launches = phase_resume(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tune_tables, tune_launches = phase_tuning(torch, dev)
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -6603,7 +7203,7 @@ def main():
         + imp_launches["fused_fwd"] + export_launches["fused_fwd"] \
         + sum(f["fused_fwd"] for f in fleet_launches.values()) \
         + sum(m["fused_fwd"] for m in moe_launches.values()) \
-        + resume_launches["fused_fwd"]
+        + resume_launches["fused_fwd"] + tune_launches["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -6621,7 +7221,9 @@ def main():
                                   in fleet_launches.items()},
                                **{path: m["fused_fwd"] for path, m
                                   in moe_launches.items()},
-                               "resume": resume_launches["fused_fwd"]},
+                               "resume": resume_launches["fused_fwd"],
+                               "tuning": tune_launches["fused_fwd"]},
+             tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
         dict(_entry("paged_flash_decode",
@@ -6629,7 +7231,8 @@ def main():
                     "mxnet_tpu/ops/pallas_decode.py:169",
                     launches["paged_decode"] + spec_launches["paged_decode"]
                     + sum(f["paged_decode"] for f in fleet_launches.values())
-                    + moe_launches["moe_serve"]["paged_decode"],
+                    + moe_launches["moe_serve"]["paged_decode"]
+                    + tune_launches["paged_decode"],
                     b_main),
              shape="B=4 tq=1 H=4 hd=256 int8 pages lens=%s"
              % b_main["lens"],
@@ -6639,7 +7242,9 @@ def main():
                                **{path: f["paged_decode"] for path, f
                                   in fleet_launches.items()},
                                "moe_serve":
-                                   moe_launches["moe_serve"]["paged_decode"]},
+                                   moe_launches["moe_serve"]["paged_decode"],
+                               "tuning": tune_launches["paged_decode"]},
+             tuning=_tuning_field(tune_tables, "B serve decode"),
              verify_case=brief(b_verify, "tq", "lens", "splits", "rows",
                                "row_tiles"),
              max_abs_err_all_cases=max(c["max_abs_err"] for c in b_cases)),
@@ -6649,7 +7254,8 @@ def main():
                     launches["paged_combine"]
                     + spec_launches["paged_combine"]
                     + sum(f["paged_combine"] for f in fleet_launches.values())
-                    + moe_launches["moe_serve"]["paged_combine"],
+                    + moe_launches["moe_serve"]["paged_combine"]
+                    + tune_launches["paged_combine"],
                     dict(b_main["combine"], library_ms=None,
                          device_ms=b_main["combine"]["device_ms"])),
              shape="B=4 tq=1 H=4 hd=256, %d splits (%d seen)"
@@ -6659,7 +7265,9 @@ def main():
                                **{path: f["paged_combine"] for path, f
                                   in fleet_launches.items()},
                                "moe_serve":
-                                   moe_launches["moe_serve"]["paged_combine"]},
+                                   moe_launches["moe_serve"]["paged_combine"],
+                               "tuning": tune_launches["paged_combine"]},
+             tuning=_tuning_field(tune_tables, "B serve decode"),
              verify_case=b_verify["combine"],
              max_abs_err_all_cases=max(c["combine"]["max_abs_err"]
                                        for c in b_cases)),
@@ -6678,6 +7286,7 @@ def main():
             by_path["out_grads"] = out_grads_launches[counter]
         by_path.update({path: m[counter] for path, m in moe_train.items()})
         by_path["resume"] = resume_launches[counter]
+        by_path["tuning"] = tune_launches[counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -6687,6 +7296,7 @@ def main():
             max_abs_err_all_cases=max(c["max_abs_err"]
                                       for c in cde_cases[name]))
         entry["variant"] = cde_main[name]["variant"]
+        entry["tuning"] = _tuning_field(tune_tables, "C-E LM attention")
         kernels.append(entry)
     kernels.append(dict(
         _entry("fused_ln_linear_bwd", "mxnet_tpu_torch/csrc/fused_bwd.cu",
@@ -6694,7 +7304,8 @@ def main():
                train_launches["fused_bwd"] + out_grads_launches["fused_bwd"]
                + imp_launches["fused_bwd"]
                + sum(m["fused_bwd"] for m in moe_train.values())
-               + resume_launches["fused_bwd"], f_main),
+               + resume_launches["fused_bwd"] + tune_launches["fused_bwd"],
+               f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
         launches_by_path={"train": train_launches["fused_bwd"],
@@ -6702,7 +7313,9 @@ def main():
                           "imperative": imp_launches["fused_bwd"],
                           **{path: m["fused_bwd"] for path, m
                              in moe_train.items()},
-                          "resume": resume_launches["fused_bwd"]},
+                          "resume": resume_launches["fused_bwd"],
+                          "tuning": tune_launches["fused_bwd"]},
+        tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
     # with the bf16 compute copy, no clip
@@ -6717,6 +7330,7 @@ def main():
     b1_by_path.update({path: m["multi_tensor_update"]
                        for path, m in moe_train.items()})
     b1_by_path["resume"] = resume_launches["multi_tensor_update"]
+    b1_by_path["tuning"] = tune_launches["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}
@@ -6728,6 +7342,7 @@ def main():
         shape="resnet-50 slab (157 tensors, %d blocks) sgd-momentum "
               "float32 masters + bfloat16 copy" % b1_main["blocks"],
         launches_by_path=b1_by_path,
+        tuning=_tuning_field(tune_tables, "B1 resnet50 slab"),
         per_param_ms=b1_main["per_param_ms"],
         grad_pack_ms=b1_main["grad_pack_ms"],
         library=b1_main["library"],

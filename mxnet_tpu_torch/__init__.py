@@ -62,7 +62,13 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
   elastic` (async fenced checkpoints, the controller ``fit(...,
   elastic=)`` drives, the fault injector), the iterators' resume surface
   and :mod:`~mxnet_tpu_torch.parallel.health` (heartbeats and the
-  failure monitor).
+  failure monitor);
+* kernel tuning and tooling: :mod:`~mxnet_tpu_torch.ops.tuning` (the
+  kernels' tunable plans, swept on the card under ``MXNET_PALLAS_TUNE``
+  and read back from a content-addressed cache),
+  :mod:`~mxnet_tpu_torch.rtc` (user CUDA kernels built with nvcc and
+  registered as ops), :mod:`~mxnet_tpu_torch.visualization` (``viz``)
+  and :mod:`~mxnet_tpu_torch.contrib` (``tensorboard``).
 
 The hand-written Hopper kernels (``csrc/``): the fused LN->linear
 forward and backward (:mod:`~mxnet_tpu_torch.ops.fused_kernel`), flash
@@ -88,6 +94,10 @@ from . import (autograd, callback, executor, initializer,  # noqa: E402
                recordio, rnn, test_utils, train_step)
 from . import analysis  # noqa: E402
 from . import checkpoint, parallel  # noqa: E402
+from . import rtc  # noqa: E402
+from . import visualization  # noqa: E402
+from . import visualization as viz  # noqa: E402
+from . import contrib  # noqa: E402
 from .decode import DecodePredictor, DecodeServer  # noqa: E402
 from .executor import Executor  # noqa: E402
 from .initializer import init_registry  # noqa: E402
@@ -103,12 +113,13 @@ nd = ndarray
 __all__ = ["AttrScope", "Context", "DecodePredictor", "DecodeServer",
            "Executor", "FeedForward", "Group", "MXNetError", "NameManager",
            "Optimizer", "Predictor", "Variable", "analysis", "autograd",
-           "base", "callback", "checkpoint", "config", "context", "cpu",
+           "base", "callback", "checkpoint", "config", "context",
+           "contrib", "cpu",
            "current_context", "decode", "executor", "gpu", "image",
            "init_registry", "initializer", "io", "lr_scheduler", "metric",
            "mod", "model", "models", "module", "monitor", "nd", "ndarray",
            "num_devices", "obs", "operator", "ops", "optimizer",
            "parallel",
            "predictor", "profiler", "programs", "random",
-           "recordio", "registry", "rnn", "serve", "sym", "symbol",
-           "test_utils", "train_step", "weights"]
+           "recordio", "registry", "rnn", "rtc", "serve", "sym", "symbol",
+           "test_utils", "train_step", "visualization", "viz", "weights"]

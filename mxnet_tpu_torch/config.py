@@ -15,7 +15,10 @@ the fleet's (``MXNET_FLEET_SWAP``, ``MXNET_FLEET_DECODE_BOUND``,
 (``MXNET_MOE_DISPATCH``, ``MXNET_MOE_TOPK``, ``MXNET_MOE_DROPLESS``,
 ``MXNET_MOE_CAPACITY``), and the persistence and liveness keys
 (``MXNET_CKPT_DIR`` ... ``MXNET_CKPT_RESUME``, ``MXNET_ELASTIC_POLL``,
-``MXNET_ELASTIC_TIMEOUT``, ``MXNET_ELASTIC_GRACE``).  The JAX package's
+``MXNET_ELASTIC_TIMEOUT``, ``MXNET_ELASTIC_GRACE``), and the tuning
+cache's (``MXNET_PALLAS_TUNE``, which here arms sweeps of the CUDA
+kernels' plans, and ``MXNET_PROGRAM_CACHE``, whose default is a
+directory of the port's own).  The JAX package's
 ``MXNET_TRANSFER_GUARD`` has no counterpart: it arms jax's device-to-host
 transfer guard, which torch does not have.  Nor has its
 ``MXNET_HEARTBEAT_DIR``: there only the distributed KVStore reads it, to
@@ -321,3 +324,24 @@ register("MXNET_ELASTIC_GRACE", float, 30.0,
          "Startup allowance (seconds) for registered-but-not-yet-stamped "
          "workers: within this window of the heartbeat directory's epoch "
          "a missing first stamp does not read as dead.")
+register("MXNET_PALLAS_TUNE", bool, False,
+         "Autotune the hand-written CUDA kernels' launch plans on the "
+         "card (ops/tuning.py): each kernel module's registered "
+         "candidate space (kernel A / F tile sides and dW splits, kernel "
+         "B's split rule, kernel B1's block height; C-E record their "
+         "compiled tiles) is swept with timed probes, each candidate "
+         "held against the kernel's plain version, and the winner is "
+         "persisted in the content-addressed tuning cache (the "
+         "MXNET_PROGRAM_CACHE directory) keyed by (card name, op, shape "
+         "class, dtype, space version) -- a later process resolves the "
+         "same key from disk with zero probes.  The JAX package's name, "
+         "so one environment arms both packages.  Off (default) = the "
+         "modules' hand-fixed rules; cached winners are still READ when "
+         "present.  Only a CUDA device sweeps: the CPU runs the plain "
+         "versions and resolves to the defaults.")
+register("MXNET_PROGRAM_CACHE", str, "",
+         "Directory of the tuning cache (ops/tuning.py: tune_<sha>.json "
+         "records).  Empty (default) = ~/.cache/mxnet_tpu_torch/"
+         "programs, apart from the JAX package's directory, so neither "
+         "package reads the other's files.  The reference's serialized "
+         "executables have no counterpart here (programs/aot.py).")

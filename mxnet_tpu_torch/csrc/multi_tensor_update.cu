@@ -12,19 +12,23 @@
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_update.py `_kernel`
 // (launched by `_bucket_call`).  A slab is (rows, 128) with rows a
-// multiple of 16: plan block b is elements [2048 b, 2048 b + 2048) and
-// takes lr[b], wd[b] (one parameter's segment never shares a block with
-// another's).  The gradient slab is always f32.
+// multiple of the plan's block height R (16, 32 or 64: the tuned
+// `block_rows` of ops/update_kernel.py): plan block b is elements
+// [128 R b, 128 R (b + 1)) and takes lr[b], wd[b] (one parameter's segment
+// never shares a block with another's).  The gradient slab is always f32.
 //
-// Design: one CUDA block of 256 threads per plan block, 8 elements per
-// thread, loaded and stored 16 bytes at a time (two float4 for f32, one
-// uint4 of 8 bf16 / f16), with f32 arithmetic in registers.  No block
-// depends on another, so the grid is the block count and nothing is
-// reduced.  Every product, sum, difference, square root and quotient
-// rounds on its own (__fmul_rn, __fadd_rn, __fsub_rn, __fsqrt_rn,
-// __fdiv_rn) in the order above: nvcc would otherwise contract
-// `a * b + c` into one FMA, and the kernel would no longer equal its
-// plain version (torch ops, one rounding per op) bit for bit.  The clamp
+// Design: one CUDA block of 256 threads per plan block, walking it in
+// chunks of 2048 elements (8 a thread), loaded and stored 16 bytes at a
+// time (two float4 for f32, one uint4 of 8 bf16 / f16), with f32
+// arithmetic in registers.  The block's element count is a launch
+// argument (a multiple of 2048), so the block height is a plan choice,
+// not a build constant.  No block depends on another, so the grid is the
+// block count and nothing is reduced.  Every product, sum, difference,
+// square root and quotient rounds on its own (__fmul_rn, __fadd_rn,
+// __fsub_rn, __fsqrt_rn, __fdiv_rn) in the order above: nvcc would
+// otherwise contract `a * b + c` into one FMA, and the kernel would no
+// longer equal its plain version (torch ops, one rounding per op) bit for
+// bit.  The clamp
 // is written with comparisons, so a NaN gradient stays NaN as it does in
 // torch.clamp.  Casts to bf16 / f16 round to nearest even, as torch's do.
 //
@@ -39,7 +43,7 @@
 
 namespace {
 
-constexpr int kBlockElems = 2048;  // (16, 128): one plan block
+constexpr int kChunkElems = 2048;  // (16, 128): one pass of a block
 constexpr int kThreads = 256;
 constexpr int kPer = 8;            // elements per thread
 
@@ -93,51 +97,53 @@ __global__ void __launch_bounds__(kThreads)
 mtu_kernel(TM* __restrict__ w, const float* __restrict__ g,
            TM* __restrict__ s0, TM* __restrict__ s1, TC* __restrict__ wc,
            const float* __restrict__ lr, const float* __restrict__ wd,
-           Hyper hp) {
-  const int64_t base =
-      (int64_t)blockIdx.x * kBlockElems + (int64_t)threadIdx.x * kPer;
+           Hyper hp, int block_elems) {
   const float blr = lr[blockIdx.x];
   const float bwd = wd[blockIdx.x];
-  float wv[kPer], gv[kPer], m0[kPer], m1[kPer];
-  load8(w + base, wv);
-  load8(g + base, gv);
-  if (NSLOTS > 0) load8(s0 + base, m0);
-  if (NSLOTS > 1) load8(s1 + base, m1);
+  for (int c = 0; c < block_elems; c += kChunkElems) {
+    const int64_t base = (int64_t)blockIdx.x * block_elems + c +
+                         (int64_t)threadIdx.x * kPer;
+    float wv[kPer], gv[kPer], m0[kPer], m1[kPer];
+    load8(w + base, wv);
+    load8(g + base, gv);
+    if (NSLOTS > 0) load8(s0 + base, m0);
+    if (NSLOTS > 1) load8(s1 + base, m1);
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    float gi = __fmul_rn(gv[i], hp.rescale);
-    if (hp.clip > 0.f) {
-      gi = gi < -hp.clip ? -hp.clip : (gi > hp.clip ? hp.clip : gi);
-    }
-    if (KIND == 0) {
-      const float step = __fmul_rn(blr, __fadd_rn(gi, __fmul_rn(bwd, wv[i])));
-      if (NSLOTS == 1) {
-        m0[i] = __fsub_rn(__fmul_rn(hp.h2, m0[i]), step);
-        wv[i] = __fadd_rn(wv[i], m0[i]);
-      } else {
-        wv[i] = __fsub_rn(wv[i], step);
+    for (int i = 0; i < kPer; ++i) {
+      float gi = __fmul_rn(gv[i], hp.rescale);
+      if (hp.clip > 0.f) {
+        gi = gi < -hp.clip ? -hp.clip : (gi > hp.clip ? hp.clip : gi);
       }
-    } else {
-      gi = __fadd_rn(gi, __fmul_rn(bwd, wv[i]));
-      m0[i] = __fadd_rn(__fmul_rn(hp.h2, m0[i]),
-                        __fmul_rn(__fsub_rn(1.f, hp.h2), gi));
-      m1[i] = __fadd_rn(__fmul_rn(hp.h3, m1[i]),
-                        __fmul_rn(__fsub_rn(1.f, hp.h3), __fmul_rn(gi, gi)));
-      wv[i] = __fsub_rn(wv[i],
-                        __fdiv_rn(__fmul_rn(blr, m0[i]),
-                                  __fadd_rn(__fsqrt_rn(m1[i]), hp.h4)));
+      if (KIND == 0) {
+        const float step = __fmul_rn(blr, __fadd_rn(gi, __fmul_rn(bwd, wv[i])));
+        if (NSLOTS == 1) {
+          m0[i] = __fsub_rn(__fmul_rn(hp.h2, m0[i]), step);
+          wv[i] = __fadd_rn(wv[i], m0[i]);
+        } else {
+          wv[i] = __fsub_rn(wv[i], step);
+        }
+      } else {
+        gi = __fadd_rn(gi, __fmul_rn(bwd, wv[i]));
+        m0[i] = __fadd_rn(__fmul_rn(hp.h2, m0[i]),
+                          __fmul_rn(__fsub_rn(1.f, hp.h2), gi));
+        m1[i] = __fadd_rn(__fmul_rn(hp.h3, m1[i]),
+                          __fmul_rn(__fsub_rn(1.f, hp.h3), __fmul_rn(gi, gi)));
+        wv[i] = __fsub_rn(wv[i],
+                          __fdiv_rn(__fmul_rn(blr, m0[i]),
+                                    __fadd_rn(__fsqrt_rn(m1[i]), hp.h4)));
+      }
     }
+    store8(w + base, wv);
+    if (NSLOTS > 0) store8(s0 + base, m0);
+    if (NSLOTS > 1) store8(s1 + base, m1);
+    if (HAS_WC) store8(wc + base, wv);
   }
-  store8(w + base, wv);
-  if (NSLOTS > 0) store8(s0 + base, m0);
-  if (NSLOTS > 1) store8(s1 + base, m1);
-  if (HAS_WC) store8(wc + base, wv);
 }
 
 template <int KIND, int NSLOTS, typename TM>
 int launch(int wc_code, void* w, const float* g, void* s0, void* s1,
            void* wc, const float* lr, const float* wd, int nblocks,
-           Hyper hp, cudaStream_t stream) {
+           int block_elems, Hyper hp, cudaStream_t stream) {
   TM* wm = static_cast<TM*>(w);
   TM* m0 = static_cast<TM*>(s0);
   TM* m1 = static_cast<TM*>(s1);
@@ -145,17 +151,19 @@ int launch(int wc_code, void* w, const float* g, void* s0, void* s1,
     case 0:
       mtu_kernel<KIND, NSLOTS, TM, float, false>
           <<<nblocks, kThreads, 0, stream>>>(wm, g, m0, m1, nullptr, lr,
-                                             wd, hp);
+                                             wd, hp, block_elems);
       break;
     case 1:
       mtu_kernel<KIND, NSLOTS, TM, __nv_bfloat16, true>
           <<<nblocks, kThreads, 0, stream>>>(
-              wm, g, m0, m1, static_cast<__nv_bfloat16*>(wc), lr, wd, hp);
+              wm, g, m0, m1, static_cast<__nv_bfloat16*>(wc), lr, wd, hp,
+              block_elems);
       break;
     case 2:
       mtu_kernel<KIND, NSLOTS, TM, __half, true>
           <<<nblocks, kThreads, 0, stream>>>(
-              wm, g, m0, m1, static_cast<__half*>(wc), lr, wd, hp);
+              wm, g, m0, m1, static_cast<__half*>(wc), lr, wd, hp,
+              block_elems);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -166,16 +174,16 @@ int launch(int wc_code, void* w, const float* g, void* s0, void* s1,
 template <typename TM>
 int dispatch(int kind, int nslots, int wc_code, void* w, const float* g,
              void* s0, void* s1, void* wc, const float* lr, const float* wd,
-             int nblocks, Hyper hp, cudaStream_t stream) {
+             int nblocks, int block_elems, Hyper hp, cudaStream_t stream) {
   if (kind == 0 && nslots == 0)
-    return launch<0, 0, TM>(wc_code, w, g, s0, s1, wc, lr, wd, nblocks, hp,
-                            stream);
+    return launch<0, 0, TM>(wc_code, w, g, s0, s1, wc, lr, wd, nblocks,
+                            block_elems, hp, stream);
   if (kind == 0 && nslots == 1)
-    return launch<0, 1, TM>(wc_code, w, g, s0, s1, wc, lr, wd, nblocks, hp,
-                            stream);
+    return launch<0, 1, TM>(wc_code, w, g, s0, s1, wc, lr, wd, nblocks,
+                            block_elems, hp, stream);
   if (kind == 1 && nslots == 2)
-    return launch<1, 2, TM>(wc_code, w, g, s0, s1, wc, lr, wd, nblocks, hp,
-                            stream);
+    return launch<1, 2, TM>(wc_code, w, g, s0, s1, wc, lr, wd, nblocks,
+                            block_elems, hp, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -185,15 +193,17 @@ extern "C" {
 
 // kind: 0 = sgd, 1 = adam; master: 0 = float32, 1 = bfloat16; wc_code:
 // 0 = no compute copy, 1 = bfloat16, 2 = float16.  g, lr and wd are f32;
-// s0 / s1 (slots, master dtype) may be null when nslots says so.  h2..h4
-// are momentum, or b1, b2, eps.  Returns the CUDA error of the launch
-// (0 = cudaSuccess).
+// s0 / s1 (slots, master dtype) may be null when nslots says so.
+// block_elems: elements of a plan block (128 x its block height, a
+// multiple of 2048); lr / wd hold one value a block.  h2..h4 are momentum,
+// or b1, b2, eps.  Returns the CUDA error of the launch (0 = cudaSuccess).
 int multi_tensor_update(int kind, int nslots, int master, int wc_code,
                         void* w, const void* g, void* s0, void* s1, void* wc,
                         const void* lr, const void* wd, int nblocks,
-                        float rescale, float clip, float h2, float h3,
-                        float h4, void* stream) {
-  if (nblocks <= 0) return (int)cudaErrorInvalidValue;
+                        int block_elems, float rescale, float clip, float h2,
+                        float h3, float h4, void* stream) {
+  if (nblocks <= 0 || block_elems <= 0 || block_elems % kChunkElems != 0)
+    return (int)cudaErrorInvalidValue;
   if ((nslots > 0 && s0 == nullptr) || (nslots > 1 && s1 == nullptr) ||
       (wc_code != 0 && wc == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -204,10 +214,10 @@ int multi_tensor_update(int kind, int nslots, int master, int wc_code,
   const float* wf = static_cast<const float*>(wd);
   if (master == 0)
     return dispatch<float>(kind, nslots, wc_code, w, gf, s0, s1, wc, lf, wf,
-                           nblocks, hp, s);
+                           nblocks, block_elems, hp, s);
   if (master == 1)
     return dispatch<__nv_bfloat16>(kind, nslots, wc_code, w, gf, s0, s1, wc,
-                                   lf, wf, nblocks, hp, s);
+                                   lf, wf, nblocks, block_elems, hp, s);
   return (int)cudaErrorInvalidValue;
 }
 

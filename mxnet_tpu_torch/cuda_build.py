@@ -20,7 +20,8 @@ import subprocess
 
 from .base import MXNetError
 
-__all__ = ["SOURCES", "build", "lib", "BUILD_LOG"]
+__all__ = ["SOURCES", "build", "lib", "BUILD_LOG", "source_digest",
+           "sm_count"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -34,6 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # and shared-memory report) from the build that produced it
 _LIBS = {}
 BUILD_LOG = {}
+# device -> its SM count
+_SMS = {}
 
 
 def _nvcc():
@@ -44,15 +47,23 @@ def _nvcc():
     return path
 
 
-def _target(name):
+def source_digest(name):
+    """Hex digest of one kernel library's build: its source, every
+    shared header (``csrc/*.cuh``) and the flags.  It names the built
+    library and versions the kernel's tuning space (``ops/tuning.py``),
+    so an edited source rebuilds and turns its tuned plans stale."""
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for path in [os.path.join(CSRC, name + ".cu")] + sorted(
             glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0"
                           + f.read())
+    return digest.hexdigest()
+
+
+def _target(name):
     return os.path.join(BUILD_DIR, "lib%s-%s.so"
-                        % (name, digest.hexdigest()[:12]))
+                        % (name, source_digest(name)[:12]))
 
 
 def _declare(name, cdll):
@@ -84,9 +95,9 @@ def _declare(name, cdll):
             fn.restype = i
     elif name == "multi_tensor_update":
         # kind, nslots, master, wc_code, w, g, s0, s1, wc, lr, wd, nblocks,
-        # rescale, clip, h2, h3, h4, stream
+        # block_elems, rescale, clip, h2, h3, h4, stream
         cdll.multi_tensor_update.argtypes = [i, i, i, i, p, p, p, p, p, p, p,
-                                             i, f, f, f, f, f, p]
+                                             i, i, f, f, f, f, f, p]
         cdll.multi_tensor_update.restype = i
     else:
         # variant, pool dtype, q, kpool, vpool, kscale, vscale, table,
@@ -138,6 +149,18 @@ def lib(name):
     """The loaded library of one kernel, built at first use."""
     got = _LIBS.get(name)
     return got if got is not None else build((name,))[name]
+
+
+def sm_count(dev):
+    """The streaming multiprocessors of CUDA device ``dev`` (the kernels'
+    plans size their grids from it), read once a device."""
+    got = _SMS.get(dev)
+    if got is None:
+        import torch
+
+        got = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return got
 
 
 def check(cdll, rc, what):

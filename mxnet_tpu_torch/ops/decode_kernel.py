@@ -21,8 +21,16 @@ H*hd_v) in the output dtype; :func:`_combine` is its plain version.
 windows of at most :data:`DECODE_MAX_TQ` rows, ``chunk`` for prefill
 chunks at head dims :data:`CHUNK_HEAD_DIMS`), the split count from the
 card's SM count, the rows a block serves — and ``LAST_VARIANT`` records
-what ran.  ``LAUNCHES["paged_decode"]`` counts kernel-B launches,
-``LAUNCHES["paged_combine"]`` the combine's.
+what ran (``"paged_decode"``) and its split count
+(``"paged_decode_splits"``).  ``LAUNCHES["paged_decode"]`` counts kernel-B
+launches, ``LAUNCHES["paged_combine"]`` the combine's.
+
+The split rule's constants are the tunable space ``"decode_kernel"``
+(``ops/tuning.py``): ``blocks_per_sm`` (:data:`BLOCKS_PER_SM`),
+``min_split_tokens`` (0: :data:`MIN_SPLIT_TOKENS` of the variant) and
+``max_splits`` (a cap; 0: none), keyed by the reference's ``(m, g)``
+class plus the query rows' bucket ``tq`` (so the decode and chunk
+variants never share a winner), one decision for every pool dtype.
 """
 from __future__ import annotations
 
@@ -59,13 +67,17 @@ MAX_SPLIT_PAGES = 2048
 MAX_HEAD_DIM = 512
 
 LAUNCHES = {"paged_decode": 0, "paged_combine": 0}
-# the variant the last launch of kernel B ran (see _plan)
-LAST_VARIANT = {"paged_decode": None}
+# the variant and split count the last launch of kernel B ran (see _plan)
+LAST_VARIANT = {"paged_decode": None, "paged_decode_splits": None}
+# the tunable space's params (see _plan)
+TUNE_DEFAULTS = {"blocks_per_sm": BLOCKS_PER_SM, "min_split_tokens": 0,
+                 "max_splits": 0}
+# grouped shape classes already checked for an MHA-keyed record
+_STALE_GROUP_CHECKED = set()
 
 _POOL_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
               torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SMS = {}
 
 
 def _num_splits(m, cap=MAX_SPLITS):
@@ -187,12 +199,17 @@ def _cdiv(a, b):
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(b, tq, heads, kv_heads, hd_k, hd_v, m, pt, sms, aligned=True):
+def _plan(b, tq, heads, kv_heads, hd_k, hd_v, m, pt, sms, aligned=True,
+          blocks_per_sm=BLOCKS_PER_SM, min_split_tokens=0, max_splits=0):
     """The card's choices for kernel B (pure Python: the CPU tests read
     it).  One block per (split, kv-head, row tile, slot) serves every
-    q-head of the kv group; the split count aims at BLOCKS_PER_SM blocks
-    an SM of a card with ``sms`` SMs, since the live lengths stay on the
-    device (splits past a slot's length exit at once)."""
+    q-head of the kv group; the split count aims at ``blocks_per_sm``
+    blocks an SM of a card with ``sms`` SMs, since the live lengths stay
+    on the device (splits past a slot's length exit at once), capped at
+    ``max_splits`` (0: no cap); a split holds at least
+    ``min_split_tokens`` tokens (0: the variant's
+    :data:`MIN_SPLIT_TOKENS`).  The last three are the tunable space's
+    params, arguments so the cache keys on them."""
     rows = (heads // kv_heads) * tq
     chunk = (tq > DECODE_MAX_TQ and hd_k == hd_v
              and hd_k in CHUNK_HEAD_DIMS and aligned)
@@ -200,8 +217,11 @@ def _plan(b, tq, heads, kv_heads, hd_k, hd_v, m, pt, sms, aligned=True):
     row_tile = CHUNK_ROWS if chunk else (1 if rows == 1 else DECODE_ROWS)
     row_tiles = _cdiv(rows, row_tile)
     per_split = b * kv_heads * row_tiles
-    splits = max(1, min(m, _cdiv(BLOCKS_PER_SM * sms, per_split)))
-    pps = max(_cdiv(m, splits), _cdiv(MIN_SPLIT_TOKENS[variant], pt))
+    splits = max(1, min(m, _cdiv(blocks_per_sm * sms, per_split)))
+    if max_splits:
+        splits = min(splits, max_splits)
+    min_tokens = min_split_tokens or MIN_SPLIT_TOKENS[variant]
+    pps = max(_cdiv(m, splits), _cdiv(min_tokens, pt))
     pps = min(pps, m, MAX_SPLIT_PAGES)
     splits = _cdiv(m, pps)
     # head dims 64 / 128 / 256 / 512 fill the warp's 32 lanes exactly
@@ -210,20 +230,45 @@ def _plan(b, tq, heads, kv_heads, hd_k, hd_v, m, pt, sms, aligned=True):
                 splits * per_split)
 
 
-def _sm_count(dev):
-    got = _SMS.get(dev)
-    if got is None:
-        got = _SMS[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return got
+def _tuned(m, tq, groups, dev):
+    """The tuning cache's split params for a view of ``m`` pages, ``tq``
+    query rows and ``groups`` q-heads a kv-head (``TUNE_DEFAULTS`` when
+    the cache is cold and no sweep is armed).  Grouped shapes key on
+    their group too, so a GQA sweep never collides with an MHA winner;
+    a grouped shape that finds only an MHA-keyed record warns once and
+    reads it as a miss."""
+    from . import tuning
+
+    dims = {"m": m, "tq": tq}
+    if groups > 1:
+        dims["g"] = groups
+    sc = tuning.shape_class_for(**dims)
+    gen = tuning.device_generation(dev)
+    if groups > 1 and gen is not None and sc not in _STALE_GROUP_CHECKED:
+        _STALE_GROUP_CHECKED.add(sc)
+        mha_sc = tuning.shape_class_for(m=m, tq=tq)
+        version = tuning.spaces()["decode_kernel"].version
+        if (tuning.get("decode_kernel", sc, "any", version=version,
+                       device=gen) is None
+                and tuning.get("decode_kernel", mha_sc, "any",
+                               version=version, device=gen) is not None):
+            import warnings
+
+            warnings.warn(
+                "tuning cache holds an MHA-keyed decode_kernel record for "
+                "m=%d tq=%d but the shape is grouped (G=%d); the MHA "
+                "winner does not apply — treating as a miss"
+                % (m, tq, groups))
+    return tuning.resolve("decode_kernel", sc, "any", device=dev)
 
 
 def _paged_launch(q, k_pool, v_pool, table, lens, num_heads, scale,
-                  num_kv_heads, combined):
+                  num_kv_heads, combined, params=None):
     """Launch kernel B (and, with ``combined``, the combine kernel in the
     same device context); returns the output, or the split partials
     (acc, m, l) and the output dtype (the V pool's compute dtype: f32
-    for quantized pools)."""
+    for quantized pools).  ``params``: the split rule's tuned constants
+    (None: resolved from the tuning cache)."""
     quant = isinstance(k_pool, QuantKV)
     kd = k_pool.data if quant else k_pool
     vd = v_pool.data if quant else v_pool
@@ -258,7 +303,11 @@ def _paged_launch(q, k_pool, v_pool, table, lens, num_heads, scale,
     ks = k_pool.scale.float().contiguous() if quant else None
     vs = v_pool.scale.float().contiguous() if quant else None
     aligned = kd.data_ptr() % 16 == 0 and vd.data_ptr() % 16 == 0
-    plan = _plan(b, tq, h, kvh, hd_k, hd_v, m, pt, _sm_count(dev), aligned)
+    if params is None:
+        params = _tuned(m, tq, h // kvh, dev)
+    plan = _plan(b, tq, h, kvh, hd_k, hd_v, m, pt, cuda_build.sm_count(dev),
+                 aligned, int(params["blocks_per_sm"]),
+                 int(params["min_split_tokens"]), int(params["max_splits"]))
     vec = int(aligned and hd_k == hd_v == 32 * plan.epl)
     s = plan.splits
     # the partials in one allocation: acc (B, H, S, tq, hd_v), then m, l
@@ -282,6 +331,7 @@ def _paged_launch(q, k_pool, v_pool, table, lens, num_heads, scale,
         cuda_build.check(lib, rc, "paged_decode")
         LAUNCHES["paged_decode"] += 1
         LAST_VARIANT["paged_decode"] = plan.variant
+        LAST_VARIANT["paged_decode_splits"] = plan.splits
         if not combined:
             return acc, m_p, l_p, out_dtype
         return _launch_combine(acc, m_p, l_p, out_dtype)
@@ -415,3 +465,88 @@ def dense_ring_attend(q, k_cache, v_cache, total_len, num_heads=1,
     return _paged_entry(q, _as_pool(k_cache, mb, bs),
                         _as_pool(v_cache, mb, bs), table, total_len,
                         num_heads, scale, num_kv_heads)
+
+
+# ---------------------------------------------------------------------------
+# tunable space (ops/tuning.py): the split rule per (m, tq[, g]) class
+# ---------------------------------------------------------------------------
+
+# the probe's serve-shaped operands: 4 slots, 4 q-heads of 256 over int8
+# pages of 16 tokens (chip_smoke.py's serve); a grouped class keeps G
+# q-heads a kv-head
+PROBE_SLOTS, PROBE_HEADS, PROBE_HEAD_DIM, PROBE_PAGE = 4, 4, 256, 16
+# |kernel - plain| a candidate must stay within, absolute: outputs are
+# O(1) averages of V rows (chip_smoke.py's kernel B tolerance)
+SWEEP_TOL = 1e-4
+
+
+def _tuning_candidates(shape_class, interpret):
+    """The defaults, then blocks a SM x split cap x least split tokens."""
+    out = [dict(TUNE_DEFAULTS)]
+    for bps in (1, 2, 4, 8, 16):
+        for cap in (0, 4, 16):
+            for tokens in (0, 16, 128):
+                out.append({"blocks_per_sm": bps, "max_splits": cap,
+                            "min_split_tokens": tokens})
+    return out
+
+
+def _tuning_runner(params, shape_class, dtype, interpret):
+    """Kernel B and its combine at the class's bucket (``m`` pages of
+    ``PROBE_PAGE`` tokens, every slot full, ``tq`` query rows, G q-heads
+    a kv-head) over int8 pages, launched with explicit ``params`` (the
+    sweep must not re-enter ``resolve``), checked against
+    :func:`paged_plain`."""
+    from . import tuning
+    from .attention import quantize_kv
+
+    dims = tuning.parse_shape_class(shape_class)
+    m, tq, groups = dims["m"], dims["tq"], dims.get("g", 1)
+    if params["blocks_per_sm"] < 1 or params["max_splits"] < 0 \
+            or params["min_split_tokens"] < 0:
+        raise tuning.SpaceError("split params must be positive: %s"
+                                % params)
+    heads = max(PROBE_HEADS, groups)
+    kvh = heads // groups
+    hd, pt, b = PROBE_HEAD_DIM, PROBE_PAGE, PROBE_SLOTS
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    pages = b * m + 1
+
+    def pool():
+        x = torch.randn(1, pages * pt, kvh * hd, generator=g, device=dev)
+        qz = quantize_kv(x, torch.int8, kvh)
+        return QuantKV(qz.data.reshape(pages, pt, kvh * hd),
+                       qz.scale.reshape(pages, pt, kvh))
+
+    kp, vp = pool(), pool()
+    table = (torch.arange(b * m, dtype=torch.int32, device=dev)
+             .reshape(b, m) + 1)
+    lens = torch.full((b,), m * pt, dtype=torch.int32, device=dev)
+    q = torch.randn(b, tq, heads * hd, generator=g, device=dev)
+    out = {}
+
+    def run():
+        out["o"] = _paged_launch(q, kp, vp, table, lens, heads, None, kvh,
+                                 combined=True, params=params)
+
+    def check():
+        want = paged_plain(q, kp, vp, table, lens, heads, None, kvh)
+        err = float((out["o"] - want).abs().max())
+        return err, err / SWEEP_TOL
+
+    return tuning.Probe(run, check)
+
+
+def _register_space():
+    from . import tuning
+
+    tuning.register_space(
+        "decode_kernel", version=1, defaults=TUNE_DEFAULTS,
+        constants=("BLOCKS_PER_SM", "MIN_SPLIT_TOKENS", "MAX_SPLIT_PAGES"),
+        candidates=_tuning_candidates, runner=_tuning_runner,
+        sources=("paged_decode",))
+
+
+_register_space()

@@ -32,6 +32,13 @@ from the dtype alone (the C entries dispatch on the same dtype code):
 All read 16-byte chunks: a tensor whose storage is not 16-byte aligned
 is copied first (:func:`_aligned16`).  ``LAST_VARIANT`` records what the
 last launch of C, of D and of E ran.
+
+Their tiles are compiled in (:data:`TILES`).  They are registered as the
+tunable space ``"flash_kernel"`` (``ops/tuning.py``) with the compiled
+tiles as the defaults and the only candidate, keyed by the ``(t, d, g)``
+class and the dtype: a sweep times C, D and E and records the times in
+the tuning cache.  Until the tiles become launch arguments a launch
+reads nothing from the cache.
 """
 from __future__ import annotations
 
@@ -57,6 +64,10 @@ LAST_VARIANT = {"flash_fwd": None, "flash_bwd_dq": None,
 
 # head dims the kernels are built for
 HEAD_DIMS = (64, 128)
+# the (query rows, keys) tiles csrc/flash_attention.cu compiles in:
+# FwdSimt, DqSimt and BwdSimt (f32), FwdWg, DqWg and BwdWg (bf16)
+TILES = {"simt_fwd": (64, 64), "simt_dq": (64, 64), "simt_dkv": (32, 64),
+         "wgmma_fwd": (64, 64), "wgmma_dq": (64, 64), "wgmma_dkv": (64, 64)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -328,3 +339,86 @@ class FlashAttentionFn(torch.autograd.Function):
         bwd = flash_plain_bwd if plain else flash_bwd
         dq, dk, dv = bwd(q, k, v, o, lse, do, scale, causal, groups)
         return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# tunable space (ops/tuning.py): the compiled tiles per (t, d, g) class
+# ---------------------------------------------------------------------------
+
+TUNE_DEFAULTS = {"%s_%s" % (name, side): tile[i]
+                 for name, tile in TILES.items()
+                 for i, side in enumerate(("bq", "bk"))}
+# the probe's rows: chip_smoke.py's training attention, batch 8 x 8 heads
+PROBE_ROWS = 64
+# a candidate's outputs against the plain versions', relative to each
+# output's largest magnitude (chip_smoke.py's kernels C-E tolerances);
+# lse in f32 always
+SWEEP_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7, "lse": 1e-5}
+
+
+def _tuning_candidates(shape_class, interpret):
+    """The compiled tiles, the only plan the kernels have."""
+    return [dict(TUNE_DEFAULTS)]
+
+
+def _tuning_runner(params, shape_class, dtype, interpret):
+    """Kernels C, then D and E on C's o / lse, causal, at the class's
+    bucket (``PROBE_ROWS`` q rows of t x d, G q-rows a kv-row), checked
+    against their plain versions."""
+    from . import tuning
+
+    dims = tuning.parse_shape_class(shape_class)
+    t, d, groups = dims["t"], dims["d"], dims.get("g", 1)
+    if params != TUNE_DEFAULTS:
+        raise tuning.SpaceError("the flash tiles are compiled in: %s"
+                                % TUNE_DEFAULTS)
+    dt = getattr(torch, dtype, None)
+    if dt not in _DTYPE_CODE or d not in HEAD_DIMS \
+            or PROBE_ROWS % groups:
+        raise tuning.SpaceError("no flash kernel for %s at %s"
+                                % (dtype, shape_class))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+
+    def r(rows):
+        return torch.randn(rows, t, d, generator=g, device=dev).to(dt)
+
+    q, do = r(PROBE_ROWS), r(PROBE_ROWS)
+    k, v = r(PROBE_ROWS // groups), r(PROBE_ROWS // groups)
+    scale = d ** -0.5
+    out = {}
+
+    def run():
+        o, lse = flash_fwd(q, k, v, scale, True, groups)
+        delta = flash_delta(o, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, True, groups)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, True, groups)
+        out["got"] = (o, lse, dq, dk, dv)
+
+    def check():
+        o, lse, dq, dk, dv = out["got"]
+        wo, wlse = flash_plain_fwd(q, k, v, scale, True, groups)
+        wdq, wdk, wdv = flash_plain_bwd(q, k, v, o, lse, do, scale, True,
+                                        groups)
+        errs = [tuning.error_share(got, want, tol)
+                for got, want, tol in ((o, wo, SWEEP_TOL[dtype]),
+                                       (lse, wlse, SWEEP_TOL["lse"]),
+                                       (dq, wdq, SWEEP_TOL[dtype]),
+                                       (dk, wdk, SWEEP_TOL[dtype]),
+                                       (dv, wdv, SWEEP_TOL[dtype]))]
+        return max(e for e, _ in errs), max(sh for _, sh in errs)
+
+    return tuning.Probe(run, check)
+
+
+def _register_space():
+    from . import tuning
+
+    tuning.register_space(
+        "flash_kernel", version=1, defaults=TUNE_DEFAULTS,
+        constants=("TILES",), candidates=_tuning_candidates,
+        runner=_tuning_runner, sources=("flash_attention",))
+
+
+_register_space()

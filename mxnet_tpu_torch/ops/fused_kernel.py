@@ -29,7 +29,7 @@ shape and dtype alone, and handed to the C entry as an int:
   column;
 * ``simt128`` / ``simt64`` / ``simt32``: the f32 tile engine of
   ``csrc/fused_tiles.cuh`` with square tiles of that side, the largest
-  that gives the grid about one block per SM (``SMS``);
+  that gives the grid about one block per SM (the card's SM count);
 * ``wgmma128`` (kernel A): bf16 on the tensor cores by
   ``wgmma.mma_async``, 128 x 128 tiles, the activation built in
   registers;
@@ -44,6 +44,13 @@ Kernel F's dW product splits its contraction over M into ``splits``
 ranges when its (N, K) tiles are too few to fill the card; the partials
 are summed in a fixed order, so dW stays deterministic.
 ``LAST_VARIANT`` records what the last launch of each kernel ran.
+
+The tile sides and the split cap are the tunable space ``"fused_kernel"``
+(``ops/tuning.py``): ``fwd_side`` (A), ``dx_side`` and ``dw_side`` (F's
+products) and ``dw_splits`` (F's cap on the split count, ``MAX_SPLITS``),
+0 meaning the rule above, keyed by the ``(m, k, n)`` class and the
+dtype.  With a cold cache every plan is the rule's.  A's weight-streaming
+``decode`` variant stays outside the space.
 """
 from __future__ import annotations
 
@@ -72,7 +79,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("decode", "decode_scalar", "simt128", "simt128_scalar",
             "simt64", "simt64_scalar", "simt32", "simt32_scalar", "mma128",
             "mma64", "wgmma128")
-SMS = 132            # streaming multiprocessors of an H100 SXM
+# the SM count _plan assumes when it is given none (an H100 SXM's); a
+# launch passes its card's
+SMS = 132
 DECODE_ROWS = 16     # kernel A streams W up to this many rows
 DW_SPLIT_MIN_M = 1024  # dW splits M only when M is at least this deep
 DW_SPLIT_ROWS = 1024   # and each range keeps at least this many rows
@@ -80,18 +89,26 @@ MAX_SPLITS = 16
 
 Plan = namedtuple("Plan", "variant code splits")
 
+# the tunable space's params (0 = the rule) and the product each sizes
+TUNE_DEFAULTS = {"fwd_side": 0, "dx_side": 0, "dw_side": 0, "dw_splits": 0}
+_SIDE_PARAM = {"fwd": "fwd_side", "dx": "dx_side", "dw": "dw_side"}
+
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
-def _plan(m, k, n, dtype, product="fwd", aligned=True):
+def _plan(m, k, n, dtype, product="fwd", aligned=True, params=None,
+          sms=SMS):
     """The variant of kernel A (``product="fwd"``) or of one of kernel
     F's products (``"dx"``, ``"dw"``) for x (m, k), W (n, k) in
     ``dtype``: a :class:`Plan` of the variant's name, its C code and,
     for dW, the number of ranges M is split into.  ``aligned``: every
-    pointer is 16-byte aligned.  The C entry sizes its grid from the
-    variant's tile side."""
+    pointer is 16-byte aligned.  ``params``: the resolved tunable space
+    (``TUNE_DEFAULTS`` keys; None or 0 = the rule); ``sms``: the card's
+    SM count.  The C entry sizes its grid from the variant's tile
+    side."""
+    params = params or TUNE_DEFAULTS
     bf16 = dtype == torch.bfloat16
     if product == "fwd" and m <= DECODE_ROWS:
         width = 8 if bf16 else 4   # elements of a 16-byte load
@@ -108,13 +125,17 @@ def _plan(m, k, n, dtype, product="fwd", aligned=True):
     def blocks(side):
         return _cdiv(rows, side) * _cdiv(cols, side)
 
-    if product == "dw" and depth >= DW_SPLIT_MIN_M:
+    want = params.get(_SIDE_PARAM[product], 0)
+    if want in sides:
+        side = want         # the tuned side
+    elif product == "dw" and depth >= DW_SPLIT_MIN_M:
         side = 128          # a deep contraction: split it, keep the tile
     else:
-        side = next((t for t in sides if blocks(t) >= SMS), sides[-1])
+        side = next((t for t in sides if blocks(t) >= sms), sides[-1])
     splits = 1
     if product == "dw" and depth >= DW_SPLIT_MIN_M:
-        splits = max(1, min(MAX_SPLITS, (2 * SMS) // blocks(side),
+        cap = params.get("dw_splits", 0) or MAX_SPLITS
+        splits = max(1, min(cap, (2 * sms) // blocks(side),
                             depth // DW_SPLIT_ROWS))
     if mma and product == "fwd" and side == 128:
         variant = "wgmma128"
@@ -127,6 +148,20 @@ def _plan(m, k, n, dtype, product="fwd", aligned=True):
 
 def _aligned(*tensors):
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _tuned(m, k, n, dtype, dev):
+    """The tuning cache's resolution for this ``(m, k, n)`` class —
+    ``TUNE_DEFAULTS`` when the cache is cold and no sweep is armed."""
+    from . import tuning
+
+    return tuning.resolve("fused_kernel",
+                          tuning.shape_class_for(m=m, k=k, n=n),
+                          _dtype_name(dtype), device=dev)
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
 
 
 def fused_plain(x, scale, shift, w, residual=None, relu=True, bias=None,
@@ -202,6 +237,16 @@ def fused_fwd_op(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     its fake implementation gives the shapes and dtypes a launch gives,
     so a traced (exported) graph holds this one node."""
     m, k, n = _fused_fwd_check(x, scale, shift, w, bias, residual)
+    params = _tuned(m, k, n, x.dtype, x.device) if m > DECODE_ROWS \
+        else None
+    return _fwd_launch(x, scale, shift, w, bias, residual, relu, params)
+
+
+def _fwd_launch(x, scale, shift, w, bias, residual, relu, params):
+    """Launch kernel A on checked CUDA tensors under the space's
+    ``params`` (None: the rule's plan)."""
+    m, k = x.shape
+    n = w.shape[0]
     dev = x.device
     x = x.contiguous()
     w = w.contiguous()
@@ -215,7 +260,8 @@ def fused_fwd_op(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     s1 = torch.zeros((n,), dtype=torch.float32, device=dev)
     s2 = torch.zeros((n,), dtype=torch.float32, device=dev)
     plan = _plan(m, k, n, x.dtype, "fwd",
-                 _aligned(x, w, scale, shift, bias, residual, y))
+                 _aligned(x, w, scale, shift, bias, residual, y), params,
+                 cuda_build.sm_count(dev))
     lib = cuda_build.lib("fused_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -296,6 +342,15 @@ def fused_bwd(x, dy, scale, shift, w, relu):
     if x.device.type != "cuda":
         raise ValueError("fused_bwd: unsupported device %s" % x.device)
     m, k = x.shape
+    return _bwd_launch(x, dy, scale, shift, w, relu,
+                       _tuned(m, k, w.shape[0], x.dtype, x.device))
+
+
+def _bwd_launch(x, dy, scale, shift, w, relu, params):
+    """Launch kernel F on CUDA tensors under the space's ``params``
+    (None: the rule's plans)."""
+    code = _DTYPE_CODE[x.dtype]
+    m, k = x.shape
     n = w.shape[0]
     dev = x.device
     x = x.contiguous()
@@ -308,8 +363,9 @@ def fused_bwd(x, dy, scale, shift, w, relu):
     dscale = torch.zeros((k,), dtype=torch.float32, device=dev)
     dshift = torch.zeros((k,), dtype=torch.float32, device=dev)
     aligned = _aligned(x, dy, w, scale, shift, dx, dw)
-    pdx = _plan(m, k, n, x.dtype, "dx", aligned)
-    pdw = _plan(m, k, n, x.dtype, "dw", aligned)
+    sms = cuda_build.sm_count(dev)
+    pdx = _plan(m, k, n, x.dtype, "dx", aligned, params, sms)
+    pdw = _plan(m, k, n, x.dtype, "dw", aligned, params, sms)
     # the dW partials, summed by the kernel's second pass
     part = (torch.empty((pdw.splits, n, k), dtype=torch.float32, device=dev)
             if pdw.splits > 1 else None)
@@ -371,3 +427,105 @@ class FusedLNLinearFn(torch.autograd.Function):
                 dshift if need[2] else None, dw.to(w.dtype),
                 dy32.sum(0) if has_bias else None,
                 dy_eff if has_res else None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# tunable space (ops/tuning.py): A's side, F's dx / dW sides and split cap
+# per (m, k, n) class
+# ---------------------------------------------------------------------------
+
+# a candidate's outputs against the plain versions', as chip_smoke.py's
+# kernel A and F phases hold them: A's y within tol x max(1, max|y|), its
+# column statistics within tol x max(1, the column sum of |y| or y^2);
+# F's dx within tol x max(1, max|dx|), its M-long sums (dW, dscale,
+# dshift) within 1e-4 of their largest magnitude
+SWEEP_TOL = {"a": {"float32": 1e-5, "bfloat16": 2 ** -7},
+             "a_stats": {"float32": 1e-4, "bfloat16": 2 ** -7},
+             "dx": {"float32": 1e-5, "bfloat16": 2 ** -7},
+             "long": 1e-4}
+_SPLIT_CAPS = (1, 2, MAX_SPLITS)
+
+
+def _tuning_candidates(shape_class, interpret):
+    """The defaults (the rule), then every combination of the sides the
+    C entries take for the class's dtype-independent widths (f32 ``simt``
+    128 / 64 / 32; bf16 ``mma`` 128 / 64, A's 128 being ``wgmma128``)
+    and the split caps; the runner refuses sides its dtype does not
+    take."""
+    out = [dict(TUNE_DEFAULTS)]
+    for fs in (128, 64, 32):
+        for dxs in (128, 64, 32):
+            for dws in (128, 64, 32):
+                for cap in _SPLIT_CAPS:
+                    out.append({"fwd_side": fs, "dx_side": dxs,
+                                "dw_side": dws, "dw_splits": cap})
+    return out
+
+
+def _tuning_runner(params, shape_class, dtype, interpret):
+    """Kernel A (bias, ReLU) then kernel F (ReLU) at the class's bucket
+    shape under ``params``, launched directly (the sweep must not
+    re-enter ``resolve``), with a check of both against their plain
+    versions on the same inputs."""
+    from . import tuning
+
+    dims = tuning.parse_shape_class(shape_class)
+    m, k, n = dims["m"], dims["k"], dims["n"]
+    dt = getattr(torch, dtype, None)
+    if dt not in _DTYPE_CODE:
+        raise tuning.SpaceError("no kernel for dtype %r" % dtype)
+    if m <= DECODE_ROWS:
+        raise tuning.SpaceError("m=%d takes A's decode variant" % m)
+    mma = dt == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+    sides = (128, 64) if mma else (128, 64, 32)
+    for key in _SIDE_PARAM.values():
+        if params[key] and params[key] not in sides:
+            raise tuning.SpaceError("%s %d: the %s kernels take sides %s"
+                                    % (key, params[key], dtype, sides))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    x = r(m, k).to(dt)
+    w = (r(n, k) / k ** 0.5).to(dt)
+    scale, shift, bias = 1 + 0.1 * r(k), 0.1 * r(k), 0.1 * r(n)
+    dy = r(m, n).to(dt)
+    out = {}
+
+    def run():
+        out["a"] = _fwd_launch(x, scale, shift, w, bias, None, True, params)
+        out["f"] = _bwd_launch(x, dy, scale, shift, w, True, params)
+
+    def check():
+        ya, fa = out["a"], out["f"]
+        wa = fused_plain(x, scale, shift, w, relu=True, bias=bias)
+        wf = fused_bwd_plain(x, dy, scale, shift, w, True)
+        errs = [tuning.error_share(ya[0], wa[0], SWEEP_TOL["a"][dtype])]
+        yabs = wa[0].float().abs()
+        for i, lim in ((1, yabs.sum(0)), (2, (yabs * yabs).sum(0))):
+            serr = (ya[i] - wa[i]).abs()
+            errs.append((float(serr.max()), float(
+                (serr / (SWEEP_TOL["a_stats"][dtype]
+                         * torch.clamp_min(lim, 1.0))).max())))
+        errs.append(tuning.error_share(fa[0], wf[0], SWEEP_TOL["dx"][dtype]))
+        errs += [tuning.error_share(gv, wv, SWEEP_TOL["long"])
+                 for gv, wv in zip(fa[1:], wf[1:])]
+        return max(e for e, _ in errs), max(sh for _, sh in errs)
+
+    return tuning.Probe(run, check)
+
+
+def _register_space():
+    from . import tuning
+
+    tuning.register_space(
+        "fused_kernel", version=1, defaults=TUNE_DEFAULTS,
+        constants=("MAX_SPLITS", "DW_SPLIT_MIN_M", "DW_SPLIT_ROWS"),
+        candidates=_tuning_candidates, runner=_tuning_runner,
+        sources=("fused_fwd", "fused_bwd"))
+
+
+_register_space()

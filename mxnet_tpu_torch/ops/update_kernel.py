@@ -5,8 +5,9 @@ Under the slab plan, which the train step arms wherever :func:`plan_for`
 accepts the optimizer and the masters, the trainable
 masters, their f32 gradients and the optimizer's slots live in
 dtype-homogeneous **slabs**: every parameter padded to a whole number of
-(16, 128) blocks of 2,048 elements, the parameters of one dtype
-concatenated and viewed as (rows, 128).  One pass per slab does the whole
+(block_rows, 128) blocks (16 rows of 2,048 elements unless the tuning
+cache says otherwise), the parameters of one dtype concatenated and
+viewed as (rows, 128).  One pass per slab does the whole
 update chain, in place::
 
     g = g * rescale;  g = clip > 0 ? clamp(g, -clip, clip) : g
@@ -24,8 +25,12 @@ folded into lr on the host); ``hyp`` is ``[rescale, clip, momentum]`` or
 ``[rescale, clip, b1, b2, eps]``.
 
 * :class:`UpdatePlan` / :func:`plan_for` — the layout (``_segments_for``,
-  ``UpdatePlan.rows``, ``lr_wd_blocks`` as in the JAX package, at its
-  cold-cache ``BLOCK_ROWS = 16``) and pack / unpack;
+  ``UpdatePlan.rows``, ``lr_wd_blocks`` as in the JAX package) and pack /
+  unpack.  The block height is the tunable space ``"update_kernel"``
+  (``ops/tuning.py``): ``block_rows`` in {16, 32, 64} per class of the
+  slab's element count, resolved by :func:`plan_for` before the store is
+  built; the cold-cache ``BLOCK_ROWS = 16`` gives the JAX package's
+  layout exactly;
 * :func:`multi_tensor_update` — the wrapper: CUDA slabs launch kernel B1
   (``csrc/multi_tensor_update.cu``, built at first use) or raise; CPU
   slabs, and ``plain=True``, take :func:`update_plain`, which repeats the
@@ -90,10 +95,11 @@ class _Segment:
         self.nblocks = nblocks
 
 
-def _segments_for(params):
+def _segments_for(params, block_rows=BLOCK_ROWS):
     """``{bucket: [_Segment...]}`` from ``{name: tensor}``: one bucket per
     dtype name, parameters in the dict's order, each padded to whole
-    blocks (at least one)."""
+    blocks of ``block_rows`` x 128 elements (at least one)."""
+    block = block_rows * LANES
     entries = {}
     for name, v in params.items():
         entries.setdefault(_dtype_name(v.dtype), []).append(
@@ -103,27 +109,30 @@ def _segments_for(params):
         row, out = 0, []
         for name, shape in items:
             size = int(np.prod(shape)) if shape else 1
-            nblocks = max(1, -(-size // BLOCK))
+            nblocks = max(1, -(-size // block))
             out.append(_Segment(name, shape, size, row, nblocks))
-            row += nblocks * BLOCK_ROWS
+            row += nblocks * block_rows
         segs[bk] = out
     return segs
 
 
 class UpdatePlan:
     """Which parameter lives where in which slab, and the update over the
-    slabs.  ``cdtype`` is the compute dtype (None for f32 compute)."""
+    slabs.  ``cdtype`` is the compute dtype (None for f32 compute);
+    ``block_rows`` the block height the segments were laid out with."""
 
-    def __init__(self, kind, nslots, segments_by_bucket, compute_dtype):
+    def __init__(self, kind, nslots, segments_by_bucket, compute_dtype,
+                 block_rows=BLOCK_ROWS):
         self.kind = kind
         self.nslots = nslots
         self.buckets = segments_by_bucket
         self.cdtype = compute_dtype
+        self.block_rows = block_rows
 
     # -- layout ---------------------------------------------------------
     def rows(self, bucket):
         last = self.buckets[bucket][-1]
-        return last.row0 + last.nblocks * BLOCK_ROWS
+        return last.row0 + last.nblocks * self.block_rows
 
     def dtype(self, bucket):
         return _BUCKET_DTYPES[bucket]
@@ -196,10 +205,10 @@ class UpdatePlan:
         """Per-name lr / wd -> per-bucket per-block f32 numpy arrays."""
         lrb, wdb = {}, {}
         for bk, segs in self.buckets.items():
-            lr = np.empty(self.rows(bk) // BLOCK_ROWS, np.float32)
+            lr = np.empty(self.rows(bk) // self.block_rows, np.float32)
             wd = np.empty_like(lr)
             for seg in segs:
-                b0 = seg.row0 // BLOCK_ROWS
+                b0 = seg.row0 // self.block_rows
                 lr[b0:b0 + seg.nblocks] = lrs[seg.name]
                 wd[b0:b0 + seg.nblocks] = wds[seg.name]
             lrb[bk], wdb[bk] = lr, wd
@@ -215,7 +224,7 @@ class UpdatePlan:
             path = multi_tensor_update(
                 self.kind, self.nslots, w_slabs[bk], g_slabs[bk],
                 slot_slabs[bk], wc_slabs.get(bk), lrb[bk], wdb[bk], hyp,
-                plain=plain)
+                plain=plain, block_rows=self.block_rows)
         return path
 
 
@@ -223,27 +232,34 @@ def plan_for(optimizer, params, grad_names, compute_dtype):
     """An :class:`UpdatePlan` over ``grad_names`` (``params`` maps names to
     tensors), or None where the JAX package keeps the per-parameter path:
     an optimizer the kernel does not implement, or a trainable that is not
-    float32 / bfloat16."""
+    float32 / bfloat16.  The block height is the tuning cache's for the
+    trainables' element count on their device (``BLOCK_ROWS`` on the CPU
+    or with a cold cache)."""
     kind = kind_of(optimizer)
     if kind is None or not grad_names:
         return None
     if any(params[n].dtype not in _MASTER_CODE for n in grad_names):
         return None
-    segs = _segments_for({n: params[n] for n in grad_names})
+    total = sum(params[n].numel() or 1 for n in grad_names)
+    br = _tuned_block_rows(total, params[grad_names[0]].device)
+    segs = _segments_for({n: params[n] for n in grad_names}, block_rows=br)
     cdtype = None if compute_dtype in (None, torch.float32) \
         else compute_dtype
-    return UpdatePlan(kind[0], kind[1], segs, cdtype)
+    return UpdatePlan(kind[0], kind[1], segs, cdtype, block_rows=br)
 
 
-def update_plain(kind, nslots, w, g, slots, wc, lrb, wdb, hyp):
+def update_plain(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
+                 block_rows=BLOCK_ROWS):
     """Plain PyTorch version of kernel B1, in place on the slabs: the
     same f32 chain as torch ops, the hyperparameters as f32 tensors
-    (filled on the device, so a captured step can hold it)."""
+    (filled on the device, so a captured step can hold it); lr / wd
+    hold one value a block of ``block_rows`` x 128 elements."""
     f32 = torch.float32
     dev = w.device
+    block = block_rows * LANES
     h = [torch.full((), float(v), dtype=f32, device=dev) for v in hyp]
-    lr = lrb.to(dev, f32).repeat_interleave(BLOCK).view(w.shape)
-    wd = wdb.to(dev, f32).repeat_interleave(BLOCK).view(w.shape)
+    lr = lrb.to(dev, f32).repeat_interleave(block).view(w.shape)
+    wd = wdb.to(dev, f32).repeat_interleave(block).view(w.shape)
     rescale, clip = h[0], h[1]
     with torch.no_grad():
         w32 = w.to(f32)
@@ -286,16 +302,18 @@ def _check(t, name, shape, dtypes, device):
 
 
 def multi_tensor_update(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
-                        plain=False):
+                        plain=False, block_rows=BLOCK_ROWS):
     """The update over one bucket's slabs, in place: w (rows, 128) f32 or
     bf16, g (rows, 128) f32, ``slots`` a tuple of ``nslots`` slabs in w's
-    dtype, ``wc`` a bf16 / f16 slab or None, ``lrb`` / ``wdb`` (rows / 16,)
-    f32, ``hyp`` floats.  CPU slabs (or ``plain``) take
+    dtype, ``wc`` a bf16 / f16 slab or None, ``lrb`` / ``wdb`` (rows /
+    block_rows,) f32, ``hyp`` floats; ``block_rows`` the plan's block
+    height (a multiple of 16).  CPU slabs (or ``plain``) take
     :func:`update_plain`; CUDA slabs launch kernel B1.  Returns "kernel"
     or "plain"."""
     slots = tuple(slots)
     if plain or w.device.type == "cpu":
-        update_plain(kind, nslots, w, g, slots, wc, lrb, wdb, hyp)
+        update_plain(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
+                     block_rows)
         return "plain"
     if w.device.type != "cuda":
         raise ValueError("multi_tensor_update: unsupported device %s"
@@ -307,16 +325,19 @@ def multi_tensor_update(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
                          "not an update the kernel implements"
                          % (kind, nslots))
     dev = w.device
-    if w.dim() != 2 or w.shape[1] != LANES or w.shape[0] % BLOCK_ROWS:
-        raise ValueError("multi_tensor_update: w must be a (16 k, 128) "
-                         "slab, got %s" % (tuple(w.shape),))
+    if block_rows <= 0 or block_rows % BLOCK_ROWS:
+        raise ValueError("multi_tensor_update: block_rows %r is not a "
+                         "multiple of %d" % (block_rows, BLOCK_ROWS))
+    if w.dim() != 2 or w.shape[1] != LANES or w.shape[0] % block_rows:
+        raise ValueError("multi_tensor_update: w must be a (%d k, 128) "
+                         "slab, got %s" % (block_rows, tuple(w.shape)))
     _check(w, "w", w.shape, tuple(_MASTER_CODE), dev)
     _check(g, "g", w.shape, (torch.float32,), dev)
     for i, s in enumerate(slots):
         _check(s, "slot %d" % i, w.shape, (w.dtype,), dev)
     if wc is not None:
         _check(wc, "wc", w.shape, (torch.bfloat16, torch.float16), dev)
-    nblocks = w.shape[0] // BLOCK_ROWS
+    nblocks = w.shape[0] // block_rows
     _check(lrb, "lr", (nblocks,), (torch.float32,), dev)
     _check(wdb, "wd", (nblocks,), (torch.float32,), dev)
     h = [float(v) for v in hyp] + [0.0] * (5 - len(hyp))
@@ -329,7 +350,88 @@ def multi_tensor_update(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
             _KIND_CODE[kind], nslots, _MASTER_CODE[w.dtype],
             _WC_CODE[None if wc is None else wc.dtype], w.data_ptr(),
             g.data_ptr(), s0, s1, None if wc is None else wc.data_ptr(),
-            lrb.data_ptr(), wdb.data_ptr(), nblocks, *h, stream)
+            lrb.data_ptr(), wdb.data_ptr(), nblocks, block_rows * LANES, *h,
+            stream)
     cuda_build.check(lib, rc, "multi_tensor_update")
     LAUNCHES["multi_tensor_update"] += 1
     return "kernel"
+
+
+# ---------------------------------------------------------------------------
+# tunable space (ops/tuning.py): the block height per element-count class
+# ---------------------------------------------------------------------------
+
+BLOCK_ROWS_CANDIDATES = (16, 32, 64)
+# the probe's update: the ResNet-50 path's SGD-momentum over f32 masters
+# with the bf16 compute copy, no clip; held bit for bit against
+# update_plain (chip_smoke.py's B1 gate for SGD)
+_PROBE_HYP = (1.0, -1.0, 0.9)
+
+
+def _tuned_block_rows(total, device):
+    """The tuning cache's block height for a trainable population of
+    ``total`` elements on ``device`` (:data:`BLOCK_ROWS` on the CPU, or
+    when the cache is cold and no sweep is armed), rounded down to a
+    multiple of 16."""
+    from . import tuning
+
+    br = int(tuning.resolve("update_kernel",
+                            tuning.shape_class_for(n=max(int(total), 1)),
+                            "any", device=device)["block_rows"])
+    return max(BLOCK_ROWS, (br // BLOCK_ROWS) * BLOCK_ROWS)
+
+
+def _tuning_candidates(shape_class, interpret):
+    return [{"block_rows": br} for br in BLOCK_ROWS_CANDIDATES]
+
+
+def _tuning_runner(params, shape_class, dtype, interpret):
+    """One SGD-momentum update (f32 masters, bf16 copy) over a slab of the
+    class's ``n`` elements at ``block_rows``; the check holds the first
+    launch bit for bit against :func:`update_plain` from the same
+    start."""
+    from . import tuning
+
+    n = tuning.parse_shape_class(shape_class)["n"]
+    br = int(params["block_rows"])
+    if br <= 0 or br % BLOCK_ROWS:
+        raise tuning.SpaceError("block_rows %r not a multiple of %d"
+                                % (br, BLOCK_ROWS))
+    nb = max(1, -(-n // (br * LANES)))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    shape = (nb * br, LANES)
+    w0 = torch.randn(shape, generator=gen, device=dev)
+    m0 = torch.randn(shape, generator=gen, device=dev)
+    g = torch.randn(shape, generator=gen, device=dev)
+    lrb = torch.full((nb,), 0.1, device=dev)
+    wdb = torch.full((nb,), 1e-4, device=dev)
+    w, m = w0.clone(), m0.clone()
+    wc = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+
+    def run():
+        multi_tensor_update("sgd", 1, w, g, (m,), wc, lrb, wdb, _PROBE_HYP,
+                            block_rows=br)
+
+    def check():
+        want = [w0.clone(), m0.clone(), torch.empty_like(wc)]
+        update_plain("sgd", 1, want[0], g, (want[1],), want[2], lrb, wdb,
+                     _PROBE_HYP, block_rows=br)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip((w, m, wc), want))
+        return err, 0.0 if err == 0.0 else float("inf")
+
+    return tuning.Probe(run, check)
+
+
+def _register_space():
+    from . import tuning
+
+    tuning.register_space(
+        "update_kernel", version=1, defaults={"block_rows": BLOCK_ROWS},
+        constants=("BLOCK_ROWS", "BLOCK"), candidates=_tuning_candidates,
+        runner=_tuning_runner, sources=("multi_tensor_update",))
+
+
+_register_space()

@@ -6,18 +6,22 @@ registry (the counterpart of ``mxnet_tpu/programs``).
   :data:`GRAPH_STATS` and :func:`eager` (the counterpart of
   ``jax.disable_jit()``);
 * :mod:`.spec` — :class:`ProgramSpec` and its fingerprint;
-* :mod:`.registry` — the weakly held live registry and its trace report.
+* :mod:`.registry` — the weakly held live registry and its trace report;
+* :mod:`.aot` — the program-cache directory (``cache_dir``), where the
+  tuning cache (``ops/tuning.py``) keeps its records.
 
-The reference's AOT cache (``programs/aot.py``'s on-disk executables)
-has no counterpart: a CUDA graph cannot be serialized, and the kernel
-build cache covers the compile half of a cold start.  Partition rules
-(``programs/partition.py``) come with the port's parallelism.
+The reference's AOT executables (``programs/aot.py``'s ``save`` /
+``load``, ``AotDispatch``, ``AOT_STATS``) have no counterpart: a CUDA
+graph cannot be serialized, and the kernel build cache covers the
+compile half of a cold start; deployment goes through ``torch.export``.
+Partition rules (``programs/partition.py``) come with the port's
+parallelism.
 """
-from . import graphs, registry, spec
+from . import aot, graphs, registry, spec
 from .graphs import GRAPH_STATS, GraphPool, GraphProgram, eager
 from .registry import REGISTRY, ProgramRegistry
 from .spec import ProgramSpec
 
 __all__ = ["GRAPH_STATS", "GraphPool", "GraphProgram", "ProgramRegistry",
-           "ProgramSpec", "REGISTRY", "eager", "graphs", "registry",
+           "ProgramSpec", "REGISTRY", "aot", "eager", "graphs", "registry",
            "spec"]

@@ -61,7 +61,7 @@ class OpDef:
                  num_outputs=1, num_visible_outputs=None, arguments=None,
                  outputs=None, aux=None, infer_shape=None, hint=None,
                  doc="", key_var_num_args=None, infer_type=None,
-                 capturable=True, mesh_axes=None):
+                 capturable=True, mesh_axes=None, user_defined=False):
         self.name = name
         self.fcompute = fcompute
         self.schema = schema or ParamSchema()
@@ -88,6 +88,8 @@ class OpDef:
         # a named mesh axis (MoE expert stacks on 'expert'); data only on
         # one card
         self.mesh_axes = dict(mesh_axes or {})
+        # registered at run time by a user (rtc.register_cuda_op)
+        self.user_defined = user_defined
 
     def n_inputs(self, attrs):
         n = self.num_inputs

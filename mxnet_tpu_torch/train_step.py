@@ -314,8 +314,8 @@ class CompiledTrainStep(_StepBase):
         for bk in plan.buckets:
             src = self._wc[bk] if plan.has_wc(bk) else self._w[bk]
             self._views.update(plan.unpack(bk, src))
-        self._lrb = {bk: torch.zeros(plan.rows(bk) // update_kernel.
-                                     BLOCK_ROWS, device=dev)
+        self._lrb = {bk: torch.zeros(plan.rows(bk) // plan.block_rows,
+                                     device=dev)
                      for bk in plan.buckets}
         self._wdb = {bk: torch.zeros_like(v) for bk, v in self._lrb.items()}
         self.plan = plan

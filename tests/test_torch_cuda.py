@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from mxnet_tpu_torch import cuda_build
 from mxnet_tpu_torch.ops import attention as attn
 from mxnet_tpu_torch.ops import decode_kernel as dk
 from mxnet_tpu_torch.ops import fused_kernel as fk
@@ -130,8 +131,8 @@ def test_every_fused_variant_matches_plain(card, variant, monkeypatch):
     code = fk.VARIANTS.index(variant)
     real = fk._plan
 
-    def forced(m, k, n, dtype, product="fwd", aligned=True):
-        p = real(m, k, n, dtype, product, aligned)
+    def forced(m, k, n, dtype, product="fwd", aligned=True, *tuned):
+        p = real(m, k, n, dtype, product, aligned, *tuned)
         return p._replace(variant=variant, code=code)
 
     monkeypatch.setattr(fk, "_plan", forced)
@@ -223,7 +224,8 @@ def test_paged_kernel_variants_match_plain(card, pool_dtype, tq, group, pt,
         assert {n: dk.LAUNCHES[n] - before[n] for n in before} == {
             "paged_decode": 1, "paged_combine": 1}
         assert dk.LAST_VARIANT["paged_decode"] == dk._plan(
-            2, tq, heads, kvh, hd, hd, m, pt, dk._sm_count(card)).variant
+            2, tq, heads, kvh, hd, hd, m, pt,
+            cuda_build.sm_count(card)).variant
         want = dk.paged_plain(q, kp, vp, table, lens, heads, None, kvh)
         assert got.dtype == want.dtype
         tol = 1e-2 if pool_dtype == torch.bfloat16 else 1e-5
@@ -262,7 +264,8 @@ def test_paged_kernel_long_views_on_full_grids(card, pool_dtype, b, heads,
     lens = torch.randint(tq, c, (b,), generator=g, dtype=torch.int32)
     lens[0], lens[1] = tq, c + tq + 5
     lens = lens.to(card)
-    plan = dk._plan(b, tq, heads, kvh, hd, hd, m, pt, dk._sm_count(card))
+    plan = dk._plan(b, tq, heads, kvh, hd, hd, m, pt,
+                    cuda_build.sm_count(card))
     assert plan.splits >= 2 and plan.pages_per_split <= dk.MAX_SPLIT_PAGES
     before = dk.LAUNCHES["paged_decode"]
     fn = dk.flash_sdpa_decode if tq == 1 else dk.flash_sdpa_verify
@@ -305,7 +308,8 @@ def test_paged_kernel_at_the_verify_window(card, pool_dtype, group):
     q = torch.randn(4, tq, heads * hd, generator=g).to(card)
     lens = torch.tensor([tq + 3, 130, m * pt, tq], dtype=torch.int32,
                         device=card)
-    plan = dk._plan(4, tq, heads, kvh, hd, hd, m, pt, dk._sm_count(card))
+    plan = dk._plan(4, tq, heads, kvh, hd, hd, m, pt,
+                    cuda_build.sm_count(card))
     assert (plan.variant, plan.rows) == ("decode", 4)
     assert plan.row_tiles == -(-group * tq // 4) and plan.splits >= 2
     before = dict(dk.LAUNCHES)
@@ -1257,12 +1261,13 @@ def test_bucketed_lstm_trains_through_one_slab(card, full_f32,
     real = uk.multi_tensor_update
     ulps = []
 
-    def checked(kind, nslots, w, g, slots, wc, lrb, wdb, hyp, plain=False):
+    def checked(kind, nslots, w, g, slots, wc, lrb, wdb, hyp, plain=False,
+                block_rows=uk.BLOCK_ROWS):
         ref = [w.clone()] + [t.clone() for t in slots]
         path = real(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
-                    plain=plain)
+                    plain=plain, block_rows=block_rows)
         uk.update_plain(kind, nslots, ref[0], g, ref[1:], None, lrb, wdb,
-                        hyp)
+                        hyp, block_rows)
         ulps.append(max(_ulps(a, b) for a, b in zip([w, *slots], ref)))
         return path
 
@@ -2436,3 +2441,263 @@ def test_restore_reaches_the_captured_step(card, full_f32, tmp_path):
             checkpoint._state_of(m)).items()} for m in (mod, other))
     assert all(torch.equal(got[k], want[k]) for k in want), \
         [k for k in want if not torch.equal(got[k], want[k])][:5]
+
+
+# ---------------------------------------------------------------------------
+# kernel tuning (ops/tuning.py) and user kernels (rtc.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tune_dir(tmp_path):
+    """A fresh tuning cache, armed, with a clean memo."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.ops import tuning
+
+    with config.overrides(MXNET_PROGRAM_CACHE=str(tmp_path),
+                          MXNET_PALLAS_TUNE=True):
+        tuning.reset_memo()
+        yield str(tmp_path)
+    tuning.reset_memo()
+
+
+# one small class of each space: A / F f32 and bf16, B at decode and at a
+# prefill chunk, C-E f32, B1
+TUNE_CLASSES = [("fused_kernel", "k256,m512,n256", "float32"),
+                ("fused_kernel", "k256,m512,n256", "bfloat16"),
+                ("decode_kernel", "m8,tq1", "any"),
+                ("decode_kernel", "g2,m8,tq64", "any"),
+                ("flash_kernel", "d64,g1,t128", "float32"),
+                ("update_kernel", "n65536", "any")]
+
+
+@pytest.mark.parametrize("op,shape_class,dtype", TUNE_CLASSES)
+def test_sweep_on_the_card_every_candidate_within_tolerance(
+        card, tune_dir, op, shape_class, dtype):
+    """An armed resolve sweeps the class: every candidate the C entries
+    take is held against the plain version (within the kernel's
+    tolerance), the winner is persisted and read back with zero probes,
+    and no kernel's launch counter moved."""
+    import json
+    import os
+
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import tuning
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    counters = [fk.LAUNCHES, dk.LAUNCHES, fl.LAUNCHES, uk.LAUNCHES]
+    before = [dict(c) for c in counters]
+    probes = tuning.PROBE_COUNT["n"]
+    params = tuning.resolve(op, shape_class, dtype, device=card)
+    torch.cuda.synchronize()
+    assert tuning.PROBE_COUNT["n"] > probes
+    assert [dict(c) for c in counters] == before
+    space = tuning.spaces()[op]
+    key = tuning.cache_key(op, shape_class, dtype, space.version,
+                           device=tuning.device_generation(card))
+    entry = json.load(open(os.path.join(tune_dir, key + ".json")))
+    swept = entry["swept"]
+    assert swept and swept[0]["params"] == space.defaults
+    assert all(r["tol_share"] <= 1.0 and r["ms"] > 0 for r in swept), swept
+    assert entry["params"] == params == min(swept,
+                                           key=lambda r: r["ms"])["params"]
+    tuning.reset_memo()
+    probes = tuning.PROBE_COUNT["n"]
+    assert tuning.resolve(op, shape_class, dtype, device=card) == params
+    assert tuning.PROBE_COUNT["n"] == probes
+
+
+def test_tuned_plans_reach_the_launches(card, tune_dir):
+    """A record on disk changes what the kernels launch: A's side, F's
+    sides and split, B's split count and B1's block height."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import optimizer as mt_optimizer
+    from mxnet_tpu_torch.ops import tuning
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    sp = tuning.spaces()
+    tuning.put("fused_kernel", "k256,m512,n256", "float32",
+               {"fwd_side": 32, "dx_side": 64, "dw_side": 32,
+                "dw_splits": 0}, version=sp["fused_kernel"].version)
+    tuning.put("decode_kernel", "m8,tq1", "any",
+               {"blocks_per_sm": 1, "min_split_tokens": 16,
+                "max_splits": 2}, version=sp["decode_kernel"].version)
+    with config.overrides(MXNET_PALLAS_TUNE=False):
+        x, w, _, scale, shift, _ = _fused_inputs(card, torch.float32, 500,
+                                                 256, 256, 0)
+        fk.fused_scale_relu_matmul(x, scale, shift, w)
+        assert fk.LAST_VARIANT["fused_fwd"] == "simt32"
+        fk.fused_bwd(x, torch.ones(500, 256, device=card), scale, shift, w,
+                     True)
+        assert fk.LAST_VARIANT["fused_bwd"] == "simt64/simt32x1"
+        kp = torch.randn(33, 16, 64, device=card)
+        table = torch.arange(32, dtype=torch.int32,
+                             device=card).reshape(4, 8) + 1
+        q = torch.randn(4, 1, 64, device=card)
+        lens = torch.full((4,), 128, dtype=torch.int32, device=card)
+        got = dk.flash_sdpa_decode(q, kp, kp, table, lens, num_heads=1)
+        assert dk.LAST_VARIANT["paged_decode_splits"] == 2
+        torch.testing.assert_close(
+            got, dk.paged_plain(q, kp, kp, table, lens, 1), rtol=0,
+            atol=1e-5)
+        params = {"w": torch.zeros(5000, device=card)}
+        tuning.put("update_kernel", "n8192", "any", {"block_rows": 32},
+                   version=sp["update_kernel"].version)
+        sgd = mt_optimizer.SGD(learning_rate=0.1, momentum=0.9)
+        plan = uk.plan_for(sgd, params, ["w"], None)
+        assert plan.block_rows == 32 and plan.rows("float32") == 64
+
+
+def test_miss_under_capture_does_not_sweep(card, tune_dir):
+    """A cache miss while a graph is being captured runs the defaults
+    unswept; the capture survives and replays right."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.ops import tuning
+
+    x, w, _, scale, shift, _ = _fused_inputs(card, torch.float32, 300,
+                                             136, 200, 3)
+    with config.overrides(MXNET_PALLAS_TUNE=False):
+        fk.fused_scale_relu_matmul(x, scale, shift, w)   # builds the library
+    tuning.reset_memo()
+    probes = tuning.PROBE_COUNT["n"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            y, _, _ = fk.fused_scale_relu_matmul(x, scale, shift, w)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tuning.PROBE_COUNT["n"] == probes
+    assert fk.LAST_VARIANT["fused_fwd"] == fk._plan(
+        300, 136, 200, torch.float32).variant
+    want = fk.fused_plain(x, scale, shift, w)[0]
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5 * max(
+        1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("block_rows", [32, 64])
+@pytest.mark.parametrize("kind,nslots", [("sgd", 1), ("adam", 2)])
+def test_update_kernel_block_rows_matches_plain(card, block_rows, kind,
+                                                nslots):
+    """B1 at a tuned block height: the slab laid out at that height, the
+    kernel walking each block in 2048-element chunks, against the plain
+    version at the same height (bit for bit for SGD, one ulp for
+    Adam)."""
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    g = torch.Generator(device="cpu").manual_seed(block_rows)
+    sizes = [(7,), (3, 700), (2049,), (5000,), (1,)]
+    params = {"p%d" % i: torch.randn(s, generator=g)
+              for i, s in enumerate(sizes)}
+    plan = uk.UpdatePlan(kind, nslots, uk._segments_for(
+        params, block_rows=block_rows), torch.bfloat16,
+        block_rows=block_rows)
+    (bk,) = plan.buckets
+    w = plan.pack(params, card)[bk]
+    gs = plan.pack({n: 0.1 * torch.randn(v.shape, generator=g)
+                    for n, v in params.items()}, card,
+                   dtype=torch.float32)[bk]
+    ss = plan.pack_slots({n: tuple(0.01 * torch.randn(
+        v.shape, generator=g).abs() for _ in range(nslots))
+        for n, v in params.items()}, card)[bk]
+    wc = plan.cast_slabs({bk: w})[bk]
+    lrb, wdb = plan.lr_wd_blocks({n: 0.01 * (i + 1) for i, n in
+                                  enumerate(params)},
+                                 {n: 1e-4 for n in params})
+    lrb = torch.from_numpy(lrb[bk]).to(card)
+    wdb = torch.from_numpy(wdb[bk]).to(card)
+    assert w.shape[0] % block_rows == 0 and lrb.numel() == \
+        w.shape[0] // block_rows
+    hyp = [0.5, -1.0, 0.9] if kind == "sgd" else [0.5, -1.0, 0.9, 0.999,
+                                                    1e-8]
+    want = [t.clone() for t in (w, *ss, wc)]
+    path = uk.multi_tensor_update(kind, nslots, w, gs, ss, wc, lrb, wdb,
+                                  hyp, block_rows=block_rows)
+    uk.update_plain(kind, nslots, want[0], gs, want[1:1 + nslots], want[-1],
+                    lrb, wdb, hyp, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert path == "kernel"
+    for a, b in zip((w, *ss, wc), want):
+        if kind == "sgd":
+            assert torch.equal(a, b)
+        else:
+            assert _ulps(a, b) <= 1
+    with pytest.raises(ValueError, match="multiple"):
+        uk.multi_tensor_update(kind, nslots, w, gs, ss, wc, lrb, wdb, hyp,
+                               block_rows=24)
+
+
+# x * a + y rounded as the plain expression rounds it (a product, then a
+# sum: no FMA contraction), so the kernel equals it bit for bit
+RTC_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void rtc_scale_add_kernel(const float* x, const float* y,
+                                     float* o, float a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = __fadd_rn(__fmul_rn(x[i], a), y[i]);
+}
+extern "C" int rtc_scale_add(const void* x, const void* y, void* o,
+                             float a, int n, void* stream) {
+  rtc_scale_add_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)y, (float*)o, a, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_rtc_build_and_launch(card):
+    """rtc.build compiles a source string into _build/rtc_<digest>.so; the
+    registered op launches it on the card (imperative and symbolic with
+    its gradient) against the plain expression."""
+    import ctypes
+    import os
+
+    import mxnet_tpu_torch as mt
+
+    lib = mt.rtc.build(RTC_SOURCE)
+    assert mt.rtc.build(RTC_SOURCE) is lib
+    assert any(f.startswith("rtc_") and f.endswith(".so")
+               for f in os.listdir(cuda_build.BUILD_DIR))
+    p = ctypes.c_void_p
+    lib.rtc_scale_add.argtypes = [p, p, p, ctypes.c_float, ctypes.c_int, p]
+    launches = []
+
+    def forward(x, y, alpha=2.0):
+        if x.device.type != "cuda":
+            return x * alpha + y
+        x, y = x.contiguous(), y.contiguous()
+        o = torch.empty_like(x)
+        rc = lib.rtc_scale_add(x.data_ptr(), y.data_ptr(), o.data_ptr(),
+                               alpha, x.numel(),
+                               torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        launches.append(1)
+        return o
+
+    def backward(inputs, outputs, cotangents, alpha=2.0):
+        (g,) = cotangents
+        return [g * alpha, g]
+
+    name = "card_rtc_scale_add"
+    if not mt.registry.has_op(name):
+        mt.rtc.register_cuda_op(name, forward, backward=backward,
+                                num_inputs=2, attr_params={"alpha": 2.0})
+    x = torch.randn(1000, 3, device=card)
+    y = torch.randn(1000, 3, device=card)
+    out = getattr(mt.nd, name)(mt.nd.NDArray(x), mt.nd.NDArray(y),
+                               alpha=3.0)
+    torch.testing.assert_close(out.data, x * 3.0 + y, rtol=0, atol=0)
+    a, b = mt.sym.Variable("a"), mt.sym.Variable("b")
+    ex = getattr(mt.sym, name)(a, b, alpha=1.5).bind(
+        mt.gpu(0), {"a": mt.nd.NDArray(x), "b": mt.nd.NDArray(y)},
+        args_grad={"a": mt.nd.NDArray(torch.zeros_like(x)),
+                   "b": mt.nd.NDArray(torch.zeros_like(y))})
+    got = ex.forward(is_train=True)[0].data
+    dy = torch.randn_like(x)
+    ex.backward(out_grads=mt.nd.NDArray(dy))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, x * 1.5 + y, rtol=0, atol=0)
+    torch.testing.assert_close(ex.grad_dict["a"].data, dy * 1.5, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(ex.grad_dict["b"].data, dy, rtol=0, atol=0)
+    assert len(launches) >= 2

@@ -403,14 +403,15 @@ def test_composite_metric_views_match_jax():
             m.sum_metric
 
 
+_NO_AOT = ("no serialized executables: a CUDA graph cannot be "
+           "serialized; deployment goes through torch.export")
+
 # Public names of the JAX package the port does not have, with why.
 # ``later`` = a module or method the port has not reached yet (ROADMAP
 # queue A); everything else is a stated difference.
 NAME_EXCEPTIONS = {
-    "top": {"tpu": "no TPU in the port",
-            "contrib": "later", "kvstore": "later",
-            "kvstore_server": "later", "rtc": "later",
-            "visualization": "later", "viz": "later"},
+    "top": {"tpu": "no TPU in the port", "kvstore": "later",
+            "kvstore_server": "later"},
     "nd": {"deque": "a module import, not an API",
            "functools": "a module import, not an API",
            "numeric_types": "a module import, not an API"},
@@ -420,11 +421,17 @@ NAME_EXCEPTIONS = {
     "random": {"split_key": "jax keys; the port uses torch generators"},
     "autograd": {"record_op": "later"},
     "module": {"PipelineModule": "later", "pipeline_module": "later"},
-    "programs": {n: "later" for n in (
-        "AOT_STATS", "AotDispatch", "aot", "build_shardings",
-        "match_partition_rules", "partition", "probe_artifact",
-        "probe_cost", "probe_lowered_text", "probing",
-        "rules_from_plan")},
+    "programs": dict({n: "later" for n in (
+        "build_shardings", "match_partition_rules", "partition",
+        "probe_artifact", "probe_cost", "probe_lowered_text", "probing",
+        "rules_from_plan")}, **{n: _NO_AOT for n in (
+            "AOT_STATS", "AotDispatch")}),
+    "programs.aot": dict({n: _NO_AOT for n in (
+        "AOT_STATS", "AotDispatch", "enabled", "save", "load",
+        "load_or_compile", "reset_stats")},
+        log="a module logger: the port's cache_dir has nothing to log"),
+    "rtc": {"register_pallas_op": "the port's user kernels are CUDA C++ "
+                                  "(register_cuda_op, build)"},
     "Executor": {"compiled_hlo": "later"},
     "DecodePredictor": {"decode_step_text": "no HLO text",
                         "prefill_text": "no HLO text",
@@ -462,7 +469,8 @@ def _name_pairs():
                 "lr_scheduler", "test_utils", "profiler", "recordio",
                 "operator", "rnn", "models", "obs", "programs", "serve",
                 "config", "attrs", "checkpoint", "elastic", "parallel",
-                "parallel.health"):
+                "parallel.health", "programs.aot", "ops.tuning", "rtc",
+                "visualization", "contrib", "contrib.tensorboard"):
         pairs.append((mod, importlib.import_module("mxnet_tpu." + mod),
                       importlib.import_module("mxnet_tpu_torch." + mod)))
     pairs += [

@@ -144,10 +144,10 @@ def test_every_reference_op_is_ported_under_its_names():
     alias were the last), and every name is an alias of the same op in
     both packages."""
     later = set()
-    # user kernels other tests register at run time (mx.rtc) are not
-    # the package's
+    # user kernels other tests register at run time (either package's
+    # rtc) are not the package's
     ref = {n for n in jreg.list_ops() if not jreg.get_op(n).user_defined}
-    port = set(treg.list_ops())
+    port = {n for n in treg.list_ops() if not treg.get_op(n).user_defined}
     assert ref - port == later
     assert ref == port
     for name in sorted(port):
