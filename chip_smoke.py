@@ -7056,6 +7056,342 @@ def _tuning_field(tables, label):
             "default_ms": t["default_ms"]}
 
 
+# phase 19: the q rows of the LM's (64, 2048, 128) attention whose
+# kernel D / E gradients are held against the operators' CPU
+# implementations (the plain backward, one (T, T) f32 logit plane a row)
+ANALYSIS_CPU_ROWS = 8
+# the LM's captured step time and the imperative LM's as PERF.md
+# recorded them before kernels D, E, F and B1 became operators (phase
+# 18 (c)'s tuned step; phase 6c)
+RECORDED_STEP_S, RECORDED_IMPERATIVE_STEP_S = 0.19892, 0.20048
+# the canonical programs a report must show as notes (no mesh yet)
+ANALYSIS_NOTES = ["moe_train_step", "ring_tp_step"]
+
+
+def _err_share(torch, got, want, tol):
+    """(max |got - want|, that over tol x max(1, max |want|)) on the
+    host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    return err, err / (tol * max(1.0, float(want.abs().max())))
+
+
+def _analysis_operators(torch, dev, n_params):
+    """(a) Kernels F, D, E and B1 as operators: each CUDA implementation
+    against the CPU implementation on the same inputs at the LM's shapes
+    (F: m 16384, 1024 -> 4096; D / E: (64, 2048, 128) causal, the CPU
+    side on ANALYSIS_CPU_ROWS rows; B1: the LM's slab, bit for bit),
+    then torch.library.opcheck on CUDA tensors for every kernel
+    operator.  ``n_params``: the LM's trainable element count."""
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    cases = {}
+    m, k, n = TRAIN_BATCH * SEQ, EMBED, FFN
+    x, w, dy = r(m, k), r(n, k) / k ** 0.5, r(m, n)
+    scale, shift = 1 + 0.1 * r(k), 0.1 * r(k)
+    got = fk.fused_bwd_op(x, dy, scale, shift, w, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fk.fused_bwd_op(*(t.cpu() for t in (x, dy, scale, shift, w)),
+                           True)
+    cpu_s = time.perf_counter() - t0
+    errs = [_err_share(torch, got[0], want[0], TOL_F32)] + [
+        _err_share(torch, a, b, TOL_F32_LONG)
+        for a, b in zip(got[1:], want[1:])]
+    cases["fused_bwd"] = {"shape": "m=%d k=%d n=%d float32 relu" % (m, k, n),
+                          "max_abs_err": max(e for e, _ in errs),
+                          "tol_share": max(sh for _, sh in errs),
+                          "cpu_s": cpu_s}
+    del x, w, dy, got, want
+    bh, hd = TRAIN_BATCH * TRAIN_HEADS, EMBED // TRAIN_HEADS
+    q, kk, v, do = (r(bh, SEQ, hd) for _ in range(4))
+    sc = hd ** -0.5
+    o, lse = fl.flash_fwd(q, kk, v, sc, True)
+    delta = fl.flash_delta(o, do)
+    dq = fl.flash_bwd_dq_op(q, kk, v, do, lse, delta, sc, True, 1)
+    dk, dv = fl.flash_bwd_dkv_op(q, kk, v, do, lse, delta, sc, True, 1)
+    rows = ANALYSIS_CPU_ROWS
+    cpu = [t[:rows].cpu() for t in (q, kk, v, do, lse, delta)]
+    t0 = time.perf_counter()
+    wdq = fl.flash_bwd_dq_op(*cpu, sc, True, 1)
+    wdk, wdv = fl.flash_bwd_dkv_op(*cpu, sc, True, 1)
+    cpu_s = time.perf_counter() - t0
+    for name, pairs in (("flash_bwd_dq", ((dq, wdq),)),
+                        ("flash_bwd_dkv", ((dk, wdk), (dv, wdv)))):
+        errs = [_err_share(torch, a[:rows], b, TOL_F32) for a, b in pairs]
+        cases[name] = {"shape": "bh=%d t=%d hd=%d causal float32, %d rows "
+                                "held on the CPU" % (bh, SEQ, hd, rows),
+                       "max_abs_err": max(e for e, _ in errs),
+                       "tol_share": max(sh for _, sh in errs),
+                       "cpu_s": cpu_s}
+    del q, kk, v, do, o, lse, delta, dq, dk, dv
+    # B1 over the LM's slab: its SGD (no slot) and SGD-momentum with a
+    # bf16 compute copy, from the same start on both sides
+    rows_b1 = -(-n_params // uk.BLOCK) * uk.BLOCK_ROWS
+    shape = (rows_b1, uk.LANES)
+    nb = rows_b1 // uk.BLOCK_ROWS
+    for label, nslots, wc_dtype in (("sgd", 0, None),
+                                    ("sgd_momentum_bf16_copy", 1,
+                                     torch.bfloat16)):
+        w0, grad = r(*shape), r(*shape)
+        slots = [r(*shape) for _ in range(nslots)]
+        wc = None if wc_dtype is None else torch.empty(shape, dtype=wc_dtype,
+                                                       device=dev)
+        lrb = torch.full((nb,), TRAIN_LR, device=dev)
+        wdb = torch.full((nb,), 1e-4, device=dev)
+        hyp = [1.0, -1.0] + ([0.9] if nslots else [])
+        cpu = [w0.cpu(), grad.cpu(), [s.cpu() for s in slots],
+               None if wc is None else wc.cpu(), lrb.cpu(), wdb.cpu()]
+        uk.multi_tensor_update_op("sgd", nslots, w0, grad, slots, wc, lrb,
+                                  wdb, hyp, uk.BLOCK_ROWS)
+        uk.multi_tensor_update_op("sgd", nslots, cpu[0], cpu[1], cpu[2],
+                                  cpu[3], cpu[4], cpu[5], hyp, uk.BLOCK_ROWS)
+        outs = [(w0, cpu[0])] + list(zip(slots, cpu[2])) + \
+            ([(wc, cpu[3])] if wc is not None else [])
+        bitwise = all(torch.equal(a.cpu(), b) for a, b in outs)
+        cases["multi_tensor_update " + label] = {
+            "shape": "(%d, 128) slab, %d blocks" % (rows_b1, nb),
+            "bitwise": bitwise,
+            "max_abs_err": max(float((a.float().cpu() - b.float()).abs()
+                                     .max()) for a, b in outs)}
+        if not bitwise:
+            raise AssertionError("kernel B1's operator against its CPU "
+                                 "implementation: %s" % cases)
+    for name, c in cases.items():
+        if "tol_share" in c and not c["tol_share"] <= 1.0:
+            raise AssertionError("operator %s against its CPU "
+                                 "implementation: %s" % (name, c))
+    # opcheck: schema, fake and autograd registration, aot dispatch
+    xs, ws = r(256, 128), r(64, 128) / 16
+    sc1, sh1 = 1 + 0.1 * r(128), 0.1 * r(128)
+    qs = r(2, 128, 64)
+    os_, lses = fl.flash_fwd(qs, qs, qs, 0.125, True)
+    ds = fl.flash_delta(os_, qs)
+    wsl = r(32, 128)
+    checks = {
+        "fused_fwd": (fk.fused_fwd_op, (xs.requires_grad_(), sc1, sh1,
+                                        ws.requires_grad_(), None, None,
+                                        True)),
+        "fused_bwd": (fk.fused_bwd_op, (xs.detach(), r(256, 64), sc1, sh1,
+                                        ws.detach(), True)),
+        "flash_fwd": (fl.flash_fwd_op, (qs.clone().requires_grad_(),
+                                        qs.clone(), qs.clone(), 0.125, True,
+                                        1)),
+        "flash_bwd_dq": (fl.flash_bwd_dq_op, (qs, qs, qs, qs, lses, ds,
+                                              0.125, True, 1)),
+        "flash_bwd_dkv": (fl.flash_bwd_dkv_op, (qs, qs, qs, qs, lses, ds,
+                                                0.125, True, 1)),
+        "multi_tensor_update": (uk.multi_tensor_update_op, (
+            "sgd", 1, wsl, r(32, 128), [r(32, 128)],
+            torch.empty(32, 128, dtype=torch.bfloat16, device=dev),
+            torch.full((2,), 0.1, device=dev), torch.zeros(2, device=dev),
+            [1.0, -1.0, 0.9], 16)),
+    }
+    opcheck = {}
+    for name, (op, args) in checks.items():
+        opcheck[name] = {k: v for k, v in
+                         torch.library.opcheck(op, args).items()}
+        bad = {k: v for k, v in opcheck[name].items() if v != "SUCCESS"}
+        if bad:
+            raise AssertionError("torch.library.opcheck(%s) on CUDA "
+                                 "tensors: %s" % (name, bad))
+    return cases, opcheck
+
+
+def phase_analysis(torch, dev, train, imp):
+    """Phase 19: kernels D, E, F and B1 as torch operators, the training
+    programs' artifacts and the analysis passes on the card.
+
+    (a) the four new operators against their CPU implementations and
+    opcheck; (b) train-f32's LM through the operators: 3 captured steps
+    through Module, launches a step, beside phase 6's gradient gate and
+    step time; (c) artifacts at full width (the LM's train_step and
+    eval_step through Module.program_artifacts; serve-int8-paged's
+    prefill chunk, paged decode and verify steps), their kernel nodes,
+    costs and build seconds, run_passes over them; train_step's
+    dot_flops beside the roofline row's FLOPs; (d) tools/mxlint_torch.py
+    on the card (the canonical programs at the reference's dims): exit
+    0, its contract line.  Returns the launches of (b)'s timed steps."""
+    from mxnet_tpu_torch import analysis, gpu, programs
+    from mxnet_tpu_torch import metric as metric_mod
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch, DataDesc, NDArrayIter
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    t_phase = time.perf_counter()
+    b, t = TRAIN_BATCH, SEQ
+    sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=t,
+                                  num_layers=TRAIN_LAYERS, embed=EMBED,
+                                  heads=TRAIN_HEADS, ffn_hidden=FFN)
+    params = _train_params(sym)
+    t0 = time.perf_counter()
+    cases, opcheck = _analysis_operators(
+        torch, dev, sum(int(v.size) for v in params.values()))
+    log("analysis (a) operators vs their CPU implementations: "
+        + json.dumps({"cases": cases, "opcheck": opcheck,
+                      "seconds": time.perf_counter() - t0}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) 3 captured steps through Module, every kernel an operator
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, VOCAB, size=(b, t)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.zeros((b, 1), np.float32)], axis=1)
+    batch = DataBatch([nd.array(x)], [nd.array(y)])
+    mod = Module(sym, context=gpu(0))
+    mod.bind(data_shapes=[DataDesc("data", (b, t), layout="NT")],
+             label_shapes=[DataDesc("softmax_label", (b, t), layout="NT")])
+    mod.init_params(arg_params=params, aux_params={})
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": TRAIN_LR})
+    with programs.eager():
+        mod.forward_backward(batch)
+        mod.update()
+    mod.forward_backward(batch)      # the step program's set-up
+    mod.update()
+    counters = ((fk.LAUNCHES, "fused_fwd"), (fk.LAUNCHES, "fused_bwd"),
+                (fl.LAUNCHES, "flash_fwd"), (fl.LAUNCHES, "flash_bwd_dq"),
+                (fl.LAUNCHES, "flash_bwd_dkv"),
+                (uk.LAUNCHES, "multi_tensor_update"))
+    for d, name in counters:
+        d[name] = 0
+    graphs0 = dict(programs.GRAPH_STATS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        mod.forward_backward(batch)
+        mod.update()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {name: d[name] for d, name in counters}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    graphs = _graph_delta(graphs0)
+    want = {"fused_fwd": 5 * TRAIN_LAYERS, "fused_bwd": 5 * TRAIN_LAYERS,
+            "flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+            "flash_bwd_dkv": TRAIN_LAYERS, "multi_tensor_update": 1}
+    reading_b = {"steps": TRAIN_STEPS, "step_s": step_s,
+                 "recorded_step_s": RECORDED_STEP_S, "graph_stats": graphs,
+                 "launches": launches, "launches_per_step": per_step,
+                 "phase_train_step_s": train["step_s"],
+                 "phase_train_grad_rel_err": train["grad_rel_err"],
+                 "imperative_step_s": imp["step_s"],
+                 "recorded_imperative_step_s": RECORDED_IMPERATIVE_STEP_S}
+    log("analysis (b) train through the operators: "
+        + json.dumps(reading_b))
+    if per_step != want or graphs["captures"] != 0 \
+            or graphs["replays"] != TRAIN_STEPS:
+        raise AssertionError("the LM's captured steps through the "
+                             "operators: %s (want %s a step, replays only)"
+                             % (per_step, want))
+
+    # (c) the full-width artifacts
+    built = {}
+    t0 = time.perf_counter()
+    mod.score(NDArrayIter(x, y, batch_size=b),
+              metric_mod.Perplexity(ignore_label=None))
+    score_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arts = mod.program_artifacts()
+    trace_s = time.perf_counter() - t0
+    if sorted(arts) != ["eval_step", "train_step"]:
+        raise AssertionError("Module.program_artifacts: %s" % sorted(arts))
+    train_art = arts.pop("train_step")
+    train_art.name = "lm_train_step"
+    eval_art = arts.pop("eval_step")
+    eval_art.name = "lm_eval_step"
+    built["lm_train_step"] = built["lm_eval_step"] = trace_s
+    ops = analysis.kernel_ops(train_art)
+    if ops != {k: int(v) for k, v in want.items()}:
+        raise AssertionError("train_step's kernel nodes %s != its launches "
+                             "a step %s" % (ops, want))
+    roof = mod._train_step.roofline_static()["flops"]
+    dots = {}
+    for rec in train_art.parsed()["dots"]:
+        dots[rec["op"]] = dots.get(rec["op"], 0) + rec["flops"]
+    flops_line = {"train_step_dot_flops": train_art.parsed()["flops"],
+                  "roofline_flops": roof,
+                  "difference": train_art.parsed()["flops"] - roof,
+                  "dot_flops_by_op": dots,
+                  "roofline_counts": "3 x (2 M K N a FullyConnected / "
+                                     "FusedLNLinear + 4 rows keys hd heads "
+                                     "an attention)"}
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssym, sparams, _ = _lm(torch, dev)
+    pred = _predictor(ssym, sparams, False, dev)
+    serve_arts = []
+    t0 = time.perf_counter()
+    serve_arts.append(pred.prefill_artifact(1, CHUNK, name="serve_prefill"))
+    built["serve_prefill"] = time.perf_counter() - t0
+    state = pred.paged_batch_state(SLOTS)
+    t0 = time.perf_counter()
+    serve_arts.append(pred.decode_artifact(state,
+                                           name="serve_paged_decode_step"))
+    built["serve_paged_decode_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_arts.append(pred.verify_artifact(state, SPEC_K,
+                                           name="serve_paged_verify_step"))
+    built["serve_paged_verify_step"] = time.perf_counter() - t0
+    del pred, state
+    for art in serve_arts:
+        if analysis.kernel_ops(art).get("paged_decode") != LAYERS:
+            raise AssertionError("%s holds %s, not one paged_decode a layer"
+                                 % (art.name, analysis.kernel_ops(art)))
+    full = [train_art, eval_art] + serve_arts
+    report = analysis.run_passes(full, budgets=analysis.load_budgets())
+    costs = {a.name: analysis.artifact_cost(a) for a in full}
+    log("analysis (c) full-width artifacts: " + json.dumps({
+        "costs": costs, "build_s": built, "score_s": score_s,
+        "kernel_ops": {a.name: analysis.kernel_ops(a) for a in full},
+        "summary": report.summary(),
+        "unsuppressed": [str(f) for f in report.unsuppressed]}))
+    log("analysis (c) train_step flops: " + json.dumps(flops_line))
+    if report.errors:
+        raise AssertionError("unsuppressed errors over the full-width "
+                             "programs: %s" % [str(f) for f in report.errors])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the CLI on the card: the canonical programs at the reference's
+    # dims, built, audited and priced in a process of its own
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                       "mxlint_torch.py")],
+                         capture_output=True, text=True, cwd=root,
+                         timeout=900)
+    lint_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError("tools/mxlint_torch.py on the card exited %d: "
+                             "%s" % (out.returncode, out.stderr[-4000:]))
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    log("analysis (d) mxlint_torch: " + json.dumps(
+        dict(line, wall_s=lint_s)))
+    if line["errors"] != 0 or line["skipped_programs"] != ANALYSIS_NOTES \
+            or line["programs"] != 11:
+        raise AssertionError("tools/mxlint_torch.py on the card: %s" % line)
+    for name in ("paged_decode_step", "paged_verify_step",
+                 "gqa_decode_step"):
+        if not line["kernel_ops"][name].get("paged_decode"):
+            raise AssertionError("%s holds no paged_decode: %s"
+                                 % (name, line["kernel_ops"][name]))
+    log("analysis: %.1f s" % (time.perf_counter() - t_phase))
+    return launches
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -7132,7 +7468,7 @@ def _main(torch):
     gc.collect()
     torch.cuda.empty_cache()
     # on a thread of its own: the phase's autograd marks end with it
-    _, imp_launches = _on_own_thread(phase_train_imperative, torch, dev)
+    imp, imp_launches = _on_own_thread(phase_train_imperative, torch, dev)
     phase_ops(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7175,6 +7511,9 @@ def _main(torch):
     gc.collect()
     torch.cuda.empty_cache()
     tune_tables, tune_launches = phase_tuning(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis_launches = phase_analysis(torch, dev, train, imp)
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -7203,7 +7542,8 @@ def _main(torch):
         + imp_launches["fused_fwd"] + export_launches["fused_fwd"] \
         + sum(f["fused_fwd"] for f in fleet_launches.values()) \
         + sum(m["fused_fwd"] for m in moe_launches.values()) \
-        + resume_launches["fused_fwd"] + tune_launches["fused_fwd"]
+        + resume_launches["fused_fwd"] + tune_launches["fused_fwd"] \
+        + analysis_launches["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -7222,7 +7562,8 @@ def _main(torch):
                                **{path: m["fused_fwd"] for path, m
                                   in moe_launches.items()},
                                "resume": resume_launches["fused_fwd"],
-                               "tuning": tune_launches["fused_fwd"]},
+                               "tuning": tune_launches["fused_fwd"],
+                               "analysis": analysis_launches["fused_fwd"]},
              tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
@@ -7287,6 +7628,7 @@ def _main(torch):
         by_path.update({path: m[counter] for path, m in moe_train.items()})
         by_path["resume"] = resume_launches[counter]
         by_path["tuning"] = tune_launches[counter]
+        by_path["analysis"] = analysis_launches[counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -7304,7 +7646,8 @@ def _main(torch):
                train_launches["fused_bwd"] + out_grads_launches["fused_bwd"]
                + imp_launches["fused_bwd"]
                + sum(m["fused_bwd"] for m in moe_train.values())
-               + resume_launches["fused_bwd"] + tune_launches["fused_bwd"],
+               + resume_launches["fused_bwd"] + tune_launches["fused_bwd"]
+               + analysis_launches["fused_bwd"],
                f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
@@ -7314,7 +7657,8 @@ def _main(torch):
                           **{path: m["fused_bwd"] for path, m
                              in moe_train.items()},
                           "resume": resume_launches["fused_bwd"],
-                          "tuning": tune_launches["fused_bwd"]},
+                          "tuning": tune_launches["fused_bwd"],
+                          "analysis": analysis_launches["fused_bwd"]},
         tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
@@ -7331,6 +7675,7 @@ def _main(torch):
                        for path, m in moe_train.items()})
     b1_by_path["resume"] = resume_launches["multi_tensor_update"]
     b1_by_path["tuning"] = tune_launches["multi_tensor_update"]
+    b1_by_path["analysis"] = analysis_launches["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}

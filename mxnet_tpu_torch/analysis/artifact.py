@@ -16,18 +16,32 @@ reference           here
                     no text)
 ==================  ==============================================
 
-The metadata fields are the reference's.  The hand-written kernels A, B
-and C are torch operators (``mxnet_tpu_torch::fused_fwd``,
-``::paged_decode``, ``::flash_fwd``), so a graph traced on any device
-holds them as nodes; :func:`kernel_ops` counts them — the counterpart of
-the reference's "the program must contain a ``pallas_call``" check.
+The metadata fields are the reference's.  Every hand-written kernel is
+a torch operator (``mxnet_tpu_torch::fused_fwd`` / ``::fused_bwd`` (A /
+F), ``::paged_decode`` (B), ``::flash_fwd`` / ``::flash_bwd_dq`` /
+``::flash_bwd_dkv`` (C / D / E), ``::multi_tensor_update`` (B1)), so a
+graph traced on any device holds them as nodes; :func:`kernel_ops`
+counts them — the counterpart of the reference's "the program must
+contain a ``pallas_call``" check.
 
 :func:`artifact_from_export` is the one function behind every export and
 artifact surface, so the way a program is traced cannot diverge between
-them.  Every program it traces, the serving steps that write their
-pools, lengths and tokens in place included, goes through
+them.  A program without autograd (the serving steps, which write their
+pools, lengths and tokens in place; a forward) goes through
 ``torch.export.export``: the exported graph keeps those writes as
-in-place operations on its inputs.
+in-place operations on its inputs.  A program whose body calls
+autograd (``autograd=True``: the training and evaluation steps) is
+traced by ``make_fx`` on fake tensors into one flat graph of ATen
+operators and the kernels' operators — forward, the registered
+backwards (kernel F for A, D and E for C) and the update (B1) with its
+in-place writes in the operator's schema.  Either way nothing is
+computed and no input is written.
+
+The graph itself (``ProgramArtifact.graph_module``) is what the passes
+read (:mod:`.graph_parse`): :meth:`ProgramArtifact.parsed` parses it
+once.  ``written_inputs`` in :meth:`ProgramArtifact.describe` are the
+program's inputs the graph writes in place (the counterpart of compiled
+HLO's ``input_output_alias``).
 """
 from __future__ import annotations
 
@@ -71,6 +85,21 @@ class ProgramArtifact:
     fingerprint: str = None
     meta: dict = field(default_factory=dict)
     program: object = field(default=None, repr=False, compare=False)
+    # the traced graph (a torch.fx.GraphModule) and the program inputs
+    # its tracer reports written besides the graph's in-place nodes
+    graph_module: object = field(default=None, repr=False, compare=False)
+    mutated_inputs: tuple = field(default=(), repr=False, compare=False)
+    _parsed: dict = field(default=None, repr=False, compare=False)
+
+    def parsed(self):
+        """:func:`~.graph_parse.parse_graph` of the graph (once); None
+        for an artifact without one."""
+        if self._parsed is None and self.graph_module is not None:
+            from .graph_parse import parse_graph
+
+            self._parsed = parse_graph(self.graph_module,
+                                       self.mutated_inputs)
+        return self._parsed
 
     def describe(self):
         return {
@@ -85,6 +114,8 @@ class ProgramArtifact:
             "expected_traces": self.expected_traces,
             "fingerprint": self.fingerprint,
             "kernel_ops": kernel_ops(self),
+            "written_inputs": len((self.parsed() or {}).get(
+                "written_inputs", ())),
         }
 
 
@@ -178,13 +209,51 @@ def _export(module, example_args):
             m.update(s)
 
 
+def _trace_fx(module, example_args):
+    """``make_fx`` of ``module`` at ``example_args`` on fake tensors: one
+    flat graph of ATen and kernel operators, autograd's backward
+    included (a body that turns autograd on itself traces its
+    ``torch.autograd.grad`` as the backward's operators).  The module
+    holds no tensors of its own (its state arrives as arguments); every
+    kernel path marker is restored afterwards."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from ..programs.graphs import _path_markers
+
+    if not isinstance(module, torch.nn.Module):
+        module = BufferModule(module)
+    flat = _FlatInputs(module, example_args)
+    markers = _path_markers()
+    saved = [dict(m) for m in markers]
+    try:
+        return make_fx(flat, tracing_mode="fake")(*flat.tensors())
+    finally:
+        for m, s in zip(markers, saved):
+            m.update(s)
+
+
+def _mutated_inputs(ep):
+    """Placeholder names of the inputs an exported program's signature
+    reports mutated."""
+    sig = ep.graph_signature
+    names = set(getattr(sig, "user_inputs_to_mutate", {}).values())
+    buffers = set(getattr(sig, "buffers_to_mutate", {}).values())
+    for spec in sig.input_specs:
+        target = getattr(spec, "target", None)
+        if target in buffers:
+            names.add(spec.arg.name)
+    return tuple(sorted(names))
+
+
 def artifact_from_export(module, example_args, name, donated_leaves=0,
                          compute_dtype=None, mesh_shape=None,
                          trace_count=None, expected_traces=1,
-                         fingerprint=None, **meta):
+                         fingerprint=None, autograd=False, **meta):
     """Trace ``module`` (an ``nn.Module``, or a callable) at
-    ``example_args`` with ``torch.export`` and bundle the result as a
-    :class:`ProgramArtifact`.
+    ``example_args`` and bundle the result as a
+    :class:`ProgramArtifact`: with ``torch.export``, or, with
+    ``autograd`` (a body that calls ``torch.autograd.grad``: the
+    training steps), with ``make_fx`` into one graph (:func:`_trace_fx`).
 
     ``example_args`` may nest tuples, lists and named tuples
     (``QuantKV``); their tensor leaves are the program's inputs, in
@@ -193,13 +262,23 @@ def artifact_from_export(module, example_args, name, donated_leaves=0,
     module's buffers on one device all do: the trace runs on fake
     copies, so nothing is computed, no kernel launches and no input is
     written."""
+    if autograd:
+        gm = _trace_fx(module, example_args)
+        return ProgramArtifact(
+            name=name, graph_text=gm.code, exported_text=str(gm.graph),
+            compiled_text=None, donated_leaves=donated_leaves,
+            compute_dtype=compute_dtype, mesh_shape=mesh_shape,
+            trace_count=trace_count, expected_traces=expected_traces,
+            fingerprint=fingerprint, meta=meta, program=gm,
+            graph_module=gm)
     ep = _export(module, example_args)
     return ProgramArtifact(
         name=name, graph_text=ep.graph_module.code, exported_text=str(ep),
         compiled_text=None, donated_leaves=donated_leaves,
         compute_dtype=compute_dtype, mesh_shape=mesh_shape,
         trace_count=trace_count, expected_traces=expected_traces,
-        fingerprint=fingerprint, meta=meta, program=ep)
+        fingerprint=fingerprint, meta=meta, program=ep,
+        graph_module=ep.graph_module, mutated_inputs=_mutated_inputs(ep))
 
 
 def kernel_ops(artifact):

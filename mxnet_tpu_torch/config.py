@@ -345,3 +345,14 @@ register("MXNET_PROGRAM_CACHE", str, "",
          "programs, apart from the JAX package's directory, so neither "
          "package reads the other's files.  The reference's serialized "
          "executables have no counterpart here (programs/aot.py).")
+register("MXNET_ANALYSIS_SUPPRESS", str, "",
+         "Comma-separated suppression patterns for static-analysis "
+         "findings: 'pass-name[:program[:code]]' with '*' wildcards "
+         "(e.g. 'flop-dtype:decode_step:f32-dot').  Applied on top of "
+         "the budget file's suppressions list; suppressed findings stay "
+         "in reports, marked, so waivers are visible.")
+register("MXNET_ANALYSIS_BUDGETS", str, "",
+         "Path to the static-analysis budget file consumed by "
+         "analysis.load_budgets / tools/mxlint_torch.py.  Empty "
+         "(default) = the port's own mxnet_tpu_torch/analysis/"
+         "budgets.json.")

@@ -531,6 +531,24 @@ class Module(BaseModule):
         self._eval_step_cache = (self._exec_group.exec_, eval_metric, step)
         return step
 
+    def program_artifacts(self):
+        """The module's compiled programs as analysis artifacts:
+        ``{name: ProgramArtifact}`` for the train step (after its first
+        run) and the cached eval step (after a device-metric ``score``),
+        each traced on fake tensors (nothing runs).  The surface
+        ``tools/mxlint_torch.py`` and custom audits consume."""
+        arts = {}
+        if self._train_step is not None:
+            art = self._train_step.artifact(group=self._exec_group)
+            if art is not None:
+                arts[art.name] = art
+        cached = self._eval_step_cache
+        if cached is not None:
+            art = cached[2].artifact()
+            if art is not None:
+                arts[art.name] = art
+        return arts
+
     def _wrap_train_data(self, train_data):
         from ..io import DevicePrefetchIter
 

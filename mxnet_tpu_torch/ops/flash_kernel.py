@@ -9,12 +9,17 @@ Tensors are head-folded: q (B*H, T, hd), k and v (B*H_kv, T, hd), q-row
   (:func:`flash_fwd_op`): kernel C on a CUDA tensor,
   :func:`flash_plain_fwd` on a CPU tensor, ``(o, lse)`` with lse (B*H,
   T) f32; a traced graph (``torch.export``) holds it as one node.
-* :func:`flash_bwd` — kernels D (:func:`flash_bwd_dq`) and E
-  (:func:`flash_bwd_dkv`) on a CUDA tensor, :func:`flash_plain_bwd` on a
-  CPU tensor: ``(dq, dk, dv)``.  delta = rowsum(dO * O) is computed in
-  f32 before the kernels (:func:`flash_delta`), as the TPU path does.
-* :class:`FlashAttentionFn` — the autograd Function the
-  ``dot_product_attention`` op calls: forward C, backward D and E.
+* :func:`flash_bwd` — the operators ``mxnet_tpu_torch::flash_bwd_dq``
+  (kernel D, :func:`flash_bwd_dq_op`) and ``::flash_bwd_dkv`` (kernel E,
+  :func:`flash_bwd_dkv_op`): the kernels on a CUDA tensor, the plain
+  backward's dq and dk / dv on a CPU tensor: ``(dq, dk, dv)``.  delta =
+  rowsum(dO * O) is computed in f32 before the kernels
+  (:func:`flash_delta`), as the TPU path does.  D and E are C's
+  operator's registered gradient, so a traced training graph holds all
+  three nodes.
+* :class:`FlashAttentionFn` — the path the ``dot_product_attention``
+  op calls: C's operator (backward D and E), or under ``plain`` the
+  plain versions.
 
 A CUDA tensor the kernels do not take (dtype other than f32/bf16, head
 dim other than 64 or 128, q and k/v of different dtypes or lengths)
@@ -50,7 +55,8 @@ from torch._subclasses.fake_tensor import is_fake
 from .. import cuda_build
 
 __all__ = ["flash_fwd", "flash_fwd_op", "flash_bwd", "flash_bwd_dq",
-           "flash_bwd_dkv", "flash_delta", "flash_plain_fwd",
+           "flash_bwd_dq_op", "flash_bwd_dkv", "flash_bwd_dkv_op",
+           "flash_delta", "flash_plain_fwd",
            "flash_plain_bwd",
            "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "LAST_VARIANT",
            "supported"]
@@ -147,12 +153,18 @@ def flash_plain_bwd(q, k, v, o, lse, do, scale, causal, groups=1):
     recomputing p = exp(s - lse) with the TPU kernels' casts (ds to k's
     dtype before ds.K, p to do's dtype and ds to q's dtype before the
     dK/dV products; dK/dV summed over a kv group in f32)."""
+    return _plain_grads(q, k, v, do, lse, flash_delta(o, do), scale, causal,
+                        groups)
+
+
+def _plain_grads(q, k, v, do, lse, delta, scale, causal, groups):
+    """:func:`flash_plain_bwd` from delta = rowsum(do * o) (B*H, T) f32:
+    the CPU implementations of the D and E operators."""
     s = _logits(q, k, scale, causal, groups)
     p = torch.exp(s - lse.unsqueeze(-1))
     dp = torch.matmul(do.float(), _expand_kv(v, groups).float()
                       .transpose(1, 2))
-    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta) * scale
+    ds = p * (dp - delta.unsqueeze(-1)) * scale
     dq = torch.matmul(ds.to(k.dtype).float(), _expand_kv(k, groups).float())
     dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
     dk = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), q.float())
@@ -242,7 +254,7 @@ def flash_fwd(q, k, v, scale, causal, groups=1):
     return flash_fwd_op(q, k, v, float(scale), bool(causal), int(groups))
 
 
-def _check_bwd(q, do, lse, delta, where):
+def _check_bwd(q, do, lse, delta, where, fake=False):
     bh, t, _ = q.shape
     if tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype:
         raise ValueError("%s: do %s %s does not match q %s %s"
@@ -253,12 +265,20 @@ def _check_bwd(q, do, lse, delta, where):
                 or x.device != q.device:
             raise ValueError("%s: %s must be (%d, %d) float32 on %s"
                              % (where, name, bh, t, q.device))
+    if fake:
+        return None
     return _aligned16(do.contiguous()), lse.contiguous(), delta.contiguous()
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, groups=1):
-    """dq from kernel D (CUDA tensors only); delta = rowsum(do * o) in
-    f32, (B*H, T)."""
+@torch.library.custom_op("mxnet_tpu_torch::flash_bwd_dq", mutates_args=(),
+                         device_types="cuda")
+def flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                    scale: float, causal: bool, groups: int) -> torch.Tensor:
+    """Kernel D as a torch operator: dq from ``csrc/flash_attention.cu``
+    on CUDA tensors, the plain backward's dq on CPU tensors, dq's shape
+    and dtype when a graph is traced.  delta = rowsum(do * o) in f32,
+    (B*H, T)."""
     code, q, k, v = _check(q, k, v, groups, "flash_bwd_dq")
     do, lse, delta = _check_bwd(q, do, lse, delta, "flash_bwd_dq")
     bh, t, hd = q.shape
@@ -276,9 +296,29 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, groups=1):
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, groups=1):
-    """(dk, dv) from kernel E (CUDA tensors only), summed over the G
-    q-heads of each kv group."""
+@flash_bwd_dq_op.register_kernel("cpu")
+def _flash_bwd_dq_cpu(q, k, v, do, lse, delta, scale, causal, groups):
+    return _plain_grads(q, k, v, do, lse, delta, scale, causal, groups)[0]
+
+
+@flash_bwd_dq_op.register_fake
+def _flash_bwd_dq_fake(q, k, v, do, lse, delta, scale, causal, groups):
+    if q.device.type != "cpu":
+        _check(q, k, v, groups, "flash_bwd_dq", fake=True)
+        _check_bwd(q, do, lse, delta, "flash_bwd_dq", fake=True)
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("mxnet_tpu_torch::flash_bwd_dkv", mutates_args=(),
+                         device_types="cuda")
+def flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                     scale: float, causal: bool, groups: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E as a torch operator: (dk, dv), summed over the G q-heads
+    of each kv group, from ``csrc/flash_attention.cu`` on CUDA tensors,
+    the plain backward's dk and dv on CPU tensors, their shapes and
+    dtypes when a graph is traced."""
     code, q, k, v = _check(q, k, v, groups, "flash_bwd_dkv")
     do, lse, delta = _check_bwd(q, do, lse, delta, "flash_bwd_dkv")
     bh, t, hd = q.shape
@@ -298,6 +338,34 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, groups=1):
     return dk, dv
 
 
+@flash_bwd_dkv_op.register_kernel("cpu")
+def _flash_bwd_dkv_cpu(q, k, v, do, lse, delta, scale, causal, groups):
+    return _plain_grads(q, k, v, do, lse, delta, scale, causal, groups)[1:]
+
+
+@flash_bwd_dkv_op.register_fake
+def _flash_bwd_dkv_fake(q, k, v, do, lse, delta, scale, causal, groups):
+    if q.device.type != "cpu":
+        _check(q, k, v, groups, "flash_bwd_dkv", fake=True)
+        _check_bwd(q, do, lse, delta, "flash_bwd_dkv", fake=True)
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, groups=1):
+    """dq through the operator ``mxnet_tpu_torch::flash_bwd_dq`` (kernel
+    D on CUDA tensors); delta = rowsum(do * o) in f32, (B*H, T)."""
+    return flash_bwd_dq_op(q, k, v, do, lse, delta, float(scale),
+                           bool(causal), int(groups))
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, groups=1):
+    """(dk, dv) through the operator ``mxnet_tpu_torch::flash_bwd_dkv``
+    (kernel E on CUDA tensors), summed over the G q-heads of each kv
+    group."""
+    return flash_bwd_dkv_op(q, k, v, do, lse, delta, float(scale),
+                            bool(causal), int(groups))
+
+
 def flash_delta(o, do):
     """delta = rowsum(do * o) in f32 — computed before the backward
     kernels, as ``pallas_attention._bwd_call`` computes it."""
@@ -305,10 +373,8 @@ def flash_delta(o, do):
 
 
 def flash_bwd(q, k, v, o, lse, do, scale, causal, groups=1):
-    """``(dq, dk, dv)``: kernels D (dq) and E (dk, dv) on CUDA tensors,
-    :func:`flash_plain_bwd` on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_plain_bwd(q, k, v, o, lse, do, scale, causal, groups)
+    """``(dq, dk, dv)`` through the operators of kernels D and E: on
+    CUDA tensors the kernels, on CPU tensors the plain backward."""
     if tuple(o.shape) != tuple(q.shape):
         raise ValueError("flash_bwd: o %s does not match q %s"
                          % (tuple(o.shape), tuple(q.shape)))
@@ -319,26 +385,59 @@ def flash_bwd(q, k, v, o, lse, do, scale, causal, groups=1):
     return dq, dk, dv
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """Differentiable flash attention over head-folded tensors: forward
-    through kernel C (saving lse), backward through D and E — or their
-    plain versions on CPU tensors and under ``plain``."""
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, scale, causal, groups = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1])
+    ctx.args = (scale, causal, groups)
+    # lse is a residual: its cotangent arrives as None, not zeros
+    ctx.set_materialize_grads(False)
+
+
+def _flash_fwd_backward(ctx, do, dlse):
+    if do is None:
+        return None, None, None, None, None, None
+    q, k, v, o, lse = ctx.saved_tensors
+    scale, causal, groups = ctx.args
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do, scale, causal, groups)
+    return dq, dk, dv, None, None, None
+
+
+# kernel C's gradient is kernels D and E (through their operators)
+flash_fwd_op.register_autograd(_flash_fwd_backward,
+                               setup_context=_flash_fwd_setup)
+
+
+class _FlashPlainFn(torch.autograd.Function):
+    """The plain forward and backward as one autograd Function."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, groups, plain):
-        fwd = flash_plain_fwd if plain else flash_fwd
-        o, lse = fwd(q, k, v, scale, causal, groups)
+    def forward(ctx, q, k, v, scale, causal, groups):
+        o, lse = flash_plain_fwd(q, k, v, scale, causal, groups)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (scale, causal, groups, plain)
+        ctx.args = (scale, causal, groups)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        scale, causal, groups, plain = ctx.args
-        bwd = flash_plain_bwd if plain else flash_bwd
-        dq, dk, dv = bwd(q, k, v, o, lse, do, scale, causal, groups)
-        return dq, dk, dv, None, None, None, None
+        scale, causal, groups = ctx.args
+        dq, dk, dv = flash_plain_bwd(q, k, v, o, lse, do, scale, causal,
+                                     groups)
+        return dq, dk, dv, None, None, None
+
+
+class FlashAttentionFn:
+    """Differentiable flash attention over head-folded tensors: ``apply``
+    calls the operator ``mxnet_tpu_torch::flash_fwd`` (kernel C), whose
+    registered gradient is the D and E operators; under ``plain``, the
+    plain forward and backward.  Returns o."""
+
+    @staticmethod
+    def apply(q, k, v, scale, causal, groups, plain):
+        if plain:
+            return _FlashPlainFn.apply(q, k, v, scale, causal, groups)
+        return flash_fwd_op(q, k, v, float(scale), bool(causal),
+                            int(groups))[0]
 
 
 # ---------------------------------------------------------------------------

@@ -10,17 +10,18 @@ with per-column statistics, forward and backward — the counterpart of
   version, so a traced graph (``torch.export``) holds one node that
   launches kernel A once its tensors are on the card;
 * :func:`fused_bwd` (kernel F, ``csrc/fused_bwd.cu``): dx, dW, dscale
-  and dshift from x and dy, and its plain version
-  :func:`fused_bwd_plain`;
-* :class:`FusedLNLinearFn`: the autograd Function pairing them, with the
-  statistics outputs' cotangents folded into dy as the TPU path's custom
-  VJP folds them.
+  and dshift from x and dy, through the operator
+  ``mxnet_tpu_torch::fused_bwd`` (:func:`fused_bwd_op`), and its plain
+  version :func:`fused_bwd_plain`.  F's operator is A's operator's
+  registered gradient, so a traced training graph holds both nodes;
+* :class:`FusedLNLinearFn`: the path onto the two operators (or, under
+  ``plain``, their plain versions), with the statistics outputs'
+  cotangents folded into dy as the TPU path's custom VJP folds them.
 
-Each wrapper launches its kernel on a CUDA tensor (built at first use,
+Each operator launches its kernel on a CUDA tensor (built at first use,
 see :mod:`~mxnet_tpu_torch.cuda_build`) or raises, and runs its plain
-version on a CPU tensor (kernel A through its operator's dispatch,
-kernel F by a branch on the device: its operator comes with the training
-artifacts).  ``LAUNCHES`` counts kernel launches.
+version on a CPU tensor through the operator's dispatch.  ``LAUNCHES``
+counts kernel launches.
 
 Which variant of a kernel runs is chosen here, by :func:`_plan`, from the
 shape and dtype alone, and handed to the C entry as an int:
@@ -63,7 +64,8 @@ from torch._subclasses.fake_tensor import is_fake
 from .. import cuda_build
 
 __all__ = ["fused_scale_relu_matmul", "fused_fwd_op", "fused_plain",
-           "fused_bwd", "fused_bwd_plain", "FusedLNLinearFn", "LAUNCHES",
+           "fused_bwd", "fused_bwd_op", "fused_bwd_plain", "FusedLNLinearFn",
+           "LAUNCHES",
            "LAST_VARIANT", "VARIANTS"]
 
 # kernel launches since the count was last set to 0 (plain-version calls
@@ -328,36 +330,72 @@ def fused_bwd_plain(x, dy, scale, shift, w, relu):
     return dx, dw, (du * x32).sum(0), du.sum(0)
 
 
+def _fused_bwd_check(x, dy, scale, shift, w):
+    """Kernel F's contract for a tensor off the host (a CUDA tensor, or a
+    fake one while a graph is traced): ``(m, k, n)``, or a ValueError
+    naming what the kernel does not take."""
+    if _DTYPE_CODE.get(x.dtype) is None or x.dim() != 2:
+        raise ValueError("fused_bwd: x must be a 2-D f32 or bf16 tensor "
+                         "(got %s %s)" % (x.dtype, tuple(x.shape)))
+    m, k = x.shape
+    n = w.shape[0]
+    dev = x.device
+    _check(dy, "dy", (m, n), x.dtype, dev, "fused_bwd")
+    _check(w, "w", (n, k), x.dtype, dev, "fused_bwd")
+    _check(scale, "scale", (k,), torch.float32, dev, "fused_bwd")
+    _check(shift, "shift", (k,), torch.float32, dev, "fused_bwd")
+    return m, k, n
+
+
+@torch.library.custom_op("mxnet_tpu_torch::fused_bwd", mutates_args=(),
+                         device_types="cuda")
+def fused_bwd_op(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                 shift: torch.Tensor, w: torch.Tensor, relu: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Kernel F as a torch operator: its CUDA implementation launches
+    ``csrc/fused_bwd.cu``; its CPU implementation is
+    :func:`fused_bwd_plain`; its fake implementation gives the shapes and
+    dtypes, so a traced training graph holds this one node."""
+    m, k, n = _fused_bwd_check(x, dy, scale, shift, w)
+    return _bwd_launch(x, dy, scale, shift, w, relu,
+                       _tuned(m, k, n, x.dtype, x.device))
+
+
+@fused_bwd_op.register_kernel("cpu")
+def _fused_bwd_cpu(x, dy, scale, shift, w, relu):
+    return fused_bwd_plain(x, dy, scale, shift, w, relu)
+
+
+@fused_bwd_op.register_fake
+def _fused_bwd_fake(x, dy, scale, shift, w, relu):
+    if x.device.type != "cpu":
+        _fused_bwd_check(x, dy, scale, shift, w)
+        _refuse_meta(x, "fused_bwd")
+    k, n = x.shape[1], w.shape[0]
+    f32 = torch.float32
+    return (x.new_empty(x.shape), x.new_empty((n, k), dtype=f32),
+            x.new_empty((k,), dtype=f32), x.new_empty((k,), dtype=f32))
+
+
 def fused_bwd(x, dy, scale, shift, w, relu):
     """dx (M, K) in x's dtype, dW (N, K) f32, dscale and dshift (K,) f32
     for y = [relu](x*scale + shift) @ W^T; dy (M, N) in x's dtype, w
-    (N, K).  CPU tensors take :func:`fused_bwd_plain`; CUDA tensors
-    launch kernel F."""
-    if x.device.type == "cpu":
-        return fused_bwd_plain(x, dy, scale, shift, w, relu)
-    code = _DTYPE_CODE.get(x.dtype)
-    if code is None or x.dim() != 2:
-        raise ValueError("fused_bwd: x must be a 2-D f32 or bf16 tensor "
-                         "(got %s %s)" % (x.dtype, tuple(x.shape)))
-    if x.device.type != "cuda":
-        raise ValueError("fused_bwd: unsupported device %s" % x.device)
-    m, k = x.shape
-    return _bwd_launch(x, dy, scale, shift, w, relu,
-                       _tuned(m, k, w.shape[0], x.dtype, x.device))
+    (N, K).  The call is the operator ``mxnet_tpu_torch::fused_bwd``:
+    CPU tensors take :func:`fused_bwd_plain`, CUDA tensors launch
+    kernel F, and any other device raises."""
+    return fused_bwd_op(x, dy, scale, shift, w, bool(relu))
 
 
 def _bwd_launch(x, dy, scale, shift, w, relu, params):
-    """Launch kernel F on CUDA tensors under the space's ``params``
-    (None: the rule's plans)."""
+    """Launch kernel F on checked CUDA tensors under the space's
+    ``params`` (None: the rule's plans)."""
     code = _DTYPE_CODE[x.dtype]
     m, k = x.shape
     n = w.shape[0]
     dev = x.device
-    x = x.contiguous()
-    dy = _check(dy, "dy", (m, n), x.dtype, dev, "fused_bwd")
-    w = _check(w, "w", (n, k), x.dtype, dev, "fused_bwd")
-    scale = _check(scale, "scale", (k,), torch.float32, dev, "fused_bwd")
-    shift = _check(shift, "shift", (k,), torch.float32, dev, "fused_bwd")
+    x, dy, w = x.contiguous(), dy.contiguous(), w.contiguous()
+    scale, shift = scale.contiguous(), shift.contiguous()
     dx = torch.empty_like(x)
     dw = torch.empty((n, k), dtype=torch.float32, device=dev)
     dscale = torch.zeros((k,), dtype=torch.float32, device=dev)
@@ -386,47 +424,85 @@ def _bwd_launch(x, dy, scale, shift, w, relu, params):
     return dx, dw, dscale, dshift
 
 
-class FusedLNLinearFn(torch.autograd.Function):
-    """Differentiable kernel A: ``(y, ysum, ysumsq)`` from (x, scale,
-    shift, w, bias, residual), forward through kernel A and backward
-    through kernel F (their plain versions on CPU tensors and under
-    ``plain``).
+def _fold_backward(saved, args, needs, grads, bwd):
+    """The gradients of ``(x, scale, shift, w, bias, residual)`` from the
+    cotangents ``(dy, dysum, dysumsq)`` of ``(y, ysum, ysumsq)``: the
+    statistics' cotangents folded into an effective dy, ``dy + dysum +
+    2 y dysumsq`` in f32 cast to x's dtype (``pallas_fused.py`` custom
+    VJP; a cotangent that is None is skipped, not added as zeros), then
+    ``bwd`` (kernel F's operator or its plain version).  dbias is that
+    dy's column sum in f32, dresidual the cast dy itself, and dW is cast
+    to w's dtype."""
+    x, scale, shift, w, y = saved
+    relu, has_bias, has_res = args
+    dy, dysum, dysumsq = grads
+    dy32 = (dy.float() if dy is not None
+            else torch.zeros(y.shape, dtype=torch.float32, device=y.device))
+    if dysum is not None:
+        dy32 = dy32 + dysum[None, :]
+    if dysumsq is not None:
+        dy32 = dy32 + 2.0 * y.float() * dysumsq[None, :]
+    dy_eff = dy32.to(x.dtype)
+    dx, dw, dscale, dshift = bwd(x, dy_eff, scale, shift, w, relu)
+    return (dx, dscale if needs[1] else None, dshift if needs[2] else None,
+            dw.to(w.dtype), dy32.sum(0) if has_bias else None,
+            dy_eff if has_res else None)
 
-    The backward folds the statistics' cotangents into an effective dy,
-    ``dy + dysum + 2 y dysumsq`` in f32 cast to x's dtype
-    (``pallas_fused.py`` custom VJP); dbias is that dy's column sum in
-    f32, dresidual the cast dy itself, and dW is cast to w's dtype.
-    bias and residual may be None."""
+
+def _fused_fwd_setup(ctx, inputs, output):
+    x, scale, shift, w, bias, residual, relu = inputs
+    ctx.save_for_backward(x, scale, shift, w, output[0])
+    ctx.args = (relu, bias is not None, residual is not None)
+    # cotangents of unused statistics arrive as None (not zeros)
+    ctx.set_materialize_grads(False)
+
+
+def _fused_fwd_backward(ctx, dy, dysum, dysumsq):
+    return _fold_backward(ctx.saved_tensors, ctx.args, ctx.needs_input_grad,
+                          (dy, dysum, dysumsq), fused_bwd) + (None,)
+
+
+# kernel A's gradient is kernel F (through its operator)
+fused_fwd_op.register_autograd(_fused_fwd_backward,
+                               setup_context=_fused_fwd_setup)
+
+
+class _FusedPlainFn(torch.autograd.Function):
+    """The plain versions of kernels A and F as one autograd Function,
+    with the same statistics fold as the operators' gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, shift, w, bias, residual, relu, plain):
-        fwd = fused_plain if plain else fused_scale_relu_matmul
-        y, s1, s2 = fwd(x, scale, shift, w, residual=residual, relu=relu,
-                        bias=bias, wt=True)
+    def forward(ctx, x, scale, shift, w, bias, residual, relu):
+        y, s1, s2 = fused_plain(x, scale, shift, w, residual=residual,
+                                relu=relu, bias=bias, wt=True)
         ctx.save_for_backward(x, scale, shift, w, y)
-        ctx.args = (relu, plain, bias is not None, residual is not None)
+        ctx.args = (relu, bias is not None, residual is not None)
         ctx.set_materialize_grads(False)
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, dy, dysum, dysumsq):
-        x, scale, shift, w, y = ctx.saved_tensors
-        relu, plain, has_bias, has_res = ctx.args
-        dy32 = (dy.float() if dy is not None
-                else torch.zeros(y.shape, dtype=torch.float32,
-                                 device=y.device))
-        if dysum is not None:
-            dy32 = dy32 + dysum[None, :]
-        if dysumsq is not None:
-            dy32 = dy32 + 2.0 * y.float() * dysumsq[None, :]
-        dy_eff = dy32.to(x.dtype)
-        bwd = fused_bwd_plain if plain else fused_bwd
-        dx, dw, dscale, dshift = bwd(x, dy_eff, scale, shift, w, relu)
-        need = ctx.needs_input_grad
-        return (dx, dscale if need[1] else None,
-                dshift if need[2] else None, dw.to(w.dtype),
-                dy32.sum(0) if has_bias else None,
-                dy_eff if has_res else None, None, None)
+        return _fold_backward(ctx.saved_tensors, ctx.args,
+                              ctx.needs_input_grad, (dy, dysum, dysumsq),
+                              fused_bwd_plain) + (None,)
+
+
+class FusedLNLinearFn:
+    """Differentiable kernel A: ``(y, ysum, ysumsq)`` from (x, scale,
+    shift, w, bias, residual).  ``apply`` calls the operator
+    ``mxnet_tpu_torch::fused_fwd``, whose registered gradient is the
+    operator ``mxnet_tpu_torch::fused_bwd`` (kernel F on the card, its
+    plain version on the CPU); under ``plain`` it runs the two plain
+    versions.  Either way the backward folds the statistics' cotangents
+    into an effective dy (:func:`_fold_backward`).  bias and residual
+    may be None."""
+
+    @staticmethod
+    def apply(x, scale, shift, w, bias, residual, relu, plain):
+        if plain:
+            return _FusedPlainFn.apply(x, scale, shift, w, bias, residual,
+                                       relu)
+        return fused_fwd_op(x, scale, shift, w, bias, residual, bool(relu))
 
 
 # ---------------------------------------------------------------------------

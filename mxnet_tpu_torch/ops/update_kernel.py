@@ -31,9 +31,12 @@ folded into lr on the host); ``hyp`` is ``[rescale, clip, momentum]`` or
   slab's element count, resolved by :func:`plan_for` before the store is
   built; the cold-cache ``BLOCK_ROWS = 16`` gives the JAX package's
   layout exactly;
-* :func:`multi_tensor_update` — the wrapper: CUDA slabs launch kernel B1
-  (``csrc/multi_tensor_update.cu``, built at first use) or raise; CPU
-  slabs, and ``plain=True``, take :func:`update_plain`, which repeats the
+* :func:`multi_tensor_update` — the wrapper onto the torch operator
+  ``mxnet_tpu_torch::multi_tensor_update`` (:func:`multi_tensor_update_op`,
+  which writes w, the slots and wc in place): CUDA slabs launch kernel
+  B1 (``csrc/multi_tensor_update.cu``, built at first use) or raise; CPU
+  slabs take :func:`update_plain` through the operator's dispatch, and
+  ``plain=True`` calls it directly.  :func:`update_plain` repeats the
   kernel's arithmetic as torch ops with the hyperparameters as f32
   tensors (``1 - b1`` rounds in f32, as the kernel computes it).
 
@@ -43,14 +46,17 @@ folded into lr on the host); ``hyp`` is ``[rescale, clip, momentum]`` or
 """
 from __future__ import annotations
 
+from typing import List, Optional
+
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from .. import cuda_build
 
 __all__ = ["BLOCK_ROWS", "LANES", "BLOCK", "UPDATE_PATH", "LAUNCHES",
            "UpdatePlan", "kind_of", "plan_for", "multi_tensor_update",
-           "update_plain"]
+           "multi_tensor_update_op", "update_plain"]
 
 BLOCK_ROWS = 16
 LANES = 128
@@ -286,7 +292,7 @@ def update_plain(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
             wc.copy_(new_w)
 
 
-def _check(t, name, shape, dtypes, device):
+def _check(t, name, shape, dtypes, device, fake=False):
     if t.device != device:
         raise ValueError("multi_tensor_update: %s on %s, w on %s"
                          % (name, t.device, device))
@@ -296,26 +302,18 @@ def _check(t, name, shape, dtypes, device):
     if t.dtype not in dtypes:
         raise ValueError("multi_tensor_update: %s dtype %s not in %s"
                          % (name, t.dtype, [str(d) for d in dtypes]))
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    if not t.is_contiguous() or (not fake and t.data_ptr() % 16):
         raise ValueError("multi_tensor_update: %s must be contiguous and "
                          "16-byte aligned" % name)
 
 
-def multi_tensor_update(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
-                        plain=False, block_rows=BLOCK_ROWS):
-    """The update over one bucket's slabs, in place: w (rows, 128) f32 or
-    bf16, g (rows, 128) f32, ``slots`` a tuple of ``nslots`` slabs in w's
-    dtype, ``wc`` a bf16 / f16 slab or None, ``lrb`` / ``wdb`` (rows /
-    block_rows,) f32, ``hyp`` floats; ``block_rows`` the plan's block
-    height (a multiple of 16).  CPU slabs (or ``plain``) take
-    :func:`update_plain`; CUDA slabs launch kernel B1.  Returns "kernel"
-    or "plain"."""
-    slots = tuple(slots)
-    if plain or w.device.type == "cpu":
-        update_plain(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
-                     block_rows)
-        return "plain"
-    if w.device.type != "cuda":
+def _b1_check(kind, nslots, w, g, slots, wc, lrb, wdb, block_rows,
+              fake=False):
+    """Kernel B1's contract for slabs off the host (CUDA tensors, or fake
+    ones while a graph is traced): the number of blocks, or a ValueError
+    naming what the kernel does not take.  ``fake``: the pointers are
+    not read."""
+    if w.device.type != "cuda" and not (fake and is_fake(w)):
         raise ValueError("multi_tensor_update: unsupported device %s"
                          % w.device)
     valid = (kind == "sgd" and nslots in (0, 1)) or \
@@ -331,18 +329,39 @@ def multi_tensor_update(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
     if w.dim() != 2 or w.shape[1] != LANES or w.shape[0] % block_rows:
         raise ValueError("multi_tensor_update: w must be a (%d k, 128) "
                          "slab, got %s" % (block_rows, tuple(w.shape)))
-    _check(w, "w", w.shape, tuple(_MASTER_CODE), dev)
-    _check(g, "g", w.shape, (torch.float32,), dev)
+    _check(w, "w", w.shape, tuple(_MASTER_CODE), dev, fake)
+    _check(g, "g", w.shape, (torch.float32,), dev, fake)
     for i, s in enumerate(slots):
-        _check(s, "slot %d" % i, w.shape, (w.dtype,), dev)
+        _check(s, "slot %d" % i, w.shape, (w.dtype,), dev, fake)
     if wc is not None:
-        _check(wc, "wc", w.shape, (torch.bfloat16, torch.float16), dev)
+        _check(wc, "wc", w.shape, (torch.bfloat16, torch.float16), dev,
+               fake)
     nblocks = w.shape[0] // block_rows
-    _check(lrb, "lr", (nblocks,), (torch.float32,), dev)
-    _check(wdb, "wd", (nblocks,), (torch.float32,), dev)
+    _check(lrb, "lr", (nblocks,), (torch.float32,), dev, fake)
+    _check(wdb, "wd", (nblocks,), (torch.float32,), dev, fake)
+    return nblocks
+
+
+@torch.library.custom_op("mxnet_tpu_torch::multi_tensor_update",
+                         mutates_args=("w", "slots", "wc"),
+                         device_types="cuda")
+def multi_tensor_update_op(kind: str, nslots: int, w: torch.Tensor,
+                           g: torch.Tensor, slots: List[torch.Tensor],
+                           wc: Optional[torch.Tensor], lrb: torch.Tensor,
+                           wdb: torch.Tensor, hyp: List[float],
+                           block_rows: int) -> None:
+    """Kernel B1 as a torch operator, writing w, the slots and wc in
+    place: its CUDA implementation launches
+    ``csrc/multi_tensor_update.cu``; its CPU implementation is
+    :func:`update_plain`; its fake implementation checks the slabs and
+    writes nothing, so a traced training graph holds this one node with
+    its in-place writes in its schema."""
+    nblocks = _b1_check(kind, nslots, w, g, slots, wc, lrb, wdb,
+                        block_rows)
     h = [float(v) for v in hyp] + [0.0] * (5 - len(hyp))
     s0 = slots[0].data_ptr() if nslots > 0 else None
     s1 = slots[1].data_ptr() if nslots > 1 else None
+    dev = w.device
     lib = cuda_build.lib("multi_tensor_update")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -354,7 +373,41 @@ def multi_tensor_update(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
             stream)
     cuda_build.check(lib, rc, "multi_tensor_update")
     LAUNCHES["multi_tensor_update"] += 1
-    return "kernel"
+
+
+@multi_tensor_update_op.register_kernel("cpu")
+def _multi_tensor_update_cpu(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
+                             block_rows):
+    update_plain(kind, nslots, w, g, tuple(slots), wc, lrb, wdb, hyp,
+                 block_rows)
+
+
+@multi_tensor_update_op.register_fake
+def _multi_tensor_update_fake(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
+                              block_rows):
+    if w.device.type != "cpu":
+        _b1_check(kind, nslots, w, g, slots, wc, lrb, wdb, block_rows,
+                  fake=True)
+
+
+def multi_tensor_update(kind, nslots, w, g, slots, wc, lrb, wdb, hyp,
+                        plain=False, block_rows=BLOCK_ROWS):
+    """The update over one bucket's slabs, in place: w (rows, 128) f32 or
+    bf16, g (rows, 128) f32, ``slots`` a tuple of ``nslots`` slabs in w's
+    dtype, ``wc`` a bf16 / f16 slab or None, ``lrb`` / ``wdb`` (rows /
+    block_rows,) f32, ``hyp`` floats; ``block_rows`` the plan's block
+    height (a multiple of 16).  The call is the operator
+    ``mxnet_tpu_torch::multi_tensor_update``: CPU slabs take
+    :func:`update_plain`, CUDA slabs launch kernel B1, any other device
+    raises; ``plain`` calls :func:`update_plain` directly.  Returns
+    "kernel" or "plain"."""
+    if plain:
+        update_plain(kind, nslots, w, g, tuple(slots), wc, lrb, wdb, hyp,
+                     block_rows)
+        return "plain"
+    multi_tensor_update_op(kind, int(nslots), w, g, list(slots), wc, lrb,
+                           wdb, [float(v) for v in hyp], int(block_rows))
+    return "plain" if w.device.type == "cpu" else "kernel"
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,12 @@ registry (the counterpart of ``mxnet_tpu/programs``).
   signature, replayed; a capture is the counterpart of a trace),
   :data:`GRAPH_STATS` and :func:`eager` (the counterpart of
   ``jax.disable_jit()``);
-* :mod:`.spec` — :class:`ProgramSpec` and its fingerprint;
-* :mod:`.registry` — the weakly held live registry and its trace report;
+* :mod:`.spec` — :class:`ProgramSpec` (its fingerprint, artifact, cost
+  and donated leaves) and the probing helpers (:func:`probing`,
+  :func:`probe_artifact`, :func:`probe_cost`);
+* :mod:`.registry` — the weakly held live registry, its trace report,
+  and the canonical lint catalog (``register_canonical``,
+  ``build_canonical``);
 * :mod:`.aot` — the program-cache directory (``cache_dir``), where the
   tuning cache (``ops/tuning.py``) keeps its records.
 
@@ -20,8 +24,8 @@ parallelism.
 from . import aot, graphs, registry, spec
 from .graphs import GRAPH_STATS, GraphPool, GraphProgram, eager
 from .registry import REGISTRY, ProgramRegistry
-from .spec import ProgramSpec
+from .spec import ProgramSpec, probe_artifact, probe_cost, probing
 
 __all__ = ["GRAPH_STATS", "GraphPool", "GraphProgram", "ProgramRegistry",
-           "ProgramSpec", "REGISTRY", "aot", "eager", "graphs", "registry",
-           "spec"]
+           "ProgramSpec", "REGISTRY", "aot", "eager", "graphs", "probe_artifact",
+           "probe_cost", "probing", "registry", "spec"]

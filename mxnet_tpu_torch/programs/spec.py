@@ -8,15 +8,27 @@ the device kind, the abstract args' shapes and dtypes, the caller's
 extras and a digest of the kernel sources (``csrc/*.cu*``).  Two hosts
 with equal keys run the same program on the same kernels.
 
-:meth:`ProgramSpec.artifact` exports the program's body (the Python the
-:class:`~mxnet_tpu_torch.programs.graphs.GraphProgram` captures) with
-``torch.export`` through the one artifact function,
-:func:`~mxnet_tpu_torch.analysis.artifact_from_export`.  The reference's
-other probes (``cost``, ``lowered``, ``compiled``) have no counterpart
-yet: a CUDA graph has no text to price.
+:meth:`ProgramSpec.artifact` traces the program's body (the Python the
+:class:`~mxnet_tpu_torch.programs.graphs.GraphProgram` captures) through
+the one artifact function,
+:func:`~mxnet_tpu_torch.analysis.artifact_from_export`;
+:meth:`ProgramSpec.cost` prices it from that graph
+(:func:`~mxnet_tpu_torch.analysis.cost.program_cost`), and
+:meth:`ProgramSpec.donated_leaves` counts the buffers of the argument
+positions the program updates in place (``donate_argnums``).  The
+reference's ``lowered`` / ``compiled`` probes have no counterpart: a
+CUDA graph has no text.
+
+The probing helpers (:func:`probing`, :func:`probe_artifact`,
+:func:`probe_cost`) are the one copy of the guard every probe runs
+under: the owner's ``_probing`` flag is set, and every kernel launch
+counter, path marker and :data:`~mxnet_tpu_torch.programs.graphs.
+GRAPH_STATS` entry is restored afterwards, so a probe counts as neither
+a capture nor a launch.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import glob
 import hashlib
@@ -29,7 +41,51 @@ import torch
 from ..base import MXNetError
 from ..cuda_build import CSRC
 
-__all__ = ["ProgramSpec", "kernel_digest", "device_kind"]
+__all__ = ["ProgramSpec", "kernel_digest", "device_kind", "probing",
+           "probe_artifact", "probe_cost"]
+
+
+@contextlib.contextmanager
+def probing(owner=None):
+    """A probe's scope: ``owner._probing`` set (when an owner is given),
+    and every kernel launch counter, path marker and graph statistic
+    restored on the way out, so a probe is never a capture or a
+    launch."""
+    from .graphs import GRAPH_STATS, _launch_counters, _path_markers
+
+    saved = [(d, dict(d)) for d in _launch_counters() + _path_markers()
+             + (GRAPH_STATS,)]
+    if owner is not None:
+        owner._probing = True
+    try:
+        yield
+    finally:
+        if owner is not None:
+            owner._probing = False
+        for d, v in saved:
+            d.clear()
+            d.update(v)
+
+
+def probe_artifact(owner, fn, args, name, refine=None, **kw):
+    """:func:`~mxnet_tpu_torch.analysis.artifact_from_export` of ``fn``
+    (a body, or an ``nn.Module``) at ``args`` under :func:`probing`;
+    ``refine`` an optional post-hook on the artifact."""
+    from ..analysis.artifact import artifact_from_export
+
+    with probing(owner):
+        art = artifact_from_export(fn, args, name, **kw)
+    return refine(art) if refine is not None else art
+
+
+def probe_cost(owner, fn, args, autograd=False):
+    """The static FLOPs and bytes of ``fn`` at ``args``
+    (:func:`~mxnet_tpu_torch.analysis.cost.program_cost`) under
+    :func:`probing`."""
+    from ..analysis.cost import program_cost
+
+    with probing(owner):
+        return program_cost(fn, args, autograd=autograd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,11 +157,18 @@ class ProgramSpec:
         another form (the weights as buffers); by default a
         :class:`~mxnet_tpu_torch.programs.graphs.GraphProgram`'s
         ``body`` called on the args as they are.
+    donate_argnums : tuple of int
+        The argument positions whose buffers the program updates in
+        place: :meth:`donated_leaves` counts their tensors.
+    autograd : bool
+        The body calls autograd (a training step): traced by ``make_fx``
+        into one graph.
     """
 
     def __init__(self, name, fn, *, owner=None, abstract_args=None,
                  trace_count=None, expected_traces=1, device=None,
-                 fingerprint_extra=None, program=None):
+                 fingerprint_extra=None, program=None, donate_argnums=(),
+                 autograd=False):
         self.name = name
         self.fn = fn
         self._owner = weakref.ref(owner) if owner is not None else None
@@ -115,6 +178,8 @@ class ProgramSpec:
         self._device = device
         self._fingerprint_extra = fingerprint_extra
         self._program = program
+        self.donate_argnums = tuple(donate_argnums or ())
+        self._autograd = autograd
 
     def owner(self):
         return self._owner() if self._owner is not None else None
@@ -151,27 +216,47 @@ class ProgramSpec:
         blob = json.dumps(payload, sort_keys=True, default=str)
         return hashlib.blake2b(blob.encode(), digest_size=16).hexdigest()
 
+    def donated_leaves(self, args):
+        """Tensors of the argument positions in ``donate_argnums`` (the
+        buffers the program updates in place), counted over ``args``."""
+        return sum(isinstance(x, list) for i in self.donate_argnums
+                   if i < len(args) for x in _leaf_sigs(args[i], []))
+
+    def _module(self, args):
+        from ..analysis.artifact import BufferModule
+        from .graphs import GraphProgram
+
+        if self._program is not None:
+            return self._program(args)
+        if isinstance(self.fn, GraphProgram):
+            return BufferModule(self.fn.body), tuple(args)
+        raise MXNetError("program %r has no body to export" % self.name)
+
     def artifact(self, args=None, name=None, **extra_meta):
         """:class:`~mxnet_tpu_torch.analysis.ProgramArtifact` of the
         program's body at ``args`` (or the spec's abstract args; ``meta``
-        tensors do), traced by ``torch.export``; None before the program
-        is runnable.  The training steps' specs have none yet (their
-        kernels D, E, F and B1 are not operators)."""
-        from ..analysis.artifact import BufferModule, artifact_from_export
-        from .graphs import GraphProgram
-
+        tensors do), traced on fake tensors under :func:`probing`; None
+        before the program is runnable."""
         args = self.avals(args)
         if args is None:
             return None
-        if self._program is not None:
-            module, example = self._program(args)
-        elif isinstance(self.fn, GraphProgram):
-            module, example = BufferModule(self.fn.body), tuple(args)
-        else:
-            raise MXNetError("program %r has no body to export"
-                             % self.name)
-        return artifact_from_export(
-            module, example, name or self.name,
+        module, example = self._module(args)
+        return probe_artifact(
+            self.owner(), module, example, name or self.name,
+            autograd=self._autograd,
+            donated_leaves=self.donated_leaves(args),
             trace_count=self.trace_count(),
             expected_traces=self.expected_traces() or 1,
             fingerprint=self.fingerprint(args), **extra_meta)
+
+    def cost(self, args=None):
+        """``{"flops", "bytes", "collective_bytes", "gather_bytes",
+        "sort_scatter_bytes"}`` of the program at ``args`` (or the
+        spec's abstract args), from its traced graph; None before the
+        program is runnable."""
+        args = self.avals(args)
+        if args is None:
+            return None
+        module, example = self._module(args)
+        return probe_cost(self.owner(), module, example,
+                          autograd=self._autograd)

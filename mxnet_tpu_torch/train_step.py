@@ -108,7 +108,8 @@ def _register_step_spec(step):
                              if ref() is not None else None),
         expected_traces=lambda: (ref().programs_built
                                  if ref() is not None and is_train else 1),
-        device=step._device)
+        device=step._device, autograd=is_train,
+        program=lambda args: (ref()._body(), tuple(args)))
     return _registry.register(spec)
 
 
@@ -150,6 +151,19 @@ def _forward_body(exe, finish):
         return finish(env, outs, *rest)
 
     return body
+
+
+def _tensor_leaves(x):
+    """The tensors of nested tuples / lists / dicts."""
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensor_leaves(v)]
+    return [x] if isinstance(x, torch.Tensor) else []
+
+
+def _dtype_name(dtype):
+    return None if dtype is None else str(dtype).replace("torch.", "")
 
 
 def _bound_args(exe):
@@ -200,6 +214,10 @@ class _StepBase:
         if self._metric_acc is not None:
             self._metric_acc.commit()
         return outs
+
+    def _body(self):
+        """The program's body (what its spec traces)."""
+        return self._prog.body
 
     def _labels(self, group, env):
         return [env[n] for n in group.label_names if n in env]
@@ -259,6 +277,7 @@ class CompiledTrainStep(_StepBase):
         self._fns = {}
         self.num_steps = 0
         self.last_event = None
+        self._last_hyp = None
         plan = update_kernel.plan_for(
             optimizer, {n: exe.arg_dict[n].data for n in self._grad_names},
             self._grad_names, self._cdtype)
@@ -360,6 +379,10 @@ class CompiledTrainStep(_StepBase):
         prog = self._build(group)
         self._fns[id(exe)] = (prog, exe)
         return prog
+
+    def _body(self):
+        """The primary executor's step body."""
+        return self._entry_for(self._group).body
 
     def load_from_executor(self):
         """The masters were written outside the step (an eager update,
@@ -467,9 +490,11 @@ class CompiledTrainStep(_StepBase):
                         dict(zip(keys, x)) for keys, x in zip(
                             (plan.buckets,) * 3 + (self._wc,)
                             + (plan.buckets,) * 2, update))
-                    # the pack into the f32 gradient slab
+                    # the pack into the f32 gradient slab (views of the
+                    # argument, so a traced step writes its input)
+                    gviews = plan.unpack_all(g)
                     for n, gr in zip(grad_names, grads):
-                        self._grad_views[n].copy_(gr)
+                        gviews[n].copy_(gr)
                     update_kernel.UPDATE_PATH["last"] = plan.apply(
                         w, g, slots, wc, lrb, wdb, hyp, plain=plain)
                 else:
@@ -547,12 +572,58 @@ class CompiledTrainStep(_StepBase):
         self._upload_hyper(lrs, wds)
         hyp = (float(rescale), float(clip)) + tuple(
             float(v) for v in opt.fused_extra())
+        self._last_hyp = hyp
         outs = self._call(prog, self._args(group, hyp))
         self.num_steps += 1
         if self._device.type == "cuda":
             self.last_event = torch.cuda.Event()
             self.last_event.record()
         return outs
+
+    # ------------------------------------------------------------------
+    # the static view
+    # ------------------------------------------------------------------
+    def _donated(self, group, args):
+        """Leaves of the arguments the step updates in place: the aux
+        states, the store (the plan's master, gradient, slot and compute
+        slabs; or the trainables, their gradient buffers and slots) and
+        the metric's accumulators."""
+        env, aux, update, mstate = args[:4]
+        n = len(_tensor_leaves(aux)) + len(_tensor_leaves(mstate))
+        if self.plan is not None:
+            return n + len(_tensor_leaves(update[:4]))
+        names = list(group.exec_.arg_dict)
+        trainables = [env[names.index(g)] for g in self._grad_names]
+        return n + len(trainables) + len(_tensor_leaves(update[:2]))
+
+    def artifact(self, name="train_step", group=None):
+        """:class:`~mxnet_tpu_torch.analysis.ProgramArtifact` of the step
+        program of ``group`` (the primary's by default) at its bound
+        arguments: forward, autograd's backward, the gradient pack, the
+        update (kernel B1's operator under the slab plan) and the
+        metric's accumulation, traced into one graph on fake tensors
+        (nothing runs, no counter moves).  None before the first
+        ``run``.  Metadata: the compute dtype, the captures so far
+        against the programs built, and the update kernel's promise
+        (``update_kernel``: the graph must hold a
+        ``multi_tensor_update`` operator) when the plan is armed and the
+        executor is not plain."""
+        from .programs.spec import probe_artifact
+
+        group = group if group is not None else self._group
+        if self._last_hyp is None:
+            return None
+        prog = self._entry_for(group)
+        args = self._args(group, self._last_hyp)
+        return probe_artifact(
+            self, prog.body, args, name, autograd=True,
+            donated_leaves=self._donated(group, args),
+            compute_dtype=_dtype_name(self._cdtype),
+            trace_count=self.trace_count,
+            expected_traces=max(self.programs_built, 1),
+            num_steps=self.num_steps,
+            update_kernel=self.plan is not None and not group.exec_.plain,
+            update_path="slab" if self.plan is not None else "per_param")
 
     # ------------------------------------------------------------------
     # state exchange
@@ -661,6 +732,24 @@ class CompiledEvalStep(_StepBase):
         """Fold the pending device sums into the metric and detach the
         hooks (the end of an eval pass)."""
         self._metric_acc.uninstall()
+
+    def artifact(self, name="eval_step"):
+        """:class:`~mxnet_tpu_torch.analysis.ProgramArtifact` of the eval
+        program (the forward and the metric's accumulation, which it
+        writes in place) at the executor's bound arguments, traced on
+        fake tensors; None before the first ``run``."""
+        from .programs.spec import probe_artifact
+
+        if self._last_args is None:
+            return None
+        # the accumulators (kept by the accumulator between passes)
+        mstate = self._last_args[-1]
+        args = _bound_args(self._exec) + (mstate,)
+        return probe_artifact(
+            self, self._prog.body, args, name,
+            donated_leaves=len(_tensor_leaves(mstate)),
+            trace_count=self.trace_count, expected_traces=1,
+            metric=type(self._metric_acc.metric).__name__)
 
     def rearm(self):
         """Re-install the metric hooks for another pass over the same

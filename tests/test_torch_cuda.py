@@ -2701,3 +2701,150 @@ def test_rtc_build_and_launch(card):
                                atol=0)
     torch.testing.assert_close(ex.grad_dict["b"].data, dy, rtol=0, atol=0)
     assert len(launches) >= 2
+
+
+# ---------------------------------------------------------------------------
+# kernels F, D, E and B1 as torch operators; the training artifacts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_new_operators_launch_and_pass_opcheck(card, dtype):
+    """The operators of kernels F, D, E (and the registered gradients of
+    A and C through them) on CUDA tensors: each launch counted, the
+    results against the plain versions, torch.library.opcheck clean."""
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    g = torch.Generator(device=card).manual_seed(20)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=card)
+
+    x, w, dy = r(300, 136).to(dtype), (r(72, 136) / 12).to(dtype), \
+        r(300, 72).to(dtype)
+    scale, shift = 1 + 0.1 * r(136), 0.1 * r(136)
+    before = dict(fk.LAUNCHES)
+    got = fk.fused_bwd_op(x, dy, scale, shift, w, True)
+    assert fk.LAUNCHES["fused_bwd"] == before["fused_bwd"] + 1
+    want = fk.fused_bwd_plain(x, dy, scale, shift, w, True)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= \
+            tol * 10 * max(1.0, float(b.float().abs().max()))
+    torch.library.opcheck(fk.fused_bwd_op, (x, dy, scale, shift, w, True))
+    torch.library.opcheck(fk.fused_fwd_op, (
+        x.clone().requires_grad_(), scale, shift, w.clone().requires_grad_(),
+        None, None, True))
+    q = r(4, 200, 64).to(dtype)
+    o, lse = fl.flash_fwd(q, q, q, 0.125, True)
+    do = r(4, 200, 64).to(dtype)
+    delta = fl.flash_delta(o, do)
+    args = (q, q, q, do, lse, delta, 0.125, True, 1)
+    before = dict(fl.LAUNCHES)
+    dq = fl.flash_bwd_dq_op(*args)
+    dk, dv = fl.flash_bwd_dkv_op(*args)
+    assert fl.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fl.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = fl.flash_plain_bwd(q, q, q, o, lse, do, 0.125, True)
+    for a, b in zip((dq, dk, dv), want):
+        assert float((a.float() - b.float()).abs().max()) <= \
+            tol * max(1.0, float(b.float().abs().max()))
+    torch.library.opcheck(fl.flash_bwd_dq_op, args)
+    torch.library.opcheck(fl.flash_bwd_dkv_op, args)
+    torch.library.opcheck(fl.flash_fwd_op, (q.clone().requires_grad_(),
+                                            q.clone(), q.clone(), 0.125,
+                                            True, 1))
+
+
+@pytest.mark.parametrize("kind,nslots,wc", [("sgd", 0, None),
+                                            ("sgd", 1, torch.bfloat16),
+                                            ("adam", 2, None)])
+def test_update_operator_bitwise_against_its_cpu_implementation(
+        card, kind, nslots, wc):
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    g = torch.Generator(device=card).manual_seed(21)
+    shape = (64, 128)
+
+    def r():
+        return torch.randn(shape, generator=g, device=card)
+
+    w, grad = r(), r()
+    slots = [r().abs() for _ in range(nslots)]
+    wcs = None if wc is None else torch.empty(shape, dtype=wc, device=card)
+    lrb = torch.tensor([0.1, 0.01, 0.05, 0.2], device=card)
+    wdb = torch.full((4,), 1e-4, device=card)
+    hyp = [0.5, 0.3, 0.9] if kind == "sgd" else [0.5, 0.3, 0.9, 0.999, 1e-8]
+    cpu = [w.cpu(), grad.cpu(), [s.cpu() for s in slots],
+           None if wcs is None else wcs.cpu(), lrb.cpu(), wdb.cpu()]
+    before = uk.LAUNCHES["multi_tensor_update"]
+    uk.multi_tensor_update_op(kind, nslots, w, grad, slots, wcs, lrb, wdb,
+                              hyp, 16)
+    assert uk.LAUNCHES["multi_tensor_update"] == before + 1
+    on_card = [cpu[0].to(card), grad, [s.to(card) for s in cpu[2]],
+               None if wcs is None else cpu[3].to(card), lrb, wdb]
+    uk.update_plain(kind, nslots, on_card[0], grad, tuple(on_card[2]),
+                    on_card[3], lrb, wdb, hyp)
+    uk.multi_tensor_update_op(kind, nslots, *cpu, hyp, 16)
+    got = [w] + slots + ([wcs] if wcs is not None else [])
+    plain = [on_card[0]] + on_card[2] + \
+        ([on_card[3]] if wcs is not None else [])
+    host = [cpu[0]] + cpu[2] + ([cpu[3]] if wcs is not None else [])
+    for a, p, h in zip(got, plain, host):
+        # bit for bit against the plain version on the card; against the
+        # CPU implementation too for SGD, within an ulp for Adam (the
+        # host's sqrt and division may round its last bit otherwise)
+        assert torch.equal(a, p)
+        if kind == "sgd":
+            assert torch.equal(a.cpu(), h)
+        else:
+            torch.testing.assert_close(a.cpu(), h, rtol=2 ** -22, atol=0)
+    torch.library.opcheck(uk.multi_tensor_update_op,
+                          (kind, nslots, w, grad, slots, wcs, lrb, wdb, hyp,
+                           16))
+    with pytest.raises(ValueError, match="kind 'adam' with 1 slots"):
+        uk.multi_tensor_update_op("adam", 1, w, grad, slots[:1] or [w],
+                                  None, lrb, wdb, hyp, 16)
+
+
+def test_train_step_artifact_on_the_card(card, full_f32):
+    """A small LM trained on the card: its step's artifact (a trace on
+    fake tensors: no launch, no capture) holds one operator node for
+    every launch a step makes, and the passes find no error."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import analysis, programs
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    sym = mt.models.attention_lm.get_symbol(
+        vocab_size=64, seq_len=128, num_layers=2, embed=128, heads=2,
+        ffn_hidden=256)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[DataDesc("data", (2, 128), layout="NT")],
+             label_shapes=[DataDesc("softmax_label", (2, 128),
+                                    layout="NT")])
+    mod.init_params(mt.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.01,
+                                         "momentum": 0.9})
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 64, (2, 128)).astype(np.float32)
+    batch = DataBatch([mt.nd.array(x)], [mt.nd.array(x)])
+    for _ in range(2):
+        mod.forward_backward(batch)
+        mod.update()
+    counters = (fk.LAUNCHES, fl.LAUNCHES, uk.LAUNCHES)
+    before = [dict(c) for c in counters]
+    mod.forward_backward(batch)
+    mod.update()
+    torch.cuda.synchronize()
+    step = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c}
+    launched = {k: v for k, v in step.items() if v}
+    snap = ([dict(c) for c in counters], dict(programs.GRAPH_STATS))
+    art = mod.program_artifacts()["train_step"]
+    assert ([dict(c) for c in counters], dict(programs.GRAPH_STATS)) == snap
+    assert analysis.kernel_ops(art) == launched
+    rep = analysis.run_passes([art], budgets=analysis.load_budgets())
+    assert rep.errors == [], rep.format_text()
+    assert {f.code for f in rep.findings if f.pass_name == "flop-dtype"} \
+        == {"kernel-update"}

@@ -423,27 +423,36 @@ NAME_EXCEPTIONS = {
     "module": {"PipelineModule": "later", "pipeline_module": "later"},
     "programs": dict({n: "later" for n in (
         "build_shardings", "match_partition_rules", "partition",
-        "probe_artifact", "probe_cost", "probe_lowered_text", "probing",
         "rules_from_plan")}, **{n: _NO_AOT for n in (
-            "AOT_STATS", "AotDispatch")}),
+            "AOT_STATS", "AotDispatch")},
+        probe_lowered_text="no HLO text: a program's static view is its "
+                           "traced graph (probe_artifact)"),
     "programs.aot": dict({n: _NO_AOT for n in (
         "AOT_STATS", "AotDispatch", "enabled", "save", "load",
         "load_or_compile", "reset_stats")},
         log="a module logger: the port's cache_dir has nothing to log"),
     "rtc": {"register_pallas_op": "the port's user kernels are CUDA C++ "
                                   "(register_cuda_op, build)"},
-    "Executor": {"compiled_hlo": "later"},
+    "programs.spec": {"probe_lowered_text": "no HLO text: a program's "
+                                            "static view is its traced "
+                                            "graph (probe_artifact)"},
+    "analysis": {"artifact_from_jit": "jax: the port's one tracing function is "
+                                      "artifact_from_export (torch.export, "
+                                      "make_fx for autograd)",
+                 "hlo_parse": "HLO text: the port parses traced graphs "
+                              "(analysis.graph_parse)"},
+    "Executor": {"compiled_hlo": "no HLO text: a program's static "
+                                 "view is its traced graph"},
     "DecodePredictor": {"decode_step_text": "no HLO text",
                         "prefill_text": "no HLO text",
                         "serving_avals": "later"},
-    "Module": {"program_artifacts": "later", "reconfigure": "later"},
-    "ProgramSpec": {"compiled": "no HLO text", "cost": "later",
-                    "donated_leaves": "later", "lowered": "no HLO text",
+    "Module": {"reconfigure": "later"},
+    "ProgramSpec": {"compiled": "no HLO text", "lowered": "no HLO text",
                     "register_roofline": "later"},
     "Context": {"jax_device": "jax", "device_type": "later",
                 "devstr2type": "later", "devtype2str": "later"},
-    "CompiledTrainStep": {"artifact": "later", "compiled_hlo": "later"},
-    "CompiledEvalStep": {"artifact": "later"},
+    "CompiledTrainStep": {"compiled_hlo": "no HLO text: the step's "
+                                          "static view is artifact()"},
     "parallel": {n: "later" for n in (
         "MeshConfig", "build_mesh", "collectives", "compat",
         "data_parallel_mesh", "launch", "mesh", "pipeline",
@@ -470,7 +479,11 @@ def _name_pairs():
                 "operator", "rnn", "models", "obs", "programs", "serve",
                 "config", "attrs", "checkpoint", "elastic", "parallel",
                 "parallel.health", "programs.aot", "ops.tuning", "rtc",
-                "visualization", "contrib", "contrib.tensorboard"):
+                "visualization", "contrib", "contrib.tensorboard",
+                "analysis", "analysis.framework", "analysis.passes",
+                "analysis.cost", "analysis.retrace", "analysis.schedule",
+                "analysis.programs", "programs.registry",
+                "programs.spec"):
         pairs.append((mod, importlib.import_module("mxnet_tpu." + mod),
                       importlib.import_module("mxnet_tpu_torch." + mod)))
     pairs += [

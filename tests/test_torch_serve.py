@@ -184,7 +184,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.serve.swap, mxnet_tpu_torch.serve.fleet, "
             "mxnet_tpu_torch.ops.moe, mxnet_tpu_torch.checkpoint, "
             "mxnet_tpu_torch.elastic, mxnet_tpu_torch.parallel.health, "
-            "torch.distributed.checkpoint; "
+            "mxnet_tpu_torch.analysis, mxnet_tpu_torch.analysis.passes, "
+            "mxnet_tpu_torch.analysis.programs, "
+            "mxnet_tpu_torch.analysis.schedule, "
+            "mxnet_tpu_torch.analysis.graph_parse, "
+            "mxnet_tpu_torch.ops.update_kernel, "
+            "torch.distributed.checkpoint, importlib.util; "
+            "[importlib.util.spec_from_file_location(n, 'tools/%s.py' % n)"
+            ".loader.load_module() for n in ('mxlint_torch', "
+            "'mxstat_torch')]; "
+            "sys.modules['mxlint_torch'].main(['--list']); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.')) "
             "or m == 'mxnet_tpu'); print(json.dumps(bad))")
