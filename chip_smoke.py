@@ -284,6 +284,29 @@ Phases (any failure ends the run with a non-zero exit code):
    captured Module step bit for bit against eager, the kernel found in
    a profiled replay, the build seconds.  Every line names the card and
    its power limit.
+20. data parallel — (a) ``parallel.launch.init`` from DMLC_* variables
+   (127.0.0.1, a free port) at a world of one on NCCL, then a
+   ``dist_sync`` store's exact push / pull sums on CUDA tensors at
+   three keys and shapes over three steps, and its updater on the sum
+   (``tests/dist_worker.py``'s cases); (b) phase 6's LM trained through
+   ``Module.fit(kvstore="dist_sync")`` on that group: the eager path
+   (the executor's forward and backward, then push, the all-reduce, the
+   store's SGD and pull, per parameter), one warm-up and DP_STEPS timed
+   steps: step s, tokens/s, the share of the step spent in ``update``
+   (host clock, synchronized), launches A / F 20, C / D / E 4 a step
+   and B1 0, the parameters within CAPTURE_SPREAD times the spread of
+   two eager ``kvstore="local"`` runs of the same steps (against the
+   first of them); (c) ``context=[gpu(0), gpu(0)]`` with
+   ``kvstore="device"``: one executor, the compiled step, B1 once a
+   step, step s beside phase 6's captured step; (d) two ranks sharing
+   the card over gloo (two processes of this script), each with its
+   own half of a global batch, phase 6's LM cut to DP_RANK_LAYERS
+   layer(s), DP_RANK_STEPS steps: the ranks' parameters equal bit for
+   bit, within CAPTURE_SPREAD times the spread of two single-process
+   runs over the concatenated global batch (the second with the halves
+   swapped: the same sum in another order) of the first, the
+   all-reduce's bytes and seconds a step, and
+   ``tools/bandwidth_torch.py``'s rows for the two ranks.
 
 The last lines are a ``kernels`` JSON object (each entry with its
 phase 18 ``tuning`` reading: the class, the winner, its ms and the
@@ -7392,6 +7415,560 @@ def phase_analysis(torch, dev, train, imp):
     return launches
 
 
+# phase 20, data parallel: DP_STEPS timed steps of (b) and (c) after one
+# warm-up (or set-up) step; (d) runs DP_RANKS ranks of this script on the
+# one card over gloo, phase 6's LM cut to DP_RANK_LAYERS layer(s) for
+# time, DP_RANK_STEPS steps, each rank DP_RANK_BATCH sequences of the
+# global batch (phase 6's batch of 8); the ranks' bandwidth rows at
+# DP_BANDWIDTH_MIB
+DP_STEPS = 3
+DP_RANKS, DP_RANK_LAYERS, DP_RANK_STEPS, DP_RANK_BATCH = 2, 1, 2, 4
+DP_BANDWIDTH_MIB = (1, 16, 64, 128)
+DP_RANK_TIMEOUT = 300
+DP_DIRECT_1 = ("head_", "final_", "layer%d_ffn2_" % (DP_RANK_LAYERS - 1))
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@contextlib.contextmanager
+def _all_reduce_timer(torch):
+    """``collectives.global_sum`` synchronized and timed while the block
+    runs (the store's one collective a push); yields the running
+    ``{"calls", "bytes", "s"}``."""
+    from mxnet_tpu_torch.parallel import collectives
+
+    acc = {"calls": 0, "bytes": 0, "s": 0.0}
+    real = collectives.global_sum
+
+    def timed(value):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(value)
+        torch.cuda.synchronize()
+        acc["s"] += time.perf_counter() - t0
+        acc["calls"] += 1
+        acc["bytes"] += value.numel() * value.element_size()
+        return out
+
+    collectives.global_sum = timed
+    try:
+        yield acc
+    finally:
+        collectives.global_sum = real
+
+
+def _dp_store(torch, dev):
+    """(a): the NCCL group from the DMLC_* variables, a dist_sync store's
+    sums and updater on CUDA tensors."""
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.parallel import launch
+
+    env = {"DMLC_PS_ROOT_URI": "127.0.0.1",
+           "DMLC_PS_ROOT_PORT": str(_free_port()), "DMLC_NUM_WORKER": "1",
+           "DMLC_WORKER_ID": "0"}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        launch.init()
+        init_s = time.perf_counter() - t0
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    group = {"backend": dist.get_backend(),
+             "world": dist.get_world_size(), "rank": dist.get_rank(),
+             "init_s": init_s}
+    if group["backend"] != "nccl" or group["world"] != 1:
+        raise AssertionError("the group from the DMLC_* variables: %s"
+                             % group)
+    ctx = mt.gpu(0)
+    kv = mt.kvstore.create("dist_sync")
+    shapes = {3: (4, 5), "big": (30, 10), 9: (2,)}
+    for key, shape in shapes.items():
+        kv.init(key, mt.nd.zeros(shape, ctx))
+    exact = True
+    for step in range(3):
+        for key, shape in shapes.items():
+            # rank r pushes (r + 1) * (step + 1): at a world of one the
+            # global sum is step + 1
+            kv.push(key, mt.nd.full(shape, float(step + 1), ctx))
+            out = mt.nd.zeros(shape, ctx)
+            kv.pull(key, out=out)
+            exact &= out.data.device == dev and bool(torch.equal(
+                out.data, torch.full(shape, float(step + 1), device=dev)))
+    kv2 = mt.kvstore.create("dist_sync")
+    kv2.set_optimizer(mt.optimizer.SGD(learning_rate=0.5, rescale_grad=1.0))
+    kv2.init(0, mt.nd.full((3, 3), 10.0, ctx))
+    kv2.push(0, mt.nd.full((3, 3), 1.0, ctx))
+    out = mt.nd.zeros((3, 3), ctx)
+    kv2.pull(0, out=out)
+    updated = [float(out.data.max()), float(out.data.min())]
+    reading = dict(group, sums_exact=exact, updater=updated,
+                   updater_want=9.5, types=[kv.type, kv2.type],
+                   num_workers=kv.num_workers)
+    log("dp (a) store: " + json.dumps(reading))
+    if not exact or updated != [9.5, 9.5]:
+        raise AssertionError("the dist_sync store on NCCL: %s" % reading)
+    return reading
+
+
+def _lm_loss_metric(torch, labels):
+    """A metric for fit that keeps each step's mean -log p(label) on the
+    card (the host Accuracy would copy the (B * T, V) output to the host
+    every step)."""
+    from mxnet_tpu_torch import metric as metric_mod
+
+    class LMLoss(metric_mod.EvalMetric):
+        def __init__(self):
+            super().__init__("lm_loss")
+            self.losses = []
+
+        def update(self, _, preds):
+            p = preds[0].data.gather(1, labels)
+            self.losses.append(-torch.log(torch.clamp_min(p, 1e-30)).mean())
+
+    return LMLoss()
+
+
+def _dp_fit(torch, dev, sym, params, x, y, kvstore, eager=False):
+    """One epoch of fit over the repeated batch (1 + DP_STEPS steps):
+    the module, the seconds of each step after the first (callbacks
+    synchronized), the seconds in each such step's update (synchronized
+    around it), the launches of the epoch and the losses."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config
+
+    b = x.shape[0]
+    reps = 1 + DP_STEPS
+    it = mt.io.NDArrayIter(np.concatenate([x] * reps),
+                           np.concatenate([y] * reps), batch_size=b)
+    labels = torch.from_numpy(y.reshape(-1)).long().to(dev)[:, None]
+    metric = _lm_loss_metric(torch, labels)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    stamps, update_s = [], []
+    real_update = mod.update
+
+    def timed_update():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_update()
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t0)
+
+    mod.update = timed_update
+
+    def stamp(_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    with config.overrides(MXNET_FUSED_TRAIN_STEP=not eager):
+        _resume_counts(zero=True)
+        mod.fit(it, eval_metric=metric, batch_end_callback=stamp,
+                kvstore=kvstore, optimizer="sgd",
+                optimizer_params={"learning_rate": TRAIN_LR},
+                arg_params=params, aux_params={}, num_epoch=1)
+        torch.cuda.synchronize()
+        launches = _resume_counts()
+    steps = [t1 - t0 for t0, t1 in zip(stamps, stamps[1:])]
+    losses = [float(v) for v in metric.losses]
+    return mod, steps, update_s[1:], launches, losses
+
+
+def _dp_train(torch, dev):
+    """(b): the LM through fit(kvstore="dist_sync") on the NCCL group,
+    against two eager kvstore="local" runs (no store: one context)."""
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    b, t = TRAIN_BATCH, SEQ
+    sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=t,
+                                  num_layers=TRAIN_LAYERS, embed=EMBED,
+                                  heads=TRAIN_HEADS, ffn_hidden=FFN)
+    params = _train_params(sym)
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, VOCAB, size=(b, t)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.zeros((b, 1), np.float32)], axis=1)
+    start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+    graphs0 = dict(programs.GRAPH_STATS)
+    uk.UPDATE_PATH["last"] = None
+    torch.cuda.reset_peak_memory_stats()
+    mod, steps, update_s, launches, losses = _dp_fit(
+        torch, dev, sym, params, x, y, "dist_sync")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graphs = _graph_delta(graphs0)
+    path = {"kvstore": mod._kvstore.type,
+            "update_on_kvstore": mod._update_on_kvstore,
+            "train_step": mod._train_step is not None,
+            "rescale_grad": mod._optimizer.rescale_grad,
+            "b1_path": uk.UPDATE_PATH["last"]}
+    dist_snap = _snapshot(mod)
+    # one more step, after the snapshot: its update with every
+    # all-reduce synchronized and timed alone
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+
+    mod.forward_backward(DataBatch([nd.array(x)], [nd.array(y)]))
+    torch.cuda.synchronize()
+    with _all_reduce_timer(torch) as ar:
+        t0 = time.perf_counter()
+        mod.update()
+        torch.cuda.synchronize()
+        breakdown = {"update_s": time.perf_counter() - t0,
+                     "all_reduce_s": ar["s"],
+                     "all_reduce_calls": ar["calls"],
+                     "all_reduce_bytes": ar["bytes"]}
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    local_snaps, local_steps, local_update, local_losses = [], [], [], []
+    for _ in range(2):
+        lmod, lsteps, lupdate, _, llosses = _dp_fit(
+            torch, dev, sym, params, x, y, "local", eager=True)
+        if lmod._kvstore is not None or lmod._train_step is not None:
+            raise AssertionError("the eager local reference took a store "
+                                 "or a train step")
+        local_snaps.append(_snapshot(lmod))
+        local_steps.append(lsteps)
+        local_update.append(lupdate)
+        local_losses.append(llosses)
+        del lmod
+        gc.collect()
+        torch.cuda.empty_cache()
+    vs_local = _run_diff(torch, dist_snap, local_snaps[0], start, _DIRECT)
+    spread = _run_diff(torch, local_snaps[1], local_snaps[0], start, _DIRECT)
+    del dist_snap, local_snaps, start
+    per_step = {k: v / (1 + DP_STEPS) for k, v in launches.items()}
+    segments = 5 * TRAIN_LAYERS
+    want = {"fused_fwd": segments, "fused_bwd": segments,
+            "flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+            "flash_bwd_dkv": TRAIN_LAYERS, "multi_tensor_update": 0}
+    step_s = sum(steps) / len(steps)
+    local_step_s = sum(local_steps[0]) / len(local_steps[0])
+    reading = {
+        "config": "train-f32 (phase 6's LM), fit(kvstore='dist_sync'), "
+                  "NCCL world 1",
+        "path": path, "steps": DP_STEPS, "step_s": step_s,
+        "step_s_each": steps, "tokens_per_s": b * t / step_s,
+        "update_s": sum(update_s) / len(update_s),
+        "update_share": sum(update_s) / sum(steps),
+        "update_breakdown_synchronized": breakdown,
+        "local_eager_step_s": local_step_s,
+        "local_eager_step_s_each": local_steps,
+        "local_eager_update_s": sum(local_update[0]) / len(local_update[0]),
+        "vs_local_eager_step": step_s / local_step_s,
+        "pushed_values": sum(int(np.prod(v.shape)) for v in params.values()),
+        "losses": losses, "local_losses": local_losses[0],
+        "launches": launches, "launches_per_step": per_step,
+        "graph_stats": graphs, "peak_memory_gb": peak_gb,
+        "vs_local": vs_local, "local_spread": spread,
+        "max_over_spread": CAPTURE_SPREAD}
+    log("dp (b) train dist_sync: " + json.dumps(reading))
+    if per_step != want or path["update_on_kvstore"] is not True \
+            or path["train_step"] or path["kvstore"] != "dist_sync" \
+            or path["b1_path"] is not None or graphs["captures"] != 0:
+        raise AssertionError("the dist_sync fit did not take the eager "
+                             "kvstore path with %s launches a step: %s"
+                             % (want, reading))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("the dist_sync loss did not fall: %s" % losses)
+    if any(vs_local["tiers"][tier]["max"]
+           > CAPTURE_SPREAD * max(spread["tiers"][tier]["max"], 1e-7)
+           for tier in ("before_relu", "behind_relu")):
+        raise AssertionError("the dist_sync parameters against the eager "
+                             "local run, beyond two local runs' own "
+                             "spread: %s" % reading)
+    return reading, launches, sym, params, x, y
+
+
+def _dp_two_contexts(torch, dev, sym, params, x, y, train):
+    """(c): context=[gpu(0), gpu(0)], kvstore="device": one executor,
+    the compiled step, B1 once a step."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch import programs
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+
+    b, t = x.shape
+    mod = mt.mod.Module(sym, context=[mt.gpu(0), mt.gpu(0)])
+    mod.bind(data_shapes=[DataDesc("data", (b, t), layout="NT")],
+             label_shapes=[DataDesc("softmax_label", (b, t), layout="NT")])
+    mod.init_params(arg_params=params, aux_params={})
+    mod.init_optimizer(kvstore="device", optimizer="sgd",
+                       optimizer_params={"learning_rate": TRAIN_LR})
+    step = mod._train_step
+    path = {"contexts": [str(c) for c in mod._contexts],
+            "kvstore": mod._kvstore.type,
+            "update_on_kvstore": mod._update_on_kvstore,
+            "train_step": step is not None,
+            "plan": step is not None and step.plan is not None}
+    batch = DataBatch([nd.array(x)], [nd.array(y)])
+    graphs0 = dict(programs.GRAPH_STATS)
+    mod.forward_backward(batch)     # set-up: a warm-up run and the capture
+    mod.update()
+    torch.cuda.synchronize()
+    _resume_counts(zero=True)
+    t0 = time.perf_counter()
+    for _ in range(DP_STEPS):
+        mod.forward_backward(batch)
+        mod.update()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _resume_counts()
+    graphs = _graph_delta(graphs0)
+    per_step = {k: v / DP_STEPS for k, v in launches.items()}
+    step_s = wall / DP_STEPS
+    reading = {"path": path, "steps": DP_STEPS, "step_s": step_s,
+               "phase6_captured_step_s": train["step_s"],
+               "vs_phase6": step_s / train["step_s"],
+               "tokens_per_s": b * t / step_s, "launches": launches,
+               "launches_per_step": per_step, "graph_stats": graphs}
+    log("dp (c) two contexts of one card: " + json.dumps(reading))
+    if per_step["multi_tensor_update"] != 1 or not path["plan"] \
+            or path["update_on_kvstore"] is not False \
+            or graphs["captures"] != 1 or graphs["replays"] != DP_STEPS:
+        raise AssertionError("the two-context module did not take the "
+                             "compiled step with B1 once a step: %s"
+                             % reading)
+    del mod, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reading, launches
+
+
+def _dp_rank_sym_params():
+    from mxnet_tpu_torch.models import attention_lm
+
+    sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=SEQ,
+                                  num_layers=DP_RANK_LAYERS, embed=EMBED,
+                                  heads=TRAIN_HEADS, ffn_hidden=FFN)
+    return sym, _train_params(sym)
+
+
+def _dp_global_batch():
+    rng = np.random.RandomState(2)
+    x = rng.randint(0, VOCAB, size=(DP_RANKS * DP_RANK_BATCH, SEQ)).astype(
+        np.float32)
+    y = np.concatenate([x[:, 1:], np.zeros((len(x), 1), np.float32)],
+                       axis=1)
+    return x, y
+
+
+def _dp_module(sym, params, b, kvstore):
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.io import DataDesc
+
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[DataDesc("data", (b, SEQ), layout="NT")],
+             label_shapes=[DataDesc("softmax_label", (b, SEQ),
+                                    layout="NT")])
+    mod.init_params(arg_params=params, aux_params={})
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params={"learning_rate": TRAIN_LR})
+    return mod
+
+
+def _dp_rank_main(rank, world, address, outdir):
+    """One rank of (d): its half of the global batch, DP_RANK_STEPS
+    dist_sync steps over gloo (each all-reduce synchronized and timed),
+    then the bandwidth rows; writes its parameters and reading to
+    ``outdir``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import bandwidth_torch
+
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    launch.init(address, world, rank, backend="gloo")
+    init_s = time.perf_counter() - t0
+    sym, params = _dp_rank_sym_params()
+    x, y = _dp_global_batch()
+    sl = slice(rank * DP_RANK_BATCH, (rank + 1) * DP_RANK_BATCH)
+    mod = _dp_module(sym, params, DP_RANK_BATCH, "dist_sync")
+    batch = DataBatch([nd.array(x[sl])], [nd.array(y[sl])])
+    _resume_counts(zero=True)
+    steps = []
+    with _all_reduce_timer(torch) as ar:
+        for _ in range(DP_RANK_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t1)
+    launches = _resume_counts()
+    torch.save({k: v.cpu() for k, v in _snapshot(mod).items()},
+               os.path.join(outdir, "rank%d.pt" % rank))
+    # the bandwidth rows on the device the rank trains on
+    dev = mod._exec_group.param_arrays[0].data.device
+    rows = bandwidth_torch.measure(DP_BANDWIDTH_MIB, dev, iters=3)
+    reading = {"rank": rank, "world": world, "backend": "gloo",
+               "init_s": init_s, "step_s_each": steps,
+               "rescale_grad": mod._optimizer.rescale_grad,
+               "update_on_kvstore": mod._update_on_kvstore,
+               "all_reduce_calls_per_step": ar["calls"] / DP_RANK_STEPS,
+               "all_reduce_bytes_per_step": ar["bytes"] / DP_RANK_STEPS,
+               "all_reduce_s_per_step": ar["s"] / DP_RANK_STEPS,
+               "launches": launches, "bandwidth": rows}
+    with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
+        json.dump(reading, f)
+    launch.shutdown()
+    print("DP_RANK_%d_OK" % rank, flush=True)
+    return 0
+
+
+def _dp_single(torch, sym, params, x, y):
+    """A single-process eager run of DP_RANK_STEPS steps over the global
+    batch (one context: no store), (d)'s reference."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+
+    with config.overrides(MXNET_FUSED_TRAIN_STEP=False):
+        mod = _dp_module(sym, params, len(x), "local")
+    batch = DataBatch([nd.array(x)], [nd.array(y)])
+    for _ in range(DP_RANK_STEPS):
+        mod.forward_backward(batch)
+        mod.update()
+    torch.cuda.synchronize()
+    snap = _snapshot(mod)
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return snap
+
+
+def _dp_ranks(torch, dev):
+    """(d): DP_RANKS processes of this script on the one card over gloo
+    against single-process runs over the concatenated global batch."""
+    outdir = tempfile.mkdtemp(prefix="mx_smoke_dp_")
+    try:
+        address = "127.0.0.1:%d" % _free_port()
+        here = os.path.abspath(__file__)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, here, "--dp-rank", str(r), str(DP_RANKS),
+             address, outdir], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(here)) for r in range(DP_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(timeout=DP_RANK_TIMEOUT)
+                outs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or "DP_RANK_%d_OK" % r not in out:
+                raise AssertionError("rank %d of (d) exited %s:\n%s"
+                                     % (r, p.returncode, out[-6000:]))
+        ranks, snaps = [], []
+        for r in range(DP_RANKS):
+            with open(os.path.join(outdir, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+            snaps.append({k: v.to(dev) for k, v in torch.load(
+                os.path.join(outdir, "rank%d.pt" % r)).items()})
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    unequal = sorted(n for n in snaps[0]
+                     if not torch.equal(snaps[0][n], snaps[1][n]))
+    sym, params = _dp_rank_sym_params()
+    x, y = _dp_global_batch()
+    start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+    t1 = time.perf_counter()
+    single = _dp_single(torch, sym, params, x, y)
+    # the same global sum in another order: the halves swapped
+    half = DP_RANK_BATCH
+    single_swapped = _dp_single(
+        torch, sym, params, np.concatenate([x[half:], x[:half]]),
+        np.concatenate([y[half:], y[:half]]))
+    single_s = time.perf_counter() - t1
+    vs_single = _run_diff(torch, snaps[0], single, start, DP_DIRECT_1)
+    spread = _run_diff(torch, single_swapped, single, start, DP_DIRECT_1)
+    del snaps, single, single_swapped, start
+    reading = {
+        "config": "phase 6's LM cut to %d layer(s), %d ranks x batch %d "
+                  "over gloo on one card, %d steps"
+                  % (DP_RANK_LAYERS, DP_RANKS, DP_RANK_BATCH,
+                     DP_RANK_STEPS),
+        "ranks_wall_s": wall, "single_runs_s": single_s,
+        "ranks_bitwise_equal": not unequal, "unequal": unequal[:6],
+        "vs_single": vs_single, "single_order_spread": spread,
+        "max_over_spread": CAPTURE_SPREAD,
+        "ranks": [{k: v for k, v in rd.items() if k != "bandwidth"}
+                  for rd in ranks]}
+    log("dp (d) two ranks over gloo: " + json.dumps(reading))
+    for rd in ranks:
+        log("dp (d) bandwidth rank %d (gloo, CUDA tensors): %s"
+            % (rd["rank"], json.dumps(rd["bandwidth"])))
+    if unequal or any(rd["rescale_grad"] != 1.0 / (DP_RANKS * DP_RANK_BATCH)
+                      for rd in ranks):
+        raise AssertionError("the ranks' parameters differ: %s" % reading)
+    if any(vs_single["tiers"][tier]["max"]
+           > CAPTURE_SPREAD * max(spread["tiers"][tier]["max"], 1e-7)
+           for tier in ("before_relu", "behind_relu")):
+        raise AssertionError("the ranks against the single-process run, "
+                             "beyond its own spread under a reordered "
+                             "batch: %s" % reading)
+    return reading
+
+
+def phase_data_parallel(torch, dev, train):
+    """Phase 20 (see the module's docstring): (a) the store on NCCL,
+    (b) the LM through fit(kvstore="dist_sync"), (c) two contexts of one
+    card, (d) two ranks over gloo.  Returns the launches of (b) and
+    (c)."""
+    from mxnet_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    try:
+        store = _dp_store(torch, dev)
+        dist_reading, dist_launches, sym, params, x, y = _dp_train(torch,
+                                                                   dev)
+    finally:
+        launch.shutdown()
+    two, two_launches = _dp_two_contexts(torch, dev, sym, params, x, y,
+                                         train)
+    del sym, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _dp_ranks(torch, dev)
+    log("dp: " + json.dumps({
+        "card": _smi_line(), "wall_s": time.perf_counter() - t0,
+        "nccl_init_s": store["init_s"],
+        "dist_step_s": dist_reading["step_s"],
+        "dist_update_share": dist_reading["update_share"],
+        "local_eager_step_s": dist_reading["local_eager_step_s"],
+        "two_context_step_s": two["step_s"],
+        "phase6_captured_step_s": train["step_s"],
+        "ranks_step_s": [r["step_s_each"] for r in ranks["ranks"]],
+        "ranks_all_reduce_s_per_step": [
+            r["all_reduce_s_per_step"] for r in ranks["ranks"]],
+        "ranks_all_reduce_bytes_per_step": [
+            r["all_reduce_bytes_per_step"] for r in ranks["ranks"]]}))
+    return {"dist": dist_launches, "dist_two_context": two_launches}
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -7408,6 +7985,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-rank"]:
+        # one rank of phase 20 (d), started by the phase itself
+        rank, world, address, outdir = sys.argv[2:6]
+        return _dp_rank_main(int(rank), int(world), address, outdir)
     # phases 1-17 run the hand-fixed kernel plans: an empty tuning cache
     # of this run's own, unarmed (phase 18 arms a directory of its own);
     # nothing is read from or left in the user's cache
@@ -7514,6 +8095,10 @@ def _main(torch):
     gc.collect()
     torch.cuda.empty_cache()
     analysis_launches = phase_analysis(torch, dev, train, imp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_launches = phase_data_parallel(torch, dev, train)
+    dist_l, two_l = dp_launches["dist"], dp_launches["dist_two_context"]
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -7543,7 +8128,8 @@ def _main(torch):
         + sum(f["fused_fwd"] for f in fleet_launches.values()) \
         + sum(m["fused_fwd"] for m in moe_launches.values()) \
         + resume_launches["fused_fwd"] + tune_launches["fused_fwd"] \
-        + analysis_launches["fused_fwd"]
+        + analysis_launches["fused_fwd"] + dist_l["fused_fwd"] \
+        + two_l["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -7563,7 +8149,9 @@ def _main(torch):
                                   in moe_launches.items()},
                                "resume": resume_launches["fused_fwd"],
                                "tuning": tune_launches["fused_fwd"],
-                               "analysis": analysis_launches["fused_fwd"]},
+                               "analysis": analysis_launches["fused_fwd"],
+                               "dist": dist_l["fused_fwd"],
+                               "dist_two_context": two_l["fused_fwd"]},
              tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
@@ -7629,6 +8217,8 @@ def _main(torch):
         by_path["resume"] = resume_launches[counter]
         by_path["tuning"] = tune_launches[counter]
         by_path["analysis"] = analysis_launches[counter]
+        by_path["dist"] = dist_l[counter]
+        by_path["dist_two_context"] = two_l[counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -7647,7 +8237,8 @@ def _main(torch):
                + imp_launches["fused_bwd"]
                + sum(m["fused_bwd"] for m in moe_train.values())
                + resume_launches["fused_bwd"] + tune_launches["fused_bwd"]
-               + analysis_launches["fused_bwd"],
+               + analysis_launches["fused_bwd"] + dist_l["fused_bwd"]
+               + two_l["fused_bwd"],
                f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
@@ -7658,7 +8249,9 @@ def _main(torch):
                              in moe_train.items()},
                           "resume": resume_launches["fused_bwd"],
                           "tuning": tune_launches["fused_bwd"],
-                          "analysis": analysis_launches["fused_bwd"]},
+                          "analysis": analysis_launches["fused_bwd"],
+                          "dist": dist_l["fused_bwd"],
+                          "dist_two_context": two_l["fused_bwd"]},
         tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
@@ -7676,6 +8269,8 @@ def _main(torch):
     b1_by_path["resume"] = resume_launches["multi_tensor_update"]
     b1_by_path["tuning"] = tune_launches["multi_tensor_update"]
     b1_by_path["analysis"] = analysis_launches["multi_tensor_update"]
+    b1_by_path["dist"] = dist_l["multi_tensor_update"]
+    b1_by_path["dist_two_context"] = two_l["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}

@@ -63,6 +63,11 @@ It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Ported so far:
   elastic=)`` drives, the fault injector), the iterators' resume surface
   and :mod:`~mxnet_tpu_torch.parallel.health` (heartbeats and the
   failure monitor);
+* data parallelism: :mod:`~mxnet_tpu_torch.kvstore` (every store type;
+  the ``dist_*`` ones all-reduce over ``torch.distributed``),
+  :mod:`~mxnet_tpu_torch.parallel` (``launch``: one process a card,
+  ``collectives``, ``mesh``) and ``Module`` over several contexts of
+  one device;
 * kernel tuning and tooling: :mod:`~mxnet_tpu_torch.ops.tuning` (the
   kernels' tunable plans, swept on the card under ``MXNET_PALLAS_TUNE``
   and read back from a content-addressed cache),
@@ -94,6 +99,7 @@ from . import (autograd, callback, executor, initializer,  # noqa: E402
                recordio, rnn, test_utils, train_step)
 from . import analysis  # noqa: E402
 from . import checkpoint, parallel  # noqa: E402
+from . import kvstore, kvstore_server  # noqa: E402
 from . import rtc  # noqa: E402
 from . import visualization  # noqa: E402
 from . import visualization as viz  # noqa: E402
@@ -116,7 +122,8 @@ __all__ = ["AttrScope", "Context", "DecodePredictor", "DecodeServer",
            "base", "callback", "checkpoint", "config", "context",
            "contrib", "cpu",
            "current_context", "decode", "executor", "gpu", "image",
-           "init_registry", "initializer", "io", "lr_scheduler", "metric",
+           "init_registry", "initializer", "io", "kvstore",
+           "kvstore_server", "lr_scheduler", "metric",
            "mod", "model", "models", "module", "monitor", "nd", "ndarray",
            "num_devices", "obs", "operator", "ops", "optimizer",
            "parallel",

@@ -13,9 +13,9 @@ through ``.params`` (``Module.save_checkpoint``), not through these.
     checkpoint.load_sharded(directory, step, module)
 
 The state is the module's live store: its parameters and aux states
-(the executor's arrays) and, with a compiled train step, the optimizer
-slots, keyed ``params/<name>``, ``aux/<name>`` and
-``slots/<name>/<i>``.
+(the executor's arrays) and, with a compiled train step or under
+``update_on_kvstore`` (the store's updater), the optimizer slots, keyed
+``params/<name>``, ``aux/<name>`` and ``slots/<name>/<i>``.
 
 Commit protocol (the JAX package's): a step directory counts only once
 it is *committed*.  The payload is written into a temporary sibling,
@@ -42,6 +42,7 @@ import warnings
 import torch
 
 from .base import MXNetError
+from .optimizer import _state_tensors
 
 __all__ = ["save_sharded", "load_sharded", "latest_step", "save_state_tree",
            "commit_step", "is_committed", "COMMIT_MARKER"]
@@ -89,9 +90,10 @@ def _map_state(fn, state):
 
 def _state_of(module):
     """The module's live store, ``{section: {name: tensor(s)}}``: the
-    executor's parameter and aux tensors and, with a compiled train step
-    that has them, its optimizer slots.  The tensors themselves, not
-    copies: restores write into them.  Needs a bound ``Module``."""
+    executor's parameter and aux tensors and the optimizer slots of a
+    compiled train step or, under ``update_on_kvstore``, of the store's
+    updater.  The tensors themselves, not copies: restores write into
+    them.  Needs a bound ``Module``."""
     group = module._exec_group
     exe = group.exec_
     state = {"params": {n: exe.arg_dict[n].data for n in group.param_names},
@@ -99,9 +101,30 @@ def _state_of(module):
     step = getattr(module, "_train_step", None)
     if step is not None:
         slots = {n: list(s) for n, s in step.slots.items() if len(s)}
-        if slots:
-            state["slots"] = slots
+    elif getattr(module, "_update_on_kvstore", False):
+        slots = _store_slots(module._kvstore._updater, group)
+    else:
+        slots = None
+    if slots:
+        state["slots"] = slots
     return state
+
+
+def _store_slots(updater, group):
+    """The store updater's states, ``{name: [tensors]}``, made now for a
+    parameter no push has reached yet (a restore writes into them)."""
+    slots = {}
+    for idx, (name, w, g) in enumerate(zip(
+            group.param_names, group.param_arrays, group.grad_arrays)):
+        if g is None:
+            continue
+        if idx not in updater.states:
+            updater.states[idx] = updater.optimizer.create_state(idx, w)
+        tensors = [t for t in _state_tensors(updater.states[idx])
+                   if t is not None]
+        if tensors:
+            slots[name] = tensors
+    return slots
 
 
 def save_state_tree(directory, step, state):
@@ -206,11 +229,15 @@ def load_sharded(directory, step, module):
         for key, src in targets.items():
             dests[key].copy_(src)
     step_obj = getattr(module, "_train_step", None)
+    fresh = "slots" in live and "slots" not in disk_sections
     if step_obj is not None:
         # the masters changed under the step: recast its compute copy
         step_obj.load_from_executor()
-        if "slots" in live and "slots" not in disk_sections:
+        if fresh:
             step_obj.reset_slots()
+    elif fresh:
+        # the store's updater makes its states anew at the next push
+        module._kvstore._updater.states.clear()
     return module
 
 

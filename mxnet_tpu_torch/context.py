@@ -19,31 +19,46 @@ __all__ = ["Context", "cpu", "gpu", "current_context", "num_devices",
            "resolve_device"]
 
 
+_devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+_devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
+
+
 class Context:
-    """A device handle: ``device_type`` 'cpu' or 'gpu' plus an ordinal.
-    ``with ctx:`` makes it the default context until the block ends
-    (scopes nest, one stack a thread)."""
+    """A device handle: ``device_type`` 'cpu', 'gpu' or 'cpu_pinned' (the
+    host) plus an ordinal; the type ids are the JAX package's (which adds
+    'tpu').  ``with ctx:`` makes it the default context until the block
+    ends (scopes nest, one stack a thread)."""
 
     _state = threading.local()
+    devtype2str = _devtype2str
+    devstr2type = _devstr2type
 
     def __init__(self, device_type, device_id=0):
-        if device_type not in ("cpu", "gpu"):
+        if isinstance(device_type, Context):
+            self.device_typeid = device_type.device_typeid
+            self.device_id = device_type.device_id
+            return
+        if device_type not in _devstr2type:
             raise MXNetError("unknown device type %r" % (device_type,))
-        self.device_type = device_type
+        self.device_typeid = _devstr2type[device_type]
         self.device_id = int(device_id)
 
     @property
+    def device_type(self):
+        return _devtype2str[self.device_typeid]
+
+    @property
     def torch_device(self):
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         return torch.device("cuda", self.device_id)
 
     def __hash__(self):
-        return hash((self.device_type, self.device_id))
+        return hash((self.device_typeid, self.device_id))
 
     def __eq__(self, other):
         return (isinstance(other, Context)
-                and self.device_type == other.device_type
+                and self.device_typeid == other.device_typeid
                 and self.device_id == other.device_id)
 
     def __str__(self):

@@ -1,7 +1,8 @@
 """``mxnet_tpu/model.py``'s checkpoint helpers (``save_checkpoint`` /
 ``load_checkpoint``: ``prefix-symbol.json`` plus ``prefix-%04d.params``
 in the JAX package's formats, so either package loads what the other
-wrote) and the legacy ``FeedForward`` estimator over ``Module``."""
+wrote), the KVStore policy (``_create_kvstore``) and the legacy
+``FeedForward`` estimator over ``Module``."""
 from __future__ import annotations
 
 import logging
@@ -9,11 +10,38 @@ import logging
 import numpy as np
 
 from . import io as io_mod
+from . import kvstore as kvs_mod
 from . import ndarray as nd
 from . import symbol as sym_mod
 from .context import cpu, gpu
 
 __all__ = ["save_checkpoint", "load_checkpoint", "FeedForward"]
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """``(kvstore, update_on_kvstore)`` by the reference's policy: no
+    store for one device unless the type is dist; no update on a local
+    store whose largest parameter holds more than 16 Mi values."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs_mod.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = kvs_mod.create(kvstore)
+            if kvstore == "local":
+                max_size = max(np.prod(param.shape)
+                               for param in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

@@ -1,4 +1,4 @@
-"""DataParallelExecutorGroup on one device (the single-device part of
+"""DataParallelExecutorGroup on one device (the counterpart of
 ``mxnet_tpu/module/executor_group.py``): binds the executor, loads
 batches into it and runs forward / backward (with head gradients,
 ``backward(out_grads)``).  A group bound with a ``shared_group`` takes
@@ -7,14 +7,34 @@ name and shape match (bucketing); ``reshape`` rebinds for new input
 shapes that way against itself.  With ``inputs_need_grad`` the data
 inputs get gradients too (``get_input_grads``).  ``install_monitor``
 hooks a :class:`~mxnet_tpu_torch.monitor.Monitor` to the executor.
-There is no mesh: the port's parallel paths are later work, so
-``merge_multi_context`` has one device's arrays to return either
+
+Several contexts bind ONE executor over the whole batch when they name
+one device (every ``cpu(i)``, or ``gpu(0)`` twice): the reference's own
+fallback for contexts that share hardware.  The batch must still divide
+by the number of contexts, as the reference requires.  Contexts that
+name distinct cards are refused (:func:`one_device`): the port's data
+parallelism is one process a card under ``parallel.launch`` with a
+``dist_sync`` store, where the reference shards in-process over a mesh.
+So ``merge_multi_context`` has one device's arrays to return either
 way."""
 from __future__ import annotations
 
 from ..base import MXNetError
 from ..executor import simple_bind
 from ..io import as_desc_list
+
+
+def one_device(contexts):
+    """The one torch device that ``contexts`` (a list of Contexts) name,
+    or MXNetError for contexts on distinct devices."""
+    devices = {c.torch_device for c in contexts}
+    if len(devices) != 1:
+        raise MXNetError(
+            "contexts %s name %d distinct devices; a Module binds one "
+            "device.  Data parallelism across cards is one process a card: "
+            "start each under mxnet_tpu_torch.parallel.launch.init() and "
+            "train with kvstore='dist_sync'" % (list(contexts), len(devices)))
+    return devices.pop()
 
 
 class _Shared:
@@ -28,11 +48,12 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, device, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
                  grad_req="write", plain=False, shared_group=None,
-                 inputs_need_grad=False):
+                 inputs_need_grad=False, num_contexts=1):
         self._bind_args = dict(device=device, grad_req=grad_req,
                                plain=plain,
                                fixed_param_names=fixed_param_names,
-                               inputs_need_grad=inputs_need_grad)
+                               inputs_need_grad=inputs_need_grad,
+                               num_contexts=num_contexts)
         self.symbol = symbol
         self.param_names = list(param_names)
         self.for_training = for_training
@@ -44,6 +65,10 @@ class DataParallelExecutorGroup:
         self.data_names = [d.name for d in self.data_shapes]
         self.label_names = [d.name for d in self.label_shapes]
         self.batch_size = self.data_shapes[0].shape[0]
+        if self.batch_size % max(1, num_contexts) != 0:
+            raise MXNetError("batch size %d must be divisible by the data-"
+                             "parallel degree %d" % (self.batch_size,
+                                                     num_contexts))
 
         self.grad_req = {}
         for name in self.arg_names:

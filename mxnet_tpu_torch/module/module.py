@@ -1,10 +1,10 @@
 """Module — the standard symbol-backed module (the counterpart of
-``mxnet_tpu/module/module.py``, single device).
+``mxnet_tpu/module/module.py``).
 
 Training runs through :class:`~mxnet_tpu_torch.train_step.
 CompiledTrainStep` where the JAX package's rule allows it
 (``_fused_eligible``: ``MXNET_FUSED_TRAIN_STEP``, training without
-``inputs_need_grad``, the local store, an optimizer with a
+``inputs_need_grad``, no ``dist*`` store, an optimizer with a
 ``fused_kernel``): ``forward_backward`` then runs the whole step
 (forward, backward, the optimizer update and, after ``fit`` binds one,
 the metric's accumulation) as one captured program — one CUDA-graph
@@ -37,11 +37,28 @@ train step (the optimizer's slots handed to the eager updater through
 ``export_updater_states``) and trains eagerly, and scores on the host
 path.
 
+``init_optimizer(kvstore=)`` takes the reference's policy
+(``model._create_kvstore``): no store for one context unless the type
+is ``dist*``.  A ``dist*`` store (one process a card under
+``parallel.launch``) keeps the eager path, as the reference does: the
+executor's forward and backward, then a push a parameter (the
+all-reduce and the store's updater) under ``update_on_kvstore``;
+``rescale_grad`` is ``1 / (batch * num_workers)`` for ``dist*_sync``.
+Under ``update_on_kvstore`` the store holds the executor's weights
+themselves, not copies: its updater writes them in place, so
+``set_params``, a checkpoint restore and the store never disagree, and
+the module's optimizer is the store's (a ``dist*`` store's pickled
+clone: the one whose counts move).  Without it a store is a name only:
+several contexts bind one executor (see ``executor_group``), whose
+gradients a non-dist store would hand back unchanged, so the updater
+takes them directly.  The compiled step drops ``update_on_kvstore``
+where it owns the update.
+
 ``bind(..., shared_module=)`` takes the shared module's parameter and
 aux arrays (the same NDArrays) wherever name and shape match, and its
-host parameter dicts; ``borrow_optimizer`` takes its optimizer, updater
-and train step, which then runs this module's graph over the one store
-(``BucketingModule``).
+host parameter dicts; ``borrow_optimizer`` takes its optimizer, updater,
+KVStore and train step, which then runs this module's graph over the one
+store (``BucketingModule``).
 
 The module runs on the card (``gpu(0)``) unless ``context=cpu()``; with
 no card and no CPU context it raises, as ``DecodePredictor`` does.
@@ -59,11 +76,11 @@ from ..context import Context, cpu, gpu, resolve_device
 from ..initializer import InitDesc
 from ..io import as_desc_list
 from ..metric import DeviceMetricAccumulator, select_outputs
-from ..model import load_checkpoint
+from ..model import _create_kvstore, load_checkpoint
 from ..ndarray import NDArray, array, zeros
 from ..train_step import CompiledEvalStep, CompiledTrainStep
 from .base_module import BaseModule
-from .executor_group import DataParallelExecutorGroup
+from .executor_group import DataParallelExecutorGroup, one_device
 
 
 class Module(BaseModule):
@@ -73,12 +90,14 @@ class Module(BaseModule):
                  plain=False):
         super().__init__(logger=logger)
         if isinstance(context, (list, tuple)):
-            if len(context) != 1:
-                raise MXNetError("Module runs on one device; got %d "
-                                 "contexts" % len(context))
-            context = context[0]
-        self._context = context if isinstance(context, Context) else gpu(0)
-        self._device = resolve_device(self._context)
+            contexts = list(context)
+            if not contexts:
+                raise MXNetError("Module needs at least one context")
+        else:
+            contexts = [context if isinstance(context, Context) else gpu(0)]
+        self._contexts = contexts
+        self._context = contexts[0]
+        self._device = resolve_device(one_device(contexts))
         self._compute_dtype = compute_dtype
         self._plain = plain
         self._symbol = symbol
@@ -93,6 +112,8 @@ class Module(BaseModule):
         self._aux_params = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = None
         self._exec_group = None
         self._train_step = None
         self._step_update_done = False
@@ -197,7 +218,8 @@ class Module(BaseModule):
             self._param_names, for_training,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
             plain=self._plain, shared_group=shared_group,
-            inputs_need_grad=inputs_need_grad)
+            inputs_need_grad=inputs_need_grad,
+            num_contexts=len(self._contexts))
         self.binded = True
         if shared_module is not None:
             self.params_initialized = True
@@ -280,22 +302,26 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Create the optimizer (``rescale_grad`` defaults to 1 /
-        batch size) and its updater; a training module whose
-        configuration is eligible also gets its
+        """Create the KVStore (``model._create_kvstore``'s policy over
+        the module's contexts), the optimizer (``rescale_grad`` defaults
+        to 1 / (batch size x workers of a ``dist*_sync`` store)) and its
+        updater, the store's under ``update_on_kvstore``; a training
+        module whose configuration is eligible also gets its
         :class:`CompiledTrainStep` (with the slab plan armed where the
-        optimizer and the masters allow it).  Only the local
-        single-device store exists: ``kvstore`` must be "local" or
-        None."""
+        optimizer and the masters allow it), which then owns the
+        update."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring")
             return
-        if kvstore not in ("local", None):
-            raise MXNetError("kvstore %r is not ported (single device)"
-                             % (kvstore,))
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        kvstore, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._contexts), self._arg_params)
+        batch_size = self._exec_group.batch_size
+        if kvstore is not None and kvstore.type.startswith("dist") \
+                and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._exec_group.param_names))
             optimizer_params = dict(optimizer_params)
@@ -306,24 +332,45 @@ class Module(BaseModule):
         elif optimizer.rescale_grad != rescale_grad:
             self.logger.warning(
                 "Optimizer created outside Module but rescale_grad is not "
-                "1.0/batch_size (%s vs. %s). Is this intended?",
+                "1.0/batch_size/num_workers (%s vs. %s). Is this intended?",
                 optimizer.rescale_grad, rescale_grad)
         self._optimizer = optimizer
-        self._updater = opt_mod.get_updater(optimizer)
+        self._kvstore = kvstore
+        # the compiled step owns the update where it is eligible: the
+        # optimizer then does not live in the store
+        if update_on_kvstore and self._fused_eligible(optimizer, kvstore):
+            update_on_kvstore = False
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if update_on_kvstore:
+            # the store holds the executor's weights themselves: one
+            # source of truth for set_params, restores and the updater
+            for idx, w in enumerate(self._exec_group.param_arrays):
+                kvstore._init_shared(idx, w)
+            kvstore.set_optimizer(optimizer)
+            self._optimizer = kvstore._optimizer
+        else:
+            self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
         self._maybe_build_fused_step()
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
-    def _fused_eligible(self, optimizer):
+    def _fused_eligible(self, optimizer, kvstore):
         """Whether the compiled train step can own the update (the JAX
         package's rule, decided before anything runs): the switch on,
-        training without input gradients, and an optimizer with a fused
-        kernel.  The store is always local here."""
+        training without input gradients or a monitor, no ``dist*``
+        store (the cross-process all-reduce rides the store's push, and
+        no collective may run inside a captured graph) and an optimizer
+        with a fused kernel."""
         if not config.get("MXNET_FUSED_TRAIN_STEP"):
             return False
         if not self.for_training or self.inputs_need_grad:
+            return False
+        if self._monitor is not None:
+            return False
+        if kvstore is not None and kvstore.type.startswith("dist"):
             return False
         if optimizer.fused_kernel() is None:
             self.logger.info(
@@ -340,7 +387,7 @@ class Module(BaseModule):
         self._train_step = None
         self._step_update_done = False
         self._fused_outputs = None
-        if self._monitor is None and self._fused_eligible(self._optimizer):
+        if self._fused_eligible(self._optimizer, self._kvstore):
             try:
                 self._train_step = CompiledTrainStep(
                     self._exec_group, self._optimizer, self._updater,
@@ -352,12 +399,14 @@ class Module(BaseModule):
                                     "using the eager update path", exc)
 
     def borrow_optimizer(self, shared_module):
-        """Share ``shared_module``'s optimizer, updater and train step
-        (bucketing): this module's steps update the same store, through
-        a program of its own graph."""
+        """Share ``shared_module``'s optimizer, updater, KVStore and
+        train step (bucketing): this module's steps update the same
+        store, through a program of its own graph."""
         if not shared_module.optimizer_initialized:
             raise MXNetError("the shared module has no optimizer yet")
         self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self._train_step = shared_module._train_step
         self._step_update_done = False
@@ -400,13 +449,25 @@ class Module(BaseModule):
 
     def update(self):
         """The optimizer step over the gradients of the last backward; a
-        no-op right after a compiled step's ``forward_backward``."""
+        no-op right after a compiled step's ``forward_backward``.  Under
+        ``update_on_kvstore`` each gradient is pushed (all-reduced, then
+        the store's updater on the weight it holds) and its weight
+        pulled (a no-op where the store holds this very array);
+        otherwise the updater takes them all in one ``update_multi``."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
         if self._step_update_done:
             self._step_update_done = False
             return
         group = self._exec_group
+        kv = self._kvstore
+        if self._update_on_kvstore:
+            for idx, (w, g) in enumerate(zip(group.param_arrays,
+                                             group.grad_arrays)):
+                if g is not None:
+                    kv.push(idx, g)
+                    kv.pull(idx, out=w)
+            return
         idxs, grads, weights = [], [], []
         for idx, (w, g) in enumerate(zip(group.param_arrays,
                                          group.grad_arrays)):
@@ -569,8 +630,13 @@ class Module(BaseModule):
     # optimizer states
     # ------------------------------------------------------------------
     def save_optimizer_states(self, fname):
+        """The train step's, the store's (``update_on_kvstore``) or the
+        updater's states as the ``.states`` payload."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
+        if self._train_step is None and self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         source = self._train_step if self._train_step is not None \
             else self._updater
         with open(fname, "wb") as fout:
@@ -579,6 +645,9 @@ class Module(BaseModule):
     def load_optimizer_states(self, fname):
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
+        if self._train_step is None and self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         target = self._train_step if self._train_step is not None \
             else self._updater
         with open(fname, "rb") as fin:

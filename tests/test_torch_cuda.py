@@ -2848,3 +2848,109 @@ def test_train_step_artifact_on_the_card(card, full_f32):
     assert rep.errors == [], rep.format_text()
     assert {f.code for f in rep.findings if f.pass_name == "flop-dtype"} \
         == {"kernel-update"}
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: the dist_sync store on NCCL, several contexts of one
+# card
+# ---------------------------------------------------------------------------
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def test_dist_sync_store_on_nccl_at_a_world_of_one(card):
+    """``launch.init`` forms an NCCL group of one rank; a ``dist_sync``
+    store all-reduces CUDA tensors through it: exact sums at three keys
+    and shapes, the updater on the sum, a pushed value left as it was.
+    The group is destroyed before the test ends."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.parallel import collectives, launch
+
+    launch.init("127.0.0.1:%d" % _free_port(), 1, 0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        kv = mt.kvstore.create("dist_sync")
+        assert (kv.rank, kv.num_workers) == (0, 1)
+        shapes = {3: (4, 5), "big": (300, 100), 9: (2,)}
+        for key, shape in shapes.items():
+            kv.init(key, mt.nd.zeros(shape, mt.gpu(0)))
+        for step in range(3):
+            for key, shape in shapes.items():
+                g = mt.nd.full(shape, 1.5 * (step + 1), mt.gpu(0))
+                kv.push(key, g)
+                out = mt.nd.zeros(shape, mt.gpu(0))
+                kv.pull(key, out=out)
+                assert out.data.is_cuda
+                assert torch.equal(out.data, g.data)
+                assert float(g.data[0 if len(shape) == 1 else (0, 0)]) \
+                    == 1.5 * (step + 1)
+        kv2 = mt.kvstore.create("dist_sync")
+        kv2.set_optimizer(mt.optimizer.SGD(learning_rate=0.5,
+                                           rescale_grad=1.0))
+        kv2.init(0, mt.nd.full((3, 3), 10.0, mt.gpu(0)))
+        kv2.push(0, mt.nd.full((3, 3), 2.0, mt.gpu(0)))
+        out = mt.nd.zeros((3, 3), mt.gpu(0))
+        kv2.pull(0, out=out)
+        assert torch.equal(out.data, torch.full((3, 3), 9.0, device=card))
+        x = torch.arange(6.0, device=card)
+        assert torch.equal(collectives.global_sum(x), x)
+    finally:
+        launch.shutdown()
+    assert not collectives.active()
+
+
+def test_two_contexts_of_one_card_take_b1_once_a_step(card, full_f32):
+    """``context=[gpu(0), gpu(0)]`` binds one executor over the whole
+    batch: the compiled step (the device store a name only) runs
+    B1 once a step, and its parameters equal a one-context module's bit
+    for bit."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import update_kernel as uk
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(32, 20).astype(np.float32)
+    y = rng.randint(0, 10, 32).astype(np.float32)
+    params = None
+    got = []
+    for ctx in ([mt.gpu(0), mt.gpu(0)], mt.gpu(0)):
+        mod = mt.mod.Module(mt.models.get_mlp(num_classes=10), context=ctx)
+        mod.bind(data_shapes=[("data", (32, 20))],
+                 label_shapes=[("softmax_label", (32,))])
+        if params is None:
+            torch.manual_seed(0)
+            mod.init_params(mt.initializer.Xavier())
+            params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        else:
+            mod.init_params(arg_params=params)
+        mod.init_optimizer(kvstore="device", optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1,
+                                             "momentum": 0.9})
+        assert mod._train_step is not None
+        before = uk.LAUNCHES["multi_tensor_update"]
+        for _ in range(3):
+            mod.forward_backward(mt.io.DataBatch([mt.nd.array(x)],
+                                                 [mt.nd.array(y)]))
+            mod.update()
+        torch.cuda.synchronize()
+        assert uk.LAUNCHES["multi_tensor_update"] - before == 3
+        got.append({k: v.asnumpy() for k, v in mod.get_params()[0].items()})
+    assert mod._kvstore is None
+    for name in params:
+        assert np.array_equal(got[0][name], got[1][name]), name
+
+
+def test_distinct_cards_refused_naming_the_dist_path(card):
+    import mxnet_tpu_torch as mt
+
+    sym = mt.models.get_mlp(num_classes=10)
+    for ctxs in ([mt.gpu(0), mt.gpu(1)], [mt.gpu(0), mt.cpu()]):
+        with pytest.raises(mt.MXNetError,
+                           match="parallel.launch.init.*dist_sync"):
+            mt.mod.Module(sym, context=ctxs)

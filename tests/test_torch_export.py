@@ -410,8 +410,7 @@ _NO_AOT = ("no serialized executables: a CUDA graph cannot be "
 # ``later`` = a module or method the port has not reached yet (ROADMAP
 # queue A); everything else is a stated difference.
 NAME_EXCEPTIONS = {
-    "top": {"tpu": "no TPU in the port", "kvstore": "later",
-            "kvstore_server": "later"},
+    "top": {"tpu": "no TPU in the port"},
     "nd": {"deque": "a module import, not an API",
            "functools": "a module import, not an API",
            "numeric_types": "a module import, not an API"},
@@ -449,15 +448,12 @@ NAME_EXCEPTIONS = {
     "Module": {"reconfigure": "later"},
     "ProgramSpec": {"compiled": "no HLO text", "lowered": "no HLO text",
                     "register_roofline": "later"},
-    "Context": {"jax_device": "jax", "device_type": "later",
-                "devstr2type": "later", "devtype2str": "later"},
+    "Context": {"jax_device": "jax"},
     "CompiledTrainStep": {"compiled_hlo": "no HLO text: the step's "
                                           "static view is artifact()"},
     "parallel": {n: "later" for n in (
-        "MeshConfig", "build_mesh", "collectives", "compat",
-        "data_parallel_mesh", "launch", "mesh", "pipeline",
-        "pipeline_apply", "ring", "ring_attention", "shard_map",
-        "stack_stage_params")},
+        "compat", "pipeline", "pipeline_apply", "ring", "ring_attention",
+        "shard_map", "stack_stage_params")},
 }
 
 
@@ -478,7 +474,9 @@ def _name_pairs():
                 "lr_scheduler", "test_utils", "profiler", "recordio",
                 "operator", "rnn", "models", "obs", "programs", "serve",
                 "config", "attrs", "checkpoint", "elastic", "parallel",
-                "parallel.health", "programs.aot", "ops.tuning", "rtc",
+                "parallel.health", "parallel.launch", "parallel.mesh",
+                "parallel.collectives", "kvstore", "kvstore_server",
+                "model", "programs.aot", "ops.tuning", "rtc",
                 "visualization", "contrib", "contrib.tensorboard",
                 "analysis", "analysis.framework", "analysis.passes",
                 "analysis.cost", "analysis.retrace", "analysis.schedule",
@@ -500,6 +498,7 @@ def _name_pairs():
         ("BucketingModule", mx.mod.BucketingModule, mt.mod.BucketingModule),
         ("ProgramSpec", js.ProgramSpec, ts.ProgramSpec),
         ("Context", mx.Context, mt.Context),
+        ("KVStore", mx.kvstore.KVStore, mt.kvstore.KVStore),
         ("CompiledTrainStep", jts.CompiledTrainStep, tts.CompiledTrainStep),
         ("CompiledEvalStep", jts.CompiledEvalStep, tts.CompiledEvalStep),
         ("Optimizer", mx.optimizer.Optimizer, mt.optimizer.Optimizer),

@@ -188,11 +188,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.analysis.programs, "
             "mxnet_tpu_torch.analysis.schedule, "
             "mxnet_tpu_torch.analysis.graph_parse, "
-            "mxnet_tpu_torch.ops.update_kernel, "
+            "mxnet_tpu_torch.ops.update_kernel, mxnet_tpu_torch.kvstore, "
+            "mxnet_tpu_torch.kvstore_server, "
+            "mxnet_tpu_torch.parallel.launch, "
+            "mxnet_tpu_torch.parallel.collectives, "
+            "mxnet_tpu_torch.parallel.mesh, "
             "torch.distributed.checkpoint, importlib.util; "
             "[importlib.util.spec_from_file_location(n, 'tools/%s.py' % n)"
             ".loader.load_module() for n in ('mxlint_torch', "
-            "'mxstat_torch')]; "
+            "'mxstat_torch', 'bandwidth_torch')]; "
             "sys.modules['mxlint_torch'].main(['--list']); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'mxnet_tpu.')) "
