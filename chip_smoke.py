@@ -307,6 +307,27 @@ Phases (any failure ends the run with a non-zero exit code):
    swapped: the same sum in another order) of the first, the
    all-reduce's bytes and seconds a step, and
    ``tools/bandwidth_torch.py``'s rows for the two ranks.
+21. tensor and model parallelism — (a) two ranks sharing the card over
+   gloo (two processes of this script), ``Module(mesh_config=
+   MeshConfig(data=1, model=2))`` through ``fit``: phase 6's LM cut to
+   TP_LAYERS layer, TP_STEPS steps; each rank's launches a step (A / F
+   5, C / D / E 1, at half the column N or the row K), collectives a step
+   by kind with their bytes and seconds, step s and peak memory; the
+   gathered parameters after every step within CAPTURE_SPREAD times the
+   widest spread of single-process eager runs around the first (the
+   same run again, F's atomics; the batch halves swapped, as phase 20
+   (d); the plain versions); (b) ``examples/model_parallel_lstm.py``'s
+   net at its widths built with the port's symbols, ``group2ctx`` with
+   embed and decode on the card and the layers alternating host / card:
+   forward and backward within 1e-5 of an all-card bind, the example's
+   30 batches with a falling loss, the cross-device copies a step; (c)
+   predict-f32's LM (TRAIN_LAYERS layers) exported and run in this
+   process through the port's MXPred* C ABI with dev_type 2 (A 20 and C
+   4 launches, TOL_LOGP of the Python Predictor), then its C++ client
+   as a subprocess on the card: the argmax classes equal; (d)
+   ``serving_avals`` at serve-int8-paged's configuration: no allocation
+   across the call, and the programs ``prepare_programs`` captures take
+   arguments of those shapes and dtypes.
 
 The last lines are a ``kernels`` JSON object (each entry with its
 phase 18 ``tuning`` reading: the class, the winner, its ms and the
@@ -539,12 +560,13 @@ TOL_FLIP_GAP = 1e-5
 PROFILE_REPEATS = 5
 PROFILE_LEAD_CYCLES, PROFILE_MARK_CYCLES = 200_000_000, 2_000_000
 # a session that lost marker spins (the profiler drops device records
-# now and then, late in a long run: one full run in four on the H100) is
-# run once again; a second session that loses them fails the run, so a
-# profiler fault that keeps coming back is not hidden.  The reads of a
-# session with every marker are gated, the lost sessions' spin counts
-# are printed (sessions_with_lost_markers)
-PROFILE_SESSIONS = 2
+# now and then, late in a long run: the first session of 4 in 8 full
+# runs on the H100, and the second of 2 of those 4) is run again, up to
+# PROFILE_SESSIONS sessions; a fault that keeps coming back still fails
+# the run.  The reads of a session with every marker are gated, the lost
+# sessions' spins are printed with their places
+# (sessions_with_lost_markers)
+PROFILE_SESSIONS = 4
 
 # tolerances (kernel vs plain version on the same inputs)
 TOL_A = {"float32": 1e-5, "bfloat16": 2 ** -7}   # x max|y| (abs)
@@ -2015,8 +2037,8 @@ def _step_kernel_reads(torch, pred, prompts, repeats=PROFILE_REPEATS,
     reads share one session that opens with a PROFILE_LEAD_CYCLES spin
     and one uncounted prefill and step (every program's first replay),
     and each read counts the device activities between two marker
-    spins.  A session that lost a marker spin is run once again; a
-    second such session fails (PROFILE_SESSIONS).  One read in a session of its own is printed
+    spins.  A session that lost a marker spin is run again, up to
+    PROFILE_SESSIONS sessions.  One read in a session of its own is printed
     beside them (not gated), with the launches it lacks by name."""
     from collections import Counter
 
@@ -2045,11 +2067,18 @@ def _step_kernel_reads(torch, pred, prompts, repeats=PROFILE_REPEATS,
                        for e in device if "spin_kernel" in e.name)
         if len(spins) >= 2 * len(order):
             break
-        lost.append(len(spins))
+        # where the session lost them: each recorded spin's start after
+        # the session's first device record and its length, in ms
+        t0 = min((e.time_range.start for e in device), default=0)
+        lost.append({"spins": len(spins), "device_records": len(device),
+                     "spins_ms": [[round((a - t0) / 1e3, 3),
+                                   round((b - a) / 1e3, 3)]
+                                  for a, b in spins]})
     else:
         raise AssertionError("the profiled decode steps: %s marker spins "
                              "recorded of %d in %d sessions"
-                             % (lost, 2 * len(order), PROFILE_SESSIONS))
+                             % (json.dumps(lost), 2 * len(order),
+                                PROFILE_SESSIONS))
     marks = spins[-2 * len(order):]
     reads = [dict(Counter(
         e.name for e in device if marks[2 * i][1] <= e.time_range.start
@@ -3648,7 +3677,7 @@ def _export_decode_artifacts(torch, dev):
         if not plain:
             arts["verify"] = pred.verify_artifact(state, SPEC_K)
             arts["prefill"] = pred.prefill_artifact(1, CHUNK)
-            args = pred._serving_args(SLOTS, CHUNK)["decode"]
+            args = pred.serving_avals(SLOTS, CHUNK)["decode"]
             arts["spec_decode"] = pred._program_spec(
                 "decode", args).artifact()
         seconds[key] = time.perf_counter() - t0
@@ -7969,6 +7998,640 @@ def phase_data_parallel(torch, dev, train):
     return {"dist": dist_launches, "dist_two_context": two_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: tensor and model parallelism, the C ABI, serving_avals
+# ---------------------------------------------------------------------------
+TP_RANKS, TP_LAYERS, TP_STEPS = 2, 1, 3
+TP_RANK_TIMEOUT = 400
+TP_DIRECT = ("head_", "final_", "layer%d_ffn2_" % (TP_LAYERS - 1))
+LSTM_MP = dict(seq_len=12, vocab=200, num_embed=32, num_hidden=64,
+               num_layers=2, batch_size=16, num_batches=30, lr=0.5)
+
+
+def _tp_sym_params():
+    from mxnet_tpu_torch.models import attention_lm
+
+    sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=SEQ,
+                                  num_layers=TP_LAYERS, embed=EMBED,
+                                  heads=TRAIN_HEADS, ffn_hidden=FFN)
+    params = _train_params(sym)
+    # biases, LN betas and gammas moved off their initial 0 / 1, so a
+    # bias or an affine applied on the wrong ranks changes the first
+    # step (tools/tp_gate_controls.py plants such faults)
+    rng = np.random.RandomState(21)
+    for name in sorted(params):
+        if name.endswith(("_bias", "_beta", "_gamma")):
+            params[name] = (params[name] + rng.normal(
+                0.0, 0.02, params[name].shape)).astype(np.float32)
+    return sym, params
+
+
+def _tp_batch():
+    rng = np.random.RandomState(5)
+    x = rng.randint(0, VOCAB, size=(TRAIN_BATCH, SEQ)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.zeros((len(x), 1), np.float32)],
+                       axis=1)
+    return x, y
+
+
+def _tp_rank_main(rank, world, address, outdir):
+    """One rank of phase 21 (a): the LM at a model axis of ``world``
+    over gloo on the shared card, TP_STEPS steps of ``Module.fit``; each
+    step's launches, collectives and seconds, the peak memory, and (rank
+    0) the gathered parameters, written to ``outdir``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.io import DataDesc
+    from mxnet_tpu_torch.parallel import MeshConfig, collectives, launch
+
+    t0 = time.perf_counter()
+    launch.init(address, world, rank, backend="gloo")
+    init_s = time.perf_counter() - t0
+    sym, params = _tp_sym_params()
+    x, y = _tp_batch()
+    mod = mt.mod.Module(sym, context=mt.gpu(0),
+                        mesh_config=MeshConfig(data=1, model=world))
+    mod.bind(data_shapes=[DataDesc("data", (TRAIN_BATCH, SEQ),
+                                   layout="NT")],
+             label_shapes=[DataDesc("softmax_label", (TRAIN_BATCH, SEQ),
+                                    layout="NT")])
+    mod.init_params(arg_params=params, aux_params={})
+    exe = mod._exec_group.exec_
+    a_widths = {n: list(exe.arg_dict[n].shape) for n in sorted(
+        exe.arg_dict) if n.endswith("_weight") and n.startswith("layer")}
+    it = mt.io.NDArrayIter(np.tile(x, (TP_STEPS, 1)),
+                           np.tile(y, (TP_STEPS, 1)),
+                           batch_size=TRAIN_BATCH)
+    labels = torch.from_numpy(y.reshape(-1, 1)).long().cuda()
+    metric = _lm_loss_metric(torch, labels)
+    steps = []
+    collectives.SYNC_TIMING = True
+    torch.cuda.reset_peak_memory_stats()
+
+    def begin():
+        torch.cuda.synchronize()
+        collectives.reset_counts()
+        return _resume_counts(zero=True), time.perf_counter()
+
+    state = {"mark": begin()}
+
+    snaps = []
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        _, t_start = state["mark"]
+        steps.append({"s": time.perf_counter() - t_start,
+                      "launches": _resume_counts(),
+                      "collectives": {k: dict(v) for k, v in
+                                      collectives.COUNTS.items()}})
+        # the gathered parameters after this step (a collective of both
+        # ranks, outside the step's counts and seconds)
+        arg, _ = mod.get_params()
+        snaps.append({k: v.data.clone() for k, v in arg.items()})
+        state["mark"] = begin()
+
+    mod.fit(it, eval_metric=metric, batch_end_callback=on_batch,
+            optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR}, num_epoch=1)
+    collectives.SYNC_TIMING = False
+    peak = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        torch.save(snaps, os.path.join(outdir, "tp_params.pt"))
+    reading = {"rank": rank, "world": world, "backend": "gloo",
+               "init_s": init_s, "steps": steps,
+               "losses": [float(v) for v in metric.losses],
+               "peak_bytes": peak, "local_weight_shapes": a_widths,
+               "train_step": mod._train_step is not None,
+               "sharded": dict(mod._exec_group.tp.sharded)}
+    with open(os.path.join(outdir, "tp_rank%d.json" % rank), "w") as f:
+        json.dump(reading, f)
+    launch.shutdown()
+    print("TP_RANK_%d_OK" % rank, flush=True)
+    return 0
+
+
+def _tp_single(torch, sym, params, x, y, plain=False):
+    """A single-process eager run of TP_STEPS steps (one card, no mesh;
+    ``plain``: every kernel's plain version), (a)'s reference: the
+    parameters after each step."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+
+    with config.overrides(MXNET_FUSED_TRAIN_STEP=False):
+        mod = mt.mod.Module(sym, context=mt.gpu(0), plain=plain)
+        mod.bind(data_shapes=[DataDesc("data", x.shape, layout="NT")],
+                 label_shapes=[DataDesc("softmax_label", y.shape,
+                                        layout="NT")])
+        mod.init_params(arg_params=params, aux_params={})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": TRAIN_LR})
+    batch = DataBatch([nd.array(x)], [nd.array(y)])
+    snaps = []
+    for _ in range(TP_STEPS):
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        snaps.append({k: v for k, v in _snapshot(mod).items()
+                      if not k.startswith("aux:")})
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return snaps
+
+
+def _tp_measure(torch, dev):
+    """(a)'s runs: TP_RANKS processes of this script on the one card over
+    gloo, a model axis of TP_RANKS, and the single-process eager runs
+    they are held against.  Returns the logged reading and the ranks'
+    own readings."""
+    outdir = tempfile.mkdtemp(prefix="mx_smoke_tp_")
+    try:
+        address = "127.0.0.1:%d" % _free_port()
+        here = os.path.abspath(__file__)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, here, "--tp-rank", str(r), str(TP_RANKS),
+             address, outdir], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(here)) for r in range(TP_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(timeout=TP_RANK_TIMEOUT)
+                outs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or "TP_RANK_%d_OK" % r not in out:
+                raise AssertionError("rank %d of phase 21 (a) exited %s:\n%s"
+                                     % (r, p.returncode, out[-6000:]))
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(outdir, "tp_rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        got = [{k: v.to(dev) for k, v in snap.items()} for snap in
+               torch.load(os.path.join(outdir, "tp_params.pt"))]
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    sym, params = _tp_sym_params()
+    x, y = _tp_batch()
+    start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+    t1 = time.perf_counter()
+    single = _tp_single(torch, sym, params, x, y)
+    again = _tp_single(torch, sym, params, x, y)
+    # the same sums in another order: the batch halves swapped
+    half = TRAIN_BATCH // 2
+    swapped = _tp_single(torch, sym, params,
+                         np.concatenate([x[half:], x[:half]]),
+                         np.concatenate([y[half:], y[:half]]))
+    # the kernels' plain versions: the same sums in the order PyTorch's
+    # reductions take (the LN gammas' gradients are sums over 16,384
+    # rows that nearly cancel, so any other order moves them)
+    plain = _tp_single(torch, sym, params, x, y, plain=True)
+    single_s = time.perf_counter() - t1
+    by_step = []
+    for i in range(TP_STEPS):
+        by_step.append({
+            "step": i + 1,
+            "vs_single": _run_diff(torch, got[i], single[i], start,
+                                   TP_DIRECT)["tiers"],
+            "atomics_spread": _run_diff(torch, again[i], single[i], start,
+                                        TP_DIRECT)["tiers"],
+            "reorder_spread": _run_diff(torch, swapped[i], single[i], start,
+                                        TP_DIRECT)["tiers"],
+            "plain_spread": _run_diff(torch, plain[i], single[i], start,
+                                      TP_DIRECT)["tiers"]})
+    def rel(a, b):
+        return {n: float(torch.linalg.vector_norm((a[n] - w).double()))
+                / max(float(torch.linalg.vector_norm(
+                    (w - start[n]).double())), 1e-30)
+                for n, w in b.items()}
+
+    by_step[0]["tensors"] = {"vs_single": rel(got[0], single[0]),
+                             "plain": rel(plain[0], single[0])}
+    vs_single = _run_diff(torch, got[-1], single[-1], start, TP_DIRECT)
+    spread = _run_diff(torch, swapped[-1], single[-1], start, TP_DIRECT)
+    del got, single, again, swapped, plain, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_rank = []
+    for rd in ranks:
+        timed = rd["steps"][1:] or rd["steps"]
+        n = len(timed)
+        kinds = sorted({k for s in timed for k in s["collectives"]})
+        per_rank.append({
+            "rank": rd["rank"],
+            "launches_per_step": {k: sum(s["launches"][k] for s in timed)
+                                  / n for k in timed[0]["launches"]},
+            "collectives_per_step": {k: {
+                f: sum(s["collectives"].get(k, {}).get(f, 0)
+                       for s in timed) / n for f in ("calls", "bytes", "s")}
+                for k in kinds},
+            "step_s": [s["s"] for s in rd["steps"]],
+            "peak_bytes": rd["peak_bytes"], "losses": rd["losses"],
+            "init_s": rd["init_s"],
+            "local_weight_shapes": rd["local_weight_shapes"]})
+    reading = {
+        "card": _smi_line(),
+        "config": "phase 6's LM (vocab %d, T %d, batch %d, embed %d, %d "
+                  "heads, FFN %d, f32, SGD lr %g) cut to %d layer(s), "
+                  "MeshConfig(data=1, model=%d): %d ranks over gloo on "
+                  "one card, %d fit steps"
+                  % (VOCAB, SEQ, TRAIN_BATCH, EMBED, TRAIN_HEADS, FFN,
+                     TRAIN_LR, TP_LAYERS, TP_RANKS, TP_RANKS, TP_STEPS),
+        "ranks_wall_s": wall, "single_runs_s": single_s,
+        "vs_single": vs_single, "single_order_spread": spread,
+        "by_step": by_step,
+        "max_over_spread": CAPTURE_SPREAD, "ranks": per_rank}
+    log("tp (a) LM over a model axis of %d: %s" % (TP_RANKS,
+                                                   json.dumps(reading)))
+    return reading, ranks
+
+
+def _tp_spread_bound(step, tier):
+    """(a)'s bound at one step and tier: CAPTURE_SPREAD times the widest
+    of the single-process spreads (the same run again: F's atomics; the
+    batch halves swapped; the plain versions, whose sums in another
+    order move the ReLU masks as the row-parallel sums do)."""
+    return CAPTURE_SPREAD * max(1e-7, *(step[k][tier]["max"] for k in (
+        "atomics_spread", "reorder_spread", "plain_spread")))
+
+
+def _tp_gate(reading, ranks):
+    """(a)'s checks, the list of what failed (empty: passed): A / F at 5
+    a step, C / D / E at 1 and B1 at 1 (one f32 slab) on every rank, the
+    eager path, finite losses, the shard widths, and every step's
+    parameters within the spread bound in each tier."""
+    failed = []
+    want = {"fused_fwd": 5 * TP_LAYERS, "fused_bwd": 5 * TP_LAYERS,
+            "flash_fwd": TP_LAYERS, "flash_bwd_dq": TP_LAYERS,
+            "flash_bwd_dkv": TP_LAYERS, "multi_tensor_update": 1}
+    for rd in ranks:
+        for s in rd["steps"]:
+            got_l = {k: s["launches"][k] for k in want}
+            if got_l != want:
+                failed.append("rank %d launched %s a step, want %s"
+                              % (rd["rank"], got_l, want))
+        if rd["train_step"] or not all(np.isfinite(rd["losses"])):
+            failed.append("rank %d: captured step %s, losses %s"
+                          % (rd["rank"], rd["train_step"], rd["losses"]))
+        shapes = rd["local_weight_shapes"]
+        if shapes["layer0_q_weight"] != [EMBED // TP_RANKS, EMBED] \
+                or shapes["layer0_ffn1_weight"] != [FFN // TP_RANKS, EMBED] \
+                or shapes["layer0_ffn2_weight"] != [EMBED, FFN // TP_RANKS]:
+            failed.append("rank %d's shards: %s" % (rd["rank"], shapes))
+    for st in reading["by_step"]:
+        for tier in ("before_relu", "behind_relu"):
+            got = st["vs_single"][tier]
+            bound = _tp_spread_bound(st, tier)
+            if got["max"] > bound:
+                failed.append(
+                    "step %d %s: the ranks %.6g (%s) against the single-"
+                    "process run, beyond the bound %.6g"
+                    % (st["step"], tier, got["max"], got["tensor"], bound))
+    return failed
+
+
+def _tp_ranks(torch, dev):
+    """(a): the runs, their gate, and the launches of both ranks."""
+    reading, ranks = _tp_measure(torch, dev)
+    failed = _tp_gate(reading, ranks)
+    if failed:
+        raise AssertionError("phase 21 (a): " + "; ".join(failed))
+    launches = {k: sum(s["launches"][k] for rd in ranks
+                       for s in rd["steps"])
+                for k in ranks[0]["steps"][0]["launches"]}
+    return reading, launches
+
+
+def _mp_lstm(mt, g2c):
+    """``examples/model_parallel_lstm.py``'s net (``build_lstm``) with the
+    port's symbols: embed and decode on the card, the layers alternating
+    between the host and the card."""
+    c = LSTM_MP
+    sym = mt.sym
+    data = sym.Variable("data")
+    label = sym.Variable("softmax_label")
+    with mt.AttrScope(ctx_group="embed"):
+        hidden = sym.Embedding(data, input_dim=c["vocab"],
+                               output_dim=c["num_embed"], name="embed")
+    for layer in range(c["num_layers"]):
+        with mt.AttrScope(ctx_group="layer%d" % layer):
+            cell = mt.rnn.LSTMCell(c["num_hidden"],
+                                   prefix="lstm_l%d_" % layer)
+            hidden, _ = cell.unroll(c["seq_len"], inputs=hidden,
+                                    layout="NTC", merge_outputs=True)
+    with mt.AttrScope(ctx_group="decode"):
+        pred = sym.Reshape(hidden, shape=(-1, c["num_hidden"]))
+        pred = sym.FullyConnected(pred, num_hidden=c["vocab"],
+                                  name="decode")
+        flat = sym.Reshape(label, shape=(-1,))
+        net = sym.SoftmaxOutput(pred, flat, name="softmax")
+    return net
+
+
+def _mp_lstm_phase(torch, dev):
+    """(b): group2ctx on the card.  The model-parallel LSTM's forward and
+    backward against an all-card bind (1e-5 relative), then the
+    example's 30 batches: the loss falls; the cross-device copies a
+    step."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import executor as ex
+
+    c = LSTM_MP
+    g2c = {"embed": mt.gpu(0), "decode": mt.gpu(0)}
+    for layer in range(c["num_layers"]):
+        g2c["layer%d" % layer] = (mt.cpu(0), mt.gpu(0))[layer % 2]
+    net = _mp_lstm(mt, g2c)
+    shapes = {"data": (c["batch_size"], c["seq_len"]),
+              "softmax_label": (c["batch_size"], c["seq_len"])}
+    rng = np.random.RandomState(0)
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    init = {}
+    for n, s in zip(net.list_arguments(), arg_shapes):
+        if n in shapes:
+            continue
+        # the example's Xavier (uniform, magnitude 3, factor avg); biases 0
+        bound = np.sqrt(6.0 / (s[0] + s[1])) if len(s) == 2 else 0.0
+        init[n] = rng.uniform(-bound, bound, s).astype(np.float32)
+
+    def markov():
+        x = np.empty(shapes["data"], np.float32)
+        x[:, 0] = rng.randint(1, c["vocab"], c["batch_size"])
+        for t in range(1, c["seq_len"]):
+            x[:, t] = (x[:, t - 1] * 31 + 7) % c["vocab"]
+            x[:, t][x[:, t] == 0] = 1
+        return x, np.roll(x, -1, axis=1)
+
+    exes = {}
+    for key, mapping in (("placed", g2c), ("card", None)):
+        exe = net.simple_bind(mt.gpu(0), grad_req="write",
+                              group2ctx=mapping, **shapes)
+        for n, v in init.items():
+            exe.arg_dict[n][:] = v
+        exes[key] = exe
+    placed_devices = sorted({str(a.data.device) for a in
+                             exes["placed"].arg_dict.values()})
+    x, y = markov()
+    outs = {}
+    for key, exe in exes.items():
+        exe.arg_dict["data"][:] = x
+        exe.arg_dict["softmax_label"][:] = y
+        ex.CROSS_DEVICE.update(copies=0, bytes=0)
+        exe.forward(is_train=True)
+        exe.backward()
+        torch.cuda.synchronize()
+        outs[key] = ([exe.outputs[0].data.float().cpu()]
+                     + [exe.grad_dict[n].data.float().cpu()
+                        for n in sorted(init)], dict(ex.CROSS_DEVICE))
+    rel = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+              for g, w in zip(outs["placed"][0], outs["card"][0]))
+    copies = outs["placed"][1]
+    # the example's loop on the placed executor
+    exe = exes["placed"]
+    opt = mt.optimizer.SGD(learning_rate=c["lr"], rescale_grad=1.0 / (
+        c["batch_size"] * c["seq_len"]))
+    updater = mt.optimizer.get_updater(opt)
+    names = net.list_arguments()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(c["num_batches"]):
+        x, y = markov()
+        exe.arg_dict["data"][:] = x
+        exe.arg_dict["softmax_label"][:] = y
+        exe.forward(is_train=True)
+        exe.backward()
+        for i, name in enumerate(names):
+            if name not in shapes:
+                updater(i, exe.grad_dict[name], exe.arg_dict[name])
+        prob = exe.outputs[0].asnumpy()
+        losses.append(float(-np.log(np.maximum(
+            prob[np.arange(prob.shape[0]), y.reshape(-1).astype(int)],
+            1e-10)).mean()))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    reading = {"card": _smi_line(),
+               "config": "examples/model_parallel_lstm.py at its widths: "
+                         "%s; embed and decode on gpu(0), layer 0 on "
+                         "cpu(0), layer 1 on gpu(0)" % json.dumps(c),
+               "placed_nodes": {
+                   str(ctx): sum(1 for v in exes["placed"]._placement.values()
+                                 if v == ctx)
+                   for ctx in set(exes["placed"]._placement.values())},
+               "array_devices": placed_devices,
+               "vs_card_max_rel": rel,
+               "cross_device_copies_per_step": copies,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "batches": len(losses), "loop_s": loop_s,
+               "step_ms": 1e3 * loop_s / len(losses)}
+    log("tp (b) group2ctx LSTM: " + json.dumps(reading))
+    if not rel <= 1e-5 or copies["copies"] <= 0 \
+            or not losses[-1] < losses[0] or len(placed_devices) != 2:
+        raise AssertionError("group2ctx on the card: %s" % reading)
+    return reading
+
+
+def _capi_phase(torch, dev):
+    """(c): predict-f32's LM (full width, TRAIN_LAYERS layers) exported
+    by ``Predictor.export``, run in this process through the port's C ABI
+    (``_native.predict_lib``, dev_type 2): A and C launched inside, the
+    outputs within TOL_LOGP of the Python Predictor's; then the C++
+    client as a subprocess on the card: its argmax classes equal the
+    Python ones."""
+    import ctypes
+    import re
+
+    from mxnet_tpu_torch import Predictor, _native, gpu
+    from mxnet_tpu_torch.models import attention_lm
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+
+    b, t = TRAIN_BATCH, SEQ
+    lm = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=t,
+                                 num_layers=TRAIN_LAYERS, embed=EMBED,
+                                 heads=TRAIN_HEADS, ffn_hidden=FFN)
+    params = _train_params(lm)
+    x = np.random.RandomState(6).randint(0, VOCAB, (b, t)).astype(
+        np.float32)
+    label = np.zeros((b, t), np.float32)
+    pred = Predictor(lm, params, {"data": (b, t), "softmax_label": (b, t)},
+                     ctx=gpu(0))
+    pred.forward(data=x, softmax_label=label)
+    want = pred.get_output(0).data.clone()
+    want_cls = want.argmax(1).cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix="mx_smoke_capi_")
+    try:
+        path = os.path.join(tmp, "lm.pt2")
+        blob = pred.export(path)
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lib = _native.predict_lib()
+        build_s = time.perf_counter() - t0
+        c = ctypes
+        h = c.c_void_p()
+        keys = (c.c_char_p * 2)(b"data", b"softmax_label")
+        indptr = (c.c_uint32 * 3)(0, 2, 4)
+        shp = (c.c_uint32 * 4)(b, t, b, t)
+        t0 = time.perf_counter()
+        if lib.MXPredCreate(blob, len(blob), 2, 0, 2, keys, indptr, shp,
+                            c.byref(h)) != 0:
+            raise AssertionError("MXPredCreate: %s"
+                                 % lib.MXGetLastError().decode())
+        create_s = time.perf_counter() - t0
+        for key, arr in ((b"data", x), (b"softmax_label", label)):
+            a = np.ascontiguousarray(arr, np.float32)
+            if lib.MXPredSetInput(h, key, a.ctypes.data_as(
+                    c.POINTER(c.c_float)), a.size,
+                    (c.c_uint32 * 2)(b, t), 2) != 0:
+                raise AssertionError(lib.MXGetLastError().decode())
+        counts = ((fk.LAUNCHES, "fused_fwd"), (fl.LAUNCHES, "flash_fwd"))
+        for d, k in counts:
+            d[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if lib.MXPredForward(h) != 0:
+            raise AssertionError("MXPredForward: %s"
+                                 % lib.MXGetLastError().decode())
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        launches = {k: d[k] for d, k in counts}
+        out = np.zeros((b * t, VOCAB), np.float32)
+        if lib.MXPredGetOutput(h, 0, out.ctypes.data_as(
+                c.POINTER(c.c_float)), out.size) != 0:
+            raise AssertionError(lib.MXGetLastError().decode())
+        lib.MXPredFree(h)
+        gap = _logp_gap(torch, torch.from_numpy(out).to(dev), want)
+        abi_cls = out.argmax(1)
+        del out
+        # the standalone client on the card
+        rec = os.path.join(tmp, "batch.rec")
+        from mxnet_tpu_torch import recordio
+
+        w = recordio.MXRecordIO(rec, "w")
+        for row in x:
+            w.write(row.astype("<f4").tobytes())
+        w.close()
+        t0 = time.perf_counter()
+        exe = _native.predict_client()
+        client_build_s = time.perf_counter() - t0
+        import mxnet_tpu_torch
+
+        env = dict(os.environ)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(
+            mxnet_tpu_torch.__file__)))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in sys.path if p.endswith("-packages")]
+            + [env.get("PYTHONPATH", "")])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [exe, "--dev-type", "2", "--dev-id", "0", "--zeros",
+             "softmax_label", "%dx%d" % (b, t), path, rec, str(b), str(t)],
+            capture_output=True, text=True, env=env, timeout=300)
+        client_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode != 0:
+        raise AssertionError("predict_client exited %d:\n%s"
+                             % (proc.returncode, proc.stderr[-4000:]))
+    cls = np.full(b * t, -1)
+    for m in re.finditer(r"record (\d+): class (\d+)", proc.stdout):
+        cls[int(m.group(1))] = int(m.group(2))
+    reading = {"card": _smi_line(),
+               "config": "predict-f32's LM: vocab %d, T %d, batch %d, embed "
+                         "%d, %d heads, FFN %d, %d layers, f32"
+                         % (VOCAB, t, b, EMBED, TRAIN_HEADS, FFN,
+                            TRAIN_LAYERS),
+               "artifact_bytes": len(blob), "lib_build_s": build_s,
+               "create_s": create_s, "forward_s": forward_s,
+               "launches": launches, "max_abs_logp": gap,
+               "abi_argmax_equal": bool((abi_cls == want_cls).all()),
+               "client_build_s": client_build_s, "client_s": client_s,
+               "client_rows": int((cls >= 0).sum()),
+               "client_argmax_equal": bool((cls == want_cls).all())}
+    log("tp (c) C ABI: " + json.dumps(reading))
+    if launches != {"fused_fwd": 5 * TRAIN_LAYERS,
+                    "flash_fwd": TRAIN_LAYERS} or not gap <= TOL_LOGP \
+            or not reading["client_argmax_equal"]:
+        raise AssertionError("the C ABI on the card: %s" % reading)
+    return reading, launches
+
+
+def _avals_phase(torch, dev):
+    """(d): ``serving_avals`` at serve-int8-paged's configuration (SLOTS
+    slots, cache SEQ, pages of PAGE_TOKENS): no allocation across the
+    call, and every program ``prepare_programs`` then captures takes
+    arguments of those shapes and dtypes."""
+    from mxnet_tpu_torch.programs.spec import _leaf_sigs
+
+    sym, params, _ = _lm(torch, dev)
+    pred = _predictor(sym, params, False, dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    avals = pred.serving_avals(SLOTS, CHUNK)
+    avals_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(dev)
+    keys = pred.program_fingerprints(SLOTS, CHUNK)
+    pred.prepare_programs(SLOTS, CHUNK)
+    progs = pred._programs()
+    checked = {}
+    for kind in ("chunk", "decode", "commit", "fork"):
+        args = avals[kind][1:] if kind in ("chunk", "decode") \
+            else avals[kind]
+        want = [tuple(x) for x in _leaf_sigs(args, [])
+                if isinstance(x, list)]
+        (key,) = progs[kind]._entries
+        got = [(list(x[0]), str(x[1])) for x in key[1]
+               if isinstance(x, tuple) and len(x) >= 2
+               and isinstance(x[1], torch.dtype)]
+        checked[kind] = {"args": len(want), "equal": got == want}
+    reading = {"card": _smi_line(), "slots": SLOTS, "cache": SEQ,
+               "page_tokens": PAGE_TOKENS, "chunk": CHUNK,
+               "allocated_before": before, "allocated_after": after,
+               "avals_s": avals_s, "programs": sorted(avals),
+               "fingerprints": len(keys), "captured_vs_avals": checked}
+    log("tp (d) serving_avals: " + json.dumps(reading))
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    if before != after or not all(v["equal"] for v in checked.values()):
+        raise AssertionError("serving_avals: %s" % reading)
+    return reading
+
+
+def phase_tensor_parallel(torch, dev):
+    """Phase 21 (see the module's docstring): (a) the LM over a model
+    axis of two ranks, (b) group2ctx on the card, (c) the C ABI, (d)
+    serving_avals.  Returns the launches of (a) (both ranks) and (c)."""
+    t0 = time.perf_counter()
+    tp, tp_launches = _tp_ranks(torch, dev)
+    _mp_lstm_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, capi_launches = _capi_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _avals_phase(torch, dev)
+    log("tp: " + json.dumps({"card": _smi_line(),
+                             "wall_s": time.perf_counter() - t0,
+                             "tp_step_s": [r["step_s"] for r in tp["ranks"]],
+                             "tp_launches": tp_launches,
+                             "capi_launches": capi_launches}))
+    return {"tp": tp_launches, "capi": capi_launches}
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -7989,6 +8652,10 @@ def main():
         # one rank of phase 20 (d), started by the phase itself
         rank, world, address, outdir = sys.argv[2:6]
         return _dp_rank_main(int(rank), int(world), address, outdir)
+    if sys.argv[1:2] == ["--tp-rank"]:
+        # one rank of phase 21 (a), started by the phase itself
+        rank, world, address, outdir = sys.argv[2:6]
+        return _tp_rank_main(int(rank), int(world), address, outdir)
     # phases 1-17 run the hand-fixed kernel plans: an empty tuning cache
     # of this run's own, unarmed (phase 18 arms a directory of its own);
     # nothing is read from or left in the user's cache
@@ -8099,6 +8766,10 @@ def _main(torch):
     torch.cuda.empty_cache()
     dp_launches = phase_data_parallel(torch, dev, train)
     dist_l, two_l = dp_launches["dist"], dp_launches["dist_two_context"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches = phase_tensor_parallel(torch, dev)
+    tp_l, capi_l = tp_launches["tp"], tp_launches["capi"]
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -8129,7 +8800,7 @@ def _main(torch):
         + sum(m["fused_fwd"] for m in moe_launches.values()) \
         + resume_launches["fused_fwd"] + tune_launches["fused_fwd"] \
         + analysis_launches["fused_fwd"] + dist_l["fused_fwd"] \
-        + two_l["fused_fwd"]
+        + two_l["fused_fwd"] + tp_l["fused_fwd"] + capi_l["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -8151,7 +8822,9 @@ def _main(torch):
                                "tuning": tune_launches["fused_fwd"],
                                "analysis": analysis_launches["fused_fwd"],
                                "dist": dist_l["fused_fwd"],
-                               "dist_two_context": two_l["fused_fwd"]},
+                               "dist_two_context": two_l["fused_fwd"],
+                               "tensor_parallel": tp_l["fused_fwd"],
+                               "capi": capi_l["fused_fwd"]},
              tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
@@ -8219,6 +8892,9 @@ def _main(torch):
         by_path["analysis"] = analysis_launches[counter]
         by_path["dist"] = dist_l[counter]
         by_path["dist_two_context"] = two_l[counter]
+        by_path["tensor_parallel"] = tp_l[counter]
+        if counter == "flash_fwd":
+            by_path["capi"] = capi_l[counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -8238,7 +8914,7 @@ def _main(torch):
                + sum(m["fused_bwd"] for m in moe_train.values())
                + resume_launches["fused_bwd"] + tune_launches["fused_bwd"]
                + analysis_launches["fused_bwd"] + dist_l["fused_bwd"]
-               + two_l["fused_bwd"],
+               + two_l["fused_bwd"] + tp_l["fused_bwd"],
                f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
@@ -8251,7 +8927,8 @@ def _main(torch):
                           "tuning": tune_launches["fused_bwd"],
                           "analysis": analysis_launches["fused_bwd"],
                           "dist": dist_l["fused_bwd"],
-                          "dist_two_context": two_l["fused_bwd"]},
+                          "dist_two_context": two_l["fused_bwd"],
+                          "tensor_parallel": tp_l["fused_bwd"]},
         tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
@@ -8271,6 +8948,7 @@ def _main(torch):
     b1_by_path["analysis"] = analysis_launches["multi_tensor_update"]
     b1_by_path["dist"] = dist_l["multi_tensor_update"]
     b1_by_path["dist_two_context"] = two_l["multi_tensor_update"]
+    b1_by_path["tensor_parallel"] = tp_l["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}

@@ -597,14 +597,15 @@ class TunerCoveragePass(Pass):
 
 class ShardingCoveragePass(Pass):
     """Partition-rule coverage over the bound param tree, as the
-    reference has it.  The port has no mesh yet (ROADMAP queue A item
-    7): no program stamps ``meta['sharding_coverage']``, so every one
-    reports ``no-mesh``; the rules below hold once one does.
+    reference has it.  A Module with a model axis above 1 stamps
+    ``meta['sharding_coverage']`` on its ``train_step`` artifact
+    (``Module.program_artifacts``: the records of
+    ``parallel.tp_exec.TensorParallel``); the serving programs have no
+    mesh yet and report ``no-mesh``.
 
     Mesh-bound programs stamp ``meta['sharding_coverage']`` — per-leaf
     records written at placement time by ``programs/partition.
-    build_shardings`` (decode) and ``module/executor_group.
-    _param_sharding`` (train)::
+    build_shardings`` and ``parallel/tp_exec.TensorParallel`` (train)::
 
         {"mesh": {"data": 2, "model": 2},
          "leaves": {"<param>": {"shape": [...],

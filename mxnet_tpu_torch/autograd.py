@@ -13,6 +13,12 @@ it into the variable's gradient buffer, in place; "null" leaves the
 buffer alone.  A variable no recorded op reached takes a zero gradient,
 as the reference's vjp gives.  Recording also sets the training flag
 (``record(train_mode=True)``), which the ops read as ``is_train``.
+
+:func:`record_op` is the reference's entry for an op whose outputs were
+computed outside the recording path: it joins them to torch's graph
+(an autograd function whose backward runs the op's forward again on the
+inputs and takes its vector-Jacobian product), so a later
+:func:`backward` reaches the inputs through them.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["is_recording", "is_training", "set_is_training",
-           "mark_variables", "backward", "compute_gradient", "record",
+           "mark_variables", "record_op", "backward", "compute_gradient",
+           "record",
            "train_section", "test_section", "grad_and_loss", "grad"]
 
 _state = threading.local()
@@ -65,6 +72,67 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         if req != "null" and var.data.is_floating_point():
             var._set_data(var.data.detach().requires_grad_(True))
         st.variables[id(var)] = (var, grad, req)
+
+
+class _RecordedOp(torch.autograd.Function):
+    """``outputs`` (computed elsewhere) as functions of ``inputs``: the
+    backward recomputes the op on the inputs and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, opdef, attrs, aux, rng, outputs, *inputs):
+        ctx.op = (opdef, attrs, aux, rng)
+        ctx.save_for_backward(*inputs)
+        return tuple(o.detach().clone() for o in outputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .registry import OpContext
+
+        opdef, attrs, aux, rng = ctx.op
+        inputs = ctx.saved_tensors
+        leaves = [x.detach().requires_grad_(x.is_floating_point()
+                                            and ctx.needs_input_grad[5 + i])
+                  for i, x in enumerate(inputs)]
+        dev = inputs[0].device if inputs else None
+        if rng is not None:
+            gen, state = rng
+            now = gen.get_state()
+            gen.set_state(state)
+        try:
+            with torch.enable_grad():
+                outs, _ = opdef.fcompute(
+                    attrs, leaves, list(aux),
+                    OpContext(is_train=True, generator=None if rng is None
+                              else rng[0], device=dev))
+        finally:
+            if rng is not None:
+                gen.set_state(now)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        want = [x for x in leaves if x.requires_grad]
+        found = iter(torch.autograd.grad(
+            [o for o, _ in pairs], want, [g for _, g in pairs],
+            allow_unused=True) if pairs and want else ())
+        return (None, None, None, None, None) + tuple(
+            next(found) if x.requires_grad else None for x in leaves)
+
+
+def record_op(opdef, attrs, inputs, outputs, rng=None, aux=()):
+    """Join ``outputs`` (NDArrays that ``opdef``'s forward computed from
+    ``inputs`` with parsed ``attrs`` and ``aux`` arrays, outside the
+    recording path) to the graph: each output's tensor is replaced by
+    one that is a function of the inputs' tensors, so a later
+    :func:`backward` gives the inputs the op's gradients.  ``rng``, when
+    the op draws random numbers, is the ``(torch.Generator, state)`` its
+    forward started from, restored for the recompute.  A no-op when no
+    input's tensor requires a gradient."""
+    ins = [x.data for x in inputs]
+    if not any(t.requires_grad for t in ins):
+        return
+    new = _RecordedOp.apply(opdef, attrs, tuple(a.data for a in aux), rng,
+                            [o.data for o in outputs], *ins)
+    for o, t in zip(outputs, new):
+        o._set_data(t)
 
 
 class record:

@@ -356,3 +356,11 @@ register("MXNET_ANALYSIS_BUDGETS", str, "",
          "analysis.load_budgets / tools/mxlint_torch.py.  Empty "
          "(default) = the port's own mxnet_tpu_torch/analysis/"
          "budgets.json.")
+register("MXNET_TP_MODE", str, "megatron",
+         "Tensor-parallel plan over the 'model' mesh axis of a Module "
+         "with a mesh_config: 'megatron' (default) pairs column-parallel "
+         "with row-parallel weights from one graph walk "
+         "(parallel/tp_rules.py), so one all-reduce a pair replaces "
+         "per-layer all-gathers; 'naive' shards every parameter whose "
+         "dim 0 divides the axis and gathers after each layer (for the "
+         "A/B count of parallel.collectives.COUNTS).")

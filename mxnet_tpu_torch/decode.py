@@ -948,25 +948,36 @@ class DecodePredictor:
                 blob.encode(), digest_size=16).hexdigest()
         return d
 
-    def _serving_args(self, slots, chunk_w=None, spec_k=0):
-        """Each paged program's arguments at batch width ``slots`` as
-        ``meta`` tensors (shapes and dtypes only: no pool is allocated
-        and nothing runs); the verify program's only when ``spec_k`` is
-        set (deterministic drafts)."""
+    def serving_avals(self, slots, chunk_w=None, spec_k=0):
+        """The argument signature of every paged program at batch width
+        ``slots`` as ``meta`` tensors (shapes and dtypes only): the
+        decode step, the prefill chunk (width ``chunk_w``), commit,
+        fork, ``page_extract`` and ``page_install``, and with ``spec_k``
+        the verify step over ``spec_k`` deterministic drafts.  The
+        programs that run the model take the weights first (``{name:
+        tensor}``, the module's buffers in an export); the others take
+        their arguments as called.  No pool is allocated and nothing is
+        captured or run, so a fleet host fingerprints its programs
+        (:meth:`program_fingerprints`) before it allocates."""
         if not self._paged:
-            raise MXNetError("serving programs need a paged predictor")
+            raise MXNetError("serving_avals needs a paged predictor")
         slots = int(slots)
         pt = self._page_tokens
         m = self._cache_len // pt
         pp = PagedKVManager.pool_sizing(slots, self._cache_len, pt,
                                         self._pool_pages)
         caches = self._pools_like(lambda c: (pp, pt, c.shape[2]), "meta")
+        # one slot's extracted pages, in the pools' raw (byte-indexed)
+        # dtypes: what page_install stages
+        pages = _map_caches(_attn._raw, self._pools_like(
+            lambda c: (m, pt, c.shape[2]), "meta"))
 
         def meta(*shape, dtype=torch.int32):
             return torch.empty(shape, dtype=dtype, device="meta")
 
         env = {n: meta(*v.shape, dtype=v.dtype) for n, v in self._env.items()}
         cw = int(chunk_w or self._prefill_chunk or self._cache_len)
+        row = meta(m, dtype=torch.int64)
         out = {
             "chunk": (env, caches, meta(1, m),
                       meta(1, cw, dtype=torch.float32), meta(2)),
@@ -974,6 +985,8 @@ class DecodePredictor:
                        meta(slots, m), meta(slots)),
             "commit": (meta(slots), meta(slots, 1), meta(2), meta(1, 1)),
             "fork": (caches, meta(2, dtype=torch.int64)),
+            "extract": (caches, row),
+            "install": (caches, row, pages),
         }
         if spec_k:
             out["verify"] = (env, caches, meta(slots), meta(slots, 1),
@@ -1000,7 +1013,7 @@ class DecodePredictor:
 
     def _spec_program(self, kind, args):
         """``(module, example args)`` of paged program ``kind``'s body at
-        :meth:`_serving_args`' arguments (the weights first for the
+        :meth:`serving_avals`' arguments (the weights first for the
         programs that run the model; they become the module's buffers,
         and the generator is None): what ``ProgramSpec.artifact``
         exports."""
@@ -1016,8 +1029,8 @@ class DecodePredictor:
         (the verify program's with ``spec_k``): equal keys across hosts
         mean the same programs on the same kernels."""
         return {kind: self._program_spec(kind, args).fingerprint(args)
-                for kind, args in self._serving_args(slots, chunk_w,
-                                                    spec_k).items()}
+                for kind, args in self.serving_avals(slots, chunk_w,
+                                                     spec_k).items()}
 
     def prepare_programs(self, slots, chunk_w=None, spec_k=0):
         """Capture every paged program at batch width ``slots`` (chunk
@@ -1035,7 +1048,7 @@ class DecodePredictor:
         if self._prepared is not None and self._prepared["signature"] == sig:
             return self._prepared
         t_all = time.perf_counter()
-        avals = self._serving_args(slots, cw, spec_k)
+        avals = self.serving_avals(slots, cw, spec_k)
         state = self.paged_batch_state(slots)
         live = self._live
         gen = self._sampling_generator()
@@ -1060,6 +1073,8 @@ class DecodePredictor:
         }
         report = {"signature": sig, "programs": {}}
         for kind, args in avals.items():
+            if kind not in calls:
+                continue        # extract / install: captured at first use
             spec = self._program_specs[kind] = _programs.registry.register(
                 self._program_spec(kind, args))
             before = self._programs()[kind].traces

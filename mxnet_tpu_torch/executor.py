@@ -20,6 +20,19 @@ calls the tap with every node's outputs by name.  Aux
 states and gradients are written into their arrays IN PLACE, so the
 tensors a captured program binds by pointer stay the arrays' storage
 whichever path ran last.
+
+``group2ctx`` is model parallelism by placement (the reference's
+``_plan_placement``): a node whose ``ctx_group`` attr names a group runs
+on that group's device, its inputs move there first (``Tensor.to``, the
+``_CrossDeviceCopy`` counterpart; autograd moves the gradients back),
+and the variables a placed node owns live on its device.  A group with
+no entry raises.  Every ``cpu(i)`` is one torch device, so on the host
+the placement map is kept and checked but moves nothing; between the
+card and the host it moves tensors, each counted in
+:data:`CROSS_DEVICE`.  A placed executor, like a tensor-parallel one
+(``tp``: a :class:`~mxnet_tpu_torch.parallel.tp_exec.TensorParallel`
+that walks the graph over this rank's shards), runs eagerly: no program
+captures it.
 """
 from __future__ import annotations
 
@@ -30,7 +43,34 @@ from .base import MXNetError
 from .ndarray import NDArray, _device, zeros
 from .registry import OpContext
 
-__all__ = ["Executor", "simple_bind"]
+__all__ = ["Executor", "simple_bind", "CROSS_DEVICE"]
+
+# tensors moved across devices at placed nodes' inputs (forward)
+CROSS_DEVICE = {"copies": 0, "bytes": 0}
+
+
+def plan_placement(symbol, group2ctx):
+    """``{node name: Context}`` from the nodes' ``ctx_group`` attrs (the
+    reference's ``_plan_placement``): None when ``group2ctx`` is empty;
+    a group with no entry raises."""
+    from .context import Context
+
+    if not group2ctx:
+        return None
+    placement = {}
+    for node in symbol._topo():
+        group = node.attrs.get("ctx_group") if node.attrs else None
+        if group is None:
+            continue
+        if group not in group2ctx:
+            raise MXNetError(
+                "ctx_group %r on node %r has no entry in group2ctx "
+                "(mapped groups: %s)" % (group, node.name,
+                                         sorted(group2ctx)))
+        ctx = group2ctx[group]
+        placement[node.name] = ctx if isinstance(ctx, Context) \
+            else Context(ctx)
+    return placement or None
 
 
 def uncapturable_ops(symbol):
@@ -41,13 +81,19 @@ def uncapturable_ops(symbol):
             if not n.is_variable and not n.op.capturable]
 
 
-def run_graph(symbol, env_args, env_aux, octx, tap=None):
+def run_graph(symbol, env_args, env_aux, octx, tap=None, placement=None,
+              tp=None):
     """Execute ``symbol`` on tensors; returns ``(outputs, new_aux)``.
     ``env_args``/``env_aux`` map variable names to tensors.  ``tap(name,
     tensor)``, when given, sees every node's visible outputs, named
-    ``<node>_<output>`` (the monitor's callback)."""
+    ``<node>_<output>`` (the monitor's callback).  ``placement`` ({node
+    name: torch.device}) runs placed nodes on their device, the rest on
+    ``octx.device``; ``tp`` walks the graph tensor-parallel instead."""
     from . import profiler as _prof
     from .programs.graphs import in_body
+
+    if tp is not None:
+        return tp.run_graph(symbol, env_args, env_aux, octx, tap)
 
     # per-node profiler spans only where the walk executes eagerly: a
     # captured program's body runs once at capture (the reference's
@@ -66,12 +112,23 @@ def run_graph(symbol, env_args, env_aux, octx, tap=None):
         n_args = node.op.n_inputs(attrs)
         ins = [values[(id(s), i)] for s, i in node.inputs[:n_args]]
         aux_ins = [values[(id(s), i)] for s, i in node.inputs[n_args:]]
+        node_octx = octx
+        if placement is not None:
+            dev = placement.get(node.name, octx.device)
+            ins = [_move(v, dev) for v in ins]
+            aux_ins = [_move(v, dev) for v in aux_ins]
+            gen = octx.generator
+            node_octx = OpContext(
+                is_train=octx.is_train, plain=octx.plain,
+                generator=gen if gen is None or gen.device == dev else None,
+                device=dev)
         if spans:
             with _prof.Scope(node.name):
                 outs, node_new_aux = node.op.fcompute(attrs, ins, aux_ins,
-                                                      octx)
+                                                      node_octx)
         else:
-            outs, node_new_aux = node.op.fcompute(attrs, ins, aux_ins, octx)
+            outs, node_new_aux = node.op.fcompute(attrs, ins, aux_ins,
+                                                  node_octx)
         for i, o in enumerate(outs):
             values[(id(node), i)] = o
         if tap is not None:
@@ -84,8 +141,18 @@ def run_graph(symbol, env_args, env_aux, octx, tap=None):
     return [values[(id(n), i)] for n, i in symbol._outputs], new_aux
 
 
+def _move(value, dev):
+    """``value`` on ``dev`` (a differentiable copy when it is elsewhere,
+    counted in :data:`CROSS_DEVICE`)."""
+    if value.device == dev:
+        return value
+    CROSS_DEVICE["copies"] += 1
+    CROSS_DEVICE["bytes"] += value.numel() * value.element_size()
+    return value.to(dev)
+
+
 def forward_backward(symbol, env_args, env_aux, grad_names, octx,
-                     head_grads=None, tap=None):
+                     head_grads=None, tap=None, placement=None, tp=None):
     """One training pass: forward under autograd with ``grad_names`` as
     leaves, then their gradients from ``head_grads`` seeded at the
     outputs (ones when None); outputs no gradient reaches (BlockGrad's)
@@ -97,7 +164,8 @@ def forward_backward(symbol, env_args, env_aux, grad_names, octx,
     leaves = [env[n].detach().requires_grad_(True) for n in grad_names]
     env.update(zip(grad_names, leaves))
     with torch.enable_grad():
-        outs, new_aux = run_graph(symbol, env, env_aux, octx, tap)
+        outs, new_aux = run_graph(symbol, env, env_aux, octx, tap,
+                                  placement=placement, tp=tp)
         seeds = [torch.ones_like(o) for o in outs] if head_grads is None \
             else [g.to(o.device, o.dtype) for g, o in zip(head_grads, outs)]
         grads = _grads(outs, seeds, leaves, retain_graph=False)
@@ -116,14 +184,24 @@ class Executor:
     ``plain`` runs every op that owns a kernel through its
     plain version.  ``generator`` (a ``torch.Generator`` on the device,
     None for torch's default one) is what Dropout and the RNN op's
-    dropout draw their masks from."""
+    dropout draw their masks from.  ``group2ctx`` ({group: Context})
+    places the nodes of each ``ctx_group`` (see the module's docstring);
+    ``tp`` runs the graph tensor-parallel over this rank's shards."""
 
     def __init__(self, symbol, device, args, args_grad=None,
-                 grad_req="write", aux_states=None, plain=False):
+                 grad_req="write", aux_states=None, plain=False,
+                 group2ctx=None, tp=None):
+        from .context import resolve_device
+
         self._symbol = symbol
         self._device = _device(device)
         self.plain = plain
         self.generator = None
+        self._group2ctx = dict(group2ctx or {})
+        self._placement = plan_placement(symbol, self._group2ctx)
+        self._devices = None if self._placement is None else {
+            n: resolve_device(c) for n, c in self._placement.items()}
+        self.tp = tp
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
         if not isinstance(args, dict) and len(args) != len(arg_names):
@@ -163,7 +241,30 @@ class Executor:
         self._last_gen_state = None   # the last training forward's
         self._monitor_callback = None
         self._compiled_forward = None
-        self._capturable = not uncapturable_ops(symbol)
+        self._capturable = not uncapturable_ops(symbol) \
+            and self._placement is None and tp is None
+        if self._devices is not None:
+            self._place_buffers()
+
+    def _place_buffers(self):
+        """Every argument, gradient and aux array of a placed variable on
+        its group's device."""
+        for table in (self.arg_dict, self.grad_dict, self.aux_dict):
+            for name, arr in table.items():
+                dev = self._devices.get(name)
+                if dev is not None and arr.data.device != dev:
+                    arr._set_data(arr.data.to(dev))
+
+    def _run(self, env_args, env_aux, octx, tap=None):
+        return run_graph(self._symbol, env_args, env_aux, octx, tap,
+                         placement=self._devices, tp=self.tp)
+
+    def _forward_backward(self, env_args, env_aux, octx, head_grads=None,
+                          tap=None):
+        return forward_backward(self._symbol, env_args, env_aux,
+                                self._grad_names, octx,
+                                head_grads=head_grads, tap=tap,
+                                placement=self._devices, tp=self.tp)
 
     @property
     def arg_arrays(self):
@@ -226,16 +327,15 @@ class Executor:
             self._last_gen_state = self._generator_state()[1]
         if is_train and self._grad_names:
             with _prof.Scope("forward_backward", "executor"):
-                outs, new_aux, self._grads = forward_backward(
-                    self._symbol, env_args, env_aux, self._grad_names,
-                    self.op_context(True), tap=tap)
+                outs, new_aux, self._grads = self._forward_backward(
+                    env_args, env_aux, self.op_context(True), tap=tap)
         elif (is_train or tap is not None or programs.graphs.eager_active()
               or not (self.arg_dict or self.aux_dict)
               or not self._capturable):
             # a graph without arrays gives a program nothing to bind;
             # a Custom node's Python body cannot be captured
             with torch.no_grad(), _prof.Scope("forward", "executor"):
-                outs, new_aux = run_graph(self._symbol, env_args, env_aux,
+                outs, new_aux = self._run(env_args, env_aux,
                                           self.op_context(is_train), tap)
             self._grads = None
         else:
@@ -268,9 +368,9 @@ class Executor:
                 gen.set_state(self._last_gen_state)
             try:
                 env_args, env_aux = self._env()
-                _, _, grads = forward_backward(
-                    self._symbol, env_args, env_aux, self._grad_names,
-                    self.op_context(True), head_grads=heads)
+                _, _, grads = self._forward_backward(
+                    env_args, env_aux, self.op_context(True),
+                    head_grads=heads)
             finally:
                 gen.set_state(now)
         else:
@@ -369,21 +469,31 @@ class Executor:
             new_aux[name] = arr if tuple(shape) == arr.shape else \
                 zeros(shape, self._device, arr.data.dtype)
         exe = Executor(self._symbol, self._device, new_args, new_grads,
-                       self.grad_req, new_aux, plain=self.plain)
+                       self.grad_req, new_aux, plain=self.plain,
+                       group2ctx=self._group2ctx, tp=self.tp)
         exe.generator = self.generator
         return exe
 
 
 def simple_bind(symbol, device, grad_req="write", type_dict=None,
-                plain=False, shared_exec=None, **shapes):
+                plain=False, shared_exec=None, group2ctx=None, tp=None,
+                **shapes):
     """Allocate zeroed argument, gradient and aux arrays on ``device``
     from the input ``shapes`` and bind them.  ``grad_req`` is a string or
     a per-name dict; ``type_dict`` gives input dtypes (default f32).
     With ``shared_exec``, every argument (with its gradient) and aux
     state that it holds under the same name and shape is taken from it
     by identity — the same NDArray, so a later rebinding of its tensor
-    reaches both executors (bucketing); the rest is allocated."""
+    reaches both executors (bucketing); the rest is allocated.  With
+    ``group2ctx`` the placed variables' arrays live on their group's
+    device; with ``tp`` each sharded parameter's arrays (and aux states)
+    have this rank's shape."""
     arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+    if tp is not None:
+        arg_shapes = [tp.local_shape(n, s) for n, s in
+                      zip(symbol.list_arguments(), arg_shapes)]
+        aux_shapes = [tp.local_shape(n, s) for n, s in
+                      zip(symbol.list_auxiliary_states(), aux_shapes)]
     arg_names = symbol.list_arguments()
     aux_names = symbol.list_auxiliary_states()
     type_dict = type_dict or {}
@@ -404,4 +514,5 @@ def simple_bind(symbol, device, grad_req="write", type_dict=None,
             grads[name] = take("grad_dict", name, shape, dtype)
     aux = {name: take("aux_dict", name, shape, type_dict.get(name))
            for name, shape in zip(aux_names, aux_shapes)}
-    return Executor(symbol, device, args, grads, req, aux, plain=plain)
+    return Executor(symbol, device, args, grads, req, aux, plain=plain,
+                    group2ctx=group2ctx, tp=tp)

@@ -16,12 +16,82 @@ name distinct cards are refused (:func:`one_device`): the port's data
 parallelism is one process a card under ``parallel.launch`` with a
 ``dist_sync`` store, where the reference shards in-process over a mesh.
 So ``merge_multi_context`` has one device's arrays to return either
-way."""
+way.
+
+With a ``mesh`` (:class:`MeshRuntime`, from a Module's ``mesh_config``)
+the group is one rank of a (data x model) mesh of processes: every rank
+is fed the same global batch and binds its data-axis slice; the
+executor walks the graph tensor-parallel
+(:class:`~mxnet_tpu_torch.parallel.tp_exec.TensorParallel`) over this
+rank's parameter shards; ``set_params`` slices the full arrays and
+``get_params`` gathers them; ``backward`` sums the parameter gradients
+over the data group (one all-reduce of the packed gradients), so they
+arrive at ``update()`` globally summed, as the reference's do; and
+``get_outputs`` gathers the outputs over the data group."""
 from __future__ import annotations
 
+import torch
+
+from .. import config
 from ..base import MXNetError
 from ..executor import simple_bind
 from ..io import as_desc_list
+from ..parallel import collectives
+from ..parallel.tp_exec import TensorParallel, param_mesh_axes
+
+
+class MeshRuntime:
+    """A ``MeshConfig`` resolved against the process group (one rank a
+    process, where the reference resolves it against its contexts): the
+    axis sizes, the ``DeviceMesh`` and this rank's model and data groups.
+    Axes the port does not realize yet raise: ``seq`` (item 7 step 5,
+    the ring), ``expert`` (step 6, sharded MoE), ``pipe`` (step 4, the
+    pipeline)."""
+
+    def __init__(self, mesh_config):
+        world = collectives.world_size()
+        try:
+            sizes = mesh_config.resolve(world)
+        except AssertionError as exc:
+            raise MXNetError(
+                "mesh_config %s does not cover the %d rank(s) of the "
+                "process group (%s): start one process a rank under "
+                "parallel.launch.init()" % (mesh_config, world, exc)) \
+                from exc
+        self.sizes = dict(zip(mesh_config.names, (int(s) for s in sizes)))
+        for axis, step in (("seq", "item 7 step 5 (the ring)"),
+                           ("expert", "item 7 step 6 (sharded MoE)"),
+                           ("pipe", "item 7 step 4 (the pipeline)")):
+            if self.sizes.get(axis, 1) > 1:
+                raise MXNetError(
+                    "a %r mesh axis of %d is not realized by the port yet "
+                    "(ROADMAP %s); the port shards the 'data' and 'model' "
+                    "axes" % (axis, self.sizes[axis], step))
+        self.config = mesh_config
+        self.data = self.sizes["data"]
+        self.model = self.sizes["model"]
+        self.mesh = None
+        self.model_group = self.data_group = None
+        self.model_rank = self.data_rank = 0
+        if world > 1:
+            from ..parallel.mesh import build_mesh
+
+            self.mesh = build_mesh(mesh_config)
+            self.model_group = self.mesh.get_group("model")
+            self.data_group = self.mesh.get_group("data")
+            self.model_rank = self.mesh.get_local_rank("model")
+            self.data_rank = self.mesh.get_local_rank("data")
+
+    @property
+    def ranks(self):
+        return self.data * self.model
+
+    def tensor_parallel(self, symbol, shapes):
+        return TensorParallel(
+            symbol, shapes, self.model, self.model_rank, self.model_group,
+            data=self.data, data_group=self.data_group,
+            mode=config.get("MXNET_TP_MODE"),
+            mesh_shape={"data": self.data, "model": self.model})
 
 
 def one_device(contexts):
@@ -48,12 +118,13 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, device, data_shapes, label_shapes,
                  param_names, for_training, fixed_param_names=None,
                  grad_req="write", plain=False, shared_group=None,
-                 inputs_need_grad=False, num_contexts=1):
+                 inputs_need_grad=False, num_contexts=1, mesh=None):
         self._bind_args = dict(device=device, grad_req=grad_req,
                                plain=plain,
                                fixed_param_names=fixed_param_names,
                                inputs_need_grad=inputs_need_grad,
-                               num_contexts=num_contexts)
+                               num_contexts=num_contexts, mesh=mesh)
+        self.mesh = mesh
         self.symbol = symbol
         self.param_names = list(param_names)
         self.for_training = for_training
@@ -65,10 +136,11 @@ class DataParallelExecutorGroup:
         self.data_names = [d.name for d in self.data_shapes]
         self.label_names = [d.name for d in self.label_shapes]
         self.batch_size = self.data_shapes[0].shape[0]
-        if self.batch_size % max(1, num_contexts) != 0:
+        degree = mesh.data if mesh is not None else num_contexts
+        if self.batch_size % max(1, degree) != 0:
             raise MXNetError("batch size %d must be divisible by the data-"
                              "parallel degree %d" % (self.batch_size,
-                                                     num_contexts))
+                                                     degree))
 
         self.grad_req = {}
         for name in self.arg_names:
@@ -87,10 +159,29 @@ class DataParallelExecutorGroup:
                   + self.label_shapes}
         types = {d.name: d.dtype for d in self.data_shapes
                  + self.label_shapes}
+        self.tp = None
+        self._outputs = None
+        if mesh is not None:
+            # this rank's slice of the batch; the parameters' GLOBAL
+            # shapes for the plan (set_params / get_params use them)
+            self._slice = self.batch_size // mesh.data
+            shapes = {n: (self._slice,) + tuple(s[1:])
+                      for n, s in shapes.items()}
+            arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+            self.global_shapes = {
+                n: tuple(s) for n, s in zip(self.arg_names, arg_shapes)
+                if n in set(self.param_names)}
+            self.global_shapes.update(
+                (n, tuple(s)) for n, s in zip(self.aux_names, aux_shapes))
+            self.tp = mesh.tensor_parallel(symbol, self.global_shapes)
+            # op-declared parameter axes (OpDef.mesh_axes: the MoE expert
+            # stacks); an 'expert' axis above 1 is refused by MeshRuntime
+            self._param_mesh_axes = param_mesh_axes(symbol, mesh.sizes)
         self.exec_ = simple_bind(
             symbol, device, grad_req=self.grad_req, type_dict=types,
             plain=plain, shared_exec=(shared_group.exec_ if shared_group
-                                      is not None else None), **shapes)
+                                      is not None else None), tp=self.tp,
+            **shapes)
         exe = self.exec_
         self.param_arrays = [exe.arg_dict[n] for n in self.param_names]
         self.grad_arrays = [exe.grad_dict.get(n) for n in self.param_names]
@@ -107,19 +198,37 @@ class DataParallelExecutorGroup:
                       label_shapes, self.param_names, self.for_training,
                       shared_group=_Shared(self.exec_), **args)
 
+    def _full(self, arr):
+        from ..ndarray import NDArray
+
+        if isinstance(arr, NDArray):
+            return arr.data
+        return torch.as_tensor(arr)
+
     def set_params(self, arg_params, aux_params):
-        for name, arr in arg_params.items():
-            if name in self.exec_.arg_dict:
-                self.exec_.arg_dict[name][:] = arr
-        for name, arr in (aux_params or {}).items():
-            if name in self.exec_.aux_dict:
-                self.exec_.aux_dict[name][:] = arr
+        """Copy the (full) parameters into the executor: under a mesh,
+        this rank's block of each sharded one."""
+        for table, params in ((self.exec_.arg_dict, arg_params),
+                              (self.exec_.aux_dict, aux_params or {})):
+            for name, arr in params.items():
+                if name not in table:
+                    continue
+                if self.tp is not None:
+                    arr = self.tp.shard(name, self._full(arr))
+                table[name][:] = arr
 
     def get_params(self, arg_params, aux_params):
-        for name in self.param_names:
-            arg_params[name][:] = self.exec_.arg_dict[name]
-        for name in self.aux_names:
-            aux_params[name][:] = self.exec_.aux_dict[name]
+        """Copy the executor's parameters into the host arrays: under a
+        mesh, gathered over the model group (every rank calls it)."""
+        for table, names, out in ((self.exec_.arg_dict, self.param_names,
+                                   arg_params),
+                                  (self.exec_.aux_dict, self.aux_names,
+                                   aux_params)):
+            for name in names:
+                value = table[name].data
+                if self.tp is not None:
+                    value = self.tp.unshard(name, value)
+                out[name][:] = value
 
     def load_data_batch(self, data_batch):
         """Copy the batch's arrays into the bound inputs (onto the device,
@@ -128,11 +237,21 @@ class DataParallelExecutorGroup:
             raise MXNetError("batch has %d data arrays, the module binds %s"
                              % (len(data_batch.data), self.data_names))
         for name, arr in zip(self.data_names, data_batch.data):
-            self.exec_.arg_dict[name][:] = arr
+            self.exec_.arg_dict[name][:] = self._my_rows(arr)
         if self.label_names and data_batch.label:
             for name, arr in zip(self.label_names, data_batch.label):
                 if name in self.exec_.arg_dict:
-                    self.exec_.arg_dict[name][:] = arr
+                    self.exec_.arg_dict[name][:] = self._my_rows(arr)
+        self._outputs = None
+
+    def _my_rows(self, arr):
+        """Under a mesh, this rank's data-axis slice of a global batch
+        array; else the array."""
+        if self.mesh is None or self.mesh.data == 1:
+            return arr
+        full = self._full(arr)
+        return full[self.mesh.data_rank * self._slice:
+                    (self.mesh.data_rank + 1) * self._slice]
 
     def forward(self, data_batch, is_train=None):
         self.load_data_batch(data_batch)
@@ -144,10 +263,43 @@ class DataParallelExecutorGroup:
         if not self.for_training:
             raise MXNetError("re-bind with for_training=True to run "
                              "backward")
+        if out_grads is not None and self.mesh is not None \
+                and self.mesh.data > 1:
+            out_grads = [self._my_rows(g) for g in (
+                out_grads if isinstance(out_grads, (list, tuple))
+                else [out_grads])]
         self.exec_.backward(out_grads)
+        if self.mesh is not None and self.mesh.data > 1:
+            self._sum_grads_over_data()
+
+    def _sum_grads_over_data(self):
+        """The parameter gradients summed over the data group: packed
+        into one buffer, one all-reduce, unpacked in place."""
+        grads = [g.data for g in self.grad_arrays if g is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        collectives.all_reduce(flat, self.mesh.data_group)
+        off = 0
+        with torch.no_grad():
+            for g in grads:
+                n = g.numel()
+                g.copy_(flat[off:off + n].view_as(g))
+                off += n
 
     def get_outputs(self, merge_multi_context=True):
-        return list(self.exec_.outputs)
+        """The outputs of the last forward; under a mesh with a data axis
+        above 1 every rank's rows gathered in rank order (once a
+        forward)."""
+        if self.mesh is None or self.mesh.data == 1:
+            return list(self.exec_.outputs)
+        if self._outputs is None:
+            from ..ndarray import NDArray
+
+            self._outputs = [NDArray(collectives.all_gather(
+                o.data, 0, self.mesh.data_group))
+                for o in self.exec_.outputs]
+        return list(self._outputs)
 
     def get_input_grads(self, merge_multi_context=True):
         return [self.exec_.grad_dict[n] for n in self.data_names]
@@ -156,4 +308,4 @@ class DataParallelExecutorGroup:
         mon.install(self.exec_)
 
     def update_metric(self, eval_metric, labels):
-        eval_metric.update(labels, self.exec_.outputs)
+        eval_metric.update(labels, self.get_outputs())

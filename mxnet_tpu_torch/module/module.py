@@ -60,6 +60,25 @@ host parameter dicts; ``borrow_optimizer`` takes its optimizer, updater,
 KVStore and train step, which then runs this module's graph over the one
 store (``BucketingModule``).
 
+``mesh_config=MeshConfig(data=D, model=M)`` makes the module one rank
+of a (data x model) mesh of processes (each started under
+``parallel.launch``, one context each; ``D * M`` must equal the group's
+world size, where the reference resolves it against its contexts):
+every rank is fed the same global batch and trains its data-axis slice
+on its shards of the tensor-parallel plan (``MXNET_TP_MODE``,
+:mod:`~mxnet_tpu_torch.parallel.tp_exec`), the gradients summed over the
+data group before ``update()``.  ``get_params`` / ``save_checkpoint``
+gather the full parameters (rank 0 writes the files, which stay the
+reference's); ``init_params`` / ``set_params`` take full arrays.  Such a
+module trains on the eager path (a collective cannot run inside a
+captured graph), its ``update()`` one kernel-B1 pass over its shards
+where the compiled step would arm the slab plan
+(:class:`~mxnet_tpu_torch.train_step.SlabUpdate`), keeps no store (a
+``dist*`` kvstore is refused), and
+its optimizer-state files raise under a model axis above 1 (ROADMAP item
+7 step 7).  ``program_artifacts`` then carries the plan's coverage
+record.
+
 The module runs on the card (``gpu(0)``) unless ``context=cpu()``; with
 no card and no CPU context it raises, as ``DecodePredictor`` does.
 ``plain=True`` runs every op that owns a hand-written kernel through its
@@ -78,16 +97,17 @@ from ..io import as_desc_list
 from ..metric import DeviceMetricAccumulator, select_outputs
 from ..model import _create_kvstore, load_checkpoint
 from ..ndarray import NDArray, array, zeros
-from ..train_step import CompiledEvalStep, CompiledTrainStep
+from ..train_step import CompiledEvalStep, CompiledTrainStep, SlabUpdate
 from .base_module import BaseModule
-from .executor_group import DataParallelExecutorGroup, one_device
+from .executor_group import DataParallelExecutorGroup, MeshRuntime, \
+    one_device
 
 
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
                  context=None, fixed_param_names=None, compute_dtype=None,
-                 plain=False):
+                 plain=False, mesh_config=None):
         super().__init__(logger=logger)
         if isinstance(context, (list, tuple)):
             contexts = list(context)
@@ -95,6 +115,13 @@ class Module(BaseModule):
                 raise MXNetError("Module needs at least one context")
         else:
             contexts = [context if isinstance(context, Context) else gpu(0)]
+        if mesh_config is not None and len(contexts) != 1:
+            raise MXNetError(
+                "a Module with a mesh_config is one rank of the mesh: give "
+                "it one context and start one process a rank under "
+                "parallel.launch.init() (got %d contexts)" % len(contexts))
+        self._mesh_config = mesh_config
+        self._mesh = None
         self._contexts = contexts
         self._context = contexts[0]
         self._device = resolve_device(one_device(contexts))
@@ -116,6 +143,7 @@ class Module(BaseModule):
         self._update_on_kvstore = None
         self._exec_group = None
         self._train_step = None
+        self._slab_update = None
         self._step_update_done = False
         self._fused_outputs = None
         self._pending_metric = None
@@ -141,10 +169,20 @@ class Module(BaseModule):
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """Write ``prefix-symbol.json``, ``prefix-%04d.params`` and, with
-        ``save_optimizer_states``, ``prefix-%04d.states``."""
+        ``save_optimizer_states``, ``prefix-%04d.states``.  Under a mesh
+        every rank gathers the parameters and rank 0 writes."""
+        if self._mesh is not None and self._mesh.mesh is not None:
+            from ..parallel import collectives
+
+            if save_optimizer_states:
+                self._check_state_files()
+            self.save_params("%s-%04d.params" % (prefix, epoch))
+            if collectives.rank() != 0:
+                return
         self._symbol.save("%s-symbol.json" % prefix)
         param_name = "%s-%04d.params" % (prefix, epoch)
-        self.save_params(param_name)
+        if self._mesh is None or self._mesh.mesh is None:
+            self.save_params(param_name)
         logging.info("Saved checkpoint to \"%s\"", param_name)
         if save_optimizer_states:
             state_name = "%s-%04d.states" % (prefix, epoch)
@@ -196,6 +234,7 @@ class Module(BaseModule):
             self.binded = False
             self._exec_group = None
             self._train_step = None
+            self._slab_update = None
             self._fused_outputs = None
             self._pending_metric = None
             self._eval_step_cache = None
@@ -213,13 +252,15 @@ class Module(BaseModule):
                 raise MXNetError("bind and initialize the shared module "
                                  "first")
             shared_group = shared_module._exec_group
+        if self._mesh_config is not None and self._mesh is None:
+            self._mesh = MeshRuntime(self._mesh_config)
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._device, data_shapes, label_shapes,
             self._param_names, for_training,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
             plain=self._plain, shared_group=shared_group,
             inputs_need_grad=inputs_need_grad,
-            num_contexts=len(self._contexts))
+            num_contexts=len(self._contexts), mesh=self._mesh)
         self.binded = True
         if shared_module is not None:
             self.params_initialized = True
@@ -238,13 +279,14 @@ class Module(BaseModule):
         if not self.binded:
             raise MXNetError("call bind before initializing the parameters")
         exe = self._exec_group.exec_
+        full = getattr(self._exec_group, "global_shapes", {})
         if self._arg_params is None:
-            self._arg_params = {n: zeros(exe.arg_dict[n].shape, cpu(),
-                                         exe.arg_dict[n].data.dtype)
+            self._arg_params = {n: zeros(full.get(n, exe.arg_dict[n].shape),
+                                         cpu(), exe.arg_dict[n].data.dtype)
                                 for n in self._param_names}
         if self._aux_params is None:
-            self._aux_params = {n: zeros(exe.aux_dict[n].shape, cpu(),
-                                         exe.aux_dict[n].data.dtype)
+            self._aux_params = {n: zeros(full.get(n, exe.aux_dict[n].shape),
+                                         cpu(), exe.aux_dict[n].data.dtype)
                                 for n in self._aux_names}
         attrs = self._symbol.attr_dict()
 
@@ -267,6 +309,16 @@ class Module(BaseModule):
             _impl(name, arr, arg_params)
         for name, arr in sorted(self._aux_params.items()):
             _impl(name, arr, aux_params)
+        if self._mesh is not None and self._mesh.mesh is not None \
+                and initializer is not None:
+            # one draw for the whole mesh: rank 0's
+            from ..parallel import collectives
+
+            for table in (self._arg_params, self._aux_params):
+                for name in sorted(table):
+                    t = table[name].data.to(self._device)
+                    collectives.broadcast(t, 0)
+                    table[name].data.copy_(t)
         self.params_initialized = True
         self._exec_group.set_params(self._arg_params, self._aux_params)
         if self._train_step is not None:
@@ -315,6 +367,12 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring")
             return
+        if self._mesh is not None and isinstance(kvstore, str) \
+                and kvstore.startswith("dist"):
+            raise MXNetError(
+                "a Module with a mesh_config sums its gradients over the "
+                "mesh's data group itself: use kvstore='local', not %r"
+                % kvstore)
         kvstore, update_on_kvstore = _create_kvstore(
             kvstore, len(self._contexts), self._arg_params)
         batch_size = self._exec_group.batch_size
@@ -357,18 +415,22 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
-    def _fused_eligible(self, optimizer, kvstore):
+    def _fused_eligible(self, optimizer, kvstore, captured=True):
         """Whether the compiled train step can own the update (the JAX
         package's rule, decided before anything runs): the switch on,
         training without input gradients or a monitor, no ``dist*``
         store (the cross-process all-reduce rides the store's push, and
         no collective may run inside a captured graph) and an optimizer
-        with a fused kernel."""
+        with a fused kernel.  ``captured=False`` asks the same of an
+        eager step, which a mesh of several ranks may take."""
         if not config.get("MXNET_FUSED_TRAIN_STEP"):
             return False
         if not self.for_training or self.inputs_need_grad:
             return False
         if self._monitor is not None:
+            return False
+        if captured and self._mesh is not None and self._mesh.ranks > 1:
+            # collectives between nodes: no captured graph holds them
             return False
         if kvstore is not None and kvstore.type.startswith("dist"):
             return False
@@ -385,8 +447,17 @@ class Module(BaseModule):
         if self._train_step is not None:
             self._train_step.detach_metric()
         self._train_step = None
+        self._slab_update = None
         self._step_update_done = False
         self._fused_outputs = None
+        if self._mesh is not None and self._mesh.ranks > 1:
+            # the reference's mesh step runs B1 too: here eagerly, over
+            # this rank's shards
+            if not self._update_on_kvstore and self._fused_eligible(
+                    self._optimizer, self._kvstore, captured=False):
+                self._slab_update = SlabUpdate.arm(
+                    self._exec_group, self._optimizer, self._updater)
+            return
         if self._fused_eligible(self._optimizer, self._kvstore):
             try:
                 self._train_step = CompiledTrainStep(
@@ -409,6 +480,7 @@ class Module(BaseModule):
         self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self._train_step = shared_module._train_step
+        self._slab_update = shared_module._slab_update
         self._step_update_done = False
         self.optimizer_initialized = True
 
@@ -453,7 +525,9 @@ class Module(BaseModule):
         ``update_on_kvstore`` each gradient is pushed (all-reduced, then
         the store's updater on the weight it holds) and its weight
         pulled (a no-op where the store holds this very array);
-        otherwise the updater takes them all in one ``update_multi``."""
+        otherwise a mesh rank's :class:`SlabUpdate` runs kernel B1 over
+        the slabs, or the updater takes them all in one
+        ``update_multi``."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
         if self._step_update_done:
@@ -467,6 +541,9 @@ class Module(BaseModule):
                 if g is not None:
                     kv.push(idx, g)
                     kv.pull(idx, out=w)
+            return
+        if self._slab_update is not None:
+            self._slab_update()
             return
         idxs, grads, weights = [], [], []
         for idx, (w, g) in enumerate(zip(group.param_arrays,
@@ -510,6 +587,7 @@ class Module(BaseModule):
         if not self.binded:
             raise MXNetError("call bind first")
         self._monitor = mon
+        self._slab_update = None
         if self._train_step is not None:
             self._train_step.detach_metric()
             if self._updater is not None:
@@ -570,6 +648,8 @@ class Module(BaseModule):
             return None
         if self._monitor is not None:
             return None  # the taps need the eager forward
+        if self._mesh is not None:
+            return None  # the walk's collectives: the eager forward
         if not (self.binded and self.params_initialized):
             return None
         if not DeviceMetricAccumulator.supported(eval_metric):
@@ -597,8 +677,22 @@ class Module(BaseModule):
         ``{name: ProgramArtifact}`` for the train step (after its first
         run) and the cached eval step (after a device-metric ``score``),
         each traced on fake tensors (nothing runs).  The surface
-        ``tools/mxlint_torch.py`` and custom audits consume."""
+        ``tools/mxlint_torch.py`` and custom audits consume.  A module
+        with a model axis above 1 trains eagerly (no program to trace):
+        its ``train_step`` artifact carries no graph, only the mesh shape
+        and ``meta['sharding_coverage']``, the plan's record a parameter
+        that the sharding-coverage pass reads."""
         arts = {}
+        group = self._exec_group
+        if group is not None and group.tp is not None \
+                and self._mesh.model > 1:
+            from ..analysis.artifact import ProgramArtifact
+
+            cov = group.tp.coverage_record()
+            arts["train_step"] = ProgramArtifact(
+                name="train_step", mesh_shape=dict(cov["mesh"]),
+                meta={"sharding_coverage": cov,
+                      "tp_mode": group.tp.mode})
         if self._train_step is not None:
             art = self._train_step.artifact(group=self._exec_group)
             if art is not None:
@@ -629,11 +723,19 @@ class Module(BaseModule):
     # ------------------------------------------------------------------
     # optimizer states
     # ------------------------------------------------------------------
+    def _check_state_files(self):
+        if self._mesh is not None and self._mesh.model > 1:
+            raise MXNetError(
+                "optimizer-state files of a model axis of %d hold sharded "
+                "slots: sharded checkpoint directories are ROADMAP item 7 "
+                "step 7" % self._mesh.model)
+
     def save_optimizer_states(self, fname):
         """The train step's, the store's (``update_on_kvstore``) or the
         updater's states as the ``.states`` payload."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
+        self._check_state_files()
         if self._train_step is None and self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
             return
@@ -645,6 +747,7 @@ class Module(BaseModule):
     def load_optimizer_states(self, fname):
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
+        self._check_state_files()
         if self._train_step is None and self._update_on_kvstore:
             self._kvstore.load_optimizer_states(fname)
             return
@@ -652,3 +755,18 @@ class Module(BaseModule):
             else self._updater
         with open(fname, "rb") as fin:
             target.set_states(fin.read())
+
+    def save_params(self, fname):
+        """Write the parameters to ``fname``; under a mesh every rank
+        gathers them (a collective) and rank 0 writes."""
+        if self._mesh is None or self._mesh.mesh is None:
+            super().save_params(fname)
+            return
+        from .. import ndarray as nd
+        from ..parallel import collectives
+
+        arg_params, aux_params = self.get_params()
+        if collectives.rank() == 0:
+            blob = {"arg:%s" % k: v for k, v in arg_params.items()}
+            blob.update({"aux:%s" % k: v for k, v in aux_params.items()})
+            nd.save(fname, blob)

@@ -1,21 +1,28 @@
 """Parallelism (the counterpart of ``mxnet_tpu/parallel/``) on
 ``torch.distributed``: the launcher (:mod:`~mxnet_tpu_torch.parallel.
 launch`, one process a card), the collectives the ``dist_*`` KVStore
-reduces through (:mod:`~mxnet_tpu_torch.parallel.collectives`), device
-meshes (:mod:`~mxnet_tpu_torch.parallel.mesh`) and worker liveness
+reduces through and the tensor-parallel ones
+(:mod:`~mxnet_tpu_torch.parallel.collectives`), device meshes
+(:mod:`~mxnet_tpu_torch.parallel.mesh`), the Megatron plan
+(:mod:`~mxnet_tpu_torch.parallel.tp_rules`) and its realization on one
+rank (:mod:`~mxnet_tpu_torch.parallel.tp_exec`, what a Module with a
+``mesh_config`` runs), and worker liveness
 (:mod:`~mxnet_tpu_torch.parallel.health`), which the elastic loop polls.
-The ring, the pipeline and the ``shard_map`` shim wait for the
-tensor-parallel paths."""
+The ring, the pipeline and the ``shard_map`` shim are still to come
+(ROADMAP item 7 steps 4-5)."""
 from . import collectives
 from . import health
 from . import launch
 from . import mesh
+from . import tp_exec
+from . import tp_rules
 from .health import (FailureMonitor, Heartbeat, ReconfigEvent, dead_nodes,
                      ensure_heartbeat, is_recovery, num_dead_nodes,
                      stop_heartbeat)
 from .mesh import MeshConfig, build_mesh, data_parallel_mesh
 
-__all__ = ["collectives", "launch", "mesh", "build_mesh",
+__all__ = ["collectives", "launch", "mesh", "tp_rules", "tp_exec",
+           "build_mesh",
            "data_parallel_mesh", "MeshConfig", "health", "Heartbeat",
            "ensure_heartbeat", "stop_heartbeat", "dead_nodes",
            "num_dead_nodes", "is_recovery", "ReconfigEvent",

@@ -292,7 +292,9 @@ def load_exported(blob_or_path, device=None):
     ``torch.export.passes.move_to_device_pass``.  The graph calls the
     kernels' operators, which importing :mod:`mxnet_tpu_torch` registers:
     that, and torch, is all it needs (the counterpart of the
-    reference's "needs only an XLA runtime")."""
+    reference's "needs only an XLA runtime").  The callable's
+    ``input_shapes`` lists the program's data inputs' shapes in feed
+    order (what the C ABI checks declared shapes against)."""
     dev = resolve_device(device)
     if isinstance(blob_or_path, (str, os.PathLike)):
         ep = torch.export.load(blob_or_path)
@@ -309,8 +311,9 @@ def load_exported(blob_or_path, device=None):
                 % (torch.__version__, src, dev)) from exc
         ep = move_to_device_pass(ep, str(dev))
     names = set(ep.graph_signature.user_inputs)
-    dtypes = [node.meta["val"].dtype for node in ep.graph.nodes
-              if node.op == "placeholder" and node.name in names]
+    vals = [node.meta["val"] for node in ep.graph.nodes
+            if node.op == "placeholder" and node.name in names]
+    dtypes = [v.dtype for v in vals]
     module = ep.module()
 
     def run(*data_vals):
@@ -327,6 +330,7 @@ def load_exported(blob_or_path, device=None):
         with torch.no_grad():
             return tuple(module(*args))
 
+    run.input_shapes = [tuple(int(d) for d in v.shape) for v in vals]
     return run
 
 

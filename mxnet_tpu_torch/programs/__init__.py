@@ -12,20 +12,25 @@ registry (the counterpart of ``mxnet_tpu/programs``).
   and the canonical lint catalog (``register_canonical``,
   ``build_canonical``);
 * :mod:`.aot` — the program-cache directory (``cache_dir``), where the
-  tuning cache (``ops/tuning.py``) keeps its records.
+  tuning cache (``ops/tuning.py``) keeps its records;
+* :mod:`.partition` — regex partition rules over named parameter trees
+  (:func:`match_partition_rules`, :func:`build_shardings` with torch's
+  placements, :func:`rules_from_plan`).
 
 The reference's AOT executables (``programs/aot.py``'s ``save`` /
 ``load``, ``AotDispatch``, ``AOT_STATS``) have no counterpart: a CUDA
 graph cannot be serialized, and the kernel build cache covers the
 compile half of a cold start; deployment goes through ``torch.export``.
-Partition rules (``programs/partition.py``) come with the port's
-parallelism.
 """
-from . import aot, graphs, registry, spec
+from . import aot, graphs, partition, registry, spec
 from .graphs import GRAPH_STATS, GraphPool, GraphProgram, eager
+from .partition import build_shardings, match_partition_rules, \
+    rules_from_plan
 from .registry import REGISTRY, ProgramRegistry
 from .spec import ProgramSpec, probe_artifact, probe_cost, probing
 
 __all__ = ["GRAPH_STATS", "GraphPool", "GraphProgram", "ProgramRegistry",
-           "ProgramSpec", "REGISTRY", "aot", "eager", "graphs", "probe_artifact",
-           "probe_cost", "probing", "registry", "spec"]
+           "ProgramSpec", "REGISTRY", "aot", "build_shardings", "eager",
+           "graphs", "match_partition_rules", "partition",
+           "probe_artifact", "probe_cost", "probing", "registry",
+           "rules_from_plan", "spec"]

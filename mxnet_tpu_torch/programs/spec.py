@@ -163,12 +163,16 @@ class ProgramSpec:
     autograd : bool
         The body calls autograd (a training step): traced by ``make_fx``
         into one graph.
+    partition_rules : list, optional
+        The ``(regex, axes)`` rules the program's named parameters were
+        placed by (:mod:`~mxnet_tpu_torch.programs.partition`); they
+        enter the fingerprint.
     """
 
     def __init__(self, name, fn, *, owner=None, abstract_args=None,
                  trace_count=None, expected_traces=1, device=None,
                  fingerprint_extra=None, program=None, donate_argnums=(),
-                 autograd=False):
+                 autograd=False, partition_rules=None):
         self.name = name
         self.fn = fn
         self._owner = weakref.ref(owner) if owner is not None else None
@@ -180,6 +184,7 @@ class ProgramSpec:
         self._program = program
         self.donate_argnums = tuple(donate_argnums or ())
         self._autograd = autograd
+        self.partition_rules = partition_rules
 
     def owner(self):
         return self._owner() if self._owner is not None else None
@@ -198,8 +203,8 @@ class ProgramSpec:
     def fingerprint(self, args=None, device=None):
         """Content address of the program at ``args`` (or the spec's
         abstract args): equal keys mean the same name, torch and CUDA
-        versions, device kind, argument shapes and dtypes, extras and
-        kernel sources."""
+        versions, device kind, argument shapes and dtypes, partition
+        rules, extras and kernel sources."""
         args = self.avals(args)
         if args is None:
             return None
@@ -211,6 +216,8 @@ class ProgramSpec:
                                   else self._device),
             "leaves": _leaf_sigs(args, []),
             "kernels": kernel_digest(),
+            "rules": [[p, [str(a) for a in s]]
+                      for p, s in (self.partition_rules or [])],
             "extra": _resolve(self._fingerprint_extra),
         }
         blob = json.dumps(payload, sort_keys=True, default=str)
@@ -260,3 +267,17 @@ class ProgramSpec:
         module, example = self._module(args)
         return probe_cost(self.owner(), module, example,
                           autograd=self._autograd)
+
+    def register_roofline(self, accounting=None, name=None):
+        """Attach :meth:`cost` as the program's lazy static-cost prober in
+        ``accounting`` (``obs.programs`` by default) under ``name`` (the
+        spec's).  The prober holds the spec by a weak reference, and the
+        spec its owner weakly, so registering never keeps the model
+        alive: once the spec is gone the prober returns None."""
+        from .. import obs as _obs
+
+        acc = accounting if accounting is not None else _obs.programs
+        ref = weakref.ref(self)
+        acc.register_static(
+            name or self.name,
+            lambda: (ref().cost() if ref() is not None else None))

@@ -364,24 +364,25 @@ class Symbol:
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
                     group2ctx=None, shared_exec=None, **kwargs):
         """An :class:`~mxnet_tpu_torch.executor.Executor` over zeroed
-        arrays of the shapes ``kwargs`` determine, on ``ctx``.
-        ``group2ctx`` (model-parallel placement) is not ported."""
+        arrays of the shapes ``kwargs`` determine, on ``ctx``;
+        ``group2ctx`` ({ctx_group: Context}) places each group's nodes
+        and variables on its device (model parallelism)."""
         from .executor import simple_bind
 
-        _no_group2ctx(group2ctx)
         return simple_bind(self, resolve_device(ctx), grad_req=grad_req,
                            type_dict=type_dict, shared_exec=shared_exec,
-                           **kwargs)
+                           group2ctx=group2ctx, **kwargs)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
         """An :class:`~mxnet_tpu_torch.executor.Executor` over the given
         arrays (a list in ``list_arguments`` order or a dict; NDArrays,
         tensors or numpy), on ``ctx``: an array already there is bound as
-        it is, any other is copied there."""
+        it is, any other is copied there.  ``group2ctx`` ({ctx_group:
+        Context}) places each group's nodes, and moves the arrays of its
+        variables to its device."""
         from .executor import Executor
 
-        _no_group2ctx(group2ctx)
         dev = resolve_device(ctx)
 
         def place(table):
@@ -392,19 +393,13 @@ class Symbol:
             return [_on(v, dev) for v in table]
 
         return Executor(self, dev, place(args), place(args_grad), grad_req,
-                        place(aux_states))
+                        place(aux_states), group2ctx=group2ctx)
 
     def eval(self, ctx=None, **kwargs):
         """Bind ``kwargs`` (every argument by name) on ``ctx`` (the card
         by default) and run one inference forward; returns the outputs."""
         return self.bind(ctx if ctx is not None else gpu(0),
                          kwargs).forward()
-
-
-def _no_group2ctx(group2ctx):
-    if group2ctx:
-        raise MXNetError("group2ctx (model-parallel placement) is not "
-                         "ported")
 
 
 def _on(value, dev):

@@ -37,6 +37,9 @@ masters that are not f32 / bf16) the body runs the optimizer's
 parameter, as the JAX step does with no plan.
 A master written outside the step (an eager update, ``set_params``)
 marks the compute slab stale, and the next step recasts it first.
+:class:`SlabUpdate` arms the same plan for a step that runs eagerly (a
+mesh Module's rank): backward writes the gradient slab through the
+views, and ``update()`` is one B1 pass a slab.
 
 **Host state stays outside the body**: update counts, lr schedules and
 Adam's bias correction (``fused_hyper``) run once per call on the host;
@@ -116,7 +119,11 @@ def _register_step_spec(step):
 def _refuse_uncapturable(exe):
     """MXNetError when the executor's graph holds a node no captured
     program may hold (a Custom op, whose Python body may read values
-    back to the host)."""
+    back to the host), or the executor runs placed or tensor-parallel
+    (device moves and collectives between nodes)."""
+    if exe._placement is not None or exe.tp is not None:
+        raise MXNetError("a placed (group2ctx) or tensor-parallel executor "
+                         "runs eagerly: no compiled step captures it")
     names = uncapturable_ops(exe._symbol)
     if names:
         raise MXNetError("the graph holds nodes a compiled step cannot "
@@ -240,6 +247,95 @@ class _StepBase:
                 + (self._out_bytes or 0)}
 
 
+def _bind_slabs(plan, exe, updater, names, indices, slots, device):
+    """Pack the masters, gradients (f32) and optimizer slots of the
+    trainables ``names`` (``indices`` in the updater) into ``plan``'s
+    slabs and rebind the executor's arrays and the updater's states to
+    views of them; returns the three ``{bucket: slab}`` dicts."""
+    w = plan.pack({n: exe.arg_dict[n].data for n in names}, device)
+    g = plan.pack({n: exe.grad_dict[n].data for n in names}, device,
+                  dtype=torch.float32)
+    packed = plan.pack_slots(slots, device)
+    for n, v in plan.unpack_all(w).items():
+        exe.arg_dict[n]._set_data(v)
+    for n, v in plan.unpack_all(g).items():
+        exe.grad_dict[n]._set_data(v)
+    slot_views = plan.unpack_slots(packed)
+    for n, idx in zip(names, indices):
+        views = slot_views[n]
+        updater.states[idx] = None if not views else \
+            views[0] if plan.kind == "sgd" else views
+    return w, g, packed
+
+
+def _updater_slots(updater, exe, names, indices):
+    """``{name: tuple of slot tensors}``: each trainable's optimizer
+    state (created where the updater has none yet)."""
+    out = {}
+    for n, idx in zip(names, indices):
+        if updater.states.get(idx) is None:
+            updater.states[idx] = updater.optimizer.create_state(
+                idx, exe.arg_dict[n])
+        st = updater.states[idx]
+        out[n] = () if st is None else \
+            (st,) if isinstance(st, torch.Tensor) else tuple(st)
+    return out
+
+
+class SlabUpdate:
+    """Kernel B1's update for a module whose step runs eagerly because no
+    captured graph may hold it (a mesh Module's rank: collectives run
+    between its nodes).  The trainables' masters, gradients and slots
+    live in the slab plan's slabs, the executor's arrays and the
+    updater's states are views of them (backward writes the gradient
+    slab in place), and each call is one B1 pass a slab, with the
+    hyperparameters the compiled step would read."""
+
+    def __init__(self, exec_group, optimizer, updater, plan, names):
+        exe = exec_group.exec_
+        self.plan = plan
+        self._optimizer = optimizer
+        self._names = names
+        self._indices = [exec_group.param_names.index(n) for n in names]
+        self._plain = exe.plain
+        self._device = exe._device
+        self._w, self._g, self._slots = _bind_slabs(
+            plan, exe, updater, names, self._indices,
+            _updater_slots(updater, exe, names, self._indices),
+            self._device)
+
+    @classmethod
+    def arm(cls, exec_group, optimizer, updater):
+        """The update over ``exec_group``'s trainables, or None where the
+        plan declines (an optimizer B1 does not implement, a master that
+        is not f32 / bf16) or a trainable accumulates (grad_req "add")."""
+        exe = exec_group.exec_
+        names = [n for n in exec_group.param_names
+                 if exe.grad_req.get(n, "null") != "null"]
+        if any(exe.grad_req[n] != "write" for n in names):
+            return None
+        plan = update_kernel.plan_for(
+            optimizer, {n: exe.arg_dict[n].data for n in names}, names,
+            None)
+        return None if plan is None else cls(exec_group, optimizer,
+                                             updater, plan, names)
+
+    def __call__(self):
+        opt = self._optimizer
+        lrs, wds, rescale, clip = opt.fused_hyper(self._indices)
+        lrb, wdb = self.plan.lr_wd_blocks(dict(zip(self._names, lrs)),
+                                          dict(zip(self._names, wds)))
+        hyp = (float(rescale), float(clip)) + tuple(
+            float(v) for v in opt.fused_extra())
+        dev = self._device
+        with torch.no_grad():
+            update_kernel.UPDATE_PATH["last"] = self.plan.apply(
+                self._w, self._g, self._slots, {},
+                {bk: torch.from_numpy(v).to(dev) for bk, v in lrb.items()},
+                {bk: torch.from_numpy(v).to(dev) for bk, v in wdb.items()},
+                hyp, plain=self._plain)
+
+
 class CompiledTrainStep(_StepBase):
     """One store (the executor's arrays, the slabs, the optimizer's
     slots) and one captured step program per executor group."""
@@ -293,16 +389,8 @@ class CompiledTrainStep(_StepBase):
     def _states(self):
         """``{name: tuple of slot tensors}``: each trainable's optimizer
         state (created where the updater has none yet)."""
-        exe, updater = self._exec, self._updater
-        out = {}
-        for n, idx in zip(self._grad_names, self._grad_indices):
-            if updater.states.get(idx) is None:
-                updater.states[idx] = updater.optimizer.create_state(
-                    idx, exe.arg_dict[n])
-            st = updater.states[idx]
-            out[n] = () if st is None else \
-                (st,) if isinstance(st, torch.Tensor) else tuple(st)
-        return out
+        return _updater_slots(self._updater, self._exec, self._grad_names,
+                              self._grad_indices)
 
     def _arm(self, plan):
         """Pack masters, gradients and slots into the plan's slabs and
@@ -310,24 +398,10 @@ class CompiledTrainStep(_StepBase):
         them; the per-block lr / wd live in device buffers."""
         exe = self._exec
         dev = self._device
-        slots = self._states()
-        self._w = plan.pack({n: exe.arg_dict[n].data
-                             for n in self._grad_names}, dev)
-        self._g = plan.pack({n: exe.grad_dict[n].data
-                             for n in self._grad_names}, dev,
-                            dtype=torch.float32)
-        self._slots = plan.pack_slots(slots, dev)
+        self._w, self._g, self._slots = _bind_slabs(
+            plan, exe, self._updater, self._grad_names, self._grad_indices,
+            self._states(), dev)
         self._wc = plan.cast_slabs(self._w)
-        for n, v in plan.unpack_all(self._w).items():
-            exe.arg_dict[n]._set_data(v)
-        self._grad_views = plan.unpack_all(self._g)
-        for n, v in self._grad_views.items():
-            exe.grad_dict[n]._set_data(v)
-        slot_views = plan.unpack_slots(self._slots)
-        for n, idx in zip(self._grad_names, self._grad_indices):
-            views = slot_views[n]
-            self._updater.states[idx] = None if not views else \
-                views[0] if plan.kind == "sgd" else views
         # what the forward reads: the compute copy, else the masters
         self._views = {}
         for bk in plan.buckets:

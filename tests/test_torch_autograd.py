@@ -360,3 +360,53 @@ def test_imperative_lm_matches_jax_and_module():
                                               group.grad_arrays)}
     errs = _rel(tgrads, mgrads)
     assert max(errs.values()) <= TOL_LM, errs
+
+
+@pytest.mark.parametrize("op,attrs,shapes", [
+    ("FullyConnected", {"num_hidden": 3}, [(4, 5), (3, 5), (3,)]),
+    ("Activation", {"act_type": "tanh"}, [(4, 5)]),
+    ("softmax", {"axis": -1}, [(2, 6)]),
+])
+def test_record_op_gradients_match_jax(op, attrs, shapes):
+    """``record_op`` on outputs computed outside the recording path: the
+    backward through them reaches the inputs with the reference's
+    gradients (the JAX package replays its tape; the port recomputes
+    the op under torch's autograd)."""
+    rng = np.random.RandomState(7)
+    vals = [rng.randn(*s).astype(np.float32) for s in shapes]
+    head = None
+    got = {}
+    for name, pkg in (("jax", mx), ("torch", mt)):
+        with mt.cpu():
+            _clear(pkg)
+            nd = pkg.nd
+            xs = [nd.array(v) for v in vals]
+            gs = [nd.zeros(v.shape) for v in vals]
+            pkg.autograd.mark_variables(xs, gs)
+            opdef = pkg.registry.get_op(op)
+            parsed = opdef.parse_attrs({k: str(v) for k, v in
+                                        attrs.items()})
+            # the op's forward, outside any recording
+            out = getattr(nd, op)(*xs, **attrs)
+            if head is None:
+                head = np.random.RandomState(8).randn(
+                    *out.shape).astype(np.float32)
+            with pkg.autograd.record():
+                pkg.autograd.record_op(opdef, parsed, xs, [out])
+                loss = out * nd.array(head)
+            pkg.autograd.backward([loss])
+            got[name] = [g.asnumpy() for g in gs]
+            _clear(pkg)
+    for g, w in zip(got["torch"], got["jax"]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+        assert np.abs(w).max() > 0
+
+
+def test_record_op_without_a_marked_input_is_a_noop():
+    with mt.cpu():
+        x = mt.nd.array(np.ones((2, 2), np.float32))
+        out = mt.nd.relu(x)
+        before = out.data
+        opdef = mt.registry.get_op("relu")
+        mt.autograd.record_op(opdef, opdef.parse_attrs({}), [x], [out])
+        assert out.data is before and not out.data.requires_grad

@@ -2954,3 +2954,86 @@ def test_distinct_cards_refused_naming_the_dist_path(card):
         with pytest.raises(mt.MXNetError,
                            match="parallel.launch.init.*dist_sync"):
             mt.mod.Module(sym, context=ctxs)
+
+
+def test_group2ctx_between_the_card_and_the_host(card):
+    """A graph placed over the card and the host: the weights live on
+    their group's device, the cut edges move tensors (counted), and the
+    forward and backward equal an all-card bind."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import executor as ex
+
+    data = mt.sym.Variable("data")
+    with mt.AttrScope(ctx_group="host"):
+        h = mt.sym.Activation(mt.sym.FullyConnected(
+            data, num_hidden=16, name="fc0"), act_type="tanh")
+    with mt.AttrScope(ctx_group="card"):
+        out = mt.sym.FullyConnected(h, num_hidden=4, name="fc1")
+    net = mt.sym.MakeLoss(mt.sym.sum(out * out))
+    rng = np.random.RandomState(0)
+    shapes, _, _ = net.infer_shape(data=(8, 6))
+    vals = {n: rng.randn(*s).astype(np.float32) * 0.3
+            for n, s in zip(net.list_arguments(), shapes)}
+    got = {}
+    for key, g2c in (("placed", {"host": mt.cpu(0), "card": mt.gpu(0)}),
+                     ("card", None)):
+        exe = net.simple_bind(mt.gpu(0), group2ctx=g2c, data=(8, 6))
+        for n, v in vals.items():
+            exe.arg_dict[n][:] = v
+        ex.CROSS_DEVICE.update(copies=0, bytes=0)
+        exe.forward(is_train=True)
+        exe.backward()
+        got[key] = ([exe.outputs[0].data.cpu()]
+                    + [exe.grad_dict[n].data.cpu() for n in sorted(vals)
+                       if n != "data"], dict(ex.CROSS_DEVICE), exe)
+    placed = got["placed"][2]
+    assert placed.arg_dict["fc0_weight"].data.device.type == "cpu"
+    assert placed.grad_dict["fc0_weight"].data.device.type == "cpu"
+    assert placed.arg_dict["fc1_weight"].data.device == card
+    assert got["placed"][1]["copies"] >= 2     # data -> host, h -> card
+    for g, w in zip(got["placed"][0], got["card"][0]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_c_abi_on_the_card_launches_a(card, full_f32):
+    """The MXPred* ABI loaded into this process with dev_type 2: kernel A
+    runs inside, the outputs equal the Python Predictor's."""
+    import ctypes
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import _native
+
+    net = mt.sym.FusedLNLinear(mt.sym.Variable("data"), num_hidden=64,
+                               name="f")
+    net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+        net, num_hidden=10, name="fc"), name="softmax")
+    rng = np.random.RandomState(0)
+    params = {"f_gamma": np.ones((1, 1, 32), np.float32),
+              "f_beta": np.zeros((1, 1, 32), np.float32),
+              "f_weight": rng.randn(64, 32).astype(np.float32) * 0.2,
+              "f_bias": np.zeros(64, np.float32),
+              "fc_weight": rng.randn(10, 64).astype(np.float32) * 0.2,
+              "fc_bias": np.zeros(10, np.float32)}
+    x = rng.randn(16, 32).astype(np.float32)
+    pred = mt.Predictor(net, params, {"data": (16, 32)}, ctx=mt.gpu(0))
+    pred.forward(data=x)
+    want = pred.get_output(0).asnumpy()
+    blob = pred.export()
+    lib = _native.predict_lib()
+    c = ctypes
+    h = c.c_void_p()
+    shp = (c.c_uint32 * 2)(16, 32)
+    assert lib.MXPredCreate(blob, len(blob), 2, 0, 1,
+                            (c.c_char_p * 1)(b"data"),
+                            (c.c_uint32 * 2)(0, 2), shp,
+                            c.byref(h)) == 0, lib.MXGetLastError()
+    assert lib.MXPredSetInput(h, b"data", x.ctypes.data_as(
+        c.POINTER(c.c_float)), x.size, shp, 2) == 0
+    before = fk.LAUNCHES["fused_fwd"]
+    assert lib.MXPredForward(h) == 0, lib.MXGetLastError()
+    assert fk.LAUNCHES["fused_fwd"] == before + 1
+    out = np.zeros((16, 10), np.float32)
+    assert lib.MXPredGetOutput(h, 0, out.ctypes.data_as(
+        c.POINTER(c.c_float)), out.size) == 0
+    lib.MXPredFree(h)
+    np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-7)

@@ -418,14 +418,11 @@ NAME_EXCEPTIONS = {
                          "iterators"},
     "context": {"tpu": "no TPU in the port"},
     "random": {"split_key": "jax keys; the port uses torch generators"},
-    "autograd": {"record_op": "later"},
     "module": {"PipelineModule": "later", "pipeline_module": "later"},
-    "programs": dict({n: "later" for n in (
-        "build_shardings", "match_partition_rules", "partition",
-        "rules_from_plan")}, **{n: _NO_AOT for n in (
-            "AOT_STATS", "AotDispatch")},
-        probe_lowered_text="no HLO text: a program's static view is its "
-                           "traced graph (probe_artifact)"),
+    "programs": dict({n: _NO_AOT for n in ("AOT_STATS", "AotDispatch")},
+                     probe_lowered_text="no HLO text: a program's static "
+                                        "view is its traced graph "
+                                        "(probe_artifact)"),
     "programs.aot": dict({n: _NO_AOT for n in (
         "AOT_STATS", "AotDispatch", "enabled", "save", "load",
         "load_or_compile", "reset_stats")},
@@ -443,11 +440,9 @@ NAME_EXCEPTIONS = {
     "Executor": {"compiled_hlo": "no HLO text: a program's static "
                                  "view is its traced graph"},
     "DecodePredictor": {"decode_step_text": "no HLO text",
-                        "prefill_text": "no HLO text",
-                        "serving_avals": "later"},
+                        "prefill_text": "no HLO text"},
     "Module": {"reconfigure": "later"},
-    "ProgramSpec": {"compiled": "no HLO text", "lowered": "no HLO text",
-                    "register_roofline": "later"},
+    "ProgramSpec": {"compiled": "no HLO text", "lowered": "no HLO text"},
     "Context": {"jax_device": "jax"},
     "CompiledTrainStep": {"compiled_hlo": "no HLO text: the step's "
                                           "static view is artifact()"},
@@ -481,7 +476,8 @@ def _name_pairs():
                 "analysis", "analysis.framework", "analysis.passes",
                 "analysis.cost", "analysis.retrace", "analysis.schedule",
                 "analysis.programs", "programs.registry",
-                "programs.spec"):
+                "programs.spec", "programs.partition",
+                "parallel.tp_rules"):
         pairs.append((mod, importlib.import_module("mxnet_tpu." + mod),
                       importlib.import_module("mxnet_tpu_torch." + mod)))
     pairs += [

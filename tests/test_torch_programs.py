@@ -282,3 +282,100 @@ def test_graph_program_buffers_and_signatures():
         prog(s2, x, 2.0)
         assert seen[-1] is x and prog.traces == 3
     assert float(s2[0]) == 4.0
+
+
+# ---------------------------------------------------------------------------
+# register_roofline and serving_avals
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_register_roofline_is_lazy_and_does_not_pin(pkg):
+    """``register_roofline`` attaches the spec's cost as a prober that
+    runs only when read, holding the spec weakly: dropping the spec
+    leaves a prober that answers None.  The cost of a 4 x 4 matmul is
+    the same static count in both packages."""
+    import gc
+    import weakref
+
+    if pkg == "jax":
+        from mxnet_tpu.obs.roofline import ProgramAccounting
+
+        spec = JaxSpec("t_roof", jax.jit(lambda x: x @ x),
+                       abstract_args=(jax.ShapeDtypeStruct(
+                           (4, 4), jnp.float32),))
+    else:
+        from mxnet_tpu_torch.obs.roofline import ProgramAccounting
+
+        spec = programs.ProgramSpec(
+            "t_roof", GraphProgram("t_roof", lambda x: x @ x),
+            abstract_args=(torch.empty((4, 4), device="meta"),))
+    acc = ProgramAccounting()
+    spec.register_roofline(acc)
+    assert "t_roof" in acc._probers and "t_roof" not in acc._static
+    cost = acc._resolve_static("t_roof")
+    assert cost["flops"] == 2 * 4 * 4 * 4
+    spec.register_roofline(acc, name="t_roof_2")
+    ref = weakref.ref(spec)
+    del spec
+    gc.collect()
+    assert ref() is None
+    assert acc._resolve_static("t_roof_2") is None
+
+
+def _captured_sig(prog):
+    """Shapes and dtypes of the tensor arguments of a program's one
+    captured signature (the graph program's key)."""
+    (key,) = prog._entries
+    return [(list(x[0]), str(x[1])) for x in key[1]
+            if isinstance(x, tuple) and len(x) >= 2
+            and isinstance(x[1], torch.dtype)]
+
+
+def _aval_sig(args):
+    from mxnet_tpu_torch.programs.spec import _leaf_sigs
+
+    return [tuple(x) for x in _leaf_sigs(args, []) if isinstance(x, list)]
+
+
+def test_serving_avals_are_what_prepare_programs_captures():
+    """Every captured program's arguments have the shapes and dtypes
+    ``serving_avals`` gives (the weights aside: a program binds them),
+    extract and install's too once a migration runs them; the call
+    allocates nothing and captures nothing, and the fingerprints are
+    computed from it; where a program shares an argument with the
+    reference's (the pools, lens, tables, the commit and fork ids), the
+    shapes are the JAX package's."""
+    sym, tsym, params = _lm()
+    tpred = _preds("torch", sym, tsym, params)
+    jpred = _preds("jax", sym, tsym, params)
+    before = dict(GRAPH_STATS)
+    avals = tpred.serving_avals(2, chunk_w=4, spec_k=2)
+    assert dict(GRAPH_STATS) == before
+    assert tpred._manager is None and tpred._live is None
+    assert set(avals) == {"chunk", "decode", "commit", "fork", "extract",
+                          "install", "verify"}
+    assert set(tpred.program_fingerprints(2, chunk_w=4)) \
+        == set(avals) - {"verify"}
+    tpred.prepare_programs(2, chunk_w=4, spec_k=2)
+    srv = DecodeServer(tpred, 12, slots=2, max_new_tokens=4)
+    for p in _prompts()[:2]:
+        srv.submit(p)
+    srv.run()
+    row = np.zeros(T // 4, np.int64)
+    pages = tpred.extract_pages(tpred._live.pools, row)
+    tpred.install_pages(tpred._live.pools, row, pages)
+    progs = tpred._programs()
+    for kind, args in avals.items():
+        model = kind in ("chunk", "decode", "verify")
+        want = _aval_sig(args[1:] if model else args)
+        assert _captured_sig(progs[kind]) == [tuple(w) for w in want], kind
+    jav = jpred.serving_avals(2, chunk_w=4, spec_k=2)
+    jpools = [list(x.shape) for x in jax.tree_util.tree_leaves(
+        jav["decode"][1].caches)]
+    assert [list(t.shape) for t in jax.tree_util.tree_leaves(
+        [list(p) for p in avals["decode"][1]])] == jpools
+    assert list(avals["decode"][4].shape) == list(jav["decode"][2].shape)
+    assert list(avals["extract"][1].shape) == list(jav["extract"][1].shape)
+    assert [list(t.shape) for t in jax.tree_util.tree_leaves(
+        [list(p) for p in avals["install"][2]])] == [
+        list(x.shape) for x in jax.tree_util.tree_leaves(
+            jav["install"][2])]
