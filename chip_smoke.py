@@ -329,6 +329,24 @@ Phases (any failure ends the run with a non-zero exit code):
    across the call, and the programs ``prepare_programs`` captures take
    arguments of those shapes and dtypes.
 
+22. the serving mesh and the pipeline — (a) two ranks sharing the card
+   over gloo (two processes of this script), serve-int8-paged's model and
+   requests through ``DecodePredictor(mesh=MeshConfig(data=1, model=2))``
+   (eager programs, A at the shard widths, B on 2 of the 4 kv-heads):
+   every rank's tokens equal to the single-rank captured serve's, A and B
+   launches by program, collectives, tokens/s, TTFT, peak memory; kernel
+   A held against its plain version at the shard widths (M 4 and 256),
+   kernel B at 2 kv-heads; (b) two ranks, a
+   ``PipelineModule`` of ``examples/pipeline_lm.py``'s blocks at
+   train-f32's widths (2 stages, 4 microbatches, Adam), PIPE_STEPS
+   ``fit`` steps: C / D / E 4 and B1 1 a step a rank, the hops' bytes
+   and seconds, the step-1 loss within TOL_PIPE_LOSS, the gathered
+   parameters and the step-1 gradients times ``rescale_grad`` within
+   CAPTURE_SPREAD times the widest spread of single-process unrolled
+   Modules (again, batch halves swapped, plain versions, microbatches
+   summed in turn); C / D / E held against their plain versions at the
+   stage shape.
+
 The last lines are a ``kernels`` JSON object (each entry with its
 phase 18 ``tuning`` reading: the class, the winner, its ms and the
 default's), the card's name and power limit, and ``{"ok": true,
@@ -8632,6 +8650,755 @@ def phase_tensor_parallel(torch, dev):
     return {"tp": tp_launches, "capi": capi_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the serving mesh and the pipeline
+# ---------------------------------------------------------------------------
+P22_RANKS = 2       # the ranks of both paths: model=2, two stages
+P22_RANK_TIMEOUT = 400
+# examples/pipeline_lm.py's stage / embed / head at train-f32's widths
+PIPE_HIDDEN, PIPE_HEADS, PIPE_MICRO, PIPE_STEPS = 1024, 8, 4, 3
+PIPE_LR = 3e-3      # the example's Adam rate
+PIPE_DIRECT = ("decode_", "s%d_ffn2_" % (P22_RANKS - 1))
+# the step-1 loss of the pipeline against the unrolled Module: the same
+# f32 products over other GEMM shapes (microbatches of 2 against the
+# batch of 8), relative
+TOL_PIPE_LOSS = 1e-5
+
+
+def _p22_rank_main(rank, world, address, outdir):
+    """One rank of phase 22 over gloo on the shared card: (a), then (b),
+    in one process (one start-up for both)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mxnet_tpu_torch.parallel import launch
+
+    launch.init(address, world, rank, backend="gloo")
+    _serve_mesh_rank(torch, rank, world, outdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _pipe_rank(torch, rank, world, outdir)
+    launch.shutdown()
+    print("P22_RANK_%d_OK" % rank, flush=True)
+    return 0
+
+
+def _serve_mesh_rank(torch, rank, world, outdir):
+    """Phase 22 (a) on one rank: serve-int8-paged's model and requests
+    through a ``DecodePredictor(mesh=MeshConfig(data=1, model=world))``:
+    its tokens, launches by program, collectives and peak memory, written
+    to ``outdir``."""
+    from mxnet_tpu_torch.ops import decode_kernel as dk
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.parallel import MeshConfig, collectives
+
+    dev = torch.device("cuda", 0)
+    sym, params, _ = _lm(torch, dev)
+    pred = _predictor(sym, params, False, dev,
+                      mesh=MeshConfig(data=1, model=world))
+    report = pred.prepare_programs(SLOTS, CHUNK)
+    local = {n: list(v.shape) for n, v in pred._env.items()
+             if n.startswith("layer0_") and n.endswith("_weight")}
+    prompts = _prompts()
+    _serve(torch, pred, [p[:64] for p in prompts[:2]])
+    by_program = {}
+
+    def counting(kind, body):
+        def run(*args, **kw):
+            before = (fk.LAUNCHES["fused_fwd"], dk.LAUNCHES["paged_decode"],
+                      dk.LAUNCHES["paged_combine"])
+            out = body(*args, **kw)
+            got = by_program.setdefault(kind, {
+                "calls": 0, "fused_fwd": 0, "paged_decode": 0,
+                "paged_combine": 0, "b_variant": None})
+            got["calls"] += 1
+            got["fused_fwd"] += fk.LAUNCHES["fused_fwd"] - before[0]
+            got["paged_decode"] += dk.LAUNCHES["paged_decode"] - before[1]
+            got["paged_combine"] += dk.LAUNCHES["paged_combine"] - before[2]
+            got["b_variant"] = dk.LAST_VARIANT.get("paged_decode")
+            return out
+        return run
+
+    for kind, prog in (("decode", pred._decode_fn),
+                       ("chunk", pred._chunk_fn)):
+        prog.body = counting(kind, prog.body)
+    collectives.SYNC_TIMING = True
+    collectives.reset_counts()
+    fk.LAUNCHES["fused_fwd"] = 0
+    dk.LAUNCHES["paged_decode"] = dk.LAUNCHES["paged_combine"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    results, wall, stats = _serve(torch, pred, prompts)
+    launches = {"fused_fwd": fk.LAUNCHES["fused_fwd"],
+                "paged_decode": dk.LAUNCHES["paged_decode"],
+                "paged_combine": dk.LAUNCHES["paged_combine"]}
+    collectives.SYNC_TIMING = False
+    tokens = sum(len(t) for t in results.values())
+    reading = {
+        "rank": rank, "world": world,
+        "tokens": {str(k): np.asarray(v).tolist()
+                   for k, v in results.items()},
+        "launches": launches, "by_program": by_program,
+        "collectives": {k: dict(v) for k, v in collectives.COUNTS.items()},
+        "steps": stats["steps"], "chunks": stats["chunks"],
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "ttft_p50_s": stats.get("ttft_p50_s"),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "trace_counts": pred.trace_counts,
+        "sources": sorted({p["source"] for p in
+                           report["programs"].values()}),
+        "local_weight_shapes": local,
+        "pool_width": int(pred._live.pools[0][0].data.shape[2]),
+        "degrades": list(pred._replicated_degrades)}
+    with open(os.path.join(outdir, "mesh_rank%d.json" % rank), "w") as f:
+        json.dump(reading, f)
+
+
+def _pipe_syms(mt, stages=None):
+    """examples/pipeline_lm.py's stage, embed and head with the port's
+    symbols; with ``stages``, the unrolled net of that many blocks
+    (names prefixed ``s<k>_``) between the same embed and head."""
+    sym = mt.sym
+
+    def block(x, pre=""):
+        q = sym.FullyConnected(x, num_hidden=PIPE_HIDDEN, flatten=False,
+                               name=pre + "q")
+        k = sym.FullyConnected(x, num_hidden=PIPE_HIDDEN, flatten=False,
+                               name=pre + "k")
+        v = sym.FullyConnected(x, num_hidden=PIPE_HIDDEN, flatten=False,
+                               name=pre + "v")
+        a = sym.dot_product_attention(q, k, v, num_heads=PIPE_HEADS,
+                                      causal=True, name=pre + "attn")
+        o = sym.FullyConnected(a, num_hidden=PIPE_HIDDEN, flatten=False,
+                               name=pre + "o")
+        h = x + o
+        f1 = sym.FullyConnected(h, num_hidden=PIPE_HIDDEN * 4,
+                                flatten=False, name=pre + "ffn1")
+        f1 = sym.Activation(f1, act_type="relu")
+        f2 = sym.FullyConnected(f1, num_hidden=PIPE_HIDDEN, flatten=False,
+                                name=pre + "ffn2")
+        return h + f2
+
+    def head(h):
+        logits = sym.FullyConnected(h, num_hidden=VOCAB, flatten=False,
+                                    name="decode")
+        return sym.SoftmaxOutput(logits, preserve_shape=True,
+                                 name="softmax")
+
+    embed = sym.Embedding(sym.Variable("data"), input_dim=VOCAB,
+                          output_dim=PIPE_HIDDEN, name="embed")
+    if stages is None:
+        return block(sym.Variable("data")), head(sym.Variable("data")), \
+            embed
+    h = embed
+    for s in range(stages):
+        h = block(h, "s%d_" % s)
+    return head(h)
+
+
+def _pipe_params(mt):
+    """Seeded numpy parameters (Xavier-uniform weights, biases N(0, 0.02))
+    of the pipeline: stacked stage parameters, embed and head."""
+    stage, head, embed = _pipe_syms(mt)
+    rng = np.random.RandomState(22)
+    a_shapes, _, _ = stage.infer_shape(data=(2, SEQ, PIPE_HIDDEN))
+    out = {}
+
+    def draw(name, shape):
+        if name.endswith("_weight"):
+            lim = np.sqrt(6.0 / (shape[0] + shape[-1]))
+            return rng.uniform(-lim, lim, shape).astype(np.float32)
+        return rng.normal(0, 0.02, shape).astype(np.float32)
+
+    for n, s in zip(stage.list_arguments(), a_shapes):
+        if n != "data":
+            out[n] = np.stack([draw(n, s) for _ in range(P22_RANKS)])
+    out["embed_weight"] = draw("embed_weight", (VOCAB, PIPE_HIDDEN))
+    out["decode_weight"] = draw("decode_weight", (VOCAB, PIPE_HIDDEN))
+    out["decode_bias"] = draw("decode_bias", (VOCAB,))
+    return out
+
+
+def _pipe_batch():
+    """examples/pipeline_lm.py's corpus: a learnable next-token rule."""
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, VOCAB // 2, (TRAIN_BATCH, SEQ + 1))
+    base[:, 1:] = (base[:, :-1] + 1) % VOCAB
+    return base[:, :-1].astype(np.float32), base[:, 1:].astype(np.float32)
+
+
+def _nll(torch, probs, y):
+    """Mean -log p of the labels (f64)."""
+    p = probs.reshape(-1, probs.shape[-1]).double()
+    lab = torch.as_tensor(y.reshape(-1), device=p.device).long()
+    return float(-torch.log(p[torch.arange(len(lab), device=p.device),
+                               lab]).mean())
+
+
+def _pipe_rank(torch, rank, world, outdir):
+    """Phase 22 (b) on one rank: a PipelineModule of ``world`` stages,
+    PIPE_STEPS ``fit`` steps with Adam; each step's launches, hops and
+    seconds, the peak memory, the step-1 loss, the rank's step-1
+    gradients times the optimizer's ``rescale_grad`` (its stage's by the
+    unrolled names, the embed's and the head's) and (rank 0) the gathered
+    parameters after step 1."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.parallel import collectives
+
+    stage, head, embed = _pipe_syms(mt)
+    params = _pipe_params(mt)
+    x, y = _pipe_batch()
+    pipe = mt.mod.PipelineModule(stage, head, num_stages=world,
+                                 num_microbatches=PIPE_MICRO,
+                                 embed_symbol=embed, context=mt.gpu(0))
+    it = mt.io.NDArrayIter({"data": np.tile(x, (PIPE_STEPS, 1))},
+                           {"softmax_label": np.tile(y, (PIPE_STEPS, 1))},
+                           batch_size=TRAIN_BATCH)
+    steps = []
+    collectives.SYNC_TIMING = True
+    torch.cuda.reset_peak_memory_stats()
+    state = {}
+
+    def begin():
+        torch.cuda.synchronize()
+        collectives.reset_counts()
+        _resume_counts(zero=True)
+
+    def on_batch(param):
+        counts = {k: dict(v) for k, v in collectives.COUNTS.items()}
+        steps.append({"s": pipe.last_step_s, "launches": _resume_counts(),
+                      "collectives": counts})
+        if len(steps) == 1:
+            if pipe._outputs is not None:
+                state["loss"] = _nll(torch, pipe._outputs[0], y)
+            scale = pipe._optimizer.rescale_grad
+            torch.save({("s%d_%s" % (pipe.stage, k)
+                         if k in stage.list_arguments() else k):
+                        scale * g.data for k, g in pipe._grads.items()},
+                       os.path.join(outdir, "pipe_grads_rank%d.pt" % rank))
+            arg, _ = pipe.get_params()
+            if rank == 0:
+                torch.save({k: v.data for k, v in arg.items()},
+                           os.path.join(outdir, "pipe_params.pt"))
+        begin()
+
+    begin()
+    pipe.fit(it, eval_metric=mt.metric.Perplexity(ignore_label=None),
+             batch_end_callback=on_batch, optimizer="adam",
+             optimizer_params={"learning_rate": PIPE_LR},
+             arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                         for k, v in params.items()},
+             num_epoch=1)
+    collectives.SYNC_TIMING = False
+    reading = {"rank": rank, "stage": pipe.stage, "steps": steps,
+               "loss_step1": state.get("loss"),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "update": "kernel B1 slab" if pipe._slab is not None
+               else "per-parameter",
+               "perplexity": pipe._metric_acc is not None}
+    with open(os.path.join(outdir, "pipe_rank%d.json" % rank), "w") as f:
+        json.dump(reading, f)
+
+
+def _spawn_p22(n):
+    """``n`` rank processes of this script (``--p22-rank`` rank world
+    address outdir), each with a timeout: ``({tag: readings}, outdir,
+    wall s)`` for the tags "mesh" and "pipe" (the caller removes
+    ``outdir``)."""
+    outdir = tempfile.mkdtemp(prefix="mx_smoke_p22_")
+    address = "127.0.0.1:%d" % _free_port()
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--p22-rank", str(r), str(n), address,
+         outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=os.path.dirname(here)) for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=P22_RANK_TIMEOUT)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or "P22_RANK_%d_OK" % r not in out:
+            shutil.rmtree(outdir, ignore_errors=True)
+            raise AssertionError("rank %d of phase 22 exited %s:\n%s"
+                                 % (r, p.returncode, out[-6000:]))
+    ranks = {}
+    for tag in ("mesh", "pipe"):
+        ranks[tag] = []
+        for r in range(n):
+            with open(os.path.join(outdir, "%s_rank%d.json" % (tag, r))) as f:
+                ranks[tag].append(json.load(f))
+    return ranks, outdir, wall
+
+
+def _b_local_case(torch, dev, flush):
+    """Kernel B at a mesh rank's shapes: 2 of the 4 heads of 256 (kv-heads
+    as many) over int8 pages, tq = 1 at 4 slots and tq = CHUNK at one,
+    against its plain version; times as phase 2's."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import attention as attn
+    from mxnet_tpu_torch.ops import decode_kernel as dk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    heads = HEADS // P22_RANKS
+    hd = EMBED // HEADS
+    e = heads * hd
+    m = SEQ // PAGE_TOKENS
+    c = m * PAGE_TOKENS
+    pages = SLOTS * m + 1
+    table_all = (torch.randperm(pages - 1, generator=g, device=dev).to(
+        torch.int32) + 1)[:SLOTS * m].reshape(SLOTS, m).contiguous()
+    kp, vp = _pools(torch, attn, dev, g, pages, heads, hd, torch.int8)
+    cases = []
+    for tq, lens_list in ((1, [130, 700, 1100, c + 37]),
+                          (CHUNK, [768 + CHUNK])):
+        b = len(lens_list)
+        table = table_all[:b].contiguous()
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        q = torch.randn(b, tq, e, generator=g, device=dev)
+        fn = dk.flash_sdpa_decode if tq == 1 else dk.flash_sdpa_verify
+        kw = dict(num_heads=heads, num_kv_heads=heads)
+        got = fn(q, kp, vp, table, lens, **kw)
+        variant = dk.LAST_VARIANT["paged_decode"]
+        want = dk.paged_plain(q, kp, vp, table, lens, heads, None, heads)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (err <= TOL_B and bool(torch.isfinite(got).all())):
+            raise AssertionError("kernel B at 2 kv-heads tq=%d: max |out - "
+                                 "plain| %.3g > %.3g" % (tq, err, TOL_B))
+        kv = attn.dequantize_kv(attn.paged_gather(kp, table), heads)
+        vv = attn.dequantize_kv(attn.paged_gather(vp, table), heads)
+        kh = kv.reshape(b, c, heads, hd).permute(0, 2, 1, 3)
+        vh = vv.reshape(b, c, heads, hd).permute(0, 2, 1, 3)
+        qh = q.reshape(b, tq, heads, hd).permute(0, 2, 1, 3)
+        limit = torch.clamp_max(lens.long()[:, None] - (tq - 1)
+                                + torch.arange(tq, device=dev)[None, :], c)
+        mask = (torch.arange(c, device=dev)[None, None, :]
+                < limit[:, :, None])[:, None]
+        live = [min(int(t), c) for t in lens_list]
+        nbytes = (2 * q.numel() * 4 + b * m * 4 + b * 4
+                  + sum(live) * heads * (hd + 4) * 2)
+        keys = sum(min(int(t) - (tq - 1) + i, c)
+                   for t in lens_list for i in range(tq))
+        bound_ms, bound_by = _bound(nbytes, 4.0 * keys * heads * hd,
+                                    "float32")
+        case = _case(
+            torch, flush, lambda: fn(q, kp, vp, table, lens, **kw),
+            lambda: dk.paged_plain(q, kp, vp, table, lens, heads, None,
+                                   heads),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                   attn_mask=mask),
+            {"kernel": "B", "pool": "int8", "heads": heads, "head_dim": hd,
+             "tq": tq, "lens": lens_list, "variant": variant,
+             "max_abs_err": err, "bound_ms": bound_ms,
+             "bound_by": bound_by}, iters=20)
+        case["bound_share"] = _bound_share(case)
+        log("serve mesh kernel B case: " + json.dumps(case))
+        cases.append(case)
+    return cases
+
+
+def _a_local_cases(torch, dev, flush):
+    """Kernel A at a mesh rank's shard widths, f32, against its plain
+    version: decode (M = SLOTS) and a prefill chunk (M = CHUNK) through
+    q / k / v (N = EMBED / ranks), ffn1 (N = FFN / ranks) and ffn2 (K =
+    FFN / ranks, ReLU and residual)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    return [_a_case(torch, dev, flush, g, torch.float32, m, k, n, relu_res)
+            for m in (SLOTS, CHUNK)
+            for k, n, relu_res in ((EMBED, EMBED // P22_RANKS, False),
+                                   (EMBED, FFN // P22_RANKS, False),
+                                   (FFN // P22_RANKS, EMBED, True))]
+
+
+def _cde_stage_cases(torch, dev, flush):
+    """Kernels C, D and E at a pipeline stage's attention: (mb * heads, T,
+    hd) = (16, 2048, 128), causal, f32, against their plain versions."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    b = TRAIN_BATCH // PIPE_MICRO
+    h, t, hd = PIPE_HEADS, SEQ, PIPE_HIDDEN // PIPE_HEADS
+    bh = b * h
+    scale = hd ** -0.5
+    pairs = t * (t + 1) // 2
+    q, k, v, do = (torch.randn(bh, t, hd, generator=g, device=dev)
+                   for _ in range(4))
+    args = (scale, True, 1)
+    o, lse = fl.flash_fwd(q, k, v, *args)
+    wo, wlse = fl.flash_plain_fwd(q, k, v, *args)
+    delta = fl.flash_delta(o, do)
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, *args)
+    dk_, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+    wdq, wdk, wdv = fl.flash_plain_bwd(q, k, v, o, lse, do, *args)
+    torch.cuda.synchronize()
+    errs = {"C": max(_check_close("stage C o", o, wo, TOL_F32),
+                     _check_close("stage C lse", lse, wlse, TOL_F32)),
+            "D": _check_close("stage D dq", dq, wdq, TOL_F32),
+            "E": max(_check_close("stage E dk", dk_, wdk, TOL_F32),
+                     _check_close("stage E dv", dv, wdv, TOL_F32))}
+    q4, k4, v4, do4 = (x.view(b, h, t, hd) for x in (q, k, v, do))
+    leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
+    lo = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                        scale=scale)
+    fns = {
+        "C": (lambda: fl.flash_fwd(q, k, v, *args),
+              lambda: fl.flash_plain_fwd(q, k, v, *args),
+              lambda: F.scaled_dot_product_attention(
+                  q4, k4, v4, is_causal=True, scale=scale)),
+        "D": (lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta, *args),
+              lambda: fl.flash_plain_bwd(q, k, v, o, lse, do, *args),
+              lambda: torch.autograd.grad(lo, leaves, do4,
+                                          retain_graph=True)),
+        "E": (lambda: fl.flash_bwd_dkv(q, k, v, do, lse, delta, *args),
+              lambda: fl.flash_plain_bwd(q, k, v, o, lse, do, *args),
+              lambda: torch.autograd.grad(lo, leaves, do4,
+                                          retain_graph=True))}
+    qb, rowb = bh * t * hd * 4, bh * t * 4
+    nbytes = {"C": 4 * qb + rowb, "D": 5 * qb + 2 * rowb,
+              "E": 6 * qb + 2 * rowb}
+    flops = {"C": 4.0 * pairs * hd * bh, "D": 6.0 * pairs * hd * bh,
+             "E": 8.0 * pairs * hd * bh}
+    cases = {}
+    for name in "CDE":
+        bound_ms, bound_by = _bound(nbytes[name], flops[name], "float32")
+        case = _case(torch, flush, *fns[name], extra={
+            "kernel": name, "dtype": "float32", "bh": bh, "t": t, "hd": hd,
+            "causal": True, "max_abs_err": errs[name], "tol": TOL_F32,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "variant": fl.LAST_VARIANT[{"C": "flash_fwd",
+                                        "D": "flash_bwd_dq",
+                                        "E": "flash_bwd_dkv"}[name]]})
+        case["bound_share"] = _bound_share(case)
+        log("pipeline kernel %s case: %s" % (name, json.dumps(case)))
+        cases[name] = case
+    return cases
+
+
+def _serve_mesh_phase(torch, dev, flush, ranks, wall):
+    """(a): the ranks' readings against the single-rank captured serve,
+    kernels A and B at their shapes; returns the reading, both ranks'
+    launches and the A and B cases."""
+    sym, params, _ = _lm(torch, dev)
+    pred = _predictor(sym, params, False, dev)
+    pred.prepare_programs(SLOTS, CHUNK)
+    single, s_wall, s_stats = _serve(torch, pred, _prompts())
+    single = {str(k): np.asarray(v).tolist() for k, v in single.items()}
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    a_cases = _a_local_cases(torch, dev, flush)
+    b_cases = _b_local_case(torch, dev, flush)
+    failed = []
+    hd = EMBED // HEADS
+    for rd in ranks:
+        if rd["tokens"] != single:
+            failed.append("rank %d's tokens differ from the single-rank "
+                          "serve's" % rd["rank"])
+        bp = rd["by_program"]
+        if min(rd["launches"].values()) <= 0 \
+                or bp["decode"]["b_variant"] != "decode" \
+                or bp["chunk"]["b_variant"] != "chunk":
+            failed.append("rank %d launched %s (%s)" % (
+                rd["rank"], rd["launches"], bp))
+        want = {"layer0_q_weight": [EMBED // P22_RANKS, EMBED],
+                "layer0_ffn1_weight": [FFN // P22_RANKS, EMBED],
+                "layer0_ffn2_weight": [EMBED, FFN // P22_RANKS]}
+        if any(rd["local_weight_shapes"].get(n) != s
+               for n, s in want.items()) \
+                or rd["pool_width"] != (HEADS // P22_RANKS) * hd \
+                or rd["sources"] != ["eager"] \
+                or set(rd["trace_counts"].values()) != {0}:
+            failed.append("rank %d's shards / programs: %s %d %s %s" % (
+                rd["rank"], rd["local_weight_shapes"], rd["pool_width"],
+                rd["sources"], rd["trace_counts"]))
+    if failed:
+        raise AssertionError("phase 22 (a): " + "; ".join(failed))
+    per_rank = []
+    for rd in ranks:
+        calls = rd["steps"] + rd["chunks"]
+        per_rank.append({
+            "rank": rd["rank"], "launches": rd["launches"],
+            "by_program": rd["by_program"],
+            "collectives_per_program_call": {
+                k: {f: v[f] / calls for f in ("calls", "bytes", "s")}
+                for k, v in rd["collectives"].items()},
+            "collectives": rd["collectives"], "steps": rd["steps"],
+            "chunks": rd["chunks"], "wall_s": rd["wall_s"],
+            "tokens_per_s": rd["tokens_per_s"],
+            "ttft_p50_s": rd["ttft_p50_s"], "peak_bytes": rd["peak_bytes"],
+            "local_weight_shapes": rd["local_weight_shapes"],
+            "pool_width": rd["pool_width"]})
+    s_tokens = sum(len(t) for t in single.values())
+    reading = {
+        "card": _smi_line(),
+        "config": "serve-int8-paged's LM (vocab %d, embed %d, %d heads, "
+                  "FFN %d, %d layers, int8 pages of %d, %d slots, %d "
+                  "requests, %d greedy tokens), MeshConfig(data=1, "
+                  "model=%d): %d ranks over gloo on one card, eager "
+                  "programs" % (VOCAB, EMBED, HEADS, FFN, LAYERS,
+                                PAGE_TOKENS, SLOTS, len(PROMPT_LENS),
+                                MAX_NEW, P22_RANKS, P22_RANKS),
+        "tokens_equal_single_rank": True, "ranks_wall_s": wall,
+        "single_rank": {"tokens_per_s": s_tokens / s_wall,
+                        "ttft_p50_s": s_stats.get("ttft_p50_s")},
+        "ranks": per_rank,
+        "kernel_a_local": [{k: c[k] for k in (
+            "m", "k", "n", "variant", "max_abs_err", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share")}
+            for c in a_cases],
+        "kernel_b_local": [{k: c[k] for k in (
+            "tq", "variant", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bound_share")} for c in b_cases]}
+    log("serve mesh (a): " + json.dumps(reading))
+    launches = {k: sum(rd["launches"][k] for rd in ranks)
+                for k in ranks[0]["launches"]}
+    return reading, launches, a_cases, b_cases
+
+
+def _pipe_single(torch, dev, x, y, plain=False, micro=1):
+    """The unrolled Module of the P22_RANKS blocks on the card, one Adam
+    step from the pipeline's parameters: (parameters after it, by the
+    unrolled names; the step's gradients times ``rescale_grad``; the
+    step's loss; the start).  ``micro`` > 1 sums the gradients of that
+    many microbatches in turn (``grad_req="add"``) before the step: the
+    sums a pipeline takes, in another order."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+
+    params = _pipe_params(mt)
+    args = {"embed_weight": params["embed_weight"],
+            "decode_weight": params["decode_weight"],
+            "decode_bias": params["decode_bias"]}
+    stage, _, _ = _pipe_syms(mt)
+    for n in stage.list_arguments():
+        if n != "data":
+            for s in range(P22_RANKS):
+                args["s%d_%s" % (s, n)] = params[n][s]
+    net = _pipe_syms(mt, P22_RANKS)
+    mod = mt.mod.Module(net, context=mt.gpu(0), plain=plain)
+    rows = len(x) // micro
+    mod.bind(data_shapes=[DataDesc("data", (rows,) + x.shape[1:],
+                                   layout="NT")],
+             label_shapes=[DataDesc("softmax_label", (rows,) + y.shape[1:],
+                                    layout="NT")],
+             grad_req="write" if micro == 1 else "add")
+    mod.init_params(arg_params=args)
+    mod.init_optimizer(optimizer="adam", optimizer_params={
+        "learning_rate": PIPE_LR, "rescale_grad": 1.0 / len(x)})
+    loss = None
+    for j in range(micro):
+        part = slice(j * rows, (j + 1) * rows)
+        mod.forward_backward(DataBatch([nd.array(x[part])],
+                                       [nd.array(y[part])]))
+        if micro == 1:
+            loss = _nll(torch, mod.get_outputs()[0].data, y)
+    group = mod._exec_group
+    grads = {n: mod._optimizer.rescale_grad * g.data
+             for n, g in zip(group.param_names, group.grad_arrays)}
+    mod.update()
+    torch.cuda.synchronize()
+    start = {n: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for n, v in args.items()}
+    snap = {k: v for k, v in _snapshot(mod).items()
+            if not k.startswith("aux:")}
+    del mod, group
+    gc.collect()
+    torch.cuda.empty_cache()
+    return snap, grads, loss, start
+
+
+def _pipe_spread_bound(step, tier):
+    """(b)'s bound at one tier: CAPTURE_SPREAD times the widest of the
+    single-process spreads: the same run again, the batch halves
+    swapped, the plain versions, and the gradients summed over the
+    microbatches in turn (a pipeline sums a stage's gradient microbatch
+    by microbatch: Adam's first step, about lr x sign(g), moves every
+    element whose gradient that order flips)."""
+    return CAPTURE_SPREAD * max(1e-7, *(step[k][tier]["max"] for k in (
+        "atomics_spread", "reorder_spread", "plain_spread",
+        "microbatch_spread")))
+
+
+def _pipeline_phase(torch, dev, flush, ranks, wall, stacked, rank_grads):
+    """(b): the ranks' readings, step-1 parameters (``stacked``) and
+    rescaled step-1 gradients (``rank_grads``, one dict a rank) against
+    the unrolled single-process runs, C / D / E at the stage shape;
+    returns the reading and both ranks' launches.  The gradients carry
+    what Adam's first step hides (it moves about lr x sign(g)): a
+    gradient scaled by a factor, counted twice or not summed."""
+    import mxnet_tpu_torch as mt
+
+    stage, _, _ = _pipe_syms(mt)
+    got = {}
+    for n, v in stacked.items():
+        if n in stage.list_arguments():
+            for s in range(P22_RANKS):
+                got["s%d_%s" % (s, n)] = v[s].to(dev)
+        else:
+            got[n] = v.to(dev)
+    x, y = _pipe_batch()
+    # the gradients: each rank's stage, the embed and head of rank 0
+    # (every rank's copies of those must equal rank 0's)
+    got_g = {n: v.to(dev) for n, v in rank_grads[0].items()}
+    for rg in rank_grads[1:]:
+        got_g.update({n: v.to(dev) for n, v in rg.items()
+                      if n.startswith("s")})
+    shared_unequal = sorted(
+        n for rg in rank_grads[1:] for n, v in rg.items()
+        if not n.startswith("s") and not torch.equal(v, rank_grads[0][n]))
+    t0 = time.perf_counter()
+    single, s_g, loss, start = _pipe_single(torch, dev, x, y)
+    again, a_g, _, _ = _pipe_single(torch, dev, x, y)
+    half = TRAIN_BATCH // 2
+    swapped, w_g, _, _ = _pipe_single(
+        torch, dev, np.concatenate([x[half:], x[:half]]),
+        np.concatenate([y[half:], y[:half]]))
+    plain, p_g, p_loss, _ = _pipe_single(torch, dev, x, y, plain=True)
+    summed, m_g, _, _ = _pipe_single(torch, dev, x, y, micro=PIPE_MICRO)
+    single_s = time.perf_counter() - t0
+
+    def diffs(pairs, base, origin):
+        return {k: _run_diff(torch, v, base, origin, PIPE_DIRECT)["tiers"]
+                for k, v in pairs}
+
+    keys = ("vs_single", "atomics_spread", "reorder_spread",
+            "plain_spread", "microbatch_spread")
+    step1 = diffs(zip(keys, (got, again, swapped, plain, summed)), single,
+                  start)
+    zero = {n: torch.zeros_like(v) for n, v in s_g.items()}
+    grads1 = diffs(zip(keys, (got_g, a_g, w_g, p_g, m_g)), s_g, zero)
+    del got, single, again, swapped, plain, summed, start
+    del got_g, s_g, a_g, w_g, p_g, m_g, zero
+    gc.collect()
+    torch.cuda.empty_cache()
+    cde = _cde_stage_cases(torch, dev, flush)
+    failed = []
+    want = {"flash_fwd": PIPE_MICRO, "flash_bwd_dq": PIPE_MICRO,
+            "flash_bwd_dkv": PIPE_MICRO, "multi_tensor_update": 1}
+    for rd in ranks:
+        for i, s in enumerate(rd["steps"]):
+            got_l = {k: s["launches"][k] for k in want}
+            if got_l != want:
+                failed.append("rank %d step %d launched %s, want %s"
+                              % (rd["rank"], i + 1, got_l, want))
+        if rd["update"] != "kernel B1 slab":
+            failed.append("rank %d updated %s" % (rd["rank"], rd["update"]))
+    last = next(rd for rd in ranks if rd["loss_step1"] is not None)
+    loss_gap = abs(last["loss_step1"] - loss) / abs(loss)
+    if not loss_gap <= TOL_PIPE_LOSS:
+        failed.append("step-1 loss %.9g against the unrolled Module's %.9g"
+                      % (last["loss_step1"], loss))
+    if shared_unequal:
+        failed.append("the embed / head gradients differ over the ranks: "
+                      "%s" % shared_unequal)
+    for what, diff in (("step 1", step1), ("step-1 gradients", grads1)):
+        for tier in ("before_relu", "behind_relu"):
+            reading_t = diff["vs_single"][tier]
+            bound = _pipe_spread_bound(diff, tier)
+            if reading_t["max"] > bound:
+                failed.append("%s %s: %.6g (%s) beyond the bound %.6g"
+                              % (what, tier, reading_t["max"],
+                                 reading_t["tensor"], bound))
+    if failed:
+        raise AssertionError("phase 22 (b): " + "; ".join(failed))
+    per_rank = []
+    for rd in ranks:
+        timed = rd["steps"][1:] or rd["steps"]
+        n = len(timed)
+        kinds = sorted({k for s in timed for k in s["collectives"]})
+        per_rank.append({
+            "rank": rd["rank"], "stage": rd["stage"],
+            "launches_per_step": {k: sum(s["launches"][k] for s in timed)
+                                  / n for k in want},
+            "collectives_per_step": {k: {
+                f: sum(s["collectives"].get(k, {}).get(f, 0)
+                       for s in timed) / n for f in ("calls", "bytes", "s")}
+                for k in kinds},
+            "step_s": [s["s"] for s in rd["steps"]],
+            "peak_bytes": rd["peak_bytes"],
+            "device_perplexity": rd["perplexity"]})
+    reading = {
+        "card": _smi_line(),
+        "config": "examples/pipeline_lm.py's stage / embed / head at "
+                  "hidden %d, %d heads, FFN %d, T %d, batch %d, vocab %d; "
+                  "PipelineModule(num_stages=%d, num_microbatches=%d), %d "
+                  "ranks over gloo on one card, %d fit steps, Adam lr %g"
+                  % (PIPE_HIDDEN, PIPE_HEADS, 4 * PIPE_HIDDEN, SEQ,
+                     TRAIN_BATCH, VOCAB, P22_RANKS, PIPE_MICRO,
+                     P22_RANKS, PIPE_STEPS, PIPE_LR),
+        "ranks_wall_s": wall, "single_runs_s": single_s,
+        "loss_step1": last["loss_step1"], "single_loss_step1": loss,
+        "plain_loss_step1": p_loss, "loss_gap": loss_gap,
+        "step1": step1, "step1_grads": grads1,
+        "max_over_spread": CAPTURE_SPREAD,
+        "ranks": per_rank,
+        "kernels_cde_stage": {k: {f: c[f] for f in (
+            "variant", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bound_share")} for k, c in cde.items()}}
+    log("pipeline (b): " + json.dumps(reading))
+    launches = {k: sum(s["launches"][k] for rd in ranks
+                       for s in rd["steps"]) for k in want}
+    return reading, launches, cde
+
+
+def phase_mesh_pipeline(torch, dev):
+    """Phase 22 (see the module's docstring): (a) the serving mesh, (b)
+    the pipeline.  Returns both paths' launches and the kernel cases at
+    their shapes."""
+    t0 = time.perf_counter()
+    ranks, outdir, wall = _spawn_p22(P22_RANKS)
+    try:
+        stacked = torch.load(os.path.join(outdir, "pipe_params.pt"))
+        rank_grads = [torch.load(os.path.join(
+            outdir, "pipe_grads_rank%d.pt" % r)) for r in range(P22_RANKS)]
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+    serve, serve_l, a_cases, b_cases = _serve_mesh_phase(
+        torch, dev, flush, ranks["mesh"], wall)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, pipe_l, cde = _pipeline_phase(torch, dev, flush, ranks["pipe"],
+                                        wall, stacked, rank_grads)
+    del stacked, rank_grads
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("mesh pipeline: " + json.dumps({
+        "card": _smi_line(), "wall_s": time.perf_counter() - t0,
+        "serve_mesh_launches": serve_l, "pipeline_launches": pipe_l,
+        "serve_mesh_tokens_per_s": [r["tokens_per_s"]
+                                    for r in serve["ranks"]],
+        "pipeline_step_s": [r["step_s"] for r in pipe["ranks"]]}))
+    return {"serve_mesh": serve_l, "pipeline": pipe_l,
+            "a_cases": a_cases, "b_cases": b_cases, "cde": cde}
+
+
+_PHASE_MARKS = []
+
+
+def _mark(name):
+    """The end of phase ``name`` (``phase walls:`` logs each phase's
+    seconds)."""
+    _PHASE_MARKS.append((name, time.perf_counter()))
+
+
 def _entry(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -8656,6 +9423,10 @@ def main():
         # one rank of phase 21 (a), started by the phase itself
         rank, world, address, outdir = sys.argv[2:6]
         return _tp_rank_main(int(rank), int(world), address, outdir)
+    if sys.argv[1:2] == ["--p22-rank"]:
+        # one rank of phase 22, started by the phase itself
+        rank, world, address, outdir = sys.argv[2:6]
+        return _p22_rank_main(int(rank), int(world), address, outdir)
     # phases 1-17 run the hand-fixed kernel plans: an empty tuning cache
     # of this run's own, unarmed (phase 18 arms a directory of its own);
     # nothing is read from or left in the user's cache
@@ -8689,23 +9460,33 @@ def _main(torch):
            TOL_F32, TOL_F32_LONG, TOL_BF16, TOL_TRAIN_GRAD,
            TOL_TRAIN_GRAD_RELU))
     t0 = time.perf_counter()
+    _PHASE_MARKS[:] = [("start", t0)]
     phase_build()
+    _mark("build")
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=dev)
     a_cases = phase_kernel_a(torch, dev, flush)
+    _mark("kernel_a")
     b_cases = phase_kernel_b(torch, dev, flush)
+    _mark("kernel_b")
     cde_cases = phase_kernels_cde(torch, dev, flush)
+    _mark("kernels_cde")
     f_cases = phase_kernel_f(torch, dev, flush)
+    _mark("kernel_f")
     b1_cases = phase_kernel_b1(torch, dev, flush)
+    _mark("kernel_b1")
     del flush
     torch.cuda.empty_cache()
     serve, launches, base = phase_serve(torch, dev)
+    _mark("serve")
     gc.collect()
     torch.cuda.empty_cache()
     _, spec_launches = phase_serve_spec(torch, dev, base)
+    _mark("serve_spec")
     gc.collect()
     torch.cuda.empty_cache()
     _, fleet_launches = phase_fleet(torch, dev, base)
+    _mark("fleet")
     del base
     # a predictor and its programs reference each other (each program
     # holds a bound method): collect them, their buffers and their
@@ -8713,63 +9494,87 @@ def _main(torch):
     gc.collect()
     torch.cuda.empty_cache()
     train, train_launches = phase_train(torch, dev)
+    _mark("train")
     gc.collect()
     torch.cuda.empty_cache()
     # on a thread of its own: the phase's autograd marks end with it
     imp, imp_launches = _on_own_thread(phase_train_imperative, torch, dev)
+    _mark("train_imperative")
     phase_ops(torch, dev)
+    _mark("ops")
     gc.collect()
     torch.cuda.empty_cache()
     _, predict_launches, out_grads_launches = phase_predict(torch, dev)
+    _mark("predict")
     phase_routing(torch, dev)
+    _mark("routing")
     gc.collect()
     torch.cuda.empty_cache()
     _, export_launches = phase_export(torch, dev)
+    _mark("export")
     torch.cuda.empty_cache()
     resnet, resnet_launches = phase_train_resnet(torch, dev)
+    _mark("train_resnet")
     gc.collect()
     torch.cuda.empty_cache()
     _, lstm_launches = phase_train_lstm(torch, dev)
+    _mark("train_lstm")
     zoo_launches = {}
     for name in ZOO_TRAIN:
         gc.collect()
         torch.cuda.empty_cache()
         _, launched = phase_train_zoo(torch, dev, name)
+        _mark("train_zoo_" + name)
         zoo_launches["train_" + name] = launched["multi_tensor_update"]
     gc.collect()
     torch.cuda.empty_cache()
     _, mnist_launches = phase_train_mnist(torch, dev)
+    _mark("train_mnist")
     zoo_launches["train_mnist"] = mnist_launches["multi_tensor_update"]
     gc.collect()
     torch.cuda.empty_cache()
     phase_zoo_steps(torch, dev)
+    _mark("zoo_steps")
     gc.collect()
     torch.cuda.empty_cache()
     _, ssd_launches = phase_train_ssd(torch, dev)
+    _mark("train_ssd")
     gc.collect()
     torch.cuda.empty_cache()
     phase_detection_ops(torch, dev)
+    _mark("detection_ops")
     gc.collect()
     torch.cuda.empty_cache()
     moe_launches = phase_moe(torch, dev)
+    _mark("moe")
     moe_train = {k: v for k, v in moe_launches.items() if "train" in k}
     gc.collect()
     torch.cuda.empty_cache()
     resume_launches = phase_resume(torch, dev)
+    _mark("resume")
     gc.collect()
     torch.cuda.empty_cache()
     tune_tables, tune_launches = phase_tuning(torch, dev)
+    _mark("tuning")
     gc.collect()
     torch.cuda.empty_cache()
     analysis_launches = phase_analysis(torch, dev, train, imp)
+    _mark("analysis")
     gc.collect()
     torch.cuda.empty_cache()
     dp_launches = phase_data_parallel(torch, dev, train)
+    _mark("data_parallel")
     dist_l, two_l = dp_launches["dist"], dp_launches["dist_two_context"]
     gc.collect()
     torch.cuda.empty_cache()
     tp_launches = phase_tensor_parallel(torch, dev)
+    _mark("tensor_parallel")
     tp_l, capi_l = tp_launches["tp"], tp_launches["capi"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mp = phase_mesh_pipeline(torch, dev)
+    _mark("mesh_pipeline")
+    sm_l, pp_l = mp["serve_mesh"], mp["pipeline"]
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -8800,7 +9605,8 @@ def _main(torch):
         + sum(m["fused_fwd"] for m in moe_launches.values()) \
         + resume_launches["fused_fwd"] + tune_launches["fused_fwd"] \
         + analysis_launches["fused_fwd"] + dist_l["fused_fwd"] \
-        + two_l["fused_fwd"] + tp_l["fused_fwd"] + capi_l["fused_fwd"]
+        + two_l["fused_fwd"] + tp_l["fused_fwd"] + capi_l["fused_fwd"] \
+        + sm_l["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -8824,17 +9630,21 @@ def _main(torch):
                                "dist": dist_l["fused_fwd"],
                                "dist_two_context": two_l["fused_fwd"],
                                "tensor_parallel": tp_l["fused_fwd"],
-                               "capi": capi_l["fused_fwd"]},
+                               "capi": capi_l["fused_fwd"],
+                               "serve_mesh": sm_l["fused_fwd"]},
              tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
-             max_abs_err_all_cases=max(c["max_abs_err"] for c in a_cases)),
+             mesh_cases=[brief(c, "m", "k", "n", "relu_residual")
+                         for c in mp["a_cases"]],
+             max_abs_err_all_cases=max(c["max_abs_err"] for c
+                                       in a_cases + mp["a_cases"])),
         dict(_entry("paged_flash_decode",
                     "mxnet_tpu_torch/csrc/paged_decode.cu",
                     "mxnet_tpu/ops/pallas_decode.py:169",
                     launches["paged_decode"] + spec_launches["paged_decode"]
                     + sum(f["paged_decode"] for f in fleet_launches.values())
                     + moe_launches["moe_serve"]["paged_decode"]
-                    + tune_launches["paged_decode"],
+                    + tune_launches["paged_decode"] + sm_l["paged_decode"],
                     b_main),
              shape="B=4 tq=1 H=4 hd=256 int8 pages lens=%s"
              % b_main["lens"],
@@ -8845,11 +9655,15 @@ def _main(torch):
                                   in fleet_launches.items()},
                                "moe_serve":
                                    moe_launches["moe_serve"]["paged_decode"],
-                               "tuning": tune_launches["paged_decode"]},
+                               "tuning": tune_launches["paged_decode"],
+                               "serve_mesh": sm_l["paged_decode"]},
              tuning=_tuning_field(tune_tables, "B serve decode"),
              verify_case=brief(b_verify, "tq", "lens", "splits", "rows",
                                "row_tiles"),
-             max_abs_err_all_cases=max(c["max_abs_err"] for c in b_cases)),
+             mesh_cases=[brief(c, "heads", "tq", "lens")
+                         for c in mp["b_cases"]],
+             max_abs_err_all_cases=max(c["max_abs_err"] for c
+                                       in b_cases + mp["b_cases"])),
         dict(_entry("paged_split_combine",
                     "mxnet_tpu_torch/csrc/paged_decode.cu",
                     "mxnet_tpu/ops/pallas_decode.py:354",
@@ -8857,7 +9671,8 @@ def _main(torch):
                     + spec_launches["paged_combine"]
                     + sum(f["paged_combine"] for f in fleet_launches.values())
                     + moe_launches["moe_serve"]["paged_combine"]
-                    + tune_launches["paged_combine"],
+                    + tune_launches["paged_combine"]
+                    + sm_l["paged_combine"],
                     dict(b_main["combine"], library_ms=None,
                          device_ms=b_main["combine"]["device_ms"])),
              shape="B=4 tq=1 H=4 hd=256, %d splits (%d seen)"
@@ -8868,7 +9683,8 @@ def _main(torch):
                                   in fleet_launches.items()},
                                "moe_serve":
                                    moe_launches["moe_serve"]["paged_combine"],
-                               "tuning": tune_launches["paged_combine"]},
+                               "tuning": tune_launches["paged_combine"],
+                               "serve_mesh": sm_l["paged_combine"]},
              tuning=_tuning_field(tune_tables, "B serve decode"),
              verify_case=b_verify["combine"],
              max_abs_err_all_cases=max(c["combine"]["max_abs_err"]
@@ -8895,6 +9711,7 @@ def _main(torch):
         by_path["tensor_parallel"] = tp_l[counter]
         if counter == "flash_fwd":
             by_path["capi"] = capi_l[counter]
+        by_path["pipeline"] = pp_l[counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -8904,6 +9721,8 @@ def _main(torch):
             max_abs_err_all_cases=max(c["max_abs_err"]
                                       for c in cde_cases[name]))
         entry["variant"] = cde_main[name]["variant"]
+        entry["pipeline_stage_case"] = brief(mp["cde"][name], "bh", "t",
+                                             "hd")
         entry["tuning"] = _tuning_field(tune_tables, "C-E LM attention")
         kernels.append(entry)
     kernels.append(dict(
@@ -8949,6 +9768,7 @@ def _main(torch):
     b1_by_path["dist"] = dist_l["multi_tensor_update"]
     b1_by_path["dist_two_context"] = two_l["multi_tensor_update"]
     b1_by_path["tensor_parallel"] = tp_l["multi_tensor_update"]
+    b1_by_path["pipeline"] = pp_l["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}
@@ -8979,6 +9799,9 @@ def _main(torch):
             "device_ms")} for net, c in b1_zoo.items()},
         max_abs_err_all_cases=max(c["max_abs_err"] for c in b1_cases),
         max_ulps_all_cases=max(c["max_ulps"] for c in b1_cases)))
+    log("phase walls: " + json.dumps({
+        name: round(t - _PHASE_MARKS[i][1], 1)
+        for i, (name, t) in enumerate(_PHASE_MARKS[1:])}))
     log("total wall: %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_smi_line(), flush=True)

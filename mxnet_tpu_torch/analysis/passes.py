@@ -26,8 +26,9 @@ HLO text:
   constants governed by its tuning space (``ops/tuning.py``); a space
   with one candidate (kernels C-E's compiled tiles) shows as a visible
   ``single-candidate`` row.
-* :class:`ShardingCoveragePass` — ``no-mesh`` on one card (the port has
-  no mesh yet).
+* :class:`ShardingCoveragePass` — the partition records of a mesh rank's
+  programs (a tensor-parallel Module's train step, a mesh predictor's
+  serving programs); ``no-mesh`` on one card.
 * :class:`DriftPass` — each program's priced quantities against a
   recorded, content-addressed snapshot.
 
@@ -600,8 +601,9 @@ class ShardingCoveragePass(Pass):
     reference has it.  A Module with a model axis above 1 stamps
     ``meta['sharding_coverage']`` on its ``train_step`` artifact
     (``Module.program_artifacts``: the records of
-    ``parallel.tp_exec.TensorParallel``); the serving programs have no
-    mesh yet and report ``no-mesh``.
+    ``parallel.tp_exec.TensorParallel``), and so does a mesh
+    ``DecodePredictor`` on its decode, verify and prefill artifacts (the
+    same records); programs without a mesh report ``no-mesh``.
 
     Mesh-bound programs stamp ``meta['sharding_coverage']`` — per-leaf
     records written at placement time by ``programs/partition.

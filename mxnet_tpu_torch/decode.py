@@ -60,8 +60,32 @@ migration (:mod:`~mxnet_tpu_torch.serve.fleet`).  The paged server runs
 as a session, one :meth:`DecodeServer.serve_tick` at a time.  Every
 program call is timed around its replay for the roofline table and the
 trace timeline (:mod:`~mxnet_tpu_torch.obs`, ``MXNET_TELEMETRY``);
-nothing of the telemetry runs inside a captured body.  The mesh plan is
-not ported yet.
+nothing of the telemetry runs inside a captured body.
+
+**A mesh** (``mesh=`` a ``MeshConfig`` or a ``DeviceMesh``) makes the
+predictor one rank of a (data x model) mesh of processes, one rank a
+process (the reference's ``jax.sharding.Mesh`` lives in one process):
+each rank holds its shards of the Megatron plan, placed as the
+training executor places them (``parallel.tp_exec.TensorParallel``, the
+records in ``_sharding_coverage``; the plan's ``rules_from_plan`` rules
+go into the programs' specs), and the graph walk runs through the
+training executor's tensor-parallel walk (``parallel.tp_exec.
+GraphWalk``: kernel A at the shard widths, the vocab-parallel
+embedding, the gather before the head), the attention nodes on the
+rank's local heads (kernel B on its local kv-heads, ``sdpa`` or C at
+prefill).  Dense rings hold the rank's batch rows (``data``) and
+kv-heads (``model``); paged pools its kv-heads, every page (a data rank
+appends every slot's K/V, gathered over the data group, and attends its
+own slot rows).  The probabilities are gathered over the data group, so
+every rank samples the same tokens and its page manager decides the
+same.  An attention node whose heads do not divide the model axis runs
+on gathered q / k / v with its cache replicated, recorded in
+``_replicated_degrades`` (the reference E-splits such a cache finer than
+a head).  ``seq`` and ``pipe`` axes replicate; ``expert`` raises (item 7
+step 6).  The paged programs of a mesh rank hold collectives, so they
+run eagerly (``GraphProgram(eager=True)``: ``trace_counts`` stays 0 and
+``prepare_programs`` reports ``"eager"``), as the reference keeps mesh
+predictors off AOT.
 
 :meth:`DecodePredictor.decode_artifact`, :meth:`~DecodePredictor.
 verify_artifact` and :meth:`~DecodePredictor.prefill_artifact` export
@@ -89,6 +113,7 @@ from . import obs as _obs
 from . import programs as _programs
 from .base import MXNetError
 from .context import resolve_device
+from .parallel import collectives as _coll
 from .ops import attention as _attn
 from .ops.moe import moe_flops
 from .ops.sample import (is_greedy_policy, policy_logits, sample_tokens,
@@ -219,9 +244,12 @@ class DecodePredictor:
     plain : bool
         Run every kernel's plain PyTorch version instead of the kernel,
         whatever the device — the reference run kernels are held to.
+    mesh : MeshConfig or DeviceMesh, optional
+        Serve as this process's rank of a mesh over the process group
+        (see the module docstring); it must cover the group.
     """
 
-    def __init__(self, symbol, params, cache_len, device=None,
+    def __init__(self, symbol, params, cache_len, device=None, mesh=None,
                  temperature=0.0, top_k=0, data_name="data", kv_dtype=None,
                  paged=None, page_tokens=None, pool_pages=None,
                  prefill_chunk=None, prefix_cache=True, plain=False):
@@ -270,9 +298,15 @@ class DecodePredictor:
         from .predictor import _as_param_dicts
 
         arg_params, aux_params = _as_param_dicts(params)
-        self._env = to_tensors({n: v.data for n, v in
-                                {**arg_params, **aux_params}.items()},
-                               self._device)
+        env = {n: v.data for n, v in {**arg_params, **aux_params}.items()}
+        self._mesh = None             # module.executor_group.MeshRuntime
+        self._tp = None               # this rank's TensorParallel
+        self._sharding_coverage = None
+        self._replicated_degrades = []
+        self._partition_rules = None
+        if mesh is not None:
+            env = self._mesh_setup(mesh, symbol, arg_params, env)
+        self._env = to_tensors(env, self._device)
         free = [n for n in symbol.list_arguments() if n not in self._env]
         if data_name not in free:
             raise MXNetError("%r is not a free input of the symbol (free "
@@ -285,13 +319,7 @@ class DecodePredictor:
         # the grouped-query layout (any node with num_kv_heads <
         # num_heads): a swapped record's pages carry it, a restore checks
         # it
-        grouped = []
-        for n in attn_nodes:
-            a = n.parsed_attrs()
-            kvh = a.get("num_kv_heads", 0) or a.get("num_heads", 1)
-            if kvh != a.get("num_heads", 1):
-                grouped.append(int(kvh))
-        self._grouped_kv_heads = min(grouped) if grouped else None
+        self._grouped_kv_heads = self._grouped_kv_heads_of(symbol)
         self._manager = None          # serve.PagedKVManager, per batch
         self._pools_template = None   # per-node cache shapes (probed)
         self._paged_lens = None       # host lens for standalone use
@@ -310,24 +338,87 @@ class DecodePredictor:
         if self._paged:
             # the serving programs share one graph memory pool; each
             # binds the predictor's own buffers (pools, lens, tok,
-            # tables, mask) and copies the rest in
+            # tables, mask) and copies the rest in.  A mesh of several
+            # ranks runs them eagerly: collectives between its nodes
             pool = GraphPool()
-            self._decode_fn = GraphProgram(
-                "paged_decode_step", self._decode_body, bind=range(5),
-                pool=pool)
-            self._verify_fn = GraphProgram(
-                "paged_verify_step", self._verify_body, bind=range(5),
-                pool=pool)
-            self._chunk_fn = GraphProgram("prefill_chunk", self._chunk_body,
-                                          bind=(0,), pool=pool)
-            self._commit_fn = GraphProgram("slot_commit", self._commit_body,
-                                           bind=(0, 1), pool=pool)
-            self._fork_fn = GraphProgram("page_fork", self._fork_body,
-                                         bind=(0,), pool=pool)
-            self._extract_fn = GraphProgram(
-                "page_extract", self._extract_body, bind=(0,), pool=pool)
-            self._install_fn = GraphProgram(
-                "page_install", self._install_body, bind=(0,), pool=pool)
+            eager = self._mesh is not None and self._mesh.mesh is not None
+
+            def program(name, body, bind):
+                return GraphProgram(name, body, bind=bind, pool=pool,
+                                    eager=eager)
+
+            self._decode_fn = program("paged_decode_step",
+                                      self._decode_body, range(5))
+            self._verify_fn = program("paged_verify_step",
+                                      self._verify_body, range(5))
+            self._chunk_fn = program("prefill_chunk", self._chunk_body,
+                                     (0,))
+            self._commit_fn = program("slot_commit", self._commit_body,
+                                      (0, 1))
+            self._fork_fn = program("page_fork", self._fork_body, (0,))
+            self._extract_fn = program("page_extract", self._extract_body,
+                                       (0,))
+            self._install_fn = program("page_install", self._install_body,
+                                       (0,))
+
+    def _mesh_setup(self, mesh, symbol, arg_params, env):
+        """Resolve ``mesh`` against the process group, place the
+        parameters by the Megatron plan (``TensorParallel``'s realization,
+        the training executor's) and return this rank's ``{name:
+        tensor}`` (its shards; aux states whole)."""
+        from .module.executor_group import MeshRuntime
+        from .parallel.tp_exec import TensorParallel
+        from .parallel.tp_rules import kv_cache_pspec, kv_pool_pspec
+        from .programs.partition import rules_from_plan
+
+        rt = self._mesh = MeshRuntime(mesh, replicate=("seq", "pipe"))
+        sizes = dict(rt.sizes)
+        self._tp = TensorParallel(
+            symbol, {n: tuple(env[n].shape) for n in arg_params}, rt.model,
+            rt.model_rank, rt.model_group, data=rt.data,
+            data_group=rt.data_group, mesh_shape=sizes)
+        self._sharding_coverage = self._tp.coverage_record()
+        # the plan as the programs' partition rules (metadata)
+        self._partition_rules = rules_from_plan(
+            self._tp.plan if rt.model > 1 else {})
+        # the reference's grouped-K/V degrade record (kv heads that do
+        # not divide the model axis)
+        pspec = kv_pool_pspec if self._paged else kv_cache_pspec
+        pspec(sizes, num_kv_heads=self._grouped_kv_heads_of(symbol),
+              degrades=self._replicated_degrades)
+        return {n: self._tp.shard(n, torch.as_tensor(v)).contiguous()
+                for n, v in env.items()}
+
+    @staticmethod
+    def _grouped_kv_heads_of(symbol):
+        """The fewest kv-heads of a grouped attention node, or None."""
+        grouped = []
+        for n in symbol._topo():
+            if n.is_variable or n.op.name != "dot_product_attention":
+                continue
+            a = n.parsed_attrs()
+            kvh = a.get("num_kv_heads", 0) or a.get("num_heads", 1)
+            if kvh != a.get("num_heads", 1):
+                grouped.append(int(kvh))
+        return min(grouped) if grouped else None
+
+    def _degrade(self, node, heads, kv_heads):
+        """Record (once) that ``node`` runs on gathered q / k / v with
+        its cache replicated."""
+        rec = {"site": "kv_pool" if self._paged else "kv_cache",
+               "node": node.name,
+               "reason": "num_heads=%d, num_kv_heads=%d over model=%d: q / "
+                         "k / v gathered, the node's %s replicated"
+                         % (heads, kv_heads, self._mesh.model,
+                            "pool" if self._paged else "cache")}
+        if rec not in self._replicated_degrades:
+            self._replicated_degrades.append(rec)
+
+    @property
+    def mesh_shape(self):
+        """``{axis: size}`` of the mesh this predictor is a rank of, or
+        None."""
+        return dict(self._mesh.sizes) if self._mesh is not None else None
 
     @property
     def cache_len(self):
@@ -436,11 +527,13 @@ class DecodePredictor:
         page)."""
         env = self._env if env is None else env
         plain = self._plain if plain is None else plain
+        if self._tp is not None:
+            return self._run_mesh(tokens, caches, pos0, tables, active,
+                                  valid, env, plain)
         b, t = tokens.shape[0], tokens.shape[1]
         dev = tokens.device
         octx = OpContext(plain=plain)
         new_caches = []
-        ci = 0
         values = {}
         for node in self._symbol._topo():
             if node.is_variable:
@@ -459,75 +552,166 @@ class DecodePredictor:
             ins = [values[(id(s), i)] for s, i in node.inputs[:n_args]]
             aux_ins = [values[(id(s), i)] for s, i in node.inputs[n_args:]]
             if node.op.name == "dot_product_attention":
-                q, k, v = ins
-                heads = attrs.get("num_heads", 1)
-                # grouped-query attention: K/V (and so the caches) are
-                # kv_heads wide
-                kv_heads = attrs.get("num_kv_heads", 0) or heads
-                scale = attrs.get("scale", 0.0) or None
-                if caches is None:
-                    outs = [_attn.sdpa(q, k, v, num_heads=heads,
-                                       causal=attrs.get("causal", False),
-                                       scale=scale, num_kv_heads=kv_heads)]
-                    new_caches.append((self._fill_cache(k, kv_heads),
-                                       self._fill_cache(v, kv_heads)))
-                else:
-                    kc, vc = caches[ci]
-                    pos = torch.as_tensor(pos0, dtype=torch.int32,
-                                          device=dev).reshape(-1)
-                    if tables is not None:
-                        _attn.paged_append(kc, tables, k, pos,
-                                           num_heads=kv_heads,
-                                           active=active, valid=valid)
-                        _attn.paged_append(vc, tables, v, pos,
-                                           num_heads=kv_heads,
-                                           active=active, valid=valid)
-                        outs = [_attn.paged_attend(
-                            q, kc, vc, tables, pos + t, num_heads=heads,
-                            scale=scale, num_kv_heads=kv_heads,
-                            plain=plain)]
-                    else:
-                        _attn.cache_append(kc, k, pos, num_heads=kv_heads)
-                        _attn.cache_append(vc, v, pos, num_heads=kv_heads)
-                        outs = [_attn.cache_attend(
-                            q, kc, vc, pos + t, num_heads=heads,
-                            scale=scale, num_kv_heads=kv_heads,
-                            plain=plain)]
-                    new_caches.append((kc, vc))
-                ci += 1
+                out, pair = self._attend(attrs, *ins, caches, len(new_caches),
+                                         pos0, tables, active, valid, plain)
+                new_caches.append(pair)
+                outs = [out]
             else:
-                if node.op.name in _POSITION_BROADCAST_OPS \
-                        and len(ins) == 2 \
-                        and ins[0].dim() == 3 and ins[1].dim() == 3 \
-                        and ins[0].shape[1] != ins[1].shape[1] \
-                        and t in (ins[0].shape[1], ins[1].shape[1]):
-                    # learned positional table vs the (B, t, E) stream:
-                    # gather the rows for the CURRENT positions
-                    big_i = 0 if ins[0].shape[1] != t else 1
-                    big = ins[big_i]
-                    if big.shape[0] != 1:
-                        raise MXNetError(
-                            "decode: node %r mixes time-lengths %s without "
-                            "a broadcastable (1, S, E) side"
-                            % (node.name, (tuple(ins[0].shape),
-                                           tuple(ins[1].shape))))
-                    idx = (torch.as_tensor(pos0, dtype=torch.int64,
-                                           device=dev).reshape(-1, 1)
-                           + torch.arange(t, device=dev)[None, :])
-                    idx = torch.clamp(idx, 0, big.shape[1] - 1)
-                    ins = list(ins)
-                    ins[big_i] = big[0][idx]
+                ins = self._position_rows(node, ins, pos0, t, dev)
                 outs, _ = node.op.fcompute(attrs, ins, aux_ins, octx)
             for i, o in enumerate(outs):
                 values[(id(node), i)] = o
         head_node, head_idx = self._symbol._outputs[0]
-        out = values[(id(head_node), head_idx)]
+        return self._head(values[(id(head_node), head_idx)], b, t), \
+            tuple(new_caches)
+
+    def _run_mesh(self, tokens, caches, pos0, tables, active, valid, env,
+                  plain):
+        """:meth:`_run` as this rank of the mesh: the tensor-parallel walk
+        over the rank's shards (its batch rows when the data axis splits
+        a batch of more than one row), the attention nodes here, on the
+        heads the walk gives them; the probabilities gathered over the
+        data group."""
+        rt, tp = self._mesh, self._tp
+        b, t = tokens.shape[0], tokens.shape[1]
+        dev = tokens.device
+        rows = rt.data_rows(b) if b > 1 else None
+        pos = torch.as_tensor(pos0, dtype=torch.int32, device=dev).reshape(-1)
+        pos_l = pos[rows] if rows is not None and pos.numel() == b else pos
+        toks = tokens[rows] if rows is not None else tokens
+        walk = tp.walk(OpContext(plain=plain))
+        new_caches = []
+        for node in self._symbol._topo():
+            key = (id(node), 0)
+            if node.is_variable:
+                if node.name == self._data_name:
+                    walk.put(key, toks, None)
+                elif node.name in env:
+                    walk.put(key, env[node.name], tp.sharded.get(node.name),
+                             param=node.name)
+                else:
+                    walk.put(key, torch.zeros((toks.shape[0], t),
+                                              dtype=torch.float32,
+                                              device=dev), None)
+                continue
+            attrs = node.parsed_attrs()
+            ins = node.inputs[:node.op.n_inputs(attrs)]
+            if node.op.name == "dot_product_attention":
+                got = walk.attention_split(attrs, ins)
+                if got is None:
+                    heads = attrs.get("num_heads", 1)
+                    self._degrade(node, heads,
+                                  attrs.get("num_kv_heads", 0) or heads)
+                    qkv, local, st = [walk.rep(walk.key(e)) for e in ins], \
+                        attrs, None
+                else:
+                    (qkv, local), st = got, -1
+                out, pair = self._attend(local, *qkv, caches,
+                                         len(new_caches), pos, tables,
+                                         active, valid, plain, rows=rows)
+                new_caches.append(pair)
+                walk.put(key, out, st)
+                continue
+            if node.op.name in _POSITION_BROADCAST_OPS:
+                vals = [walk.rep(walk.key(e)) for e in ins]
+                moved = self._position_rows(node, vals, pos_l, t, dev)
+                if moved is not vals:
+                    outs, _ = node.op.fcompute(attrs, moved, [],
+                                               walk.octx)
+                    walk.put(key, outs[0], None)
+                    continue
+            outs, states, _ = walk.node(node, attrs)
+            for i, (o, st) in enumerate(zip(outs, states)):
+                walk.put((id(node), i), o, st)
+        head_node, head_idx = self._symbol._outputs[0]
+        out = self._head(walk.rep((id(head_node), head_idx)),
+                         toks.shape[0], t)
+        if rows is not None:
+            out = _coll.all_gather(out, 0, rt.data_group)
+        return out, tuple(new_caches)
+
+    @staticmethod
+    def _head(out, b, t):
+        """The head's output as (B, t, V)."""
         if out.dim() == 2 and out.shape[0] == b * t:
-            out = out.reshape(b, t, -1)
-        elif out.dim() != 3:
+            return out.reshape(b, t, -1)
+        if out.dim() != 3:
             raise MXNetError("decode: head output shape %s is not (B*t, V) "
                              "or (B, t, V)" % (tuple(out.shape),))
-        return out, tuple(new_caches)
+        return out
+
+    @staticmethod
+    def _position_rows(node, ins, pos0, t, dev):
+        """A learned (1, S, E) position table met by the (B, t, E)
+        activation stream through a broadcast op: the table's rows for
+        the CURRENT positions (``ins`` itself when the node is no such
+        meeting)."""
+        if node.op.name not in _POSITION_BROADCAST_OPS or len(ins) != 2 \
+                or ins[0].dim() != 3 or ins[1].dim() != 3 \
+                or ins[0].shape[1] == ins[1].shape[1] \
+                or t not in (ins[0].shape[1], ins[1].shape[1]):
+            return ins
+        big_i = 0 if ins[0].shape[1] != t else 1
+        big = ins[big_i]
+        if big.shape[0] != 1:
+            raise MXNetError(
+                "decode: node %r mixes time-lengths %s without a "
+                "broadcastable (1, S, E) side"
+                % (node.name, (tuple(ins[0].shape), tuple(ins[1].shape))))
+        idx = (torch.as_tensor(pos0, dtype=torch.int64,
+                               device=dev).reshape(-1, 1)
+               + torch.arange(t, device=dev)[None, :])
+        idx = torch.clamp(idx, 0, big.shape[1] - 1)
+        ins = list(ins)
+        ins[big_i] = big[0][idx]
+        return ins
+
+    def _attend(self, attrs, q, k, v, caches, ci, pos0, tables, active,
+                valid, plain, rows=None):
+        """One attention node: ``(output, (k cache, v cache))``.
+        Prefill (``caches`` None) attends causally and fills fresh rings;
+        otherwise K/V append at ``pos0`` and the queries attend the cache
+        (``tables``: the page pools).  ``rows`` (a mesh rank's slot rows
+        of a data-split batch): the dense rings hold those rows; a page
+        pool takes every slot's K/V, gathered over the data group, and
+        the rows attend through their own tables."""
+        heads = attrs.get("num_heads", 1)
+        # grouped-query attention: K/V (and so the caches) are kv_heads
+        # wide
+        kv_heads = attrs.get("num_kv_heads", 0) or heads
+        scale = attrs.get("scale", 0.0) or None
+        t = q.shape[1]
+        if caches is None:
+            out = _attn.sdpa(q, k, v, num_heads=heads,
+                             causal=attrs.get("causal", False), scale=scale,
+                             num_kv_heads=kv_heads)
+            return out, (self._fill_cache(k, kv_heads),
+                         self._fill_cache(v, kv_heads))
+        kc, vc = caches[ci]
+        pos = torch.as_tensor(pos0, dtype=torch.int32,
+                              device=q.device).reshape(-1)
+        if tables is None:
+            if rows is not None and pos.numel() > 1:
+                pos = pos[rows]
+            _attn.cache_append(kc, k, pos, num_heads=kv_heads)
+            _attn.cache_append(vc, v, pos, num_heads=kv_heads)
+            return _attn.cache_attend(q, kc, vc, pos + t, num_heads=heads,
+                                      scale=scale, num_kv_heads=kv_heads,
+                                      plain=plain), (kc, vc)
+        if rows is not None:
+            group = self._mesh.data_group
+            k = _coll.all_gather(k.contiguous(), 0, group)
+            v = _coll.all_gather(v.contiguous(), 0, group)
+        _attn.paged_append(kc, tables, k, pos, num_heads=kv_heads,
+                           active=active, valid=valid)
+        _attn.paged_append(vc, tables, v, pos, num_heads=kv_heads,
+                           active=active, valid=valid)
+        if rows is not None:
+            tables, pos = tables[rows], pos[rows]
+        return _attn.paged_attend(q, kc, vc, tables, pos + t,
+                                  num_heads=heads, scale=scale,
+                                  num_kv_heads=kv_heads,
+                                  plain=plain), (kc, vc)
 
     def _fill_cache(self, x, num_heads=1):
         """(B, t, E) prefill K/V -> a (B, C, E) ring buffer holding the t
@@ -904,7 +1088,8 @@ class DecodePredictor:
         """Captures per program kind under the JAX package's keys (one
         per argument signature: ``verify`` counts one for deterministic
         drafts and one for drafts with probabilities; ``prefill`` has no
-        program here and stays 0)."""
+        program here and stays 0).  A mesh rank's programs run eagerly
+        and never capture: every count stays 0."""
         out = dict.fromkeys(_TRACE_KINDS, 0)
         for kind, prog in self._programs().items():
             out[kind] = prog.traces
@@ -1009,7 +1194,10 @@ class DecodePredictor:
                            trace_count=lambda p=prog: p.traces,
                            device=self._device, fingerprint_extra=extra,
                            program=lambda a, k=kind: self._spec_program(
-                               k, a))
+                               k, a),
+                           partition_rules=self._partition_rules,
+                           mesh_shape=self.mesh_shape,
+                           artifact_meta=self._mesh_meta())
 
     def _spec_program(self, kind, args):
         """``(module, example args)`` of paged program ``kind``'s body at
@@ -1042,7 +1230,9 @@ class DecodePredictor:
         readiness report ``{"signature", "programs": {kind: {"name",
         "source", "key", "seconds"}}, "wall_s"}``: ``source`` is
         "capture", or "resident" for a program captured before.
-        Idempotent per signature (slots, chunk width, spec_k)."""
+        Idempotent per signature (slots, chunk width, spec_k).  A mesh
+        rank's programs run eagerly (their bodies hold collectives):
+        each is driven once all the same, and reports ``"eager"``."""
         cw = int(chunk_w or self._prefill_chunk or self._cache_len)
         sig = (int(slots), cw, int(spec_k or 0))
         if self._prepared is not None and self._prepared["signature"] == sig:
@@ -1082,10 +1272,11 @@ class DecodePredictor:
             calls[kind]()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+            prog = self._programs()[kind]
             report["programs"][kind] = {
                 "name": spec.name,
-                "source": "capture" if spec.trace_count() > before
-                else "resident",
+                "source": "eager" if prog.eager else "capture"
+                if spec.trace_count() > before else "resident",
                 "key": spec.fingerprint(args),
                 "seconds": time.perf_counter() - t0}
         self.paged_batch_state(slots)
@@ -1133,6 +1324,18 @@ class DecodePredictor:
             meta["page_tokens"] = self._page_tokens
             if self._manager is not None:
                 meta["pool_pages"] = self._manager.pool_pages
+        meta.update(self._mesh_meta())
+        return meta
+
+    def _mesh_meta(self):
+        """A mesh rank's artifact metadata: the partition records
+        (``sharding_coverage``) and the caches' degrades."""
+        if self._mesh is None:
+            return {}
+        meta = {"sharding_coverage": self._sharding_coverage}
+        if self._replicated_degrades:
+            meta["replicated_degrades"] = [
+                dict(r) for r in self._replicated_degrades]
         return meta
 
     def _artifact(self, body, args, name, env=None, **kw):
@@ -1140,7 +1343,7 @@ class DecodePredictor:
 
         return artifact_from_export(
             BufferModule(body, self._env if env is None else env), args,
-            name, **kw)
+            name, mesh_shape=self.mesh_shape, **kw)
 
     def _paged_step_inputs(self, state):
         """The page tables and activity mask a paged step over ``state``
@@ -1170,7 +1373,8 @@ class DecodePredictor:
                  torch.full((b,), p, dtype=torch.int32, device=dev), None),
                 name, trace_count=self.trace_counts["prefill"],
                 expected_traces=1, cache_len=self._cache_len,
-                cache_layout="dense", decode_kernel=False)
+                cache_layout="dense", decode_kernel=False,
+                **self._mesh_meta())
         m = self._cache_len // self._page_tokens
         env = None
         if self._live is not None:

@@ -30,6 +30,7 @@ arrive at ``update()`` globally summed, as the reference's do; and
 ``get_outputs`` gathers the outputs over the data group."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import config
@@ -41,46 +42,70 @@ from ..parallel.tp_exec import TensorParallel, param_mesh_axes
 
 
 class MeshRuntime:
-    """A ``MeshConfig`` resolved against the process group (one rank a
-    process, where the reference resolves it against its contexts): the
-    axis sizes, the ``DeviceMesh`` and this rank's model and data groups.
-    Axes the port does not realize yet raise: ``seq`` (item 7 step 5,
-    the ring), ``expert`` (step 6, sharded MoE), ``pipe`` (step 4, the
-    pipeline)."""
+    """A ``MeshConfig`` (or a ``DeviceMesh`` from ``parallel.build_mesh``)
+    resolved against the process group (one rank a process, where the
+    reference resolves it against its contexts): the axis sizes, the
+    ``DeviceMesh`` and this rank's model and data groups.  A config
+    that does not cover the group raises.  Axes named in ``replicate``
+    are realized as replicas (their ranks compute the same values: a
+    ``DecodePredictor`` leaves ``seq`` and ``pipe`` so, as the
+    reference's specs do); any other axis above 1 but ``data`` and
+    ``model`` raises: ``seq`` (item 7 step 5, the ring), ``expert``
+    (step 6, sharded MoE), ``pipe`` (a ``PipelineModule``)."""
 
-    def __init__(self, mesh_config):
+    def __init__(self, mesh_config, replicate=()):
+        from ..parallel.mesh import MeshConfig
+        from ..programs.partition import mesh_sizes
+
         world = collectives.world_size()
-        try:
-            sizes = mesh_config.resolve(world)
-        except AssertionError as exc:
-            raise MXNetError(
-                "mesh_config %s does not cover the %d rank(s) of the "
-                "process group (%s): start one process a rank under "
-                "parallel.launch.init()" % (mesh_config, world, exc)) \
-                from exc
-        self.sizes = dict(zip(mesh_config.names, (int(s) for s in sizes)))
-        for axis, step in (("seq", "item 7 step 5 (the ring)"),
-                           ("expert", "item 7 step 6 (sharded MoE)"),
-                           ("pipe", "item 7 step 4 (the pipeline)")):
-            if self.sizes.get(axis, 1) > 1:
+        if isinstance(mesh_config, MeshConfig):
+            try:
+                sizes = mesh_config.resolve(world)
+            except AssertionError as exc:
                 raise MXNetError(
-                    "a %r mesh axis of %d is not realized by the port yet "
-                    "(ROADMAP %s); the port shards the 'data' and 'model' "
-                    "axes" % (axis, self.sizes[axis], step))
+                    "mesh_config %s does not cover the %d rank(s) of the "
+                    "process group (%s): start one process a rank under "
+                    "parallel.launch.init()" % (mesh_config, world, exc)) \
+                    from exc
+            self.sizes = dict(zip(mesh_config.names,
+                                  (int(s) for s in sizes)))
+            device_mesh = None
+        else:
+            device_mesh = mesh_config
+            self.sizes = mesh_sizes(device_mesh)
+            n = int(np.prod(list(self.sizes.values())))
+            if n != world:
+                raise MXNetError(
+                    "the device mesh %s covers %d rank(s), the process "
+                    "group has %d" % (self.sizes, n, world))
+        for axis, what in (("seq", "ROADMAP item 7 step 5, the ring"),
+                           ("expert", "ROADMAP item 7 step 6, sharded MoE"),
+                           ("pipe", "mxnet_tpu_torch.mod.PipelineModule, "
+                                    "which runs the stages of a pipe "
+                                    "axis")):
+            if self.sizes.get(axis, 1) > 1 and axis not in replicate:
+                raise MXNetError(
+                    "a %r mesh axis of %d is not realized here (%s); the "
+                    "port shards the 'data' and 'model' axes"
+                    % (axis, self.sizes[axis], what))
         self.config = mesh_config
-        self.data = self.sizes["data"]
-        self.model = self.sizes["model"]
+        self.data = self.sizes.get("data", 1)
+        self.model = self.sizes.get("model", 1)
         self.mesh = None
         self.model_group = self.data_group = None
         self.model_rank = self.data_rank = 0
         if world > 1:
             from ..parallel.mesh import build_mesh
 
-            self.mesh = build_mesh(mesh_config)
-            self.model_group = self.mesh.get_group("model")
-            self.data_group = self.mesh.get_group("data")
-            self.model_rank = self.mesh.get_local_rank("model")
-            self.data_rank = self.mesh.get_local_rank("data")
+            self.mesh = device_mesh if device_mesh is not None \
+                else build_mesh(mesh_config)
+            names = self.mesh.mesh_dim_names
+            if "model" in names:
+                self.model_group = self.mesh.get_group("model")
+                self.model_rank = self.mesh.get_local_rank("model")
+            if "data" in names:
+                self.data_group = self.mesh.get_group("data")
+                self.data_rank = self.mesh.get_local_rank("data")
 
     @property
     def ranks(self):
@@ -92,6 +117,17 @@ class MeshRuntime:
             data=self.data, data_group=self.data_group,
             mode=config.get("MXNET_TP_MODE"),
             mesh_shape={"data": self.data, "model": self.model})
+
+    def data_rows(self, n):
+        """This rank's rows of a batch of ``n`` split over the data group
+        (a slice), or None when the data axis is 1."""
+        if self.data <= 1:
+            return None
+        if n % self.data:
+            raise MXNetError("a batch of %d rows does not split over a "
+                             "data axis of %d" % (n, self.data))
+        k = n // self.data
+        return slice(self.data_rank * k, (self.data_rank + 1) * k)
 
 
 def one_device(contexts):

@@ -6,22 +6,27 @@ reduces through and the tensor-parallel ones
 (:mod:`~mxnet_tpu_torch.parallel.mesh`), the Megatron plan
 (:mod:`~mxnet_tpu_torch.parallel.tp_rules`) and its realization on one
 rank (:mod:`~mxnet_tpu_torch.parallel.tp_exec`, what a Module with a
-``mesh_config`` runs), and worker liveness
+``mesh_config`` and a mesh ``DecodePredictor`` run), the GPipe pipeline
+over a pipe group (:mod:`~mxnet_tpu_torch.parallel.pipeline`, what a
+``PipelineModule`` runs), and worker liveness
 (:mod:`~mxnet_tpu_torch.parallel.health`), which the elastic loop polls.
-The ring, the pipeline and the ``shard_map`` shim are still to come
-(ROADMAP item 7 steps 4-5)."""
+The ring and the ``shard_map`` shim are still to come (ROADMAP item 7
+step 5)."""
 from . import collectives
 from . import health
 from . import launch
 from . import mesh
+from . import pipeline
 from . import tp_exec
 from . import tp_rules
 from .health import (FailureMonitor, Heartbeat, ReconfigEvent, dead_nodes,
                      ensure_heartbeat, is_recovery, num_dead_nodes,
                      stop_heartbeat)
 from .mesh import MeshConfig, build_mesh, data_parallel_mesh
+from .pipeline import pipeline_apply, stack_stage_params
 
 __all__ = ["collectives", "launch", "mesh", "tp_rules", "tp_exec",
+           "pipeline", "pipeline_apply", "stack_stage_params",
            "build_mesh",
            "data_parallel_mesh", "MeshConfig", "health", "Heartbeat",
            "ensure_heartbeat", "stop_heartbeat", "dead_nodes",

@@ -34,6 +34,17 @@ An all-gather of a CUDA tensor over a gloo group (ranks that share one
 card) is an all-reduce of a zero-padded buffer: each rank writes its
 slice at its offset and the sum is the gathered tensor.  It moves the
 whole gathered size from every rank, M times an all-gather's bytes.
+
+The point-to-point hops of a pipeline (:func:`send` / :func:`recv`,
+counted under ``send`` / ``recv``) carry a tag each; a CUDA tensor
+over gloo goes through a pinned host buffer (gloo's point-to-point
+calls read and write host memory only).  :func:`send` never blocks
+(gloo's blocking send waits for the matching receive): its request is
+kept until :func:`wait_sends`.
+
+On abstract tensors (``meta`` ones, or the fake tensors of an export
+or a shape probe) every collective returns the shape it would give and
+communicates nothing: a rank's programs trace alone.
 """
 from __future__ import annotations
 
@@ -43,8 +54,8 @@ import torch
 
 __all__ = ["global_sum", "barrier", "active", "world_size", "rank",
            "copy_to", "reduce_from", "gather_from", "scatter_to",
-           "sum_over", "all_gather", "all_reduce", "broadcast", "COUNTS",
-           "reset_counts", "SYNC_TIMING"]
+           "sum_over", "all_gather", "all_reduce", "broadcast", "send",
+           "recv", "wait_sends", "COUNTS", "reset_counts", "SYNC_TIMING"]
 
 COUNTS = {}
 SYNC_TIMING = False
@@ -70,6 +81,14 @@ def _timed(kind, tensor, fn):
     if SYNC_TIMING and tensor.is_cuda:
         torch.cuda.synchronize(tensor.device)
     _count(kind, tensor, time.perf_counter() - t0)
+
+
+def _abstract(tensor):
+    """Whether ``tensor`` holds no data (meta, or fake under a trace)."""
+    from torch._guards import detect_fake_mode
+
+    return tensor.device.type == "meta" \
+        or detect_fake_mode((tensor,)) is not None
 
 
 def active():
@@ -130,7 +149,7 @@ def all_reduce(tensor, group=None):
     """Sum ``tensor`` over ``group`` in place (counted)."""
     import torch.distributed as dist
 
-    if _group_size(group) == 1:
+    if _group_size(group) == 1 or _abstract(tensor):
         return tensor
     _timed("all_reduce", tensor,
            lambda: dist.all_reduce(tensor, op=dist.ReduceOp.SUM,
@@ -143,7 +162,7 @@ def broadcast(tensor, src=0, group=None):
     place (counted)."""
     import torch.distributed as dist
 
-    if _group_size(group) == 1:
+    if _group_size(group) == 1 or _abstract(tensor):
         return tensor
     _timed("broadcast", tensor,
            lambda: dist.broadcast(tensor, src=src, group=group))
@@ -171,6 +190,8 @@ def all_gather(tensor, dim, group=None):
     part = tensor.contiguous()
     shape = list(part.shape)
     shape[dim] *= size
+    if _abstract(part):
+        return part.new_empty(shape)
     me = _group_rank(group)
     if _padded_route(part, group):
         out = torch.zeros(shape, dtype=part.dtype, device=part.device)
@@ -187,6 +208,57 @@ def all_gather(tensor, dim, group=None):
         or dist.all_gather_into_tensor
     _timed("all_gather", flat, lambda: gather(flat, moved, group=group))
     return flat.movedim(0, dim).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# point to point (pipeline hops)
+# ---------------------------------------------------------------------------
+
+_PENDING = []
+
+
+def _gloo(group):
+    import torch.distributed as dist
+
+    return dist.get_backend(group) == "gloo"
+
+
+def send(tensor, dst, tag=0, group=None):
+    """Send ``tensor`` to global rank ``dst`` without blocking (counted
+    under ``send``); the request completes by :func:`wait_sends`."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    buf = tensor.detach().contiguous()
+    if buf.is_cuda and _gloo(group):
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf)
+        buf = host
+    _PENDING.append((dist.isend(buf, dst, group=group, tag=tag), buf))
+    _count("send", buf, time.perf_counter() - t0)
+
+
+def recv(shape, dtype, device, src, tag=0, group=None):
+    """A new tensor of ``shape`` received from global rank ``src``
+    (blocking; counted under ``recv``)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    staged = device.type == "cuda" and _gloo(group)
+    buf = torch.empty(shape, dtype=dtype, pin_memory=staged,
+                      device="cpu" if staged else device)
+    dist.recv(buf, src, group=group, tag=tag)
+    out = buf.to(device, non_blocking=True) if staged else buf
+    _count("recv", buf, time.perf_counter() - t0)
+    return out
+
+
+def wait_sends():
+    """Wait for every send not yet completed."""
+    while _PENDING:
+        work, _ = _PENDING.pop(0)
+        work.wait()
 
 
 def _my_slice(tensor, dim, group):

@@ -37,6 +37,13 @@ collectives`) go where a node needs its input in another state:
   inputs gathered along their split dim, and sharded parameters it reads
   gathered, and runs replicated; the graph's outputs leave replicated.
 
+The walk (:class:`GraphWalk`, from :meth:`TensorParallel.walk`) is
+shared: the training executor drives it through
+:meth:`TensorParallel.run_graph`, and a mesh
+:class:`~mxnet_tpu_torch.decode.DecodePredictor` drives it node by node,
+taking only ``dot_product_attention`` into its own hands (the caches)
+with the heads the walk decides (:meth:`GraphWalk.attention_split`).
+
 Over a data group of more than one rank BatchNorm's training statistics
 are summed over the group (the reference's mesh-wide batch statistics),
 and SoftmaxOutput's and MakeLoss's 'batch' / 'valid' normalization
@@ -53,7 +60,7 @@ from ..base import MXNetError
 from . import collectives as C
 from .tp_rules import ELEMENTWISE_OPS, plan_tensor_parallel
 
-__all__ = ["TensorParallel", "param_mesh_axes"]
+__all__ = ["TensorParallel", "GraphWalk", "param_mesh_axes"]
 
 
 def param_mesh_axes(symbol, axis_sizes):
@@ -166,11 +173,15 @@ class TensorParallel:
     # ------------------------------------------------------------------
     # the walk
     # ------------------------------------------------------------------
+    def walk(self, octx):
+        """A fresh :class:`GraphWalk` over this rank's shards."""
+        return GraphWalk(self, octx)
+
     def run_graph(self, symbol, env_args, env_aux, octx, tap=None):
         """``executor.run_graph`` over this rank's shards: returns the
         (replicated) outputs and the new aux states (this rank's blocks
         of the sharded ones)."""
-        walk = _Walk(self, octx)
+        walk = self.walk(octx)
         new_aux = dict(env_aux)
         for node in symbol._topo():
             if node.is_variable:
@@ -203,10 +214,13 @@ class TensorParallel:
         return outs, new_aux
 
 
-class _Walk:
+class GraphWalk:
     """The values and split dims of one run of the walk, with each
     conversion made once an entry (so q, k and v share one *f* of their
-    input, and its backward all-reduces their summed gradient once)."""
+    input, and its backward all-reduces their summed gradient once).
+    :meth:`put` enters a value, :meth:`node` runs a node and returns its
+    outputs with their split dims, :meth:`rep` reads a value
+    replicated."""
 
     def __init__(self, tp, octx):
         self.tp = tp
@@ -420,21 +434,30 @@ class _Walk:
         part = rows * inside.unsqueeze(-1).to(rows.dtype)
         return [C.reduce_from(part, self.tp.group)], [None], []
 
-    def attention(self, node, attrs, ins):
+    def attention_split(self, attrs, ins):
+        """``(q / k / v, local attributes)`` at this rank's heads when
+        q, k and v arrive split on their last dim and the heads (and kv
+        heads) divide the model axis; else None (the node runs on
+        gathered inputs)."""
         keys = [self.key(e) for e in ins]
         sts = [self.states[k] for k in keys]
         heads = attrs.get("num_heads", 1)
         kv = attrs.get("num_kv_heads", 0)
         m = self.tp.model
-        if any(s is None or s != self.values[k].dim() - 1
-               for s, k in zip(sts, keys)) \
+        if m <= 1 or any(s is None or s != self.values[k].dim() - 1
+                         for s, k in zip(sts, keys)) \
                 or heads % m or (kv and kv % m):
             return None
         local = dict(attrs, num_heads=heads // m)
         if kv:
             local["num_kv_heads"] = kv // m
-        outs, _ = self._compute(node, local,
-                                [self.values[k] for k in keys], [])
+        return [self.values[k] for k in keys], local
+
+    def attention(self, node, attrs, ins):
+        got = self.attention_split(attrs, ins)
+        if got is None:
+            return None
+        outs, _ = self._compute(node, got[1], got[0], [])
         return outs, [outs[0].dim() - 1], []
 
     def loss_head(self, node, attrs, ins):
@@ -490,15 +513,15 @@ class _Walk:
 
 
 _HANDLERS = {
-    "FullyConnected": _Walk.fully_connected,
-    "Convolution": _Walk.convolution,
-    "FusedLNLinear": _Walk.fused_ln_linear,
-    "Embedding": _Walk.embedding,
-    "dot_product_attention": _Walk.attention,
-    "Pooling": _Walk.pooling,
-    "BatchNorm": _Walk.batchnorm,
-    "SoftmaxOutput": _Walk.loss_head,
-    "MakeLoss": _Walk.loss_head,
+    "FullyConnected": GraphWalk.fully_connected,
+    "Convolution": GraphWalk.convolution,
+    "FusedLNLinear": GraphWalk.fused_ln_linear,
+    "Embedding": GraphWalk.embedding,
+    "dot_product_attention": GraphWalk.attention,
+    "Pooling": GraphWalk.pooling,
+    "BatchNorm": GraphWalk.batchnorm,
+    "SoftmaxOutput": GraphWalk.loss_head,
+    "MakeLoss": GraphWalk.loss_head,
 }
 
 

@@ -185,10 +185,15 @@ class GraphProgram:
         Positions of the bound arguments (see the module docstring).
     pool : GraphPool, optional
         The memory pool to capture into (a new one by default).
+    eager : bool
+        Run the body directly at every call, never captured (``traces``
+        stays 0): a program whose body holds collectives between ranks
+        (a mesh predictor's), which no CUDA graph may hold.
     """
 
-    def __init__(self, name, body, bind=(), pool=None):
+    def __init__(self, name, body, bind=(), pool=None, eager=False):
         self.name = name
+        self.eager = bool(eager)
         self.body = body
         self.bind = frozenset(bind)
         self.pool = pool if pool is not None else GraphPool()
@@ -235,7 +240,7 @@ class GraphProgram:
 
     def __call__(self, *args):
         key, leaves, bound = self._key(args)
-        if _EAGER[0]:
+        if _EAGER[0] or self.eager:
             dev = self._device(leaves, bound)
             return self._run(key[0], [
                 x.to(dev) if isinstance(x, torch.Tensor) and x.device != dev

@@ -167,12 +167,19 @@ class ProgramSpec:
         The ``(regex, axes)`` rules the program's named parameters were
         placed by (:mod:`~mxnet_tpu_torch.programs.partition`); they
         enter the fingerprint.
+    mesh_shape : dict or callable, optional
+        ``{axis: size}`` of the mesh the program runs one rank of: it
+        enters the fingerprint and the artifact.
+    artifact_meta : dict or callable, optional
+        Metadata every artifact of the program carries (a mesh rank's
+        ``sharding_coverage``).
     """
 
     def __init__(self, name, fn, *, owner=None, abstract_args=None,
                  trace_count=None, expected_traces=1, device=None,
                  fingerprint_extra=None, program=None, donate_argnums=(),
-                 autograd=False, partition_rules=None):
+                 autograd=False, partition_rules=None, mesh_shape=None,
+                 artifact_meta=None):
         self.name = name
         self.fn = fn
         self._owner = weakref.ref(owner) if owner is not None else None
@@ -185,6 +192,12 @@ class ProgramSpec:
         self.donate_argnums = tuple(donate_argnums or ())
         self._autograd = autograd
         self.partition_rules = partition_rules
+        self._mesh_shape = mesh_shape
+        self._artifact_meta = artifact_meta
+
+    @property
+    def mesh_shape(self):
+        return _resolve(self._mesh_shape)
 
     def owner(self):
         return self._owner() if self._owner is not None else None
@@ -220,6 +233,8 @@ class ProgramSpec:
                       for p, s in (self.partition_rules or [])],
             "extra": _resolve(self._fingerprint_extra),
         }
+        if self.mesh_shape is not None:
+            payload["mesh"] = self.mesh_shape
         blob = json.dumps(payload, sort_keys=True, default=str)
         return hashlib.blake2b(blob.encode(), digest_size=16).hexdigest()
 
@@ -248,9 +263,10 @@ class ProgramSpec:
         if args is None:
             return None
         module, example = self._module(args)
+        extra_meta = dict(_resolve(self._artifact_meta) or {}, **extra_meta)
         return probe_artifact(
             self.owner(), module, example, name or self.name,
-            autograd=self._autograd,
+            autograd=self._autograd, mesh_shape=self.mesh_shape,
             donated_leaves=self.donated_leaves(args),
             trace_count=self.trace_count(),
             expected_traces=self.expected_traces() or 1,

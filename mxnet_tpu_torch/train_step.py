@@ -293,16 +293,42 @@ class SlabUpdate:
 
     def __init__(self, exec_group, optimizer, updater, plan, names):
         exe = exec_group.exec_
+        self._bind(exe, optimizer, updater, plan, names,
+                   [exec_group.param_names.index(n) for n in names],
+                   exe.plain, exe._device)
+
+    def _bind(self, exe, optimizer, updater, plan, names, indices, plain,
+              device):
         self.plan = plan
         self._optimizer = optimizer
         self._names = names
-        self._indices = [exec_group.param_names.index(n) for n in names]
-        self._plain = exe.plain
-        self._device = exe._device
+        self._indices = indices
+        self._plain = plain
+        self._device = device
         self._w, self._g, self._slots = _bind_slabs(
             plan, exe, updater, names, self._indices,
             _updater_slots(updater, exe, names, self._indices),
             self._device)
+
+    @classmethod
+    def over_arrays(cls, arrays, grads, names, optimizer, updater, device,
+                    plain=False):
+        """The update over the NDArrays ``arrays`` / ``grads`` (by name;
+        the updater's index of a name is its position in ``names``),
+        rebound to views of the slabs; None where the plan declines (a
+        ``PipelineModule`` rank's parameters)."""
+        from types import SimpleNamespace
+
+        plan = update_kernel.plan_for(
+            optimizer, {n: arrays[n].data for n in names}, list(names),
+            None)
+        if plan is None:
+            return None
+        self = cls.__new__(cls)
+        self._bind(SimpleNamespace(arg_dict=arrays, grad_dict=grads),
+                   optimizer, updater, plan, list(names),
+                   list(range(len(names))), plain, device)
+        return self
 
     @classmethod
     def arm(cls, exec_group, optimizer, updater):

@@ -418,7 +418,6 @@ NAME_EXCEPTIONS = {
                          "iterators"},
     "context": {"tpu": "no TPU in the port"},
     "random": {"split_key": "jax keys; the port uses torch generators"},
-    "module": {"PipelineModule": "later", "pipeline_module": "later"},
     "programs": dict({n: _NO_AOT for n in ("AOT_STATS", "AotDispatch")},
                      probe_lowered_text="no HLO text: a program's static "
                                         "view is its traced graph "
@@ -447,8 +446,7 @@ NAME_EXCEPTIONS = {
     "CompiledTrainStep": {"compiled_hlo": "no HLO text: the step's "
                                           "static view is artifact()"},
     "parallel": {n: "later" for n in (
-        "compat", "pipeline", "pipeline_apply", "ring", "ring_attention",
-        "shard_map", "stack_stage_params")},
+        "compat", "ring", "ring_attention", "shard_map")},
 }
 
 
@@ -477,7 +475,7 @@ def _name_pairs():
                 "analysis.cost", "analysis.retrace", "analysis.schedule",
                 "analysis.programs", "programs.registry",
                 "programs.spec", "programs.partition",
-                "parallel.tp_rules"):
+                "parallel.tp_rules", "parallel.pipeline"):
         pairs.append((mod, importlib.import_module("mxnet_tpu." + mod),
                       importlib.import_module("mxnet_tpu_torch." + mod)))
     pairs += [
@@ -492,6 +490,7 @@ def _name_pairs():
          mt.metric.CompositeEvalMetric),
         ("Module", mx.mod.Module, mt.mod.Module),
         ("BucketingModule", mx.mod.BucketingModule, mt.mod.BucketingModule),
+        ("PipelineModule", mx.mod.PipelineModule, mt.mod.PipelineModule),
         ("ProgramSpec", js.ProgramSpec, ts.ProgramSpec),
         ("Context", mx.Context, mt.Context),
         ("KVStore", mx.kvstore.KVStore, mt.kvstore.KVStore),
