@@ -346,6 +346,27 @@ Phases (any failure ends the run with a non-zero exit code):
    Modules (again, batch halves swapped, plain versions, microbatches
    summed in turn); C / D / E held against their plain versions at the
    stage shape.
+23. the ring — two ranks sharing the card over gloo (two processes of
+   this script): (a) ``parallel.ring.ring_attention`` under
+   ``compat.shard_map`` over MeshConfig(seq=2) at
+   ``benchmarks/bench_long_context.py``'s attention (B 2, T 8192, 16
+   heads of 128, causal; a hop is (32, 4096, 128)), f32 and bf16 at G 1
+   and 2 (8 kv-heads): forward and gradients against the single-process
+   flash op on the whole sequence and against the same ring on the plain
+   versions (TOL_F32 / TOL_BF16 x max(1, max |reference|)), the serial
+   and double-buffered schedules bit for bit, C / D / E launched once
+   each on rank 0 (its second hop skipped) and twice on rank 1, the
+   bytes each rank sends (1 K and 1 V block forward; 1 K / V rotation
+   and 2 f32 dK / dV rotations backward; half at G 2); (b) the bench's
+   LM (T 8192, batch 2, embed 2048, 16 heads, vocab 8192, f32, its SGD)
+   through ``Module(mesh_config=MeshConfig(seq=2))``, LC_STEPS ``fit``
+   steps: C / D / E 1 (rank 0) or 2 (rank 1) and B1 1 a step, the
+   step-1 parameters and outputs (row for row) within CAPTURE_SPREAD
+   times the widest spread of single-process steps (again, the plain
+   versions, the two sequences swapped), step s and tokens/s of each
+   schedule, gloo seconds, peak memory a rank against the single
+   process's; then C / D / E at the hop shape against their plain
+   versions, timed beside SDPA.
 
 The last lines are a ``kernels`` JSON object (each entry with its
 phase 18 ``tuning`` reading: the class, the winner, its ms and the
@@ -579,7 +600,8 @@ PROFILE_REPEATS = 5
 PROFILE_LEAD_CYCLES, PROFILE_MARK_CYCLES = 200_000_000, 2_000_000
 # a session that lost marker spins (the profiler drops device records
 # now and then, late in a long run: the first session of 4 in 8 full
-# runs on the H100, and the second of 2 of those 4) is run again, up to
+# runs on the H100, and the second of 2 of those 4; and a session's last
+# record, which a trailing spin now takes) is run again, up to
 # PROFILE_SESSIONS sessions; a fault that keeps coming back still fails
 # the run.  The reads of a session with every marker are gated, the lost
 # sessions' spins are printed with their places
@@ -2055,8 +2077,9 @@ def _step_kernel_reads(torch, pred, prompts, repeats=PROFILE_REPEATS,
     reads share one session that opens with a PROFILE_LEAD_CYCLES spin
     and one uncounted prefill and step (every program's first replay),
     and each read counts the device activities between two marker
-    spins.  A session that lost a marker spin is run again, up to
-    PROFILE_SESSIONS sessions.  One read in a session of its own is printed
+    spins; a trailing spin closes the session (its last device record is
+    often dropped too).  A session that lost a marker spin is run again,
+    up to PROFILE_SESSIONS sessions.  One read in a session of its own is printed
     beside them (not gated), with the launches it lacks by name."""
     from collections import Counter
 
@@ -2078,17 +2101,24 @@ def _step_kernel_reads(torch, pred, prompts, repeats=PROFILE_REPEATS,
                     state, _ = pred.step(state)
                 torch.cuda.synchronize()
                 _guard(torch)
+            # a session also drops its last device record (the last
+            # marker, in most sessions of two full runs on the H100): a
+            # trailing spin takes that place
+            _guard(torch, PROFILE_LEAD_CYCLES)
         _telemetry(True)
         device = [e for e in prof.events()
                   if "CUDA" in str(getattr(e, "device_type", ""))]
         spins = sorted((e.time_range.start, e.time_range.end)
                        for e in device if "spin_kernel" in e.name)
-        if len(spins) >= 2 * len(order):
+        # the markers: the lead and trailing spins last 100 times longer
+        shortest = min((b - a for a, b in spins), default=0)
+        marks = [(a, b) for a, b in spins if b - a < 10 * shortest]
+        if len(marks) >= 2 * len(order):
             break
         # where the session lost them: each recorded spin's start after
         # the session's first device record and its length, in ms
         t0 = min((e.time_range.start for e in device), default=0)
-        lost.append({"spins": len(spins), "device_records": len(device),
+        lost.append({"spins": len(marks), "device_records": len(device),
                      "spins_ms": [[round((a - t0) / 1e3, 3),
                                    round((b - a) / 1e3, 3)]
                                   for a, b in spins]})
@@ -2097,7 +2127,7 @@ def _step_kernel_reads(torch, pred, prompts, repeats=PROFILE_REPEATS,
                              "recorded of %d in %d sessions"
                              % (json.dumps(lost), 2 * len(order),
                                 PROFILE_SESSIONS))
-    marks = spins[-2 * len(order):]
+    marks = marks[-2 * len(order):]
     reads = [dict(Counter(
         e.name for e in device if marks[2 * i][1] <= e.time_range.start
         and e.time_range.end <= marks[2 * i + 1][0]))
@@ -2215,10 +2245,15 @@ def phase_fleet(torch, dev, base):
                      "fleet": fleet_launches}
 
 
+def _close_err(got, want, tol):
+    """(max |got - want|, tol x max(1, max |want|))."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, tol * max(1.0, float(want.float().abs().max()))
+
+
 def _check_close(what, got, want, tol):
     """max |got - want|, failing beyond ``tol`` x max(1, max |want|)."""
-    err = float((got.float() - want.float()).abs().max())
-    lim = tol * max(1.0, float(want.float().abs().max()))
+    err, lim = _close_err(got, want, tol)
     if not err <= lim:
         raise AssertionError("%s: max |kernel - plain| %.3g > %.3g"
                              % (what, err, lim))
@@ -8654,7 +8689,7 @@ def phase_tensor_parallel(torch, dev):
 # phase 22: the serving mesh and the pipeline
 # ---------------------------------------------------------------------------
 P22_RANKS = 2       # the ranks of both paths: model=2, two stages
-P22_RANK_TIMEOUT = 400
+P22_RANK_TIMEOUT = 500   # phases 22 and 23 in the same processes
 # examples/pipeline_lm.py's stage / embed / head at train-f32's widths
 PIPE_HIDDEN, PIPE_HEADS, PIPE_MICRO, PIPE_STEPS = 1024, 8, 4, 3
 PIPE_LR = 3e-3      # the example's Adam rate
@@ -8666,8 +8701,9 @@ TOL_PIPE_LOSS = 1e-5
 
 
 def _p22_rank_main(rank, world, address, outdir):
-    """One rank of phase 22 over gloo on the shared card: (a), then (b),
-    in one process (one start-up for both)."""
+    """One rank of phases 22 and 23 over gloo on the shared card: 22 (a)
+    and (b), then 23 (a) and (b), in one process (one start-up for
+    all)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8679,6 +8715,9 @@ def _p22_rank_main(rank, world, address, outdir):
     gc.collect()
     torch.cuda.empty_cache()
     _pipe_rank(torch, rank, world, outdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ring_ranks(torch, rank, world, outdir)
     launch.shutdown()
     print("P22_RANK_%d_OK" % rank, flush=True)
     return 0
@@ -8900,23 +8939,23 @@ def _pipe_rank(torch, rank, world, outdir):
         json.dump(reading, f)
 
 
-def _spawn_p22(n):
-    """``n`` rank processes of this script (``--p22-rank`` rank world
+def _spawn_ranks(phase, n, tags, timeout):
+    """``n`` rank processes of this script (``--p<phase>-rank`` rank world
     address outdir), each with a timeout: ``({tag: readings}, outdir,
-    wall s)`` for the tags "mesh" and "pipe" (the caller removes
-    ``outdir``)."""
-    outdir = tempfile.mkdtemp(prefix="mx_smoke_p22_")
+    wall s)``, a reading a rank from ``<tag>_rank<r>.json`` (the caller
+    removes ``outdir``)."""
+    outdir = tempfile.mkdtemp(prefix="mx_smoke_p%d_" % phase)
     address = "127.0.0.1:%d" % _free_port()
     here = os.path.abspath(__file__)
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, here, "--p22-rank", str(r), str(n), address,
-         outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        [sys.executable, here, "--p%d-rank" % phase, str(r), str(n),
+         address, outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True, cwd=os.path.dirname(here)) for r in range(n)]
     outs = []
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=P22_RANK_TIMEOUT)
+            out, _ = p.communicate(timeout=timeout)
             outs.append(out)
     finally:
         for p in procs:
@@ -8925,12 +8964,12 @@ def _spawn_p22(n):
                 p.communicate()
     wall = time.perf_counter() - t0
     for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0 or "P22_RANK_%d_OK" % r not in out:
+        if p.returncode != 0 or "P%d_RANK_%d_OK" % (phase, r) not in out:
             shutil.rmtree(outdir, ignore_errors=True)
-            raise AssertionError("rank %d of phase 22 exited %s:\n%s"
-                                 % (r, p.returncode, out[-6000:]))
+            raise AssertionError("rank %d of phase %d exited %s:\n%s"
+                                 % (r, phase, p.returncode, out[-6000:]))
     ranks = {}
-    for tag in ("mesh", "pipe"):
+    for tag in tags:
         ranks[tag] = []
         for r in range(n):
             with open(os.path.join(outdir, "%s_rank%d.json" % (tag, r))) as f:
@@ -9361,11 +9400,15 @@ def phase_mesh_pipeline(torch, dev):
     the pipeline.  Returns both paths' launches and the kernel cases at
     their shapes."""
     t0 = time.perf_counter()
-    ranks, outdir, wall = _spawn_p22(P22_RANKS)
+    ranks, outdir, wall = _spawn_ranks(22, P22_RANKS, ("mesh", "pipe", "op",
+                                                       "lm"),
+                                       P22_RANK_TIMEOUT)
     try:
         stacked = torch.load(os.path.join(outdir, "pipe_params.pt"))
         rank_grads = [torch.load(os.path.join(
             outdir, "pipe_grads_rank%d.pt" % r)) for r in range(P22_RANKS)]
+        ring = {"op": ranks["op"], "lm": ranks["lm"], "wall_s": wall,
+                "step1": torch.load(os.path.join(outdir, "lc_step1.pt"))}
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -9387,7 +9430,689 @@ def phase_mesh_pipeline(torch, dev):
                                     for r in serve["ranks"]],
         "pipeline_step_s": [r["step_s"] for r in pipe["ranks"]]}))
     return {"serve_mesh": serve_l, "pipeline": pipe_l,
-            "a_cases": a_cases, "b_cases": b_cases, "cde": cde}
+            "a_cases": a_cases, "b_cases": b_cases, "cde": cde,
+            "ring": ring}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: sequence parallelism (the ring)
+# ---------------------------------------------------------------------------
+P23_RANKS = 2       # the seq axis: two ranks over gloo on the one card
+P23_RANK_TIMEOUT = 500
+# benchmarks/bench_long_context.py:124-160's LM at its TPU widths, nothing
+# cut: T 8192, batch 2, embed 2048, 16 heads (head dim 128), vocab 8192;
+# its SGD (lr 0.01, momentum 0.9), here in f32 (the port trains its LMs in
+# f32: ROADMAP section C's bf16 token-id cast)
+LC_T, LC_BATCH, LC_EMBED, LC_HEADS, LC_VOCAB = 8192, 2, 2048, 16, 8192
+LC_STEPS = 3        # fit steps through the ring
+LC_SCHEDULE_STEPS = 2   # steps a schedule, timed after the fit
+LC_LR, LC_MOMENTUM = 0.01, 0.9
+LC_COLS = 64        # output columns a row held against the single process
+# (a)'s cases at the bench's attention shape: (dtype, groups)
+RING_CASES = (("float32", 1), ("bfloat16", 1), ("float32", 2),
+              ("bfloat16", 2))
+
+
+def _ring_ranks(torch, rank, world, outdir):
+    """Phase 23 on one rank: (a) the op, then (b) the LM."""
+    _ring_op_rank(torch, rank, world, outdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ring_lm_rank(torch, rank, world, outdir)
+
+
+def _p23_rank_main(rank, world, address, outdir):
+    """One rank of phase 23 run alone (the full smoke runs it in phase
+    22's rank processes)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mxnet_tpu_torch.parallel import launch
+
+    launch.init(address, world, rank, backend="gloo")
+    _ring_ranks(torch, rank, world, outdir)
+    launch.shutdown()
+    print("P23_RANK_%d_OK" % rank, flush=True)
+    return 0
+
+
+def _ring_op_rank(torch, rank, world, outdir):
+    """(a) on one rank: ``ring_attention`` under ``compat.shard_map`` over
+    MeshConfig(seq=world) at the bench's attention shape (B 2, T 8192, 16
+    heads of 128; G = 2 at 8 kv-heads), causal, f32 and bf16.  Each case:
+    the mapped ring (kernels, double-buffered; its launches and sends
+    counted), the same ring on the rank's blocks serial (bit for bit) and
+    on the plain versions (TOL_F32 / TOL_BF16); rank 0 also holds the
+    gathered result against the single-process flash op on the whole
+    sequence."""
+    from mxnet_tpu_torch.ops import attention as attn
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.parallel import MeshConfig, build_mesh, compat, ring
+    from mxnet_tpu_torch.parallel import collectives as C
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mesh = build_mesh(MeshConfig(data=1, seq=world))
+    group = mesh.get_group("seq")
+    tl = LC_T // world
+    lo, hi = rank * tl, (rank + 1) * tl
+    spec = (None, "seq", None)
+    cases = []
+    for dname, groups in RING_CASES:
+        dtype = getattr(torch, dname)
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        kvh = LC_HEADS // groups
+        hd = LC_EMBED // LC_HEADS
+        g = torch.Generator(device=dev)
+        g.manual_seed(230 + groups)
+
+        def r(e):
+            return torch.randn(LC_BATCH, LC_T, e, generator=g,
+                               device=dev).to(dtype)
+
+        q, k, v, w = r(LC_EMBED), r(kvh * hd), r(kvh * hd), r(LC_EMBED)
+
+        def attend(plain, db, axis):
+            return lambda a, b, c: ring.ring_attention(
+                a, b, c, axis, num_heads=LC_HEADS, causal=True,
+                num_kv_heads=kvh, double_buffer=db, plain=plain)
+
+        def run(fn, xs, cot):
+            leaves = [x.detach().clone().requires_grad_() for x in xs]
+            torch.cuda.synchronize()
+            C.reset_counts()
+            launched = _resume_counts(zero=True)
+            t0 = time.perf_counter()
+            out = fn(*leaves)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sends_fwd = dict(C.COUNTS.get("send", {}))
+            out.backward(cot)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launched = {n: c for n, c in _resume_counts().items()
+                        if n.startswith("flash")}
+            return ([out.detach()] + [x.grad for x in leaves],
+                    {"fwd_s": t1 - t0, "bwd_s": t2 - t1,
+                     "launches": launched, "send_fwd": sends_fwd,
+                     "send": dict(C.COUNTS.get("send", {})),
+                     "path": ring.RING_PATH["last"]})
+
+        mapped, m_info = run(compat.shard_map(attend(False, True, "seq"),
+                                              mesh, (spec,) * 3, spec),
+                             (q, k, v), w)
+        mine = [x[:, lo:hi] for x in mapped]
+        local = [x[:, lo:hi] for x in (q, k, v)]
+        serial, s_info = run(attend(False, False, group), local,
+                             w[:, lo:hi])
+        plain, _ = run(attend(True, True, group), local, w[:, lo:hi])
+        names = ("out", "dq", "dk", "dv")
+        case = {
+            "dtype": dname, "groups": groups, "kv_heads": kvh, "tol": tol,
+            "mapped": m_info, "serial": s_info,
+            "schedules_equal": all(torch.equal(a, b) for a, b in
+                                   zip(serial, mine)),
+            "vs_plain_ring": {n: _close_err(a, b, tol) for n, a, b in
+                              zip(names, mine, plain)},
+            "finite": all(bool(torch.isfinite(x).all()) for x in mapped)}
+        del serial, plain
+        if rank == 0:
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            out = attn.sdpa_flash(*leaves, LC_HEADS, True,
+                                  num_kv_heads=kvh)
+            out.backward(w)
+            torch.cuda.synchronize()
+            case["vs_single"] = {
+                n: _close_err(a, b, tol) for n, a, b in zip(
+                    names, mapped, [out.detach()]
+                    + [x.grad for x in leaves])}
+            case["variant"] = dict(fl.LAST_VARIANT)
+            del leaves, out
+        cases.append(case)
+        del mapped, mine, local, q, k, v, w
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, "op_rank%d.json" % rank), "w") as f:
+        json.dump({"rank": rank, "cases": cases,
+                   "wall_s": time.perf_counter() - t_start}, f)
+
+
+def _lc_sym(mt):
+    """bench_long_context.py's ``build_lm`` in the port's symbols."""
+    sym = mt.sym
+    e = LC_EMBED
+    data, label = sym.Variable("data"), sym.Variable("softmax_label")
+    emb = sym.Embedding(data, input_dim=LC_VOCAB, output_dim=e,
+                        name="embed")
+    q = sym.FullyConnected(emb, num_hidden=e, flatten=False, name="q")
+    k = sym.FullyConnected(emb, num_hidden=e, flatten=False, name="k")
+    v = sym.FullyConnected(emb, num_hidden=e, flatten=False, name="v")
+    att = sym.dot_product_attention(q, k, v, num_heads=LC_HEADS,
+                                    causal=True)
+    out = sym.FullyConnected(att, num_hidden=e, flatten=False, name="proj")
+    head = sym.FullyConnected(sym.Reshape(out, shape=(-1, e)),
+                              num_hidden=LC_VOCAB, name="head")
+    return sym.SoftmaxOutput(head, sym.Reshape(label, shape=(-1,)),
+                             name="softmax")
+
+
+def _lc_params(sym):
+    """Seeded numpy parameters: Xavier-gaussian weights (the bench's
+    initializer: magnitude 3, factor avg), biases 0.02-scaled normals (so
+    a bias applied on the wrong rows shows)."""
+    rng = np.random.RandomState(23)
+    shapes, _, _ = sym.infer_shape(data=(LC_BATCH, LC_T),
+                                   softmax_label=(LC_BATCH, LC_T))
+    out = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_weight"):
+            bound = np.sqrt(3.0 / ((shape[0] + shape[1]) / 2.0))
+            out[name] = rng.normal(0.0, bound, shape).astype(np.float32)
+        else:
+            out[name] = rng.normal(0.0, 0.02, shape).astype(np.float32)
+    return out
+
+
+def _lc_batch():
+    """The bench's batch: seed 0 tokens, labels the next token."""
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, LC_VOCAB, size=(LC_BATCH, LC_T)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.zeros((LC_BATCH, 1), np.float32)],
+                       axis=1)
+    return x, y
+
+
+def _lc_module(mt, ctx, mesh_config=None, plain=False):
+    from mxnet_tpu_torch.io import DataDesc
+
+    sym = _lc_sym(mt)
+    kw = {} if mesh_config is None else {"mesh_config": mesh_config}
+    mod = mt.mod.Module(sym, context=ctx, plain=plain, **kw)
+    mod.bind(data_shapes=[DataDesc("data", (LC_BATCH, LC_T), layout="NT")],
+             label_shapes=[DataDesc("softmax_label", (LC_BATCH, LC_T),
+                                    layout="NT")])
+    mod.init_params(arg_params=_lc_params(sym), aux_params={})
+    return mod
+
+
+def _ring_lm_rank(torch, rank, world, outdir):
+    """(b) on one rank: the long-context LM through
+    ``Module(mesh_config=MeshConfig(seq=world))``, LC_STEPS ``fit`` steps
+    (the double-buffered ring): each step's launches, collectives and
+    seconds, the peak memory; rank 0 writes the step-1 parameters and
+    the step-1 outputs' first LC_COLS columns (gathered: the reference's
+    row order).  Then LC_SCHEDULE_STEPS steps under each schedule,
+    timed."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.ops import update_kernel
+    from mxnet_tpu_torch.ops.attention import PATH_TAKEN
+    from mxnet_tpu_torch.parallel import MeshConfig, collectives, ring
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mod = _lc_module(mt, mt.gpu(0), MeshConfig(seq=world))
+    x, y = _lc_batch()
+    it = mt.io.NDArrayIter(np.tile(x, (LC_STEPS, 1)),
+                           np.tile(y, (LC_STEPS, 1)), batch_size=LC_BATCH)
+    labels = torch.from_numpy(y.reshape(-1, 1)).long().cuda()
+    metric = _lm_loss_metric(torch, labels)
+    steps = []
+    collectives.SYNC_TIMING = True
+    PATH_TAKEN["last"] = ring.RING_PATH["last"] = None
+    update_kernel.UPDATE_PATH["last"] = None
+
+    def begin():
+        torch.cuda.synchronize()
+        collectives.reset_counts()
+        return _resume_counts(zero=True), time.perf_counter()
+
+    state = {"mark": begin()}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        _, t_start = state["mark"]
+        steps.append({"s": time.perf_counter() - t_start,
+                      "launches": _resume_counts(),
+                      "collectives": {k: dict(v) for k, v in
+                                      collectives.COUNTS.items()}})
+        if len(steps) == 1:
+            # every rank reads them (get_params / get_outputs may gather)
+            arg, _ = mod.get_params()
+            cols = mod.get_outputs()[0].data[:, :LC_COLS].clone()
+            if rank == 0:
+                torch.save({"params": {k: v.data.clone() for k, v in
+                                       arg.items()}, "cols": cols},
+                           os.path.join(outdir, "lc_step1.pt"))
+        state["mark"] = begin()
+
+    mod.fit(it, eval_metric=metric, batch_end_callback=on_batch,
+            optimizer="sgd", optimizer_params={"learning_rate": LC_LR,
+                                               "momentum": LC_MOMENTUM},
+            num_epoch=1)
+    paths = {"attention": PATH_TAKEN["last"],
+             "ring": ring.RING_PATH["last"],
+             "update": update_kernel.UPDATE_PATH["last"],
+             "slab_update": mod._slab_update is not None,
+             "train_step": mod._train_step is not None}
+    batch = DataBatch([nd.array(x)], [nd.array(y)])
+    schedules = {}
+    for name, db in (("overlapped", True), ("serial", False)):
+        with config.overrides(MXNET_RING_DOUBLE_BUFFER=db):
+            times = []
+            for _ in range(LC_SCHEDULE_STEPS):
+                state["mark"] = begin()
+                mod.forward_backward(batch)
+                mod.update()
+                torch.cuda.synchronize()
+                times.append({"s": time.perf_counter() - state["mark"][1],
+                              "collectives": {k: dict(v) for k, v in
+                                              collectives.COUNTS.items()}})
+            schedules[name] = times
+    collectives.SYNC_TIMING = False
+    reading = {"rank": rank, "world": world, "steps": steps,
+               "schedules": schedules, "paths": paths,
+               "losses": [float(v) for v in metric.losses],
+               # the path's own peak (above what the process held before)
+               "peak_bytes": torch.cuda.max_memory_allocated() - base,
+               "local_data_shape": list(
+                   mod._exec_group.exec_.arg_dict["data"].shape),
+               "wall_s": time.perf_counter() - t_start}
+    with open(os.path.join(outdir, "lm_rank%d.json" % rank), "w") as f:
+        json.dump(reading, f)
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ring_op_gate(ranks):
+    """(a)'s gates, the list of what failed: the path, the launches (rank
+    0 C, D, E once: its second hop is skipped; rank 1 twice: the
+    diagonal, then a full block), the bytes sent (forward 1 K and 1 V
+    block; backward 1 K / V rotation and 2 dK / dV rotations, f32; G = 2
+    half), both schedules bit for bit, the plain ring and the single
+    process within tolerance, finite values."""
+    failed = []
+    hd = LC_EMBED // LC_HEADS
+    tl = LC_T // P23_RANKS
+    for rd in ranks:
+        r = rd["rank"]
+        for c in rd["cases"]:
+            what = "rank %d %s G=%d" % (r, c["dtype"], c["groups"])
+            isz = 4 if c["dtype"] == "float32" else 2
+            kv_block = LC_BATCH * c["kv_heads"] * tl * hd * isz
+            acc_block = LC_BATCH * c["kv_heads"] * tl * hd * 4
+            want_l = 1 + r
+            for mode in ("mapped", "serial"):
+                info = c[mode]
+                if info["path"] != "flash" or info["launches"] != {
+                        "flash_fwd": want_l, "flash_bwd_dq": want_l,
+                        "flash_bwd_dkv": want_l}:
+                    failed.append("%s %s: path %s, launches %s" % (
+                        what, mode, info["path"], info["launches"]))
+                sends = (info["send_fwd"].get("bytes", 0),
+                         info["send"].get("bytes", 0))
+                want = (2 * kv_block, 4 * kv_block + 4 * acc_block)
+                if sends != want:
+                    failed.append("%s %s: sent %s bytes, want %s"
+                                  % (what, mode, sends, want))
+            if not (c["schedules_equal"] and c["finite"]):
+                failed.append("%s: serial equal %s, finite %s"
+                              % (what, c["schedules_equal"], c["finite"]))
+            for ref in ("vs_plain_ring", "vs_single"):
+                for n, (err, lim) in c.get(ref, {}).items():
+                    if not err <= lim:
+                        failed.append("%s %s %s: %.3g > %.3g"
+                                      % (what, ref, n, err, lim))
+    for dname in ("float32", "bfloat16"):
+        by_g = {c["groups"]: c for c in ranks[0]["cases"]
+                if c["dtype"] == dname}
+        if by_g[2]["mapped"]["send"]["bytes"] * 2 \
+                != by_g[1]["mapped"]["send"]["bytes"]:
+            failed.append("%s: G = 2 sent %s bytes, G = 1 %s" % (
+                dname, by_g[2]["mapped"]["send"], by_g[1]["mapped"]["send"]))
+    return failed
+
+
+def _ring_hop_cases(torch, dev, flush):
+    """Kernels C, D and E at the ring's hop, (B x H, T / 2, hd) = (32,
+    4096, 128): the diagonal hop (causal) in f32 and bf16 at G 1 and 2,
+    and a full hop (not causal) in f32 at G 1; against their plain
+    versions (TOL_F32 / TOL_BF16), timed beside SDPA (its forward for C,
+    its backward through autograd for D and E)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    b, h, hd = LC_BATCH, LC_HEADS, LC_EMBED // LC_HEADS
+    t = LC_T // P23_RANKS
+    bh = b * h
+    scale = hd ** -0.5
+    cases = {"C": [], "D": [], "E": []}
+    for dname, groups, causal in (("float32", 1, True), ("float32", 1, False),
+                                  ("bfloat16", 1, True), ("float32", 2, True),
+                                  ("bfloat16", 2, True)):
+        dtype = getattr(torch, dname)
+        isz = torch.empty((), dtype=dtype).element_size()
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        pairs = t * (t + 1) // 2 if causal else t * t
+
+        def r(rows):
+            return torch.randn(rows, t, hd, generator=g,
+                               device=dev).to(dtype)
+
+        bkv = bh // groups
+        q, do, k, v = r(bh), r(bh), r(bkv), r(bkv)
+        args = (scale, causal, groups)
+        what = "ring hop %s G=%d %s" % (dname, groups,
+                                        "diagonal" if causal else "full")
+        o, lse = fl.flash_fwd(q, k, v, *args)
+        delta = fl.flash_delta(o, do)
+        dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, *args)
+        dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+        variants = {"C": fl.LAST_VARIANT["flash_fwd"],
+                    "D": fl.LAST_VARIANT["flash_bwd_dq"],
+                    "E": fl.LAST_VARIANT["flash_bwd_dkv"]}
+        # each kernel's largest error beside the limit its check applied
+        # (tol x max(1, max |plain|))
+        errs, limits = {}, {}
+
+        def check(name, label, got, want, tol_):
+            err = _check_close(what + " " + label, got, want, tol_)
+            if name not in errs or err > errs[name]:
+                errs[name] = err
+                limits[name] = _close_err(got, want, tol_)[1]
+
+        wo, wlse = fl.flash_plain_fwd(q, k, v, *args)
+        check("C", "C o", o, wo, tol)
+        check("C", "C lse", lse, wlse, TOL_F32)
+        del wo, wlse
+        wdq, wdk, wdv = fl.flash_plain_bwd(q, k, v, o, lse, do, *args)
+        check("D", "D dq", dq, wdq, tol)
+        check("E", "E dk", dk, wdk, tol)
+        check("E", "E dv", dv, wdv, tol)
+        del wdq, wdk, wdv
+        q4 = q.view(b, h, t, hd)
+        k4, v4 = k.view(b, h // groups, t, hd), v.view(b, h // groups, t, hd)
+        sdpa_kw = dict(is_causal=causal, scale=scale, enable_gqa=groups > 1)
+        leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
+        lo = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+        do4 = do.view(b, h, t, hd)
+        fns = {
+            "C": (lambda: fl.flash_fwd(q, k, v, *args),
+                  lambda: fl.flash_plain_fwd(q, k, v, *args),
+                  lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                         **sdpa_kw)),
+            "D": (lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta, *args),
+                  lambda: fl.flash_plain_bwd(q, k, v, o, lse, do, *args),
+                  lambda: torch.autograd.grad(lo, leaves, do4,
+                                              retain_graph=True)),
+            "E": (lambda: fl.flash_bwd_dkv(q, k, v, do, lse, delta, *args),
+                  lambda: fl.flash_plain_bwd(q, k, v, o, lse, do, *args),
+                  lambda: torch.autograd.grad(lo, leaves, do4,
+                                              retain_graph=True))}
+        qb, kvb, rowb = bh * t * hd * isz, bkv * t * hd * isz, bh * t * 4
+        nbytes = {"C": 2 * qb + 2 * kvb + rowb,
+                  "D": 3 * qb + 2 * kvb + 2 * rowb,
+                  "E": 2 * qb + 4 * kvb + 2 * rowb}
+        flops = {"C": 4.0 * pairs * hd * bh, "D": 6.0 * pairs * hd * bh,
+                 "E": 8.0 * pairs * hd * bh}
+        for name in "CDE":
+            bound_ms, bound_by = _bound(nbytes[name], flops[name], dname)
+            case = _case(torch, flush, *fns[name], extra={
+                "kernel": name, "dtype": dname, "bh": bh, "t": t, "hd": hd,
+                "groups": groups, "causal": causal,
+                "max_abs_err": errs[name], "limit": limits[name],
+                "tol": tol, "bound_ms": bound_ms, "bound_by": bound_by,
+                "variant": variants[name]}, iters=5)
+            case["bound_share"] = _bound_share(case)
+            log("ring hop kernel %s case: %s" % (name, json.dumps(case)))
+            cases[name].append(case)
+        del lo, leaves, q, do, k, v, o, lse, delta, dq, dk, dv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _lc_single(torch, x, y, plain=False):
+    """One eager single-process step of the long-context LM on the card
+    (kernels C-E on the whole T; ``plain``: their plain versions):
+    (parameters after it, the step's outputs' first LC_COLS columns, its
+    seconds, its peak memory above what the process held before)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with config.overrides(MXNET_FUSED_TRAIN_STEP=False):
+        mod = _lc_module(mt, mt.gpu(0), plain=plain)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": LC_LR, "momentum": LC_MOMENTUM})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.forward_backward(DataBatch([nd.array(x)], [nd.array(y)]))
+    mod.update()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    cols = mod.get_outputs()[0].data[:, :LC_COLS].clone()
+    params = {k: v for k, v in _snapshot(mod).items()
+              if not k.startswith("aux:")}
+    peak = torch.cuda.max_memory_allocated() - base
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params, cols, step_s, peak
+
+
+def _lc_diff(torch, got, want, start):
+    """The worst per-tensor ||got - want|| / ||want - start|| (k_bias on
+    q_bias's change: its gradient is zero, softmax does not see a shift
+    of the keys), and its tensor."""
+    worst, name = 0.0, None
+    for n, w in want.items():
+        ref = "q_bias" if n == "k_bias" else n
+        denom = float(torch.linalg.vector_norm((want[ref]
+                                                - start[ref]).double()))
+        e = float(torch.linalg.vector_norm((got[n] - w).double())) \
+            / max(denom, 1e-30)
+        if e > worst:
+            worst, name = e, n
+    return {"max": worst, "tensor": name}
+
+
+def _cols_diff(torch, got, want):
+    """max |got - want| / max |want| over the output columns."""
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _ring_lm_phase(torch, dev, ranks, step1):
+    """(b): the ranks' readings against single-process steps of the same
+    Module (kernels C-E on the whole T): the step-1 parameters and
+    outputs (row for row) within CAPTURE_SPREAD times the widest
+    single-process spread (the same run again; the plain versions; the
+    two sequences swapped, whose per-token gradient sums run in another
+    order); the launches (C, D, E 1 a step on rank 0, 2 on rank 1; B1 1),
+    the ring path, finite losses."""
+    import mxnet_tpu_torch as mt
+
+    x, y = _lc_batch()
+    params = _lc_params(_lc_sym(mt))
+    start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+    del params
+    got = {n: v.to(dev) for n, v in step1["params"].items()}
+    got_cols = step1["cols"].to(dev)
+    t0 = time.perf_counter()
+    # the first run is the process's first LM step on the card (cold);
+    # the second times the warm step
+    single, cols, cold_s, single_peak = _lc_single(torch, x, y)
+    again, a_cols, single_s, _ = _lc_single(torch, x, y)
+    plain, p_cols, plain_s, _ = _lc_single(torch, x, y, plain=True)
+    swapped, w_cols, _, _ = _lc_single(torch, x[::-1].copy(),
+                                       y[::-1].copy())
+    # the swapped run's rows back in the batch's order
+    w_cols = torch.cat([w_cols[LC_T:], w_cols[:LC_T]])
+    single_runs_s = time.perf_counter() - t0
+    spreads = {"again": _lc_diff(torch, again, single, start),
+               "plain": _lc_diff(torch, plain, single, start),
+               "reorder": _lc_diff(torch, swapped, single, start)}
+    col_spreads = {"again": _cols_diff(torch, a_cols, cols),
+                   "plain": _cols_diff(torch, p_cols, cols),
+                   "reorder": _cols_diff(torch, w_cols, cols)}
+    vs_single = _lc_diff(torch, got, single, start)
+    cols_vs_single = _cols_diff(torch, got_cols, cols)
+    bound = CAPTURE_SPREAD * max(1e-7, *(s["max"] for s in
+                                         spreads.values()))
+    col_bound = CAPTURE_SPREAD * max(1e-7, *col_spreads.values())
+    del got, got_cols, single, cols, again, a_cols, plain, p_cols
+    del swapped, w_cols, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    failed = []
+    if not vs_single["max"] <= bound:
+        failed.append("step-1 parameters %.6g (%s) beyond the bound %.6g"
+                      % (vs_single["max"], vs_single["tensor"], bound))
+    if not cols_vs_single <= col_bound:
+        failed.append("step-1 outputs %.6g beyond the bound %.6g"
+                      % (cols_vs_single, col_bound))
+    for rd in ranks:
+        want = {"flash_fwd": 1 + rd["rank"], "flash_bwd_dq": 1 + rd["rank"],
+                "flash_bwd_dkv": 1 + rd["rank"], "multi_tensor_update": 1}
+        for i, s in enumerate(rd["steps"]):
+            got_l = {k: s["launches"][k] for k in want}
+            if got_l != want:
+                failed.append("rank %d step %d launched %s, want %s"
+                              % (rd["rank"], i + 1, got_l, want))
+        if len(rd["steps"]) != LC_STEPS \
+                or rd["paths"] != {"attention": "ring", "ring": "flash",
+                                   "update": "kernel", "slab_update": True,
+                                   "train_step": False} \
+                or not all(np.isfinite(rd["losses"])) \
+                or rd["local_data_shape"] != [LC_BATCH, LC_T // P23_RANKS]:
+            failed.append("rank %d: %d steps, paths %s, losses %s, local "
+                          "data %s" % (rd["rank"], len(rd["steps"]),
+                                       rd["paths"], rd["losses"],
+                                       rd["local_data_shape"]))
+    if failed:
+        raise AssertionError("phase 23 (b): " + "; ".join(failed))
+    per_rank = []
+    for rd in ranks:
+        timed = rd["steps"][1:] or rd["steps"]
+        n = len(timed)
+        kinds = sorted({k for s in timed for k in s["collectives"]})
+        step_s = sum(s["s"] for s in timed) / n
+        sched = {name: {"step_s": [s["s"] for s in runs],
+                        "send_s": [s["collectives"].get("send", {}).get(
+                            "s", 0.0) + s["collectives"].get(
+                            "recv", {}).get("s", 0.0) for s in runs],
+                        "tokens_per_s": LC_BATCH * LC_T
+                        / (sum(s["s"] for s in runs) / len(runs))}
+                 for name, runs in rd["schedules"].items()}
+        per_rank.append({
+            "rank": rd["rank"],
+            "launches_per_step": {k: sum(s["launches"][k] for s in timed)
+                                  / n for k in ("flash_fwd", "flash_bwd_dq",
+                                                "flash_bwd_dkv",
+                                                "multi_tensor_update")},
+            "collectives_per_step": {k: {
+                f: sum(s["collectives"].get(k, {}).get(f, 0)
+                       for s in timed) / n for f in ("calls", "bytes", "s")}
+                for k in kinds},
+            "fit_step_s": [s["s"] for s in rd["steps"]],
+            "fit_tokens_per_s": LC_BATCH * LC_T / step_s,
+            "schedules": sched, "losses": rd["losses"],
+            "peak_bytes": rd["peak_bytes"]})
+    reading = {
+        "card": _smi_line(),
+        "config": "bench_long_context.py's LM (T %d, batch %d, embed %d, "
+                  "%d heads, vocab %d; nothing cut), f32, SGD lr %g "
+                  "momentum %g, Module(mesh_config=MeshConfig(seq=%d)): %d "
+                  "ranks over gloo on one card, %d fit steps, then %d "
+                  "steps a schedule" % (LC_T, LC_BATCH, LC_EMBED, LC_HEADS,
+                                        LC_VOCAB, LC_LR, LC_MOMENTUM,
+                                        P23_RANKS, P23_RANKS, LC_STEPS,
+                                        LC_SCHEDULE_STEPS),
+        "step1_vs_single": vs_single, "step1_spreads": spreads,
+        "bound": bound, "step1_cols_vs_single": cols_vs_single,
+        "cols_spreads": col_spreads, "cols_bound": col_bound,
+        "max_over_spread": CAPTURE_SPREAD,
+        "single": {"step_s": single_s, "cold_step_s": cold_s,
+                   "plain_step_s": plain_s,
+                   "tokens_per_s": LC_BATCH * LC_T / single_s,
+                   "peak_bytes": single_peak},
+        "single_runs_s": single_runs_s, "ranks": per_rank}
+    log("ring (b): " + json.dumps(reading))
+    launches = {k: sum(s["launches"][k] for rd in ranks
+                       for s in rd["steps"])
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                          "multi_tensor_update")}
+    return reading, launches
+
+
+def phase_ring(torch, dev, spawned=None):
+    """Phase 23 (see the module's docstring): (a) the op, (b) the LM over
+    a seq axis of P23_RANKS, then C / D / E at the hop shape.  The ranks'
+    readings come from phase 22's processes (``spawned``: its return's
+    "ring") or, alone, from a spawn of its own.  Returns the launches of
+    (a) and (b) and the hop cases."""
+    t0 = time.perf_counter()
+    if spawned is None:
+        ranks, outdir, wall = _spawn_ranks(23, P23_RANKS, ("op", "lm"),
+                                           P23_RANK_TIMEOUT)
+        try:
+            step1 = torch.load(os.path.join(outdir, "lc_step1.pt"))
+        finally:
+            shutil.rmtree(outdir, ignore_errors=True)
+    else:
+        ranks = {"op": spawned["op"], "lm": spawned["lm"]}
+        step1, wall = spawned["step1"], spawned["wall_s"]
+    failed = _ring_op_gate(ranks["op"])
+    if failed:
+        raise AssertionError("phase 23 (a): " + "; ".join(failed))
+    op_launches = {k: sum(c["mapped"]["launches"][k] for rd in ranks["op"]
+                          for c in rd["cases"])
+                   for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    log("ring (a): " + json.dumps({
+        "card": _smi_line(),
+        "config": "ring_attention under compat.shard_map, MeshConfig("
+                  "seq=%d), B %d, T %d, %d heads of %d, causal; G 1 and 2 "
+                  "(8 kv-heads), f32 and bf16; tolerances TOL_F32 %g / "
+                  "TOL_BF16 %g x max(1, max |reference|)"
+                  % (P23_RANKS, LC_BATCH, LC_T, LC_HEADS,
+                     LC_EMBED // LC_HEADS, TOL_F32, TOL_BF16),
+        "ranks": ranks["op"], "launches": op_launches}))
+    lm, lm_launches = _ring_lm_phase(torch, dev, ranks["lm"], step1)
+    del step1
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+    hop = _ring_hop_cases(torch, dev, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("ring: " + json.dumps({
+        "card": _smi_line(), "wall_s": time.perf_counter() - t0,
+        "ranks_wall_s": wall,
+        "ranks_ring_s": [a["wall_s"] + b["wall_s"] for a, b in
+                         zip(ranks["op"], ranks["lm"])],
+        "op_launches": op_launches,
+        "lm_launches": lm_launches,
+        "lm_fit_step_s": [r["fit_step_s"] for r in lm["ranks"]],
+        "lm_peak_bytes": [r["peak_bytes"] for r in lm["ranks"]],
+        "single_peak_bytes": lm["single"]["peak_bytes"]}))
+    return {"op": op_launches, "lm": lm_launches, "hop": hop}
 
 
 _PHASE_MARKS = []
@@ -9427,6 +10152,10 @@ def main():
         # one rank of phase 22, started by the phase itself
         rank, world, address, outdir = sys.argv[2:6]
         return _p22_rank_main(int(rank), int(world), address, outdir)
+    if sys.argv[1:2] == ["--p23-rank"]:
+        # one rank of phase 23, started by the phase itself
+        rank, world, address, outdir = sys.argv[2:6]
+        return _p23_rank_main(int(rank), int(world), address, outdir)
     # phases 1-17 run the hand-fixed kernel plans: an empty tuning cache
     # of this run's own, unarmed (phase 18 arms a directory of its own);
     # nothing is read from or left in the user's cache
@@ -9575,6 +10304,10 @@ def _main(torch):
     mp = phase_mesh_pipeline(torch, dev)
     _mark("mesh_pipeline")
     sm_l, pp_l = mp["serve_mesh"], mp["pipeline"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    rg = phase_ring(torch, dev, mp.pop("ring"))
+    _mark("ring")
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -9712,6 +10445,8 @@ def _main(torch):
         if counter == "flash_fwd":
             by_path["capi"] = capi_l[counter]
         by_path["pipeline"] = pp_l[counter]
+        by_path["ring_op"] = rg["op"][counter]
+        by_path["ring_lm"] = rg["lm"][counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -9719,10 +10454,14 @@ def _main(torch):
             shape="bh=64 t=2048 hd=128 causal float32",
             launches_by_path=by_path,
             max_abs_err_all_cases=max(c["max_abs_err"]
-                                      for c in cde_cases[name]))
+                                      for c in cde_cases[name]
+                                      + rg["hop"][name]))
         entry["variant"] = cde_main[name]["variant"]
         entry["pipeline_stage_case"] = brief(mp["cde"][name], "bh", "t",
                                              "hd")
+        entry["ring_hop_cases"] = [brief(c, "dtype", "groups", "causal", "bh",
+                                         "t", "hd", "limit")
+                                   for c in rg["hop"][name]]
         entry["tuning"] = _tuning_field(tune_tables, "C-E LM attention")
         kernels.append(entry)
     kernels.append(dict(
@@ -9769,6 +10508,7 @@ def _main(torch):
     b1_by_path["dist_two_context"] = two_l["multi_tensor_update"]
     b1_by_path["tensor_parallel"] = tp_l["multi_tensor_update"]
     b1_by_path["pipeline"] = pp_l["multi_tensor_update"]
+    b1_by_path["ring_lm"] = rg["lm"]["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}

@@ -10,6 +10,7 @@ keys (``MXNET_FUSED_TRAIN_STEP``, ``MXNET_DEVICE_METRICS``,
 ``MXNET_PREFETCH_DEPTH``, ``MXNET_DEVICE_PREFETCH``) are the JAX
 package's, with its defaults, and so are the telemetry keys
 (``MXNET_TELEMETRY`` ... ``MXNET_PEAK_FLOPS``, ``MXNET_PROFILER_AUTOSTART``),
+the ring's (``MXNET_RING_ATTENTION``, ``MXNET_RING_DOUBLE_BUFFER``),
 the fleet's (``MXNET_FLEET_SWAP``, ``MXNET_FLEET_DECODE_BOUND``,
 ``MXNET_FLEET_PREFILL_THRESHOLD``) and the mixture-of-experts op's
 (``MXNET_MOE_DISPATCH``, ``MXNET_MOE_TOPK``, ``MXNET_MOE_DROPLESS``,
@@ -356,6 +357,25 @@ register("MXNET_ANALYSIS_BUDGETS", str, "",
          "analysis.load_budgets / tools/mxlint_torch.py.  Empty "
          "(default) = the port's own mxnet_tpu_torch/analysis/"
          "budgets.json.")
+register("MXNET_RING_ATTENTION", bool, True,
+         "Under a Module mesh whose 'seq' axis is above 1, "
+         "dot_product_attention runs ring attention (parallel/ring.py) "
+         "over the seq group on the rank's sequence blocks: K/V blocks "
+         "rotate around the group with O(T/n) memory a rank, and the "
+         "per-hop compute is kernels C, D and E (their plain versions on "
+         "the CPU).  Set 0 for the gathered path: K and V all-gathered "
+         "over the seq group, the rank's queries attended with the causal "
+         "mask at their global offsets (plain sdpa), the counterpart of "
+         "the reference's GSPMD einsum.")
+register("MXNET_RING_DOUBLE_BUFFER", bool, True,
+         "Communication schedule for ring attention's flash path "
+         "(parallel/ring.py): 1 (default) double-buffers the ring: each "
+         "hop's K/V shift (and the backward ring's traveling dK/dV "
+         "rotation) is posted BEFORE the hop's kernels, so the transfer "
+         "runs while the card computes.  0 restores the serial order for "
+         "A/B measurement.  Schedules are bit-identical in outputs and "
+         "gradients, and both drop the last hop's K/V rotation.  The "
+         "streaming path has the serial schedule only.")
 register("MXNET_TP_MODE", str, "megatron",
          "Tensor-parallel plan over the 'model' mesh axis of a Module "
          "with a mesh_config: 'megatron' (default) pairs column-parallel "

@@ -19,15 +19,19 @@ So ``merge_multi_context`` has one device's arrays to return either
 way.
 
 With a ``mesh`` (:class:`MeshRuntime`, from a Module's ``mesh_config``)
-the group is one rank of a (data x model) mesh of processes: every rank
-is fed the same global batch and binds its data-axis slice; the
-executor walks the graph tensor-parallel
+the group is one rank of a (data x model x seq) mesh of processes:
+every rank is fed the same global batch and binds its data-axis rows
+and, for every input whose ``DataDesc.layout`` holds ``N`` and ``T``, its
+seq-axis block of the sequence (the reference's input shardings); the
+executor walks the graph tensor- and sequence-parallel
 (:class:`~mxnet_tpu_torch.parallel.tp_exec.TensorParallel`) over this
 rank's parameter shards; ``set_params`` slices the full arrays and
 ``get_params`` gathers them; ``backward`` sums the parameter gradients
-over the data group (one all-reduce of the packed gradients), so they
-arrive at ``update()`` globally summed, as the reference's do; and
-``get_outputs`` gathers the outputs over the data group."""
+over the data x seq ranks that share this rank's model coordinate (one
+all-reduce of the packed gradients), so they arrive at ``update()``
+globally summed, as the reference's do; and ``get_outputs`` (and
+``get_input_grads``) gather over the seq group along T, then over the
+data group along the rows: the reference's row order."""
 from __future__ import annotations
 
 import numpy as np
@@ -38,20 +42,22 @@ from ..base import MXNetError
 from ..executor import simple_bind
 from ..io import as_desc_list
 from ..parallel import collectives
-from ..parallel.tp_exec import TensorParallel, param_mesh_axes
+from ..parallel.tp_exec import (TensorParallel, gather_seq, param_mesh_axes,
+                                slice_seq, SeqSplit)
 
 
 class MeshRuntime:
     """A ``MeshConfig`` (or a ``DeviceMesh`` from ``parallel.build_mesh``)
     resolved against the process group (one rank a process, where the
     reference resolves it against its contexts): the axis sizes, the
-    ``DeviceMesh`` and this rank's model and data groups.  A config
-    that does not cover the group raises.  Axes named in ``replicate``
-    are realized as replicas (their ranks compute the same values: a
-    ``DecodePredictor`` leaves ``seq`` and ``pipe`` so, as the
-    reference's specs do); any other axis above 1 but ``data`` and
-    ``model`` raises: ``seq`` (item 7 step 5, the ring), ``expert``
-    (step 6, sharded MoE), ``pipe`` (a ``PipelineModule``)."""
+    ``DeviceMesh``, this rank's model, data and seq groups, and the
+    group its parameter gradients are summed over (data x seq).  A
+    config that does not cover the group raises.  Axes named in
+    ``replicate`` are realized as replicas (their ranks compute the same
+    values: a ``DecodePredictor`` leaves ``seq`` and ``pipe`` so, as the
+    reference's specs do); an ``expert`` axis above 1 raises (ROADMAP
+    item 7 step 6, sharded MoE) and so does a ``pipe`` axis (a
+    ``PipelineModule`` runs one)."""
 
     def __init__(self, mesh_config, replicate=()):
         from ..parallel.mesh import MeshConfig
@@ -78,22 +84,23 @@ class MeshRuntime:
                 raise MXNetError(
                     "the device mesh %s covers %d rank(s), the process "
                     "group has %d" % (self.sizes, n, world))
-        for axis, what in (("seq", "ROADMAP item 7 step 5, the ring"),
-                           ("expert", "ROADMAP item 7 step 6, sharded MoE"),
+        for axis, what in (("expert", "ROADMAP item 7 step 6, sharded MoE"),
                            ("pipe", "mxnet_tpu_torch.mod.PipelineModule, "
                                     "which runs the stages of a pipe "
                                     "axis")):
             if self.sizes.get(axis, 1) > 1 and axis not in replicate:
                 raise MXNetError(
                     "a %r mesh axis of %d is not realized here (%s); the "
-                    "port shards the 'data' and 'model' axes"
+                    "port shards the 'data', 'model' and 'seq' axes"
                     % (axis, self.sizes[axis], what))
         self.config = mesh_config
         self.data = self.sizes.get("data", 1)
         self.model = self.sizes.get("model", 1)
+        self.seq = 1 if "seq" in replicate else self.sizes.get("seq", 1)
         self.mesh = None
-        self.model_group = self.data_group = None
-        self.model_rank = self.data_rank = 0
+        self.model_group = self.data_group = self.seq_group = None
+        self.grad_group = None
+        self.model_rank = self.data_rank = self.seq_rank = 0
         if world > 1:
             from ..parallel.mesh import build_mesh
 
@@ -106,17 +113,46 @@ class MeshRuntime:
             if "data" in names:
                 self.data_group = self.mesh.get_group("data")
                 self.data_rank = self.mesh.get_local_rank("data")
+            if self.seq > 1:
+                self.seq_group = self.mesh.get_group("seq")
+                self.seq_rank = self.mesh.get_local_rank("seq")
+            self.grad_group = self._grad_group()
+
+    def _grad_group(self):
+        """This rank's group of the ranks that share its coordinates but
+        on the data and seq axes (None when both are 1): one
+        ``new_group`` a coordinate, every rank creating all of them in
+        one order, as ``torch.distributed`` requires."""
+        import torch.distributed as dist
+
+        if self.seq <= 1:
+            return self.data_group if self.data > 1 else None
+        if self.data <= 1:
+            return self.seq_group
+        names = list(self.mesh.mesh_dim_names)
+        ranks = self.mesh.mesh
+        ranks = ranks.movedim((names.index("data"), names.index("seq")),
+                              (-2, -1)).reshape(-1, self.data * self.seq)
+        me, mine = collectives.rank(), None
+        for row in ranks.tolist():
+            group = dist.new_group(row)
+            if me in row:
+                mine = group
+        return mine
 
     @property
     def ranks(self):
-        return self.data * self.model
+        return self.data * self.model * self.seq
 
-    def tensor_parallel(self, symbol, shapes):
+    def tensor_parallel(self, symbol, shapes, seq_inputs=None):
         return TensorParallel(
             symbol, shapes, self.model, self.model_rank, self.model_group,
             data=self.data, data_group=self.data_group,
             mode=config.get("MXNET_TP_MODE"),
-            mesh_shape={"data": self.data, "model": self.model})
+            mesh_shape=dict({"data": self.data, "model": self.model},
+                            **({"seq": self.seq} if self.seq > 1 else {})),
+            seq=self.seq, seq_rank=self.seq_rank, seq_group=self.seq_group,
+            grad_group=self.grad_group, seq_inputs=seq_inputs)
 
     def data_rows(self, n):
         """This rank's rows of a batch of ``n`` split over the data group
@@ -197,9 +233,21 @@ class DataParallelExecutorGroup:
                  + self.label_shapes}
         self.tp = None
         self._outputs = None
+        self._input_grads = None
+        # {input name: T dim} of the inputs split over the seq group: a
+        # layout with N and T, T dividing the axis (else the input stays
+        # whole, every seq rank computing the same)
+        self._seq_inputs = {}
         if mesh is not None:
+            if mesh.seq > 1:
+                for d in self.data_shapes + self.label_shapes:
+                    layout = getattr(d, "layout", None) or ""
+                    if "N" in layout and "T" in layout \
+                            and d.shape[layout.index("T")] % mesh.seq == 0:
+                        self._seq_inputs[d.name] = layout.index("T")
             # this rank's slice of the batch; the parameters' GLOBAL
-            # shapes for the plan (set_params / get_params use them)
+            # shapes for the plan (set_params / get_params use them); the
+            # executor binds the seq inputs' blocks (tp.local_shape)
             self._slice = self.batch_size // mesh.data
             shapes = {n: (self._slice,) + tuple(s[1:])
                       for n, s in shapes.items()}
@@ -209,7 +257,8 @@ class DataParallelExecutorGroup:
                 if n in set(self.param_names)}
             self.global_shapes.update(
                 (n, tuple(s)) for n, s in zip(self.aux_names, aux_shapes))
-            self.tp = mesh.tensor_parallel(symbol, self.global_shapes)
+            self.tp = mesh.tensor_parallel(symbol, self.global_shapes,
+                                           self._seq_inputs)
             # op-declared parameter axes (OpDef.mesh_axes: the MoE expert
             # stacks); an 'expert' axis above 1 is refused by MeshRuntime
             self._param_mesh_axes = param_mesh_axes(symbol, mesh.sizes)
@@ -273,21 +322,45 @@ class DataParallelExecutorGroup:
             raise MXNetError("batch has %d data arrays, the module binds %s"
                              % (len(data_batch.data), self.data_names))
         for name, arr in zip(self.data_names, data_batch.data):
-            self.exec_.arg_dict[name][:] = self._my_rows(arr)
+            self.exec_.arg_dict[name][:] = self._my_cols(
+                name, self._my_rows(arr))
         if self.label_names and data_batch.label:
             for name, arr in zip(self.label_names, data_batch.label):
                 if name in self.exec_.arg_dict:
-                    self.exec_.arg_dict[name][:] = self._my_rows(arr)
-        self._outputs = None
+                    self.exec_.arg_dict[name][:] = self._my_cols(
+                        name, self._my_rows(arr))
+        self._outputs = self._input_grads = None
 
     def _my_rows(self, arr):
         """Under a mesh, this rank's data-axis slice of a global batch
-        array; else the array."""
+        array (its leading dim in data blocks: a batch's rows, or an
+        output's (B, T) rows); else the array."""
         if self.mesh is None or self.mesh.data == 1:
             return arr
         full = self._full(arr)
-        return full[self.mesh.data_rank * self._slice:
-                    (self.mesh.data_rank + 1) * self._slice]
+        k = full.shape[0] // self.mesh.data
+        return full[self.mesh.data_rank * k:(self.mesh.data_rank + 1) * k]
+
+    def _my_cols(self, name, arr):
+        """This rank's seq-axis block of input ``name`` along its T dim,
+        when the input is split over the seq group; else ``arr``."""
+        tdim = self._seq_inputs.get(name)
+        if tdim is None:
+            return arr
+        full = self._full(arr)
+        return slice_seq(full, SeqSplit(tdim, full.shape[tdim]
+                                        // self.mesh.seq),
+                         self.mesh.seq, self.mesh.seq_rank)
+
+    def _whole(self, value, st):
+        """A value of this rank (split over the seq group as ``st``, None:
+        whole) gathered over seq along T, then over data along its rows:
+        the reference's row order."""
+        if st is not None:
+            value = gather_seq(value, st, self.mesh.seq_group)
+        if self.mesh.data > 1:
+            value = collectives.all_gather(value, 0, self.mesh.data_group)
+        return value
 
     def forward(self, data_batch, is_train=None):
         self.load_data_batch(data_batch)
@@ -299,23 +372,34 @@ class DataParallelExecutorGroup:
         if not self.for_training:
             raise MXNetError("re-bind with for_training=True to run "
                              "backward")
-        if out_grads is not None and self.mesh is not None \
-                and self.mesh.data > 1:
-            out_grads = [self._my_rows(g) for g in (
+        mesh = self.mesh
+        if out_grads is not None and mesh is not None \
+                and mesh.data * mesh.seq > 1:
+            out_grads = [self._my_out(g, st) for g, st in zip(
                 out_grads if isinstance(out_grads, (list, tuple))
-                else [out_grads])]
+                else [out_grads], self.tp.out_seq)]
         self.exec_.backward(out_grads)
-        if self.mesh is not None and self.mesh.data > 1:
-            self._sum_grads_over_data()
+        self._input_grads = None
+        if mesh is not None and mesh.data * mesh.seq > 1:
+            self._sum_grads()
 
-    def _sum_grads_over_data(self):
-        """The parameter gradients summed over the data group: packed
-        into one buffer, one all-reduce, unpacked in place."""
+    def _my_out(self, grad, st):
+        """This rank's block of a global head gradient of an output split
+        as ``st`` (its data rows, then its seq block)."""
+        grad = self._full(self._my_rows(grad))
+        if st is None:
+            return grad
+        return slice_seq(grad, st, self.mesh.seq, self.mesh.seq_rank)
+
+    def _sum_grads(self):
+        """The parameter gradients summed over the data x seq ranks that
+        share this rank's model coordinate: packed into one buffer, one
+        all-reduce, unpacked in place."""
         grads = [g.data for g in self.grad_arrays if g is not None]
         if not grads:
             return
         flat = torch.cat([g.reshape(-1).float() for g in grads])
-        collectives.all_reduce(flat, self.mesh.data_group)
+        collectives.all_reduce(flat, self.mesh.grad_group)
         off = 0
         with torch.no_grad():
             for g in grads:
@@ -324,21 +408,36 @@ class DataParallelExecutorGroup:
                 off += n
 
     def get_outputs(self, merge_multi_context=True):
-        """The outputs of the last forward; under a mesh with a data axis
-        above 1 every rank's rows gathered in rank order (once a
-        forward)."""
-        if self.mesh is None or self.mesh.data == 1:
+        """The outputs of the last forward; under a mesh with a data or
+        seq axis above 1 every rank's blocks gathered in the reference's
+        row order (once a forward)."""
+        mesh = self.mesh
+        if mesh is None or mesh.data * mesh.seq == 1:
             return list(self.exec_.outputs)
         if self._outputs is None:
             from ..ndarray import NDArray
 
-            self._outputs = [NDArray(collectives.all_gather(
-                o.data, 0, self.mesh.data_group))
-                for o in self.exec_.outputs]
+            self._outputs = [NDArray(self._whole(o.data, st)) for o, st in
+                             zip(self.exec_.outputs, self.tp.out_seq)]
         return list(self._outputs)
 
     def get_input_grads(self, merge_multi_context=True):
-        return [self.exec_.grad_dict[n] for n in self.data_names]
+        """The data inputs' gradients; under a mesh every rank's blocks
+        gathered as the outputs are."""
+        mesh = self.mesh
+        grads = [self.exec_.grad_dict[n] for n in self.data_names]
+        if mesh is None or mesh.data * mesh.seq == 1:
+            return grads
+        if self._input_grads is None:
+            from ..ndarray import NDArray
+
+            self._input_grads = []
+            for n, g in zip(self.data_names, grads):
+                tdim = self._seq_inputs.get(n)
+                st = None if tdim is None else SeqSplit(
+                    tdim, g.data.shape[tdim])
+                self._input_grads.append(NDArray(self._whole(g.data, st)))
+        return list(self._input_grads)
 
     def install_monitor(self, mon):
         mon.install(self.exec_)

@@ -60,14 +60,17 @@ host parameter dicts; ``borrow_optimizer`` takes its optimizer, updater,
 KVStore and train step, which then runs this module's graph over the one
 store (``BucketingModule``).
 
-``mesh_config=MeshConfig(data=D, model=M)`` makes the module one rank
-of a (data x model) mesh of processes (each started under
-``parallel.launch``, one context each; ``D * M`` must equal the group's
-world size, where the reference resolves it against its contexts):
-every rank is fed the same global batch and trains its data-axis slice
-on its shards of the tensor-parallel plan (``MXNET_TP_MODE``,
+``mesh_config=MeshConfig(data=D, model=M, seq=S)`` makes the module one
+rank of a (data x model x seq) mesh of processes (each started under
+``parallel.launch``, one context each; ``D * M * S`` must equal the
+group's world size, where the reference resolves it against its
+contexts): every rank is fed the same global batch and trains its
+data-axis slice, and of every input whose layout holds N and T its
+seq-axis block of the sequence (attention runs the ring,
+:mod:`~mxnet_tpu_torch.parallel.ring`), on its shards of the
+tensor-parallel plan (``MXNET_TP_MODE``,
 :mod:`~mxnet_tpu_torch.parallel.tp_exec`), the gradients summed over the
-data group before ``update()``.  ``get_params`` / ``save_checkpoint``
+data x seq ranks before ``update()``.  ``get_params`` / ``save_checkpoint``
 gather the full parameters (rank 0 writes the files, which stay the
 reference's); ``init_params`` / ``set_params`` take full arrays.  Such a
 module trains on the eager path (a collective cannot run inside a

@@ -8,24 +8,31 @@ reduces through and the tensor-parallel ones
 rank (:mod:`~mxnet_tpu_torch.parallel.tp_exec`, what a Module with a
 ``mesh_config`` and a mesh ``DecodePredictor`` run), the GPipe pipeline
 over a pipe group (:mod:`~mxnet_tpu_torch.parallel.pipeline`, what a
-``PipelineModule`` runs), and worker liveness
-(:mod:`~mxnet_tpu_torch.parallel.health`), which the elastic loop polls.
-The ring and the ``shard_map`` shim are still to come (ROADMAP item 7
-step 5)."""
+``PipelineModule`` runs), ring attention over a seq group
+(:mod:`~mxnet_tpu_torch.parallel.ring`, what a Module's attention runs
+under a ``seq`` axis, kernels C, D and E a hop), the ``shard_map`` shim
+over a mesh of ranks (:mod:`~mxnet_tpu_torch.parallel.compat`), and
+worker liveness (:mod:`~mxnet_tpu_torch.parallel.health`), which the
+elastic loop polls."""
 from . import collectives
+from . import compat
 from . import health
 from . import launch
 from . import mesh
 from . import pipeline
+from . import ring
 from . import tp_exec
 from . import tp_rules
 from .health import (FailureMonitor, Heartbeat, ReconfigEvent, dead_nodes,
                      ensure_heartbeat, is_recovery, num_dead_nodes,
                      stop_heartbeat)
 from .mesh import MeshConfig, build_mesh, data_parallel_mesh
+from .compat import shard_map
 from .pipeline import pipeline_apply, stack_stage_params
+from .ring import ring_attention
 
-__all__ = ["collectives", "launch", "mesh", "tp_rules", "tp_exec",
+__all__ = ["collectives", "compat", "shard_map", "launch", "mesh",
+           "tp_rules", "tp_exec", "ring", "ring_attention",
            "pipeline", "pipeline_apply", "stack_stage_params",
            "build_mesh",
            "data_parallel_mesh", "MeshConfig", "health", "Heartbeat",

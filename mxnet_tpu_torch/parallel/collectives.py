@@ -21,6 +21,9 @@ tp_exec`):
   backward — where a sharded activation meets an op that does not keep
   it sharded;
 * :func:`scatter_to`: this rank's slice forward, all-gather backward;
+* :func:`seq_gather` (over a seq group): all-gather forward,
+  reduce-scatter backward — where each rank uses the gathered value
+  its own way (its queries against the gathered keys);
 * :func:`sum_over` (over a data group): all-reduce forward and backward,
   the sums that synchronized BatchNorm takes over the data axis.
 
@@ -42,6 +45,13 @@ calls read and write host memory only).  :func:`send` never blocks
 (gloo's blocking send waits for the matching receive): its request is
 kept until :func:`wait_sends`.
 
+Ring attention's hops are :class:`RingShift` (``lax.ppermute`` by one
+step around a group: every rank sends to the next rank and receives
+from the previous one, over the same counted point-to-point calls;
+posted at once and waited for later, so a hop's transfer can run while
+the card computes) and :func:`ring_shift_grad` (posted and waited,
+differentiable: the gradients travel back).
+
 On abstract tensors (``meta`` ones, or the fake tensors of an export
 or a shape probe) every collective returns the shape it would give and
 communicates nothing: a rank's programs trace alone.
@@ -54,8 +64,9 @@ import torch
 
 __all__ = ["global_sum", "barrier", "active", "world_size", "rank",
            "copy_to", "reduce_from", "gather_from", "scatter_to",
-           "sum_over", "all_gather", "all_reduce", "broadcast", "send",
-           "recv", "wait_sends", "COUNTS", "reset_counts", "SYNC_TIMING"]
+           "seq_gather", "sum_over", "all_gather", "all_reduce",
+           "broadcast", "send", "recv", "wait_sends", "RingShift",
+           "ring_shift_grad", "COUNTS", "reset_counts", "SYNC_TIMING"]
 
 COUNTS = {}
 SYNC_TIMING = False
@@ -223,9 +234,18 @@ def _gloo(group):
     return dist.get_backend(group) == "gloo"
 
 
-def send(tensor, dst, tag=0, group=None):
-    """Send ``tensor`` to global rank ``dst`` without blocking (counted
-    under ``send``); the request completes by :func:`wait_sends`."""
+def _global_rank(group, r):
+    """The global rank of rank ``r`` of ``group`` (None: the default
+    group, whose ranks are global)."""
+    import torch.distributed as dist
+
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def _post_send(tensor, dst, tag, group):
+    """``(request, buffer)`` of a send of ``tensor`` to global rank
+    ``dst`` (counted under ``send``); a CUDA tensor over gloo is staged
+    through a pinned host buffer first."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -234,24 +254,47 @@ def send(tensor, dst, tag=0, group=None):
         host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
         host.copy_(buf)
         buf = host
-    _PENDING.append((dist.isend(buf, dst, group=group, tag=tag), buf))
+    work = dist.isend(buf, dst, group=group, tag=tag)
     _count("send", buf, time.perf_counter() - t0)
+    return work, buf
+
+
+class _Recv:
+    """A posted receive of a ``shape`` / ``dtype`` tensor from global
+    rank ``src`` (into a pinned host buffer for a CUDA ``device`` over
+    gloo); :meth:`wait` returns it on ``device`` (counted under
+    ``recv``: the seconds of the post and of the wait)."""
+
+    def __init__(self, shape, dtype, device, src, tag, group):
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        self.device = torch.device(device)
+        self.staged = self.device.type == "cuda" and _gloo(group)
+        self.buf = torch.empty(shape, dtype=dtype, pin_memory=self.staged,
+                               device="cpu" if self.staged else self.device)
+        self.work = dist.irecv(self.buf, src, group=group, tag=tag)
+        self.s = time.perf_counter() - t0
+
+    def wait(self):
+        t0 = time.perf_counter()
+        self.work.wait()
+        out = self.buf.to(self.device, non_blocking=True) if self.staged \
+            else self.buf
+        _count("recv", self.buf, self.s + time.perf_counter() - t0)
+        return out
+
+
+def send(tensor, dst, tag=0, group=None):
+    """Send ``tensor`` to global rank ``dst`` without blocking (counted
+    under ``send``); the request completes by :func:`wait_sends`."""
+    _PENDING.append(_post_send(tensor, dst, tag, group))
 
 
 def recv(shape, dtype, device, src, tag=0, group=None):
     """A new tensor of ``shape`` received from global rank ``src``
     (blocking; counted under ``recv``)."""
-    import torch.distributed as dist
-
-    t0 = time.perf_counter()
-    device = torch.device(device)
-    staged = device.type == "cuda" and _gloo(group)
-    buf = torch.empty(shape, dtype=dtype, pin_memory=staged,
-                      device="cpu" if staged else device)
-    dist.recv(buf, src, group=group, tag=tag)
-    out = buf.to(device, non_blocking=True) if staged else buf
-    _count("recv", buf, time.perf_counter() - t0)
-    return out
+    return _Recv(shape, dtype, device, src, tag, group).wait()
 
 
 def wait_sends():
@@ -259,6 +302,77 @@ def wait_sends():
     while _PENDING:
         work, _ = _PENDING.pop(0)
         work.wait()
+
+
+# ---------------------------------------------------------------------------
+# the ring shift (ring attention's hops)
+# ---------------------------------------------------------------------------
+
+class RingShift:
+    """A posted shift of ``tensors`` around ``group``: each goes to the
+    next rank of the group (the previous one under ``reverse``) with its
+    tag from ``tags``, and the previous rank's (the next one's) are
+    received.  The receives are posted before the sends, and nothing
+    blocks until :meth:`wait`, so every rank of a ring of any size may
+    post its shift before it computes on the resident blocks.  For a
+    group of one :meth:`wait` returns ``tensors`` themselves."""
+
+    def __init__(self, tensors, group, tags, reverse=False):
+        tensors = list(tensors)
+        n = _group_size(group)
+        self._out = tensors if n == 1 else None
+        self._recvs, self._sends = [], []
+        if n == 1:
+            return
+        if any(_abstract(t) for t in tensors):
+            self._out = [t.new_empty(t.shape) for t in tensors]
+            return
+        me = _group_rank(group)
+        nxt = _global_rank(group, (me + 1) % n)
+        prv = _global_rank(group, (me - 1) % n)
+        dst, src = (prv, nxt) if reverse else (nxt, prv)
+        self._recvs = [_Recv(t.shape, t.dtype, t.device, src, tag, group)
+                       for t, tag in zip(tensors, tags)]
+        self._sends = [_post_send(t, dst, tag, group)
+                       for t, tag in zip(tensors, tags)]
+
+    def wait(self):
+        """The received tensors (on the senders' devices), in order."""
+        if self._out is None:
+            self._out = [r.wait() for r in self._recvs]
+            for work, _ in self._sends:
+                work.wait()
+        return self._out
+
+
+class _RingShiftFn(torch.autograd.Function):
+    """Forward: the tensors shifted forward around the ring.  Backward:
+    their gradients shifted the other way, with ``grad_tags``."""
+
+    @staticmethod
+    def forward(ctx, group, tags, grad_tags, *tensors):
+        ctx.group, ctx.grad_tags = group, grad_tags
+        ctx.meta = [(t.shape, t.dtype, t.device) for t in tensors]
+        return tuple(RingShift(tensors, group, tags).wait())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros(s, dtype=d, device=v) if g is None else g
+                 for g, (s, d, v) in zip(grads, ctx.meta)]
+        back = RingShift(grads, ctx.group, ctx.grad_tags,
+                         reverse=True).wait()
+        return (None, None, None) + tuple(back)
+
+
+def ring_shift_grad(tensors, group, tags, grad_tags):
+    """``tensors`` (tagged ``tags``) shifted one rank forward around
+    ``group`` as one differentiable step: the gradients travel back one
+    rank, tagged ``grad_tags``.  A tuple; the identity for a group of
+    one."""
+    if _group_size(group) == 1:
+        return tuple(tensors)
+    return _RingShiftFn.apply(group, tuple(tags), tuple(grad_tags),
+                              *tensors)
 
 
 def _my_slice(tensor, dim, group):
@@ -303,6 +417,18 @@ class _GatherFrom(torch.autograd.Function):
         return _my_slice(dy, ctx.dim, ctx.group), None, None
 
 
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        total = all_reduce(dy.contiguous().clone(), ctx.group)
+        return _my_slice(total, ctx.dim, ctx.group), None, None
+
+
 class _ScatterTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -345,6 +471,16 @@ def gather_from(x, dim, group):
     if _group_size(group) == 1:
         return x
     return _GatherFrom.apply(x, dim, group)
+
+
+def seq_gather(x, dim, group):
+    """The ranks' ``x`` concatenated along ``dim``, for a use that
+    differs by rank (each attends its own queries to the gathered keys):
+    the gradient is summed over ``group``, then sliced (a reduce-scatter:
+    Megatron's sequence-parallel gather)."""
+    if _group_size(group) == 1:
+        return x
+    return _SeqGather.apply(x, dim, group)
 
 
 def scatter_to(x, dim, group):

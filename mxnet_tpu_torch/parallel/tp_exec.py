@@ -51,16 +51,49 @@ divide by the whole batch's rows / valid count (one all-reduce of the
 count for 'valid').  Any other reduction over dim 0 of a value the batch
 reaches (``mean`` before MakeLoss) raises there: each rank would reduce
 its slice alone.
+
+Over a seq group of more than one rank (the realization of what GSPMD
+does for the reference's ``seq`` axis) the walk also keeps, for every
+value, which dim holds this rank's block of the sequence
+(:class:`SeqSplit`; the executor group splits the T dim of every input
+whose layout has N and T).  A per-token op keeps the split: the element-
+wise and broadcast families, ``FullyConnected`` on rows or with
+``flatten=False``, ``FusedLNLinear``, ``Embedding``, softmax over
+another axis, reductions over other axes, a ``Reshape`` that merges
+the leading (N, T) dims (the LM's rows), ``SoftmaxOutput`` on split rows
+(its 'batch' / 'valid' normalization over data x seq).  A whole operand
+that carries every position (``attention_lm``'s ``pos_embed_weight``) is
+cut to the block; one broadcast along T is used as it is when it is a
+parameter (its gradient, a partial sum over the rank's tokens, is summed
+with the others) and through *f* over the seq group when it is not.
+``dot_product_attention`` on split q / k / v runs the ring
+(:mod:`~mxnet_tpu_torch.parallel.ring`, ``MXNET_RING_ATTENTION``; on
+the rank's heads under a model axis) or gathers K and V
+(``collectives.seq_gather``) for the rank's queries.  Any other op runs
+on its split inputs gathered, every seq rank computing the same values,
+its parameters' gradients taken at 1 / seq each, so the one all-reduce
+over data x seq (the executor group's) restores them.  A reduction over
+T of a split value raises.
 """
 from __future__ import annotations
 
+import functools
+from collections import namedtuple
+
+import numpy as np
 import torch
 
 from ..base import MXNetError
 from . import collectives as C
 from .tp_rules import ELEMENTWISE_OPS, plan_tensor_parallel
 
-__all__ = ["TensorParallel", "GraphWalk", "param_mesh_axes"]
+__all__ = ["TensorParallel", "GraphWalk", "param_mesh_axes", "SeqSplit",
+           "gather_seq", "slice_seq"]
+
+# A value split over the seq group: its dim ``dim`` is (outer, t) with
+# this rank's block of ``t`` (of t x seq) positions inner (outer 1 on an
+# input's T dim; the (B, T) dims merged into rows are (B, t)).
+SeqSplit = namedtuple("SeqSplit", "dim t")
 
 
 def param_mesh_axes(symbol, axis_sizes):
@@ -82,13 +115,16 @@ def param_mesh_axes(symbol, axis_sizes):
 class TensorParallel:
     """One rank's realization of the plan over ``model_group`` (``model``
     ranks, this one ``model_rank``); ``data_group`` (``data`` ranks) is
-    where BatchNorm's statistics are summed.  ``shapes`` maps every
-    parameter and aux state to its GLOBAL shape; ``mode`` is
-    "megatron" or "naive"."""
+    where BatchNorm's statistics are summed; ``seq_group`` (``seq``
+    ranks, this one ``seq_rank``) splits the inputs named in
+    ``seq_inputs`` ({name: T dim}) and ``grad_group`` spans data x seq.
+    ``shapes`` maps every parameter and aux state to its GLOBAL shape;
+    ``mode`` is "megatron" or "naive"."""
 
     def __init__(self, symbol, shapes, model, model_rank, model_group,
                  data=1, data_group=None, mode="megatron",
-                 mesh_shape=None):
+                 mesh_shape=None, seq=1, seq_rank=0, seq_group=None,
+                 grad_group=None, seq_inputs=None):
         if mode not in ("megatron", "naive"):
             raise MXNetError("MXNET_TP_MODE must be 'megatron' or 'naive', "
                              "not %r" % (mode,))
@@ -97,6 +133,15 @@ class TensorParallel:
         self.group = model_group
         self.data = int(data)
         self.data_group = data_group
+        self.seq = int(seq)
+        self.seq_rank = int(seq_rank)
+        self.seq_group = seq_group
+        # the group the parameter gradients are summed over (data x seq)
+        self.grad_group = grad_group
+        # {input name: its T dim}: the inputs split over the seq group
+        self.seq_inputs = dict(seq_inputs or {})
+        # the seq split of each graph output of the last run (None: whole)
+        self.out_seq = []
         self.mode = mode
         self.mesh_shape = dict(mesh_shape or {"model": self.model})
         self.plan = plan_tensor_parallel(symbol) if mode == "megatron" \
@@ -140,12 +185,16 @@ class TensorParallel:
         return 0
 
     def local_shape(self, name, shape):
-        """This rank's shape of ``name`` (global ``shape``)."""
-        dim = self.sharded.get(name)
-        if dim is None:
-            return tuple(shape)
+        """This rank's shape of ``name`` (global ``shape``): a sharded
+        parameter's split dim over the model axis, a seq-split input's T
+        dim over the seq axis."""
         shape = list(shape)
-        shape[dim] //= self.model
+        dim = self.sharded.get(name)
+        if dim is not None:
+            shape[dim] //= self.model
+        tdim = self.seq_inputs.get(name)
+        if tdim is not None:
+            shape[tdim] //= self.seq
         return tuple(shape)
 
     def shard(self, name, full):
@@ -188,20 +237,31 @@ class TensorParallel:
                 src = env_aux if node.is_aux_var else env_args
                 if node.name not in src:
                     raise MXNetError("no value bound for %r" % node.name)
-                walk.put((id(node), 0), src[node.name],
-                         self.sharded.get(node.name), param=node.name)
+                value = src[node.name]
+                walk.put((id(node), 0), value, self.sharded.get(node.name),
+                         param=node.name)
                 if node.name not in self.coverage:
                     walk.batched.add((id(node), 0))
+                tdim = self.seq_inputs.get(node.name)
+                if tdim is not None and self.seq > 1:
+                    walk.seq[(id(node), 0)] = SeqSplit(
+                        tdim, value.shape[tdim])
                 continue
             attrs = node.parsed_attrs()
             batched = any(walk.key(e) in walk.batched for e in node.inputs)
             if batched and self.data > 1:
                 _refuse_batch_reduction(node, attrs, walk, self.data)
-            outs, states, node_aux = walk.node(node, attrs)
+            ins, out_seq = None, None
+            if self.seq > 1:
+                ins, out_seq, attrs = walk.seq_prepare(node, attrs)
+            outs, states, node_aux = walk.node(node, attrs, ins)
+            walk.seq_factor = 1
             for i, (o, st) in enumerate(zip(outs, states)):
                 walk.put((id(node), i), o, st)
                 if batched:
                     walk.batched.add((id(node), i))
+                if out_seq is not None:
+                    walk.seq_put((id(node), i), o, outs[0], out_seq)
             if tap is not None:
                 names = node.op.list_outputs(attrs)
                 for i in range(node.op.n_visible_outputs(attrs)):
@@ -211,6 +271,7 @@ class TensorParallel:
             for (anode, _), val in zip(node.inputs[n_args:], node_aux):
                 new_aux[anode.name] = val
         outs = [walk.rep((id(n), i)) for n, i in symbol._outputs]
+        self.out_seq = [walk.seq.get((id(n), i)) for n, i in symbol._outputs]
         return outs, new_aux
 
 
@@ -230,6 +291,9 @@ class GraphWalk:
         self.params = {}
         self.cache = {}
         self.batched = set()        # the entries the batch reaches
+        self.seq = {}               # entry -> SeqSplit (None: whole)
+        self.seq_factor = 1         # the node running: its rows' split
+        self._aliases = []
 
     def put(self, key, value, state, param=None):
         if state is not None:
@@ -274,10 +338,95 @@ class GraphWalk:
         return self.tp.sharded.get(self.params.get(self.key(entry)))
 
     # ------------------------------------------------------------------
-    def node(self, node, attrs):
+    # the seq axis
+    # ------------------------------------------------------------------
+    def _is_param(self, key):
+        return key in self.params and key not in self.batched
+
+    def _alias(self, key, value):
+        """A fresh entry for ``value``, a form of entry ``key`` (its model
+        state, parameter name and batch mark carried over)."""
+        alias = _Alias()
+        self._aliases.append(alias)
+        akey = (id(alias), 0)
+        self.values[akey] = value
+        self.states[akey] = self.states[key]
+        if key in self.params:
+            self.params[akey] = self.params[key]
+        if key in self.batched:
+            self.batched.add(akey)
+        return (alias, 0)
+
+    def _seq_form(self, entry, kind):
+        """``entry`` converted for its node (cached a kind): "share" a
+        parameter's gradient over the seq ranks (a replicated node),
+        "bcast" a whole operand broadcast against a split one (a non-
+        parameter's gradient summed over the group), ("slice", SeqSplit)
+        a whole operand cut to this rank's block, ("gather", SeqSplit) a
+        split value gathered."""
+        key = self.key(entry)
+        tp = self.tp
+        ck = (key, ("seq",) + tuple(kind if isinstance(kind, tuple)
+                                    else (kind,)))
+        if ck in self.cache:
+            return self.cache[ck]
+        value = self.values[key]
+        param = self._is_param(key)
+        if kind == "share":
+            out = _ShareGrad.apply(value, 1.0 / tp.seq) if param else None
+        elif kind == "bcast":
+            out = None if param else C.copy_to(value, tp.seq_group)
+        elif kind[0] == "slice":
+            out = slice_seq(value, kind[1], tp.seq, tp.seq_rank,
+                            None if param else tp.seq_group)
+        else:
+            out = gather_seq(value, kind[1], tp.seq_group)
+        self.cache[ck] = entry if out is None else self._alias(key, out)
+        return self.cache[ck]
+
+    def seq_prepare(self, node, attrs):
+        """``(inputs, out SeqSplit or None, attrs)`` for ``node`` under a
+        seq axis above 1: a node that keeps its rows' split (a per-token
+        op on split inputs) runs on them with its whole operands cut or
+        broadcast; any other node runs on its inputs gathered, every rank
+        computing the same values, its parameters' gradients shared over
+        the seq ranks (each rank's is then 1 / seq of the whole, and the
+        gradient sum over the data x seq group restores it)."""
+        n_args = node.op.n_inputs(attrs)
+        ins = list(node.inputs[:n_args])
+        keys = [self.key(e) for e in ins]
+        sts = [self.seq.get(k) for k in keys]
+        self.seq_factor = 1
+        if any(st is not None for st in sts):
+            vals = [self.values[k] for k in keys]
+            rule = _SEQ_RULES.get(node.op.name)
+            if rule is None and node.op.name in _pointwise_ops():
+                rule = _seq_pointwise
+            got = rule(self, node, attrs, vals, sts) if rule else None
+            if got is not None:
+                conv, out_st, new_attrs = got
+                self.seq_factor = self.tp.seq
+                return ([e if c is None else self._seq_form(e, c)
+                         for e, c in zip(ins, conv)], out_st,
+                        new_attrs or attrs)
+            ins = [e if st is None else self._seq_form(e, ("gather", st))
+                   for e, st in zip(ins, sts)]
+        return [self._seq_form(e, "share") for e in ins], None, attrs
+
+    def seq_put(self, key, out, first, st):
+        """Record output ``out``'s split (``st`` as for the node's first
+        output ``first``; an output of another rank or length is
+        whole)."""
+        dim = st.dim % first.dim()
+        if out.dim() == first.dim() and out.shape[dim] == first.shape[dim]:
+            self.seq[key] = SeqSplit(dim, st.t)
+
+    # ------------------------------------------------------------------
+    def node(self, node, attrs, ins=None):
         name = node.op.name
         n_args = node.op.n_inputs(attrs)
-        ins = node.inputs[:n_args]
+        if ins is None:
+            ins = node.inputs[:n_args]
         handler = _HANDLERS.get(name)
         if handler is not None:
             got = handler(self, node, attrs, ins)
@@ -454,26 +603,77 @@ class GraphWalk:
         return [self.values[k] for k in keys], local
 
     def attention(self, node, attrs, ins):
+        if self.seq_factor > 1:
+            return self._seq_attention(attrs, ins)
         got = self.attention_split(attrs, ins)
         if got is None:
             return None
         outs, _ = self._compute(node, got[1], got[0], [])
         return outs, [outs[0].dim() - 1], []
 
+    def _seq_attention(self, attrs, ins):
+        """Attention on this rank's sequence blocks of q, k and v: ring
+        attention over the seq group (``MXNET_RING_ATTENTION``, the
+        default), on the rank's heads under a model axis (ring x TP);
+        else, and where the heads or kv-heads do not divide the model
+        axis, K and V gathered over the seq group and the rank's queries
+        attended at their global offsets (plain ``sdpa``)."""
+        from .. import config as _config
+        from ..ops.attention import PATH_TAKEN, sdpa
+        from .ring import ring_attention
+
+        tp = self.tp
+        heads = attrs.get("num_heads", 1)
+        kv_heads = attrs.get("num_kv_heads", 0) or heads
+        causal = attrs.get("causal", False)
+        scale = attrs.get("scale", 0.0) or None
+        got = self.attention_split(attrs, ins)
+        if got is not None:
+            (q, k, v), local = got
+            state = q.dim() - 1
+        else:
+            q, k, v = (self.rep(self.key(e)) for e in ins)
+            local, state = attrs, None
+        if _config.get("MXNET_RING_ATTENTION") and (tp.model <= 1
+                                                    or got is not None):
+            out = ring_attention(
+                q, k, v, tp.seq_group, num_heads=heads, causal=causal,
+                scale=scale, head_axis=tp.group if tp.model > 1 else None,
+                num_kv_heads=kv_heads, plain=self.octx.plain)
+            PATH_TAKEN["last"] = "ring"
+            return [out], [state], []
+        kf = C.seq_gather(k, 1, tp.seq_group)
+        vf = C.seq_gather(v, 1, tp.seq_group)
+        if causal:
+            # keys past this rank's last query are masked for all of its
+            # queries: drop them, and sdpa's causal diagonal (tk - tq)
+            # lands on the global offset
+            keep = (tp.seq_rank + 1) * q.shape[1]
+            kf, vf = kf[:, :keep], vf[:, :keep]
+        kvl = local.get("num_kv_heads", 0) or local.get("num_heads", 1)
+        out = sdpa(q, kf, vf, num_heads=local.get("num_heads", 1),
+                   causal=causal, scale=scale, num_kv_heads=kvl)
+        PATH_TAKEN["last"] = "einsum"
+        return [out], [state], []
+
     def loss_head(self, node, attrs, ins):
         """SoftmaxOutput / MakeLoss over a data group of more than one
-        rank: ``normalization`` 'batch' and 'valid' divide the gradient
-        by the whole batch's rows and valid count (the reference's
-        global batch), not by this rank's slice's."""
+        rank, or on rows split over the seq group: ``normalization``
+        'batch' and 'valid' divide the gradient by the whole batch's rows
+        and valid count (the reference's global batch), not by this
+        rank's slice's."""
         norm = attrs.get("normalization", "null")
-        if self.tp.data <= 1 or norm not in ("batch", "valid"):
+        ranks = self.tp.data * self.seq_factor
+        if ranks <= 1 or norm not in ("batch", "valid"):
             return None
+        group = self.tp.grad_group if self.seq_factor > 1 \
+            else self.tp.data_group
         inputs = [self.rep(self.key(e)) for e in ins]
         if norm == "batch":
-            total = float(inputs[0].shape[0] * self.tp.data)
+            total = float(inputs[0].shape[0] * ranks)
         else:
             count = _valid_count(node.op.name, attrs, inputs)
-            total = max(float(C.all_reduce(count, self.tp.data_group)), 1.0)
+            total = max(float(C.all_reduce(count, group)), 1.0)
         local = dict(attrs, normalization="null",
                      grad_scale=attrs.get("grad_scale", 1.0) / total)
         outs, _ = self._compute(node, local, inputs, [])
@@ -510,6 +710,247 @@ class GraphWalk:
                        for e, v in zip(aux_entries, new_aux)]
             return outs, [None] * len(outs), new_aux
         return outs, [caxis, 0, 0], new_aux
+
+
+class _Alias:
+    """The node of an entry that is a converted form of another."""
+
+    __slots__ = ()
+
+
+class _ShareGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``share`` (a parameter read
+    by a node every seq rank runs alike: each rank's share of it)."""
+
+    @staticmethod
+    def forward(ctx, x, share):
+        ctx.share = share
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.share, None
+
+
+def _seq_view(shape, st, blocks=1):
+    """``shape`` with ``st.dim`` as (outer, t x blocks), and the index of
+    its inner axis."""
+    outer = shape[st.dim] // (st.t * blocks)
+    return (tuple(shape[:st.dim]) + (outer, st.t * blocks)
+            + tuple(shape[st.dim + 1:])), st.dim + 1
+
+
+def gather_seq(x, st, group):
+    """``x`` (split over the seq ``group`` as ``st``) whole, its blocks in
+    rank order (``collectives.gather_from``: differentiable)."""
+    view, axis = _seq_view(x.shape, st)
+    y = C.gather_from(x.reshape(view), axis, group)
+    shape = list(x.shape)
+    shape[st.dim] = -1
+    return y.reshape(shape)
+
+
+def slice_seq(x, st, n, rank, group=None):
+    """This rank's block (split as ``st`` over ``n`` ranks) of the whole
+    ``x``: a plain slice, or with ``group`` ``collectives.scatter_to``
+    (the gradient all-gathered)."""
+    view, axis = _seq_view(x.shape, st, n)
+    y = x.reshape(view)
+    y = y.narrow(axis, rank * st.t, st.t) if group is None \
+        else C.scatter_to(y, axis, group)
+    shape = list(x.shape)
+    shape[st.dim] //= n
+    return y.reshape(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _pointwise_ops():
+    """The ops that act on each element alone (``ops/elemwise.py``'s
+    families, ``ELEMENTWISE_OPS``, the element-wise loss heads)."""
+    from ..ops import elemwise as ew
+
+    names = set(ELEMENTWISE_OPS) | set(ew._UNARY) | {
+        "_copy", "Cast", "_identity_with_attr_like_rhs", "smooth_l1",
+        "add_n", "BlockGrad", "clip", "_grad_add", "MakeLoss",
+        "LinearRegressionOutput", "LogisticRegressionOutput",
+        "MAERegressionOutput"}
+    for name in ew._BINARY:
+        canon = {"plus": "add", "minus": "sub"}.get(name, name)
+        names |= {"_" + name, "broadcast_" + canon, "_%s_scalar" % name}
+        if name in ew._RSCALAR:
+            names.add("_r%s_scalar" % name)
+    for name in ew._LOGIC:
+        names |= {"broadcast_" + name, "_%s_scalar" % name}
+    return frozenset(names)
+
+
+def _whole(vals, sts, first=1):
+    """"bcast" for each input from ``first`` on, or None when one is
+    split (the node then runs gathered)."""
+    if any(st is not None for st in sts[first:]):
+        return None
+    return [None] * first + ["bcast"] * (len(vals) - first)
+
+
+def _seq_pointwise(walk, node, attrs, vals, sts):
+    """An element-wise node (operands broadcast numpy-style): the split
+    inputs agree, a whole operand is broadcast along the split dim (size
+    1 there, or no such dim) or carries every position there (cut to the
+    rank's block)."""
+    if node.op.name == "LeakyReLU" and len(vals) > 1:
+        return None             # prelu's gamma broadcasts on dim 1
+    n = walk.tp.seq
+    ref = next(i for i, st in enumerate(sts) if st is not None)
+    st, size = sts[ref], vals[ref].shape[sts[ref].dim]
+    back = st.dim - vals[ref].dim()
+    conv = []
+    for v, s in zip(vals, sts):
+        if s is not None:
+            if s.dim - v.dim() != back or s.t != st.t \
+                    or v.shape[s.dim] != size:
+                return None
+            conv.append(None)
+            continue
+        ad = v.dim() + back
+        if ad < 0 or v.shape[ad] == 1:
+            conv.append("bcast")
+        elif v.shape[ad] == size * n:
+            conv.append(("slice", SeqSplit(ad, st.t)))
+        else:
+            return None
+    return conv, SeqSplit(back, st.t), None
+
+
+def _seq_reduce(walk, node, attrs, vals, sts):
+    """A reduction over dims other than the split one keeps the split; a
+    reduction over it raises (each rank would reduce its block alone)."""
+    from ..ops.tensor import _norm_axis
+
+    x, st = vals[0], sts[0]
+    axes = tuple(range(x.dim())) if node.op.name == "norm" \
+        else _norm_axis(attrs, x.dim())
+    if st.dim in axes:
+        raise MXNetError(
+            "%s (%s) reduces over the sequence dim %d of a value split over "
+            "a seq axis of %d: each rank holds a block of the sequence, so "
+            "the reduction would cover the block only.  Reduce over the "
+            "other axes and let a loss head normalize, or train with seq=1"
+            % (node.name, node.op.name, st.dim, walk.tp.seq))
+    if attrs.get("keepdims", False):
+        return [None], st, None
+    return [None], SeqSplit(st.dim - sum(a < st.dim for a in axes),
+                            st.t), None
+
+
+def _seq_softmax(walk, node, attrs, vals, sts):
+    x, st = vals[0], sts[0]
+    if attrs.get("axis", -1) % x.dim() == st.dim:
+        return None
+    return [None], st, None
+
+
+def _seq_fully_connected(walk, node, attrs, vals, sts):
+    x, st = vals[0], sts[0]
+    conv = _whole(vals, sts)
+    rows = attrs.get("flatten", True) or x.dim() == 2
+    if st is None or conv is None or (st.dim != 0 if rows
+                                      else st.dim == x.dim() - 1):
+        return None
+    return conv, st, None
+
+
+def _seq_fused_ln_linear(walk, node, attrs, vals, sts):
+    from ..ops.fused_lm import _arg_names
+
+    x, st = vals[0], sts[0]
+    if st is None or st.dim == x.dim() - 1:
+        return None
+    conv = [None]
+    for arg, v, s in list(zip(_arg_names(attrs), vals, sts))[1:]:
+        if arg != "residual":
+            if s is not None:
+                return None
+            conv.append("bcast")
+        elif s is not None:
+            if s != st or v.shape[s.dim] != x.shape[st.dim]:
+                return None
+            conv.append(None)
+        elif v.shape[st.dim] == x.shape[st.dim] * walk.tp.seq:
+            conv.append(("slice", st))
+        else:
+            return None
+    return conv, st, None
+
+
+def _seq_embedding(walk, node, attrs, vals, sts):
+    conv = _whole(vals, sts)
+    if sts[0] is None or conv is None:
+        return None
+    return conv, sts[0], None
+
+
+def _seq_reshape(walk, node, attrs, vals, sts):
+    """A Reshape that merges the leading (N, T) dims of a value split on
+    T (the LM head's ``shape=(-1, embed)`` and its labels' ``(-1,)``):
+    the rows stay split as (N, t), the local target shape spelled out.
+    Any other reshape runs gathered."""
+    from ..ops.tensor import _infer_reshape
+
+    x, st = vals[0], sts[0]
+    if st.dim != 1 or x.shape[1] != st.t:
+        return None
+    g_in = (x.shape[0], x.shape[1] * walk.tp.seq) + tuple(x.shape[2:])
+    target = attrs.get("shape", ()) or attrs.get("target_shape", ())
+    g_out = tuple(_infer_reshape(tuple(target), g_in,
+                                 attrs.get("reverse", False)))
+    if g_out != (g_in[0] * g_in[1],) + g_in[2:]:
+        return None
+    local = (x.shape[0] * x.shape[1],) + tuple(x.shape[2:])
+    return [None], SeqSplit(0, st.t), dict(attrs, shape=local,
+                                           reverse=False, target_shape=())
+
+
+def _seq_softmax_output(walk, node, attrs, vals, sts):
+    """SoftmaxOutput on rows split over the seq group, its labels split
+    alike (or whole, cut here)."""
+    (d, label), (sd, sl) = vals, sts
+    if attrs.get("multi_output", False) or attrs.get("preserve_shape",
+                                                     False) \
+            or d.dim() != 2 or sd is None or sd.dim != 0:
+        return None
+    if sl is not None:
+        if sl.dim != 0 or sl.t != sd.t \
+                or label.shape[0] != d.shape[0]:
+            return None
+        return [None, None], sd, None
+    if label.shape[0] != d.shape[0] * walk.tp.seq:
+        return None
+    return [None, ("slice", SeqSplit(0, sd.t))], sd, None
+
+
+def _seq_dot_product_attention(walk, node, attrs, vals, sts):
+    """q, k and v split alike on their T dim: the ring (or the gathered
+    path) in :meth:`GraphWalk._seq_attention`."""
+    q, st = vals[0], sts[0]
+    if q.dim() != 3 or st is None or st.dim != 1 \
+            or q.shape[1] != st.t or any(s != st for s in sts) \
+            or any(v.shape[1] != q.shape[1] for v in vals):
+        return None
+    return [None, None, None], st, None
+
+
+_SEQ_RULES = {
+    "FullyConnected": _seq_fully_connected,
+    "FusedLNLinear": _seq_fused_ln_linear,
+    "Embedding": _seq_embedding,
+    "Reshape": _seq_reshape,
+    "softmax": _seq_softmax,
+    "log_softmax": _seq_softmax,
+    "SoftmaxOutput": _seq_softmax_output,
+    "dot_product_attention": _seq_dot_product_attention,
+}
+_SEQ_RULES.update({name: _seq_reduce for name in (
+    "sum", "mean", "prod", "nansum", "nanprod", "max", "min", "norm")})
 
 
 _HANDLERS = {

@@ -504,6 +504,78 @@ def test_flash_kernels_are_bitwise_repeatable(card, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_ring_of_one_rank_is_the_flash_op(card, dtype, groups):
+    """``ring_attention`` over a seq axis of one on CUDA tensors: C, D
+    and E launch once each, nothing is sent, and the output and
+    gradients equal ``flash_fwd`` / ``flash_bwd``'s bit for bit (one
+    block: the merge's weight is exp(0) = 1)."""
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+    from mxnet_tpu_torch.parallel import collectives, compat, ring
+
+    g = torch.Generator(device="cpu").manual_seed(groups)
+    b, t, heads, hd = 2, 200, 4, 128
+    kvh = heads // groups
+
+    def rand(e):
+        return torch.randn(b, t, e, generator=g).to(dtype).to(card)
+
+    q, k, v, do = rand(heads * hd), rand(kvh * hd), rand(kvh * hd), \
+        rand(heads * hd)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    collectives.reset_counts()
+    before = dict(fl.LAUNCHES)
+    out = ring.ring_attention(*leaves, compat.MeshAxis("seq", None, 1, 0),
+                              num_heads=heads, causal=True,
+                              num_kv_heads=kvh)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert ring.RING_PATH["last"] == "flash"
+    assert {n: fl.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert "send" not in collectives.COUNTS
+
+    def fold(x, h):
+        return x.reshape(b, t, h, hd).transpose(1, 2).reshape(b * h, t, hd)
+
+    qf, kf, vf, dof = fold(q, heads), fold(k, kvh), fold(v, kvh), \
+        fold(do, heads)
+    o, lse = fl.flash_fwd(qf, kf, vf, hd ** -0.5, True, groups)
+    dq, dk, dv = fl.flash_bwd(qf, kf, vf, o, lse, dof, hd ** -0.5, True,
+                              groups)
+    assert torch.equal(fold(out.detach(), heads), o)
+    for leaf, want, h in zip(leaves, (dq, dk, dv), (heads, kvh, kvh)):
+        assert torch.equal(fold(leaf.grad, h), want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_at_the_ring_hop_shape(card, causal):
+    """C, D and E at a hop of the long-context ring (B 2 x 16 heads,
+    T 8192 over seq 2: (32, 4096, 128) f32), causal (the diagonal hop)
+    and not (a full hop), against their plain versions."""
+    from mxnet_tpu_torch.ops import flash_kernel as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cpu").manual_seed(24)
+    bh, t, hd = 32, 4096, 128
+    q, k, v, do = (torch.randn(bh, t, hd, generator=g).to(card)
+                   for _ in range(4))
+    scale = hd ** -0.5
+    o, lse = fl.flash_fwd(q, k, v, scale, causal)
+    delta = fl.flash_delta(o, do)
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    wo, wlse = fl.flash_plain_fwd(q, k, v, scale, causal)
+    _card_close(o, wo, CARD_TOL[torch.float32])
+    _card_close(lse, wlse, 1e-5)
+    del wo, wlse
+    want = fl.flash_plain_bwd(q, k, v, o, lse, do, scale, causal)
+    for got, w in zip((dq, dk, dv), want):
+        _card_close(got, w, CARD_TOL[torch.float32])
+
+
 def test_flash_kernels_take_unaligned_views(card):
     """A view whose data is not 16-byte aligned is copied before the
     16-byte loads of C, D and E (never a plain fallback)."""

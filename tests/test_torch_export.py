@@ -445,8 +445,6 @@ NAME_EXCEPTIONS = {
     "Context": {"jax_device": "jax"},
     "CompiledTrainStep": {"compiled_hlo": "no HLO text: the step's "
                                           "static view is artifact()"},
-    "parallel": {n: "later" for n in (
-        "compat", "ring", "ring_attention", "shard_map")},
 }
 
 
@@ -475,7 +473,8 @@ def _name_pairs():
                 "analysis.cost", "analysis.retrace", "analysis.schedule",
                 "analysis.programs", "programs.registry",
                 "programs.spec", "programs.partition",
-                "parallel.tp_rules", "parallel.pipeline"):
+                "parallel.tp_rules", "parallel.pipeline", "parallel.ring",
+                "parallel.compat"):
         pairs.append((mod, importlib.import_module("mxnet_tpu." + mod),
                       importlib.import_module("mxnet_tpu_torch." + mod)))
     pairs += [

@@ -29,8 +29,8 @@ What is held:
   the three nets of the reference's test, with equal outputs;
 * a parameter whose planned dim does not divide the axis (the vocab of
   17) replicates with its coverage record, and the sharding-coverage
-  pass names it; ``seq`` and ``expert`` axes raise naming their ROADMAP
-  step; a checkpoint of the gathered parameters loads in the JAX
+  pass names it; a ``seq`` axis binds and an ``expert`` axis raises
+  naming its ROADMAP step; a checkpoint of the gathered parameters loads in the JAX
   package; optimizer-state files under a model axis raise.
 """
 import os
@@ -371,13 +371,14 @@ def _worker_main(argv):
                                        if f.severity == "error"]}
             for axis in ("seq", "expert"):
                 try:
-                    mt.mod.Module(_mlp(mt.sym), context=ctx,
-                                  mesh_config=MeshConfig(
-                                      data=1, model=1,
-                                      **{axis: world})).bind(
-                        data_shapes=[("data", (8, 10))],
-                        label_shapes=[("softmax_label", (8,))])
+                    seq_mod = mt.mod.Module(_mlp(mt.sym), context=ctx,
+                                            mesh_config=MeshConfig(
+                                                data=1, model=1,
+                                                **{axis: world}))
+                    seq_mod.bind(data_shapes=[("data", (8, 10))],
+                                 label_shapes=[("softmax_label", (8,))])
                     res["raise_" + axis] = None
+                    res["bound_" + axis] = seq_mod._exec_group.mesh.seq
                 except MXNetError as exc:
                     res["raise_" + axis] = str(exc)
     with open(os.path.join(outdir, "r%d.pkl" % rank), "wb") as f:
@@ -594,8 +595,12 @@ def test_indivisible_parameter_degrades_with_its_record(mesh12):
 
 
 def test_seq_and_expert_axes_raise(mesh12):
+    """A ``seq`` axis binds (sequence parallelism: its inputs split over
+    the axis where their layout has N and T); an ``expert`` axis still
+    raises, naming its ROADMAP step."""
     data, model, _, ranks = mesh12
-    assert "step 5" in ranks[0]["raise_seq"]
+    assert ranks[0]["raise_seq"] is None
+    assert ranks[0]["bound_seq"] == data * model
     assert "step 6" in ranks[0]["raise_expert"]
 
 
