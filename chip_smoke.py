@@ -367,6 +367,29 @@ Phases (any failure ends the run with a non-zero exit code):
    schedule, gloo seconds, peak memory a rank against the single
    process's; then C / D / E at the hop shape against their plain
    versions, timed beside SDPA.
+24. expert parallelism — two ranks sharing the card over gloo (in phase
+   22's processes, or alone ``--p24-rank``): (a) MoEFFN's sharded path
+   (``ops.moe``: route, pack, ``collectives.all_to_all`` over the expert
+   group, the rank's 4 experts, exchange back, combine) over
+   MeshConfig(expert=2) at the MoE LM layer's shape (N 16384 tokens, d
+   1024, 8 experts of hidden 4096, top-2, cf 1.25, f32) against the
+   single-process ``_moe_forward_sparse(num_groups=2)`` on the card
+   (outputs TOL_F32, the six gradients TOL_F32_LONG, x max(1, max
+   |reference|)), the drop set read from each output identical (the
+   router's inputs lie on an exact grid: no near ties), 2 exchanges a forward and 6 a step with their
+   bytes and seconds, the experts' products timed, the dense oracle
+   once; (b) phase 16 (b)'s MoE LM through ``Module(mesh_config=
+   MeshConfig(expert=2))``, EP_FIT_STEPS ``fit`` steps: A / F 3, C / D /
+   E 1, B1 1 and 6 exchanges a step a rank, MOE_PATH "sparse_a2a",
+   falling losses, the step-1 parameters and outputs against the same
+   mesh on the plain versions within CAPTURE_SPREAD times the widest
+   spread of single-process steps (again, the plain versions), step s,
+   tokens/s of the pair, peak memory a rank against the single
+   process's; (c) phase 16 (c)'s MoE serve model and phase 5's requests
+   over ``DecodePredictor(mesh=MeshConfig(expert=2))``: the same tokens
+   on both ranks, A and B launches a rank, teacher-forced against the
+   same mesh on the plain versions (|d log p| <= TOL_LOGP, flips only
+   at near ties), tokens/s and TTFT a rank.
 
 The last lines are a ``kernels`` JSON object (each entry with its
 phase 18 ``tuning`` reading: the class, the winner, its ms and the
@@ -7169,7 +7192,8 @@ ANALYSIS_CPU_ROWS = 8
 # recorded them before kernels D, E, F and B1 became operators (phase
 # 18 (c)'s tuned step; phase 6c)
 RECORDED_STEP_S, RECORDED_IMPERATIVE_STEP_S = 0.19892, 0.20048
-# the canonical programs a report must show as notes (no mesh yet)
+# the canonical programs a report must show as notes (mesh programs: the
+# port's mesh is eager ranks of processes, no single traced graph)
 ANALYSIS_NOTES = ["moe_train_step", "ring_tp_step"]
 
 
@@ -8689,7 +8713,7 @@ def phase_tensor_parallel(torch, dev):
 # phase 22: the serving mesh and the pipeline
 # ---------------------------------------------------------------------------
 P22_RANKS = 2       # the ranks of both paths: model=2, two stages
-P22_RANK_TIMEOUT = 500   # phases 22 and 23 in the same processes
+P22_RANK_TIMEOUT = 800   # phases 22, 23 and 24 in the same processes
 # examples/pipeline_lm.py's stage / embed / head at train-f32's widths
 PIPE_HIDDEN, PIPE_HEADS, PIPE_MICRO, PIPE_STEPS = 1024, 8, 4, 3
 PIPE_LR = 3e-3      # the example's Adam rate
@@ -8701,9 +8725,9 @@ TOL_PIPE_LOSS = 1e-5
 
 
 def _p22_rank_main(rank, world, address, outdir):
-    """One rank of phases 22 and 23 over gloo on the shared card: 22 (a)
-    and (b), then 23 (a) and (b), in one process (one start-up for
-    all)."""
+    """One rank of phases 22, 23 and 24 over gloo on the shared card: 22
+    (a) and (b), then 23 (a) and (b), then 24 (a)-(c), in one process
+    (one start-up for all)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8718,6 +8742,9 @@ def _p22_rank_main(rank, world, address, outdir):
     gc.collect()
     torch.cuda.empty_cache()
     _ring_ranks(torch, rank, world, outdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _expert_ranks(torch, rank, world, outdir)
     launch.shutdown()
     print("P22_RANK_%d_OK" % rank, flush=True)
     return 0
@@ -9400,15 +9427,18 @@ def phase_mesh_pipeline(torch, dev):
     the pipeline.  Returns both paths' launches and the kernel cases at
     their shapes."""
     t0 = time.perf_counter()
-    ranks, outdir, wall = _spawn_ranks(22, P22_RANKS, ("mesh", "pipe", "op",
-                                                       "lm"),
-                                       P22_RANK_TIMEOUT)
+    ranks, outdir, wall = _spawn_ranks(22, P22_RANKS, (
+        "mesh", "pipe", "op", "lm", "ep_op", "ep_lm", "ep_serve"),
+        P22_RANK_TIMEOUT)
     try:
         stacked = torch.load(os.path.join(outdir, "pipe_params.pt"))
         rank_grads = [torch.load(os.path.join(
             outdir, "pipe_grads_rank%d.pt" % r)) for r in range(P22_RANKS)]
         ring = {"op": ranks["op"], "lm": ranks["lm"], "wall_s": wall,
                 "step1": torch.load(os.path.join(outdir, "lc_step1.pt"))}
+        expert = {"ranks": {k: ranks[k] for k in ("ep_op", "ep_lm",
+                                                  "ep_serve")},
+                  "wall_s": wall}
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -9431,7 +9461,7 @@ def phase_mesh_pipeline(torch, dev):
         "pipeline_step_s": [r["step_s"] for r in pipe["ranks"]]}))
     return {"serve_mesh": serve_l, "pipeline": pipe_l,
             "a_cases": a_cases, "b_cases": b_cases, "cde": cde,
-            "ring": ring}
+            "ring": ring, "expert": expert}
 
 
 # ---------------------------------------------------------------------------
@@ -10115,6 +10145,623 @@ def phase_ring(torch, dev, spawned=None):
     return {"op": op_launches, "lm": lm_launches, "hop": hop}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: expert parallelism (the sharded MoE)
+# ---------------------------------------------------------------------------
+P24_RANKS = 2       # the expert axis: two ranks over gloo on the one card
+P24_RANK_TIMEOUT = 500
+# (a) the op at the MoE LM layer's shape (phase 16 (b)'s configuration:
+# batch 8 x T 2048 tokens of width 1024, 8 experts of hidden 4096, top-2,
+# capacity factor 1.25), f32, the aux term at MOE_OP_COEFF: a rank routes
+# 8192 tokens into C_loc = 2560 slots an expert
+EP_OP_SHAPE = (TRAIN_BATCH * SEQ, EMBED, MOE_EXPERTS, FFN)
+# (b) phase 16 (b)'s MoE LM: EP_FIT_STEPS fit steps a rank
+EP_FIT_STEPS = 3
+
+
+def _p24_rank_main(rank, world, address, outdir):
+    """One rank of phase 24 run alone (the full smoke runs it in phase
+    22's rank processes)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mxnet_tpu_torch.parallel import launch
+
+    launch.init(address, world, rank, backend="gloo")
+    _expert_ranks(torch, rank, world, outdir)
+    launch.shutdown()
+    print("P24_RANK_%d_OK" % rank, flush=True)
+    return 0
+
+
+def _expert_ranks(torch, rank, world, outdir):
+    """Phase 24 on one rank: (a) the op, (b) the MoE LM, (c) the serve."""
+    for part in (_expert_op_rank, _expert_lm_rank, _expert_serve_rank):
+        part(torch, rank, world, outdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _ep_op_inputs(torch, dev):
+    """(a)'s seeded inputs on the card.  The tokens and the router lie on
+    grids of 1/16 and 1/64 (|values| <= 1/2 and 1/4): every router logit
+    is a multiple of 2^-10 below 2^7, exact in f32 whatever the order of
+    its sums, so a rank's routing of its tokens and the single process's
+    routing of all of them are the same bit for bit.  The last two
+    experts' router columns are twice the others': their logits spread
+    twice as wide, so they draw more than their capacity and choices
+    drop."""
+    n, d, e, h = EP_OP_SHAPE
+    g = torch.Generator(device=dev)
+    g.manual_seed(240)
+    x = torch.randint(-8, 9, (n, d), generator=g, device=dev).float() / 16
+    wg = torch.randint(-8, 9, (d, e), generator=g, device=dev).float() / 64
+    wg[:, e - 2:] *= 2
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    return ([x, wg, r(e, d, h) / np.sqrt(d), 0.1 * r(e, h),
+             r(e, h, d) / np.sqrt(h), 0.1 * r(e, d)], r(n, d))
+
+
+def _ep_drop_sets(torch, inputs, y, y_ref, cap):
+    """The drop sets of (a)'s two outputs, each read from the output
+    itself: at the single process's routing every token's output is the
+    sum of its kept choices' terms (gate x the chosen expert's FFN of
+    the token), so the kept set of a row is the subset of its k terms
+    whose sum lies nearest the row (max |difference| over d), and the
+    rest are its dropped choices.  ``residual`` is that nearest
+    distance, which must stay within TOL_F32_LONG x max(1, max
+    |reference|) for the row to be read at all."""
+    x, wg, w1, b1, w2, b2 = inputs
+    n, d = x.shape
+    k = MOE_TOP_K
+    with torch.no_grad():
+        from mxnet_tpu_torch.ops import moe
+
+        choice, gate = moe._route(torch.softmax(x @ wg, dim=-1), k)
+        terms = torch.zeros(n, k, d, device=x.device)
+        for ex in range(w1.shape[0]):
+            tok, slot = (choice == ex).nonzero(as_tuple=True)
+            hid = torch.relu(x[tok] @ w1[ex] + b1[ex])
+            terms[tok, slot] = gate[tok, slot, None] * (hid @ w2[ex] + b2[ex])
+        subsets = torch.tensor([[(m >> j) & 1 for j in range(k)]
+                                for m in range(1 << k)],
+                               dtype=x.dtype, device=x.device)
+
+        def read(out):
+            out = out.reshape(n, d)
+            resid = torch.stack([
+                (out - (terms * s[None, :, None]).sum(1)).abs().amax(-1)
+                for s in subsets])                          # (2^k, n)
+            best = resid.min(0)
+            return subsets[best.indices] == 0, best.values.max()
+
+        drop, res = read(y)
+        r_drop, r_res = read(y_ref)
+        tol = TOL_F32_LONG * max(1.0, float(y_ref.abs().max()))
+        rows = (drop != r_drop).any(-1).nonzero().flatten().tolist()
+        del terms
+    return {"tokens": n, "capacity": cap,
+            "dropped_choices": int(drop.sum()),
+            "reference_dropped_choices": int(r_drop.sum()),
+            "dropped_rows": int(drop.all(-1).sum()),
+            "drops_equal": not rows, "differing_rows": rows[:16],
+            "residual": float(res), "reference_residual": float(r_res),
+            "residual_tol": tol}
+
+
+def _expert_op_rank(torch, rank, world, outdir):
+    """(a) on one rank: MoEFFN's sharded path (``MoEFn`` over
+    ``ops.moe._forward_impl`` on a MoEMesh of MeshConfig(expert=world))
+    on EP_OP_SHAPE against the single-process ``_moe_forward_sparse(
+    num_groups=world)`` on the same card (outputs TOL_F32, the six
+    gradients TOL_F32_LONG, x max(1, max |reference|)); the drop set read
+    from the output against the one read from the reference's
+    (``_ep_drop_sets``: identical); the exchanges' calls, bytes and seconds a forward and a training step;
+    the experts' two products timed; then the dense oracle once."""
+    from mxnet_tpu_torch.ops import moe
+    from mxnet_tpu_torch.parallel import MeshConfig, build_mesh
+    from mxnet_tpu_torch.parallel import collectives as C
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    n, d, e, h = EP_OP_SHAPE
+    mesh = moe.MoEMesh.of(build_mesh(MeshConfig(data=1, expert=world)))
+    inputs, dy = _ep_op_inputs(torch, dev)
+    n_loc = n // world
+    cap = moe._capacity(MOE_CF, MOE_TOP_K, n_loc, e, False)
+    names = ("y", "d_data", "d_gate_weight", "d_expert1_weight",
+             "d_expert1_bias", "d_expert2_weight", "d_expert2_bias")
+
+    def run(fwd):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        torch.cuda.synchronize()
+        C.reset_counts()
+        t0 = time.perf_counter()
+        y = moe.MoEFn.apply(fwd, MOE_OP_COEFF, *leaves)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd_counts = dict(C.COUNTS.get("all_to_all", {}))
+        y.backward(dy)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return ([y.detach()] + [t.grad for t in leaves],
+                {"fwd_s": t1 - t0, "step_s": t2 - t0,
+                 "all_to_all_fwd": fwd_counts,
+                 "all_to_all_step": dict(C.COUNTS.get("all_to_all", {})),
+                 "all_reduce_step": dict(C.COUNTS.get("all_reduce", {}))})
+
+    C.SYNC_TIMING = True
+    cases = {}
+    for kind, cf in (("sparse", MOE_CF), ("dense", 0.0)):
+        fwd = moe._forward_impl(e, cf, MOE_TOP_K, False, mesh)
+        run(fwd)                                    # warm-up
+        got, info = run(fwd)
+        info["path"] = moe.MOE_PATH["last"]
+        if kind == "sparse":
+            ref_fwd = lambda *a: moe._moe_forward_sparse(   # noqa: E731
+                *a, e, cf, num_experts_per_tok=MOE_TOP_K, num_groups=world)
+        else:
+            ref_fwd = lambda *a: moe._moe_forward(          # noqa: E731
+                *a, e, num_experts_per_tok=MOE_TOP_K)
+        want, ref_info = run(ref_fwd)
+        info["single_fwd_s"] = ref_info["fwd_s"]
+        info["single_step_s"] = ref_info["step_s"]
+        info["errors"] = {
+            nm: _close_err(a, b, TOL_F32 if nm == "y" else TOL_F32_LONG)
+            for nm, a, b in zip(names, got, want)}
+        info["finite"] = all(bool(torch.isfinite(t).all()) for t in got)
+        if kind == "sparse":
+            info["routing"] = _ep_drop_sets(torch, inputs, got[0], want[0],
+                                            cap)
+            # the experts' two products at the rank's shapes, timed
+            e_loc = e // world
+            xs = torch.randn(e_loc, world * cap, d, device=dev)
+            w1, w2 = inputs[2][:e_loc], inputs[4][:e_loc]
+            hid = torch.relu(torch.bmm(xs, w1))
+            info["bmm_ms"] = {"ffn1": _event_ms(torch, lambda: torch.bmm(
+                                  xs, w1)),
+                              "ffn2": _event_ms(torch, lambda: torch.bmm(
+                                  hid, w2))}
+            info["bmm_shapes"] = [[e_loc, world * cap, d, h],
+                                  [e_loc, world * cap, h, d]]
+            del xs, hid
+        cases[kind] = info
+        del got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    C.SYNC_TIMING = False
+    with open(os.path.join(outdir, "ep_op_rank%d.json" % rank), "w") as f:
+        json.dump({"rank": rank, "cases": cases,
+                   "wall_s": time.perf_counter() - t_start}, f)
+
+
+def _ep_sym():
+    """Phase 16 (b)'s MoE LM at MOE_CF."""
+    from mxnet_tpu_torch.models import attention_lm
+
+    return attention_lm.get_symbol(
+        vocab_size=VOCAB, seq_len=SEQ, num_layers=MOE_TRAIN_LAYERS,
+        embed=EMBED, heads=TRAIN_HEADS, ffn_hidden=FFN,
+        moe_experts=MOE_EXPERTS, moe_capacity_factor=MOE_CF,
+        moe_top_k=MOE_TOP_K)
+
+
+def _ep_batch():
+    """Phase 16 (b)'s batch."""
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, VOCAB, size=(TRAIN_BATCH, SEQ)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.zeros((TRAIN_BATCH, 1), np.float32)],
+                       axis=1)
+    return x, y
+
+
+def _ep_module(mt, sym, params, plain=False, mesh_config=None,
+               optimizer=True):
+    from mxnet_tpu_torch.io import DataDesc
+
+    kw = {} if mesh_config is None else {"mesh_config": mesh_config}
+    mod = mt.mod.Module(sym, context=mt.gpu(0), plain=plain, **kw)
+    mod.bind(data_shapes=[DataDesc("data", (TRAIN_BATCH, SEQ),
+                                   layout="NT")],
+             label_shapes=[DataDesc("softmax_label", (TRAIN_BATCH, SEQ),
+                                    layout="NT")])
+    mod.init_params(arg_params=params, aux_params={})
+    if optimizer:
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": TRAIN_LR, "momentum": MOE_MOMENTUM})
+    return mod
+
+
+def _expert_lm_rank(torch, rank, world, outdir):
+    """(b) on one rank: the MoE LM through
+    ``Module(mesh_config=MeshConfig(expert=world))``, EP_FIT_STEPS ``fit``
+    steps: each step's launches, collectives and seconds, the losses, the
+    peak memory; then one step of the same mesh on the plain versions
+    from the same parameters, and rank 0 holds the step-1 parameters and
+    the outputs' first LC_COLS columns of the two against each other."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.ops import moe, update_kernel
+    from mxnet_tpu_torch.parallel import MeshConfig, collectives
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mc = MeshConfig(data=1, expert=world)
+    sym = _ep_sym()
+    params = _train_params(sym)
+    x, y = _ep_batch()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mod = _ep_module(mt, sym, params, mesh_config=mc, optimizer=False)
+    it = mt.io.NDArrayIter(np.tile(x, (EP_FIT_STEPS, 1)),
+                           np.tile(y, (EP_FIT_STEPS, 1)),
+                           batch_size=TRAIN_BATCH)
+    labels = torch.from_numpy(y.reshape(-1, 1)).long().to(dev)
+    metric = _lm_loss_metric(torch, labels)
+    steps, first = [], {}
+    collectives.SYNC_TIMING = True
+    moe.MOE_PATH["last"] = update_kernel.UPDATE_PATH["last"] = None
+
+    def begin():
+        torch.cuda.synchronize()
+        collectives.reset_counts()
+        return _resume_counts(zero=True), time.perf_counter()
+
+    state = {"mark": begin()}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - state["mark"][1],
+                      "launches": _resume_counts(),
+                      "collectives": {k: dict(v) for k, v in
+                                      collectives.COUNTS.items()}})
+        if len(steps) == 1:
+            # every rank reads them (get_params gathers the stacks)
+            arg, _ = mod.get_params()
+            first["params"] = {k: v.data.to(dev).clone()
+                               for k, v in arg.items()}
+            first["cols"] = mod.get_outputs()[0].data[:, :LC_COLS].clone()
+        state["mark"] = begin()
+
+    mod.fit(it, eval_metric=metric, batch_end_callback=on_batch,
+            optimizer="sgd", optimizer_params={"learning_rate": TRAIN_LR,
+                                               "momentum": MOE_MOMENTUM},
+            num_epoch=1)
+    collectives.SYNC_TIMING = False
+    peak = torch.cuda.max_memory_allocated() - base
+    paths = {"moe": moe.MOE_PATH["last"],
+             "update": update_kernel.UPDATE_PATH["last"],
+             "slab_update": mod._slab_update is not None,
+             "train_step": mod._train_step is not None}
+    local = {n: list(mod._exec_group.exec_.arg_dict[n].shape)
+             for n in mod._exec_group.param_names if "_moe_" in n}
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same mesh on the plain versions, one step
+    pmod = _ep_module(mt, sym, params, plain=True, mesh_config=mc)
+    pmod.forward_backward(DataBatch([nd.array(x)], [nd.array(y)]))
+    pmod.update()
+    arg, _ = pmod.get_params()
+    plain = {k: v.data.to(dev).clone() for k, v in arg.items()}
+    p_cols = pmod.get_outputs()[0].data[:, :LC_COLS].clone()
+    del pmod, arg
+    reading = {"rank": rank, "world": world, "steps": steps,
+               "paths": paths, "local_expert_shapes": local,
+               "losses": [float(v) for v in metric.losses],
+               "peak_bytes": peak,
+               "wall_s": time.perf_counter() - t_start}
+    if rank == 0:
+        start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+        reading["vs_plain"] = _run_diff(torch, first["params"], plain,
+                                        start, _MOE_DIRECT)
+        reading["cols_vs_plain"] = _cols_diff(torch, first["cols"], p_cols)
+        del start
+    del first, plain
+    with open(os.path.join(outdir, "ep_lm_rank%d.json" % rank), "w") as f:
+        json.dump(reading, f)
+
+
+def _expert_serve_rank(torch, rank, world, outdir):
+    """(c) on one rank: phase 16 (c)'s MoE serve model and phase 5's
+    requests through ``DecodePredictor(mesh=MeshConfig(expert=world))``
+    and a DecodeServer (eager programs): its tokens, A and B launches,
+    exchanges, tokens/s, TTFT; then teacher-forced against the same mesh
+    on the plain versions (phase 16 (c)'s gate)."""
+    from mxnet_tpu_torch.ops import decode_kernel as dk
+    from mxnet_tpu_torch.ops import fused_kernel as fk
+    from mxnet_tpu_torch.ops import moe
+    from mxnet_tpu_torch.parallel import MeshConfig, collectives
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mc = MeshConfig(data=1, expert=world)
+    sym, params, n_params = _lm(torch, dev, **MOE_SERVE)
+    pred = _predictor(sym, params, False, dev, mesh=mc)
+    prompts = _prompts()
+    _serve(torch, pred, [p[:64] for p in prompts[:2]])
+    collectives.SYNC_TIMING = True
+    collectives.reset_counts()
+    fk.LAUNCHES["fused_fwd"] = 0
+    dk.LAUNCHES["paged_decode"] = dk.LAUNCHES["paged_combine"] = 0
+    moe.MOE_PATH["last"] = None
+    torch.cuda.reset_peak_memory_stats()
+    results, wall, stats = _serve(torch, pred, prompts)
+    launches = {"fused_fwd": fk.LAUNCHES["fused_fwd"],
+                "paged_decode": dk.LAUNCHES["paged_decode"],
+                "paged_combine": dk.LAUNCHES["paged_combine"]}
+    collectives.SYNC_TIMING = False
+    path = moe.MOE_PATH["last"]
+    counts = {k: dict(v) for k, v in collectives.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    plain = _predictor(sym, params, True, dev, mesh=mc)
+    forced = torch.tensor([[int(results[i][s]) for s in range(8)]
+                           for i in range(SLOTS)], dtype=torch.int32,
+                          device=dev)
+    _, forced_reading = _teacher_forced_moe(torch, moe, pred, plain,
+                                            prompts, forced)
+    tokens = sum(len(t) for t in results.values())
+    reading = {
+        "rank": rank, "world": world, "params": n_params,
+        "tokens": {str(k): np.asarray(v).tolist()
+                   for k, v in results.items()},
+        "path": path, "launches": launches, "collectives": counts,
+        "steps": stats["steps"], "chunks": stats["chunks"],
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "ttft_p50_s": stats.get("ttft_p50_s"),
+        "ttft_p95_s": stats.get("ttft_p95_s"),
+        "peak_bytes": peak, "teacher_forced": forced_reading,
+        "expert_stacks_whole": list(pred._env[
+            "layer0_moe_expert1_weight"].shape),
+        "phase_wall_s": time.perf_counter() - t_start}
+    del pred, plain
+    with open(os.path.join(outdir, "ep_serve_rank%d.json" % rank), "w") as f:
+        json.dump(reading, f)
+
+
+def _ep_single(torch, x, y, plain=False):
+    """One eager single-process step of the MoE LM on the card (one
+    capacity quota over the batch): (parameters after it, the outputs'
+    first LC_COLS columns, its seconds, its peak memory above what the
+    process held before)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.io import DataBatch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sym = _ep_sym()
+    with config.overrides(MXNET_FUSED_TRAIN_STEP=False):
+        mod = _ep_module(mt, sym, _train_params(sym), plain=plain)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.forward_backward(DataBatch([nd.array(x)], [nd.array(y)]))
+    mod.update()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    cols = mod.get_outputs()[0].data[:, :LC_COLS].clone()
+    params = {k: v for k, v in _snapshot(mod).items()
+              if not k.startswith("aux:")}
+    peak = torch.cuda.max_memory_allocated() - base
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params, cols, step_s, peak
+
+
+def _ep_op_gate(ranks):
+    """(a)'s gates, the list of what failed."""
+    failed = []
+    for rd in ranks:
+        r = rd["rank"]
+        for kind, case in rd["cases"].items():
+            want = "sparse_a2a" if kind == "sparse" else "dense"
+            if case["path"] != want:
+                failed.append("rank %d %s path %s" % (r, kind, case["path"]))
+            for nm, (err, lim) in case["errors"].items():
+                if not err <= lim:
+                    failed.append("rank %d %s %s %.3g > %.3g"
+                                  % (r, kind, nm, err, lim))
+            if not case["finite"]:
+                failed.append("rank %d %s not finite" % (r, kind))
+        sp = rd["cases"]["sparse"]
+        calls = (sp["all_to_all_fwd"].get("calls"),
+                 sp["all_to_all_step"].get("calls"))
+        if calls != (2, 6):
+            failed.append("rank %d exchanges %s, want (2, 6)" % (r, calls))
+        n, d, e, _ = EP_OP_SHAPE
+        table = e * sp["routing"]["capacity"] * d * 4
+        if sp["all_to_all_step"].get("bytes") != 6 * table:
+            failed.append("rank %d exchange bytes %s, want 6 x %d"
+                          % (r, sp["all_to_all_step"].get("bytes"), table))
+        rt = sp["routing"]
+        if rt["reference_dropped_choices"] <= 0:
+            failed.append("rank %d: capacity never bound" % r)
+        if not (rt["drops_equal"] and rt["residual"] <= rt["residual_tol"]
+                and rt["reference_residual"] <= rt["residual_tol"]):
+            failed.append("rank %d drop set against the single process: %s"
+                          % (r, rt))
+        if rd["cases"]["dense"]["all_to_all_step"]:
+            failed.append("rank %d dense exchanged" % r)
+    return failed
+
+
+def _ep_lm_phase(torch, dev, ranks):
+    """(b): the ranks' readings (launches and exchanges a step, paths,
+    falling losses) and rank 0's step-1 parameters and outputs against
+    the same mesh on the plain versions, within CAPTURE_SPREAD times the
+    widest spread of single-process steps (again; the plain versions)."""
+    x, y = _ep_batch()
+    sym = _ep_sym()
+    start = {n: torch.from_numpy(v).to(dev)
+             for n, v in _train_params(sym).items()}
+    single, cols, cold_s, single_peak = _ep_single(torch, x, y)
+    again, a_cols, single_s, _ = _ep_single(torch, x, y)
+    plain, p_cols, plain_s, _ = _ep_single(torch, x, y, plain=True)
+    spreads = {"again": _run_diff(torch, again, single, start, _MOE_DIRECT),
+               "plain": _run_diff(torch, plain, single, start, _MOE_DIRECT)}
+    col_spreads = {"again": _cols_diff(torch, a_cols, cols),
+                   "plain": _cols_diff(torch, p_cols, cols)}
+    del single, again, plain, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {"fused_fwd": 3 * MOE_TRAIN_LAYERS,
+            "fused_bwd": 3 * MOE_TRAIN_LAYERS,
+            "flash_fwd": MOE_TRAIN_LAYERS, "flash_bwd_dq": MOE_TRAIN_LAYERS,
+            "flash_bwd_dkv": MOE_TRAIN_LAYERS, "multi_tensor_update": 1}
+    failed = []
+    for rd in ranks:
+        r = rd["rank"]
+        if len(rd["steps"]) != EP_FIT_STEPS:
+            failed.append("rank %d ran %d steps" % (r, len(rd["steps"])))
+        for i, st in enumerate(rd["steps"]):
+            if st["launches"] != want:
+                failed.append("rank %d step %d launches %s" % (
+                    r, i, st["launches"]))
+            a2a = st["collectives"].get("all_to_all", {}).get("calls")
+            if a2a != 6 * MOE_TRAIN_LAYERS:
+                failed.append("rank %d step %d exchanges %s" % (r, i, a2a))
+        if rd["paths"] != {"moe": "sparse_a2a", "update": "kernel",
+                           "slab_update": True, "train_step": False}:
+            failed.append("rank %d paths %s" % (r, rd["paths"]))
+        losses = rd["losses"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            failed.append("rank %d losses %s" % (r, losses))
+    vs = ranks[0]["vs_plain"]
+    bounds = {tier: CAPTURE_SPREAD * max(
+        1e-7, *(s["tiers"][tier]["max"] for s in spreads.values()))
+        for tier in ("before_relu", "behind_relu")}
+    col_bound = CAPTURE_SPREAD * max(1e-7, *col_spreads.values())
+    for tier, bound in bounds.items():
+        if not vs["tiers"][tier]["max"] <= bound:
+            failed.append("step-1 %s against the plain mesh %.3g > %.3g"
+                          % (tier, vs["tiers"][tier]["max"], bound))
+    if not ranks[0]["cols_vs_plain"] <= col_bound:
+        failed.append("step-1 outputs against the plain mesh %.3g > %.3g"
+                      % (ranks[0]["cols_vs_plain"], col_bound))
+    step_s = [float(np.mean([st["s"] for st in rd["steps"][1:]]))
+              for rd in ranks]
+    reading = {
+        "config": "phase 16 (b)'s MoE LM (vocab %d, T %d, batch %d, embed "
+                  "%d, %d heads, FFN %d, %d experts, top-%d, cf %g, %d "
+                  "layer, f32, SGD lr %g momentum %g) through Module("
+                  "mesh_config=MeshConfig(expert=%d)), %d fit steps"
+                  % (VOCAB, SEQ, TRAIN_BATCH, EMBED, TRAIN_HEADS, FFN,
+                     MOE_EXPERTS, MOE_TOP_K, MOE_CF, MOE_TRAIN_LAYERS,
+                     TRAIN_LR, MOE_MOMENTUM, P24_RANKS, EP_FIT_STEPS),
+        "ranks": ranks, "spreads": spreads, "col_spreads": col_spreads,
+        "bounds": bounds, "col_bound": col_bound,
+        "step_s": step_s,
+        "tokens_per_s_pair": TRAIN_BATCH * SEQ / max(step_s),
+        "single": {"step_s": single_s, "cold_step_s": cold_s,
+                   "plain_step_s": plain_s, "peak_bytes": single_peak,
+                   "tokens_per_s": TRAIN_BATCH * SEQ / single_s}}
+    log("expert (b): " + json.dumps(reading))
+    if failed:
+        raise AssertionError("phase 24 (b): " + "; ".join(failed))
+    launches = {k: sum(st["launches"][k] for rd in ranks
+                       for st in rd["steps"]) for k in want}
+    return reading, launches
+
+
+def _ep_serve_gate(ranks):
+    failed = []
+    t0 = ranks[0]["tokens"]
+    for rd in ranks:
+        r = rd["rank"]
+        if rd["tokens"] != t0:
+            failed.append("rank %d's tokens differ from rank 0's" % r)
+        if rd["path"] != "sparse_a2a":
+            failed.append("rank %d path %s" % (r, rd["path"]))
+        if min(rd["launches"].values()) <= 0:
+            failed.append("rank %d launches %s" % (r, rd["launches"]))
+        tf = rd["teacher_forced"]
+        if not tf["max_abs_dlogp"] <= TOL_LOGP \
+                or any(f["plain_prob_gap"] > TOL_FLIP_GAP
+                       for f in tf["flips"]):
+            failed.append("rank %d teacher-forced |dlogp| %.3g (tol %.3g), "
+                          "flips %s" % (r, tf["max_abs_dlogp"], TOL_LOGP,
+                                        tf["flips"]))
+        for toks in rd["tokens"].values():
+            if len(toks) != MAX_NEW or min(toks) < 0 or max(toks) >= VOCAB:
+                failed.append("rank %d returned %s" % (r, toks))
+                break
+    return failed
+
+
+def phase_expert(torch, dev, spawned=None):
+    """Phase 24 (see the module's docstring): (a) the op, (b) the MoE LM,
+    (c) the serve over an expert axis of P24_RANKS.  The ranks' readings
+    come from phase 22's processes (``spawned``) or, alone, from a spawn
+    of its own.  Returns the launches of (b) and (c)."""
+    t0 = time.perf_counter()
+    tags = ("ep_op", "ep_lm", "ep_serve")
+    if spawned is None:
+        ranks, outdir, wall = _spawn_ranks(24, P24_RANKS, tags,
+                                           P24_RANK_TIMEOUT)
+        shutil.rmtree(outdir, ignore_errors=True)
+    else:
+        ranks, wall = spawned["ranks"], spawned["wall_s"]
+    failed = _ep_op_gate(ranks["ep_op"])
+    log("expert (a): " + json.dumps({
+        "card": _smi_line(),
+        "config": "MoEFFN's sharded path over MeshConfig(expert=%d): N %d "
+                  "tokens, d %d, E %d, h %d, top-%d, cf %g, f32, aux %g; "
+                  "against the single-process _moe_forward_sparse("
+                  "num_groups=%d) (outputs TOL_F32 %g, gradients "
+                  "TOL_F32_LONG %g, x max(1, max |reference|)); the dense "
+                  "oracle against _moe_forward"
+                  % ((P24_RANKS,) + EP_OP_SHAPE
+                     + (MOE_TOP_K, MOE_CF, MOE_OP_COEFF, P24_RANKS, TOL_F32,
+                        TOL_F32_LONG)),
+        "ranks": ranks["ep_op"]}))
+    if failed:
+        raise AssertionError("phase 24 (a): " + "; ".join(failed))
+    lm, lm_launches = _ep_lm_phase(torch, dev, ranks["ep_lm"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    failed = _ep_serve_gate(ranks["ep_serve"])
+    serve_launches = {k: sum(rd["launches"][k] for rd in ranks["ep_serve"])
+                      for k in ("fused_fwd", "paged_decode",
+                                "paged_combine")}
+    log("expert (c): " + json.dumps({
+        "card": _smi_line(),
+        "config": "phase 16 (c)'s MoE serve model (%d experts, top-%d, cf "
+                  "%g) and phase 5's requests over DecodePredictor(mesh="
+                  "MeshConfig(expert=%d)), int8 pages, %d slots"
+                  % (MOE_EXPERTS, MOE_TOP_K, MOE_CF, P24_RANKS, SLOTS),
+        "tol": TOL_LOGP, "tol_flip_gap": TOL_FLIP_GAP,
+        "ranks": ranks["ep_serve"]}))
+    if failed:
+        raise AssertionError("phase 24 (c): " + "; ".join(failed))
+    log("expert: " + json.dumps({
+        "card": _smi_line(), "wall_s": time.perf_counter() - t0,
+        "ranks_wall_s": wall,
+        "op_step_s": [rd["cases"]["sparse"]["step_s"]
+                      for rd in ranks["ep_op"]],
+        "op_exchange_s": [rd["cases"]["sparse"]["all_to_all_step"]["s"]
+                          for rd in ranks["ep_op"]],
+        "lm_step_s": lm["step_s"],
+        "lm_tokens_per_s_pair": lm["tokens_per_s_pair"],
+        "lm_peak_bytes": [rd["peak_bytes"] for rd in ranks["ep_lm"]],
+        "single_peak_bytes": lm["single"]["peak_bytes"],
+        "serve_tokens_per_s": [rd["tokens_per_s"]
+                               for rd in ranks["ep_serve"]],
+        "serve_ttft_p50_s": [rd["ttft_p50_s"] for rd in ranks["ep_serve"]],
+        "lm_launches": lm_launches, "serve_launches": serve_launches}))
+    return {"lm": lm_launches, "serve": serve_launches}
+
+
 _PHASE_MARKS = []
 
 
@@ -10156,6 +10803,10 @@ def main():
         # one rank of phase 23, started by the phase itself
         rank, world, address, outdir = sys.argv[2:6]
         return _p23_rank_main(int(rank), int(world), address, outdir)
+    if sys.argv[1:2] == ["--p24-rank"]:
+        # one rank of phase 24, started by the phase itself
+        rank, world, address, outdir = sys.argv[2:6]
+        return _p24_rank_main(int(rank), int(world), address, outdir)
     # phases 1-17 run the hand-fixed kernel plans: an empty tuning cache
     # of this run's own, unarmed (phase 18 arms a directory of its own);
     # nothing is read from or left in the user's cache
@@ -10308,6 +10959,10 @@ def _main(torch):
     torch.cuda.empty_cache()
     rg = phase_ring(torch, dev, mp.pop("ring"))
     _mark("ring")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = phase_expert(torch, dev, mp.pop("expert"))
+    _mark("expert")
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -10339,7 +10994,8 @@ def _main(torch):
         + resume_launches["fused_fwd"] + tune_launches["fused_fwd"] \
         + analysis_launches["fused_fwd"] + dist_l["fused_fwd"] \
         + two_l["fused_fwd"] + tp_l["fused_fwd"] + capi_l["fused_fwd"] \
-        + sm_l["fused_fwd"]
+        + sm_l["fused_fwd"] + ep["lm"]["fused_fwd"] \
+        + ep["serve"]["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -10364,7 +11020,9 @@ def _main(torch):
                                "dist_two_context": two_l["fused_fwd"],
                                "tensor_parallel": tp_l["fused_fwd"],
                                "capi": capi_l["fused_fwd"],
-                               "serve_mesh": sm_l["fused_fwd"]},
+                               "serve_mesh": sm_l["fused_fwd"],
+                               "expert_lm": ep["lm"]["fused_fwd"],
+                               "expert_serve": ep["serve"]["fused_fwd"]},
              tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              mesh_cases=[brief(c, "m", "k", "n", "relu_residual")
@@ -10377,7 +11035,8 @@ def _main(torch):
                     launches["paged_decode"] + spec_launches["paged_decode"]
                     + sum(f["paged_decode"] for f in fleet_launches.values())
                     + moe_launches["moe_serve"]["paged_decode"]
-                    + tune_launches["paged_decode"] + sm_l["paged_decode"],
+                    + tune_launches["paged_decode"] + sm_l["paged_decode"]
+                    + ep["serve"]["paged_decode"],
                     b_main),
              shape="B=4 tq=1 H=4 hd=256 int8 pages lens=%s"
              % b_main["lens"],
@@ -10389,7 +11048,8 @@ def _main(torch):
                                "moe_serve":
                                    moe_launches["moe_serve"]["paged_decode"],
                                "tuning": tune_launches["paged_decode"],
-                               "serve_mesh": sm_l["paged_decode"]},
+                               "serve_mesh": sm_l["paged_decode"],
+                               "expert_serve": ep["serve"]["paged_decode"]},
              tuning=_tuning_field(tune_tables, "B serve decode"),
              verify_case=brief(b_verify, "tq", "lens", "splits", "rows",
                                "row_tiles"),
@@ -10405,7 +11065,7 @@ def _main(torch):
                     + sum(f["paged_combine"] for f in fleet_launches.values())
                     + moe_launches["moe_serve"]["paged_combine"]
                     + tune_launches["paged_combine"]
-                    + sm_l["paged_combine"],
+                    + sm_l["paged_combine"] + ep["serve"]["paged_combine"],
                     dict(b_main["combine"], library_ms=None,
                          device_ms=b_main["combine"]["device_ms"])),
              shape="B=4 tq=1 H=4 hd=256, %d splits (%d seen)"
@@ -10417,7 +11077,9 @@ def _main(torch):
                                "moe_serve":
                                    moe_launches["moe_serve"]["paged_combine"],
                                "tuning": tune_launches["paged_combine"],
-                               "serve_mesh": sm_l["paged_combine"]},
+                               "serve_mesh": sm_l["paged_combine"],
+                               "expert_serve":
+                                   ep["serve"]["paged_combine"]},
              tuning=_tuning_field(tune_tables, "B serve decode"),
              verify_case=b_verify["combine"],
              max_abs_err_all_cases=max(c["combine"]["max_abs_err"]
@@ -10447,6 +11109,7 @@ def _main(torch):
         by_path["pipeline"] = pp_l[counter]
         by_path["ring_op"] = rg["op"][counter]
         by_path["ring_lm"] = rg["lm"][counter]
+        by_path["expert_lm"] = ep["lm"][counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -10472,7 +11135,8 @@ def _main(torch):
                + sum(m["fused_bwd"] for m in moe_train.values())
                + resume_launches["fused_bwd"] + tune_launches["fused_bwd"]
                + analysis_launches["fused_bwd"] + dist_l["fused_bwd"]
-               + two_l["fused_bwd"] + tp_l["fused_bwd"],
+               + two_l["fused_bwd"] + tp_l["fused_bwd"]
+               + ep["lm"]["fused_bwd"],
                f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
@@ -10486,7 +11150,8 @@ def _main(torch):
                           "analysis": analysis_launches["fused_bwd"],
                           "dist": dist_l["fused_bwd"],
                           "dist_two_context": two_l["fused_bwd"],
-                          "tensor_parallel": tp_l["fused_bwd"]},
+                          "tensor_parallel": tp_l["fused_bwd"],
+                          "expert_lm": ep["lm"]["fused_bwd"]},
         tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
@@ -10509,6 +11174,7 @@ def _main(torch):
     b1_by_path["tensor_parallel"] = tp_l["multi_tensor_update"]
     b1_by_path["pipeline"] = pp_l["multi_tensor_update"]
     b1_by_path["ring_lm"] = rg["lm"]["multi_tensor_update"]
+    b1_by_path["expert_lm"] = ep["lm"]["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}

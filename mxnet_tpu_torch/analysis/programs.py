@@ -40,8 +40,11 @@ _LM = dict(vocab=32, seq_len=16, embed=16, heads=4, ffn=32, layers=1,
 _DRAFT = dict(embed=8, heads=2, ffn=16, layers=1)
 _SPEC_K = 3
 
-_MESH_NOTE = ("needs a %s device mesh: the port has no mesh yet "
-              "(ROADMAP.md queue A item 7, parallelism)")
+# the port's meshes are ranks of processes, each training eagerly (its
+# collectives outside any graph): no single traced program to build
+_MESH_NOTE = ("a %s mesh program: the port's mesh (one rank a process, "
+              "eager) traces no single graph, and a multi-rank artifact "
+              "without one is ROADMAP.md queue A item 7 step 8")
 
 
 def _context(device):
@@ -320,7 +323,8 @@ def _moe_available():
 
 
 def _unbuilt(want, device):
-    raise MXNetError("no mesh in the port")
+    raise MXNetError("no canonical mesh program yet (ROADMAP.md queue A "
+                     "item 7 step 8)")
 
 
 if "train_step" not in _registry.canonical_names():

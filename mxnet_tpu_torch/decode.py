@@ -63,7 +63,7 @@ trace timeline (:mod:`~mxnet_tpu_torch.obs`, ``MXNET_TELEMETRY``);
 nothing of the telemetry runs inside a captured body.
 
 **A mesh** (``mesh=`` a ``MeshConfig`` or a ``DeviceMesh``) makes the
-predictor one rank of a (data x model) mesh of processes, one rank a
+predictor one rank of a (data x model x expert) mesh of processes, one rank a
 process (the reference's ``jax.sharding.Mesh`` lives in one process):
 each rank holds its shards of the Megatron plan, placed as the
 training executor places them (``parallel.tp_exec.TensorParallel``, the
@@ -81,8 +81,12 @@ every rank samples the same tokens and its page manager decides the
 same.  An attention node whose heads do not divide the model axis runs
 on gathered q / k / v with its cache replicated, recorded in
 ``_replicated_degrades`` (the reference E-splits such a cache finer than
-a head).  ``seq`` and ``pipe`` axes replicate; ``expert`` raises (item 7
-step 6).  The paged programs of a mesh rank hold collectives, so they
+a head).  An ``expert`` axis keeps the expert stacks whole on every rank
+(the reference's predictor shards only the Megatron plan) and each
+MoEFFN splits its tokens over data x expert and runs the rank's experts
+(``ops.moe``'s sharded all-to-all; a token count that does not divide
+keeps the global path).  ``seq`` and ``pipe`` axes replicate.  The paged
+programs of a mesh rank hold collectives, so they
 run eagerly (``GraphProgram(eager=True)``: ``trace_counts`` stays 0 and
 ``prepare_programs`` reports ``"eager"``), as the reference keeps mesh
 predictors off AOT.
@@ -373,10 +377,15 @@ class DecodePredictor:
 
         rt = self._mesh = MeshRuntime(mesh, replicate=("seq", "pipe"))
         sizes = dict(rt.sizes)
+        # the expert stacks stay whole here (the reference's predictor
+        # shards only the Megatron plan); MoEFFN splits its tokens and
+        # the rank's experts over the expert group when it runs
         self._tp = TensorParallel(
             symbol, {n: tuple(env[n].shape) for n in arg_params}, rt.model,
             rt.model_rank, rt.model_group, data=rt.data,
-            data_group=rt.data_group, mesh_shape=sizes)
+            data_group=rt.data_group, mesh_shape=sizes, expert=rt.expert,
+            expert_rank=rt.expert_rank, expert_group=rt.expert_group,
+            data_rank=rt.data_rank, shard_experts=False)
         self._sharding_coverage = self._tp.coverage_record()
         # the plan as the programs' partition rules (metadata)
         self._partition_rules = rules_from_plan(
@@ -579,7 +588,7 @@ class DecodePredictor:
         pos = torch.as_tensor(pos0, dtype=torch.int32, device=dev).reshape(-1)
         pos_l = pos[rows] if rows is not None and pos.numel() == b else pos
         toks = tokens[rows] if rows is not None else tokens
-        walk = tp.walk(OpContext(plain=plain))
+        walk = tp.walk(OpContext(plain=plain), data_split=rows is not None)
         new_caches = []
         for node in self._symbol._topo():
             key = (id(node), 0)

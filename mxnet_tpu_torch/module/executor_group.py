@@ -19,7 +19,9 @@ So ``merge_multi_context`` has one device's arrays to return either
 way.
 
 With a ``mesh`` (:class:`MeshRuntime`, from a Module's ``mesh_config``)
-the group is one rank of a (data x model x seq) mesh of processes:
+the group is one rank of a (data x model x seq x expert) mesh of
+processes (an expert axis holds this rank's block of each MoE expert
+stack; see :class:`MeshRuntime`):
 every rank is fed the same global batch and binds its data-axis rows
 and, for every input whose ``DataDesc.layout`` holds ``N`` and ``T``, its
 seq-axis block of the sequence (the reference's input shardings); the
@@ -42,8 +44,7 @@ from ..base import MXNetError
 from ..executor import simple_bind
 from ..io import as_desc_list
 from ..parallel import collectives
-from ..parallel.tp_exec import (TensorParallel, gather_seq, param_mesh_axes,
-                                slice_seq, SeqSplit)
+from ..parallel.tp_exec import TensorParallel, gather_seq, slice_seq, SeqSplit
 
 
 class MeshRuntime:
@@ -55,9 +56,12 @@ class MeshRuntime:
     config that does not cover the group raises.  Axes named in
     ``replicate`` are realized as replicas (their ranks compute the same
     values: a ``DecodePredictor`` leaves ``seq`` and ``pipe`` so, as the
-    reference's specs do); an ``expert`` axis above 1 raises (ROADMAP
-    item 7 step 6, sharded MoE) and so does a ``pipe`` axis (a
-    ``PipelineModule`` runs one)."""
+    reference's specs do); a ``pipe`` axis above 1 raises (a
+    ``PipelineModule`` runs one).  An ``expert`` axis shards the MoE
+    expert stacks and splits the MoEFFN tokens over its group
+    (``ops.moe``'s sharded path); every other value is computed alike on
+    its ranks, so no gradient sum spans it (the router's is summed inside
+    the op).  It does not combine with a ``seq`` axis."""
 
     def __init__(self, mesh_config, replicate=()):
         from ..parallel.mesh import MeshConfig
@@ -84,23 +88,27 @@ class MeshRuntime:
                 raise MXNetError(
                     "the device mesh %s covers %d rank(s), the process "
                     "group has %d" % (self.sizes, n, world))
-        for axis, what in (("expert", "ROADMAP item 7 step 6, sharded MoE"),
-                           ("pipe", "mxnet_tpu_torch.mod.PipelineModule, "
-                                    "which runs the stages of a pipe "
-                                    "axis")):
-            if self.sizes.get(axis, 1) > 1 and axis not in replicate:
-                raise MXNetError(
-                    "a %r mesh axis of %d is not realized here (%s); the "
-                    "port shards the 'data', 'model' and 'seq' axes"
-                    % (axis, self.sizes[axis], what))
+        if self.sizes.get("pipe", 1) > 1 and "pipe" not in replicate:
+            raise MXNetError(
+                "a 'pipe' mesh axis of %d is not realized here "
+                "(mxnet_tpu_torch.mod.PipelineModule, which runs the stages "
+                "of a pipe axis); the port shards the 'data', 'model', "
+                "'seq' and 'expert' axes" % self.sizes["pipe"])
         self.config = mesh_config
         self.data = self.sizes.get("data", 1)
         self.model = self.sizes.get("model", 1)
         self.seq = 1 if "seq" in replicate else self.sizes.get("seq", 1)
+        self.expert = self.sizes.get("expert", 1)
+        if self.expert > 1 and self.seq > 1:
+            raise MXNetError(
+                "an 'expert' axis of %d with a 'seq' axis of %d is not "
+                "realized: the MoE tokens split over data x expert, the seq "
+                "axis splits the sequence" % (self.expert, self.seq))
         self.mesh = None
         self.model_group = self.data_group = self.seq_group = None
-        self.grad_group = None
+        self.expert_group = self.grad_group = None
         self.model_rank = self.data_rank = self.seq_rank = 0
+        self.expert_rank = 0
         if world > 1:
             from ..parallel.mesh import build_mesh
 
@@ -116,6 +124,9 @@ class MeshRuntime:
             if self.seq > 1:
                 self.seq_group = self.mesh.get_group("seq")
                 self.seq_rank = self.mesh.get_local_rank("seq")
+            if self.expert > 1:
+                self.expert_group = self.mesh.get_group("expert")
+                self.expert_rank = self.mesh.get_local_rank("expert")
             self.grad_group = self._grad_group()
 
     def _grad_group(self):
@@ -142,17 +153,20 @@ class MeshRuntime:
 
     @property
     def ranks(self):
-        return self.data * self.model * self.seq
+        return self.data * self.model * self.seq * self.expert
 
     def tensor_parallel(self, symbol, shapes, seq_inputs=None):
+        shape = {"data": self.data, "model": self.model}
+        shape.update({a: getattr(self, a) for a in ("seq", "expert")
+                      if getattr(self, a) > 1})
         return TensorParallel(
             symbol, shapes, self.model, self.model_rank, self.model_group,
             data=self.data, data_group=self.data_group,
-            mode=config.get("MXNET_TP_MODE"),
-            mesh_shape=dict({"data": self.data, "model": self.model},
-                            **({"seq": self.seq} if self.seq > 1 else {})),
+            mode=config.get("MXNET_TP_MODE"), mesh_shape=shape,
             seq=self.seq, seq_rank=self.seq_rank, seq_group=self.seq_group,
-            grad_group=self.grad_group, seq_inputs=seq_inputs)
+            grad_group=self.grad_group, seq_inputs=seq_inputs,
+            expert=self.expert, expert_rank=self.expert_rank,
+            expert_group=self.expert_group, data_rank=self.data_rank)
 
     def data_rows(self, n):
         """This rank's rows of a batch of ``n`` split over the data group
@@ -257,11 +271,9 @@ class DataParallelExecutorGroup:
                 if n in set(self.param_names)}
             self.global_shapes.update(
                 (n, tuple(s)) for n, s in zip(self.aux_names, aux_shapes))
+            # the expert stacks (OpDef.mesh_axes) shard on the expert axis
             self.tp = mesh.tensor_parallel(symbol, self.global_shapes,
                                            self._seq_inputs)
-            # op-declared parameter axes (OpDef.mesh_axes: the MoE expert
-            # stacks); an 'expert' axis above 1 is refused by MeshRuntime
-            self._param_mesh_axes = param_mesh_axes(symbol, mesh.sizes)
         self.exec_ = simple_bind(
             symbol, device, grad_req=self.grad_req, type_dict=types,
             plain=plain, shared_exec=(shared_group.exec_ if shared_group

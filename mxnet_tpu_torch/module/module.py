@@ -60,17 +60,19 @@ host parameter dicts; ``borrow_optimizer`` takes its optimizer, updater,
 KVStore and train step, which then runs this module's graph over the one
 store (``BucketingModule``).
 
-``mesh_config=MeshConfig(data=D, model=M, seq=S)`` makes the module one
-rank of a (data x model x seq) mesh of processes (each started under
-``parallel.launch``, one context each; ``D * M * S`` must equal the
-group's world size, where the reference resolves it against its
-contexts): every rank is fed the same global batch and trains its
-data-axis slice, and of every input whose layout holds N and T its
-seq-axis block of the sequence (attention runs the ring,
+``mesh_config=MeshConfig(data=D, model=M, seq=S, expert=X)`` makes the
+module one rank of a (data x model x seq x expert) mesh of processes
+(each started under ``parallel.launch``, one context each; ``D * M * S *
+X`` must equal the group's world size, where the reference resolves it
+against its contexts): every rank is fed the same global batch and
+trains its data-axis slice, and of every input whose layout holds N and
+T its seq-axis block of the sequence (attention runs the ring,
 :mod:`~mxnet_tpu_torch.parallel.ring`), on its shards of the
 tensor-parallel plan (``MXNET_TP_MODE``,
-:mod:`~mxnet_tpu_torch.parallel.tp_exec`), the gradients summed over the
-data x seq ranks before ``update()``.  ``get_params`` / ``save_checkpoint``
+:mod:`~mxnet_tpu_torch.parallel.tp_exec`) and its block of each MoE
+expert stack (MoEFFN's tokens exchanged over the expert group,
+:mod:`~mxnet_tpu_torch.ops.moe`), the gradients summed over the data x
+seq ranks before ``update()``.  ``get_params`` / ``save_checkpoint``
 gather the full parameters (rank 0 writes the files, which stay the
 reference's); ``init_params`` / ``set_params`` take full arrays.  Such a
 module trains on the eager path (a collective cannot run inside a
@@ -681,14 +683,15 @@ class Module(BaseModule):
         run) and the cached eval step (after a device-metric ``score``),
         each traced on fake tensors (nothing runs).  The surface
         ``tools/mxlint_torch.py`` and custom audits consume.  A module
-        with a model axis above 1 trains eagerly (no program to trace):
+        with a model or expert axis above 1 trains eagerly (no program to
+        trace):
         its ``train_step`` artifact carries no graph, only the mesh shape
         and ``meta['sharding_coverage']``, the plan's record a parameter
         that the sharding-coverage pass reads."""
         arts = {}
         group = self._exec_group
         if group is not None and group.tp is not None \
-                and self._mesh.model > 1:
+                and (self._mesh.model > 1 or self._mesh.expert > 1):
             from ..analysis.artifact import ProgramArtifact
 
             cov = group.tp.coverage_record()
@@ -727,11 +730,13 @@ class Module(BaseModule):
     # optimizer states
     # ------------------------------------------------------------------
     def _check_state_files(self):
-        if self._mesh is not None and self._mesh.model > 1:
+        if self._mesh is not None and self._mesh.model \
+                * self._mesh.expert > 1:
             raise MXNetError(
-                "optimizer-state files of a model axis of %d hold sharded "
-                "slots: sharded checkpoint directories are ROADMAP item 7 "
-                "step 7" % self._mesh.model)
+                "optimizer-state files of a model axis of %d and an expert "
+                "axis of %d hold sharded slots: sharded checkpoint "
+                "directories are ROADMAP item 7 step 7"
+                % (self._mesh.model, self._mesh.expert))
 
     def save_optimizer_states(self, fname):
         """The train step's, the store's (``update_on_kvstore``) or the

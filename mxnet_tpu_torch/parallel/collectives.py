@@ -52,6 +52,16 @@ posted at once and waited for later, so a hop's transfer can run while
 the card computes) and :func:`ring_shift_grad` (posted and waited,
 differentiable: the gradients travel back).
 
+The expert exchange is :func:`all_to_all` (``lax.all_to_all(...,
+tiled=True)``: ``split_dim`` cut into one block a rank, block j sent to
+rank j, the blocks received concatenated along ``concat_dim`` in rank
+order; counted under ``all_to_all`` with the tensor's bytes),
+differentiable: the gradient is the reverse exchange (the two dims
+swapped).  It is one ``all_to_all_single`` of the blocks stacked on a
+new leading dim.  gloo takes CUDA tensors there (it stages them through
+host memory itself, faster on the card than staging them here), though
+not in the list ``all_to_all``; NCCL (one card a rank) exchanges on the card.
+
 On abstract tensors (``meta`` ones, or the fake tensors of an export
 or a shape probe) every collective returns the shape it would give and
 communicates nothing: a rank's programs trace alone.
@@ -66,7 +76,8 @@ __all__ = ["global_sum", "barrier", "active", "world_size", "rank",
            "copy_to", "reduce_from", "gather_from", "scatter_to",
            "seq_gather", "sum_over", "all_gather", "all_reduce",
            "broadcast", "send", "recv", "wait_sends", "RingShift",
-           "ring_shift_grad", "COUNTS", "reset_counts", "SYNC_TIMING"]
+           "ring_shift_grad", "all_to_all", "COUNTS", "reset_counts",
+           "SYNC_TIMING"]
 
 COUNTS = {}
 SYNC_TIMING = False
@@ -375,6 +386,59 @@ def ring_shift_grad(tensors, group, tags, grad_tags):
                               *tensors)
 
 
+# ---------------------------------------------------------------------------
+# the expert exchange
+# ---------------------------------------------------------------------------
+
+def _exchange(tensor, split_dim, concat_dim, group):
+    """The tiled all-to-all of ``tensor`` over ``group`` (see
+    :func:`all_to_all`), not differentiable."""
+    import torch.distributed as dist
+
+    n = _group_size(group)
+    x = tensor.detach()
+    split_dim, concat_dim = split_dim % x.dim(), concat_dim % x.dim()
+    if x.shape[split_dim] % n:
+        from ..base import MXNetError
+
+        raise MXNetError("all_to_all: dim %d (%d) does not split over a "
+                         "group of %d" % (split_dim, x.shape[split_dim], n))
+    if n == 1:
+        return x
+    send = torch.stack(x.chunk(n, split_dim))      # block j goes to rank j
+    if _abstract(send):
+        return torch.cat(send.unbind(0), dim=concat_dim)
+    recv = torch.empty_like(send)
+    _timed("all_to_all", send, lambda: dist.all_to_all_single(
+        recv, send, group=group))
+    return torch.cat(recv.unbind(0), dim=concat_dim)   # rank i's block i-th
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _exchange(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        split_dim, concat_dim = ctx.dims
+        return (_exchange(dy, concat_dim, split_dim, ctx.group), None, None,
+                None)
+
+
+def all_to_all(x, split_dim, concat_dim, group):
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)`` over
+    ``group``: ``x``'s ``split_dim`` cut into one equal block a rank in
+    rank order, block j sent to rank j, and the blocks this rank receives
+    concatenated along ``concat_dim`` in the senders' rank order.  The
+    gradient is the reverse exchange.  The identity for a group of one;
+    counted under ``all_to_all``."""
+    if _group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
 def _my_slice(tensor, dim, group):
     size = _group_size(group)
     n = tensor.shape[dim] // size
@@ -440,6 +504,17 @@ class _ScatterTo(torch.autograd.Function):
         return all_gather(dy, ctx.dim, ctx.group), None, None
 
 
+class _ShareGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, share):
+        ctx.share = share
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy * ctx.share, None
+
+
 class _SumOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -489,6 +564,13 @@ def scatter_to(x, dim, group):
     if _group_size(group) == 1:
         return x
     return _ScatterTo.apply(x, dim, group)
+
+
+def share_grad(x, share):
+    """``x`` unchanged; its gradient times ``share`` (a value every rank
+    of a group computes alike, whose gradient each rank's backward
+    would otherwise count in full)."""
+    return _ShareGrad.apply(x, share)
 
 
 def sum_over(x, group):

@@ -16,10 +16,12 @@ rank's slice), so the gradient of a global input is the global gradient
 on every rank.
 
 A spec is a tuple with one entry a dim: a mesh axis name (the dim is
-split over that axis in rank order) or None (whole); a spec of None
-leaves the array whole.  ``in_specs`` has one spec an argument;
-``out_specs`` is one spec for a function that returns one tensor, else
-one a returned tensor.
+split over that axis in rank order), a tuple of names (split over their
+product, the first the major one, as ``P(("data", "expert"))``) or None
+(whole); a spec of None leaves the array whole.  ``in_specs`` has one
+spec an argument; ``out_specs`` is one spec for a function that returns
+one tensor, else one a returned tensor.  The mesh may also be a ``{name:
+MeshAxis}`` dict (groups a caller already holds).
 
 Stated differences: ``check_vma`` is accepted and means nothing (there
 is no varying-axes typing to relax), and :func:`pvary` is the identity,
@@ -75,9 +77,11 @@ def axis(name):
 
 def _mesh_axes(mesh):
     """``{name: MeshAxis}`` of a ``DeviceMesh`` (or a ``MeshConfig``,
-    built over the process group)."""
+    built over the process group; or such a dict itself)."""
     from .mesh import MeshConfig, build_mesh
 
+    if isinstance(mesh, dict):
+        return dict(mesh)
     if isinstance(mesh, MeshConfig):
         mesh = build_mesh(mesh)
     names = getattr(mesh, "mesh_dim_names", None)
@@ -113,18 +117,20 @@ def _split_dims(x, spec, axes, what):
         raise MXNetError("shard_map: %s spec %r has more dims than its "
                          "array's %s" % (what, spec, tuple(x.shape)))
     out, seen = [], set()
-    for dim, name in enumerate(spec):
-        if name is None:
-            continue
-        if name not in axes:
-            raise MXNetError("shard_map: %s spec names %r, which the mesh "
-                             "(%s) lacks" % (what, name, sorted(axes)))
-        if name in seen:
-            raise MXNetError("shard_map: %s spec names %r twice" % (what,
-                                                                    name))
-        seen.add(name)
-        if axes[name].size > 1:
-            out.append((dim, axes[name]))
+    for dim, names in enumerate(spec):
+        for name in (names if isinstance(names, tuple) else (names,)):
+            if name is None:
+                continue
+            if name not in axes:
+                raise MXNetError("shard_map: %s spec names %r, which the "
+                                 "mesh (%s) lacks" % (what, name,
+                                                      sorted(axes)))
+            if name in seen:
+                raise MXNetError("shard_map: %s spec names %r twice"
+                                 % (what, name))
+            seen.add(name)
+            if axes[name].size > 1:
+                out.append((dim, axes[name]))
     return out
 
 

@@ -52,6 +52,17 @@ count for 'valid').  Any other reduction over dim 0 of a value the batch
 reaches (``mean`` before MakeLoss) raises there: each rank would reduce
 its slice alone.
 
+An ``expert`` axis of more than one rank holds this rank's block of each
+MoE expert stack (dim 0, an op-declared ``OpDef.mesh_axes`` axis taking
+precedence over the Megatron plan, with the reference's coverage record
+and its "indivisible" degrade), and ``MoEFFN`` runs
+:mod:`~mxnet_tpu_torch.ops.moe`'s mesh paths: the sharded all-to-all
+over the expert group, or the reference's global semantics.  Over a data
+group alone ``MoEFFN`` keeps those global semantics too (one capacity
+quota over the whole batch, f and P averaged over it), where each rank
+would otherwise route its slice alone.  Every other value is computed
+alike on the expert ranks.
+
 Over a seq group of more than one rank (the realization of what GSPMD
 does for the reference's ``seq`` axis) the walk also keeps, for every
 value, which dim holds this rank's block of the sequence
@@ -124,7 +135,8 @@ class TensorParallel:
     def __init__(self, symbol, shapes, model, model_rank, model_group,
                  data=1, data_group=None, mode="megatron",
                  mesh_shape=None, seq=1, seq_rank=0, seq_group=None,
-                 grad_group=None, seq_inputs=None):
+                 grad_group=None, seq_inputs=None, expert=1, expert_rank=0,
+                 expert_group=None, data_rank=0, shard_experts=True):
         if mode not in ("megatron", "naive"):
             raise MXNetError("MXNET_TP_MODE must be 'megatron' or 'naive', "
                              "not %r" % (mode,))
@@ -142,12 +154,22 @@ class TensorParallel:
         self.seq_inputs = dict(seq_inputs or {})
         # the seq split of each graph output of the last run (None: whole)
         self.out_seq = []
+        self.data_rank = int(data_rank)
+        self.expert = int(expert)
+        self.expert_rank = int(expert_rank)
+        self.expert_group = expert_group
         self.mode = mode
         self.mesh_shape = dict(mesh_shape or {"model": self.model})
         self.plan = plan_tensor_parallel(symbol) if mode == "megatron" \
             else None
+        # {name: axis} of the parameters an op declares on a mesh axis
+        # (OpDef.mesh_axes: the MoE expert stacks); a predictor keeps them
+        # whole (``shard_experts`` False), as the reference's does
+        self.param_axes = param_mesh_axes(symbol, {"expert": self.expert}) \
+            if shard_experts else {}
         self.coverage = {}
         self.sharded = {}           # name -> the dim split over the group
+        self.expert_sharded = set()     # names split on dim 0 over expert
         for name, shape in shapes.items():
             dim = self._realize(name, tuple(shape))
             if dim is not None:
@@ -163,6 +185,16 @@ class TensorParallel:
         rec = {"shape": [int(d) for d in shape],
                "source": "scalar" if not shape else "default"}
         self.coverage[name] = rec
+        if self.param_axes.get(name) == "expert" and shape:
+            # the op's declared axis first (the reference's order)
+            if shape[0] % self.expert == 0:
+                rec["source"] = "mesh_axes"
+                rec["spec"] = ["expert"] + [None] * (len(shape) - 1)
+                self.expert_sharded.add(name)
+                return None
+            # losing the declared axis to divisibility is the degrade the
+            # sharding-coverage pass errors on
+            rec["source"], rec["degrade"] = "mesh_axes", "indivisible"
         if self.model <= 1 or not shape:
             return None
         if self.plan is not None:
@@ -180,8 +212,9 @@ class TensorParallel:
             return next(d for d, ax in enumerate(spec) if ax is not None)
         if shape[0] % self.model != 0:
             return None
-        rec["source"] = "naive"
-        rec["spec"] = ["model"] + [None] * (len(shape) - 1)
+        if rec.get("degrade") is None:
+            rec["source"] = "naive"
+            rec["spec"] = ["model"] + [None] * (len(shape) - 1)
         return 0
 
     def local_shape(self, name, shape):
@@ -192,6 +225,8 @@ class TensorParallel:
         dim = self.sharded.get(name)
         if dim is not None:
             shape[dim] //= self.model
+        if name in self.expert_sharded:
+            shape[0] //= self.expert
         tdim = self.seq_inputs.get(name)
         if tdim is not None:
             shape[tdim] //= self.seq
@@ -199,6 +234,9 @@ class TensorParallel:
 
     def shard(self, name, full):
         """This rank's block of the full tensor ``full`` of ``name``."""
+        if name in self.expert_sharded:
+            n = full.shape[0] // self.expert
+            return full.narrow(0, self.expert_rank * n, n)
         dim = self.sharded.get(name)
         if dim is None:
             return full
@@ -207,11 +245,26 @@ class TensorParallel:
 
     def unshard(self, name, local):
         """The full tensor of ``name`` from every rank's ``local`` block
-        (a collective over the model group: every rank calls it)."""
+        (a collective over the model group, or the expert group for an
+        expert stack: every rank calls it)."""
+        if name in self.expert_sharded:
+            return C.all_gather(local, 0, self.expert_group)
         dim = self.sharded.get(name)
         if dim is None:
             return local
         return C.all_gather(local, dim, self.group)
+
+    def mesh_axes(self):
+        """``{name: parallel.compat.MeshAxis}`` of the data, model and
+        expert axes as this rank sees them."""
+        from .compat import MeshAxis
+
+        return {"data": MeshAxis("data", self.data_group, self.data,
+                                 self.data_rank),
+                "model": MeshAxis("model", self.group, self.model,
+                                  self.model_rank),
+                "expert": MeshAxis("expert", self.expert_group, self.expert,
+                                   self.expert_rank)}
 
     def coverage_record(self):
         """The ``meta['sharding_coverage']`` the sharding-coverage pass
@@ -222,9 +275,11 @@ class TensorParallel:
     # ------------------------------------------------------------------
     # the walk
     # ------------------------------------------------------------------
-    def walk(self, octx):
-        """A fresh :class:`GraphWalk` over this rank's shards."""
-        return GraphWalk(self, octx)
+    def walk(self, octx, data_split=True):
+        """A fresh :class:`GraphWalk` over this rank's shards
+        (``data_split``: whether the batch's rows arrive split over the
+        data group, as the training executor splits them)."""
+        return GraphWalk(self, octx, data_split)
 
     def run_graph(self, symbol, env_args, env_aux, octx, tap=None):
         """``executor.run_graph`` over this rank's shards: returns the
@@ -283,9 +338,10 @@ class GraphWalk:
     outputs with their split dims, :meth:`rep` reads a value
     replicated."""
 
-    def __init__(self, tp, octx):
+    def __init__(self, tp, octx, data_split=True):
         self.tp = tp
         self.octx = octx
+        self.data_split = data_split and tp.data > 1
         self.values = {}
         self.states = {}
         self.params = {}
@@ -373,7 +429,7 @@ class GraphWalk:
         value = self.values[key]
         param = self._is_param(key)
         if kind == "share":
-            out = _ShareGrad.apply(value, 1.0 / tp.seq) if param else None
+            out = C.share_grad(value, 1.0 / tp.seq) if param else None
         elif kind == "bcast":
             out = None if param else C.copy_to(value, tp.seq_group)
         elif kind[0] == "slice":
@@ -679,6 +735,29 @@ class GraphWalk:
         outs, _ = self._compute(node, local, inputs, [])
         return outs, [None] * len(outs), []
 
+    def moe(self, node, attrs, ins):
+        """MoEFFN on an expert axis, or on rows split over a data axis
+        (:mod:`~mxnet_tpu_torch.ops.moe`'s mesh paths): the sharded
+        all-to-all over the expert group, or the reference's global
+        semantics (one capacity quota over the whole batch, f and P
+        averaged over it), never one computed from this rank's rows
+        alone.  Under a seq axis the node runs gathered, as before."""
+        from ..ops import moe as _moe
+
+        tp = self.tp
+        if tp.seq > 1 or (tp.expert <= 1 and not self.data_split):
+            return None
+        names = node.op.list_arguments(attrs)
+        stacks = [self.params.get(self.key(e)) for e, n in zip(ins, names)
+                  if n.startswith("expert")]
+        mesh = _moe.MoEMesh(
+            tp.mesh_axes(), split=("data",) if self.data_split else (),
+            local=bool(stacks) and all(n in tp.expert_sharded
+                                       for n in stacks))
+        y = _moe.moe_ffn(attrs, *(self.rep(self.key(e)) for e in ins),
+                         mesh=mesh)
+        return [y], [None], []
+
     def pooling(self, node, attrs, ins):
         key = self.key(ins[0])
         cdim = 3 if attrs.get("layout") == "NHWC" else 1
@@ -716,20 +795,6 @@ class _Alias:
     """The node of an entry that is a converted form of another."""
 
     __slots__ = ()
-
-
-class _ShareGrad(torch.autograd.Function):
-    """Identity forward; the gradient times ``share`` (a parameter read
-    by a node every seq rank runs alike: each rank's share of it)."""
-
-    @staticmethod
-    def forward(ctx, x, share):
-        ctx.share = share
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g * ctx.share, None
 
 
 def _seq_view(shape, st, blocks=1):
@@ -963,6 +1028,7 @@ _HANDLERS = {
     "BatchNorm": GraphWalk.batchnorm,
     "SoftmaxOutput": GraphWalk.loss_head,
     "MakeLoss": GraphWalk.loss_head,
+    "MoEFFN": GraphWalk.moe,
 }
 
 

@@ -29,8 +29,8 @@ and tokens exactly:
   reports "eager"), their artifacts carry ``mesh_shape`` and
   ``sharding_coverage``, ``serving_avals`` are at the local widths;
 * a ``DeviceMesh`` from ``parallel.build_mesh`` serves as its config
-  does; a mesh that does not cover the group, and an ``expert`` axis,
-  raise.
+  does; a mesh that does not cover the group raises, and one with an
+  ``expert`` axis binds.
 """
 import os
 import pickle
@@ -188,7 +188,7 @@ def _cases(mt, mc, world, res):
                       ("expert", MeshConfig(data=1, model=1,
                                             expert=world))):
         try:
-            pred("lm", mesh=cfg)
+            res["bound_" + what] = pred("lm", mesh=cfg).mesh_shape
             res["raise_" + what] = None
         except MXNetError as exc:
             res["raise_" + what] = str(exc)
@@ -398,7 +398,9 @@ def test_mesh_programs_and_artifacts(ranks):
         for a, b in zip(rk["device_mesh"]["probs"], rk["d1m2_dense"]["probs"]):
             np.testing.assert_array_equal(a, b)
         assert "does not cover" in rk["raise_cover"]
-        assert "step 6" in rk["raise_expert"]
+        # an expert axis binds (this LM has no MoE: every rank the same)
+        assert rk["raise_expert"] is None
+        assert rk["bound_expert"] == dict(sizes, model=1, expert=2)
 
 
 if __name__ == "__main__":

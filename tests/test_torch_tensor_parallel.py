@@ -29,9 +29,9 @@ What is held:
   the three nets of the reference's test, with equal outputs;
 * a parameter whose planned dim does not divide the axis (the vocab of
   17) replicates with its coverage record, and the sharding-coverage
-  pass names it; a ``seq`` axis binds and an ``expert`` axis raises
-  naming its ROADMAP step; a checkpoint of the gathered parameters loads in the JAX
-  package; optimizer-state files under a model axis raise.
+  pass names it; a ``seq`` axis and an ``expert`` axis bind; a
+  checkpoint of the gathered parameters loads in the JAX package;
+  optimizer-state files under a model axis raise.
 """
 import os
 import pickle
@@ -378,7 +378,8 @@ def _worker_main(argv):
                     seq_mod.bind(data_shapes=[("data", (8, 10))],
                                  label_shapes=[("softmax_label", (8,))])
                     res["raise_" + axis] = None
-                    res["bound_" + axis] = seq_mod._exec_group.mesh.seq
+                    res["bound_" + axis] = getattr(
+                        seq_mod._exec_group.mesh, axis)
                 except MXNetError as exc:
                     res["raise_" + axis] = str(exc)
     with open(os.path.join(outdir, "r%d.pkl" % rank), "wb") as f:
@@ -595,13 +596,15 @@ def test_indivisible_parameter_degrades_with_its_record(mesh12):
 
 
 def test_seq_and_expert_axes_raise(mesh12):
-    """A ``seq`` axis binds (sequence parallelism: its inputs split over
-    the axis where their layout has N and T); an ``expert`` axis still
-    raises, naming its ROADMAP step."""
+    """Neither raises any more: a ``seq`` axis binds (sequence
+    parallelism: its inputs split over the axis where their layout has N
+    and T), and so does an ``expert`` axis (expert parallelism: the MoE
+    stacks shard over it; this net has none, so every rank computes the
+    same)."""
     data, model, _, ranks = mesh12
-    assert ranks[0]["raise_seq"] is None
-    assert ranks[0]["bound_seq"] == data * model
-    assert "step 6" in ranks[0]["raise_expert"]
+    for axis in ("seq", "expert"):
+        assert ranks[0]["raise_" + axis] is None
+        assert ranks[0]["bound_" + axis] == data * model
 
 
 def test_checkpoint_is_the_reference_file(mesh12):

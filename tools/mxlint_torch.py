@@ -36,8 +36,10 @@ sharding-coverage   ``no-mesh`` on one card
 drift               priced quantities vs a recorded snapshot (``--check``)
 ==================  =====================================================
 
-``ring_tp_step`` and ``moe_train_step`` need a device mesh the port does
-not have yet: they are reported as skipped programs with the reason.
+``ring_tp_step`` and ``moe_train_step`` are mesh programs: the port's
+mesh runs one eager rank a process and traces no single graph, so they
+are reported as skipped programs with the reason (their multi-rank
+artifacts are ROADMAP item 7 step 8).
 
 Output: ONE json line on stdout — ``{"metric":
 "mxlint_unsuppressed_findings", "value", "unit", "vs_baseline", ...}`` —
