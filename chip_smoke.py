@@ -390,6 +390,27 @@ Phases (any failure ends the run with a non-zero exit code):
    on both ranks, A and B launches a rank, teacher-forced against the
    same mesh on the plain versions (|d log p| <= TOL_LOGP, flips only
    at near ties), tokens/s and TTFT a rank.
+25. the expert x seq mesh and the elastic mesh — four rank processes of
+   this script on the card over gloo (``--p25-rank``): (a) phase 16
+   (b)'s MoE LM through ``Module(mesh_config=MeshConfig(seq=2,
+   expert=2))``, ES_FIT_STEPS ``fit`` steps: A / F 3, C / D / E 1 (seq
+   rank 0) or 2 (seq rank 1), B1 1 and 6 exchanges a step a rank, the
+   rank's (8, 1024) block of the batch, falling losses, the step-1
+   parameters and outputs against the same mesh on the plain versions
+   within phase 24's bounds, step s, exchange s and peak memory a rank;
+   (b) on ranks 0 and 1 (a group of 2 through a rendezvous file): the
+   2-layer training LM over MeshConfig(data=2), an uninterrupted ``fit``
+   of EL_EPOCHS epochs of EL_BATCHES steps, then the same ``fit`` under
+   an ElasticController (sync fences every EL_PERIOD steps, one DCP
+   directory over the group) with worker 1's stamp stale at EL_STALE
+   (rank 0 alone on its captured step with B1, rank 1 standing by) and
+   back at EL_BACK (regrown): recoveries 2 on both, every batch of each
+   epoch once, A / F 10, C / D / E 2, B1 1 a step, the final parameters
+   within CAPTURE_SPREAD times the single-process spread of the
+   uninterrupted run's; then a ``fit`` in which rank 1 ``os._exit``s at
+   EL_DEATH_STEP and rank 0 resumes alone: the seconds from the death to
+   its first step alone on the re-formed mesh, the fence's bytes and
+   write ms, the re-forms' parts.
 
 The last lines are a ``kernels`` JSON object (each entry with its
 phase 18 ``tuning`` reading: the class, the winner, its ms and the
@@ -8078,7 +8099,7 @@ def phase_data_parallel(torch, dev, train):
 # ---------------------------------------------------------------------------
 # phase 21: tensor and model parallelism, the C ABI, serving_avals
 # ---------------------------------------------------------------------------
-TP_RANKS, TP_LAYERS, TP_STEPS = 2, 1, 3
+TP_RANKS, TP_LAYERS, TP_STEPS = 2, 1, 2
 TP_RANK_TIMEOUT = 400
 TP_DIRECT = ("head_", "final_", "layer%d_ffn2_" % (TP_LAYERS - 1))
 LSTM_MP = dict(seq_len=12, vocab=200, num_embed=32, num_hidden=64,
@@ -8715,7 +8736,7 @@ def phase_tensor_parallel(torch, dev):
 P22_RANKS = 2       # the ranks of both paths: model=2, two stages
 P22_RANK_TIMEOUT = 800   # phases 22, 23 and 24 in the same processes
 # examples/pipeline_lm.py's stage / embed / head at train-f32's widths
-PIPE_HIDDEN, PIPE_HEADS, PIPE_MICRO, PIPE_STEPS = 1024, 8, 4, 3
+PIPE_HIDDEN, PIPE_HEADS, PIPE_MICRO, PIPE_STEPS = 1024, 8, 4, 2
 PIPE_LR = 3e-3      # the example's Adam rate
 PIPE_DIRECT = ("decode_", "s%d_ffn2_" % (P22_RANKS - 1))
 # the step-1 loss of the pipeline against the unrolled Module: the same
@@ -8966,11 +8987,12 @@ def _pipe_rank(torch, rank, world, outdir):
         json.dump(reading, f)
 
 
-def _spawn_ranks(phase, n, tags, timeout):
+def _spawn_ranks(phase, n, tags, timeout, may_die=()):
     """``n`` rank processes of this script (``--p<phase>-rank`` rank world
     address outdir), each with a timeout: ``({tag: readings}, outdir,
     wall s)``, a reading a rank from ``<tag>_rank<r>.json`` (the caller
-    removes ``outdir``)."""
+    removes ``outdir``).  A rank in ``may_die`` may leave with exit code 0
+    and no OK line (phase 25's real death)."""
     outdir = tempfile.mkdtemp(prefix="mx_smoke_p%d_" % phase)
     address = "127.0.0.1:%d" % _free_port()
     here = os.path.abspath(__file__)
@@ -8991,7 +9013,8 @@ def _spawn_ranks(phase, n, tags, timeout):
                 p.communicate()
     wall = time.perf_counter() - t0
     for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0 or "P%d_RANK_%d_OK" % (phase, r) not in out:
+        ok = "P%d_RANK_%d_OK" % (phase, r) in out or r in may_die
+        if p.returncode != 0 or not ok:
             shutil.rmtree(outdir, ignore_errors=True)
             raise AssertionError("rank %d of phase %d exited %s:\n%s"
                                  % (r, phase, p.returncode, out[-6000:]))
@@ -9474,8 +9497,8 @@ P23_RANK_TIMEOUT = 500
 # its SGD (lr 0.01, momentum 0.9), here in f32 (the port trains its LMs in
 # f32: ROADMAP section C's bf16 token-id cast)
 LC_T, LC_BATCH, LC_EMBED, LC_HEADS, LC_VOCAB = 8192, 2, 2048, 16, 8192
-LC_STEPS = 3        # fit steps through the ring
-LC_SCHEDULE_STEPS = 2   # steps a schedule, timed after the fit
+LC_STEPS = 2        # fit steps through the ring
+LC_SCHEDULE_STEPS = 1   # steps a schedule, timed after the fit
 LC_LR, LC_MOMENTUM = 0.01, 0.9
 LC_COLS = 64        # output columns a row held against the single process
 # (a)'s cases at the bench's attention shape: (dtype, groups)
@@ -10156,7 +10179,7 @@ P24_RANK_TIMEOUT = 500
 # 8192 tokens into C_loc = 2560 slots an expert
 EP_OP_SHAPE = (TRAIN_BATCH * SEQ, EMBED, MOE_EXPERTS, FFN)
 # (b) phase 16 (b)'s MoE LM: EP_FIT_STEPS fit steps a rank
-EP_FIT_STEPS = 3
+EP_FIT_STEPS = 2
 
 
 def _p24_rank_main(rank, world, address, outdir):
@@ -10376,13 +10399,16 @@ def _ep_module(mt, sym, params, plain=False, mesh_config=None,
     return mod
 
 
-def _expert_lm_rank(torch, rank, world, outdir):
+def _expert_lm_rank(torch, rank, world, outdir, mc=None, tag="ep_lm",
+                    steps_n=None):
     """(b) on one rank: the MoE LM through
-    ``Module(mesh_config=MeshConfig(expert=world))``, EP_FIT_STEPS ``fit``
-    steps: each step's launches, collectives and seconds, the losses, the
-    peak memory; then one step of the same mesh on the plain versions
-    from the same parameters, and rank 0 holds the step-1 parameters and
-    the outputs' first LC_COLS columns of the two against each other."""
+    ``Module(mesh_config=MeshConfig(expert=world))`` (or ``mc``),
+    EP_FIT_STEPS (or ``steps_n``) ``fit`` steps: each step's launches,
+    collectives and seconds, the losses, the peak memory; then one step
+    of the same mesh on the plain versions from the same parameters, and
+    rank 0 holds the step-1 parameters and the outputs' first LC_COLS
+    columns of the two against each other.  Written as ``<tag>_rank<r>``
+    (phase 25 (a) runs it over MeshConfig(seq=2, expert=2))."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import ndarray as nd
     from mxnet_tpu_torch.io import DataBatch
@@ -10391,7 +10417,8 @@ def _expert_lm_rank(torch, rank, world, outdir):
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    mc = MeshConfig(data=1, expert=world)
+    mc = mc or MeshConfig(data=1, expert=world)
+    steps_n = steps_n or EP_FIT_STEPS
     sym = _ep_sym()
     params = _train_params(sym)
     x, y = _ep_batch()
@@ -10400,8 +10427,8 @@ def _expert_lm_rank(torch, rank, world, outdir):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     mod = _ep_module(mt, sym, params, mesh_config=mc, optimizer=False)
-    it = mt.io.NDArrayIter(np.tile(x, (EP_FIT_STEPS, 1)),
-                           np.tile(y, (EP_FIT_STEPS, 1)),
+    it = mt.io.NDArrayIter(np.tile(x, (steps_n, 1)),
+                           np.tile(y, (steps_n, 1)),
                            batch_size=TRAIN_BATCH)
     labels = torch.from_numpy(y.reshape(-1, 1)).long().to(dev)
     metric = _lm_loss_metric(torch, labels)
@@ -10442,6 +10469,8 @@ def _expert_lm_rank(torch, rank, world, outdir):
              "train_step": mod._train_step is not None}
     local = {n: list(mod._exec_group.exec_.arg_dict[n].shape)
              for n in mod._exec_group.param_names if "_moe_" in n}
+    local["data"] = list(mod._exec_group.exec_.arg_dict["data"].shape)
+    seq_rank = mod._mesh.seq_rank
     del mod
     gc.collect()
     torch.cuda.empty_cache()
@@ -10454,6 +10483,7 @@ def _expert_lm_rank(torch, rank, world, outdir):
     p_cols = pmod.get_outputs()[0].data[:, :LC_COLS].clone()
     del pmod, arg
     reading = {"rank": rank, "world": world, "steps": steps,
+               "seq_rank": seq_rank,
                "paths": paths, "local_expert_shapes": local,
                "losses": [float(v) for v in metric.losses],
                "peak_bytes": peak,
@@ -10465,7 +10495,8 @@ def _expert_lm_rank(torch, rank, world, outdir):
         reading["cols_vs_plain"] = _cols_diff(torch, first["cols"], p_cols)
         del start
     del first, plain
-    with open(os.path.join(outdir, "ep_lm_rank%d.json" % rank), "w") as f:
+    with open(os.path.join(outdir, "%s_rank%d.json" % (tag, rank)),
+              "w") as f:
         json.dump(reading, f)
 
 
@@ -10759,7 +10790,400 @@ def phase_expert(torch, dev, spawned=None):
                                for rd in ranks["ep_serve"]],
         "serve_ttft_p50_s": [rd["ttft_p50_s"] for rd in ranks["ep_serve"]],
         "lm_launches": lm_launches, "serve_launches": serve_launches}))
-    return {"lm": lm_launches, "serve": serve_launches}
+    return {"lm": lm_launches, "serve": serve_launches,
+            "bounds": lm["bounds"], "col_bound": lm["col_bound"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the expert x seq mesh and the elastic mesh
+# ---------------------------------------------------------------------------
+
+P25_RANKS = 4       # (a): MeshConfig(seq=2, expert=2); (b) on ranks 0 and 1
+P25_RANK_TIMEOUT = 600
+ES_FIT_STEPS = 3    # (a): fit steps of the MoE LM
+# (b): phase 17's / 20's training LM (TRAIN_HEADS: heads of 128, which
+# the flash kernels take; LAYERS layers) over MeshConfig(data=2), a
+# global batch of EL_BATCH, EL_EPOCHS epochs of EL_BATCHES steps, SGD
+# with momentum; fences every EL_PERIOD steps; worker 1 stale at EL_STALE
+# and back at EL_BACK; then a fit of EL_DEATH_BATCHES steps in which
+# rank 1 os._exits at step EL_DEATH_STEP
+EL_BATCH, EL_BATCHES, EL_EPOCHS = 8, 3, 2
+EL_PERIOD, EL_STALE, EL_BACK = 2, 2, 4
+EL_DEATH_BATCHES, EL_DEATH_STEP = 4, 3
+EL_MOMENTUM = 0.9
+EL_DIRECT = ("head_", "final_", "layer%d_ffn2_" % (LAYERS - 1))
+# launches a step a rank of (b)'s LM: A / F 5 a layer, C / D / E 1, B1 1
+EL_PER_STEP = {"fused_fwd": 5 * LAYERS, "fused_bwd": 5 * LAYERS,
+               "flash_fwd": LAYERS, "flash_bwd_dq": LAYERS,
+               "flash_bwd_dkv": LAYERS, "multi_tensor_update": 1}
+
+
+def _p25_rank_main(rank, world, address, outdir):
+    """One rank of phase 25: (a) over all P25_RANKS ranks, then (b) on
+    ranks 0 and 1, which form a group of 2 through a rendezvous file in
+    ``outdir`` (rank 1 dies in (b)'s last fit)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mxnet_tpu_torch.parallel import MeshConfig, launch
+
+    launch.init(address, world, rank, backend="gloo")
+    _expert_lm_rank(torch, rank, world, outdir,
+                    mc=MeshConfig(data=1, seq=2, expert=2), tag="es_lm",
+                    steps_n=ES_FIT_STEPS)
+    launch.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank < 2:
+        launch.reform(outdir, 0, [0, 1], rank)
+        _elastic_rank(torch, rank, outdir)
+    print("P25_RANK_%d_OK" % rank, flush=True)
+    return 0
+
+
+def _el_sym_params():
+    from mxnet_tpu_torch.models import attention_lm
+
+    sym = attention_lm.get_symbol(vocab_size=VOCAB, seq_len=SEQ,
+                                  num_layers=LAYERS, embed=EMBED,
+                                  heads=TRAIN_HEADS, ffn_hidden=FFN)
+    return sym, _train_params(sym)
+
+
+def _el_data(batches):
+    rng = np.random.RandomState(25)
+    x = rng.randint(0, VOCAB, size=(batches * EL_BATCH, SEQ)) \
+        .astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.zeros((len(x), 1), np.float32)],
+                       axis=1)
+    return x, y
+
+
+def _el_fit(torch, sym, params, x, y, mc=None, ctl=None, epochs=EL_EPOCHS,
+            record=None):
+    """One ``fit`` of (b)'s LM (a mesh rank with ``mc``, else one
+    process); ``record`` gets (epoch, nbatch, data axis, time, the
+    step's launches, captured) a step.  Returns the module."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import metric as metric_mod
+
+    kw = {} if mc is None else {"mesh_config": mc}
+    mod = mt.mod.Module(sym, context=mt.gpu(0), **kw)
+    it = mt.io.NDArrayIter(x, y, batch_size=EL_BATCH)
+
+    def on_batch(p):
+        torch.cuda.synchronize()
+        if record is not None:
+            mesh = mod._mesh
+            record.append((p.epoch, p.nbatch,
+                           mesh.data if mesh is not None else 1,
+                           time.time(), _resume_counts(),
+                           mod._train_step is not None))
+        _resume_counts(zero=True)
+
+    _resume_counts(zero=True)
+    mod.fit(it, eval_metric=metric_mod.Perplexity(None), num_epoch=epochs,
+            batch_end_callback=on_batch, optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR,
+                              "momentum": EL_MOMENTUM},
+            arg_params=params, elastic=ctl)
+    torch.cuda.synchronize()
+    return mod
+
+
+def _el_controller(outdir, tag, rank, inj):
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.parallel import collectives
+    from mxnet_tpu_torch.parallel.health import FailureMonitor, Heartbeat
+
+    hb = os.path.join(outdir, "hb-" + tag)
+    Heartbeat(hb, rank).beat()       # one worker a rank, stamped once
+    collectives.barrier()
+    mon = FailureMonitor(hb, num_workers=2, my_rank=rank, timeout=1e6,
+                         grace=0)
+    return elastic.ElasticController(
+        checkpointer=elastic.Checkpointer(os.path.join(outdir, "ck-" + tag),
+                                          period=EL_PERIOD,
+                                          async_write=False),
+        monitor=mon, injector=inj), hb
+
+
+def _fence_reading(ck):
+    step = ck.latest()
+    path = os.path.join(ck.directory, str(step))
+    return {"step": step, "write_ms": ck.last_write_ms,
+            "bytes": sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path)),
+            "files": len(os.listdir(path))}
+
+
+def _elastic_rank(torch, rank, outdir):
+    """(b) on rank 0 or 1: an uninterrupted fit, the elastic fit (worker
+    1 stale at EL_STALE: rank 0 alone, its step captured; back at
+    EL_BACK: regrown), then the fit in which rank 1 dies; rank 0 then
+    runs the two single-process references of the bound."""
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.ops import update_kernel
+    from mxnet_tpu_torch.parallel import MeshConfig
+
+    dev = torch.device("cuda", 0)
+    sym, params = _el_sym_params()
+    x, y = _el_data(EL_BATCHES)
+    mc = MeshConfig(data=2)
+    t0 = time.perf_counter()
+    mod = _el_fit(torch, sym, params, x, y, mc=mc)
+    whole = {k: v.data.to(dev).clone()
+             for k, v in mod.get_params()[0].items()}
+    whole_s = time.perf_counter() - t0
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    inj = elastic.FaultInjector()
+    ctl, hb = _el_controller(outdir, "shrink", rank, inj)
+    inj.stale_heartbeat_at(EL_STALE, hb, 1, age=1e9)
+    inj.revive_heartbeat_at(EL_BACK, hb, 1)
+    steps = []
+    update_kernel.UPDATE_PATH["last"] = None
+    t0 = time.perf_counter()
+    mod = _el_fit(torch, sym, params, x, y, mc=mc, ctl=ctl, record=steps)
+    fit_s = time.perf_counter() - t0
+    got = {k: v.data.to(dev).clone() for k, v in mod.get_params()[0].items()}
+    reading = {"rank": rank, "recoveries": ctl.recoveries, "steps": steps,
+               "reform": ctl.last_reform, "fit_s": fit_s,
+               "whole_fit_s": whole_s, "fence": _fence_reading(
+                   ctl.checkpointer),
+               "update_path": update_kernel.UPDATE_PATH["last"],
+               "world_after": mod._mesh.data if mod._mesh else 1}
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+        reading["vs_whole"] = _run_diff(torch, got, whole, start, EL_DIRECT)
+    with open(os.path.join(outdir, "el_shrink_rank%d.json" % rank),
+              "w") as f:
+        json.dump(reading, f)
+    del got
+    # the real death
+    xd, yd = _el_data(EL_DEATH_BATCHES)
+    inj = elastic.FaultInjector()
+    if rank == 1:
+        def die():
+            with open(os.path.join(outdir, "el_death"), "w") as f:
+                f.write(repr(time.time()))
+            os._exit(0)
+        inj.at_step(EL_DEATH_STEP, die)
+    ctl, _ = _el_controller(outdir, "death", rank, inj)
+    steps = []
+    t0 = time.perf_counter()
+    mod = _el_fit(torch, sym, params, xd, yd, mc=mc, ctl=ctl, epochs=1,
+                  record=steps)
+    death = {"rank": rank, "recoveries": ctl.recoveries, "steps": steps,
+             "reform": ctl.last_reform, "fit_s": time.perf_counter() - t0,
+             "world_after": mod._mesh.data if mod._mesh else 1}
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the bound's single-process spread: the global batch in two orders
+    # (each batch's halves swapped: the same sum in another order)
+    half = EL_BATCH // 2
+    order = np.concatenate([np.arange(i * EL_BATCH + half, (i + 1) * EL_BATCH)
+                            .tolist() + np.arange(i * EL_BATCH, i * EL_BATCH
+                                                  + half).tolist()
+                            for i in range(len(x) // EL_BATCH)])
+    singles = []
+    for xs, ys in ((x, y), (x[order], y[order])):
+        smod = _el_fit(torch, sym, params, xs, ys)
+        singles.append({k: v.data.to(dev).clone()
+                        for k, v in smod.get_params()[0].items()})
+        del smod
+        gc.collect()
+        torch.cuda.empty_cache()
+    start = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+    death["single_spread"] = _run_diff(torch, singles[1], singles[0], start,
+                                       EL_DIRECT)
+    death["single_vs_whole"] = _run_diff(torch, singles[0], whole, start,
+                                         EL_DIRECT)
+    with open(os.path.join(outdir, "el_death_rank%d.json" % rank),
+              "w") as f:
+        json.dump(death, f)
+
+
+def _es_gate(ranks, bounds, col_bound):
+    """(a): each rank's launches and exchanges a step, paths, falling
+    losses, the local blocks; rank 0's step-1 parameters and outputs
+    against the same mesh on the plain versions within phase 24's
+    bounds (the same model and batch)."""
+    failed = []
+    for rd in ranks:
+        r, sr = rd["rank"], rd["seq_rank"]
+        want = {"fused_fwd": 3 * MOE_TRAIN_LAYERS,
+                "fused_bwd": 3 * MOE_TRAIN_LAYERS,
+                "flash_fwd": (sr + 1) * MOE_TRAIN_LAYERS,
+                "flash_bwd_dq": (sr + 1) * MOE_TRAIN_LAYERS,
+                "flash_bwd_dkv": (sr + 1) * MOE_TRAIN_LAYERS,
+                "multi_tensor_update": 1}
+        if len(rd["steps"]) != ES_FIT_STEPS:
+            failed.append("rank %d ran %d steps" % (r, len(rd["steps"])))
+        for i, st in enumerate(rd["steps"]):
+            if st["launches"] != want:
+                failed.append("rank %d step %d launches %s, want %s"
+                              % (r, i, st["launches"], want))
+            a2a = st["collectives"].get("all_to_all", {}).get("calls")
+            if a2a != 6 * MOE_TRAIN_LAYERS:
+                failed.append("rank %d step %d exchanges %s" % (r, i, a2a))
+        if rd["paths"] != {"moe": "sparse_a2a", "update": "kernel",
+                           "slab_update": True, "train_step": False}:
+            failed.append("rank %d paths %s" % (r, rd["paths"]))
+        if rd["local_expert_shapes"]["data"] != [TRAIN_BATCH, SEQ // 2]:
+            failed.append("rank %d data block %s" % (
+                r, rd["local_expert_shapes"]["data"]))
+        losses = rd["losses"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            failed.append("rank %d losses %s" % (r, losses))
+    vs = ranks[0]["vs_plain"]
+    for tier, bound in bounds.items():
+        if not vs["tiers"][tier]["max"] <= bound:
+            failed.append("step-1 %s against the plain mesh %.3g > %.3g"
+                          % (tier, vs["tiers"][tier]["max"], bound))
+    if not ranks[0]["cols_vs_plain"] <= col_bound:
+        failed.append("step-1 outputs against the plain mesh %.3g > %.3g"
+                      % (ranks[0]["cols_vs_plain"], col_bound))
+    return failed
+
+
+def _el_gate(shrink, death, died):
+    """(b): recoveries, the data axis 2 -> 1 -> 2, every batch of each
+    epoch once, the survivor alone on its captured step with B1, the
+    launches a step, the final parameters against the uninterrupted
+    2-rank run within CAPTURE_SPREAD times the single-process spread;
+    the death survived by rank 0."""
+    failed = []
+    for rd in shrink:
+        r = rd["rank"]
+        if rd["recoveries"] != 2:
+            failed.append("rank %d recoveries %d" % (r, rd["recoveries"]))
+        if rd["world_after"] != 2:
+            failed.append("rank %d ends at data %s" % (r, rd["world_after"]))
+        for st in rd["steps"]:
+            if st[4] != EL_PER_STEP:
+                failed.append("rank %d step %s launches %s"
+                              % (r, st[:2], st[4]))
+    s0 = shrink[0]["steps"]
+    datas = [st[2] for st in s0]
+    want_datas = [2] * EL_STALE + [1] * (EL_BACK - EL_STALE) + [2] * (
+        EL_BATCHES * EL_EPOCHS - EL_BACK)
+    if datas != want_datas:
+        failed.append("rank 0's data axis %s, want %s" % (datas, want_datas))
+    alone = [st for st in s0 if st[2] == 1]
+    if not alone or not all(st[5] for st in alone):
+        failed.append("rank 0 alone without its captured step")
+    if shrink[0]["update_path"] != "kernel":
+        failed.append("update path %s" % shrink[0]["update_path"])
+    for ep in range(EL_EPOCHS):
+        seen = sorted(st[1] for st in s0 if st[0] == ep)
+        if seen != list(range(EL_BATCHES)):
+            failed.append("epoch %d batches %s" % (ep, seen))
+    standby = [st for st in shrink[1]["steps"] if st[2] == 1]
+    if standby:
+        failed.append("rank 1 ran steps while standing by: %s" % standby)
+    spread = death[0]["single_spread"]
+    vs = shrink[0]["vs_whole"]
+    for tier in ("before_relu", "behind_relu"):
+        bound = CAPTURE_SPREAD * max(spread["tiers"][tier]["max"], 1e-7)
+        if not vs["tiers"][tier]["max"] <= bound:
+            failed.append("final %s against the uninterrupted run %.3g > "
+                          "%.3g" % (tier, vs["tiers"][tier]["max"], bound))
+    d0 = death[0]
+    if d0["recoveries"] != 1 or d0["world_after"] != 1:
+        failed.append("the death: recoveries %d, data %s"
+                      % (d0["recoveries"], d0["world_after"]))
+    # the survivor's steps alone on the re-formed mesh: a step that the
+    # dying rank's collectives completed may end after its death
+    after = [st[3] for st in d0["steps"] if st[2] == 1 and st[3] > died]
+    if not after:
+        failed.append("rank 0 ran no step on the re-formed mesh")
+    if sorted(set(st[1] for st in d0["steps"])) != list(
+            range(EL_DEATH_BATCHES)):
+        failed.append("the death fit's batches %s"
+                      % [st[1] for st in d0["steps"]])
+    return failed, (min(after) - died) if after else None
+
+
+def phase_elastic_mesh(torch, dev, expert):
+    """Phase 25 (see the module's docstring): (a) the MoE LM over
+    MeshConfig(seq=2, expert=2), (b) the elastic fit of the LM over
+    MeshConfig(data=2).  Returns the launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    ranks, outdir, wall = _spawn_ranks(25, P25_RANKS, ("es_lm",),
+                                       P25_RANK_TIMEOUT, may_die=(1,))
+    try:
+        shrink, death = [], []
+        for r in range(2):
+            with open(os.path.join(outdir, "el_shrink_rank%d.json"
+                                   % r)) as f:
+                shrink.append(json.load(f))
+        with open(os.path.join(outdir, "el_death_rank0.json")) as f:
+            death.append(json.load(f))
+        with open(os.path.join(outdir, "el_death")) as f:
+            died = float(f.read())
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    es = ranks["es_lm"]
+    failed = _es_gate(es, expert["bounds"], expert["col_bound"])
+    step_s = [float(np.mean([st["s"] for st in rd["steps"][1:]]))
+              for rd in es]
+    a2a_s = [float(np.mean([st["collectives"]["all_to_all"]["s"]
+                            for st in rd["steps"][1:]])) for rd in es]
+    log("expert seq (a): " + json.dumps({
+        "card": _smi_line(),
+        "config": "phase 16 (b)'s MoE LM (vocab %d, T %d, batch %d, embed "
+                  "%d, %d heads, FFN %d, %d experts, top-%d, cf %g, f32) "
+                  "through Module(mesh_config=MeshConfig(seq=2, "
+                  "expert=2)), %d ranks over gloo on one card, %d fit "
+                  "steps" % (VOCAB, SEQ, TRAIN_BATCH, EMBED, TRAIN_HEADS,
+                             FFN, MOE_EXPERTS, MOE_TOP_K, MOE_CF, P25_RANKS,
+                             ES_FIT_STEPS),
+        "step_s": step_s, "exchange_s": a2a_s,
+        "peak_bytes": [rd["peak_bytes"] for rd in es],
+        "bounds": expert["bounds"], "col_bound": expert["col_bound"],
+        "ranks": es}))
+    if failed:
+        raise AssertionError("phase 25 (a): " + "; ".join(failed))
+    failed, death_to_step = _el_gate(shrink, death, died)
+    log("elastic (b): " + json.dumps({
+        "card": _smi_line(),
+        "config": "phase 17's / 20's LM (vocab %d, T %d, embed %d, %d "
+                  "heads, FFN %d, %d layers, f32, SGD lr %g momentum %g) "
+                  "over MeshConfig(data=2), batch %d, %d epochs of %d "
+                  "steps, fences every %d steps (sync, DCP over the "
+                  "group); worker 1 stale at step %d, back at step %d; "
+                  "then %d steps with rank 1 dying at step %d"
+                  % (VOCAB, SEQ, EMBED, TRAIN_HEADS, FFN, LAYERS, TRAIN_LR,
+                     EL_MOMENTUM, EL_BATCH, EL_EPOCHS, EL_BATCHES,
+                     EL_PERIOD, EL_STALE, EL_BACK, EL_DEATH_BATCHES,
+                     EL_DEATH_STEP),
+        "shrink": shrink, "death": death,
+        "death_to_first_step_s": death_to_step,
+        "fence_bytes": shrink[0]["fence"]["bytes"],
+        "fence_write_ms": shrink[0]["fence"]["write_ms"],
+        "reform_s": shrink[0]["reform"],
+        "death_reform_s": death[0]["reform"]}))
+    if failed:
+        raise AssertionError("phase 25 (b): " + "; ".join(failed))
+    log("elastic mesh: " + json.dumps({
+        "card": _smi_line(), "wall_s": time.perf_counter() - t0,
+        "ranks_wall_s": wall, "es_step_s": step_s, "es_exchange_s": a2a_s,
+        "el_death_to_first_step_s": death_to_step,
+        "el_fence_bytes": shrink[0]["fence"]["bytes"],
+        "el_fence_write_ms": shrink[0]["fence"]["write_ms"]}))
+    es_launches = {k: sum(st["launches"][k] for rd in es
+                          for st in rd["steps"])
+                   for k in EL_PER_STEP}
+    el_launches = {k: sum(st[4][k] for rd in shrink + death
+                          for st in rd["steps"]) for k in EL_PER_STEP}
+    return {"es": es_launches, "el": el_launches}
 
 
 _PHASE_MARKS = []
@@ -10807,6 +11231,10 @@ def main():
         # one rank of phase 24, started by the phase itself
         rank, world, address, outdir = sys.argv[2:6]
         return _p24_rank_main(int(rank), int(world), address, outdir)
+    if sys.argv[1:2] == ["--p25-rank"]:
+        # one rank of phase 25, started by the phase itself
+        rank, world, address, outdir = sys.argv[2:6]
+        return _p25_rank_main(int(rank), int(world), address, outdir)
     # phases 1-17 run the hand-fixed kernel plans: an empty tuning cache
     # of this run's own, unarmed (phase 18 arms a directory of its own);
     # nothing is read from or left in the user's cache
@@ -10963,6 +11391,10 @@ def _main(torch):
     torch.cuda.empty_cache()
     ep = phase_expert(torch, dev, mp.pop("expert"))
     _mark("expert")
+    gc.collect()
+    torch.cuda.empty_cache()
+    em = phase_elastic_mesh(torch, dev, ep)
+    _mark("elastic_mesh")
 
     # one line per kernel at its main serving shape: A at decode ffn1
     # (M=4, 1024->4096, f32), B at decode over int8 pages (tq=1, G=1);
@@ -10995,7 +11427,8 @@ def _main(torch):
         + analysis_launches["fused_fwd"] + dist_l["fused_fwd"] \
         + two_l["fused_fwd"] + tp_l["fused_fwd"] + capi_l["fused_fwd"] \
         + sm_l["fused_fwd"] + ep["lm"]["fused_fwd"] \
-        + ep["serve"]["fused_fwd"]
+        + ep["serve"]["fused_fwd"] + em["es"]["fused_fwd"] \
+        + em["el"]["fused_fwd"]
     kernels = [
         dict(_entry("fused_ln_linear_fwd",
                     "mxnet_tpu_torch/csrc/fused_fwd.cu",
@@ -11022,7 +11455,9 @@ def _main(torch):
                                "capi": capi_l["fused_fwd"],
                                "serve_mesh": sm_l["fused_fwd"],
                                "expert_lm": ep["lm"]["fused_fwd"],
-                               "expert_serve": ep["serve"]["fused_fwd"]},
+                               "expert_serve": ep["serve"]["fused_fwd"],
+                               "expert_seq_lm": em["es"]["fused_fwd"],
+                               "elastic_lm": em["el"]["fused_fwd"]},
              tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
              verify_cases=[brief(c, "m", "k", "n") for c in a_verify],
              mesh_cases=[brief(c, "m", "k", "n", "relu_residual")
@@ -11110,6 +11545,8 @@ def _main(torch):
         by_path["ring_op"] = rg["op"][counter]
         by_path["ring_lm"] = rg["lm"][counter]
         by_path["expert_lm"] = ep["lm"][counter]
+        by_path["expert_seq_lm"] = em["es"][counter]
+        by_path["elastic_lm"] = em["el"][counter]
         entry = dict(
             _entry("flash_attention_" + counter[6:],
                    "mxnet_tpu_torch/csrc/flash_attention.cu", replaces,
@@ -11136,7 +11573,8 @@ def _main(torch):
                + resume_launches["fused_bwd"] + tune_launches["fused_bwd"]
                + analysis_launches["fused_bwd"] + dist_l["fused_bwd"]
                + two_l["fused_bwd"] + tp_l["fused_bwd"]
-               + ep["lm"]["fused_bwd"],
+               + ep["lm"]["fused_bwd"] + em["es"]["fused_bwd"]
+               + em["el"]["fused_bwd"],
                f_main),
         shape="m=16384 k=1024 n=4096 float32",
         variant=f_main["variant"],
@@ -11151,7 +11589,9 @@ def _main(torch):
                           "dist": dist_l["fused_bwd"],
                           "dist_two_context": two_l["fused_bwd"],
                           "tensor_parallel": tp_l["fused_bwd"],
-                          "expert_lm": ep["lm"]["fused_bwd"]},
+                          "expert_lm": ep["lm"]["fused_bwd"],
+                          "expert_seq_lm": em["es"]["fused_bwd"],
+                          "elastic_lm": em["el"]["fused_bwd"]},
         tuning=_tuning_field(tune_tables, "A+F LM ffn1"),
         max_abs_err_all_cases=max(c["max_abs_err"] for c in f_cases)))
     # B1 at the ResNet-50 path's update: SGD-momentum over f32 masters
@@ -11175,6 +11615,8 @@ def _main(torch):
     b1_by_path["pipeline"] = pp_l["multi_tensor_update"]
     b1_by_path["ring_lm"] = rg["lm"]["multi_tensor_update"]
     b1_by_path["expert_lm"] = ep["lm"]["multi_tensor_update"]
+    b1_by_path["expert_seq_lm"] = em["es"]["multi_tensor_update"]
+    b1_by_path["elastic_lm"] = em["el"]["multi_tensor_update"]
     b1_lstm = next(c for c in b1_cases if c["net"] == "lstm")
     b1_ssd = next(c for c in b1_cases if c["net"] == "ssd")
     b1_zoo = {c["net"]: c for c in b1_cases if c["net"] in ZOO_TRAIN}

@@ -23,7 +23,17 @@ forbids them from any thread.  The file itself is written from host
 memory only.
 
 At most one write is in flight: a fence arriving while the writer is
-busy is *skipped* (``skipped_busy``), never queued.  ``async_write``
+busy is *skipped* (``skipped_busy``), never queued.
+
+A mesh module (one rank a process) writes its fence over the process
+group (``checkpoint.save_state_tree`` with the module's
+``checkpoint.Layout``): every rank writes its own blocks of one step
+directory, and the first rank writes the sidecar and the commit marker
+after every rank's payload is in.  DCP's planning and its commit are
+collectives, and a collective must not run on a writer thread beside the
+loop thread's gradient collectives on the same group, so under a group
+the whole write runs on the loop thread at the fence (``async_write``
+is not taken there).  ``async_write``
 False (``MXNET_CKPT_ASYNC=0``) runs the same write inline on the loop
 thread: the A/B baseline for ``checkpoint_stall_fraction``.  A write
 that fails raises on the loop thread at the next fence (or at ``wait``).
@@ -179,7 +189,8 @@ class Checkpointer:
             job["rng"] = _rng_record()
             _obs.instant("ckpt_fence", cat="elastic",
                          args={"step": int(meta.get("global_step", -1))})
-            if self.async_write:
+            job["layout"] = ckpt_mod.layout_of(module)
+            if self.async_write and job["layout"] is None:
                 self._thread = threading.Thread(
                     target=self._write_guarded, args=(job,), daemon=True,
                     name="mxtorch-ckpt-writer")
@@ -268,9 +279,14 @@ class Checkpointer:
         t0 = time.perf_counter()
         step = int(job["meta"]["global_step"])
         state, metric = self._to_host(job)
+        layout = job.get("layout")
+        first = layout is None or ckpt_mod._first_rank()
         # 1. the payload lands under a temporary sibling, renamed to
-        #    directory/<step> when complete
-        path = ckpt_mod.save_state_tree(self.directory, step, state)
+        #    directory/<step> when complete (under a group, every rank's
+        #    blocks into one directory)
+        path = ckpt_mod.save_state_tree(self.directory, step, state) \
+            if layout is None else ckpt_mod.save_state_tree(
+                self.directory, step, state, layout=layout)
         # 2. the sidecar: loop state for deterministic resume
         sidecar = dict(job["meta"])
         sidecar["rng"] = job["rng"]
@@ -280,13 +296,14 @@ class Checkpointer:
                 vals = [float(t) for t in metric["metric"][str(i)]]
                 rows.append([vals[:n], vals[n:]])
             sidecar["metric_device"] = rows
-        tmp = os.path.join(path, SIDECAR + ".tmp")
-        with open(tmp, "w") as f:
-            json.dump(sidecar, f)
-        os.replace(tmp, os.path.join(path, SIDECAR))
+        if first:
+            tmp = os.path.join(path, SIDECAR + ".tmp")
+            with open(tmp, "w") as f:
+                json.dump(sidecar, f)
+            os.replace(tmp, os.path.join(path, SIDECAR))
         # 3. the commit marker is the LAST write: latest_step resumes
         #    only from steps that got this far
-        ckpt_mod.commit_step(path)
+        ckpt_mod.commit_step(path, layout)
         self.writes += 1
         ms = (time.perf_counter() - t0) * 1e3
         self.last_write_ms = ms
@@ -294,7 +311,8 @@ class Checkpointer:
         # from the writer thread: the timeline shows the overlap
         _obs.instant("ckpt_commit", cat="elastic",
                      args={"step": step, "ms": round(ms, 3)})
-        self._prune()
+        if first:
+            self._prune()
 
     def _prune(self):
         entries = os.listdir(self.directory)
@@ -352,12 +370,14 @@ class Checkpointer:
         with open(os.path.join(self.directory, str(step), SIDECAR)) as f:
             return json.load(f)
 
-    def restore(self, module):
-        """Restore the latest committed fence into ``module`` (the store
-        in place, the generators, the optimizer's counts) and return the
-        sidecar dict, or None when the directory holds none."""
+    def restore(self, module, step=None):
+        """Restore the latest committed fence (or fence ``step``) into
+        ``module`` (the store in place, the generators, the optimizer's
+        counts) and return the sidecar dict, or None when the directory
+        holds none.  On a mesh a collective: every rank calls it."""
         self.wait()
-        step = self.latest()
+        if step is None:
+            step = self.latest()
         if step is None:
             return None
         ckpt_mod.load_sharded(self.directory, step, module)

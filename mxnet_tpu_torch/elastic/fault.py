@@ -53,7 +53,9 @@ class FaultInjector:
         waiting for a timeout to elapse."""
         def _stale():
             path = os.path.join(directory, "worker-%d.heartbeat" % rank)
-            tmp = "%s.tmp.inject" % path
+            # this process's own temporary: the ranks of a mesh inject
+            # the same fault at the same step
+            tmp = "%s.tmp.inject.%d" % (path, os.getpid())
             with open(tmp, "w") as f:
                 json.dump({"rank": rank, "time": time.time() - age,
                            "pid": -1}, f)

@@ -296,17 +296,37 @@ class BaseModule:
                 # auto-resume: a committed fence restores the store, the
                 # generators and the counts and advances the first epoch
                 begin_epoch = elastic.attach(self, eval_metric, begin_epoch)
-            for epoch in range(begin_epoch, num_epoch):
-                if epoch > begin_epoch:
+            epoch, first_epoch = begin_epoch, True
+            while epoch < num_epoch:
+                if not first_epoch:
                     fit_data.reset()
+                first_epoch = False
+                signal = fault = None
                 try:
                     cost = self._fit_epoch(epoch, fit_data, eval_metric,
                                            batch_end_callback, monitor)
                 except elastic_mod.ReconfigureSignal as sig:
-                    # a liveness transition, the steps drained: the
-                    # controller raises (no mesh to re-form yet)
-                    elastic.handle_reconfigure(self, sig, eval_metric)
-                    raise
+                    # a liveness transition, the steps drained (its frames
+                    # let go: they may hold the group's autograd graph)
+                    signal = sig.with_traceback(None)
+                except RuntimeError as exc:
+                    # a collective whose peer died raises here: under a
+                    # controller with a monitor it becomes a poll, once
+                    # the exception (and its frames) are gone
+                    if elastic is None or not elastic.is_liveness_fault(exc):
+                        raise
+                    fault = "%s: %s" % (type(exc).__name__, exc)
+                if fault is not None:
+                    signal = elastic.signal_after_fault(self, fault)
+                if signal is not None:
+                    # re-form the mesh on the survivors, restore the last
+                    # fence and continue from its epoch (None: this rank
+                    # left the mesh)
+                    epoch = elastic.handle_reconfigure(self, signal,
+                                                       eval_metric)
+                    if epoch is None:
+                        break
+                    continue
                 # reading the metric drains the device accumulation
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
@@ -323,6 +343,7 @@ class BaseModule:
                             epoch=epoch):
                         self.logger.info("Epoch[%d] Validation-%s=%f",
                                          epoch, name, val)
+                epoch += 1
         except BaseException:
             failed = True
             raise

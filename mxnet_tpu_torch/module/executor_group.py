@@ -59,9 +59,10 @@ class MeshRuntime:
     reference's specs do); a ``pipe`` axis above 1 raises (a
     ``PipelineModule`` runs one).  An ``expert`` axis shards the MoE
     expert stacks and splits the MoEFFN tokens over its group
-    (``ops.moe``'s sharded path); every other value is computed alike on
+    (``ops.moe``'s sharded path; beside a ``seq`` axis the tokens split
+    over data x seq x expert); every other value is computed alike on
     its ranks, so no gradient sum spans it (the router's is summed inside
-    the op).  It does not combine with a ``seq`` axis."""
+    the op, and a stack's block sums over data x seq with the rest)."""
 
     def __init__(self, mesh_config, replicate=()):
         from ..parallel.mesh import MeshConfig
@@ -99,11 +100,6 @@ class MeshRuntime:
         self.model = self.sizes.get("model", 1)
         self.seq = 1 if "seq" in replicate else self.sizes.get("seq", 1)
         self.expert = self.sizes.get("expert", 1)
-        if self.expert > 1 and self.seq > 1:
-            raise MXNetError(
-                "an 'expert' axis of %d with a 'seq' axis of %d is not "
-                "realized: the MoE tokens split over data x expert, the seq "
-                "axis splits the sequence" % (self.expert, self.seq))
         self.mesh = None
         self.model_group = self.data_group = self.seq_group = None
         self.expert_group = self.grad_group = None

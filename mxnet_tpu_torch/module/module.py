@@ -80,9 +80,18 @@ captured graph), its ``update()`` one kernel-B1 pass over its shards
 where the compiled step would arm the slab plan
 (:class:`~mxnet_tpu_torch.train_step.SlabUpdate`), keeps no store (a
 ``dist*`` kvstore is refused), and
-its optimizer-state files raise under a model axis above 1 (ROADMAP item
-7 step 7).  ``program_artifacts`` then carries the plan's coverage
-record.
+its optimizer-state files hold the whole slots (gathered over the model
+and expert groups, written by the first rank; on load each rank takes
+its block), so a ``.states`` file crosses mesh widths.  Its fence
+checkpoints are one DCP step directory over the group
+(:mod:`~mxnet_tpu_torch.checkpoint`).  ``program_artifacts`` then
+carries the plan's coverage record.
+
+``reconfigure(contexts, mesh_config)`` rebinds at the same data and
+label shapes on a re-formed process group (the elastic controller's
+shrink and regrow: the global batch unchanged, each data rank taking a
+larger or smaller slice) and makes the optimizer's step anew; the fence
+restore that follows writes the store.
 
 The module runs on the card (``gpu(0)``) unless ``context=cpu()``; with
 no card and no CPU context it raises, as ``DecodePredictor`` does.
@@ -175,24 +184,21 @@ class Module(BaseModule):
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """Write ``prefix-symbol.json``, ``prefix-%04d.params`` and, with
         ``save_optimizer_states``, ``prefix-%04d.states``.  Under a mesh
-        every rank gathers the parameters and rank 0 writes."""
-        if self._mesh is not None and self._mesh.mesh is not None:
-            from ..parallel import collectives
+        every rank gathers the parameters and the slots, and rank 0
+        writes."""
+        from ..parallel import collectives
 
-            if save_optimizer_states:
-                self._check_state_files()
-            self.save_params("%s-%04d.params" % (prefix, epoch))
-            if collectives.rank() != 0:
-                return
-        self._symbol.save("%s-symbol.json" % prefix)
         param_name = "%s-%04d.params" % (prefix, epoch)
-        if self._mesh is None or self._mesh.mesh is None:
-            self.save_params(param_name)
-        logging.info("Saved checkpoint to \"%s\"", param_name)
+        self.save_params(param_name)
         if save_optimizer_states:
             state_name = "%s-%04d.states" % (prefix, epoch)
             self.save_optimizer_states(state_name)
             logging.info("Saved optimizer state to \"%s\"", state_name)
+        if self._mesh is not None and self._mesh.mesh is not None \
+                and collectives.rank() != 0:
+            return
+        self._symbol.save("%s-symbol.json" % prefix)
+        logging.info("Saved checkpoint to \"%s\"", param_name)
 
     @property
     def data_names(self):
@@ -248,6 +254,8 @@ class Module(BaseModule):
             return
         if inputs_need_grad and not for_training:
             raise MXNetError("inputs_need_grad needs for_training")
+        self._data_shapes = as_desc_list(data_shapes)
+        self._label_shapes = as_desc_list(label_shapes)
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         shared_group = None
@@ -314,9 +322,12 @@ class Module(BaseModule):
             _impl(name, arr, arg_params)
         for name, arr in sorted(self._aux_params.items()):
             _impl(name, arr, aux_params)
+        from ..parallel import launch
+
         if self._mesh is not None and self._mesh.mesh is not None \
-                and initializer is not None:
-            # one draw for the whole mesh: rank 0's
+                and initializer is not None and launch.rejoined() is None:
+            # one draw for the whole mesh: rank 0's (a process rejoining
+            # an elastic mesh takes the fence the others restore instead)
             from ..parallel import collectives
 
             for table in (self._arg_params, self._aux_params):
@@ -419,6 +430,56 @@ class Module(BaseModule):
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+
+    def release_group(self):
+        """Drop everything of this module that holds the process group's
+        handles (the executor group with its graph walk and autograd
+        graph, the mesh, the train step): the elastic controller calls
+        it before it abandons a group.  The host parameter dicts, the
+        optimizer and the bound shapes stay for :meth:`reconfigure`."""
+        if self._train_step is not None:
+            self._train_step.detach_metric()
+        self._exec_group = None
+        self._mesh = None
+        self._train_step = None
+        self._slab_update = None
+        self._fused_outputs = None
+        self._pending_metric = None
+        self._eval_step_cache = None
+        self._updater = None
+        self.binded = False
+
+    def reconfigure(self, contexts, mesh_config=None):
+        """Re-form the module over new contexts and a new mesh mid-training
+        (the elastic shrink or regrow; the reference's
+        ``Module.reconfigure``): rebind at the SAME data and label shapes
+        (the global batch unchanged: each data rank takes a larger or
+        smaller slice) over the process group as it now is, then make the
+        optimizer's step anew (``force_init``), eager on a mesh of
+        several ranks, captured on one process.  The caller restores the
+        parameters and slots from the last fence, re-sharded onto the new
+        mesh; nothing may be in flight (the controller drains first)."""
+        if not (self.params_initialized and self.optimizer_initialized):
+            raise MXNetError("reconfigure needs an initialized module with "
+                             "an optimizer")
+        if isinstance(contexts, Context):
+            contexts = [contexts]
+        contexts = list(contexts)
+        data_shapes, label_shapes = self._data_shapes, self._label_shapes
+        optimizer = self._optimizer
+        if self.binded:
+            self.release_group()
+        self._contexts = contexts
+        self._context = contexts[0]
+        self._device = resolve_device(one_device(contexts))
+        self._mesh_config = mesh_config
+        self.bind(data_shapes=data_shapes, label_shapes=label_shapes or None,
+                  for_training=True, force_rebind=True)
+        # bind() pushed the host parameter dicts into the new group; the
+        # step (fresh slots) is made here and the fence restore that
+        # follows overwrites both
+        self.init_optimizer(kvstore="local", optimizer=optimizer,
+                            force_init=True)
 
     def _fused_eligible(self, optimizer, kvstore, captured=True):
         """Whether the compiled train step can own the update (the JAX
@@ -729,21 +790,80 @@ class Module(BaseModule):
     # ------------------------------------------------------------------
     # optimizer states
     # ------------------------------------------------------------------
-    def _check_state_files(self):
-        if self._mesh is not None and self._mesh.model \
-                * self._mesh.expert > 1:
-            raise MXNetError(
-                "optimizer-state files of a model axis of %d and an expert "
-                "axis of %d hold sharded slots: sharded checkpoint "
-                "directories are ROADMAP item 7 step 7"
-                % (self._mesh.model, self._mesh.expert))
+    def _mesh_slots(self):
+        """``{name: [slot tensors]}`` of a mesh rank's updater (views of
+        its B1 slabs), made where missing; ``[]`` for a trainable that
+        keeps none (plain SGD)."""
+        from ..checkpoint import _store_slots
+
+        group = self._exec_group
+        slots = {n: [] for n, g in zip(group.param_names, group.grad_arrays)
+                 if g is not None}
+        slots.update(_store_slots(self._updater, group))
+        return slots
+
+    def _save_mesh_states(self, fname):
+        """The whole slots of a mesh: each gathered over the model or
+        expert group as its parameter is (a collective: every rank calls
+        it), the reference's payload written by rank 0."""
+        import pickle
+
+        from ..optimizer import _to_numpy
+        from ..parallel import collectives
+
+        tp = self._exec_group.tp
+        local = self._exec_group.exec_.arg_dict
+        host = {}
+        for name, slots in sorted(self._mesh_slots().items()):
+            whole = []
+            for t in slots:
+                if tuple(t.shape) == tuple(local[name].shape):
+                    t = tp.unshard(name, t)
+                whole.append(_to_numpy(t))
+            host[name] = tuple(whole)
+        if collectives.rank() == 0:
+            with open(fname, "wb") as fout:
+                fout.write(pickle.dumps(host))
+        collectives.barrier()
+
+    def _load_mesh_states(self, fname):
+        """Each rank's block of a ``.states`` payload's whole slots, copied
+        in place into its updater's states."""
+        import numpy as np
+        import torch
+
+        from ..optimizer import _state_tensors, load_states
+
+        tp = self._exec_group.tp
+        local = self._exec_group.exec_.arg_dict
+        slots = self._mesh_slots()
+        name2idx = {n: i for i, n in self._optimizer.idx2name.items()}
+        idx2name = {i: n for n, i in name2idx.items()}
+        with open(fname, "rb") as fin:
+            loaded = load_states(fin.read())
+        with torch.no_grad():
+            for key, state in loaded.items():
+                name = idx2name.get(key, key) if isinstance(key, int) \
+                    else key
+                if name not in slots:
+                    continue
+                for dst, src in zip(slots[name], _state_tensors(state)):
+                    if src is None:
+                        continue
+                    src = torch.from_numpy(np.array(src))
+                    if tuple(dst.shape) == tuple(local[name].shape):
+                        src = tp.shard(name, src)
+                    dst.copy_(src)
 
     def save_optimizer_states(self, fname):
         """The train step's, the store's (``update_on_kvstore``) or the
-        updater's states as the ``.states`` payload."""
+        updater's states as the ``.states`` payload; on a mesh the whole
+        slots gathered (a collective), rank 0 writing."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
-        self._check_state_files()
+        if self._mesh is not None and self._mesh.mesh is not None:
+            self._save_mesh_states(fname)
+            return
         if self._train_step is None and self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
             return
@@ -753,9 +873,13 @@ class Module(BaseModule):
             fout.write(source.get_states())
 
     def load_optimizer_states(self, fname):
+        """Load a ``.states`` payload; on a mesh each rank takes its block
+        of the whole slots, so the file crosses mesh widths."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
-        self._check_state_files()
+        if self._mesh is not None and self._mesh.mesh is not None:
+            self._load_mesh_states(fname)
+            return
         if self._train_step is None and self._update_on_kvstore:
             self._kvstore.load_optimizer_states(fname)
             return

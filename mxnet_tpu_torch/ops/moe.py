@@ -24,7 +24,8 @@ Three dispatch shapes, one routing rule:
 * **sharded** (a capacity under a mesh whose ``expert`` axis is above 1,
   the experts and the tokens dividing it: :func:`_sharded_ok`):
   :func:`_moe_forward_sparse_sharded`, one rank a process.  Each rank
-  routes its n_loc tokens (split over data x expert), packs them into
+  routes its n_loc tokens (split over data x expert, and over seq too
+  where a mesh Module's rows arrive split over it), packs them into
   (E, C_loc, d) slots, exchanges them with
   ``collectives.all_to_all`` over the expert group, runs its own experts
   (their hidden dim split over ``model`` with one sum when it divides),
@@ -36,12 +37,13 @@ Three dispatch shapes, one routing rule:
 On a mesh (:class:`MoEMesh`, from the mesh ``Module``'s and the mesh
 ``DecodePredictor``'s graph walk) a config the sharded path does not take
 keeps the reference's global semantics, never per-rank ones: the sparse
-path counts slot positions over every data rank's choices (one quota,
-``num_groups`` 1) with the expert stacks gathered (the degrade is
+path counts slot positions over every data (and seq) rank's choices in
+the global row order (one quota, ``num_groups`` 1) with the expert
+stacks gathered (the degrade is
 recorded in :data:`MOE_DEGRADE`), and the dense oracle runs each rank's
 experts over every token with one sum over the expert group.  On every
 path the Switch balance term averages f and P over the whole token group
-(data x expert) before their product, and each gradient is counted once
+(data x seq x expert) before their product, and each gradient is counted once
 across the ranks.  The expert products are batched matrix products
 (``torch.bmm``), as they are einsums outside any kernel in the JAX
 package.  Without a mesh everything is capturable in a CUDA graph: no
@@ -302,18 +304,24 @@ def _moe_forward_sparse(x, wg, w1, b1, w2, b2, num_experts,
 
 class MoEMesh:
     """Where an MoEFFN call runs on a mesh of processes: ``axes``
-    ``{name: parallel.compat.MeshAxis}`` (``data``, ``model``,
+    ``{name: parallel.compat.MeshAxis}`` (``data``, ``model``, ``seq``,
     ``expert``), ``split`` the axes the data input's rows already arrive
-    split over (a mesh Module's ``data`` rows), ``local`` whether the
-    expert stacks given are this rank's block of the expert axis (a
-    mesh Module's sharded stacks) or whole."""
+    split over (a mesh Module's ``data`` rows, and under a ``seq`` axis
+    its blocks of the sequence: then ``seq_t`` is the block's length,
+    the rows being (outer, seq_t) with the block inner), ``local``
+    whether the expert stacks given are this rank's block of the expert
+    axis (a mesh Module's sharded stacks) or whole."""
 
-    __slots__ = ("axes", "split", "local")
+    __slots__ = ("axes", "split", "local", "seq_t")
 
-    def __init__(self, axes, split=(), local=False):
+    def __init__(self, axes, split=(), local=False, seq_t=None):
         self.axes = dict(axes)
         self.split = tuple(a for a in split if self.size(a) > 1)
         self.local = bool(local) and self.size("expert") > 1
+        self.seq_t = seq_t
+        if "seq" in self.split and not seq_t:
+            raise ValueError("rows split over a seq axis need the block's "
+                             "length (seq_t)")
 
     @classmethod
     def of(cls, mesh):
@@ -332,8 +340,11 @@ class MoEMesh:
 
     def token_axes(self):
         """The axes the tokens are split over on the sharded path, major
-        first (those of size above 1)."""
-        return tuple(a for a in ("data", "expert") if self.size(a) > 1)
+        first (those of size above 1): data, the seq axis where the rows
+        arrive split over it, expert."""
+        return tuple(a for a in ("data", "seq", "expert")
+                     if self.size(a) > 1
+                     and (a != "seq" or a in self.split))
 
 
 def _token_mean(value, axes):
@@ -360,8 +371,10 @@ def _balance_loss(probs, choice, e, axes):
 def _sharded_ok(x, num_experts, mesh):
     """The sharded path's divisibility guards (the reference's): an
     ``expert`` axis above 1, the experts dividing it, and the global
-    token count dividing data x expert.  Returns None when they hold,
-    else the reason (the call then keeps the global semantics)."""
+    token count (over every axis that splits the rows) dividing the token
+    axes (data x expert, and seq where the rows arrive split over it).
+    Returns None when they hold, else the reason (the call then keeps the
+    global semantics)."""
     ep = mesh.size("expert")
     if ep <= 1:
         return "no expert axis"
@@ -370,9 +383,12 @@ def _sharded_ok(x, num_experts, mesh):
             num_experts, ep)
     n = int(np.prod(x.shape[:-1])) * int(np.prod(
         [mesh.size(a) for a in mesh.split]))
-    groups = mesh.size("data") * ep
+    axes = mesh.token_axes()
+    groups = int(np.prod([mesh.size(a) for a in axes]))
     if n % groups:
-        return "%d tokens do not divide data x expert = %d" % (n, groups)
+        return "%d tokens do not divide %s = %d" % (
+            n, " x ".join(axes if "data" in axes else ("data",) + axes),
+            groups)
     return None
 
 
@@ -474,17 +490,41 @@ def _whole_stacks(mesh, stacks):
     return [C.gather_from(w, 0, group) for w in stacks]
 
 
+def _global_choices(choice, mesh):
+    """``(every, mine)``: the (n_all, k) choices of every rank of the
+    split axes in the global row order (gathered: over the seq group
+    within each outer row first, the blocks inner, then over the data
+    group along the rows) and the indices of this rank's rows in it."""
+    from ..parallel import collectives as C
+
+    n, k = choice.shape
+    every = choice.contiguous()
+    mine = torch.arange(n, device=choice.device)
+    if "seq" in mesh.split:
+        ax, t = mesh.axes["seq"], mesh.seq_t
+        outer = n // t
+        every = C.all_gather(every.reshape(outer, t, k), 1, ax.group) \
+            .reshape(-1, k)
+        mine = (mine // t) * (t * ax.size) + ax.index * t + mine % t
+    if "data" in mesh.split:
+        ax = mesh.axes["data"]
+        mine = mine + ax.index * every.shape[0]
+        every = C.all_gather(every, 0, ax.group)
+    return every, mine
+
+
 def _moe_forward_sparse_global(x, wg, w1, b1, w2, b2, num_experts,
                                capacity_factor, mesh,
                                num_experts_per_tok=1, dropless=False):
     """The sparse path on a mesh where the sharded one does not apply:
     the reference's ``_moe_forward_sparse`` over the global batch, one
     capacity quota (``num_groups`` 1).  Each rank routes the rows it
-    holds; when they are its block of a data split, every data rank's
-    choices are gathered (integers, no gradient) so the slot positions
-    are the global ones, and the rank packs and combines its own tokens.
-    f and P are averaged over the data group, so the balance term's
-    gradient counts once across it."""
+    holds; when they are its block of a data (and seq) split, every
+    rank's choices are gathered in the global row order (integers, no
+    gradient: :func:`_global_choices`) so the slot positions are the
+    global ones, and the rank packs and combines its own tokens.  f and
+    P are averaged over the split axes, so the balance term's gradient
+    counts once across them."""
     from ..parallel import collectives as C
 
     e = num_experts
@@ -499,12 +539,9 @@ def _moe_forward_sparse_global(x, wg, w1, b1, w2, b2, num_experts,
     cap = _capacity(capacity_factor, k, n_all, e, dropless)
     probs = torch.softmax(xt @ wg, dim=-1)
     choice, gate = _route(probs, k)
-    every, off = choice, 0
-    for ax in axes:
-        every = C.all_gather(every.contiguous(), 0, ax.group)
-        off = off * ax.size + ax.index
+    every, mine = _global_choices(choice, mesh)
     _, keep, slot = _slot_assign(every, e, cap)
-    keep, slot = keep[off * n:(off + 1) * n], slot[off * n:(off + 1) * n]
+    keep, slot = keep[mine], slot[mine]
     xd = _pack_slots(xt, slot, keep, e, cap)
     ye = _expert_ffn(xd, w1, b1, w2, b2)
     yt = _combine_slots(ye.reshape(e * cap, d), slot, keep, gate)

@@ -13,15 +13,19 @@ transitions (a rank going stale, a dead rank returning) into
 
 The stamp files are the JAX package's (``worker-<rank>.heartbeat``: JSON
 ``{rank, time, pid}``, and the ``.heartbeat-epoch`` marker), so a stamp
-written by either package reads the same in the other.  The port's loop
-drains and stops at such an event: re-forming a device mesh on the
-survivors waits for the port of ``parallel/mesh.py``.
+written by either package reads the same in the other.  The port's
+stamps also carry ``host``: a stamp of this host whose process is gone
+reads dead at once, not after the timeout (a stamp without it, or of
+another host, by its age alone).  On such an event the elastic
+controller re-forms the mesh on the survivors
+(:mod:`~mxnet_tpu_torch.elastic.controller`).
 """
 from __future__ import annotations
 
 import atexit
 import json
 import os
+import socket
 import threading
 import time
 import weakref
@@ -38,6 +42,32 @@ DEFAULT_GRACE = 30.0       # missing-first-stamp allowance for workers that
                            # registered but have not stamped yet
 
 _EPOCH_FILE = ".heartbeat-epoch"
+
+
+_HOST = socket.gethostname()
+
+
+def _pid_gone(stamp):
+    """Whether ``stamp`` names a process of this host that no longer runs
+    (gone, or a zombie not yet reaped); False where it cannot tell."""
+    pid = stamp.get("pid")
+    if stamp.get("host") != _HOST or not isinstance(pid, int) or pid <= 0:
+        return False
+    try:
+        with open("/proc/%d/stat" % pid) as f:
+            state = f.read().rsplit(")", 1)[1].split()[0]
+        return state in ("Z", "X")
+    except FileNotFoundError:
+        return True
+    except (OSError, IndexError):
+        pass
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    except OSError:
+        pass
+    return False
 
 
 def _stamp_path(directory, rank):
@@ -110,7 +140,7 @@ class Heartbeat:
         tmp = "%s.tmp.%d" % (path, os.getpid())
         with open(tmp, "w") as f:
             json.dump({"rank": self.rank, "time": time.time(),
-                       "pid": os.getpid()}, f)
+                       "pid": os.getpid(), "host": _HOST}, f)
         os.replace(tmp, path)
 
     def stop(self):
@@ -187,7 +217,8 @@ def stop_heartbeat(directory, rank):
 
 def dead_nodes(directory, num_workers, timeout=DEFAULT_TIMEOUT, now=None,
                grace=0.0):
-    """Ranks considered dead: stamp missing or older than ``timeout``.
+    """Ranks considered dead: stamp missing or older than ``timeout``, or
+    naming a process of this host that is gone.
     (``get_num_dead_node(node_id, timeout)`` analog, kvstore.h:235-244.)
 
     ``grace`` protects just-started workers: a rank whose stamp file does
@@ -205,7 +236,7 @@ def dead_nodes(directory, num_workers, timeout=DEFAULT_TIMEOUT, now=None,
         try:
             with open(path) as f:
                 stamp = json.load(f)
-            if now - stamp["time"] > timeout:
+            if now - stamp["time"] > timeout or _pid_gone(stamp):
                 dead.append(rank)
         except FileNotFoundError:
             if epoch is not None and now - epoch <= grace:
@@ -258,7 +289,9 @@ class FailureMonitor:
     (shrink the mesh) or previously-dead rank(s) stamping again (regrow) —
     and None when nothing moved.  ``my_rank`` is never reported dead to
     itself: a worker that cannot see its own stamp has a storage problem,
-    not a liveness one.
+    not a liveness one.  An elastic mesh sets ``watch_self`` (the
+    controller does, at ``fit``): the other workers read the stamps too,
+    so a worker they read as dead must stand down with them.
     """
 
     def __init__(self, directory, num_workers, my_rank=0,
@@ -273,6 +306,7 @@ class FailureMonitor:
         self.grace = float(_config.get("MXNET_ELASTIC_GRACE")
                            if grace is None else grace)
         self.current_dead = None   # unknown until the first poll
+        self.watch_self = False
         os.makedirs(directory, exist_ok=True)
         _ensure_epoch(directory)
 
@@ -280,7 +314,8 @@ class FailureMonitor:
         dead = set(dead_nodes(self.directory, self.num_workers,
                               timeout=self.timeout, now=now,
                               grace=self.grace))
-        dead.discard(self.my_rank)
+        if not self.watch_self:
+            dead.discard(self.my_rank)
         from .. import obs as _obs
 
         _obs.registry.gauge(

@@ -58,10 +58,10 @@ precedence over the Megatron plan, with the reference's coverage record
 and its "indivisible" degrade), and ``MoEFFN`` runs
 :mod:`~mxnet_tpu_torch.ops.moe`'s mesh paths: the sharded all-to-all
 over the expert group, or the reference's global semantics.  Over a data
-group alone ``MoEFFN`` keeps those global semantics too (one capacity
-quota over the whole batch, f and P averaged over it), where each rank
-would otherwise route its slice alone.  Every other value is computed
-alike on the expert ranks.
+or seq group without an expert axis ``MoEFFN`` keeps those global
+semantics too (one capacity quota over the whole batch, f and P averaged
+over it), where each rank would otherwise route its rows alone.  Every
+other value is computed alike on the expert ranks.
 
 Over a seq group of more than one rank (the realization of what GSPMD
 does for the reference's ``seq`` axis) the walk also keeps, for every
@@ -69,7 +69,8 @@ value, which dim holds this rank's block of the sequence
 (:class:`SeqSplit`; the executor group splits the T dim of every input
 whose layout has N and T).  A per-token op keeps the split: the element-
 wise and broadcast families, ``FullyConnected`` on rows or with
-``flatten=False``, ``FusedLNLinear``, ``Embedding``, softmax over
+``flatten=False``, ``FusedLNLinear``, ``Embedding``, ``MoEFFN`` (its
+tokens routed as one batch), softmax over
 another axis, reductions over other axes, a ``Reshape`` that merges
 the leading (N, T) dims (the LM's rows), ``SoftmaxOutput`` on split rows
 (its 'batch' / 'valid' normalization over data x seq).  A whole operand
@@ -255,14 +256,16 @@ class TensorParallel:
         return C.all_gather(local, dim, self.group)
 
     def mesh_axes(self):
-        """``{name: parallel.compat.MeshAxis}`` of the data, model and
-        expert axes as this rank sees them."""
+        """``{name: parallel.compat.MeshAxis}`` of the data, model, seq
+        and expert axes as this rank sees them."""
         from .compat import MeshAxis
 
         return {"data": MeshAxis("data", self.data_group, self.data,
                                  self.data_rank),
                 "model": MeshAxis("model", self.group, self.model,
                                   self.model_rank),
+                "seq": MeshAxis("seq", self.seq_group, self.seq,
+                                self.seq_rank),
                 "expert": MeshAxis("expert", self.expert_group, self.expert,
                                    self.expert_rank)}
 
@@ -736,24 +739,32 @@ class GraphWalk:
         return outs, [None] * len(outs), []
 
     def moe(self, node, attrs, ins):
-        """MoEFFN on an expert axis, or on rows split over a data axis
-        (:mod:`~mxnet_tpu_torch.ops.moe`'s mesh paths): the sharded
-        all-to-all over the expert group, or the reference's global
-        semantics (one capacity quota over the whole batch, f and P
-        averaged over it), never one computed from this rank's rows
-        alone.  Under a seq axis the node runs gathered, as before."""
+        """MoEFFN on an expert axis, or on rows split over a data or seq
+        axis (:mod:`~mxnet_tpu_torch.ops.moe`'s mesh paths): the sharded
+        all-to-all over the expert group (the tokens split over every
+        axis that splits the rows, then over expert), or the reference's
+        global semantics (one capacity quota over the whole batch, f and
+        P averaged over it), never one computed from this rank's rows
+        alone.  On rows split over seq (the (N, T) -> (N*T) Reshape
+        keeps the split) the node routes them where they are, the choices
+        gathered in the global row order where the quota is global."""
         from ..ops import moe as _moe
 
         tp = self.tp
-        if tp.seq > 1 or (tp.expert <= 1 and not self.data_split):
+        seq_split = self.seq_factor > 1
+        if tp.expert <= 1 and not self.data_split and not seq_split:
             return None
         names = node.op.list_arguments(attrs)
         stacks = [self.params.get(self.key(e)) for e, n in zip(ins, names)
                   if n.startswith("expert")]
+        st = self.seq.get(self.key(ins[0])) if seq_split else None
         mesh = _moe.MoEMesh(
-            tp.mesh_axes(), split=("data",) if self.data_split else (),
+            tp.mesh_axes(),
+            split=(("data",) if self.data_split else ())
+            + (("seq",) if seq_split else ()),
             local=bool(stacks) and all(n in tp.expert_sharded
-                                       for n in stacks))
+                                       for n in stacks),
+            seq_t=None if st is None else st.t)
         y = _moe.moe_ffn(attrs, *(self.rep(self.key(e)) for e in ins),
                          mesh=mesh)
         return [y], [None], []
@@ -993,6 +1004,19 @@ def _seq_softmax_output(walk, node, attrs, vals, sts):
     return [None, ("slice", SeqSplit(0, sd.t))], sd, None
 
 
+def _seq_moe(walk, node, attrs, vals, sts):
+    """MoEFFN on token rows split over the seq group (its data input's
+    split dim the last but one: the rows flatten as (outer, t)), its
+    router and expert stacks whole: a per-token op, routed by
+    :meth:`GraphWalk.moe` with the reference's global semantics."""
+    x, st = vals[0], sts[0]
+    conv = _whole(vals, sts)
+    if st is None or conv is None or x.dim() < 2 \
+            or st.dim != x.dim() - 2:
+        return None
+    return conv, st, None
+
+
 def _seq_dot_product_attention(walk, node, attrs, vals, sts):
     """q, k and v split alike on their T dim: the ring (or the gathered
     path) in :meth:`GraphWalk._seq_attention`."""
@@ -1013,6 +1037,7 @@ _SEQ_RULES = {
     "log_softmax": _seq_softmax,
     "SoftmaxOutput": _seq_softmax_output,
     "dot_product_attention": _seq_dot_product_attention,
+    "MoEFFN": _seq_moe,
 }
 _SEQ_RULES.update({name: _seq_reduce for name in (
     "sum", "mean", "prod", "nansum", "nanprod", "max", "min", "norm")})

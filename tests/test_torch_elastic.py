@@ -82,15 +82,15 @@ class _Capture(logging.Handler):
 
 
 def _fit(pkg, tag, X, Y, ctl=None, last_batch_handle="pad", num_epoch=2,
-         begin_epoch=0, hidden=16, classes=4, batch_size=8):
+         begin_epoch=0, hidden=16, classes=4, batch_size=8, context=None):
     """One fit of either package from the same numpy parameters; returns
     (module, the train-accuracy lines)."""
     pkg.random.seed(42)
     cap = _Capture()
     lg = logging.Logger("elastic-%s-%s" % (pkg.__name__, tag))
     lg.addHandler(cap)
-    mod = pkg.mod.Module(_net(pkg, hidden, classes), context=pkg.cpu(),
-                         logger=lg)
+    mod = pkg.mod.Module(_net(pkg, hidden, classes),
+                         context=context or pkg.cpu(), logger=lg)
     args = {k: pkg.nd.array(v.astype(np.float32)) for k, v in
             _params(hidden, classes, X.shape[1]).items()}
     it = pkg.io.NDArrayIter(X, Y, batch_size=batch_size,
@@ -273,11 +273,16 @@ def test_write_failure_does_not_mask_the_unwinding_exception(
     assert ctl.checkpointer._error is None
 
 
-def test_monitor_event_drains_and_raises(tmp_path):
-    """A heartbeat going stale mid-fit: the fence of that step commits,
-    the loop drains and fit raises the stated MXNetError (no mesh to
-    re-form on one device)."""
+def test_monitor_event_drains_and_reforms(tmp_path):
+    """A heartbeat going stale mid-fit in one process over two contexts
+    (two workers, a context each: the reference maps workers onto its
+    devices): the fence of that step commits, the loop drains, the
+    module re-forms on the surviving context and fit resumes from that
+    fence to the end: one recovery, the parameters and the last metric
+    line bit for bit an uninterrupted run's."""
     X, Y = _dataset(96)
+    whole, hist_whole = _fit(mt, "two-contexts", X, Y,
+                             context=[mt.cpu(0), mt.cpu(1)])
     hb = str(tmp_path / "hb")
     health.Heartbeat(hb, 0).beat()
     health.Heartbeat(hb, 1).beat()
@@ -289,9 +294,15 @@ def test_monitor_event_drains_and_raises(tmp_path):
         monitor=mon,
         injector=elastic.FaultInjector().stale_heartbeat_at(4, hb, 1,
                                                             age=1e9))
-    with pytest.raises(mt.MXNetError, match="re-forming the device mesh"):
-        _fit(mt, "shrink", X, Y, ctl)
-    assert checkpoint.latest_step(d) == 4 and mon.current_dead == {1}
+    mod, hist = _fit(mt, "shrink", X, Y, ctl,
+                     context=[mt.cpu(0), mt.cpu(1)])
+    assert mon.current_dead == {1} and ctl.recoveries == 1
+    assert mod._contexts == [mt.cpu(0)]
+    assert checkpoint.latest_step(d) == 24
+    assert hist == hist_whole
+    want = _numpy_params(whole)
+    for name, w in _numpy_params(mod).items():
+        np.testing.assert_array_equal(w, want[name], err_msg=name)
 
 
 def test_from_env_arms_fit(tmp_path):
@@ -316,6 +327,57 @@ def test_from_env_arms_fit(tmp_path):
         _fit(mt, "env-resumed", X, Y, num_epoch=2)
         assert checkpoint.latest_step(d) == 24
     assert elastic.from_env() is None
+
+
+def test_from_env_arms_the_elastic_mesh(tmp_path, monkeypatch):
+    """Under a process group with ``MXNET_HEARTBEAT_DIR`` set,
+    ``from_env`` arms the monitor too: a worker a rank, this rank's
+    stamp written; without a group it arms none."""
+    import socket
+
+    from mxnet_tpu_torch.parallel import launch
+
+    hb = str(tmp_path / "hb")
+    monkeypatch.setenv("MXNET_HEARTBEAT_DIR", hb)
+    with mt.config.overrides(MXNET_CKPT_DIR=str(tmp_path / "ck"),
+                             MXNET_CKPT_PERIOD=3):
+        assert elastic.from_env().monitor is None
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        launch.init("127.0.0.1:%d" % port, 1, 0, backend="gloo",
+                    timeout=60)
+        try:
+            mon = elastic.from_env().monitor
+            assert (mon.num_workers, mon.my_rank) == (1, 0)
+            assert health.dead_nodes(hb, 1) == []
+        finally:
+            health.stop_heartbeat(hb, 0)
+            launch.shutdown()
+
+
+def test_stamp_of_a_gone_process_reads_dead_at_once(tmp_path):
+    """A stamp of this host whose process has exited (or is a zombie not
+    yet reaped) reads dead at once, whatever its age; a stamp without a
+    host (the JAX package's) or of a live process by its age alone; the
+    JAX package reads the port's stamp by its age."""
+    import subprocess
+    import sys
+
+    d = str(tmp_path / "hb")
+    code = ("import sys; sys.path.insert(0, %r); "
+            "from mxnet_tpu_torch.parallel import health; "
+            "health.Heartbeat(%r, 1).beat()"
+            % (os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+               d))
+    proc = subprocess.Popen([sys.executable, "-c", code])
+    health.Heartbeat(d, 0).beat()
+    proc.wait()
+    assert health.dead_nodes(d, 2, timeout=1e6) == [1]
+    assert jhealth.dead_nodes(d, 2, timeout=1e6) == []
+    jhealth.Heartbeat(d, 1).beat()
+    assert health.dead_nodes(d, 2, timeout=1e6) == []
 
 
 @pytest.mark.parametrize("writer,reader", [

@@ -11,7 +11,8 @@ only PyTorch and the port) and writes what it computed to
 ``<outdir>/mesh_r<rank>.pkl`` (``data <rank> 2 ...``: the data-axis
 case).  One spawn of 4 ranks serves every case: the
 op at ``expert`` 4, ``data 2 x expert 2`` and ``expert 2 x model 2``;
-the Modules at the last two; then ranks 0 and 1 form a group of 2 at
+the Modules at the last two and at ``data 2 x seq 2`` and ``seq 2 x
+expert 2``; then ranks 0 and 1 form a group of 2 at
 the second address for the op and the Module at ``expert`` 2 and the
 predictor.  The reference's 8-device meshes are held at 4 ranks here
 (``(data=2, expert=4)`` at ``(data=2, expert=2)``, ``(data=2, expert=2,
@@ -34,6 +35,14 @@ What is held, at the reference's tolerances (outputs rtol 1e-4 / atol
   32, 4 experts, top-2, capacity factor 1.25: outputs and every
   parameter) against the JAX mesh ``Module``; at ``MeshConfig(expert=2)``
   the LM step too;
+* ``MeshConfig(data=2, seq=2)``: a sparse MoEFFN on (B*T) rows (the
+  Reshape keeps the seq split) with capacity binding, held to the JAX
+  Module on a 4-device mesh of that shape (outputs, the drop set, every
+  gradient, the input gradient): one quota over the global batch;
+* ``MeshConfig(seq=2, expert=2)``: the multichip dry run's attention +
+  MoE LM (``__graft_entry__.py``'s ``_dryrun_seq_parallel``, its 8
+  devices held at 4 ranks), one SGD step against the JAX Module on 4
+  devices (outputs, every parameter, the data and stack placements);
 * ``DecodePredictor(mesh=MeshConfig(expert=2))``: the tiny MoE LM's
   greedy tokens through a paged ``DecodeServer`` equal the JAX mesh
   predictor's on every rank.
@@ -86,6 +95,11 @@ OP_MESHES = {
 }
 MODULE_MESHES = {"d2e2": dict(data=2, expert=2),
                  "e2m2": dict(data=1, expert=2, model=2)}
+# the seq x data case: (B, T, D) rows through a Reshape to (B*T, D), a
+# sparse MoEFFN whose capacity binds, a classifier; layout NTC
+SEQ_B, SEQ_T = 4, 8
+# the multichip dry run's attention + MoE LM (__graft_entry__.py:258-279)
+DRY = dict(b=8, t=16, e=32, vocab=17)
 LM = dict(vocab_size=32, seq_len=16, num_layers=1, embed=16, heads=4,
           ffn_hidden=32, moe_experts=4, moe_top_k=2,
           moe_capacity_factor=1.25)
@@ -181,6 +195,116 @@ def _full_grad(pkg, mod, name, g):
     if pkg.__name__ == "mxnet_tpu" or tp is None:
         return np.asarray(g.asnumpy())
     return tp.unshard(name, g.data).numpy()
+
+
+def _seq_net(sym):
+    """MoEFFN on (B*T, D) rows split over data x seq: the fault case.
+    The second output is the MoE layer's rows (their drop set)."""
+    flat = sym.Reshape(sym.Variable("data"), shape=(-1, D))
+    moe = sym.MoEFFN(flat, num_experts=E, hidden_size=H,
+                     capacity_factor=0.25, num_experts_per_tok=2,
+                     aux_loss_coeff=COEFF, name="moe")
+    fc = sym.FullyConnected(moe, num_hidden=3, name="fc")
+    label = sym.Reshape(sym.Variable("softmax_label"), shape=(-1,))
+    return sym.Group([sym.SoftmaxOutput(fc, label, name="softmax"),
+                      sym.BlockGrad(moe)])
+
+
+def _seq_batch():
+    rng = np.random.RandomState(6)
+    return (rng.normal(size=(SEQ_B, SEQ_T, D)).astype(np.float32),
+            rng.randint(0, 3, size=(SEQ_B, SEQ_T)).astype(np.float32))
+
+
+def run_seq_net(pkg, ctx, mesh_config):
+    """One forward / backward of the seq x data net: (outputs, the
+    parameters' gradients, the input gradient)."""
+    x, y = _seq_batch()
+    kw = {"mesh_config": mesh_config} if mesh_config is not None else {}
+    if pkg.__name__ == "mxnet_tpu":
+        kw["compute_dtype"] = "float32"
+    mod = pkg.mod.Module(_seq_net(pkg.sym), context=ctx, **kw)
+    mod.bind(data_shapes=[pkg.io.DataDesc("data", x.shape, layout="NTC")],
+             label_shapes=[pkg.io.DataDesc("softmax_label", y.shape,
+                                           layout="NT")],
+             for_training=True, inputs_need_grad=True)
+    mod.init_params(arg_params={k: pkg.nd.array(v)
+                                for k, v in _net_params("sparse_fc").items()})
+    mod.forward(pkg.io.DataBatch([pkg.nd.array(x)], [pkg.nd.array(y)]),
+                is_train=True)
+    outs = [o.asnumpy() for o in mod.get_outputs()]
+    mod.backward()
+    group = mod._exec_group
+    grads = {n: _full_grad(pkg, mod, n, g) for n, g in
+             zip(group.param_names, group.grad_arrays) if g is not None}
+    return outs, grads, mod.get_input_grads()[0].asnumpy()
+
+
+def _dry_net(sym):
+    """``__graft_entry__._dryrun_seq_parallel``'s net."""
+    b, t, e, vocab = DRY["b"], DRY["t"], DRY["e"], DRY["vocab"]
+    emb = sym.Embedding(sym.Variable("data"), input_dim=vocab, output_dim=e,
+                        name="embed")
+    q = sym.FullyConnected(emb, num_hidden=e, flatten=False, name="q")
+    k = sym.FullyConnected(emb, num_hidden=e, flatten=False, name="k")
+    v = sym.FullyConnected(emb, num_hidden=e, flatten=False, name="v")
+    att = sym.dot_product_attention(q, k, v, num_heads=4, causal=True)
+    flat = sym.Reshape(att, shape=(-1, e))
+    moe = sym.MoEFFN(flat, num_experts=2, hidden_size=2 * e,
+                     capacity_factor=2.0, name="moe")
+    out = sym.FullyConnected(moe, num_hidden=vocab, name="head")
+    return sym.SoftmaxOutput(out, sym.Reshape(sym.Variable("softmax_label"),
+                                              shape=(-1,)), name="softmax")
+
+
+def run_dry(pkg, ctx, mesh_config):
+    """The dry run's step (bind, SGD 0.1, forward_backward, update) from
+    seeded parameters: (outputs, the parameters after the update, the
+    data input's placement, the expert stack's placement)."""
+    b, t, vocab = DRY["b"], DRY["t"], DRY["vocab"]
+    with pkg.NameManager() if hasattr(pkg, "NameManager") \
+            else pkg.base.NameManager():
+        sym = _dry_net(pkg.sym)
+    kw = {"mesh_config": mesh_config}
+    if pkg.__name__ == "mxnet_tpu":
+        kw["compute_dtype"] = "float32"
+    mod = pkg.mod.Module(sym, context=ctx, **kw)
+    data_desc = pkg.io.DataDesc("data", (b, t), layout="NT")
+    label_desc = pkg.io.DataDesc("softmax_label", (b, t), layout="NT")
+    mod.bind(data_shapes=[data_desc], label_shapes=[label_desc])
+    shapes, _, _ = sym.infer_shape(data=(b, t), softmax_label=(b, t))
+    rng = np.random.RandomState(21)
+    params = {n: rng.normal(0, 0.3, s).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    mod.init_params(arg_params={k: pkg.nd.array(v)
+                                for k, v in params.items()})
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1})
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, vocab, size=(b, t)).astype(np.float32)
+    y = np.roll(x, -1, axis=1)
+    mod.forward_backward(pkg.io.DataBatch([pkg.nd.array(x)],
+                                          [pkg.nd.array(y)]))
+    mod.update()
+    out = mod.get_outputs()[0].asnumpy()
+    group = mod._exec_group
+    if pkg.__name__ == "mxnet_tpu":
+        spec = tuple(group.exec_.arg_dict["data"].data.sharding.spec)
+        espec = tuple(group.exec_.arg_dict["moe_expert1_weight"].data
+                      .sharding.spec)
+    else:
+        # the port's placements: the data rows over 'data' and T over
+        # 'seq' (the executor binds this rank's block); the stacks' dim 0
+        # over 'expert'
+        local = tuple(group.exec_.arg_dict["data"].shape)
+        spec = tuple("data" if i == 0 else "seq"
+                     if group._seq_inputs.get("data") == i
+                     and local[i] * group.mesh.seq == (b, t)[i] else None
+                     for i in range(2))
+        espec = tuple(group.tp.coverage["moe_expert1_weight"]["spec"])
+    return out, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}, \
+        spec, espec
 
 
 def _lm_params(sym, batch):
@@ -360,6 +484,22 @@ def _data_case(mt, res):
                     "path": moe.MOE_PATH["last"]}
 
 
+def _seq_cases(mt, res):
+    """The seq x data fault case and the dry run's expert x seq mesh."""
+    from mxnet_tpu_torch.ops import moe
+    from mxnet_tpu_torch.parallel import MeshConfig
+
+    moe.MOE_PATH["last"] = None
+    outs, grads, dx = run_seq_net(mt, mt.cpu(), MeshConfig(data=2, seq=2))
+    res["d2s2"] = {"outs": outs, "grads": grads, "dx": dx,
+                   "path": moe.MOE_PATH["last"]}
+    moe.MOE_PATH["last"] = None
+    out, params, spec, espec = run_dry(mt, mt.cpu(),
+                                       MeshConfig(data=1, seq=2, expert=2))
+    res["s2e2"] = {"out": out, "params": params, "spec": spec,
+                   "espec": espec, "path": moe.MOE_PATH["last"]}
+
+
 def _worker_main(argv):
     mode, rank, world, address, address2, outdir = argv
     rank, world = int(rank), int(world)
@@ -380,6 +520,7 @@ def _worker_main(argv):
         with mt.cpu():
             _op_cases(res, ("e4", "d2e2", "e2m2"))
             _module_cases(mt, res, ("d2e2", "e2m2"))
+            _seq_cases(mt, res)
         launch.shutdown()
         if rank < 2:
             launch.init(address2, 2, rank, backend="gloo", timeout=120)
@@ -460,6 +601,10 @@ def _jax_run(kind, sizes, name=None):
     ctx = [mx.cpu(i) for i in range(n)]
     if kind == "net":
         return run_net(mx, ctx, MeshConfig(**sizes), name)
+    if kind == "seq_net":
+        return run_seq_net(mx, ctx, MeshConfig(**sizes))
+    if kind == "dry":
+        return run_dry(mx, ctx, MeshConfig(**sizes))
     return run_lm(mx, ctx, MeshConfig(**sizes))
 
 
@@ -480,6 +625,12 @@ def jax_side(spawned):
     for name, sizes in list(MODULE_MESHES.items()) + [
             ("e2", OP_MESHES["e2"][0])]:
         out[("lm", name)] = _jax_run("lm", sizes)
+    jmoe.MOE_PATH["last"] = None
+    out["d2s2"] = _jax_run("seq_net", dict(data=2, seq=2)) \
+        + (jmoe.MOE_PATH["last"],)
+    jmoe.MOE_PATH["last"] = None
+    out["s2e2"] = _jax_run("dry", dict(data=1, seq=2, expert=2)) \
+        + (jmoe.MOE_PATH["last"],)
     return out
 
 
@@ -706,6 +857,54 @@ def test_moe_lm_step_matches_jax_mesh_module(ranks, jax_side, mesh):
         for name, w in params.items():
             _close(got["params"][name], w, TOL_OUT,
                    "rank %d %s %s" % (r, mesh, name))
+
+
+# ---------------------------------------------------------------------------
+# the seq axis
+# ---------------------------------------------------------------------------
+
+def test_seq_data_axes_route_the_global_batch(ranks, jax_side):
+    """MoEFFN on (B*T) rows split over ``MeshConfig(data=2, seq=2)`` with
+    capacity binding: the outputs, the drop set (the MoE rows all zero),
+    the router's and every other gradient and the input gradient equal
+    the JAX Module's on a 4-device mesh of the same shape, which routes
+    the global batch with one quota and takes f and P over all of it."""
+    outs, grads, dx, path = jax_side["d2s2"]
+    assert path == "sparse"
+    assert _drops(outs[1]).sum() > 0, "capacity never bound"
+    for r, rk in enumerate(ranks):
+        got = rk["d2s2"]
+        what = "rank %d d2s2" % r
+        assert got["path"] == "sparse", what
+        assert np.array_equal(_drops(got["outs"][1]), _drops(outs[1])), what
+        for i, (a, b) in enumerate(zip(got["outs"], outs)):
+            _close(a, b, TOL_OUT, "%s out %d" % (what, i))
+        assert sorted(got["grads"]) == sorted(grads)
+        for name, g in grads.items():
+            _close(got["grads"][name], g, TOL_GRAD, what + " " + name)
+        _close(got["dx"], dx, TOL_GRAD, what + " d_data")
+
+
+def test_expert_beside_seq_matches_jax_dry_run(ranks, jax_side):
+    """The multichip dry run's attention + MoE LM at ``MeshConfig(seq=2,
+    expert=2)`` (the reference's 8 devices held at 4 ranks): one step's
+    outputs and every parameter after ``update()`` against the JAX
+    Module on 4 devices; the data input on ('data', 'seq') and the expert
+    stack's dim 0 on 'expert' in both; the sharded all-to-all ran."""
+    out, params, spec, espec, path = jax_side["s2e2"]
+    assert path == "sparse_a2a"
+    assert spec == ("data", "seq"), spec
+    assert espec[0] == "expert", espec
+    for r, rk in enumerate(ranks):
+        got = rk["s2e2"]
+        what = "rank %d s2e2" % r
+        assert got["path"] == "sparse_a2a", what
+        assert tuple(got["spec"]) == spec, (what, got["spec"])
+        assert got["espec"][0] == "expert", (what, got["espec"])
+        _close(got["out"], out, TOL_OUT, what + " out")
+        assert sorted(got["params"]) == sorted(params)
+        for name, w in params.items():
+            _close(got["params"][name], w, TOL_OUT, what + " " + name)
 
 
 # ---------------------------------------------------------------------------

@@ -440,7 +440,6 @@ NAME_EXCEPTIONS = {
                                  "view is its traced graph"},
     "DecodePredictor": {"decode_step_text": "no HLO text",
                         "prefill_text": "no HLO text"},
-    "Module": {"reconfigure": "later"},
     "ProgramSpec": {"compiled": "no HLO text", "lowered": "no HLO text"},
     "Context": {"jax_device": "jax"},
     "CompiledTrainStep": {"compiled_hlo": "no HLO text: the step's "

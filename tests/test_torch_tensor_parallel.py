@@ -347,6 +347,7 @@ def _worker_main(argv):
             if case == "lm" and data == 1:
                 prefix = os.path.join(outdir, "lm")
                 mod.save_checkpoint(prefix, 2)
+                res["states_error"] = None
                 try:
                     mod.save_optimizer_states(prefix + ".states")
                 except MXNetError as exc:
@@ -609,14 +610,21 @@ def test_seq_and_expert_axes_raise(mesh12):
 
 def test_checkpoint_is_the_reference_file(mesh12):
     """Rank 0 writes the gathered parameters; the JAX package loads them
-    as they are.  Optimizer-state files under a model axis raise."""
+    as they are.  Optimizer-state files under a model axis are written
+    too (the whole slots, by rank 0): the reference's payload, a key a
+    trainable parameter (plain SGD keeps no slot)."""
     import mxnet_tpu as mx
+    from mxnet_tpu_torch.optimizer import load_states
 
     data, model, outdir, ranks = mesh12
     _, args, _ = mx.model.load_checkpoint(os.path.join(outdir, "lm"), 2)
     for name, w in ranks[0]["lm"]["params"].items():
         np.testing.assert_array_equal(args[name].asnumpy(), w)
-    assert "step 7" in ranks[0]["states_error"]
+    assert ranks[0]["states_error"] is None
+    with open(os.path.join(outdir, "lm.states"), "rb") as f:
+        states = load_states(f.read())
+    assert sorted(states) == sorted(ranks[0]["lm"]["params"])
+    assert all(v == () for v in states.values())
 
 
 # ---------------------------------------------------------------------------
