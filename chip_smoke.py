@@ -411,6 +411,19 @@ Phases (any failure ends the run with a non-zero exit code):
    EL_DEATH_STEP and rank 0 resumes alone: the seconds from the death to
    its first step alone on the re-formed mesh, the fence's bytes and
    write ms, the re-forms' parts.
+26. fused BN (run with the kernel phases, after phase 4) — kernel B4
+   (``ops/fused_bn.py``: BatchNorm-apply -> ReLU -> 1x1 convolution with
+   the accumulator's column statistics, the reference's
+   ``benchmarks/proto_fused.py`` and ``proto_sweep.py``) at ResNet-50's
+   batch-256 stage shapes: the main path is ``fused_bn.bench_cases`` and
+   ``fused_bn.sweep`` (the prototypes' ``main()``s), their launches
+   counted; then (a) the five ``proto_fused`` cases (M 802,816 to
+   12,544) against the plain version (TOL_B4, TOL_B4_STATS), timed beside
+   it and ``library_chain`` (the prototype's ``maxerr`` / ``srel``
+   against it, minimum GB and effective GB/s); (b) every tile variant at
+   the three ``proto_sweep`` shapes, statistics off and on, against the
+   plain version, with the sweep's two floors (a bf16 ``mm`` alone, the
+   chain without statistics); (c) two launches of s1 c3 +r bit for bit.
 
 The last lines are a ``kernels`` JSON object (each entry with its
 phase 18 ``tuning`` reading: the class, the winner, its ms and the
@@ -667,6 +680,11 @@ TOL_LOGP = 1e-4
 # dscale and dshift sum over M = 16384 rows, one sequential f32 chain per
 # thread plus per-tile atomics, 1e-4; bf16 outputs 2^-7 (one bf16 ulp)
 TOL_F32, TOL_F32_LONG, TOL_BF16 = 1e-5, 1e-4, 2 ** -7
+# kernel B4: y within one bf16 ulp of the plain version's (an f32
+# accumulator summed in another order rounds the other way), the column
+# statistics of the accumulator within 1e-5 of the column's sum of |y| or
+# y^2 (f32 sums over M = 802,816 rows in another order)
+TOL_B4, TOL_B4_STATS = 2 ** -7, 1e-5
 # the train step's gradients, kernel vs plain module from the same params
 # and batch, as ||g_kernel - g_plain|| / ||g_plain|| per parameter.  Both
 # sides are f32, so the gap is summation order (M = 16384-long sums,
@@ -2731,6 +2749,137 @@ def phase_kernel_b1(torch, dev, flush):
             cases.append(case)
             torch.cuda.empty_cache()
     return cases
+
+
+def _b4_hold(torch, what, got, want):
+    """Kernel B4's outputs against its plain version's: y within TOL_B4 x
+    max(1, |y|) element by element, the two column statistics within
+    TOL_B4_STATS x max(1, the column's sum of |y| or y^2); returns
+    (max |y - plain|, max |statistic - plain| / its limit)."""
+    y = want[0].float()
+    dy = (got[0].float() - y).abs()
+    if not bool((dy <= TOL_B4 * y.abs().clamp_min(1.0)).all()):
+        raise AssertionError("%s: y off its plain version by %.3g"
+                             % (what, float(dy.max())))
+    share = 0.0
+    for i, lim in ((1, y.abs().sum(0)), (2, (y * y).sum(0))):
+        if got[i].numel() == 0:
+            continue
+        rel = (got[i] - want[i]).abs() / (TOL_B4_STATS * lim.clamp_min(1.0))
+        share = max(share, float(rel.max()))
+        if not share <= 1.0:
+            raise AssertionError("%s: column statistic %d off its plain "
+                                 "version by %.3g of the limit"
+                                 % (what, i, share))
+    return float(dy.max()), share
+
+
+def phase_fused_bn(torch, dev, flush):
+    """Kernel B4 (``ops/fused_bn.py``, ``csrc/fused_bn_matmul.cu``) at
+    ResNet-50's batch-256 stage shapes.  The main path: the two
+    prototypes' ``main()`` counterparts, ``bench_cases`` and ``sweep``,
+    each run with the launch count set to 0 just before it.  Then (a)
+    every B4a case held against the plain version and timed beside it
+    and ``library_chain``; (b) every tile variant at the sweep's shapes,
+    statistics off and on, held against the plain version; (c) two
+    launches of s1 c3 +r bit for bit."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+
+    launches = {}
+    readings = {}
+    for path, run in (("bench_cases", fb.bench_cases),
+                      ("sweep", fb.sweep)):
+        fb.LAUNCHES["fused_bn_matmul"] = 0
+        readings[path] = run(dev)
+        torch.cuda.synchronize()
+        launches[path] = fb.LAUNCHES["fused_bn_matmul"]
+    # one warm-up and 3 x ITERS timed calls a reading
+    calls = 1 + 3 * fb.ITERS
+    want = {"bench_cases": len(fb.CASES) * calls,
+            "sweep": len(fb.SWEEP_CASES) * len(fb.VARIANTS) * 2 * calls}
+    if launches != want:
+        raise AssertionError("kernel B4 launches %s, expected %s"
+                             % (launches, want))
+    for row in readings["bench_cases"]:
+        log("kernel B4 bench_cases: " + json.dumps(row))
+    for row in readings["sweep"]:
+        log("kernel B4 sweep: " + json.dumps(row))
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    cases = []
+    # (a) the five B4a cases
+    for name, m, k, n, has_res in fb.CASES:
+        args = fb.case_inputs(m, k, n, has_res, g, dev)
+        got = fb.fused_bn_matmul(*args)
+        variant = fb.LAST_VARIANT["fused_bn_matmul"]
+        err, share = _b4_hold(torch, "kernel B4 " + name, got,
+                              fb.fused_bn_matmul_plain(*args))
+        lib = fb.library_chain(*args)
+        maxerr = float((got[0].float() - lib[0].float()).abs().max())
+        srel = float(((got[1] - lib[1]).abs() / (lib[1].abs() + 1)).max())
+        del got, lib
+        nbytes = 2 * (m * k + k * n + m * n + (m * n if has_res else 0))
+        bound_ms, bound_by = _bound(nbytes, 2.0 * m * n * k, "bfloat16")
+        case = _case(torch, flush, lambda: fb.fused_bn_matmul(*args),
+                     lambda: fb.fused_bn_matmul_plain(*args),
+                     lambda: fb.library_chain(*args),
+                     {"case": name, "m": m, "k": k, "n": n,
+                      "residual": has_res, "variant": variant,
+                      "max_abs_err": err, "stats_limit_share": share,
+                      "maxerr": maxerr, "srel": srel,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+        case["bound_share"] = _bound_share(case)
+        # the prototype's count: x, y and W (the residual is not counted)
+        case["min_gb"] = (m * k + m * n + k * n) * 2 / 1e9
+        case["gbps"] = case["min_gb"] / case["ms"] * 1e3
+        log("kernel B4 case: " + json.dumps(case))
+        cases.append(case)
+        if name == fb.CASES[1][0]:
+            # (c) two launches of one case: bit for bit
+            one = fb.fused_bn_matmul(*args)
+            two = fb.fused_bn_matmul(*args)
+            same = [bool(torch.equal(a, b)) for a, b in zip(one, two)]
+            log("kernel B4 bitwise (%s, two launches): y %s, ysum %s, "
+                "ysumsq %s" % ((name,) + tuple(same)))
+            if not all(same):
+                raise AssertionError("kernel B4 differs between two "
+                                     "launches: %s" % same)
+            del one, two
+        del args
+        torch.cuda.empty_cache()
+    # (b) every variant at the sweep's shapes, statistics off and on
+    sweeps = []
+    for (name, m, k, n), timed in zip(fb.SWEEP_CASES, readings["sweep"]):
+        x, s, b, w, _ = fb.case_inputs(m, k, n, False, g, dev)
+        want = fb.fused_bn_matmul_plain(x, s, b, w)
+        worst = (0.0, 0.0)
+        for variant in fb.VARIANTS:
+            for stats in (False, True):
+                got = fb.fused_bn_matmul_op(x, s, b, w, None, True, stats,
+                                            variant)
+                held = _b4_hold(torch, "kernel B4 sweep %s %s stats=%d"
+                                % (name, variant, stats), got, want)
+                worst = tuple(max(p) for p in zip(worst, held))
+                del got
+        nbytes = 2 * (m * k + k * n + m * n)
+        bound_ms, bound_by = _bound(nbytes, 2.0 * m * n * k, "bfloat16")
+        case = _case(torch, flush, lambda: fb.fused(x, s, b, w),
+                     lambda: fb.fused_bn_matmul_plain(x, s, b, w),
+                     lambda: fb._chain_y(x, s, b, w),
+                     {"case": name, "m": m, "k": k, "n": n,
+                      "variant": fb._rule(n),
+                      "max_abs_err": worst[0],
+                      "stats_limit_share": worst[1],
+                      "matmul_floor_ms": timed["matmul_ms"],
+                      "chain_floor_ms": timed["chain_ms"],
+                      "runs": timed["runs"],
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+        case["bound_share"] = _bound_share(case)
+        log("kernel B4 sweep case: " + json.dumps(case))
+        sweeps.append(case)
+        del x, s, b, w, want
+        torch.cuda.empty_cache()
+    return {"cases": cases, "sweep": sweeps, "launches": launches}
 
 
 def _train_params(sym):
@@ -11283,6 +11432,8 @@ def _main(torch):
     _mark("kernel_f")
     b1_cases = phase_kernel_b1(torch, dev, flush)
     _mark("kernel_b1")
+    b4 = phase_fused_bn(torch, dev, flush)
+    _mark("fused_bn")
     del flush
     torch.cuda.empty_cache()
     serve, launches, base = phase_serve(torch, dev)
@@ -11647,6 +11798,32 @@ def _main(torch):
             "device_ms")} for net, c in b1_zoo.items()},
         max_abs_err_all_cases=max(c["max_abs_err"] for c in b1_cases),
         max_ulps_all_cases=max(c["max_ulps"] for c in b1_cases)))
+    # B4 at ResNet-50's s1 c3 (+ residual, the most bytes) and the sweep
+    # at s1 c1 (statistics on, the rule's variant)
+    b4_main = next(c for c in b4["cases"] if c["residual"]
+                   and c["m"] == 802816)
+    b4_sweep = b4["sweep"][0]
+    kernels.append(dict(
+        _entry("fused_bn_matmul", "mxnet_tpu_torch/csrc/fused_bn_matmul.cu",
+               "benchmarks/proto_fused.py:24",
+               b4["launches"]["bench_cases"], b4_main),
+        shape="m=802816 k=64 n=256 bfloat16 + residual",
+        variant=b4_main["variant"],
+        launches_by_path={"bench_cases": b4["launches"]["bench_cases"]},
+        cases=[brief(c, "case", "residual", "maxerr", "srel", "min_gb",
+                     "gbps") for c in b4["cases"]],
+        max_abs_err_all_cases=max(c["max_abs_err"] for c in b4["cases"])))
+    kernels.append(dict(
+        _entry("fused_bn_sweep", "mxnet_tpu_torch/csrc/fused_bn_matmul.cu",
+               "benchmarks/proto_sweep.py:11", b4["launches"]["sweep"],
+               b4_sweep),
+        shape="m=802816 k=256 n=64 bfloat16, statistics on",
+        variant=b4_sweep["variant"],
+        launches_by_path={"sweep": b4["launches"]["sweep"]},
+        library="the chain without statistics (proto_sweep.py:79-90)",
+        cases=[brief(c, "case", "matmul_floor_ms", "chain_floor_ms",
+                     "runs") for c in b4["sweep"]],
+        max_abs_err_all_cases=max(c["max_abs_err"] for c in b4["sweep"])))
     log("phase walls: " + json.dumps({
         name: round(t - _PHASE_MARKS[i][1], 1)
         for i, (name, t) in enumerate(_PHASE_MARKS[1:])}))

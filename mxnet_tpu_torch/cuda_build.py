@@ -27,7 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("fused_fwd", "paged_decode", "flash_attention", "fused_bwd",
-           "multi_tensor_update")
+           "multi_tensor_update", "fused_bn_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -99,6 +99,15 @@ def _declare(name, cdll):
         cdll.multi_tensor_update.argtypes = [i, i, i, i, p, p, p, p, p, p, p,
                                              i, i, f, f, f, f, f, p]
         cdll.multi_tensor_update.restype = i
+    elif name == "fused_bn_matmul":
+        # x, scale, shift, w, res, y, part, ysum, ysumsq, M, K, N, relu,
+        # variant, rows, stream
+        cdll.fused_bn_matmul.argtypes = [p, p, p, p, p, p, p, p, p,
+                                         i, i, i, i, i, i, p]
+        cdll.fused_bn_matmul.restype = i
+        # variant, blocks (int *)
+        cdll.fused_bn_occupancy.argtypes = [i, ctypes.POINTER(i)]
+        cdll.fused_bn_occupancy.restype = i
     else:
         # variant, pool dtype, q, kpool, vpool, kscale, vscale, table,
         # lens, acc, m, l, B, tq, H, Hkv, Dk, Dv, pt, M, S, pps, rows,

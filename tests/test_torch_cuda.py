@@ -23,6 +23,7 @@ import torch
 from mxnet_tpu_torch import cuda_build
 from mxnet_tpu_torch.ops import attention as attn
 from mxnet_tpu_torch.ops import decode_kernel as dk
+from mxnet_tpu_torch.ops import fused_bn as fb
 from mxnet_tpu_torch.ops import fused_kernel as fk
 
 torch.set_num_threads(1)
@@ -3109,3 +3110,92 @@ def test_c_abi_on_the_card_launches_a(card, full_f32):
         c.POINTER(c.c_float)), out.size) == 0
     lib.MXPredFree(h)
     np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# kernel B4 (ops/fused_bn.py): y within one bf16 ulp of the plain
+# version's, the accumulator's column statistics within 1e-5 of the
+# column's sum of |y| or y^2 (f32 sums over M in another order)
+# ---------------------------------------------------------------------------
+
+# (M, K, N, residual, relu_in): ragged M and N (masked tile edges, N past
+# a tile's width), K not a multiple of the 32-deep stage, ResNet-50's
+# s3 c1 shape and s1 c3's with a residual at a quarter of its rows
+B4_SHAPES = [(1000, 136, 200, True, True), (300, 8, 72, False, False),
+             (50176, 1024, 256, False, True), (200704, 64, 256, True, True)]
+
+
+def _b4_inputs(card, m, k, n, residual, seed=0):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    return fb.case_inputs(m, k, n, residual, g, card)
+
+
+def _b4_hold(got, want, what):
+    y = want[0].float()
+    dy = (got[0].float() - y).abs()
+    assert bool((dy <= 2 ** -7 * y.abs().clamp_min(1.0)).all()), (
+        what, float(dy.max()))
+    for i, lim in ((1, y.abs().sum(0)), (2, (y * y).sum(0))):
+        err = (got[i] - want[i]).abs()
+        assert bool((err <= 1e-5 * lim.clamp_min(1.0)).all()), (
+            what, i, float(err.max()))
+
+
+@pytest.mark.parametrize("variant", fb.VARIANTS)
+def test_b4_matches_plain_every_variant(card, variant):
+    for m, k, n, residual, relu_in in B4_SHAPES:
+        x, scale, shift, w, res = _b4_inputs(card, m, k, n, residual)
+        got = fb.fused_bn_matmul(x, scale, shift, w, res, relu_in,
+                                 variant=variant)
+        torch.cuda.synchronize()
+        assert fb.LAST_VARIANT["fused_bn_matmul"] == variant
+        want = fb.fused_bn_matmul_plain(x, scale, shift, w, res, relu_in)
+        _b4_hold(got, want, (variant, m, k, n))
+        # the statistics off: the same y
+        assert torch.equal(fb.fused(x, scale, shift, w, False, variant),
+                           fb.fused(x, scale, shift, w, True, variant))
+
+
+def test_b4_statistics_bitwise_across_launches(card):
+    for m, k, n, residual, relu_in in B4_SHAPES:
+        args = _b4_inputs(card, m, k, n, residual)
+        one = fb.fused_bn_matmul(*args, relu_in=relu_in)
+        two = fb.fused_bn_matmul(*args, relu_in=relu_in)
+        for a, b in zip(one, two):
+            assert torch.equal(a, b), (m, k, n)
+
+
+def test_b4_counts_each_launch(card):
+    x, scale, shift, w, res = _b4_inputs(card, 1000, 64, 64, True)
+    before = fb.LAUNCHES["fused_bn_matmul"]
+    fb.fused_bn_matmul(x, scale, shift, w, res)
+    assert fb.LAUNCHES["fused_bn_matmul"] == before + 1
+    assert fb.LAST_VARIANT["fused_bn_matmul"] == "128x64"
+    fb.fused(x, scale, shift, w, stats=False)
+    fb.fused_bn_matmul_op(x, scale, shift, w, None, True, True, "256x128")
+    assert fb.LAUNCHES["fused_bn_matmul"] == before + 3
+    # the plain version launches nothing
+    fb.fused_bn_matmul_plain(x, scale, shift, w, res)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES["fused_bn_matmul"] == before + 3
+
+
+def test_b4_refuses_and_never_falls_back(card):
+    from mxnet_tpu_torch.base import MXNetError
+
+    x, scale, shift, w, res = _b4_inputs(card, 256, 64, 64, True)
+    before = fb.LAUNCHES["fused_bn_matmul"]
+    with pytest.raises(MXNetError, match="multiples of 8"):
+        fb.fused_bn_matmul(x[:, :12], scale[:12], shift[:12], w[:12], res)
+    # a view one element into its storage: 2-byte aligned
+    store = torch.empty(256 * 64 + 1, dtype=torch.bfloat16, device=card)
+    shifted = store[1:].view(256, 64)
+    shifted.copy_(x)
+    with pytest.raises(MXNetError, match="16-byte aligned"):
+        fb.fused_bn_matmul(shifted, scale, shift, w, res)
+    with pytest.raises(MXNetError, match="proto_fused.py:52"):
+        fb.fused_bn_matmul(x.float(), scale, shift, w, res)
+    with pytest.raises(MXNetError, match="proto_fused.py:52"):
+        fb.fused_bn_matmul(x, scale.bfloat16(), shift, w, res)
+    assert fb.LAUNCHES["fused_bn_matmul"] == before

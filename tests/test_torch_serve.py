@@ -25,7 +25,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.decode import DecodePredictor, DecodeServer
 from mxnet_tpu_torch.models import attention_lm
 from mxnet_tpu_torch.ops import attention as tattn
-from mxnet_tpu_torch.ops import fused_lm
+from mxnet_tpu_torch.ops import fused_bn, fused_lm
 from mxnet_tpu_torch.weights import params_from_jax
 
 torch.set_num_threads(1)
@@ -163,6 +163,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.programs, "
             "mxnet_tpu_torch.ops.decode_kernel, "
             "mxnet_tpu_torch.ops.fused_kernel, "
+            "mxnet_tpu_torch.ops.fused_bn, "
             "mxnet_tpu_torch.ops.flash_kernel, mxnet_tpu_torch.module, "
             "mxnet_tpu_torch.executor, mxnet_tpu_torch.train_step, "
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
@@ -221,6 +222,10 @@ def test_entry_points_refuse_a_missing_card():
         DecodePredictor(tsym, params, cache_len=T)
     with pytest.raises(mt.MXNetError, match="device='cpu'"):
         params_from_jax(params)
+    # kernel B4's benchmarks time the card and take no CPU
+    for entry in (fused_bn.bench_cases, fused_bn.sweep):
+        with pytest.raises(mt.MXNetError, match="no CUDA device"):
+            entry()
     # an explicit CPU is fine
     assert DecodePredictor(tsym, params, cache_len=T,
                            device=mt.cpu()).device.type == "cpu"
